@@ -1,0 +1,438 @@
+// Gram-kernel matvecs for LS-SVM training and predict, written by hand for
+// NVIDIA Hopper (sm_90a).  Bound to PyTorch through a plain C interface and
+// ctypes (plssvm_tpu_torch/ops/gram_matvec.py); built by ops/_build.py.
+//
+// Kernel A, gram_matvec_sym: out = K(X, X) @ v, every CG iteration.
+//   Replaces the Pallas kernel plssvm_tpu/ops/pallas_matvec.py
+//   kernel_matvec_pallas_dual (body _matvec_kernel_dual) with symmetric=True,
+//   and the chunk composition kernel_matvec_pallas_big around it: sizes are
+//   64-bit here, so one launch covers any m.  Its design follows PLSSVM's own
+//   CUDA svm_kernel.cu, not the Pallas block walk: the grid is the upper
+//   triangle of BM x BM tiles (j >= i).  A block stages KC-wide feature
+//   chunks of both row tiles in shared memory and accumulates the Gram tile
+//   in registers (R x R per thread), applies the kernel epilogue (the same
+//   formulas as kernel_functions.apply_kernel_to_gram; RBF uses
+//   sq_i + sq_j - 2 g), and atomically adds the row sums K_tile @ v_j into
+//   out[i rows].  Off the diagonal (j > i) it also adds the column sums
+//   K_tile^T @ v_i into out[j rows]; the diagonal tile contributes rows
+//   only.  Atomics are what the TPU lacked and the reason Pallas kept a
+//   resident column accumulator; fp64 atomicAdd is native on sm_90.
+//
+// Kernel B, gram_matvec_rect: out = K(P, S) @ a, binary predict.
+//   Replaces the non-symmetric branch of kernel_matvec_pallas_rect in the
+//   same file (bodies _matvec_kernel_fulld and _matvec_kernel_blocked).  One
+//   kernel loops over feature chunks for any d, so the full-d / blocked split
+//   disappears.  The grid is 2-D (point tiles x support-vector tiles, walked
+//   as one linear index) with atomic row sums, not one block per point tile
+//   looping over all SV tiles: predicting a couple of thousand points would
+//   give the latter ~16 blocks for 132 SMs.  The price is a summation order
+//   that changes from run to run, as in kernel A.
+//
+// Both kernels mask the ragged edges of rows and features themselves, so
+// the caller pads nothing.
+//
+// What bounds them: a Gram tile costs 2 * BM^2 * d flops over 2 * BM * d
+// operand loads, so at the widths LS-SVM trains at (d in the hundreds) both
+// kernels are bound by fp32/fp64 FMA throughput on the CUDA cores, not by
+// memory.  The register tile (R x R accumulators per thread, fed from
+// shared memory) is what this simple version does about it.  The tensor
+// cores (wgmma with TF32 or bf16 operands), TMA loads into a multi-stage
+// ring, and persistent tiling are later work.
+//
+// Numerics: no fast-math.  expf/tanhf (exp/tanh in double) are the
+// accurate library functions, to match the reference's epilogue; nvcc's
+// default FMA contraction applies to the Gram sums as it does in any GEMM.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kPolynomial = 1;  // KernelFunctionType values (parameter.py)
+constexpr int kRbf = 2;
+constexpr int kSigmoid = 3;
+
+constexpr int kThreads = 16;  // blocks of kThreads x kThreads threads
+constexpr int kChunk = 16;    // features staged in shared memory per step
+
+// Tile edge BM: R = BM / kThreads accumulators per thread and axis.
+template <typename T>
+struct TileEdge;
+template <>
+struct TileEdge<float> {
+    static constexpr int value = 128;  // 8 x 8 accumulators
+};
+template <>
+struct TileEdge<double> {
+    static constexpr int value = 64;  // 4 x 4 accumulators
+};
+
+__device__ __forceinline__ float dev_exp(float x) { return expf(x); }
+__device__ __forceinline__ double dev_exp(double x) { return exp(x); }
+__device__ __forceinline__ float dev_tanh(float x) { return tanhf(x); }
+__device__ __forceinline__ double dev_tanh(double x) { return tanh(x); }
+
+// base**degree by repeated squaring (kernel_functions._integer_power).
+template <typename T>
+__device__ __forceinline__ T int_power(T base, int degree) {
+    const bool invert = degree < 0;
+    unsigned int n = invert ? static_cast<unsigned int>(-degree)
+                            : static_cast<unsigned int>(degree);
+    T result = T(1);
+    T acc = base;
+    while (n != 0u) {
+        if (n & 1u) {
+            result *= acc;
+        }
+        acc *= acc;
+        n >>= 1;
+    }
+    return invert ? T(1) / result : result;
+}
+
+template <typename T, int KIND>
+__device__ __forceinline__ T apply_kernel(T g, T sq_i, T sq_j, T gamma,
+                                          T coef0, int degree) {
+    if constexpr (KIND == kPolynomial) {
+        return int_power(gamma * g + coef0, degree);
+    } else if constexpr (KIND == kRbf) {
+        return dev_exp(-gamma * (sq_i + sq_j - T(2) * g));
+    } else {
+        return dev_tanh(gamma * g + coef0);
+    }
+}
+
+template <typename T, int BM>
+struct Staging {
+    // transposed feature chunks; the +1 spreads the stores over the banks
+    T x[kChunk][BM + 1];
+    T y[kChunk][BM + 1];
+};
+
+// acc[a][b] = sum_k X[row0 + ty + kThreads a, k] * Y[col0 + tx + kThreads b, k]
+// over all d features; rows past mx / my and features past d load as 0.
+template <typename T, int BM>
+__device__ __forceinline__ void gram_tile(
+    const T* __restrict__ X, const T* __restrict__ Y, int64_t mx, int64_t my,
+    int64_t d, int64_t row0, int64_t col0, Staging<T, BM>& s,
+    T (&acc)[BM / kThreads][BM / kThreads]) {
+    constexpr int R = BM / kThreads;
+    const int tx = threadIdx.x;
+    const int ty = threadIdx.y;
+    const int tid = ty * kThreads + tx;
+#pragma unroll
+    for (int a = 0; a < R; ++a) {
+#pragma unroll
+        for (int b = 0; b < R; ++b) {
+            acc[a][b] = T(0);
+        }
+    }
+    for (int64_t k0 = 0; k0 < d; k0 += kChunk) {
+        // neighbouring threads read neighbouring features of one row
+        for (int e = tid; e < BM * kChunk; e += kThreads * kThreads) {
+            const int r = e / kChunk;
+            const int kk = e % kChunk;
+            const int64_t k = k0 + kk;
+            const int64_t gx = row0 + r;
+            const int64_t gy = col0 + r;
+            s.x[kk][r] = (gx < mx && k < d) ? X[gx * d + k] : T(0);
+            s.y[kk][r] = (gy < my && k < d) ? Y[gy * d + k] : T(0);
+        }
+        __syncthreads();
+#pragma unroll
+        for (int kk = 0; kk < kChunk; ++kk) {
+            T xa[R];
+            T yb[R];
+#pragma unroll
+            for (int a = 0; a < R; ++a) {
+                xa[a] = s.x[kk][ty + kThreads * a];
+            }
+#pragma unroll
+            for (int b = 0; b < R; ++b) {
+                yb[b] = s.y[kk][tx + kThreads * b];
+            }
+#pragma unroll
+            for (int a = 0; a < R; ++a) {
+#pragma unroll
+                for (int b = 0; b < R; ++b) {
+                    acc[a][b] += xa[a] * yb[b];
+                }
+            }
+        }
+        __syncthreads();
+    }
+}
+
+// Sum over the 16 threads of a half warp (same ty, tx = 0..15).
+template <typename T>
+__device__ __forceinline__ T half_warp_sum(T value) {
+#pragma unroll
+    for (int offset = kThreads / 2; offset > 0; offset /= 2) {
+        value += __shfl_xor_sync(0xffffffffu, value, offset);
+    }
+    return value;
+}
+
+template <typename T, int KIND>
+__global__ void __launch_bounds__(kThreads * kThreads)
+    gram_matvec_sym_kernel(const T* __restrict__ X, const T* __restrict__ sq,
+                           const T* __restrict__ v, T* __restrict__ out,
+                           int64_t m, int64_t d, int degree, T gamma,
+                           T coef0) {
+    constexpr int BM = TileEdge<T>::value;
+    constexpr int R = BM / kThreads;
+    __shared__ Staging<T, BM> staging;
+    __shared__ T col_part[kThreads][BM];
+
+    // linear block index -> upper-triangle tile (it, jt), it <= jt
+    const int64_t p = blockIdx.x;
+    int64_t jt = static_cast<int64_t>((sqrt(8.0 * static_cast<double>(p) + 1.0) - 1.0) * 0.5);
+    while (jt * (jt + 1) / 2 > p) {
+        --jt;
+    }
+    while ((jt + 1) * (jt + 2) / 2 <= p) {
+        ++jt;
+    }
+    const int64_t it = p - jt * (jt + 1) / 2;
+    const int64_t row0 = it * BM;
+    const int64_t col0 = jt * BM;
+
+    T acc[R][R];
+    gram_tile<T, BM>(X, X, m, m, d, row0, col0, staging, acc);
+
+    const int tx = threadIdx.x;
+    const int ty = threadIdx.y;
+    bool row_ok[R];
+    bool col_ok[R];
+    T sq_r[R], v_r[R], sq_c[R], v_c[R];
+#pragma unroll
+    for (int a = 0; a < R; ++a) {
+        const int64_t r = row0 + ty + kThreads * a;
+        row_ok[a] = r < m;
+        sq_r[a] = row_ok[a] ? sq[r] : T(0);
+        v_r[a] = row_ok[a] ? v[r] : T(0);
+    }
+#pragma unroll
+    for (int b = 0; b < R; ++b) {
+        const int64_t c = col0 + tx + kThreads * b;
+        col_ok[b] = c < m;
+        sq_c[b] = col_ok[b] ? sq[c] : T(0);
+        v_c[b] = col_ok[b] ? v[c] : T(0);
+    }
+    T row_sum[R];
+    T col_sum[R];
+#pragma unroll
+    for (int a = 0; a < R; ++a) {
+        row_sum[a] = T(0);
+        col_sum[a] = T(0);
+    }
+#pragma unroll
+    for (int a = 0; a < R; ++a) {
+#pragma unroll
+        for (int b = 0; b < R; ++b) {
+            const T kval = (row_ok[a] && col_ok[b])
+                ? apply_kernel<T, KIND>(acc[a][b], sq_r[a], sq_c[b], gamma,
+                                        coef0, degree)
+                : T(0);
+            row_sum[a] += kval * v_c[b];
+            col_sum[b] += kval * v_r[a];
+        }
+    }
+#pragma unroll
+    for (int a = 0; a < R; ++a) {
+        const T total = half_warp_sum(row_sum[a]);
+        if (tx == 0 && row_ok[a]) {
+            atomicAdd(&out[row0 + ty + kThreads * a], total);
+        }
+    }
+    if (jt > it) {  // uniform per block
+#pragma unroll
+        for (int b = 0; b < R; ++b) {
+            col_part[ty][tx + kThreads * b] = col_sum[b];
+        }
+        __syncthreads();
+        for (int c = ty * kThreads + tx; c < BM; c += kThreads * kThreads) {
+            T total = T(0);
+#pragma unroll
+            for (int y = 0; y < kThreads; ++y) {
+                total += col_part[y][c];
+            }
+            if (col0 + c < m) {
+                atomicAdd(&out[col0 + c], total);
+            }
+        }
+    }
+}
+
+template <typename T, int KIND>
+__global__ void __launch_bounds__(kThreads * kThreads)
+    gram_matvec_rect_kernel(const T* __restrict__ P, const T* __restrict__ S,
+                            const T* __restrict__ sq_p,
+                            const T* __restrict__ sq_s,
+                            const T* __restrict__ a_s, T* __restrict__ out,
+                            int64_t n_p, int64_t n_s, int64_t d,
+                            int64_t n_stiles, int degree, T gamma, T coef0) {
+    constexpr int BM = TileEdge<T>::value;
+    constexpr int R = BM / kThreads;
+    __shared__ Staging<T, BM> staging;
+
+    // consecutive blocks share a point tile and walk the SV tiles
+    const int64_t p = blockIdx.x;
+    const int64_t row0 = (p / n_stiles) * BM;
+    const int64_t col0 = (p % n_stiles) * BM;
+
+    T acc[R][R];
+    gram_tile<T, BM>(P, S, n_p, n_s, d, row0, col0, staging, acc);
+
+    const int tx = threadIdx.x;
+    const int ty = threadIdx.y;
+    bool row_ok[R];
+    bool col_ok[R];
+    T sq_r[R], sq_c[R], w_c[R];
+#pragma unroll
+    for (int a = 0; a < R; ++a) {
+        const int64_t r = row0 + ty + kThreads * a;
+        row_ok[a] = r < n_p;
+        sq_r[a] = row_ok[a] ? sq_p[r] : T(0);
+    }
+#pragma unroll
+    for (int b = 0; b < R; ++b) {
+        const int64_t c = col0 + tx + kThreads * b;
+        col_ok[b] = c < n_s;
+        sq_c[b] = col_ok[b] ? sq_s[c] : T(0);
+        w_c[b] = col_ok[b] ? a_s[c] : T(0);
+    }
+#pragma unroll
+    for (int a = 0; a < R; ++a) {
+        T row_sum = T(0);
+#pragma unroll
+        for (int b = 0; b < R; ++b) {
+            const T kval = (row_ok[a] && col_ok[b])
+                ? apply_kernel<T, KIND>(acc[a][b], sq_r[a], sq_c[b], gamma,
+                                        coef0, degree)
+                : T(0);
+            row_sum += kval * w_c[b];
+        }
+        const T total = half_warp_sum(row_sum);
+        if (tx == 0 && row_ok[a]) {
+            atomicAdd(&out[row0 + ty + kThreads * a], total);
+        }
+    }
+}
+
+template <typename T, int KIND>
+cudaError_t launch_sym(const T* X, const T* sq, const T* v, T* out, int64_t m,
+                       int64_t d, int degree, T gamma, T coef0,
+                       cudaStream_t stream) {
+    constexpr int BM = TileEdge<T>::value;
+    const int64_t nt = (m + BM - 1) / BM;
+    const int64_t blocks = nt * (nt + 1) / 2;
+    if (blocks <= 0 || blocks > INT32_MAX) {
+        return cudaErrorInvalidValue;
+    }
+    gram_matvec_sym_kernel<T, KIND>
+        <<<static_cast<unsigned int>(blocks), dim3(kThreads, kThreads), 0,
+           stream>>>(X, sq, v, out, m, d, degree, gamma, coef0);
+    return cudaGetLastError();
+}
+
+template <typename T, int KIND>
+cudaError_t launch_rect(const T* P, const T* S, const T* sq_p, const T* sq_s,
+                        const T* a_s, T* out, int64_t n_p, int64_t n_s,
+                        int64_t d, int degree, T gamma, T coef0,
+                        cudaStream_t stream) {
+    constexpr int BM = TileEdge<T>::value;
+    const int64_t n_stiles = (n_s + BM - 1) / BM;
+    const int64_t blocks = ((n_p + BM - 1) / BM) * n_stiles;
+    if (blocks <= 0 || blocks > INT32_MAX) {
+        return cudaErrorInvalidValue;
+    }
+    gram_matvec_rect_kernel<T, KIND>
+        <<<static_cast<unsigned int>(blocks), dim3(kThreads, kThreads), 0,
+           stream>>>(P, S, sq_p, sq_s, a_s, out, n_p, n_s, d, n_stiles,
+                     degree, gamma, coef0);
+    return cudaGetLastError();
+}
+
+template <typename T>
+int sym(const T* X, const T* sq, const T* v, T* out, int64_t m, int64_t d,
+        int kind, int degree, T gamma, T coef0, void* stream) {
+    const auto s = static_cast<cudaStream_t>(stream);
+    switch (kind) {
+        case kPolynomial:
+            return launch_sym<T, kPolynomial>(X, sq, v, out, m, d, degree,
+                                              gamma, coef0, s);
+        case kRbf:
+            return launch_sym<T, kRbf>(X, sq, v, out, m, d, degree, gamma,
+                                       coef0, s);
+        case kSigmoid:
+            return launch_sym<T, kSigmoid>(X, sq, v, out, m, d, degree, gamma,
+                                           coef0, s);
+        default:
+            return cudaErrorInvalidValue;
+    }
+}
+
+template <typename T>
+int rect(const T* P, const T* S, const T* sq_p, const T* sq_s, const T* a_s,
+         T* out, int64_t n_p, int64_t n_s, int64_t d, int kind, int degree,
+         T gamma, T coef0, void* stream) {
+    const auto s = static_cast<cudaStream_t>(stream);
+    switch (kind) {
+        case kPolynomial:
+            return launch_rect<T, kPolynomial>(P, S, sq_p, sq_s, a_s, out,
+                                               n_p, n_s, d, degree, gamma,
+                                               coef0, s);
+        case kRbf:
+            return launch_rect<T, kRbf>(P, S, sq_p, sq_s, a_s, out, n_p, n_s,
+                                        d, degree, gamma, coef0, s);
+        case kSigmoid:
+            return launch_rect<T, kSigmoid>(P, S, sq_p, sq_s, a_s, out, n_p,
+                                            n_s, d, degree, gamma, coef0, s);
+        default:
+            return cudaErrorInvalidValue;
+    }
+}
+
+}  // namespace
+
+// The C interface: every entry point returns the cudaError_t of its launch
+// (0 on success).  out must hold zeros: both kernels accumulate into it.
+
+extern "C" int plssvm_gram_matvec_sym_f32(const float* X, const float* sq,
+                                          const float* v, float* out,
+                                          int64_t m, int64_t d, int kind,
+                                          int degree, float gamma,
+                                          float coef0, void* stream) {
+    return sym<float>(X, sq, v, out, m, d, kind, degree, gamma, coef0, stream);
+}
+
+extern "C" int plssvm_gram_matvec_sym_f64(const double* X, const double* sq,
+                                          const double* v, double* out,
+                                          int64_t m, int64_t d, int kind,
+                                          int degree, double gamma,
+                                          double coef0, void* stream) {
+    return sym<double>(X, sq, v, out, m, d, kind, degree, gamma, coef0,
+                       stream);
+}
+
+extern "C" int plssvm_gram_matvec_rect_f32(
+    const float* P, const float* S, const float* sq_p, const float* sq_s,
+    const float* a_s, float* out, int64_t n_p, int64_t n_s, int64_t d,
+    int kind, int degree, float gamma, float coef0, void* stream) {
+    return rect<float>(P, S, sq_p, sq_s, a_s, out, n_p, n_s, d, kind, degree,
+                       gamma, coef0, stream);
+}
+
+extern "C" int plssvm_gram_matvec_rect_f64(
+    const double* P, const double* S, const double* sq_p, const double* sq_s,
+    const double* a_s, double* out, int64_t n_p, int64_t n_s, int64_t d,
+    int kind, int degree, double gamma, double coef0, void* stream) {
+    return rect<double>(P, S, sq_p, sq_s, a_s, out, n_p, n_s, d, kind, degree,
+                        gamma, coef0, stream);
+}
+
+extern "C" const char* plssvm_cuda_error_string(int error) {
+    return cudaGetErrorString(static_cast<cudaError_t>(error));
+}

@@ -1,0 +1,89 @@
+"""Plain PyTorch Gram matvecs — the oracles of the CUDA kernels.
+
+Counterpart of plssvm_tpu/ops/matvec.py.  The CG solver applies the implicit
+matrix
+
+    A_hat @ v = K @ v + (QA_cost - q) * sum(v) - (q . v) * 1 + (1/C) * v
+
+(reference: src/plssvm/backends/CUDA/svm_kernel.cu:17-222,
+gpu_csvm.hpp:431-447) and only ``K @ v`` touches O(n^2) work.  For the
+linear kernel ``K @ v = X (X^T v)`` costs O(n d) and stays a matrix product,
+as the JAX package left it to XLA.  For the other Gram kernels the functions
+here walk row blocks: one (block, m) kernel block at a time, contracted
+against ``v`` at once, so memory stays O(block * m).
+
+``kernel_matvec_plain`` is the oracle of kernel A and
+``kernel_matvec_rect_plain`` of kernel B (ops/gram_matvec.py).  Each counts
+its calls in a plain module-level int, so a run can show that its main path
+took the kernels and not these.  Rows need no padding: the blocks follow
+the tensor's own length.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernel_functions import kernel_block
+from ..parameter import KernelFunctionType
+
+#: row-block height: a (2048, m) block is 256 MB in f32 at m = 32768
+DEFAULT_ROW_BLOCK = 2048
+
+#: calls of kernel_matvec_plain / kernel_matvec_rect_plain
+sym_plain_calls = 0
+rect_plain_calls = 0
+
+
+def linear_kernel_matvec(X: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(X X^T) @ v computed as X @ (X^T @ v): O(n d) instead of O(n^2 d)."""
+    return X @ (X.T @ v)
+
+
+def kernel_matvec_plain(
+    X: torch.Tensor,
+    sq_norms: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    kind: KernelFunctionType,
+    gamma,
+    coef0,
+    degree: int,
+    row_block: int = DEFAULT_ROW_BLOCK,
+) -> torch.Tensor:
+    """``K @ v`` with ``K[i, j] = k(x_i, x_j)`` over the rows of ``X`` (m, d)."""
+    global sym_plain_calls
+    sym_plain_calls += 1
+    return _row_blocked(
+        X, X, sq_norms, sq_norms, v, kind, gamma, coef0, degree, row_block
+    )
+
+
+def kernel_matvec_rect_plain(
+    P: torch.Tensor,
+    S: torch.Tensor,
+    sq_p: torch.Tensor,
+    sq_s: torch.Tensor,
+    a: torch.Tensor,
+    *,
+    kind: KernelFunctionType,
+    gamma,
+    coef0,
+    degree: int,
+    row_block: int = DEFAULT_ROW_BLOCK,
+) -> torch.Tensor:
+    """``K(P, S) @ a`` with ``K[i, j] = k(p_i, s_j)``: points P (n_p, d)
+    against support vectors S (n_s, d) weighted by ``a`` (n_s,)."""
+    global rect_plain_calls
+    rect_plain_calls += 1
+    return _row_blocked(P, S, sq_p, sq_s, a, kind, gamma, coef0, degree, row_block)
+
+
+def _row_blocked(X, Y, sq_x, sq_y, v, kind, gamma, coef0, degree, row_block):
+    out = torch.empty((X.shape[0],), dtype=v.dtype, device=v.device)
+    for i in range(0, X.shape[0], row_block):
+        K_blk = kernel_block(
+            X[i:i + row_block], Y, sq_x[i:i + row_block], sq_y,
+            kind, gamma, coef0, degree,
+        )
+        out[i:i + row_block] = K_blk @ v
+    return out

@@ -1,0 +1,220 @@
+"""Matrix-free Conjugate Gradient solver for the LS-SVM dual system (binary).
+
+Counterpart of plssvm_tpu/solver/cg.py.  Solves ``(K + I/C) a = y`` after
+the dimensionality reduction that folds the last data point into the system
+(reference: include/plssvm/backends/gpu_csvm.hpp:477-654,
+src/plssvm/backends/OpenMP/csvm.cpp:71-183):
+
+- ``dept = n - 1`` rows are solved, not ``n``
+- ``q[i] = k(x_i, x_last)``; ``QA_cost = k(x_last, x_last) + 1/C``
+- rhs ``b[i] = y[i] - y[n-1]``
+- implicit matrix ``A_hat[i][j] = k(x_i,x_j) + QA_cost - q[i] - q[j]``
+  plus ``1/C`` on the diagonal
+- start vector ``x = 1``; residual ``r = b - A_hat x``
+- stop when ``r.r <= eps^2 * (r0.r0)``; every 50th iteration the residual is
+  recomputed exactly as ``r = b - A_hat x`` to fight floating-point drift
+- bias ``= y_last + QA_cost * sum(alpha) - q.alpha``;
+  ``alpha_n = -sum(alpha)``; returns ``rho = -bias``
+
+The JAX package runs the loop as one ``lax.while_loop`` on the device.  Here
+it is a Python loop over eager PyTorch ops, and the stop test reads
+``delta > target`` on the host once per iteration.  The iteration count,
+the exact-residual cadence and the bias formulas are the reference's.  The
+kernels mask ragged edges themselves, so the system has exactly ``dept``
+rows: no padding, no mask.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from ..exceptions import NotPortedError
+from ..kernel_functions import kernel_against_point, kernel_self_diag
+from ..ops.gram_matvec import gram_matvec_sym
+from ..ops.matvec import kernel_matvec_plain, linear_kernel_matvec
+from ..parameter import KernelFunctionType
+
+#: exact-residual recomputation cadence (reference: gpu_csvm.hpp:595)
+EXACT_RESIDUAL_INTERVAL = 50
+
+
+def _two_sum(a, b):
+    """Error-free transformation: a + b = s + err exactly (Knuth TwoSum)."""
+    s = a + b
+    bb = s - a
+    err = (a - (s - bb)) + (b - bb)
+    return s, err
+
+
+def compensated_sum(x: torch.Tensor) -> torch.Tensor:
+    """Double-float pairwise sum: ~exact accumulation in the input dtype.
+
+    At every halving step the rounding error of each addition is captured by
+    TwoSum and carried in a compensation vector; an odd length is padded
+    with one zero first, exactly as plssvm_tpu's fold.  The result equals
+    f64 accumulation of the (already rounded) f32 inputs to within
+    O(eps^2).  Each step is a few eager ops: they are never fused, so no
+    compiler can contract TwoSum's arithmetic into FMAs.  Reduces a 1-D
+    input to a 0-d tensor.
+    """
+    s = x.reshape(-1)
+    c = torch.zeros_like(s)
+    while s.shape[0] > 1:
+        n = s.shape[0]
+        half = (n + 1) // 2
+        if n % 2 == 1:
+            pad = torch.zeros((1,), dtype=s.dtype, device=s.device)
+            s = torch.cat([s, pad])
+            c = torch.cat([c, pad])
+        s, err = _two_sum(s[:half], s[half:])
+        c = c[:half] + c[half:] + err
+    return (s + c)[0]
+
+
+def compensated_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dot product with double-float accumulation of the products."""
+    return compensated_sum(a * b)
+
+
+def _scalar_reductions(scalars: str):
+    """(dot, vsum) pair for the requested scalar accumulation mode."""
+    if scalars == "compensated":
+        return compensated_dot, compensated_sum
+    return torch.dot, torch.sum
+
+
+class CGResult(NamedTuple):
+    """Solve outputs over the ``dept`` rows."""
+
+    x: torch.Tensor           # solution
+    rho: torch.Tensor         # -bias
+    alpha_last: torch.Tensor  # the folded-out last alpha = -sum(x)
+    iterations: int
+    delta: torch.Tensor       # final squared residual norm
+    delta0: torch.Tensor      # initial squared residual norm
+
+
+def _make_kernel_matvec(kind: KernelFunctionType, degree: int, impl: str) -> Callable:
+    """Select the K@v implementation: ``impl="cuda"`` the hand kernel A
+    (plain version on CPU tensors), ``"torch"`` the plain version.  The
+    linear kernel always takes the factored O(n d) product."""
+    if kind == KernelFunctionType.LINEAR:
+        return lambda X, sq_norms, v, gamma, coef0: linear_kernel_matvec(X, v)
+    sym = gram_matvec_sym if impl == "cuda" else kernel_matvec_plain
+
+    def kv(X, sq_norms, v, gamma, coef0):
+        return sym(X, sq_norms, v, kind=kind, gamma=gamma, coef0=coef0,
+                   degree=degree)
+
+    return kv
+
+
+def cg_ls_svm_core(
+    X: torch.Tensor,       # (dept, d) all rows but the last
+    x_last: torch.Tensor,  # (d,) the folded-out last data point
+    y: torch.Tensor,       # (dept,) mapped labels
+    y_last: float,         # mapped label of the last point
+    gamma: float,
+    coef0: float,
+    cost: float,
+    eps: float,
+    max_iter: int,
+    *,
+    kind: KernelFunctionType,
+    degree: int,
+    kernel_mv: Callable,   # (X, sq_norms, v, gamma, coef0) -> K @ v
+    dot: Callable = torch.dot,
+    vsum: Callable = torch.sum,
+) -> CGResult:
+    """The CG algorithm of plssvm_tpu's ``cg_ls_svm_core``, unpreconditioned
+    and cold-started (x0 = 1)."""
+    cost_inv = 1.0 / cost
+    sq_norms = torch.sum(X * X, dim=-1)
+
+    # q[i] = k(x_i, x_last)  (reference: gpu_csvm.hpp:505, q_kernel.cu:16-49)
+    q = kernel_against_point(X, x_last, kind, gamma, coef0, degree)
+    # QA_cost = k(x_last, x_last) + 1/C  (gpu_csvm.hpp:508)
+    xl_sq = torch.dot(x_last, x_last)
+    QA_cost = kernel_self_diag(xl_sq, kind, gamma, coef0, degree) + cost_inv
+
+    # rhs: b = y[:dept] - y_last  (gpu_csvm.hpp:511-513)
+    b = y - y_last
+
+    def matvec(v):
+        # A_hat @ v = K@v + (QA_cost - q)*sum(v) - (q.v)*1 + 1/C * v
+        s = vsum(v)
+        qv = dot(q, v)
+        out = kernel_mv(X, sq_norms, v, gamma, coef0)
+        return out + (QA_cost - q) * s - qv + cost_inv * v
+
+    # start vector x = 1 (OpenMP/csvm.cpp:95)
+    x = torch.ones_like(y)
+    r = b - matvec(x)
+    delta = dot(r, r)
+    delta0 = delta
+    d = r
+    target = eps * eps * delta0
+
+    it = 0
+    while it < max_iter and bool(delta > target):
+        Ad = matvec(d)
+        alpha_cd = delta / dot(d, Ad)
+        x = x + alpha_cd * d
+        if it % EXACT_RESIDUAL_INTERVAL == EXACT_RESIDUAL_INTERVAL - 1:
+            # every 50th iteration: exact residual (gpu_csvm.hpp:595-609)
+            r = b - matvec(x)
+        else:
+            r = r - alpha_cd * Ad
+        delta_new = dot(r, r)
+        beta = delta_new / delta
+        d = beta * d + r
+        delta = delta_new
+        it += 1
+
+    # bias and the folded-out last alpha (gpu_csvm.hpp:648-653)
+    alpha_sum = vsum(x)
+    bias = y_last + QA_cost * alpha_sum - dot(q, x)
+    return CGResult(
+        x=x, rho=-bias, alpha_last=-alpha_sum, iterations=it,
+        delta=delta, delta0=delta0,
+    )
+
+
+def solve_ls_svm(
+    X: torch.Tensor,
+    x_last: torch.Tensor,
+    y: torch.Tensor,
+    y_last: float,
+    gamma: float,
+    coef0: float,
+    cost: float,
+    eps: float,
+    max_iter: int,
+    *,
+    kind: KernelFunctionType,
+    degree: int,
+    impl: str = "torch",
+    scalars: str = "plain",
+    gram_precision: str = "f32",
+) -> CGResult:
+    """Run the LS-SVM CG solve on the device that holds ``X``.
+
+    ``scalars="compensated"`` accumulates the CG scalar reductions (delta,
+    d.Ad, q.v, sums) with double-float TwoSum folds.  ``gram_precision``
+    "f32" and "highest" both run full-precision FMA in the CUDA kernels;
+    "bf16" is not ported (ROADMAP Queue 4) and raises on ``impl="cuda"``.
+    The plain versions ignore the knob, as plssvm_tpu's XLA path does.
+    """
+    if impl == "cuda" and gram_precision == "bf16":
+        raise NotPortedError(
+            "gram_precision='bf16' is not ported to the CUDA kernels yet "
+            "(ROADMAP Queue 4: bf16 operands with f32 accumulation)"
+        )
+    dot, vsum = _scalar_reductions(scalars)
+    return cg_ls_svm_core(
+        X, x_last, y, y_last, gamma, coef0, cost, eps, max_iter,
+        kind=kind, degree=degree, kernel_mv=_make_kernel_matvec(kind, degree, impl),
+        dot=dot, vsum=vsum,
+    )
