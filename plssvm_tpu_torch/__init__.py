@@ -1,9 +1,11 @@
 """plssvm_tpu_torch — the PyTorch and CUDA port of plssvm_tpu.
 
-Binary LS-SVM classification trained by matrix-free Conjugate Gradient on
-one device: each CG iteration applies the implicit kernel matrix through a
-Gram matvec written by hand in CUDA for NVIDIA Hopper (csrc/), with plain
-PyTorch versions of the same functions for the CPU.  The public API and the
+Binary and one-vs-all multiclass LS-SVM classification trained by
+matrix-free Conjugate Gradient on one device: each CG iteration applies the
+implicit kernel matrix through a Gram matvec (binary) or block matmat
+(multiclass) written by hand in CUDA for NVIDIA Hopper (csrc/), with plain
+PyTorch versions of the same functions for the CPU.  Predict also scores
+one-vs-one (LIBSVM multiclass) model files.  The public API and the
 file formats are plssvm_tpu's; plssvm_tpu (JAX) stays the reference this
 package is tested against.  Importing the package builds no kernel.
 """

@@ -1,4 +1,4 @@
-"""plssvm-train equivalent: fit a binary LS-SVM and write the model file.
+"""plssvm-train equivalent: fit an LS-SVM and write the model file.
 
 reference: src/main_train.cpp:24-70 + src/plssvm/detail/cmd/parser_train.cpp.
 Usage: ``python -m plssvm_tpu_torch.cli.train [options] training_set_file [model_file]``
@@ -85,8 +85,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--classification", default="oaa", choices=["oaa", "oao"],
-        help="multiclass decomposition (> 2 labels); multiclass data is not "
-             "ported yet, and oao is rejected",
+        help="multiclass decomposition (> 2 labels): oaa trains one-vs-all "
+             "as one block CG; oao training is not ported yet",
     )
     parser.add_argument("--probability", action="store_true",
                         help="probability calibration (not ported yet)")

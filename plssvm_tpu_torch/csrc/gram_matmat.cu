@@ -1,0 +1,326 @@
+// Gram-kernel block matmats for one-vs-all multiclass training and for
+// multiclass and one-vs-one predict, written by hand for NVIDIA Hopper
+// (sm_90a).  Bound to PyTorch through a plain C interface and ctypes
+// (plssvm_tpu_torch/ops/gram_matmat.py); built by ops/_build.py.  The Gram
+// tile, its loader and the kernel epilogue are kernels A and B's
+// (gram_tile.cuh).
+//
+// Kernel C, gram_matmat_sym: out = K(X, X) @ V with V (m, C) row-major,
+//   every block-CG iteration of a C-class one-vs-all fit.  Replaces the
+//   Pallas kernel plssvm_tpu/ops/pallas_matvec.py kernel_matmat_pallas_dual
+//   (body _matmat_kernel_dual) with symmetric=True, and the chunk
+//   composition kernel_matmat_pallas_big around it: sizes are 64-bit, so one
+//   launch covers any m and any C >= 1.  It is kernel A's walk with C
+//   right-hand sides: the same 1-D grid over upper-triangle BM x BM tiles,
+//   the same register tile.  After the epilogue each thread holds R x R
+//   kernel values, which stay in registers while the block loops over the
+//   classes: for each class a thread forms R row partials against the V
+//   rows of the column tile and R column partials against the V rows of the
+//   row tile, both staged transposed in shared memory kClassChunk classes at
+//   a time.  Row partials are reduced with a half-warp shuffle, column
+//   partials through shared memory, then one atomicAdd per (row, class) and
+//   one per (column, class) off the diagonal.  The TPU kernel padded the
+//   classes to a multiple of 8 in a class-major (cp, m) layout (its sublane
+//   tile) and kept a VMEM-resident column accumulator; neither is carried
+//   over: V and out keep the caller's row-major (m, C), and atomics replace
+//   the accumulator.
+//
+// Kernel D, gram_matmat_rect: out = K(P, S) @ A with A (n_s, C) row-major,
+//   multiclass and one-vs-one predict.  Replaces the symmetric=False use of
+//   kernel_matmat_pallas_dual (csvm._predict_values_pallas).  It is kernel
+//   B's 2-D grid (point tiles x support-vector tiles, one linear index) with
+//   one atomicAdd per (row, class) per tile.
+//
+// What bounds them: the Gram tile, 2 * BM^2 * d flops per tile on the CUDA
+// cores, as for kernels A and B.  The classes add 2 * BM^2 * C FMAs per tile
+// (R^2 per thread and class, one direction each), a reduction per class,
+// and 2 * BM * C atomics per off-diagonal tile where kernel A issues 2 * BM.
+// The classes are a loop, not a register array, so no per-class state is
+// held: the register footprint stays kernel A's, and C does not change how
+// the kernel is compiled.  Tensor cores for the class contraction, and for
+// the Gram tile, are later work.
+//
+// Numerics: as kernels A and B (no fast-math, accurate expf/tanhf).  The
+// atomics make the summation order change from run to run.
+
+#include "gram_tile.cuh"
+
+namespace {
+
+// classes whose V rows are staged in shared memory at once
+constexpr int kClassChunk = 8;
+
+// dst[cc][r] = V[(r0 + r) * C + c0 + cc] for r < BM, cc < cn; rows past m
+// load 0.  Neighbouring threads read neighbouring classes of one row.
+template <typename T, int BM>
+__device__ __forceinline__ void stage_classes(const T* __restrict__ V,
+                                              int64_t m, int64_t C,
+                                              int64_t r0, int64_t c0, int cn,
+                                              T (*dst)[BM + 1]) {
+    const int tid = threadIdx.y * kThreads + threadIdx.x;
+    for (int e = tid; e < BM * cn; e += kThreads * kThreads) {
+        const int r = e / cn;
+        const int cc = e % cn;
+        const int64_t g = r0 + r;
+        dst[cc][r] = g < m ? V[g * C + c0 + cc] : T(0);
+    }
+}
+
+template <typename T, int KIND>
+__global__ void __launch_bounds__(kThreads * kThreads)
+    gram_matmat_sym_kernel(const T* __restrict__ X, const T* __restrict__ sq,
+                           const T* __restrict__ V, T* __restrict__ out,
+                           int64_t m, int64_t d, int64_t C, int degree,
+                           T gamma, T coef0) {
+    constexpr int BM = TileEdge<T>::value;
+    constexpr int R = BM / kThreads;
+    __shared__ Staging<T, BM> staging;
+    __shared__ T v_cols[kClassChunk][BM + 1];  // V rows of the column tile
+    __shared__ T v_rows[kClassChunk][BM + 1];  // V rows of the row tile
+    __shared__ T col_part[kThreads][BM];
+
+    int64_t it, jt;
+    upper_triangle_tile(blockIdx.x, it, jt);
+    const int64_t row0 = it * BM;
+    const int64_t col0 = jt * BM;
+    const bool off_diagonal = jt > it;  // uniform per block
+
+    T kv[R][R];
+    gram_tile<T, BM>(X, X, m, m, d, row0, col0, staging, kv);
+    kernel_tile<T, KIND, BM>(kv, sq, sq, m, m, row0, col0, degree, gamma,
+                             coef0);
+
+    const int tx = threadIdx.x;
+    const int ty = threadIdx.y;
+    const int tid = ty * kThreads + tx;
+    for (int64_t c0 = 0; c0 < C; c0 += kClassChunk) {
+        const int cn = static_cast<int>(
+            C - c0 < kClassChunk ? C - c0 : kClassChunk);
+        __syncthreads();  // the previous chunk's readers are done
+        stage_classes<T, BM>(V, m, C, col0, c0, cn, v_cols);
+        if (off_diagonal) {
+            stage_classes<T, BM>(V, m, C, row0, c0, cn, v_rows);
+        }
+        __syncthreads();
+        for (int cc = 0; cc < cn; ++cc) {
+            const int64_t c = c0 + cc;
+            T vc[R];
+#pragma unroll
+            for (int b = 0; b < R; ++b) {
+                vc[b] = v_cols[cc][tx + kThreads * b];
+            }
+#pragma unroll
+            for (int a = 0; a < R; ++a) {
+                T row_sum = T(0);
+#pragma unroll
+                for (int b = 0; b < R; ++b) {
+                    row_sum += kv[a][b] * vc[b];
+                }
+                const T total = half_warp_sum(row_sum);
+                const int64_t r = row0 + ty + kThreads * a;
+                if (tx == 0 && r < m) {
+                    atomicAdd(&out[r * C + c], total);
+                }
+            }
+            if (off_diagonal) {
+                T vr[R];
+#pragma unroll
+                for (int a = 0; a < R; ++a) {
+                    vr[a] = v_rows[cc][ty + kThreads * a];
+                }
+#pragma unroll
+                for (int b = 0; b < R; ++b) {
+                    T col_sum = T(0);
+#pragma unroll
+                    for (int a = 0; a < R; ++a) {
+                        col_sum += kv[a][b] * vr[a];
+                    }
+                    col_part[ty][tx + kThreads * b] = col_sum;
+                }
+                __syncthreads();
+                for (int j = tid; j < BM; j += kThreads * kThreads) {
+                    T total = T(0);
+#pragma unroll
+                    for (int y = 0; y < kThreads; ++y) {
+                        total += col_part[y][j];
+                    }
+                    if (col0 + j < m) {
+                        atomicAdd(&out[(col0 + j) * C + c], total);
+                    }
+                }
+                __syncthreads();  // col_part is written again next class
+            }
+        }
+    }
+}
+
+template <typename T, int KIND>
+__global__ void __launch_bounds__(kThreads * kThreads)
+    gram_matmat_rect_kernel(const T* __restrict__ P, const T* __restrict__ S,
+                            const T* __restrict__ sq_p,
+                            const T* __restrict__ sq_s,
+                            const T* __restrict__ A, T* __restrict__ out,
+                            int64_t n_p, int64_t n_s, int64_t d, int64_t C,
+                            int64_t n_stiles, int degree, T gamma, T coef0) {
+    constexpr int BM = TileEdge<T>::value;
+    constexpr int R = BM / kThreads;
+    __shared__ Staging<T, BM> staging;
+    __shared__ T a_cols[kClassChunk][BM + 1];  // A rows of the SV tile
+
+    // consecutive blocks share a point tile and walk the SV tiles
+    const int64_t p = blockIdx.x;
+    const int64_t row0 = (p / n_stiles) * BM;
+    const int64_t col0 = (p % n_stiles) * BM;
+
+    T kv[R][R];
+    gram_tile<T, BM>(P, S, n_p, n_s, d, row0, col0, staging, kv);
+    kernel_tile<T, KIND, BM>(kv, sq_p, sq_s, n_p, n_s, row0, col0, degree,
+                             gamma, coef0);
+
+    const int tx = threadIdx.x;
+    const int ty = threadIdx.y;
+    for (int64_t c0 = 0; c0 < C; c0 += kClassChunk) {
+        const int cn = static_cast<int>(
+            C - c0 < kClassChunk ? C - c0 : kClassChunk);
+        __syncthreads();  // the previous chunk's readers are done
+        stage_classes<T, BM>(A, n_s, C, col0, c0, cn, a_cols);
+        __syncthreads();
+        for (int cc = 0; cc < cn; ++cc) {
+            const int64_t c = c0 + cc;
+            T ac[R];
+#pragma unroll
+            for (int b = 0; b < R; ++b) {
+                ac[b] = a_cols[cc][tx + kThreads * b];
+            }
+#pragma unroll
+            for (int a = 0; a < R; ++a) {
+                T row_sum = T(0);
+#pragma unroll
+                for (int b = 0; b < R; ++b) {
+                    row_sum += kv[a][b] * ac[b];
+                }
+                const T total = half_warp_sum(row_sum);
+                const int64_t r = row0 + ty + kThreads * a;
+                if (tx == 0 && r < n_p) {
+                    atomicAdd(&out[r * C + c], total);
+                }
+            }
+        }
+    }
+}
+
+template <typename T, int KIND>
+cudaError_t launch_sym(const T* X, const T* sq, const T* V, T* out,
+                       int64_t m, int64_t d, int64_t C, int degree, T gamma,
+                       T coef0, cudaStream_t stream) {
+    constexpr int BM = TileEdge<T>::value;
+    const int64_t nt = (m + BM - 1) / BM;
+    const int64_t blocks = nt * (nt + 1) / 2;
+    if (blocks <= 0 || blocks > INT32_MAX || C <= 0) {
+        return cudaErrorInvalidValue;
+    }
+    gram_matmat_sym_kernel<T, KIND>
+        <<<static_cast<unsigned int>(blocks), dim3(kThreads, kThreads), 0,
+           stream>>>(X, sq, V, out, m, d, C, degree, gamma, coef0);
+    return cudaGetLastError();
+}
+
+template <typename T, int KIND>
+cudaError_t launch_rect(const T* P, const T* S, const T* sq_p, const T* sq_s,
+                        const T* A, T* out, int64_t n_p, int64_t n_s,
+                        int64_t d, int64_t C, int degree, T gamma, T coef0,
+                        cudaStream_t stream) {
+    constexpr int BM = TileEdge<T>::value;
+    const int64_t n_stiles = (n_s + BM - 1) / BM;
+    const int64_t blocks = ((n_p + BM - 1) / BM) * n_stiles;
+    if (blocks <= 0 || blocks > INT32_MAX || C <= 0) {
+        return cudaErrorInvalidValue;
+    }
+    gram_matmat_rect_kernel<T, KIND>
+        <<<static_cast<unsigned int>(blocks), dim3(kThreads, kThreads), 0,
+           stream>>>(P, S, sq_p, sq_s, A, out, n_p, n_s, d, C, n_stiles,
+                     degree, gamma, coef0);
+    return cudaGetLastError();
+}
+
+template <typename T>
+int sym(const T* X, const T* sq, const T* V, T* out, int64_t m, int64_t d,
+        int64_t C, int kind, int degree, T gamma, T coef0, void* stream) {
+    const auto s = static_cast<cudaStream_t>(stream);
+    switch (kind) {
+        case kPolynomial:
+            return launch_sym<T, kPolynomial>(X, sq, V, out, m, d, C, degree,
+                                              gamma, coef0, s);
+        case kRbf:
+            return launch_sym<T, kRbf>(X, sq, V, out, m, d, C, degree, gamma,
+                                       coef0, s);
+        case kSigmoid:
+            return launch_sym<T, kSigmoid>(X, sq, V, out, m, d, C, degree,
+                                           gamma, coef0, s);
+        default:
+            return cudaErrorInvalidValue;
+    }
+}
+
+template <typename T>
+int rect(const T* P, const T* S, const T* sq_p, const T* sq_s, const T* A,
+         T* out, int64_t n_p, int64_t n_s, int64_t d, int64_t C, int kind,
+         int degree, T gamma, T coef0, void* stream) {
+    const auto s = static_cast<cudaStream_t>(stream);
+    switch (kind) {
+        case kPolynomial:
+            return launch_rect<T, kPolynomial>(P, S, sq_p, sq_s, A, out, n_p,
+                                               n_s, d, C, degree, gamma,
+                                               coef0, s);
+        case kRbf:
+            return launch_rect<T, kRbf>(P, S, sq_p, sq_s, A, out, n_p, n_s, d,
+                                        C, degree, gamma, coef0, s);
+        case kSigmoid:
+            return launch_rect<T, kSigmoid>(P, S, sq_p, sq_s, A, out, n_p,
+                                            n_s, d, C, degree, gamma, coef0,
+                                            s);
+        default:
+            return cudaErrorInvalidValue;
+    }
+}
+
+}  // namespace
+
+// The C interface: every entry point returns the cudaError_t of its launch
+// (0 on success).  out (rows x C, row-major) must hold zeros: both kernels
+// accumulate into it.
+
+extern "C" int plssvm_gram_matmat_sym_f32(const float* X, const float* sq,
+                                          const float* V, float* out,
+                                          int64_t m, int64_t d, int64_t C,
+                                          int kind, int degree, float gamma,
+                                          float coef0, void* stream) {
+    return sym<float>(X, sq, V, out, m, d, C, kind, degree, gamma, coef0,
+                      stream);
+}
+
+extern "C" int plssvm_gram_matmat_sym_f64(const double* X, const double* sq,
+                                          const double* V, double* out,
+                                          int64_t m, int64_t d, int64_t C,
+                                          int kind, int degree, double gamma,
+                                          double coef0, void* stream) {
+    return sym<double>(X, sq, V, out, m, d, C, kind, degree, gamma, coef0,
+                       stream);
+}
+
+extern "C" int plssvm_gram_matmat_rect_f32(
+    const float* P, const float* S, const float* sq_p, const float* sq_s,
+    const float* A, float* out, int64_t n_p, int64_t n_s, int64_t d,
+    int64_t C, int kind, int degree, float gamma, float coef0, void* stream) {
+    return rect<float>(P, S, sq_p, sq_s, A, out, n_p, n_s, d, C, kind, degree,
+                       gamma, coef0, stream);
+}
+
+extern "C" int plssvm_gram_matmat_rect_f64(
+    const double* P, const double* S, const double* sq_p, const double* sq_s,
+    const double* A, double* out, int64_t n_p, int64_t n_s, int64_t d,
+    int64_t C, int kind, int degree, double gamma, double coef0,
+    void* stream) {
+    return rect<double>(P, S, sq_p, sq_s, A, out, n_p, n_s, d, C, kind,
+                        degree, gamma, coef0, stream);
+}

@@ -29,7 +29,12 @@
 //   that changes from run to run, as in kernel A.
 //
 // Both kernels mask the ragged edges of rows and features themselves, so
-// the caller pads nothing.
+// the caller pads nothing.  The Gram tile, its loader, the kernel function
+// and the triangle walk are in gram_tile.cuh, shared with kernels C and D
+// (gram_matmat.cu).  The epilogue here stays fused with the contraction:
+// applying it to the whole tile first (gram_tile.cuh kernel_tile, as C and
+// D must, since they contract the tile once per class) made kernel A 6.5 %
+// slower on an H100.
 //
 // What bounds them: a Gram tile costs 2 * BM^2 * d flops over 2 * BM * d
 // operand loads, so at the widths LS-SVM trains at (d in the hundreds) both
@@ -43,136 +48,9 @@
 // accurate library functions, to match the reference's epilogue; nvcc's
 // default FMA contraction applies to the Gram sums as it does in any GEMM.
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "gram_tile.cuh"
 
 namespace {
-
-constexpr int kPolynomial = 1;  // KernelFunctionType values (parameter.py)
-constexpr int kRbf = 2;
-constexpr int kSigmoid = 3;
-
-constexpr int kThreads = 16;  // blocks of kThreads x kThreads threads
-constexpr int kChunk = 16;    // features staged in shared memory per step
-
-// Tile edge BM: R = BM / kThreads accumulators per thread and axis.
-template <typename T>
-struct TileEdge;
-template <>
-struct TileEdge<float> {
-    static constexpr int value = 128;  // 8 x 8 accumulators
-};
-template <>
-struct TileEdge<double> {
-    static constexpr int value = 64;  // 4 x 4 accumulators
-};
-
-__device__ __forceinline__ float dev_exp(float x) { return expf(x); }
-__device__ __forceinline__ double dev_exp(double x) { return exp(x); }
-__device__ __forceinline__ float dev_tanh(float x) { return tanhf(x); }
-__device__ __forceinline__ double dev_tanh(double x) { return tanh(x); }
-
-// base**degree by repeated squaring (kernel_functions._integer_power).
-template <typename T>
-__device__ __forceinline__ T int_power(T base, int degree) {
-    const bool invert = degree < 0;
-    unsigned int n = invert ? static_cast<unsigned int>(-degree)
-                            : static_cast<unsigned int>(degree);
-    T result = T(1);
-    T acc = base;
-    while (n != 0u) {
-        if (n & 1u) {
-            result *= acc;
-        }
-        acc *= acc;
-        n >>= 1;
-    }
-    return invert ? T(1) / result : result;
-}
-
-template <typename T, int KIND>
-__device__ __forceinline__ T apply_kernel(T g, T sq_i, T sq_j, T gamma,
-                                          T coef0, int degree) {
-    if constexpr (KIND == kPolynomial) {
-        return int_power(gamma * g + coef0, degree);
-    } else if constexpr (KIND == kRbf) {
-        return dev_exp(-gamma * (sq_i + sq_j - T(2) * g));
-    } else {
-        return dev_tanh(gamma * g + coef0);
-    }
-}
-
-template <typename T, int BM>
-struct Staging {
-    // transposed feature chunks; the +1 spreads the stores over the banks
-    T x[kChunk][BM + 1];
-    T y[kChunk][BM + 1];
-};
-
-// acc[a][b] = sum_k X[row0 + ty + kThreads a, k] * Y[col0 + tx + kThreads b, k]
-// over all d features; rows past mx / my and features past d load as 0.
-template <typename T, int BM>
-__device__ __forceinline__ void gram_tile(
-    const T* __restrict__ X, const T* __restrict__ Y, int64_t mx, int64_t my,
-    int64_t d, int64_t row0, int64_t col0, Staging<T, BM>& s,
-    T (&acc)[BM / kThreads][BM / kThreads]) {
-    constexpr int R = BM / kThreads;
-    const int tx = threadIdx.x;
-    const int ty = threadIdx.y;
-    const int tid = ty * kThreads + tx;
-#pragma unroll
-    for (int a = 0; a < R; ++a) {
-#pragma unroll
-        for (int b = 0; b < R; ++b) {
-            acc[a][b] = T(0);
-        }
-    }
-    for (int64_t k0 = 0; k0 < d; k0 += kChunk) {
-        // neighbouring threads read neighbouring features of one row
-        for (int e = tid; e < BM * kChunk; e += kThreads * kThreads) {
-            const int r = e / kChunk;
-            const int kk = e % kChunk;
-            const int64_t k = k0 + kk;
-            const int64_t gx = row0 + r;
-            const int64_t gy = col0 + r;
-            s.x[kk][r] = (gx < mx && k < d) ? X[gx * d + k] : T(0);
-            s.y[kk][r] = (gy < my && k < d) ? Y[gy * d + k] : T(0);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < kChunk; ++kk) {
-            T xa[R];
-            T yb[R];
-#pragma unroll
-            for (int a = 0; a < R; ++a) {
-                xa[a] = s.x[kk][ty + kThreads * a];
-            }
-#pragma unroll
-            for (int b = 0; b < R; ++b) {
-                yb[b] = s.y[kk][tx + kThreads * b];
-            }
-#pragma unroll
-            for (int a = 0; a < R; ++a) {
-#pragma unroll
-                for (int b = 0; b < R; ++b) {
-                    acc[a][b] += xa[a] * yb[b];
-                }
-            }
-        }
-        __syncthreads();
-    }
-}
-
-// Sum over the 16 threads of a half warp (same ty, tx = 0..15).
-template <typename T>
-__device__ __forceinline__ T half_warp_sum(T value) {
-#pragma unroll
-    for (int offset = kThreads / 2; offset > 0; offset /= 2) {
-        value += __shfl_xor_sync(0xffffffffu, value, offset);
-    }
-    return value;
-}
 
 template <typename T, int KIND>
 __global__ void __launch_bounds__(kThreads * kThreads)
@@ -185,16 +63,8 @@ __global__ void __launch_bounds__(kThreads * kThreads)
     __shared__ Staging<T, BM> staging;
     __shared__ T col_part[kThreads][BM];
 
-    // linear block index -> upper-triangle tile (it, jt), it <= jt
-    const int64_t p = blockIdx.x;
-    int64_t jt = static_cast<int64_t>((sqrt(8.0 * static_cast<double>(p) + 1.0) - 1.0) * 0.5);
-    while (jt * (jt + 1) / 2 > p) {
-        --jt;
-    }
-    while ((jt + 1) * (jt + 2) / 2 <= p) {
-        ++jt;
-    }
-    const int64_t it = p - jt * (jt + 1) / 2;
+    int64_t it, jt;
+    upper_triangle_tile(blockIdx.x, it, jt);
     const int64_t row0 = it * BM;
     const int64_t col0 = jt * BM;
 

@@ -7,9 +7,11 @@ between devices behind the caller's back.  The backend picks the Gram
 matvecs: ``cuda``, the hand-written kernels (csrc/gram_matvec.cu), or
 ``torch``, their plain PyTorch versions on any device.
 
-This package covers binary classification with the implicit CG solver on a
-single device.  What it does not carry yet raises :class:`NotPortedError`
-(a ``NotImplementedError``) naming the ROADMAP item that ports it.
+This package covers binary and one-vs-all multiclass classification with
+the implicit CG solver on a single device, and predict with binary,
+one-vs-all and one-vs-one (LIBSVM multiclass) model files.  What it does
+not carry yet raises :class:`NotPortedError` (a ``NotImplementedError``)
+naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from .parameter import (
     Parameter,
     TargetPlatform,
 )
-from .solver.cg import solve_ls_svm
+from .solver.cg import solve_ls_svm, solve_ls_svm_multi
 from .utils.logger import VerbosityLevel, log
 from .utils.tracker import add_tracking_entry
 
@@ -218,13 +220,16 @@ class CSVM:
         initial_model: Optional[Model] = None,
         sample_weight=None,
     ) -> Model:
-        """Solve the binary LS-SVM dual with CG and return the model.
+        """Solve the LS-SVM dual with CG and return the model.
 
         Defaults: ``epsilon = 1e-3`` (relative, squared residual),
         ``max_iter = num_data_points`` (reference: csvm.hpp:268-269).
-        ``classification`` only matters for multiclass data, which is not
-        ported yet; ``initial_model`` and ``sample_weight`` are not ported
-        yet either.
+        Data with more than two labels trains one-vs-all (``classification
+        = "oaa"``, the default): the C binary systems share the implicit
+        matrix and are solved together as one block CG (an extension; the
+        reference rejects such data, data_set.hpp:443).  One-vs-one
+        training, ``initial_model`` and ``sample_weight`` are not ported
+        yet.
         """
         if epsilon <= 0.0:
             raise InvalidParameterError(
@@ -240,7 +245,7 @@ class CSVM:
             raise InvalidParameterError(
                 f"max_iter must be greater than 0, but is {max_iter}!"
             )
-        ClassificationType.from_string(classification)
+        classification = ClassificationType.from_string(classification)
         if initial_model is not None or sample_weight is not None:
             raise NotPortedError(
                 "initial_model and sample_weight are not ported yet (ROADMAP "
@@ -251,10 +256,11 @@ class CSVM:
                 "regression is not ported yet (ROADMAP Queue 1, item 7: "
                 "regression and one-class)"
             )
-        if data.num_different_labels > 2:
+        multiclass = data.num_different_labels > 2
+        if multiclass and classification == ClassificationType.OAO:
             raise NotPortedError(
-                "multiclass data is not ported yet (ROADMAP Queue 1, item 2: "
-                "one-vs-all multiclass)"
+                "one-vs-one training is not ported yet (ROADMAP Queue 1, "
+                "item 6: one-vs-one)"
             )
 
         params = self._params.copy()
@@ -269,7 +275,10 @@ class CSVM:
         # the kernels mask ragged edges: the system keeps its dept rows
         transform_start = time.perf_counter()
         X = self._tensor(data.data)
-        y = self._tensor(data.y)
+        if multiclass:
+            y = self._tensor(data.mapper.oaa_targets(data.labels))  # (n, C)
+        else:
+            y = self._tensor(data.y)
         n, d = X.shape
         dept = n - 1
         add_tracking_entry("transform", "num_data_points", int(dept))
@@ -280,19 +289,39 @@ class CSVM:
         )
         add_tracking_entry("cg", "solver", self.solver)
 
-        result = solve_ls_svm(
-            X[:dept], X[-1], y[:dept], float(data.y[-1]),
-            params.resolved_gamma(d), params.coef0.value, params.cost.value,
-            epsilon, max_iter,
+        solve_kw = dict(
             kind=kind, degree=degree, impl=self._impl(),
             scalars=self.scalar_precision, gram_precision=self.gram_precision,
         )
-        alpha = np.concatenate(
-            [result.x.cpu().numpy(), [float(result.alpha_last)]]
-        ).astype(self.dtype)
-        rho = float(result.rho)
-        delta = float(result.delta)
-        delta0 = float(result.delta0)
+        solve_args = (
+            params.resolved_gamma(d), params.coef0.value, params.cost.value,
+            epsilon, max_iter,
+        )
+        if multiclass:
+            result = solve_ls_svm_multi(
+                X[:dept], X[-1], y[:dept], y[-1], *solve_args, **solve_kw
+            )
+            alpha = np.vstack(
+                [result.x.cpu().numpy(), result.alpha_last.cpu().numpy()[None, :]]
+            ).astype(self.dtype)
+            rho = result.rho.cpu().numpy().astype(np.float64)
+            # report the worst (last-converging) class in the scalar log line
+            delta_arr = result.delta.cpu().numpy()
+            delta0_arr = result.delta0.cpu().numpy()
+            worst = int(np.argmax(delta_arr / np.maximum(delta0_arr, 1e-300)))
+            delta = float(delta_arr[worst])
+            delta0 = float(delta0_arr[worst])
+        else:
+            result = solve_ls_svm(
+                X[:dept], X[-1], y[:dept], float(data.y[-1]), *solve_args,
+                **solve_kw,
+            )
+            alpha = np.concatenate(
+                [result.x.cpu().numpy(), [float(result.alpha_last)]]
+            ).astype(self.dtype)
+            rho = float(result.rho)
+            delta = float(result.delta)
+            delta0 = float(result.delta0)
         iterations = result.iterations
         total_ms = (time.perf_counter() - start) * 1000.0
 
@@ -308,6 +337,11 @@ class CSVM:
             total_ms,
         )
         add_tracking_entry("cg", "iterations", iterations)
+        if multiclass:
+            add_tracking_entry(
+                "cg", "iterations_per_class",
+                result.iterations_per_class.cpu().tolist(),
+            )
         add_tracking_entry("cg", "max_iterations", int(max_iter))
         add_tracking_entry("cg", "residuum", delta)
         add_tracking_entry("cg", "target_residuum", epsilon * epsilon * delta0)
@@ -323,9 +357,14 @@ class CSVM:
 
     # -- predict ------------------------------------------------------------
     def predict_values(self, model: Model, data: DataSet) -> np.ndarray:
-        """Decision values f(x) = sum_i alpha_i k(sv_i, x) - rho, shape (n_pred,).
+        """Decision values f(x) = sum_i alpha_i k(sv_i, x) - rho.
 
         reference: csvm.hpp:325-343 + gpu_csvm.hpp:656-730.
+
+        Binary models return shape (n_pred,); one-vs-all models (n_pred, C),
+        one decision column per class; one-vs-one models (n_pred,
+        C(C-1)/2), one column per pair machine in LIBSVM order
+        (:func:`plssvm_tpu_torch.oao.class_pairs`).
         """
         if model.num_features != data.num_features:
             raise InvalidParameterError(
@@ -333,11 +372,11 @@ class CSVM:
                 f"the number of features per support vector of the provided model "
                 f"({model.num_features})!"
             )
-        if np.ndim(model.alpha) != 1:
-            raise NotPortedError(
-                "multiclass models are not ported yet (ROADMAP Queue 1, "
-                "item 2: one-vs-all multiclass)"
-            )
+        if (
+            model.classification == ClassificationType.OAO
+            and np.ndim(model.alpha) == 2
+        ):
+            return self._predict_values_oao(model, data)
         if model.is_regression or model.is_one_class:
             raise NotPortedError(
                 "regression and one-class models are not ported yet (ROADMAP "
@@ -359,24 +398,63 @@ class CSVM:
                 or getattr(model, "_w_sv", None) is not model.support_vectors
             ):
                 # compute & cache w once (gpu_csvm.hpp:696-705,
-                # model.hpp:162-166)
+                # model.hpp:162-166); (d,) binary or (d, C) multiclass
                 model.w = calculate_w(sv, alpha).cpu().numpy()
                 model._w_alpha = model.alpha
                 model._w_sv = model.support_vectors
             w = self._tensor(model.w)
+        rho = (
+            self._tensor(model.rho) if np.ndim(model.rho) > 0
+            else float(model.rho)
+        )
         values = predict_values_op(
-            sv, alpha, float(model.rho), w, points,
+            sv, alpha, rho, w, points,
             params.resolved_gamma(model.num_features), params.coef0.value,
             kind=kind, degree=params.degree.value, impl=self._impl(),
         )
         return values.cpu().numpy()
 
+    def _predict_values_oao(self, model: Model, data: DataSet) -> np.ndarray:
+        """One-vs-one decision values as ONE kernel matmat.
+
+        The sv_coef block expands once into the dense (n_sv, n_machines)
+        weight matrix W (:func:`plssvm_tpu_torch.oao.model_weight_matrix`)
+        and all machines evaluate together as ``K(points, SV) @ W - rho``
+        through a cached shadow one-vs-all model, so kernel D serves them.
+        """
+        cached = getattr(model, "_oao_shadow", None)
+        if cached is not None and cached[0] is model.alpha:
+            shadow = cached[1]
+        else:
+            from . import oao
+
+            # the expansion follows the model's LAYOUT class order (the
+            # file's label-header order for loaded models)
+            shadow = Model(
+                model.params, model.data, alpha=oao.model_weight_matrix(model),
+                rho=np.atleast_1d(np.asarray(model.rho, dtype=np.float64)),
+            )
+            model._oao_shadow = (model.alpha, shadow)
+        return self.predict_values(shadow, data)
+
     def predict(self, model: Model, data: DataSet) -> np.ndarray:
         """Predicted labels mapped back to the original label type.
 
-        sign(f), with sign(0) = -1 like the reference (operators.hpp:179-181).
+        Binary: sign(f), with sign(0) = -1 like the reference
+        (operators.hpp:179-181).  Multiclass: argmax over the C one-vs-all
+        decision columns, or pairwise voting for one-vs-one models
+        (LIBSVM's svm_predict semantics, :func:`plssvm_tpu_torch.oao.vote`).
         """
         values = self.predict_values(model, data)
+        if values.ndim == 2:
+            # columns / machines follow the model's LAYOUT class order — the
+            # file's label-header order for loaded models
+            order_arr = np.asarray(model.class_order())
+            if model.classification == ClassificationType.OAO:
+                from . import oao
+
+                return order_arr[oao.vote(values, model.num_classes)]
+            return order_arr[np.argmax(values, axis=1)]
         if model.label_order is not None:
             # file-loaded binary model: libsvm's svm_predict rule is
             # f > 0 -> label[0] (the header's FIRST label — appearance

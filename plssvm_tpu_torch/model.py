@@ -15,7 +15,7 @@ import numpy as np
 
 from .data_set import DataSet
 from .io.model_file import parse_model_file, write_model_file
-from .parameter import Parameter
+from .parameter import ClassificationType, Parameter
 from .utils.assertions import plssvm_assert
 from .utils.logger import VerbosityLevel, log
 from .utils.tracker import add_tracking_entry
@@ -69,8 +69,6 @@ class Model:
         #: multiclass decomposition of this model: OAA (one-vs-all block CG,
         #: the default) or OAO (one-vs-one, LIBSVM model layout).  Binary
         #: models are the same machine either way and keep the default.
-        from .parameter import ClassificationType
-
         self.classification = ClassificationType.OAA
         #: True for LS-SVR regression models (continuous targets; stored
         #: in LIBSVM's epsilon_svr file layout) — an EXTENSION, neither the
@@ -129,8 +127,6 @@ class Model:
             seen = dict.fromkeys(labels.tolist())
             model.label_order = list(seen)
         if C > 2 and np.ndim(alpha) == 2 and alpha.shape[1] == C - 1:
-            from .parameter import ClassificationType
-
             model.classification = ClassificationType.OAO
         if prob is not None:
             model.prob_a, model.prob_b = prob
@@ -242,15 +238,20 @@ def model_from_numpy(
     labels,
     *,
     label_order=None,
+    classification=None,
     dtype=np.float64,
 ) -> Model:
     """Build a Model from the numpy fields of a plssvm_tpu model.
 
     ``params`` is a :class:`Parameter` of either package (their fields
     match); user-set values stay user-set, so the saved file is the same.
-    ``support_vectors`` (n_sv, d), ``alpha`` (n_sv,), ``rho`` and
-    ``labels`` (n_sv,) are the model's arrays; ``label_order`` is the
-    label-header order of a file-loaded model (None for a trained one).
+    ``support_vectors`` (n_sv, d) and ``labels`` (n_sv,) are the model's
+    arrays; ``alpha`` is (n_sv,) with a scalar ``rho`` for a binary model,
+    (n_sv, C) with ``rho`` (C,) for a one-vs-all model, (n_sv, C-1) with
+    ``rho`` (C(C-1)/2,) for a one-vs-one model.  ``label_order`` is the
+    label-header order of a file-loaded model (None for a trained one);
+    ``classification`` the model's ``classification`` of either package
+    (None: one-vs-all, the default).
     """
     port_params = Parameter()
     for name in Parameter.__slots__:
@@ -265,4 +266,6 @@ def model_from_numpy(
         port_params, data, alpha=np.asarray(alpha, dtype=dtype), rho=rho
     )
     model.label_order = None if label_order is None else list(label_order)
+    if classification is not None:
+        model.classification = ClassificationType.from_string(str(classification))
     return model

@@ -1,10 +1,14 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-At first use ``nvcc`` compiles every source under ``csrc/`` into one shared
-library with a plain C interface, which ctypes loads.  The library lives in
-``plssvm_tpu_torch/_build/`` under a name keyed on a hash of the sources
-and the flags, so a second run with unchanged sources skips nvcc.  Nothing
-is built when the package is imported.
+At first use ``nvcc`` compiles every source under ``csrc/`` into an object
+file, one process per source and all of them at once, and links the objects
+into one shared library with a plain C interface, which ctypes loads.  The
+library lives in ``plssvm_tpu_torch/_build/`` under a name keyed on a hash
+of the sources (headers included) and the flags, so a second run with
+unchanged sources skips nvcc.  Beside it, ``<library>.ptxas.txt`` keeps
+what ``-Xptxas -v`` reported for each kernel (registers, spills, shared
+memory); :func:`kernel_resources` reads it.  Nothing is built when the
+package is imported.
 """
 
 from __future__ import annotations
@@ -12,11 +16,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 from ..exceptions import KernelLaunchError
 
@@ -24,11 +29,13 @@ _PACKAGE = Path(__file__).resolve().parent.parent
 SOURCE_DIR = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE / "_build"
 
-#: no --use_fast_math: the epilogue's expf/tanhf must be the accurate ones
-NVCC_FLAGS = (
+#: no --use_fast_math: the epilogue's expf/tanhf must be the accurate ones.
+#: -Xptxas -v only reports; it changes no code
+COMPILE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -51,7 +58,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in sorted(SOURCE_DIR.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -67,20 +74,84 @@ def build() -> Tuple[Path, float]:
     if target.is_file():
         return target, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = [str(p) for p in sorted(SOURCE_DIR.glob("*.cu"))]
-    partial = target.with_name(f"{target.stem}.{os.getpid()}.tmp")
+    nvcc = _nvcc()
+    tag = f"{target.stem}.{os.getpid()}"
+    sources = sorted(SOURCE_DIR.glob("*.cu"))
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
     start = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(partial), *sources],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise KernelLaunchError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+    procs = [
+        subprocess.Popen(
+            [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
+        for src, obj in zip(sources, objects)
+    ]
+    reports, failures = [], []
+    for src, proc in zip(sources, procs):
+        out, err = proc.communicate()
+        reports.append(f"== {src.name}\n{out}{err}")
+        if proc.returncode != 0:
+            failures.append(f"nvcc {src.name} failed ({proc.returncode}):\n{out}{err}")
+    try:
+        if failures:
+            raise KernelLaunchError("\n".join(failures))
+        partial = target.with_name(f"{tag}.tmp")
+        proc = subprocess.run(
+            [nvcc, *LINK_FLAGS, "-o", str(partial), *map(str, objects)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise KernelLaunchError(
+                f"nvcc link failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+            )
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    _ptxas_log(target).write_text("".join(reports), encoding="utf-8")
     # rename last, so a build that was cut off never passes for a library
     os.replace(partial, target)
     return target, time.perf_counter() - start
+
+
+def _ptxas_log(library: Path) -> Path:
+    return library.with_name(library.name + ".ptxas.txt")
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_SHORT = re.compile(r"(gram_mat(?:vec|mat)_(?:sym|rect))_kernelI([fd])Li(\d)E")
+_KINDS = {"1": "poly", "2": "rbf", "3": "sigmoid"}
+
+
+def kernel_resources() -> Dict[str, Dict[str, int]]:
+    """Per kernel instantiation, what ``-Xptxas -v`` reported when the
+    current library was built: ``{"gram_matmat_sym f32 rbf": {"registers":
+    .., "spill_bytes": .., "smem_bytes": ..}, ...}``.  Empty when the
+    library has not been built here."""
+    log = _ptxas_log(library_path())
+    if not log.is_file():
+        return {}
+    out: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in log.read_text(encoding="utf-8").splitlines():
+        entry = _ENTRY.search(line)
+        if entry:
+            short = _SHORT.search(entry.group(1))
+            name = None if short is None else (
+                f"{short.group(1)} {'f32' if short.group(2) == 'f' else 'f64'} "
+                f"{_KINDS.get(short.group(3), short.group(3))}"
+            )
+            continue
+        if name is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            out.setdefault(name, {})["spill_bytes"] = int(spill.group(1)) + int(spill.group(2))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            out.setdefault(name, {})["registers"] = int(used.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return out
 
 
 def load() -> ctypes.CDLL:
@@ -101,6 +172,20 @@ def load() -> ctypes.CDLL:
             real, ptr,
         ]
         rect.restype = cint
+        # (X, sq, V, out, m, d, C, kind, degree, gamma, coef0, stream)
+        msym = getattr(lib, f"plssvm_gram_matmat_sym_{suffix}")
+        msym.argtypes = [
+            ptr, ptr, ptr, ptr, i64, i64, i64, cint, cint, real, real, ptr,
+        ]
+        msym.restype = cint
+        # (P, S, sq_p, sq_s, A, out, n_p, n_s, d, C, kind, degree, gamma,
+        #  coef0, stream)
+        mrect = getattr(lib, f"plssvm_gram_matmat_rect_{suffix}")
+        mrect.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, cint, cint,
+            real, real, ptr,
+        ]
+        mrect.restype = cint
     lib.plssvm_cuda_error_string.argtypes = [cint]
     lib.plssvm_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -10,13 +10,17 @@ gpu_csvm.hpp:431-447) and only ``K @ v`` touches O(n^2) work.  For the
 linear kernel ``K @ v = X (X^T v)`` costs O(n d) and stays a matrix product,
 as the JAX package left it to XLA.  For the other Gram kernels the functions
 here walk row blocks: one (block, m) kernel block at a time, contracted
-against ``v`` at once, so memory stays O(block * m).
+against ``v`` at once, so memory stays O(block * m).  ``v`` is (m,) or, for
+the C right-hand sides of a one-vs-all fit, (m, C): each kernel block is
+computed once and contracted with all C columns.
 
 ``kernel_matvec_plain`` is the oracle of kernel A and
-``kernel_matvec_rect_plain`` of kernel B (ops/gram_matvec.py).  Each counts
-its calls in a plain module-level int, so a run can show that its main path
-took the kernels and not these.  Rows need no padding: the blocks follow
-the tensor's own length.
+``kernel_matvec_rect_plain`` of kernel B (ops/gram_matvec.py);
+``kernel_matmat_plain`` of kernel C and ``kernel_matmat_rect_plain`` of
+kernel D (ops/gram_matmat.py).  Each counts its calls in a plain
+module-level int, so a run can show that its main path took the kernels
+and not these.  Rows need no padding: the blocks follow the tensor's own
+length.
 """
 
 from __future__ import annotations
@@ -32,6 +36,9 @@ DEFAULT_ROW_BLOCK = 2048
 #: calls of kernel_matvec_plain / kernel_matvec_rect_plain
 sym_plain_calls = 0
 rect_plain_calls = 0
+#: calls of kernel_matmat_plain / kernel_matmat_rect_plain
+sym_matmat_plain_calls = 0
+rect_matmat_plain_calls = 0
 
 
 def linear_kernel_matvec(X: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -50,7 +57,8 @@ def kernel_matvec_plain(
     degree: int,
     row_block: int = DEFAULT_ROW_BLOCK,
 ) -> torch.Tensor:
-    """``K @ v`` with ``K[i, j] = k(x_i, x_j)`` over the rows of ``X`` (m, d)."""
+    """``K @ v`` with ``K[i, j] = k(x_i, x_j)`` over the rows of ``X`` (m, d);
+    ``v`` (m,) or (m, C)."""
     global sym_plain_calls
     sym_plain_calls += 1
     return _row_blocked(
@@ -78,8 +86,47 @@ def kernel_matvec_rect_plain(
     return _row_blocked(P, S, sq_p, sq_s, a, kind, gamma, coef0, degree, row_block)
 
 
+def kernel_matmat_plain(
+    X: torch.Tensor,
+    sq_norms: torch.Tensor,
+    V: torch.Tensor,
+    *,
+    kind: KernelFunctionType,
+    gamma,
+    coef0,
+    degree: int,
+    row_block: int = DEFAULT_ROW_BLOCK,
+) -> torch.Tensor:
+    """``K @ V`` over the rows of ``X`` (m, d) for ``V`` (m, C)."""
+    global sym_matmat_plain_calls
+    sym_matmat_plain_calls += 1
+    return _row_blocked(
+        X, X, sq_norms, sq_norms, V, kind, gamma, coef0, degree, row_block
+    )
+
+
+def kernel_matmat_rect_plain(
+    P: torch.Tensor,
+    S: torch.Tensor,
+    sq_p: torch.Tensor,
+    sq_s: torch.Tensor,
+    A: torch.Tensor,
+    *,
+    kind: KernelFunctionType,
+    gamma,
+    coef0,
+    degree: int,
+    row_block: int = DEFAULT_ROW_BLOCK,
+) -> torch.Tensor:
+    """``K(P, S) @ A``: points P (n_p, d) against support vectors S (n_s, d)
+    weighted by ``A`` (n_s, C), one column per class or machine."""
+    global rect_matmat_plain_calls
+    rect_matmat_plain_calls += 1
+    return _row_blocked(P, S, sq_p, sq_s, A, kind, gamma, coef0, degree, row_block)
+
+
 def _row_blocked(X, Y, sq_x, sq_y, v, kind, gamma, coef0, degree, row_block):
-    out = torch.empty((X.shape[0],), dtype=v.dtype, device=v.device)
+    out = torch.empty((X.shape[0],) + v.shape[1:], dtype=v.dtype, device=v.device)
     for i in range(0, X.shape[0], row_block):
         K_blk = kernel_block(
             X[i:i + row_block], Y, sq_x[i:i + row_block], sq_y,

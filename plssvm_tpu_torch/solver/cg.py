@@ -1,4 +1,5 @@
-"""Matrix-free Conjugate Gradient solver for the LS-SVM dual system (binary).
+"""Matrix-free Conjugate Gradient solvers for the LS-SVM dual system: binary,
+and one-vs-all multiclass as one block CG.
 
 Counterpart of plssvm_tpu/solver/cg.py.  Solves ``(K + I/C) a = y`` after
 the dimensionality reduction that folds the last data point into the system
@@ -22,6 +23,11 @@ it is a Python loop over eager PyTorch ops, and the stop test reads
 the exact-residual cadence and the bias formulas are the reference's.  The
 kernels mask ragged edges themselves, so the system has exactly ``dept``
 rows: no padding, no mask.
+
+The one-vs-all solve (``solve_ls_svm_multi``) runs the C binary systems,
+which share the implicit matrix and differ only in their right-hand sides,
+as one block CG: each iteration applies ``K`` once to the (m, C) block of
+search directions, through kernel C (ops/gram_matmat.py).
 """
 
 from __future__ import annotations
@@ -32,8 +38,13 @@ import torch
 
 from ..exceptions import NotPortedError
 from ..kernel_functions import kernel_against_point, kernel_self_diag
+from ..ops.gram_matmat import gram_matmat_sym
 from ..ops.gram_matvec import gram_matvec_sym
-from ..ops.matvec import kernel_matvec_plain, linear_kernel_matvec
+from ..ops.matvec import (
+    kernel_matmat_plain,
+    kernel_matvec_plain,
+    linear_kernel_matvec,
+)
 from ..parameter import KernelFunctionType
 
 #: exact-residual recomputation cadence (reference: gpu_csvm.hpp:595)
@@ -57,15 +68,16 @@ def compensated_sum(x: torch.Tensor) -> torch.Tensor:
     f64 accumulation of the (already rounded) f32 inputs to within
     O(eps^2).  Each step is a few eager ops: they are never fused, so no
     compiler can contract TwoSum's arithmetic into FMAs.  Reduces a 1-D
-    input to a 0-d tensor.
+    input to a 0-d tensor, and a 2-D input along axis 0: one compensated
+    sum per column, the block CG's per-class reduction.
     """
-    s = x.reshape(-1)
+    s = x if x.ndim > 1 else x.reshape(-1)
     c = torch.zeros_like(s)
     while s.shape[0] > 1:
         n = s.shape[0]
         half = (n + 1) // 2
         if n % 2 == 1:
-            pad = torch.zeros((1,), dtype=s.dtype, device=s.device)
+            pad = torch.zeros((1,) + s.shape[1:], dtype=s.dtype, device=s.device)
             s = torch.cat([s, pad])
             c = torch.cat([c, pad])
         s, err = _two_sum(s[:half], s[half:])
@@ -207,14 +219,162 @@ def solve_ls_svm(
     "bf16" is not ported (ROADMAP Queue 4) and raises on ``impl="cuda"``.
     The plain versions ignore the knob, as plssvm_tpu's XLA path does.
     """
-    if impl == "cuda" and gram_precision == "bf16":
-        raise NotPortedError(
-            "gram_precision='bf16' is not ported to the CUDA kernels yet "
-            "(ROADMAP Queue 4: bf16 operands with f32 accumulation)"
-        )
+    _check_gram_precision(impl, gram_precision)
     dot, vsum = _scalar_reductions(scalars)
     return cg_ls_svm_core(
         X, x_last, y, y_last, gamma, coef0, cost, eps, max_iter,
         kind=kind, degree=degree, kernel_mv=_make_kernel_matvec(kind, degree, impl),
         dot=dot, vsum=vsum,
+    )
+
+
+def _check_gram_precision(impl: str, gram_precision: str) -> None:
+    if impl == "cuda" and gram_precision == "bf16":
+        raise NotPortedError(
+            "gram_precision='bf16' is not ported to the CUDA kernels yet "
+            "(ROADMAP Queue 4: bf16 operands with f32 accumulation)"
+        )
+
+
+class MultiCGResult(NamedTuple):
+    """Block-CG outputs for C one-vs-all classes over the ``dept`` rows."""
+
+    x: torch.Tensor           # (dept, C) solutions
+    rho: torch.Tensor         # (C,) -bias per class
+    alpha_last: torch.Tensor  # (C,) folded-out last alpha per class
+    iterations: int           # block iterations run (the slowest class's)
+    iterations_per_class: torch.Tensor  # (C,) iterations each class was active
+    delta: torch.Tensor       # (C,) final squared residual norms
+    delta0: torch.Tensor      # (C,) initial squared residual norms
+
+
+def _make_kernel_matmat(kind: KernelFunctionType, degree: int, impl: str) -> Callable:
+    """Select the K@V implementation for V (m, C): ``impl="cuda"`` the hand
+    kernel C (plain version on CPU tensors), ``"torch"`` the plain
+    version.  The linear kernel takes the factored X (X^T V) product."""
+    if kind == KernelFunctionType.LINEAR:
+        return lambda X, sq_norms, V, gamma, coef0: linear_kernel_matvec(X, V)
+    sym = gram_matmat_sym if impl == "cuda" else kernel_matmat_plain
+
+    def kmm(X, sq_norms, V, gamma, coef0):
+        return sym(X, sq_norms, V, kind=kind, gamma=gamma, coef0=coef0,
+                   degree=degree)
+
+    return kmm
+
+
+def cg_ls_svm_multi_core(
+    X: torch.Tensor,       # (dept, d) all rows but the last
+    x_last: torch.Tensor,  # (d,) the folded-out last data point
+    Y: torch.Tensor,       # (dept, C) one-vs-all targets
+    y_last: torch.Tensor,  # (C,) targets of the last point
+    gamma: float,
+    coef0: float,
+    cost: float,
+    eps: float,
+    max_iter: int,
+    *,
+    kind: KernelFunctionType,
+    degree: int,
+    kernel_mm: Callable,   # (X, sq_norms, V, gamma, coef0) -> K @ V
+    colsum: Callable = None,  # (m, C) -> (C,)
+) -> MultiCGResult:
+    """The block CG of plssvm_tpu's ``cg_ls_svm_multi_core``,
+    unpreconditioned and cold-started (x0 = 1).
+
+    Per-class scalars (alpha_cd, beta, delta) are vectors of length C.  A
+    class whose residual meets ``delta_c <= eps^2 * delta0_c`` is frozen:
+    its step and beta are 0 and its x / r / d stay as they are, so late
+    classes never perturb finished ones.  The loop runs until every class
+    meets the rule or ``max_iter``; the every-50th exact residual applies
+    to the whole block.
+    """
+    if colsum is None:
+        def colsum(M):
+            return torch.sum(M, dim=0)
+    cost_inv = 1.0 / cost
+    sq_norms = torch.sum(X * X, dim=-1)
+    q = kernel_against_point(X, x_last, kind, gamma, coef0, degree)
+    xl_sq = torch.dot(x_last, x_last)
+    QA_cost = kernel_self_diag(xl_sq, kind, gamma, coef0, degree) + cost_inv
+    B = Y - y_last[None, :]
+
+    def matmat(V):
+        # A_hat @ V column-wise; the rank-1 terms need the per-column sums
+        s = colsum(V)
+        qv = colsum(q[:, None] * V)
+        out = kernel_mm(X, sq_norms, V, gamma, coef0)
+        return out + (QA_cost - q)[:, None] * s[None, :] - qv[None, :] + cost_inv * V
+
+    x = torch.ones_like(Y)
+    r = B - matmat(x)
+    delta = colsum(r * r)
+    delta0 = delta
+    d = r
+    target = eps * eps * delta0
+    itpc = torch.zeros(Y.shape[1], dtype=torch.int64, device=Y.device)
+    one = torch.ones_like(delta)
+    zero = torch.zeros_like(delta)
+
+    it = 0
+    while it < max_iter:
+        active = delta > target
+        if not bool(active.any()):
+            break
+        Ad = matmat(d)
+        dAd = colsum(d * Ad)
+        alpha_cd = torch.where(active, delta / torch.where(active, dAd, one), zero)
+        x = x + alpha_cd[None, :] * d
+        if it % EXACT_RESIDUAL_INTERVAL == EXACT_RESIDUAL_INTERVAL - 1:
+            r = B - matmat(x)
+        else:
+            r = r - alpha_cd[None, :] * Ad
+        delta_new = colsum(r * r)
+        beta = torch.where(active, delta_new / delta, zero)
+        d = torch.where(active[None, :], beta[None, :] * d + r, d)
+        delta = delta_new
+        itpc = itpc + active
+        it += 1
+
+    alpha_sum = colsum(x)
+    bias = y_last + QA_cost * alpha_sum - colsum(q[:, None] * x)
+    return MultiCGResult(
+        x=x, rho=-bias, alpha_last=-alpha_sum, iterations=it,
+        iterations_per_class=itpc, delta=delta, delta0=delta0,
+    )
+
+
+def solve_ls_svm_multi(
+    X: torch.Tensor,
+    x_last: torch.Tensor,
+    Y: torch.Tensor,
+    y_last: torch.Tensor,
+    gamma: float,
+    coef0: float,
+    cost: float,
+    eps: float,
+    max_iter: int,
+    *,
+    kind: KernelFunctionType,
+    degree: int,
+    impl: str = "torch",
+    scalars: str = "plain",
+    gram_precision: str = "f32",
+) -> MultiCGResult:
+    """Run the one-vs-all block-CG solve on the device that holds ``X``.
+
+    ``Y`` (dept, C) and ``y_last`` (C,) are the one-vs-all targets;
+    ``scalars`` and ``gram_precision`` as in :func:`solve_ls_svm`, with the
+    compensated sums taken per column.
+    """
+    _check_gram_precision(impl, gram_precision)
+    if scalars == "compensated":
+        colsum = compensated_sum
+    else:
+        def colsum(M):
+            return torch.sum(M, dim=0)
+    return cg_ls_svm_multi_core(
+        X, x_last, Y, y_last, gamma, coef0, cost, eps, max_iter,
+        kind=kind, degree=degree,
+        kernel_mm=_make_kernel_matmat(kind, degree, impl), colsum=colsum,
     )

@@ -152,8 +152,9 @@ class TestNotPorted:
         return plssvm_tpu_torch.DataSet(X, np.arange(30) % n_classes)
 
     def test_multiclass_data(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 2"):
-            plssvm_tpu_torch.CSVM(device="cpu").fit(self._data(3))
+        """One-vs-all multiclass is ported; one-vs-one training is not."""
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 6"):
+            plssvm_tpu_torch.CSVM(device="cpu").fit(self._data(3), classification="oao")
 
     @pytest.mark.parametrize("kernel", ["laplacian", "chi_squared"])
     def test_distance_kernels(self, kernel):
