@@ -25,7 +25,26 @@ Phases, one line each or more (the run stops at the first that fails):
 6. the width of BASELINE config 3: polynomial on 50000 x 500 scaled to
    [-1, 1], 20 CG iterations;
 7. multiclass at the width and class count of MNIST: 60000 x 784, 10
-   classes, fitted and scored through CSVM in memory.
+   classes, fitted and scored through CSVM in memory;
+8. laplacian, binary: phase 4's config 2 files through both CLIs with
+   ``-t 4``, CG through kernel E and predict through kernel F; accuracy
+   floor, float32/float64 agreement, and a small float64 fit through the
+   kernels against the plain versions;
+9. chi-squared, 10 classes: seeded histogram classes (L1-normalised word
+   counts) at config 2's shape through both CLIs with ``-t 5``, block CG
+   through kernel G and predict through kernel H; accuracy floor under the
+   Bayes-optimal rule, float32/float64 agreement;
+10. chi-squared at MNIST width: the same histogram classes, 60000 x 784,
+   fitted and scored through CSVM in memory with max_iter capped from
+   kernel G's measured time.
+
+Phases 8 and 9 run right after phase 5, while the files of phases 4 and 5
+exist; phase 10 runs last.
+
+Phase 3 also holds kernels E-H (laplacian / chi-squared matvecs and block
+matmats, csrc/distance.cu) against their plain versions on ragged shapes
+with non-negative, zero-rich data and at phases 8-10's shapes, and times
+them there and, beside kernel A, at m = 16384, d = 256.
 
 Before the last line it prints the card's name and power limit as
 nvidia-smi reports them, and one JSON object describing each kernel; the
@@ -63,8 +82,41 @@ MC_CLASSES = 10
 #: more than 1e-3 squared, so epsilon 1e-3 stops after one iteration at a
 #: model no better than chance (plssvm_tpu does the same).
 EPSILON = 1e-8
+#: accuracy floor of phase 8 (laplacian on config 2's files; Bayes-optimal
+#: about 0.92).  A float64 run of the plain versions scores 0.9230, on the
+#: card: at 10000 x 200 the plain laplacian takes minutes per CG iteration
+#: on a CPU.
+LAPLACIAN_ACCURACY_FLOOR = 0.89
+#: accuracy floor of phases 9 and 10 (chi-squared on the histogram
+#: classes).  The Bayes-optimal rule scores 0.895 (phase 9's 200 bins) and
+#: 0.922 (phase 10's 784 bins) by Monte Carlo; on phase 9's set a float64
+#: fit on the card scores 0.8660 at CHI2_EPSILON (0.8665 in float32).
+CHI2_ACCURACY_FLOOR = 0.84
+#: phases 9 and 10 train to epsilon 1e-7, not 1e-8: on the histogram
+#: classes float32 CG does not reach 1e-8 (one class ran 4343 block
+#: iterations and its decision values swamped the argmax), while at 1e-7
+#: it stops after 37 iterations and its labels agree with float64's on
+#: 0.999 (0.994 at 1e-6)
+CHI2_EPSILON = 1e-7
 F32_TOL, F64_TOL = 1e-4, 1e-10
 SEED = 20261016
+#: the histogram classes of phases 9 and 10: a base bin distribution drawn
+#: from Dirichlet(HIST_ALPHA), each class's from Dirichlet(HIST_CONC * d *
+#: base), so the classes overlap; a point is HIST_WORDS words drawn from its
+#: class's distribution, divided by HIST_WORDS.  About 80 % (200 bins) and
+#: 93 % (784 bins) of the features are 0.
+HIST_ALPHA, HIST_CONC, HIST_WORDS = 0.5, 5.0, 60
+#: the kernels phase times the plain distance versions over this many
+#: launches on each side of the kernel, after one warm-up: one launch takes
+#: 0.55 s (laplacian) to 2 s (chi-squared) at m = 16384, d = 256
+DIST_PLAIN_REPEATS = 3
+#: seconds of kernel-G work phase 10 may spend in CG (max_iter is derived
+#: from kernel G's time measured at its shape in the kernels phase)
+CHI_WIDTH_CG_SECONDS = 50.0
+#: phase 10 trains to epsilon 1e-6: it has no float64 comparison, and at
+#: 1e-6 CG reaches epsilon within the time above (26 iterations of ~1.5 s
+#: on an H100), where 1e-7 would need ~38
+CHI_WIDTH_EPSILON = 1e-6
 
 
 def log(phase, message):
@@ -135,6 +187,18 @@ def _pairs(v):
     )
 
 
+def _check_close(label, got, want):
+    """(max|got - want|, max|want|); raise past the tolerance of the type."""
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    tol = F32_TOL if got.dtype == torch.float32 else F64_TOL
+    if not (got.shape == want.shape and torch.isfinite(got).all()
+            and err <= tol * scale):
+        raise AssertionError(f"{label}: max|err| {err} vs max|plain| {scale}")
+    return err, scale
+
+
 def _compare(kind, coef0, X, P, v):
     """max|kernel - plain| and max|plain| for kernels A and B (v (m,)) or
     C and D (v (m, C))."""
@@ -146,23 +210,216 @@ def _compare(kind, coef0, X, P, v):
         (sym_name, sym, sym_plain, (X, sq, v)),
         (rect_name, rect, rect_plain, (P, X, sq_p, sq, v)),
     ):
-        got, want = kernel(*args, **kw), plain(*args, **kw)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        if not (torch.isfinite(got).all() and err <= (
-            F32_TOL if X.dtype == torch.float32 else F64_TOL
-        ) * scale):
-            raise AssertionError(
-                f"{name} {kind} {X.dtype} {tuple(X.shape)}: max|err| {err} "
-                f"vs max|plain| {scale}"
-            )
-        out[name] = (err, scale)
+        out[name] = _check_close(
+            f"{name} {kind} {X.dtype} {tuple(X.shape)}",
+            kernel(*args, **kw), plain(*args, **kw),
+        )
     return out
 
 
-def _median_ms(fn, repeats=20):
-    for _ in range(2):
+def _distance_pairs(v):
+    """(name, kernel, plain) of the symmetric and the rectangular distance
+    kernel for v (m,) (kernels E, F) or V (m, C) (kernels G, H)."""
+    from plssvm_tpu_torch.ops import distance, matvec
+
+    if v.ndim == 2:
+        return (
+            ("distance_matmat_sym", distance.distance_matmat_sym,
+             matvec.distance_matmat_plain),
+            ("distance_matmat_rect", distance.distance_matmat_rect,
+             matvec.distance_matmat_rect_plain),
+        )
+    return (
+        ("distance_matvec_sym", distance.distance_matvec_sym,
+         matvec.distance_matvec_plain),
+        ("distance_matvec_rect", distance.distance_matvec_rect,
+         matvec.distance_matvec_rect_plain),
+    )
+
+
+def _compare_distance(kind, X, P, v, gamma):
+    """max|kernel - plain| and max|plain| for kernels E and F (v (m,)) or
+    G and H (v (m, C)), P the points against the rows of X."""
+    kw = dict(kind=kind, gamma=gamma)
+    (sym_name, sym, sym_plain), (rect_name, rect, rect_plain) = _distance_pairs(v)
+    return {
+        name: _check_close(f"{name} {kind} {X.dtype} {tuple(X.shape)}",
+                           kernel(*args, **kw), plain(*args, **kw))
+        for name, kernel, plain, args in (
+            (sym_name, sym, sym_plain, (X, v)),
+            (rect_name, rect, rect_plain, (P, X, v)),
+        )
+    }
+
+
+def _histogram_classes(rng, d, n_classes=MC_CLASSES):
+    """(n_classes, d) bin distributions around one base distribution."""
+    base = rng.dirichlet(np.full(d, HIST_ALPHA))
+    return np.stack([rng.dirichlet(HIST_CONC * d * base)
+                     for _ in range(n_classes)])
+
+
+def _draw_histograms(rng, probs, n):
+    """n L1-normalised histograms of HIST_WORDS words from the classes
+    ``probs``: (features, labels, word counts)."""
+    labels = rng.integers(0, len(probs), n)
+    counts = rng.multinomial(HIST_WORDS, probs[labels])
+    return counts / HIST_WORDS, labels, counts
+
+
+def _bayes_accuracy(rng, probs, n=20000):
+    """Monte-Carlo accuracy of the Bayes-optimal rule for the multinomial
+    classes: argmax_c sum_k counts_k log p_ck (equal priors)."""
+    _, labels, counts = _draw_histograms(rng, probs, n)
+    log_p = np.log(np.maximum(probs, 1e-300))
+    return float(np.mean(np.argmax(counts @ log_p.T, axis=1) == labels))
+
+
+def _chi2_gamma(rng, X, pairs=2000):
+    """1 / the mean chi-squared distance over seeded pairs of rows (Zhang,
+    Marszalek, Lazebnik & Schmid, IJCV 2007)."""
+    i = rng.integers(0, len(X), pairs)
+    j = (i + 1 + rng.integers(0, len(X) - 1, pairs)) % len(X)  # j != i
+    num = (X[i] - X[j]) ** 2
+    den = X[i] + X[j]
+    dist = np.sum(np.divide(num, den, out=np.zeros_like(num), where=den > 0),
+                  axis=1)
+    return float(1.0 / dist.mean())
+
+
+def _zero_rich(m, d, dtype, gen):
+    """Non-negative rows on the card, about a third of the entries 0 and
+    one row all 0, so chi-squared's 0/0 rule is on the path."""
+    X = torch.rand(m, d, generator=gen, dtype=torch.float64)
+    X[X < 0.33] = 0.0
+    X[m // 2] = 0.0
+    return X.to("cuda", dtype)
+
+
+def _distance_kernels(gen, main_err, timing, time_a):
+    """Kernels E-H against their plain versions, then timed at the main
+    paths' shapes and at m = 16384, d = 256; fills main_err / timing under
+    (name, kind) and returns kernel G's chi-squared ms at phase 10's shape
+    (59999 x 784, 10 classes)."""
+    from plssvm_tpu_torch.parameter import KernelFunctionType as K
+
+    kinds = (K.LAPLACIAN, K.CHI_SQUARED)
+    worst = {}
+    for dtype in (torch.float32, torch.float64):
+        for m, d in ((1037, 203), (300, 1280), (129, 3), (1, 1)):
+            for n_classes in (None, 1, 3, 10, 37):
+                X, P = _zero_rich(m, d, dtype, gen), _zero_rich(m // 2 + 1, d, dtype, gen)
+                shape = (m,) if n_classes is None else (m, n_classes)
+                v = torch.randn(*shape, generator=gen, dtype=torch.float64).to("cuda", dtype)
+                for kind in kinds:
+                    for name, (err, scale) in _compare_distance(kind, X, P, v, 1.0 / d).items():
+                        key = (name, str(dtype).split(".")[-1])
+                        worst[key] = max(worst.get(key, 0.0), err / max(scale, 1e-300))
+    for (name, dt), rel in sorted(worst.items()):
+        log("kernels", f"{name} {dt}: worst max|err|/max|plain| {rel:.3e} over "
+            "laplacian/chi-squared x 4 shapes" + (" x 1-37 classes" if "matmat" in name else ""))
+
+    # the main paths' shapes, f32: phase 8 (laplacian, config 2: 9999 x 200
+    # training, 2000 points against 10000 SVs), phase 9 (chi-squared, 10
+    # classes, the same shape) and phase 10 (chi-squared, 59999 x 784
+    # training, 10000 points against 60000 SVs: the plain versions check
+    # the first 512 output rows, the whole square would take minutes)
+    from plssvm_tpu_torch.ops import distance, matvec
+
+    def time_main(name, kernel, plain, args, kw, label):
+        """The kernel and, unless ``plain`` is None, its plain version at a
+        main path's shape; returns the kernel's ms."""
+        rows, d_ = args[0].shape
+        work = float(rows) * (args[1].shape[0] if len(args) == 3 else rows) * d_
+        if plain is None:
+            k_ms = _median_ms(lambda: kernel(*args, **kw), DIST_PLAIN_REPEATS, 1)
+            log("kernels", f"{name} {label}: kernel {k_ms:.3f} ms (median of "
+                f"{DIST_PLAIN_REPEATS} after 1 warm-up; the plain version takes "
+                "minutes here)")
+            return k_ms
+        return _time_pair(name, kernel, plain, args, kw, work, label,
+                          plain_repeats=DIST_PLAIN_REPEATS, unit="Tpair-feature/s",
+                          counted="rows x columns x d")[0]
+
+    rng = np.random.default_rng(SEED + 10)
+    S, P, a = _operands(10000, 200, torch.float32, gen, n_points=2000)
+    X, v = S[:9999].contiguous(), a[:9999].contiguous()
+    kw = dict(kind=K.LAPLACIAN, gamma=1.0 / 200)
+    (sym_name, sym, sym_plain), (rect_name, rect, rect_plain) = _distance_pairs(v)
+    sym_err = _check_close("distance_matvec_sym laplacian 9999x200",
+                           sym(X, v, **kw), sym_plain(X, v, **kw))
+    rect_err = _check_close("distance_matvec_rect laplacian 2000x10000x200",
+                            rect(P, S, a, **kw), rect_plain(P, S, a, **kw))
+    main_err[(sym_name, "laplacian")] = sym_err[0]
+    main_err[(rect_name, "laplacian")] = rect_err[0]
+    log("kernels", f"main-path shapes f32 laplacian: sym 9999x200 max|err| "
+        f"{sym_err[0]:.3e} (max|plain| {sym_err[1]:.3e}), rect 2000x10000x200 "
+        f"{rect_err[0]:.3e} (max|plain| {rect_err[1]:.3e})")
+    time_main(sym_name, sym, sym_plain, (X, v), kw, "9999x200 f32 laplacian")
+    time_main(rect_name, rect, rect_plain, (P, S, a), kw,
+              "2000x10000x200 f32 laplacian")
+    g_ms = {}
+    for m, d, n_points in ((10000, 200, 2000), (60000, 784, 10000)):
+        probs = _histogram_classes(rng, d)
+        Xn = _draw_histograms(rng, probs, m)[0]
+        gamma = _chi2_gamma(rng, Xn)
+        S = torch.as_tensor(Xn, dtype=torch.float32, device="cuda")
+        X = S[:m - 1].contiguous()
+        P = torch.as_tensor(_draw_histograms(rng, probs, n_points)[0],
+                            dtype=torch.float32, device="cuda")
+        A = torch.randn(m, MC_CLASSES, generator=gen, dtype=torch.float64).to("cuda", torch.float32)
+        V = A[:m - 1].contiguous()
+        kw = dict(kind=K.CHI_SQUARED, gamma=gamma)
+        rows = 512 if m > 10000 else m - 1
+        sym = _check_close(f"distance_matmat_sym chi2 {m - 1}x{d}",
+                           distance.distance_matmat_sym(X, V, **kw)[:rows],
+                           matvec.distance_matmat_rect_plain(X[:rows], X, V, **kw))
+        rows = 512 if m > 10000 else n_points
+        rect = _check_close(f"distance_matmat_rect chi2 {n_points}x{m}x{d}",
+                            distance.distance_matmat_rect(P, S, A, **kw)[:rows],
+                            matvec.distance_matmat_rect_plain(P[:rows], S, A, **kw))
+        for name, (err, _) in (("distance_matmat_sym", sym), ("distance_matmat_rect", rect)):
+            key = (name, "chi_squared")
+            main_err[key] = max(main_err.get(key, 0.0), err)
+        log("kernels", f"main-path shapes f32 chi-squared, {MC_CLASSES} classes, "
+            f"gamma {gamma:.4f}: sym {m - 1}x{d} max|err| {sym[0]:.3e} (max|plain| "
+            f"{sym[1]:.3e}), rect {n_points}x{m}x{d} {rect[0]:.3e} (max|plain| "
+            f"{rect[1]:.3e})" + (" (first 512 rows)" if m > 10000 else ""))
+        full = m <= 10000  # the plain versions only where they take seconds
+        g_ms[m] = time_main(
+            "distance_matmat_sym", distance.distance_matmat_sym,
+            matvec.distance_matmat_plain if full else None, (X, V), kw,
+            f"{m - 1}x{d} f32 chi_squared C={MC_CLASSES}")
+        time_main("distance_matmat_rect", distance.distance_matmat_rect,
+                  matvec.distance_matmat_rect_plain if full else None, (P, S, A),
+                  kw, f"{n_points}x{m}x{d} f32 chi_squared C={MC_CLASSES}")
+
+    # timing at m = 16384, d = 256, f32, on histogram rows, C = 10 for G
+    # and H; the plain versions over DIST_PLAIN_REPEATS launches
+    m, d = 16384, 256
+    X = torch.as_tensor(_draw_histograms(rng, _histogram_classes(rng, d), m)[0],
+                        dtype=torch.float32, device="cuda")
+    v = torch.randn(m, generator=gen, dtype=torch.float64).to("cuda", torch.float32)
+    V = torch.randn(m, MC_CLASSES, generator=gen, dtype=torch.float64).to("cuda", torch.float32)
+    a_ms = time_a(X)
+    for kind in kinds:
+        kw = dict(kind=kind, gamma=1.0 / d)
+        for rhs in (v, V):
+            label = f"m={m} d={d} f32 {kind}" + (f" C={rhs.shape[1]}" if rhs.ndim == 2 else "")
+            for name, kernel, plain in _distance_pairs(rhs):
+                args = (X, rhs) if "sym" in name else (X, X, rhs)
+                timing[(name, str(kind))] = _time_pair(
+                    name, kernel, plain, args, kw, float(m) * m * d, label,
+                    plain_repeats=DIST_PLAIN_REPEATS, unit="Tpair-feature/s",
+                    counted="m^2 d")
+        log("kernels", f"distance_matvec_sym {kind} / gram_matvec_sym rbf at m={m} "
+            f"d={d}: {timing[('distance_matvec_sym', str(kind))][0] / a_ms:.3f}x the time "
+            f"(kernel A {a_ms:.3f} ms in this call)")
+    return g_ms[60000]
+
+
+def _median_ms(fn, repeats=20, warmup=2):
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(repeats):
@@ -176,18 +433,22 @@ def _median_ms(fn, repeats=20):
     return statistics.median(times)
 
 
-def _time_pair(name, kernel, plain, args, kw, flops, label):
+def _time_pair(name, kernel, plain, args, kw, work, label, plain_repeats=20,
+               unit="TFLOP/s", counted="2 m^2 d"):
     """Median ms of the kernel and of its plain version, in the order plain,
-    kernel, kernel, plain: the two halves bracket any drift."""
-    p1 = _median_ms(lambda: plain(*args, **kw))
+    kernel, kernel, plain: the two halves bracket any drift.  ``work`` is
+    the count of ``counted``; the rates are 1e12 of it per second."""
+    plain_warmup = 2 if plain_repeats >= 20 else 1
+    p1 = _median_ms(lambda: plain(*args, **kw), plain_repeats, plain_warmup)
     k1 = _median_ms(lambda: kernel(*args, **kw))
     k2 = _median_ms(lambda: kernel(*args, **kw))
-    p2 = _median_ms(lambda: plain(*args, **kw))
+    p2 = _median_ms(lambda: plain(*args, **kw), plain_repeats, plain_warmup)
     k_ms, p_ms = min(k1, k2), min(p1, p2)
     log("kernels", f"{name} {label}: kernel {k_ms:.3f} ms "
-        f"({k1:.3f}, {k2:.3f}) = {flops / k_ms / 1e9:.2f} TFLOP/s; plain "
-        f"{p_ms:.3f} ms ({p1:.3f}, {p2:.3f}) = {flops / p_ms / 1e9:.2f} "
-        "TFLOP/s (counted as 2 m^2 d)")
+        f"({k1:.3f}, {k2:.3f}) = {work / k_ms / 1e9:.2f} {unit}; plain "
+        f"{p_ms:.3f} ms ({p1:.3f}, {p2:.3f}) = {work / p_ms / 1e9:.2f} "
+        f"{unit} (counted as {counted}; plain: median of {plain_repeats} "
+        f"after {plain_warmup} warm-up)")
     return k_ms, p_ms
 
 
@@ -272,7 +533,21 @@ def phase_kernels():
                      ("gram_matmat_rect", "gram_matvec_rect")):
         log("kernels", f"{mat} (C={MC_CLASSES}) / {vec} at m={m} d={d}: "
             f"{timing[mat][0] / timing[vec][0]:.3f}x the time")
-    return main_err, timing
+
+    def time_a(X16):
+        """Kernel A alone on the distance timing's rows, RBF."""
+        from plssvm_tpu_torch.ops import gram_matvec
+
+        sq16 = (X16 * X16).sum(-1)
+        v16 = torch.ones(X16.shape[0], device="cuda", dtype=X16.dtype)
+        kw16 = dict(kind=K.RBF, gamma=1.0 / X16.shape[1], coef0=0.0, degree=3)
+        a_ms = _median_ms(lambda: gram_matvec.gram_matvec_sym(X16, sq16, v16, **kw16))
+        log("kernels", f"gram_matvec_sym m={X16.shape[0]} d={X16.shape[1]} f32 rbf: "
+            f"{a_ms:.3f} ms")
+        return a_ms
+
+    g_chi_ms = _distance_kernels(gen, main_err, timing, time_a)
+    return main_err, timing, g_chi_ms
 
 
 def _write_config2(tmp):
@@ -280,6 +555,7 @@ def _write_config2(tmp):
     files, written with the port's LIBSVM writer."""
     from plssvm_tpu_torch import DataSet
 
+    start = time.perf_counter()
     rng = np.random.default_rng(SEED)
     paths = []
     for name, n in (("train", 10000), ("test", 2000)):
@@ -288,6 +564,8 @@ def _write_config2(tmp):
         path = os.path.join(tmp, f"{name}.libsvm")
         DataSet(X, y).save(path)
         paths.append((path, y))
+    log("e2e", f"wrote 10000x200 + 2000x200 LIBSVM files in "
+        f"{time.perf_counter() - start:.2f} s")
     return paths
 
 
@@ -298,92 +576,134 @@ def _tracked(category, name):
     return values[-1]
 
 
-def phase_end_to_end(tmp):
+def _cli_fit_predict(phase, train_file, test_file, tmp, flags):
+    """Train and predict through the port's CLIs on the card; returns
+    (fit seconds, predict seconds, predicted labels)."""
     import plssvm_tpu_torch as port
     from plssvm_tpu_torch.cli import predict as predict_cli
     from plssvm_tpu_torch.cli import train as train_cli
-    from plssvm_tpu_torch.ops import gram_matvec, matvec
 
-    start = time.perf_counter()
-    (train_file, _), (test_file, test_labels) = _write_config2(tmp)
-    log("e2e", f"wrote 10000x200 + 2000x200 LIBSVM files in "
-        f"{time.perf_counter() - start:.2f} s")
-    model_file = os.path.join(tmp, "train.model")
-    out_file = os.path.join(tmp, "test.predict")
-    port.global_tracker.clear()
+    model_file = os.path.join(tmp, f"{phase}.model")
+    out_file = os.path.join(tmp, f"{phase}.predict")
     common = ["-b", "cuda", "-p", "gpu", "-q"]
-
-    gram_matvec.reset_counts()
+    port.global_tracker.clear()
     t0 = time.perf_counter()
-    rc = train_cli.main(common + ["-t", "2", "-c", "1", "-e", str(EPSILON),
-                                  train_file, model_file])
+    rc = train_cli.main(common + flags + [train_file, model_file])
     t1 = time.perf_counter()
     rc_predict = predict_cli.main(common + [test_file, model_file, out_file])
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = {
-        "gram_matvec_sym": gram_matvec.sym_launches,
-        "gram_matvec_rect": gram_matvec.rect_launches,
-    }
-    plain_calls = matvec.sym_plain_calls + matvec.rect_plain_calls
     if rc != 0 or rc_predict != 0:
-        raise AssertionError(f"train rc {rc}, predict rc {rc_predict}")
-
-    iterations = _tracked("cg", "iterations")
-    cg_ms = _tracked("cg", "total_runtime")
+        raise AssertionError(f"{phase}: train rc {rc}, predict rc {rc_predict}")
     with open(out_file, encoding="utf-8") as fh:
         predicted = np.asarray([int(line) for line in fh])
-    accuracy = float(np.mean(predicted == test_labels))
-    log("e2e", f"config 2 f32 (cuda): {iterations} CG iterations, "
-        f"{cg_ms / 1000 / iterations:.6f} s/iteration, CG {cg_ms / 1000:.3f} s,"
-        f" fit (CLI, parse included) {t1 - t0:.3f} s, predict (CLI) "
-        f"{t2 - t1:.3f} s, accuracy {accuracy:.4f}, launches {launches}, "
-        f"plain calls {plain_calls}")
-    # initial residual, one per iteration, one more every 50th
-    expected_sym = 1 + iterations + iterations // 50
-    if launches["gram_matvec_sym"] < iterations or launches["gram_matvec_sym"] != expected_sym:
-        raise AssertionError(f"kernel A launched {launches['gram_matvec_sym']} "
-                             f"times for {iterations} iterations")
-    if launches["gram_matvec_rect"] <= 0 or plain_calls != 0:
-        raise AssertionError("predict did not go through kernel B only")
-    if accuracy < ACCURACY_FLOOR:
-        raise AssertionError(f"accuracy {accuracy} below {ACCURACY_FLOOR}")
+    return t1 - t0, t2 - t1, predicted
 
-    # float64 on the card must predict the same labels on >= 99.5 %
+
+def _check_cli_run(phase, label, fit_s, predict_s, accuracy, floor, launches,
+                   plain_calls, sym_name, rect_name):
+    """Log a CLI run and check it: the symmetric kernel launched once for
+    the initial residual, once per iteration and once more every 50th; the
+    rectangular one at least once; no plain version called; the accuracy
+    floor met."""
+    iterations = _tracked("cg", "iterations")
+    cg_ms = _tracked("cg", "total_runtime")
+    per_class = _tracked("cg", "iterations_per_class") if "matmat" in sym_name else None
+    log(phase, f"{label} f32 (cuda): {iterations} CG iterations"
+        + (f" (per class {per_class})" if per_class else "")
+        + f", {cg_ms / 1000 / iterations:.6f} s/iteration, CG {cg_ms / 1000:.3f} s, "
+        f"fit (CLI, parse included) {fit_s:.3f} s, predict (CLI) {predict_s:.3f} s, "
+        f"accuracy {accuracy:.4f}, launches {launches}, plain calls {plain_calls}")
+    if launches[sym_name] != 1 + iterations + iterations // 50:
+        raise AssertionError(f"{sym_name} launched {launches[sym_name]} times "
+                             f"for {iterations} iterations")
+    if launches[rect_name] <= 0 or plain_calls != 0:
+        raise AssertionError(f"{phase}: predict did not go through {rect_name} only")
+    if accuracy < floor:
+        raise AssertionError(f"accuracy {accuracy} below {floor}")
+
+
+def _f64_agreement(phase, label, train_file, test_file, predicted, epsilon, **params):
+    """A float64 fit on the card from the same files must predict the
+    float32 run's labels on >= 99.5 % of the points."""
+    import plssvm_tpu_torch as port
+
     train64 = port.DataSet(train_file, dtype=np.float64)
     test64 = port.DataSet(test_file, dtype=np.float64)
     svm64 = port.CSVM(backend="cuda", device="cuda", dtype=np.float64,
-                      kernel_type="rbf", cost=1.0)
-    t3 = time.perf_counter()
-    model64 = svm64.fit(train64, epsilon=EPSILON)
-    t4 = time.perf_counter()
+                      cost=1.0, **params)
+    t0 = time.perf_counter()
+    model64 = svm64.fit(train64, epsilon=epsilon)
+    t1 = time.perf_counter()
     agree = float(np.mean(svm64.predict(model64, test64) == predicted))
-    log("e2e", f"config 2 f64 (cuda): {model64.n_iter} CG iterations, fit "
-        f"{t4 - t3:.3f} s, f32/f64 label agreement {agree:.4f}")
+    log(phase, f"{label} f64 (cuda): {model64.n_iter} CG iterations, fit "
+        f"{t1 - t0:.3f} s, f32/f64 label agreement {agree:.4f}")
     if agree < 0.995:
         raise AssertionError(f"f32 and f64 agree on {agree} of the labels")
 
-    # a small float64 problem: CUDA kernels and plain versions agree
-    rng = np.random.default_rng(SEED + 1)
-    y = np.where(rng.random(400) < 0.5, -1, 1)
-    X = rng.normal(size=(400, 10)) + 0.4 * y[:, None]
+
+def _small_fit_agreement(phase, kernel_type, n_classes, seed):
+    """A small float64 problem (400 x 10, 300 train): the CUDA kernels and
+    the plain versions on the card give the same model and decision values."""
+    import plssvm_tpu_torch as port
+
+    rng = np.random.default_rng(seed)
+    if n_classes == 2:
+        y = np.where(rng.random(400) < 0.5, -1, 1)
+        X = rng.normal(size=(400, 10)) + 0.4 * y[:, None]
+    else:
+        y = rng.integers(0, n_classes, 400)
+        X = rng.normal(size=(400, 10)) + rng.normal(size=(n_classes, 10))[y]
     train = port.DataSet(X[:300], y[:300], scaling=(-1.0, 1.0))
     test = port.DataSet(X[300:], y[300:], scaling=train.scaling_factors)
     values = []
     for backend in ("cuda", "torch"):
         svm = port.CSVM(backend=backend, device="cuda", dtype=np.float64,
-                        kernel_type="rbf", cost=1.0)
+                        kernel_type=kernel_type, cost=1.0)
         model = svm.fit(train, epsilon=1e-10)
-        values.append((model.rho, svm.predict_values(model, test)))
-    drho = abs(values[0][0] - values[1][0])
+        values.append((np.asarray(model.rho), svm.predict_values(model, test)))
+    drho = float(np.max(np.abs(values[0][0] - values[1][0])))
     dval = float(np.max(np.abs(values[0][1] - values[1][1])))
-    log("e2e", f"small f64 fit, kernels vs plain on the card: |d rho| "
-        f"{drho:.3e}, max|d f(x)| {dval:.3e}")
+    log(phase, f"small {n_classes}-class f64 {kernel_type} fit, kernels vs plain "
+        f"on the card: max|d rho| {drho:.3e}, max|d f(x)| {dval:.3e}")
     # the kernels' atomics reorder sums from run to run, and CG amplifies
     # that rounding noise (ROADMAP Queue 3); 1e-6 on O(1) values still
     # catches any real difference between the two paths
     if not (np.all(np.isfinite(values[0][1])) and drho <= 1e-6 and dval <= 1e-6):
-        raise AssertionError("small f64 fit: kernels and plain versions disagree")
+        raise AssertionError(f"{phase}: kernels and plain versions disagree")
+
+
+def _distance_counts():
+    from plssvm_tpu_torch.ops import distance, matvec
+
+    return {
+        "distance_matvec_sym": distance.matvec_sym_launches,
+        "distance_matvec_rect": distance.matvec_rect_launches,
+        "distance_matmat_sym": distance.matmat_sym_launches,
+        "distance_matmat_rect": distance.matmat_rect_launches,
+    }, (matvec.dist_sym_plain_calls + matvec.dist_rect_plain_calls
+        + matvec.dist_sym_matmat_plain_calls + matvec.dist_rect_matmat_plain_calls)
+
+
+def phase_end_to_end(tmp, config2_files):
+    from plssvm_tpu_torch.ops import gram_matvec, matvec
+
+    (train_file, _), (test_file, test_labels) = config2_files
+    gram_matvec.reset_counts()
+    fit_s, predict_s, predicted = _cli_fit_predict(
+        "e2e", train_file, test_file, tmp,
+        ["-t", "2", "-c", "1", "-e", str(EPSILON)])
+    launches = {
+        "gram_matvec_sym": gram_matvec.sym_launches,
+        "gram_matvec_rect": gram_matvec.rect_launches,
+    }
+    _check_cli_run("e2e", "config 2", fit_s, predict_s,
+                   float(np.mean(predicted == test_labels)), ACCURACY_FLOOR,
+                   launches, matvec.sym_plain_calls + matvec.rect_plain_calls,
+                   "gram_matvec_sym", "gram_matvec_rect")
+    _f64_agreement("e2e", "config 2", train_file, test_file, predicted,
+                   EPSILON, kernel_type="rbf")
+    _small_fit_agreement("e2e", "rbf", 2, SEED + 1)
     return launches
 
 
@@ -400,10 +720,7 @@ def _draw(rng, means, n):
 
 
 def phase_multiclass_cli(tmp):
-    import plssvm_tpu_torch as port
     from plssvm_tpu_torch import DataSet
-    from plssvm_tpu_torch.cli import predict as predict_cli
-    from plssvm_tpu_torch.cli import train as train_cli
     from plssvm_tpu_torch.ops import gram_matmat, gram_matvec, matvec
 
     start = time.perf_counter()
@@ -415,88 +732,27 @@ def phase_multiclass_cli(tmp):
         files[name] = (os.path.join(tmp, f"{name}.libsvm"), y)
         DataSet(X, y).save(files[name][0])
     train_file, test_file = files["mc_train"][0], files["mc_test"][0]
-    test_labels = files["mc_test"][1]
     log("multiclass", f"wrote {MC_CLASSES}-class 10000x200 + 2000x200 LIBSVM "
         f"files in {time.perf_counter() - start:.2f} s")
-    model_file = os.path.join(tmp, "mc_train.model")
-    out_file = os.path.join(tmp, "mc_test.predict")
-    port.global_tracker.clear()
-    common = ["-b", "cuda", "-p", "gpu", "-q"]
-
     gram_matvec.reset_counts()
     gram_matmat.reset_counts()
-    t0 = time.perf_counter()
-    rc = train_cli.main(common + ["-t", "2", "-c", "1", "-e", str(EPSILON),
-                                  train_file, model_file])
-    t1 = time.perf_counter()
-    rc_predict = predict_cli.main(common + [test_file, model_file, out_file])
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    fit_s, predict_s, predicted = _cli_fit_predict(
+        "multiclass", train_file, test_file, tmp,
+        ["-t", "2", "-c", "1", "-e", str(EPSILON)])
     launches = {
         "gram_matmat_sym": gram_matmat.sym_launches,
         "gram_matmat_rect": gram_matmat.rect_launches,
     }
-    plain_calls = matvec.sym_matmat_plain_calls + matvec.rect_matmat_plain_calls
-    binary_launches = gram_matvec.sym_launches + gram_matvec.rect_launches
-    if rc != 0 or rc_predict != 0:
-        raise AssertionError(f"train rc {rc}, predict rc {rc_predict}")
-
-    iterations = _tracked("cg", "iterations")
-    per_class = _tracked("cg", "iterations_per_class")
-    cg_ms = _tracked("cg", "total_runtime")
-    with open(out_file, encoding="utf-8") as fh:
-        predicted = np.asarray([int(line) for line in fh])
-    accuracy = float(np.mean(predicted == test_labels))
-    log("multiclass", f"{MC_CLASSES} classes f32 (cuda): {iterations} block-CG "
-        f"iterations (per class {per_class}), "
-        f"{cg_ms / 1000 / iterations:.6f} s/iteration, CG {cg_ms / 1000:.3f} s, "
-        f"fit (CLI, parse included) {t1 - t0:.3f} s, predict (CLI) "
-        f"{t2 - t1:.3f} s, accuracy {accuracy:.4f}, launches {launches}, "
-        f"matmat plain calls {plain_calls}, matvec launches {binary_launches}")
-    # initial residual, one per iteration, one more every 50th
-    expected = 1 + iterations + iterations // 50
-    if launches["gram_matmat_sym"] != expected:
-        raise AssertionError(f"kernel C launched {launches['gram_matmat_sym']} "
-                             f"times for {iterations} iterations")
-    if launches["gram_matmat_rect"] <= 0 or plain_calls != 0:
-        raise AssertionError("multiclass predict did not go through kernel D only")
-    if accuracy < MC_ACCURACY_FLOOR:
-        raise AssertionError(f"accuracy {accuracy} below {MC_ACCURACY_FLOOR}")
-
-    # float64 on the card must predict the same labels on >= 99.5 %
-    train64 = port.DataSet(train_file, dtype=np.float64)
-    test64 = port.DataSet(test_file, dtype=np.float64)
-    svm64 = port.CSVM(backend="cuda", device="cuda", dtype=np.float64,
-                      kernel_type="rbf", cost=1.0)
-    t3 = time.perf_counter()
-    model64 = svm64.fit(train64, epsilon=EPSILON)
-    t4 = time.perf_counter()
-    agree = float(np.mean(svm64.predict(model64, test64) == predicted))
-    log("multiclass", f"{MC_CLASSES} classes f64 (cuda): {model64.n_iter} "
-        f"block-CG iterations, fit {t4 - t3:.3f} s, f32/f64 label agreement "
-        f"{agree:.4f}")
-    if agree < 0.995:
-        raise AssertionError(f"f32 and f64 agree on {agree} of the labels")
-
-    # a small float64 four-class problem: CUDA kernels and plain versions agree
-    rng = np.random.default_rng(SEED + 5)
-    y = rng.integers(0, 4, 400)
-    X = rng.normal(size=(400, 10)) + rng.normal(size=(4, 10))[y]
-    train = port.DataSet(X[:300], y[:300], scaling=(-1.0, 1.0))
-    test = port.DataSet(X[300:], y[300:], scaling=train.scaling_factors)
-    values = []
-    for backend in ("cuda", "torch"):
-        svm = port.CSVM(backend=backend, device="cuda", dtype=np.float64,
-                        kernel_type="rbf", cost=1.0)
-        model = svm.fit(train, epsilon=1e-10)
-        values.append((model.rho, svm.predict_values(model, test)))
-    drho = float(np.max(np.abs(values[0][0] - values[1][0])))
-    dval = float(np.max(np.abs(values[0][1] - values[1][1])))
-    log("multiclass", f"small 4-class f64 fit, kernels vs plain on the card: "
-        f"max|d rho| {drho:.3e}, max|d f(x)| {dval:.3e}")
-    # as in phase 4: the atomics' summation order, amplified by CG
-    if not (np.all(np.isfinite(values[0][1])) and drho <= 1e-6 and dval <= 1e-6):
-        raise AssertionError("small multiclass fit: kernels and plain versions disagree")
+    if gram_matvec.sym_launches + gram_matvec.rect_launches != 0:
+        raise AssertionError("multiclass launched the binary kernels")
+    _check_cli_run("multiclass", f"{MC_CLASSES} classes", fit_s, predict_s,
+                   float(np.mean(predicted == files["mc_test"][1])),
+                   MC_ACCURACY_FLOOR, launches,
+                   matvec.sym_matmat_plain_calls + matvec.rect_matmat_plain_calls,
+                   "gram_matmat_sym", "gram_matmat_rect")
+    _f64_agreement("multiclass", f"{MC_CLASSES} classes", train_file, test_file,
+                   predicted, EPSILON, kernel_type="rbf")
+    _small_fit_agreement("multiclass", "rbf", 4, SEED + 5)
     return launches
 
 
@@ -565,6 +821,117 @@ def phase_config3_width():
         f"{cg_ms / 1000 / iterations:.6f} s/iteration, fit {t1 - t0:.3f} s")
 
 
+def phase_laplacian_cli(tmp, config2_files):
+    """Phase 8: phase 4's config 2 files with -t 4: only the kernel
+    differs from phase 4."""
+    from plssvm_tpu_torch.ops import distance
+
+    (train_file, _), (test_file, test_labels) = config2_files
+    distance.reset_counts()
+    fit_s, predict_s, predicted = _cli_fit_predict(
+        "laplacian", train_file, test_file, tmp,
+        ["-t", "4", "-c", "1", "-e", str(EPSILON)])
+    launches, plain_calls = _distance_counts()
+    _check_cli_run("laplacian", "config 2 -t 4", fit_s, predict_s,
+                   float(np.mean(predicted == test_labels)),
+                   LAPLACIAN_ACCURACY_FLOOR, launches, plain_calls,
+                   "distance_matvec_sym", "distance_matvec_rect")
+    _f64_agreement("laplacian", "config 2 -t 4", train_file, test_file,
+                   predicted, EPSILON, kernel_type="laplacian")
+    _small_fit_agreement("laplacian", "laplacian", 2, SEED + 11)
+    return {k: launches[k] for k in ("distance_matvec_sym", "distance_matvec_rect")}
+
+
+def phase_chi2_cli(tmp):
+    """Phase 9: 10 histogram classes at config 2's shape, -t 5."""
+    from plssvm_tpu_torch import DataSet
+    from plssvm_tpu_torch.ops import distance
+
+    rng = np.random.default_rng(SEED + 12)
+    probs = _histogram_classes(rng, 200)
+    start = time.perf_counter()
+    X, y, _ = _draw_histograms(rng, probs, 10000)
+    X_test, y_test, _ = _draw_histograms(rng, probs, 2000)
+    train_file = os.path.join(tmp, "chi2_train.libsvm")
+    test_file = os.path.join(tmp, "chi2_test.libsvm")
+    DataSet(X, y).save(train_file)
+    DataSet(X_test, y_test).save(test_file)
+    gamma = _chi2_gamma(rng, X)
+    bayes = _bayes_accuracy(rng, probs)
+    log("chi2-cli", f"wrote {MC_CLASSES}-class 10000x200 + 2000x200 histogram "
+        f"files ({np.mean(X == 0):.3f} of the entries 0) in "
+        f"{time.perf_counter() - start:.2f} s; gamma {gamma:.6f} (1 / mean "
+        f"chi-squared distance); Bayes-optimal accuracy {bayes:.4f} (Monte "
+        "Carlo, 20000 draws)")
+    distance.reset_counts()
+    fit_s, predict_s, predicted = _cli_fit_predict(
+        "chi2-cli", train_file, test_file, tmp,
+        ["-t", "5", "-g", repr(gamma), "-c", "1", "-e", str(CHI2_EPSILON)])
+    launches, plain_calls = _distance_counts()
+    _check_cli_run("chi2-cli", f"{MC_CLASSES} classes -t 5", fit_s, predict_s,
+                   float(np.mean(predicted == y_test)), CHI2_ACCURACY_FLOOR,
+                   launches, plain_calls, "distance_matmat_sym",
+                   "distance_matmat_rect")
+    _f64_agreement("chi2-cli", f"{MC_CLASSES} classes -t 5", train_file,
+                   test_file, predicted, CHI2_EPSILON,
+                   kernel_type="chi_squared", gamma=gamma)
+    return {k: launches[k] for k in ("distance_matmat_sym", "distance_matmat_rect")}
+
+
+def phase_chi2_width(g_chi_ms):
+    """Phase 10: the histogram classes at MNIST's width, count and split,
+    through CSVM in memory; max_iter capped from kernel G's time."""
+    import plssvm_tpu_torch as port
+    from plssvm_tpu_torch.ops import distance
+
+    rng = np.random.default_rng(SEED + 13)
+    probs = _histogram_classes(rng, 784)
+    start = time.perf_counter()
+    X, y, _ = _draw_histograms(rng, probs, 60000)
+    X_test, y_test, _ = _draw_histograms(rng, probs, 10000)
+    gamma = _chi2_gamma(rng, X)
+    bayes = _bayes_accuracy(rng, probs)
+    train = port.DataSet(X, y, dtype=np.float32)
+    test = port.DataSet(X_test, y_test, dtype=np.float32)
+    # kernel G at this shape, from the kernels phase; the iteration costs
+    # one launch and the loop around it
+    per_launch = g_chi_ms / 1000
+    max_iter = max(5, int(CHI_WIDTH_CG_SECONDS / per_launch) - 2)
+    log("chi2-width", f"made {MC_CLASSES}-class 60000x784 + 10000x784 histograms "
+        f"({np.mean(X == 0):.3f} of the entries 0) in {time.perf_counter() - start:.2f} s; "
+        f"gamma {gamma:.6f}; Bayes-optimal accuracy {bayes:.4f}; kernel G "
+        f"{per_launch:.3f} s per launch (kernels phase), max_iter {max_iter}")
+    svm = port.CSVM(backend="cuda", device="cuda", dtype=np.float32,
+                    kernel_type="chi_squared", gamma=gamma, cost=1.0)
+    port.global_tracker.clear()
+    distance.reset_counts()
+    t0 = time.perf_counter()
+    model = svm.fit(train, epsilon=CHI_WIDTH_EPSILON, max_iter=max_iter)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    predicted = svm.predict(model, test)
+    t2 = time.perf_counter()
+    launches, plain_calls = _distance_counts()
+    iterations = _tracked("cg", "iterations")
+    cg_ms = _tracked("cg", "total_runtime")
+    converged = _tracked("cg", "residuum") <= _tracked("cg", "target_residuum")
+    accuracy = float(np.mean(predicted == y_test))
+    log("chi2-width", f"chi-squared 60000x784 {MC_CLASSES} classes f32 (cuda): "
+        f"{iterations} block-CG iterations (per class "
+        f"{_tracked('cg', 'iterations_per_class')}), reached epsilon {CHI_WIDTH_EPSILON}: "
+        f"{converged}, {cg_ms / 1000 / iterations:.6f} s/iteration, fit "
+        f"{t1 - t0:.3f} s, predict 10000 points {t2 - t1:.3f} s, accuracy "
+        f"{accuracy:.4f}, kernel G/H launches ({launches['distance_matmat_sym']}, "
+        f"{launches['distance_matmat_rect']}), distance plain calls {plain_calls}")
+    if not (np.all(np.isfinite(model.alpha)) and np.all(np.isfinite(model.rho))):
+        raise AssertionError("chi-squared width: non-finite model")
+    if launches["distance_matmat_sym"] != 1 + iterations + iterations // 50 \
+            or launches["distance_matmat_rect"] <= 0 or plain_calls != 0:
+        raise AssertionError("chi-squared width did not go through kernels G and H only")
+    if converged and accuracy < CHI2_ACCURACY_FLOOR:
+        raise AssertionError(f"accuracy {accuracy} below {CHI2_ACCURACY_FLOOR}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available.",
@@ -584,26 +951,41 @@ def main():
 
     name, smi = run("device", phase_device)
     run("build", phase_build)
-    main_err, timing = run("kernels", phase_kernels)
+    main_err, timing, g_chi_ms = run("kernels", phase_kernels)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = run("e2e", phase_end_to_end, tmp)
+        config2_files = _write_config2(tmp)
+        launches = run("e2e", phase_end_to_end, tmp, config2_files)
         launches.update(run("multiclass", phase_multiclass_cli, tmp))
+        launches.update(run("laplacian", phase_laplacian_cli, tmp, config2_files))
+        launches.update(run("chi2-cli", phase_chi2_cli, tmp))
     run("config3", phase_config3_width)
     run("mnist-width", phase_multiclass_width)
+    run("chi2-width", phase_chi2_width, g_chi_ms)
     log("times", ", ".join(f"{k} {v:.1f} s" for k, v in phase_seconds.items()))
 
+    # the distance kernels report the kind their main path ran: laplacian
+    # for E and F (phase 8), chi-squared for G and H (phases 9 and 10)
     sources = {
         "gram_matvec_sym": ("gram_matvec.cu", "plssvm_tpu/ops/pallas_matvec.py:430"),
         "gram_matvec_rect": ("gram_matvec.cu", "plssvm_tpu/ops/pallas_matvec.py:1007"),
         "gram_matmat_sym": ("gram_matmat.cu", "plssvm_tpu/ops/pallas_matvec.py:812"),
         "gram_matmat_rect": ("gram_matmat.cu", "plssvm_tpu/ops/pallas_matvec.py:812"),
+        ("distance_matvec_sym", "laplacian"): (
+            "distance.cu", "plssvm_tpu/ops/pallas_distance.py:226"),
+        ("distance_matvec_rect", "laplacian"): (
+            "distance.cu", "plssvm_tpu/ops/pallas_distance.py:226"),
+        ("distance_matmat_sym", "chi_squared"): (
+            "distance.cu", "plssvm_tpu/ops/pallas_distance.py:412"),
+        ("distance_matmat_rect", "chi_squared"): (
+            "distance.cu", "plssvm_tpu/ops/pallas_distance.py:412"),
     }
     print(smi)
     print(json.dumps({"kernels": [
         {
-            "name": k, "route": "cuda",
+            "name": k if isinstance(k, str) else k[0], "route": "cuda",
             "source": f"plssvm_tpu_torch/csrc/{src}",
-            "replaces": replaces, "launches": launches[k],
+            "replaces": replaces,
+            "launches": launches[k if isinstance(k, str) else k[0]],
             "max_abs_err": main_err[k], "ms": timing[k][0],
             "plain_ms": timing[k][1],
         }

@@ -58,8 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
         " 1 -- polynomial: (gamma*u'*v + coef0)^degree\n"
         " 2 -- radial basis function: exp(-gamma*|u-v|^2)\n"
         " 3 -- sigmoid: tanh(gamma*u'*v + coef0)\n"
-        " 4 -- laplacian: exp(-gamma*|u-v|_1) (not ported yet)\n"
-        " 5 -- chi-squared: exp(-gamma*sum((x-y)^2/(x+y))) (not ported yet)",
+        " 4 -- laplacian: exp(-gamma*|u-v|_1)\n"
+        " 5 -- chi-squared: exp(-gamma*sum((x-y)^2/(x+y)))",
     )
     parser.add_argument("-d", "--degree", type=int, default=None,
                         help="set degree in kernel function")

@@ -2,8 +2,9 @@
 // multiclass and one-vs-one predict, written by hand for NVIDIA Hopper
 // (sm_90a).  Bound to PyTorch through a plain C interface and ctypes
 // (plssvm_tpu_torch/ops/gram_matmat.py); built by ops/_build.py.  The Gram
-// tile, its loader and the kernel epilogue are kernels A and B's
-// (gram_tile.cuh).
+// tile, its loader and the kernel epilogue are kernels A and B's, and the
+// class loops are shared with the distance matmats G and H (all in
+// gram_tile.cuh).
 //
 // Kernel C, gram_matmat_sym: out = K(X, X) @ V with V (m, C) row-major,
 //   every block-CG iteration of a C-class one-vs-all fit.  Replaces the
@@ -47,25 +48,6 @@
 
 namespace {
 
-// classes whose V rows are staged in shared memory at once
-constexpr int kClassChunk = 8;
-
-// dst[cc][r] = V[(r0 + r) * C + c0 + cc] for r < BM, cc < cn; rows past m
-// load 0.  Neighbouring threads read neighbouring classes of one row.
-template <typename T, int BM>
-__device__ __forceinline__ void stage_classes(const T* __restrict__ V,
-                                              int64_t m, int64_t C,
-                                              int64_t r0, int64_t c0, int cn,
-                                              T (*dst)[BM + 1]) {
-    const int tid = threadIdx.y * kThreads + threadIdx.x;
-    for (int e = tid; e < BM * cn; e += kThreads * kThreads) {
-        const int r = e / cn;
-        const int cc = e % cn;
-        const int64_t g = r0 + r;
-        dst[cc][r] = g < m ? V[g * C + c0 + cc] : T(0);
-    }
-}
-
 template <typename T, int KIND>
 __global__ void __launch_bounds__(kThreads * kThreads)
     gram_matmat_sym_kernel(const T* __restrict__ X, const T* __restrict__ sq,
@@ -89,69 +71,8 @@ __global__ void __launch_bounds__(kThreads * kThreads)
     gram_tile<T, BM>(X, X, m, m, d, row0, col0, staging, kv);
     kernel_tile<T, KIND, BM>(kv, sq, sq, m, m, row0, col0, degree, gamma,
                              coef0);
-
-    const int tx = threadIdx.x;
-    const int ty = threadIdx.y;
-    const int tid = ty * kThreads + tx;
-    for (int64_t c0 = 0; c0 < C; c0 += kClassChunk) {
-        const int cn = static_cast<int>(
-            C - c0 < kClassChunk ? C - c0 : kClassChunk);
-        __syncthreads();  // the previous chunk's readers are done
-        stage_classes<T, BM>(V, m, C, col0, c0, cn, v_cols);
-        if (off_diagonal) {
-            stage_classes<T, BM>(V, m, C, row0, c0, cn, v_rows);
-        }
-        __syncthreads();
-        for (int cc = 0; cc < cn; ++cc) {
-            const int64_t c = c0 + cc;
-            T vc[R];
-#pragma unroll
-            for (int b = 0; b < R; ++b) {
-                vc[b] = v_cols[cc][tx + kThreads * b];
-            }
-#pragma unroll
-            for (int a = 0; a < R; ++a) {
-                T row_sum = T(0);
-#pragma unroll
-                for (int b = 0; b < R; ++b) {
-                    row_sum += kv[a][b] * vc[b];
-                }
-                const T total = half_warp_sum(row_sum);
-                const int64_t r = row0 + ty + kThreads * a;
-                if (tx == 0 && r < m) {
-                    atomicAdd(&out[r * C + c], total);
-                }
-            }
-            if (off_diagonal) {
-                T vr[R];
-#pragma unroll
-                for (int a = 0; a < R; ++a) {
-                    vr[a] = v_rows[cc][ty + kThreads * a];
-                }
-#pragma unroll
-                for (int b = 0; b < R; ++b) {
-                    T col_sum = T(0);
-#pragma unroll
-                    for (int a = 0; a < R; ++a) {
-                        col_sum += kv[a][b] * vr[a];
-                    }
-                    col_part[ty][tx + kThreads * b] = col_sum;
-                }
-                __syncthreads();
-                for (int j = tid; j < BM; j += kThreads * kThreads) {
-                    T total = T(0);
-#pragma unroll
-                    for (int y = 0; y < kThreads; ++y) {
-                        total += col_part[y][j];
-                    }
-                    if (col0 + j < m) {
-                        atomicAdd(&out[(col0 + j) * C + c], total);
-                    }
-                }
-                __syncthreads();  // col_part is written again next class
-            }
-        }
-    }
+    sym_class_loop<T, BM>(kv, V, out, m, C, row0, col0, off_diagonal, v_cols,
+                          v_rows, col_part);
 }
 
 template <typename T, int KIND>
@@ -176,37 +97,7 @@ __global__ void __launch_bounds__(kThreads * kThreads)
     gram_tile<T, BM>(P, S, n_p, n_s, d, row0, col0, staging, kv);
     kernel_tile<T, KIND, BM>(kv, sq_p, sq_s, n_p, n_s, row0, col0, degree,
                              gamma, coef0);
-
-    const int tx = threadIdx.x;
-    const int ty = threadIdx.y;
-    for (int64_t c0 = 0; c0 < C; c0 += kClassChunk) {
-        const int cn = static_cast<int>(
-            C - c0 < kClassChunk ? C - c0 : kClassChunk);
-        __syncthreads();  // the previous chunk's readers are done
-        stage_classes<T, BM>(A, n_s, C, col0, c0, cn, a_cols);
-        __syncthreads();
-        for (int cc = 0; cc < cn; ++cc) {
-            const int64_t c = c0 + cc;
-            T ac[R];
-#pragma unroll
-            for (int b = 0; b < R; ++b) {
-                ac[b] = a_cols[cc][tx + kThreads * b];
-            }
-#pragma unroll
-            for (int a = 0; a < R; ++a) {
-                T row_sum = T(0);
-#pragma unroll
-                for (int b = 0; b < R; ++b) {
-                    row_sum += kv[a][b] * ac[b];
-                }
-                const T total = half_warp_sum(row_sum);
-                const int64_t r = row0 + ty + kThreads * a;
-                if (tx == 0 && r < n_p) {
-                    atomicAdd(&out[r * C + c], total);
-                }
-            }
-        }
-    }
+    rect_class_loop<T, BM>(kv, A, out, n_p, n_s, C, row0, col0, a_cols);
 }
 
 template <typename T, int KIND>

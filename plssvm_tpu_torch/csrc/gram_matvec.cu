@@ -31,7 +31,7 @@
 // Both kernels mask the ragged edges of rows and features themselves, so
 // the caller pads nothing.  The Gram tile, its loader, the kernel function
 // and the triangle walk are in gram_tile.cuh, shared with kernels C and D
-// (gram_matmat.cu).  The epilogue here stays fused with the contraction:
+// (gram_matmat.cu) and E-H (distance.cu).  The epilogue here stays fused with the contraction:
 // applying it to the whole tile first (gram_tile.cuh kernel_tile, as C and
 // D must, since they contract the tile once per class) made kernel A 6.5 %
 // slower on an H100.

@@ -1,7 +1,9 @@
-// The pieces the Gram kernels share (gram_matvec.cu: kernels A and B;
-// gram_matmat.cu: kernels C and D): the kernel-function epilogue, the
-// register-tiled Gram tile with its shared-memory feature-chunk loader, the
-// half-warp reduction and the upper-triangle tile walk.
+// The pieces the kernels share (gram_matvec.cu: kernels A and B;
+// gram_matmat.cu: kernels C and D; distance.cu: kernels E-H): the
+// kernel-function epilogues, the register tile with its shared-memory
+// feature-chunk loader and its pair operation (the Gram product, or the
+// laplacian / chi-squared distance term), the half-warp reduction, the
+// upper-triangle tile walk, and the class loops of the block matmats.
 //
 // Everything here lives in an unnamed namespace: each .cu file that
 // includes it gets its own copy, and the library's only exported symbols
@@ -18,6 +20,8 @@ namespace {
 constexpr int kPolynomial = 1;  // KernelFunctionType values (parameter.py)
 constexpr int kRbf = 2;
 constexpr int kSigmoid = 3;
+constexpr int kLaplacian = 4;
+constexpr int kChiSquared = 5;
 
 constexpr int kThreads = 16;  // blocks of kThreads x kThreads threads
 constexpr int kChunk = 16;    // features staged in shared memory per step
@@ -38,6 +42,8 @@ __device__ __forceinline__ float dev_exp(float x) { return expf(x); }
 __device__ __forceinline__ double dev_exp(double x) { return exp(x); }
 __device__ __forceinline__ float dev_tanh(float x) { return tanhf(x); }
 __device__ __forceinline__ double dev_tanh(double x) { return tanh(x); }
+__device__ __forceinline__ float dev_abs(float x) { return fabsf(x); }
+__device__ __forceinline__ double dev_abs(double x) { return fabs(x); }
 
 // base**degree by repeated squaring (kernel_functions._integer_power).
 template <typename T>
@@ -69,6 +75,49 @@ __device__ __forceinline__ T apply_kernel(T g, T sq_i, T sq_j, T gamma,
     }
 }
 
+// The pair operation the register tile folds in, one feature at a time,
+// and how far gram_tile unrolls its loop over a staged feature chunk.
+struct GramProduct {  // x . y: one FMA
+    static constexpr int kUnroll = kChunk;
+    template <typename T>
+    __device__ __forceinline__ static void step(T& acc, T x, T y) {
+        acc += x * y;
+    }
+};
+struct L1Distance {  // |x - y|: a subtract and an add with |.|
+    static constexpr int kUnroll = kChunk;
+    template <typename T>
+    __device__ __forceinline__ static void step(T& acc, T x, T y) {
+        acc += dev_abs(x - y);
+    }
+};
+struct ChiSquaredDistance {  // (x - y)^2 / (x + y), and 0 where x + y == 0
+    // one feature per loop trip: each IEEE divide inlines ~15 instructions
+    // and a slow-path branch, and the full 16 x R x R unroll (1024 divides
+    // in f32) overflowed the instruction cache; on an H100 this halves the
+    // kernel's time (88.7 -> 50.6 ms at m = 16384, d = 256)
+    static constexpr int kUnroll = 1;
+    template <typename T>
+    __device__ __forceinline__ static void step(T& acc, T x, T y) {
+        const T den = x + y;
+        const T diff = x - y;
+        // IEEE division (no fast-math); the select keeps 0/0 out, so the
+        // zero-loaded feature tail adds nothing
+        acc += den != T(0) ? diff * diff / den : T(0);
+    }
+};
+
+template <int KIND>
+struct DistanceOp;
+template <>
+struct DistanceOp<kLaplacian> {
+    using type = L1Distance;
+};
+template <>
+struct DistanceOp<kChiSquared> {
+    using type = ChiSquaredDistance;
+};
+
 template <typename T, int BM>
 struct Staging {
     // transposed feature chunks; the +1 spreads the stores over the banks
@@ -76,9 +125,10 @@ struct Staging {
     T y[kChunk][BM + 1];
 };
 
-// acc[a][b] = sum_k X[row0 + ty + kThreads a, k] * Y[col0 + tx + kThreads b, k]
-// over all d features; rows past mx / my and features past d load as 0.
-template <typename T, int BM>
+// acc[a][b] = sum_k op(X[row0 + ty + kThreads a, k], Y[col0 + tx + kThreads b, k])
+// over all d features, op the Gram product by default; rows past mx / my
+// and features past d load as 0.
+template <typename T, int BM, typename Op = GramProduct>
 __device__ __forceinline__ void gram_tile(
     const T* __restrict__ X, const T* __restrict__ Y, int64_t mx, int64_t my,
     int64_t d, int64_t row0, int64_t col0, Staging<T, BM>& s,
@@ -106,7 +156,7 @@ __device__ __forceinline__ void gram_tile(
             s.y[kk][r] = (gy < my && k < d) ? Y[gy * d + k] : T(0);
         }
         __syncthreads();
-#pragma unroll
+#pragma unroll (Op::kUnroll)
         for (int kk = 0; kk < kChunk; ++kk) {
             T xa[R];
             T yb[R];
@@ -122,7 +172,7 @@ __device__ __forceinline__ void gram_tile(
             for (int a = 0; a < R; ++a) {
 #pragma unroll
                 for (int b = 0; b < R; ++b) {
-                    acc[a][b] += xa[a] * yb[b];
+                    Op::step(acc[a][b], xa[a], yb[b]);
                 }
             }
         }
@@ -161,6 +211,25 @@ __device__ __forceinline__ void kernel_tile(
     }
 }
 
+// In place: the distance tile of gram_tile<T, BM, DistanceOp<...>> becomes
+// the kernel tile exp(-gamma * dist), with 0 outside the mx x my matrix
+// (rows past the matrix loaded as 0 give exp(-gamma |x|) != 0).
+template <typename T, int BM>
+__device__ __forceinline__ void distance_kernel_tile(
+    T (&acc)[BM / kThreads][BM / kThreads], int64_t mx, int64_t my,
+    int64_t row0, int64_t col0, T gamma) {
+    constexpr int R = BM / kThreads;
+#pragma unroll
+    for (int a = 0; a < R; ++a) {
+        const bool row_ok = row0 + threadIdx.y + kThreads * a < mx;
+#pragma unroll
+        for (int b = 0; b < R; ++b) {
+            const bool ok = row_ok && col0 + threadIdx.x + kThreads * b < my;
+            acc[a][b] = ok ? dev_exp(-gamma * acc[a][b]) : T(0);
+        }
+    }
+}
+
 // Sum over the 16 threads of a half warp (same ty, tx = 0..15).
 template <typename T>
 __device__ __forceinline__ T half_warp_sum(T value) {
@@ -183,6 +252,143 @@ __device__ __forceinline__ void upper_triangle_tile(int64_t p, int64_t& it,
         ++jt;
     }
     it = p - jt * (jt + 1) / 2;
+}
+
+// classes whose V rows are staged in shared memory at once
+constexpr int kClassChunk = 8;
+
+// dst[cc][r] = V[(r0 + r) * C + c0 + cc] for r < BM, cc < cn; rows past m
+// load 0.  Neighbouring threads read neighbouring classes of one row.
+template <typename T, int BM>
+__device__ __forceinline__ void stage_classes(const T* __restrict__ V,
+                                              int64_t m, int64_t C,
+                                              int64_t r0, int64_t c0, int cn,
+                                              T (*dst)[BM + 1]) {
+    const int tid = threadIdx.y * kThreads + threadIdx.x;
+    for (int e = tid; e < BM * cn; e += kThreads * kThreads) {
+        const int r = e / cn;
+        const int cc = e % cn;
+        const int64_t g = r0 + r;
+        dst[cc][r] = g < m ? V[g * C + c0 + cc] : T(0);
+    }
+}
+
+// The class loop of the symmetric block matmats (kernels C and G): with the
+// kernel tile kv in registers, out[r, c] += sum_j kv[r][j] V[j, c] for the
+// tile's rows and, off the diagonal, out[j, c] += sum_r kv[r][j] V[r, c] for
+// its columns, for every class c.  V and out are (m, C) row-major; the V
+// rows of both tiles are staged kClassChunk classes at a time in v_cols /
+// v_rows, the column partials are reduced through col_part.
+template <typename T, int BM>
+__device__ __forceinline__ void sym_class_loop(
+    const T (&kv)[BM / kThreads][BM / kThreads], const T* __restrict__ V,
+    T* __restrict__ out, int64_t m, int64_t C, int64_t row0, int64_t col0,
+    bool off_diagonal, T (*v_cols)[BM + 1], T (*v_rows)[BM + 1],
+    T (*col_part)[BM]) {
+    constexpr int R = BM / kThreads;
+    const int tx = threadIdx.x;
+    const int ty = threadIdx.y;
+    const int tid = ty * kThreads + tx;
+    for (int64_t c0 = 0; c0 < C; c0 += kClassChunk) {
+        const int cn = static_cast<int>(
+            C - c0 < kClassChunk ? C - c0 : kClassChunk);
+        __syncthreads();  // the previous chunk's readers are done
+        stage_classes<T, BM>(V, m, C, col0, c0, cn, v_cols);
+        if (off_diagonal) {
+            stage_classes<T, BM>(V, m, C, row0, c0, cn, v_rows);
+        }
+        __syncthreads();
+        for (int cc = 0; cc < cn; ++cc) {
+            const int64_t c = c0 + cc;
+            T vc[R];
+#pragma unroll
+            for (int b = 0; b < R; ++b) {
+                vc[b] = v_cols[cc][tx + kThreads * b];
+            }
+#pragma unroll
+            for (int a = 0; a < R; ++a) {
+                T row_sum = T(0);
+#pragma unroll
+                for (int b = 0; b < R; ++b) {
+                    row_sum += kv[a][b] * vc[b];
+                }
+                const T total = half_warp_sum(row_sum);
+                const int64_t r = row0 + ty + kThreads * a;
+                if (tx == 0 && r < m) {
+                    atomicAdd(&out[r * C + c], total);
+                }
+            }
+            if (off_diagonal) {
+                T vr[R];
+#pragma unroll
+                for (int a = 0; a < R; ++a) {
+                    vr[a] = v_rows[cc][ty + kThreads * a];
+                }
+#pragma unroll
+                for (int b = 0; b < R; ++b) {
+                    T col_sum = T(0);
+#pragma unroll
+                    for (int a = 0; a < R; ++a) {
+                        col_sum += kv[a][b] * vr[a];
+                    }
+                    col_part[ty][tx + kThreads * b] = col_sum;
+                }
+                __syncthreads();
+                for (int j = tid; j < BM; j += kThreads * kThreads) {
+                    T total = T(0);
+#pragma unroll
+                    for (int y = 0; y < kThreads; ++y) {
+                        total += col_part[y][j];
+                    }
+                    if (col0 + j < m) {
+                        atomicAdd(&out[(col0 + j) * C + c], total);
+                    }
+                }
+                __syncthreads();  // col_part is written again next class
+            }
+        }
+    }
+}
+
+// The class loop of the rectangular block matmats (kernels D and H):
+// out[r, c] += sum_j kv[r][j] A[j, c] for the point tile's rows, A (n_s, C)
+// staged kClassChunk classes at a time in a_cols.
+template <typename T, int BM>
+__device__ __forceinline__ void rect_class_loop(
+    const T (&kv)[BM / kThreads][BM / kThreads], const T* __restrict__ A,
+    T* __restrict__ out, int64_t n_p, int64_t n_s, int64_t C, int64_t row0,
+    int64_t col0, T (*a_cols)[BM + 1]) {
+    constexpr int R = BM / kThreads;
+    const int tx = threadIdx.x;
+    const int ty = threadIdx.y;
+    for (int64_t c0 = 0; c0 < C; c0 += kClassChunk) {
+        const int cn = static_cast<int>(
+            C - c0 < kClassChunk ? C - c0 : kClassChunk);
+        __syncthreads();  // the previous chunk's readers are done
+        stage_classes<T, BM>(A, n_s, C, col0, c0, cn, a_cols);
+        __syncthreads();
+        for (int cc = 0; cc < cn; ++cc) {
+            const int64_t c = c0 + cc;
+            T ac[R];
+#pragma unroll
+            for (int b = 0; b < R; ++b) {
+                ac[b] = a_cols[cc][tx + kThreads * b];
+            }
+#pragma unroll
+            for (int a = 0; a < R; ++a) {
+                T row_sum = T(0);
+#pragma unroll
+                for (int b = 0; b < R; ++b) {
+                    row_sum += kv[a][b] * ac[b];
+                }
+                const T total = half_warp_sum(row_sum);
+                const int64_t r = row0 + ty + kThreads * a;
+                if (tx == 0 && r < n_p) {
+                    atomicAdd(&out[r * C + c], total);
+                }
+            }
+        }
+    }
 }
 
 }  // namespace

@@ -3,15 +3,16 @@
 Counterpart of plssvm_tpu/csvm.py (reference: include/plssvm/csvm.hpp:129-375
 and include/plssvm/csvm_factory.hpp:123-171).  ``CSVM`` resolves its device
 once, at construction, and creates every tensor there; nothing is moved
-between devices behind the caller's back.  The backend picks the Gram
-matvecs: ``cuda``, the hand-written kernels (csrc/gram_matvec.cu), or
-``torch``, their plain PyTorch versions on any device.
+between devices behind the caller's back.  The backend picks the kernel
+products: ``cuda``, the hand-written kernels (csrc/*.cu), or ``torch``,
+their plain PyTorch versions on any device.
 
 This package covers binary and one-vs-all multiclass classification with
-the implicit CG solver on a single device, and predict with binary,
-one-vs-all and one-vs-one (LIBSVM multiclass) model files.  What it does
-not carry yet raises :class:`NotPortedError` (a ``NotImplementedError``)
-naming the ROADMAP item that ports it.
+the implicit CG solver on a single device, for every kernel function
+(linear, polynomial, RBF, sigmoid, laplacian, chi-squared), and predict
+with binary, one-vs-all and one-vs-one (LIBSVM multiclass) model files.
+What it does not carry yet raises :class:`NotPortedError` (a
+``NotImplementedError``) naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -24,7 +25,6 @@ import torch
 
 from .data_set import DataSet
 from .exceptions import InvalidParameterError, NotPortedError, UnsupportedBackendError
-from .kernel_functions import check_ported_kernel
 from .model import Model
 from .ops.predict import calculate_w, predict_values as predict_values_op
 from .parameter import (
@@ -39,6 +39,16 @@ from .utils.logger import VerbosityLevel, log
 from .utils.tracker import add_tracking_entry
 
 _REAL_DTYPES = (np.dtype(np.float32), np.dtype(np.float64))
+
+
+def _check_chi_squared_data(X: np.ndarray, what: str) -> None:
+    """The chi-squared kernel is only defined for non-negative data."""
+    lo = float(np.min(X)) if X.size else 0.0
+    if lo < 0.0:
+        raise InvalidParameterError(
+            f"The chi-squared kernel requires non-negative values, but the "
+            f"{what} contains {lo}!"
+        )
 
 
 def _resolve_device(target: TargetPlatform, device) -> torch.device:
@@ -257,6 +267,9 @@ class CSVM:
                 "regression and one-class)"
             )
         multiclass = data.num_different_labels > 2
+        kind = self._params.kernel_type.value
+        if kind == KernelFunctionType.CHI_SQUARED:
+            _check_chi_squared_data(np.asarray(data.data), "training data")
         if multiclass and classification == ClassificationType.OAO:
             raise NotPortedError(
                 "one-vs-one training is not ported yet (ROADMAP Queue 1, "
@@ -267,8 +280,6 @@ class CSVM:
         if params.gamma.is_default():
             # gamma default = 1 / num_features (reference: csvm.hpp:304-307)
             params.gamma.value = 1.0 / data.num_features
-        kind = params.kernel_type.value
-        check_ported_kernel(kind)
         degree = params.degree.value
         start = time.perf_counter()
 
@@ -384,7 +395,8 @@ class CSVM:
             )
         params = model.params
         kind = params.kernel_type.value
-        check_ported_kernel(kind)
+        if kind == KernelFunctionType.CHI_SQUARED:
+            _check_chi_squared_data(np.asarray(data.data), "predict points")
         sv = self._tensor(model.support_vectors)
         alpha = self._tensor(model.alpha)
         points = self._tensor(data.data)

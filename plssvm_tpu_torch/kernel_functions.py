@@ -1,20 +1,26 @@
-"""The SVM kernel functions, as epilogues over Gram blocks (PyTorch).
+"""The SVM kernel functions, as epilogues over Gram and distance blocks
+(PyTorch).
 
 reference: include/plssvm/kernel_function_types.hpp:75-97 —
 linear ``u.v``; polynomial ``(gamma*u.v + coef0)^degree``;
-rbf ``exp(-gamma*|u-v|^2)``; sigmoid ``tanh(gamma*u.v + coef0)`` (an
-extension matching upstream PLSSVM v3).  Counterpart of
-plssvm_tpu/kernel_functions.py, with the same formulas in the same order
-so that both packages round alike.
+rbf ``exp(-gamma*|u-v|^2)``; sigmoid ``tanh(gamma*u.v + coef0)``;
+laplacian ``exp(-gamma*|u-v|_1)``; chi-squared
+``exp(-gamma*sum_k (u_k-v_k)^2/(u_k+v_k))`` (the last three are extensions
+matching upstream PLSSVM v3).  Counterpart of plssvm_tpu/kernel_functions.py,
+with the same formulas in the same order so that both packages round alike.
 
-A Gram block ``G = X_i @ X_j^T`` is one matrix product and the kernel is
-applied elementwise, using ``|u-v|^2 = |u|^2 + |v|^2 - 2 u.v`` for RBF.  The
-hand-written CUDA kernels (csrc/gram_matvec.cu) apply the same epilogue to
-the tile they hold in registers.
-
-The distance kernels (laplacian, chi-squared) are not ported yet
-(ROADMAP Queue 1, item 5): every entry point raises :class:`NotPortedError`
-for them.
+- **Gram kernels** (linear / polynomial / rbf / sigmoid): a Gram block
+  ``G = X_i @ X_j^T`` is one matrix product and the kernel is applied
+  elementwise, using ``|u-v|^2 = |u|^2 + |v|^2 - 2 u.v`` for RBF.  The
+  hand-written CUDA kernels (csrc/gram_matvec.cu, gram_matmat.cu) apply the
+  same epilogue to the tile they hold in registers.
+- **Distance kernels** (laplacian / chi-squared): the L1 / chi-squared
+  distance does not factor through a matrix product, so a distance block is
+  a broadcast reduction over pairs and features (:func:`pairwise_distance`),
+  tiled so its temporaries stay bounded, then ``exp(-gamma * dist)``.
+  Chi-squared takes ``0/0`` as 0 with a select, as plssvm_tpu does, so
+  features where both operands are 0 add nothing.  The CUDA kernels
+  (csrc/distance.cu) run the same pair operation in their register tile.
 """
 
 from __future__ import annotations
@@ -22,22 +28,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .exceptions import NotPortedError
 from .parameter import KernelFunctionType, Parameter
 
-#: kernels over a non-Euclidean pairwise distance — not ported yet
+#: kernels over a non-Euclidean pairwise distance (no Gram factorisation)
 DISTANCE_KERNELS = frozenset(
     {KernelFunctionType.LAPLACIAN, KernelFunctionType.CHI_SQUARED}
 )
-
-
-def check_ported_kernel(kind: KernelFunctionType) -> None:
-    """Raise :class:`NotPortedError` for the kernels this package lacks."""
-    if kind in DISTANCE_KERNELS:
-        raise NotPortedError(
-            f"the {kind} kernel is not ported yet (ROADMAP Queue 1, item 5: "
-            "distance kernels)"
-        )
 
 
 def apply_kernel_to_gram(
@@ -66,7 +62,6 @@ def apply_kernel_to_gram(
         return torch.exp(-gamma * sq_dist)
     if kind == KernelFunctionType.SIGMOID:
         return torch.tanh(gamma * gram + coef0)
-    check_ported_kernel(kind)
     raise ValueError(f"kernel function type {kind!r} is not Gram-expressible")
 
 
@@ -80,16 +75,15 @@ def kernel_self_diag(
     """``k(x, x)`` from squared norms — the kernel-matrix diagonal.
 
     Used for ``QA_cost = k(x_last, x_last) + 1/C`` (reference:
-    gpu_csvm.hpp:508).
+    gpu_csvm.hpp:508).  Every distance kernel has ``k(x, x) = exp(0) = 1``.
     """
-    check_ported_kernel(kind)
     if kind == KernelFunctionType.LINEAR:
         return sq_norms
     if kind == KernelFunctionType.POLYNOMIAL:
         return _integer_power(gamma * sq_norms + coef0, degree)
     if kind == KernelFunctionType.SIGMOID:
         return torch.tanh(gamma * sq_norms + coef0)
-    # RBF: k(x, x) = 1
+    # RBF / LAPLACIAN / CHI_SQUARED: k(x, x) = 1
     return torch.ones_like(sq_norms)
 
 
@@ -122,10 +116,13 @@ def kernel_block(
 ) -> torch.Tensor:
     """Dense kernel block ``K[i, j] = k(Xb_i, Y_j)`` -> (b, m).
 
-    One matrix product plus the epilogue: the block primitive behind the
-    plain matvec and predict versions (ops/matvec.py).
+    Gram kernels: one matrix product plus the epilogue.  Distance kernels:
+    the tiled pairwise distance plus ``exp`` (``sq_row`` / ``sq_col`` are
+    not read and may be None).  The block primitive behind the plain matvec
+    and predict versions (ops/matvec.py).
     """
-    check_ported_kernel(kind)
+    if kind in DISTANCE_KERNELS:
+        return torch.exp(-gamma * pairwise_distance(Xb, Y, kind))
     gram = Xb @ Y.T
     return apply_kernel_to_gram(
         gram, sq_row[:, None], sq_col[None, :], kind, gamma, coef0, degree
@@ -141,7 +138,6 @@ def kernel_function(u, v, params: Parameter, num_features=None) -> float:
     u = np.asarray(u)
     v = np.asarray(v)
     kind = params.kernel_type.value
-    check_ported_kernel(kind)
     gamma = params.resolved_gamma(num_features if num_features is not None else u.shape[-1])
     if kind == KernelFunctionType.LINEAR:
         return float(np.dot(u, v))
@@ -152,6 +148,14 @@ def kernel_function(u, v, params: Parameter, num_features=None) -> float:
         return float(np.exp(-gamma * np.dot(diff, diff)))
     if kind == KernelFunctionType.SIGMOID:
         return float(np.tanh(gamma * np.dot(u, v) + params.coef0.value))
+    if kind == KernelFunctionType.LAPLACIAN:
+        return float(np.exp(-gamma * np.sum(np.abs(u - v))))
+    if kind == KernelFunctionType.CHI_SQUARED:
+        den = u + v
+        num = (u - v) ** 2
+        terms = np.divide(num, den, out=np.zeros_like(num, dtype=np.float64),
+                          where=den != 0)
+        return float(np.exp(-gamma * np.sum(terms)))
     raise ValueError(f"unknown kernel function type {kind!r}")
 
 
@@ -166,9 +170,11 @@ def kernel_against_point(
     """Vectorized ``k(x_i, point)`` for all rows of ``X`` (the "q kernel").
 
     reference: src/plssvm/backends/CUDA/q_kernel.cu:16-49 — one thread per
-    row; here one matrix-vector product plus the epilogue.
+    row; here one matrix-vector product plus the epilogue (Gram kernels) or
+    a row-blocked distance (distance kernels).
     """
-    check_ported_kernel(kind)
+    if kind in DISTANCE_KERNELS:
+        return torch.exp(-gamma * distance_to_point(X, point, kind))
     gram = X @ point  # (n,)
     if kind == KernelFunctionType.LINEAR:
         return gram
@@ -181,3 +187,68 @@ def kernel_against_point(
         sq_p = torch.dot(point, point)
         return torch.exp(-gamma * (sq_x + sq_p - 2.0 * gram))
     raise ValueError(f"unknown kernel function type {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# Distance kernels: tiled pairwise L1 / chi-squared distance
+# ---------------------------------------------------------------------------
+
+
+def _distance_tile(A: torch.Tensor, B: torch.Tensor, kind: KernelFunctionType) -> torch.Tensor:
+    """Pairwise distance of two small tiles: (a, d) x (b, d) -> (a, b).
+
+    laplacian: ``sum_k |A_ik - B_jk|``; chi-squared:
+    ``sum_k (A_ik - B_jk)^2 / (A_ik + B_jk)`` with the 0/0 limit taken as 0.
+    """
+    diff = A[:, None, :] - B[None, :, :]
+    if kind == KernelFunctionType.LAPLACIAN:
+        return torch.sum(torch.abs(diff), dim=-1)
+    den = A[:, None, :] + B[None, :, :]
+    nonzero = den != 0
+    safe = torch.where(nonzero, den, torch.ones_like(den))
+    return torch.sum(
+        torch.where(nonzero, diff * diff / safe, torch.zeros_like(den)), dim=-1
+    )
+
+
+def pairwise_distance(
+    Xb: torch.Tensor,
+    Y: torch.Tensor,
+    kind: KernelFunctionType,
+    *,
+    col_block: int = 256,
+    feature_block: int = 256,
+) -> torch.Tensor:
+    """Pairwise distance block ``D[i, j] = dist(Xb_i, Y_j)`` -> (b, m).
+
+    Tiled over Y's rows and the feature axis, so the broadcast temporary
+    holds at most ``b * col_block * feature_block`` elements whatever the
+    operand sizes.  The tiles follow the tensors' own lengths: a prime row
+    count or a ragged feature tail needs no padding.
+    """
+    b, d = Xb.shape
+    m = Y.shape[0]
+    out = torch.zeros((b, m), dtype=Xb.dtype, device=Xb.device)
+    for j in range(0, m, col_block):
+        Yc = Y[j:j + col_block]
+        for k in range(0, d, feature_block):
+            out[:, j:j + col_block] += _distance_tile(
+                Xb[:, k:k + feature_block], Yc[:, k:k + feature_block], kind
+            )
+    return out
+
+
+def distance_to_point(
+    X: torch.Tensor,
+    point: torch.Tensor,
+    kind: KernelFunctionType,
+    *,
+    row_block: int = 4096,
+) -> torch.Tensor:
+    """``dist(x_i, point)`` for all rows of ``X`` -> (m,), row-blocked."""
+    out = torch.empty((X.shape[0],), dtype=X.dtype, device=X.device)
+    for i in range(0, X.shape[0], row_block):
+        out[i:i + row_block] = _distance_tile(
+            X[i:i + row_block], point[None, :], kind
+        )[:, 0]
+    return out

@@ -1,2 +1,2 @@
-"""Device ops: the plain PyTorch Gram matvecs, the CUDA kernel wrappers and
-predict."""
+"""Device ops: the plain PyTorch kernel products (Gram and distance), the
+CUDA kernel wrappers and predict."""

@@ -118,8 +118,10 @@ def _ptxas_log(library: Path) -> Path:
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
-_SHORT = re.compile(r"(gram_mat(?:vec|mat)_(?:sym|rect))_kernelI([fd])Li(\d)E")
-_KINDS = {"1": "poly", "2": "rbf", "3": "sigmoid"}
+_SHORT = re.compile(
+    r"((?:gram|distance)_mat(?:vec|mat)_(?:sym|rect))_kernelI([fd])Li(\d)E"
+)
+_KINDS = {"1": "poly", "2": "rbf", "3": "sigmoid", "4": "laplacian", "5": "chi_squared"}
 
 
 def kernel_resources() -> Dict[str, Dict[str, int]]:
@@ -186,6 +188,16 @@ def load() -> ctypes.CDLL:
             real, real, ptr,
         ]
         mrect.restype = cint
+        # kernels E-H: (operands..., out, sizes..., kind, gamma, stream)
+        for name, n_operands, n_sizes in (
+            ("matvec_sym", 2, 2),    # X, v; m, d
+            ("matvec_rect", 3, 3),   # P, S, a; n_p, n_s, d
+            ("matmat_sym", 2, 3),    # X, V; m, d, C
+            ("matmat_rect", 3, 4),   # P, S, A; n_p, n_s, d, C
+        ):
+            fn = getattr(lib, f"plssvm_distance_{name}_{suffix}")
+            fn.argtypes = [ptr] * (n_operands + 1) + [i64] * n_sizes + [cint, real, ptr]
+            fn.restype = cint
     lib.plssvm_cuda_error_string.argtypes = [cint]
     lib.plssvm_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

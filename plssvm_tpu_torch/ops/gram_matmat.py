@@ -22,7 +22,12 @@ import torch
 
 from . import _build
 from . import matvec as _plain
-from .gram_matvec import _check_operands, _raise_on_error, _require_cuda
+from .gram_matvec import (
+    _check_gram_kind,
+    _check_operands,
+    _raise_on_error,
+    _require_cuda,
+)
 from ..parameter import KernelFunctionType
 
 #: kernel launches of gram_matmat_sym / gram_matmat_rect
@@ -54,6 +59,7 @@ def gram_matmat_sym(
 
     ``X`` (m, d), ``sq`` (m,) its squared row norms, ``V`` (m, C).
     """
+    _check_gram_kind(kind)
     if X.device.type == "cpu":
         return _plain.kernel_matmat_plain(
             X, sq, V, kind=kind, gamma=gamma, coef0=coef0, degree=degree
@@ -99,6 +105,7 @@ def gram_matmat_rect(
     ``sq_s`` their squared row norms, ``A`` (n_s, C) the weights, one
     column per class or machine.
     """
+    _check_gram_kind(kind)
     if P.device.type == "cpu":
         return _plain.kernel_matmat_rect_plain(
             P, S, sq_p, sq_s, A, kind=kind, gamma=gamma, coef0=coef0,

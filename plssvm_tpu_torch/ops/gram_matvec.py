@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from ..exceptions import KernelLaunchError
-from ..kernel_functions import check_ported_kernel
+from ..kernel_functions import DISTANCE_KERNELS
 from ..parameter import KernelFunctionType
 from . import _build
 from . import matvec as _plain
@@ -45,15 +45,30 @@ def reset_counts() -> None:
     _plain.rect_plain_calls = 0
 
 
+def _check_gram_kind(kind) -> None:
+    """The Gram wrappers take polynomial / RBF / sigmoid only, on every
+    device."""
+    if kind in DISTANCE_KERNELS:
+        raise ValueError(
+            f"the {kind} kernel is a distance kernel: ops/distance.py "
+            "(kernels E-H) computes it, not the Gram kernels"
+        )
+
+
 def _check_operands(kind, named_tensors, shapes) -> str:
-    """Validate kernel kind, device, dtype, shape and contiguity; return the
+    """Refuse the linear kernel and validate the operands; return the
     entry-point suffix."""
-    check_ported_kernel(kind)
     if kind == KernelFunctionType.LINEAR:
         raise ValueError(
             "the linear kernel takes the factored X (X^T v) product, not a "
             "Gram kernel"
         )
+    return _check_tensors(named_tensors, shapes)
+
+
+def _check_tensors(named_tensors, shapes) -> str:
+    """Validate device, dtype, shape and contiguity; return the entry-point
+    suffix."""
     first = named_tensors[0][1]
     suffix = _SUFFIX.get(first.dtype)
     if suffix is None:
@@ -98,6 +113,7 @@ def gram_matvec_sym(
 
     ``X`` (m, d), ``sq`` (m,) its squared row norms, ``v`` (m,).
     """
+    _check_gram_kind(kind)
     if X.device.type == "cpu":
         return _plain.kernel_matvec_plain(
             X, sq, v, kind=kind, gamma=gamma, coef0=coef0, degree=degree
@@ -141,6 +157,7 @@ def gram_matvec_rect(
     ``P`` (n_p, d) points, ``S`` (n_s, d) support vectors, ``sq_p`` /
     ``sq_s`` their squared row norms, ``a`` (n_s,) the weights.
     """
+    _check_gram_kind(kind)
     if P.device.type == "cpu":
         return _plain.kernel_matvec_rect_plain(
             P, S, sq_p, sq_s, a, kind=kind, gamma=gamma, coef0=coef0,

@@ -17,10 +17,13 @@ computed once and contracted with all C columns.
 ``kernel_matvec_plain`` is the oracle of kernel A and
 ``kernel_matvec_rect_plain`` of kernel B (ops/gram_matvec.py);
 ``kernel_matmat_plain`` of kernel C and ``kernel_matmat_rect_plain`` of
-kernel D (ops/gram_matmat.py).  Each counts its calls in a plain
-module-level int, so a run can show that its main path took the kernels
-and not these.  Rows need no padding: the blocks follow the tensor's own
-length.
+kernel D (ops/gram_matmat.py).  The laplacian and chi-squared kernels have
+their own four (``distance_*_plain``, the oracles of kernels E-H in
+ops/distance.py): the same row-blocked walk over the full square through
+``kernel_block``'s distance branch, with no squared norms.  Each counts its
+calls in a plain module-level int, so a run can show that its main path
+took the kernels and not these.  Rows need no padding: the blocks follow
+the tensor's own length.
 """
 
 from __future__ import annotations
@@ -32,6 +35,9 @@ from ..parameter import KernelFunctionType
 
 #: row-block height: a (2048, m) block is 256 MB in f32 at m = 32768
 DEFAULT_ROW_BLOCK = 2048
+#: row-block height of the distance versions: their broadcast temporaries
+#: are (rows, 256, 256), 64 MB in f32 at 256 rows
+DISTANCE_ROW_BLOCK = 256
 
 #: calls of kernel_matvec_plain / kernel_matvec_rect_plain
 sym_plain_calls = 0
@@ -39,6 +45,12 @@ rect_plain_calls = 0
 #: calls of kernel_matmat_plain / kernel_matmat_rect_plain
 sym_matmat_plain_calls = 0
 rect_matmat_plain_calls = 0
+#: calls of distance_matvec_plain / distance_matvec_rect_plain /
+#: distance_matmat_plain / distance_matmat_rect_plain
+dist_sym_plain_calls = 0
+dist_rect_plain_calls = 0
+dist_sym_matmat_plain_calls = 0
+dist_rect_matmat_plain_calls = 0
 
 
 def linear_kernel_matvec(X: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -125,11 +137,77 @@ def kernel_matmat_rect_plain(
     return _row_blocked(P, S, sq_p, sq_s, A, kind, gamma, coef0, degree, row_block)
 
 
+def distance_matvec_plain(
+    X: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    kind: KernelFunctionType,
+    gamma,
+    row_block: int = DISTANCE_ROW_BLOCK,
+) -> torch.Tensor:
+    """``K @ v`` for a laplacian / chi-squared kernel over the rows of ``X``
+    (m, d); ``v`` (m,)."""
+    global dist_sym_plain_calls
+    dist_sym_plain_calls += 1
+    return _distance_row_blocked(X, X, v, kind, gamma, row_block)
+
+
+def distance_matvec_rect_plain(
+    P: torch.Tensor,
+    S: torch.Tensor,
+    a: torch.Tensor,
+    *,
+    kind: KernelFunctionType,
+    gamma,
+    row_block: int = DISTANCE_ROW_BLOCK,
+) -> torch.Tensor:
+    """``K(P, S) @ a`` for a distance kernel: points P (n_p, d) against
+    support vectors S (n_s, d) weighted by ``a`` (n_s,)."""
+    global dist_rect_plain_calls
+    dist_rect_plain_calls += 1
+    return _distance_row_blocked(P, S, a, kind, gamma, row_block)
+
+
+def distance_matmat_plain(
+    X: torch.Tensor,
+    V: torch.Tensor,
+    *,
+    kind: KernelFunctionType,
+    gamma,
+    row_block: int = DISTANCE_ROW_BLOCK,
+) -> torch.Tensor:
+    """``K @ V`` for a distance kernel over the rows of ``X`` (m, d), for
+    ``V`` (m, C)."""
+    global dist_sym_matmat_plain_calls
+    dist_sym_matmat_plain_calls += 1
+    return _distance_row_blocked(X, X, V, kind, gamma, row_block)
+
+
+def distance_matmat_rect_plain(
+    P: torch.Tensor,
+    S: torch.Tensor,
+    A: torch.Tensor,
+    *,
+    kind: KernelFunctionType,
+    gamma,
+    row_block: int = DISTANCE_ROW_BLOCK,
+) -> torch.Tensor:
+    """``K(P, S) @ A`` for a distance kernel, ``A`` (n_s, C)."""
+    global dist_rect_matmat_plain_calls
+    dist_rect_matmat_plain_calls += 1
+    return _distance_row_blocked(P, S, A, kind, gamma, row_block)
+
+
+def _distance_row_blocked(X, Y, v, kind, gamma, row_block):
+    return _row_blocked(X, Y, None, None, v, kind, gamma, 0.0, 0, row_block)
+
+
 def _row_blocked(X, Y, sq_x, sq_y, v, kind, gamma, coef0, degree, row_block):
     out = torch.empty((X.shape[0],) + v.shape[1:], dtype=v.dtype, device=v.device)
     for i in range(0, X.shape[0], row_block):
         K_blk = kernel_block(
-            X[i:i + row_block], Y, sq_x[i:i + row_block], sq_y,
+            X[i:i + row_block], Y,
+            None if sq_x is None else sq_x[i:i + row_block], sq_y,
             kind, gamma, coef0, degree,
         )
         out[i:i + row_block] = K_blk @ v

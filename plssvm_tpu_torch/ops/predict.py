@@ -7,17 +7,25 @@ and cached by the caller, so prediction is a single product per point; for
 the other Gram kernels the decision values are ``K(points, SV) @ alpha -
 rho``: through kernel B for a binary ``alpha`` (n_sv,) and kernel D for an
 ``alpha`` (n_sv, C) on the ``cuda`` implementation, and through their plain
-versions on ``torch``.
+versions on ``torch``.  The laplacian and chi-squared kernels take kernels
+F and H (ops/distance.py) the same way, without squared norms.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..kernel_functions import DISTANCE_KERNELS
 from ..parameter import KernelFunctionType
+from .distance import distance_matmat_rect, distance_matvec_rect
 from .gram_matmat import gram_matmat_rect
 from .gram_matvec import gram_matvec_rect
-from .matvec import kernel_matmat_rect_plain, kernel_matvec_rect_plain
+from .matvec import (
+    distance_matmat_rect_plain,
+    distance_matvec_rect_plain,
+    kernel_matmat_rect_plain,
+    kernel_matvec_rect_plain,
+)
 
 
 def calculate_w(support_vectors: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -43,11 +51,19 @@ def predict_values(
     (n_pred,) for a binary ``alpha``, (n_pred, C) for ``alpha`` (n_sv, C).
 
     ``impl="cuda"`` routes the Gram kernels through kernel B
-    (:func:`gram_matvec_rect`) or kernel D (:func:`gram_matmat_rect`);
-    ``"torch"`` takes their plain versions.
+    (:func:`gram_matvec_rect`) or kernel D (:func:`gram_matmat_rect`), the
+    distance kernels through kernel F or H; ``"torch"`` takes their plain
+    versions.
     """
     if kind == KernelFunctionType.LINEAR:
         return predict_points @ w - rho
+    if kind in DISTANCE_KERNELS:
+        # distance kernels never read the squared norms
+        if alpha.ndim == 2:
+            rect = distance_matmat_rect if impl == "cuda" else distance_matmat_rect_plain
+        else:
+            rect = distance_matvec_rect if impl == "cuda" else distance_matvec_rect_plain
+        return rect(predict_points, support_vectors, alpha, kind=kind, gamma=gamma) - rho
     sq_pred = torch.sum(predict_points * predict_points, dim=-1)
     sq_sv = torch.sum(support_vectors * support_vectors, dim=-1)
     if alpha.ndim == 2:

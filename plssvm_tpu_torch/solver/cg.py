@@ -27,7 +27,8 @@ rows: no padding, no mask.
 The one-vs-all solve (``solve_ls_svm_multi``) runs the C binary systems,
 which share the implicit matrix and differ only in their right-hand sides,
 as one block CG: each iteration applies ``K`` once to the (m, C) block of
-search directions, through kernel C (ops/gram_matmat.py).
+search directions, through kernel C (ops/gram_matmat.py).  The laplacian
+and chi-squared kernels take kernels E and G (ops/distance.py) instead.
 """
 
 from __future__ import annotations
@@ -37,10 +38,17 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..exceptions import NotPortedError
-from ..kernel_functions import kernel_against_point, kernel_self_diag
+from ..kernel_functions import (
+    DISTANCE_KERNELS,
+    kernel_against_point,
+    kernel_self_diag,
+)
+from ..ops.distance import distance_matmat_sym, distance_matvec_sym
 from ..ops.gram_matmat import gram_matmat_sym
 from ..ops.gram_matvec import gram_matvec_sym
 from ..ops.matvec import (
+    distance_matmat_plain,
+    distance_matvec_plain,
     kernel_matmat_plain,
     kernel_matvec_plain,
     linear_kernel_matvec,
@@ -109,11 +117,15 @@ class CGResult(NamedTuple):
 
 
 def _make_kernel_matvec(kind: KernelFunctionType, degree: int, impl: str) -> Callable:
-    """Select the K@v implementation: ``impl="cuda"`` the hand kernel A
-    (plain version on CPU tensors), ``"torch"`` the plain version.  The
-    linear kernel always takes the factored O(n d) product."""
+    """Select the K@v implementation: ``impl="cuda"`` the hand kernel A, or
+    kernel E for a distance kernel (plain versions on CPU tensors);
+    ``"torch"`` the plain versions.  The linear kernel always takes the
+    factored O(n d) product."""
     if kind == KernelFunctionType.LINEAR:
         return lambda X, sq_norms, v, gamma, coef0: linear_kernel_matvec(X, v)
+    if kind in DISTANCE_KERNELS:
+        dist = distance_matvec_sym if impl == "cuda" else distance_matvec_plain
+        return lambda X, sq_norms, v, gamma, coef0: dist(X, v, kind=kind, gamma=gamma)
     sym = gram_matvec_sym if impl == "cuda" else kernel_matvec_plain
 
     def kv(X, sq_norms, v, gamma, coef0):
@@ -250,10 +262,14 @@ class MultiCGResult(NamedTuple):
 
 def _make_kernel_matmat(kind: KernelFunctionType, degree: int, impl: str) -> Callable:
     """Select the K@V implementation for V (m, C): ``impl="cuda"`` the hand
-    kernel C (plain version on CPU tensors), ``"torch"`` the plain
-    version.  The linear kernel takes the factored X (X^T V) product."""
+    kernel C, or kernel G for a distance kernel (plain versions on CPU
+    tensors); ``"torch"`` the plain versions.  The linear kernel takes the
+    factored X (X^T V) product."""
     if kind == KernelFunctionType.LINEAR:
         return lambda X, sq_norms, V, gamma, coef0: linear_kernel_matvec(X, V)
+    if kind in DISTANCE_KERNELS:
+        dist = distance_matmat_sym if impl == "cuda" else distance_matmat_plain
+        return lambda X, sq_norms, V, gamma, coef0: dist(X, V, kind=kind, gamma=gamma)
     sym = gram_matmat_sym if impl == "cuda" else kernel_matmat_plain
 
     def kmm(X, sq_norms, V, gamma, coef0):

@@ -158,9 +158,20 @@ class TestNotPorted:
 
     @pytest.mark.parametrize("kernel", ["laplacian", "chi_squared"])
     def test_distance_kernels(self, kernel):
-        svm = plssvm_tpu_torch.CSVM(device="cpu", kernel_type=kernel)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 5"):
-            svm.fit(self._data())
+        """The distance kernels are ported (ROADMAP Queue 1, item 5): fit
+        returns plssvm_tpu's model."""
+        data = self._data()
+        X = np.abs(data.data)  # chi-squared's domain
+        labels = np.asarray(data.labels)
+        t_svm = plssvm_tpu_torch.CSVM(device="cpu", dtype=np.float64, kernel_type=kernel)
+        j_svm = plssvm_tpu.CSVM(
+            backend="xla", solver="cg_implicit", dtype=np.float64, kernel_type=kernel,
+        )
+        got = t_svm.fit(plssvm_tpu_torch.DataSet(X, labels), epsilon=EPS)
+        want = j_svm.fit(plssvm_tpu.DataSet(X, labels), epsilon=EPS)
+        assert got.n_iter == want.n_iter
+        assert abs(got.rho - want.rho) <= TOL
+        np.testing.assert_allclose(got.alpha, want.alpha, rtol=0, atol=TOL)
 
     @pytest.mark.parametrize(
         "kwargs,item",

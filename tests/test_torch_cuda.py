@@ -1,5 +1,6 @@
-"""The CUDA kernels (A, B: Gram matvecs; C, D: Gram block matmats) against
-their plain PyTorch versions, on the card.
+"""The CUDA kernels (A, B: Gram matvecs; C, D: Gram block matmats; E-H:
+laplacian / chi-squared matvecs and block matmats) against their plain
+PyTorch versions, on the card.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  They import
 neither jax nor plssvm_tpu, so they run where only PyTorch is installed:
@@ -13,7 +14,7 @@ kernels sum in another order than cuBLAS, with atomics).
 import pytest
 import torch
 
-from plssvm_tpu_torch.ops import gram_matmat, gram_matvec, matvec
+from plssvm_tpu_torch.ops import distance, gram_matmat, gram_matvec, matvec
 from plssvm_tpu_torch.parameter import KernelFunctionType as TKind
 
 COEF0 = {"polynomial": 1.0, "rbf": 0.0, "sigmoid": -0.5}
@@ -136,3 +137,78 @@ def test_matmat_wrapper_checks_operands(cuda_device):
         gram_matmat.gram_matmat_rect(X, X, sq, sq, V.double(), **kw)
     with pytest.raises(ValueError, match="on cpu"):
         gram_matmat.gram_matmat_sym(X, sq, V.cpu(), **kw)
+
+
+def _histograms(m, d, gen, dtype, device):
+    """Non-negative rows with about a third of the entries 0, and one
+    all-zero row: chi-squared's 0/0 rule is on the path."""
+    X = torch.rand(m, d, generator=gen, dtype=torch.float64)
+    X[X < 0.33] = 0.0
+    X[m // 2] = 0.0
+    return X.to(device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("name", ["laplacian", "chi_squared"])
+@pytest.mark.parametrize("n_classes", [1, 3, 10, 37])
+@pytest.mark.parametrize("m,d", [(1037, 203), (300, 1280), (129, 3), (1, 1)])
+def test_distance_kernels_against_plain(cuda_device, name, dtype, tol, n_classes, m, d):
+    """Kernels E-H on ragged shapes, a single row included, and C across
+    the 8-class staging chunk."""
+    kind = getattr(TKind, name.upper())
+    g = torch.Generator().manual_seed(42)
+    X = _histograms(m, d, g, dtype, cuda_device)
+    P = _histograms(m // 2 + 1, d, g, dtype, cuda_device)
+    V = torch.randn(m, n_classes, generator=g, dtype=dtype).to(cuda_device)
+    v = V[:, 0].contiguous()
+    kw = dict(kind=kind, gamma=1.0 / d)
+    before = (distance.matvec_sym_launches, distance.matvec_rect_launches,
+              distance.matmat_sym_launches, distance.matmat_rect_launches)
+    for kernel, plain, args in (
+        (distance.distance_matvec_sym, matvec.distance_matvec_plain, (X, v)),
+        (distance.distance_matvec_rect, matvec.distance_matvec_rect_plain, (P, X, v)),
+        (distance.distance_matmat_sym, matvec.distance_matmat_plain, (X, V)),
+        (distance.distance_matmat_rect, matvec.distance_matmat_rect_plain, (P, X, V)),
+    ):
+        got, want = kernel(*args, **kw), plain(*args, **kw)
+        assert got.shape == want.shape
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max() <= tol * want.abs().max()
+    after = (distance.matvec_sym_launches, distance.matvec_rect_launches,
+             distance.matmat_sym_launches, distance.matmat_rect_launches)
+    assert after == tuple(b + 1 for b in before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["laplacian", "chi_squared"])
+def test_distance_matmat_one_class_equals_matvec(cuda_device, name):
+    """With C = 1, kernel G gives kernel E's values up to the atomics'
+    summation order."""
+    g = torch.Generator().manual_seed(43)
+    X = _histograms(777, 64, g, torch.float64, cuda_device)
+    v = torch.randn(777, generator=g, dtype=torch.float64).to(cuda_device)
+    kw = dict(kind=getattr(TKind, name.upper()), gamma=1.0 / 64)
+    mat = distance.distance_matmat_sym(X, v[:, None].contiguous(), **kw)[:, 0]
+    vec = distance.distance_matvec_sym(X, v, **kw)
+    assert (mat - vec).abs().max() <= 1e-12 * vec.abs().max()
+
+
+@pytest.mark.cuda
+def test_distance_wrappers_check_operands(cuda_device):
+    X = torch.rand(10, 3, device=cuda_device)
+    V = torch.randn(10, 4, device=cuda_device)
+    kw = dict(kind=TKind.CHI_SQUARED, gamma=0.1)
+    with pytest.raises(ValueError, match="laplacian or chi_squared"):
+        distance.distance_matvec_sym(X, V[:, 0].contiguous(), kind=TKind.RBF, gamma=0.1)
+    with pytest.raises(ValueError, match="distance kernel"):
+        gram_matvec.gram_matvec_sym(X, X[:, 0].contiguous(), V[:, 0].contiguous(),
+                                    kind=TKind.LAPLACIAN, gamma=0.1, coef0=0.0, degree=3)
+    with pytest.raises(ValueError, match="shape"):
+        distance.distance_matmat_sym(X, V[:, 0].contiguous(), **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        distance.distance_matmat_sym(X, V.T.contiguous().T, **kw)
+    with pytest.raises(TypeError):
+        distance.distance_matmat_rect(X, X, V.double(), **kw)
+    with pytest.raises(ValueError, match="on cpu"):
+        distance.distance_matvec_rect(X, X, V[:, 0].cpu(), **kw)

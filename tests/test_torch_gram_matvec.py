@@ -206,9 +206,16 @@ class TestWrappers:
             gram_matvec.gram_matvec_rect(X, X, sq, sq, v, **kw)
 
     def test_distance_kernels_are_not_ported(self):
+        """The Gram wrappers do not take the distance kernels, on any
+        device: those go through ops/distance.py (kernels E-H)."""
         X, sq, v = self._operands()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            gram_matvec.gram_matvec_sym(
-                X, sq, v, kind=TKind.LAPLACIAN, gamma=0.1, coef0=0.0, degree=3
-            )
+        for kind in (TKind.LAPLACIAN, TKind.CHI_SQUARED):
+            with pytest.raises(ValueError, match="ops/distance.py"):
+                gram_matvec.gram_matvec_sym(
+                    X, sq, v, kind=kind, gamma=0.1, coef0=0.0, degree=3
+                )
+            with pytest.raises(ValueError, match="distance kernel"):
+                gram_matvec.gram_matvec_rect(
+                    X, X, sq, sq, v, kind=kind, gamma=0.1, coef0=0.0, degree=3
+                )
         assert issubclass(NotPortedError, NotImplementedError)

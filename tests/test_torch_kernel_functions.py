@@ -1,8 +1,9 @@
 """The port's kernel functions against plssvm_tpu's, in float64.
 
 Same numpy inputs through both packages for linear / polynomial / RBF /
-sigmoid, polynomial degrees 0-4; rtol 1e-12.  The distance kernels are not
-ported yet and must raise.
+sigmoid, polynomial degrees 0-4; rtol 1e-12.  The distance kernels have no
+Gram form: asked for one, both packages raise (their values are held
+against plssvm_tpu in tests/test_torch_distance.py).
 """
 
 import jax.numpy as jnp
@@ -88,13 +89,28 @@ def test_kernel_function(data, name, degree):
 
 @pytest.mark.parametrize("name", ["laplacian", "chi_squared"])
 def test_distance_kernels_raise(data, name):
+    """apply_kernel_to_gram raises ValueError for a distance kernel in both
+    packages; the entry points that serve them agree with plssvm_tpu."""
     X, Y, p = data
-    kind = getattr(TKind, name.upper())
+    X, Y, p = np.abs(X), np.abs(Y), np.abs(p)  # chi-squared's domain
+    jkind, tkind = _kinds(name)
+    gram = X @ Y.T
+    with pytest.raises(ValueError, match="not Gram-expressible"):
+        jk.apply_kernel_to_gram(jnp.asarray(gram), 0.0, 0.0, jkind, GAMMA, COEF0, 3)
+    with pytest.raises(ValueError, match="not Gram-expressible"):
+        tk.apply_kernel_to_gram(torch.from_numpy(gram), 0.0, 0.0, tkind, GAMMA, COEF0, 3)
     Xt, Yt = torch.from_numpy(X), torch.from_numpy(Y)
-    sq = (Xt * Xt).sum(1)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 5"):
-        tk.kernel_block(Xt, Yt, sq, (Yt * Yt).sum(1), kind, GAMMA, COEF0, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk.kernel_against_point(Xt, torch.from_numpy(p), kind, GAMMA, COEF0, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk.kernel_function(X[0], Y[0], TParameter(kernel_type=name))
+    want = np.asarray(jk.kernel_block(
+        jnp.asarray(X), jnp.asarray(Y), jnp.zeros(13), jnp.zeros(9), jkind,
+        GAMMA, COEF0, 3,
+    ))
+    got = tk.kernel_block(Xt, Yt, None, None, tkind, GAMMA, COEF0, 3).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL)
+    want = np.asarray(jk.kernel_against_point(
+        jnp.asarray(X), jnp.asarray(p), jkind, GAMMA, COEF0, 3
+    ))
+    got = tk.kernel_against_point(Xt, torch.from_numpy(p), tkind, GAMMA, COEF0, 3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL)
+    want = jk.kernel_function(X[0], Y[0], JParameter(kernel_type=name))
+    got = tk.kernel_function(X[0], Y[0], TParameter(kernel_type=name))
+    assert got == pytest.approx(want, rel=RTOL)
