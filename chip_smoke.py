@@ -36,22 +36,37 @@ Phases, one line each or more (the run stops at the first that fails):
    Bayes-optimal rule, float32/float64 agreement;
 10. chi-squared at MNIST width: the same histogram classes, 60000 x 784,
    fitted and scored through CSVM in memory with max_iter capped from
-   kernel G's measured time.
+   kernel G's measured time;
+11. the banded tool: ``python -m plssvm_tpu_torch.tools.exp_banded_distance``
+   at its defaults (32768 x 128, 4 normalised products through kernel I)
+   and with ``--check``;
+12. the matvec bench: ``python -m plssvm_tpu_torch.tools.bench_matvec`` at
+   8192 x 256 with 64 products per timing, for RBF (``kernel_matvec``, K6's
+   port over kernel A, and kernel B beside the plain version) and
+   laplacian (kernel E beside the plain version).
 
 Phases 8 and 9 run right after phase 5, while the files of phases 4 and 5
-exist; phase 10 runs last.
+exist; phase 10 runs after phase 7, then phases 11 and 12.
 
 Phase 3 also holds kernels E-H (laplacian / chi-squared matvecs and block
 matmats, csrc/distance.cu) against their plain versions on ragged shapes
 with non-negative, zero-rich data and at phases 8-10's shapes, and times
-them there and, beside kernel A, at m = 16384, d = 256.
+them there and, beside kernel A, at m = 16384, d = 256; kernel I (the
+banded laplacian matvec, csrc/banded.cu) against its plain version and
+kernel E on ragged shapes and at phase 11's shape, where it is timed
+beside kernel E; and ``kernel_matvec`` against kernel A and its plain
+version, timed at kernel A's shape.  Beside every kernel's time it
+computes the bound: the least time the card could take for the function
+on these inputs (see ``_bound``).
 
 Before the last line it prints the card's name and power limit as
-nvidia-smi reports them, and one JSON object describing each kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+nvidia-smi reports them, and one JSON object describing each of the ten
+kernels; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository around it, the script fails and prints no result.
 """
 
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -117,6 +132,27 @@ CHI_WIDTH_CG_SECONDS = 50.0
 #: 1e-6 CG reaches epsilon within the time above (26 iterations of ~1.5 s
 #: on an H100), where 1e-7 would need ~38
 CHI_WIDTH_EPSILON = 1e-6
+#: the matvec bench's shape and products per timing (phase 12)
+BENCH_M, BENCH_D, BENCH_ITERS = 8192, 256, 64
+#: the banded tool's default shape and products per timing (phase 11)
+BANDED_M, BANDED_D, BANDED_ITERS = 32768, 128, 4
+
+#: NVIDIA's published H100 SXM peaks (data sheet, dense, at the 700 W
+#: limit): 67 TFLOP/s in float32 outside the tensor cores, which is 33.5 T
+#: FP32 instructions/s (an FFMA counts two flops); the special-function
+#: units return 16 results per SM and clock against 128 FP32 lanes, 1/8 of
+#: that; 3.35 TB/s of HBM3; 495 TFLOP/s TF32 on the tensor cores (logged
+#: beside the Gram kernels' bounds only, for ROADMAP Queue 4)
+FP32_INSTR_PER_S = 67e12 / 2
+SFU_OPS_PER_S = FP32_INSTR_PER_S / 8
+HBM_BYTES_PER_S = 3.35e12
+TF32_FLOP_PER_S = 495e12
+#: the fewest (FP32 instructions, SFU operations) per pair and feature: a
+#: Gram product one FFMA; a laplacian term a subtract and an add with |.|;
+#: a chi-squared term (x - y)^2 / (x + y) a subtract, an add, a multiply
+#: and the multiply by the reciprocal on the FP32 lanes, the reciprocal on
+#: the SFU
+PAIR_FEATURE_COST = {"gram": (1, 0), "laplacian": (2, 0), "chi_squared": (4, 1)}
 
 
 def log(phase, message):
@@ -296,11 +332,11 @@ def _zero_rich(m, d, dtype, gen):
     return X.to("cuda", dtype)
 
 
-def _distance_kernels(gen, main_err, timing, time_a):
+def _distance_kernels(gen, main_err, main_ms, timing, bounds, time_a):
     """Kernels E-H against their plain versions, then timed at the main
-    paths' shapes and at m = 16384, d = 256; fills main_err / timing under
-    (name, kind) and returns kernel G's chi-squared ms at phase 10's shape
-    (59999 x 784, 10 classes)."""
+    paths' shapes (into main_ms) and at m = 16384, d = 256; fills main_err
+    / timing / bounds under (name, kind) and returns kernel G's
+    chi-squared ms at phase 10's shape (59999 x 784, 10 classes)."""
     from plssvm_tpu_torch.parameter import KernelFunctionType as K
 
     kinds = (K.LAPLACIAN, K.CHI_SQUARED)
@@ -326,20 +362,29 @@ def _distance_kernels(gen, main_err, timing, time_a):
     # the first 512 output rows, the whole square would take minutes)
     from plssvm_tpu_torch.ops import distance, matvec
 
-    def time_main(name, kernel, plain, args, kw, label):
-        """The kernel and, unless ``plain`` is None, its plain version at a
-        main path's shape; returns the kernel's ms."""
+    def time_main(name, kernel, plain, args, kw, label, phase):
+        """The kernel and, unless ``plain`` is None, its plain version at
+        the shape ``phase`` gives it; records the kernel's ms beside its
+        bound in main_ms and returns the ms."""
         rows, d_ = args[0].shape
-        work = float(rows) * (args[1].shape[0] if len(args) == 3 else rows) * d_
+        cols = args[1].shape[0] if len(args) == 3 else rows
+        work = float(rows) * cols * d_
+        columns = args[-1].shape[1] if args[-1].ndim == 2 else 1
+        bound = (_rect_bound(rows, cols, d_, columns, str(kw["kind"]), 4)
+                 if len(args) == 3 else
+                 _sym_bound(rows, d_, columns, str(kw["kind"]), 4))
         if plain is None:
             k_ms = _median_ms(lambda: kernel(*args, **kw), DIST_PLAIN_REPEATS, 1)
             log("kernels", f"{name} {label}: kernel {k_ms:.3f} ms (median of "
                 f"{DIST_PLAIN_REPEATS} after 1 warm-up; the plain version takes "
                 "minutes here)")
-            return k_ms
-        return _time_pair(name, kernel, plain, args, kw, work, label,
-                          plain_repeats=DIST_PLAIN_REPEATS, unit="Tpair-feature/s",
-                          counted="rows x columns x d")[0]
+        else:
+            k_ms = _time_pair(name, kernel, plain, args, kw, work, label,
+                              plain_repeats=DIST_PLAIN_REPEATS, unit="Tpair-feature/s",
+                              counted="rows x columns x d")[0]
+        main_ms[(name, phase)] = (k_ms, bound[0])
+        _log_bound(name, label, k_ms, bound)
+        return k_ms
 
     rng = np.random.default_rng(SEED + 10)
     S, P, a = _operands(10000, 200, torch.float32, gen, n_points=2000)
@@ -355,9 +400,10 @@ def _distance_kernels(gen, main_err, timing, time_a):
     log("kernels", f"main-path shapes f32 laplacian: sym 9999x200 max|err| "
         f"{sym_err[0]:.3e} (max|plain| {sym_err[1]:.3e}), rect 2000x10000x200 "
         f"{rect_err[0]:.3e} (max|plain| {rect_err[1]:.3e})")
-    time_main(sym_name, sym, sym_plain, (X, v), kw, "9999x200 f32 laplacian")
+    time_main(sym_name, sym, sym_plain, (X, v), kw, "9999x200 f32 laplacian",
+              "laplacian")
     time_main(rect_name, rect, rect_plain, (P, S, a), kw,
-              "2000x10000x200 f32 laplacian")
+              "2000x10000x200 f32 laplacian", "laplacian")
     g_ms = {}
     for m, d, n_points in ((10000, 200, 2000), (60000, 784, 10000)):
         probs = _histogram_classes(rng, d)
@@ -386,13 +432,14 @@ def _distance_kernels(gen, main_err, timing, time_a):
             f"{sym[1]:.3e}), rect {n_points}x{m}x{d} {rect[0]:.3e} (max|plain| "
             f"{rect[1]:.3e})" + (" (first 512 rows)" if m > 10000 else ""))
         full = m <= 10000  # the plain versions only where they take seconds
+        phase = "chi2-cli" if full else "chi2-width"
         g_ms[m] = time_main(
             "distance_matmat_sym", distance.distance_matmat_sym,
             matvec.distance_matmat_plain if full else None, (X, V), kw,
-            f"{m - 1}x{d} f32 chi_squared C={MC_CLASSES}")
+            f"{m - 1}x{d} f32 chi_squared C={MC_CLASSES}", phase)
         time_main("distance_matmat_rect", distance.distance_matmat_rect,
                   matvec.distance_matmat_rect_plain if full else None, (P, S, A),
-                  kw, f"{n_points}x{m}x{d} f32 chi_squared C={MC_CLASSES}")
+                  kw, f"{n_points}x{m}x{d} f32 chi_squared C={MC_CLASSES}", phase)
 
     # timing at m = 16384, d = 256, f32, on histogram rows, C = 10 for G
     # and H; the plain versions over DIST_PLAIN_REPEATS launches
@@ -412,10 +459,84 @@ def _distance_kernels(gen, main_err, timing, time_a):
                     name, kernel, plain, args, kw, float(m) * m * d, label,
                     plain_repeats=DIST_PLAIN_REPEATS, unit="Tpair-feature/s",
                     counted="m^2 d")
+                columns = 1 if rhs.ndim == 1 else rhs.shape[1]
+                bounds[(name, str(kind))] = (
+                    _sym_bound(m, d, columns, str(kind), 4) if "sym" in name
+                    else _rect_bound(m, m, d, columns, str(kind), 4))
+                _log_bound(name, label, timing[(name, str(kind))][0],
+                           bounds[(name, str(kind))])
         log("kernels", f"distance_matvec_sym {kind} / gram_matvec_sym rbf at m={m} "
             f"d={d}: {timing[('distance_matvec_sym', str(kind))][0] / a_ms:.3f}x the time "
             f"(kernel A {a_ms:.3f} ms in this call)")
+    _yardstick(f"torch.cdist(X, X, p=1) m={m} d={d} f32",
+               lambda: torch.cdist(X, X, p=1))
     return g_ms[60000]
+
+
+def _banded_kernels(gen, main_err, main_ms, timing, bounds):
+    """Kernel I against its plain version (each half) and kernel E (their
+    sum) on ragged shapes, f32 and f64, both ``symmetric`` values; then at
+    the banded tool's shape (phase 11), checked and timed beside kernel E
+    on the same rows."""
+    from plssvm_tpu_torch.ops import banded, distance, matvec
+    from plssvm_tpu_torch.parameter import KernelFunctionType as K
+
+    worst = {}
+    for dtype in (torch.float32, torch.float64):
+        for m, d in ((1, 1), (1, 3), (127, 3), (129, 203), (300, 1), (384, 16),
+                     (1037, 203)):
+            X = torch.rand(m, d, generator=gen, dtype=torch.float64).to("cuda", dtype)
+            v = torch.randn(m, generator=gen, dtype=torch.float64).to("cuda", dtype)
+            XT = X.T.contiguous()
+            e = distance.distance_matvec_sym(X, v, kind=K.LAPLACIAN, gamma=1.0 / d)
+            for symmetric in (True, False):
+                label = f"banded_matvec {dtype} {m}x{d} symmetric={symmetric}"
+                got = banded.banded_matvec(XT, v, 1.0 / d, symmetric=symmetric)
+                want = matvec.banded_matvec_plain(XT, v, 1.0 / d, symmetric=symmetric)
+                for half, g, w in zip(("out_r", "out_c"), got, want):
+                    err, scale = _check_close(f"{label} {half}", g, w)
+                    key = str(dtype).split(".")[-1]
+                    worst[key] = max(worst.get(key, 0.0), err / max(scale, 1e-300))
+                for g in ([got[0] + got[1]] if symmetric else got):
+                    _check_close(f"{label} against kernel E", g, e)
+    for dt, rel in sorted(worst.items()):
+        log("kernels", f"banded_matvec {dt}: worst max|err|/max|plain| {rel:.3e} over "
+            "7 shapes x both symmetric values x both halves; the halves agree "
+            "with kernel E")
+
+    # the banded tool's shape and data: |normal| rows, gamma = 1/d, f32
+    m, d = BANDED_M, BANDED_D
+    rng = np.random.default_rng(0)
+    Xn = np.abs(rng.normal(size=(m, d))).astype(np.float32)
+    XT = torch.as_tensor(np.ascontiguousarray(Xn.T), device="cuda")
+    X = torch.as_tensor(Xn, device="cuda")
+    v = torch.as_tensor(rng.normal(size=(m,)).astype(np.float32), device="cuda")
+    gamma = float(np.float32(1.0 / d))
+    got = banded.banded_matvec(XT, v, gamma)
+    want = matvec.banded_matvec_plain(XT, v, gamma)
+    errs = [_check_close(f"banded_matvec {m}x{d} {half}", g, w)
+            for half, g, w in zip(("out_r", "out_c"), got, want)]
+    main_err["banded_matvec"] = max(err for err, _ in errs)
+    log("kernels", f"main-path shape f32 banded_matvec {m}x{d}: out_r max|err| "
+        f"{errs[0][0]:.3e} (max|plain| {errs[0][1]:.3e}), out_c {errs[1][0]:.3e} "
+        f"(max|plain| {errs[1][1]:.3e})")
+    label = f"m={m} d={d} f32 laplacian"
+    timing["banded_matvec"] = _time_pair(
+        "banded_matvec", lambda XT, v, gamma: banded.banded_matvec(XT, v, gamma),
+        lambda XT, v, gamma: matvec.banded_matvec_plain(XT, v, gamma),
+        (XT, v, gamma), {}, float(m) * m * d, label,
+        plain_repeats=DIST_PLAIN_REPEATS, unit="Tpair-feature/s", counted="m^2 d")
+    bounds["banded_matvec"] = _sym_bound(m, d, 1, "laplacian", 4, extra_inputs=1)
+    main_ms[("banded_matvec", "banded-tool")] = (timing["banded_matvec"][0],
+                                                 bounds["banded_matvec"][0])
+    _log_bound("banded_matvec", label, timing["banded_matvec"][0],
+               bounds["banded_matvec"])
+    e_ms = _median_ms(lambda: distance.distance_matvec_sym(
+        X, v, kind=K.LAPLACIAN, gamma=gamma))
+    log("kernels", f"banded_matvec / distance_matvec_sym at {label}: "
+        f"{timing['banded_matvec'][0] / e_ms:.3f}x the time (kernel E {e_ms:.3f} "
+        "ms in this call, median of 20)")
+    _yardstick(f"torch.cdist(X, X, p=1) {label}", lambda: torch.cdist(X, X, p=1))
 
 
 def _median_ms(fn, repeats=20, warmup=2):
@@ -452,7 +573,66 @@ def _time_pair(name, kernel, plain, args, kw, work, label, plain_repeats=20,
     return k_ms, p_ms
 
 
+def _bound(pairs, d, fmas, cost, n_bytes):
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for a function that evaluates ``pairs`` kernel values over ``d``
+    features at ``PAIR_FEATURE_COST[cost]`` each, contracts them in
+    ``fmas`` FFMAs, and moves ``n_bytes`` (each input read once, each
+    output written once) -- the larger of the operations over their peak
+    rate and the bytes over the memory rate.  The per-pair epilogue (one
+    exp or power) is not counted: 1/d of the pair work, it could only
+    raise the bound."""
+    fp32, sfu = PAIR_FEATURE_COST[cost]
+    ops_s = max((fp32 * pairs * d + fmas) / FP32_INSTR_PER_S,
+                sfu * pairs * d / SFU_OPS_PER_S)
+    bytes_s = n_bytes / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def _sym_bound(m, d, columns, cost, itemsize, extra_inputs=0):
+    """The bound of ``K(X, X) @ V`` for X (m, d) and V (m, columns): the
+    m (m + 1) / 2 distinct pairs of a symmetric kernel, m^2 FFMAs per
+    column; X, V, the output and ``extra_inputs`` vectors of m moved."""
+    return _bound(m * (m + 1) / 2, d, float(m) * m * columns, cost,
+                  itemsize * m * (d + 2 * columns + extra_inputs))
+
+
+def _rect_bound(n_p, n_s, d, columns, cost, itemsize, extra_inputs=0):
+    """The bound of ``K(P, S) @ A`` for P (n_p, d), S (n_s, d) and A (n_s,
+    columns): every pair, n_p n_s FFMAs per column."""
+    return _bound(float(n_p) * n_s, d, float(n_p) * n_s * columns, cost,
+                  itemsize * ((n_p + n_s) * (d + extra_inputs)
+                              + (n_s + n_p) * columns))
+
+
+def _log_bound(name, label, k_ms, bound, tf32_pairs_d=None):
+    b_ms, by = bound
+    log("kernels", f"{name} {label}: bound {b_ms:.3f} ms ({by}), kernel at "
+        f"{b_ms / k_ms:.3f} of it" + (
+            "" if tf32_pairs_d is None else
+            f"; TF32 tensor-core bound of the pair work, for information: "
+            f"{2 * tf32_pairs_d / TF32_FLOP_PER_S * 1e3:.3f} ms"))
+
+
+def _time_at_main_shape(main_ms, name, phase, fn, bound, label):
+    """A kernel's median ms (5 after 1 warm-up) at the shape a main-path
+    phase gives it, beside its bound there, for the cost ranking that
+    ``main`` prints."""
+    ms = _median_ms(fn, 5, 1)
+    main_ms[(name, phase)] = (ms, bound[0])
+    log("kernels", f"{name} at phase {phase}'s shape {label}: {ms:.3f} ms, bound "
+        f"{bound[0]:.3f} ms ({bound[1]})")
+
+
+def _yardstick(label, fn):
+    """Log the median ms (5 after 1 warm-up) of one PyTorch call that
+    computes a product only, not the kernel's function."""
+    log("kernels", f"yardstick {label} (product only, not the same function): "
+        f"{_median_ms(fn, 5, 1):.3f} ms")
+
+
 def phase_kernels():
+    from plssvm_tpu_torch.ops import gram_matmat, gram_matvec, matvec
     from plssvm_tpu_torch.parameter import KernelFunctionType as K
 
     gen = torch.Generator().manual_seed(SEED)
@@ -480,15 +660,31 @@ def phase_kernels():
 
     # the main path's own shapes: config 2 training (dept = 9999 rows) and
     # predict (2000 points against 10000 SVs), config 3 training
-    main_err = {}
+    main_err, main_ms = {}, {}
     X, P, v = _operands(9999, 200, torch.float32, gen, n_points=2000)
     cfg2 = _compare(K.RBF, 0.0, X, P, v)
     main_err["gram_matvec_sym"] = cfg2["gram_matvec_sym"][0]
+    rbf = dict(kind=K.RBF, gamma=1.0 / 200, coef0=0.0, degree=3)
+    sq = (X * X).sum(-1)
+    _time_at_main_shape(main_ms, "gram_matvec_sym", "e2e",
+                        lambda: gram_matvec.gram_matvec_sym(X, sq, v, **rbf),
+                        _sym_bound(9999, 200, 1, "gram", 4, 1), "9999x200 rbf")
     X, P, v = _operands(10000, 200, torch.float32, gen, n_points=2000)
     main_err["gram_matvec_rect"] = _compare(K.RBF, 0.0, X, P, v)["gram_matvec_rect"][0]
+    sq, sq_p = (X * X).sum(-1), (P * P).sum(-1)
+    _time_at_main_shape(main_ms, "gram_matvec_rect", "e2e",
+                        lambda: gram_matvec.gram_matvec_rect(P, X, sq_p, sq, v, **rbf),
+                        _rect_bound(2000, 10000, 200, 1, "gram", 4, 1),
+                        "2000x10000x200 rbf")
     X, P, v = _operands(49999, 500, torch.float32, gen, n_points=1)
     X = X / X.abs().amax(0)  # the [-1, 1] scale of config 3
     cfg3 = _compare(K.POLYNOMIAL, 0.0, X, P / P.abs().amax(0), v)
+    sq = (X * X).sum(-1)
+    _time_at_main_shape(
+        main_ms, "gram_matvec_sym", "config3",
+        lambda: gram_matvec.gram_matvec_sym(X, sq, v, kind=K.POLYNOMIAL,
+                                            gamma=1.0 / 500, coef0=0.0, degree=3),
+        _sym_bound(49999, 500, 1, "gram", 4, 1), "49999x500 poly")
     log("kernels", f"main-path shapes f32: sym 9999x200 rbf max|err| "
         f"{main_err['gram_matvec_sym']:.3e}, rect 2000x10000x200 rbf "
         f"{main_err['gram_matvec_rect']:.3e}, sym 49999x500 poly "
@@ -506,6 +702,19 @@ def phase_kernels():
         for name, (err, _) in (("gram_matmat_sym", sym_err),
                                ("gram_matmat_rect", rect_err)):
             main_err[name] = max(main_err.get(name, 0.0), err)
+        phase = "multiclass" if m < 10000 else "mnist-width"
+        rbf = dict(kind=K.RBF, gamma=1.0 / d, coef0=0.0, degree=3)
+        sq, sq_p = (X * X).sum(-1), (P * P).sum(-1)
+        S, A = torch.cat([X, X[:1]]), torch.cat([V, V[:1]])
+        sq_s = (S * S).sum(-1)
+        _time_at_main_shape(main_ms, "gram_matmat_sym", phase,
+                            lambda: gram_matmat.gram_matmat_sym(X, sq, V, **rbf),
+                            _sym_bound(m, d, MC_CLASSES, "gram", 4, 1),
+                            f"{m}x{d} rbf C={MC_CLASSES}")
+        _time_at_main_shape(main_ms, "gram_matmat_rect", phase,
+                            lambda: gram_matmat.gram_matmat_rect(P, S, sq_p, sq_s, A, **rbf),
+                            _rect_bound(n_points, m + 1, d, MC_CLASSES, "gram", 4, 1),
+                            f"{n_points}x{m + 1}x{d} rbf C={MC_CLASSES}")
         log("kernels", f"main-path shapes f32, {MC_CLASSES} classes: sym "
             f"{m}x{d} rbf max|err| {sym_err[0]:.3e} (max|plain| "
             f"{sym_err[1]:.3e}), rect {n_points}x{m + 1}x{d} rbf "
@@ -533,11 +742,53 @@ def phase_kernels():
                      ("gram_matmat_rect", "gram_matvec_rect")):
         log("kernels", f"{mat} (C={MC_CLASSES}) / {vec} at m={m} d={d}: "
             f"{timing[mat][0] / timing[vec][0]:.3f}x the time")
+    bounds = {}
+    for rhs in (v, V):
+        columns = 1 if rhs.ndim == 1 else rhs.shape[1]
+        (sym_name, _, _), (rect_name, _, _) = _pairs(rhs)
+        bounds[sym_name] = _sym_bound(m, d, columns, "gram", 4, extra_inputs=1)
+        bounds[rect_name] = _rect_bound(m, m, d, columns, "gram", 4, extra_inputs=1)
+        label = f"m={m} d={d} f32 rbf C={columns}"
+        _log_bound(sym_name, label, timing[sym_name][0], bounds[sym_name],
+                   m * (m + 1) / 2 * d)
+        _log_bound(rect_name, label, timing[rect_name][0], bounds[rect_name],
+                   float(m) * m * d)
+
+    # K6's port: kernel_matvec, one launch of kernel A, at kernel A's shape
+    timing["kernel_matvec"] = _time_pair(
+        "kernel_matvec", gram_matvec.kernel_matvec, matvec.kernel_matvec_plain,
+        (X, sq, v), kw, flops, f"m={m} d={d} f32 rbf")
+    bounds["kernel_matvec"] = bounds["gram_matvec_sym"]
+    _log_bound("kernel_matvec", f"m={m} d={d} f32 rbf", timing["kernel_matvec"][0],
+               bounds["kernel_matvec"], m * (m + 1) / 2 * d)
+    # full-precision float32 products, as the kernels compute
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _yardstick(f"torch.matmul(X, X.T) m={m} d={d} f32", lambda: torch.matmul(X, X.T))
+    # kernel_matvec on bench_matvec's shape (phase 12), RBF, against its
+    # plain version; on one tile (m <= 64: one atomic per row, so a
+    # fixed summation order) it equals kernel A bit for bit
+    Xb, _, vb = _operands(BENCH_M, BENCH_D, torch.float32, gen, n_points=1)
+    kwb = dict(kind=K.RBF, gamma=1.0 / BENCH_D, coef0=0.0, degree=3)
+    sqb = (Xb * Xb).sum(-1)
+    main_err["kernel_matvec"] = _check_close(
+        f"kernel_matvec rbf {BENCH_M}x{BENCH_D}",
+        gram_matvec.kernel_matvec(Xb, sqb, vb, **kwb),
+        matvec.kernel_matvec_plain(Xb, sqb, vb, **kwb))[0]
+    _time_at_main_shape(main_ms, "kernel_matvec", "bench-matvec",
+                        lambda: gram_matvec.kernel_matvec(Xb, sqb, vb, **kwb),
+                        _sym_bound(BENCH_M, BENCH_D, 1, "gram", 4, 1),
+                        f"{BENCH_M}x{BENCH_D} rbf")
+    X1, _, v1 = _operands(64, 37, torch.float32, gen, n_points=1)
+    sq1 = (X1 * X1).sum(-1)
+    if not torch.equal(gram_matvec.kernel_matvec(X1, sq1, v1, **kwb),
+                       gram_matvec.gram_matvec_sym(X1, sq1, v1, **kwb)):
+        raise AssertionError("kernel_matvec differs from kernel A on one tile")
+    log("kernels", f"kernel_matvec rbf {BENCH_M}x{BENCH_D} f32: max|err| "
+        f"{main_err['kernel_matvec']:.3e} against the plain version; equal to "
+        "kernel A bit for bit on one tile (64 x 37)")
 
     def time_a(X16):
         """Kernel A alone on the distance timing's rows, RBF."""
-        from plssvm_tpu_torch.ops import gram_matvec
-
         sq16 = (X16 * X16).sum(-1)
         v16 = torch.ones(X16.shape[0], device="cuda", dtype=X16.dtype)
         kw16 = dict(kind=K.RBF, gamma=1.0 / X16.shape[1], coef0=0.0, degree=3)
@@ -546,8 +797,9 @@ def phase_kernels():
             f"{a_ms:.3f} ms")
         return a_ms
 
-    g_chi_ms = _distance_kernels(gen, main_err, timing, time_a)
-    return main_err, timing, g_chi_ms
+    g_chi_ms = _distance_kernels(gen, main_err, main_ms, timing, bounds, time_a)
+    _banded_kernels(gen, main_err, main_ms, timing, bounds)
+    return main_err, main_ms, timing, bounds, g_chi_ms
 
 
 def _write_config2(tmp):
@@ -797,10 +1049,12 @@ def phase_multiclass_width():
         raise AssertionError("MNIST width did not go through kernels C and D only")
     if accuracy < MC_ACCURACY_FLOOR:
         raise AssertionError(f"accuracy {accuracy} below {MC_ACCURACY_FLOOR}")
+    return {"gram_matmat_sym": launches[0], "gram_matmat_rect": launches[1]}
 
 
 def phase_config3_width():
     import plssvm_tpu_torch as port
+    from plssvm_tpu_torch.ops import gram_matvec
 
     rng = np.random.default_rng(SEED + 2)
     n, d = 50000, 500
@@ -810,6 +1064,7 @@ def phase_config3_width():
     svm = port.CSVM(backend="cuda", device="cuda", dtype=np.float32,
                     kernel_type="polynomial")
     port.global_tracker.clear()
+    gram_matvec.reset_counts()
     t0 = time.perf_counter()
     model = svm.fit(data, epsilon=1e-12, max_iter=20)
     t1 = time.perf_counter()
@@ -818,7 +1073,9 @@ def phase_config3_width():
     if not np.all(np.isfinite(model.alpha)) or not np.isfinite(model.rho):
         raise AssertionError("config 3 width: non-finite model")
     log("config3", f"poly 50000x500 f32 (cuda): {iterations} CG iterations, "
-        f"{cg_ms / 1000 / iterations:.6f} s/iteration, fit {t1 - t0:.3f} s")
+        f"{cg_ms / 1000 / iterations:.6f} s/iteration, fit {t1 - t0:.3f} s, "
+        f"kernel A launches {gram_matvec.sym_launches}")
+    return {"gram_matvec_sym": gram_matvec.sym_launches}
 
 
 def phase_laplacian_cli(tmp, config2_files):
@@ -930,6 +1187,76 @@ def phase_chi2_width(g_chi_ms):
         raise AssertionError("chi-squared width did not go through kernels G and H only")
     if converged and accuracy < CHI2_ACCURACY_FLOOR:
         raise AssertionError(f"accuracy {accuracy} below {CHI2_ACCURACY_FLOOR}")
+    return {k: launches[k] for k in ("distance_matmat_sym", "distance_matmat_rect")}
+
+
+def _run_tool(phase, main, argv):
+    """Run a tool's ``main(argv)`` in this process, its output logged under
+    ``phase``; returns the output's lines, raises unless it exits 0."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    lines = out.getvalue().strip().splitlines()
+    for line in lines:
+        log(phase, line)
+    if rc != 0:
+        raise AssertionError(f"{phase}: {' '.join(argv) or 'defaults'} exited {rc}")
+    return lines
+
+
+def phase_banded_tool():
+    """Phase 11: the banded tool at its defaults, then with --check; kernel
+    I launched for each product and nothing through its plain version."""
+    from plssvm_tpu_torch.ops import banded, matvec
+    from plssvm_tpu_torch.tools import exp_banded_distance
+
+    banded.reset_counts()
+    lines = _run_tool("banded-tool", exp_banded_distance.main, [])
+    _run_tool("banded-tool", exp_banded_distance.main, ["--check"])
+    launches, plain_calls = banded.launches, matvec.banded_plain_calls
+    log("banded-tool", f"kernel I launches {launches}, plain calls {plain_calls}")
+    # an untimed and a timed loop of BANDED_ITERS products, and the check
+    if launches != 2 * BANDED_ITERS + 1 or plain_calls != 0:
+        raise AssertionError("the banded tool did not go through kernel I only")
+    if not lines[-1].startswith("banded: "):
+        raise AssertionError(f"banded tool printed {lines[-1]!r}")
+    return {"banded_matvec": launches}
+
+
+def phase_bench_matvec():
+    """Phase 12: bench_matvec at BENCH_M x BENCH_D for RBF and laplacian;
+    every variant's rel_err against the float64 golden within 1e-5, and
+    each kernel launched once for the check and 3 x BENCH_ITERS times."""
+    from plssvm_tpu_torch.ops import distance, gram_matvec, matvec
+    from plssvm_tpu_torch.tools import bench_matvec
+
+    gram_matvec.reset_counts()
+    distance.reset_counts()
+    for kernel in ("rbf", "laplacian"):
+        lines = _run_tool("bench-matvec", bench_matvec.main,
+                          [str(BENCH_M), str(BENCH_D), str(BENCH_ITERS), "all", kernel])
+        for line in lines[1:]:
+            if "not ported" in line:
+                continue
+            rel = float(line.rsplit("rel_err=", 1)[1])
+            if not rel <= 1e-5:
+                raise AssertionError(f"bench_matvec {kernel}: {line}")
+    per_variant = 1 + 3 * BENCH_ITERS
+    launches = {
+        "kernel_matvec": gram_matvec.kernel_matvec_launches,
+        "gram_matvec_sym": gram_matvec.sym_launches,
+        "gram_matvec_rect": gram_matvec.rect_launches,
+        "distance_matvec_sym": distance.matvec_sym_launches,
+    }
+    log("bench-matvec", f"launches {launches}; plain calls: Gram "
+        f"{matvec.sym_plain_calls}, distance {matvec.dist_sym_plain_calls}")
+    # kernel_matvec and kernel_matvec_hi are kernel A's only callers here
+    if launches != {"kernel_matvec": 2 * per_variant, "gram_matvec_sym": 2 * per_variant,
+                    "gram_matvec_rect": per_variant, "distance_matvec_sym": per_variant} \
+            or matvec.sym_plain_calls != per_variant \
+            or matvec.dist_sym_plain_calls != per_variant:
+        raise AssertionError("bench_matvec's variants did not launch as expected")
+    return {"kernel_matvec": launches["kernel_matvec"]}
 
 
 def main():
@@ -951,20 +1278,45 @@ def main():
 
     name, smi = run("device", phase_device)
     run("build", phase_build)
-    main_err, timing, g_chi_ms = run("kernels", phase_kernels)
+    main_err, main_ms, timing, bounds, g_chi_ms = run("kernels", phase_kernels)
+    # per main-path phase, each kernel's launches in that phase's run
+    phase_launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         config2_files = _write_config2(tmp)
-        launches = run("e2e", phase_end_to_end, tmp, config2_files)
-        launches.update(run("multiclass", phase_multiclass_cli, tmp))
-        launches.update(run("laplacian", phase_laplacian_cli, tmp, config2_files))
-        launches.update(run("chi2-cli", phase_chi2_cli, tmp))
-    run("config3", phase_config3_width)
-    run("mnist-width", phase_multiclass_width)
-    run("chi2-width", phase_chi2_width, g_chi_ms)
+        phase_launches["e2e"] = run("e2e", phase_end_to_end, tmp, config2_files)
+        phase_launches["multiclass"] = run("multiclass", phase_multiclass_cli, tmp)
+        phase_launches["laplacian"] = run("laplacian", phase_laplacian_cli, tmp,
+                                          config2_files)
+        phase_launches["chi2-cli"] = run("chi2-cli", phase_chi2_cli, tmp)
+    phase_launches["config3"] = run("config3", phase_config3_width)
+    phase_launches["mnist-width"] = run("mnist-width", phase_multiclass_width)
+    phase_launches["chi2-width"] = run("chi2-width", phase_chi2_width, g_chi_ms)
+    phase_launches["banded-tool"] = run("banded-tool", phase_banded_tool)
+    phase_launches["bench-matvec"] = run("bench-matvec", phase_bench_matvec)
     log("times", ", ".join(f"{k} {v:.1f} s" for k, v in phase_seconds.items()))
 
+    # where the kernels lose time on the main paths: launches x (ms at the
+    # phase's shape - bound there), largest first
+    costs = sorted(
+        ((n * (main_ms[(k, phase)][0] - main_ms[(k, phase)][1]), k, phase, n)
+         for phase, counts in phase_launches.items() for k, n in counts.items()
+         if (k, phase) in main_ms),
+        reverse=True)
+    for lost, k, phase, n in costs:
+        ms, b_ms = main_ms[(k, phase)]
+        log("cost", f"{k} in {phase}: {n} launches x ({ms:.3f} - {b_ms:.3f}) ms "
+            f"= {lost:.1f} ms above the bound")
+    # each kernel's launches in the JSON line are those of the first phase
+    # that runs it
+    launches = {}
+    for counts in phase_launches.values():
+        for k, n in counts.items():
+            launches.setdefault(k, n)
+
     # the distance kernels report the kind their main path ran: laplacian
-    # for E and F (phase 8), chi-squared for G and H (phases 9 and 10)
+    # for E and F (phase 8), chi-squared for G and H (phases 9 and 10);
+    # kernel_matvec's launches are phase 12's, kernel I's phase 11's.  No
+    # single PyTorch call computes any kernel's function (library_ms)
     sources = {
         "gram_matvec_sym": ("gram_matvec.cu", "plssvm_tpu/ops/pallas_matvec.py:430"),
         "gram_matvec_rect": ("gram_matvec.cu", "plssvm_tpu/ops/pallas_matvec.py:1007"),
@@ -978,6 +1330,8 @@ def main():
             "distance.cu", "plssvm_tpu/ops/pallas_distance.py:412"),
         ("distance_matmat_rect", "chi_squared"): (
             "distance.cu", "plssvm_tpu/ops/pallas_distance.py:412"),
+        "kernel_matvec": ("gram_matvec.cu", "plssvm_tpu/ops/pallas_matvec.py:984"),
+        "banded_matvec": ("banded.cu", "tools/exp_banded_distance.py:107"),
     }
     print(smi)
     print(json.dumps({"kernels": [
@@ -987,7 +1341,8 @@ def main():
             "replaces": replaces,
             "launches": launches[k if isinstance(k, str) else k[0]],
             "max_abs_err": main_err[k], "ms": timing[k][0],
-            "plain_ms": timing[k][1],
+            "plain_ms": timing[k][1], "bound_ms": bounds[k][0],
+            "bound_by": bounds[k][1], "library_ms": None,
         }
         for k, (src, replaces) in sources.items()
     ]}))

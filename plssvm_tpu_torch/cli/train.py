@@ -76,7 +76,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-b", "--backend", default="automatic",
                         help="choose the backend: automatic|torch|cuda")
     parser.add_argument("-p", "--target_platform", default="automatic",
-                        help="choose the target platform: automatic|cpu|gpu")
+                        help="choose the target platform: automatic|cpu|gpu; "
+                             "automatic takes the GPU and fails without one, "
+                             "-p cpu is the only way to the CPU")
     parser.add_argument(
         "-s", "--svm_type", default="c_svc",
         choices=["c_svc", "epsilon_svr", "svr", "one_class"],

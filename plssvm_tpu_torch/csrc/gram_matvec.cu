@@ -17,6 +17,9 @@
 //   K_tile^T @ v_i into out[j rows]; the diagonal tile contributes rows
 //   only.  Atomics are what the TPU lacked and the reason Pallas kept a
 //   resident column accumulator; fp64 atomicAdd is native on sm_90.
+//   kernel_matvec_pallas, the JAX package's thin wrapper that routes
+//   K(X, X) @ v to the same symmetric kernel, is ported as
+//   ops/gram_matvec.py kernel_matvec: one launch of kernel A.
 //
 // Kernel B, gram_matvec_rect: out = K(P, S) @ a, binary predict.
 //   Replaces the non-symmetric branch of kernel_matvec_pallas_rect in the

@@ -1,5 +1,6 @@
 // The pieces the kernels share (gram_matvec.cu: kernels A and B;
-// gram_matmat.cu: kernels C and D; distance.cu: kernels E-H): the
+// gram_matmat.cu: kernels C and D; distance.cu: kernels E-H; banded.cu:
+// kernel I): the
 // kernel-function epilogues, the register tile with its shared-memory
 // feature-chunk loader and its pair operation (the Gram product, or the
 // laplacian / chi-squared distance term), the half-warp reduction, the
@@ -127,8 +128,11 @@ struct Staging {
 
 // acc[a][b] = sum_k op(X[row0 + ty + kThreads a, k], Y[col0 + tx + kThreads b, k])
 // over all d features, op the Gram product by default; rows past mx / my
-// and features past d load as 0.
-template <typename T, int BM, typename Op = GramProduct>
+// and features past d load as 0.  X and Y are row-major (rows, d) or, with
+// kFeatureMajor, transposed: (d, mx) and (d, my), a feature's values of all
+// rows side by side.
+template <typename T, int BM, typename Op = GramProduct,
+          bool kFeatureMajor = false>
 __device__ __forceinline__ void gram_tile(
     const T* __restrict__ X, const T* __restrict__ Y, int64_t mx, int64_t my,
     int64_t d, int64_t row0, int64_t col0, Staging<T, BM>& s,
@@ -145,15 +149,26 @@ __device__ __forceinline__ void gram_tile(
         }
     }
     for (int64_t k0 = 0; k0 < d; k0 += kChunk) {
-        // neighbouring threads read neighbouring features of one row
         for (int e = tid; e < BM * kChunk; e += kThreads * kThreads) {
-            const int r = e / kChunk;
-            const int kk = e % kChunk;
-            const int64_t k = k0 + kk;
-            const int64_t gx = row0 + r;
-            const int64_t gy = col0 + r;
-            s.x[kk][r] = (gx < mx && k < d) ? X[gx * d + k] : T(0);
-            s.y[kk][r] = (gy < my && k < d) ? Y[gy * d + k] : T(0);
+            if constexpr (kFeatureMajor) {
+                // neighbouring threads read neighbouring rows of one feature
+                const int r = e % BM;
+                const int kk = e / BM;
+                const int64_t k = k0 + kk;
+                const int64_t gx = row0 + r;
+                const int64_t gy = col0 + r;
+                s.x[kk][r] = (gx < mx && k < d) ? X[k * mx + gx] : T(0);
+                s.y[kk][r] = (gy < my && k < d) ? Y[k * my + gy] : T(0);
+            } else {
+                // neighbouring threads read neighbouring features of one row
+                const int r = e / kChunk;
+                const int kk = e % kChunk;
+                const int64_t k = k0 + kk;
+                const int64_t gx = row0 + r;
+                const int64_t gy = col0 + r;
+                s.x[kk][r] = (gx < mx && k < d) ? X[gx * d + k] : T(0);
+                s.y[kk][r] = (gy < my && k < d) ? Y[gy * d + k] : T(0);
+            }
         }
         __syncthreads();
 #pragma unroll (Op::kUnroll)

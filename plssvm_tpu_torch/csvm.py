@@ -73,15 +73,14 @@ def _resolve_device(target: TargetPlatform, device) -> torch.device:
         )
     if target == TargetPlatform.CPU:
         return torch.device("cpu")
-    if target == TargetPlatform.GPU:
-        if not torch.cuda.is_available():
-            raise UnsupportedBackendError(
-                "target platform 'gpu' requested, but CUDA is not available!"
-            )
-        return torch.device("cuda", torch.cuda.current_device())
-    if torch.cuda.is_available():
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
+    if not torch.cuda.is_available():
+        # automatic never falls back to the CPU: the caller asks for it
+        raise UnsupportedBackendError(
+            f"target platform '{target}' needs a CUDA device, but CUDA is not "
+            "available!  Ask for the CPU explicitly: target='cpu' or "
+            "device='cpu' (CLI: -p cpu)."
+        )
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 class CSVM:
@@ -91,9 +90,11 @@ class CSVM:
     score 345-375).
 
     ``device`` (e.g. ``"cuda:0"``) pins the device; by default ``target``
-    decides, and ``automatic`` takes the current CUDA device when there is
-    one, else the CPU.  ``backend=automatic`` takes the CUDA kernels on a
-    CUDA device and the plain PyTorch versions elsewhere.
+    decides, and ``automatic`` takes the current CUDA device and raises
+    :class:`UnsupportedBackendError` when there is none: the CPU runs only
+    when asked for (``target="cpu"`` or ``device="cpu"``).
+    ``backend=automatic`` takes the CUDA kernels on a CUDA device and the
+    plain PyTorch versions on the CPU.
     """
 
     def __init__(

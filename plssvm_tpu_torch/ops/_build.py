@@ -119,7 +119,8 @@ def _ptxas_log(library: Path) -> Path:
 
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _SHORT = re.compile(
-    r"((?:gram|distance)_mat(?:vec|mat)_(?:sym|rect))_kernelI([fd])Li(\d)E"
+    r"((?:gram|distance)_mat(?:vec|mat)_(?:sym|rect)|banded_matvec)"
+    r"_kernelI([fd])(?:Li(\d)E)?"
 )
 _KINDS = {"1": "poly", "2": "rbf", "3": "sigmoid", "4": "laplacian", "5": "chi_squared"}
 
@@ -138,10 +139,14 @@ def kernel_resources() -> Dict[str, Dict[str, int]]:
         entry = _ENTRY.search(line)
         if entry:
             short = _SHORT.search(entry.group(1))
-            name = None if short is None else (
-                f"{short.group(1)} {'f32' if short.group(2) == 'f' else 'f64'} "
-                f"{_KINDS.get(short.group(3), short.group(3))}"
-            )
+            name = None
+            if short is not None:
+                # kernel I (banded_matvec) is laplacian only: no kind parameter
+                kind = short.group(3) or "4"
+                name = (
+                    f"{short.group(1)} {'f32' if short.group(2) == 'f' else 'f64'} "
+                    f"{_KINDS.get(kind, kind)}"
+                )
             continue
         if name is None:
             continue
@@ -198,6 +203,10 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, f"plssvm_distance_{name}_{suffix}")
             fn.argtypes = [ptr] * (n_operands + 1) + [i64] * n_sizes + [cint, real, ptr]
             fn.restype = cint
+        # kernel I: (XT, v, out_r, out_c, m, d, symmetric, gamma, stream)
+        banded = getattr(lib, f"plssvm_banded_matvec_{suffix}")
+        banded.argtypes = [ptr] * 4 + [i64, i64, cint, real, ptr]
+        banded.restype = cint
     lib.plssvm_cuda_error_string.argtypes = [cint]
     lib.plssvm_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -6,11 +6,16 @@ with ``symmetric=True`` (through ``kernel_matvec_pallas_big``).  Kernel B,
 :func:`gram_matvec_rect` — ``K(P, S) @ a``, binary predict — replaces the
 non-symmetric branch of ``kernel_matvec_pallas_rect``.  The source note in
 csrc/gram_matvec.cu says how they are built and what bounds them.
+:func:`kernel_matvec` replaces ``kernel_matvec_pallas`` (K6), the JAX
+package's thin wrapper that routes ``K(X, X) @ v`` to the same symmetric
+kernel; here it is one launch of kernel A.
 
 Each wrapper takes its plain PyTorch version (ops/matvec.py) for tensors
 that lie on the CPU, and only then.  For a CUDA tensor it launches its
 kernel or raises; it never falls back.  Each counts its launches in a plain
-module-level int (``sym_launches``, ``rect_launches``).
+module-level int (``sym_launches``, ``rect_launches``;
+``kernel_matvec_launches`` counts kernel A's launches made for
+:func:`kernel_matvec`).
 
 Both kernels take float32 and float64, with full-precision FMA in either:
 ``gram_precision`` "f32" and "highest" both map here.  They allocate
@@ -22,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from ..exceptions import KernelLaunchError
+from ..exceptions import KernelLaunchError, NotPortedError
 from ..kernel_functions import DISTANCE_KERNELS
 from ..parameter import KernelFunctionType
 from . import _build
@@ -31,6 +36,8 @@ from . import matvec as _plain
 #: kernel launches of gram_matvec_sym / gram_matvec_rect
 sym_launches = 0
 rect_launches = 0
+#: kernel A's launches made by kernel_matvec
+kernel_matvec_launches = 0
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -38,9 +45,10 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 def reset_counts() -> None:
     """Zero the launch counts of both kernels and the call counts of their
     plain versions."""
-    global sym_launches, rect_launches
+    global sym_launches, rect_launches, kernel_matvec_launches
     sym_launches = 0
     rect_launches = 0
+    kernel_matvec_launches = 0
     _plain.sym_plain_calls = 0
     _plain.rect_plain_calls = 0
 
@@ -186,4 +194,39 @@ def gram_matvec_rect(
     _raise_on_error(lib, err, "gram_matvec_rect")
     global rect_launches
     rect_launches += 1
+    return out
+
+
+def kernel_matvec(
+    X: torch.Tensor,
+    sq_norms: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    kind: KernelFunctionType,
+    gamma: float,
+    coef0: float,
+    degree: int,
+    precision: str = "f32",
+) -> torch.Tensor:
+    """``K(X, X) @ v`` for a poly / RBF / sigmoid kernel through kernel A,
+    one launch; the counterpart of ``kernel_matvec_pallas``.
+
+    ``precision`` "f32" and "highest" both take kernel A's full-precision
+    FMA; "bf16" is not ported.  No padding: any m and d >= 1.
+    """
+    if precision not in ("f32", "bf16", "highest"):
+        raise ValueError(
+            f"precision must be 'f32', 'bf16' or 'highest', not {precision!r}"
+        )
+    if precision == "bf16":
+        raise NotPortedError(
+            "precision='bf16' is not ported to the CUDA kernels yet (ROADMAP "
+            "Queue 4: bf16 operands with f32 accumulation)"
+        )
+    global kernel_matvec_launches
+    before = sym_launches
+    out = gram_matvec_sym(
+        X, sq_norms, v, kind=kind, gamma=gamma, coef0=coef0, degree=degree
+    )
+    kernel_matvec_launches += sym_launches - before
     return out

@@ -20,8 +20,9 @@ computed once and contracted with all C columns.
 kernel D (ops/gram_matmat.py).  The laplacian and chi-squared kernels have
 their own four (``distance_*_plain``, the oracles of kernels E-H in
 ops/distance.py): the same row-blocked walk over the full square through
-``kernel_block``'s distance branch, with no squared norms.  Each counts its
-calls in a plain module-level int, so a run can show that its main path
+``kernel_block``'s distance branch, with no squared norms.
+``banded_matvec_plain`` is kernel I's (ops/banded.py): the laplacian product
+split on 128-row bands.  Each counts its calls in a plain module-level int, so a run can show that its main path
 took the kernels and not these.  Rows need no padding: the blocks follow
 the tensor's own length.
 """
@@ -51,6 +52,10 @@ dist_sym_plain_calls = 0
 dist_rect_plain_calls = 0
 dist_sym_matmat_plain_calls = 0
 dist_rect_matmat_plain_calls = 0
+#: calls of banded_matvec_plain
+banded_plain_calls = 0
+#: rows of a band of banded_matvec_plain's split
+BAND = 128
 
 
 def linear_kernel_matvec(X: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -196,6 +201,44 @@ def distance_matmat_rect_plain(
     global dist_rect_matmat_plain_calls
     dist_rect_matmat_plain_calls += 1
     return _distance_row_blocked(P, S, A, kind, gamma, row_block)
+
+
+def banded_matvec_plain(
+    XT: torch.Tensor,
+    v: torch.Tensor,
+    gamma,
+    *,
+    symmetric: bool = True,
+    row_block: int = DISTANCE_ROW_BLOCK,
+):
+    """``(out_r, out_c)`` of the laplacian kernel over the columns of ``XT``
+    (d, m) against ``v`` (m,), split on ``BAND``-row bands.  With ``b(i) =
+    i // BAND``: when ``symmetric``, ``out_r[i]`` sums ``k(i, j) v[j]`` over
+    ``b(j) >= b(i)`` and ``out_c[j]`` sums ``k(i, j) v[i]`` over ``b(i) <
+    b(j)``; else ``out_r = K @ v`` and ``out_c = K.T @ v``."""
+    global banded_plain_calls
+    banded_plain_calls += 1
+    X = XT.T.contiguous()
+    m = X.shape[0]
+    out_r = torch.empty((m,), dtype=v.dtype, device=v.device)
+    out_c = torch.zeros((m,), dtype=v.dtype, device=v.device)
+    band = torch.arange(m, device=v.device) // BAND
+    for i in range(0, m, row_block):
+        rows = slice(i, i + row_block)
+        # when symmetric, only the columns from the block's first band on
+        c0 = (i // BAND) * BAND if symmetric else 0
+        K_blk = kernel_block(
+            X[rows], X[c0:], None, None, KernelFunctionType.LAPLACIAN,
+            gamma, 0.0, 0,
+        )
+        if symmetric:
+            b_row, b_col = band[rows, None], band[None, c0:]
+            out_r[rows] = (K_blk * (b_col >= b_row)) @ v[c0:]
+            out_c[c0:] += (K_blk * (b_row < b_col)).T @ v[rows]
+        else:
+            out_r[rows] = K_blk @ v
+            out_c += K_blk.T @ v[rows]
+    return out_r, out_c
 
 
 def _distance_row_blocked(X, Y, v, kind, gamma, row_block):

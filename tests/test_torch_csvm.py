@@ -4,7 +4,8 @@
 ``plssvm_tpu.CSVM(backend="xla", solver="cg_implicit", dtype=np.float64)``
 on a seeded set scaled to [-1, 1], for RBF, polynomial and linear; the same
 through both packages' CLIs; and ``model_from_numpy`` carrying a plssvm_tpu
-model across.  Tolerances: the same labels, rho within 1e-8, decision
+model across.  Without a CUDA device, ``target="automatic"`` (the default)
+and the CLIs without ``-p cpu`` refuse to run rather than take the CPU.  Tolerances: the same labels, rho within 1e-8, decision
 values within 1e-8.
 
 epsilon is 1e-10: a CG stopped early (epsilon 1e-3) lands on an iterate
@@ -17,6 +18,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import plssvm_tpu
 import plssvm_tpu_torch
@@ -54,7 +56,8 @@ def _fit_both(kernel):
         kernel_type=kernel, cost=1.0,
     )
     t_svm = plssvm_tpu_torch.CSVM(
-        backend="torch", dtype=np.float64, kernel_type=kernel, cost=1.0,
+        backend="torch", device="cpu", dtype=np.float64, kernel_type=kernel,
+        cost=1.0,
     )
     return (
         j_svm, j_svm.fit(j_train, epsilon=EPS), j_test,
@@ -123,15 +126,15 @@ def test_cli_train_predict_against_reference(kernel_flag, tmp_path):
     plssvm_tpu_torch.DataSet(Xte, yte, scaling=(-1.0, 1.0)).save(test_file)
     common = ["-t", kernel_flag, "-e", str(EPS), "--use_double_as_real_type", "-q"]
     files = {}
-    for name, train_cli, predict_cli, backend in (
-        ("j", j_train_cli, j_predict_cli, ["-b", "xla", "--solver", "cg_implicit"]),
-        ("t", t_train_cli, t_predict_cli, ["-b", "torch"]),
+    for name, train_cli, predict_cli, backend, where in (
+        ("j", j_train_cli, j_predict_cli, ["-b", "xla", "--solver", "cg_implicit"], []),
+        ("t", t_train_cli, t_predict_cli, ["-b", "torch"], ["-p", "cpu"]),
     ):
         model = os.path.join(tmp_path, f"{name}.model")
         out = os.path.join(tmp_path, f"{name}.predict")
-        assert train_cli.main(common + backend + [train_file, model]) == 0
+        assert train_cli.main(common + backend + where + [train_file, model]) == 0
         assert predict_cli.main(
-            ["--use_double_as_real_type", "-q", "-b", backend[1], test_file, model, out]
+            ["--use_double_as_real_type", "-q", "-b", backend[1], *where, test_file, model, out]
         ) == 0
         files[name] = (model, out)
     j_model = plssvm_tpu.Model.load(files["j"][0])
@@ -206,3 +209,52 @@ class TestNotPorted:
         assert t_train_cli.main(flags + ["-q", train_file, model]) == 1
         assert "not ported yet (ROADMAP" in capsys.readouterr().err
         assert not os.path.exists(model)
+
+
+class TestAutomaticNeverMeansTheCpu:
+    """Without a CUDA device, ``automatic`` raises instead of running on the
+    CPU; the CPU runs only when asked for (target / device "cpu", -p cpu).
+    CUDA is made absent here, whatever the machine has."""
+
+    @pytest.fixture(autouse=True)
+    def no_cuda(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    @pytest.mark.parametrize("kwargs", [{}, dict(target="automatic"),
+                                        dict(backend="torch"), dict(target="gpu")])
+    def test_csvm_refuses(self, kwargs):
+        with pytest.raises(plssvm_tpu_torch.UnsupportedBackendError,
+                           match="target='cpu' or device='cpu' \\(CLI: -p cpu\\)"):
+            plssvm_tpu_torch.CSVM(**kwargs)
+
+    @pytest.mark.parametrize("kwargs", [dict(target="cpu"), dict(device="cpu"),
+                                        dict(target="automatic", device="cpu")])
+    def test_csvm_on_the_cpu_when_asked(self, kwargs):
+        svm = plssvm_tpu_torch.CSVM(**kwargs)
+        assert svm.device == torch.device("cpu")
+        assert str(svm.backend) == "torch"
+
+    @pytest.mark.parametrize("where", [[], ["-p", "automatic"], ["-p", "cpu"]])
+    def test_clis(self, where, tmp_path, capsys):
+        Xtr, ytr, Xte, yte = blobs(seed=4)
+        train_file = os.path.join(tmp_path, "train.libsvm")
+        test_file = os.path.join(tmp_path, "test.libsvm")
+        plssvm_tpu_torch.DataSet(Xtr, ytr).save(train_file)
+        plssvm_tpu_torch.DataSet(Xte, yte).save(test_file)
+        model = os.path.join(tmp_path, "port.model")
+        out = os.path.join(tmp_path, "port.predict")
+        rc = t_train_cli.main(["-q", *where, train_file, model])
+        if where != ["-p", "cpu"]:
+            assert rc == 1 and not os.path.exists(model)
+            assert "CUDA is not available" in capsys.readouterr().err
+            # a model file from elsewhere: predict refuses the same way
+            plssvm_tpu_torch.CSVM(device="cpu").fit(
+                plssvm_tpu_torch.DataSet(train_file)).save(model)
+        else:
+            assert rc == 0
+        rc = t_predict_cli.main(["-q", *where, test_file, model, out])
+        if where != ["-p", "cpu"]:
+            assert rc == 1 and not os.path.exists(out)
+            assert "-p cpu" in capsys.readouterr().err
+        else:
+            assert rc == 0 and os.path.getsize(out) > 0

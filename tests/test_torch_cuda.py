@@ -1,6 +1,7 @@
 """The CUDA kernels (A, B: Gram matvecs; C, D: Gram block matmats; E-H:
-laplacian / chi-squared matvecs and block matmats) against their plain
-PyTorch versions, on the card.
+laplacian / chi-squared matvecs and block matmats; I: the banded laplacian
+matvec; and ``kernel_matvec``, K6's one launch of kernel A) against their
+plain PyTorch versions, on the card.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  They import
 neither jax nor plssvm_tpu, so they run where only PyTorch is installed:
@@ -14,7 +15,8 @@ kernels sum in another order than cuBLAS, with atomics).
 import pytest
 import torch
 
-from plssvm_tpu_torch.ops import distance, gram_matmat, gram_matvec, matvec
+from plssvm_tpu_torch.exceptions import NotPortedError
+from plssvm_tpu_torch.ops import banded, distance, gram_matmat, gram_matvec, matvec
 from plssvm_tpu_torch.parameter import KernelFunctionType as TKind
 
 COEF0 = {"polynomial": 1.0, "rbf": 0.0, "sigmoid": -0.5}
@@ -212,3 +214,66 @@ def test_distance_wrappers_check_operands(cuda_device):
         distance.distance_matmat_rect(X, X, V.double(), **kw)
     with pytest.raises(ValueError, match="on cpu"):
         distance.distance_matvec_rect(X, X, V[:, 0].cpu(), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("m,d", [(1, 1), (1, 3), (127, 3), (129, 203), (300, 1),
+                                 (384, 16), (1037, 203)])
+def test_banded_against_plain(cuda_device, m, d, symmetric, dtype, tol):
+    """Kernel I on ragged shapes, a single row included: each half against
+    the plain version, and the halves against kernel E on the rows."""
+    g = torch.Generator().manual_seed(44)
+    X = torch.rand(m, d, generator=g, dtype=torch.float64).to(cuda_device, dtype)
+    v = torch.randn(m, generator=g, dtype=torch.float64).to(cuda_device, dtype)
+    XT = X.T.contiguous()
+    before = banded.launches
+    out_r, out_c = banded.banded_matvec(XT, v, 1.0 / d, symmetric=symmetric)
+    assert banded.launches == before + 1
+    want_r, want_c = matvec.banded_matvec_plain(XT, v, 1.0 / d, symmetric=symmetric)
+    for got, want in ((out_r, want_r), (out_c, want_c)):
+        assert got.shape == (m,) and torch.isfinite(got).all()
+        assert (got - want).abs().max() <= tol * want.abs().max()
+    e = distance.distance_matvec_sym(X, v, kind=TKind.LAPLACIAN, gamma=1.0 / d)
+    halves = [out_r + out_c] if symmetric else [out_r, out_c]
+    for got in halves:
+        assert (got - e).abs().max() <= tol * e.abs().max()
+
+
+@pytest.mark.cuda
+def test_banded_wrapper_checks_operands(cuda_device):
+    XT = torch.rand(3, 10, device=cuda_device)
+    v = torch.randn(10, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        banded.banded_matvec(XT.T.contiguous().T, v, 0.1)
+    with pytest.raises(ValueError, match="shape"):
+        banded.banded_matvec(XT, v[:5], 0.1)
+    with pytest.raises(TypeError):
+        banded.banded_matvec(XT, v.double(), 0.1)
+    with pytest.raises(ValueError, match="on cpu"):
+        banded.banded_matvec(XT, v.cpu(), 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "highest"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_matvec_is_kernel_a(cuda_device, precision, dtype):
+    """K6's port is one launch of kernel A: bit for bit on one tile (m <=
+    64, each row sum one atomic, so no summation order to vary), within
+    the atomics' rounding on many."""
+    g = torch.Generator().manual_seed(45)
+    kw = dict(kind=TKind.RBF, gamma=1.0 / 37, coef0=0.0, degree=3)
+    for m, d, tol in ((64, 37, 0.0), (1037, 203, 1e-6 if dtype == torch.float32 else 1e-13)):
+        X = torch.randn(m, d, generator=g, dtype=torch.float64).to(cuda_device, dtype)
+        v = torch.randn(m, generator=g, dtype=torch.float64).to(cuda_device, dtype)
+        sq = (X * X).sum(-1)
+        before = gram_matvec.sym_launches, gram_matvec.kernel_matvec_launches
+        got = gram_matvec.kernel_matvec(X, sq, v, precision=precision, **kw)
+        assert (gram_matvec.sym_launches, gram_matvec.kernel_matvec_launches) == (
+            before[0] + 1, before[1] + 1
+        )
+        want = gram_matvec.gram_matvec_sym(X, sq, v, **kw)
+        assert (got - want).abs().max() <= tol * want.abs().max()
+    with pytest.raises(NotPortedError, match="Queue 4"):
+        gram_matvec.kernel_matvec(X, sq, v, precision="bf16", **kw)

@@ -407,7 +407,8 @@ def _fit_both(name, n_classes, **fit_kw):
         kernel_type=name, cost=1.0,
     )
     t_svm = plssvm_tpu_torch.CSVM(
-        backend="torch", dtype=np.float64, kernel_type=name, cost=1.0,
+        backend="torch", device="cpu", dtype=np.float64, kernel_type=name,
+        cost=1.0,
     )
     return (
         j_svm, j_svm.fit(plssvm_tpu.DataSet(Xtr, ytr), epsilon=EPS, **fit_kw),
@@ -465,15 +466,15 @@ def test_cli_train_predict_against_reference(flag, n_classes, tmp_path):
     plssvm_tpu_torch.DataSet(Xte, yte).save(test_file)
     common = ["-t", flag, "-e", str(EPS), "--use_double_as_real_type", "-q"]
     files = {}
-    for key, train_cli, predict_cli, backend in (
-        ("j", j_train_cli, j_predict_cli, ["-b", "xla", "--solver", "cg_implicit"]),
-        ("t", t_train_cli, t_predict_cli, ["-b", "torch"]),
+    for key, train_cli, predict_cli, backend, where in (
+        ("j", j_train_cli, j_predict_cli, ["-b", "xla", "--solver", "cg_implicit"], []),
+        ("t", t_train_cli, t_predict_cli, ["-b", "torch"], ["-p", "cpu"]),
     ):
         model = os.path.join(tmp_path, f"{key}.model")
         out = os.path.join(tmp_path, f"{key}.predict")
-        assert train_cli.main(common + backend + [train_file, model]) == 0
+        assert train_cli.main(common + backend + where + [train_file, model]) == 0
         assert predict_cli.main(
-            ["--use_double_as_real_type", "-q", "-b", backend[1], test_file, model, out]
+            ["--use_double_as_real_type", "-q", "-b", backend[1], *where, test_file, model, out]
         ) == 0
         files[key] = (model, out)
     j_model = plssvm_tpu.Model.load(files["j"][0])
@@ -539,8 +540,9 @@ def test_chi_squared_refuses_negative_data(n_classes):
     bad_test = Xte.copy()
     bad_test[3, 1] = -1.5
     messages = []
-    for pkg, backend in ((plssvm_tpu, "xla"), (plssvm_tpu_torch, "torch")):
-        svm = pkg.CSVM(backend=backend, dtype=np.float64, kernel_type="chi_squared")
+    for pkg, where in ((plssvm_tpu, dict(backend="xla")),
+                       (plssvm_tpu_torch, dict(backend="torch", device="cpu"))):
+        svm = pkg.CSVM(**where, dtype=np.float64, kernel_type="chi_squared")
         with pytest.raises(pkg.InvalidParameterError) as fit_err:
             svm.fit(pkg.DataSet(bad_train, ytr))
         model = svm.fit(pkg.DataSet(Xtr, ytr), epsilon=1e-3)

@@ -320,7 +320,8 @@ def _fit_both(kernel, n_classes=3, seed=STABLE_SEED[3]):
         kernel_type=kernel, cost=1.0,
     )
     t_svm = plssvm_tpu_torch.CSVM(
-        backend="torch", dtype=np.float64, kernel_type=kernel, cost=1.0,
+        backend="torch", device="cpu", dtype=np.float64, kernel_type=kernel,
+        cost=1.0,
     )
     return (
         j_svm, j_svm.fit(plssvm_tpu.DataSet(Xtr, ytr), epsilon=EPS),
@@ -408,15 +409,15 @@ def test_cli_train_predict_against_reference(kernel_flag, tmp_path):
     plssvm_tpu_torch.DataSet(Xte, yte).save(test_file)
     common = ["-t", kernel_flag, "-e", str(EPS), "--use_double_as_real_type", "-q"]
     files = {}
-    for name, train_cli, predict_cli, backend in (
-        ("j", j_train_cli, j_predict_cli, ["-b", "xla", "--solver", "cg_implicit"]),
-        ("t", t_train_cli, t_predict_cli, ["-b", "torch"]),
+    for name, train_cli, predict_cli, backend, where in (
+        ("j", j_train_cli, j_predict_cli, ["-b", "xla", "--solver", "cg_implicit"], []),
+        ("t", t_train_cli, t_predict_cli, ["-b", "torch"], ["-p", "cpu"]),
     ):
         model = os.path.join(tmp_path, f"{name}.model")
         out = os.path.join(tmp_path, f"{name}.predict")
-        assert train_cli.main(common + backend + [train_file, model]) == 0
+        assert train_cli.main(common + backend + where + [train_file, model]) == 0
         assert predict_cli.main(
-            ["--use_double_as_real_type", "-q", "-b", backend[1], test_file, model, out]
+            ["--use_double_as_real_type", "-q", "-b", backend[1], *where, test_file, model, out]
         ) == 0
         files[name] = (model, out)
     j_model = plssvm_tpu.Model.load(files["j"][0])
@@ -450,7 +451,7 @@ def test_oao_model_file_predicts_like_the_reference(kernel, tmp_path):
     assert t_loaded.alpha.shape == (200, 3)
     j_test = plssvm_tpu.DataSet(Xte, yte)
     t_test = plssvm_tpu_torch.DataSet(Xte, yte)
-    t_svm = plssvm_tpu_torch.CSVM(backend="torch", dtype=np.float64)
+    t_svm = plssvm_tpu_torch.CSVM(backend="torch", device="cpu", dtype=np.float64)
     got = t_svm.predict_values(t_loaded, t_test)
     want = j_svm.predict_values(j_loaded, j_test)
     assert got.shape == want.shape == (40, 6)
@@ -480,9 +481,11 @@ def test_oao_predict_cli_matches_reference(tmp_path):
     model = os.path.join(tmp_path, "oao.model")
     j_svm.fit(plssvm_tpu.DataSet(Xtr, ytr), epsilon=EPS, classification="oao").save(model)
     outs = []
-    for name, cli, backend in (("j", j_predict_cli, "xla"), ("t", t_predict_cli, "torch")):
+    for name, cli, flags in (
+        ("j", j_predict_cli, ["-b", "xla"]), ("t", t_predict_cli, ["-b", "torch", "-p", "cpu"]),
+    ):
         out = os.path.join(tmp_path, f"{name}.predict")
-        assert cli.main(["--use_double_as_real_type", "-q", "-b", backend, test_file, model, out]) == 0
+        assert cli.main(["--use_double_as_real_type", "-q", *flags, test_file, model, out]) == 0
         with open(out) as fh:
             outs.append(fh.read())
     assert outs[1] == outs[0]

@@ -1,8 +1,8 @@
 """plssvm_tpu_torch stands apart from JAX.
 
 In a fresh interpreter (this process has imported jax and plssvm_tpu),
-importing the port, its CLIs and its kernel wrappers loads neither, and
-builds no kernel.  No source file of the port imports them.
+importing the port, its CLIs, its tools and its kernel wrappers loads
+neither, and builds no kernel.  No source file of the port imports them.
 """
 
 import json
@@ -20,7 +20,10 @@ _PROBE = """
 import json, sys
 import plssvm_tpu_torch
 import plssvm_tpu_torch.cli.train, plssvm_tpu_torch.cli.predict
-import plssvm_tpu_torch.ops.gram_matvec
+import plssvm_tpu_torch.ops.gram_matvec, plssvm_tpu_torch.ops.gram_matmat
+import plssvm_tpu_torch.ops.distance, plssvm_tpu_torch.ops.banded
+import plssvm_tpu_torch.tools.exp_banded_distance
+import plssvm_tpu_torch.tools.bench_matvec
 from plssvm_tpu_torch.ops import _build
 print(json.dumps({
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
@@ -77,3 +80,10 @@ def test_cli_help(cli):
     proc = _run("-m", f"plssvm_tpu_torch.cli.{cli}", "--help")
     assert proc.returncode == 0, proc.stderr
     assert "usage: plssvm-torch-" + cli in proc.stdout
+
+
+@pytest.mark.parametrize("tool", ["exp_banded_distance", "bench_matvec"])
+def test_tool_help(tool):
+    proc = _run("-m", f"plssvm_tpu_torch.tools.{tool}", "--help")
+    assert proc.returncode == 0, proc.stderr
+    assert f"usage: python -m plssvm_tpu_torch.tools.{tool}" in proc.stdout
