@@ -57,7 +57,12 @@ kernel E on ragged shapes and at phase 11's shape, where it is timed
 beside kernel E; and ``kernel_matvec`` against kernel A and its plain
 version, timed at kernel A's shape.  Beside every kernel's time it
 computes the bound: the least time the card could take for the function
-on these inputs (see ``_bound``).
+on these inputs (see ``_bound``), and fails if a kernel measures faster
+than that (a wrong bound or a wrong timing).  At phases 9 and 10's shapes
+it holds kernels E-H in float32 chi-squared per entry of K against the
+plain version in float64 (one-hot right-hand sides pick columns of K) and
+logs each one's error beside the float32 plain version's and its share of
+the bound.
 
 Before the last line it prints the card's name and power limit as
 nvidia-smi reports them, and one JSON object describing each of the ten
@@ -440,6 +445,7 @@ def _distance_kernels(gen, main_err, main_ms, timing, bounds, time_a):
         time_main("distance_matmat_rect", distance.distance_matmat_rect,
                   matvec.distance_matmat_rect_plain if full else None, (P, S, A),
                   kw, f"{n_points}x{m}x{d} f32 chi_squared C={MC_CLASSES}", phase)
+        _chi2_per_entry(main_ms, phase, X, S, P, gamma)
 
     # timing at m = 16384, d = 256, f32, on histogram rows, C = 10 for G
     # and H; the plain versions over DIST_PLAIN_REPEATS launches
@@ -471,6 +477,53 @@ def _distance_kernels(gen, main_err, main_ms, timing, bounds, time_a):
     _yardstick(f"torch.cdist(X, X, p=1) m={m} d={d} f32",
                lambda: torch.cdist(X, X, p=1))
     return g_ms[60000]
+
+
+def _chi2_per_entry(main_ms, phase, X, S, P, gamma):
+    """Kernels E-H in float32 chi-squared at a main path's shapes (X the
+    training rows, P the points against the support vectors S): each entry
+    of K in MC_CLASSES columns, picked by one-hot right-hand sides, against
+    the plain version in float64 on the same values (``entry_errors``),
+    beside the float32 plain version's own worst error; and each kernel's
+    share of its bound there (G and H as timed above, E and F timed here).
+    Raises past 4x the plain version's error or 1e-4, as the card test
+    does, or on a value that is not finite."""
+    from plssvm_tpu_torch.ops import distance
+    from plssvm_tpu_torch.ops.entry_check import entry_errors
+    from plssvm_tpu_torch.parameter import KernelFunctionType as K
+
+    m, d = X.shape
+    columns = [int(j) for j in np.linspace(0, m - 1, MC_CLASSES)]
+    e = torch.zeros(m, device="cuda")
+    e[columns[1]] = 1.0
+    kw = dict(kind=K.CHI_SQUARED, gamma=gamma)
+    for name, kernel, points, one_column in (
+        ("distance_matvec_sym", distance.distance_matvec_sym, None, True),
+        ("distance_matvec_rect", distance.distance_matvec_rect, P, True),
+        ("distance_matmat_sym", distance.distance_matmat_sym, None, False),
+        ("distance_matmat_rect", distance.distance_matmat_rect, P, False),
+    ):
+        # the rectangular kernels' support vectors are S, whose first m
+        # rows are X: the columns are those of K(P, S)
+        rows = X if points is None else S
+        got, plain = entry_errors(kernel, rows, columns, gamma, points=points,
+                                  one_column=one_column)
+        if not got <= min(4 * plain, 1e-4):
+            raise AssertionError(f"{name} chi-squared {phase}: per-entry error {got}, "
+                                 f"plain f32 {plain}")
+        shape = f"{m}x{d}" if points is None else f"{P.shape[0]}x{S.shape[0]}x{d}"
+        if "matmat" in name:
+            ms, b_ms = main_ms[(name, phase)]
+        else:
+            args = (X, e) if points is None else (P, S, torch.zeros(S.shape[0], device="cuda"))
+            ms = _median_ms(lambda: kernel(*args, **kw), 3, 1)
+            b_ms = (_sym_bound(m, d, 1, "chi_squared", 4) if points is None
+                    else _rect_bound(P.shape[0], S.shape[0], d, 1, "chi_squared", 4))[0]
+            _check_share(name, f"chi-squared {shape}", ms, b_ms)
+        log("kernels", f"per-entry {name} f32 chi-squared {shape} ({phase}), "
+            f"{MC_CLASSES} columns of K: worst rel err {got:.3e}, plain f32 "
+            f"{plain:.3e} ({got / plain:.2f}x); {ms:.3f} ms, {b_ms / ms:.3f} of "
+            f"its bound {b_ms:.3f} ms")
 
 
 def _banded_kernels(gen, main_err, main_ms, timing, bounds):
@@ -605,8 +658,17 @@ def _rect_bound(n_p, n_s, d, columns, cost, itemsize, extra_inputs=0):
                               + (n_s + n_p) * columns))
 
 
+def _check_share(name, label, k_ms, b_ms):
+    """A kernel measured faster than its bound means a wrong bound or a
+    wrong timing, never a fast kernel: raise."""
+    if not k_ms >= b_ms:
+        raise AssertionError(f"{name} {label}: {k_ms:.3f} ms is under its bound "
+                             f"{b_ms:.3f} ms, a share of {b_ms / k_ms:.3f}")
+
+
 def _log_bound(name, label, k_ms, bound, tf32_pairs_d=None):
     b_ms, by = bound
+    _check_share(name, label, k_ms, b_ms)
     log("kernels", f"{name} {label}: bound {b_ms:.3f} ms ({by}), kernel at "
         f"{b_ms / k_ms:.3f} of it" + (
             "" if tf32_pairs_d is None else
@@ -619,6 +681,7 @@ def _time_at_main_shape(main_ms, name, phase, fn, bound, label):
     phase gives it, beside its bound there, for the cost ranking that
     ``main`` prints."""
     ms = _median_ms(fn, 5, 1)
+    _check_share(name, f"at phase {phase}'s shape {label}", ms, bound[0])
     main_ms[(name, phase)] = (ms, bound[0])
     log("kernels", f"{name} at phase {phase}'s shape {label}: {ms:.3f} ms, bound "
         f"{bound[0]:.3f} ms ({bound[1]})")

@@ -43,20 +43,26 @@
 // not factor through a matrix product).  Laplacian costs two FP32
 // instructions per pair and feature (a subtract, an add with the |.|
 // modifier) where the Gram tile costs one FFMA; on an H100 kernel E takes
-// 1.4x kernel A's time.  Chi-squared adds a multiply, an add and an IEEE
-// divide: a MUFU reciprocal (16 per clock per SM against 128 FP32 lanes),
-// Newton steps and a slow-path check, ~15 instructions inlined per divide.
-// Unrolled over a whole feature chunk those overflowed the instruction
-// cache, so the chi-squared tile walks its chunk one feature per loop trip
-// (ChiSquaredDistance::kUnroll); it then takes ~20x kernel A's time.  The
-// register tile (R x R accumulators per thread) amortises the
-// shared-memory loads as in kernel A; a faster reciprocal is later work,
-// held against this exact divide.
+// 1.4x kernel A's time.  Chi-squared in float costs one reciprocal on the
+// special-function unit (MUFU.RCP: 16 per clock per SM against 128 FP32
+// lanes) and five FP32 instructions, so the SFU bounds it.  The design
+// keeps the SFU busy: the TPU kernel's approximate reciprocal now has its
+// counterpart (of den + 1e-30, without the Newton step: MUFU.RCP is ~1
+// ulp), no branch is left in the loop, and with the slow-path code gone
+// the chunk loop unrolls fully again.  Each 16-feature chunk is summed into
+// a partial of its own, which holds each entry of K within 2x the plain
+// version's error, and those partials fit the registers only in a 64-row
+// tile: at 59999 x 784 with 10 classes kernel G runs at 0.81 of its SFU
+// bound (0.23 with the IEEE divide).  gram_tile.cuh ChiSquaredDistance
+// sets the unroll, the chunk sums and the edge per type, and holds the
+// variants measured.
+// The register tile (R x R accumulators per thread) amortises the
+// shared-memory loads as in kernel A.
 //
-// Numerics: no fast-math; the divide is IEEE in float and double, as the
-// plain version's; the TPU kernel's approximate reciprocal with a Newton
-// step and den + 1e-30 is not ported.  The atomics make the summation order
-// change from run to run.
+// Numerics: no fast-math.  Chi-squared in float takes the approximate
+// reciprocal (per entry of K within 2x the plain version's error, which
+// divides exactly); in double the IEEE divide, as the plain version.  The
+// atomics make the summation order change from run to run.
 
 #include <type_traits>
 
@@ -69,7 +75,7 @@ __global__ void __launch_bounds__(kThreads * kThreads)
     distance_matvec_sym_kernel(const T* __restrict__ X,
                                const T* __restrict__ v, T* __restrict__ out,
                                int64_t m, int64_t d, T gamma) {
-    constexpr int BM = TileEdge<T>::value;
+    constexpr int BM = kDistanceEdge<T, KIND>;
     constexpr int R = BM / kThreads;
     __shared__ Staging<T, BM> staging;
     __shared__ T col_part[kThreads][BM];
@@ -150,7 +156,7 @@ __global__ void __launch_bounds__(kThreads * kThreads)
                                 const T* __restrict__ a_s,
                                 T* __restrict__ out, int64_t n_p, int64_t n_s,
                                 int64_t d, int64_t n_stiles, T gamma) {
-    constexpr int BM = TileEdge<T>::value;
+    constexpr int BM = kDistanceEdge<T, KIND>;
     constexpr int R = BM / kThreads;
     __shared__ Staging<T, BM> staging;
 
@@ -195,7 +201,7 @@ __global__ void __launch_bounds__(kThreads * kThreads)
     distance_matmat_sym_kernel(const T* __restrict__ X,
                                const T* __restrict__ V, T* __restrict__ out,
                                int64_t m, int64_t d, int64_t C, T gamma) {
-    constexpr int BM = TileEdge<T>::value;
+    constexpr int BM = kDistanceEdge<T, KIND>;
     constexpr int R = BM / kThreads;
     __shared__ Staging<T, BM> staging;
     __shared__ T v_cols[kClassChunk][BM + 1];  // V rows of the column tile
@@ -222,7 +228,7 @@ __global__ void __launch_bounds__(kThreads * kThreads)
                                 const T* __restrict__ A, T* __restrict__ out,
                                 int64_t n_p, int64_t n_s, int64_t d,
                                 int64_t C, int64_t n_stiles, T gamma) {
-    constexpr int BM = TileEdge<T>::value;
+    constexpr int BM = kDistanceEdge<T, KIND>;
     constexpr int R = BM / kThreads;
     __shared__ Staging<T, BM> staging;
     __shared__ T a_cols[kClassChunk][BM + 1];  // A rows of the SV tile
@@ -251,11 +257,10 @@ int by_kind(int kind, Launch&& launch) {
     }
 }
 
-// Blocks of the symmetric walk over m rows, or 0 when they do not fit a
-// 1-D grid.
-template <typename T>
+// Blocks of the symmetric walk over m rows in BM x BM tiles, or 0 when
+// they do not fit a 1-D grid.
+template <int BM>
 unsigned int triangle_blocks(int64_t m) {
-    constexpr int BM = TileEdge<T>::value;
     const int64_t nt = (m + BM - 1) / BM;
     const int64_t blocks = nt * (nt + 1) / 2;
     return blocks <= 0 || blocks > INT32_MAX ? 0u
@@ -264,9 +269,8 @@ unsigned int triangle_blocks(int64_t m) {
 
 // Blocks of the rectangular walk, 0 when they do not fit; n_stiles the
 // support-vector tiles per point tile.
-template <typename T>
+template <int BM>
 unsigned int rect_blocks(int64_t n_p, int64_t n_s, int64_t& n_stiles) {
-    constexpr int BM = TileEdge<T>::value;
     n_stiles = (n_s + BM - 1) / BM;
     const int64_t blocks = ((n_p + BM - 1) / BM) * n_stiles;
     return blocks <= 0 || blocks > INT32_MAX ? 0u
@@ -276,12 +280,14 @@ unsigned int rect_blocks(int64_t n_p, int64_t n_s, int64_t& n_stiles) {
 template <typename T>
 int matvec_sym(const T* X, const T* v, T* out, int64_t m, int64_t d,
                int kind, T gamma, void* stream) {
-    const unsigned int blocks = triangle_blocks<T>(m);
-    if (blocks == 0) {
-        return cudaErrorInvalidValue;
-    }
     return by_kind(kind, [&](auto k) {
-        distance_matvec_sym_kernel<T, decltype(k)::value>
+        constexpr int KIND = decltype(k)::value;
+        const unsigned int blocks =
+            triangle_blocks<kDistanceEdge<T, KIND>>(m);
+        if (blocks == 0) {
+            return static_cast<int>(cudaErrorInvalidValue);
+        }
+        distance_matvec_sym_kernel<T, KIND>
             <<<blocks, dim3(kThreads, kThreads), 0,
                static_cast<cudaStream_t>(stream)>>>(X, v, out, m, d, gamma);
         return static_cast<int>(cudaGetLastError());
@@ -291,13 +297,15 @@ int matvec_sym(const T* X, const T* v, T* out, int64_t m, int64_t d,
 template <typename T>
 int matvec_rect(const T* P, const T* S, const T* a_s, T* out, int64_t n_p,
                 int64_t n_s, int64_t d, int kind, T gamma, void* stream) {
-    int64_t n_stiles = 0;
-    const unsigned int blocks = rect_blocks<T>(n_p, n_s, n_stiles);
-    if (blocks == 0) {
-        return cudaErrorInvalidValue;
-    }
     return by_kind(kind, [&](auto k) {
-        distance_matvec_rect_kernel<T, decltype(k)::value>
+        constexpr int KIND = decltype(k)::value;
+        int64_t n_stiles = 0;
+        const unsigned int blocks =
+            rect_blocks<kDistanceEdge<T, KIND>>(n_p, n_s, n_stiles);
+        if (blocks == 0) {
+            return static_cast<int>(cudaErrorInvalidValue);
+        }
+        distance_matvec_rect_kernel<T, KIND>
             <<<blocks, dim3(kThreads, kThreads), 0,
                static_cast<cudaStream_t>(stream)>>>(P, S, a_s, out, n_p, n_s,
                                                     d, n_stiles, gamma);
@@ -308,12 +316,14 @@ int matvec_rect(const T* P, const T* S, const T* a_s, T* out, int64_t n_p,
 template <typename T>
 int matmat_sym(const T* X, const T* V, T* out, int64_t m, int64_t d,
                int64_t C, int kind, T gamma, void* stream) {
-    const unsigned int blocks = triangle_blocks<T>(m);
-    if (blocks == 0 || C <= 0) {
-        return cudaErrorInvalidValue;
-    }
     return by_kind(kind, [&](auto k) {
-        distance_matmat_sym_kernel<T, decltype(k)::value>
+        constexpr int KIND = decltype(k)::value;
+        const unsigned int blocks =
+            triangle_blocks<kDistanceEdge<T, KIND>>(m);
+        if (blocks == 0 || C <= 0) {
+            return static_cast<int>(cudaErrorInvalidValue);
+        }
+        distance_matmat_sym_kernel<T, KIND>
             <<<blocks, dim3(kThreads, kThreads), 0,
                static_cast<cudaStream_t>(stream)>>>(X, V, out, m, d, C, gamma);
         return static_cast<int>(cudaGetLastError());
@@ -324,13 +334,15 @@ template <typename T>
 int matmat_rect(const T* P, const T* S, const T* A, T* out, int64_t n_p,
                 int64_t n_s, int64_t d, int64_t C, int kind, T gamma,
                 void* stream) {
-    int64_t n_stiles = 0;
-    const unsigned int blocks = rect_blocks<T>(n_p, n_s, n_stiles);
-    if (blocks == 0 || C <= 0) {
-        return cudaErrorInvalidValue;
-    }
     return by_kind(kind, [&](auto k) {
-        distance_matmat_rect_kernel<T, decltype(k)::value>
+        constexpr int KIND = decltype(k)::value;
+        int64_t n_stiles = 0;
+        const unsigned int blocks =
+            rect_blocks<kDistanceEdge<T, KIND>>(n_p, n_s, n_stiles);
+        if (blocks == 0 || C <= 0) {
+            return static_cast<int>(cudaErrorInvalidValue);
+        }
+        distance_matmat_rect_kernel<T, KIND>
             <<<blocks, dim3(kThreads, kThreads), 0,
                static_cast<cudaStream_t>(stream)>>>(P, S, A, out, n_p, n_s, d,
                                                     C, n_stiles, gamma);

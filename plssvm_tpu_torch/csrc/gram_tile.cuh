@@ -15,6 +15,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -77,34 +78,107 @@ __device__ __forceinline__ T apply_kernel(T g, T sq_i, T sq_j, T gamma,
 }
 
 // The pair operation the register tile folds in, one feature at a time,
-// and how far gram_tile unrolls its loop over a staged feature chunk.
-struct GramProduct {  // x . y: one FMA
+// and how gram_tile runs it on T: kUnroll<T>, how far it unrolls its loop
+// over a staged feature chunk; kChunkSums<T>, whether it sums each chunk
+// into a partial of its own before adding that to the accumulator; and
+// kEdge<T>, the tile edge of the distance kernels (TileDefaults: the full
+// unroll, no chunk sums, TileEdge).
+struct TileDefaults {
+    template <typename T>
     static constexpr int kUnroll = kChunk;
+    template <typename T>
+    static constexpr bool kChunkSums = false;
+    template <typename T>
+    static constexpr int kEdge = TileEdge<T>::value;
+};
+struct GramProduct : TileDefaults {  // x . y: one FMA
     template <typename T>
     __device__ __forceinline__ static void step(T& acc, T x, T y) {
         acc += x * y;
     }
 };
-struct L1Distance {  // |x - y|: a subtract and an add with |.|
-    static constexpr int kUnroll = kChunk;
+struct L1Distance : TileDefaults {  // |x - y|: a subtract and an add with |.|
     template <typename T>
     __device__ __forceinline__ static void step(T& acc, T x, T y) {
         acc += dev_abs(x - y);
     }
 };
-struct ChiSquaredDistance {  // (x - y)^2 / (x + y), and 0 where x + y == 0
-    // one feature per loop trip: each IEEE divide inlines ~15 instructions
-    // and a slow-path branch, and the full 16 x R x R unroll (1024 divides
-    // in f32) overflowed the instruction cache; on an H100 this halves the
-    // kernel's time (88.7 -> 50.6 ms at m = 16384, d = 256)
-    static constexpr int kUnroll = 1;
+
+// 1 / x on the special-function unit: one MUFU.RCP, about 1 ulp, no slow
+// path.  .ftz flushes a subnormal x to 0 (and 1 / 0 = inf): the caller
+// keeps x >= 1e-30.
+__device__ __forceinline__ float sfu_reciprocal(float x) {
+    float r;
+    asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+    return r;
+}
+
+// (x - y)^2 / (x + y), and 0 where x + y == 0.
+//
+// float, as the TPU kernel computes it (pallas_distance.py
+// _distance_partial): the approximate reciprocal of den + 1e-30, so that
+// 0/0 and a subnormal den give diff^2 * r = 0 with no branch (for den > 0
+// the 1e-30 is below float resolution unless den < 1e-23, where the term
+// is below 1e-23 itself).  Without the TPU kernel's Newton step: MUFU.RCP
+// is about 1 ulp, and the step changed no worst per-entry error while it
+// cost 16 % (below).  Per pair and feature: 1 SFU reciprocal, 2 adds, the
+// bias add, a multiply and an FMA; the SFU (16 results per clock and SM
+// against 128 FP32 lanes) bounds the loop.  The chunk loop unrolls fully.
+// Each 16-feature chunk is summed into a partial of its own: summed one
+// feature after another over d = 784, the rounding comes to 6x the plain
+// version's per-entry error (a tree sum), per chunk to 2x.  The partials
+// need 64 more registers at the 128-row tile (one block per SM), so float
+// chi-squared takes a 64-row tile, where they cost 4 %.
+//
+// double keeps the IEEE divide, one feature per loop trip (each divide
+// inlines ~15 instructions and a slow-path branch; unrolled they
+// overflowed the instruction cache), summed one feature after another, on
+// the 64-row double tile.
+//
+// The variants measured (recorded in PERF.md): kernel G (float, C = 10) on
+// an H100 80GB HBM3 at 700 W, histogram rows, ms at m = 16384, d = 256 / at
+// m = 59999, d = 784 (share of the SFU bound 8.206 / 336.997 ms),
+// registers:
+//
+//   IEEE divide, edge 128, unroll 1 (before)   50.656 / 1451.921  (0.232)  124
+//   edge 128, chunk sums, unroll 1             18.608 /  747.343  (0.451)  168
+//                                   unroll 2   17.220 /  690.126  (0.488)  176
+//                                   unroll 4   17.614 /  707.812  (0.476)  176
+//                                   unroll 8   17.719 /  715.354  (0.471)  179
+//                                   unroll 16  12.279 /  501.780  (0.672)  245
+//   edge 128, no chunk sums, unroll 4           9.979 /  391.124  (0.862)  124
+//   edge 64, chunk sums, unroll 1              11.265 /  435.529  (0.774)   56
+//                                   unroll 2   11.102 /  422.648  (0.797)   55
+//                                   unroll 4   10.934 /  415.972  (0.810)   55
+//                                   unroll 8   10.855 /  420.050  (0.802)   58
+//                                   unroll 16  10.826 /  415.706  (0.811)   59  kept
+//   edge 64, unroll 4, Newton step             12.492 /  482.540  (0.698)   57
+//   edge 64, unroll 4, no chunk sums           10.258 /  398.986  (0.845)   48
+//
+// Per entry of K (d = 3, 203, 784; zero-rich, scaled and subnormal rows)
+// the worst error is 2.0x the float plain version's own with chunk sums,
+// Newton step or not, and 6.1x without them, as with the IEEE divide.
+struct ChiSquaredDistance {
     template <typename T>
-    __device__ __forceinline__ static void step(T& acc, T x, T y) {
-        const T den = x + y;
-        const T diff = x - y;
-        // IEEE division (no fast-math); the select keeps 0/0 out, so the
-        // zero-loaded feature tail adds nothing
-        acc += den != T(0) ? diff * diff / den : T(0);
+    static constexpr int kUnroll = std::is_same_v<T, float> ? kChunk : 1;
+    template <typename T>
+    static constexpr bool kChunkSums = std::is_same_v<T, float>;
+    template <typename T>
+    static constexpr int kEdge =
+        std::is_same_v<T, float> ? 64 : TileEdge<T>::value;
+
+    __device__ __forceinline__ static void step(float& acc, float x, float y) {
+        const float den = (x + y) + 1e-30f;
+        const float diff = x - y;
+        acc = fmaf(diff, diff * sfu_reciprocal(den), acc);
+    }
+    // the select keeps 0/0 out, so the zero-loaded feature tail adds
+    // nothing
+    __device__ __forceinline__ static void step(double& acc, double x,
+                                                double y) {
+        const double den = x + y;
+        const double diff = x - y;
+        acc += den != 0.0 ? diff * diff / den : 0.0;
     }
 };
 
@@ -119,12 +193,47 @@ struct DistanceOp<kChiSquared> {
     using type = ChiSquaredDistance;
 };
 
+// Tile edge of the distance kernel KIND on T: its pair operation's kEdge.
+template <typename T, int KIND>
+constexpr int kDistanceEdge = DistanceOp<KIND>::type::template kEdge<T>;
+
 template <typename T, int BM>
 struct Staging {
     // transposed feature chunks; the +1 spreads the stores over the banks
     T x[kChunk][BM + 1];
     T y[kChunk][BM + 1];
 };
+
+// acc[a][b] += op(x, y) over the kChunk features staged in s, x the rows
+// ty + kThreads a and y the rows tx + kThreads b of the tile; the loop over
+// the features unrolled by kUnroll.
+template <typename T, int BM, typename Op, int kUnroll>
+__device__ __forceinline__ void chunk_pass(
+    const Staging<T, BM>& s, T (&acc)[BM / kThreads][BM / kThreads]) {
+    constexpr int R = BM / kThreads;
+    const int tx = threadIdx.x;
+    const int ty = threadIdx.y;
+#pragma unroll (kUnroll)
+    for (int kk = 0; kk < kChunk; ++kk) {
+        T xa[R];
+        T yb[R];
+#pragma unroll
+        for (int a = 0; a < R; ++a) {
+            xa[a] = s.x[kk][ty + kThreads * a];
+        }
+#pragma unroll
+        for (int b = 0; b < R; ++b) {
+            yb[b] = s.y[kk][tx + kThreads * b];
+        }
+#pragma unroll
+        for (int a = 0; a < R; ++a) {
+#pragma unroll
+            for (int b = 0; b < R; ++b) {
+                Op::step(acc[a][b], xa[a], yb[b]);
+            }
+        }
+    }
+}
 
 // acc[a][b] = sum_k op(X[row0 + ty + kThreads a, k], Y[col0 + tx + kThreads b, k])
 // over all d features, op the Gram product by default; rows past mx / my
@@ -171,25 +280,25 @@ __device__ __forceinline__ void gram_tile(
             }
         }
         __syncthreads();
-#pragma unroll (Op::kUnroll)
-        for (int kk = 0; kk < kChunk; ++kk) {
-            T xa[R];
-            T yb[R];
-#pragma unroll
-            for (int a = 0; a < R; ++a) {
-                xa[a] = s.x[kk][ty + kThreads * a];
-            }
-#pragma unroll
-            for (int b = 0; b < R; ++b) {
-                yb[b] = s.y[kk][tx + kThreads * b];
-            }
+        if constexpr (Op::template kChunkSums<T>) {
+            T part[R][R];
 #pragma unroll
             for (int a = 0; a < R; ++a) {
 #pragma unroll
                 for (int b = 0; b < R; ++b) {
-                    Op::step(acc[a][b], xa[a], yb[b]);
+                    part[a][b] = T(0);
                 }
             }
+            chunk_pass<T, BM, Op, Op::template kUnroll<T>>(s, part);
+#pragma unroll
+            for (int a = 0; a < R; ++a) {
+#pragma unroll
+                for (int b = 0; b < R; ++b) {
+                    acc[a][b] += part[a][b];
+                }
+            }
+        } else {
+            chunk_pass<T, BM, Op, Op::template kUnroll<T>>(s, acc);
         }
         __syncthreads();
     }

@@ -9,7 +9,8 @@ neither jax nor plssvm_tpu, so they run where only PyTorch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances, relative to max|plain|: float32 1e-4, float64 1e-10 (the
-kernels sum in another order than cuBLAS, with atomics).
+kernels sum in another order than cuBLAS, with atomics).  The chi-squared
+kernels are also held per entry of K (``test_chi_squared_per_entry``).
 """
 
 import pytest
@@ -17,6 +18,7 @@ import torch
 
 from plssvm_tpu_torch.exceptions import NotPortedError
 from plssvm_tpu_torch.ops import banded, distance, gram_matmat, gram_matvec, matvec
+from plssvm_tpu_torch.ops.entry_check import chi2_gamma, entry_cases, entry_errors
 from plssvm_tpu_torch.parameter import KernelFunctionType as TKind
 
 COEF0 = {"polynomial": 1.0, "rbf": 0.0, "sigmoid": -0.5}
@@ -180,6 +182,36 @@ def test_distance_kernels_against_plain(cuda_device, name, dtype, tol, n_classes
     after = (distance.matvec_sym_launches, distance.matvec_rect_launches,
              distance.matmat_sym_launches, distance.matmat_rect_launches)
     assert after == tuple(b + 1 for b in before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d", [3, 203, 784])
+@pytest.mark.parametrize("case", ["zero-rich", "1e-18", "1e12", "subnormal"])
+def test_chi_squared_per_entry(cuda_device, case, d, dtype):
+    """Each entry of the chi-squared K from kernels E-H, one-hot right-hand
+    sides picking columns of K, against the plain version in float64 on
+    the same values.  float32 (the SFU reciprocal): the worst relative
+    error at most 4x the float32 plain version's own (exact IEEE division)
+    and under 1e-4; float64 (IEEE division) within 1e-12.  Rows with a
+    third of the entries 0, one all-0 row and one single non-zero, as they
+    are, scaled by 1e-18 and 1e12, and with float32-subnormal entries."""
+    g = torch.Generator().manual_seed(46)
+    _, X, columns = next(c for c in entry_cases(d, g) if c[0] == case)
+    X = X.to(cuda_device, dtype)
+    gamma = chi2_gamma(X, columns)
+    for kernel, points, one_column in (
+        (distance.distance_matvec_sym, None, True),
+        (distance.distance_matvec_rect, X, True),
+        (distance.distance_matmat_sym, None, False),
+        (distance.distance_matmat_rect, X, False),
+    ):
+        got, plain = entry_errors(kernel, X, columns, gamma, points=points,
+                                  one_column=one_column)
+        if dtype == torch.float64:
+            assert got <= 1e-12, (kernel.__name__, got)
+        else:
+            assert got <= min(4 * plain, 1e-4), (kernel.__name__, got, plain)
 
 
 @pytest.mark.cuda
