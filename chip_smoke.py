@@ -12,12 +12,19 @@ Phases, one line each or more (the run stops at the first that fails):
    kernel C (gram_matmat_sym) and kernel D (gram_matmat_rect) against their
    plain PyTorch versions on the card, poly / RBF / sigmoid in float32 and
    float64, ragged and multi-tile shapes, 1 to 37 classes, and the main
-   paths' own shapes; then all four timed against their plain versions;
+   paths' own shapes, at each Gram tier: "highest" (and float64) on the
+   FFMA tile; A and C at "f32" (TF32) and "bf16" on the tensor-core tile
+   (``*_sym_tc``), held against the plain version on the tier's operands;
+   B and D at "bf16" on bf16 operands; then all timed against their plain
+   versions, beside the operand copies' time and torch.matmul yardsticks
+   in float32, TF32 and bf16;
 4. end to end, BASELINE config 2: RBF on a seeded two-class 10000 x 200
-   set, trained with plssvm-torch-train and scored with plssvm-torch-predict
-   on 2000 held-out points; the kernels' launch counts prove the path went
-   through them; a float64 fit must agree with the float32 one; a small
-   float64 fit must agree between the kernels and the plain versions;
+   set, trained with plssvm-torch-train (the default "f32" tier: kernel A
+   on the tensor cores) and scored with plssvm-torch-predict on 2000
+   held-out points; the kernels' launch counts prove the path went through
+   them; a float64 fit (kernel A's FFMA tile) must agree with the float32
+   one; a small float64 fit must agree between the kernels and the plain
+   versions;
 5. multiclass end to end: the same shape with 10 classes, one-vs-all,
    through both CLIs; kernels C and D's launch counts, accuracy against a
    floor, float32/float64 agreement, and a small float64 fit through the
@@ -45,8 +52,12 @@ Phases, one line each or more (the run stops at the first that fails):
    port over kernel A, and kernel B beside the plain version) and
    laplacian (kernel E beside the plain version).
 
-Phases 8 and 9 run right after phase 5, while the files of phases 4 and 5
-exist; phase 10 runs after phase 7, then phases 11 and 12.
+The "bf16" phase runs right after phase 5, on the files of phases 4 and
+5: both trained through ``plssvm-torch-train --gram_precision bf16`` and
+predicted through ``CSVM(gram_precision="bf16")``, accuracy floors as
+phases 4 and 5, label agreement with the "f32" runs logged.  Phases 8 and
+9 follow, while the files exist; phase 10 runs after phase 7, then phases
+11 and 12.
 
 Phase 3 also holds kernels E-H (laplacian / chi-squared matvecs and block
 matmats, csrc/distance.cu) against their plain versions on ragged shapes
@@ -65,8 +76,9 @@ logs each one's error beside the float32 plain version's and its share of
 the bound.
 
 Before the last line it prints the card's name and power limit as
-nvidia-smi reports them, and one JSON object describing each of the ten
-kernels; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+nvidia-smi reports them, and one JSON object describing each kernel (the
+Gram entries with their tier, the tensor-core tile once per tier); the last
+line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository around it, the script fails and prints no result.
 """
 
@@ -146,12 +158,20 @@ BANDED_M, BANDED_D, BANDED_ITERS = 32768, 128, 4
 #: limit): 67 TFLOP/s in float32 outside the tensor cores, which is 33.5 T
 #: FP32 instructions/s (an FFMA counts two flops); the special-function
 #: units return 16 results per SM and clock against 128 FP32 lanes, 1/8 of
-#: that; 3.35 TB/s of HBM3; 495 TFLOP/s TF32 on the tensor cores (logged
-#: beside the Gram kernels' bounds only, for ROADMAP Queue 4)
+#: that; 3.35 TB/s of HBM3; on the tensor cores 495 TFLOP/s TF32 and 989
+#: TFLOP/s bf16 (the Gram tiers "f32" and "bf16" of kernels A and C)
 FP32_INSTR_PER_S = 67e12 / 2
 SFU_OPS_PER_S = FP32_INSTR_PER_S / 8
 HBM_BYTES_PER_S = 3.35e12
 TF32_FLOP_PER_S = 495e12
+BF16_FLOP_PER_S = 989e12
+#: per tensor-core tier: the product's peak and the operand's bytes per
+#: element
+TC_TIERS = {"tf32": (TF32_FLOP_PER_S, 4), "bf16": (BF16_FLOP_PER_S, 2)}
+#: the Gram tiers of kernels A and C on the tensor cores, by gram_precision
+TIER_OF = {"f32": "tf32", "bf16": "bf16"}
+#: TF32 and bf16 unit roundoffs (10 and 7 mantissa bits, round to nearest)
+UNIT_ROUNDOFF = {"tf32": 2.0 ** -11, "bf16": 2.0 ** -8}
 #: the fewest (FP32 instructions, SFU operations) per pair and feature: a
 #: Gram product one FFMA; a laplacian term a subtract and an add with |.|;
 #: a chi-squared term (x - y)^2 / (x + y) a subtract, an add, a multiply
@@ -208,23 +228,47 @@ def _operands(m, d, dtype, gen, n_points=None, n_classes=None):
     return X, P, v
 
 
-def _pairs(v):
+def _tier_plain(plain, precision):
+    """The plain version ``plain(X, sq, rhs, **kw)`` on a tier's exact
+    operands: TF32-rounded float32 X with the float32 X's norms for "f32"
+    (the tensor-core tile's oracle), bf16-rounded X for "bf16", X itself for
+    "highest" and float64."""
+    from plssvm_tpu_torch.ops import matvec
+
+    def oracle(X, sq, rhs, **kw):
+        if precision == "f32" and X.dtype == torch.float32:
+            return plain(matvec.round_to_tf32(X), sq, rhs, precision="f32", **kw)
+        return plain(X, sq, rhs, precision=precision, **kw)
+
+    return oracle
+
+
+def _pairs(v, precision="highest"):
     """(name, kernel, plain) of the symmetric and the rectangular kernel for
-    a right-hand side v (m,) (kernels A, B) or V (m, C) (kernels C, D)."""
+    a right-hand side v (m,) (kernels A, B) or V (m, C) (kernels C, D) at
+    the Gram tier ``precision``.  At "f32" and "bf16" the symmetric kernel
+    on float32 is the tensor-core tile (``*_sym_tc``), held against the plain
+    version on the tier's operands; the rectangular one is the FFMA tile at
+    every tier (bf16 operands at "bf16", full float32 at "f32")."""
+    import functools
+
     from plssvm_tpu_torch.ops import gram_matmat, gram_matvec, matvec
 
     if v.ndim == 2:
-        return (
-            ("gram_matmat_sym", gram_matmat.gram_matmat_sym,
-             matvec.kernel_matmat_plain),
-            ("gram_matmat_rect", gram_matmat.gram_matmat_rect,
-             matvec.kernel_matmat_rect_plain),
-        )
+        base, sym, sym_plain, rect, rect_plain = (
+            "gram_matmat", gram_matmat.gram_matmat_sym, matvec.kernel_matmat_plain,
+            gram_matmat.gram_matmat_rect, matvec.kernel_matmat_rect_plain)
+    else:
+        base, sym, sym_plain, rect, rect_plain = (
+            "gram_matvec", gram_matvec.gram_matvec_sym, matvec.kernel_matvec_plain,
+            gram_matvec.gram_matvec_rect, matvec.kernel_matvec_rect_plain)
+    tc = precision != "highest" and v.dtype == torch.float32
     return (
-        ("gram_matvec_sym", gram_matvec.gram_matvec_sym,
-         matvec.kernel_matvec_plain),
-        ("gram_matvec_rect", gram_matvec.gram_matvec_rect,
-         matvec.kernel_matvec_rect_plain),
+        (f"{base}_sym_tc" if tc else f"{base}_sym",
+         functools.partial(sym, precision=precision),
+         _tier_plain(sym_plain, precision)),
+        (f"{base}_rect", functools.partial(rect, precision=precision),
+         functools.partial(rect_plain, precision=precision)),
     )
 
 
@@ -240,19 +284,20 @@ def _check_close(label, got, want):
     return err, scale
 
 
-def _compare(kind, coef0, X, P, v):
+def _compare(kind, coef0, X, P, v, precision="highest", rect=True):
     """max|kernel - plain| and max|plain| for kernels A and B (v (m,)) or
-    C and D (v (m, C))."""
+    C and D (v (m, C)) at the Gram tier ``precision`` (``_pairs``); the
+    rectangular kernel only when ``rect``."""
     kw = dict(kind=kind, gamma=1.0 / X.shape[1], coef0=coef0, degree=3)
     sq, sq_p = (X * X).sum(-1), (P * P).sum(-1)
-    (sym_name, sym, sym_plain), (rect_name, rect, rect_plain) = _pairs(v)
+    (sym_name, sym, sym_plain), (rect_name, rect_k, rect_plain) = _pairs(v, precision)
     out = {}
-    for name, kernel, plain, args in (
-        (sym_name, sym, sym_plain, (X, sq, v)),
-        (rect_name, rect, rect_plain, (P, X, sq_p, sq, v)),
-    ):
+    cases = [(sym_name, sym, sym_plain, (X, sq, v))]
+    if rect:
+        cases.append((rect_name, rect_k, rect_plain, (P, X, sq_p, sq, v)))
+    for name, kernel, plain, args in cases:
         out[name] = _check_close(
-            f"{name} {kind} {X.dtype} {tuple(X.shape)}",
+            f"{name} {kind} {X.dtype} {precision} {tuple(X.shape)}",
             kernel(*args, **kw), plain(*args, **kw),
         )
     return out
@@ -626,28 +671,45 @@ def _time_pair(name, kernel, plain, args, kw, work, label, plain_repeats=20,
     return k_ms, p_ms
 
 
-def _bound(pairs, d, fmas, cost, n_bytes):
+def _bound(pairs, d, fmas, cost, n_bytes, tier=None, sfu_pairs=0):
     """(ms, "operations" or "bytes"): the least time the card could take
     for a function that evaluates ``pairs`` kernel values over ``d``
-    features at ``PAIR_FEATURE_COST[cost]`` each, contracts them in
-    ``fmas`` FFMAs, and moves ``n_bytes`` (each input read once, each
-    output written once) -- the larger of the operations over their peak
-    rate and the bytes over the memory rate.  The per-pair epilogue (one
-    exp or power) is not counted: 1/d of the pair work, it could only
-    raise the bound."""
-    fp32, sfu = PAIR_FEATURE_COST[cost]
-    ops_s = max((fp32 * pairs * d + fmas) / FP32_INSTR_PER_S,
-                sfu * pairs * d / SFU_OPS_PER_S)
+    features, contracts them in ``fmas`` FFMAs, and moves ``n_bytes`` (each
+    input read once, each output written once) -- the larger of the
+    operations over their peak rate and the bytes over the memory rate.
+
+    On the FFMA tile (``tier`` None) a pair and feature costs
+    ``PAIR_FEATURE_COST[cost]`` and the per-pair epilogue (one exp or power,
+    1/d of the pair work) is not counted.  On the tensor cores (``tier``
+    "tf32" or "bf16") the pair work is 2 pairs d flops at the tier's peak,
+    beside which the FP32 lanes run the contraction's FFMAs and the SFU one
+    exp per pair for ``sfu_pairs`` pairs (RBF, sigmoid): the bound is the
+    largest of the three, as the units run side by side."""
+    if tier is None:
+        fp32, sfu = PAIR_FEATURE_COST[cost]
+        ops_s = max((fp32 * pairs * d + fmas) / FP32_INSTR_PER_S,
+                    sfu * pairs * d / SFU_OPS_PER_S)
+    else:
+        ops_s = max(2.0 * pairs * d / TC_TIERS[tier][0], fmas / FP32_INSTR_PER_S,
+                    sfu_pairs / SFU_OPS_PER_S)
     bytes_s = n_bytes / HBM_BYTES_PER_S
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
 
 
-def _sym_bound(m, d, columns, cost, itemsize, extra_inputs=0):
+def _sym_bound(m, d, columns, cost, itemsize, extra_inputs=0, tier=None,
+               exp=False):
     """The bound of ``K(X, X) @ V`` for X (m, d) and V (m, columns): the
     m (m + 1) / 2 distinct pairs of a symmetric kernel, m^2 FFMAs per
-    column; X, V, the output and ``extra_inputs`` vectors of m moved."""
-    return _bound(m * (m + 1) / 2, d, float(m) * m * columns, cost,
-                  itemsize * m * (d + 2 * columns + extra_inputs))
+    column; X, V, the output and ``extra_inputs`` vectors of m moved.  On
+    the tensor cores (``tier``) X moves at the tier's operand size and the
+    rest at float32; ``exp`` counts one SFU exp per pair."""
+    pairs = m * (m + 1) / 2
+    if tier is None:
+        n_bytes = itemsize * m * (d + 2 * columns + extra_inputs)
+    else:
+        n_bytes = TC_TIERS[tier][1] * m * d + 4 * m * (2 * columns + extra_inputs)
+    return _bound(pairs, d, float(m) * m * columns, cost, n_bytes, tier,
+                  pairs if exp else 0)
 
 
 def _rect_bound(n_p, n_s, d, columns, cost, itemsize, extra_inputs=0):
@@ -666,25 +728,37 @@ def _check_share(name, label, k_ms, b_ms):
                              f"{b_ms:.3f} ms, a share of {b_ms / k_ms:.3f}")
 
 
-def _log_bound(name, label, k_ms, bound, tf32_pairs_d=None):
+def _log_bound(name, label, k_ms, bound):
     b_ms, by = bound
     _check_share(name, label, k_ms, b_ms)
     log("kernels", f"{name} {label}: bound {b_ms:.3f} ms ({by}), kernel at "
-        f"{b_ms / k_ms:.3f} of it" + (
-            "" if tf32_pairs_d is None else
-            f"; TF32 tensor-core bound of the pair work, for information: "
-            f"{2 * tf32_pairs_d / TF32_FLOP_PER_S * 1e3:.3f} ms"))
+        f"{b_ms / k_ms:.3f} of it")
 
 
 def _time_at_main_shape(main_ms, name, phase, fn, bound, label):
     """A kernel's median ms (5 after 1 warm-up) at the shape a main-path
-    phase gives it, beside its bound there, for the cost ranking that
-    ``main`` prints."""
+    phase gives it, beside its bound there; recorded for the cost ranking
+    that ``main`` prints under ``(name, phase)``, or only logged when
+    ``phase`` is None.  Returns the ms."""
     ms = _median_ms(fn, 5, 1)
-    _check_share(name, f"at phase {phase}'s shape {label}", ms, bound[0])
-    main_ms[(name, phase)] = (ms, bound[0])
-    log("kernels", f"{name} at phase {phase}'s shape {label}: {ms:.3f} ms, bound "
-        f"{bound[0]:.3f} ms ({bound[1]})")
+    _check_share(name, f"at {phase or 'a main path'}'s shape {label}", ms, bound[0])
+    if phase is not None:
+        main_ms[(name, phase)] = (ms, bound[0])
+    log("kernels", f"{name} at {'phase ' + phase if phase else 'a main path'}'s "
+        f"shape {label}: {ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}), "
+        f"{bound[0] / ms:.3f} of it")
+    return ms
+
+
+def _log_operand_time(X, label):
+    """The tensor-core tile's operand copies of X (``tier_operand``), made
+    once per solve: their ms (median of 5 after 1 warm-up)."""
+    from plssvm_tpu_torch.ops import gram_matvec
+
+    times = {tier: _median_ms(lambda: gram_matvec.tier_operand(X, tier), 5, 1)
+             for tier in ("f32", "bf16")}
+    log("kernels", f"operand copy {label}: f32 (TF32-rounded) {times['f32']:.3f} ms, "
+        f"bf16 {times['bf16']:.3f} ms")
 
 
 def _yardstick(label, fn):
@@ -702,89 +776,128 @@ def phase_kernels():
     kinds = ((K.POLYNOMIAL, 1.0), (K.RBF, 0.0), (K.SIGMOID, -0.5))
     worst = {}
 
-    def check(X, P, v):
-        for kind, coef0 in kinds:
-            for name, (err, scale) in _compare(kind, coef0, X, P, v).items():
-                key = (name, str(X.dtype).split(".")[-1])
-                worst[key] = max(worst.get(key, 0.0), err / scale)
+    def check(X, P, v, tiers):
+        for precision in tiers:
+            for kind, coef0 in kinds:
+                # at "f32" the rectangular kernels are "highest"'s FFMA tile
+                for name, (err, scale) in _compare(kind, coef0, X, P, v, precision,
+                                                   rect=precision != "f32").items():
+                    key = (name, str(X.dtype).split(".")[-1], precision)
+                    worst[key] = max(worst.get(key, 0.0), err / max(scale, 1e-300))
 
     for dtype in (torch.float32, torch.float64):
-        for m, d in ((1037, 203), (8192, 512), (777, 1280), (129, 3)):
-            check(*_operands(m, d, dtype, gen))
+        # the tiers are float32's; float64 takes the FFMA tile at every tier
+        tiers = ("highest", "f32", "bf16") if dtype == torch.float32 else ("highest",)
+        for m, d in ((1037, 203), (8192, 512), (777, 1280), (129, 3), (65, 37), (1, 5)):
+            check(*_operands(m, d, dtype, gen), tiers)
         # kernels C and D: 1 class, a few, and across the 8-class chunk
         for m, d in ((1037, 203), (777, 1280), (129, 3), (1, 5)):
             for n_classes in (1, 3, 10, 37):
-                check(*_operands(m, d, dtype, gen, n_classes=n_classes))
-        check(*_operands(8192, 512, dtype, gen, n_classes=10))
-    for (name, dt), rel in sorted(worst.items()):
-        log("kernels", f"{name} {dt}: worst max|err|/max|plain| {rel:.3e} "
-            "over poly/rbf/sigmoid x 4 or 5 shapes"
-            + (" x 1-37 classes" if "matmat" in name else ""))
+                check(*_operands(m, d, dtype, gen, n_classes=n_classes), tiers)
+        check(*_operands(8192, 512, dtype, gen, n_classes=10), tiers)
+    for (name, dt, precision), rel in sorted(worst.items()):
+        log("kernels", f"{name} {dt} {precision}: worst max|err|/max|plain| {rel:.3e} "
+            "over poly/rbf/sigmoid x 5 or 6 shapes"
+            + (" x 1-37 classes" if "matmat" in name else "")
+            + (" (plain on the tier's operands)" if precision != "highest" else ""))
 
-    # the main path's own shapes: config 2 training (dept = 9999 rows) and
-    # predict (2000 points against 10000 SVs), config 3 training
+    # the main paths' own shapes, f32: config 2 training (dept = 9999 rows)
+    # and predict (2000 points against 10000 SVs), config 3 training; each
+    # tier's kernel, recorded for the phase that runs it: "f32" (TF32) in
+    # e2e and config3, "bf16" in the bf16 phase; "highest" logged beside
     main_err, main_ms = {}, {}
     X, P, v = _operands(9999, 200, torch.float32, gen, n_points=2000)
-    cfg2 = _compare(K.RBF, 0.0, X, P, v)
-    main_err["gram_matvec_sym"] = cfg2["gram_matvec_sym"][0]
     rbf = dict(kind=K.RBF, gamma=1.0 / 200, coef0=0.0, degree=3)
     sq = (X * X).sum(-1)
-    _time_at_main_shape(main_ms, "gram_matvec_sym", "e2e",
-                        lambda: gram_matvec.gram_matvec_sym(X, sq, v, **rbf),
-                        _sym_bound(9999, 200, 1, "gram", 4, 1), "9999x200 rbf")
+    main_err["gram_matvec_sym"] = _compare(K.RBF, 0.0, X, P, v, rect=False)["gram_matvec_sym"][0]
+    for tier, phase in (("f32", "e2e"), ("bf16", "bf16")):
+        key = ("gram_matvec_sym_tc", TIER_OF[tier])
+        main_err[key] = _compare(K.RBF, 0.0, X, P, v, tier, rect=False)["gram_matvec_sym_tc"][0]
+        _time_at_main_shape(main_ms, "gram_matvec_sym_tc", phase,
+                            lambda: gram_matvec.gram_matvec_sym(X, sq, v, precision=tier, **rbf),
+                            _sym_bound(9999, 200, 1, "gram", 4, 1, TIER_OF[tier], exp=True),
+                            f"9999x200 rbf {tier}")
+    _time_at_main_shape(main_ms, "gram_matvec_sym", None,
+                        lambda: gram_matvec.gram_matvec_sym(X, sq, v, precision="highest", **rbf),
+                        _sym_bound(9999, 200, 1, "gram", 4, 1), "9999x200 rbf highest")
     X, P, v = _operands(10000, 200, torch.float32, gen, n_points=2000)
-    main_err["gram_matvec_rect"] = _compare(K.RBF, 0.0, X, P, v)["gram_matvec_rect"][0]
     sq, sq_p = (X * X).sum(-1), (P * P).sum(-1)
-    _time_at_main_shape(main_ms, "gram_matvec_rect", "e2e",
-                        lambda: gram_matvec.gram_matvec_rect(P, X, sq_p, sq, v, **rbf),
-                        _rect_bound(2000, 10000, 200, 1, "gram", 4, 1),
-                        "2000x10000x200 rbf")
+    for tier, phase in (("f32", "e2e"), ("bf16", "bf16")):
+        err = _compare(K.RBF, 0.0, X, P, v, tier)["gram_matvec_rect"][0]
+        main_err["gram_matvec_rect"] = max(main_err.get("gram_matvec_rect", 0.0), err)
+        _time_at_main_shape(main_ms, "gram_matvec_rect", phase,
+                            lambda: gram_matvec.gram_matvec_rect(P, X, sq_p, sq, v,
+                                                                 precision=tier, **rbf),
+                            _rect_bound(2000, 10000, 200, 1, "gram", 4, 1),
+                            f"2000x10000x200 rbf {tier}")
     X, P, v = _operands(49999, 500, torch.float32, gen, n_points=1)
     X = X / X.abs().amax(0)  # the [-1, 1] scale of config 3
-    cfg3 = _compare(K.POLYNOMIAL, 0.0, X, P / P.abs().amax(0), v)
+    P = P / P.abs().amax(0)
     sq = (X * X).sum(-1)
-    _time_at_main_shape(
-        main_ms, "gram_matvec_sym", "config3",
-        lambda: gram_matvec.gram_matvec_sym(X, sq, v, kind=K.POLYNOMIAL,
-                                            gamma=1.0 / 500, coef0=0.0, degree=3),
-        _sym_bound(49999, 500, 1, "gram", 4, 1), "49999x500 poly")
-    log("kernels", f"main-path shapes f32: sym 9999x200 rbf max|err| "
-        f"{main_err['gram_matvec_sym']:.3e}, rect 2000x10000x200 rbf "
-        f"{main_err['gram_matvec_rect']:.3e}, sym 49999x500 poly "
-        f"{cfg3['gram_matvec_sym'][0]:.3e} (max|plain| "
-        f"{cfg3['gram_matvec_sym'][1]:.3e})")
+    poly = dict(kind=K.POLYNOMIAL, gamma=1.0 / 500, coef0=0.0, degree=3)
+    cfg3 = {}
+    for tier in ("f32", "bf16", "highest"):
+        cfg3[tier] = _compare(K.POLYNOMIAL, 0.0, X, P, v, tier, rect=False)
+        tc = tier != "highest"
+        _time_at_main_shape(
+            main_ms, "gram_matvec_sym_tc" if tc else "gram_matvec_sym",
+            "config3" if tier == "f32" else None,
+            lambda: gram_matvec.gram_matvec_sym(X, sq, v, precision=tier, **poly),
+            _sym_bound(49999, 500, 1, "gram", 4, 1, TIER_OF.get(tier)),
+            f"49999x500 poly {tier}")
+    _log_operand_time(X, "49999x500")
+    log("kernels", "main-path shapes f32: sym 9999x200 rbf max|err| "
+        f"{main_err['gram_matvec_sym']:.3e} (highest), "
+        f"{main_err[('gram_matvec_sym_tc', 'tf32')]:.3e} (f32), "
+        f"{main_err[('gram_matvec_sym_tc', 'bf16')]:.3e} (bf16); rect 2000x10000x200 "
+        f"rbf {main_err['gram_matvec_rect']:.3e}; sym 49999x500 poly "
+        + ", ".join(f"{next(iter(c.values()))[0]:.3e} ({t})" for t, c in cfg3.items())
+        + f" (max|plain| {next(iter(cfg3['highest'].values()))[1]:.3e})")
     # the multiclass paths' shapes, 10 classes: phase 5 training (9999
     # rows) and predict (2000 points against 10000 SVs), phase 7 training
     # (59999 x 784) and predict (10000 points against 60000 SVs)
     for (m, d, n_points) in ((9999, 200, 2000), (59999, 784, 10000)):
         X, P, V = _operands(m, d, torch.float32, gen, n_points=n_points,
                             n_classes=MC_CLASSES)
-        sym_err = _compare(K.RBF, 0.0, X, P, V)["gram_matmat_sym"]
-        S = torch.cat([X, X[:1]])  # the model keeps all m + 1 points
-        rect_err = _compare(K.RBF, 0.0, S, P, torch.cat([V, V[:1]]))["gram_matmat_rect"]
-        for name, (err, _) in (("gram_matmat_sym", sym_err),
-                               ("gram_matmat_rect", rect_err)):
-            main_err[name] = max(main_err.get(name, 0.0), err)
         phase = "multiclass" if m < 10000 else "mnist-width"
         rbf = dict(kind=K.RBF, gamma=1.0 / d, coef0=0.0, degree=3)
         sq, sq_p = (X * X).sum(-1), (P * P).sum(-1)
-        S, A = torch.cat([X, X[:1]]), torch.cat([V, V[:1]])
+        S, A = torch.cat([X, X[:1]]), torch.cat([V, V[:1]])  # the model keeps all m + 1 points
         sq_s = (S * S).sum(-1)
-        _time_at_main_shape(main_ms, "gram_matmat_sym", phase,
-                            lambda: gram_matmat.gram_matmat_sym(X, sq, V, **rbf),
-                            _sym_bound(m, d, MC_CLASSES, "gram", 4, 1),
-                            f"{m}x{d} rbf C={MC_CLASSES}")
-        _time_at_main_shape(main_ms, "gram_matmat_rect", phase,
-                            lambda: gram_matmat.gram_matmat_rect(P, S, sq_p, sq_s, A, **rbf),
-                            _rect_bound(n_points, m + 1, d, MC_CLASSES, "gram", 4, 1),
-                            f"{n_points}x{m + 1}x{d} rbf C={MC_CLASSES}")
-        log("kernels", f"main-path shapes f32, {MC_CLASSES} classes: sym "
-            f"{m}x{d} rbf max|err| {sym_err[0]:.3e} (max|plain| "
-            f"{sym_err[1]:.3e}), rect {n_points}x{m + 1}x{d} rbf "
-            f"{rect_err[0]:.3e} (max|plain| {rect_err[1]:.3e})")
+        errs = {}
+        for tier in ("f32", "bf16", "highest"):
+            name, key = (("gram_matmat_sym_tc", ("gram_matmat_sym_tc", TIER_OF[tier]))
+                         if tier != "highest" else ("gram_matmat_sym", "gram_matmat_sym"))
+            errs[tier] = _compare(K.RBF, 0.0, X, P, V, tier, rect=False)[name]
+            if tier != "bf16" or phase == "multiclass":
+                main_err[key] = max(main_err.get(key, 0.0), errs[tier][0])
+            record = {"f32": phase, "bf16": "bf16" if phase == "multiclass" else None,
+                      "highest": None}[tier]
+            _time_at_main_shape(main_ms, name, record,
+                                lambda: gram_matmat.gram_matmat_sym(X, sq, V, precision=tier, **rbf),
+                                _sym_bound(m, d, MC_CLASSES, "gram", 4, 1, TIER_OF.get(tier),
+                                           exp=True),
+                                f"{m}x{d} rbf C={MC_CLASSES} {tier}")
+        for tier in ("f32", "bf16"):
+            rect_err = _compare(K.RBF, 0.0, S, P, A, tier)["gram_matmat_rect"]
+            main_err["gram_matmat_rect"] = max(main_err.get("gram_matmat_rect", 0.0),
+                                               rect_err[0])
+            _time_at_main_shape(
+                main_ms, "gram_matmat_rect",
+                phase if tier == "f32" else ("bf16" if phase == "multiclass" else None),
+                lambda: gram_matmat.gram_matmat_rect(P, S, sq_p, sq_s, A, precision=tier, **rbf),
+                _rect_bound(n_points, m + 1, d, MC_CLASSES, "gram", 4, 1),
+                f"{n_points}x{m + 1}x{d} rbf C={MC_CLASSES} {tier}")
+        if phase == "mnist-width":
+            _log_operand_time(X, f"{m}x{d}")
+        log("kernels", f"main-path shapes f32, {MC_CLASSES} classes: sym {m}x{d} rbf "
+            "max|err| " + ", ".join(f"{e[0]:.3e} ({t})" for t, e in errs.items())
+            + f" (max|plain| {errs['highest'][1]:.3e}), rect {n_points}x{m + 1}x{d} rbf "
+            f"{rect_err[0]:.3e} (bf16; max|plain| {rect_err[1]:.3e})")
 
     # timing: median of 20 launches each, m = 32768, d = 512, f32, RBF;
-    # kernels C and D against C = 10 classes
+    # kernels C and D against C = 10 classes; the FFMA tile at "highest",
+    # the tensor-core tile at "f32" (TF32) and "bf16"
     m, d = 32768, 512
     X, _, v = _operands(m, d, torch.float32, gen, n_points=1)
     V = torch.randn(m, MC_CLASSES, generator=gen,
@@ -792,72 +905,92 @@ def phase_kernels():
     sq = (X * X).sum(-1)
     kw = dict(kind=K.RBF, gamma=1.0 / d, coef0=0.0, degree=3)
     flops = 2.0 * m * m * d
-    timing = {}
+    timing, bounds = {}, {}
     for rhs in (v, V):
-        (sym_name, sym, sym_plain), (rect_name, rect, rect_plain) = _pairs(rhs)
-        label = f"m={m} d={d} f32 rbf" + (
-            f" C={rhs.shape[1]}" if rhs.ndim == 2 else "")
-        timing[sym_name] = _time_pair(sym_name, sym, sym_plain, (X, sq, rhs),
-                                      kw, flops, label)
-        timing[rect_name] = _time_pair(rect_name, rect, rect_plain,
-                                       (X, X, sq, sq, rhs), kw, flops, label)
+        columns = 1 if rhs.ndim == 1 else rhs.shape[1]
+        label = f"m={m} d={d} f32 rbf" + (f" C={columns}" if rhs.ndim == 2 else "")
+        for tier in ("highest", "f32", "bf16"):
+            (sym_name, sym, sym_plain), (rect_name, rect, rect_plain) = _pairs(rhs, tier)
+            key = sym_name if tier == "highest" else (sym_name, TIER_OF[tier])
+            timing[key] = _time_pair(sym_name, sym, sym_plain, (X, sq, rhs), kw,
+                                     flops, f"{label} {tier}")
+            bounds[key] = _sym_bound(m, d, columns, "gram", 4, 1, TIER_OF.get(tier),
+                                     exp=tier != "highest")
+            _log_bound(sym_name, f"{label} {tier}", timing[key][0], bounds[key])
+        # the rectangular kernels on the FFMA tile: full float32 at "f32"
+        # (the JSON line's), bf16 operands at "bf16"
+        bounds[rect_name] = _rect_bound(m, m, d, columns, "gram", 4, extra_inputs=1)
+        for tier, key in (("f32", rect_name), ("bf16", (rect_name, "bf16"))):
+            (_, rect, rect_plain) = _pairs(rhs, tier)[1]
+            timing[key] = _time_pair(rect_name, rect, rect_plain, (X, X, sq, sq, rhs),
+                                     kw, flops, f"{label} {tier}")
+            _log_bound(rect_name, f"{label} {tier}", timing[key][0], bounds[rect_name])
     for mat, vec in (("gram_matmat_sym", "gram_matvec_sym"),
                      ("gram_matmat_rect", "gram_matvec_rect")):
         log("kernels", f"{mat} (C={MC_CLASSES}) / {vec} at m={m} d={d}: "
             f"{timing[mat][0] / timing[vec][0]:.3f}x the time")
-    bounds = {}
-    for rhs in (v, V):
-        columns = 1 if rhs.ndim == 1 else rhs.shape[1]
-        (sym_name, _, _), (rect_name, _, _) = _pairs(rhs)
-        bounds[sym_name] = _sym_bound(m, d, columns, "gram", 4, extra_inputs=1)
-        bounds[rect_name] = _rect_bound(m, m, d, columns, "gram", 4, extra_inputs=1)
-        label = f"m={m} d={d} f32 rbf C={columns}"
-        _log_bound(sym_name, label, timing[sym_name][0], bounds[sym_name],
-                   m * (m + 1) / 2 * d)
-        _log_bound(rect_name, label, timing[rect_name][0], bounds[rect_name],
-                   float(m) * m * d)
+    for tier in ("tf32", "bf16"):
+        log("kernels", f"tensor-core tile {tier} at m={m} d={d}: kernel A "
+            f"{timing['gram_matvec_sym'][0] / timing[('gram_matvec_sym_tc', tier)][0]:.2f}x, "
+            f"kernel C {timing['gram_matmat_sym'][0] / timing[('gram_matmat_sym_tc', tier)][0]:.2f}x "
+            "faster than the FFMA tile")
 
-    # K6's port: kernel_matvec, one launch of kernel A, at kernel A's shape
+    # K6's port: kernel_matvec, one launch of kernel A at "f32" (the
+    # tensor-core tile, TF32), at kernel A's shape
     timing["kernel_matvec"] = _time_pair(
-        "kernel_matvec", gram_matvec.kernel_matvec, matvec.kernel_matvec_plain,
+        "kernel_matvec", gram_matvec.kernel_matvec,
+        _tier_plain(matvec.kernel_matvec_plain, "f32"),
         (X, sq, v), kw, flops, f"m={m} d={d} f32 rbf")
-    bounds["kernel_matvec"] = bounds["gram_matvec_sym"]
+    bounds["kernel_matvec"] = bounds[("gram_matvec_sym_tc", "tf32")]
     _log_bound("kernel_matvec", f"m={m} d={d} f32 rbf", timing["kernel_matvec"][0],
-               bounds["kernel_matvec"], m * (m + 1) / 2 * d)
-    # full-precision float32 products, as the kernels compute
+               bounds["kernel_matvec"])
+    # product-only yardsticks: full-precision float32 (as the FFMA tile),
+    # TF32 and bf16 (as the tensor-core tile's tiers)
     torch.backends.cuda.matmul.allow_tf32 = False
     _yardstick(f"torch.matmul(X, X.T) m={m} d={d} f32", lambda: torch.matmul(X, X.T))
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        _yardstick(f"torch.matmul(X, X.T) m={m} d={d} f32 allow_tf32",
+                   lambda: torch.matmul(X, X.T))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    Xh = X.to(torch.bfloat16)
+    _yardstick(f"torch.matmul(X, X.T) m={m} d={d} bf16", lambda: torch.matmul(Xh, Xh.T))
+    del Xh
     # kernel_matvec on bench_matvec's shape (phase 12), RBF, against its
-    # plain version; on one tile (m <= 64: one atomic per row, so a
-    # fixed summation order) it equals kernel A bit for bit
+    # plain version on the TF32 operands; on one tile (m <= 64: one atomic
+    # per row, so a fixed summation order) it equals kernel A bit for bit
     Xb, _, vb = _operands(BENCH_M, BENCH_D, torch.float32, gen, n_points=1)
     kwb = dict(kind=K.RBF, gamma=1.0 / BENCH_D, coef0=0.0, degree=3)
     sqb = (Xb * Xb).sum(-1)
     main_err["kernel_matvec"] = _check_close(
         f"kernel_matvec rbf {BENCH_M}x{BENCH_D}",
         gram_matvec.kernel_matvec(Xb, sqb, vb, **kwb),
-        matvec.kernel_matvec_plain(Xb, sqb, vb, **kwb))[0]
+        _tier_plain(matvec.kernel_matvec_plain, "f32")(Xb, sqb, vb, **kwb))[0]
     _time_at_main_shape(main_ms, "kernel_matvec", "bench-matvec",
                         lambda: gram_matvec.kernel_matvec(Xb, sqb, vb, **kwb),
-                        _sym_bound(BENCH_M, BENCH_D, 1, "gram", 4, 1),
+                        _sym_bound(BENCH_M, BENCH_D, 1, "gram", 4, 1, "tf32", exp=True),
                         f"{BENCH_M}x{BENCH_D} rbf")
     X1, _, v1 = _operands(64, 37, torch.float32, gen, n_points=1)
     sq1 = (X1 * X1).sum(-1)
-    if not torch.equal(gram_matvec.kernel_matvec(X1, sq1, v1, **kwb),
-                       gram_matvec.gram_matvec_sym(X1, sq1, v1, **kwb)):
-        raise AssertionError("kernel_matvec differs from kernel A on one tile")
+    for tier in ("f32", "bf16", "highest"):
+        if not torch.equal(gram_matvec.kernel_matvec(X1, sq1, v1, precision=tier, **kwb),
+                           gram_matvec.gram_matvec_sym(X1, sq1, v1, precision=tier, **kwb)):
+            raise AssertionError(f"kernel_matvec differs from kernel A at {tier} on one tile")
     log("kernels", f"kernel_matvec rbf {BENCH_M}x{BENCH_D} f32: max|err| "
-        f"{main_err['kernel_matvec']:.3e} against the plain version; equal to "
-        "kernel A bit for bit on one tile (64 x 37)")
+        f"{main_err['kernel_matvec']:.3e} against the plain version on TF32 "
+        "operands; equal to kernel A bit for bit on one tile (64 x 37) at "
+        "f32, bf16 and highest")
 
     def time_a(X16):
         """Kernel A alone on the distance timing's rows, RBF."""
         sq16 = (X16 * X16).sum(-1)
         v16 = torch.ones(X16.shape[0], device="cuda", dtype=X16.dtype)
         kw16 = dict(kind=K.RBF, gamma=1.0 / X16.shape[1], coef0=0.0, degree=3)
-        a_ms = _median_ms(lambda: gram_matvec.gram_matvec_sym(X16, sq16, v16, **kw16))
-        log("kernels", f"gram_matvec_sym m={X16.shape[0]} d={X16.shape[1]} f32 rbf: "
-            f"{a_ms:.3f} ms")
+        a_ms = _median_ms(lambda: gram_matvec.gram_matvec_sym(
+            X16, sq16, v16, precision="highest", **kw16))
+        log("kernels", f"gram_matvec_sym m={X16.shape[0]} d={X16.shape[1]} f32 rbf "
+            f"highest: {a_ms:.3f} ms")
         return a_ms
 
     g_chi_ms = _distance_kernels(gen, main_err, main_ms, timing, bounds, time_a)
@@ -940,7 +1073,8 @@ def _check_cli_run(phase, label, fit_s, predict_s, accuracy, floor, launches,
 
 def _f64_agreement(phase, label, train_file, test_file, predicted, epsilon, **params):
     """A float64 fit on the card from the same files must predict the
-    float32 run's labels on >= 99.5 % of the points."""
+    float32 run's labels on >= 99.5 % of the points; returns its CG
+    iterations."""
     import plssvm_tpu_torch as port
 
     train64 = port.DataSet(train_file, dtype=np.float64)
@@ -955,6 +1089,7 @@ def _f64_agreement(phase, label, train_file, test_file, predicted, epsilon, **pa
         f"{t1 - t0:.3f} s, f32/f64 label agreement {agree:.4f}")
     if agree < 0.995:
         raise AssertionError(f"f32 and f64 agree on {agree} of the labels")
+    return model64.n_iter
 
 
 def _small_fit_agreement(phase, kernel_type, n_classes, seed):
@@ -1009,17 +1144,24 @@ def phase_end_to_end(tmp, config2_files):
         "e2e", train_file, test_file, tmp,
         ["-t", "2", "-c", "1", "-e", str(EPSILON)])
     launches = {
-        "gram_matvec_sym": gram_matvec.sym_launches,
+        "gram_matvec_sym_tc": gram_matvec.sym_tc_launches,
         "gram_matvec_rect": gram_matvec.rect_launches,
     }
+    if gram_matvec.sym_launches != 0:
+        raise AssertionError("e2e: the f32 fit took kernel A's FFMA tile")
     _check_cli_run("e2e", "config 2", fit_s, predict_s,
                    float(np.mean(predicted == test_labels)), ACCURACY_FLOOR,
                    launches, matvec.sym_plain_calls + matvec.rect_plain_calls,
-                   "gram_matvec_sym", "gram_matvec_rect")
-    _f64_agreement("e2e", "config 2", train_file, test_file, predicted,
-                   EPSILON, kernel_type="rbf")
+                   "gram_matvec_sym_tc", "gram_matvec_rect")
+    # float64 takes kernel A's FFMA tile
+    gram_matvec.reset_counts()
+    it64 = _f64_agreement("e2e", "config 2", train_file, test_file, predicted,
+                          EPSILON, kernel_type="rbf")
+    launches["gram_matvec_sym"] = gram_matvec.sym_launches
+    if launches["gram_matvec_sym"] != 1 + it64 + it64 // 50 or gram_matvec.sym_tc_launches:
+        raise AssertionError("e2e: the f64 fit did not take kernel A's FFMA tile only")
     _small_fit_agreement("e2e", "rbf", 2, SEED + 1)
-    return launches
+    return launches, predicted
 
 
 def _class_means(rng, d):
@@ -1055,20 +1197,26 @@ def phase_multiclass_cli(tmp):
         "multiclass", train_file, test_file, tmp,
         ["-t", "2", "-c", "1", "-e", str(EPSILON)])
     launches = {
-        "gram_matmat_sym": gram_matmat.sym_launches,
+        "gram_matmat_sym_tc": gram_matmat.sym_tc_launches,
         "gram_matmat_rect": gram_matmat.rect_launches,
     }
-    if gram_matvec.sym_launches + gram_matvec.rect_launches != 0:
-        raise AssertionError("multiclass launched the binary kernels")
+    if (gram_matvec.sym_launches + gram_matvec.sym_tc_launches
+            + gram_matvec.rect_launches + gram_matmat.sym_launches) != 0:
+        raise AssertionError("multiclass launched the binary kernels or kernel C's FFMA tile")
     _check_cli_run("multiclass", f"{MC_CLASSES} classes", fit_s, predict_s,
                    float(np.mean(predicted == files["mc_test"][1])),
                    MC_ACCURACY_FLOOR, launches,
                    matvec.sym_matmat_plain_calls + matvec.rect_matmat_plain_calls,
-                   "gram_matmat_sym", "gram_matmat_rect")
-    _f64_agreement("multiclass", f"{MC_CLASSES} classes", train_file, test_file,
-                   predicted, EPSILON, kernel_type="rbf")
+                   "gram_matmat_sym_tc", "gram_matmat_rect")
+    # float64 takes kernel C's FFMA tile
+    gram_matmat.reset_counts()
+    it64 = _f64_agreement("multiclass", f"{MC_CLASSES} classes", train_file,
+                          test_file, predicted, EPSILON, kernel_type="rbf")
+    launches["gram_matmat_sym"] = gram_matmat.sym_launches
+    if launches["gram_matmat_sym"] != 1 + it64 + it64 // 50 or gram_matmat.sym_tc_launches:
+        raise AssertionError("multiclass: the f64 fit did not take kernel C's FFMA tile only")
     _small_fit_agreement("multiclass", "rbf", 4, SEED + 5)
-    return launches
+    return launches, (train_file, test_file, files["mc_test"][1], predicted)
 
 
 def phase_multiclass_width():
@@ -1094,7 +1242,7 @@ def phase_multiclass_width():
     t1 = time.perf_counter()
     predicted = svm.predict(model, test)
     t2 = time.perf_counter()
-    launches = (gram_matmat.sym_launches, gram_matmat.rect_launches)
+    launches = (gram_matmat.sym_tc_launches, gram_matmat.rect_launches)
     plain_calls = matvec.sym_matmat_plain_calls + matvec.rect_matmat_plain_calls
     iterations = _tracked("cg", "iterations")
     cg_ms = _tracked("cg", "total_runtime")
@@ -1104,15 +1252,16 @@ def phase_multiclass_width():
         f"{_tracked('cg', 'iterations_per_class')}), "
         f"{cg_ms / 1000 / iterations:.6f} s/iteration, fit {t1 - t0:.3f} s, "
         f"predict 10000 points {t2 - t1:.3f} s, accuracy {accuracy:.4f}, "
-        f"kernel C/D launches {launches}, matmat plain calls {plain_calls}")
+        f"kernel C (tensor cores, TF32) / D launches {launches}, matmat plain "
+        f"calls {plain_calls}")
     if not (np.all(np.isfinite(model.alpha)) and np.all(np.isfinite(model.rho))):
         raise AssertionError("MNIST width: non-finite model")
     if launches[0] != 1 + iterations + iterations // 50 or launches[1] <= 0 \
-            or plain_calls != 0:
-        raise AssertionError("MNIST width did not go through kernels C and D only")
+            or plain_calls != 0 or gram_matmat.sym_launches != 0:
+        raise AssertionError("MNIST width did not go through the tensor-core C and D only")
     if accuracy < MC_ACCURACY_FLOOR:
         raise AssertionError(f"accuracy {accuracy} below {MC_ACCURACY_FLOOR}")
-    return {"gram_matmat_sym": launches[0], "gram_matmat_rect": launches[1]}
+    return {"gram_matmat_sym_tc": launches[0], "gram_matmat_rect": launches[1]}
 
 
 def phase_config3_width():
@@ -1137,8 +1286,69 @@ def phase_config3_width():
         raise AssertionError("config 3 width: non-finite model")
     log("config3", f"poly 50000x500 f32 (cuda): {iterations} CG iterations, "
         f"{cg_ms / 1000 / iterations:.6f} s/iteration, fit {t1 - t0:.3f} s, "
-        f"kernel A launches {gram_matvec.sym_launches}")
-    return {"gram_matvec_sym": gram_matvec.sym_launches}
+        f"kernel A launches: tensor cores (TF32) {gram_matvec.sym_tc_launches}, "
+        f"FFMA tile {gram_matvec.sym_launches}")
+    if (gram_matvec.sym_tc_launches != 1 + iterations + iterations // 50
+            or gram_matvec.sym_launches != 0):
+        raise AssertionError("config 3 width did not go through the tensor-core A only")
+    return {"gram_matvec_sym_tc": gram_matvec.sym_tc_launches}
+
+
+def phase_bf16(tmp, config2_files, e2e_predicted, multiclass_files):
+    """The "bf16" tier end to end: phase 4's config 2 files and phase 5's
+    10-class files trained through ``plssvm-torch-train --gram_precision
+    bf16`` and predicted through ``CSVM(gram_precision="bf16")``: kernels A
+    and C on the tensor-core tile with bf16 operands, B and D on bf16
+    operands.  Accuracy floors as phases 4 and 5; the label agreement with
+    the "f32" runs is logged."""
+    import plssvm_tpu_torch as port
+    from plssvm_tpu_torch.cli import train as train_cli
+    from plssvm_tpu_torch.ops import gram_matmat, gram_matvec, matvec
+
+    (train_file, _), (test_file, test_labels) = config2_files
+    mc_train, mc_test, mc_labels, mc_predicted = multiclass_files
+    launches = {}
+    for label, train, test, labels, f32_predicted, floor, sym, rect in (
+        ("config 2", train_file, test_file, test_labels, e2e_predicted,
+         ACCURACY_FLOOR, "gram_matvec_sym_tc", "gram_matvec_rect"),
+        (f"{MC_CLASSES} classes", mc_train, mc_test, mc_labels, mc_predicted,
+         MC_ACCURACY_FLOOR, "gram_matmat_sym_tc", "gram_matmat_rect"),
+    ):
+        gram_matvec.reset_counts()
+        gram_matmat.reset_counts()
+        model_file = os.path.join(tmp, f"bf16-{sym}.model")
+        port.global_tracker.clear()
+        t0 = time.perf_counter()
+        rc = train_cli.main(["-b", "cuda", "-p", "gpu", "-q", "--gram_precision", "bf16",
+                             "-t", "2", "-c", "1", "-e", str(EPSILON), train, model_file])
+        t1 = time.perf_counter()
+        if rc != 0:
+            raise AssertionError(f"bf16 {label}: train rc {rc}")
+        svm = port.CSVM(backend="cuda", device="cuda", gram_precision="bf16")
+        predicted = svm.predict(port.Model.load(model_file), port.DataSet(test))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        iterations = _tracked("cg", "iterations")
+        cg_ms = _tracked("cg", "total_runtime")
+        module = gram_matvec if sym.startswith("gram_matvec") else gram_matmat
+        counts = {sym: module.sym_tc_launches, rect: module.rect_launches}
+        launches.update(counts)
+        ffma = gram_matvec.sym_launches + gram_matmat.sym_launches
+        plain = (matvec.sym_plain_calls + matvec.rect_plain_calls
+                 + matvec.sym_matmat_plain_calls + matvec.rect_matmat_plain_calls)
+        accuracy = float(np.mean(predicted == labels))
+        agree = float(np.mean(predicted == f32_predicted))
+        log("bf16", f"{label} bf16 (cuda): {iterations} CG iterations, "
+            f"{cg_ms / 1000 / iterations:.6f} s/iteration, fit (CLI) {t1 - t0:.3f} s, "
+            f"predict (CSVM, file parse included) {t2 - t1:.3f} s, accuracy "
+            f"{accuracy:.4f}, label agreement with the f32 run {agree:.4f}, launches "
+            f"{counts}, FFMA-tile sym launches {ffma}, plain calls {plain}")
+        if counts[sym] != 1 + iterations + iterations // 50 or counts[rect] <= 0 \
+                or ffma != 0 or plain != 0:
+            raise AssertionError(f"bf16 {label} did not go through the bf16 kernels only")
+        if accuracy < floor:
+            raise AssertionError(f"bf16 {label}: accuracy {accuracy} below {floor}")
+    return launches
 
 
 def phase_laplacian_cli(tmp, config2_files):
@@ -1288,33 +1498,49 @@ def phase_banded_tool():
 
 def phase_bench_matvec():
     """Phase 12: bench_matvec at BENCH_M x BENCH_D for RBF and laplacian;
-    every variant's rel_err against the float64 golden within 1e-5, and
-    each kernel launched once for the check and 3 x BENCH_ITERS times."""
+    every variant's rel_err against the float64 golden within its tier's
+    limit, and each kernel launched once for the check and 3 x BENCH_ITERS
+    times."""
     from plssvm_tpu_torch.ops import distance, gram_matvec, matvec
     from plssvm_tpu_torch.tools import bench_matvec
 
     gram_matvec.reset_counts()
     distance.reset_counts()
+    # rel_err bounds per tier: "highest" (and the plain and distance
+    # variants) 1e-5; a tensor-core tier 4 u gamma max|x|^2, the first-order
+    # bound of an RBF entry's relative error when both operands round with
+    # unit roundoff u (|dK/K| = 2 gamma |dg| <= 4 u gamma |x_i| |x_j|), on
+    # the tool's own seeded rows
+    Xt = np.random.default_rng(0).normal(size=(BENCH_M, BENCH_D)).astype(np.float32)
+    spread = float((Xt.astype(np.float64) ** 2).sum(1).max()) / BENCH_D
+    limits = {"kernel_matvec": 4 * UNIT_ROUNDOFF["tf32"] * spread,
+              "kernel_matvec_bf16": 4 * UNIT_ROUNDOFF["bf16"] * spread}
     for kernel in ("rbf", "laplacian"):
         lines = _run_tool("bench-matvec", bench_matvec.main,
                           [str(BENCH_M), str(BENCH_D), str(BENCH_ITERS), "all", kernel])
         for line in lines[1:]:
-            if "not ported" in line:
-                continue
+            variant = line.split()[0]
             rel = float(line.rsplit("rel_err=", 1)[1])
-            if not rel <= 1e-5:
-                raise AssertionError(f"bench_matvec {kernel}: {line}")
+            limit = limits.get(variant, 1e-5) if kernel == "rbf" else 1e-5
+            if not rel <= limit:
+                raise AssertionError(f"bench_matvec {kernel}: {line} (limit {limit:.3e})")
+    log("bench-matvec", "rel_err limits: kernel_matvec (TF32) "
+        f"{limits['kernel_matvec']:.3e}, kernel_matvec_bf16 "
+        f"{limits['kernel_matvec_bf16']:.3e} (4 u gamma max|x|^2), every other 1e-5")
     per_variant = 1 + 3 * BENCH_ITERS
     launches = {
         "kernel_matvec": gram_matvec.kernel_matvec_launches,
         "gram_matvec_sym": gram_matvec.sym_launches,
+        "gram_matvec_sym_tc": gram_matvec.sym_tc_launches,
         "gram_matvec_rect": gram_matvec.rect_launches,
         "distance_matvec_sym": distance.matvec_sym_launches,
     }
     log("bench-matvec", f"launches {launches}; plain calls: Gram "
         f"{matvec.sym_plain_calls}, distance {matvec.dist_sym_plain_calls}")
-    # kernel_matvec and kernel_matvec_hi are kernel A's only callers here
-    if launches != {"kernel_matvec": 2 * per_variant, "gram_matvec_sym": 2 * per_variant,
+    # kernel_matvec at f32 and bf16 (the tensor-core tile) and highest (the
+    # FFMA tile) are kernel A's only callers here
+    if launches != {"kernel_matvec": 3 * per_variant, "gram_matvec_sym": per_variant,
+                    "gram_matvec_sym_tc": 2 * per_variant,
                     "gram_matvec_rect": per_variant, "distance_matvec_sym": per_variant} \
             or matvec.sym_plain_calls != per_variant \
             or matvec.dist_sym_plain_calls != per_variant:
@@ -1346,8 +1572,12 @@ def main():
     phase_launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         config2_files = _write_config2(tmp)
-        phase_launches["e2e"] = run("e2e", phase_end_to_end, tmp, config2_files)
-        phase_launches["multiclass"] = run("multiclass", phase_multiclass_cli, tmp)
+        phase_launches["e2e"], e2e_predicted = run("e2e", phase_end_to_end, tmp,
+                                                   config2_files)
+        phase_launches["multiclass"], mc_files = run("multiclass", phase_multiclass_cli,
+                                                     tmp)
+        phase_launches["bf16"] = run("bf16", phase_bf16, tmp, config2_files,
+                                     e2e_predicted, mc_files)
         phase_launches["laplacian"] = run("laplacian", phase_laplacian_cli, tmp,
                                           config2_files)
         phase_launches["chi2-cli"] = run("chi2-cli", phase_chi2_cli, tmp)
@@ -1370,18 +1600,34 @@ def main():
         log("cost", f"{k} in {phase}: {n} launches x ({ms:.3f} - {b_ms:.3f}) ms "
             f"= {lost:.1f} ms above the bound")
     # each kernel's launches in the JSON line are those of the first phase
-    # that runs it
+    # that runs it at the tier its entry names: the bf16 phase's for the
+    # tensor-core tile's "bf16" entries, else the first other phase's
     launches = {}
-    for counts in phase_launches.values():
+    for phase, counts in phase_launches.items():
         for k, n in counts.items():
-            launches.setdefault(k, n)
+            if phase == "bf16":
+                launches[(k, "bf16")] = n
+            else:
+                launches.setdefault(k, n)
+    for tc in ("gram_matvec_sym_tc", "gram_matmat_sym_tc"):
+        launches[(tc, "tf32")] = launches[tc]
 
     # the distance kernels report the kind their main path ran: laplacian
     # for E and F (phase 8), chi-squared for G and H (phases 9 and 10);
-    # kernel_matvec's launches are phase 12's, kernel I's phase 11's.  No
-    # single PyTorch call computes any kernel's function (library_ms)
+    # kernel_matvec's launches are phase 12's, kernel I's phase 11's; the
+    # FFMA tile of A and C ("highest") reports the float64 fits' launches
+    # (phases 4, 5) beside its float32 times, the tensor-core tile one entry
+    # per tier.  No single PyTorch call computes any kernel's function
+    # (library_ms)
+    tiers = {"gram_matvec_sym": "highest", "gram_matmat_sym": "highest",
+             "gram_matvec_rect": "f32", "gram_matmat_rect": "f32",
+             "kernel_matvec": "tf32"}
     sources = {
         "gram_matvec_sym": ("gram_matvec.cu", "plssvm_tpu/ops/pallas_matvec.py:430"),
+        ("gram_matvec_sym_tc", "tf32"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:430"),
+        ("gram_matvec_sym_tc", "bf16"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:430"),
+        ("gram_matmat_sym_tc", "tf32"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:812"),
+        ("gram_matmat_sym_tc", "bf16"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:812"),
         "gram_matvec_rect": ("gram_matvec.cu", "plssvm_tpu/ops/pallas_matvec.py:1007"),
         "gram_matmat_sym": ("gram_matmat.cu", "plssvm_tpu/ops/pallas_matvec.py:812"),
         "gram_matmat_rect": ("gram_matmat.cu", "plssvm_tpu/ops/pallas_matvec.py:812"),
@@ -1402,10 +1648,13 @@ def main():
             "name": k if isinstance(k, str) else k[0], "route": "cuda",
             "source": f"plssvm_tpu_torch/csrc/{src}",
             "replaces": replaces,
-            "launches": launches[k if isinstance(k, str) else k[0]],
+            "launches": launches[k if isinstance(k, str) or k[1] in ("tf32", "bf16")
+                                 else k[0]],
             "max_abs_err": main_err[k], "ms": timing[k][0],
             "plain_ms": timing[k][1], "bound_ms": bounds[k][0],
             "bound_by": bounds[k][1], "library_ms": None,
+            **({"tier": k[1]} if isinstance(k, tuple) and k[1] in ("tf32", "bf16")
+               else {"tier": tiers[k]} if k in tiers else {}),
         }
         for k, (src, replaces) in sources.items()
     ]}))

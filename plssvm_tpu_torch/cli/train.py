@@ -101,9 +101,12 @@ def build_parser() -> argparse.ArgumentParser:
                         help="CG preconditioner (jacobi is not ported yet)")
     parser.add_argument("--gram_precision", default="f32",
                         choices=["f32", "bf16", "highest"],
-                        help="Gram contraction precision: f32 and highest both "
-                        "run full fp32 FMA in the CUDA kernels; bf16 is not "
-                        "ported to them yet")
+                        help="Gram contraction precision of the CUDA kernels "
+                        "on float32 data: f32 = TF32 operands on the tensor "
+                        "cores (training; predict in full fp32), bf16 = bf16 "
+                        "operands (training and predict), highest = full "
+                        "fp32 FMA; float64 data and -b torch compute at full "
+                        "precision")
     parser.add_argument("--debug", action="store_true",
                         help="NaN/Inf guards on the CG state (not ported yet)")
     parser.add_argument("--profile", metavar="DIR", default=None,

@@ -38,13 +38,15 @@
 // and 2 * BM * C atomics per off-diagonal tile where kernel A issues 2 * BM.
 // The classes are a loop, not a register array, so no per-class state is
 // held: the register footprint stays kernel A's, and C does not change how
-// the kernel is compiled.  Tensor cores for the class contraction, and for
-// the Gram tile, are later work.
+// the kernel is compiled.  This register tile serves the "highest" tier and
+// float64; kernel C at "f32" (TF32) and "bf16" runs on the tensor-core tile
+// of gram_tc.cuh (plssvm_gram_matmat_sym_tf32 / _bf16), and kernel D at
+// "bf16" stages bf16 P and S as f32 (plssvm_gram_matmat_rect_bf16).
 //
 // Numerics: as kernels A and B (no fast-math, accurate expf/tanhf).  The
 // atomics make the summation order change from run to run.
 
-#include "gram_tile.cuh"
+#include "gram_tc.cuh"
 
 namespace {
 
@@ -75,9 +77,10 @@ __global__ void __launch_bounds__(kThreads * kThreads)
                           v_rows, col_part);
 }
 
-template <typename T, int KIND>
+template <typename T, int KIND, typename Stored = T>
 __global__ void __launch_bounds__(kThreads * kThreads)
-    gram_matmat_rect_kernel(const T* __restrict__ P, const T* __restrict__ S,
+    gram_matmat_rect_kernel(const Stored* __restrict__ P,
+                            const Stored* __restrict__ S,
                             const T* __restrict__ sq_p,
                             const T* __restrict__ sq_s,
                             const T* __restrict__ A, T* __restrict__ out,
@@ -94,7 +97,8 @@ __global__ void __launch_bounds__(kThreads * kThreads)
     const int64_t col0 = (p % n_stiles) * BM;
 
     T kv[R][R];
-    gram_tile<T, BM>(P, S, n_p, n_s, d, row0, col0, staging, kv);
+    gram_tile<T, BM, GramProduct, false, Stored>(P, S, n_p, n_s, d, row0,
+                                                  col0, staging, kv);
     kernel_tile<T, KIND, BM>(kv, sq_p, sq_s, n_p, n_s, row0, col0, degree,
                              gamma, coef0);
     rect_class_loop<T, BM>(kv, A, out, n_p, n_s, C, row0, col0, a_cols);
@@ -116,8 +120,9 @@ cudaError_t launch_sym(const T* X, const T* sq, const T* V, T* out,
     return cudaGetLastError();
 }
 
-template <typename T, int KIND>
-cudaError_t launch_rect(const T* P, const T* S, const T* sq_p, const T* sq_s,
+template <typename T, int KIND, typename Stored = T>
+cudaError_t launch_rect(const Stored* P, const Stored* S, const T* sq_p,
+                        const T* sq_s,
                         const T* A, T* out, int64_t n_p, int64_t n_s,
                         int64_t d, int64_t C, int degree, T gamma, T coef0,
                         cudaStream_t stream) {
@@ -127,7 +132,7 @@ cudaError_t launch_rect(const T* P, const T* S, const T* sq_p, const T* sq_s,
     if (blocks <= 0 || blocks > INT32_MAX || C <= 0) {
         return cudaErrorInvalidValue;
     }
-    gram_matmat_rect_kernel<T, KIND>
+    gram_matmat_rect_kernel<T, KIND, Stored>
         <<<static_cast<unsigned int>(blocks), dim3(kThreads, kThreads), 0,
            stream>>>(P, S, sq_p, sq_s, A, out, n_p, n_s, d, C, n_stiles,
                      degree, gamma, coef0);
@@ -153,23 +158,24 @@ int sym(const T* X, const T* sq, const T* V, T* out, int64_t m, int64_t d,
     }
 }
 
-template <typename T>
-int rect(const T* P, const T* S, const T* sq_p, const T* sq_s, const T* A,
-         T* out, int64_t n_p, int64_t n_s, int64_t d, int64_t C, int kind,
-         int degree, T gamma, T coef0, void* stream) {
+template <typename T, typename Stored = T>
+int rect(const Stored* P, const Stored* S, const T* sq_p, const T* sq_s,
+         const T* A, T* out, int64_t n_p, int64_t n_s, int64_t d, int64_t C,
+         int kind, int degree, T gamma, T coef0, void* stream) {
     const auto s = static_cast<cudaStream_t>(stream);
     switch (kind) {
         case kPolynomial:
-            return launch_rect<T, kPolynomial>(P, S, sq_p, sq_s, A, out, n_p,
-                                               n_s, d, C, degree, gamma,
-                                               coef0, s);
+            return launch_rect<T, kPolynomial, Stored>(
+                P, S, sq_p, sq_s, A, out, n_p, n_s, d, C, degree, gamma,
+                coef0, s);
         case kRbf:
-            return launch_rect<T, kRbf>(P, S, sq_p, sq_s, A, out, n_p, n_s, d,
-                                        C, degree, gamma, coef0, s);
+            return launch_rect<T, kRbf, Stored>(P, S, sq_p, sq_s, A, out, n_p,
+                                                n_s, d, C, degree, gamma,
+                                                coef0, s);
         case kSigmoid:
-            return launch_rect<T, kSigmoid>(P, S, sq_p, sq_s, A, out, n_p,
-                                            n_s, d, C, degree, gamma, coef0,
-                                            s);
+            return launch_rect<T, kSigmoid, Stored>(P, S, sq_p, sq_s, A, out,
+                                                    n_p, n_s, d, C, degree,
+                                                    gamma, coef0, s);
         default:
             return cudaErrorInvalidValue;
     }
@@ -214,4 +220,37 @@ extern "C" int plssvm_gram_matmat_rect_f64(
     void* stream) {
     return rect<double>(P, S, sq_p, sq_s, A, out, n_p, n_s, d, C, kind,
                         degree, gamma, coef0, stream);
+}
+
+// The "bf16" tier of kernel D: P and S stored as bf16, staged as f32.
+extern "C" int plssvm_gram_matmat_rect_bf16(
+    const void* P, const void* S, const float* sq_p, const float* sq_s,
+    const float* A, float* out, int64_t n_p, int64_t n_s, int64_t d,
+    int64_t C, int kind, int degree, float gamma, float coef0, void* stream) {
+    return rect<float, __nv_bfloat16>(
+        static_cast<const __nv_bfloat16*>(P),
+        static_cast<const __nv_bfloat16*>(S), sq_p, sq_s, A, out, n_p, n_s, d,
+        C, kind, degree, gamma, coef0, stream);
+}
+
+// Kernel C on the tensor-core tile (gram_tc.cuh): X the tier's operand copy
+// (m, d_pad), TF32-rounded float32 or bf16; sq the float32 X's norms.
+extern "C" int plssvm_gram_matmat_sym_tf32(const void* X, const float* sq,
+                                           const float* V, float* out,
+                                           int64_t m, int64_t d_pad,
+                                           int64_t C, int kind, int degree,
+                                           float gamma, float coef0,
+                                           void* stream) {
+    return tc_sym(false, X, sq, V, out, m, d_pad, C, kind, degree, gamma,
+                  coef0, stream);
+}
+
+extern "C" int plssvm_gram_matmat_sym_bf16(const void* X, const float* sq,
+                                           const float* V, float* out,
+                                           int64_t m, int64_t d_pad,
+                                           int64_t C, int kind, int degree,
+                                           float gamma, float coef0,
+                                           void* stream) {
+    return tc_sym(true, X, sq, V, out, m, d_pad, C, kind, degree, gamma,
+                  coef0, stream);
 }

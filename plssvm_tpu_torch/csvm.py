@@ -153,11 +153,8 @@ class CSVM:
                 f"Unrecognized gram_precision '{gram_precision}' "
                 "(must be 'f32', 'bf16' or 'highest')!"
             )
-        if gram_precision == "bf16" and self.backend == BackendType.CUDA:
-            raise NotPortedError(
-                "gram_precision='bf16' is not ported to the CUDA kernels yet "
-                "(ROADMAP Queue 4: bf16 operands with f32 accumulation)"
-            )
+        # the Gram tier of the CUDA kernels, training and predict alike
+        # (solver/cg.py, ops/predict.py); the torch backend ignores it
         self.gram_precision = gram_precision
         if solver not in ("automatic", "cg_explicit", "cg_implicit"):
             raise InvalidParameterError(
@@ -424,6 +421,7 @@ class CSVM:
             sv, alpha, rho, w, points,
             params.resolved_gamma(model.num_features), params.coef0.value,
             kind=kind, degree=params.degree.value, impl=self._impl(),
+            precision=self.gram_precision,
         )
         return values.cpu().numpy()
 

@@ -4,50 +4,68 @@ Kernel A, :func:`gram_matvec_sym` — ``K(X, X) @ v``, every CG iteration —
 replaces plssvm_tpu/ops/pallas_matvec.py ``kernel_matvec_pallas_dual``
 with ``symmetric=True`` (through ``kernel_matvec_pallas_big``).  Kernel B,
 :func:`gram_matvec_rect` — ``K(P, S) @ a``, binary predict — replaces the
-non-symmetric branch of ``kernel_matvec_pallas_rect``.  The source note in
-csrc/gram_matvec.cu says how they are built and what bounds them.
-:func:`kernel_matvec` replaces ``kernel_matvec_pallas`` (K6), the JAX
-package's thin wrapper that routes ``K(X, X) @ v`` to the same symmetric
-kernel; here it is one launch of kernel A.
+non-symmetric branch of ``kernel_matvec_pallas_rect``.  The source notes in
+csrc/gram_matvec.cu and csrc/gram_tc.cuh say how they are built and what
+bounds them.  :func:`kernel_matvec` replaces ``kernel_matvec_pallas`` (K6),
+the JAX package's thin wrapper that routes ``K(X, X) @ v`` to the same
+symmetric kernel; here it is one launch of kernel A.
 
-Each wrapper takes its plain PyTorch version (ops/matvec.py) for tensors
-that lie on the CPU, and only then.  For a CUDA tensor it launches its
-kernel or raises; it never falls back.  Each counts its launches in a plain
-module-level int (``sym_launches``, ``rect_launches``;
+``precision`` is the Gram precision tier, as the reference's
+(``gram_precision``).  On float32 CUDA tensors:
+
+- kernel A at "f32" runs on the tensor-core tile (csrc/gram_tc.cuh) with
+  TF32 operands, at "bf16" on the same tile with bf16 operands, f32
+  accumulation in both; at "highest" on the FFMA register tile
+  (csrc/gram_tile.cuh), full float32;
+- kernel B runs on the FFMA tile at every tier: full float32 at "f32" and
+  "highest", bf16 operands widened to float32 at "bf16".
+
+float64 runs the FFMA tile in float64 at every tier.  The tensor-core tile
+takes an operand copy of X (:func:`tier_operand`: TF32-rounded or bf16, its
+feature axis padded to a 16-byte row), which the wrapper makes per call:
+at MNIST's width it takes under 4 % of the kernel's time on an H100.
+
+Each wrapper takes its plain PyTorch version (ops/matvec.py) at the same
+tier for tensors that lie on the CPU, and only then.  For a CUDA tensor it
+launches its kernel or raises; it never falls back.  Each counts its
+launches in a plain module-level int (``sym_launches``, ``rect_launches``
+for the FFMA tile, ``sym_tc_launches`` for the tensor-core tile;
 ``kernel_matvec_launches`` counts kernel A's launches made for
-:func:`kernel_matvec`).
-
-Both kernels take float32 and float64, with full-precision FMA in either:
-``gram_precision`` "f32" and "highest" both map here.  They allocate
-nothing: the wrapper allocates the zeroed output and launches on PyTorch's
-current stream.
+:func:`kernel_matvec`).  The kernels allocate nothing: the wrapper
+allocates the zeroed output and launches on PyTorch's current stream.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..exceptions import KernelLaunchError, NotPortedError
+from ..exceptions import KernelLaunchError
 from ..kernel_functions import DISTANCE_KERNELS
 from ..parameter import KernelFunctionType
 from . import _build
 from . import matvec as _plain
 
-#: kernel launches of gram_matvec_sym / gram_matvec_rect
+#: kernel launches of gram_matvec_sym / gram_matvec_rect on the FFMA tile
 sym_launches = 0
 rect_launches = 0
+#: kernel A's launches on the tensor-core tile ("f32" as TF32, "bf16")
+sym_tc_launches = 0
 #: kernel A's launches made by kernel_matvec
 kernel_matvec_launches = 0
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+#: per tier of the tensor-core tile: the entry points' suffix, the operand
+#: copy's type and the feature multiple of a 16-byte row
+_TC_TIERS = {"f32": ("tf32", torch.float32, 4), "bf16": ("bf16", torch.bfloat16, 8)}
 
 
 def reset_counts() -> None:
     """Zero the launch counts of both kernels and the call counts of their
     plain versions."""
-    global sym_launches, rect_launches, kernel_matvec_launches
+    global sym_launches, rect_launches, sym_tc_launches, kernel_matvec_launches
     sym_launches = 0
     rect_launches = 0
+    sym_tc_launches = 0
     kernel_matvec_launches = 0
     _plain.sym_plain_calls = 0
     _plain.rect_plain_calls = 0
@@ -107,6 +125,26 @@ def _require_cuda(t: torch.Tensor, name: str) -> None:
         )
 
 
+def uses_tensor_cores(X: torch.Tensor, precision: str) -> bool:
+    """Whether kernels A and C take the tensor-core tile for X at this tier:
+    float32 CUDA operands at "f32" or "bf16"."""
+    return (X.device.type == "cuda" and X.dtype == torch.float32
+            and precision in _TC_TIERS)
+
+
+def tier_operand(X: torch.Tensor, precision: str) -> torch.Tensor:
+    """The tensor-core tile's operand copy of float32 ``X`` (m, d): rounded
+    to TF32 (``round_to_tf32``) for "f32", cast to bf16 for "bf16"; its
+    feature axis padded with zeros to a multiple of 4 (TF32) or 8 (bf16),
+    so that a row is a multiple of 16 bytes as TMA requires."""
+    _, dtype, multiple = _TC_TIERS[precision]
+    op = _plain.round_to_tf32(X) if precision == "f32" else X.to(dtype)
+    pad = -X.shape[1] % multiple
+    if pad:
+        op = torch.nn.functional.pad(op, (0, pad))
+    return op.contiguous()
+
+
 def gram_matvec_sym(
     X: torch.Tensor,
     sq: torch.Tensor,
@@ -116,15 +154,19 @@ def gram_matvec_sym(
     gamma: float,
     coef0: float,
     degree: int,
+    precision: str = "f32",
 ) -> torch.Tensor:
     """``K(X, X) @ v`` for a poly / RBF / sigmoid kernel (kernel A).
 
-    ``X`` (m, d), ``sq`` (m,) its squared row norms, ``v`` (m,).
+    ``X`` (m, d), ``sq`` (m,) its squared row norms, ``v`` (m,);
+    ``precision`` the tier.
     """
     _check_gram_kind(kind)
+    _plain.check_precision(precision)
     if X.device.type == "cpu":
         return _plain.kernel_matvec_plain(
-            X, sq, v, kind=kind, gamma=gamma, coef0=coef0, degree=degree
+            X, sq, v, kind=kind, gamma=gamma, coef0=coef0, degree=degree,
+            precision=precision,
         )
     _require_cuda(X, "gram_matvec_sym")
     m, d = X.shape
@@ -135,6 +177,19 @@ def gram_matvec_sym(
     if m == 0:
         return out
     lib = _build.load()
+    if uses_tensor_cores(X, precision):
+        op = tier_operand(X, precision)
+        fn = getattr(lib, f"plssvm_gram_matvec_sym_{_TC_TIERS[precision][0]}")
+        with torch.cuda.device(X.device):
+            err = fn(
+                op.data_ptr(), sq.data_ptr(), v.data_ptr(), out.data_ptr(), m,
+                op.shape[1], int(kind), int(degree), float(gamma),
+                float(coef0), torch.cuda.current_stream().cuda_stream,
+            )
+        _raise_on_error(lib, err, "gram_matvec_sym (tensor cores)")
+        global sym_tc_launches
+        sym_tc_launches += 1
+        return out
     fn = getattr(lib, f"plssvm_gram_matvec_sym_{suffix}")
     with torch.cuda.device(X.device):
         err = fn(
@@ -159,17 +214,20 @@ def gram_matvec_rect(
     gamma: float,
     coef0: float,
     degree: int,
+    precision: str = "f32",
 ) -> torch.Tensor:
     """``K(P, S) @ a`` for a poly / RBF / sigmoid kernel (kernel B).
 
     ``P`` (n_p, d) points, ``S`` (n_s, d) support vectors, ``sq_p`` /
-    ``sq_s`` their squared row norms, ``a`` (n_s,) the weights.
+    ``sq_s`` their squared row norms, ``a`` (n_s,) the weights;
+    ``precision`` the tier.
     """
     _check_gram_kind(kind)
+    _plain.check_precision(precision)
     if P.device.type == "cpu":
         return _plain.kernel_matvec_rect_plain(
             P, S, sq_p, sq_s, a, kind=kind, gamma=gamma, coef0=coef0,
-            degree=degree,
+            degree=degree, precision=precision,
         )
     _require_cuda(P, "gram_matvec_rect")
     n_p, d = P.shape
@@ -183,6 +241,7 @@ def gram_matvec_rect(
     if n_p == 0 or n_s == 0:
         return out
     lib = _build.load()
+    P, S, suffix = bf16_operands(P, S, precision, suffix)
     fn = getattr(lib, f"plssvm_gram_matvec_rect_{suffix}")
     with torch.cuda.device(P.device):
         err = fn(
@@ -195,6 +254,14 @@ def gram_matvec_rect(
     global rect_launches
     rect_launches += 1
     return out
+
+
+def bf16_operands(P, S, precision, suffix):
+    """The FFMA tile's "bf16" tier on float32 operands: bf16 copies of P and
+    S and the entry points' "bf16" suffix; else the operands as they are."""
+    if precision == "bf16" and suffix == "f32":
+        return P.to(torch.bfloat16), S.to(torch.bfloat16), "bf16"
+    return P, S, suffix
 
 
 def kernel_matvec(
@@ -211,22 +278,16 @@ def kernel_matvec(
     """``K(X, X) @ v`` for a poly / RBF / sigmoid kernel through kernel A,
     one launch; the counterpart of ``kernel_matvec_pallas``.
 
-    ``precision`` "f32" and "highest" both take kernel A's full-precision
-    FMA; "bf16" is not ported.  No padding: any m and d >= 1.
+    ``precision`` as :func:`gram_matvec_sym`: on float32 CUDA tensors "f32"
+    and "bf16" take the tensor-core tile, "highest" the FFMA tile.  No
+    padding: any m and d >= 1.
     """
-    if precision not in ("f32", "bf16", "highest"):
-        raise ValueError(
-            f"precision must be 'f32', 'bf16' or 'highest', not {precision!r}"
-        )
-    if precision == "bf16":
-        raise NotPortedError(
-            "precision='bf16' is not ported to the CUDA kernels yet (ROADMAP "
-            "Queue 4: bf16 operands with f32 accumulation)"
-        )
+    _plain.check_precision(precision)
     global kernel_matvec_launches
-    before = sym_launches
+    before = sym_launches + sym_tc_launches
     out = gram_matvec_sym(
-        X, sq_norms, v, kind=kind, gamma=gamma, coef0=coef0, degree=degree
+        X, sq_norms, v, kind=kind, gamma=gamma, coef0=coef0, degree=degree,
+        precision=precision,
     )
-    kernel_matvec_launches += sym_launches - before
+    kernel_matvec_launches += sym_launches + sym_tc_launches - before
     return out

@@ -25,6 +25,17 @@ ops/distance.py): the same row-blocked walk over the full square through
 split on 128-row bands.  Each counts its calls in a plain module-level int, so a run can show that its main path
 took the kernels and not these.  Rows need no padding: the blocks follow
 the tensor's own length.
+
+The four Gram versions take the Gram precision tier (``precision``) of the
+reference's ``kernel_matvec_pallas_dual`` / ``_rect`` /
+``kernel_matmat_pallas_dual`` on float32 operands: "f32" and "highest"
+compute in full float32, as the JAX package does on the CPU, where its
+default dot is full f32; "bf16" computes on ``X.to(torch.bfloat16).float()``
+with the caller's squared norms of the float32 X (``pallas_matvec.py:464``,
+``:500-503``): bf16 products are exact in float32, so only the operands'
+rounding differs.  float64 operands compute in float64 at every tier.
+:func:`round_to_tf32` gives the operand of the tensor-core tile's "f32"
+tier (TF32), the card tests' exact oracle of it.
 """
 
 from __future__ import annotations
@@ -58,6 +69,38 @@ banded_plain_calls = 0
 BAND = 128
 
 
+#: the Gram precision tiers, as ``gram_precision`` names them
+PRECISIONS = ("f32", "bf16", "highest")
+
+
+def check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(
+            f"precision must be 'f32', 'bf16' or 'highest', not {precision!r}"
+        )
+
+
+def round_to_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero on the 13 dropped bits, as ``cvt.rna.tf32.f32``: a value
+    past the largest TF32 one becomes inf; inf, nan, signed zeros and the
+    subnormals' rounding follow from the bit pattern (nan stays nan)."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"round_to_tf32 takes float32, not {x.dtype}")
+    bits = x.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isnan(x), x.contiguous(), rounded)
+
+
+def _at_tier(X: torch.Tensor, precision: str) -> torch.Tensor:
+    """The operand the tier computes on: bf16-rounded float32 X for "bf16",
+    else X itself."""
+    check_precision(precision)
+    if precision == "bf16" and X.dtype == torch.float32:
+        return X.to(torch.bfloat16).to(torch.float32)
+    return X
+
+
 def linear_kernel_matvec(X: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(X X^T) @ v computed as X @ (X^T @ v): O(n d) instead of O(n^2 d)."""
     return X @ (X.T @ v)
@@ -73,11 +116,13 @@ def kernel_matvec_plain(
     coef0,
     degree: int,
     row_block: int = DEFAULT_ROW_BLOCK,
+    precision: str = "f32",
 ) -> torch.Tensor:
     """``K @ v`` with ``K[i, j] = k(x_i, x_j)`` over the rows of ``X`` (m, d);
     ``v`` (m,) or (m, C)."""
     global sym_plain_calls
     sym_plain_calls += 1
+    X = _at_tier(X, precision)
     return _row_blocked(
         X, X, sq_norms, sq_norms, v, kind, gamma, coef0, degree, row_block
     )
@@ -95,11 +140,13 @@ def kernel_matvec_rect_plain(
     coef0,
     degree: int,
     row_block: int = DEFAULT_ROW_BLOCK,
+    precision: str = "f32",
 ) -> torch.Tensor:
     """``K(P, S) @ a`` with ``K[i, j] = k(p_i, s_j)``: points P (n_p, d)
     against support vectors S (n_s, d) weighted by ``a`` (n_s,)."""
     global rect_plain_calls
     rect_plain_calls += 1
+    P, S = _at_tier(P, precision), _at_tier(S, precision)
     return _row_blocked(P, S, sq_p, sq_s, a, kind, gamma, coef0, degree, row_block)
 
 
@@ -113,10 +160,12 @@ def kernel_matmat_plain(
     coef0,
     degree: int,
     row_block: int = DEFAULT_ROW_BLOCK,
+    precision: str = "f32",
 ) -> torch.Tensor:
     """``K @ V`` over the rows of ``X`` (m, d) for ``V`` (m, C)."""
     global sym_matmat_plain_calls
     sym_matmat_plain_calls += 1
+    X = _at_tier(X, precision)
     return _row_blocked(
         X, X, sq_norms, sq_norms, V, kind, gamma, coef0, degree, row_block
     )
@@ -134,11 +183,13 @@ def kernel_matmat_rect_plain(
     coef0,
     degree: int,
     row_block: int = DEFAULT_ROW_BLOCK,
+    precision: str = "f32",
 ) -> torch.Tensor:
     """``K(P, S) @ A``: points P (n_p, d) against support vectors S (n_s, d)
     weighted by ``A`` (n_s, C), one column per class or machine."""
     global rect_matmat_plain_calls
     rect_matmat_plain_calls += 1
+    P, S = _at_tier(P, precision), _at_tier(S, precision)
     return _row_blocked(P, S, sq_p, sq_s, A, kind, gamma, coef0, degree, row_block)
 
 

@@ -46,14 +46,17 @@ def predict_values(
     kind: KernelFunctionType,
     degree: int,
     impl: str = "torch",
+    precision: str = "f32",
 ) -> torch.Tensor:
     """Decision values f(x) = sum_i alpha_i k(sv_i, x) - rho for each point:
     (n_pred,) for a binary ``alpha``, (n_pred, C) for ``alpha`` (n_sv, C).
 
     ``impl="cuda"`` routes the Gram kernels through kernel B
-    (:func:`gram_matvec_rect`) or kernel D (:func:`gram_matmat_rect`), the
-    distance kernels through kernel F or H; ``"torch"`` takes their plain
-    versions.
+    (:func:`gram_matvec_rect`) or kernel D (:func:`gram_matmat_rect`) at
+    the Gram tier ``precision`` (as the reference passes ``gram_precision``
+    to its predict, plssvm_tpu/csvm.py:2383, :2401), the distance kernels
+    through kernel F or H; ``"torch"`` takes their plain versions at full
+    precision, as plssvm_tpu's XLA path ignores the tier.
     """
     if kind == KernelFunctionType.LINEAR:
         return predict_points @ w - rho
@@ -73,5 +76,6 @@ def predict_values(
     out = rect(
         predict_points, support_vectors, sq_pred, sq_sv, alpha,
         kind=kind, gamma=gamma, coef0=coef0, degree=degree,
+        precision=precision if impl == "cuda" else "f32",
     )
     return out - rho

@@ -24,6 +24,12 @@ the exact-residual cadence and the bias formulas are the reference's.  The
 kernels mask ragged edges themselves, so the system has exactly ``dept``
 rows: no padding, no mask.
 
+``gram_precision`` is the Gram tier of every kernel product of a solve,
+the initial and every-50th exact residuals included: the reference found
+that mixing tiers breaks conjugacy (plssvm_tpu/solver/cg.py:1125-1137).  On
+float32 CUDA tensors "f32" runs kernels A and C on the tensor cores with
+TF32 operands, "bf16" with bf16 operands, "highest" on the FFMA tile.
+
 The one-vs-all solve (``solve_ls_svm_multi``) runs the C binary systems,
 which share the implicit matrix and differ only in their right-hand sides,
 as one block CG: each iteration applies ``K`` once to the (m, C) block of
@@ -37,7 +43,6 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..exceptions import NotPortedError
 from ..kernel_functions import (
     DISTANCE_KERNELS,
     kernel_against_point,
@@ -47,6 +52,7 @@ from ..ops.distance import distance_matmat_sym, distance_matvec_sym
 from ..ops.gram_matmat import gram_matmat_sym
 from ..ops.gram_matvec import gram_matvec_sym
 from ..ops.matvec import (
+    check_precision,
     distance_matmat_plain,
     distance_matvec_plain,
     kernel_matmat_plain,
@@ -116,23 +122,34 @@ class CGResult(NamedTuple):
     delta0: torch.Tensor      # initial squared residual norm
 
 
-def _make_kernel_matvec(kind: KernelFunctionType, degree: int, impl: str) -> Callable:
-    """Select the K@v implementation: ``impl="cuda"`` the hand kernel A, or
-    kernel E for a distance kernel (plain versions on CPU tensors);
-    ``"torch"`` the plain versions.  The linear kernel always takes the
-    factored O(n d) product."""
+def _gram_product(sym, plain, kind, degree, impl, gram_precision) -> Callable:
+    """(X, sq_norms, V, gamma, coef0) -> K @ V through the hand kernel
+    ``sym`` at the solve's tier (``impl="cuda"``; its plain version on CPU
+    tensors), or through ``plain`` at full precision (``"torch"``, which
+    ignores the tier, as plssvm_tpu's XLA path does)."""
+    product = sym if impl == "cuda" else plain
+    precision = gram_precision if impl == "cuda" else "f32"
+
+    def kv(X, sq_norms, V, gamma, coef0):
+        return product(X, sq_norms, V, kind=kind, gamma=gamma, coef0=coef0,
+                       degree=degree, precision=precision)
+
+    return kv
+
+
+def _make_kernel_matvec(kind: KernelFunctionType, degree: int, impl: str,
+                        gram_precision: str = "f32") -> Callable:
+    """Select the K@v implementation: ``impl="cuda"`` the hand kernel A at
+    the tier ``gram_precision``, or kernel E for a distance kernel (plain
+    versions on CPU tensors); ``"torch"`` the plain versions.  The linear
+    kernel always takes the factored O(n d) product."""
     if kind == KernelFunctionType.LINEAR:
         return lambda X, sq_norms, v, gamma, coef0: linear_kernel_matvec(X, v)
     if kind in DISTANCE_KERNELS:
         dist = distance_matvec_sym if impl == "cuda" else distance_matvec_plain
         return lambda X, sq_norms, v, gamma, coef0: dist(X, v, kind=kind, gamma=gamma)
-    sym = gram_matvec_sym if impl == "cuda" else kernel_matvec_plain
-
-    def kv(X, sq_norms, v, gamma, coef0):
-        return sym(X, sq_norms, v, kind=kind, gamma=gamma, coef0=coef0,
-                   degree=degree)
-
-    return kv
+    return _gram_product(gram_matvec_sym, kernel_matvec_plain, kind, degree,
+                         impl, gram_precision)
 
 
 def cg_ls_svm_core(
@@ -227,25 +244,22 @@ def solve_ls_svm(
 
     ``scalars="compensated"`` accumulates the CG scalar reductions (delta,
     d.Ad, q.v, sums) with double-float TwoSum folds.  ``gram_precision``
-    "f32" and "highest" both run full-precision FMA in the CUDA kernels;
-    "bf16" is not ported (ROADMAP Queue 4) and raises on ``impl="cuda"``.
-    The plain versions ignore the knob, as plssvm_tpu's XLA path does.
+    is the tier of every Gram product of the solve on ``impl="cuda"``: on
+    float32 CUDA tensors "f32" takes kernel A's tensor-core tile with TF32
+    operands, "bf16" with bf16 operands, "highest" the full-float32 FFMA
+    tile; on CPU tensors the plain version at the tier ("f32" and
+    "highest" full float32, "bf16" on bf16-rounded X).  float64 computes in
+    float64 at every tier.  ``impl="torch"`` ignores the tier, as
+    plssvm_tpu's XLA path does.
     """
-    _check_gram_precision(impl, gram_precision)
+    check_precision(gram_precision)
     dot, vsum = _scalar_reductions(scalars)
     return cg_ls_svm_core(
         X, x_last, y, y_last, gamma, coef0, cost, eps, max_iter,
-        kind=kind, degree=degree, kernel_mv=_make_kernel_matvec(kind, degree, impl),
+        kind=kind, degree=degree,
+        kernel_mv=_make_kernel_matvec(kind, degree, impl, gram_precision),
         dot=dot, vsum=vsum,
     )
-
-
-def _check_gram_precision(impl: str, gram_precision: str) -> None:
-    if impl == "cuda" and gram_precision == "bf16":
-        raise NotPortedError(
-            "gram_precision='bf16' is not ported to the CUDA kernels yet "
-            "(ROADMAP Queue 4: bf16 operands with f32 accumulation)"
-        )
 
 
 class MultiCGResult(NamedTuple):
@@ -260,23 +274,19 @@ class MultiCGResult(NamedTuple):
     delta0: torch.Tensor      # (C,) initial squared residual norms
 
 
-def _make_kernel_matmat(kind: KernelFunctionType, degree: int, impl: str) -> Callable:
+def _make_kernel_matmat(kind: KernelFunctionType, degree: int, impl: str,
+                        gram_precision: str = "f32") -> Callable:
     """Select the K@V implementation for V (m, C): ``impl="cuda"`` the hand
-    kernel C, or kernel G for a distance kernel (plain versions on CPU
-    tensors); ``"torch"`` the plain versions.  The linear kernel takes the
-    factored X (X^T V) product."""
+    kernel C at the tier ``gram_precision``, or kernel G for a distance
+    kernel (plain versions on CPU tensors); ``"torch"`` the plain versions.
+    The linear kernel takes the factored X (X^T V) product."""
     if kind == KernelFunctionType.LINEAR:
         return lambda X, sq_norms, V, gamma, coef0: linear_kernel_matvec(X, V)
     if kind in DISTANCE_KERNELS:
         dist = distance_matmat_sym if impl == "cuda" else distance_matmat_plain
         return lambda X, sq_norms, V, gamma, coef0: dist(X, V, kind=kind, gamma=gamma)
-    sym = gram_matmat_sym if impl == "cuda" else kernel_matmat_plain
-
-    def kmm(X, sq_norms, V, gamma, coef0):
-        return sym(X, sq_norms, V, kind=kind, gamma=gamma, coef0=coef0,
-                   degree=degree)
-
-    return kmm
+    return _gram_product(gram_matmat_sym, kernel_matmat_plain, kind, degree,
+                         impl, gram_precision)
 
 
 def cg_ls_svm_multi_core(
@@ -383,7 +393,7 @@ def solve_ls_svm_multi(
     ``scalars`` and ``gram_precision`` as in :func:`solve_ls_svm`, with the
     compensated sums taken per column.
     """
-    _check_gram_precision(impl, gram_precision)
+    check_precision(gram_precision)
     if scalars == "compensated":
         colsum = compensated_sum
     else:
@@ -392,5 +402,6 @@ def solve_ls_svm_multi(
     return cg_ls_svm_multi_core(
         X, x_last, Y, y_last, gamma, coef0, cost, eps, max_iter,
         kind=kind, degree=degree,
-        kernel_mm=_make_kernel_matmat(kind, degree, impl), colsum=colsum,
+        kernel_mm=_make_kernel_matmat(kind, degree, impl, gram_precision),
+        colsum=colsum,
     )

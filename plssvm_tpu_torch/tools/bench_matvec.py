@@ -23,9 +23,13 @@ variant            JAX tool's variant           what runs
 ================== ============================ ==============================
 plain_rb2048       xla_rb2048                   ``kernel_matvec_plain``
 kernel_matvec      pallas_f32, dual_f32         ``kernel_matvec``: kernel A
+                                                on the tensor cores, TF32
 kernel_matvec_hi   dual_hi                      ``kernel_matvec(precision=
-                                                "highest")``: kernel A
-kernel_matvec_bf16 pallas_bf16, dual_bf16       not ported (ROADMAP Queue 4)
+                                                "highest")``: kernel A on
+                                                the FFMA tile
+kernel_matvec_bf16 pallas_bf16, dual_bf16       ``kernel_matvec(precision=
+                                                "bf16")``: kernel A on the
+                                                tensor cores, bf16
 rect_full          rect_full                    ``gram_matvec_rect(X, X)``:
                                                 kernel B over the full square
 plain_rb256        xla_scan_rb256               ``distance_matvec_plain``
@@ -34,7 +38,10 @@ sym_walk           sym_walk_rb256, _rb512       ``distance_matvec_sym``:
 ================== ============================ ==============================
 
 The first five run for the Gram kernels (polynomial, rbf, sigmoid), the
-last two for the distance kernels (laplacian, chi_squared).
+last two for the distance kernels (laplacian, chi_squared).  On ``--cpu``
+every Gram variant but the plain one runs its wrapper's plain version at
+the variant's tier: full float32, or bf16-rounded X for
+``kernel_matvec_bf16``.
 """
 
 from __future__ import annotations
@@ -45,7 +52,6 @@ import sys
 import numpy as np
 import torch
 
-from ..exceptions import NotPortedError
 from ..kernel_functions import DISTANCE_KERNELS
 from ..ops import distance, gram_matvec, matvec
 from ..parameter import KernelFunctionType
@@ -74,7 +80,7 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _variants(kind, X, sq, gamma, coef0):
-    """name -> (v -> K v); ``kernel_matvec_bf16`` raises NotPortedError."""
+    """name -> (v -> K v)."""
     if kind in DISTANCE_KERNELS:
         return {
             "plain_rb256": lambda v: matvec.distance_matvec_plain(
@@ -174,11 +180,7 @@ def main(argv=None) -> int:
           flush=True)
     ref = golden(X, v0, kind, gamma, coef0) if m <= GOLDEN_MAX_M else None
     for variant, fn in variants.items():
-        try:
-            got = fn(v0)
-        except NotPortedError:
-            print(f"{variant:18s}  not ported (ROADMAP Queue 4)", flush=True)
-            continue
+        got = fn(v0)
         if ref is not None:
             err = torch.linalg.norm(got.double() - ref) / torch.linalg.norm(ref)
             rel = f"rel_err={float(err):.2e}"

@@ -181,12 +181,42 @@ class TestNotPorted:
         [
             (dict(solver="cg_explicit"), "item 3"),
             (dict(preconditioner="jacobi"), "item 4"),
-            (dict(backend="cuda", gram_precision="bf16"), "Queue 4"),
         ],
     )
     def test_options(self, kwargs, item):
         with pytest.raises(NotImplementedError, match=item):
             plssvm_tpu_torch.CSVM(device="cpu", **kwargs)
+
+    def test_gram_precision_bf16(self):
+        """gram_precision="bf16" is ported (ROADMAP Queue 2 row a): on CPU
+        tensors the cuda backend's wrappers take the plain versions at the
+        bf16 tier, in training and predict, and the model predicts the f32
+        model's labels."""
+        from plssvm_tpu_torch.ops import matvec
+
+        Xtr, ytr, Xte, yte = blobs(seed=4)
+        train = plssvm_tpu_torch.DataSet(Xtr, ytr, scaling=(-1.0, 1.0))
+        test = plssvm_tpu_torch.DataSet(Xte, yte, scaling=train.scaling_factors)
+        models = {}
+        for tier in ("f32", "bf16"):
+            svm = plssvm_tpu_torch.CSVM(backend="cuda", device="cpu", gram_precision=tier,
+                                        kernel_type="rbf", cost=1.0)
+            models[tier] = (svm, svm.fit(train, epsilon=1e-6))
+        svm, model = models["bf16"]
+        assert svm.gram_precision == "bf16"
+        assert model.rho != models["f32"][1].rho
+        sv = torch.as_tensor(model.support_vectors, dtype=torch.float32)
+        P = torch.as_tensor(np.asarray(test.data), dtype=torch.float32)
+        want = matvec.kernel_matvec_rect_plain(
+            P, sv, (P * P).sum(-1), (sv * sv).sum(-1),
+            torch.as_tensor(model.alpha, dtype=torch.float32),
+            kind=plssvm_tpu_torch.KernelFunctionType.RBF, gamma=0.1, coef0=0.0,
+            degree=3, precision="bf16",
+        ).numpy() - model.rho
+        np.testing.assert_allclose(svm.predict_values(model, test), want, rtol=0, atol=1e-5)
+        f32_svm, f32_model = models["f32"]
+        agree = np.mean(svm.predict(model, test) == f32_svm.predict(f32_model, test))
+        assert agree >= 0.95
 
     @pytest.mark.parametrize("fit_kwargs", [dict(sample_weight=np.ones(30)), dict(initial_model="m")])
     def test_fit_extras(self, fit_kwargs):

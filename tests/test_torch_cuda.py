@@ -1,7 +1,9 @@
 """The CUDA kernels (A, B: Gram matvecs; C, D: Gram block matmats; E-H:
 laplacian / chi-squared matvecs and block matmats; I: the banded laplacian
 matvec; and ``kernel_matvec``, K6's one launch of kernel A) against their
-plain PyTorch versions, on the card.
+plain PyTorch versions, on the card: A-D on the FFMA tile at "highest",
+A and C on the tensor-core tile at "f32" (TF32) and "bf16", B and D at
+"bf16" on bf16 operands.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  They import
 neither jax nor plssvm_tpu, so they run where only PyTorch is installed:
@@ -9,14 +11,17 @@ neither jax nor plssvm_tpu, so they run where only PyTorch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances, relative to max|plain|: float32 1e-4, float64 1e-10 (the
-kernels sum in another order than cuBLAS, with atomics).  The chi-squared
+kernels sum in another order than cuBLAS, with atomics).  The tensor-core
+tile's "f32" tier is held at 1e-4 against the plain version on the same
+TF32-rounded operands (``round_to_tf32``), its "bf16" tier against the plain
+version at "bf16"; and the "f32" tier against full float32 within the
+first-order bound of TF32's unit roundoff 2^-11 (``_tf32_tier_bound``).  The chi-squared
 kernels are also held per entry of K (``test_chi_squared_per_entry``).
 """
 
 import pytest
 import torch
 
-from plssvm_tpu_torch.exceptions import NotPortedError
 from plssvm_tpu_torch.ops import banded, distance, gram_matmat, gram_matvec, matvec
 from plssvm_tpu_torch.ops.entry_check import chi2_gamma, entry_cases, entry_errors
 from plssvm_tpu_torch.parameter import KernelFunctionType as TKind
@@ -36,14 +41,16 @@ def cuda_device():
 @pytest.mark.parametrize("name", list(COEF0))
 @pytest.mark.parametrize("m,d", [(1037, 203), (300, 1280), (129, 3), (1, 5)])
 def test_kernels_against_plain(cuda_device, name, dtype, tol, m, d):
-    """Kernels A and B on ragged shapes, a single row included."""
+    """Kernels A and B on the FFMA tile ("highest") on ragged shapes, a
+    single row included."""
     tkind = getattr(TKind, name.upper())
     g = torch.Generator().manual_seed(38)
     X = (torch.randn(m, d, generator=g, dtype=dtype) * 0.3).to(cuda_device)
     P = (torch.randn(m // 2 + 1, d, generator=g, dtype=dtype) * 0.3).to(cuda_device)
     v = torch.randn(m, generator=g, dtype=dtype).to(cuda_device)
     sq, sq_p = (X * X).sum(-1), (P * P).sum(-1)
-    kw = dict(kind=tkind, gamma=1.0 / d, coef0=COEF0[name], degree=3)
+    kw = dict(kind=tkind, gamma=1.0 / d, coef0=COEF0[name], degree=3,
+              precision="highest")
     before = gram_matvec.sym_launches, gram_matvec.rect_launches
     got = gram_matvec.gram_matvec_sym(X, sq, v, **kw)
     want = matvec.kernel_matvec_plain(X, sq, v, **kw)
@@ -90,15 +97,17 @@ def test_wrapper_checks_operands(cuda_device):
 @pytest.mark.parametrize("n_classes", [1, 3, 10, 37])
 @pytest.mark.parametrize("m,d", [(1037, 203), (300, 1280), (129, 3), (1, 5)])
 def test_matmat_kernels_against_plain(cuda_device, name, dtype, tol, n_classes, m, d):
-    """Kernels C and D on ragged shapes, a single row included, for class
-    counts below, at and across the kernels' 8-class staging chunk."""
+    """Kernels C and D on the FFMA tile ("highest") on ragged shapes, a
+    single row included, for class counts below, at and across the
+    kernels' 8-class staging chunk."""
     tkind = getattr(TKind, name.upper())
     g = torch.Generator().manual_seed(40)
     X = (torch.randn(m, d, generator=g, dtype=dtype) * 0.3).to(cuda_device)
     P = (torch.randn(m // 2 + 1, d, generator=g, dtype=dtype) * 0.3).to(cuda_device)
     V = torch.randn(m, n_classes, generator=g, dtype=dtype).to(cuda_device)
     sq, sq_p = (X * X).sum(-1), (P * P).sum(-1)
-    kw = dict(kind=tkind, gamma=1.0 / d, coef0=COEF0[name], degree=3)
+    kw = dict(kind=tkind, gamma=1.0 / d, coef0=COEF0[name], degree=3,
+              precision="highest")
     before = gram_matmat.sym_launches, gram_matmat.rect_launches
     got = gram_matmat.gram_matmat_sym(X, sq, V, **kw)
     want = matvec.kernel_matmat_plain(X, sq, V, **kw)
@@ -288,24 +297,189 @@ def test_banded_wrapper_checks_operands(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("precision", ["f32", "highest"])
+@pytest.mark.parametrize("precision", ["f32", "bf16", "highest"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_kernel_matvec_is_kernel_a(cuda_device, precision, dtype):
-    """K6's port is one launch of kernel A: bit for bit on one tile (m <=
-    64, each row sum one atomic, so no summation order to vary), within
-    the atomics' rounding on many."""
+    """K6's port is one launch of kernel A at the same tier: "highest" (and
+    every tier in float64) the FFMA tile, "f32" and "bf16" the tensor-core
+    tile; bit for bit on one tile (m <= 64: each row sum one atomic, so no
+    summation order to vary), within the atomics' rounding on many."""
     g = torch.Generator().manual_seed(45)
     kw = dict(kind=TKind.RBF, gamma=1.0 / 37, coef0=0.0, degree=3)
     for m, d, tol in ((64, 37, 0.0), (1037, 203, 1e-6 if dtype == torch.float32 else 1e-13)):
         X = torch.randn(m, d, generator=g, dtype=torch.float64).to(cuda_device, dtype)
         v = torch.randn(m, generator=g, dtype=torch.float64).to(cuda_device, dtype)
         sq = (X * X).sum(-1)
-        before = gram_matvec.sym_launches, gram_matvec.kernel_matvec_launches
+        before = (gram_matvec.sym_launches, gram_matvec.sym_tc_launches,
+                  gram_matvec.kernel_matvec_launches)
         got = gram_matvec.kernel_matvec(X, sq, v, precision=precision, **kw)
-        assert (gram_matvec.sym_launches, gram_matvec.kernel_matvec_launches) == (
-            before[0] + 1, before[1] + 1
-        )
-        want = gram_matvec.gram_matvec_sym(X, sq, v, **kw)
+        tc = dtype == torch.float32 and precision != "highest"
+        assert (gram_matvec.sym_launches, gram_matvec.sym_tc_launches,
+                gram_matvec.kernel_matvec_launches) == (
+            before[0] + (not tc), before[1] + tc, before[2] + 1)
+        want = gram_matvec.gram_matvec_sym(X, sq, v, precision=precision, **kw)
         assert (got - want).abs().max() <= tol * want.abs().max()
-    with pytest.raises(NotPortedError, match="Queue 4"):
-        gram_matvec.kernel_matvec(X, sq, v, precision="bf16", **kw)
+
+
+# -- the tensor-core tile (kernels A and C at "f32" and "bf16") ---------------
+
+TC_SHAPES = [(m, d) for m in (1, 63, 64, 65, 129, 1037, 8192)
+             for d in (3, 5, 37, 203, 512, 1280)]
+
+
+def _tier_oracle(plain, X, sq, rhs, tier, **kw):
+    """The plain version on the tier's exact operands: TF32-rounded X with
+    the float32 X's norms for "f32", bf16-rounded X for "bf16"."""
+    if tier == "f32":
+        return plain(matvec.round_to_tf32(X), sq, rhs, precision="f32", **kw)
+    return plain(X, sq, rhs, precision="bf16", **kw)
+
+
+def _tc_operands(m, d, n_classes, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    X = (torch.randn(m, d, generator=g, dtype=torch.float64) * 0.3).to(device, torch.float32)
+    shape = (m,) if n_classes is None else (m, n_classes)
+    rhs = torch.randn(*shape, generator=g, dtype=torch.float64).to(device, torch.float32)
+    return X, (X * X).sum(-1), rhs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["f32", "bf16"])
+@pytest.mark.parametrize("name", list(COEF0))
+@pytest.mark.parametrize("m,d", TC_SHAPES)
+def test_tensor_core_matvec_against_tier_oracle(cuda_device, m, d, name, tier):
+    """Kernel A on the tensor-core tile on ragged rows and features (the
+    TMA boxes' zero fill), at 1e-4 of max|oracle|: only the f32
+    accumulation order differs from the oracle."""
+    X, sq, v = _tc_operands(m, d, None, 47, cuda_device)
+    kw = dict(kind=getattr(TKind, name.upper()), gamma=1.0 / d,
+              coef0=COEF0[name], degree=3)
+    before = gram_matvec.sym_launches, gram_matvec.sym_tc_launches
+    got = gram_matvec.gram_matvec_sym(X, sq, v, precision=tier, **kw)
+    assert (gram_matvec.sym_launches, gram_matvec.sym_tc_launches) == (
+        before[0], before[1] + 1)
+    want = _tier_oracle(matvec.kernel_matvec_plain, X, sq, v, tier, **kw)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["f32", "bf16"])
+@pytest.mark.parametrize("name", list(COEF0))
+@pytest.mark.parametrize("n_classes", [1, 3, 10, 37])
+@pytest.mark.parametrize("m,d", [(1, 5), (65, 3), (129, 37), (1037, 203), (300, 1280)])
+def test_tensor_core_matmat_against_tier_oracle(cuda_device, m, d, n_classes, name, tier):
+    """Kernel C on the tensor-core tile, and kernel D at the same tier
+    (bf16 operands at "bf16", full float32 at "f32"), for class counts
+    below, at and across the 8-class staging chunk."""
+    X, sq, V = _tc_operands(m, d, n_classes, 48, cuda_device)
+    P = X[: m // 2 + 1].flip(0).contiguous()
+    sq_p = (P * P).sum(-1)
+    kw = dict(kind=getattr(TKind, name.upper()), gamma=1.0 / d,
+              coef0=COEF0[name], degree=3)
+    before = gram_matmat.sym_launches, gram_matmat.sym_tc_launches
+    got = gram_matmat.gram_matmat_sym(X, sq, V, precision=tier, **kw)
+    assert (gram_matmat.sym_launches, gram_matmat.sym_tc_launches) == (
+        before[0], before[1] + 1)
+    want = _tier_oracle(matvec.kernel_matmat_plain, X, sq, V, tier, **kw)
+    assert got.shape == (m, n_classes) and torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    got = gram_matmat.gram_matmat_rect(P, X, sq_p, sq, V, precision=tier, **kw)
+    want = matvec.kernel_matmat_rect_plain(P, X, sq_p, sq, V, precision=tier, **kw)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(COEF0))
+@pytest.mark.parametrize("m,d", [(1037, 203), (300, 1280), (129, 3), (1, 5)])
+def test_bf16_rect_against_plain(cuda_device, m, d, name):
+    """Kernel B at "bf16": bf16 operands widened to float32 in the FFMA
+    tile, against the plain version at "bf16"."""
+    X, sq, v = _tc_operands(m, d, None, 49, cuda_device)
+    P = X[: m // 2 + 1].flip(0).contiguous()
+    sq_p = (P * P).sum(-1)
+    kw = dict(kind=getattr(TKind, name.upper()), gamma=1.0 / d,
+              coef0=COEF0[name], degree=3, precision="bf16")
+    before = gram_matvec.rect_launches
+    got = gram_matvec.gram_matvec_rect(P, X, sq_p, sq, v, **kw)
+    assert gram_matvec.rect_launches == before + 1
+    want = matvec.kernel_matvec_rect_plain(P, X, sq_p, sq, v, **kw)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def _tf32_tier_bound(X, sq, V, kind, gamma, coef0):
+    """First-order bound of |K_tf32 @ V - K @ V| per output: each operand
+    rounds to nearest with relative error <= u = 2^-11, so a Gram entry
+    moves by at most (2u + u^2) sum_k |x_ik| |x_jk| <= 2.01 u (|X| |X|^T)_ij,
+    and K_ij by at most the largest |dk/dg| on [g - E, g + E] times E."""
+    u = 2.0 ** -11
+    Xd = X.double()
+    G = Xd @ Xd.T
+    E = 2.01 * u * (Xd.abs() @ Xd.abs().T)
+    if kind == TKind.RBF:
+        K = torch.exp(-gamma * (sq.double()[:, None] + sq.double()[None, :] - 2 * G))
+        dk = 2 * gamma * K * torch.exp(2 * gamma * E)  # its largest on the interval
+    elif kind == TKind.POLYNOMIAL:
+        # the largest |dk/dg| over [g - E, g + E]: (gamma g + coef0)^2 is
+        # largest at an end of the interval
+        dk = 3 * gamma * torch.maximum((gamma * (G + E) + coef0) ** 2,
+                                       (gamma * (G - E) + coef0) ** 2)
+    else:
+        dk = torch.full_like(G, gamma)  # |tanh'| <= 1
+    Vd = V.double().abs()
+    return (dk * E) @ Vd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(COEF0))
+@pytest.mark.parametrize("m,d,n_classes", [(1037, 203, None), (500, 784, 10)])
+def test_tf32_tier_against_full_float32(cuda_device, m, d, n_classes, name):
+    """The "f32" tier against the full-float32 plain version, within the
+    first-order TF32 bound (``_tf32_tier_bound``) plus 1e-4 of max|plain|
+    for the accumulation order."""
+    X, sq, rhs = _tc_operands(m, d, n_classes, 50, cuda_device)
+    kind = getattr(TKind, name.upper())
+    kw = dict(kind=kind, gamma=1.0 / d, coef0=COEF0[name], degree=3)
+    if n_classes is None:
+        got = gram_matvec.gram_matvec_sym(X, sq, rhs, precision="f32", **kw)
+        want = matvec.kernel_matvec_plain(X, sq, rhs, **kw)
+    else:
+        got = gram_matmat.gram_matmat_sym(X, sq, rhs, precision="f32", **kw)
+        want = matvec.kernel_matmat_plain(X, sq, rhs, **kw)
+    bound = _tf32_tier_bound(X, sq, rhs, kind, 1.0 / d, COEF0[name])
+    if n_classes is None:
+        bound = bound.reshape(-1)
+    err = (got.double() - want.double()).abs()
+    assert (err <= bound + 1e-4 * want.abs().max()).all()
+    assert (got - want).abs().max() > 0  # TF32 is not full float32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["f32", "bf16"])
+@pytest.mark.parametrize("n_labels", [2, 4])
+def test_solve_and_predict_take_the_tier_kernels(cuda_device, tier, n_labels):
+    """A float32 CUDA fit at "f32" / "bf16" runs every kernel product on the
+    tensor-core tile (none on the FFMA tile or the plain versions), and its
+    predict goes through kernel B or D."""
+    import numpy as np
+
+    import plssvm_tpu_torch as port
+
+    rng = np.random.default_rng(51)
+    y = rng.integers(0, n_labels, 400)
+    X = rng.normal(size=(400, 12)) + rng.normal(size=(n_labels, 12))[y]
+    data = port.DataSet(X, y, dtype=np.float32)
+    svm = port.CSVM(backend="cuda", device="cuda", kernel_type="rbf",
+                    gram_precision=tier)
+    gram_matvec.reset_counts()
+    gram_matmat.reset_counts()
+    model = svm.fit(data, epsilon=1e-6)
+    accuracy = svm.score(model, data)
+    tc = gram_matvec.sym_tc_launches if n_labels == 2 else gram_matmat.sym_tc_launches
+    rect = gram_matvec.rect_launches if n_labels == 2 else gram_matmat.rect_launches
+    assert tc == 1 + model.n_iter + model.n_iter // 50
+    assert rect >= 1
+    assert gram_matvec.sym_launches == gram_matmat.sym_launches == 0
+    assert (matvec.sym_plain_calls + matvec.rect_plain_calls
+            + matvec.sym_matmat_plain_calls + matvec.rect_matmat_plain_calls) == 0
+    assert accuracy > 0.8
