@@ -13,17 +13,19 @@ Phases, one line each or more (the run stops at the first that fails):
    plain PyTorch versions on the card, poly / RBF / sigmoid in float32 and
    float64, ragged and multi-tile shapes, 1 to 37 classes, and the main
    paths' own shapes, at each Gram tier: "highest" (and float64) on the
-   FFMA tile; A and C at "f32" (TF32) and "bf16" on the tensor-core tile
-   (``*_sym_tc``), held against the plain version on the tier's operands;
-   B and D at "bf16" on bf16 operands; then all timed against their plain
-   versions, beside the operand copies' time and torch.matmul yardsticks
-   in float32, TF32 and bf16;
+   FFMA tile; at "f32" (TF32) and "bf16" A and C on the symmetric
+   tensor-core tile (``*_sym_tc``), B and D on the rectangular one
+   (``*_rect_tc``), held against the plain version on the tier's operands,
+   and B and D at "f32" against full float32 within the first-order TF32
+   bound; then all timed against their plain versions, beside the operand
+   copies' time and torch.matmul yardsticks in float32, TF32 and bf16;
 4. end to end, BASELINE config 2: RBF on a seeded two-class 10000 x 200
    set, trained with plssvm-torch-train (the default "f32" tier: kernel A
    on the tensor cores) and scored with plssvm-torch-predict on 2000
-   held-out points; the kernels' launch counts prove the path went through
-   them; a float64 fit (kernel A's FFMA tile) must agree with the float32
-   one; a small float64 fit must agree between the kernels and the plain
+   held-out points (kernel B on the tensor cores); the kernels' launch
+   counts prove the path went through them; a float64 fit and predict
+   (kernels A and B on the FFMA tile) must agree with the float32 one; a
+   small float64 fit must agree between the kernels and the plain
    versions;
 5. multiclass end to end: the same shape with 10 classes, one-vs-all,
    through both CLIs; kernels C and D's launch counts, accuracy against a
@@ -54,7 +56,8 @@ Phases, one line each or more (the run stops at the first that fails):
 
 The "bf16" phase runs right after phase 5, on the files of phases 4 and
 5: both trained through ``plssvm-torch-train --gram_precision bf16`` and
-predicted through ``CSVM(gram_precision="bf16")``, accuracy floors as
+predicted through ``CSVM(gram_precision="bf16")`` (kernels A-D on the
+tensor-core tiles with bf16 operands), accuracy floors as
 phases 4 and 5, label agreement with the "f32" runs logged.  Phases 8 and
 9 follow, while the files exist; phase 10 runs after phase 7, then phases
 11 and 12.
@@ -159,7 +162,7 @@ BANDED_M, BANDED_D, BANDED_ITERS = 32768, 128, 4
 #: FP32 instructions/s (an FFMA counts two flops); the special-function
 #: units return 16 results per SM and clock against 128 FP32 lanes, 1/8 of
 #: that; 3.35 TB/s of HBM3; on the tensor cores 495 TFLOP/s TF32 and 989
-#: TFLOP/s bf16 (the Gram tiers "f32" and "bf16" of kernels A and C)
+#: TFLOP/s bf16 (the Gram tiers "f32" and "bf16" of kernels A-D)
 FP32_INSTR_PER_S = 67e12 / 2
 SFU_OPS_PER_S = FP32_INSTR_PER_S / 8
 HBM_BYTES_PER_S = 3.35e12
@@ -168,7 +171,7 @@ BF16_FLOP_PER_S = 989e12
 #: per tensor-core tier: the product's peak and the operand's bytes per
 #: element
 TC_TIERS = {"tf32": (TF32_FLOP_PER_S, 4), "bf16": (BF16_FLOP_PER_S, 2)}
-#: the Gram tiers of kernels A and C on the tensor cores, by gram_precision
+#: the Gram tiers of kernels A-D on the tensor cores, by gram_precision
 TIER_OF = {"f32": "tf32", "bf16": "bf16"}
 #: TF32 and bf16 unit roundoffs (10 and 7 mantissa bits, round to nearest)
 UNIT_ROUNDOFF = {"tf32": 2.0 ** -11, "bf16": 2.0 ** -8}
@@ -229,16 +232,18 @@ def _operands(m, d, dtype, gen, n_points=None, n_classes=None):
 
 
 def _tier_plain(plain, precision):
-    """The plain version ``plain(X, sq, rhs, **kw)`` on a tier's exact
-    operands: TF32-rounded float32 X with the float32 X's norms for "f32"
-    (the tensor-core tile's oracle), bf16-rounded X for "bf16", X itself for
-    "highest" and float64."""
+    """The plain version ``plain(*operands, *norms_and_rhs, **kw)`` (X, or P
+    and S, before the first vector) on a tier's exact operands:
+    TF32-rounded float32 operands with the float32 operands' norms for
+    "f32" (the tensor-core tiles' oracle), bf16-rounded operands for "bf16",
+    the operands themselves for "highest" and float64."""
     from plssvm_tpu_torch.ops import matvec
 
-    def oracle(X, sq, rhs, **kw):
-        if precision == "f32" and X.dtype == torch.float32:
-            return plain(matvec.round_to_tf32(X), sq, rhs, precision="f32", **kw)
-        return plain(X, sq, rhs, precision=precision, **kw)
+    def oracle(*args, **kw):
+        if precision == "f32" and args[0].dtype == torch.float32:
+            n = next(i for i, a in enumerate(args) if a.ndim == 1)
+            args = [matvec.round_to_tf32(a) if i < n else a for i, a in enumerate(args)]
+        return plain(*args, precision=precision, **kw)
 
     return oracle
 
@@ -246,10 +251,10 @@ def _tier_plain(plain, precision):
 def _pairs(v, precision="highest"):
     """(name, kernel, plain) of the symmetric and the rectangular kernel for
     a right-hand side v (m,) (kernels A, B) or V (m, C) (kernels C, D) at
-    the Gram tier ``precision``.  At "f32" and "bf16" the symmetric kernel
-    on float32 is the tensor-core tile (``*_sym_tc``), held against the plain
-    version on the tier's operands; the rectangular one is the FFMA tile at
-    every tier (bf16 operands at "bf16", full float32 at "f32")."""
+    the Gram tier ``precision``.  At "f32" and "bf16" both kernels on
+    float32 are the tensor-core tiles (``*_sym_tc``, ``*_rect_tc``), held
+    against the plain version on the tier's operands; at "highest" and in
+    float64 the FFMA tile."""
     import functools
 
     from plssvm_tpu_torch.ops import gram_matmat, gram_matvec, matvec
@@ -262,13 +267,12 @@ def _pairs(v, precision="highest"):
         base, sym, sym_plain, rect, rect_plain = (
             "gram_matvec", gram_matvec.gram_matvec_sym, matvec.kernel_matvec_plain,
             gram_matvec.gram_matvec_rect, matvec.kernel_matvec_rect_plain)
-    tc = precision != "highest" and v.dtype == torch.float32
+    tc = "_tc" if precision != "highest" and v.dtype == torch.float32 else ""
     return (
-        (f"{base}_sym_tc" if tc else f"{base}_sym",
-         functools.partial(sym, precision=precision),
+        (f"{base}_sym{tc}", functools.partial(sym, precision=precision),
          _tier_plain(sym_plain, precision)),
-        (f"{base}_rect", functools.partial(rect, precision=precision),
-         functools.partial(rect_plain, precision=precision)),
+        (f"{base}_rect{tc}", functools.partial(rect, precision=precision),
+         _tier_plain(rect_plain, precision)),
     )
 
 
@@ -712,12 +716,38 @@ def _sym_bound(m, d, columns, cost, itemsize, extra_inputs=0, tier=None,
                   pairs if exp else 0)
 
 
-def _rect_bound(n_p, n_s, d, columns, cost, itemsize, extra_inputs=0):
+def _rect_bound(n_p, n_s, d, columns, cost, itemsize, extra_inputs=0,
+                tier=None, exp=False):
     """The bound of ``K(P, S) @ A`` for P (n_p, d), S (n_s, d) and A (n_s,
-    columns): every pair, n_p n_s FFMAs per column."""
-    return _bound(float(n_p) * n_s, d, float(n_p) * n_s * columns, cost,
-                  itemsize * ((n_p + n_s) * (d + extra_inputs)
-                              + (n_s + n_p) * columns))
+    columns): every pair, n_p n_s FFMAs per column; P, S, A, the output and
+    ``extra_inputs`` vectors of n_p and of n_s moved.  On the tensor cores
+    (``tier``) P and S move at the tier's operand size and the rest at
+    float32; ``exp`` counts one SFU exp per pair."""
+    pairs = float(n_p) * n_s
+    if tier is None:
+        n_bytes = itemsize * ((n_p + n_s) * (d + extra_inputs) + (n_s + n_p) * columns)
+    else:
+        n_bytes = (TC_TIERS[tier][1] * (n_p + n_s) * d
+                   + 4 * (n_p + n_s) * (extra_inputs + columns))
+    return _bound(pairs, d, pairs * columns, cost, n_bytes, tier,
+                  pairs if exp else 0)
+
+
+def _check_tf32_tier(label, got, want, gamma, spread):
+    """A tensor-core kernel at "f32" (TF32) against the full-float32 plain
+    version: max|err| within 4 u gamma max|x|^2 of max|plain|, the
+    first-order bound of an RBF entry's relative error when both operands
+    round to TF32 (u = 2^-11; |dK/K| = 2 gamma |dg| <= 4 u gamma |x_i|
+    |x_j|), ``spread`` = max|x|^2 over both operands.  Logs it, raises past
+    it; returns max|err| / max|plain|."""
+    torch.cuda.synchronize()
+    rel = float((got - want).abs().max()) / float(want.abs().max())
+    limit = 4 * UNIT_ROUNDOFF["tf32"] * gamma * spread
+    log("kernels", f"{label} f32 (TF32) against full float32: max|err|/max|plain| "
+        f"{rel:.3e}, first-order limit {limit:.3e}")
+    if not (torch.isfinite(got).all() and rel <= limit):
+        raise AssertionError(f"{label}: TF32 error {rel} past {limit}")
+    return rel
 
 
 def _check_share(name, label, k_ms, b_ms):
@@ -779,9 +809,7 @@ def phase_kernels():
     def check(X, P, v, tiers):
         for precision in tiers:
             for kind, coef0 in kinds:
-                # at "f32" the rectangular kernels are "highest"'s FFMA tile
-                for name, (err, scale) in _compare(kind, coef0, X, P, v, precision,
-                                                   rect=precision != "f32").items():
+                for name, (err, scale) in _compare(kind, coef0, X, P, v, precision).items():
                     key = (name, str(X.dtype).split(".")[-1], precision)
                     worst[key] = max(worst.get(key, 0.0), err / max(scale, 1e-300))
 
@@ -822,14 +850,25 @@ def phase_kernels():
                         _sym_bound(9999, 200, 1, "gram", 4, 1), "9999x200 rbf highest")
     X, P, v = _operands(10000, 200, torch.float32, gen, n_points=2000)
     sq, sq_p = (X * X).sum(-1), (P * P).sum(-1)
+    main_err["gram_matvec_rect"] = _compare(K.RBF, 0.0, X, P, v)["gram_matvec_rect"][0]
     for tier, phase in (("f32", "e2e"), ("bf16", "bf16")):
-        err = _compare(K.RBF, 0.0, X, P, v, tier)["gram_matvec_rect"][0]
-        main_err["gram_matvec_rect"] = max(main_err.get("gram_matvec_rect", 0.0), err)
-        _time_at_main_shape(main_ms, "gram_matvec_rect", phase,
+        key = ("gram_matvec_rect_tc", TIER_OF[tier])
+        main_err[key] = _compare(K.RBF, 0.0, X, P, v, tier)["gram_matvec_rect_tc"][0]
+        _time_at_main_shape(main_ms, "gram_matvec_rect_tc", phase,
                             lambda: gram_matvec.gram_matvec_rect(P, X, sq_p, sq, v,
                                                                  precision=tier, **rbf),
-                            _rect_bound(2000, 10000, 200, 1, "gram", 4, 1),
+                            _rect_bound(2000, 10000, 200, 1, "gram", 4, 1, TIER_OF[tier],
+                                        exp=True),
                             f"2000x10000x200 rbf {tier}")
+    _time_at_main_shape(main_ms, "gram_matvec_rect", None,
+                        lambda: gram_matvec.gram_matvec_rect(P, X, sq_p, sq, v,
+                                                             precision="highest", **rbf),
+                        _rect_bound(2000, 10000, 200, 1, "gram", 4, 1),
+                        "2000x10000x200 rbf highest")
+    _check_tf32_tier("gram_matvec_rect_tc 2000x10000x200 rbf",
+                     gram_matvec.gram_matvec_rect(P, X, sq_p, sq, v, precision="f32", **rbf),
+                     matvec.kernel_matvec_rect_plain(P, X, sq_p, sq, v, **rbf),
+                     rbf["gamma"], float(torch.maximum(sq.max(), sq_p.max())))
     X, P, v = _operands(49999, 500, torch.float32, gen, n_points=1)
     X = X / X.abs().amax(0)  # the [-1, 1] scale of config 3
     P = P / P.abs().amax(0)
@@ -850,7 +889,9 @@ def phase_kernels():
         f"{main_err['gram_matvec_sym']:.3e} (highest), "
         f"{main_err[('gram_matvec_sym_tc', 'tf32')]:.3e} (f32), "
         f"{main_err[('gram_matvec_sym_tc', 'bf16')]:.3e} (bf16); rect 2000x10000x200 "
-        f"rbf {main_err['gram_matvec_rect']:.3e}; sym 49999x500 poly "
+        f"rbf {main_err['gram_matvec_rect']:.3e} (highest), "
+        f"{main_err[('gram_matvec_rect_tc', 'tf32')]:.3e} (f32), "
+        f"{main_err[('gram_matvec_rect_tc', 'bf16')]:.3e} (bf16); sym 49999x500 poly "
         + ", ".join(f"{next(iter(c.values()))[0]:.3e} ({t})" for t, c in cfg3.items())
         + f" (max|plain| {next(iter(cfg3['highest'].values()))[1]:.3e})")
     # the multiclass paths' shapes, 10 classes: phase 5 training (9999
@@ -878,26 +919,39 @@ def phase_kernels():
                                 _sym_bound(m, d, MC_CLASSES, "gram", 4, 1, TIER_OF.get(tier),
                                            exp=True),
                                 f"{m}x{d} rbf C={MC_CLASSES} {tier}")
-        for tier in ("f32", "bf16"):
-            rect_err = _compare(K.RBF, 0.0, S, P, A, tier)["gram_matmat_rect"]
-            main_err["gram_matmat_rect"] = max(main_err.get("gram_matmat_rect", 0.0),
-                                               rect_err[0])
+        rect_errs = {}
+        for tier in ("f32", "bf16", "highest"):
+            name, key = (("gram_matmat_rect_tc", ("gram_matmat_rect_tc", TIER_OF[tier]))
+                         if tier != "highest" else ("gram_matmat_rect", "gram_matmat_rect"))
+            rect_errs[tier] = _compare(K.RBF, 0.0, S, P, A, tier)[name]
+            if tier != "bf16" or phase == "multiclass":
+                main_err[key] = max(main_err.get(key, 0.0), rect_errs[tier][0])
+            record = {"f32": phase, "bf16": "bf16" if phase == "multiclass" else None,
+                      "highest": None}[tier]
             _time_at_main_shape(
-                main_ms, "gram_matmat_rect",
-                phase if tier == "f32" else ("bf16" if phase == "multiclass" else None),
+                main_ms, name, record,
                 lambda: gram_matmat.gram_matmat_rect(P, S, sq_p, sq_s, A, precision=tier, **rbf),
-                _rect_bound(n_points, m + 1, d, MC_CLASSES, "gram", 4, 1),
+                _rect_bound(n_points, m + 1, d, MC_CLASSES, "gram", 4, 1, TIER_OF.get(tier),
+                            exp=tier != "highest"),
                 f"{n_points}x{m + 1}x{d} rbf C={MC_CLASSES} {tier}")
+        _check_tf32_tier(f"gram_matmat_rect_tc {n_points}x{m + 1}x{d} rbf C={MC_CLASSES}",
+                         gram_matmat.gram_matmat_rect(P, S, sq_p, sq_s, A, precision="f32", **rbf),
+                         matvec.kernel_matmat_rect_plain(P, S, sq_p, sq_s, A, **rbf),
+                         rbf["gamma"], float(torch.maximum(sq_s.max(), sq_p.max())))
         if phase == "mnist-width":
             _log_operand_time(X, f"{m}x{d}")
+            _log_operand_time(P, f"{n_points}x{d} (points)")
+            _log_operand_time(S, f"{m + 1}x{d} (support vectors)")
         log("kernels", f"main-path shapes f32, {MC_CLASSES} classes: sym {m}x{d} rbf "
             "max|err| " + ", ".join(f"{e[0]:.3e} ({t})" for t, e in errs.items())
             + f" (max|plain| {errs['highest'][1]:.3e}), rect {n_points}x{m + 1}x{d} rbf "
-            f"{rect_err[0]:.3e} (bf16; max|plain| {rect_err[1]:.3e})")
+            + ", ".join(f"{e[0]:.3e} ({t})" for t, e in rect_errs.items())
+            + f" (max|plain| {rect_errs['highest'][1]:.3e})")
 
-    # timing: median of 20 launches each, m = 32768, d = 512, f32, RBF;
-    # kernels C and D against C = 10 classes; the FFMA tile at "highest",
-    # the tensor-core tile at "f32" (TF32) and "bf16"
+    # timing: median of 20 launches each, m = 32768, d = 512, f32, RBF, the
+    # rectangular kernels over the full square; kernels C and D against C =
+    # 10 classes; the FFMA tile at "highest", the tensor-core tiles at "f32"
+    # (TF32) and "bf16"
     m, d = 32768, 512
     X, _, v = _operands(m, d, torch.float32, gen, n_points=1)
     V = torch.randn(m, MC_CLASSES, generator=gen,
@@ -910,30 +964,29 @@ def phase_kernels():
         columns = 1 if rhs.ndim == 1 else rhs.shape[1]
         label = f"m={m} d={d} f32 rbf" + (f" C={columns}" if rhs.ndim == 2 else "")
         for tier in ("highest", "f32", "bf16"):
-            (sym_name, sym, sym_plain), (rect_name, rect, rect_plain) = _pairs(rhs, tier)
-            key = sym_name if tier == "highest" else (sym_name, TIER_OF[tier])
-            timing[key] = _time_pair(sym_name, sym, sym_plain, (X, sq, rhs), kw,
-                                     flops, f"{label} {tier}")
-            bounds[key] = _sym_bound(m, d, columns, "gram", 4, 1, TIER_OF.get(tier),
-                                     exp=tier != "highest")
-            _log_bound(sym_name, f"{label} {tier}", timing[key][0], bounds[key])
-        # the rectangular kernels on the FFMA tile: full float32 at "f32"
-        # (the JSON line's), bf16 operands at "bf16"
-        bounds[rect_name] = _rect_bound(m, m, d, columns, "gram", 4, extra_inputs=1)
-        for tier, key in (("f32", rect_name), ("bf16", (rect_name, "bf16"))):
-            (_, rect, rect_plain) = _pairs(rhs, tier)[1]
-            timing[key] = _time_pair(rect_name, rect, rect_plain, (X, X, sq, sq, rhs),
-                                     kw, flops, f"{label} {tier}")
-            _log_bound(rect_name, f"{label} {tier}", timing[key][0], bounds[rect_name])
+            tc = TIER_OF.get(tier)
+            sym_entry, rect_entry = _pairs(rhs, tier)
+            for (name, kernel, plain), args, bound in (
+                (sym_entry, (X, sq, rhs),
+                 _sym_bound(m, d, columns, "gram", 4, 1, tc, exp=tc is not None)),
+                (rect_entry, (X, X, sq, sq, rhs),
+                 _rect_bound(m, m, d, columns, "gram", 4, 1, tc, exp=tc is not None)),
+            ):
+                key = name if tc is None else (name, tc)
+                timing[key] = _time_pair(name, kernel, plain, args, kw, flops,
+                                         f"{label} {tier}")
+                bounds[key] = bound
+                _log_bound(name, f"{label} {tier}", timing[key][0], bound)
     for mat, vec in (("gram_matmat_sym", "gram_matvec_sym"),
                      ("gram_matmat_rect", "gram_matvec_rect")):
         log("kernels", f"{mat} (C={MC_CLASSES}) / {vec} at m={m} d={d}: "
             f"{timing[mat][0] / timing[vec][0]:.3f}x the time")
     for tier in ("tf32", "bf16"):
-        log("kernels", f"tensor-core tile {tier} at m={m} d={d}: kernel A "
-            f"{timing['gram_matvec_sym'][0] / timing[('gram_matvec_sym_tc', tier)][0]:.2f}x, "
-            f"kernel C {timing['gram_matmat_sym'][0] / timing[('gram_matmat_sym_tc', tier)][0]:.2f}x "
-            "faster than the FFMA tile")
+        log("kernels", f"tensor-core tiles {tier} at m={m} d={d}: " + ", ".join(
+            f"kernel {letter} {timing[name][0] / timing[(name + '_tc', tier)][0]:.2f}x"
+            for letter, name in (("A", "gram_matvec_sym"), ("B", "gram_matvec_rect"),
+                                 ("C", "gram_matmat_sym"), ("D", "gram_matmat_rect")))
+            + " faster than the FFMA tile")
 
     # K6's port: kernel_matvec, one launch of kernel A at "f32" (the
     # tensor-core tile, TF32), at kernel A's shape
@@ -967,10 +1020,11 @@ def phase_kernels():
         f"kernel_matvec rbf {BENCH_M}x{BENCH_D}",
         gram_matvec.kernel_matvec(Xb, sqb, vb, **kwb),
         _tier_plain(matvec.kernel_matvec_plain, "f32")(Xb, sqb, vb, **kwb))[0]
-    _time_at_main_shape(main_ms, "kernel_matvec", "bench-matvec",
+    # one call, logged only: the cost ranking takes phase 12's loop time
+    _time_at_main_shape(main_ms, "kernel_matvec", None,
                         lambda: gram_matvec.kernel_matvec(Xb, sqb, vb, **kwb),
                         _sym_bound(BENCH_M, BENCH_D, 1, "gram", 4, 1, "tf32", exp=True),
-                        f"{BENCH_M}x{BENCH_D} rbf")
+                        f"{BENCH_M}x{BENCH_D} rbf, one call")
     X1, _, v1 = _operands(64, 37, torch.float32, gen, n_points=1)
     sq1 = (X1 * X1).sum(-1)
     for tier in ("f32", "bf16", "highest"):
@@ -1145,21 +1199,24 @@ def phase_end_to_end(tmp, config2_files):
         ["-t", "2", "-c", "1", "-e", str(EPSILON)])
     launches = {
         "gram_matvec_sym_tc": gram_matvec.sym_tc_launches,
-        "gram_matvec_rect": gram_matvec.rect_launches,
+        "gram_matvec_rect_tc": gram_matvec.rect_tc_launches,
     }
-    if gram_matvec.sym_launches != 0:
-        raise AssertionError("e2e: the f32 fit took kernel A's FFMA tile")
+    if gram_matvec.sym_launches + gram_matvec.rect_launches != 0:
+        raise AssertionError("e2e: the f32 fit or predict took the FFMA tile")
     _check_cli_run("e2e", "config 2", fit_s, predict_s,
                    float(np.mean(predicted == test_labels)), ACCURACY_FLOOR,
                    launches, matvec.sym_plain_calls + matvec.rect_plain_calls,
-                   "gram_matvec_sym_tc", "gram_matvec_rect")
-    # float64 takes kernel A's FFMA tile
+                   "gram_matvec_sym_tc", "gram_matvec_rect_tc")
+    # float64 takes the FFMA tile of kernels A and B
     gram_matvec.reset_counts()
     it64 = _f64_agreement("e2e", "config 2", train_file, test_file, predicted,
                           EPSILON, kernel_type="rbf")
     launches["gram_matvec_sym"] = gram_matvec.sym_launches
-    if launches["gram_matvec_sym"] != 1 + it64 + it64 // 50 or gram_matvec.sym_tc_launches:
-        raise AssertionError("e2e: the f64 fit did not take kernel A's FFMA tile only")
+    launches["gram_matvec_rect"] = gram_matvec.rect_launches
+    if launches["gram_matvec_sym"] != 1 + it64 + it64 // 50 \
+            or launches["gram_matvec_rect"] <= 0 \
+            or gram_matvec.sym_tc_launches + gram_matvec.rect_tc_launches:
+        raise AssertionError("e2e: the f64 fit and predict did not take the FFMA tile only")
     _small_fit_agreement("e2e", "rbf", 2, SEED + 1)
     return launches, predicted
 
@@ -1198,23 +1255,28 @@ def phase_multiclass_cli(tmp):
         ["-t", "2", "-c", "1", "-e", str(EPSILON)])
     launches = {
         "gram_matmat_sym_tc": gram_matmat.sym_tc_launches,
-        "gram_matmat_rect": gram_matmat.rect_launches,
+        "gram_matmat_rect_tc": gram_matmat.rect_tc_launches,
     }
     if (gram_matvec.sym_launches + gram_matvec.sym_tc_launches
-            + gram_matvec.rect_launches + gram_matmat.sym_launches) != 0:
-        raise AssertionError("multiclass launched the binary kernels or kernel C's FFMA tile")
+            + gram_matvec.rect_launches + gram_matvec.rect_tc_launches
+            + gram_matmat.sym_launches + gram_matmat.rect_launches) != 0:
+        raise AssertionError("multiclass launched the binary kernels or the FFMA tile")
     _check_cli_run("multiclass", f"{MC_CLASSES} classes", fit_s, predict_s,
                    float(np.mean(predicted == files["mc_test"][1])),
                    MC_ACCURACY_FLOOR, launches,
                    matvec.sym_matmat_plain_calls + matvec.rect_matmat_plain_calls,
-                   "gram_matmat_sym_tc", "gram_matmat_rect")
-    # float64 takes kernel C's FFMA tile
+                   "gram_matmat_sym_tc", "gram_matmat_rect_tc")
+    # float64 takes the FFMA tile of kernels C and D
     gram_matmat.reset_counts()
     it64 = _f64_agreement("multiclass", f"{MC_CLASSES} classes", train_file,
                           test_file, predicted, EPSILON, kernel_type="rbf")
     launches["gram_matmat_sym"] = gram_matmat.sym_launches
-    if launches["gram_matmat_sym"] != 1 + it64 + it64 // 50 or gram_matmat.sym_tc_launches:
-        raise AssertionError("multiclass: the f64 fit did not take kernel C's FFMA tile only")
+    launches["gram_matmat_rect"] = gram_matmat.rect_launches
+    if launches["gram_matmat_sym"] != 1 + it64 + it64 // 50 \
+            or launches["gram_matmat_rect"] <= 0 \
+            or gram_matmat.sym_tc_launches + gram_matmat.rect_tc_launches:
+        raise AssertionError("multiclass: the f64 fit and predict did not take the FFMA "
+                             "tile only")
     _small_fit_agreement("multiclass", "rbf", 4, SEED + 5)
     return launches, (train_file, test_file, files["mc_test"][1], predicted)
 
@@ -1242,7 +1304,7 @@ def phase_multiclass_width():
     t1 = time.perf_counter()
     predicted = svm.predict(model, test)
     t2 = time.perf_counter()
-    launches = (gram_matmat.sym_tc_launches, gram_matmat.rect_launches)
+    launches = (gram_matmat.sym_tc_launches, gram_matmat.rect_tc_launches)
     plain_calls = matvec.sym_matmat_plain_calls + matvec.rect_matmat_plain_calls
     iterations = _tracked("cg", "iterations")
     cg_ms = _tracked("cg", "total_runtime")
@@ -1252,16 +1314,16 @@ def phase_multiclass_width():
         f"{_tracked('cg', 'iterations_per_class')}), "
         f"{cg_ms / 1000 / iterations:.6f} s/iteration, fit {t1 - t0:.3f} s, "
         f"predict 10000 points {t2 - t1:.3f} s, accuracy {accuracy:.4f}, "
-        f"kernel C (tensor cores, TF32) / D launches {launches}, matmat plain "
+        f"kernel C / D (tensor cores, TF32) launches {launches}, matmat plain "
         f"calls {plain_calls}")
     if not (np.all(np.isfinite(model.alpha)) and np.all(np.isfinite(model.rho))):
         raise AssertionError("MNIST width: non-finite model")
     if launches[0] != 1 + iterations + iterations // 50 or launches[1] <= 0 \
-            or plain_calls != 0 or gram_matmat.sym_launches != 0:
+            or plain_calls != 0 or gram_matmat.sym_launches + gram_matmat.rect_launches:
         raise AssertionError("MNIST width did not go through the tensor-core C and D only")
     if accuracy < MC_ACCURACY_FLOOR:
         raise AssertionError(f"accuracy {accuracy} below {MC_ACCURACY_FLOOR}")
-    return {"gram_matmat_sym_tc": launches[0], "gram_matmat_rect": launches[1]}
+    return {"gram_matmat_sym_tc": launches[0], "gram_matmat_rect_tc": launches[1]}
 
 
 def phase_config3_width():
@@ -1297,10 +1359,9 @@ def phase_config3_width():
 def phase_bf16(tmp, config2_files, e2e_predicted, multiclass_files):
     """The "bf16" tier end to end: phase 4's config 2 files and phase 5's
     10-class files trained through ``plssvm-torch-train --gram_precision
-    bf16`` and predicted through ``CSVM(gram_precision="bf16")``: kernels A
-    and C on the tensor-core tile with bf16 operands, B and D on bf16
-    operands.  Accuracy floors as phases 4 and 5; the label agreement with
-    the "f32" runs is logged."""
+    bf16`` and predicted through ``CSVM(gram_precision="bf16")``: kernels
+    A-D on the tensor-core tiles with bf16 operands.  Accuracy floors as
+    phases 4 and 5; the label agreement with the "f32" runs is logged."""
     import plssvm_tpu_torch as port
     from plssvm_tpu_torch.cli import train as train_cli
     from plssvm_tpu_torch.ops import gram_matmat, gram_matvec, matvec
@@ -1310,9 +1371,9 @@ def phase_bf16(tmp, config2_files, e2e_predicted, multiclass_files):
     launches = {}
     for label, train, test, labels, f32_predicted, floor, sym, rect in (
         ("config 2", train_file, test_file, test_labels, e2e_predicted,
-         ACCURACY_FLOOR, "gram_matvec_sym_tc", "gram_matvec_rect"),
+         ACCURACY_FLOOR, "gram_matvec_sym_tc", "gram_matvec_rect_tc"),
         (f"{MC_CLASSES} classes", mc_train, mc_test, mc_labels, mc_predicted,
-         MC_ACCURACY_FLOOR, "gram_matmat_sym_tc", "gram_matmat_rect"),
+         MC_ACCURACY_FLOOR, "gram_matmat_sym_tc", "gram_matmat_rect_tc"),
     ):
         gram_matvec.reset_counts()
         gram_matmat.reset_counts()
@@ -1331,9 +1392,10 @@ def phase_bf16(tmp, config2_files, e2e_predicted, multiclass_files):
         iterations = _tracked("cg", "iterations")
         cg_ms = _tracked("cg", "total_runtime")
         module = gram_matvec if sym.startswith("gram_matvec") else gram_matmat
-        counts = {sym: module.sym_tc_launches, rect: module.rect_launches}
+        counts = {sym: module.sym_tc_launches, rect: module.rect_tc_launches}
         launches.update(counts)
-        ffma = gram_matvec.sym_launches + gram_matmat.sym_launches
+        ffma = (gram_matvec.sym_launches + gram_matmat.sym_launches
+                + gram_matvec.rect_launches + gram_matmat.rect_launches)
         plain = (matvec.sym_plain_calls + matvec.rect_plain_calls
                  + matvec.sym_matmat_plain_calls + matvec.rect_matmat_plain_calls)
         accuracy = float(np.mean(predicted == labels))
@@ -1342,7 +1404,7 @@ def phase_bf16(tmp, config2_files, e2e_predicted, multiclass_files):
             f"{cg_ms / 1000 / iterations:.6f} s/iteration, fit (CLI) {t1 - t0:.3f} s, "
             f"predict (CSVM, file parse included) {t2 - t1:.3f} s, accuracy "
             f"{accuracy:.4f}, label agreement with the f32 run {agree:.4f}, launches "
-            f"{counts}, FFMA-tile sym launches {ffma}, plain calls {plain}")
+            f"{counts}, FFMA-tile launches {ffma}, plain calls {plain}")
         if counts[sym] != 1 + iterations + iterations // 50 or counts[rect] <= 0 \
                 or ffma != 0 or plain != 0:
             raise AssertionError(f"bf16 {label} did not go through the bf16 kernels only")
@@ -1496,11 +1558,13 @@ def phase_banded_tool():
     return {"banded_matvec": launches}
 
 
-def phase_bench_matvec():
+def phase_bench_matvec(main_ms):
     """Phase 12: bench_matvec at BENCH_M x BENCH_D for RBF and laplacian;
     every variant's rel_err against the float64 golden within its tier's
     limit, and each kernel launched once for the check and 3 x BENCH_ITERS
-    times."""
+    times.  Records kernel_matvec's ms/matvec in the tool's loop (the best
+    of its repeats of BENCH_ITERS products) in ``main_ms`` for the cost
+    ranking: a single call's time varies with its launch overhead."""
     from plssvm_tpu_torch.ops import distance, gram_matvec, matvec
     from plssvm_tpu_torch.tools import bench_matvec
 
@@ -1514,7 +1578,8 @@ def phase_bench_matvec():
     Xt = np.random.default_rng(0).normal(size=(BENCH_M, BENCH_D)).astype(np.float32)
     spread = float((Xt.astype(np.float64) ** 2).sum(1).max()) / BENCH_D
     limits = {"kernel_matvec": 4 * UNIT_ROUNDOFF["tf32"] * spread,
-              "kernel_matvec_bf16": 4 * UNIT_ROUNDOFF["bf16"] * spread}
+              "kernel_matvec_bf16": 4 * UNIT_ROUNDOFF["bf16"] * spread,
+              "rect_full": 4 * UNIT_ROUNDOFF["tf32"] * spread}
     for kernel in ("rbf", "laplacian"):
         lines = _run_tool("bench-matvec", bench_matvec.main,
                           [str(BENCH_M), str(BENCH_D), str(BENCH_ITERS), "all", kernel])
@@ -1524,7 +1589,12 @@ def phase_bench_matvec():
             limit = limits.get(variant, 1e-5) if kernel == "rbf" else 1e-5
             if not rel <= limit:
                 raise AssertionError(f"bench_matvec {kernel}: {line} (limit {limit:.3e})")
-    log("bench-matvec", "rel_err limits: kernel_matvec (TF32) "
+            if kernel == "rbf" and variant == "kernel_matvec":
+                ms = float(line.split("ms/matvec")[0].split()[-1])
+                bound = _sym_bound(BENCH_M, BENCH_D, 1, "gram", 4, 1, "tf32", exp=True)[0]
+                _check_share("kernel_matvec", "in bench_matvec's loop", ms, bound)
+                main_ms[("kernel_matvec", "bench-matvec")] = (ms, bound)
+    log("bench-matvec", "rel_err limits: kernel_matvec and rect_full (TF32) "
         f"{limits['kernel_matvec']:.3e}, kernel_matvec_bf16 "
         f"{limits['kernel_matvec_bf16']:.3e} (4 u gamma max|x|^2), every other 1e-5")
     per_variant = 1 + 3 * BENCH_ITERS
@@ -1533,15 +1603,18 @@ def phase_bench_matvec():
         "gram_matvec_sym": gram_matvec.sym_launches,
         "gram_matvec_sym_tc": gram_matvec.sym_tc_launches,
         "gram_matvec_rect": gram_matvec.rect_launches,
+        "gram_matvec_rect_tc": gram_matvec.rect_tc_launches,
         "distance_matvec_sym": distance.matvec_sym_launches,
     }
     log("bench-matvec", f"launches {launches}; plain calls: Gram "
         f"{matvec.sym_plain_calls}, distance {matvec.dist_sym_plain_calls}")
     # kernel_matvec at f32 and bf16 (the tensor-core tile) and highest (the
-    # FFMA tile) are kernel A's only callers here
+    # FFMA tile) are kernel A's only callers here; rect_full (f32) and
+    # rect_full_hi (highest) kernel B's
     if launches != {"kernel_matvec": 3 * per_variant, "gram_matvec_sym": per_variant,
                     "gram_matvec_sym_tc": 2 * per_variant,
-                    "gram_matvec_rect": per_variant, "distance_matvec_sym": per_variant} \
+                    "gram_matvec_rect": per_variant, "gram_matvec_rect_tc": per_variant,
+                    "distance_matvec_sym": per_variant} \
             or matvec.sym_plain_calls != per_variant \
             or matvec.dist_sym_plain_calls != per_variant:
         raise AssertionError("bench_matvec's variants did not launch as expected")
@@ -1585,7 +1658,7 @@ def main():
     phase_launches["mnist-width"] = run("mnist-width", phase_multiclass_width)
     phase_launches["chi2-width"] = run("chi2-width", phase_chi2_width, g_chi_ms)
     phase_launches["banded-tool"] = run("banded-tool", phase_banded_tool)
-    phase_launches["bench-matvec"] = run("bench-matvec", phase_bench_matvec)
+    phase_launches["bench-matvec"] = run("bench-matvec", phase_bench_matvec, main_ms)
     log("times", ", ".join(f"{k} {v:.1f} s" for k, v in phase_seconds.items()))
 
     # where the kernels lose time on the main paths: launches x (ms at the
@@ -1601,7 +1674,7 @@ def main():
             f"= {lost:.1f} ms above the bound")
     # each kernel's launches in the JSON line are those of the first phase
     # that runs it at the tier its entry names: the bf16 phase's for the
-    # tensor-core tile's "bf16" entries, else the first other phase's
+    # tensor-core tiles' "bf16" entries, else the first other phase's
     launches = {}
     for phase, counts in phase_launches.items():
         for k, n in counts.items():
@@ -1609,18 +1682,19 @@ def main():
                 launches[(k, "bf16")] = n
             else:
                 launches.setdefault(k, n)
-    for tc in ("gram_matvec_sym_tc", "gram_matmat_sym_tc"):
+    for tc in ("gram_matvec_sym_tc", "gram_matmat_sym_tc", "gram_matvec_rect_tc",
+               "gram_matmat_rect_tc"):
         launches[(tc, "tf32")] = launches[tc]
 
     # the distance kernels report the kind their main path ran: laplacian
     # for E and F (phase 8), chi-squared for G and H (phases 9 and 10);
     # kernel_matvec's launches are phase 12's, kernel I's phase 11's; the
-    # FFMA tile of A and C ("highest") reports the float64 fits' launches
-    # (phases 4, 5) beside its float32 times, the tensor-core tile one entry
-    # per tier.  No single PyTorch call computes any kernel's function
-    # (library_ms)
+    # FFMA tile of A-D ("highest") reports the float64 fits' and predicts'
+    # launches (phases 4, 5) beside its float32 times, the tensor-core tiles
+    # one entry per tier.  No single PyTorch call computes any kernel's
+    # function (library_ms)
     tiers = {"gram_matvec_sym": "highest", "gram_matmat_sym": "highest",
-             "gram_matvec_rect": "f32", "gram_matmat_rect": "f32",
+             "gram_matvec_rect": "highest", "gram_matmat_rect": "highest",
              "kernel_matvec": "tf32"}
     sources = {
         "gram_matvec_sym": ("gram_matvec.cu", "plssvm_tpu/ops/pallas_matvec.py:430"),
@@ -1629,8 +1703,12 @@ def main():
         ("gram_matmat_sym_tc", "tf32"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:812"),
         ("gram_matmat_sym_tc", "bf16"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:812"),
         "gram_matvec_rect": ("gram_matvec.cu", "plssvm_tpu/ops/pallas_matvec.py:1007"),
+        ("gram_matvec_rect_tc", "tf32"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:1007"),
+        ("gram_matvec_rect_tc", "bf16"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:1007"),
         "gram_matmat_sym": ("gram_matmat.cu", "plssvm_tpu/ops/pallas_matvec.py:812"),
         "gram_matmat_rect": ("gram_matmat.cu", "plssvm_tpu/ops/pallas_matvec.py:812"),
+        ("gram_matmat_rect_tc", "tf32"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:812"),
+        ("gram_matmat_rect_tc", "bf16"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:812"),
         ("distance_matvec_sym", "laplacian"): (
             "distance.cu", "plssvm_tpu/ops/pallas_distance.py:226"),
         ("distance_matvec_rect", "laplacian"): (

@@ -103,9 +103,8 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["f32", "bf16", "highest"],
                         help="Gram contraction precision of the CUDA kernels "
                         "on float32 data: f32 = TF32 operands on the tensor "
-                        "cores (training; predict in full fp32), bf16 = bf16 "
-                        "operands (training and predict), highest = full "
-                        "fp32 FMA; float64 data and -b torch compute at full "
+                        "cores, bf16 = bf16 operands, highest = full fp32 "
+                        "FMA; float64 data and -b torch compute at full "
                         "precision")
     parser.add_argument("--debug", action="store_true",
                         help="NaN/Inf guards on the CG state (not ported yet)")

@@ -29,7 +29,9 @@
 //   as one linear index) with atomic row sums, not one block per point tile
 //   looping over all SV tiles: predicting a couple of thousand points would
 //   give the latter ~16 blocks for 132 SMs.  The price is a summation order
-//   that changes from run to run, as in kernel A.
+//   that changes from run to run, as in kernel A.  (The tensor-core tile of
+//   the "f32" and "bf16" tiers walks short runs of SV tiles per block
+//   instead, see gram_tc.cuh.)
 //
 // Both kernels mask the ragged edges of rows and features themselves, so
 // the caller pads nothing.  The Gram tile, its loader, the kernel function
@@ -44,13 +46,11 @@
 // kernels are bound by fp32/fp64 FMA throughput on the CUDA cores, not by
 // memory.  The register tile (R x R accumulators per thread, fed from
 // shared memory) is what this version does about it; it serves the
-// "highest" tier and float64.  Kernel A at the tiers "f32" (TF32) and
-// "bf16" runs on the tensor cores instead: the wgmma tile of gram_tc.cuh,
-// behind plssvm_gram_matvec_sym_tf32 / _bf16 (it takes the wrapper's
-// operand copy of X).  Kernel B keeps the register tile at every tier; at
-// "bf16" it reads bf16 P and S and stages them as f32
-// (plssvm_gram_matvec_rect_bf16), which is the TPU kernel's bf16 numerics:
-// bf16 products are exact in f32.
+// "highest" tier and float64.  Kernels A and B at the tiers "f32" (TF32)
+// and "bf16" run on the tensor cores instead: the wgmma tiles of
+// gram_tc.cuh, behind plssvm_gram_matvec_sym_tf32 / _bf16 and
+// plssvm_gram_matvec_rect_tc_tf32 / _tc_bf16 (they take the wrapper's
+// operand copies of X, or of P and S).
 //
 // Numerics: no fast-math.  expf/tanhf (exp/tanh in double) are the
 // accurate library functions, to match the reference's epilogue; nvcc's
@@ -143,10 +143,9 @@ __global__ void __launch_bounds__(kThreads * kThreads)
     }
 }
 
-template <typename T, int KIND, typename Stored = T>
+template <typename T, int KIND>
 __global__ void __launch_bounds__(kThreads * kThreads)
-    gram_matvec_rect_kernel(const Stored* __restrict__ P,
-                            const Stored* __restrict__ S,
+    gram_matvec_rect_kernel(const T* __restrict__ P, const T* __restrict__ S,
                             const T* __restrict__ sq_p,
                             const T* __restrict__ sq_s,
                             const T* __restrict__ a_s, T* __restrict__ out,
@@ -162,8 +161,7 @@ __global__ void __launch_bounds__(kThreads * kThreads)
     const int64_t col0 = (p % n_stiles) * BM;
 
     T acc[R][R];
-    gram_tile<T, BM, GramProduct, false, Stored>(P, S, n_p, n_s, d, row0,
-                                                  col0, staging, acc);
+    gram_tile<T, BM>(P, S, n_p, n_s, d, row0, col0, staging, acc);
 
     const int tx = threadIdx.x;
     const int ty = threadIdx.y;
@@ -217,9 +215,8 @@ cudaError_t launch_sym(const T* X, const T* sq, const T* v, T* out, int64_t m,
     return cudaGetLastError();
 }
 
-template <typename T, int KIND, typename Stored = T>
-cudaError_t launch_rect(const Stored* P, const Stored* S, const T* sq_p,
-                        const T* sq_s,
+template <typename T, int KIND>
+cudaError_t launch_rect(const T* P, const T* S, const T* sq_p, const T* sq_s,
                         const T* a_s, T* out, int64_t n_p, int64_t n_s,
                         int64_t d, int degree, T gamma, T coef0,
                         cudaStream_t stream) {
@@ -229,7 +226,7 @@ cudaError_t launch_rect(const Stored* P, const Stored* S, const T* sq_p,
     if (blocks <= 0 || blocks > INT32_MAX) {
         return cudaErrorInvalidValue;
     }
-    gram_matvec_rect_kernel<T, KIND, Stored>
+    gram_matvec_rect_kernel<T, KIND>
         <<<static_cast<unsigned int>(blocks), dim3(kThreads, kThreads), 0,
            stream>>>(P, S, sq_p, sq_s, a_s, out, n_p, n_s, d, n_stiles,
                      degree, gamma, coef0);
@@ -255,24 +252,23 @@ int sym(const T* X, const T* sq, const T* v, T* out, int64_t m, int64_t d,
     }
 }
 
-template <typename T, typename Stored = T>
-int rect(const Stored* P, const Stored* S, const T* sq_p, const T* sq_s,
+template <typename T>
+int rect(const T* P, const T* S, const T* sq_p, const T* sq_s,
          const T* a_s, T* out, int64_t n_p, int64_t n_s, int64_t d, int kind,
          int degree, T gamma, T coef0, void* stream) {
     const auto s = static_cast<cudaStream_t>(stream);
     switch (kind) {
         case kPolynomial:
-            return launch_rect<T, kPolynomial, Stored>(
-                P, S, sq_p, sq_s, a_s, out, n_p, n_s, d, degree, gamma, coef0,
-                s);
+            return launch_rect<T, kPolynomial>(P, S, sq_p, sq_s, a_s, out,
+                                               n_p, n_s, d, degree, gamma,
+                                               coef0, s);
         case kRbf:
-            return launch_rect<T, kRbf, Stored>(P, S, sq_p, sq_s, a_s, out,
-                                                n_p, n_s, d, degree, gamma,
-                                                coef0, s);
+            return launch_rect<T, kRbf>(P, S, sq_p, sq_s, a_s, out, n_p,
+                                        n_s, d, degree, gamma, coef0, s);
         case kSigmoid:
-            return launch_rect<T, kSigmoid, Stored>(P, S, sq_p, sq_s, a_s, out,
-                                                    n_p, n_s, d, degree, gamma,
-                                                    coef0, s);
+            return launch_rect<T, kSigmoid>(P, S, sq_p, sq_s, a_s, out,
+                                            n_p, n_s, d, degree, gamma, coef0,
+                                            s);
         default:
             return cudaErrorInvalidValue;
     }
@@ -316,17 +312,6 @@ extern "C" int plssvm_gram_matvec_rect_f64(
                         gamma, coef0, stream);
 }
 
-// The "bf16" tier of kernel B: P and S stored as bf16, staged as f32.
-extern "C" int plssvm_gram_matvec_rect_bf16(
-    const void* P, const void* S, const float* sq_p, const float* sq_s,
-    const float* a_s, float* out, int64_t n_p, int64_t n_s, int64_t d,
-    int kind, int degree, float gamma, float coef0, void* stream) {
-    return rect<float, __nv_bfloat16>(
-        static_cast<const __nv_bfloat16*>(P),
-        static_cast<const __nv_bfloat16*>(S), sq_p, sq_s, a_s, out, n_p, n_s,
-        d, kind, degree, gamma, coef0, stream);
-}
-
 // Kernel A on the tensor-core tile (gram_tc.cuh): X the tier's operand copy
 // (m, d_pad), TF32-rounded float32 or bf16; sq the float32 X's norms.
 extern "C" int plssvm_gram_matvec_sym_tf32(const void* X, const float* sq,
@@ -345,6 +330,25 @@ extern "C" int plssvm_gram_matvec_sym_bf16(const void* X, const float* sq,
                                            float coef0, void* stream) {
     return tc_sym(true, X, sq, v, out, m, d_pad, 1, kind, degree, gamma,
                   coef0, stream);
+}
+
+// Kernel B on the tensor-core tile (gram_tc.cuh): P and S the tier's
+// operand copies (n_p, d_pad) and (n_s, d_pad), TF32-rounded float32 or
+// bf16; sq_p, sq_s the float32 operands' norms.
+extern "C" int plssvm_gram_matvec_rect_tc_tf32(
+    const void* P, const void* S, const float* sq_p, const float* sq_s,
+    const float* a_s, float* out, int64_t n_p, int64_t n_s, int64_t d_pad,
+    int kind, int degree, float gamma, float coef0, void* stream) {
+    return tc_rect(false, P, S, sq_p, sq_s, a_s, out, n_p, n_s, d_pad, 1, kind,
+                   degree, gamma, coef0, stream);
+}
+
+extern "C" int plssvm_gram_matvec_rect_tc_bf16(
+    const void* P, const void* S, const float* sq_p, const float* sq_s,
+    const float* a_s, float* out, int64_t n_p, int64_t n_s, int64_t d_pad,
+    int kind, int degree, float gamma, float coef0, void* stream) {
+    return tc_rect(true, P, S, sq_p, sq_s, a_s, out, n_p, n_s, d_pad, 1, kind,
+                   degree, gamma, coef0, stream);
 }
 
 extern "C" const char* plssvm_cuda_error_string(int error) {

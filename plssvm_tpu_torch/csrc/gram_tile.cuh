@@ -1,6 +1,6 @@
 // The pieces the kernels share (gram_matvec.cu: kernels A and B;
 // gram_matmat.cu: kernels C and D; distance.cu: kernels E-H; banded.cu:
-// kernel I; gram_tc.cuh, the tensor-core tile of A and C, takes the kernel
+// kernel I; gram_tc.cuh, the tensor-core tiles of A-D, takes the kernel
 // functions and the class chunk): the
 // kernel-function epilogues, the register tile with its shared-memory
 // feature-chunk loader and its pair operation (the Gram product, or the
@@ -13,7 +13,6 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -48,12 +47,6 @@ __device__ __forceinline__ float dev_tanh(float x) { return tanhf(x); }
 __device__ __forceinline__ double dev_tanh(double x) { return tanh(x); }
 __device__ __forceinline__ float dev_abs(float x) { return fabsf(x); }
 __device__ __forceinline__ double dev_abs(double x) { return fabs(x); }
-// a stored value as the staged type: the identity, or bf16 widened to f32
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ double widen(double x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-}
 
 // base**degree by repeated squaring (kernel_functions._integer_power).
 template <typename T>
@@ -247,12 +240,11 @@ __device__ __forceinline__ void chunk_pass(
 // over all d features, op the Gram product by default; rows past mx / my
 // and features past d load as 0.  X and Y are row-major (rows, d) or, with
 // kFeatureMajor, transposed: (d, mx) and (d, my), a feature's values of all
-// rows side by side.  They are stored as Stored (T, or bf16 for T = float:
-// the "bf16" tier of kernels B and D) and staged as T.
+// rows side by side.
 template <typename T, int BM, typename Op = GramProduct,
-          bool kFeatureMajor = false, typename Stored = T>
+          bool kFeatureMajor = false>
 __device__ __forceinline__ void gram_tile(
-    const Stored* __restrict__ X, const Stored* __restrict__ Y, int64_t mx,
+    const T* __restrict__ X, const T* __restrict__ Y, int64_t mx,
     int64_t my, int64_t d, int64_t row0, int64_t col0, Staging<T, BM>& s,
     T (&acc)[BM / kThreads][BM / kThreads]) {
     constexpr int R = BM / kThreads;
@@ -275,8 +267,8 @@ __device__ __forceinline__ void gram_tile(
                 const int64_t k = k0 + kk;
                 const int64_t gx = row0 + r;
                 const int64_t gy = col0 + r;
-                s.x[kk][r] = (gx < mx && k < d) ? widen(X[k * mx + gx]) : T(0);
-                s.y[kk][r] = (gy < my && k < d) ? widen(Y[k * my + gy]) : T(0);
+                s.x[kk][r] = (gx < mx && k < d) ? X[k * mx + gx] : T(0);
+                s.y[kk][r] = (gy < my && k < d) ? Y[k * my + gy] : T(0);
             } else {
                 // neighbouring threads read neighbouring features of one row
                 const int r = e / kChunk;
@@ -284,8 +276,8 @@ __device__ __forceinline__ void gram_tile(
                 const int64_t k = k0 + kk;
                 const int64_t gx = row0 + r;
                 const int64_t gy = col0 + r;
-                s.x[kk][r] = (gx < mx && k < d) ? widen(X[gx * d + k]) : T(0);
-                s.y[kk][r] = (gy < my && k < d) ? widen(Y[gy * d + k]) : T(0);
+                s.x[kk][r] = (gx < mx && k < d) ? X[gx * d + k] : T(0);
+                s.y[kk][r] = (gy < my && k < d) ? Y[gy * d + k] : T(0);
             }
         }
         __syncthreads();

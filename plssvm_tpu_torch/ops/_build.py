@@ -120,10 +120,10 @@ def _ptxas_log(library: Path) -> Path:
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _SHORT = re.compile(
     r"((?:gram|distance)_mat(?:vec|mat)_(?:sym|rect)|banded_matvec)"
-    r"_kernelI([fd])(?:Li(\d)E)?(13__nv_bfloat16)?"
+    r"_kernelI([fd])(?:Li(\d)E)?"
 )
-#: the tensor-core tile (gram_tc.cuh), a template of the tier and the kind
-_TC = re.compile(r"gram_tc_sym_kernelI\w*?(Tf32|Bf16)TierELi(\d)E")
+#: the tensor-core tiles (gram_tc.cuh), templates of the tier and the kind
+_TC = re.compile(r"(gram_tc_(?:sym|rect))_kernelI\w*?(Tf32|Bf16)TierELi(\d)E")
 _KINDS = {"1": "poly", "2": "rbf", "3": "sigmoid", "4": "laplacian", "5": "chi_squared"}
 
 
@@ -149,11 +149,11 @@ def kernel_resources() -> Dict[str, Dict[str, int]]:
                 name = (
                     f"{short.group(1)} {'f32' if short.group(2) == 'f' else 'f64'} "
                     f"{_KINDS.get(kind, kind)}"
-                    + (" bf16" if short.group(4) else "")
                 )
             elif tc is not None:
-                # A and C share the tile: one name for both copies
-                name = f"gram_tc_sym {tc.group(1).lower()} {_KINDS.get(tc.group(2))}"
+                # A and C share the sym tile, B and D the rect tile: one name
+                # for both copies
+                name = f"{tc.group(1)} {tc.group(2).lower()} {_KINDS.get(tc.group(3))}"
             continue
         if name is None:
             continue
@@ -215,27 +215,27 @@ def load() -> ctypes.CDLL:
         banded.argtypes = [ptr] * 4 + [i64, i64, cint, real, ptr]
         banded.restype = cint
     f32 = ctypes.c_float
-    # the "bf16" tier of kernels B and D: the f32 signatures, P and S bf16
-    lib.plssvm_gram_matvec_rect_bf16.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, cint, cint, f32, f32, ptr,
-    ]
-    lib.plssvm_gram_matmat_rect_bf16.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, cint, cint, f32,
-        f32, ptr,
-    ]
-    # kernels A and C on the tensor-core tile: (X copy, sq, v / V, out, m,
-    # d_pad, [C,] kind, degree, gamma, coef0, stream)
     for tier in ("tf32", "bf16"):
+        # kernels A and C on the tensor-core tile: (X copy, sq, v / V, out,
+        # m, d_pad, [C,] kind, degree, gamma, coef0, stream)
         getattr(lib, f"plssvm_gram_matvec_sym_{tier}").argtypes = [
             ptr, ptr, ptr, ptr, i64, i64, cint, cint, f32, f32, ptr,
         ]
         getattr(lib, f"plssvm_gram_matmat_sym_{tier}").argtypes = [
             ptr, ptr, ptr, ptr, i64, i64, i64, cint, cint, f32, f32, ptr,
         ]
-    for name in ("gram_matvec_rect_bf16", "gram_matmat_rect_bf16",
-                 "gram_matvec_sym_tf32", "gram_matvec_sym_bf16",
-                 "gram_matmat_sym_tf32", "gram_matmat_sym_bf16"):
-        getattr(lib, f"plssvm_{name}").restype = cint
+        # kernels B and D: (P copy, S copy, sq_p, sq_s, a / A, out, n_p, n_s,
+        # d_pad, [C,] kind, degree, gamma, coef0, stream)
+        getattr(lib, f"plssvm_gram_matvec_rect_tc_{tier}").argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, cint, cint, f32, f32,
+            ptr,
+        ]
+        getattr(lib, f"plssvm_gram_matmat_rect_tc_{tier}").argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, cint, cint, f32,
+            f32, ptr,
+        ]
+        for name in ("matvec_sym", "matmat_sym", "matvec_rect_tc", "matmat_rect_tc"):
+            getattr(lib, f"plssvm_gram_{name}_{tier}").restype = cint
     lib.plssvm_cuda_error_string.argtypes = [cint]
     lib.plssvm_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -9,15 +9,16 @@ one-vs-one predict — replace plssvm_tpu/ops/pallas_matvec.py
 csrc/gram_matmat.cu says how they are built and what bounds them.
 
 As in ops/gram_matvec.py: ``precision`` is the Gram precision tier; on
-float32 CUDA tensors kernel C takes the tensor-core tile (csrc/gram_tc.cuh)
-at "f32" (TF32) and "bf16" and the FFMA tile at "highest", kernel D the FFMA
-tile at every tier (bf16 operands at "bf16"); float64 runs the FFMA tile.
-Each wrapper takes its plain PyTorch version (ops/matvec.py) at the same
-tier for tensors that lie on the CPU, and only then; for a CUDA tensor it
-launches its kernel or raises, never falls back.  Each counts its launches
-in a plain module-level int (``sym_launches``, ``rect_launches`` for the
-FFMA tile, ``sym_tc_launches`` for the tensor-core tile).  V, A and the
-output are row-major (rows, C) for any C >= 1.
+float32 CUDA tensors kernels C and D take the tensor-core tiles
+(csrc/gram_tc.cuh: the symmetric one for C, the rectangular one for D) at
+"f32" (TF32) and "bf16" and the FFMA tile at "highest"; float64 runs the
+FFMA tile.  Each wrapper takes its plain PyTorch version (ops/matvec.py) at
+the same tier for tensors that lie on the CPU, and only then; for a CUDA
+tensor it launches its kernel or raises, never falls back.  Each counts its
+launches in a plain module-level int (``sym_launches``, ``rect_launches``
+for the FFMA tile, ``sym_tc_launches``, ``rect_tc_launches`` for the
+tensor-core tiles).  V, A and the output are row-major (rows, C) for any C
+>= 1.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from .gram_matvec import (
     _check_operands,
     _raise_on_error,
     _require_cuda,
-    bf16_operands,
+    launch_rect_tc,
     tier_operand,
     uses_tensor_cores,
 )
@@ -41,17 +42,20 @@ from ..parameter import KernelFunctionType
 #: kernel launches of gram_matmat_sym / gram_matmat_rect on the FFMA tile
 sym_launches = 0
 rect_launches = 0
-#: kernel C's launches on the tensor-core tile ("f32" as TF32, "bf16")
+#: kernel C's / kernel D's launches on the tensor-core tiles ("f32" as
+#: TF32, "bf16")
 sym_tc_launches = 0
+rect_tc_launches = 0
 
 
 def reset_counts() -> None:
     """Zero the launch counts of both kernels and the call counts of their
     plain versions."""
-    global sym_launches, rect_launches, sym_tc_launches
+    global sym_launches, rect_launches, sym_tc_launches, rect_tc_launches
     sym_launches = 0
     rect_launches = 0
     sym_tc_launches = 0
+    rect_tc_launches = 0
     _plain.sym_matmat_plain_calls = 0
     _plain.rect_matmat_plain_calls = 0
 
@@ -154,7 +158,12 @@ def gram_matmat_rect(
     if n_p == 0 or n_s == 0 or C == 0:
         return out
     lib = _build.load()
-    P, S, suffix = bf16_operands(P, S, precision, suffix)
+    if uses_tensor_cores(P, precision):
+        launch_rect_tc(lib, "matmat", P, S, sq_p, sq_s, A, out, (C,), kind,
+                       gamma, coef0, degree, precision)
+        global rect_tc_launches
+        rect_tc_launches += 1
+        return out
     fn = getattr(lib, f"plssvm_gram_matmat_rect_{suffix}")
     with torch.cuda.device(P.device):
         err = fn(

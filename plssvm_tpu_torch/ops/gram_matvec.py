@@ -11,27 +11,24 @@ the JAX package's thin wrapper that routes ``K(X, X) @ v`` to the same
 symmetric kernel; here it is one launch of kernel A.
 
 ``precision`` is the Gram precision tier, as the reference's
-(``gram_precision``).  On float32 CUDA tensors:
-
-- kernel A at "f32" runs on the tensor-core tile (csrc/gram_tc.cuh) with
-  TF32 operands, at "bf16" on the same tile with bf16 operands, f32
-  accumulation in both; at "highest" on the FFMA register tile
-  (csrc/gram_tile.cuh), full float32;
-- kernel B runs on the FFMA tile at every tier: full float32 at "f32" and
-  "highest", bf16 operands widened to float32 at "bf16".
-
-float64 runs the FFMA tile in float64 at every tier.  The tensor-core tile
-takes an operand copy of X (:func:`tier_operand`: TF32-rounded or bf16, its
-feature axis padded to a 16-byte row), which the wrapper makes per call:
-at MNIST's width it takes under 4 % of the kernel's time on an H100.
+(``gram_precision``).  On float32 CUDA tensors kernels A and B at "f32" run
+on the tensor-core tiles (csrc/gram_tc.cuh: the symmetric one for A, the
+rectangular one for B) with TF32 operands, at "bf16" on the same tiles with
+bf16 operands, f32 accumulation in both; at "highest" on the FFMA register
+tile (csrc/gram_tile.cuh), full float32.  float64 runs the FFMA tile in
+float64 at every tier.  The tensor-core tiles take operand copies
+(:func:`tier_operand`: TF32-rounded or bf16, the feature axis padded to a
+16-byte row) of X, or of P and S, which the wrapper makes per call: for
+kernel A at MNIST's width they take under 4 % of the kernel's time on an
+H100.
 
 Each wrapper takes its plain PyTorch version (ops/matvec.py) at the same
 tier for tensors that lie on the CPU, and only then.  For a CUDA tensor it
 launches its kernel or raises; it never falls back.  Each counts its
 launches in a plain module-level int (``sym_launches``, ``rect_launches``
-for the FFMA tile, ``sym_tc_launches`` for the tensor-core tile;
-``kernel_matvec_launches`` counts kernel A's launches made for
-:func:`kernel_matvec`).  The kernels allocate nothing: the wrapper
+for the FFMA tile, ``sym_tc_launches``, ``rect_tc_launches`` for the
+tensor-core tiles; ``kernel_matvec_launches`` counts kernel A's launches
+made for :func:`kernel_matvec`).  The kernels allocate nothing: the wrapper
 allocates the zeroed output and launches on PyTorch's current stream.
 """
 
@@ -48,8 +45,10 @@ from . import matvec as _plain
 #: kernel launches of gram_matvec_sym / gram_matvec_rect on the FFMA tile
 sym_launches = 0
 rect_launches = 0
-#: kernel A's launches on the tensor-core tile ("f32" as TF32, "bf16")
+#: kernel A's / kernel B's launches on the tensor-core tiles ("f32" as
+#: TF32, "bf16")
 sym_tc_launches = 0
+rect_tc_launches = 0
 #: kernel A's launches made by kernel_matvec
 kernel_matvec_launches = 0
 
@@ -62,10 +61,12 @@ _TC_TIERS = {"f32": ("tf32", torch.float32, 4), "bf16": ("bf16", torch.bfloat16,
 def reset_counts() -> None:
     """Zero the launch counts of both kernels and the call counts of their
     plain versions."""
-    global sym_launches, rect_launches, sym_tc_launches, kernel_matvec_launches
+    global sym_launches, rect_launches, sym_tc_launches, rect_tc_launches
+    global kernel_matvec_launches
     sym_launches = 0
     rect_launches = 0
     sym_tc_launches = 0
+    rect_tc_launches = 0
     kernel_matvec_launches = 0
     _plain.sym_plain_calls = 0
     _plain.rect_plain_calls = 0
@@ -126,14 +127,14 @@ def _require_cuda(t: torch.Tensor, name: str) -> None:
 
 
 def uses_tensor_cores(X: torch.Tensor, precision: str) -> bool:
-    """Whether kernels A and C take the tensor-core tile for X at this tier:
+    """Whether kernels A-D take the tensor-core tiles for X at this tier:
     float32 CUDA operands at "f32" or "bf16"."""
     return (X.device.type == "cuda" and X.dtype == torch.float32
             and precision in _TC_TIERS)
 
 
 def tier_operand(X: torch.Tensor, precision: str) -> torch.Tensor:
-    """The tensor-core tile's operand copy of float32 ``X`` (m, d): rounded
+    """The tensor-core tiles' operand copy of float32 ``X`` (m, d): rounded
     to TF32 (``round_to_tf32``) for "f32", cast to bf16 for "bf16"; its
     feature axis padded with zeros to a multiple of 4 (TF32) or 8 (bf16),
     so that a row is a multiple of 16 bytes as TMA requires."""
@@ -241,7 +242,12 @@ def gram_matvec_rect(
     if n_p == 0 or n_s == 0:
         return out
     lib = _build.load()
-    P, S, suffix = bf16_operands(P, S, precision, suffix)
+    if uses_tensor_cores(P, precision):
+        launch_rect_tc(lib, "matvec", P, S, sq_p, sq_s, a, out, (), kind,
+                       gamma, coef0, degree, precision)
+        global rect_tc_launches
+        rect_tc_launches += 1
+        return out
     fn = getattr(lib, f"plssvm_gram_matvec_rect_{suffix}")
     with torch.cuda.device(P.device):
         err = fn(
@@ -256,12 +262,22 @@ def gram_matvec_rect(
     return out
 
 
-def bf16_operands(P, S, precision, suffix):
-    """The FFMA tile's "bf16" tier on float32 operands: bf16 copies of P and
-    S and the entry points' "bf16" suffix; else the operands as they are."""
-    if precision == "bf16" and suffix == "f32":
-        return P.to(torch.bfloat16), S.to(torch.bfloat16), "bf16"
-    return P, S, suffix
+def launch_rect_tc(lib, op, P, S, sq_p, sq_s, weights, out, classes, kind,
+                   gamma, coef0, degree, precision) -> None:
+    """Launch kernel B (``op`` "matvec", ``classes`` ()) or D ("matmat",
+    ``classes`` (C,)) on the rectangular tensor-core tile: the tier's
+    operand copies of P and S, the float32 norms.  Raises on a failed
+    launch; counts nothing."""
+    P_op, S_op = tier_operand(P, precision), tier_operand(S, precision)
+    fn = getattr(lib, f"plssvm_gram_{op}_rect_tc_{_TC_TIERS[precision][0]}")
+    with torch.cuda.device(P.device):
+        err = fn(
+            P_op.data_ptr(), S_op.data_ptr(), sq_p.data_ptr(), sq_s.data_ptr(),
+            weights.data_ptr(), out.data_ptr(), P.shape[0], S.shape[0],
+            P_op.shape[1], *classes, int(kind), int(degree), float(gamma),
+            float(coef0), torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on_error(lib, err, f"gram_{op}_rect (tensor cores)")
 
 
 def kernel_matvec(

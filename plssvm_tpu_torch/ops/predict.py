@@ -54,9 +54,11 @@ def predict_values(
     ``impl="cuda"`` routes the Gram kernels through kernel B
     (:func:`gram_matvec_rect`) or kernel D (:func:`gram_matmat_rect`) at
     the Gram tier ``precision`` (as the reference passes ``gram_precision``
-    to its predict, plssvm_tpu/csvm.py:2383, :2401), the distance kernels
-    through kernel F or H; ``"torch"`` takes their plain versions at full
-    precision, as plssvm_tpu's XLA path ignores the tier.
+    to its predict, plssvm_tpu/csvm.py:2383, :2401): on float32 CUDA
+    tensors "f32" (TF32 operands) and "bf16" on the rectangular
+    tensor-core tile, "highest" and float64 on the FFMA tile.  The distance
+    kernels go through kernel F or H; ``"torch"`` takes the plain versions
+    at full precision, as plssvm_tpu's XLA path ignores the tier.
     """
     if kind == KernelFunctionType.LINEAR:
         return predict_points @ w - rho

@@ -32,12 +32,16 @@ kernel_matvec_bf16 pallas_bf16, dual_bf16       ``kernel_matvec(precision=
                                                 tensor cores, bf16
 rect_full          rect_full                    ``gram_matvec_rect(X, X)``:
                                                 kernel B over the full square
+                                                on the tensor cores, TF32
+rect_full_hi       rect_full                    ``gram_matvec_rect(X, X,
+                                                precision="highest")``:
+                                                kernel B on the FFMA tile
 plain_rb256        xla_scan_rb256               ``distance_matvec_plain``
 sym_walk           sym_walk_rb256, _rb512       ``distance_matvec_sym``:
                                                 kernel E (no row block)
 ================== ============================ ==============================
 
-The first five run for the Gram kernels (polynomial, rbf, sigmoid), the
+The first six run for the Gram kernels (polynomial, rbf, sigmoid), the
 last two for the distance kernels (laplacian, chi_squared).  On ``--cpu``
 every Gram variant but the plain one runs its wrapper's plain version at
 the variant's tier: full float32, or bf16-rounded X for
@@ -99,7 +103,9 @@ def _variants(kind, X, sq, gamma, coef0):
         "kernel_matvec_bf16": lambda v: gram_matvec.kernel_matvec(
             X, sq, v, precision="bf16", **kw),
         "rect_full": lambda v: gram_matvec.gram_matvec_rect(
-            X, X, sq, sq, v, **kw),
+            X, X, sq, sq, v, precision="f32", **kw),
+        "rect_full_hi": lambda v: gram_matvec.gram_matvec_rect(
+            X, X, sq, sq, v, precision="highest", **kw),
     }
 
 

@@ -269,9 +269,9 @@ def test_banded_tool_check_on_the_cpu(m):
 
 @pytest.mark.parametrize("kernel,variants", [
     ("rbf", ["plain_rb2048", "kernel_matvec", "kernel_matvec_hi", "kernel_matvec_bf16",
-             "rect_full"]),
+             "rect_full", "rect_full_hi"]),
     ("sigmoid", ["plain_rb2048", "kernel_matvec", "kernel_matvec_hi", "kernel_matvec_bf16",
-                 "rect_full"]),
+                 "rect_full", "rect_full_hi"]),
     ("laplacian", ["plain_rb256", "sym_walk"]),
     ("chi_squared", ["plain_rb256", "sym_walk"]),
 ])

@@ -1,9 +1,9 @@
 """The CUDA kernels (A, B: Gram matvecs; C, D: Gram block matmats; E-H:
 laplacian / chi-squared matvecs and block matmats; I: the banded laplacian
 matvec; and ``kernel_matvec``, K6's one launch of kernel A) against their
-plain PyTorch versions, on the card: A-D on the FFMA tile at "highest",
-A and C on the tensor-core tile at "f32" (TF32) and "bf16", B and D at
-"bf16" on bf16 operands.
+plain PyTorch versions, on the card: A-D on the FFMA tile at "highest" and
+in float64, and on the tensor-core tiles at "f32" (TF32) and "bf16" (A and
+C on the symmetric one, B and D on the rectangular one).
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  They import
 neither jax nor plssvm_tpu, so they run where only PyTorch is installed:
@@ -12,11 +12,12 @@ neither jax nor plssvm_tpu, so they run where only PyTorch is installed:
 
 Tolerances, relative to max|plain|: float32 1e-4, float64 1e-10 (the
 kernels sum in another order than cuBLAS, with atomics).  The tensor-core
-tile's "f32" tier is held at 1e-4 against the plain version on the same
-TF32-rounded operands (``round_to_tf32``), its "bf16" tier against the plain
-version at "bf16"; and the "f32" tier against full float32 within the
-first-order bound of TF32's unit roundoff 2^-11 (``_tf32_tier_bound``).  The chi-squared
-kernels are also held per entry of K (``test_chi_squared_per_entry``).
+tiles' "f32" tier is held at 1e-4 against the plain version on the same
+TF32-rounded operands (``round_to_tf32``), their "bf16" tier against the
+plain version at "bf16"; and the "f32" tier against full float32 within
+the first-order bound of TF32's unit roundoff 2^-11 (``_tf32_tier_bound``).
+The chi-squared kernels are also held per entry of K
+(``test_chi_squared_per_entry``).
 """
 
 import pytest
@@ -327,12 +328,14 @@ TC_SHAPES = [(m, d) for m in (1, 63, 64, 65, 129, 1037, 8192)
              for d in (3, 5, 37, 203, 512, 1280)]
 
 
-def _tier_oracle(plain, X, sq, rhs, tier, **kw):
-    """The plain version on the tier's exact operands: TF32-rounded X with
-    the float32 X's norms for "f32", bf16-rounded X for "bf16"."""
+def _tier_oracle(plain, *args, tier, **kw):
+    """The plain version on the tier's exact operands: the operand matrices
+    (X, or P and S: the arguments before the first vector) TF32-rounded
+    with the float32 operands' norms for "f32", bf16-rounded for "bf16"."""
     if tier == "f32":
-        return plain(matvec.round_to_tf32(X), sq, rhs, precision="f32", **kw)
-    return plain(X, sq, rhs, precision="bf16", **kw)
+        n = next(i for i, a in enumerate(args) if a.ndim == 1)
+        args = [matvec.round_to_tf32(a) if i < n else a for i, a in enumerate(args)]
+    return plain(*args, precision=tier, **kw)
 
 
 def _tc_operands(m, d, n_classes, seed, device):
@@ -358,7 +361,7 @@ def test_tensor_core_matvec_against_tier_oracle(cuda_device, m, d, name, tier):
     got = gram_matvec.gram_matvec_sym(X, sq, v, precision=tier, **kw)
     assert (gram_matvec.sym_launches, gram_matvec.sym_tc_launches) == (
         before[0], before[1] + 1)
-    want = _tier_oracle(matvec.kernel_matvec_plain, X, sq, v, tier, **kw)
+    want = _tier_oracle(matvec.kernel_matvec_plain, X, sq, v, tier=tier, **kw)
     assert got.shape == want.shape and torch.isfinite(got).all()
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
 
@@ -369,55 +372,58 @@ def test_tensor_core_matvec_against_tier_oracle(cuda_device, m, d, name, tier):
 @pytest.mark.parametrize("n_classes", [1, 3, 10, 37])
 @pytest.mark.parametrize("m,d", [(1, 5), (65, 3), (129, 37), (1037, 203), (300, 1280)])
 def test_tensor_core_matmat_against_tier_oracle(cuda_device, m, d, n_classes, name, tier):
-    """Kernel C on the tensor-core tile, and kernel D at the same tier
-    (bf16 operands at "bf16", full float32 at "f32"), for class counts
-    below, at and across the 8-class staging chunk."""
+    """Kernels C and D on the tensor-core tiles, for class counts below, at
+    and across the 8-class staging chunk."""
     X, sq, V = _tc_operands(m, d, n_classes, 48, cuda_device)
     P = X[: m // 2 + 1].flip(0).contiguous()
     sq_p = (P * P).sum(-1)
     kw = dict(kind=getattr(TKind, name.upper()), gamma=1.0 / d,
               coef0=COEF0[name], degree=3)
-    before = gram_matmat.sym_launches, gram_matmat.sym_tc_launches
+    before = (gram_matmat.sym_launches, gram_matmat.sym_tc_launches,
+              gram_matmat.rect_launches, gram_matmat.rect_tc_launches)
     got = gram_matmat.gram_matmat_sym(X, sq, V, precision=tier, **kw)
-    assert (gram_matmat.sym_launches, gram_matmat.sym_tc_launches) == (
-        before[0], before[1] + 1)
-    want = _tier_oracle(matvec.kernel_matmat_plain, X, sq, V, tier, **kw)
+    want = _tier_oracle(matvec.kernel_matmat_plain, X, sq, V, tier=tier, **kw)
     assert got.shape == (m, n_classes) and torch.isfinite(got).all()
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
     got = gram_matmat.gram_matmat_rect(P, X, sq_p, sq, V, precision=tier, **kw)
-    want = matvec.kernel_matmat_rect_plain(P, X, sq_p, sq, V, precision=tier, **kw)
+    want = _tier_oracle(matvec.kernel_matmat_rect_plain, P, X, sq_p, sq, V, tier=tier, **kw)
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    assert (gram_matmat.sym_launches, gram_matmat.sym_tc_launches,
+            gram_matmat.rect_launches, gram_matmat.rect_tc_launches) == (
+        before[0], before[1] + 1, before[2], before[3] + 1)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(COEF0))
 @pytest.mark.parametrize("m,d", [(1037, 203), (300, 1280), (129, 3), (1, 5)])
 def test_bf16_rect_against_plain(cuda_device, m, d, name):
-    """Kernel B at "bf16": bf16 operands widened to float32 in the FFMA
-    tile, against the plain version at "bf16"."""
+    """Kernel B at "bf16": the rectangular tensor-core tile on bf16
+    operands, against the plain version at "bf16"; no FFMA launch."""
     X, sq, v = _tc_operands(m, d, None, 49, cuda_device)
     P = X[: m // 2 + 1].flip(0).contiguous()
     sq_p = (P * P).sum(-1)
     kw = dict(kind=getattr(TKind, name.upper()), gamma=1.0 / d,
               coef0=COEF0[name], degree=3, precision="bf16")
-    before = gram_matvec.rect_launches
+    before = gram_matvec.rect_launches, gram_matvec.rect_tc_launches
     got = gram_matvec.gram_matvec_rect(P, X, sq_p, sq, v, **kw)
-    assert gram_matvec.rect_launches == before + 1
+    assert (gram_matvec.rect_launches, gram_matvec.rect_tc_launches) == (
+        before[0], before[1] + 1)
     want = matvec.kernel_matvec_rect_plain(P, X, sq_p, sq, v, **kw)
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
 
 
-def _tf32_tier_bound(X, sq, V, kind, gamma, coef0):
-    """First-order bound of |K_tf32 @ V - K @ V| per output: each operand
-    rounds to nearest with relative error <= u = 2^-11, so a Gram entry
-    moves by at most (2u + u^2) sum_k |x_ik| |x_jk| <= 2.01 u (|X| |X|^T)_ij,
-    and K_ij by at most the largest |dk/dg| on [g - E, g + E] times E."""
+def _tf32_tier_bound(P, sq_p, X, sq, V, kind, gamma, coef0):
+    """First-order bound of |K_tf32(P, X) @ V - K(P, X) @ V| per output:
+    each operand rounds to nearest with relative error <= u = 2^-11, so a
+    Gram entry moves by at most (2u + u^2) sum_k |p_ik| |x_jk| <= 2.01 u
+    (|P| |X|^T)_ij, and K_ij by at most the largest |dk/dg| on [g - E,
+    g + E] times E."""
     u = 2.0 ** -11
-    Xd = X.double()
-    G = Xd @ Xd.T
-    E = 2.01 * u * (Xd.abs() @ Xd.abs().T)
+    Pd, Xd = P.double(), X.double()
+    G = Pd @ Xd.T
+    E = 2.01 * u * (Pd.abs() @ Xd.abs().T)
     if kind == TKind.RBF:
-        K = torch.exp(-gamma * (sq.double()[:, None] + sq.double()[None, :] - 2 * G))
+        K = torch.exp(-gamma * (sq_p.double()[:, None] + sq.double()[None, :] - 2 * G))
         dk = 2 * gamma * K * torch.exp(2 * gamma * E)  # its largest on the interval
     elif kind == TKind.POLYNOMIAL:
         # the largest |dk/dg| over [g - E, g + E]: (gamma g + coef0)^2 is
@@ -446,7 +452,91 @@ def test_tf32_tier_against_full_float32(cuda_device, m, d, n_classes, name):
     else:
         got = gram_matmat.gram_matmat_sym(X, sq, rhs, precision="f32", **kw)
         want = matvec.kernel_matmat_plain(X, sq, rhs, **kw)
-    bound = _tf32_tier_bound(X, sq, rhs, kind, 1.0 / d, COEF0[name])
+    bound = _tf32_tier_bound(X, sq, X, sq, rhs, kind, 1.0 / d, COEF0[name])
+    if n_classes is None:
+        bound = bound.reshape(-1)
+    err = (got.double() - want.double()).abs()
+    assert (err <= bound + 1e-4 * want.abs().max()).all()
+    assert (got - want).abs().max() > 0  # TF32 is not full float32
+
+
+# -- the rectangular tensor-core tile (kernels B and D at "f32" and "bf16") --
+
+RECT_SIZES = [(1, 1), (1, 1037), (65, 129), (129, 65), (777, 1037), (1037, 777), (1037, 1)]
+
+
+def _rect_operands(n_p, n_s, d, n_classes, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    P = (torch.randn(n_p, d, generator=g, dtype=torch.float64) * 0.3).to(device, torch.float32)
+    S = (torch.randn(n_s, d, generator=g, dtype=torch.float64) * 0.3).to(device, torch.float32)
+    shape = (n_s,) if n_classes is None else (n_s, n_classes)
+    A = torch.randn(*shape, generator=g, dtype=torch.float64).to(device, torch.float32)
+    return P, S, (P * P).sum(-1), (S * S).sum(-1), A
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["f32", "bf16"])
+@pytest.mark.parametrize("n_classes", [None, 1, 3, 10, 37])
+@pytest.mark.parametrize("d", [3, 5, 37, 203, 1280])
+@pytest.mark.parametrize("n_p,n_s", RECT_SIZES)
+def test_tensor_core_rect_against_tier_oracle(cuda_device, n_p, n_s, d, n_classes, tier):
+    """Kernel B (n_classes None) and D on the rectangular tensor-core tile
+    on ragged points, support vectors and features (the TMA boxes' zero
+    fill), poly / RBF / sigmoid, at 1e-4 of max|oracle|; launched on the
+    tile, never on the FFMA tile."""
+    P, S, sq_p, sq_s, A = _rect_operands(n_p, n_s, d, n_classes, 52, cuda_device)
+    module, rect, plain = ((gram_matvec, gram_matvec.gram_matvec_rect,
+                            matvec.kernel_matvec_rect_plain) if n_classes is None else
+                           (gram_matmat, gram_matmat.gram_matmat_rect,
+                            matvec.kernel_matmat_rect_plain))
+    for name in COEF0:
+        kw = dict(kind=getattr(TKind, name.upper()), gamma=1.0 / d,
+                  coef0=COEF0[name], degree=3)
+        before = module.rect_launches, module.rect_tc_launches
+        got = rect(P, S, sq_p, sq_s, A, precision=tier, **kw)
+        assert (module.rect_launches, module.rect_tc_launches) == (before[0], before[1] + 1)
+        want = _tier_oracle(plain, P, S, sq_p, sq_s, A, tier=tier, **kw)
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["f32", "bf16"])
+@pytest.mark.parametrize("n_classes", [None, 10, 17, 37])
+def test_rect_runs_against_tier_oracle(cuda_device, n_classes, tier):
+    """Kernels B and D over 17 x 133 tiles (2100 points, 17000 SVs): on a
+    132-SM H100 the tile walks runs of 2 column tiles and a last run of 1,
+    and the row tiles make a full group of 16 and a group of one; classes
+    past the 16 whose row sums a run keeps take direct atomics.  Against
+    the tier oracle at 1e-4 of max|oracle|."""
+    P, S, sq_p, sq_s, A = _rect_operands(2100, 17000, 37, n_classes, 53, cuda_device)
+    kw = dict(kind=TKind.RBF, gamma=1.0 / 37, coef0=0.0, degree=3)
+    rect, plain = ((gram_matvec.gram_matvec_rect, matvec.kernel_matvec_rect_plain)
+                   if n_classes is None else
+                   (gram_matmat.gram_matmat_rect, matvec.kernel_matmat_rect_plain))
+    got = rect(P, S, sq_p, sq_s, A, precision=tier, **kw)
+    want = _tier_oracle(plain, P, S, sq_p, sq_s, A, tier=tier, **kw)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(COEF0))
+@pytest.mark.parametrize("n_p,n_s,d,n_classes", [(300, 1037, 203, None), (500, 900, 784, 10)])
+def test_tf32_rect_against_full_float32(cuda_device, n_p, n_s, d, n_classes, name):
+    """Kernels B and D at "f32" against the full-float32 plain version,
+    within the first-order TF32 bound plus 1e-4 of max|plain| for the
+    accumulation order."""
+    P, S, sq_p, sq_s, A = _rect_operands(n_p, n_s, d, n_classes, 54, cuda_device)
+    kind = getattr(TKind, name.upper())
+    kw = dict(kind=kind, gamma=1.0 / d, coef0=COEF0[name], degree=3)
+    if n_classes is None:
+        got = gram_matvec.gram_matvec_rect(P, S, sq_p, sq_s, A, precision="f32", **kw)
+        want = matvec.kernel_matvec_rect_plain(P, S, sq_p, sq_s, A, **kw)
+    else:
+        got = gram_matmat.gram_matmat_rect(P, S, sq_p, sq_s, A, precision="f32", **kw)
+        want = matvec.kernel_matmat_rect_plain(P, S, sq_p, sq_s, A, **kw)
+    bound = _tf32_tier_bound(P, sq_p, S, sq_s, A, kind, 1.0 / d, COEF0[name])
     if n_classes is None:
         bound = bound.reshape(-1)
     err = (got.double() - want.double()).abs()
@@ -455,12 +545,26 @@ def test_tf32_tier_against_full_float32(cuda_device, m, d, n_classes, name):
 
 
 @pytest.mark.cuda
+def test_rect_wrappers_refuse_what_they_do_not_take(cuda_device):
+    """The tensor-core path of kernels B and D checks shapes and types as
+    the FFMA path does."""
+    P, S, sq_p, sq_s, A = _rect_operands(10, 12, 3, 4, 55, cuda_device)
+    kw = dict(kind=TKind.RBF, gamma=0.1, coef0=0.0, degree=3, precision="f32")
+    with pytest.raises(ValueError, match="shape"):
+        gram_matmat.gram_matmat_rect(P, S[:, :2].contiguous(), sq_p, sq_s, A, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        gram_matvec.gram_matvec_rect(P, S, sq_p, sq_s, A[:, 0], **kw)
+    with pytest.raises(ValueError, match="on cpu"):
+        gram_matvec.gram_matvec_rect(P, S, sq_p, sq_s.cpu(), A[:, 0].contiguous(), **kw)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("tier", ["f32", "bf16"])
 @pytest.mark.parametrize("n_labels", [2, 4])
 def test_solve_and_predict_take_the_tier_kernels(cuda_device, tier, n_labels):
     """A float32 CUDA fit at "f32" / "bf16" runs every kernel product on the
-    tensor-core tile (none on the FFMA tile or the plain versions), and its
-    predict goes through kernel B or D."""
+    tensor-core tile, and its predict goes through kernel B or D on the
+    rectangular one (none on the FFMA tile or the plain versions)."""
     import numpy as np
 
     import plssvm_tpu_torch as port
@@ -476,10 +580,11 @@ def test_solve_and_predict_take_the_tier_kernels(cuda_device, tier, n_labels):
     model = svm.fit(data, epsilon=1e-6)
     accuracy = svm.score(model, data)
     tc = gram_matvec.sym_tc_launches if n_labels == 2 else gram_matmat.sym_tc_launches
-    rect = gram_matvec.rect_launches if n_labels == 2 else gram_matmat.rect_launches
+    rect = gram_matvec.rect_tc_launches if n_labels == 2 else gram_matmat.rect_tc_launches
     assert tc == 1 + model.n_iter + model.n_iter // 50
     assert rect >= 1
     assert gram_matvec.sym_launches == gram_matmat.sym_launches == 0
+    assert gram_matvec.rect_launches == gram_matmat.rect_launches == 0
     assert (matvec.sym_plain_calls + matvec.rect_plain_calls
             + matvec.sym_matmat_plain_calls + matvec.rect_matmat_plain_calls) == 0
     assert accuracy > 0.8
