@@ -52,15 +52,22 @@ Phases, one line each or more (the run stops at the first that fails):
 12. the matvec bench: ``python -m plssvm_tpu_torch.tools.bench_matvec`` at
    8192 x 256 with 64 products per timing, for RBF (``kernel_matvec``, K6's
    port over kernel A, and kernel B beside the plain version) and
-   laplacian (kernel E beside the plain version).
+   laplacian (kernel E beside the plain version);
+13. the ring: ``CSVM(devices=["cuda:0"] * 4)``, four row shards on the one
+   card, fits and predicts binary RBF at config 3's width (50000 x 500:
+   kernels A, J, B), phase 7's 10 classes at MNIST width (C, K, D), phase
+   8's laplacian files (E, L, F) and phase 9's histogram classes (G, M, H),
+   each against its single-device run: iterations, s/iteration, the
+   launches of every kernel, epsilon reached, the accuracy floor, label
+   agreement >= 0.999, and the ring's operand copies per iteration.
 
 The "bf16" phase runs right after phase 5, on the files of phases 4 and
 5: both trained through ``plssvm-torch-train --gram_precision bf16`` and
 predicted through ``CSVM(gram_precision="bf16")`` (kernels A-D on the
 tensor-core tiles with bf16 operands), accuracy floors as
 phases 4 and 5, label agreement with the "f32" runs logged.  Phases 8 and
-9 follow, while the files exist; phase 10 runs after phase 7, then phases
-11 and 12.
+9 follow, then 6, 7, 10 and 13 while phase 8 and 9's files exist, then
+phases 11 and 12.
 
 Phase 3 also holds kernels E-H (laplacian / chi-squared matvecs and block
 matmats, csrc/distance.cu) against their plain versions on ragged shapes
@@ -69,7 +76,12 @@ them there and, beside kernel A, at m = 16384, d = 256; kernel I (the
 banded laplacian matvec, csrc/banded.cu) against its plain version and
 kernel E on ragged shapes and at phase 11's shape, where it is timed
 beside kernel E; and ``kernel_matvec`` against kernel A and its plain
-version, timed at kernel A's shape.  Beside every kernel's time it
+version, timed at kernel A's shape; and kernels J-M (the ring's dual
+walks, csrc/dual.cu), both outputs, against their plain versions on ragged
+mr != mc blocks in float32 and float64, J and K at each Gram tier, L and M
+per entry of K in float32 chi-squared, then timed at the ring phase's
+block shapes, with the cost of K and M's column atomics logged.  Beside
+every kernel's time it
 computes the bound: the least time the card could take for the function
 on these inputs (see ``_bound``), and fails if a kernel measures faster
 than that (a wrong bound or a wrong timing).  At phases 9 and 10's shapes
@@ -641,6 +653,209 @@ def _banded_kernels(gen, main_err, main_ms, timing, bounds):
     _yardstick(f"torch.cdist(X, X, p=1) {label}", lambda: torch.cdist(X, X, p=1))
 
 
+#: the ring phase's shards, all on device 0
+RING_SHARDS = 4
+#: the ring phase's float64 fits stop at epsilon 1e-10, where one-device
+#: and ring solves are both converged: at a cell's own epsilon they may
+#: stop an iteration apart (chi-squared at 1e-7 on an H100: 31 against 32
+#: iterations, decision values 5.5e-3 apart)
+RING_F64_EPSILON = 1e-10
+def _dual_pair(name, precision):
+    """(kernel, plain) of a dual kernel (J-M, by wrapper name), both taking
+    (Xr, Xc, [sq_r, sq_c,] V_c, V_r, **kw); the plain version on the tier's
+    operands (TF32-rounded float32 Xr and Xc at "f32", as the kernel gets
+    them)."""
+    from plssvm_tpu_torch.ops import distance, gram_matmat, gram_matvec, matvec
+
+    module = {"gram_matvec_dual": gram_matvec, "gram_matmat_dual": gram_matmat}.get(
+        name, distance)
+    kernel = getattr(module, name)
+    plain = getattr(matvec, name.replace("gram", "kernel") + "_plain")
+    if name.startswith("distance"):
+        return kernel, plain
+
+    def oracle(Xr, Xc, *rest, **kw):
+        if precision == "f32" and Xr.dtype == torch.float32:
+            Xr, Xc = matvec.round_to_tf32(Xr), matvec.round_to_tf32(Xc)
+        return plain(Xr, Xc, *rest, precision=precision, **kw)
+
+    return (lambda *args, **kw: kernel(*args, precision=precision, **kw)), oracle
+
+
+def _check_dual(label, got, want):
+    """Both outputs of a dual kernel against the plain version's; returns
+    the larger (max|err|, max|plain|) pair's relative error and max|err|."""
+    errs = [_check_close(f"{label} {half}", g, w)
+            for half, g, w in zip(("out_r", "out_c"), got, want)]
+    return max(e / max(sc, 1e-300) for e, sc in errs), max(e for e, _ in errs)
+
+
+def _dual_per_entry(X, gamma, label):
+    """Kernels L and M in float32 chi-squared, per entry of K: both outputs
+    (out_r = K(Xr, Xc) @ V_c and out_c = K(Xr, Xc)^T @ V_r) with one-hot
+    right-hand sides, each entry against the plain version in float64
+    (``entry_errors``), raised past 4x the float32 plain version's error or
+    1e-4.  Xr is the first half of X, Xc the second."""
+    from plssvm_tpu_torch.ops import distance
+    from plssvm_tpu_torch.ops.entry_check import entry_errors
+
+    half = X.shape[0] // 2
+    Xr, Xc = X[:half].contiguous(), X[half:].contiguous()
+    columns = [int(j) for j in np.linspace(0, Xc.shape[0] - 1, MC_CLASSES)]
+    for name, fn in (("distance_matvec_dual", distance.distance_matvec_dual),
+                     ("distance_matmat_dual", distance.distance_matmat_dual)):
+        one = name == "distance_matvec_dual"
+
+        def zeros(rows, V):
+            return torch.zeros((rows,) + V.shape[1:], device="cuda")
+
+        for out, kernel in (
+            # K(P, S) @ V as the rows output of the walk over (P, S) ...
+            ("out_r", lambda P, S, V, **kw: fn(P, S, V, zeros(P.shape[0], V), **kw)[0]),
+            # ... and as the columns output of the walk over (S, P)
+            ("out_c", lambda P, S, V, **kw: fn(S, P, zeros(P.shape[0], V), V, **kw)[1]),
+        ):
+            got, plain = entry_errors(kernel, Xc, columns, gamma, points=Xr, one_column=one)
+            if not got <= min(4 * plain, 1e-4):
+                raise AssertionError(f"{name} {out} chi-squared {label}: per-entry error "
+                                     f"{got}, plain f32 {plain}")
+            log("kernels", f"per-entry {name} {out} f32 chi-squared {label}, {MC_CLASSES} "
+                f"columns of K: worst rel err {got:.3e}, plain f32 {plain:.3e} "
+                f"({got / plain:.2f}x)")
+
+
+def _dual_kernels(gen, main_err, main_ms, timing, bounds):
+    """Kernels J-M (the ring's dual walks, csrc/dual.cu) against their plain
+    versions, both outputs, on ragged mr != mc blocks, float32 and float64,
+    J and K at each Gram tier; L and M per entry of K in float32
+    chi-squared; then each timed at the ring phase's block shape beside its
+    plain version and its bound, recorded under (name, tier or kind)."""
+    from plssvm_tpu_torch.parameter import KernelFunctionType as K
+
+    kinds = ((K.POLYNOMIAL, 1.0), (K.RBF, 0.0), (K.SIGMOID, -0.5), (K.LAPLACIAN, 0.0),
+             (K.CHI_SQUARED, 0.0))
+    worst = {}
+    for dtype in (torch.float32, torch.float64):
+        tiers = ("highest", "f32", "bf16") if dtype == torch.float32 else ("highest",)
+        for mr, mc, d in ((1037, 513, 203), (300, 777, 1280), (129, 65, 3), (1, 1, 5)):
+            for n_classes in (None, 1, 10, 37):
+                Xr, Xc = _zero_rich(mr, d, dtype, gen), _zero_rich(mc, d, dtype, gen)
+                sq_r, sq_c = (Xr * Xr).sum(-1), (Xc * Xc).sum(-1)
+                tail = () if n_classes is None else (n_classes,)
+                v_c = torch.randn(mc, *tail, generator=gen, dtype=torch.float64).to("cuda", dtype)
+                v_r = torch.randn(mr, *tail, generator=gen, dtype=torch.float64).to("cuda", dtype)
+                for kind, coef0 in kinds:
+                    distance_kind = kind in (K.LAPLACIAN, K.CHI_SQUARED)
+                    name = (("distance" if distance_kind else "gram")
+                            + ("_matvec_dual" if n_classes is None else "_matmat_dual"))
+                    for precision in (("highest",) if distance_kind else tiers):
+                        kernel, plain = _dual_pair(name, precision)
+                        if distance_kind:
+                            args, kw = (Xr, Xc, v_c, v_r), dict(kind=kind, gamma=1.0 / d)
+                        else:
+                            args = (Xr, Xc, sq_r, sq_c, v_c, v_r)
+                            kw = dict(kind=kind, gamma=1.0 / d, coef0=coef0, degree=3)
+                        rel, _ = _check_dual(f"{name} {kind} {dtype} {precision} "
+                                             f"{mr}x{mc}x{d} C={n_classes}",
+                                             kernel(*args, **kw), plain(*args, **kw))
+                        key = (name, str(dtype).split(".")[-1], precision)
+                        worst[key] = max(worst.get(key, 0.0), rel)
+    for (name, dt, precision), rel in sorted(worst.items()):
+        log("kernels", f"{name} {dt} {precision}: worst max|err|/max|plain| {rel:.3e}, both "
+            "outputs, over 4 ragged mr != mc blocks x 1-37 classes"
+            + (" x laplacian/chi-squared" if name.startswith("distance")
+               else " x poly/rbf/sigmoid (plain on the tier's operands)"))
+
+    # the ring phase's blocks (4 shards): config 3's width, 12500 x 12500 x
+    # 500 RBF (J); MNIST's, 15000 x 15000 x 784, 10 classes (K); config 2's,
+    # 2500 x 2500 x 200, laplacian (L) and chi-squared on histogram rows, 10
+    # classes (M); J and K at the default tier "f32" (TF32 operands)
+    rng = np.random.default_rng(SEED + 20)
+    hist = torch.as_tensor(_draw_histograms(rng, _histogram_classes(rng, 200), 5000)[0],
+                           dtype=torch.float32, device="cuda")
+    chi2_gamma = _chi2_gamma(rng, hist.cpu().numpy().astype(np.float64))
+    _dual_per_entry(hist, chi2_gamma, "2500x2500x200")
+    cases = []
+    for name, mr, d, n_classes, kind, tier in (
+        ("gram_matvec_dual", 12500, 500, None, K.RBF, "f32"),
+        ("gram_matmat_dual", 15000, 784, MC_CLASSES, K.RBF, "f32"),
+        ("distance_matvec_dual", 2500, 200, None, K.LAPLACIAN, None),
+        ("distance_matmat_dual", 2500, 200, MC_CLASSES, K.CHI_SQUARED, None),
+    ):
+        tail = () if n_classes is None else (n_classes,)
+        v_c = torch.randn(mr, *tail, generator=gen, dtype=torch.float64).to("cuda", torch.float32)
+        v_r = torch.randn(mr, *tail, generator=gen, dtype=torch.float64).to("cuda", torch.float32)
+        if kind == K.CHI_SQUARED:
+            Xr, Xc = hist[:mr].contiguous(), hist[mr:2 * mr].contiguous()
+            args, kw, gamma = (Xr, Xc, v_c, v_r), dict(kind=kind, gamma=chi2_gamma), None
+        else:
+            X = torch.randn(2 * mr, d, generator=gen, dtype=torch.float64).to("cuda", torch.float32)
+            if d == 500:
+                X = X / X.abs().amax(0)  # config 3's [-1, 1] scale
+            Xr, Xc = X[:mr].contiguous(), X[mr:].contiguous()
+            if kind == K.LAPLACIAN:
+                args, kw = (Xr, Xc, v_c, v_r), dict(kind=kind, gamma=1.0 / d)
+            else:
+                args = (Xr, Xc, (Xr * Xr).sum(-1), (Xc * Xc).sum(-1), v_c, v_r)
+                kw = dict(kind=kind, gamma=1.0 / d, coef0=0.0, degree=3)
+        cases.append((name, args, kw, tier, n_classes, kind))
+    for name, args, kw, tier, n_classes, kind in cases:
+        kernel, plain = _dual_pair(name, tier or "highest")
+        mr, d = args[0].shape
+        columns = n_classes or 1
+        label = f"{mr}x{mr}x{d} f32 {kind}" + (f" C={columns}" if n_classes else "") + (
+            f" {tier}" if tier else "")
+        key = (name, TIER_OF[tier]) if tier else (name, str(kind))
+        main_err[key] = _check_dual(label, kernel(*args, **kw), plain(*args, **kw))[1]
+        cost = "gram" if tier else str(kind)
+        timing[key] = _time_pair(name, kernel, plain, args, kw, float(mr) * mr * d, label,
+                                 plain_repeats=20 if tier else DIST_PLAIN_REPEATS,
+                                 unit="Tpair-feature/s", counted="mr mc d")
+        # J and K at "f32" compute the TF32 function, which the tensor cores
+        # could compute: their bound is the TF32 one; the FFMA tile's own
+        # bound is logged beside it
+        bounds[key] = _dual_bound(mr, mr, d, columns, cost, 4, 1 if tier else 0,
+                                  TIER_OF.get(tier), exp=kind == K.RBF)
+        main_ms[(name, "ring")] = (timing[key][0], bounds[key][0])
+        _log_bound(name, label, timing[key][0], bounds[key])
+        if tier:
+            ffma = _dual_bound(mr, mr, d, columns, cost, 4, 1)
+            log("kernels", f"{name} {label}: the FFMA tile's bound {ffma[0]:.3f} ms "
+                f"({ffma[1]}), kernel at {ffma[0] / timing[key][0]:.3f} of it")
+
+    # the atomics of the column sums: K and M issue one per column, class
+    # and tile where the rectangular D and H (same tile, row sums only)
+    # issue none for columns; each at 10 classes against 1 class on the
+    # same block, the dual walk beside the rectangular one
+    from plssvm_tpu_torch.ops import distance, gram_matmat
+
+    for name, args, kw, tier, n_classes, kind in cases:
+        if not n_classes:
+            continue
+        Xr, Xc = args[0], args[1]
+        rhs = {}
+        for c in (1, MC_CLASSES):
+            v_c, v_r = args[-2][:, :c].contiguous(), args[-1][:, :c].contiguous()
+            if name == "gram_matmat_dual":
+                sq = args[2:4]
+                walks = (
+                    (gram_matmat.gram_matmat_dual, (Xr, Xc, *sq, v_c, v_r)),
+                    (gram_matmat.gram_matmat_rect, (Xr, Xc, *sq, v_c)),
+                )
+                walk_kw = dict(kw, precision="highest")
+            else:
+                walks = ((distance.distance_matmat_dual, (Xr, Xc, v_c, v_r)),
+                         (distance.distance_matmat_rect, (Xr, Xc, v_c)))
+                walk_kw = kw
+            rhs[c] = [_median_ms(lambda: fn(*fn_args, **walk_kw), 5, 1)
+                      for fn, fn_args in walks]
+        (d1, r1), (d10, r10) = rhs[1], rhs[MC_CLASSES]
+        log("kernels", f"column atomics {name} {tuple(Xr.shape)} highest: dual walk C=1 "
+            f"{d1:.3f} ms, C={MC_CLASSES} {d10:.3f} ms (+{d10 - d1:.3f}); rectangular "
+            f"(rows only) C=1 {r1:.3f}, C={MC_CLASSES} {r10:.3f} (+{r10 - r1:.3f}); the "
+            f"classes' cost {(d10 - d1) / max(r10 - r1, 1e-9):.2f}x the rows-only one's")
+
+
 def _median_ms(fn, repeats=20, warmup=2):
     for _ in range(warmup):
         fn()
@@ -730,6 +945,25 @@ def _rect_bound(n_p, n_s, d, columns, cost, itemsize, extra_inputs=0,
         n_bytes = (TC_TIERS[tier][1] * (n_p + n_s) * d
                    + 4 * (n_p + n_s) * (extra_inputs + columns))
     return _bound(pairs, d, pairs * columns, cost, n_bytes, tier,
+                  pairs if exp else 0)
+
+
+def _dual_bound(mr, mc, d, columns, cost, itemsize, extra_inputs=0, tier=None,
+                exp=False):
+    """The bound of the dual walk ``(K @ V_c, K^T @ V_r)`` of ``K = K(Xr,
+    Xc)`` for Xr (mr, d), Xc (mc, d), V_c (mc, columns), V_r (mr, columns):
+    every one of the mr mc pairs, 2 mr mc FFMAs per column (both
+    contractions); Xr, Xc, both right-hand sides, both outputs and
+    ``extra_inputs`` vectors of mr and of mc moved.  ``tier`` and ``exp``
+    as in ``_rect_bound``: on the tensor cores the same function (TF32 or
+    bf16 products, float32 sums) could run at the tier's peak."""
+    pairs = float(mr) * mc
+    if tier is None:
+        n_bytes = itemsize * (mr + mc) * (d + 2 * columns + extra_inputs)
+    else:
+        n_bytes = (TC_TIERS[tier][1] * (mr + mc) * d
+                   + 4 * (mr + mc) * (2 * columns + extra_inputs))
+    return _bound(pairs, d, 2.0 * pairs * columns, cost, n_bytes, tier,
                   pairs if exp else 0)
 
 
@@ -1049,6 +1283,7 @@ def phase_kernels():
 
     g_chi_ms = _distance_kernels(gen, main_err, main_ms, timing, bounds, time_a)
     _banded_kernels(gen, main_err, main_ms, timing, bounds)
+    _dual_kernels(gen, main_err, main_ms, timing, bounds)
     return main_err, main_ms, timing, bounds, g_chi_ms
 
 
@@ -1323,7 +1558,11 @@ def phase_multiclass_width():
         raise AssertionError("MNIST width did not go through the tensor-core C and D only")
     if accuracy < MC_ACCURACY_FLOOR:
         raise AssertionError(f"accuracy {accuracy} below {MC_ACCURACY_FLOOR}")
-    return {"gram_matmat_sym_tc": launches[0], "gram_matmat_rect_tc": launches[1]}
+    cell = dict(make=lambda dtype: (port.DataSet(X, y, dtype=dtype),
+                                    port.DataSet(X_test, y_test, dtype=dtype)),
+                labels=y_test, epsilon=EPSILON, floor=MC_ACCURACY_FLOOR,
+                params=dict(kernel_type="rbf"))
+    return {"gram_matmat_sym_tc": launches[0], "gram_matmat_rect_tc": launches[1]}, cell
 
 
 def phase_config3_width():
@@ -1428,10 +1667,12 @@ def phase_laplacian_cli(tmp, config2_files):
                    float(np.mean(predicted == test_labels)),
                    LAPLACIAN_ACCURACY_FLOOR, launches, plain_calls,
                    "distance_matvec_sym", "distance_matvec_rect")
+    cell = _cli_cell(train_file, test_file, test_labels, EPSILON,
+                     LAPLACIAN_ACCURACY_FLOOR, kernel_type="laplacian")
     _f64_agreement("laplacian", "config 2 -t 4", train_file, test_file,
                    predicted, EPSILON, kernel_type="laplacian")
     _small_fit_agreement("laplacian", "laplacian", 2, SEED + 11)
-    return {k: launches[k] for k in ("distance_matvec_sym", "distance_matvec_rect")}
+    return {k: launches[k] for k in ("distance_matvec_sym", "distance_matvec_rect")}, cell
 
 
 def phase_chi2_cli(tmp):
@@ -1464,10 +1705,12 @@ def phase_chi2_cli(tmp):
                    float(np.mean(predicted == y_test)), CHI2_ACCURACY_FLOOR,
                    launches, plain_calls, "distance_matmat_sym",
                    "distance_matmat_rect")
+    cell = _cli_cell(train_file, test_file, y_test, CHI2_EPSILON,
+                     CHI2_ACCURACY_FLOOR, kernel_type="chi_squared", gamma=gamma)
     _f64_agreement("chi2-cli", f"{MC_CLASSES} classes -t 5", train_file,
                    test_file, predicted, CHI2_EPSILON,
                    kernel_type="chi_squared", gamma=gamma)
-    return {k: launches[k] for k in ("distance_matmat_sym", "distance_matmat_rect")}
+    return {k: launches[k] for k in ("distance_matmat_sym", "distance_matmat_rect")}, cell
 
 
 def phase_chi2_width(g_chi_ms):
@@ -1523,6 +1766,180 @@ def phase_chi2_width(g_chi_ms):
     if converged and accuracy < CHI2_ACCURACY_FLOOR:
         raise AssertionError(f"accuracy {accuracy} below {CHI2_ACCURACY_FLOOR}")
     return {k: launches[k] for k in ("distance_matmat_sym", "distance_matmat_rect")}
+
+
+def _cli_cell(train_file, test_file, labels, epsilon, floor, **params):
+    """A ring cell of a CLI phase's files: ``make(dtype)`` reads them as
+    DataSets of that type."""
+    import plssvm_tpu_torch as port
+
+    return dict(make=lambda dtype: (port.DataSet(train_file, dtype=dtype),
+                                    port.DataSet(test_file, dtype=dtype)),
+                labels=labels, epsilon=epsilon, floor=floor, params=params)
+
+
+def _config3_rbf_cell():
+    """The ring's binary cell at BASELINE config 3's width: RBF on 50000 x
+    500 scaled to [-1, 1], two Gaussian classes whose means differ by
+    0.0632 per feature, so the Bayes-optimal accuracy is config 2's (~0.92:
+    0.1 per feature at d = 200), 2000 held out."""
+    import plssvm_tpu_torch as port
+
+    rng = np.random.default_rng(SEED + 21)
+    n, d = 52000, 500
+    y = np.where(rng.random(n) < 0.5, -1, 1)
+    X = rng.normal(size=(n, d)) + 0.1 * np.sqrt(200 / d) * y[:, None]
+
+    def make(dtype):
+        train = port.DataSet(X[:50000], y[:50000], scaling=(-1.0, 1.0), dtype=dtype)
+        return train, port.DataSet(X[50000:], y[50000:], scaling=train.scaling_factors,
+                                   dtype=dtype)
+
+    return dict(make=make, labels=y[50000:], epsilon=EPSILON, floor=ACCURACY_FLOOR,
+                params=dict(kernel_type="rbf"))
+
+
+def _ring_copy_ms(X, iteration_s, label):
+    """The operand copies the ring makes per CG iteration at the "f32" tier,
+    on one shard of X: per shard and product, the symmetric tensor-core
+    tile's copy of X_p (``tier_operand``), the dual walk's TF32 copies of
+    X_p and X_q (``dual_operand``, once per dual step) and the rectangular
+    tile's copies of both (``tier_operand``, for even P); logged beside the
+    iteration."""
+    from plssvm_tpu_torch.ops import gram_matvec
+    from plssvm_tpu_torch.parallel import sharded
+
+    lo, hi = sharded.shard_bounds(X.shape[0], RING_SHARDS)[0]
+    shard = X[lo:hi]
+    tc = _median_ms(lambda: gram_matvec.tier_operand(shard, "f32"), 5, 1)
+    dual = _median_ms(lambda: gram_matvec.dual_operand(shard, "f32"), 5, 1)
+    steps = (RING_SHARDS - 1) // 2
+    per_shard = tc + 2 * steps * dual + (2 * tc if RING_SHARDS % 2 == 0 else 0)
+    total = RING_SHARDS * per_shard
+    log("ring", f"{label}: operand copies per iteration {total:.3f} ms ({RING_SHARDS} shards "
+        f"x ({tc:.3f} tier_operand x {1 + 2 * (RING_SHARDS % 2 == 0)} + {dual:.3f} "
+        f"dual_operand x {2 * steps})), {total / 1000 / iteration_s:.3%} of the "
+        "iteration")
+
+
+def _ring_counts(kind, matmat, dtype):
+    """(dual kernel's name, [symmetric, dual, rows-only launches], launches
+    on the tile the dtype must not take, plain calls) since the last
+    reset: float32 Gram products on the tensor-core tiles (J and K on the
+    FFMA tile), float64 on the FFMA tile."""
+    from plssvm_tpu_torch.ops import distance, gram_matmat, gram_matvec, matvec
+
+    op = "matmat" if matmat else "matvec"
+    plain = sum(getattr(matvec, n) for n in (
+        "sym_plain_calls", "rect_plain_calls", "dual_plain_calls", "sym_matmat_plain_calls",
+        "rect_matmat_plain_calls", "dual_matmat_plain_calls", "dist_sym_plain_calls",
+        "dist_rect_plain_calls", "dist_dual_plain_calls", "dist_sym_matmat_plain_calls",
+        "dist_rect_matmat_plain_calls", "dist_dual_matmat_plain_calls"))
+    if kind in ("laplacian", "chi_squared"):
+        return (f"distance_{op}_dual",
+                [getattr(distance, f"{op}_{w}_launches") for w in ("sym", "dual", "rect")],
+                0, plain)
+    module = gram_matmat if matmat else gram_matvec
+    tc = dtype == np.float32
+    counts = ([module.sym_tc_launches, module.dual_launches, module.rect_tc_launches] if tc
+              else [module.sym_launches, module.dual_launches, module.rect_launches])
+    other = (module.sym_launches + module.rect_launches if tc
+             else module.sym_tc_launches + module.rect_tc_launches)
+    return f"gram_{op}_dual", counts, other, plain
+
+
+def _ring_run(cell, train, test, dtype, epsilon, devices):
+    """Fit ``train`` to ``epsilon`` and predict ``test`` of a cell in
+    ``dtype`` on ``devices`` (None: one device, cuda:0); the counts of its
+    launches from the fit on."""
+    import plssvm_tpu_torch as port
+    from plssvm_tpu_torch.ops import distance, gram_matmat, gram_matvec
+
+    where = dict(device="cuda") if devices is None else dict(devices=devices)
+    svm = port.CSVM(backend="cuda", dtype=dtype, cost=1.0, **where, **cell["params"])
+    for module in (gram_matvec, gram_matmat, distance):
+        module.reset_counts()
+    port.global_tracker.clear()
+    t0 = time.perf_counter()
+    model = svm.fit(train, epsilon=epsilon)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    values = svm.predict_values(model, test)
+    t2 = time.perf_counter()
+    iterations = _tracked("cg", "iterations")
+    order = (np.asarray(model.class_order()) if values.ndim == 2
+             else np.asarray(model.data.mapper.labels()))
+    predicted = (order[np.argmax(values, axis=1)] if values.ndim == 2
+                 else order[(values > 0).astype(np.intp)])
+    kind = cell["params"]["kernel_type"]
+    return dict(
+        iterations=iterations, values=values, predicted=predicted, fit_s=t1 - t0,
+        predict_s=t2 - t1, s_per_it=_tracked("cg", "total_runtime") / 1000 / iterations,
+        converged=_tracked("cg", "residuum") <= _tracked("cg", "target_residuum"),
+        finite=bool(np.all(np.isfinite(model.alpha))),
+        accuracy=float(np.mean(predicted == cell["labels"])),
+        counts=_ring_counts(kind, values.ndim == 2, dtype))
+
+
+def phase_ring(cells):
+    """The row-sharded ring on one card: ``CSVM(devices=["cuda:0"] * 4)``
+    fits and predicts each cell (binary RBF at config 3's width: A, J, B;
+    the 10 Gaussian classes at MNIST width: C, K, D; laplacian on config
+    2's files: E, L, F; the 10 histogram classes at config 2's shape with
+    chi-squared: G, M, H) in float32 (the default path: A-D on the
+    tensor-core tiles at "f32", J and K on TF32 operands) and in float64,
+    each beside the same fit on one device.  Gates, in both types: per
+    shard and product one symmetric, one dual and (for even P) one
+    rows-only launch and per shard one rectangular launch to predict,
+    nothing on another tile or the plain versions, epsilon reached; float32
+    (the cell's epsilon) the accuracy floor and label agreement with one
+    device >= 0.995 (as float32 against float64 elsewhere: the two float32
+    solves round apart: 0.9975-1.0000 on an H100); float64 (epsilon 1e-10,
+    both solves converged) label agreement >= 0.999, its decision values'
+    largest difference logged.  The binary cell is made here, the others come from
+    phases 7-9."""
+    launches = {}
+    devices = ["cuda:0"] * RING_SHARDS
+    steps = (RING_SHARDS - 1) // 2
+    for label, cell in {"config3-rbf": _config3_rbf_cell(), **cells}.items():
+        kind = cell["params"]["kernel_type"]
+        for dtype in (np.float32, np.float64):
+            data = cell["make"](dtype)
+            epsilon = cell["epsilon"] if dtype == np.float32 else RING_F64_EPSILON
+            one = _ring_run(cell, *data, dtype, epsilon, None)
+            ring = _ring_run(cell, *data, dtype, epsilon, devices)
+            name, counts, other, plain = ring["counts"]
+            products = 1 + ring["iterations"] + ring["iterations"] // 50
+            agree = float(np.mean(ring["predicted"] == one["predicted"]))
+            dvalue = float(np.max(np.abs(ring["values"] - one["values"])))
+            type_name = np.dtype(dtype).name
+            log("ring", f"{label} {kind} {type_name}, {RING_SHARDS} shards on cuda:0: "
+                f"{ring['iterations']} CG iterations at {ring['s_per_it']:.6f} s/iteration "
+                f"(one device: {one['iterations']} at {one['s_per_it']:.6f}), reached epsilon "
+                f"{epsilon}: {ring['converged']}, fit {ring['fit_s']:.3f} s (one "
+                f"device {one['fit_s']:.3f}), predict {len(ring['predicted'])} points "
+                f"{ring['predict_s']:.3f} s, accuracy {ring['accuracy']:.4f} (one device "
+                f"{one['accuracy']:.4f}), label agreement with one device {agree:.4f}, "
+                f"max|d f(x)| {dvalue:.3e}; launches sym / dual / rect {counts}, other tile "
+                f"{other}, plain calls {plain}")
+            if dtype == np.float32:
+                launches[name] = counts[1]
+                if kind not in ("laplacian", "chi_squared"):
+                    X = torch.as_tensor(np.asarray(data[0].data), device="cuda")
+                    _ring_copy_ms(X, ring["s_per_it"], label)
+            if counts != [RING_SHARDS * products, RING_SHARDS * steps * products,
+                          RING_SHARDS * products * (RING_SHARDS % 2 == 0) + RING_SHARDS] \
+                    or other or plain:
+                raise AssertionError(f"ring {label} {type_name}: did not go through the "
+                                     "ring's kernels only")
+            if not (ring["converged"] and ring["finite"]):
+                raise AssertionError(f"ring {label} {type_name}: did not reach epsilon")
+            floor, need = ((cell["floor"], 0.995) if dtype == np.float32 else (0.0, 0.999))
+            if ring["accuracy"] < floor or agree < need:
+                raise AssertionError(f"ring {label} {type_name}: accuracy {ring['accuracy']} "
+                                     f"(floor {floor}), agreement with one device {agree} "
+                                     f"(gate {need})")
+    return launches
 
 
 def _run_tool(phase, main, argv):
@@ -1651,12 +2068,16 @@ def main():
                                                      tmp)
         phase_launches["bf16"] = run("bf16", phase_bf16, tmp, config2_files,
                                      e2e_predicted, mc_files)
-        phase_launches["laplacian"] = run("laplacian", phase_laplacian_cli, tmp,
-                                          config2_files)
-        phase_launches["chi2-cli"] = run("chi2-cli", phase_chi2_cli, tmp)
-    phase_launches["config3"] = run("config3", phase_config3_width)
-    phase_launches["mnist-width"] = run("mnist-width", phase_multiclass_width)
-    phase_launches["chi2-width"] = run("chi2-width", phase_chi2_width, g_chi_ms)
+        ring_cells = {}
+        phase_launches["laplacian"], ring_cells["laplacian"] = run(
+            "laplacian", phase_laplacian_cli, tmp, config2_files)
+        phase_launches["chi2-cli"], ring_cells["chi2"] = run("chi2-cli", phase_chi2_cli, tmp)
+        phase_launches["config3"] = run("config3", phase_config3_width)
+        phase_launches["mnist-width"], ring_cells["mnist-width"] = run(
+            "mnist-width", phase_multiclass_width)
+        phase_launches["chi2-width"] = run("chi2-width", phase_chi2_width, g_chi_ms)
+        phase_launches["ring"] = run("ring", phase_ring, ring_cells)
+        del ring_cells
     phase_launches["banded-tool"] = run("banded-tool", phase_banded_tool)
     phase_launches["bench-matvec"] = run("bench-matvec", phase_bench_matvec, main_ms)
     log("times", ", ".join(f"{k} {v:.1f} s" for k, v in phase_seconds.items()))
@@ -1683,11 +2104,12 @@ def main():
             else:
                 launches.setdefault(k, n)
     for tc in ("gram_matvec_sym_tc", "gram_matmat_sym_tc", "gram_matvec_rect_tc",
-               "gram_matmat_rect_tc"):
+               "gram_matmat_rect_tc", "gram_matvec_dual", "gram_matmat_dual"):
         launches[(tc, "tf32")] = launches[tc]
 
     # the distance kernels report the kind their main path ran: laplacian
-    # for E and F (phase 8), chi-squared for G and H (phases 9 and 10);
+    # for E and F (phase 8), chi-squared for G and H (phases 9 and 10); the
+    # dual walks J-M the ring phase's launches, J and K at "f32" (TF32);
     # kernel_matvec's launches are phase 12's, kernel I's phase 11's; the
     # FFMA tile of A-D ("highest") reports the float64 fits' and predicts'
     # launches (phases 4, 5) beside its float32 times, the tensor-core tiles
@@ -1719,6 +2141,12 @@ def main():
             "distance.cu", "plssvm_tpu/ops/pallas_distance.py:412"),
         "kernel_matvec": ("gram_matvec.cu", "plssvm_tpu/ops/pallas_matvec.py:984"),
         "banded_matvec": ("banded.cu", "tools/exp_banded_distance.py:107"),
+        ("gram_matvec_dual", "tf32"): ("dual.cu", "plssvm_tpu/ops/pallas_matvec.py:430"),
+        ("gram_matmat_dual", "tf32"): ("dual.cu", "plssvm_tpu/ops/pallas_matvec.py:812"),
+        ("distance_matvec_dual", "laplacian"): (
+            "dual.cu", "plssvm_tpu/ops/pallas_distance.py:226"),
+        ("distance_matmat_dual", "chi_squared"): (
+            "dual.cu", "plssvm_tpu/ops/pallas_distance.py:412"),
     }
     print(smi)
     print(json.dumps({"kernels": [

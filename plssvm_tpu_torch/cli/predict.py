@@ -82,7 +82,7 @@ def main(argv=None) -> int:
         if args.multihost:
             raise NotPortedError(
                 "--multihost is not ported yet (ROADMAP Queue 1, item 10: "
-                "multi-GPU)"
+                "multihost on torch.distributed)"
             )
         if args.probability:
             raise NotPortedError(

@@ -32,7 +32,7 @@ from .common import (
 
 #: (argument, flag, ROADMAP item) of the options not ported yet
 _NOT_PORTED = (
-    ("multihost", "--multihost", "Queue 1, item 10: multi-GPU"),
+    ("multihost", "--multihost", "Queue 1, item 10: multihost on torch.distributed"),
     ("cross_validation", "--cross_validation", "Queue 1, item 7: calibration and CV"),
     ("probability", "--probability", "Queue 1, item 7: calibration and CV"),
     ("max_sv", "--max_sv", "Queue 1, item 9: sparse models"),

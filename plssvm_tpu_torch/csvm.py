@@ -8,9 +8,10 @@ products: ``cuda``, the hand-written kernels (csrc/*.cu), or ``torch``,
 their plain PyTorch versions on any device.
 
 This package covers binary and one-vs-all multiclass classification with
-the implicit CG solver on a single device, for every kernel function
-(linear, polynomial, RBF, sigmoid, laplacian, chi-squared), and predict
-with binary, one-vs-all and one-vs-one (LIBSVM multiclass) model files.
+the implicit CG solver, for every kernel function (linear, polynomial, RBF,
+sigmoid, laplacian, chi-squared), on one device or row-sharded over a list
+of devices (``devices``, parallel/sharded.py), and predict with binary,
+one-vs-all and one-vs-one (LIBSVM multiclass) model files.
 What it does not carry yet raises :class:`NotPortedError` (a
 ``NotImplementedError``) naming the ROADMAP item that ports it.
 """
@@ -27,6 +28,11 @@ from .data_set import DataSet
 from .exceptions import InvalidParameterError, NotPortedError, UnsupportedBackendError
 from .model import Model
 from .ops.predict import calculate_w, predict_values as predict_values_op
+from .parallel.sharded import (
+    predict_values_sharded,
+    solve_ls_svm_multi_sharded,
+    solve_ls_svm_sharded,
+)
 from .parameter import (
     BackendType,
     ClassificationType,
@@ -83,6 +89,43 @@ def _resolve_device(target: TargetPlatform, device) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def _resolve_devices(devices, device, target: TargetPlatform) -> Optional[list]:
+    """The shard devices of a CSVM, or None for the single-device path.
+
+    ``"all"``: every CUDA device.  None: every CUDA device when there are
+    more than one, no ``device`` is pinned and ``target`` is not the CPU.
+    A list: one shard per entry, entries may repeat.  Fewer than two
+    entries take the single-device path.  A list that mixes ``cpu`` and
+    ``cuda`` raises.
+    """
+    if devices is None:
+        if (device is None and target != TargetPlatform.CPU
+                and torch.cuda.is_available() and torch.cuda.device_count() > 1):
+            devices = "all"
+        else:
+            return None
+    if isinstance(devices, str):
+        if devices != "all":
+            raise InvalidParameterError(
+                f"devices must be None, 'all' or a list of devices, not {devices!r}!"
+            )
+        if not torch.cuda.is_available():
+            raise UnsupportedBackendError(
+                "devices='all' takes every CUDA device, but CUDA is not available!"
+            )
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    resolved = [torch.device(d) for d in devices]
+    kinds = {d.type for d in resolved}
+    if not kinds <= {"cpu", "cuda"}:
+        raise UnsupportedBackendError(f"Unsupported devices {sorted(kinds)}!")
+    if len(kinds) > 1:
+        raise InvalidParameterError(
+            "devices mixes cpu and cuda: every shard of a solve lies on one "
+            "kind of device!"
+        )
+    return resolved
+
+
 class CSVM:
     """LS-SVM classifier trained with matrix-free Conjugate Gradient.
 
@@ -95,6 +138,15 @@ class CSVM:
     when asked for (``target="cpu"`` or ``device="cpu"``).
     ``backend=automatic`` takes the CUDA kernels on a CUDA device and the
     plain PyTorch versions on the CPU.
+
+    ``devices`` row-shards fit and predict (reference: plssvm_tpu/csvm.py
+    ``devices``): ``"all"`` every CUDA device; a list one shard per entry,
+    entries may repeat (``["cuda:0"] * 4``: four shards on one card); None
+    every CUDA device when there are more than one and no ``device`` is
+    pinned.  Fewer than two entries take the single-device path; the first
+    entry is the device the CG vectors and the results lie on.  A list that
+    mixes ``cpu`` and ``cuda``, or names ``cpu`` under the ``cuda``
+    backend, raises.
     """
 
     def __init__(
@@ -109,10 +161,19 @@ class CSVM:
         scalar_precision: str = "auto",
         gram_precision: str = "f32",
         solver: str = "automatic",
+        devices=None,
         **named_params,
     ):
         backend = BackendType.from_string(backend)
         self.target = TargetPlatform.from_string(target)
+        shard_devices = _resolve_devices(devices, device, self.target)
+        if shard_devices is not None and devices is not None:
+            if device is not None and torch.device(device) != shard_devices[0]:
+                raise InvalidParameterError(
+                    f"device '{device}' contradicts devices, whose first entry "
+                    f"is '{shard_devices[0]}'!"
+                )
+            device = shard_devices[0]
         self.device = _resolve_device(self.target, device)
         if backend == BackendType.AUTOMATIC:
             backend = (
@@ -120,6 +181,16 @@ class CSVM:
                 else BackendType.TORCH
             )
         self.backend = backend
+        if shard_devices is not None:
+            if backend == BackendType.CUDA and any(d.type == "cpu" for d in shard_devices):
+                raise InvalidParameterError(
+                    "devices names the CPU while the backend is cuda: the CUDA "
+                    "kernels do not run there!"
+                )
+            for dev in shard_devices:
+                _resolve_device(self.target, dev)
+        #: the shard devices of fit and predict, or None: one device
+        self.devices = shard_devices if shard_devices and len(shard_devices) > 1 else None
         self.dtype = np.dtype(dtype)
         if self.dtype not in _REAL_DTYPES:
             raise InvalidParameterError(
@@ -184,12 +255,13 @@ class CSVM:
         )
         add_tracking_entry("backend", "backend", str(self.backend))
         add_tracking_entry("backend", "target_platform", str(platform))
-        add_tracking_entry("backend", "device", str(self.device))
-        add_tracking_entry("backend", "num_devices", 1)
+        names = [str(d) for d in self.devices] if self.devices else [str(self.device)]
+        add_tracking_entry("backend", "device", ", ".join(names))
+        add_tracking_entry("backend", "num_devices", len(names))
         log(
             VerbosityLevel.FULL,
-            "\nUsing {} as backend on device {} ({}).\n",
-            self.backend, self.device, platform,
+            "\nUsing {} as backend on {} device(s) {} ({}).\n",
+            self.backend, len(names), ", ".join(names), platform,
         )
 
     # -- parameters --------------------------------------------------------
@@ -227,6 +299,7 @@ class CSVM:
         classification: Union[str, ClassificationType] = ClassificationType.OAA,
         initial_model: Optional[Model] = None,
         sample_weight=None,
+        checkpoint_path: Optional[str] = None,
     ) -> Model:
         """Solve the LS-SVM dual with CG and return the model.
 
@@ -235,9 +308,10 @@ class CSVM:
         Data with more than two labels trains one-vs-all (``classification
         = "oaa"``, the default): the C binary systems share the implicit
         matrix and are solved together as one block CG (an extension; the
-        reference rejects such data, data_set.hpp:443).  One-vs-one
-        training, ``initial_model`` and ``sample_weight`` are not ported
-        yet.
+        reference rejects such data, data_set.hpp:443).  With ``devices``
+        both run row-sharded (parallel/sharded.py).  One-vs-one training,
+        ``initial_model``, ``sample_weight`` and ``checkpoint_path`` are not
+        ported yet.
         """
         if epsilon <= 0.0:
             raise InvalidParameterError(
@@ -254,10 +328,10 @@ class CSVM:
                 f"max_iter must be greater than 0, but is {max_iter}!"
             )
         classification = ClassificationType.from_string(classification)
-        if initial_model is not None or sample_weight is not None:
+        if initial_model is not None or sample_weight is not None or checkpoint_path is not None:
             raise NotPortedError(
-                "initial_model and sample_weight are not ported yet (ROADMAP "
-                "Queue 1, item 4: solver extras)"
+                "initial_model, sample_weight and checkpoint_path are not ported "
+                "yet (ROADMAP Queue 1, item 4: solver extras)"
             )
         if data.is_regression:
             raise NotPortedError(
@@ -306,10 +380,11 @@ class CSVM:
             params.resolved_gamma(d), params.coef0.value, params.cost.value,
             epsilon, max_iter,
         )
+        if self.devices is not None:
+            solve_kw["devices"] = self.devices
         if multiclass:
-            result = solve_ls_svm_multi(
-                X[:dept], X[-1], y[:dept], y[-1], *solve_args, **solve_kw
-            )
+            solve = solve_ls_svm_multi_sharded if self.devices else solve_ls_svm_multi
+            result = solve(X[:dept], X[-1], y[:dept], y[-1], *solve_args, **solve_kw)
             alpha = np.vstack(
                 [result.x.cpu().numpy(), result.alpha_last.cpu().numpy()[None, :]]
             ).astype(self.dtype)
@@ -321,7 +396,8 @@ class CSVM:
             delta = float(delta_arr[worst])
             delta0 = float(delta0_arr[worst])
         else:
-            result = solve_ls_svm(
+            solve = solve_ls_svm_sharded if self.devices else solve_ls_svm
+            result = solve(
                 X[:dept], X[-1], y[:dept], float(data.y[-1]), *solve_args,
                 **solve_kw,
             )
@@ -417,12 +493,19 @@ class CSVM:
             self._tensor(model.rho) if np.ndim(model.rho) > 0
             else float(model.rho)
         )
-        values = predict_values_op(
-            sv, alpha, rho, w, points,
-            params.resolved_gamma(model.num_features), params.coef0.value,
-            kind=kind, degree=params.degree.value, impl=self._impl(),
-            precision=self.gram_precision,
-        )
+        kw = dict(kind=kind, degree=params.degree.value, impl=self._impl(),
+                  precision=self.gram_precision)
+        gamma = params.resolved_gamma(model.num_features)
+        if self.devices is not None and w is None:
+            # the support vectors row-sharded, the points on every shard
+            values = predict_values_sharded(
+                sv, alpha, rho, points, gamma, params.coef0.value,
+                devices=self.devices, **kw,
+            )
+        else:
+            values = predict_values_op(
+                sv, alpha, rho, w, points, gamma, params.coef0.value, **kw
+            )
         return values.cpu().numpy()
 
     def _predict_values_oao(self, model: Model, data: DataSet) -> np.ndarray:
@@ -447,6 +530,15 @@ class CSVM:
             )
             model._oao_shadow = (model.alpha, shadow)
         return self.predict_values(shadow, data)
+
+    def fit_multihost(self, filename: str, **kwargs) -> Model:
+        """The multi-host fit of plssvm_tpu (each host parses its row window
+        of ``filename``, the solve runs over every host's devices): not
+        ported yet."""
+        raise NotPortedError(
+            "fit_multihost is not ported yet (ROADMAP Queue 1, item 10: "
+            "parallel/multihost.py on torch.distributed)"
+        )
 
     def predict(self, model: Model, data: DataSet) -> np.ndarray:
         """Predicted labels mapped back to the original label type.

@@ -124,6 +124,8 @@ _SHORT = re.compile(
 )
 #: the tensor-core tiles (gram_tc.cuh), templates of the tier and the kind
 _TC = re.compile(r"(gram_tc_(?:sym|rect))_kernelI\w*?(Tf32|Bf16)TierELi(\d)E")
+#: the dual walks (dual.cu), one template for the Gram and distance kinds
+_DUAL = re.compile(r"(mat(?:vec|mat))_dual_kernelI([fd])Li(\d)E")
 _KINDS = {"1": "poly", "2": "rbf", "3": "sigmoid", "4": "laplacian", "5": "chi_squared"}
 
 
@@ -142,6 +144,7 @@ def kernel_resources() -> Dict[str, Dict[str, int]]:
         if entry:
             short = _SHORT.search(entry.group(1))
             tc = _TC.search(entry.group(1))
+            dual = _DUAL.search(entry.group(1))
             name = None
             if short is not None:
                 # kernel I (banded_matvec) is laplacian only: no kind parameter
@@ -154,6 +157,11 @@ def kernel_resources() -> Dict[str, Dict[str, int]]:
                 # A and C share the sym tile, B and D the rect tile: one name
                 # for both copies
                 name = f"{tc.group(1)} {tc.group(2).lower()} {_KINDS.get(tc.group(3))}"
+            elif dual is not None:
+                family = "gram" if dual.group(3) in "123" else "distance"
+                name = (f"{family}_{dual.group(1)}_dual "
+                        f"{'f32' if dual.group(2) == 'f' else 'f64'} "
+                        f"{_KINDS.get(dual.group(3))}")
             continue
         if name is None:
             continue
@@ -214,6 +222,16 @@ def load() -> ctypes.CDLL:
         banded = getattr(lib, f"plssvm_banded_matvec_{suffix}")
         banded.argtypes = [ptr] * 4 + [i64, i64, cint, real, ptr]
         banded.restype = cint
+        # kernels J-M (the dual walks): (Xr, Xc, [sq_r, sq_c,] v_c / V_c,
+        # v_r / V_r, out_r, out_c, mr, mc, d, [C,] kind, [degree,] gamma,
+        # [coef0,] stream)
+        for family, n_operands, extra in (("gram", 6, [cint, real, real]),
+                                          ("distance", 4, [real])):
+            for op, n_sizes in (("matvec", 3), ("matmat", 4)):
+                fn = getattr(lib, f"plssvm_{family}_{op}_dual_{suffix}")
+                fn.argtypes = ([ptr] * (n_operands + 2) + [i64] * n_sizes
+                               + [cint] + extra + [ptr])
+                fn.restype = cint
     f32 = ctypes.c_float
     for tier in ("tf32", "bf16"):
         # kernels A and C on the tensor-core tile: (X copy, sq, v / V, out,

@@ -10,7 +10,11 @@ binary predict — replace plssvm_tpu/ops/pallas_distance.py
 iteration — and kernel H, :func:`distance_matmat_rect` — ``K(P, S) @ A``,
 multiclass and one-vs-one predict — replace ``distance_matmat_pallas_dual``
 (through ``distance_matmat_pallas_big``) the same two ways.  The source
-note in csrc/distance.cu says what bounds them.
+note in csrc/distance.cu says what bounds them.  Kernels L,
+:func:`distance_matvec_dual`, and M, :func:`distance_matmat_dual` — ``(K(Xr,
+Xc) @ v_c, K(Xr, Xc)^T @ v_r)``, the row-sharded ring's off-diagonal block
+— are the ``symmetric=False`` dual outputs of the same two TPU kernels
+(csrc/dual.cu).
 
 As in ops/gram_matvec.py: each wrapper takes its plain PyTorch version
 (ops/matvec.py ``distance_*_plain``) for tensors that lie on the CPU, and
@@ -36,6 +40,9 @@ matvec_sym_launches = 0
 matvec_rect_launches = 0
 matmat_sym_launches = 0
 matmat_rect_launches = 0
+#: kernel launches of kernels L and M (the dual walks)
+matvec_dual_launches = 0
+matmat_dual_launches = 0
 
 
 def reset_counts() -> None:
@@ -43,12 +50,16 @@ def reset_counts() -> None:
     their plain versions."""
     global matvec_sym_launches, matvec_rect_launches
     global matmat_sym_launches, matmat_rect_launches
+    global matvec_dual_launches, matmat_dual_launches
     matvec_sym_launches = matvec_rect_launches = 0
     matmat_sym_launches = matmat_rect_launches = 0
+    matvec_dual_launches = matmat_dual_launches = 0
     _plain.dist_sym_plain_calls = 0
     _plain.dist_rect_plain_calls = 0
     _plain.dist_sym_matmat_plain_calls = 0
     _plain.dist_rect_matmat_plain_calls = 0
+    _plain.dist_dual_plain_calls = 0
+    _plain.dist_dual_matmat_plain_calls = 0
 
 
 def _check_distance_kind(kind) -> None:
@@ -58,19 +69,20 @@ def _check_distance_kind(kind) -> None:
         )
 
 
-def _launch(name, tensors, sizes, kind, gamma, out) -> torch.Tensor:
+def _launch(name, tensors, sizes, kind, gamma, *outs):
     """Run entry point ``plssvm_<name>_<suffix>`` on the tensors' device and
-    return ``out``."""
-    suffix = "f32" if out.dtype == torch.float32 else "f64"
+    return ``outs`` (one tensor, or the dual walks' two)."""
+    suffix = "f32" if outs[0].dtype == torch.float32 else "f64"
     lib = _build.load()
     fn = getattr(lib, f"plssvm_{name}_{suffix}")
-    with torch.cuda.device(out.device):
+    with torch.cuda.device(outs[0].device):
         err = fn(
-            *(t.data_ptr() for t in tensors), out.data_ptr(), *sizes,
-            int(kind), float(gamma), torch.cuda.current_stream().cuda_stream,
+            *(t.data_ptr() for t in tensors), *(o.data_ptr() for o in outs),
+            *sizes, int(kind), float(gamma),
+            torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error(lib, err, name)
-    return out
+    return outs[0] if len(outs) == 1 else outs
 
 
 def distance_matvec_sym(
@@ -174,3 +186,70 @@ def distance_matmat_rect(
     global matmat_rect_launches
     matmat_rect_launches += 1
     return out
+
+
+def distance_matvec_dual(
+    Xr: torch.Tensor,
+    Xc: torch.Tensor,
+    v_c: torch.Tensor,
+    v_r: torch.Tensor,
+    *,
+    kind: KernelFunctionType,
+    gamma: float,
+):
+    """``(K @ v_c, K.T @ v_r)`` with ``K = K(Xr, Xc)`` for a laplacian /
+    chi-squared kernel (kernel L), one walk of the block.
+
+    ``Xr`` (mr, d), ``Xc`` (mc, d), ``v_c`` (mc,), ``v_r`` (mr,).
+    """
+    _check_distance_kind(kind)
+    if Xr.device.type == "cpu":
+        return _plain.distance_matvec_dual_plain(Xr, Xc, v_c, v_r, kind=kind, gamma=gamma)
+    _require_cuda(Xr, "distance_matvec_dual")
+    mr, d = Xr.shape
+    mc = Xc.shape[0]
+    _check_tensors([("Xr", Xr), ("Xc", Xc), ("v_c", v_c), ("v_r", v_r)],
+                   [(mr, d), (mc, d), (mc,), (mr,)])
+    out_r = torch.zeros((mr,), dtype=Xr.dtype, device=Xr.device)
+    out_c = torch.zeros((mc,), dtype=Xr.dtype, device=Xr.device)
+    if mr == 0 or mc == 0:
+        return out_r, out_c
+    _launch("distance_matvec_dual", (Xr, Xc, v_c, v_r), (mr, mc, d), kind,
+            gamma, out_r, out_c)
+    global matvec_dual_launches
+    matvec_dual_launches += 1
+    return out_r, out_c
+
+
+def distance_matmat_dual(
+    Xr: torch.Tensor,
+    Xc: torch.Tensor,
+    V_c: torch.Tensor,
+    V_r: torch.Tensor,
+    *,
+    kind: KernelFunctionType,
+    gamma: float,
+):
+    """``(K @ V_c, K.T @ V_r)`` with ``K = K(Xr, Xc)`` for a laplacian /
+    chi-squared kernel (kernel M), one walk of the block.
+
+    ``Xr`` (mr, d), ``Xc`` (mc, d), ``V_c`` (mc, C), ``V_r`` (mr, C).
+    """
+    _check_distance_kind(kind)
+    if Xr.device.type == "cpu":
+        return _plain.distance_matmat_dual_plain(Xr, Xc, V_c, V_r, kind=kind, gamma=gamma)
+    _require_cuda(Xr, "distance_matmat_dual")
+    mr, d = Xr.shape
+    mc = Xc.shape[0]
+    C = V_c.shape[1] if V_c.ndim == 2 else -1
+    _check_tensors([("Xr", Xr), ("Xc", Xc), ("V_c", V_c), ("V_r", V_r)],
+                   [(mr, d), (mc, d), (mc, C), (mr, C)])
+    out_r = torch.zeros((mr, C), dtype=Xr.dtype, device=Xr.device)
+    out_c = torch.zeros((mc, C), dtype=Xr.dtype, device=Xr.device)
+    if mr == 0 or mc == 0 or C == 0:
+        return out_r, out_c
+    _launch("distance_matmat_dual", (Xr, Xc, V_c, V_r), (mr, mc, d, C), kind,
+            gamma, out_r, out_c)
+    global matmat_dual_launches
+    matmat_dual_launches += 1
+    return out_r, out_c

@@ -6,7 +6,10 @@ block-CG iteration of a one-vs-all fit — and kernel D,
 one-vs-one predict — replace plssvm_tpu/ops/pallas_matvec.py
 ``kernel_matmat_pallas_dual`` with ``symmetric=True`` (through
 ``kernel_matmat_pallas_big``) and ``symmetric=False``.  The source note in
-csrc/gram_matmat.cu says how they are built and what bounds them.
+csrc/gram_matmat.cu says how they are built and what bounds them.  Kernel
+K, :func:`gram_matmat_dual` — ``(K(Xr, Xc) @ V_c, K(Xr, Xc)^T @ V_r)``,
+the one-vs-all ring's off-diagonal block — is the same function's
+``symmetric=False`` dual output (csrc/dual.cu).
 
 As in ops/gram_matvec.py: ``precision`` is the Gram precision tier; on
 float32 CUDA tensors kernels C and D take the tensor-core tiles
@@ -17,7 +20,7 @@ the same tier for tensors that lie on the CPU, and only then; for a CUDA
 tensor it launches its kernel or raises, never falls back.  Each counts its
 launches in a plain module-level int (``sym_launches``, ``rect_launches``
 for the FFMA tile, ``sym_tc_launches``, ``rect_tc_launches`` for the
-tensor-core tiles).  V, A and the output are row-major (rows, C) for any C
+tensor-core tiles, ``dual_launches`` for kernel K).  V, A and the output are row-major (rows, C) for any C
 >= 1.
 """
 
@@ -30,6 +33,7 @@ from . import matvec as _plain
 from .gram_matvec import (
     _TC_TIERS,
     _check_gram_kind,
+    dual_operand,
     _check_operands,
     _raise_on_error,
     _require_cuda,
@@ -46,18 +50,23 @@ rect_launches = 0
 #: TF32, "bf16")
 sym_tc_launches = 0
 rect_tc_launches = 0
+#: kernel K's launches (gram_matmat_dual)
+dual_launches = 0
 
 
 def reset_counts() -> None:
     """Zero the launch counts of both kernels and the call counts of their
     plain versions."""
     global sym_launches, rect_launches, sym_tc_launches, rect_tc_launches
+    global dual_launches
     sym_launches = 0
     rect_launches = 0
     sym_tc_launches = 0
     rect_tc_launches = 0
+    dual_launches = 0
     _plain.sym_matmat_plain_calls = 0
     _plain.rect_matmat_plain_calls = 0
+    _plain.dual_matmat_plain_calls = 0
 
 
 def gram_matmat_sym(
@@ -176,3 +185,62 @@ def gram_matmat_rect(
     global rect_launches
     rect_launches += 1
     return out
+
+
+def gram_matmat_dual(
+    Xr: torch.Tensor,
+    Xc: torch.Tensor,
+    sq_r: torch.Tensor,
+    sq_c: torch.Tensor,
+    V_c: torch.Tensor,
+    V_r: torch.Tensor,
+    *,
+    kind: KernelFunctionType,
+    gamma: float,
+    coef0: float,
+    degree: int,
+    precision: str = "f32",
+):
+    """``(K @ V_c, K.T @ V_r)`` with ``K = K(Xr, Xc)`` for a poly / RBF /
+    sigmoid kernel (kernel K), one walk of the block.
+
+    ``Xr`` (mr, d), ``Xc`` (mc, d), ``sq_r`` / ``sq_c`` their squared row
+    norms, ``V_c`` (mc, C), ``V_r`` (mr, C); ``precision`` the tier, as in
+    ``gram_matvec.gram_matvec_dual``.
+    """
+    _check_gram_kind(kind)
+    _plain.check_precision(precision)
+    if Xr.device.type == "cpu":
+        return _plain.kernel_matmat_dual_plain(
+            Xr, Xc, sq_r, sq_c, V_c, V_r, kind=kind, gamma=gamma,
+            coef0=coef0, degree=degree, precision=precision,
+        )
+    _require_cuda(Xr, "gram_matmat_dual")
+    mr, d = Xr.shape
+    mc = Xc.shape[0]
+    C = V_c.shape[1] if V_c.ndim == 2 else -1
+    suffix = _check_operands(
+        kind,
+        [("Xr", Xr), ("Xc", Xc), ("sq_r", sq_r), ("sq_c", sq_c),
+         ("V_c", V_c), ("V_r", V_r)],
+        [(mr, d), (mc, d), (mr,), (mc,), (mc, C), (mr, C)],
+    )
+    out_r = torch.zeros((mr, C), dtype=Xr.dtype, device=Xr.device)
+    out_c = torch.zeros((mc, C), dtype=Xr.dtype, device=Xr.device)
+    if mr == 0 or mc == 0 or C == 0:
+        return out_r, out_c
+    Xr_op, Xc_op = dual_operand(Xr, precision), dual_operand(Xc, precision)
+    lib = _build.load()
+    fn = getattr(lib, f"plssvm_gram_matmat_dual_{suffix}")
+    with torch.cuda.device(Xr.device):
+        err = fn(
+            Xr_op.data_ptr(), Xc_op.data_ptr(), sq_r.data_ptr(),
+            sq_c.data_ptr(), V_c.data_ptr(), V_r.data_ptr(), out_r.data_ptr(),
+            out_c.data_ptr(), mr, mc, d, C, int(kind), int(degree),
+            float(gamma), float(coef0),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on_error(lib, err, "gram_matmat_dual")
+    global dual_launches
+    dual_launches += 1
+    return out_r, out_c

@@ -8,7 +8,10 @@ non-symmetric branch of ``kernel_matvec_pallas_rect``.  The source notes in
 csrc/gram_matvec.cu and csrc/gram_tc.cuh say how they are built and what
 bounds them.  :func:`kernel_matvec` replaces ``kernel_matvec_pallas`` (K6),
 the JAX package's thin wrapper that routes ``K(X, X) @ v`` to the same
-symmetric kernel; here it is one launch of kernel A.
+symmetric kernel; here it is one launch of kernel A.  Kernel J,
+:func:`gram_matvec_dual` — ``(K(Xr, Xc) @ v_c, K(Xr, Xc)^T @ v_r)``, the
+row-sharded ring's off-diagonal block (parallel/sharded.py) — replaces
+``kernel_matvec_pallas_dual`` with ``symmetric=False`` (csrc/dual.cu).
 
 ``precision`` is the Gram precision tier, as the reference's
 (``gram_precision``).  On float32 CUDA tensors kernels A and B at "f32" run
@@ -27,8 +30,8 @@ tier for tensors that lie on the CPU, and only then.  For a CUDA tensor it
 launches its kernel or raises; it never falls back.  Each counts its
 launches in a plain module-level int (``sym_launches``, ``rect_launches``
 for the FFMA tile, ``sym_tc_launches``, ``rect_tc_launches`` for the
-tensor-core tiles; ``kernel_matvec_launches`` counts kernel A's launches
-made for :func:`kernel_matvec`).  The kernels allocate nothing: the wrapper
+tensor-core tiles, ``dual_launches`` for kernel J; ``kernel_matvec_launches``
+counts kernel A's launches made for :func:`kernel_matvec`).  The kernels allocate nothing: the wrapper
 allocates the zeroed output and launches on PyTorch's current stream.
 """
 
@@ -51,6 +54,8 @@ sym_tc_launches = 0
 rect_tc_launches = 0
 #: kernel A's launches made by kernel_matvec
 kernel_matvec_launches = 0
+#: kernel J's launches (gram_matvec_dual)
+dual_launches = 0
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 #: per tier of the tensor-core tile: the entry points' suffix, the operand
@@ -62,14 +67,16 @@ def reset_counts() -> None:
     """Zero the launch counts of both kernels and the call counts of their
     plain versions."""
     global sym_launches, rect_launches, sym_tc_launches, rect_tc_launches
-    global kernel_matvec_launches
+    global kernel_matvec_launches, dual_launches
     sym_launches = 0
     rect_launches = 0
     sym_tc_launches = 0
     rect_tc_launches = 0
     kernel_matvec_launches = 0
+    dual_launches = 0
     _plain.sym_plain_calls = 0
     _plain.rect_plain_calls = 0
+    _plain.dual_plain_calls = 0
 
 
 def _check_gram_kind(kind) -> None:
@@ -144,6 +151,17 @@ def tier_operand(X: torch.Tensor, precision: str) -> torch.Tensor:
     if pad:
         op = torch.nn.functional.pad(op, (0, pad))
     return op.contiguous()
+
+
+def dual_operand(X: torch.Tensor, precision: str) -> torch.Tensor:
+    """The operand of the dual kernels J and K (the FFMA tile) at a tier:
+    for float32 ``X`` TF32-rounded at "f32" and bf16 values widened back to
+    float32 at "bf16", exact factors of a float32 product; else ``X``."""
+    if X.dtype != torch.float32 or precision == "highest":
+        return X
+    if precision == "f32":
+        return _plain.round_to_tf32(X)
+    return X.to(torch.bfloat16).to(torch.float32)
 
 
 def gram_matvec_sym(
@@ -307,3 +325,62 @@ def kernel_matvec(
     )
     kernel_matvec_launches += sym_launches + sym_tc_launches - before
     return out
+
+
+def gram_matvec_dual(
+    Xr: torch.Tensor,
+    Xc: torch.Tensor,
+    sq_r: torch.Tensor,
+    sq_c: torch.Tensor,
+    v_c: torch.Tensor,
+    v_r: torch.Tensor,
+    *,
+    kind: KernelFunctionType,
+    gamma: float,
+    coef0: float,
+    degree: int,
+    precision: str = "f32",
+):
+    """``(K @ v_c, K.T @ v_r)`` with ``K = K(Xr, Xc)`` for a poly / RBF /
+    sigmoid kernel (kernel J), one walk of the block.
+
+    ``Xr`` (mr, d) rows, ``Xc`` (mc, d) columns, ``sq_r`` / ``sq_c`` their
+    squared row norms, ``v_c`` (mc,), ``v_r`` (mr,); ``precision`` the
+    tier: on float32 CUDA tensors the kernel takes :func:`dual_operand`'s
+    copies of Xr and Xc ("f32" TF32, "bf16" bf16 values) with the given
+    norms.
+    """
+    _check_gram_kind(kind)
+    _plain.check_precision(precision)
+    if Xr.device.type == "cpu":
+        return _plain.kernel_matvec_dual_plain(
+            Xr, Xc, sq_r, sq_c, v_c, v_r, kind=kind, gamma=gamma,
+            coef0=coef0, degree=degree, precision=precision,
+        )
+    _require_cuda(Xr, "gram_matvec_dual")
+    mr, d = Xr.shape
+    mc = Xc.shape[0]
+    suffix = _check_operands(
+        kind,
+        [("Xr", Xr), ("Xc", Xc), ("sq_r", sq_r), ("sq_c", sq_c),
+         ("v_c", v_c), ("v_r", v_r)],
+        [(mr, d), (mc, d), (mr,), (mc,), (mc,), (mr,)],
+    )
+    out_r = torch.zeros((mr,), dtype=Xr.dtype, device=Xr.device)
+    out_c = torch.zeros((mc,), dtype=Xr.dtype, device=Xr.device)
+    if mr == 0 or mc == 0:
+        return out_r, out_c
+    Xr_op, Xc_op = dual_operand(Xr, precision), dual_operand(Xc, precision)
+    lib = _build.load()
+    fn = getattr(lib, f"plssvm_gram_matvec_dual_{suffix}")
+    with torch.cuda.device(Xr.device):
+        err = fn(
+            Xr_op.data_ptr(), Xc_op.data_ptr(), sq_r.data_ptr(),
+            sq_c.data_ptr(), v_c.data_ptr(), v_r.data_ptr(), out_r.data_ptr(),
+            out_c.data_ptr(), mr, mc, d, int(kind), int(degree), float(gamma),
+            float(coef0), torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on_error(lib, err, "gram_matvec_dual")
+    global dual_launches
+    dual_launches += 1
+    return out_r, out_c

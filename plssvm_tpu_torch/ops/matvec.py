@@ -22,7 +22,10 @@ their own four (``distance_*_plain``, the oracles of kernels E-H in
 ops/distance.py): the same row-blocked walk over the full square through
 ``kernel_block``'s distance branch, with no squared norms.
 ``banded_matvec_plain`` is kernel I's (ops/banded.py): the laplacian product
-split on 128-row bands.  Each counts its calls in a plain module-level int, so a run can show that its main path
+split on 128-row bands.  The four ``*_dual_plain`` versions are the oracles
+of kernels J-M (csrc/dual.cu), the row-sharded ring's off-diagonal blocks:
+``(K(Xr, Xc) @ v_c, K(Xr, Xc)^T @ v_r)`` from one row-blocked walk, at the
+tier as the Gram versions.  Each counts its calls in a plain module-level int, so a run can show that its main path
 took the kernels and not these.  Rows need no padding: the blocks follow
 the tensor's own length.
 
@@ -65,6 +68,12 @@ dist_sym_matmat_plain_calls = 0
 dist_rect_matmat_plain_calls = 0
 #: calls of banded_matvec_plain
 banded_plain_calls = 0
+#: calls of kernel_matvec_dual_plain / kernel_matmat_dual_plain /
+#: distance_matvec_dual_plain / distance_matmat_dual_plain
+dual_plain_calls = 0
+dual_matmat_plain_calls = 0
+dist_dual_plain_calls = 0
+dist_dual_matmat_plain_calls = 0
 #: rows of a band of banded_matvec_plain's split
 BAND = 128
 
@@ -254,6 +263,91 @@ def distance_matmat_rect_plain(
     return _distance_row_blocked(P, S, A, kind, gamma, row_block)
 
 
+def kernel_matvec_dual_plain(
+    Xr: torch.Tensor,
+    Xc: torch.Tensor,
+    sq_r: torch.Tensor,
+    sq_c: torch.Tensor,
+    v_c: torch.Tensor,
+    v_r: torch.Tensor,
+    *,
+    kind: KernelFunctionType,
+    gamma,
+    coef0,
+    degree: int,
+    row_block: int = DEFAULT_ROW_BLOCK,
+    precision: str = "f32",
+):
+    """``(K @ v_c, K.T @ v_r)`` with ``K = K(Xr, Xc)``: rows Xr (mr, d)
+    against columns Xc (mc, d), ``v_c`` (mc,), ``v_r`` (mr,); the argument
+    order of ``kernel_matvec_pallas_dual``."""
+    global dual_plain_calls
+    dual_plain_calls += 1
+    Xr, Xc = _at_tier(Xr, precision), _at_tier(Xc, precision)
+    return _row_blocked_dual(Xr, Xc, sq_r, sq_c, v_c, v_r, kind, gamma,
+                             coef0, degree, row_block)
+
+
+def kernel_matmat_dual_plain(
+    Xr: torch.Tensor,
+    Xc: torch.Tensor,
+    sq_r: torch.Tensor,
+    sq_c: torch.Tensor,
+    V_c: torch.Tensor,
+    V_r: torch.Tensor,
+    *,
+    kind: KernelFunctionType,
+    gamma,
+    coef0,
+    degree: int,
+    row_block: int = DEFAULT_ROW_BLOCK,
+    precision: str = "f32",
+):
+    """``(K @ V_c, K.T @ V_r)`` with ``K = K(Xr, Xc)`` for ``V_c`` (mc, C)
+    and ``V_r`` (mr, C)."""
+    global dual_matmat_plain_calls
+    dual_matmat_plain_calls += 1
+    Xr, Xc = _at_tier(Xr, precision), _at_tier(Xc, precision)
+    return _row_blocked_dual(Xr, Xc, sq_r, sq_c, V_c, V_r, kind, gamma,
+                             coef0, degree, row_block)
+
+
+def distance_matvec_dual_plain(
+    Xr: torch.Tensor,
+    Xc: torch.Tensor,
+    v_c: torch.Tensor,
+    v_r: torch.Tensor,
+    *,
+    kind: KernelFunctionType,
+    gamma,
+    row_block: int = DISTANCE_ROW_BLOCK,
+):
+    """``(K @ v_c, K.T @ v_r)`` for a laplacian / chi-squared kernel, ``K =
+    K(Xr, Xc)``."""
+    global dist_dual_plain_calls
+    dist_dual_plain_calls += 1
+    return _row_blocked_dual(Xr, Xc, None, None, v_c, v_r, kind, gamma, 0.0,
+                             0, row_block)
+
+
+def distance_matmat_dual_plain(
+    Xr: torch.Tensor,
+    Xc: torch.Tensor,
+    V_c: torch.Tensor,
+    V_r: torch.Tensor,
+    *,
+    kind: KernelFunctionType,
+    gamma,
+    row_block: int = DISTANCE_ROW_BLOCK,
+):
+    """``(K @ V_c, K.T @ V_r)`` for a distance kernel, ``V_c`` (mc, C),
+    ``V_r`` (mr, C)."""
+    global dist_dual_matmat_plain_calls
+    dist_dual_matmat_plain_calls += 1
+    return _row_blocked_dual(Xr, Xc, None, None, V_c, V_r, kind, gamma, 0.0,
+                             0, row_block)
+
+
 def banded_matvec_plain(
     XT: torch.Tensor,
     v: torch.Tensor,
@@ -306,3 +400,22 @@ def _row_blocked(X, Y, sq_x, sq_y, v, kind, gamma, coef0, degree, row_block):
         )
         out[i:i + row_block] = K_blk @ v
     return out
+
+
+def _row_blocked_dual(X, Y, sq_x, sq_y, v_y, v_x, kind, gamma, coef0, degree,
+                      row_block):
+    """(K(X, Y) @ v_y, K(X, Y).T @ v_x), one (block, mc) kernel block at a
+    time contracted both ways."""
+    out_r = torch.empty((X.shape[0],) + v_y.shape[1:], dtype=v_y.dtype,
+                        device=v_y.device)
+    out_c = torch.zeros((Y.shape[0],) + v_x.shape[1:], dtype=v_x.dtype,
+                        device=v_x.device)
+    for i in range(0, X.shape[0], row_block):
+        K_blk = kernel_block(
+            X[i:i + row_block], Y,
+            None if sq_x is None else sq_x[i:i + row_block], sq_y,
+            kind, gamma, coef0, degree,
+        )
+        out_r[i:i + row_block] = K_blk @ v_y
+        out_c += K_blk.T @ v_x[i:i + row_block]
+    return out_r, out_c

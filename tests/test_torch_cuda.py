@@ -17,7 +17,10 @@ TF32-rounded operands (``round_to_tf32``), their "bf16" tier against the
 plain version at "bf16"; and the "f32" tier against full float32 within
 the first-order bound of TF32's unit roundoff 2^-11 (``_tf32_tier_bound``).
 The chi-squared kernels are also held per entry of K
-(``test_chi_squared_per_entry``).
+(``test_chi_squared_per_entry``).  Kernels J-M (the ring's dual walks,
+csrc/dual.cu) are held, both outputs, against their plain versions on the
+tier's operands at the same tolerances, and the row-sharded ring on one
+card (P = 3 and 4 shards on ``cuda:0``) against the single-device product.
 """
 
 import pytest
@@ -588,3 +591,138 @@ def test_solve_and_predict_take_the_tier_kernels(cuda_device, tier, n_labels):
     assert (matvec.sym_plain_calls + matvec.rect_plain_calls
             + matvec.sym_matmat_plain_calls + matvec.rect_matmat_plain_calls) == 0
     assert accuracy > 0.8
+
+
+DUAL_SHAPES = [(1, 1, 5), (65, 129, 3), (300, 77, 203), (1037, 513, 37), (129, 300, 1280)]
+
+
+def _dual_case(mr, mc, d, n_classes, dtype, seed, device, non_negative=False):
+    g = torch.Generator().manual_seed(seed)
+    make = ((lambda *s: torch.rand(*s, generator=g, dtype=torch.float64)) if non_negative
+            else (lambda *s: torch.randn(*s, generator=g, dtype=torch.float64) * 0.3))
+    Xr, Xc = make(mr, d), make(mc, d)
+    if non_negative:
+        Xr[Xr < 0.3] = 0.0
+        Xc[Xc < 0.3] = 0.0
+    tail = () if n_classes is None else (n_classes,)
+    v_c = torch.randn(mc, *tail, generator=g, dtype=torch.float64)
+    v_r = torch.randn(mr, *tail, generator=g, dtype=torch.float64)
+    return [t.to(device, dtype) for t in (Xr, Xc, v_c, v_r)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,dtype,tol", [
+    ("highest", torch.float64, 1e-10), ("highest", torch.float32, 1e-4),
+    ("f32", torch.float32, 1e-4), ("bf16", torch.float32, 1e-4),
+])
+@pytest.mark.parametrize("name", list(COEF0))
+@pytest.mark.parametrize("n_classes", [None, 1, 3, 10, 37])
+@pytest.mark.parametrize("mr,mc,d", DUAL_SHAPES)
+def test_gram_dual_against_plain(cuda_device, mr, mc, d, n_classes, name, precision, dtype, tol):
+    """Kernels J (v (m,)) and K (V (m, C)) on ragged mr != mc blocks, both
+    outputs, against the plain version on the tier's operands; one launch,
+    counted in dual_launches."""
+    Xr, Xc, v_c, v_r = _dual_case(mr, mc, d, n_classes, dtype, 52, cuda_device)
+    sq_r, sq_c = (Xr * Xr).sum(-1), (Xc * Xc).sum(-1)
+    kw = dict(kind=getattr(TKind, name.upper()), gamma=1.0 / d, coef0=COEF0[name],
+              degree=3, precision=precision)
+    module, plain = ((gram_matvec, matvec.kernel_matvec_dual_plain) if n_classes is None
+                     else (gram_matmat, matvec.kernel_matmat_dual_plain))
+    kernel = gram_matvec.gram_matvec_dual if n_classes is None else gram_matmat.gram_matmat_dual
+    before = module.dual_launches
+    got = kernel(Xr, Xc, sq_r, sq_c, v_c, v_r, **kw)
+    assert module.dual_launches == before + 1
+    if precision == "f32" and dtype == torch.float32:
+        want = plain(matvec.round_to_tf32(Xr), matvec.round_to_tf32(Xc), sq_r, sq_c, v_c,
+                     v_r, **kw)
+    else:
+        want = plain(Xr, Xc, sq_r, sq_c, v_c, v_r, **kw)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        assert (g - w).abs().max() <= tol * w.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("name", ["laplacian", "chi_squared"])
+@pytest.mark.parametrize("n_classes", [None, 1, 3, 10, 37])
+@pytest.mark.parametrize("mr,mc,d", DUAL_SHAPES)
+def test_distance_dual_against_plain(cuda_device, mr, mc, d, n_classes, name, dtype, tol):
+    """Kernels L and M on ragged blocks of zero-rich rows, both outputs."""
+    Xr, Xc, v_c, v_r = _dual_case(mr, mc, d, n_classes, dtype, 53, cuda_device, True)
+    kw = dict(kind=getattr(TKind, name.upper()), gamma=1.0 / d)
+    if n_classes is None:
+        kernel, plain, counter = (distance.distance_matvec_dual,
+                                  matvec.distance_matvec_dual_plain, "matvec_dual_launches")
+    else:
+        kernel, plain, counter = (distance.distance_matmat_dual,
+                                  matvec.distance_matmat_dual_plain, "matmat_dual_launches")
+    before = getattr(distance, counter)
+    got = kernel(Xr, Xc, v_c, v_r, **kw)
+    assert getattr(distance, counter) == before + 1
+    for g, w in zip(got, plain(Xr, Xc, v_c, v_r, **kw)):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        assert (g - w).abs().max() <= tol * w.abs().max()
+
+
+@pytest.mark.cuda
+def test_dual_wrappers_check_operands(cuda_device):
+    Xr, Xc, v_c, v_r = _dual_case(20, 30, 4, None, torch.float32, 54, cuda_device)
+    sq_r, sq_c = (Xr * Xr).sum(-1), (Xc * Xc).sum(-1)
+    kw = dict(kind=TKind.RBF, gamma=0.25, coef0=0.0, degree=3)
+    with pytest.raises(ValueError, match="shape"):
+        gram_matvec.gram_matvec_dual(Xr, Xc, sq_r, sq_c, v_r, v_r, **kw)
+    with pytest.raises(ValueError, match="on cpu"):
+        gram_matvec.gram_matvec_dual(Xr, Xc, sq_r, sq_c.cpu(), v_c, v_r, **kw)
+    with pytest.raises(ValueError, match="distance kernel"):
+        gram_matvec.gram_matvec_dual(Xr, Xc, sq_r, sq_c, v_c, v_r, **dict(
+            kw, kind=TKind.LAPLACIAN))
+    with pytest.raises(ValueError, match="laplacian or chi_squared"):
+        distance.distance_matvec_dual(Xr, Xc, v_c, v_r, kind=TKind.RBF, gamma=0.25)
+    with pytest.raises(TypeError):
+        distance.distance_matmat_dual(Xr.half(), Xc.half(), v_c[:, None].half(),
+                                      v_r[:, None].half(), kind=TKind.LAPLACIAN, gamma=0.25)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [3, 4])
+@pytest.mark.parametrize("name,n_classes", [("rbf", None), ("rbf", 3), ("laplacian", None),
+                                            ("chi_squared", 10)])
+def test_ring_on_one_card(cuda_device, P, name, n_classes):
+    """The symmetric ring over P shards on cuda:0 (float64, "highest")
+    against the single-device product, and its launches: per shard one
+    symmetric launch, floor((P - 1) / 2) dual and, for even P, one
+    rows-only launch."""
+    from plssvm_tpu_torch.parallel import sharded
+
+    distance_kind = name in ("laplacian", "chi_squared")
+    X, _, _, v = _dual_case(1001, 1, 23, n_classes, torch.float64, 55, cuda_device,
+                            distance_kind)
+    sq = (X * X).sum(-1)
+    tkind = getattr(TKind, name.upper())
+    bounds = sharded.shard_bounds(1001, P)
+    devices = [cuda_device] * P
+    for module in (gram_matvec, gram_matmat, distance):
+        module.reset_counts()
+    outs = (sharded.ring_kernel_matvec if n_classes is None else sharded.ring_kernel_matmat)(
+        sharded.shard_rows(X, bounds, devices),
+        None if distance_kind else sharded.shard_rows(sq, bounds, devices),
+        sharded.shard_rows(v, bounds, devices), 1.0 / 23, 0.0, kind=tkind, degree=3,
+        impl="cuda", precision="highest")
+    if distance_kind:
+        single = (distance.distance_matvec_sym if n_classes is None
+                  else distance.distance_matmat_sym)(X, v, kind=tkind, gamma=1.0 / 23)
+        module = distance
+        sym, dual, rect = (("matvec_sym_launches", "matvec_dual_launches", "matvec_rect_launches")
+                           if n_classes is None else
+                           ("matmat_sym_launches", "matmat_dual_launches", "matmat_rect_launches"))
+    else:
+        module = gram_matvec if n_classes is None else gram_matmat
+        single = (module.gram_matvec_sym if n_classes is None else module.gram_matmat_sym)(
+            X, sq, v, kind=tkind, gamma=1.0 / 23, coef0=0.0, degree=3, precision="highest")
+        sym, dual, rect = "sym_launches", "dual_launches", "rect_launches"
+    got = torch.cat(outs)
+    assert (got - single).abs().max() <= 1e-10 * single.abs().max()
+    counts = [getattr(module, c) for c in (sym, dual, rect)]
+    # the single-device product above added one symmetric launch
+    assert counts == [P + 1, P * ((P - 1) // 2), P if P % 2 == 0 else 0]

@@ -22,6 +22,7 @@ import plssvm_tpu_torch
 import plssvm_tpu_torch.cli.train, plssvm_tpu_torch.cli.predict
 import plssvm_tpu_torch.ops.gram_matvec, plssvm_tpu_torch.ops.gram_matmat
 import plssvm_tpu_torch.ops.distance, plssvm_tpu_torch.ops.banded
+import plssvm_tpu_torch.parallel.sharded
 import plssvm_tpu_torch.tools.exp_banded_distance
 import plssvm_tpu_torch.tools.bench_matvec
 from plssvm_tpu_torch.ops import _build
