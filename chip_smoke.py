@@ -77,10 +77,12 @@ banded laplacian matvec, csrc/banded.cu) against its plain version and
 kernel E on ragged shapes and at phase 11's shape, where it is timed
 beside kernel E; and ``kernel_matvec`` against kernel A and its plain
 version, timed at kernel A's shape; and kernels J-M (the ring's dual
-walks, csrc/dual.cu), both outputs, against their plain versions on ragged
-mr != mc blocks in float32 and float64, J and K at each Gram tier, L and M
-per entry of K in float32 chi-squared, then timed at the ring phase's
-block shapes, with the cost of K and M's column atomics logged.  Beside
+walks: csrc/dual.cu, and J and K at "f32" and "bf16" on the dual
+tensor-core tile of csrc/gram_tc.cuh, whose blocks per SM it logs), both
+outputs, against their plain versions on ragged mr != mc blocks in
+float32 and float64, J and K at each Gram tier, L and M per entry of K in
+float32 chi-squared, then timed at the ring phase's block shapes (J and K
+at each tier), with the cost of K and M's column atomics logged.  Beside
 every kernel's time it
 computes the bound: the least time the card could take for the function
 on these inputs (see ``_bound``), and fails if a kernel measures faster
@@ -89,6 +91,11 @@ it holds kernels E-H in float32 chi-squared per entry of K against the
 plain version in float64 (one-hot right-hand sides pick columns of K) and
 logs each one's error beside the float32 plain version's and its share of
 the bound.
+
+``python3 chip_smoke.py --compare-build DIR`` also builds the kernels of
+another checkout (a parent commit unpacked with ``git archive``) in the
+build phase and logs, for every kernel instantiation the two share,
+whether its registers, spills and shared memory are the same.
 
 Before the last line it prints the card's name and power limit as
 nvidia-smi reports them, and one JSON object describing each kernel (the
@@ -217,7 +224,17 @@ def phase_device():
     return name, smi
 
 
-def phase_build():
+#: run in another checkout: build its kernels, print their resources
+_OTHER_BUILD = (
+    "import json; from plssvm_tpu_torch.ops import _build; _build.build(); "
+    "print(json.dumps(_build.kernel_resources()))"
+)
+
+
+def phase_build(compare=None):
+    """Build the kernels and log each instantiation's resources; with
+    ``compare`` (another checkout's root) build that one's too, in a
+    process of its own, and log which shared instantiations differ."""
     from plssvm_tpu_torch.ops import _build
 
     path, seconds = _build.build()
@@ -225,10 +242,24 @@ def phase_build():
     log("build", f"{path.name} in {seconds:.2f} s"
         + (" (nvcc ran, one process per source)" if seconds > 0
            else " (already built)"))
-    for name, res in sorted(_build.kernel_resources().items()):
+    mine = _build.kernel_resources()
+    for name, res in sorted(mine.items()):
         log("build", f"{name}: {res.get('registers')} registers, "
             f"{res.get('spill_bytes')} spill bytes, "
             f"{res.get('smem_bytes')} B static shared memory")
+    if compare is not None:
+        other = subprocess.run([sys.executable, "-c", _OTHER_BUILD], cwd=compare,
+                               capture_output=True, text=True, timeout=900)
+        if other.returncode != 0:
+            raise AssertionError(f"the build in {compare} failed:\n{other.stderr[-2000:]}")
+        theirs = json.loads(other.stdout.strip().splitlines()[-1])
+        shared = sorted(set(mine) & set(theirs))
+        differ = [n for n in shared if mine[n] != theirs[n]]
+        log("build", f"against {compare}: {len(shared)} shared instantiations, "
+            f"{len(shared) - len(differ)} with the same resources; differ: "
+            + (", ".join(f"{n} {theirs[n]} -> {mine[n]}" for n in differ) or "none")
+            + f"; only here: {', '.join(sorted(set(mine) - set(theirs))) or 'none'}; "
+            f"only there: {', '.join(sorted(set(theirs) - set(mine))) or 'none'}")
 
 
 def _operands(m, d, dtype, gen, n_points=None, n_classes=None):
@@ -663,8 +694,8 @@ RING_F64_EPSILON = 1e-10
 def _dual_pair(name, precision):
     """(kernel, plain) of a dual kernel (J-M, by wrapper name), both taking
     (Xr, Xc, [sq_r, sq_c,] V_c, V_r, **kw); the plain version on the tier's
-    operands (TF32-rounded float32 Xr and Xc at "f32", as the kernel gets
-    them)."""
+    operands (TF32-rounded float32 Xr and Xc at "f32", as the tensor-core
+    tile gets them)."""
     from plssvm_tpu_torch.ops import distance, gram_matmat, gram_matvec, matvec
 
     module = {"gram_matvec_dual": gram_matvec, "gram_matmat_dual": gram_matmat}.get(
@@ -724,20 +755,64 @@ def _dual_per_entry(X, gamma, label):
                 f"({got / plain:.2f}x)")
 
 
+def _dual_counter(name, dtype, precision):
+    """(module, counter) that a launch of dual kernel ``name`` at the tier
+    adds to: J and K on float32 at "f32" / "bf16" the tensor-core tile's
+    ``dual_tc_launches``, at "highest" and in float64 the FFMA tile's."""
+    from plssvm_tpu_torch.ops import distance, gram_matmat, gram_matvec
+
+    if name.startswith("distance"):
+        return distance, name.split("_", 1)[1].replace("dual", "dual_launches")
+    module = gram_matvec if name == "gram_matvec_dual" else gram_matmat
+    tc = dtype == torch.float32 and precision in TIER_OF
+    return module, "dual_tc_launches" if tc else "dual_launches"
+
+
+def _dual_blocks_per_sm():
+    """The dual tensor-core tile's blocks per SM for every tier and Gram
+    kind, logged; raises below the two its design needs."""
+    import ctypes
+
+    from plssvm_tpu_torch.ops import _build
+
+    lib = _build.load()
+    found = {}
+    for tier, bf16 in (("tf32", 0), ("bf16", 1)):
+        for kind, name in ((1, "poly"), (2, "rbf"), (3, "sigmoid")):
+            blocks = ctypes.c_int(0)
+            err = lib.plssvm_gram_dual_tc_blocks_per_sm(bf16, kind, ctypes.byref(blocks))
+            if err != 0:
+                raise AssertionError(f"gram_tc_dual {tier} {name}: occupancy query failed "
+                                     f"({lib.plssvm_cuda_error_string(err).decode()})")
+            found[f"{tier} {name}"] = blocks.value
+    log("kernels", "gram_tc_dual blocks per SM: " + ", ".join(
+        f"{k} {v}" for k, v in found.items()))
+    if min(found.values()) < 2:
+        raise AssertionError(f"the dual tensor-core tile fits fewer than 2 blocks an SM: {found}")
+
+
 def _dual_kernels(gen, main_err, main_ms, timing, bounds):
-    """Kernels J-M (the ring's dual walks, csrc/dual.cu) against their plain
-    versions, both outputs, on ragged mr != mc blocks, float32 and float64,
-    J and K at each Gram tier; L and M per entry of K in float32
-    chi-squared; then each timed at the ring phase's block shape beside its
-    plain version and its bound, recorded under (name, tier or kind)."""
+    """Kernels J-M (the ring's dual walks: csrc/dual.cu, and J and K on the
+    dual tensor-core tile of csrc/gram_tc.cuh at "f32" and "bf16") against
+    their plain versions, both outputs, on ragged mr != mc blocks, float32
+    and float64, J and K at each Gram tier, each launch on the tile its
+    tier names; L and M per entry of K in float32 chi-squared; then each
+    timed at the ring phase's block shape beside its plain version and its
+    bound, recorded under (name, tier or kind), J and K at "f32" (the ring
+    phase's tier) with "bf16" and the FFMA tile's "highest" logged
+    beside."""
     from plssvm_tpu_torch.parameter import KernelFunctionType as K
 
+    _dual_blocks_per_sm()
     kinds = ((K.POLYNOMIAL, 1.0), (K.RBF, 0.0), (K.SIGMOID, -0.5), (K.LAPLACIAN, 0.0),
              (K.CHI_SQUARED, 0.0))
     worst = {}
     for dtype in (torch.float32, torch.float64):
         tiers = ("highest", "f32", "bf16") if dtype == torch.float32 else ("highest",)
-        for mr, mc, d in ((1037, 513, 203), (300, 777, 1280), (129, 65, 3), (1, 1, 5)):
+        # the last two: more column tiles than a run takes (kTcMaxRun = 8),
+        # and runs of 2 with a short last one on the tensor-core tile
+        for mr, mc, d in ((1037, 513, 203), (300, 777, 1280), (129, 65, 3), (1, 1, 5),
+                          (130, 1100, 13), (2100, 17000, 37)):
             for n_classes in (None, 1, 10, 37):
                 Xr, Xc = _zero_rich(mr, d, dtype, gen), _zero_rich(mc, d, dtype, gen)
                 sq_r, sq_c = (Xr * Xr).sum(-1), (Xc * Xc).sum(-1)
@@ -755,14 +830,18 @@ def _dual_kernels(gen, main_err, main_ms, timing, bounds):
                         else:
                             args = (Xr, Xc, sq_r, sq_c, v_c, v_r)
                             kw = dict(kind=kind, gamma=1.0 / d, coef0=coef0, degree=3)
-                        rel, _ = _check_dual(f"{name} {kind} {dtype} {precision} "
-                                             f"{mr}x{mc}x{d} C={n_classes}",
-                                             kernel(*args, **kw), plain(*args, **kw))
+                        label = f"{name} {kind} {dtype} {precision} {mr}x{mc}x{d} C={n_classes}"
+                        module, counter = _dual_counter(name, dtype, precision)
+                        before = getattr(module, counter)
+                        got = kernel(*args, **kw)
+                        if getattr(module, counter) != before + 1:
+                            raise AssertionError(f"{label}: not launched on {counter}")
+                        rel, _ = _check_dual(label, got, plain(*args, **kw))
                         key = (name, str(dtype).split(".")[-1], precision)
                         worst[key] = max(worst.get(key, 0.0), rel)
     for (name, dt, precision), rel in sorted(worst.items()):
         log("kernels", f"{name} {dt} {precision}: worst max|err|/max|plain| {rel:.3e}, both "
-            "outputs, over 4 ragged mr != mc blocks x 1-37 classes"
+            "outputs, over 6 ragged mr != mc blocks x 1-37 classes"
             + (" x laplacian/chi-squared" if name.startswith("distance")
                else " x poly/rbf/sigmoid (plain on the tier's operands)"))
 
@@ -803,8 +882,8 @@ def _dual_kernels(gen, main_err, main_ms, timing, bounds):
         kernel, plain = _dual_pair(name, tier or "highest")
         mr, d = args[0].shape
         columns = n_classes or 1
-        label = f"{mr}x{mr}x{d} f32 {kind}" + (f" C={columns}" if n_classes else "") + (
-            f" {tier}" if tier else "")
+        base = f"{mr}x{mr}x{d} f32 {kind}" + (f" C={columns}" if n_classes else "")
+        label = base + (f" {tier}" if tier else "")
         key = (name, TIER_OF[tier]) if tier else (name, str(kind))
         main_err[key] = _check_dual(label, kernel(*args, **kw), plain(*args, **kw))[1]
         cost = "gram" if tier else str(kind)
@@ -819,41 +898,64 @@ def _dual_kernels(gen, main_err, main_ms, timing, bounds):
         main_ms[(name, "ring")] = (timing[key][0], bounds[key][0])
         _log_bound(name, label, timing[key][0], bounds[key])
         if tier:
-            ffma = _dual_bound(mr, mr, d, columns, cost, 4, 1)
-            log("kernels", f"{name} {label}: the FFMA tile's bound {ffma[0]:.3f} ms "
-                f"({ffma[1]}), kernel at {ffma[0] / timing[key][0]:.3f} of it")
+            _time_dual_tiers(name, args, kw, mr, d, columns, base, timing[key][0])
 
     # the atomics of the column sums: K and M issue one per column, class
     # and tile where the rectangular D and H (same tile, row sums only)
     # issue none for columns; each at 10 classes against 1 class on the
-    # same block, the dual walk beside the rectangular one
+    # same block, the dual walk beside the rectangular one, K on the FFMA
+    # tile ("highest") and on the tensor-core tiles ("f32")
     from plssvm_tpu_torch.ops import distance, gram_matmat
 
     for name, args, kw, tier, n_classes, kind in cases:
         if not n_classes:
             continue
         Xr, Xc = args[0], args[1]
-        rhs = {}
-        for c in (1, MC_CLASSES):
-            v_c, v_r = args[-2][:, :c].contiguous(), args[-1][:, :c].contiguous()
-            if name == "gram_matmat_dual":
-                sq = args[2:4]
-                walks = (
-                    (gram_matmat.gram_matmat_dual, (Xr, Xc, *sq, v_c, v_r)),
-                    (gram_matmat.gram_matmat_rect, (Xr, Xc, *sq, v_c)),
-                )
-                walk_kw = dict(kw, precision="highest")
-            else:
-                walks = ((distance.distance_matmat_dual, (Xr, Xc, v_c, v_r)),
-                         (distance.distance_matmat_rect, (Xr, Xc, v_c)))
-                walk_kw = kw
-            rhs[c] = [_median_ms(lambda: fn(*fn_args, **walk_kw), 5, 1)
-                      for fn, fn_args in walks]
-        (d1, r1), (d10, r10) = rhs[1], rhs[MC_CLASSES]
-        log("kernels", f"column atomics {name} {tuple(Xr.shape)} highest: dual walk C=1 "
-            f"{d1:.3f} ms, C={MC_CLASSES} {d10:.3f} ms (+{d10 - d1:.3f}); rectangular "
-            f"(rows only) C=1 {r1:.3f}, C={MC_CLASSES} {r10:.3f} (+{r10 - r1:.3f}); the "
-            f"classes' cost {(d10 - d1) / max(r10 - r1, 1e-9):.2f}x the rows-only one's")
+        for precision in (("highest", "f32") if tier else ("highest",)):
+            rhs = {}
+            for c in (1, MC_CLASSES):
+                v_c, v_r = args[-2][:, :c].contiguous(), args[-1][:, :c].contiguous()
+                if name == "gram_matmat_dual":
+                    sq = args[2:4]
+                    walks = (
+                        (gram_matmat.gram_matmat_dual, (Xr, Xc, *sq, v_c, v_r)),
+                        (gram_matmat.gram_matmat_rect, (Xr, Xc, *sq, v_c)),
+                    )
+                    walk_kw = dict(kw, precision=precision)
+                else:
+                    walks = ((distance.distance_matmat_dual, (Xr, Xc, v_c, v_r)),
+                             (distance.distance_matmat_rect, (Xr, Xc, v_c)))
+                    walk_kw = kw
+                rhs[c] = [_median_ms(lambda: fn(*fn_args, **walk_kw), 5, 1)
+                          for fn, fn_args in walks]
+            (d1, r1), (d10, r10) = rhs[1], rhs[MC_CLASSES]
+            log("kernels", f"column atomics {name} {tuple(Xr.shape)} {precision}: dual walk "
+                f"C=1 {d1:.3f} ms, C={MC_CLASSES} {d10:.3f} ms (+{d10 - d1:.3f}); "
+                f"rectangular (rows only) C=1 {r1:.3f}, C={MC_CLASSES} {r10:.3f} "
+                f"(+{r10 - r1:.3f}); the classes' cost "
+                f"{(d10 - d1) / max(r10 - r1, 1e-9):.2f}x the rows-only one's, "
+                f"{(d10 - d1) / d10:.1%} of the dual walk at C={MC_CLASSES}")
+
+
+def _time_dual_tiers(name, args, kw, mr, d, columns, label, tf32_ms):
+    """J or K at a ring block (``label`` its shape) beside its "f32" time
+    ``tf32_ms``: at "bf16" on the tensor-core tile against the plain version
+    at "bf16" and the bf16 bound, and on the FFMA tile ("highest", the
+    float64 fits' walk) against its own bound; logged only, the ring phase
+    runs "f32"."""
+    exp = str(kw["kind"]) == "rbf"
+    kernel, plain = _dual_pair(name, "bf16")
+    bf16_ms = _time_pair(name, kernel, plain, args, kw, float(mr) * mr * d, f"{label} bf16",
+                         unit="Tpair-feature/s", counted="mr mc d")[0]
+    _log_bound(name, f"{label} bf16", bf16_ms,
+               _dual_bound(mr, mr, d, columns, "gram", 4, 1, "bf16", exp=exp))
+    kernel, _ = _dual_pair(name, "highest")
+    ffma_ms = _median_ms(lambda: kernel(*args, **kw), 5, 1)
+    ffma = _dual_bound(mr, mr, d, columns, "gram", 4, 1)
+    _log_bound(name, f"{label} highest (the FFMA tile)", ffma_ms, ffma)
+    log("kernels", f"{name} {mr}x{mr}x{d}: the tensor-core tile at f32 (TF32) "
+        f"{tf32_ms:.3f} ms, at bf16 {bf16_ms:.3f} ms; the FFMA tile at highest "
+        f"{ffma_ms:.3f} ms ({ffma_ms / tf32_ms:.2f}x the TF32 time)")
 
 
 def _median_ms(fn, repeats=20, warmup=2):
@@ -1802,31 +1904,28 @@ def _config3_rbf_cell():
 def _ring_copy_ms(X, iteration_s, label):
     """The operand copies the ring makes per CG iteration at the "f32" tier,
     on one shard of X: per shard and product, the symmetric tensor-core
-    tile's copy of X_p (``tier_operand``), the dual walk's TF32 copies of
-    X_p and X_q (``dual_operand``, once per dual step) and the rectangular
-    tile's copies of both (``tier_operand``, for even P); logged beside the
-    iteration."""
+    tile's copy of X_p, the dual tile's copies of X_p and X_q (once per
+    dual step) and the rectangular tile's copies of both (for even P), all
+    ``tier_operand``; logged beside the iteration."""
     from plssvm_tpu_torch.ops import gram_matvec
     from plssvm_tpu_torch.parallel import sharded
 
     lo, hi = sharded.shard_bounds(X.shape[0], RING_SHARDS)[0]
     shard = X[lo:hi]
     tc = _median_ms(lambda: gram_matvec.tier_operand(shard, "f32"), 5, 1)
-    dual = _median_ms(lambda: gram_matvec.dual_operand(shard, "f32"), 5, 1)
     steps = (RING_SHARDS - 1) // 2
-    per_shard = tc + 2 * steps * dual + (2 * tc if RING_SHARDS % 2 == 0 else 0)
-    total = RING_SHARDS * per_shard
+    copies = 1 + 2 * steps + 2 * (RING_SHARDS % 2 == 0)
+    total = RING_SHARDS * copies * tc
     log("ring", f"{label}: operand copies per iteration {total:.3f} ms ({RING_SHARDS} shards "
-        f"x ({tc:.3f} tier_operand x {1 + 2 * (RING_SHARDS % 2 == 0)} + {dual:.3f} "
-        f"dual_operand x {2 * steps})), {total / 1000 / iteration_s:.3%} of the "
-        "iteration")
+        f"x {copies} tier_operand of {tc:.3f} ms: symmetric 1, dual {2 * steps}, rows-only "
+        f"{2 * (RING_SHARDS % 2 == 0)}), {total / 1000 / iteration_s:.3%} of the iteration")
 
 
 def _ring_counts(kind, matmat, dtype):
     """(dual kernel's name, [symmetric, dual, rows-only launches], launches
-    on the tile the dtype must not take, plain calls) since the last
-    reset: float32 Gram products on the tensor-core tiles (J and K on the
-    FFMA tile), float64 on the FFMA tile."""
+    on the tiles the dtype must not take, plain calls) since the last
+    reset: float32 Gram products on the tensor-core tiles, float64 on the
+    FFMA tiles."""
     from plssvm_tpu_torch.ops import distance, gram_matmat, gram_matvec, matvec
 
     op = "matmat" if matmat else "matvec"
@@ -1841,10 +1940,9 @@ def _ring_counts(kind, matmat, dtype):
                 0, plain)
     module = gram_matmat if matmat else gram_matvec
     tc = dtype == np.float32
-    counts = ([module.sym_tc_launches, module.dual_launches, module.rect_tc_launches] if tc
-              else [module.sym_launches, module.dual_launches, module.rect_launches])
-    other = (module.sym_launches + module.rect_launches if tc
-             else module.sym_tc_launches + module.rect_tc_launches)
+    ffma = [module.sym_launches, module.dual_launches, module.rect_launches]
+    cores = [module.sym_tc_launches, module.dual_tc_launches, module.rect_tc_launches]
+    counts, other = (cores, sum(ffma)) if tc else (ffma, sum(cores))
     return f"gram_{op}_dual", counts, other, plain
 
 
@@ -1886,8 +1984,8 @@ def phase_ring(cells):
     fits and predicts each cell (binary RBF at config 3's width: A, J, B;
     the 10 Gaussian classes at MNIST width: C, K, D; laplacian on config
     2's files: E, L, F; the 10 histogram classes at config 2's shape with
-    chi-squared: G, M, H) in float32 (the default path: A-D on the
-    tensor-core tiles at "f32", J and K on TF32 operands) and in float64,
+    chi-squared: G, M, H) in float32 (the default path: A-D, J and K on the
+    tensor-core tiles at "f32") and in float64,
     each beside the same fit on one device.  Gates, in both types: per
     shard and product one symmetric, one dual and (for even P) one
     rows-only launch and per shard one rectangular launch to predict,
@@ -2038,7 +2136,14 @@ def phase_bench_matvec(main_ms):
     return {"kernel_matvec": launches["kernel_matvec"]}
 
 
-def main():
+def main(argv=None):
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Drive the port's main path on one GPU.")
+    parser.add_argument("--compare-build", metavar="DIR",
+                        help="another checkout whose kernels' resources the build phase "
+                             "compares with these")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available.",
               file=sys.stderr)
@@ -2056,7 +2161,7 @@ def main():
         return result
 
     name, smi = run("device", phase_device)
-    run("build", phase_build)
+    run("build", phase_build, args.compare_build)
     main_err, main_ms, timing, bounds, g_chi_ms = run("kernels", phase_kernels)
     # per main-path phase, each kernel's launches in that phase's run
     phase_launches = {}
@@ -2141,8 +2246,8 @@ def main():
             "distance.cu", "plssvm_tpu/ops/pallas_distance.py:412"),
         "kernel_matvec": ("gram_matvec.cu", "plssvm_tpu/ops/pallas_matvec.py:984"),
         "banded_matvec": ("banded.cu", "tools/exp_banded_distance.py:107"),
-        ("gram_matvec_dual", "tf32"): ("dual.cu", "plssvm_tpu/ops/pallas_matvec.py:430"),
-        ("gram_matmat_dual", "tf32"): ("dual.cu", "plssvm_tpu/ops/pallas_matvec.py:812"),
+        ("gram_matvec_dual", "tf32"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:430"),
+        ("gram_matmat_dual", "tf32"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:812"),
         ("distance_matvec_dual", "laplacian"): (
             "dual.cu", "plssvm_tpu/ops/pallas_distance.py:226"),
         ("distance_matmat_dual", "chi_squared"): (

@@ -38,13 +38,12 @@
 // carried over from the TPU: the 128-row padding, the class-major layout
 // padded to 8, the resident column accumulator (atomics replace it).
 //
-// Tiers: these kernels have no tensor-core tile.  On float32 data the
-// wrapper passes the tier's operands at "f32" (TF32-rounded copies of Xr
-// and Xc) and "bf16" (bf16 values widened back to float32): a product of
-// two TF32 or two bf16 values is exact in float32, so the FFMA tile
-// computes the tier's function, and every product of a ring solve stays at
-// its one tier.  The squared norms are the float32 operands', as for the
-// tensor-core tiles.
+// Tiers: the walks here serve "highest" and float64.  On float32 data at
+// "f32" (TF32) and "bf16", J and K run on the dual tensor-core tile of
+// gram_tc.cuh (gram_tc_dual_kernel, instantiated here behind
+// plssvm_gram_matvec_dual_tc_* / plssvm_gram_matmat_dual_tc_*), which takes
+// the wrapper's operand copies of Xr and Xc (tier_operand) with the float32
+// operands' norms; every product of a ring solve stays at its one tier.
 //
 // What bounds them: as kernels A-H, the pair operation on the CUDA cores,
 // mr * mc * d pair evaluations (all of them, where A and E evaluate half
@@ -57,7 +56,7 @@
 
 #include <type_traits>
 
-#include "gram_tile.cuh"
+#include "gram_tc.cuh"
 
 namespace {
 
@@ -446,4 +445,53 @@ extern "C" int plssvm_distance_matmat_dual_f64(
     return matmat_dual<double>(true, Xr, Xc, nullptr, nullptr, Vc, Vr, out_r,
                                out_c, mr, mc, d, C, kind, 0, gamma, 0.0,
                                stream);
+}
+
+// Kernels J and K on the dual tensor-core tile (gram_tc.cuh): Xr and Xc the
+// tier's operand copies (mr, d_pad) and (mc, d_pad), TF32-rounded float32 or
+// bf16; sq_r, sq_c the float32 operands' norms.
+extern "C" int plssvm_gram_matvec_dual_tc_tf32(
+    const void* Xr, const void* Xc, const float* sq_r, const float* sq_c,
+    const float* v_c, const float* v_r, float* out_r, float* out_c,
+    int64_t mr, int64_t mc, int64_t d_pad, int kind, int degree, float gamma,
+    float coef0, void* stream) {
+    return tc_dual<Tf32Tier>(Xr, Xc, sq_r, sq_c, v_c, v_r, out_r, out_c, mr, mc,
+                             d_pad, 1, kind, degree, gamma, coef0, stream);
+}
+
+extern "C" int plssvm_gram_matvec_dual_tc_bf16(
+    const void* Xr, const void* Xc, const float* sq_r, const float* sq_c,
+    const float* v_c, const float* v_r, float* out_r, float* out_c,
+    int64_t mr, int64_t mc, int64_t d_pad, int kind, int degree, float gamma,
+    float coef0, void* stream) {
+    return tc_dual<Bf16Tier>(Xr, Xc, sq_r, sq_c, v_c, v_r, out_r, out_c, mr, mc,
+                             d_pad, 1, kind, degree, gamma, coef0, stream);
+}
+
+extern "C" int plssvm_gram_matmat_dual_tc_tf32(
+    const void* Xr, const void* Xc, const float* sq_r, const float* sq_c,
+    const float* Vc, const float* Vr, float* out_r, float* out_c,
+    int64_t mr, int64_t mc, int64_t d_pad, int64_t C, int kind, int degree,
+    float gamma, float coef0, void* stream) {
+    return tc_dual<Tf32Tier>(Xr, Xc, sq_r, sq_c, Vc, Vr, out_r, out_c, mr, mc,
+                             d_pad, C, kind, degree, gamma, coef0, stream);
+}
+
+extern "C" int plssvm_gram_matmat_dual_tc_bf16(
+    const void* Xr, const void* Xc, const float* sq_r, const float* sq_c,
+    const float* Vc, const float* Vr, float* out_r, float* out_c,
+    int64_t mr, int64_t mc, int64_t d_pad, int64_t C, int kind, int degree,
+    float gamma, float coef0, void* stream) {
+    return tc_dual<Bf16Tier>(Xr, Xc, sq_r, sq_c, Vc, Vr, out_r, out_c, mr, mc,
+                             d_pad, C, kind, degree, gamma, coef0, stream);
+}
+
+// Blocks of the dual tensor-core tile an SM holds at once, for the tier
+// and kind, into *blocks; returns the query's cudaError_t.
+extern "C" int plssvm_gram_dual_tc_blocks_per_sm(int bf16, int kind,
+                                                 int* blocks) {
+    return tc_dispatch(bf16 != 0, kind, [&](auto tier, auto k) {
+        return static_cast<int>(
+            tc_dual_blocks_per_sm<decltype(tier), decltype(k)::value>(*blocks));
+    });
 }

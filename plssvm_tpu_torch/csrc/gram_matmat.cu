@@ -227,8 +227,8 @@ extern "C" int plssvm_gram_matmat_sym_tf32(const void* X, const float* sq,
                                            int64_t C, int kind, int degree,
                                            float gamma, float coef0,
                                            void* stream) {
-    return tc_sym(false, X, sq, V, out, m, d_pad, C, kind, degree, gamma,
-                  coef0, stream);
+    return tc_sym<Tf32Tier>(X, sq, V, out, m, d_pad, C, kind, degree, gamma,
+                            coef0, stream);
 }
 
 extern "C" int plssvm_gram_matmat_sym_bf16(const void* X, const float* sq,
@@ -237,8 +237,8 @@ extern "C" int plssvm_gram_matmat_sym_bf16(const void* X, const float* sq,
                                            int64_t C, int kind, int degree,
                                            float gamma, float coef0,
                                            void* stream) {
-    return tc_sym(true, X, sq, V, out, m, d_pad, C, kind, degree, gamma,
-                  coef0, stream);
+    return tc_sym<Bf16Tier>(X, sq, V, out, m, d_pad, C, kind, degree, gamma,
+                            coef0, stream);
 }
 
 // Kernel D on the tensor-core tile (gram_tc.cuh): P and S the tier's
@@ -248,14 +248,14 @@ extern "C" int plssvm_gram_matmat_rect_tc_tf32(
     const void* P, const void* S, const float* sq_p, const float* sq_s,
     const float* A, float* out, int64_t n_p, int64_t n_s, int64_t d_pad,
     int64_t C, int kind, int degree, float gamma, float coef0, void* stream) {
-    return tc_rect(false, P, S, sq_p, sq_s, A, out, n_p, n_s, d_pad, C, kind,
-                   degree, gamma, coef0, stream);
+    return tc_rect<Tf32Tier>(P, S, sq_p, sq_s, A, out, n_p, n_s, d_pad, C, kind,
+                             degree, gamma, coef0, stream);
 }
 
 extern "C" int plssvm_gram_matmat_rect_tc_bf16(
     const void* P, const void* S, const float* sq_p, const float* sq_s,
     const float* A, float* out, int64_t n_p, int64_t n_s, int64_t d_pad,
     int64_t C, int kind, int degree, float gamma, float coef0, void* stream) {
-    return tc_rect(true, P, S, sq_p, sq_s, A, out, n_p, n_s, d_pad, C, kind,
-                   degree, gamma, coef0, stream);
+    return tc_rect<Bf16Tier>(P, S, sq_p, sq_s, A, out, n_p, n_s, d_pad, C, kind,
+                             degree, gamma, coef0, stream);
 }

@@ -319,8 +319,8 @@ extern "C" int plssvm_gram_matvec_sym_tf32(const void* X, const float* sq,
                                            int64_t m, int64_t d_pad,
                                            int kind, int degree, float gamma,
                                            float coef0, void* stream) {
-    return tc_sym(false, X, sq, v, out, m, d_pad, 1, kind, degree, gamma,
-                  coef0, stream);
+    return tc_sym<Tf32Tier>(X, sq, v, out, m, d_pad, 1, kind, degree, gamma,
+                            coef0, stream);
 }
 
 extern "C" int plssvm_gram_matvec_sym_bf16(const void* X, const float* sq,
@@ -328,8 +328,8 @@ extern "C" int plssvm_gram_matvec_sym_bf16(const void* X, const float* sq,
                                            int64_t m, int64_t d_pad,
                                            int kind, int degree, float gamma,
                                            float coef0, void* stream) {
-    return tc_sym(true, X, sq, v, out, m, d_pad, 1, kind, degree, gamma,
-                  coef0, stream);
+    return tc_sym<Bf16Tier>(X, sq, v, out, m, d_pad, 1, kind, degree, gamma,
+                            coef0, stream);
 }
 
 // Kernel B on the tensor-core tile (gram_tc.cuh): P and S the tier's
@@ -339,16 +339,16 @@ extern "C" int plssvm_gram_matvec_rect_tc_tf32(
     const void* P, const void* S, const float* sq_p, const float* sq_s,
     const float* a_s, float* out, int64_t n_p, int64_t n_s, int64_t d_pad,
     int kind, int degree, float gamma, float coef0, void* stream) {
-    return tc_rect(false, P, S, sq_p, sq_s, a_s, out, n_p, n_s, d_pad, 1, kind,
-                   degree, gamma, coef0, stream);
+    return tc_rect<Tf32Tier>(P, S, sq_p, sq_s, a_s, out, n_p, n_s, d_pad, 1,
+                             kind, degree, gamma, coef0, stream);
 }
 
 extern "C" int plssvm_gram_matvec_rect_tc_bf16(
     const void* P, const void* S, const float* sq_p, const float* sq_s,
     const float* a_s, float* out, int64_t n_p, int64_t n_s, int64_t d_pad,
     int kind, int degree, float gamma, float coef0, void* stream) {
-    return tc_rect(true, P, S, sq_p, sq_s, a_s, out, n_p, n_s, d_pad, 1, kind,
-                   degree, gamma, coef0, stream);
+    return tc_rect<Bf16Tier>(P, S, sq_p, sq_s, a_s, out, n_p, n_s, d_pad, 1,
+                             kind, degree, gamma, coef0, stream);
 }
 
 extern "C" const char* plssvm_cuda_error_string(int error) {

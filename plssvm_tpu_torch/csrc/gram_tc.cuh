@@ -1,8 +1,10 @@
-// The tensor-core Gram tiles of kernels A-D in the tiers "f32" (TF32
-// operands) and "bf16" (bfloat16 operands), f32 accumulation in both: the
-// symmetric K(X, X) @ V for V (m, C) (kernels A and C, C = 1 for A), and the
+// The tensor-core Gram tiles of kernels A-D, J and K in the tiers "f32"
+// (TF32 operands) and "bf16" (bfloat16 operands), f32 accumulation in both:
+// the symmetric K(X, X) @ V for V (m, C) (kernels A and C, C = 1 for A), the
 // rectangular K(P, S) @ A for points P, support vectors S and A (n_s, C)
-// (kernels B and D, C = 1 for B).
+// (kernels B and D, C = 1 for B), and the dual (K @ V_c, K^T @ V_r) of one
+// off-diagonal block K = K(Xr, Xc) of the row-sharded ring (kernels J and
+// K, C = 1 for J).
 //
 // Replaces, for those tiers, the Pallas kernels of
 // plssvm_tpu/ops/pallas_matvec.py whose Gram products run on the MXU in one
@@ -11,8 +13,11 @@
 // kernel_matvec_pallas_dual (K1) and kernel_matmat_pallas_dual (K4) with
 // symmetric=True on the symmetric tile; kernel_matvec_pallas_rect (K3, its
 // fulld and blocked bodies alike) and K4 with symmetric=False (predict) on
-// the rectangular tile.  The "highest" tier and float64 keep the FFMA
-// register tile of gram_tile.cuh.
+// the rectangular tile; K1 and K4 with symmetric=False and both outputs
+// (bodies _matvec_kernel_dual and _matmat_kernel_dual, the reference ring's
+// cross_dual in plssvm_tpu/parallel/sharded.py) on the dual tile.  The
+// "highest" tier and float64 keep the FFMA register tiles of gram_tile.cuh
+// and dual.cu.
 //
 // What bounds them on an H100: the pair work, 2 * pairs * d flops, at the
 // tensor cores' 495 TFLOP/s (TF32) or 989 TFLOP/s (bf16), is only reached
@@ -74,6 +79,20 @@
 //   rows, columns and classes are 32-bit (TMA's coordinates are 32-bit
 //   anyway).  With 64-bit indices and the zeroing the tile spilled some 300
 //   bytes at its 128-register cap and ran slower on an H100 (PERF.md).
+// - The dual walk: the rectangular walk over every tile of the mr x mc
+//   block (two tensor maps, runs, the run's row sums in shared memory), with
+//   the symmetric tile's off-diagonal epilogue on every tile.  Its bounds:
+//   2 mr mc d flops at the tier's peak, then the operand feed as above, then
+//   the two-way epilogue: per tile and class 64 FFMAs for the rows and 32
+//   plus the butterfly for the columns a thread, and 128 column atomics
+//   that no run can merge (the columns change from tile to tile; the rows
+//   take one atomic per run).  What the design does about them: the same
+//   wgmma product and TMA ring as the other tiles, two blocks an SM so one
+//   block's epilogue overlaps the other's products, and the class sums in
+//   exact f32 FFMA as the TPU kernel's contractions (a second MMA for the
+//   class contraction is untried).  The sym and rect tiles' own code stays
+//   as it was: the dual kernel is built from the rect tile's pieces and a
+//   copy of the sym tile's butterfly (tc_col_sums).
 //
 // Numerics: the wrapper hands the kernels a TF32-rounded copy of each
 // operand (round-to-nearest, ties away, as cvt.rna.tf32.f32; wgmma itself
@@ -757,6 +776,221 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     }
 }
 
+// The dual tile's shared memory beside its ring.  Two blocks an SM leave
+// each block 16 KB of it (228 KB an SM, the ring's 97 KB and the 1 KB the
+// system keeps per block), where the sym and rect tiles' 13 KB took V rows
+// of one tile, or run sums of 16 classes, 8 classes at a time: here the V
+// rows of both tiles come kTcDualChunk classes at a time, and the run keeps
+// the row sums of the first kTcDualRunClasses classes (MNIST's 10 fit).
+constexpr int kTcDualChunk = 4;
+constexpr int kTcDualRunClasses = 12;
+struct TcDualShared {
+    uint64_t full[kTcStages];
+    uint64_t empty[kTcStages];
+    float sq_r[kTcEdge];
+    float sq_c[kTcEdge];
+    float v_rows[kTcDualChunk][kTcEdge];  // V_r rows of the row tile
+    float v_cols[kTcDualChunk][kTcEdge];  // V_c rows of the column tile
+    float col_part[kTcWarps][kTcEdge];    // a class's column sums per warp
+    float row_acc[kTcDualRunClasses][kTcEdge];  // the run's row sums
+};
+static_assert(2 * (kTcSmemBytes + sizeof(TcDualShared) + 1024) <= 228 * 1024,
+              "two dual blocks must fit an SM");
+
+// One class's column sums of the kernel fragment, weighted by the V_r
+// values vr0 / vr1 of this thread's two rows: x[2 j + e] is this thread's
+// share of column 8 j + 2 q + e; the butterfly over lane bits 4, 3, 2 (28
+// shuffles for 32 columns) leaves each lane the warp's sums of x index
+// 4 (lane / 4) + p, stored in the warp's row of col_part.  The sym tile's
+// off-diagonal column sums, which keeps its own copy.
+__device__ __forceinline__ void tc_col_sums(const float (&acc)[64], float vr0,
+                                            float vr1, int lane,
+                                            float* col_part) {
+    const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+    const int q = lane % 4;
+    float x[32];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            x[2 * j + e] = acc[4 * j + e] * vr0 + acc[4 * j + 2 + e] * vr1;
+        }
+    }
+    float y[16];
+#pragma unroll
+    for (int p = 0; p < 16; ++p) {
+        const float send = b4 ? x[p] : x[p + 16];
+        const float keep = b4 ? x[p + 16] : x[p];
+        y[p] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+    }
+    float z[8];
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+        const float send = b3 ? y[p] : y[p + 8];
+        const float keep = b3 ? y[p + 8] : y[p];
+        z[p] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+    }
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+        const float send = b2 ? z[p] : z[p + 4];
+        const float keep = b2 ? z[p + 4] : z[p];
+        const float w = keep + __shfl_xor_sync(0xffffffffu, send, 4);
+        const int i = 4 * (lane / 4) + p;
+        col_part[8 * (i / 2) + 2 * q + i % 2] = w;
+    }
+}
+
+// out_r[r, c] += sum_j k(xr_r, xc_j) Vc[j, c] and out_c[j, c] += sum_r
+// k(xr_r, xc_j) Vr[r, c] over row tile it and the column tiles [jt0, jt0 +
+// run) of the mr x mc block: the rect tile's walk with both contractions.
+// Xr and Xc arrive through rmap and cmap as the tier's operand copies (mr
+// and mc rows, the same padded feature axis), nk boxes of features per tile.
+template <typename Tier, int KIND>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    gram_tc_dual_kernel(const __grid_constant__ CUtensorMap rmap,
+                        const __grid_constant__ CUtensorMap cmap,
+                        const float* __restrict__ sq_r,
+                        const float* __restrict__ sq_c,
+                        const float* __restrict__ Vc,
+                        const float* __restrict__ Vr,
+                        float* __restrict__ out_r, float* __restrict__ out_c,
+                        int mr, int mc, int C, int nk, int n_rt, int n_ct,
+                        int run, int degree, float gamma, float coef0) {
+    extern __shared__ uint8_t tc_ring[];
+    __shared__ TcDualShared sh;
+
+    const int tid = threadIdx.x;
+    int64_t it64, jt64;
+    grouped_rect_run(blockIdx.x, n_rt, (n_ct + run - 1) / run, run, it64, jt64);
+    const int row0 = static_cast<int>(it64) * kTcEdge;
+    const int jt0 = static_cast<int>(jt64);
+    const int tiles = n_ct - jt0 < run ? n_ct - jt0 : run;
+    const int total = tiles * nk;
+    const uint32_t ring = (smem_address(tc_ring) + 1023u) & ~1023u;
+
+    if (tid == 0) {
+        tc_init_barriers(sh.full, sh.empty);
+    }
+    if (tid < kTcEdge) {
+        const int r = row0 + tid;
+        sh.sq_r[tid] = r < mr ? sq_r[r] : 0.0f;
+    }
+    for (int e = tid; e < kTcDualRunClasses * kTcEdge; e += kTcThreads) {
+        sh.row_acc[e / kTcEdge][e % kTcEdge] = 0.0f;
+    }
+    __syncthreads();
+
+    // stage s <- box g of the run: feature box g % nk of the row tile and
+    // of column tile jt0 + g / nk
+    auto load = [&](int g, int s) {
+        const uint32_t bar = smem_address(&sh.full[s]);
+        const uint32_t dst = ring + s * kTcStageBytes;
+        const int feature = (g % nk) * Tier::kFeatures;
+        mbar_expect_tx(bar, kTcStageBytes);
+        tma_load(dst, &rmap, bar, feature, row0);
+        tma_load(dst + kTcOperandBytes, &cmap, bar, feature,
+                 (jt0 + g / nk) * kTcEdge);
+    };
+    if (tid == 0) {
+        for (int s = 0; s < kTcStages && s < total; ++s) {
+            load(s, s);
+        }
+    }
+
+    // the V rows of classes [c0, c0 + cn) of the row tile and of the
+    // column tile at col0
+    auto stage = [&](int col0, int c0, int cn) {
+        for (int e = tid; e < kTcEdge * cn; e += kTcThreads) {
+            const int r = e / cn;
+            const int cc = e % cn;
+            const int gr = row0 + r;
+            const int gc = col0 + r;
+            sh.v_rows[cc][r] = gr < mr ? Vr[int64_t(gr) * C + c0 + cc] : 0.0f;
+            sh.v_cols[cc][r] = gc < mc ? Vc[int64_t(gc) * C + c0 + cc] : 0.0f;
+        }
+    };
+
+    const TcFragment f(tid);
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const bool row_ok[2] = {row0 + f.rl[0] < mr, row0 + f.rl[1] < mr};
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+        acc[i] = 0.0f;
+    }
+    for (int g = 0; g < total; ++g) {
+        // a tile's first box overwrites the accumulators (scale-d 0)
+        tc_consume<Tier>(acc, ring, sh.full, sh.empty, g, total, tid,
+                         g % nk != 0, load);
+        if (g % nk != nk - 1) {
+            continue;
+        }
+        // the tile's last box: its epilogue, while the next tile's first
+        // boxes load.  The previous tile's readers of sq_c and the V rows
+        // finished before its last class's closing barrier.
+        wgmma_wait<0>();
+        fence_acc(acc);
+        const int col0 = (jt0 + g / nk) * kTcEdge;
+        if (tid < kTcEdge) {
+            const int c = col0 + tid;
+            sh.sq_c[tid] = c < mc ? sq_c[c] : 0.0f;
+        }
+        stage(col0, 0, C < kTcDualChunk ? C : kTcDualChunk);
+        __syncthreads();
+        tc_kernel_fragment<KIND>(acc, f, row_ok, sh.sq_r, sh.sq_c, col0, mc,
+                                 degree, gamma, coef0);
+        for (int c0 = 0; c0 < C; c0 += kTcDualChunk) {
+            const int cn = C - c0 < kTcDualChunk ? C - c0 : kTcDualChunk;
+            if (c0 > 0) {
+                stage(col0, c0, cn);
+                __syncthreads();
+            }
+            for (int cc = 0; cc < cn; ++cc) {
+                const int c = c0 + cc;
+                float rs[2];
+                tc_row_sums(acc, sh.v_cols[cc], f.q, rs);
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    if (f.q == 0 && row_ok[h]) {
+                        if (c < kTcDualRunClasses) {
+                            sh.row_acc[c][f.rl[h]] += rs[h];
+                        } else {
+                            atomicAdd(&out_r[int64_t(row0 + f.rl[h]) * C + c],
+                                      rs[h]);
+                        }
+                    }
+                }
+                tc_col_sums(acc, sh.v_rows[cc][f.rl[0]], sh.v_rows[cc][f.rl[1]],
+                            lane, sh.col_part[warp]);
+                __syncthreads();
+                if (tid < kTcEdge && col0 + tid < mc) {
+                    float sum = 0.0f;
+#pragma unroll
+                    for (int w = 0; w < kTcWarps; ++w) {
+                        sum += sh.col_part[w][tid];
+                    }
+                    atomicAdd(&out_c[int64_t(col0 + tid) * C + c], sum);
+                }
+                // col_part, and after a chunk's last class the V rows, are
+                // written again
+                __syncthreads();
+            }
+        }
+    }
+
+    // the run's row sums, one atomicAdd per row and class; the last class's
+    // closing barrier made them visible
+    const int rc = C < kTcDualRunClasses ? C : kTcDualRunClasses;
+    for (int e = tid; e < kTcEdge * rc; e += kTcThreads) {
+        const int r = e / rc;
+        const int c = e % rc;
+        if (row0 + r < mr) {
+            atomicAdd(&out_r[int64_t(row0 + r) * C + c], sh.row_acc[c][r]);
+        }
+    }
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*,
@@ -813,6 +1047,15 @@ bool tma_operand_ok(const void* X, int64_t rows, int64_t d_pad) {
            reinterpret_cast<uintptr_t>(X) % 16 == 0;
 }
 
+// The tensor-core kernels take kTcSmemBytes of dynamic shared memory, more
+// than the 48 KB a kernel gets without asking.
+template <typename Kernel>
+cudaError_t tc_allow_ring(Kernel kernel) {
+    return cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                kTcSmemBytes);
+}
+
 template <typename Tier, int KIND>
 cudaError_t launch_tc_sym(const void* X, const float* sq, const float* V,
                           float* out, int64_t m, int64_t d_pad, int64_t C,
@@ -831,9 +1074,7 @@ cudaError_t launch_tc_sym(const void* X, const float* sq, const float* V,
         return err;
     }
     auto kernel = gram_tc_sym_kernel<Tier, KIND>;
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kTcSmemBytes);
+    err = tc_allow_ring(kernel);
     if (err != cudaSuccess) {
         return err;
     }
@@ -861,53 +1102,113 @@ inline cudaError_t tc_run_length(int64_t tiles, int64_t& run) {
     return cudaSuccess;
 }
 
+// The grid of the rect and dual tiles over the n_r x n_c rectangle of rows
+// R and columns S (the tier's operand copies): the tensor maps of both, nk
+// boxes of features, runs of tc_run_length's length (at most the n_ct
+// column tiles) and n_rt x ceil(n_ct / run) blocks.  Every count fits the
+// kernels' 32-bit arguments.
+struct TcRectGrid {
+    CUtensorMap rmap;
+    CUtensorMap cmap;
+    int n_rt, n_ct, nk, run;
+    unsigned int blocks;
+};
+
+template <typename Tier>
+cudaError_t tc_rect_grid(const void* R, const void* S, int64_t n_r,
+                         int64_t n_c, int64_t d_pad, int64_t C,
+                         TcRectGrid& grid) {
+    const int64_t n_rt = (n_r + kTcEdge - 1) / kTcEdge;
+    const int64_t n_ct = (n_c + kTcEdge - 1) / kTcEdge;
+    const int64_t nk = (d_pad + Tier::kFeatures - 1) / Tier::kFeatures;
+    if (n_rt <= 0 || n_ct <= 0 || C <= 0 || nk <= 0 ||
+        !tma_operand_ok<Tier>(R, n_r, d_pad) ||
+        !tma_operand_ok<Tier>(S, n_c, d_pad)) {
+        return cudaErrorInvalidValue;
+    }
+    int64_t run = 0;
+    cudaError_t err = tc_run_length(n_rt * n_ct, run);
+    if (err != cudaSuccess) {
+        return err;
+    }
+    run = run < n_ct ? run : n_ct;
+    const int64_t blocks = n_rt * ((n_ct + run - 1) / run);
+    if (blocks > INT32_MAX || run * nk > INT32_MAX || C > INT32_MAX) {
+        return cudaErrorInvalidValue;
+    }
+    grid.n_rt = static_cast<int>(n_rt);
+    grid.n_ct = static_cast<int>(n_ct);
+    grid.nk = static_cast<int>(nk);
+    grid.run = static_cast<int>(run);
+    grid.blocks = static_cast<unsigned int>(blocks);
+    err = encode_operand<Tier>(&grid.rmap, R, n_r, d_pad);
+    if (err == cudaSuccess) {
+        err = encode_operand<Tier>(&grid.cmap, S, n_c, d_pad);
+    }
+    return err;
+}
+
 template <typename Tier, int KIND>
 cudaError_t launch_tc_rect(const void* P, const void* S, const float* sq_p,
                            const float* sq_s, const float* A, float* out,
                            int64_t n_p, int64_t n_s, int64_t d_pad, int64_t C,
                            int degree, float gamma, float coef0,
                            cudaStream_t stream) {
-    const int64_t n_pt = (n_p + kTcEdge - 1) / kTcEdge;
-    const int64_t n_st = (n_s + kTcEdge - 1) / kTcEdge;
-    const int64_t nk = (d_pad + Tier::kFeatures - 1) / Tier::kFeatures;
-    if (n_pt <= 0 || n_st <= 0 || C <= 0 || nk <= 0 ||
-        !tma_operand_ok<Tier>(P, n_p, d_pad) ||
-        !tma_operand_ok<Tier>(S, n_s, d_pad)) {
-        return cudaErrorInvalidValue;
-    }
-    int64_t run = 0;
-    cudaError_t err = tc_run_length(n_pt * n_st, run);
-    if (err != cudaSuccess) {
-        return err;
-    }
-    run = run < n_st ? run : n_st;
-    const int64_t blocks = n_pt * ((n_st + run - 1) / run);
-    if (blocks > INT32_MAX || run * nk > INT32_MAX || C > INT32_MAX) {
-        return cudaErrorInvalidValue;
-    }
-    CUtensorMap pmap;
-    CUtensorMap smap;
-    err = encode_operand<Tier>(&pmap, P, n_p, d_pad);
-    if (err == cudaSuccess) {
-        err = encode_operand<Tier>(&smap, S, n_s, d_pad);
-    }
+    TcRectGrid grid;
+    cudaError_t err = tc_rect_grid<Tier>(P, S, n_p, n_s, d_pad, C, grid);
     if (err != cudaSuccess) {
         return err;
     }
     auto kernel = gram_tc_rect_kernel<Tier, KIND>;
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kTcSmemBytes);
+    err = tc_allow_ring(kernel);
     if (err != cudaSuccess) {
         return err;
     }
-    kernel<<<static_cast<unsigned int>(blocks), kTcThreads, kTcSmemBytes,
-             stream>>>(pmap, smap, sq_p, sq_s, A, out, static_cast<int>(n_p),
-                       static_cast<int>(n_s), static_cast<int>(C),
-                       static_cast<int>(nk), static_cast<int>(n_pt),
-                       static_cast<int>(n_st), static_cast<int>(run), degree,
-                       gamma, coef0);
+    kernel<<<grid.blocks, kTcThreads, kTcSmemBytes, stream>>>(
+        grid.rmap, grid.cmap, sq_p, sq_s, A, out, static_cast<int>(n_p),
+        static_cast<int>(n_s), static_cast<int>(C), grid.nk, grid.n_rt,
+        grid.n_ct, grid.run, degree, gamma, coef0);
     return cudaGetLastError();
+}
+
+// Kernels J (C = 1) and K on the dual tile: Xr (mr, d_pad) and Xc (mc,
+// d_pad) the tier's operand copies, sq_r / sq_c the float32 operands'
+// norms, Vc (mc, C) and Vr (mr, C) row-major; out_r (mr, C) and out_c (mc,
+// C) accumulate.
+template <typename Tier, int KIND>
+cudaError_t launch_tc_dual(const void* Xr, const void* Xc, const float* sq_r,
+                           const float* sq_c, const float* Vc, const float* Vr,
+                           float* out_r, float* out_c, int64_t mr, int64_t mc,
+                           int64_t d_pad, int64_t C, int degree, float gamma,
+                           float coef0, cudaStream_t stream) {
+    TcRectGrid grid;
+    cudaError_t err = tc_rect_grid<Tier>(Xr, Xc, mr, mc, d_pad, C, grid);
+    if (err != cudaSuccess) {
+        return err;
+    }
+    auto kernel = gram_tc_dual_kernel<Tier, KIND>;
+    err = tc_allow_ring(kernel);
+    if (err != cudaSuccess) {
+        return err;
+    }
+    kernel<<<grid.blocks, kTcThreads, kTcSmemBytes, stream>>>(
+        grid.rmap, grid.cmap, sq_r, sq_c, Vc, Vr, out_r, out_c,
+        static_cast<int>(mr), static_cast<int>(mc), static_cast<int>(C),
+        grid.nk, grid.n_rt, grid.n_ct, grid.run, degree, gamma, coef0);
+    return cudaGetLastError();
+}
+
+// How many blocks of the dual tile an SM holds at once (the tile is
+// designed for two).
+template <typename Tier, int KIND>
+cudaError_t tc_dual_blocks_per_sm(int& blocks) {
+    auto kernel = gram_tc_dual_kernel<Tier, KIND>;
+    cudaError_t err = tc_allow_ring(kernel);
+    if (err != cudaSuccess) {
+        return err;
+    }
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, kTcThreads, kTcSmemBytes);
 }
 
 // The entry points' dispatch: launch(Tier{}, kind constant) for the tier
@@ -932,24 +1233,40 @@ int tc_dispatch(bool bf16, int kind, const Launch& launch) {
                 : tc_dispatch_kind<Tf32Tier>(kind, launch);
 }
 
-inline int tc_sym(bool bf16, const void* X, const float* sq, const float* V,
-                  float* out, int64_t m, int64_t d_pad, int64_t C, int kind,
-                  int degree, float gamma, float coef0, void* stream) {
-    return tc_dispatch(bf16, kind, [&](auto tier, auto k) {
+// The entry points' launches for their tier, dispatched on the kind.
+// Templates, so that a source instantiates only the tiles it launches.
+template <typename Tier>
+int tc_sym(const void* X, const float* sq, const float* V, float* out,
+           int64_t m, int64_t d_pad, int64_t C, int kind, int degree,
+           float gamma, float coef0, void* stream) {
+    return tc_dispatch_kind<Tier>(kind, [&](auto tier, auto k) {
         return launch_tc_sym<decltype(tier), decltype(k)::value>(
             X, sq, V, out, m, d_pad, C, degree, gamma, coef0,
             static_cast<cudaStream_t>(stream));
     });
 }
 
-inline int tc_rect(bool bf16, const void* P, const void* S, const float* sq_p,
-                   const float* sq_s, const float* A, float* out, int64_t n_p,
-                   int64_t n_s, int64_t d_pad, int64_t C, int kind,
-                   int degree, float gamma, float coef0, void* stream) {
-    return tc_dispatch(bf16, kind, [&](auto tier, auto k) {
+template <typename Tier>
+int tc_rect(const void* P, const void* S, const float* sq_p, const float* sq_s,
+            const float* A, float* out, int64_t n_p, int64_t n_s,
+            int64_t d_pad, int64_t C, int kind, int degree, float gamma,
+            float coef0, void* stream) {
+    return tc_dispatch_kind<Tier>(kind, [&](auto tier, auto k) {
         return launch_tc_rect<decltype(tier), decltype(k)::value>(
             P, S, sq_p, sq_s, A, out, n_p, n_s, d_pad, C, degree, gamma, coef0,
             static_cast<cudaStream_t>(stream));
+    });
+}
+
+template <typename Tier>
+int tc_dual(const void* Xr, const void* Xc, const float* sq_r,
+            const float* sq_c, const float* Vc, const float* Vr, float* out_r,
+            float* out_c, int64_t mr, int64_t mc, int64_t d_pad, int64_t C,
+            int kind, int degree, float gamma, float coef0, void* stream) {
+    return tc_dispatch_kind<Tier>(kind, [&](auto tier, auto k) {
+        return launch_tc_dual<decltype(tier), decltype(k)::value>(
+            Xr, Xc, sq_r, sq_c, Vc, Vr, out_r, out_c, mr, mc, d_pad, C, degree,
+            gamma, coef0, static_cast<cudaStream_t>(stream));
     });
 }
 

@@ -123,7 +123,7 @@ _SHORT = re.compile(
     r"_kernelI([fd])(?:Li(\d)E)?"
 )
 #: the tensor-core tiles (gram_tc.cuh), templates of the tier and the kind
-_TC = re.compile(r"(gram_tc_(?:sym|rect))_kernelI\w*?(Tf32|Bf16)TierELi(\d)E")
+_TC = re.compile(r"(gram_tc_(?:sym|rect|dual))_kernelI\w*?(Tf32|Bf16)TierELi(\d)E")
 #: the dual walks (dual.cu), one template for the Gram and distance kinds
 _DUAL = re.compile(r"(mat(?:vec|mat))_dual_kernelI([fd])Li(\d)E")
 _KINDS = {"1": "poly", "2": "rbf", "3": "sigmoid", "4": "laplacian", "5": "chi_squared"}
@@ -154,8 +154,8 @@ def kernel_resources() -> Dict[str, Dict[str, int]]:
                     f"{_KINDS.get(kind, kind)}"
                 )
             elif tc is not None:
-                # A and C share the sym tile, B and D the rect tile: one name
-                # for both copies
+                # A and C share the sym tile, B and D the rect tile, J and K
+                # the dual tile: one name for all copies
                 name = f"{tc.group(1)} {tc.group(2).lower()} {_KINDS.get(tc.group(3))}"
             elif dual is not None:
                 family = "gram" if dual.group(3) in "123" else "distance"
@@ -252,8 +252,19 @@ def load() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, cint, cint, f32,
             f32, ptr,
         ]
-        for name in ("matvec_sym", "matmat_sym", "matvec_rect_tc", "matmat_rect_tc"):
+        # kernels J and K: (Xr copy, Xc copy, sq_r, sq_c, v_c / V_c, v_r /
+        # V_r, out_r, out_c, mr, mc, d_pad, [C,] kind, degree, gamma, coef0,
+        # stream)
+        getattr(lib, f"plssvm_gram_matvec_dual_tc_{tier}").argtypes = (
+            [ptr] * 8 + [i64] * 3 + [cint, cint, f32, f32, ptr])
+        getattr(lib, f"plssvm_gram_matmat_dual_tc_{tier}").argtypes = (
+            [ptr] * 8 + [i64] * 4 + [cint, cint, f32, f32, ptr])
+        for name in ("matvec_sym", "matmat_sym", "matvec_rect_tc", "matmat_rect_tc",
+                     "matvec_dual_tc", "matmat_dual_tc"):
             getattr(lib, f"plssvm_gram_{name}_{tier}").restype = cint
+    # (bf16, kind, int* blocks): the dual tensor-core tile's blocks per SM
+    lib.plssvm_gram_dual_tc_blocks_per_sm.argtypes = [cint, cint, ptr]
+    lib.plssvm_gram_dual_tc_blocks_per_sm.restype = cint
     lib.plssvm_cuda_error_string.argtypes = [cint]
     lib.plssvm_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -9,19 +9,20 @@ one-vs-one predict — replace plssvm_tpu/ops/pallas_matvec.py
 csrc/gram_matmat.cu says how they are built and what bounds them.  Kernel
 K, :func:`gram_matmat_dual` — ``(K(Xr, Xc) @ V_c, K(Xr, Xc)^T @ V_r)``,
 the one-vs-all ring's off-diagonal block — is the same function's
-``symmetric=False`` dual output (csrc/dual.cu).
+``symmetric=False`` dual output (csrc/dual.cu; at "f32" and "bf16" the
+dual tensor-core tile of csrc/gram_tc.cuh).
 
 As in ops/gram_matvec.py: ``precision`` is the Gram precision tier; on
 float32 CUDA tensors kernels C and D take the tensor-core tiles
-(csrc/gram_tc.cuh: the symmetric one for C, the rectangular one for D) at
-"f32" (TF32) and "bf16" and the FFMA tile at "highest"; float64 runs the
-FFMA tile.  Each wrapper takes its plain PyTorch version (ops/matvec.py) at
+(csrc/gram_tc.cuh: the symmetric one for C, the rectangular one for D, the
+dual one for K) at "f32" (TF32) and "bf16" and the FFMA tiles at
+"highest"; float64 runs the FFMA tiles.  Each wrapper takes its plain PyTorch version (ops/matvec.py) at
 the same tier for tensors that lie on the CPU, and only then; for a CUDA
 tensor it launches its kernel or raises, never falls back.  Each counts its
 launches in a plain module-level int (``sym_launches``, ``rect_launches``
 for the FFMA tile, ``sym_tc_launches``, ``rect_tc_launches`` for the
-tensor-core tiles, ``dual_launches`` for kernel K).  V, A and the output are row-major (rows, C) for any C
->= 1.
+tensor-core tiles, ``dual_launches`` and ``dual_tc_launches`` for kernel K
+on either).  V, A and the output are row-major (rows, C) for any C >= 1.
 """
 
 from __future__ import annotations
@@ -33,10 +34,10 @@ from . import matvec as _plain
 from .gram_matvec import (
     _TC_TIERS,
     _check_gram_kind,
-    dual_operand,
     _check_operands,
     _raise_on_error,
     _require_cuda,
+    launch_dual_tc,
     launch_rect_tc,
     tier_operand,
     uses_tensor_cores,
@@ -50,20 +51,23 @@ rect_launches = 0
 #: TF32, "bf16")
 sym_tc_launches = 0
 rect_tc_launches = 0
-#: kernel K's launches (gram_matmat_dual)
+#: kernel K's launches (gram_matmat_dual) on the FFMA tile and on the
+#: tensor-core tile
 dual_launches = 0
+dual_tc_launches = 0
 
 
 def reset_counts() -> None:
     """Zero the launch counts of both kernels and the call counts of their
     plain versions."""
     global sym_launches, rect_launches, sym_tc_launches, rect_tc_launches
-    global dual_launches
+    global dual_launches, dual_tc_launches
     sym_launches = 0
     rect_launches = 0
     sym_tc_launches = 0
     rect_tc_launches = 0
     dual_launches = 0
+    dual_tc_launches = 0
     _plain.sym_matmat_plain_calls = 0
     _plain.rect_matmat_plain_calls = 0
     _plain.dual_matmat_plain_calls = 0
@@ -229,15 +233,19 @@ def gram_matmat_dual(
     out_c = torch.zeros((mc, C), dtype=Xr.dtype, device=Xr.device)
     if mr == 0 or mc == 0 or C == 0:
         return out_r, out_c
-    Xr_op, Xc_op = dual_operand(Xr, precision), dual_operand(Xc, precision)
     lib = _build.load()
+    if uses_tensor_cores(Xr, precision):
+        launch_dual_tc(lib, "matmat", Xr, Xc, sq_r, sq_c, V_c, V_r, out_r, out_c,
+                       (C,), kind, gamma, coef0, degree, precision)
+        global dual_tc_launches
+        dual_tc_launches += 1
+        return out_r, out_c
     fn = getattr(lib, f"plssvm_gram_matmat_dual_{suffix}")
     with torch.cuda.device(Xr.device):
         err = fn(
-            Xr_op.data_ptr(), Xc_op.data_ptr(), sq_r.data_ptr(),
-            sq_c.data_ptr(), V_c.data_ptr(), V_r.data_ptr(), out_r.data_ptr(),
-            out_c.data_ptr(), mr, mc, d, C, int(kind), int(degree),
-            float(gamma), float(coef0),
+            Xr.data_ptr(), Xc.data_ptr(), sq_r.data_ptr(), sq_c.data_ptr(),
+            V_c.data_ptr(), V_r.data_ptr(), out_r.data_ptr(), out_c.data_ptr(),
+            mr, mc, d, C, int(kind), int(degree), float(gamma), float(coef0),
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error(lib, err, "gram_matmat_dual")

@@ -11,27 +11,30 @@ the JAX package's thin wrapper that routes ``K(X, X) @ v`` to the same
 symmetric kernel; here it is one launch of kernel A.  Kernel J,
 :func:`gram_matvec_dual` — ``(K(Xr, Xc) @ v_c, K(Xr, Xc)^T @ v_r)``, the
 row-sharded ring's off-diagonal block (parallel/sharded.py) — replaces
-``kernel_matvec_pallas_dual`` with ``symmetric=False`` (csrc/dual.cu).
+``kernel_matvec_pallas_dual`` with ``symmetric=False`` (csrc/dual.cu at
+"highest" and in float64, the dual tensor-core tile of csrc/gram_tc.cuh at
+"f32" and "bf16").
 
 ``precision`` is the Gram precision tier, as the reference's
 (``gram_precision``).  On float32 CUDA tensors kernels A and B at "f32" run
 on the tensor-core tiles (csrc/gram_tc.cuh: the symmetric one for A, the
-rectangular one for B) with TF32 operands, at "bf16" on the same tiles with
-bf16 operands, f32 accumulation in both; at "highest" on the FFMA register
-tile (csrc/gram_tile.cuh), full float32.  float64 runs the FFMA tile in
-float64 at every tier.  The tensor-core tiles take operand copies
-(:func:`tier_operand`: TF32-rounded or bf16, the feature axis padded to a
-16-byte row) of X, or of P and S, which the wrapper makes per call: for
-kernel A at MNIST's width they take under 4 % of the kernel's time on an
-H100.
+rectangular one for B, the dual one for J) with TF32 operands, at "bf16" on
+the same tiles with bf16 operands, f32 accumulation in both; at "highest"
+on the FFMA register tiles (csrc/gram_tile.cuh, csrc/dual.cu), full
+float32.  float64 runs the FFMA tiles in float64 at every tier.  The
+tensor-core tiles take operand copies (:func:`tier_operand`: TF32-rounded
+or bf16, the feature axis padded to a 16-byte row) of X, of P and S, or of
+Xr and Xc, which the wrapper makes per call: for kernel A at MNIST's width
+they take under 4 % of the kernel's time on an H100.
 
 Each wrapper takes its plain PyTorch version (ops/matvec.py) at the same
 tier for tensors that lie on the CPU, and only then.  For a CUDA tensor it
 launches its kernel or raises; it never falls back.  Each counts its
 launches in a plain module-level int (``sym_launches``, ``rect_launches``
 for the FFMA tile, ``sym_tc_launches``, ``rect_tc_launches`` for the
-tensor-core tiles, ``dual_launches`` for kernel J; ``kernel_matvec_launches``
-counts kernel A's launches made for :func:`kernel_matvec`).  The kernels allocate nothing: the wrapper
+tensor-core tiles, ``dual_launches`` and ``dual_tc_launches`` for kernel
+J on either; ``kernel_matvec_launches`` counts kernel A's launches made for
+:func:`kernel_matvec`).  The kernels allocate nothing: the wrapper
 allocates the zeroed output and launches on PyTorch's current stream.
 """
 
@@ -54,8 +57,10 @@ sym_tc_launches = 0
 rect_tc_launches = 0
 #: kernel A's launches made by kernel_matvec
 kernel_matvec_launches = 0
-#: kernel J's launches (gram_matvec_dual)
+#: kernel J's launches (gram_matvec_dual) on the FFMA tile and on the
+#: tensor-core tile
 dual_launches = 0
+dual_tc_launches = 0
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 #: per tier of the tensor-core tile: the entry points' suffix, the operand
@@ -67,13 +72,14 @@ def reset_counts() -> None:
     """Zero the launch counts of both kernels and the call counts of their
     plain versions."""
     global sym_launches, rect_launches, sym_tc_launches, rect_tc_launches
-    global kernel_matvec_launches, dual_launches
+    global kernel_matvec_launches, dual_launches, dual_tc_launches
     sym_launches = 0
     rect_launches = 0
     sym_tc_launches = 0
     rect_tc_launches = 0
     kernel_matvec_launches = 0
     dual_launches = 0
+    dual_tc_launches = 0
     _plain.sym_plain_calls = 0
     _plain.rect_plain_calls = 0
     _plain.dual_plain_calls = 0
@@ -151,17 +157,6 @@ def tier_operand(X: torch.Tensor, precision: str) -> torch.Tensor:
     if pad:
         op = torch.nn.functional.pad(op, (0, pad))
     return op.contiguous()
-
-
-def dual_operand(X: torch.Tensor, precision: str) -> torch.Tensor:
-    """The operand of the dual kernels J and K (the FFMA tile) at a tier:
-    for float32 ``X`` TF32-rounded at "f32" and bf16 values widened back to
-    float32 at "bf16", exact factors of a float32 product; else ``X``."""
-    if X.dtype != torch.float32 or precision == "highest":
-        return X
-    if precision == "f32":
-        return _plain.round_to_tf32(X)
-    return X.to(torch.bfloat16).to(torch.float32)
 
 
 def gram_matvec_sym(
@@ -346,9 +341,9 @@ def gram_matvec_dual(
 
     ``Xr`` (mr, d) rows, ``Xc`` (mc, d) columns, ``sq_r`` / ``sq_c`` their
     squared row norms, ``v_c`` (mc,), ``v_r`` (mr,); ``precision`` the
-    tier: on float32 CUDA tensors the kernel takes :func:`dual_operand`'s
-    copies of Xr and Xc ("f32" TF32, "bf16" bf16 values) with the given
-    norms.
+    tier: on float32 CUDA tensors "f32" and "bf16" take the dual
+    tensor-core tile on :func:`tier_operand`'s copies of Xr and Xc with the
+    given norms, "highest" the FFMA tile.
     """
     _check_gram_kind(kind)
     _plain.check_precision(precision)
@@ -370,17 +365,41 @@ def gram_matvec_dual(
     out_c = torch.zeros((mc,), dtype=Xr.dtype, device=Xr.device)
     if mr == 0 or mc == 0:
         return out_r, out_c
-    Xr_op, Xc_op = dual_operand(Xr, precision), dual_operand(Xc, precision)
     lib = _build.load()
+    if uses_tensor_cores(Xr, precision):
+        launch_dual_tc(lib, "matvec", Xr, Xc, sq_r, sq_c, v_c, v_r, out_r, out_c,
+                       (), kind, gamma, coef0, degree, precision)
+        global dual_tc_launches
+        dual_tc_launches += 1
+        return out_r, out_c
     fn = getattr(lib, f"plssvm_gram_matvec_dual_{suffix}")
     with torch.cuda.device(Xr.device):
         err = fn(
-            Xr_op.data_ptr(), Xc_op.data_ptr(), sq_r.data_ptr(),
-            sq_c.data_ptr(), v_c.data_ptr(), v_r.data_ptr(), out_r.data_ptr(),
-            out_c.data_ptr(), mr, mc, d, int(kind), int(degree), float(gamma),
-            float(coef0), torch.cuda.current_stream().cuda_stream,
+            Xr.data_ptr(), Xc.data_ptr(), sq_r.data_ptr(), sq_c.data_ptr(),
+            v_c.data_ptr(), v_r.data_ptr(), out_r.data_ptr(), out_c.data_ptr(),
+            mr, mc, d, int(kind), int(degree), float(gamma), float(coef0),
+            torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error(lib, err, "gram_matvec_dual")
     global dual_launches
     dual_launches += 1
     return out_r, out_c
+
+
+def launch_dual_tc(lib, op, Xr, Xc, sq_r, sq_c, w_c, w_r, out_r, out_c, classes,
+                   kind, gamma, coef0, degree, precision) -> None:
+    """Launch kernel J (``op`` "matvec", ``classes`` ()) or K ("matmat",
+    ``classes`` (C,)) on the dual tensor-core tile: the tier's operand
+    copies of Xr and Xc, the float32 norms.  Raises on a failed launch;
+    counts nothing."""
+    Xr_op, Xc_op = tier_operand(Xr, precision), tier_operand(Xc, precision)
+    fn = getattr(lib, f"plssvm_gram_{op}_dual_tc_{_TC_TIERS[precision][0]}")
+    with torch.cuda.device(Xr.device):
+        err = fn(
+            Xr_op.data_ptr(), Xc_op.data_ptr(), sq_r.data_ptr(), sq_c.data_ptr(),
+            w_c.data_ptr(), w_r.data_ptr(), out_r.data_ptr(), out_c.data_ptr(),
+            Xr.shape[0], Xc.shape[0], Xr_op.shape[1], *classes, int(kind),
+            int(degree), float(gamma), float(coef0),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on_error(lib, err, f"gram_{op}_dual (tensor cores)")

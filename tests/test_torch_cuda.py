@@ -18,9 +18,11 @@ plain version at "bf16"; and the "f32" tier against full float32 within
 the first-order bound of TF32's unit roundoff 2^-11 (``_tf32_tier_bound``).
 The chi-squared kernels are also held per entry of K
 (``test_chi_squared_per_entry``).  Kernels J-M (the ring's dual walks,
-csrc/dual.cu) are held, both outputs, against their plain versions on the
-tier's operands at the same tolerances, and the row-sharded ring on one
-card (P = 3 and 4 shards on ``cuda:0``) against the single-device product.
+csrc/dual.cu; J and K at "f32" and "bf16" on the dual tensor-core tile of
+csrc/gram_tc.cuh) are held, both outputs, against their plain versions on
+the tier's operands at the same tolerances, and the row-sharded ring on
+one card (P = 3 and 4 shards on ``cuda:0``) against the single-device
+product at the same tier.
 """
 
 import pytest
@@ -593,7 +595,12 @@ def test_solve_and_predict_take_the_tier_kernels(cuda_device, tier, n_labels):
     assert accuracy > 0.8
 
 
-DUAL_SHAPES = [(1, 1, 5), (65, 129, 3), (300, 77, 203), (1037, 513, 37), (129, 300, 1280)]
+#: ragged blocks: d not a multiple of 4 or 8 (TMA pads the tensor-core
+#: tile's operand copies), mr or mc under one 128-row tile, more column
+#: tiles than a run of the tensor-core tile takes (kTcMaxRun = 8), and
+#: enough tiles for runs of 2 with a short last run (2100 x 17000)
+DUAL_SHAPES = [(1, 1, 5), (65, 129, 3), (300, 77, 203), (1037, 513, 37), (129, 300, 1280),
+               (130, 1100, 13), (2100, 17000, 37)]
 
 
 def _dual_case(mr, mc, d, n_classes, dtype, seed, device, non_negative=False):
@@ -621,7 +628,9 @@ def _dual_case(mr, mc, d, n_classes, dtype, seed, device, non_negative=False):
 def test_gram_dual_against_plain(cuda_device, mr, mc, d, n_classes, name, precision, dtype, tol):
     """Kernels J (v (m,)) and K (V (m, C)) on ragged mr != mc blocks, both
     outputs, against the plain version on the tier's operands; one launch,
-    counted in dual_launches."""
+    on the dual tensor-core tile (dual_tc_launches) at "f32" and "bf16" on
+    float32, on the FFMA tile (dual_launches) at "highest" and in
+    float64."""
     Xr, Xc, v_c, v_r = _dual_case(mr, mc, d, n_classes, dtype, 52, cuda_device)
     sq_r, sq_c = (Xr * Xr).sum(-1), (Xc * Xc).sum(-1)
     kw = dict(kind=getattr(TKind, name.upper()), gamma=1.0 / d, coef0=COEF0[name],
@@ -629,9 +638,11 @@ def test_gram_dual_against_plain(cuda_device, mr, mc, d, n_classes, name, precis
     module, plain = ((gram_matvec, matvec.kernel_matvec_dual_plain) if n_classes is None
                      else (gram_matmat, matvec.kernel_matmat_dual_plain))
     kernel = gram_matvec.gram_matvec_dual if n_classes is None else gram_matmat.gram_matmat_dual
-    before = module.dual_launches
+    before = module.dual_launches, module.dual_tc_launches
     got = kernel(Xr, Xc, sq_r, sq_c, v_c, v_r, **kw)
-    assert module.dual_launches == before + 1
+    tc = precision != "highest" and dtype == torch.float32
+    assert (module.dual_launches, module.dual_tc_launches) == (
+        before[0] + (not tc), before[1] + tc)
     if precision == "f32" and dtype == torch.float32:
         want = plain(matvec.round_to_tf32(Xr), matvec.round_to_tf32(Xc), sq_r, sq_c, v_c,
                      v_r, **kw)
@@ -686,20 +697,27 @@ def test_dual_wrappers_check_operands(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("P", [3, 4])
-@pytest.mark.parametrize("name,n_classes", [("rbf", None), ("rbf", 3), ("laplacian", None),
-                                            ("chi_squared", 10)])
-def test_ring_on_one_card(cuda_device, P, name, n_classes):
-    """The symmetric ring over P shards on cuda:0 (float64, "highest")
-    against the single-device product, and its launches: per shard one
-    symmetric launch, floor((P - 1) / 2) dual and, for even P, one
-    rows-only launch."""
+@pytest.mark.parametrize("name,n_classes,precision,dtype", [
+    ("rbf", None, "highest", torch.float64), ("rbf", 3, "highest", torch.float64),
+    ("laplacian", None, "highest", torch.float64), ("chi_squared", 10, "highest", torch.float64),
+    ("rbf", None, "f32", torch.float32), ("sigmoid", 3, "f32", torch.float32),
+    ("polynomial", 10, "bf16", torch.float32),
+])
+def test_ring_on_one_card(cuda_device, P, name, n_classes, precision, dtype):
+    """The symmetric ring over P shards on cuda:0 against the single-device
+    product at the same tier, and its launches: per shard one symmetric
+    launch, floor((P - 1) / 2) dual and, for even P, one rows-only launch,
+    on the FFMA tiles in float64 and on the tensor-core tiles (sym_tc,
+    dual_tc, rect_tc) in float32 at "f32" and "bf16", none on the other
+    kind of tile.  Float64 within 1e-10 of max|single|, float32 within 1e-4
+    (the same tier's products summed in another order)."""
     from plssvm_tpu_torch.parallel import sharded
 
     distance_kind = name in ("laplacian", "chi_squared")
-    X, _, _, v = _dual_case(1001, 1, 23, n_classes, torch.float64, 55, cuda_device,
-                            distance_kind)
+    X, _, _, v = _dual_case(1001, 1, 23, n_classes, dtype, 55, cuda_device, distance_kind)
     sq = (X * X).sum(-1)
     tkind = getattr(TKind, name.upper())
+    gamma, coef0 = 1.0 / 23, COEF0.get(name, 0.0)
     bounds = sharded.shard_bounds(1001, P)
     devices = [cuda_device] * P
     for module in (gram_matvec, gram_matmat, distance):
@@ -707,8 +725,8 @@ def test_ring_on_one_card(cuda_device, P, name, n_classes):
     outs = (sharded.ring_kernel_matvec if n_classes is None else sharded.ring_kernel_matmat)(
         sharded.shard_rows(X, bounds, devices),
         None if distance_kind else sharded.shard_rows(sq, bounds, devices),
-        sharded.shard_rows(v, bounds, devices), 1.0 / 23, 0.0, kind=tkind, degree=3,
-        impl="cuda", precision="highest")
+        sharded.shard_rows(v, bounds, devices), gamma, coef0, kind=tkind, degree=3,
+        impl="cuda", precision=precision)
     if distance_kind:
         single = (distance.distance_matvec_sym if n_classes is None
                   else distance.distance_matmat_sym)(X, v, kind=tkind, gamma=1.0 / 23)
@@ -719,10 +737,15 @@ def test_ring_on_one_card(cuda_device, P, name, n_classes):
     else:
         module = gram_matvec if n_classes is None else gram_matmat
         single = (module.gram_matvec_sym if n_classes is None else module.gram_matmat_sym)(
-            X, sq, v, kind=tkind, gamma=1.0 / 23, coef0=0.0, degree=3, precision="highest")
-        sym, dual, rect = "sym_launches", "dual_launches", "rect_launches"
+            X, sq, v, kind=tkind, gamma=gamma, coef0=coef0, degree=3, precision=precision)
+        tiles = ("sym_launches", "dual_launches", "rect_launches")
+        cores = ("sym_tc_launches", "dual_tc_launches", "rect_tc_launches")
+        (sym, dual, rect), other = (cores, tiles) if dtype == torch.float32 else (tiles, cores)
+        assert sum(getattr(module, c) for c in other) == 0
     got = torch.cat(outs)
-    assert (got - single).abs().max() <= 1e-10 * single.abs().max()
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    assert torch.isfinite(got).all()
+    assert (got - single).abs().max() <= tol * single.abs().max()
     counts = [getattr(module, c) for c in (sym, dual, rect)]
     # the single-device product above added one symmetric launch
     assert counts == [P + 1, P * ((P - 1) // 2), P if P % 2 == 0 else 0]

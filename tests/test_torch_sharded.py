@@ -218,23 +218,6 @@ def test_cpu_wrappers_take_the_dual_plain_versions():
     assert matvec.dual_plain_calls == 2 and matvec.dist_dual_plain_calls == 2
 
 
-@pytest.mark.parametrize("tier", ["f32", "bf16"])
-def test_dual_operand_is_an_exact_factor(tier):
-    """The dual kernels' operand at "f32" / "bf16": TF32 / bf16 values in
-    float32, so a product of two is exact in float32; "highest" and float64
-    take X itself."""
-    rng = np.random.default_rng(86)
-    X = torch.from_numpy(rng.normal(size=(50, 7)).astype(np.float32))
-    op = gram_matvec.dual_operand(X, tier)
-    bits = 13 if tier == "f32" else 16
-    assert op.dtype == torch.float32 and op.shape == X.shape
-    assert not (op.view(torch.int32) & ((1 << bits) - 1)).any()
-    prod = op[:, None, :] * op[None, :, :]
-    assert torch.equal(prod.double(), op.double()[:, None, :] * op.double()[None, :, :])
-    assert gram_matvec.dual_operand(X, "highest") is X
-    assert gram_matvec.dual_operand(X.double(), tier).dtype == torch.float64
-
-
 def test_kernel_resources_names_the_dual_walks(tmp_path, monkeypatch):
     """kernel_resources() names kernels J-M by family, type and kind."""
     library = tmp_path / "libplssvm_gram_0.so"
@@ -256,6 +239,39 @@ def test_kernel_resources_names_the_dual_walks(tmp_path, monkeypatch):
         "gram_matvec_dual f32 rbf": {"registers": 96, "smem_bytes": 24832},
         "distance_matmat_dual f64 chi_squared": {
             "spill_bytes": 16, "registers": 64, "smem_bytes": 16384},
+    }
+
+
+@pytest.mark.parametrize("tier,mangled", [("tf32", "Tf32"), ("bf16", "Bf16")])
+def test_kernel_resources_names_the_dual_tensor_core_tile(tier, mangled, tmp_path,
+                                                          monkeypatch):
+    """kernel_resources() names the dual tensor-core tile of J and K by tier
+    and kind, apart from the FFMA dual walks and the other tiles."""
+    library = tmp_path / "libplssvm_gram_0.so"
+    library.with_name(library.name + ".ptxas.txt").write_text(
+        "== dual.cu\n"
+        "ptxas info    : Compiling entry function "
+        f"'_ZN12_GLOBAL__N_119gram_tc_dual_kernelINS_8{mangled}TierELi2EEEv14CUtensorMap_stS2_"
+        "PKfS4_S4_S4_PfS5_iiiiiiiifff' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 128 registers, 15408 bytes smem, 952 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function "
+        f"'_ZN12_GLOBAL__N_119gram_tc_dual_kernelINS_8{mangled}TierELi3EEEv14CUtensorMap_stS2_"
+        "PKfS4_S4_S4_PfS5_iiiiiiiifff' for 'sm_90a'\n"
+        "    32 bytes stack frame, 32 bytes spill stores, 32 bytes spill loads\n"
+        "ptxas info    : Used 128 registers, 15408 bytes smem, 952 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_118matvec_dual_kernelIfLi2EEEvPKT_S3_S3_S3_S3_S3_PS1_S4_lllliS1_S1_' "
+        "for 'sm_90a'\n"
+        "ptxas info    : Used 96 registers, 24832 bytes smem, 460 bytes cmem[0]\n",
+        encoding="utf-8",
+    )
+    monkeypatch.setattr(_build, "library_path", lambda: library)
+    assert _build.kernel_resources() == {
+        f"gram_tc_dual {tier} rbf": {"spill_bytes": 0, "registers": 128, "smem_bytes": 15408},
+        f"gram_tc_dual {tier} sigmoid": {
+            "spill_bytes": 64, "registers": 128, "smem_bytes": 15408},
+        "gram_matvec_dual f32 rbf": {"registers": 96, "smem_bytes": 24832},
     }
 
 
@@ -284,6 +300,29 @@ def test_dual_bound_counts_every_pair(cost, columns):
     assert ms == pytest.approx(max(ops_s, bytes_s) * 1e3, rel=1e-12)
     sym_ms, _ = chip_smoke._sym_bound(mr, d, columns, cost, 4)
     assert ms > 1.9 * sym_ms
+
+
+@pytest.mark.parametrize("columns", [1, 10])
+@pytest.mark.parametrize("tier", ["tf32", "bf16"])
+def test_dual_bound_on_the_tensor_cores(tier, columns):
+    """chip_smoke.py's bound of J and K on the dual tensor-core tile: 2 mr
+    mc d flops at the tier's peak beside 2 mr mc FFMAs per column and one
+    SFU exp per pair (RBF), the largest of the three; the operand copies at
+    the tier's size and the rest at float32 moved once."""
+    chip_smoke = _chip_smoke()
+    mr, mc, d = 15000, 12500, 784
+    ms, by = chip_smoke._dual_bound(mr, mc, d, columns, "gram", 4, 1, tier, exp=True)
+    peak, itemsize = chip_smoke.TC_TIERS[tier]
+    ops_s = max(2.0 * mr * mc * d / peak,
+                2.0 * mr * mc * columns / chip_smoke.FP32_INSTR_PER_S,
+                mr * mc / chip_smoke.SFU_OPS_PER_S)
+    bytes_s = (itemsize * (mr + mc) * d + 4 * (mr + mc) * (2 * columns + 1)) / \
+        chip_smoke.HBM_BYTES_PER_S
+    assert by == "operations"
+    assert ms == pytest.approx(max(ops_s, bytes_s) * 1e3, rel=1e-12)
+    # the products bound it, and the FFMA tile's bound is far above
+    assert ms == pytest.approx(2e3 * mr * mc * d / peak, rel=1e-12)
+    assert chip_smoke._dual_bound(mr, mc, d, columns, "gram", 4, 1)[0] > 7 * ms
 
 
 # -- (b) the ring against the reference's ring ------------------------------
