@@ -12,25 +12,28 @@ Phases, one line each or more (the run stops at the first that fails):
    kernel C (gram_matmat_sym) and kernel D (gram_matmat_rect) against their
    plain PyTorch versions on the card, poly / RBF / sigmoid in float32 and
    float64, ragged and multi-tile shapes, 1 to 37 classes, and the main
-   paths' own shapes, at each Gram tier: "highest" (and float64) on the
-   FFMA tile; at "f32" (TF32) and "bf16" A and C on the symmetric
-   tensor-core tile (``*_sym_tc``), B and D on the rectangular one
-   (``*_rect_tc``), held against the plain version on the tier's operands,
-   and B and D at "f32" against full float32 within the first-order TF32
-   bound; then all timed against their plain versions, beside the operand
-   copies' time and torch.matmul yardsticks in float32, TF32 and bf16;
+   paths' own shapes, at each Gram tier: "highest" on the FFMA tile; at
+   "f32" (TF32) and "bf16" A and C on the symmetric tensor-core tile
+   (``*_sym_tc``), B and D on the rectangular one (``*_rect_tc``), held
+   against the plain version on the tier's operands, and B and D at "f32"
+   against full float32 within the first-order TF32 bound; in float64, at
+   every tier, A and C on the FP64 tensor cores (the DMMA tile,
+   ``*_sym_dmma``) and B and D on the FFMA tile; then all timed against
+   their plain versions, beside the operand copies' time and torch.matmul
+   yardsticks in float32, TF32, bf16 and float64;
 4. end to end, BASELINE config 2: RBF on a seeded two-class 10000 x 200
    set, trained with plssvm-torch-train (the default "f32" tier: kernel A
    on the tensor cores) and scored with plssvm-torch-predict on 2000
    held-out points (kernel B on the tensor cores); the kernels' launch
    counts prove the path went through them; a float64 fit and predict
-   (kernels A and B on the FFMA tile) must agree with the float32 one; a
-   small float64 fit must agree between the kernels and the plain
-   versions;
+   (kernel A on the DMMA tile, B on the FFMA tile) must agree with the
+   float32 one; a small float64 fit must agree between the kernels and the
+   plain versions;
 5. multiclass end to end: the same shape with 10 classes, one-vs-all,
    through both CLIs; kernels C and D's launch counts, accuracy against a
-   floor, float32/float64 agreement, and a small float64 fit through the
-   kernels against the plain versions;
+   floor, float32/float64 agreement (float64: C on the DMMA tile, D on the
+   FFMA tile), and a small float64 fit through the kernels against the
+   plain versions;
 6. the width of BASELINE config 3: polynomial on 50000 x 500 scaled to
    [-1, 1], 20 CG iterations;
 7. multiclass at the width and class count of MNIST: 60000 x 784, 10
@@ -57,7 +60,8 @@ Phases, one line each or more (the run stops at the first that fails):
    card, fits and predicts binary RBF at config 3's width (50000 x 500:
    kernels A, J, B), phase 7's 10 classes at MNIST width (C, K, D), phase
    8's laplacian files (E, L, F) and phase 9's histogram classes (G, M, H),
-   each against its single-device run: iterations, s/iteration, the
+   each against its single-device run, in float32 and float64 (the
+   symmetric products on the DMMA tile): iterations, s/iteration, the
    launches of every kernel, epsilon reached, the accuracy floor, label
    agreement >= 0.999, and the ring's operand copies per iteration.
 
@@ -82,7 +86,13 @@ tensor-core tile of csrc/gram_tc.cuh, whose blocks per SM it logs), both
 outputs, against their plain versions on ragged mr != mc blocks in
 float32 and float64, J and K at each Gram tier, L and M per entry of K in
 float32 chi-squared, then timed at the ring phase's block shapes (J and K
-at each tier), with the cost of K and M's column atomics logged.  Beside
+at each tier), with the cost of K and M's column atomics logged; and in
+float64 kernels A and C on the DMMA tile (csrc/gram_dmma.cu, its blocks
+per SM logged) against their plain versions on ragged shapes at every
+tier, timed at 32768 x 512, 49999 x 500 and 59999 x 784 (C = 10) beside
+the FFMA tile in float64, both bounds and DGEMM, and every float64 kernel
+at the shapes the float64 fits of phases 4, 5 and 13 give it, A-D, J and
+K held against their plain versions there too.  Beside
 every kernel's time it
 computes the bound: the least time the card could take for the function
 on these inputs (see ``_bound``), and fails if a kernel measures faster
@@ -108,6 +118,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -200,6 +211,24 @@ UNIT_ROUNDOFF = {"tf32": 2.0 ** -11, "bf16": 2.0 ** -8}
 #: and the multiply by the reciprocal on the FP32 lanes, the reciprocal on
 #: the SFU
 PAIR_FEATURE_COST = {"gram": (1, 0), "laplacian": (2, 0), "chi_squared": (4, 1)}
+#: float64 on the same card (data sheet): 34 TFLOP/s on the FP64 CUDA
+#: cores, 17 T DFMA instructions/s, where the FFMA tiles run in float64;
+#: 67 TFLOP/s on the FP64 tensor cores (DMMA), where kernels A and C run
+FP64_INSTR_PER_S = 34e12 / 2
+DMMA_FLOP_PER_S = 67e12
+#: the fewest FP64 instructions per pair and feature on the FFMA tiles in
+#: float64: a Gram product one DFMA; a laplacian term a subtract and an
+#: add with |.|; a chi-squared term (gram_tile.cuh ChiSquaredDistance, the
+#: IEEE divide) two adds, a multiply and the accumulating add, and the
+#: divide's 7: from its reciprocal seed (MUFU.RCP64H, off the FP64 pipe)
+#: two Newton steps of 2 DFMAs, the quotient, its residual and the
+#: correction, the least an IEEE-rounded float64 quotient takes
+PAIR_FEATURE_COST_F64 = {"gram": 1, "laplacian": 2, "chi_squared": 11}
+#: FP64 instructions of one float64 exp (the RBF epilogue on the DMMA
+#: tile), at least: the range reduction's quotient (a DFMA), its rounding
+#: (a DADD), the two DFMAs of the Cody-Waite remainder and a degree-11
+#: polynomial (11 DFMAs); the scaling by 2^j is integer work
+EXP_F64_OPS = 15
 
 
 def log(phase, message):
@@ -247,6 +276,17 @@ def phase_build(compare=None):
         log("build", f"{name}: {res.get('registers')} registers, "
             f"{res.get('spill_bytes')} spill bytes, "
             f"{res.get('smem_bytes')} B static shared memory")
+    # the DMMA tile: one instantiation per Gram kind, compiled once (one
+    # source holds it and its entry points), spills no larger than
+    # the TF32 sym tile's 64 bytes; no tensor-core product serialised
+    dmma = {n: r for n, r in mine.items() if n.startswith("gram_dmma_sym")}
+    ptxas = _build._ptxas_log(path).read_text(encoding="utf-8")
+    compiled = len(re.findall(r"Compiling entry function '\w*gram_dmma_sym_kernel", ptxas))
+    if (len(dmma) != 3 or compiled != 3
+            or any(r.get("spill_bytes", 0) > 64 for r in dmma.values())):
+        raise AssertionError(f"the DMMA tile's instantiations ({compiled} compiled): {dmma}")
+    if "C7515" in ptxas:
+        raise AssertionError("ptxas serialised a tensor-core product (C7515)")
     if compare is not None:
         other = subprocess.run([sys.executable, "-c", _OTHER_BUILD], cwd=compare,
                                capture_output=True, text=True, timeout=900)
@@ -296,8 +336,9 @@ def _pairs(v, precision="highest"):
     a right-hand side v (m,) (kernels A, B) or V (m, C) (kernels C, D) at
     the Gram tier ``precision``.  At "f32" and "bf16" both kernels on
     float32 are the tensor-core tiles (``*_sym_tc``, ``*_rect_tc``), held
-    against the plain version on the tier's operands; at "highest" and in
-    float64 the FFMA tile."""
+    against the plain version on the tier's operands; at "highest" the
+    FFMA tile; in float64 the symmetric kernel is the DMMA tile
+    (``*_sym_dmma``), the rectangular one the FFMA tile."""
     import functools
 
     from plssvm_tpu_torch.ops import gram_matmat, gram_matvec, matvec
@@ -311,8 +352,9 @@ def _pairs(v, precision="highest"):
             "gram_matvec", gram_matvec.gram_matvec_sym, matvec.kernel_matvec_plain,
             gram_matvec.gram_matvec_rect, matvec.kernel_matvec_rect_plain)
     tc = "_tc" if precision != "highest" and v.dtype == torch.float32 else ""
+    sym_tile = "_dmma" if v.dtype == torch.float64 else tc
     return (
-        (f"{base}_sym{tc}", functools.partial(sym, precision=precision),
+        (f"{base}_sym{sym_tile}", functools.partial(sym, precision=precision),
          _tier_plain(sym_plain, precision)),
         (f"{base}_rect{tc}", functools.partial(rect, precision=precision),
          _tier_plain(rect_plain, precision)),
@@ -992,27 +1034,37 @@ def _time_pair(name, kernel, plain, args, kw, work, label, plain_repeats=20,
     return k_ms, p_ms
 
 
-def _bound(pairs, d, fmas, cost, n_bytes, tier=None, sfu_pairs=0):
+def _bound(pairs, d, fmas, cost, n_bytes, tier=None, exp_pairs=0):
     """(ms, "operations" or "bytes"): the least time the card could take
     for a function that evaluates ``pairs`` kernel values over ``d``
-    features, contracts them in ``fmas`` FFMAs, and moves ``n_bytes`` (each
-    input read once, each output written once) -- the larger of the
-    operations over their peak rate and the bytes over the memory rate.
+    features, contracts them in ``fmas`` FFMAs (DFMAs in float64), and
+    moves ``n_bytes`` (each input read once, each output written once) --
+    the larger of the operations over their peak rate and the bytes over
+    the memory rate.
 
-    On the FFMA tile (``tier`` None) a pair and feature costs
-    ``PAIR_FEATURE_COST[cost]`` and the per-pair epilogue (one exp or power,
-    1/d of the pair work) is not counted.  On the tensor cores (``tier``
-    "tf32" or "bf16") the pair work is 2 pairs d flops at the tier's peak,
-    beside which the FP32 lanes run the contraction's FFMAs and the SFU one
-    exp per pair for ``sfu_pairs`` pairs (RBF, sigmoid): the bound is the
-    largest of the three, as the units run side by side."""
+    On the FFMA tile (``tier`` None, float32; "fp64", float64) a pair and
+    feature costs ``PAIR_FEATURE_COST[cost]`` (FP32 and SFU instructions)
+    or ``PAIR_FEATURE_COST_F64[cost]`` (FP64 instructions) and the per-pair
+    epilogue (one exp or power, 1/d of the pair work) is not counted.  On
+    the tensor cores (``tier`` "tf32" or "bf16") the pair work is 2 pairs d
+    flops at the tier's peak, beside which the FP32 lanes run the
+    contraction's FFMAs and the SFU one exp per pair for ``exp_pairs``
+    pairs (RBF): the bound is the largest of the three, as the units run
+    side by side.  On the FP64 tensor cores (``tier`` "dmma", float64) the
+    pair work is 2 pairs d flops at 67 TFLOP/s, beside which the FP64 pipe
+    runs the contraction's DFMAs and ``EXP_F64_OPS`` per exp."""
     if tier is None:
         fp32, sfu = PAIR_FEATURE_COST[cost]
         ops_s = max((fp32 * pairs * d + fmas) / FP32_INSTR_PER_S,
                     sfu * pairs * d / SFU_OPS_PER_S)
+    elif tier == "fp64":
+        ops_s = (PAIR_FEATURE_COST_F64[cost] * pairs * d + fmas) / FP64_INSTR_PER_S
+    elif tier == "dmma":
+        ops_s = max(2.0 * pairs * d / DMMA_FLOP_PER_S,
+                    (fmas + EXP_F64_OPS * exp_pairs) / FP64_INSTR_PER_S)
     else:
         ops_s = max(2.0 * pairs * d / TC_TIERS[tier][0], fmas / FP32_INSTR_PER_S,
-                    sfu_pairs / SFU_OPS_PER_S)
+                    exp_pairs / SFU_OPS_PER_S)
     bytes_s = n_bytes / HBM_BYTES_PER_S
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
 
@@ -1023,9 +1075,10 @@ def _sym_bound(m, d, columns, cost, itemsize, extra_inputs=0, tier=None,
     m (m + 1) / 2 distinct pairs of a symmetric kernel, m^2 FFMAs per
     column; X, V, the output and ``extra_inputs`` vectors of m moved.  On
     the tensor cores (``tier``) X moves at the tier's operand size and the
-    rest at float32; ``exp`` counts one SFU exp per pair."""
+    rest at float32; ``exp`` counts one SFU exp per pair.  ``tier`` "fp64"
+    and "dmma" are float64 (``itemsize`` 8) on the FFMA and the DMMA tile."""
     pairs = m * (m + 1) / 2
-    if tier is None:
+    if tier not in TC_TIERS:
         n_bytes = itemsize * m * (d + 2 * columns + extra_inputs)
     else:
         n_bytes = TC_TIERS[tier][1] * m * d + 4 * m * (2 * columns + extra_inputs)
@@ -1039,9 +1092,10 @@ def _rect_bound(n_p, n_s, d, columns, cost, itemsize, extra_inputs=0,
     columns): every pair, n_p n_s FFMAs per column; P, S, A, the output and
     ``extra_inputs`` vectors of n_p and of n_s moved.  On the tensor cores
     (``tier``) P and S move at the tier's operand size and the rest at
-    float32; ``exp`` counts one SFU exp per pair."""
+    float32; ``exp`` counts one SFU exp per pair; ``tier`` "fp64" is the
+    FFMA tile in float64 (``itemsize`` 8)."""
     pairs = float(n_p) * n_s
-    if tier is None:
+    if tier not in TC_TIERS:
         n_bytes = itemsize * ((n_p + n_s) * (d + extra_inputs) + (n_s + n_p) * columns)
     else:
         n_bytes = (TC_TIERS[tier][1] * (n_p + n_s) * d
@@ -1058,9 +1112,10 @@ def _dual_bound(mr, mc, d, columns, cost, itemsize, extra_inputs=0, tier=None,
     contractions); Xr, Xc, both right-hand sides, both outputs and
     ``extra_inputs`` vectors of mr and of mc moved.  ``tier`` and ``exp``
     as in ``_rect_bound``: on the tensor cores the same function (TF32 or
-    bf16 products, float32 sums) could run at the tier's peak."""
+    bf16 products, float32 sums) could run at the tier's peak; ``tier``
+    "fp64" is the FFMA walk in float64 (``itemsize`` 8)."""
     pairs = float(mr) * mc
-    if tier is None:
+    if tier not in TC_TIERS:
         n_bytes = itemsize * (mr + mc) * (d + 2 * columns + extra_inputs)
     else:
         n_bytes = (TC_TIERS[tier][1] * (mr + mc) * d
@@ -1150,7 +1205,9 @@ def phase_kernels():
                     worst[key] = max(worst.get(key, 0.0), err / max(scale, 1e-300))
 
     for dtype in (torch.float32, torch.float64):
-        # the tiers are float32's; float64 takes the FFMA tile at every tier
+        # the tiers are float32's; in float64, at every tier, A and C take
+        # the DMMA tile and B and D the FFMA tile (_f64_kernels checks the
+        # DMMA tile at every tier)
         tiers = ("highest", "f32", "bf16") if dtype == torch.float32 else ("highest",)
         for m, d in ((1037, 203), (8192, 512), (777, 1280), (129, 3), (65, 37), (1, 5)):
             check(*_operands(m, d, dtype, gen), tiers)
@@ -1386,7 +1443,319 @@ def phase_kernels():
     g_chi_ms = _distance_kernels(gen, main_err, main_ms, timing, bounds, time_a)
     _banded_kernels(gen, main_err, main_ms, timing, bounds)
     _dual_kernels(gen, main_err, main_ms, timing, bounds)
+    _f64_kernels(gen, main_err, main_ms, timing, bounds)
     return main_err, main_ms, timing, bounds, g_chi_ms
+
+
+def _dmma_blocks_per_sm():
+    """The DMMA tile's blocks per SM for every Gram kind, logged; raises if
+    a block does not fit."""
+    import ctypes
+
+    from plssvm_tpu_torch.ops import _build
+
+    lib = _build.load()
+    found = {}
+    for kind, name in ((1, "poly"), (2, "rbf"), (3, "sigmoid")):
+        blocks = ctypes.c_int(0)
+        err = lib.plssvm_gram_dmma_blocks_per_sm(kind, ctypes.byref(blocks))
+        if err != 0:
+            raise AssertionError(f"gram_dmma_sym {name}: occupancy query failed "
+                                 f"({lib.plssvm_cuda_error_string(err).decode()})")
+        found[name] = blocks.value
+    log("kernels", "gram_dmma_sym blocks per SM: "
+        + ", ".join(f"{k} {v}" for k, v in found.items()))
+    if min(found.values()) < 1:
+        raise AssertionError(f"the DMMA tile does not fit an SM: {found}")
+
+
+def _dmma_counter(matmat):
+    from plssvm_tpu_torch.ops import gram_matmat, gram_matvec
+
+    module = gram_matmat if matmat else gram_matvec
+    return module.sym_dmma_launches, module.sym_launches
+
+
+def _ffma_f64_sym(X, sq, V, *, kind, gamma, coef0, degree):
+    """Kernel A (V (m,)) or C (V (m, C)) on the FFMA tile in float64,
+    through its entry point (``plssvm_gram_mat{vec,mat}_sym_f64``): no
+    wrapper takes it since the DMMA tile replaced it."""
+    from plssvm_tpu_torch.ops import _build, gram_matvec
+
+    lib = _build.load()
+    out = torch.zeros_like(V)
+    m, d = X.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    if V.ndim == 1:
+        err = lib.plssvm_gram_matvec_sym_f64(
+            X.data_ptr(), sq.data_ptr(), V.data_ptr(), out.data_ptr(), m, d,
+            int(kind), int(degree), float(gamma), float(coef0), stream)
+    else:
+        err = lib.plssvm_gram_matmat_sym_f64(
+            X.data_ptr(), sq.data_ptr(), V.data_ptr(), out.data_ptr(), m, d,
+            V.shape[1], int(kind), int(degree), float(gamma), float(coef0), stream)
+    gram_matvec._raise_on_error(lib, err, "the FFMA tile in float64")
+    return out
+
+
+def _time_f64_sym(main_ms, timing, bounds, main_err, X, V, kw, label, phase=None,
+                  key=None, plain_repeats=3, yardstick=True):
+    """Kernel A (V (m,)) or C (V (m, C)) in float64 at one shape: the DMMA
+    tile against its plain version (held at 1e-10 of max|plain|, then both
+    timed), the FFMA tile through its entry point, both bounds (DMMA and
+    DFMA) and float64 torch.matmul(X, X.T) as the product's yardstick, all
+    logged.  At a main path's shape (``phase``) recorded for its cost line,
+    with the error for the kernels line; the timing and bound under
+    ``key``."""
+    from plssvm_tpu_torch.ops import gram_matmat, gram_matvec, matvec
+
+    matmat = V.ndim == 2
+    name = "gram_matmat_sym_dmma" if matmat else "gram_matvec_sym_dmma"
+    kernel = gram_matmat.gram_matmat_sym if matmat else gram_matvec.gram_matvec_sym
+    plain = matvec.kernel_matmat_plain if matmat else matvec.kernel_matvec_plain
+    sq = (X * X).sum(-1)
+    m, d = X.shape
+    columns = V.shape[1] if matmat else 1
+    exp = str(kw["kind"]) == "rbf"
+    before = _dmma_counter(matmat)
+    got = kernel(X, sq, V, **kw)
+    if _dmma_counter(matmat) != (before[0] + 1, before[1]):
+        raise AssertionError(f"{name} {label}: not launched on the DMMA tile")
+    err, _ = _check_close(f"{name} {label}", got, plain(X, sq, V, **kw))
+    ffma_got = _ffma_f64_sym(X, sq, V, **kw)
+    _check_close(f"the FFMA tile in float64 {label}", ffma_got, plain(X, sq, V, **kw))
+    del got, ffma_got
+    k_ms, p_ms = _time_pair(name, lambda: kernel(X, sq, V, **kw), lambda: plain(X, sq, V, **kw),
+                            (), {}, 2.0 * m * m * d, label, plain_repeats=plain_repeats)
+    ffma_ms = _median_ms(lambda: _ffma_f64_sym(X, sq, V, **kw), 5, 1)
+    dmma = _sym_bound(m, d, columns, "gram", 8, 1, "dmma", exp=exp)
+    fp64 = _sym_bound(m, d, columns, "gram", 8, 1, "fp64")
+    _log_bound(name, label, k_ms, dmma)
+    _log_bound("the FFMA tile in float64", label, ffma_ms, fp64)
+    log("kernels", f"{name} {label}: DMMA tile {k_ms:.3f} ms ({dmma[0] / k_ms:.3f} of the "
+        f"DMMA bound {dmma[0]:.3f}, {fp64[0] / k_ms:.3f} of the DFMA bound {fp64[0]:.3f}); "
+        f"the FFMA tile {ffma_ms:.3f} ms ({fp64[0] / ffma_ms:.3f} of the DFMA bound), "
+        f"{ffma_ms / k_ms:.2f}x the DMMA tile's time; plain {p_ms:.3f} ms")
+    if yardstick:
+        torch.cuda.empty_cache()
+        _yardstick(f"torch.matmul(X, X.T) {m}x{d} f64 (DGEMM)", lambda: torch.matmul(X, X.T))
+        torch.cuda.empty_cache()
+    if phase is not None:
+        main_ms[(name, phase)] = (k_ms, dmma[0])
+        main_err[(name, "f64")] = max(main_err.get((name, "f64"), 0.0), err)
+    if key is not None:
+        timing[key], bounds[key] = (k_ms, p_ms), dmma
+    return k_ms
+
+
+def _f64_kernels(gen, main_err, main_ms, timing, bounds):
+    """Float64: kernels A and C on the DMMA tile (csrc/gram_dmma.cu), the
+    FFMA tile of B, D, J-M.  The DMMA tile's blocks per SM; A and C
+    against their plain versions on ragged shapes beyond the general check
+    (d from 1 to 1279, odd and even, m not a multiple of the 128-row tile,
+    1 to 37 classes), each launch counted on the DMMA tile and none on the
+    FFMA tile; the odd-d operand copy timed beside the kernel; A and C
+    timed at 32768 x 512 (RBF; with B and D on the FFMA tile), 49999 x 500
+    (poly, config 3's width) and 59999 x 784 (RBF, C = 10, MNIST's width),
+    each beside the FFMA tile, its plain version, both bounds and DGEMM;
+    then every float64 kernel at the shape a float64 main path gives it
+    (phases 4 and 5, the ring's one-device fits and its shards and
+    blocks), A-D, J and K against their plain versions there (the float64
+    entries' max_abs_err), recorded for the cost ranking; and E-I in
+    float64 at the timing shapes of their float32 rows, beside their
+    bounds."""
+    from plssvm_tpu_torch.ops import banded, gram_matmat, gram_matvec, matvec
+    from plssvm_tpu_torch.parameter import KernelFunctionType as K
+
+    _dmma_blocks_per_sm()
+    kinds = ((K.POLYNOMIAL, 1.0), (K.RBF, 0.0), (K.SIGMOID, -0.5))
+    worst = {}
+    for m, d in ((2100, 1), (128, 2), (257, 17), (300, 1279), (1, 1), (4097, 784)):
+        X, _, _ = _operands(m, d, torch.float64, gen, n_points=1)
+        sq = (X * X).sum(-1)
+        for n_classes in (None, 1, 8, 9, 37):
+            tail = () if n_classes is None else (n_classes,)
+            V = torch.randn(m, *tail, generator=gen, dtype=torch.float64).to("cuda")
+            matmat = n_classes is not None
+            kernel = gram_matmat.gram_matmat_sym if matmat else gram_matvec.gram_matvec_sym
+            plain = matvec.kernel_matmat_plain if matmat else matvec.kernel_matvec_plain
+            for kind, coef0 in kinds:
+                for precision in ("highest", "f32", "bf16"):
+                    kw = dict(kind=kind, gamma=1.0 / d, coef0=coef0, degree=3,
+                              precision=precision)
+                    before = _dmma_counter(matmat)
+                    got = kernel(X, sq, V, **kw)
+                    label = f"DMMA {kind} {m}x{d} C={n_classes} {precision}"
+                    if _dmma_counter(matmat) != (before[0] + 1, before[1]):
+                        raise AssertionError(f"{label}: not launched on the DMMA tile only")
+                    err, scale = _check_close(label, got, plain(X, sq, V, **kw))
+                    name = "gram_matmat_sym_dmma" if matmat else "gram_matvec_sym_dmma"
+                    worst[name] = max(worst.get(name, 0.0), err / max(scale, 1e-300))
+    for name, rel in sorted(worst.items()):
+        log("kernels", f"{name} float64: worst max|err|/max|plain| {rel:.3e} over poly/rbf/"
+            "sigmoid x 6 ragged shapes (d 1-1279) x 1-37 classes x every tier")
+    # an odd d: the wrapper's padded operand copy, timed beside the kernel
+    X, _, v = _operands(49999, 499, torch.float64, gen, n_points=1)
+    sq = (X * X).sum(-1)
+    kw = dict(kind=K.RBF, gamma=1.0 / 499, coef0=0.0, degree=3)
+    copy_ms = _median_ms(lambda: gram_matvec.dmma_operand(X), 5, 1)
+    k_ms = _median_ms(lambda: gram_matvec.gram_matvec_sym(X, sq, v, **kw), 5, 1)
+    log("kernels", f"gram_matvec_sym_dmma 49999x499 rbf f64 (odd d): the operand copy "
+        f"padded to 500 {copy_ms:.3f} ms, {copy_ms / k_ms:.1%} of the launch's "
+        f"{k_ms:.3f} ms (copy included)")
+    del X, v, sq
+
+    # the timing shape of A-D, RBF: A and C on the DMMA tile; B and D on the
+    # FFMA tile in float64, against their plain versions and the DFMA bound
+    m, d = 32768, 512
+    X, _, v = _operands(m, d, torch.float64, gen, n_points=1)
+    V = torch.randn(m, MC_CLASSES, generator=gen, dtype=torch.float64).to("cuda")
+    kw = dict(kind=K.RBF, gamma=1.0 / d, coef0=0.0, degree=3)
+    for rhs, sym in ((v, "gram_matvec_sym_dmma"), (V, "gram_matmat_sym_dmma")):
+        label = f"m={m} d={d} f64 rbf" + (f" C={MC_CLASSES}" if rhs.ndim == 2 else "")
+        _time_f64_sym(main_ms, timing, bounds, main_err, X, rhs, kw, label, key=(sym, "f64"),
+                      plain_repeats=20, yardstick=rhs.ndim == 1)
+        rect = "gram_matmat_rect" if rhs.ndim == 2 else "gram_matvec_rect"
+        sq = (X * X).sum(-1)
+        _, rect_kernel, rect_plain = _pairs(rhs)[1]
+        args = (X, X, sq, sq, rhs)
+        _check_close(f"{rect} {label}", rect_kernel(*args, **kw), rect_plain(*args, **kw))
+        timing[(rect, "f64")] = _time_pair(rect, rect_kernel, rect_plain, args, kw,
+                                           2.0 * m * m * d, label)
+        bounds[(rect, "f64")] = _rect_bound(m, m, d, rhs.shape[1] if rhs.ndim == 2 else 1,
+                                            "gram", 8, 1, "fp64")
+        _log_bound(rect, label, timing[(rect, "f64")][0], bounds[(rect, "f64")])
+    del X, v, V
+    # config 3's width, polynomial on [-1, 1]: A
+    X, _, v = _operands(49999, 500, torch.float64, gen, n_points=1)
+    X = X / X.abs().amax(0)
+    _time_f64_sym(main_ms, timing, bounds, main_err, X, v,
+                  dict(kind=K.POLYNOMIAL, gamma=1.0 / 500, coef0=0.0, degree=3),
+                  "49999x500 f64 poly")
+    # the ring's one-device float64 fit at config 3's width is RBF
+    _time_f64_sym(main_ms, timing, bounds, main_err, X, v,
+                  dict(kind=K.RBF, gamma=1.0 / 500, coef0=0.0, degree=3),
+                  "49999x500 f64 rbf", phase="ring-one-f64", yardstick=False)
+    del X, v
+    # MNIST's width, 10 classes: C (the ring's one-device float64 fit)
+    X, _, V = _operands(59999, 784, torch.float64, gen, n_points=1, n_classes=MC_CLASSES)
+    _time_f64_sym(main_ms, timing, bounds, main_err, X, V,
+                  dict(kind=K.RBF, gamma=1.0 / 784, coef0=0.0, degree=3),
+                  f"59999x784 f64 rbf C={MC_CLASSES}", phase="ring-one-f64")
+    del X, V
+
+    # phases 4 and 5's float64 fits and predicts: config 2's shape (9999 x
+    # 200 training, 2000 points against 10000 SVs), RBF, 1 and 10 classes
+    rbf = dict(kind=K.RBF, gamma=1.0 / 200, coef0=0.0, degree=3)
+    for n_classes, phase in ((None, "e2e"), (MC_CLASSES, "multiclass")):
+        X, P, V = _operands(9999, 200, torch.float64, gen, n_points=2000, n_classes=n_classes)
+        S, A = torch.cat([X, X[:1]]), torch.cat([V, V[:1]])  # all m + 1 points
+        sq, sq_p, sq_s = (X * X).sum(-1), (P * P).sum(-1), (S * S).sum(-1)
+        (sym, sym_k, sym_plain), (rect, rect_k, rect_plain) = _pairs(V)
+        columns = n_classes or 1
+        err = _check_close(f"{sym} f64 {phase}", sym_k(X, sq, V, **rbf),
+                           sym_plain(X, sq, V, **rbf))[0]
+        main_err[(sym, "f64")] = max(main_err.get((sym, "f64"), 0.0), err)
+        _time_at_main_shape(main_ms, sym, phase, lambda: sym_k(X, sq, V, **rbf),
+                            _sym_bound(9999, 200, columns, "gram", 8, 1, "dmma", exp=True),
+                            f"9999x200 f64 rbf C={columns}")
+        args = (P, S, sq_p, sq_s, A)
+        err = _check_close(f"{rect} f64 {phase}", rect_k(*args, **rbf),
+                           rect_plain(*args, **rbf))[0]
+        main_err[(rect, "f64")] = max(main_err.get((rect, "f64"), 0.0), err)
+        bound = _rect_bound(2000, 10000, 200, columns, "gram", 8, 1, "fp64")
+        ms = _time_at_main_shape(main_ms, rect, None, lambda: rect_k(*args, **rbf), bound,
+                                 f"2000x10000x200 f64 rbf C={columns}")
+        main_ms[(f"{rect}_f64", phase)] = (ms, bound[0])
+
+    # the ring's float64 cells (4 shards): each shard's symmetric product on
+    # the DMMA tile (12500 x 500 RBF, 15000 x 784 RBF C = 10) and the dual
+    # walks on the FFMA tile in float64 at the ring's blocks (J 12500^2 x
+    # 500, K 15000^2 x 784 C = 10, L 2500^2 x 200 laplacian, M 2500^2 x 200
+    # chi-squared C = 10); the shards' products, J and K also against
+    # their plain versions
+    rng = np.random.default_rng(SEED + 22)
+    hist = torch.as_tensor(_draw_histograms(rng, _histogram_classes(rng, 200), 5000)[0],
+                           dtype=torch.float64, device="cuda")
+    chi2_gamma = _chi2_gamma(rng, hist.cpu().numpy())
+    for name, mr, d, n_classes, kind in (
+        ("gram_matvec_dual", 12500, 500, None, K.RBF),
+        ("gram_matmat_dual", 15000, 784, MC_CLASSES, K.RBF),
+        ("distance_matvec_dual", 2500, 200, None, K.LAPLACIAN),
+        ("distance_matmat_dual", 2500, 200, MC_CLASSES, K.CHI_SQUARED),
+    ):
+        tail = () if n_classes is None else (n_classes,)
+        columns = n_classes or 1
+        v_c = torch.randn(mr, *tail, generator=gen, dtype=torch.float64).to("cuda")
+        v_r = torch.randn(mr, *tail, generator=gen, dtype=torch.float64).to("cuda")
+        label = f"{mr}x{mr}x{d} f64 {kind}" + (f" C={columns}" if n_classes else "")
+        if kind == K.CHI_SQUARED:
+            Xr, Xc = hist[:mr].contiguous(), hist[mr:2 * mr].contiguous()
+            args, kw = (Xr, Xc, v_c, v_r), dict(kind=kind, gamma=chi2_gamma)
+        else:
+            X = torch.randn(2 * mr, d, generator=gen, dtype=torch.float64).to("cuda")
+            if d == 500:
+                X = X / X.abs().amax(0)  # config 3's [-1, 1] scale
+            Xr, Xc = X[:mr].contiguous(), X[mr:].contiguous()
+            if kind == K.LAPLACIAN:
+                args, kw = (Xr, Xc, v_c, v_r), dict(kind=kind, gamma=1.0 / d)
+            else:
+                sq_r = (Xr * Xr).sum(-1)
+                args = (Xr, Xc, sq_r, (Xc * Xc).sum(-1), v_c, v_r)
+                kw = dict(kind=kind, gamma=1.0 / d, coef0=0.0, degree=3)
+                sym, sym_k, sym_plain = _pairs(v_c)[0]
+                err = _check_close(f"{sym} {mr}x{d} f64 rbf (a shard)", sym_k(Xr, sq_r, v_c, **kw),
+                                   sym_plain(Xr, sq_r, v_c, **kw))[0]
+                main_err[(sym, "f64")] = max(main_err.get((sym, "f64"), 0.0), err)
+                _time_at_main_shape(main_ms, sym, "ring-f64",
+                                    lambda: sym_k(Xr, sq_r, v_c, **kw),
+                                    _sym_bound(mr, d, columns, "gram", 8, 1, "dmma", exp=True),
+                                    f"{mr}x{d} f64 rbf C={columns} (a shard)")
+        kernel, plain = _dual_pair(name, "highest")
+        cost = "gram" if name.startswith("gram") else str(kind)
+        bound = _dual_bound(mr, mr, d, columns, cost, 8, 0 if kind in (K.LAPLACIAN, K.CHI_SQUARED)
+                            else 1, "fp64")
+        key = (name, "f64")
+        main_err[key] = _check_dual(label, kernel(*args, **kw), plain(*args, **kw))[1]
+        if name.startswith("gram"):
+            timing[key] = _time_pair(name, kernel, plain, args, kw, float(mr) * mr * d, label,
+                                     unit="Tpair-feature/s", counted="mr mc d")
+            bounds[key] = bound
+            ms = timing[key][0]
+        else:
+            ms = _median_ms(lambda: kernel(*args, **kw), 5, 1)
+        _log_bound(name, label, ms, bound)
+        main_ms[(f"{name}_f64", "ring-f64")] = (ms, bound[0])
+    del hist
+
+    # the distance and banded kernels in float64 at the timing shapes of
+    # their float32 rows, kernel only (their plain versions take seconds a
+    # call there): E-H at m = 16384, d = 256 on histogram rows (C = 10 for
+    # G and H), I at 32768 x 128, against the FFMA tile's float64 bound
+    m, d = 16384, 256
+    X = torch.as_tensor(_draw_histograms(rng, _histogram_classes(rng, d), m)[0],
+                        dtype=torch.float64, device="cuda")
+    v = torch.randn(m, generator=gen, dtype=torch.float64).to("cuda")
+    V = torch.randn(m, MC_CLASSES, generator=gen, dtype=torch.float64).to("cuda")
+    for kind in (K.LAPLACIAN, K.CHI_SQUARED):
+        kw = dict(kind=kind, gamma=1.0 / d)
+        for rhs in (v, V):
+            columns = 1 if rhs.ndim == 1 else MC_CLASSES
+            label = f"m={m} d={d} f64 {kind}" + (f" C={columns}" if rhs.ndim == 2 else "")
+            for name, kernel, _ in _distance_pairs(rhs):
+                args = (X, rhs) if "sym" in name else (X, X, rhs)
+                ms = _median_ms(lambda: kernel(*args, **kw), DIST_PLAIN_REPEATS, 1)
+                _log_bound(name, label, ms,
+                           _sym_bound(m, d, columns, str(kind), 8, 0, "fp64") if "sym" in name
+                           else _rect_bound(m, m, d, columns, str(kind), 8, 0, "fp64"))
+    m, d = BANDED_M, BANDED_D
+    X = torch.rand(m, d, generator=gen, dtype=torch.float64).to("cuda")
+    XT, v = X.T.contiguous(), torch.randn(m, generator=gen, dtype=torch.float64).to("cuda")
+    ms = _median_ms(lambda: banded.banded_matvec(XT, v, 1.0 / d), DIST_PLAIN_REPEATS, 1)
+    _log_bound("banded_matvec", f"m={m} d={d} f64 laplacian", ms,
+               _sym_bound(m, d, 1, "laplacian", 8, 1, "fp64"))
+    del X, XT, v, V
+    torch.cuda.empty_cache()
 
 
 def _write_config2(tmp):
@@ -1472,12 +1841,15 @@ def _f64_agreement(phase, label, train_file, test_file, predicted, epsilon, **pa
     test64 = port.DataSet(test_file, dtype=np.float64)
     svm64 = port.CSVM(backend="cuda", device="cuda", dtype=np.float64,
                       cost=1.0, **params)
+    port.global_tracker.clear()
     t0 = time.perf_counter()
     model64 = svm64.fit(train64, epsilon=epsilon)
     t1 = time.perf_counter()
+    cg_s = _tracked("cg", "total_runtime") / 1000
     agree = float(np.mean(svm64.predict(model64, test64) == predicted))
-    log(phase, f"{label} f64 (cuda): {model64.n_iter} CG iterations, fit "
-        f"{t1 - t0:.3f} s, f32/f64 label agreement {agree:.4f}")
+    log(phase, f"{label} f64 (cuda): {model64.n_iter} CG iterations, "
+        f"{cg_s / max(model64.n_iter, 1):.6f} s/iteration, fit {t1 - t0:.3f} s, "
+        f"f32/f64 label agreement {agree:.4f}")
     if agree < 0.995:
         raise AssertionError(f"f32 and f64 agree on {agree} of the labels")
     return model64.n_iter
@@ -1544,16 +1916,21 @@ def phase_end_to_end(tmp, config2_files):
                    float(np.mean(predicted == test_labels)), ACCURACY_FLOOR,
                    launches, matvec.sym_plain_calls + matvec.rect_plain_calls,
                    "gram_matvec_sym_tc", "gram_matvec_rect_tc")
-    # float64 takes the FFMA tile of kernels A and B
+    # float64: kernel A on the DMMA tile, kernel B on the FFMA tile
     gram_matvec.reset_counts()
     it64 = _f64_agreement("e2e", "config 2", train_file, test_file, predicted,
                           EPSILON, kernel_type="rbf")
-    launches["gram_matvec_sym"] = gram_matvec.sym_launches
-    launches["gram_matvec_rect"] = gram_matvec.rect_launches
-    if launches["gram_matvec_sym"] != 1 + it64 + it64 // 50 \
-            or launches["gram_matvec_rect"] <= 0 \
+    launches["gram_matvec_sym_dmma"] = gram_matvec.sym_dmma_launches
+    launches["gram_matvec_rect_f64"] = gram_matvec.rect_launches
+    log("e2e", f"config 2 f64 launches: A on the DMMA tile {gram_matvec.sym_dmma_launches}, "
+        f"on the FFMA tile {gram_matvec.sym_launches}; B on the FFMA tile "
+        f"{gram_matvec.rect_launches}; tensor-core tiles "
+        f"{gram_matvec.sym_tc_launches + gram_matvec.rect_tc_launches}")
+    if launches["gram_matvec_sym_dmma"] != 1 + it64 + it64 // 50 \
+            or gram_matvec.sym_launches != 0 or launches["gram_matvec_rect_f64"] <= 0 \
             or gram_matvec.sym_tc_launches + gram_matvec.rect_tc_launches:
-        raise AssertionError("e2e: the f64 fit and predict did not take the FFMA tile only")
+        raise AssertionError("e2e: the f64 fit did not take the DMMA tile only, or its "
+                             "predict not the FFMA tile")
     _small_fit_agreement("e2e", "rbf", 2, SEED + 1)
     return launches, predicted
 
@@ -1603,17 +1980,21 @@ def phase_multiclass_cli(tmp):
                    MC_ACCURACY_FLOOR, launches,
                    matvec.sym_matmat_plain_calls + matvec.rect_matmat_plain_calls,
                    "gram_matmat_sym_tc", "gram_matmat_rect_tc")
-    # float64 takes the FFMA tile of kernels C and D
+    # float64: kernel C on the DMMA tile, kernel D on the FFMA tile
     gram_matmat.reset_counts()
     it64 = _f64_agreement("multiclass", f"{MC_CLASSES} classes", train_file,
                           test_file, predicted, EPSILON, kernel_type="rbf")
-    launches["gram_matmat_sym"] = gram_matmat.sym_launches
-    launches["gram_matmat_rect"] = gram_matmat.rect_launches
-    if launches["gram_matmat_sym"] != 1 + it64 + it64 // 50 \
-            or launches["gram_matmat_rect"] <= 0 \
+    launches["gram_matmat_sym_dmma"] = gram_matmat.sym_dmma_launches
+    launches["gram_matmat_rect_f64"] = gram_matmat.rect_launches
+    log("multiclass", f"{MC_CLASSES} classes f64 launches: C on the DMMA tile "
+        f"{gram_matmat.sym_dmma_launches}, on the FFMA tile {gram_matmat.sym_launches}; D on "
+        f"the FFMA tile {gram_matmat.rect_launches}; tensor-core tiles "
+        f"{gram_matmat.sym_tc_launches + gram_matmat.rect_tc_launches}")
+    if launches["gram_matmat_sym_dmma"] != 1 + it64 + it64 // 50 \
+            or gram_matmat.sym_launches != 0 or launches["gram_matmat_rect_f64"] <= 0 \
             or gram_matmat.sym_tc_launches + gram_matmat.rect_tc_launches:
-        raise AssertionError("multiclass: the f64 fit and predict did not take the FFMA "
-                             "tile only")
+        raise AssertionError("multiclass: the f64 fit did not take the DMMA tile only, or "
+                             "its predict not the FFMA tile")
     _small_fit_agreement("multiclass", "rbf", 4, SEED + 5)
     return launches, (train_file, test_file, files["mc_test"][1], predicted)
 
@@ -1924,8 +2305,8 @@ def _ring_copy_ms(X, iteration_s, label):
 def _ring_counts(kind, matmat, dtype):
     """(dual kernel's name, [symmetric, dual, rows-only launches], launches
     on the tiles the dtype must not take, plain calls) since the last
-    reset: float32 Gram products on the tensor-core tiles, float64 on the
-    FFMA tiles."""
+    reset: float32 Gram products on the tensor-core tiles; float64 ones on
+    the DMMA tile (symmetric) and the FFMA tiles (dual, rows-only)."""
     from plssvm_tpu_torch.ops import distance, gram_matmat, gram_matvec, matvec
 
     op = "matmat" if matmat else "matvec"
@@ -1939,10 +2320,13 @@ def _ring_counts(kind, matmat, dtype):
                 [getattr(distance, f"{op}_{w}_launches") for w in ("sym", "dual", "rect")],
                 0, plain)
     module = gram_matmat if matmat else gram_matvec
-    tc = dtype == np.float32
-    ffma = [module.sym_launches, module.dual_launches, module.rect_launches]
     cores = [module.sym_tc_launches, module.dual_tc_launches, module.rect_tc_launches]
-    counts, other = (cores, sum(ffma)) if tc else (ffma, sum(cores))
+    if dtype == np.float32:
+        counts = cores
+        other = module.sym_launches + module.dual_launches + module.rect_launches
+    else:
+        counts = [module.sym_dmma_launches, module.dual_launches, module.rect_launches]
+        other = module.sym_launches + sum(cores)
     return f"gram_{op}_dual", counts, other, plain
 
 
@@ -1994,9 +2378,14 @@ def phase_ring(cells):
     device >= 0.995 (as float32 against float64 elsewhere: the two float32
     solves round apart: 0.9975-1.0000 on an H100); float64 (epsilon 1e-10,
     both solves converged) label agreement >= 0.999, its decision values'
-    largest difference logged.  The binary cell is made here, the others come from
-    phases 7-9."""
-    launches = {}
+    largest difference logged.  Each one-device run: one symmetric launch
+    per product (float64 Gram ones on the DMMA tile), no dual walk, nothing
+    on another tile or the plain versions.  Returns the launches per phase
+    for the cost ranking: "ring" the float32 dual walks, "ring-f64" the
+    float64 rings' symmetric (DMMA) and dual launches, "ring-one-f64" the
+    float64 one-device fits' symmetric launches of the Gram cells.  The
+    binary cell is made here, the others come from phases 7-9."""
+    launches = {"ring": {}, "ring-f64": {}, "ring-one-f64": {}}
     devices = ["cuda:0"] * RING_SHARDS
     steps = (RING_SHARDS - 1) // 2
     for label, cell in {"config3-rbf": _config3_rbf_cell(), **cells}.items():
@@ -2021,10 +2410,22 @@ def phase_ring(cells):
                 f"max|d f(x)| {dvalue:.3e}; launches sym / dual / rect {counts}, other tile "
                 f"{other}, plain calls {plain}")
             if dtype == np.float32:
-                launches[name] = counts[1]
+                launches["ring"][name] = counts[1]
                 if kind not in ("laplacian", "chi_squared"):
                     X = torch.as_tensor(np.asarray(data[0].data), device="cuda")
                     _ring_copy_ms(X, ring["s_per_it"], label)
+            else:
+                launches["ring-f64"][f"{name}_f64"] = counts[1]
+                if kind not in ("laplacian", "chi_squared"):
+                    sym = name.replace("dual", "sym_dmma")
+                    launches["ring-f64"][sym] = counts[0]
+                    launches["ring-one-f64"][sym] = one["counts"][1][0]
+            _, one_counts, one_other, one_plain = one["counts"]
+            one_products = 1 + one["iterations"] + one["iterations"] // 50
+            if one_counts[:2] != [one_products, 0] or one_other or one_plain:
+                raise AssertionError(f"ring {label} {type_name}: the one-device fit did not "
+                                     f"go through its symmetric kernel only: {one_counts}, "
+                                     f"other tile {one_other}, plain calls {one_plain}")
             if counts != [RING_SHARDS * products, RING_SHARDS * steps * products,
                           RING_SHARDS * products * (RING_SHARDS % 2 == 0) + RING_SHARDS] \
                     or other or plain:
@@ -2133,7 +2534,7 @@ def phase_bench_matvec(main_ms):
             or matvec.sym_plain_calls != per_variant \
             or matvec.dist_sym_plain_calls != per_variant:
         raise AssertionError("bench_matvec's variants did not launch as expected")
-    return {"kernel_matvec": launches["kernel_matvec"]}
+    return {k: launches[k] for k in ("kernel_matvec", "gram_matvec_sym", "gram_matvec_rect")}
 
 
 def main(argv=None):
@@ -2181,7 +2582,7 @@ def main(argv=None):
         phase_launches["mnist-width"], ring_cells["mnist-width"] = run(
             "mnist-width", phase_multiclass_width)
         phase_launches["chi2-width"] = run("chi2-width", phase_chi2_width, g_chi_ms)
-        phase_launches["ring"] = run("ring", phase_ring, ring_cells)
+        phase_launches.update(run("ring", phase_ring, ring_cells))
         del ring_cells
     phase_launches["banded-tool"] = run("banded-tool", phase_banded_tool)
     phase_launches["bench-matvec"] = run("bench-matvec", phase_bench_matvec, main_ms)
@@ -2211,20 +2612,36 @@ def main(argv=None):
     for tc in ("gram_matvec_sym_tc", "gram_matmat_sym_tc", "gram_matvec_rect_tc",
                "gram_matmat_rect_tc", "gram_matvec_dual", "gram_matmat_dual"):
         launches[(tc, "tf32")] = launches[tc]
+    # float64: A and C on the DMMA tile (phases 4 and 5), B and D on the
+    # FFMA tile (their predicts), J and K on the FFMA walk (the ring)
+    for f64 in ("gram_matvec_sym_dmma", "gram_matmat_sym_dmma"):
+        launches[(f64, "f64")] = launches[f64]
+    for f64 in ("gram_matvec_rect", "gram_matmat_rect", "gram_matvec_dual",
+                "gram_matmat_dual"):
+        launches[(f64, "f64")] = launches[f"{f64}_f64"]
 
     # the distance kernels report the kind their main path ran: laplacian
     # for E and F (phase 8), chi-squared for G and H (phases 9 and 10); the
     # dual walks J-M the ring phase's launches, J and K at "f32" (TF32);
     # kernel_matvec's launches are phase 12's, kernel I's phase 11's; the
-    # FFMA tile of A-D ("highest") reports the float64 fits' and predicts'
-    # launches (phases 4, 5) beside its float32 times, the tensor-core tiles
-    # one entry per tier.  No single PyTorch call computes any kernel's
-    # function (library_ms)
-    tiers = {"gram_matvec_sym": "highest", "gram_matmat_sym": "highest",
-             "gram_matvec_rect": "highest", "gram_matmat_rect": "highest",
+    # FFMA tile of A and B at "highest" phase 12's (the bench's "highest"
+    # variants) beside their float32 times; the tensor-core tiles one entry
+    # per tier; the float64 entries (tier "f64") their float64 launches
+    # (A-D phases 4 and 5, J and K the ring) beside their float64 times and
+    # bounds.  No single PyTorch call computes any kernel's function
+    # (library_ms)
+    tiers = {"gram_matvec_sym": "highest", "gram_matvec_rect": "highest",
              "kernel_matvec": "tf32"}
     sources = {
         "gram_matvec_sym": ("gram_matvec.cu", "plssvm_tpu/ops/pallas_matvec.py:430"),
+        ("gram_matvec_sym_dmma", "f64"): (
+            "gram_dmma.cu", "plssvm_tpu/ops/pallas_matvec.py:430"),
+        ("gram_matmat_sym_dmma", "f64"): (
+            "gram_dmma.cu", "plssvm_tpu/ops/pallas_matvec.py:812"),
+        ("gram_matvec_rect", "f64"): ("gram_matvec.cu", "plssvm_tpu/ops/pallas_matvec.py:1007"),
+        ("gram_matmat_rect", "f64"): ("gram_matmat.cu", "plssvm_tpu/ops/pallas_matvec.py:812"),
+        ("gram_matvec_dual", "f64"): ("dual.cu", "plssvm_tpu/ops/pallas_matvec.py:430"),
+        ("gram_matmat_dual", "f64"): ("dual.cu", "plssvm_tpu/ops/pallas_matvec.py:812"),
         ("gram_matvec_sym_tc", "tf32"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:430"),
         ("gram_matvec_sym_tc", "bf16"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:430"),
         ("gram_matmat_sym_tc", "tf32"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:812"),
@@ -2232,8 +2649,6 @@ def main(argv=None):
         "gram_matvec_rect": ("gram_matvec.cu", "plssvm_tpu/ops/pallas_matvec.py:1007"),
         ("gram_matvec_rect_tc", "tf32"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:1007"),
         ("gram_matvec_rect_tc", "bf16"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:1007"),
-        "gram_matmat_sym": ("gram_matmat.cu", "plssvm_tpu/ops/pallas_matvec.py:812"),
-        "gram_matmat_rect": ("gram_matmat.cu", "plssvm_tpu/ops/pallas_matvec.py:812"),
         ("gram_matmat_rect_tc", "tf32"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:812"),
         ("gram_matmat_rect_tc", "bf16"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:812"),
         ("distance_matvec_sym", "laplacian"): (
@@ -2253,22 +2668,26 @@ def main(argv=None):
         ("distance_matmat_dual", "chi_squared"): (
             "dual.cu", "plssvm_tpu/ops/pallas_distance.py:412"),
     }
-    print(smi)
-    print(json.dumps({"kernels": [
+    entries = [
         {
             "name": k if isinstance(k, str) else k[0], "route": "cuda",
             "source": f"plssvm_tpu_torch/csrc/{src}",
             "replaces": replaces,
-            "launches": launches[k if isinstance(k, str) or k[1] in ("tf32", "bf16")
+            "launches": launches[k if isinstance(k, str) or k[1] in ("tf32", "bf16", "f64")
                                  else k[0]],
             "max_abs_err": main_err[k], "ms": timing[k][0],
             "plain_ms": timing[k][1], "bound_ms": bounds[k][0],
             "bound_by": bounds[k][1], "library_ms": None,
-            **({"tier": k[1]} if isinstance(k, tuple) and k[1] in ("tf32", "bf16")
+            **({"tier": k[1]} if isinstance(k, tuple) and k[1] in ("tf32", "bf16", "f64")
                else {"tier": tiers[k]} if k in tiers else {}),
         }
         for k, (src, replaces) in sources.items()
-    ]}))
+    ]
+    idle = [f"{e['name']} {e.get('tier', '')}" for e in entries if e["launches"] <= 0]
+    if idle:
+        raise AssertionError(f"kernels of the main path launched no time: {idle}")
+    print(smi)
+    print(json.dumps({"kernels": entries}))
     # every phase ran on device 0 alone
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": 1,

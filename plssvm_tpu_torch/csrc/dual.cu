@@ -44,6 +44,11 @@
 // plssvm_gram_matvec_dual_tc_* / plssvm_gram_matmat_dual_tc_*), which takes
 // the wrapper's operand copies of Xr and Xc (tier_operand) with the float32
 // operands' norms; every product of a ring solve stays at its one tier.
+// In float64 J and K stay on these FFMA walks although the ring's
+// symmetric products (kernels A and C) run on the FP64 tensor cores
+// (gram_dmma.cu): a DMMA dual tile is the next port (ROADMAP Queue 2),
+// and until then a float64 ring iteration pairs a DMMA symmetric product
+// with FFMA dual walks.
 //
 // What bounds them: as kernels A-H, the pair operation on the CUDA cores,
 // mr * mc * d pair evaluations (all of them, where A and E evaluate half

@@ -38,11 +38,14 @@
 // and 2 * BM * C atomics per off-diagonal tile where kernel A issues 2 * BM.
 // The classes are a loop, not a register array, so no per-class state is
 // held: the register footprint stays kernel A's, and C does not change how
-// the kernel is compiled.  This register tile serves the "highest" tier and
-// float64; kernels C and D at "f32" (TF32) and "bf16" run on the
-// tensor-core tiles of gram_tc.cuh (plssvm_gram_matmat_sym_tf32 / _bf16,
-// plssvm_gram_matmat_rect_tc_tf32 / _tc_bf16), D with one atomicAdd per
-// (row, class) per run of SV tiles instead of per tile.
+// the kernel is compiled.  This register tile serves the "highest" tier,
+// and kernel D in float64; kernels C and D at "f32" (TF32) and "bf16" run
+// on the tensor-core tiles of gram_tc.cuh (plssvm_gram_matmat_sym_tf32 /
+// _bf16, plssvm_gram_matmat_rect_tc_tf32 / _tc_bf16), D with one atomicAdd
+// per (row, class) per run of SV tiles instead of per tile.  Kernel C in
+// float64 runs on the FP64 tensor cores at every tier: the DMMA tile of
+// gram_dmma.cu, behind plssvm_gram_matmat_sym_dmma;
+// plssvm_gram_matmat_sym_f64 stays for chip_smoke.py to time beside it.
 //
 // Numerics: as kernels A and B (no fast-math, accurate expf/tanhf).  The
 // atomics make the summation order change from run to run.

@@ -46,11 +46,15 @@
 // kernels are bound by fp32/fp64 FMA throughput on the CUDA cores, not by
 // memory.  The register tile (R x R accumulators per thread, fed from
 // shared memory) is what this version does about it; it serves the
-// "highest" tier and float64.  Kernels A and B at the tiers "f32" (TF32)
-// and "bf16" run on the tensor cores instead: the wgmma tiles of
-// gram_tc.cuh, behind plssvm_gram_matvec_sym_tf32 / _bf16 and
+// "highest" tier, and kernel B in float64.  Kernels A and B at the tiers
+// "f32" (TF32) and "bf16" run on the tensor cores instead: the wgmma tiles
+// of gram_tc.cuh, behind plssvm_gram_matvec_sym_tf32 / _bf16 and
 // plssvm_gram_matvec_rect_tc_tf32 / _tc_bf16 (they take the wrapper's
-// operand copies of X, or of P and S).
+// operand copies of X, or of P and S).  Kernel A in float64 runs on the
+// FP64 tensor cores at every tier: the DMMA tile of gram_dmma.cu, behind
+// plssvm_gram_matvec_sym_dmma; plssvm_gram_matvec_sym_f64, the FFMA tile
+// in float64, stays for chip_smoke.py to time beside it and no wrapper
+// calls it.
 //
 // Numerics: no fast-math.  expf/tanhf (exp/tanh in double) are the
 // accurate library functions, to match the reference's epilogue; nvcc's

@@ -16,8 +16,10 @@
 // the rectangular tile; K1 and K4 with symmetric=False and both outputs
 // (bodies _matvec_kernel_dual and _matmat_kernel_dual, the reference ring's
 // cross_dual in plssvm_tpu/parallel/sharded.py) on the dual tile.  The
-// "highest" tier and float64 keep the FFMA register tiles of gram_tile.cuh
-// and dual.cu.
+// "highest" tier keeps the FFMA register tiles of gram_tile.cuh and
+// dual.cu; in float64, A and C run on the FP64 tensor cores (the DMMA tile
+// of gram_dmma.cu, which shares this file's TMA and mbarrier helpers and
+// the grouped raster), B, D, J and K on the FFMA tiles.
 //
 // What bounds them on an H100: the pair work, 2 * pairs * d flops, at the
 // tensor cores' 495 TFLOP/s (TF32) or 989 TFLOP/s (bf16), is only reached

@@ -126,6 +126,8 @@ _SHORT = re.compile(
 _TC = re.compile(r"(gram_tc_(?:sym|rect|dual))_kernelI\w*?(Tf32|Bf16)TierELi(\d)E")
 #: the dual walks (dual.cu), one template for the Gram and distance kinds
 _DUAL = re.compile(r"(mat(?:vec|mat))_dual_kernelI([fd])Li(\d)E")
+#: the FP64 tensor-core tile (gram_dmma.cu), a template of the kind
+_DMMA = re.compile(r"(gram_dmma_sym)_kernelILi(\d)E")
 _KINDS = {"1": "poly", "2": "rbf", "3": "sigmoid", "4": "laplacian", "5": "chi_squared"}
 
 
@@ -145,6 +147,7 @@ def kernel_resources() -> Dict[str, Dict[str, int]]:
             short = _SHORT.search(entry.group(1))
             tc = _TC.search(entry.group(1))
             dual = _DUAL.search(entry.group(1))
+            dmma = _DMMA.search(entry.group(1))
             name = None
             if short is not None:
                 # kernel I (banded_matvec) is laplacian only: no kind parameter
@@ -157,6 +160,9 @@ def kernel_resources() -> Dict[str, Dict[str, int]]:
                 # A and C share the sym tile, B and D the rect tile, J and K
                 # the dual tile: one name for all copies
                 name = f"{tc.group(1)} {tc.group(2).lower()} {_KINDS.get(tc.group(3))}"
+            elif dmma is not None:
+                # A and C share the tile, compiled once per kind
+                name = f"{dmma.group(1)} f64 {_KINDS.get(dmma.group(2))}"
             elif dual is not None:
                 family = "gram" if dual.group(3) in "123" else "distance"
                 name = (f"{family}_{dual.group(1)}_dual "
@@ -262,6 +268,16 @@ def load() -> ctypes.CDLL:
         for name in ("matvec_sym", "matmat_sym", "matvec_rect_tc", "matmat_rect_tc",
                      "matvec_dual_tc", "matmat_dual_tc"):
             getattr(lib, f"plssvm_gram_{name}_{tier}").restype = cint
+    # kernels A and C on the DMMA tile, float64: (X, sq, v / V, out, m,
+    # d_pad, [C,] kind, degree, gamma, coef0, stream)
+    f64 = ctypes.c_double
+    lib.plssvm_gram_matvec_sym_dmma.argtypes = [ptr] * 4 + [i64] * 2 + [cint, cint, f64, f64, ptr]
+    lib.plssvm_gram_matmat_sym_dmma.argtypes = [ptr] * 4 + [i64] * 3 + [cint, cint, f64, f64, ptr]
+    lib.plssvm_gram_matvec_sym_dmma.restype = cint
+    lib.plssvm_gram_matmat_sym_dmma.restype = cint
+    # (kind, int* blocks): the DMMA tile's blocks per SM
+    lib.plssvm_gram_dmma_blocks_per_sm.argtypes = [cint, ptr]
+    lib.plssvm_gram_dmma_blocks_per_sm.restype = cint
     # (bf16, kind, int* blocks): the dual tensor-core tile's blocks per SM
     lib.plssvm_gram_dual_tc_blocks_per_sm.argtypes = [cint, cint, ptr]
     lib.plssvm_gram_dual_tc_blocks_per_sm.restype = cint

@@ -16,13 +16,16 @@ As in ops/gram_matvec.py: ``precision`` is the Gram precision tier; on
 float32 CUDA tensors kernels C and D take the tensor-core tiles
 (csrc/gram_tc.cuh: the symmetric one for C, the rectangular one for D, the
 dual one for K) at "f32" (TF32) and "bf16" and the FFMA tiles at
-"highest"; float64 runs the FFMA tiles.  Each wrapper takes its plain PyTorch version (ops/matvec.py) at
-the same tier for tensors that lie on the CPU, and only then; for a CUDA
-tensor it launches its kernel or raises, never falls back.  Each counts its
-launches in a plain module-level int (``sym_launches``, ``rect_launches``
-for the FFMA tile, ``sym_tc_launches``, ``rect_tc_launches`` for the
-tensor-core tiles, ``dual_launches`` and ``dual_tc_launches`` for kernel K
-on either).  V, A and the output are row-major (rows, C) for any C >= 1.
+"highest"; in float64, at every tier, kernel C runs on the FP64 tensor
+cores (the DMMA tile of csrc/gram_dmma.cu), D and K on the FFMA tiles.
+Each wrapper takes its plain PyTorch version (ops/matvec.py) at the same
+tier for tensors that lie on the CPU, and only then; for a CUDA tensor it
+launches its kernel or raises, never falls back.  Each counts its launches
+in a plain module-level int (``sym_launches``, ``rect_launches`` for the
+FFMA tile, ``sym_tc_launches``, ``rect_tc_launches`` for the tensor-core
+tiles, ``sym_dmma_launches`` for kernel C on the DMMA tile,
+``dual_launches`` and ``dual_tc_launches`` for kernel K on either).  V, A
+and the output are row-major (rows, C) for any C >= 1.
 """
 
 from __future__ import annotations
@@ -39,7 +42,9 @@ from .gram_matvec import (
     _require_cuda,
     launch_dual_tc,
     launch_rect_tc,
+    launch_sym_dmma,
     tier_operand,
+    uses_dmma,
     uses_tensor_cores,
 )
 from ..parameter import KernelFunctionType
@@ -51,6 +56,8 @@ rect_launches = 0
 #: TF32, "bf16")
 sym_tc_launches = 0
 rect_tc_launches = 0
+#: kernel C's launches on the FP64 tensor-core (DMMA) tile, float64
+sym_dmma_launches = 0
 #: kernel K's launches (gram_matmat_dual) on the FFMA tile and on the
 #: tensor-core tile
 dual_launches = 0
@@ -61,11 +68,12 @@ def reset_counts() -> None:
     """Zero the launch counts of both kernels and the call counts of their
     plain versions."""
     global sym_launches, rect_launches, sym_tc_launches, rect_tc_launches
-    global dual_launches, dual_tc_launches
+    global sym_dmma_launches, dual_launches, dual_tc_launches
     sym_launches = 0
     rect_launches = 0
     sym_tc_launches = 0
     rect_tc_launches = 0
+    sym_dmma_launches = 0
     dual_launches = 0
     dual_tc_launches = 0
     _plain.sym_matmat_plain_calls = 0
@@ -106,6 +114,11 @@ def gram_matmat_sym(
     if m == 0 or C == 0:
         return out
     lib = _build.load()
+    if uses_dmma(X):
+        launch_sym_dmma(lib, "matmat", X, sq, V, out, (C,), kind, gamma, coef0, degree)
+        global sym_dmma_launches
+        sym_dmma_launches += 1
+        return out
     if uses_tensor_cores(X, precision):
         op = tier_operand(X, precision)
         fn = getattr(lib, f"plssvm_gram_matmat_sym_{_TC_TIERS[precision][0]}")

@@ -21,19 +21,23 @@ on the tensor-core tiles (csrc/gram_tc.cuh: the symmetric one for A, the
 rectangular one for B, the dual one for J) with TF32 operands, at "bf16" on
 the same tiles with bf16 operands, f32 accumulation in both; at "highest"
 on the FFMA register tiles (csrc/gram_tile.cuh, csrc/dual.cu), full
-float32.  float64 runs the FFMA tiles in float64 at every tier.  The
-tensor-core tiles take operand copies (:func:`tier_operand`: TF32-rounded
-or bf16, the feature axis padded to a 16-byte row) of X, of P and S, or of
-Xr and Xc, which the wrapper makes per call: for kernel A at MNIST's width
-they take under 4 % of the kernel's time on an H100.
+float32.  float64 is full precision at every tier: kernel A runs on the
+FP64 tensor cores (the DMMA tile of csrc/gram_dmma.cu, :func:`uses_dmma`;
+an odd d takes :func:`dmma_operand`'s copy padded to an even d), B and J on
+the FFMA tiles in float64.  The TF32 / bf16 tensor-core tiles take operand
+copies (:func:`tier_operand`: TF32-rounded or bf16, the feature axis
+padded to a 16-byte row) of X, of P and S, or of Xr and Xc, which the
+wrapper makes per call: for kernel A at MNIST's width they take under 4 %
+of the kernel's time on an H100.
 
 Each wrapper takes its plain PyTorch version (ops/matvec.py) at the same
 tier for tensors that lie on the CPU, and only then.  For a CUDA tensor it
 launches its kernel or raises; it never falls back.  Each counts its
 launches in a plain module-level int (``sym_launches``, ``rect_launches``
 for the FFMA tile, ``sym_tc_launches``, ``rect_tc_launches`` for the
-tensor-core tiles, ``dual_launches`` and ``dual_tc_launches`` for kernel
-J on either; ``kernel_matvec_launches`` counts kernel A's launches made for
+tensor-core tiles, ``sym_dmma_launches`` for kernel A on the DMMA tile,
+``dual_launches`` and ``dual_tc_launches`` for kernel J on either;
+``kernel_matvec_launches`` counts kernel A's launches made for
 :func:`kernel_matvec`).  The kernels allocate nothing: the wrapper
 allocates the zeroed output and launches on PyTorch's current stream.
 """
@@ -55,6 +59,8 @@ rect_launches = 0
 #: TF32, "bf16")
 sym_tc_launches = 0
 rect_tc_launches = 0
+#: kernel A's launches on the FP64 tensor-core (DMMA) tile, float64
+sym_dmma_launches = 0
 #: kernel A's launches made by kernel_matvec
 kernel_matvec_launches = 0
 #: kernel J's launches (gram_matvec_dual) on the FFMA tile and on the
@@ -72,11 +78,12 @@ def reset_counts() -> None:
     """Zero the launch counts of both kernels and the call counts of their
     plain versions."""
     global sym_launches, rect_launches, sym_tc_launches, rect_tc_launches
-    global kernel_matvec_launches, dual_launches, dual_tc_launches
+    global sym_dmma_launches, kernel_matvec_launches, dual_launches, dual_tc_launches
     sym_launches = 0
     rect_launches = 0
     sym_tc_launches = 0
     rect_tc_launches = 0
+    sym_dmma_launches = 0
     kernel_matvec_launches = 0
     dual_launches = 0
     dual_tc_launches = 0
@@ -146,6 +153,41 @@ def uses_tensor_cores(X: torch.Tensor, precision: str) -> bool:
             and precision in _TC_TIERS)
 
 
+def uses_dmma(X: torch.Tensor) -> bool:
+    """Whether kernels A and C take the FP64 tensor-core (DMMA) tile for X:
+    float64 CUDA operands, at every tier (float64 is full precision at
+    each)."""
+    return X.device.type == "cuda" and X.dtype == torch.float64
+
+
+def dmma_operand(X: torch.Tensor) -> torch.Tensor:
+    """The DMMA tile's operand for float64 ``X`` (m, d): X itself when a
+    row is a multiple of 16 bytes (d even) and X starts on a 16-byte
+    boundary, as TMA requires; else a contiguous copy with the feature axis
+    padded with one zero (odd d).  Zero features change no inner product,
+    so the squared norms of X stay valid."""
+    pad = X.shape[1] % 2
+    if pad == 0 and X.data_ptr() % 16 == 0:
+        return X
+    return torch.nn.functional.pad(X, (0, pad)).contiguous()
+
+
+def launch_sym_dmma(lib, op, X, sq, V, out, classes, kind, gamma, coef0,
+                    degree) -> None:
+    """Launch kernel A (``op`` "matvec", ``classes`` ()) or C ("matmat",
+    ``classes`` (C,)) on the DMMA tile on :func:`dmma_operand`'s operand.
+    Raises on a failed launch; counts nothing."""
+    X_op = dmma_operand(X)
+    fn = getattr(lib, f"plssvm_gram_{op}_sym_dmma")
+    with torch.cuda.device(X.device):
+        err = fn(
+            X_op.data_ptr(), sq.data_ptr(), V.data_ptr(), out.data_ptr(),
+            X.shape[0], X_op.shape[1], *classes, int(kind), int(degree),
+            float(gamma), float(coef0), torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on_error(lib, err, f"gram_{op}_sym (FP64 tensor cores)")
+
+
 def tier_operand(X: torch.Tensor, precision: str) -> torch.Tensor:
     """The tensor-core tiles' operand copy of float32 ``X`` (m, d): rounded
     to TF32 (``round_to_tf32``) for "f32", cast to bf16 for "bf16"; its
@@ -191,6 +233,11 @@ def gram_matvec_sym(
     if m == 0:
         return out
     lib = _build.load()
+    if uses_dmma(X):
+        launch_sym_dmma(lib, "matvec", X, sq, v, out, (), kind, gamma, coef0, degree)
+        global sym_dmma_launches
+        sym_dmma_launches += 1
+        return out
     if uses_tensor_cores(X, precision):
         op = tier_operand(X, precision)
         fn = getattr(lib, f"plssvm_gram_matvec_sym_{_TC_TIERS[precision][0]}")
@@ -308,17 +355,17 @@ def kernel_matvec(
     one launch; the counterpart of ``kernel_matvec_pallas``.
 
     ``precision`` as :func:`gram_matvec_sym`: on float32 CUDA tensors "f32"
-    and "bf16" take the tensor-core tile, "highest" the FFMA tile.  No
-    padding: any m and d >= 1.
+    and "bf16" take the tensor-core tile, "highest" the FFMA tile; float64
+    CUDA tensors the DMMA tile at every tier.  Any m and d >= 1.
     """
     _plain.check_precision(precision)
     global kernel_matvec_launches
-    before = sym_launches + sym_tc_launches
+    before = sym_launches + sym_tc_launches + sym_dmma_launches
     out = gram_matvec_sym(
         X, sq_norms, v, kind=kind, gamma=gamma, coef0=coef0, degree=degree,
         precision=precision,
     )
-    kernel_matvec_launches += sym_launches + sym_tc_launches - before
+    kernel_matvec_launches += sym_launches + sym_tc_launches + sym_dmma_launches - before
     return out
 
 

@@ -28,7 +28,9 @@ rows: no padding, no mask.
 the initial and every-50th exact residuals included: the reference found
 that mixing tiers breaks conjugacy (plssvm_tpu/solver/cg.py:1125-1137).  On
 float32 CUDA tensors "f32" runs kernels A and C on the tensor cores with
-TF32 operands, "bf16" with bf16 operands, "highest" on the FFMA tile.
+TF32 operands, "bf16" with bf16 operands, "highest" on the FFMA tile;
+float64 CUDA tensors run them on the FP64 tensor cores (the DMMA tile) at
+every tier.
 
 The one-vs-all solve (``solve_ls_svm_multi``) runs the C binary systems,
 which share the implicit matrix and differ only in their right-hand sides,

@@ -1,9 +1,11 @@
 """The CUDA kernels (A, B: Gram matvecs; C, D: Gram block matmats; E-H:
 laplacian / chi-squared matvecs and block matmats; I: the banded laplacian
 matvec; and ``kernel_matvec``, K6's one launch of kernel A) against their
-plain PyTorch versions, on the card: A-D on the FFMA tile at "highest" and
-in float64, and on the tensor-core tiles at "f32" (TF32) and "bf16" (A and
-C on the symmetric one, B and D on the rectangular one).
+plain PyTorch versions, on the card: A-D on the FFMA tile at "highest",
+in float64 A and C on the DMMA tile (tests/test_torch_dmma.py holds it on
+more shapes) and B and D on the FFMA tile, and on the tensor-core tiles at
+"f32" (TF32) and "bf16" (A and C on the symmetric one, B and D on the
+rectangular one).
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  They import
 neither jax nor plssvm_tpu, so they run where only PyTorch is installed:
@@ -47,8 +49,8 @@ def cuda_device():
 @pytest.mark.parametrize("name", list(COEF0))
 @pytest.mark.parametrize("m,d", [(1037, 203), (300, 1280), (129, 3), (1, 5)])
 def test_kernels_against_plain(cuda_device, name, dtype, tol, m, d):
-    """Kernels A and B on the FFMA tile ("highest") on ragged shapes, a
-    single row included."""
+    """Kernels A and B at "highest" on ragged shapes, a single row
+    included: on the FFMA tile, except A in float64 on the DMMA tile."""
     tkind = getattr(TKind, name.upper())
     g = torch.Generator().manual_seed(38)
     X = (torch.randn(m, d, generator=g, dtype=dtype) * 0.3).to(cuda_device)
@@ -57,15 +59,17 @@ def test_kernels_against_plain(cuda_device, name, dtype, tol, m, d):
     sq, sq_p = (X * X).sum(-1), (P * P).sum(-1)
     kw = dict(kind=tkind, gamma=1.0 / d, coef0=COEF0[name], degree=3,
               precision="highest")
-    before = gram_matvec.sym_launches, gram_matvec.rect_launches
+    dmma = dtype == torch.float64
+    before = gram_matvec.sym_launches, gram_matvec.sym_dmma_launches, gram_matvec.rect_launches
     got = gram_matvec.gram_matvec_sym(X, sq, v, **kw)
     want = matvec.kernel_matvec_plain(X, sq, v, **kw)
     assert (got - want).abs().max() <= tol * want.abs().max()
     got = gram_matvec.gram_matvec_rect(P, X, sq_p, sq, v, **kw)
     want = matvec.kernel_matvec_rect_plain(P, X, sq_p, sq, v, **kw)
     assert (got - want).abs().max() <= tol * want.abs().max()
-    assert (gram_matvec.sym_launches, gram_matvec.rect_launches) == (
-        before[0] + 1, before[1] + 1
+    assert (gram_matvec.sym_launches, gram_matvec.sym_dmma_launches,
+            gram_matvec.rect_launches) == (
+        before[0] + (not dmma), before[1] + dmma, before[2] + 1
     )
 
 
@@ -103,9 +107,10 @@ def test_wrapper_checks_operands(cuda_device):
 @pytest.mark.parametrize("n_classes", [1, 3, 10, 37])
 @pytest.mark.parametrize("m,d", [(1037, 203), (300, 1280), (129, 3), (1, 5)])
 def test_matmat_kernels_against_plain(cuda_device, name, dtype, tol, n_classes, m, d):
-    """Kernels C and D on the FFMA tile ("highest") on ragged shapes, a
-    single row included, for class counts below, at and across the
-    kernels' 8-class staging chunk."""
+    """Kernels C and D at "highest" on ragged shapes, a single row
+    included, for class counts below, at and across the kernels' 8-class
+    staging chunk: on the FFMA tile, except C in float64 on the DMMA
+    tile."""
     tkind = getattr(TKind, name.upper())
     g = torch.Generator().manual_seed(40)
     X = (torch.randn(m, d, generator=g, dtype=dtype) * 0.3).to(cuda_device)
@@ -114,7 +119,8 @@ def test_matmat_kernels_against_plain(cuda_device, name, dtype, tol, n_classes, 
     sq, sq_p = (X * X).sum(-1), (P * P).sum(-1)
     kw = dict(kind=tkind, gamma=1.0 / d, coef0=COEF0[name], degree=3,
               precision="highest")
-    before = gram_matmat.sym_launches, gram_matmat.rect_launches
+    dmma = dtype == torch.float64
+    before = gram_matmat.sym_launches, gram_matmat.sym_dmma_launches, gram_matmat.rect_launches
     got = gram_matmat.gram_matmat_sym(X, sq, V, **kw)
     want = matvec.kernel_matmat_plain(X, sq, V, **kw)
     assert got.shape == (m, n_classes)
@@ -123,8 +129,9 @@ def test_matmat_kernels_against_plain(cuda_device, name, dtype, tol, n_classes, 
     want = matvec.kernel_matmat_rect_plain(P, X, sq_p, sq, V, **kw)
     assert got.shape == (P.shape[0], n_classes)
     assert (got - want).abs().max() <= tol * want.abs().max()
-    assert (gram_matmat.sym_launches, gram_matmat.rect_launches) == (
-        before[0] + 1, before[1] + 1
+    assert (gram_matmat.sym_launches, gram_matmat.sym_dmma_launches,
+            gram_matmat.rect_launches) == (
+        before[0] + (not dmma), before[1] + dmma, before[2] + 1
     )
 
 
@@ -306,10 +313,11 @@ def test_banded_wrapper_checks_operands(cuda_device):
 @pytest.mark.parametrize("precision", ["f32", "bf16", "highest"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_kernel_matvec_is_kernel_a(cuda_device, precision, dtype):
-    """K6's port is one launch of kernel A at the same tier: "highest" (and
-    every tier in float64) the FFMA tile, "f32" and "bf16" the tensor-core
-    tile; bit for bit on one tile (m <= 64: each row sum one atomic, so no
-    summation order to vary), within the atomics' rounding on many."""
+    """K6's port is one launch of kernel A at the same tier: "highest" the
+    FFMA tile, "f32" and "bf16" the tensor-core tile, every tier in float64
+    the DMMA tile; bit for bit on one tile (m <= 64: each row sum one
+    atomic, so no summation order to vary), within the atomics' rounding on
+    many."""
     g = torch.Generator().manual_seed(45)
     kw = dict(kind=TKind.RBF, gamma=1.0 / 37, coef0=0.0, degree=3)
     for m, d, tol in ((64, 37, 0.0), (1037, 203, 1e-6 if dtype == torch.float32 else 1e-13)):
@@ -317,12 +325,14 @@ def test_kernel_matvec_is_kernel_a(cuda_device, precision, dtype):
         v = torch.randn(m, generator=g, dtype=torch.float64).to(cuda_device, dtype)
         sq = (X * X).sum(-1)
         before = (gram_matvec.sym_launches, gram_matvec.sym_tc_launches,
-                  gram_matvec.kernel_matvec_launches)
+                  gram_matvec.sym_dmma_launches, gram_matvec.kernel_matvec_launches)
         got = gram_matvec.kernel_matvec(X, sq, v, precision=precision, **kw)
         tc = dtype == torch.float32 and precision != "highest"
+        dmma = dtype == torch.float64
         assert (gram_matvec.sym_launches, gram_matvec.sym_tc_launches,
-                gram_matvec.kernel_matvec_launches) == (
-            before[0] + (not tc), before[1] + tc, before[2] + 1)
+                gram_matvec.sym_dmma_launches, gram_matvec.kernel_matvec_launches) == (
+            before[0] + (not tc and not dmma), before[1] + tc, before[2] + dmma,
+            before[3] + 1)
         want = gram_matvec.gram_matvec_sym(X, sq, v, precision=precision, **kw)
         assert (got - want).abs().max() <= tol * want.abs().max()
 
@@ -707,9 +717,9 @@ def test_ring_on_one_card(cuda_device, P, name, n_classes, precision, dtype):
     """The symmetric ring over P shards on cuda:0 against the single-device
     product at the same tier, and its launches: per shard one symmetric
     launch, floor((P - 1) / 2) dual and, for even P, one rows-only launch,
-    on the FFMA tiles in float64 and on the tensor-core tiles (sym_tc,
-    dual_tc, rect_tc) in float32 at "f32" and "bf16", none on the other
-    kind of tile.  Float64 within 1e-10 of max|single|, float32 within 1e-4
+    in float64 the symmetric ones on the DMMA tile (Gram kinds) and the
+    rest on the FFMA tiles, in float32 at "f32" and "bf16" on the
+    tensor-core tiles (sym_tc, dual_tc, rect_tc), none on another tile.  Float64 within 1e-10 of max|single|, float32 within 1e-4
     (the same tier's products summed in another order)."""
     from plssvm_tpu_torch.parallel import sharded
 
@@ -740,7 +750,8 @@ def test_ring_on_one_card(cuda_device, P, name, n_classes, precision, dtype):
             X, sq, v, kind=tkind, gamma=gamma, coef0=coef0, degree=3, precision=precision)
         tiles = ("sym_launches", "dual_launches", "rect_launches")
         cores = ("sym_tc_launches", "dual_tc_launches", "rect_tc_launches")
-        (sym, dual, rect), other = (cores, tiles) if dtype == torch.float32 else (tiles, cores)
+        (sym, dual, rect), other = ((cores, tiles) if dtype == torch.float32 else
+                                    (("sym_dmma_launches",) + tiles[1:], tiles[:1] + cores))
         assert sum(getattr(module, c) for c in other) == 0
     got = torch.cat(outs)
     tol = 1e-4 if dtype == torch.float32 else 1e-10

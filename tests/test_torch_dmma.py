@@ -1,0 +1,309 @@
+"""Kernels A and C in float64 on the FP64 tensor-core (DMMA) tile
+(csrc/gram_dmma.cu).
+
+CPU cases: the float64 bounds ``chip_smoke.py`` holds the tile's times to
+(DMMA at 67 TFLOP/s, the FFMA tile at 17 T DFMA/s), the names
+``_build.kernel_resources()`` gives the tile's instantiations, the routing
+predicate (float64 CUDA tensors take the DMMA tile at every tier; float32
+keeps its routes) and the odd-d operand copy against the unpadded plain
+version.
+
+Card cases (marked ``cuda``, skipped without a GPU): the tile against the
+plain version on ragged shapes within 1e-10 of max|plain| (the float64
+tolerance of tests/test_torch_cuda.py), the launch counters of float64
+fits, and a small float64 fit against ``backend="torch"``.  The file
+imports neither jax nor plssvm_tpu, so the card cases run where only
+PyTorch is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_dmma.py
+"""
+
+import importlib.util
+import os
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from plssvm_tpu_torch.ops import _build, gram_matmat, gram_matvec, matvec
+from plssvm_tpu_torch.parameter import KernelFunctionType as TKind
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+COEF0 = {"polynomial": 1.0, "rbf": 0.0, "sigmoid": -0.5}
+TIERS = ("f32", "bf16", "highest")
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_dmma_bounds", os.path.join(REPO, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("m,d,columns,exp,dmma_ms,dfma_ms", [
+    (59999, 784, 10, True, 42.1247, 85.1280),  # kernel C, MNIST width
+    (49999, 500, 1, False, 18.6563, 36.9110),  # kernel A, config 3's width
+    (32768, 512, 1, True, 8.2056, 16.2329),    # kernel A, the timing shape
+    (32768, 512, 10, True, 8.2056, 16.8014),   # kernel C, the timing shape
+    (9999, 200, 1, True, 0.29848, 0.59406),    # kernel A, config 2
+])
+def test_float64_sym_bounds(m, d, columns, exp, dmma_ms, dfma_ms):
+    """2 pairs d flops at 67 TFLOP/s on the DMMA tile (the DFMAs of the
+    contraction and the exps lie below it at these widths); pairs d + m^2 C
+    DFMAs at 17 T/s on the FFMA tile; both bound by operations."""
+    chip_smoke = _chip_smoke()
+    ms, by = chip_smoke._sym_bound(m, d, columns, "gram", 8, 1, "dmma", exp=exp)
+    assert ms == pytest.approx(dmma_ms, rel=1e-4) and by == "operations"
+    ms, by = chip_smoke._sym_bound(m, d, columns, "gram", 8, 1, "fp64")
+    assert ms == pytest.approx(dfma_ms, rel=1e-4) and by == "operations"
+
+
+def test_dmma_bound_counts_the_fp64_pipe_beside_the_product():
+    """At d = 3 the exps and the class DFMAs on the FP64 pipe bound the DMMA
+    tile: pairs (2 C + EXP_F64_OPS) DFMAs at 17 T/s."""
+    chip_smoke = _chip_smoke()
+    m, d, columns = 4096, 3, 10
+    pairs = m * (m + 1) / 2
+    ms, _ = chip_smoke._sym_bound(m, d, columns, "gram", 8, 1, "dmma", exp=True)
+    want = (m * m * columns + chip_smoke.EXP_F64_OPS * pairs) / chip_smoke.FP64_INSTR_PER_S
+    assert ms == pytest.approx(want * 1e3, rel=1e-12)
+    assert ms > 2 * pairs * d / chip_smoke.DMMA_FLOP_PER_S * 1e3
+
+
+@pytest.mark.parametrize("cost,per_pair_feature", [("gram", 1), ("laplacian", 2),
+                                                   ("chi_squared", 11)])
+def test_float64_dual_bounds(cost, per_pair_feature):
+    """The FFMA walks in float64 (J-M): their instructions per pair and
+    feature over 17 T/s, 2 DFMAs per pair and column."""
+    chip_smoke = _chip_smoke()
+    mr, d, columns = 2500, 200, 10
+    ms, by = chip_smoke._dual_bound(mr, mr, d, columns, cost, 8, 0, "fp64")
+    pairs = float(mr) * mr
+    want = (per_pair_feature * pairs * d + 2 * pairs * columns) / 17e12 * 1e3
+    assert ms == pytest.approx(want, rel=1e-12) and by == "operations"
+
+
+def test_kernel_resources_names_the_dmma_tile(tmp_path, monkeypatch):
+    """kernel_resources() names the DMMA tile by kind (one instantiation per
+    kind, all in gram_dmma.cu) beside the other tiles' names."""
+    library = tmp_path / "libplssvm_gram_0.so"
+    library.with_name(library.name + ".ptxas.txt").write_text(
+        "== gram_dmma.cu\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_120gram_dmma_sym_kernelILi2EEEv14CUtensorMap_stPKdS3_Pdllilidd' "
+        "for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 232 registers, 30784 bytes smem, 800 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_120gram_dmma_sym_kernelILi3EEEv14CUtensorMap_stPKdS3_Pdllilidd' "
+        "for 'sm_90a'\n"
+        "    16 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 255 registers, 30784 bytes smem, 800 bytes cmem[0]\n"
+        "== gram_matmat.cu\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_122gram_matmat_sym_kernelIdLi1EEEvPKT_S3_S3_PS1_llliS1_S1_' "
+        "for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 90 registers, 33280 bytes smem, 428 bytes cmem[0]\n",
+        encoding="utf-8",
+    )
+    monkeypatch.setattr(_build, "library_path", lambda: library)
+    assert _build.kernel_resources() == {
+        "gram_dmma_sym f64 rbf": {"spill_bytes": 0, "registers": 232, "smem_bytes": 30784},
+        "gram_dmma_sym f64 sigmoid": {"spill_bytes": 16, "registers": 255,
+                                      "smem_bytes": 30784},
+        "gram_matmat_sym f64 poly": {"spill_bytes": 0, "registers": 90, "smem_bytes": 33280},
+    }
+
+
+def _like(dtype, device):
+    """What the routing predicates read of a tensor: its device and dtype
+    (a CUDA device is named without a GPU present)."""
+    return types.SimpleNamespace(dtype=dtype, device=torch.device(device))
+
+
+@pytest.mark.parametrize("precision", TIERS)
+def test_float64_cuda_takes_the_dmma_tile_at_every_tier(precision):
+    X = _like(torch.float64, "cuda")
+    assert gram_matvec.uses_dmma(X)
+    assert not gram_matvec.uses_tensor_cores(X, precision)
+
+
+@pytest.mark.parametrize("precision", TIERS)
+def test_float32_keeps_its_routes(precision):
+    """float32 CUDA: the TF32 / bf16 tiles at "f32" / "bf16", the FFMA tile at
+    "highest", never the DMMA tile; CPU tensors of either type neither."""
+    X = _like(torch.float32, "cuda")
+    assert not gram_matvec.uses_dmma(X)
+    assert gram_matvec.uses_tensor_cores(X, precision) == (precision != "highest")
+    for dtype in (torch.float32, torch.float64):
+        assert not gram_matvec.uses_dmma(_like(dtype, "cpu"))
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 37, 784])
+def test_dmma_operand_pads_odd_d_only(d):
+    """An odd d gets one zero feature (a 16-byte row, as TMA requires); an
+    even d is passed as it is, no copy.  Through the plain versions the
+    padded operand gives the unpadded product, with X's own norms."""
+    rng = np.random.default_rng(80 + d)
+    X = torch.from_numpy(rng.normal(size=(45, d)) * 0.3)
+    v = torch.from_numpy(rng.normal(size=(45,)))
+    V = torch.from_numpy(rng.normal(size=(45, 7)))
+    sq = (X * X).sum(-1)
+    op = gram_matvec.dmma_operand(X)
+    assert op.shape == (45, d + d % 2) and op.is_contiguous()
+    if d % 2 == 0:
+        assert op.data_ptr() == X.data_ptr()
+    else:
+        assert not op[:, d:].any()
+        torch.testing.assert_close(op[:, :d], X, rtol=0, atol=0)
+    for name, coef0 in COEF0.items():
+        kw = dict(kind=getattr(TKind, name.upper()), gamma=1.0 / d, coef0=coef0, degree=3)
+        torch.testing.assert_close(matvec.kernel_matvec_plain(op, sq, v, **kw),
+                                   matvec.kernel_matvec_plain(X, sq, v, **kw),
+                                   rtol=1e-13, atol=1e-13)
+        torch.testing.assert_close(matvec.kernel_matmat_plain(op, sq, V, **kw),
+                                   matvec.kernel_matmat_plain(X, sq, V, **kw),
+                                   rtol=1e-13, atol=1e-13)
+
+
+def test_dmma_operand_copies_a_misaligned_even_view():
+    """A view that starts 8 bytes into its storage cannot feed TMA: the
+    operand is a 16-byte aligned copy."""
+    base = torch.zeros(41 * 4 + 1, dtype=torch.float64)
+    X = base[1:].view(41, 4)
+    X.copy_(torch.arange(164, dtype=torch.float64).view(41, 4))
+    assert X.data_ptr() % 16 == 8
+    op = gram_matvec.dmma_operand(X)
+    assert op.data_ptr() % 16 == 0 and op.shape == (41, 4)
+    torch.testing.assert_close(op, X, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("precision", TIERS)
+def test_cpu_float64_takes_the_plain_versions(precision):
+    """On the CPU the wrappers run the plain versions at every tier and
+    count no launch."""
+    gram_matvec.reset_counts()
+    gram_matmat.reset_counts()
+    rng = np.random.default_rng(84)
+    X = torch.from_numpy(rng.normal(size=(60, 9)))
+    v = torch.from_numpy(rng.normal(size=(60,)))
+    sq = (X * X).sum(-1)
+    kw = dict(kind=TKind.RBF, gamma=0.1, coef0=0.0, degree=3, precision=precision)
+    torch.testing.assert_close(gram_matvec.gram_matvec_sym(X, sq, v, **kw),
+                               matvec.kernel_matvec_plain(X, sq, v, **kw), rtol=0, atol=0)
+    torch.testing.assert_close(gram_matmat.gram_matmat_sym(X, sq, v[:, None], **kw),
+                               matvec.kernel_matmat_plain(X, sq, v[:, None], **kw),
+                               rtol=0, atol=0)
+    assert gram_matvec.sym_dmma_launches == gram_matmat.sym_dmma_launches == 0
+    gram_matvec.reset_counts()
+    gram_matmat.reset_counts()
+
+
+# -- on the card ---------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the CUDA kernels build and run only there)")
+    return torch.device("cuda")
+
+
+#: m across the 128-row tile's edge and its multiples, d from 1 to 1279
+#: (odd ones take the padded copy), 1 to 37 classes (across the 8-class
+#: staging chunk)
+RAGGED = [(1, 1), (127, 2), (128, 16), (129, 3), (257, 17), (1037, 203), (2100, 1),
+          (300, 1279), (4097, 784)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", TIERS)
+@pytest.mark.parametrize("name", list(COEF0))
+@pytest.mark.parametrize("n_classes", [None, 1, 8, 9, 37])
+@pytest.mark.parametrize("m,d", RAGGED)
+def test_dmma_against_plain(cuda_device, m, d, n_classes, name, precision):
+    """Kernel A (n_classes None) and C on the DMMA tile against the plain
+    version within 1e-10 of max|plain|, one launch each on the DMMA tile
+    and none on the FFMA or tensor-core tiles."""
+    g = torch.Generator().manual_seed(81)
+    X = (torch.randn(m, d, generator=g, dtype=torch.float64) * 0.3).to(cuda_device)
+    tail = () if n_classes is None else (n_classes,)
+    V = torch.randn(m, *tail, generator=g, dtype=torch.float64).to(cuda_device)
+    sq = (X * X).sum(-1)
+    kw = dict(kind=getattr(TKind, name.upper()), gamma=1.0 / d, coef0=COEF0[name], degree=3,
+              precision=precision)
+    module = gram_matvec if n_classes is None else gram_matmat
+    kernel = gram_matvec.gram_matvec_sym if n_classes is None else gram_matmat.gram_matmat_sym
+    plain = matvec.kernel_matvec_plain if n_classes is None else matvec.kernel_matmat_plain
+    module.reset_counts()
+    got = kernel(X, sq, V, **kw)
+    want = plain(X, sq, V, **kw)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-10 * want.abs().max()
+    assert (module.sym_dmma_launches, module.sym_launches, module.sym_tc_launches) == (1, 0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_labels", [2, 4])
+def test_float64_fit_takes_the_dmma_tile(cuda_device, n_labels):
+    """A float64 CUDA fit runs every symmetric product on the DMMA tile (1 +
+    iterations + every 50th) and none on the FFMA sym tile; its predict
+    goes through the FFMA rect tile; and its model and decision values
+    agree with ``backend="torch"`` on the card within 1e-6 (the atomics
+    reorder sums and CG amplifies the rounding, as chip_smoke.py's
+    small-fit check allows)."""
+    import plssvm_tpu_torch as port
+
+    rng = np.random.default_rng(83)
+    y = rng.integers(0, n_labels, 400)
+    X = rng.normal(size=(400, 10)) + 0.6 * rng.normal(size=(n_labels, 10))[y]
+    train = port.DataSet(X[:300], y[:300], scaling=(-1.0, 1.0))
+    test = port.DataSet(X[300:], y[300:], scaling=train.scaling_factors)
+    module = gram_matvec if n_labels == 2 else gram_matmat
+    results = []
+    for backend in ("cuda", "torch"):
+        svm = port.CSVM(backend=backend, device="cuda", dtype=np.float64,
+                        kernel_type="rbf", cost=1.0)
+        gram_matvec.reset_counts()
+        gram_matmat.reset_counts()
+        model = svm.fit(train, epsilon=1e-10)
+        if backend == "cuda":
+            assert module.sym_dmma_launches == 1 + model.n_iter + model.n_iter // 50
+            assert gram_matvec.sym_launches == gram_matmat.sym_launches == 0
+            assert module.sym_tc_launches == 0
+        values = svm.predict_values(model, test)
+        if backend == "cuda":
+            assert module.rect_launches >= 1
+        results.append((np.asarray(model.rho), values))
+    (rho, f), (rho_plain, f_plain) = results
+    assert np.all(np.isfinite(f))
+    assert np.max(np.abs(rho - rho_plain)) <= 1e-6
+    assert np.max(np.abs(f - f_plain)) <= 1e-6
+
+
+# -- the tool ------------------------------------------------------------------
+
+@pytest.mark.parametrize("classes", [1, 4])
+def test_bench_gram_f64_on_the_cpu(capsys, classes):
+    """On the CPU the tool times the wrapper's plain version (the ``dmma``
+    line, rel_err 0)."""
+    from plssvm_tpu_torch.tools import bench_gram_f64
+
+    rc = bench_gram_f64.main(["70", "5", str(classes), "sigmoid", "--repeats", "1", "--cpu"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert rc == 0
+    assert lines[0] == f"bench_gram_f64 on cpu: m=70 d=5 classes={classes} kernel=sigmoid"
+    assert len(lines) == 2 and lines[1].startswith("dmma ")
+    assert lines[1].endswith("rel_err=0.00e+00")
+
+
+def test_bench_gram_f64_refuses_what_it_does_not_time(capsys, monkeypatch):
+    from plssvm_tpu_torch.tools import bench_gram_f64
+
+    assert bench_gram_f64.main(["8", "2", "1", "laplacian", "--cpu"]) == 2
+    assert bench_gram_f64.main(["8", "2", "1", "linear", "--cpu"]) == 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert bench_gram_f64.main(["8", "2"]) == 1
+    assert "none is available" in capsys.readouterr().err

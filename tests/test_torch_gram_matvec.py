@@ -150,11 +150,21 @@ class TestRectAgainstPallasRect:
         np.testing.assert_allclose(got, want[:n_p], rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("name", GRAM_KINDS + ["linear"])
-def test_f64_against_xla(name):
-    """Both plain versions against plssvm_tpu's XLA matvec in float64."""
+#: 700 x 200 for every kind; for the Gram kinds also the DMMA tile's ragged
+#: edges: m across its 128-row tile, odd d (its operand padded by one zero
+#: feature), d = 1 and d past 1024
+F64_SHAPES = [pytest.param(name, 700, 200, id=name) for name in GRAM_KINDS + ["linear"]] + [
+    pytest.param(name, m, d, id=f"{name}-{m}x{d}")
+    for name in GRAM_KINDS for m, d in ((129, 3), (257, 1), (300, 1279))
+]
+
+
+@pytest.mark.parametrize("name,m,d", F64_SHAPES)
+def test_f64_against_xla(name, m, d):
+    """Both plain versions against plssvm_tpu's XLA matvec in float64, and
+    the symmetric one on the DMMA tile's operand (``dmma_operand``: odd d
+    padded with a zero feature), the tile's oracle on the card."""
     jkind, tkind = _kinds(name)
-    m, d = 700, 200
     rng = np.random.default_rng(36)
     X = rng.normal(size=(m, d)) * 0.2
     v = rng.normal(size=(m,))
@@ -172,6 +182,9 @@ def test_f64_against_xla(name):
     got_rect = _plain_rect(X, X, v, tkind, 1.0 / d, COEF0[name])
     np.testing.assert_allclose(got_sym, want, rtol=1e-10, atol=1e-10)
     np.testing.assert_allclose(got_rect, want, rtol=1e-10, atol=1e-10)
+    X_op = gram_matvec.dmma_operand(torch.from_numpy(X)).numpy()
+    got_op = _plain_sym(X_op, v, tkind, 1.0 / d, COEF0[name])
+    np.testing.assert_allclose(got_op, want, rtol=1e-10, atol=1e-10)
 
 
 class TestWrappers:
