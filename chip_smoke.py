@@ -61,9 +61,10 @@ Phases, one line each or more (the run stops at the first that fails):
    kernels A, J, B), phase 7's 10 classes at MNIST width (C, K, D), phase
    8's laplacian files (E, L, F) and phase 9's histogram classes (G, M, H),
    each against its single-device run, in float32 and float64 (the
-   symmetric products on the DMMA tile): iterations, s/iteration, the
-   launches of every kernel, epsilon reached, the accuracy floor, label
-   agreement >= 0.999, and the ring's operand copies per iteration.
+   symmetric products and J and K on the DMMA tiles): iterations,
+   s/iteration, the launches of every kernel, epsilon reached, the
+   accuracy floor, label agreement >= 0.999, and the ring's operand copies
+   per iteration.
 
 The "bf16" phase runs right after phase 5, on the files of phases 4 and
 5: both trained through ``plssvm-torch-train --gram_precision bf16`` and
@@ -81,18 +82,21 @@ banded laplacian matvec, csrc/banded.cu) against its plain version and
 kernel E on ragged shapes and at phase 11's shape, where it is timed
 beside kernel E; and ``kernel_matvec`` against kernel A and its plain
 version, timed at kernel A's shape; and kernels J-M (the ring's dual
-walks: csrc/dual.cu, and J and K at "f32" and "bf16" on the dual
-tensor-core tile of csrc/gram_tc.cuh, whose blocks per SM it logs), both
-outputs, against their plain versions on ragged mr != mc blocks in
-float32 and float64, J and K at each Gram tier, L and M per entry of K in
-float32 chi-squared, then timed at the ring phase's block shapes (J and K
-at each tier), with the cost of K and M's column atomics logged; and in
-float64 kernels A and C on the DMMA tile (csrc/gram_dmma.cu, its blocks
-per SM logged) against their plain versions on ragged shapes at every
-tier, timed at 32768 x 512, 49999 x 500 and 59999 x 784 (C = 10) beside
-the FFMA tile in float64, both bounds and DGEMM, and every float64 kernel
-at the shapes the float64 fits of phases 4, 5 and 13 give it, A-D, J and
-K held against their plain versions there too.  Beside
+walks: csrc/dual.cu, J and K at "f32" and "bf16" on the dual tensor-core
+tile of csrc/gram_tc.cuh, whose blocks per SM it logs, and in float64 on
+the dual DMMA tile of csrc/gram_dmma.cu), both outputs, against their
+plain versions on ragged mr != mc blocks in float32 and float64, J and K
+at each Gram tier, L and M per entry of K in float32 chi-squared, then
+timed at the ring phase's block shapes (J and K at each tier), with the
+cost of K and M's column atomics logged; and in float64 kernels A and C
+on the symmetric DMMA tile and J and K on the dual one (csrc/gram_dmma.cu,
+both tiles' blocks per SM logged) against their plain versions on ragged
+shapes at every tier, A and C timed at 32768 x 512, 49999 x 500 and 59999
+x 784 (C = 10) beside the FFMA tile in float64, both bounds and DGEMM, J
+and K at the ring's blocks beside the FFMA walk and both bounds, and
+every float64 kernel at the shapes the float64 fits of phases 4, 5 and 13
+give it (the ring's rows-only walks B and D included), A-D, J and K held
+against their plain versions there too.  Beside
 every kernel's time it
 computes the bound: the least time the card could take for the function
 on these inputs (see ``_bound``), and fails if a kernel measures faster
@@ -276,15 +280,21 @@ def phase_build(compare=None):
         log("build", f"{name}: {res.get('registers')} registers, "
             f"{res.get('spill_bytes')} spill bytes, "
             f"{res.get('smem_bytes')} B static shared memory")
-    # the DMMA tile: one instantiation per Gram kind, compiled once (one
-    # source holds it and its entry points), spills no larger than
-    # the TF32 sym tile's 64 bytes; no tensor-core product serialised
-    dmma = {n: r for n, r in mine.items() if n.startswith("gram_dmma_sym")}
+    # the DMMA tiles, symmetric and dual: one instantiation per Gram kind,
+    # compiled once (one source holds them and their entry points), at most
+    # 255 registers and spills no larger than the TF32 sym tile's 64 bytes;
+    # no tensor-core product serialised
     ptxas = _build._ptxas_log(path).read_text(encoding="utf-8")
-    compiled = len(re.findall(r"Compiling entry function '\w*gram_dmma_sym_kernel", ptxas))
-    if (len(dmma) != 3 or compiled != 3
-            or any(r.get("spill_bytes", 0) > 64 for r in dmma.values())):
-        raise AssertionError(f"the DMMA tile's instantiations ({compiled} compiled): {dmma}")
+    for tile in ("gram_dmma_sym", "gram_dmma_dual"):
+        dmma = {n: r for n, r in mine.items() if n.startswith(tile + " ")}
+        compiled = len(re.findall(rf"Compiling entry function '\w*{tile}_kernel", ptxas))
+        if (len(dmma) != 3 or compiled != 3
+                or any(r.get("spill_bytes", 0) > 64 or r.get("registers", 256) > 255
+                       for r in dmma.values())):
+            raise AssertionError(f"{tile}'s instantiations ({compiled} compiled): {dmma}")
+        log("build", f"{tile}_kernel compiled {compiled} times: " + ", ".join(
+            f"{n.split()[-1]} {r['registers']} registers, {r['spill_bytes']} spill bytes, "
+            f"{r['smem_bytes']} B static shared memory" for n, r in sorted(dmma.items())))
     if "C7515" in ptxas:
         raise AssertionError("ptxas serialised a tensor-core product (C7515)")
     if compare is not None:
@@ -800,14 +810,16 @@ def _dual_per_entry(X, gamma, label):
 def _dual_counter(name, dtype, precision):
     """(module, counter) that a launch of dual kernel ``name`` at the tier
     adds to: J and K on float32 at "f32" / "bf16" the tensor-core tile's
-    ``dual_tc_launches``, at "highest" and in float64 the FFMA tile's."""
+    ``dual_tc_launches``, at "highest" the FFMA tile's, in float64 at every
+    tier the dual DMMA tile's ``dual_dmma_launches``."""
     from plssvm_tpu_torch.ops import distance, gram_matmat, gram_matvec
 
     if name.startswith("distance"):
         return distance, name.split("_", 1)[1].replace("dual", "dual_launches")
     module = gram_matvec if name == "gram_matvec_dual" else gram_matmat
-    tc = dtype == torch.float32 and precision in TIER_OF
-    return module, "dual_tc_launches" if tc else "dual_launches"
+    if dtype == torch.float64:
+        return module, "dual_dmma_launches"
+    return module, "dual_tc_launches" if precision in TIER_OF else "dual_launches"
 
 
 def _dual_blocks_per_sm():
@@ -834,11 +846,12 @@ def _dual_blocks_per_sm():
 
 
 def _dual_kernels(gen, main_err, main_ms, timing, bounds):
-    """Kernels J-M (the ring's dual walks: csrc/dual.cu, and J and K on the
-    dual tensor-core tile of csrc/gram_tc.cuh at "f32" and "bf16") against
-    their plain versions, both outputs, on ragged mr != mc blocks, float32
-    and float64, J and K at each Gram tier, each launch on the tile its
-    tier names; L and M per entry of K in float32 chi-squared; then each
+    """Kernels J-M (the ring's dual walks: csrc/dual.cu, J and K on the
+    dual tensor-core tile of csrc/gram_tc.cuh at "f32" and "bf16" and on
+    the dual DMMA tile of csrc/gram_dmma.cu in float64) against their plain
+    versions, both outputs, on ragged mr != mc blocks, float32 and float64,
+    J and K at each Gram tier, each launch on the tile its tier and type
+    name; L and M per entry of K in float32 chi-squared; then each
     timed at the ring phase's block shape beside its plain version and its
     bound, recorded under (name, tier or kind), J and K at "f32" (the ring
     phase's tier) with "bf16" and the FFMA tile's "highest" logged
@@ -850,7 +863,6 @@ def _dual_kernels(gen, main_err, main_ms, timing, bounds):
              (K.CHI_SQUARED, 0.0))
     worst = {}
     for dtype in (torch.float32, torch.float64):
-        tiers = ("highest", "f32", "bf16") if dtype == torch.float32 else ("highest",)
         # the last two: more column tiles than a run takes (kTcMaxRun = 8),
         # and runs of 2 with a short last one on the tensor-core tile
         for mr, mc, d in ((1037, 513, 203), (300, 777, 1280), (129, 65, 3), (1, 1, 5),
@@ -865,7 +877,8 @@ def _dual_kernels(gen, main_err, main_ms, timing, bounds):
                     distance_kind = kind in (K.LAPLACIAN, K.CHI_SQUARED)
                     name = (("distance" if distance_kind else "gram")
                             + ("_matvec_dual" if n_classes is None else "_matmat_dual"))
-                    for precision in (("highest",) if distance_kind else tiers):
+                    for precision in (("highest",) if distance_kind
+                                      else ("highest", "f32", "bf16")):
                         kernel, plain = _dual_pair(name, precision)
                         if distance_kind:
                             args, kw = (Xr, Xc, v_c, v_r), dict(kind=kind, gamma=1.0 / d)
@@ -982,9 +995,8 @@ def _dual_kernels(gen, main_err, main_ms, timing, bounds):
 def _time_dual_tiers(name, args, kw, mr, d, columns, label, tf32_ms):
     """J or K at a ring block (``label`` its shape) beside its "f32" time
     ``tf32_ms``: at "bf16" on the tensor-core tile against the plain version
-    at "bf16" and the bf16 bound, and on the FFMA tile ("highest", the
-    float64 fits' walk) against its own bound; logged only, the ring phase
-    runs "f32"."""
+    at "bf16" and the bf16 bound, and on the FFMA tile ("highest") against
+    its own bound; logged only, the ring phase runs "f32"."""
     exp = str(kw["kind"]) == "rbf"
     kernel, plain = _dual_pair(name, "bf16")
     bf16_ms = _time_pair(name, kernel, plain, args, kw, float(mr) * mr * d, f"{label} bf16",
@@ -1113,7 +1125,9 @@ def _dual_bound(mr, mc, d, columns, cost, itemsize, extra_inputs=0, tier=None,
     ``extra_inputs`` vectors of mr and of mc moved.  ``tier`` and ``exp``
     as in ``_rect_bound``: on the tensor cores the same function (TF32 or
     bf16 products, float32 sums) could run at the tier's peak; ``tier``
-    "fp64" is the FFMA walk in float64 (``itemsize`` 8)."""
+    "fp64" is the FFMA walk in float64 and "dmma" the dual DMMA tile
+    (``itemsize`` 8 both; ``exp`` one float64 exp a pair on the FP64
+    pipe)."""
     pairs = float(mr) * mc
     if tier not in TC_TIERS:
         n_bytes = itemsize * (mr + mc) * (d + 2 * columns + extra_inputs)
@@ -1448,25 +1462,27 @@ def phase_kernels():
 
 
 def _dmma_blocks_per_sm():
-    """The DMMA tile's blocks per SM for every Gram kind, logged; raises if
-    a block does not fit."""
+    """The DMMA tiles' blocks per SM (symmetric and dual) for every Gram
+    kind, logged; raises if a block does not fit."""
     import ctypes
 
     from plssvm_tpu_torch.ops import _build
 
     lib = _build.load()
-    found = {}
-    for kind, name in ((1, "poly"), (2, "rbf"), (3, "sigmoid")):
-        blocks = ctypes.c_int(0)
-        err = lib.plssvm_gram_dmma_blocks_per_sm(kind, ctypes.byref(blocks))
-        if err != 0:
-            raise AssertionError(f"gram_dmma_sym {name}: occupancy query failed "
-                                 f"({lib.plssvm_cuda_error_string(err).decode()})")
-        found[name] = blocks.value
-    log("kernels", "gram_dmma_sym blocks per SM: "
-        + ", ".join(f"{k} {v}" for k, v in found.items()))
-    if min(found.values()) < 1:
-        raise AssertionError(f"the DMMA tile does not fit an SM: {found}")
+    for tile, query in (("gram_dmma_sym", lib.plssvm_gram_dmma_blocks_per_sm),
+                        ("gram_dmma_dual", lib.plssvm_gram_dmma_dual_blocks_per_sm)):
+        found = {}
+        for kind, name in ((1, "poly"), (2, "rbf"), (3, "sigmoid")):
+            blocks = ctypes.c_int(0)
+            err = query(kind, ctypes.byref(blocks))
+            if err != 0:
+                raise AssertionError(f"{tile} {name}: occupancy query failed "
+                                     f"({lib.plssvm_cuda_error_string(err).decode()})")
+            found[name] = blocks.value
+        log("kernels", f"{tile} blocks per SM: "
+            + ", ".join(f"{k} {v}" for k, v in found.items()))
+        if min(found.values()) < 1:
+            raise AssertionError(f"{tile} does not fit an SM: {found}")
 
 
 def _dmma_counter(matmat):
@@ -1548,20 +1564,89 @@ def _time_f64_sym(main_ms, timing, bounds, main_err, X, V, kw, label, phase=None
     return k_ms
 
 
+def _ffma_f64_dual(Xr, Xc, sq_r, sq_c, V_c, V_r, *, kind, gamma, coef0, degree):
+    """Kernel J (V (m,)) or K (V (m, C)) on the FFMA walk in float64,
+    through its entry point (``plssvm_gram_mat{vec,mat}_dual_f64``): no
+    wrapper takes it since the dual DMMA tile replaced it."""
+    from plssvm_tpu_torch.ops import _build, gram_matvec
+
+    lib = _build.load()
+    out_r, out_c = torch.zeros_like(V_r), torch.zeros_like(V_c)
+    (mr, d), mc = Xr.shape, Xc.shape[0]
+    fn, classes = ((lib.plssvm_gram_matvec_dual_f64, ()) if V_c.ndim == 1 else
+                   (lib.plssvm_gram_matmat_dual_f64, (V_c.shape[1],)))
+    err = fn(Xr.data_ptr(), Xc.data_ptr(), sq_r.data_ptr(), sq_c.data_ptr(), V_c.data_ptr(),
+             V_r.data_ptr(), out_r.data_ptr(), out_c.data_ptr(), mr, mc, d, *classes,
+             int(kind), int(degree), float(gamma), float(coef0),
+             torch.cuda.current_stream().cuda_stream)
+    gram_matvec._raise_on_error(lib, err, "the FFMA walk in float64")
+    return out_r, out_c
+
+
+def _time_f64_dual(main_ms, timing, bounds, main_err, name, args, kw, label):
+    """J or K in float64 at a ring block: the dual DMMA tile against its
+    plain version (both outputs within 1e-10 of max|plain|, one launch on
+    the tile and none on the FFMA walk), then both timed; the FFMA walk
+    through its entry point, held against the plain version too and timed;
+    both bounds (DMMA and DFMA) logged; recorded for the kernels line and
+    the ring-f64 cost line (against the DMMA bound)."""
+    kernel, plain = _dual_pair(name, "highest")
+    module, counter = _dual_counter(name, torch.float64, "highest")
+    (mr, d), mc = args[0].shape, args[1].shape[0]
+    columns = args[-1].shape[1] if args[-1].ndim == 2 else 1
+    exp = str(kw["kind"]) == "rbf"
+    before = getattr(module, counter), module.dual_launches
+    got = kernel(*args, **kw)
+    if (getattr(module, counter), module.dual_launches) != (before[0] + 1, before[1]):
+        raise AssertionError(f"{name} {label}: not launched on the dual DMMA tile only")
+    want = plain(*args, **kw)
+    key = (f"{name}_dmma", "f64")
+    main_err[key] = _check_dual(label, got, want)[1]
+    _check_dual(f"the FFMA walk in float64 {label}", _ffma_f64_dual(*args, **kw), want)
+    del got, want
+    timing[key] = _time_pair(f"{name}_dmma", kernel, plain, args, kw, float(mr) * mc * d,
+                             label, unit="Tpair-feature/s", counted="mr mc d")
+    k_ms, p_ms = timing[key]
+    ffma_ms = _median_ms(lambda: _ffma_f64_dual(*args, **kw), 5, 1)
+    bounds[key] = dmma = _dual_bound(mr, mc, d, columns, "gram", 8, 1, "dmma", exp=exp)
+    fp64 = _dual_bound(mr, mc, d, columns, "gram", 8, 1, "fp64")
+    _log_bound(f"{name}_dmma", label, k_ms, dmma)
+    _log_bound("the FFMA walk in float64", label, ffma_ms, fp64)
+    log("kernels", f"{name} {label}: dual DMMA tile {k_ms:.3f} ms ({dmma[0] / k_ms:.3f} of the "
+        f"DMMA bound {dmma[0]:.3f}, {fp64[0] / k_ms:.3f} of the DFMA bound {fp64[0]:.3f}); "
+        f"the FFMA walk {ffma_ms:.3f} ms ({fp64[0] / ffma_ms:.3f} of the DFMA bound), "
+        f"{ffma_ms / k_ms:.2f}x the tile's time; plain {p_ms:.3f} ms ({p_ms / k_ms:.2f}x)")
+    main_ms[(f"{name}_f64", "ring-f64")] = (k_ms, dmma[0])
+    if columns > 1:
+        # the column atomics: one per column, class and tile, at 1 class
+        # against all on the same block
+        Xr, Xc, sq_r, sq_c, V_c, V_r = args
+        one = (Xr, Xc, sq_r, sq_c, V_c[:, :1].contiguous(), V_r[:, :1].contiguous())
+        one_ms = _median_ms(lambda: kernel(*one, **kw), 5, 1)
+        log("kernels", f"column atomics {name}_dmma {label}: C=1 {one_ms:.3f} ms, "
+            f"C={columns} {k_ms:.3f} ms (+{k_ms - one_ms:.3f}, {(k_ms - one_ms) / k_ms:.1%} "
+            f"of the walk at C={columns})")
+
+
 def _f64_kernels(gen, main_err, main_ms, timing, bounds):
-    """Float64: kernels A and C on the DMMA tile (csrc/gram_dmma.cu), the
-    FFMA tile of B, D, J-M.  The DMMA tile's blocks per SM; A and C
-    against their plain versions on ragged shapes beyond the general check
-    (d from 1 to 1279, odd and even, m not a multiple of the 128-row tile,
-    1 to 37 classes), each launch counted on the DMMA tile and none on the
-    FFMA tile; the odd-d operand copy timed beside the kernel; A and C
+    """Float64: kernels A and C on the symmetric DMMA tile, J and K on the
+    dual one (csrc/gram_dmma.cu), the FFMA tile of B, D, L and M.  The
+    DMMA tiles' blocks per SM; A and C against their plain versions on
+    ragged shapes beyond the general check (d from 1 to 1279, odd and even,
+    m not a multiple of the 128-row tile, 1 to 37 classes), each launch
+    counted on the DMMA tile and none on the FFMA tile; J and K likewise on
+    ragged mr != mc blocks (1, 127, 129 and 4097 rows, d 1 to 785, odd and
+    even, 1 to 37 classes); the odd-d operand copy timed beside the
+    kernel; A and C
     timed at 32768 x 512 (RBF; with B and D on the FFMA tile), 49999 x 500
     (poly, config 3's width) and 59999 x 784 (RBF, C = 10, MNIST's width),
     each beside the FFMA tile, its plain version, both bounds and DGEMM;
     then every float64 kernel at the shape a float64 main path gives it
     (phases 4 and 5, the ring's one-device fits and its shards and
-    blocks), A-D, J and K against their plain versions there (the float64
-    entries' max_abs_err), recorded for the cost ranking; and E-I in
+    blocks: J and K on the dual DMMA tile beside the FFMA walk, both bounds
+    and K's classes at C = 1 against 10, and the rows-only walks B and D),
+    A-D, J and K against their plain versions there (the float64 entries'
+    max_abs_err), recorded for the cost ranking; and E-I in
     float64 at the timing shapes of their float32 rows, beside their
     bounds."""
     from plssvm_tpu_torch.ops import banded, gram_matmat, gram_matvec, matvec
@@ -1594,6 +1679,38 @@ def _f64_kernels(gen, main_err, main_ms, timing, bounds):
     for name, rel in sorted(worst.items()):
         log("kernels", f"{name} float64: worst max|err|/max|plain| {rel:.3e} over poly/rbf/"
             "sigmoid x 6 ragged shapes (d 1-1279) x 1-37 classes x every tier")
+    # the dual DMMA tile: mr != mc on both sides of the 128-row tile, odd d
+    # and d = 1, 1 to 37 classes (across the 8-class staging chunk), every
+    # tier
+    worst = {}
+    for mr, mc, d in ((1, 129, 1), (127, 4097, 3), (129, 127, 16), (4097, 1, 785),
+                      (4097, 129, 2), (129, 4097, 37)):
+        Xr = torch.randn(mr, d, generator=gen, dtype=torch.float64).to("cuda") * 0.3
+        Xc = torch.randn(mc, d, generator=gen, dtype=torch.float64).to("cuda") * 0.3
+        sq_r, sq_c = (Xr * Xr).sum(-1), (Xc * Xc).sum(-1)
+        for n_classes in (None, 1, 8, 9, 37):
+            tail = () if n_classes is None else (n_classes,)
+            v_c = torch.randn(mc, *tail, generator=gen, dtype=torch.float64).to("cuda")
+            v_r = torch.randn(mr, *tail, generator=gen, dtype=torch.float64).to("cuda")
+            name = "gram_matvec_dual" if n_classes is None else "gram_matmat_dual"
+            module, counter = _dual_counter(name, torch.float64, "highest")
+            for kind, coef0 in kinds:
+                for precision in ("highest", "f32", "bf16"):
+                    kernel, plain = _dual_pair(name, precision)
+                    args = (Xr, Xc, sq_r, sq_c, v_c, v_r)
+                    kw = dict(kind=kind, gamma=1.0 / d, coef0=coef0, degree=3)
+                    label = f"dual DMMA {kind} {mr}x{mc}x{d} C={n_classes} {precision}"
+                    before = getattr(module, counter), module.dual_launches
+                    got = kernel(*args, **kw)
+                    if (getattr(module, counter), module.dual_launches) != (
+                            before[0] + 1, before[1]):
+                        raise AssertionError(f"{label}: not launched on the dual DMMA tile only")
+                    rel, _ = _check_dual(label, got, plain(*args, **kw))
+                    worst[name] = max(worst.get(name, 0.0), rel)
+    for name, rel in sorted(worst.items()):
+        log("kernels", f"{name}_dmma float64: worst max|err|/max|plain| {rel:.3e}, both "
+            "outputs, over poly/rbf/sigmoid x 6 ragged mr != mc blocks (1-4097 rows, d 1-785) "
+            "x 1-37 classes x every tier")
     # an odd d: the wrapper's padded operand copy, timed beside the kernel
     X, _, v = _operands(49999, 499, torch.float64, gen, n_points=1)
     sq = (X * X).sum(-1)
@@ -1669,11 +1786,12 @@ def _f64_kernels(gen, main_err, main_ms, timing, bounds):
         main_ms[(f"{rect}_f64", phase)] = (ms, bound[0])
 
     # the ring's float64 cells (4 shards): each shard's symmetric product on
-    # the DMMA tile (12500 x 500 RBF, 15000 x 784 RBF C = 10) and the dual
-    # walks on the FFMA tile in float64 at the ring's blocks (J 12500^2 x
-    # 500, K 15000^2 x 784 C = 10, L 2500^2 x 200 laplacian, M 2500^2 x 200
-    # chi-squared C = 10); the shards' products, J and K also against
-    # their plain versions
+    # the DMMA tile (12500 x 500 RBF, 15000 x 784 RBF C = 10), the dual
+    # walks at the ring's blocks (J 12500^2 x 500 and K 15000^2 x 784 C =
+    # 10 on the dual DMMA tile, beside the FFMA walk; L 2500^2 x 200
+    # laplacian and M 2500^2 x 200 chi-squared C = 10 on the FFMA walk) and
+    # the rows-only walks B and D (the FFMA tile) at J's and K's blocks; the
+    # shards' products, J, K, B and D also against their plain versions
     rng = np.random.default_rng(SEED + 22)
     hist = torch.as_tensor(_draw_histograms(rng, _histogram_classes(rng, 200), 5000)[0],
                            dtype=torch.float64, device="cuda")
@@ -1691,41 +1809,43 @@ def _f64_kernels(gen, main_err, main_ms, timing, bounds):
         label = f"{mr}x{mr}x{d} f64 {kind}" + (f" C={columns}" if n_classes else "")
         if kind == K.CHI_SQUARED:
             Xr, Xc = hist[:mr].contiguous(), hist[mr:2 * mr].contiguous()
-            args, kw = (Xr, Xc, v_c, v_r), dict(kind=kind, gamma=chi2_gamma)
         else:
             X = torch.randn(2 * mr, d, generator=gen, dtype=torch.float64).to("cuda")
             if d == 500:
                 X = X / X.abs().amax(0)  # config 3's [-1, 1] scale
             Xr, Xc = X[:mr].contiguous(), X[mr:].contiguous()
-            if kind == K.LAPLACIAN:
-                args, kw = (Xr, Xc, v_c, v_r), dict(kind=kind, gamma=1.0 / d)
-            else:
-                sq_r = (Xr * Xr).sum(-1)
-                args = (Xr, Xc, sq_r, (Xc * Xc).sum(-1), v_c, v_r)
-                kw = dict(kind=kind, gamma=1.0 / d, coef0=0.0, degree=3)
-                sym, sym_k, sym_plain = _pairs(v_c)[0]
-                err = _check_close(f"{sym} {mr}x{d} f64 rbf (a shard)", sym_k(Xr, sq_r, v_c, **kw),
-                                   sym_plain(Xr, sq_r, v_c, **kw))[0]
-                main_err[(sym, "f64")] = max(main_err.get((sym, "f64"), 0.0), err)
-                _time_at_main_shape(main_ms, sym, "ring-f64",
-                                    lambda: sym_k(Xr, sq_r, v_c, **kw),
-                                    _sym_bound(mr, d, columns, "gram", 8, 1, "dmma", exp=True),
-                                    f"{mr}x{d} f64 rbf C={columns} (a shard)")
-        kernel, plain = _dual_pair(name, "highest")
-        cost = "gram" if name.startswith("gram") else str(kind)
-        bound = _dual_bound(mr, mr, d, columns, cost, 8, 0 if kind in (K.LAPLACIAN, K.CHI_SQUARED)
-                            else 1, "fp64")
-        key = (name, "f64")
-        main_err[key] = _check_dual(label, kernel(*args, **kw), plain(*args, **kw))[1]
-        if name.startswith("gram"):
-            timing[key] = _time_pair(name, kernel, plain, args, kw, float(mr) * mr * d, label,
-                                     unit="Tpair-feature/s", counted="mr mc d")
-            bounds[key] = bound
-            ms = timing[key][0]
-        else:
+        if name.startswith("distance"):
+            args = (Xr, Xc, v_c, v_r)
+            kw = dict(kind=kind, gamma=chi2_gamma if kind == K.CHI_SQUARED else 1.0 / d)
+            kernel, plain = _dual_pair(name, "highest")
+            bound = _dual_bound(mr, mr, d, columns, str(kind), 8, 0, "fp64")
+            main_err[(name, "f64")] = _check_dual(label, kernel(*args, **kw),
+                                                  plain(*args, **kw))[1]
             ms = _median_ms(lambda: kernel(*args, **kw), 5, 1)
-        _log_bound(name, label, ms, bound)
-        main_ms[(f"{name}_f64", "ring-f64")] = (ms, bound[0])
+            _log_bound(name, label, ms, bound)
+            main_ms[(f"{name}_f64", "ring-f64")] = (ms, bound[0])
+            continue
+        sq_r = (Xr * Xr).sum(-1)
+        args = (Xr, Xc, sq_r, (Xc * Xc).sum(-1), v_c, v_r)
+        kw = dict(kind=kind, gamma=1.0 / d, coef0=0.0, degree=3)
+        sym, sym_k, sym_plain = _pairs(v_c)[0]
+        err = _check_close(f"{sym} {mr}x{d} f64 rbf (a shard)", sym_k(Xr, sq_r, v_c, **kw),
+                           sym_plain(Xr, sq_r, v_c, **kw))[0]
+        main_err[(sym, "f64")] = max(main_err.get((sym, "f64"), 0.0), err)
+        _time_at_main_shape(main_ms, sym, "ring-f64", lambda: sym_k(Xr, sq_r, v_c, **kw),
+                            _sym_bound(mr, d, columns, "gram", 8, 1, "dmma", exp=True),
+                            f"{mr}x{d} f64 rbf C={columns} (a shard)")
+        _time_f64_dual(main_ms, timing, bounds, main_err, name, args, kw, label)
+        # the rows-only walk of the antipodal pair (even P): B or D on the
+        # FFMA tile in float64
+        rect, rect_k, rect_plain = _pairs(v_c)[1]
+        rows = args[:5]
+        err = _check_close(f"{rect} {label} (rows only)", rect_k(*rows, **kw),
+                           rect_plain(*rows, **kw))[0]
+        main_err[(rect, "f64")] = max(main_err.get((rect, "f64"), 0.0), err)
+        _time_at_main_shape(main_ms, f"{rect}_f64", "ring-f64", lambda: rect_k(*rows, **kw),
+                            _rect_bound(mr, mr, d, columns, "gram", 8, 1, "fp64"),
+                            f"{label} (the rows-only walk, FFMA f64)")
     del hist
 
     # the distance and banded kernels in float64 at the timing shapes of
@@ -2302,11 +2422,32 @@ def _ring_copy_ms(X, iteration_s, label):
         f"{2 * (RING_SHARDS % 2 == 0)}), {total / 1000 / iteration_s:.3%} of the iteration")
 
 
+def _ring_dmma_copies(X, label):
+    """Which of the float64 ring's row shards of X reach the DMMA tiles as
+    they are (``dmma_operand`` returns the view: d even, 16-byte aligned)
+    and which take a copy; logged, with the copies' ms per iteration."""
+    from plssvm_tpu_torch.ops import gram_matvec
+    from plssvm_tpu_torch.parallel import sharded
+
+    bounds = sharded.shard_bounds(X.shape[0], RING_SHARDS)
+    shards = sharded.shard_rows(X, bounds, [X.device] * RING_SHARDS)
+    copied = [i for i, shard in enumerate(shards)
+              if gram_matvec.dmma_operand(shard).data_ptr() != shard.data_ptr()]
+    ms = sum(_median_ms(lambda: gram_matvec.dmma_operand(shards[i]), 5, 1) for i in copied)
+    # per iteration each shard feeds its symmetric product once and each
+    # dual walk twice (as Xr and as Xc)
+    per_it = (1 + 2 * ((RING_SHARDS - 1) // 2)) * ms
+    log("ring", f"{label} float64: {RING_SHARDS - len(copied)} of {RING_SHARDS} shard views "
+        f"(d = {X.shape[1]}) reach the DMMA tiles without a copy; copied {copied or 'none'}"
+        + (f", {per_it:.3f} ms of copies per iteration" if copied else ""))
+
+
 def _ring_counts(kind, matmat, dtype):
     """(dual kernel's name, [symmetric, dual, rows-only launches], launches
     on the tiles the dtype must not take, plain calls) since the last
     reset: float32 Gram products on the tensor-core tiles; float64 ones on
-    the DMMA tile (symmetric) and the FFMA tiles (dual, rows-only)."""
+    the DMMA tiles (symmetric, dual) and the FFMA tile (rows-only), none on
+    the FFMA walk."""
     from plssvm_tpu_torch.ops import distance, gram_matmat, gram_matvec, matvec
 
     op = "matmat" if matmat else "matvec"
@@ -2325,8 +2466,8 @@ def _ring_counts(kind, matmat, dtype):
         counts = cores
         other = module.sym_launches + module.dual_launches + module.rect_launches
     else:
-        counts = [module.sym_dmma_launches, module.dual_launches, module.rect_launches]
-        other = module.sym_launches + sum(cores)
+        counts = [module.sym_dmma_launches, module.dual_dmma_launches, module.rect_launches]
+        other = module.sym_launches + module.dual_launches + sum(cores)
     return f"gram_{op}_dual", counts, other, plain
 
 
@@ -2369,8 +2510,9 @@ def phase_ring(cells):
     the 10 Gaussian classes at MNIST width: C, K, D; laplacian on config
     2's files: E, L, F; the 10 histogram classes at config 2's shape with
     chi-squared: G, M, H) in float32 (the default path: A-D, J and K on the
-    tensor-core tiles at "f32") and in float64,
-    each beside the same fit on one device.  Gates, in both types: per
+    tensor-core tiles at "f32") and in float64 (A, C, J and K on the DMMA
+    tiles, none on the FFMA walk), each beside the same fit on one
+    device.  Gates, in both types: per
     shard and product one symmetric, one dual and (for even P) one
     rows-only launch and per shard one rectangular launch to predict,
     nothing on another tile or the plain versions, epsilon reached; float32
@@ -2382,7 +2524,8 @@ def phase_ring(cells):
     per product (float64 Gram ones on the DMMA tile), no dual walk, nothing
     on another tile or the plain versions.  Returns the launches per phase
     for the cost ranking: "ring" the float32 dual walks, "ring-f64" the
-    float64 rings' symmetric (DMMA) and dual launches, "ring-one-f64" the
+    float64 rings' symmetric and dual (DMMA) launches and their fits'
+    rows-only ones (the Gram cells'), "ring-one-f64" the
     float64 one-device fits' symmetric launches of the Gram cells.  The
     binary cell is made here, the others come from phases 7-9."""
     launches = {"ring": {}, "ring-f64": {}, "ring-one-f64": {}}
@@ -2420,6 +2563,11 @@ def phase_ring(cells):
                     sym = name.replace("dual", "sym_dmma")
                     launches["ring-f64"][sym] = counts[0]
                     launches["ring-one-f64"][sym] = one["counts"][1][0]
+                    # the fit's rows-only walks, without the predict's
+                    launches["ring-f64"][name.replace("dual", "rect_f64")] = \
+                        counts[2] - RING_SHARDS
+                    X = torch.as_tensor(np.asarray(data[0].data), device="cuda")
+                    _ring_dmma_copies(X, label)
             _, one_counts, one_other, one_plain = one["counts"]
             one_products = 1 + one["iterations"] + one["iterations"] // 50
             if one_counts[:2] != [one_products, 0] or one_other or one_plain:
@@ -2613,12 +2761,13 @@ def main(argv=None):
                "gram_matmat_rect_tc", "gram_matvec_dual", "gram_matmat_dual"):
         launches[(tc, "tf32")] = launches[tc]
     # float64: A and C on the DMMA tile (phases 4 and 5), B and D on the
-    # FFMA tile (their predicts), J and K on the FFMA walk (the ring)
+    # FFMA tile (their predicts), J and K on the dual DMMA tile (the ring)
     for f64 in ("gram_matvec_sym_dmma", "gram_matmat_sym_dmma"):
         launches[(f64, "f64")] = launches[f64]
-    for f64 in ("gram_matvec_rect", "gram_matmat_rect", "gram_matvec_dual",
-                "gram_matmat_dual"):
+    for f64 in ("gram_matvec_rect", "gram_matmat_rect"):
         launches[(f64, "f64")] = launches[f"{f64}_f64"]
+    for f64 in ("gram_matvec_dual", "gram_matmat_dual"):
+        launches[(f"{f64}_dmma", "f64")] = launches[f"{f64}_f64"]
 
     # the distance kernels report the kind their main path ran: laplacian
     # for E and F (phase 8), chi-squared for G and H (phases 9 and 10); the
@@ -2640,8 +2789,10 @@ def main(argv=None):
             "gram_dmma.cu", "plssvm_tpu/ops/pallas_matvec.py:812"),
         ("gram_matvec_rect", "f64"): ("gram_matvec.cu", "plssvm_tpu/ops/pallas_matvec.py:1007"),
         ("gram_matmat_rect", "f64"): ("gram_matmat.cu", "plssvm_tpu/ops/pallas_matvec.py:812"),
-        ("gram_matvec_dual", "f64"): ("dual.cu", "plssvm_tpu/ops/pallas_matvec.py:430"),
-        ("gram_matmat_dual", "f64"): ("dual.cu", "plssvm_tpu/ops/pallas_matvec.py:812"),
+        ("gram_matvec_dual_dmma", "f64"): (
+            "gram_dmma.cu", "plssvm_tpu/ops/pallas_matvec.py:430"),
+        ("gram_matmat_dual_dmma", "f64"): (
+            "gram_dmma.cu", "plssvm_tpu/ops/pallas_matvec.py:812"),
         ("gram_matvec_sym_tc", "tf32"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:430"),
         ("gram_matvec_sym_tc", "bf16"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:430"),
         ("gram_matmat_sym_tc", "tf32"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:812"),

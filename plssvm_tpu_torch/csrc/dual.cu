@@ -38,17 +38,17 @@
 // carried over from the TPU: the 128-row padding, the class-major layout
 // padded to 8, the resident column accumulator (atomics replace it).
 //
-// Tiers: the walks here serve "highest" and float64.  On float32 data at
-// "f32" (TF32) and "bf16", J and K run on the dual tensor-core tile of
-// gram_tc.cuh (gram_tc_dual_kernel, instantiated here behind
-// plssvm_gram_matvec_dual_tc_* / plssvm_gram_matmat_dual_tc_*), which takes
-// the wrapper's operand copies of Xr and Xc (tier_operand) with the float32
-// operands' norms; every product of a ring solve stays at its one tier.
-// In float64 J and K stay on these FFMA walks although the ring's
-// symmetric products (kernels A and C) run on the FP64 tensor cores
-// (gram_dmma.cu): a DMMA dual tile is the next port (ROADMAP Queue 2),
-// and until then a float64 ring iteration pairs a DMMA symmetric product
-// with FFMA dual walks.
+// Tiers: the Gram walks here serve J and K at "highest" (L and M serve
+// every tier and type).  On float32 data at "f32" (TF32) and "bf16", J and
+// K run on the dual tensor-core tile of gram_tc.cuh (gram_tc_dual_kernel,
+// instantiated here behind plssvm_gram_matvec_dual_tc_* /
+// plssvm_gram_matmat_dual_tc_*), which takes the wrapper's operand copies
+// of Xr and Xc (tier_operand) with the float32 operands' norms; every
+// product of a ring solve stays at its one tier.  In float64, at every
+// tier, J and K run on the dual DMMA tile of gram_dmma.cu, as the ring's
+// symmetric products (kernels A and C) run on its symmetric one; the float64
+// FFMA walks' entry points (plssvm_gram_mat*_dual_f64) stay for
+// chip_smoke.py to time beside that tile, and no wrapper takes them.
 //
 // What bounds them: as kernels A-H, the pair operation on the CUDA cores,
 // mr * mc * d pair evaluations (all of them, where A and E evaluate half

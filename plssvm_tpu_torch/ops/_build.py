@@ -126,8 +126,8 @@ _SHORT = re.compile(
 _TC = re.compile(r"(gram_tc_(?:sym|rect|dual))_kernelI\w*?(Tf32|Bf16)TierELi(\d)E")
 #: the dual walks (dual.cu), one template for the Gram and distance kinds
 _DUAL = re.compile(r"(mat(?:vec|mat))_dual_kernelI([fd])Li(\d)E")
-#: the FP64 tensor-core tile (gram_dmma.cu), a template of the kind
-_DMMA = re.compile(r"(gram_dmma_sym)_kernelILi(\d)E")
+#: the FP64 tensor-core tiles (gram_dmma.cu), templates of the kind
+_DMMA = re.compile(r"(gram_dmma_(?:sym|dual))_kernelILi(\d)E")
 _KINDS = {"1": "poly", "2": "rbf", "3": "sigmoid", "4": "laplacian", "5": "chi_squared"}
 
 
@@ -161,7 +161,8 @@ def kernel_resources() -> Dict[str, Dict[str, int]]:
                 # the dual tile: one name for all copies
                 name = f"{tc.group(1)} {tc.group(2).lower()} {_KINDS.get(tc.group(3))}"
             elif dmma is not None:
-                # A and C share the tile, compiled once per kind
+                # A and C share the sym tile, J and K the dual one, each
+                # compiled once per kind
                 name = f"{dmma.group(1)} f64 {_KINDS.get(dmma.group(2))}"
             elif dual is not None:
                 family = "gram" if dual.group(3) in "123" else "distance"
@@ -275,9 +276,17 @@ def load() -> ctypes.CDLL:
     lib.plssvm_gram_matmat_sym_dmma.argtypes = [ptr] * 4 + [i64] * 3 + [cint, cint, f64, f64, ptr]
     lib.plssvm_gram_matvec_sym_dmma.restype = cint
     lib.plssvm_gram_matmat_sym_dmma.restype = cint
-    # (kind, int* blocks): the DMMA tile's blocks per SM
-    lib.plssvm_gram_dmma_blocks_per_sm.argtypes = [cint, ptr]
-    lib.plssvm_gram_dmma_blocks_per_sm.restype = cint
+    # kernels J and K on the dual DMMA tile: (Xr, Xc, sq_r, sq_c, v_c / V_c,
+    # v_r / V_r, out_r, out_c, mr, mc, d_pad, [C,] kind, degree, gamma, coef0,
+    # stream)
+    lib.plssvm_gram_matvec_dual_dmma.argtypes = [ptr] * 8 + [i64] * 3 + [cint, cint, f64, f64, ptr]
+    lib.plssvm_gram_matmat_dual_dmma.argtypes = [ptr] * 8 + [i64] * 4 + [cint, cint, f64, f64, ptr]
+    lib.plssvm_gram_matvec_dual_dmma.restype = cint
+    lib.plssvm_gram_matmat_dual_dmma.restype = cint
+    # (kind, int* blocks): the DMMA tiles' blocks per SM
+    for name in ("plssvm_gram_dmma_blocks_per_sm", "plssvm_gram_dmma_dual_blocks_per_sm"):
+        getattr(lib, name).argtypes = [cint, ptr]
+        getattr(lib, name).restype = cint
     # (bf16, kind, int* blocks): the dual tensor-core tile's blocks per SM
     lib.plssvm_gram_dual_tc_blocks_per_sm.argtypes = [cint, cint, ptr]
     lib.plssvm_gram_dual_tc_blocks_per_sm.restype = cint

@@ -10,21 +10,24 @@ csrc/gram_matmat.cu says how they are built and what bounds them.  Kernel
 K, :func:`gram_matmat_dual` — ``(K(Xr, Xc) @ V_c, K(Xr, Xc)^T @ V_r)``,
 the one-vs-all ring's off-diagonal block — is the same function's
 ``symmetric=False`` dual output (csrc/dual.cu; at "f32" and "bf16" the
-dual tensor-core tile of csrc/gram_tc.cuh).
+dual tensor-core tile of csrc/gram_tc.cuh, in float64 the dual DMMA tile of
+csrc/gram_dmma.cu).
 
 As in ops/gram_matvec.py: ``precision`` is the Gram precision tier; on
 float32 CUDA tensors kernels C and D take the tensor-core tiles
 (csrc/gram_tc.cuh: the symmetric one for C, the rectangular one for D, the
 dual one for K) at "f32" (TF32) and "bf16" and the FFMA tiles at
-"highest"; in float64, at every tier, kernel C runs on the FP64 tensor
-cores (the DMMA tile of csrc/gram_dmma.cu), D and K on the FFMA tiles.
+"highest"; in float64, at every tier, kernels C and K run on the FP64
+tensor cores (the symmetric and the dual DMMA tile of csrc/gram_dmma.cu),
+D on the FFMA tile.
 Each wrapper takes its plain PyTorch version (ops/matvec.py) at the same
 tier for tensors that lie on the CPU, and only then; for a CUDA tensor it
 launches its kernel or raises, never falls back.  Each counts its launches
 in a plain module-level int (``sym_launches``, ``rect_launches`` for the
 FFMA tile, ``sym_tc_launches``, ``rect_tc_launches`` for the tensor-core
 tiles, ``sym_dmma_launches`` for kernel C on the DMMA tile,
-``dual_launches`` and ``dual_tc_launches`` for kernel K on either).  V, A
+``dual_launches``, ``dual_tc_launches`` and ``dual_dmma_launches`` for
+kernel K on the FFMA, tensor-core and DMMA tiles).  V, A
 and the output are row-major (rows, C) for any C >= 1.
 """
 
@@ -40,6 +43,7 @@ from .gram_matvec import (
     _check_operands,
     _raise_on_error,
     _require_cuda,
+    launch_dual_dmma,
     launch_dual_tc,
     launch_rect_tc,
     launch_sym_dmma,
@@ -58,17 +62,18 @@ sym_tc_launches = 0
 rect_tc_launches = 0
 #: kernel C's launches on the FP64 tensor-core (DMMA) tile, float64
 sym_dmma_launches = 0
-#: kernel K's launches (gram_matmat_dual) on the FFMA tile and on the
-#: tensor-core tile
+#: kernel K's launches (gram_matmat_dual) on the FFMA tile, on the
+#: tensor-core tile and, float64, on the DMMA tile
 dual_launches = 0
 dual_tc_launches = 0
+dual_dmma_launches = 0
 
 
 def reset_counts() -> None:
     """Zero the launch counts of both kernels and the call counts of their
     plain versions."""
     global sym_launches, rect_launches, sym_tc_launches, rect_tc_launches
-    global sym_dmma_launches, dual_launches, dual_tc_launches
+    global sym_dmma_launches, dual_launches, dual_tc_launches, dual_dmma_launches
     sym_launches = 0
     rect_launches = 0
     sym_tc_launches = 0
@@ -76,6 +81,7 @@ def reset_counts() -> None:
     sym_dmma_launches = 0
     dual_launches = 0
     dual_tc_launches = 0
+    dual_dmma_launches = 0
     _plain.sym_matmat_plain_calls = 0
     _plain.rect_matmat_plain_calls = 0
     _plain.dual_matmat_plain_calls = 0
@@ -247,6 +253,12 @@ def gram_matmat_dual(
     if mr == 0 or mc == 0 or C == 0:
         return out_r, out_c
     lib = _build.load()
+    if uses_dmma(Xr):
+        launch_dual_dmma(lib, "matmat", Xr, Xc, sq_r, sq_c, V_c, V_r, out_r, out_c,
+                         (C,), kind, gamma, coef0, degree)
+        global dual_dmma_launches
+        dual_dmma_launches += 1
+        return out_r, out_c
     if uses_tensor_cores(Xr, precision):
         launch_dual_tc(lib, "matmat", Xr, Xc, sq_r, sq_c, V_c, V_r, out_r, out_c,
                        (C,), kind, gamma, coef0, degree, precision)

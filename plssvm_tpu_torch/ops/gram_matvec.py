@@ -12,8 +12,8 @@ symmetric kernel; here it is one launch of kernel A.  Kernel J,
 :func:`gram_matvec_dual` — ``(K(Xr, Xc) @ v_c, K(Xr, Xc)^T @ v_r)``, the
 row-sharded ring's off-diagonal block (parallel/sharded.py) — replaces
 ``kernel_matvec_pallas_dual`` with ``symmetric=False`` (csrc/dual.cu at
-"highest" and in float64, the dual tensor-core tile of csrc/gram_tc.cuh at
-"f32" and "bf16").
+"highest", the dual tensor-core tile of csrc/gram_tc.cuh at "f32" and
+"bf16", the dual DMMA tile of csrc/gram_dmma.cu in float64).
 
 ``precision`` is the Gram precision tier, as the reference's
 (``gram_precision``).  On float32 CUDA tensors kernels A and B at "f32" run
@@ -21,10 +21,11 @@ on the tensor-core tiles (csrc/gram_tc.cuh: the symmetric one for A, the
 rectangular one for B, the dual one for J) with TF32 operands, at "bf16" on
 the same tiles with bf16 operands, f32 accumulation in both; at "highest"
 on the FFMA register tiles (csrc/gram_tile.cuh, csrc/dual.cu), full
-float32.  float64 is full precision at every tier: kernel A runs on the
-FP64 tensor cores (the DMMA tile of csrc/gram_dmma.cu, :func:`uses_dmma`;
-an odd d takes :func:`dmma_operand`'s copy padded to an even d), B and J on
-the FFMA tiles in float64.  The TF32 / bf16 tensor-core tiles take operand
+float32.  float64 is full precision at every tier: kernels A and J run on
+the FP64 tensor cores (the symmetric and the dual DMMA tile of
+csrc/gram_dmma.cu, :func:`uses_dmma`; an odd d, or a view that is not
+16-byte aligned, takes :func:`dmma_operand`'s copy), B on the FFMA tile in
+float64.  The TF32 / bf16 tensor-core tiles take operand
 copies (:func:`tier_operand`: TF32-rounded or bf16, the feature axis
 padded to a 16-byte row) of X, of P and S, or of Xr and Xc, which the
 wrapper makes per call: for kernel A at MNIST's width they take under 4 %
@@ -36,7 +37,8 @@ launches its kernel or raises; it never falls back.  Each counts its
 launches in a plain module-level int (``sym_launches``, ``rect_launches``
 for the FFMA tile, ``sym_tc_launches``, ``rect_tc_launches`` for the
 tensor-core tiles, ``sym_dmma_launches`` for kernel A on the DMMA tile,
-``dual_launches`` and ``dual_tc_launches`` for kernel J on either;
+``dual_launches``, ``dual_tc_launches`` and ``dual_dmma_launches`` for
+kernel J on the FFMA, tensor-core and DMMA tiles;
 ``kernel_matvec_launches`` counts kernel A's launches made for
 :func:`kernel_matvec`).  The kernels allocate nothing: the wrapper
 allocates the zeroed output and launches on PyTorch's current stream.
@@ -63,10 +65,11 @@ rect_tc_launches = 0
 sym_dmma_launches = 0
 #: kernel A's launches made by kernel_matvec
 kernel_matvec_launches = 0
-#: kernel J's launches (gram_matvec_dual) on the FFMA tile and on the
-#: tensor-core tile
+#: kernel J's launches (gram_matvec_dual) on the FFMA tile, on the
+#: tensor-core tile and, float64, on the DMMA tile
 dual_launches = 0
 dual_tc_launches = 0
+dual_dmma_launches = 0
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 #: per tier of the tensor-core tile: the entry points' suffix, the operand
@@ -79,6 +82,7 @@ def reset_counts() -> None:
     plain versions."""
     global sym_launches, rect_launches, sym_tc_launches, rect_tc_launches
     global sym_dmma_launches, kernel_matvec_launches, dual_launches, dual_tc_launches
+    global dual_dmma_launches
     sym_launches = 0
     rect_launches = 0
     sym_tc_launches = 0
@@ -87,6 +91,7 @@ def reset_counts() -> None:
     kernel_matvec_launches = 0
     dual_launches = 0
     dual_tc_launches = 0
+    dual_dmma_launches = 0
     _plain.sym_plain_calls = 0
     _plain.rect_plain_calls = 0
     _plain.dual_plain_calls = 0
@@ -154,9 +159,9 @@ def uses_tensor_cores(X: torch.Tensor, precision: str) -> bool:
 
 
 def uses_dmma(X: torch.Tensor) -> bool:
-    """Whether kernels A and C take the FP64 tensor-core (DMMA) tile for X:
-    float64 CUDA operands, at every tier (float64 is full precision at
-    each)."""
+    """Whether kernels A, C, J and K take the FP64 tensor-core (DMMA) tiles
+    for X: float64 CUDA operands, at every tier (float64 is full precision
+    at each)."""
     return X.device.type == "cuda" and X.dtype == torch.float64
 
 
@@ -390,7 +395,8 @@ def gram_matvec_dual(
     squared row norms, ``v_c`` (mc,), ``v_r`` (mr,); ``precision`` the
     tier: on float32 CUDA tensors "f32" and "bf16" take the dual
     tensor-core tile on :func:`tier_operand`'s copies of Xr and Xc with the
-    given norms, "highest" the FFMA tile.
+    given norms, "highest" the FFMA tile; float64 CUDA tensors the dual
+    DMMA tile at every tier, on :func:`dmma_operand`'s operands.
     """
     _check_gram_kind(kind)
     _plain.check_precision(precision)
@@ -413,6 +419,12 @@ def gram_matvec_dual(
     if mr == 0 or mc == 0:
         return out_r, out_c
     lib = _build.load()
+    if uses_dmma(Xr):
+        launch_dual_dmma(lib, "matvec", Xr, Xc, sq_r, sq_c, v_c, v_r, out_r, out_c,
+                         (), kind, gamma, coef0, degree)
+        global dual_dmma_launches
+        dual_dmma_launches += 1
+        return out_r, out_c
     if uses_tensor_cores(Xr, precision):
         launch_dual_tc(lib, "matvec", Xr, Xc, sq_r, sq_c, v_c, v_r, out_r, out_c,
                        (), kind, gamma, coef0, degree, precision)
@@ -450,3 +462,21 @@ def launch_dual_tc(lib, op, Xr, Xc, sq_r, sq_c, w_c, w_r, out_r, out_c, classes,
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error(lib, err, f"gram_{op}_dual (tensor cores)")
+
+
+def launch_dual_dmma(lib, op, Xr, Xc, sq_r, sq_c, w_c, w_r, out_r, out_c, classes,
+                     kind, gamma, coef0, degree) -> None:
+    """Launch kernel J (``op`` "matvec", ``classes`` ()) or K ("matmat",
+    ``classes`` (C,)) on the dual DMMA tile on :func:`dmma_operand`'s
+    operands of Xr and Xc.  Raises on a failed launch; counts nothing."""
+    Xr_op, Xc_op = dmma_operand(Xr), dmma_operand(Xc)
+    fn = getattr(lib, f"plssvm_gram_{op}_dual_dmma")
+    with torch.cuda.device(Xr.device):
+        err = fn(
+            Xr_op.data_ptr(), Xc_op.data_ptr(), sq_r.data_ptr(), sq_c.data_ptr(),
+            w_c.data_ptr(), w_r.data_ptr(), out_r.data_ptr(), out_c.data_ptr(),
+            Xr.shape[0], Xc.shape[0], Xr_op.shape[1], *classes, int(kind),
+            int(degree), float(gamma), float(coef0),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on_error(lib, err, f"gram_{op}_dual (FP64 tensor cores)")

@@ -1,8 +1,8 @@
 """Command-line measurement tools of the port, each run as
 ``python -m plssvm_tpu_torch.tools.<name>``: ``exp_banded_distance`` (kernel
 I), ``bench_matvec`` (the kernel matvecs side by side) and
-``bench_gram_f64`` (kernel A or C in float64 on the DMMA tile, one
-checkout's tile at a time)."""
+``bench_gram_f64`` (kernels A and C, or J and K, in float64 on the DMMA
+tiles, one checkout's tiles at a time)."""
 
 from __future__ import annotations
 

@@ -21,7 +21,8 @@ the first-order bound of TF32's unit roundoff 2^-11 (``_tf32_tier_bound``).
 The chi-squared kernels are also held per entry of K
 (``test_chi_squared_per_entry``).  Kernels J-M (the ring's dual walks,
 csrc/dual.cu; J and K at "f32" and "bf16" on the dual tensor-core tile of
-csrc/gram_tc.cuh) are held, both outputs, against their plain versions on
+csrc/gram_tc.cuh and in float64 on the dual DMMA tile of csrc/gram_dmma.cu)
+are held, both outputs, against their plain versions on
 the tier's operands at the same tolerances, and the row-sharded ring on
 one card (P = 3 and 4 shards on ``cuda:0``) against the single-device
 product at the same tier.
@@ -639,8 +640,8 @@ def test_gram_dual_against_plain(cuda_device, mr, mc, d, n_classes, name, precis
     """Kernels J (v (m,)) and K (V (m, C)) on ragged mr != mc blocks, both
     outputs, against the plain version on the tier's operands; one launch,
     on the dual tensor-core tile (dual_tc_launches) at "f32" and "bf16" on
-    float32, on the FFMA tile (dual_launches) at "highest" and in
-    float64."""
+    float32, on the FFMA tile (dual_launches) at "highest" on float32, on
+    the dual DMMA tile (dual_dmma_launches) in float64."""
     Xr, Xc, v_c, v_r = _dual_case(mr, mc, d, n_classes, dtype, 52, cuda_device)
     sq_r, sq_c = (Xr * Xr).sum(-1), (Xc * Xc).sum(-1)
     kw = dict(kind=getattr(TKind, name.upper()), gamma=1.0 / d, coef0=COEF0[name],
@@ -648,11 +649,12 @@ def test_gram_dual_against_plain(cuda_device, mr, mc, d, n_classes, name, precis
     module, plain = ((gram_matvec, matvec.kernel_matvec_dual_plain) if n_classes is None
                      else (gram_matmat, matvec.kernel_matmat_dual_plain))
     kernel = gram_matvec.gram_matvec_dual if n_classes is None else gram_matmat.gram_matmat_dual
-    before = module.dual_launches, module.dual_tc_launches
+    before = module.dual_launches, module.dual_tc_launches, module.dual_dmma_launches
     got = kernel(Xr, Xc, sq_r, sq_c, v_c, v_r, **kw)
     tc = precision != "highest" and dtype == torch.float32
-    assert (module.dual_launches, module.dual_tc_launches) == (
-        before[0] + (not tc), before[1] + tc)
+    dmma = dtype == torch.float64
+    assert (module.dual_launches, module.dual_tc_launches, module.dual_dmma_launches) == (
+        before[0] + (not tc and not dmma), before[1] + tc, before[2] + dmma)
     if precision == "f32" and dtype == torch.float32:
         want = plain(matvec.round_to_tf32(Xr), matvec.round_to_tf32(Xc), sq_r, sq_c, v_c,
                      v_r, **kw)
@@ -717,10 +719,11 @@ def test_ring_on_one_card(cuda_device, P, name, n_classes, precision, dtype):
     """The symmetric ring over P shards on cuda:0 against the single-device
     product at the same tier, and its launches: per shard one symmetric
     launch, floor((P - 1) / 2) dual and, for even P, one rows-only launch,
-    in float64 the symmetric ones on the DMMA tile (Gram kinds) and the
-    rest on the FFMA tiles, in float32 at "f32" and "bf16" on the
-    tensor-core tiles (sym_tc, dual_tc, rect_tc), none on another tile.  Float64 within 1e-10 of max|single|, float32 within 1e-4
-    (the same tier's products summed in another order)."""
+    in float64 the symmetric and dual ones on the DMMA tiles (Gram kinds)
+    and the rows-only ones on the FFMA tile, in float32 at "f32" and "bf16"
+    on the tensor-core tiles (sym_tc, dual_tc, rect_tc), none on another
+    tile.  Float64 within 1e-10 of max|single|, float32 within 1e-4 (the
+    same tier's products summed in another order)."""
     from plssvm_tpu_torch.parallel import sharded
 
     distance_kind = name in ("laplacian", "chi_squared")
@@ -751,7 +754,8 @@ def test_ring_on_one_card(cuda_device, P, name, n_classes, precision, dtype):
         tiles = ("sym_launches", "dual_launches", "rect_launches")
         cores = ("sym_tc_launches", "dual_tc_launches", "rect_tc_launches")
         (sym, dual, rect), other = ((cores, tiles) if dtype == torch.float32 else
-                                    (("sym_dmma_launches",) + tiles[1:], tiles[:1] + cores))
+                                    (("sym_dmma_launches", "dual_dmma_launches", tiles[2]),
+                                     tiles[:2] + cores))
         assert sum(getattr(module, c) for c in other) == 0
     got = torch.cat(outs)
     tol = 1e-4 if dtype == torch.float32 else 1e-10

@@ -1,25 +1,29 @@
-"""Kernels A and C in float64 on the FP64 tensor-core (DMMA) tile
-(csrc/gram_dmma.cu).
+"""Kernels A and C (the symmetric tile) and J and K (the dual tile) in
+float64 on the FP64 tensor-core (DMMA) tiles (csrc/gram_dmma.cu).
 
-CPU cases: the float64 bounds ``chip_smoke.py`` holds the tile's times to
-(DMMA at 67 TFLOP/s, the FFMA tile at 17 T DFMA/s), the names
-``_build.kernel_resources()`` gives the tile's instantiations, the routing
-predicate (float64 CUDA tensors take the DMMA tile at every tier; float32
-keeps its routes) and the odd-d operand copy against the unpadded plain
-version.
+CPU cases: the float64 bounds ``chip_smoke.py`` holds the tiles' times to
+(DMMA at 67 TFLOP/s, the FFMA tiles at 17 T DFMA/s), the names
+``_build.kernel_resources()`` gives the tiles' instantiations, the ctypes
+signatures of their entry points against the C source, the routing
+predicate (float64 CUDA tensors take the DMMA tiles at every tier; float32
+keeps its routes), the odd-d operand copy against the unpadded plain
+version, the ring's shard views as the tiles' operands, and the tool.
 
-Card cases (marked ``cuda``, skipped without a GPU): the tile against the
-plain version on ragged shapes within 1e-10 of max|plain| (the float64
-tolerance of tests/test_torch_cuda.py), the launch counters of float64
-fits, and a small float64 fit against ``backend="torch"``.  The file
+Card cases (marked ``cuda``, skipped without a GPU): both tiles against
+the plain versions on ragged shapes within 1e-10 of max|plain| (the
+float64 tolerance of tests/test_torch_cuda.py), the launch counters of
+float64 fits and of a float64 ring fit, and a small float64 fit against
+``backend="torch"``.  The file
 imports neither jax nor plssvm_tpu, so the card cases run where only
 PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_dmma.py
 """
 
+import ctypes
 import importlib.util
 import os
+import re
 import types
 
 import numpy as np
@@ -85,6 +89,32 @@ def test_float64_dual_bounds(cost, per_pair_feature):
     assert ms == pytest.approx(want, rel=1e-12) and by == "operations"
 
 
+@pytest.mark.parametrize("mr,d,columns,dmma_ms", [
+    (12500, 500, 1, 2.33209),   # kernel J, the config-3 ring's block
+    (15000, 784, 10, 5.26567),  # kernel K, the MNIST-width ring's block
+])
+def test_float64_dual_dmma_bounds(mr, d, columns, dmma_ms):
+    """The dual DMMA tile at the ring's blocks: 2 mr mc d flops at 67
+    TFLOP/s (every pair of the block), by operations; the DFMAs of both
+    contractions and the exps lie below it."""
+    chip_smoke = _chip_smoke()
+    ms, by = chip_smoke._dual_bound(mr, mr, d, columns, "gram", 8, 1, "dmma", exp=True)
+    assert ms == pytest.approx(2.0 * mr * mr * d / 67e12 * 1e3, rel=1e-12)
+    assert ms == pytest.approx(dmma_ms, rel=1e-5) and by == "operations"
+
+
+def test_dual_dmma_bound_counts_the_fp64_pipe_at_d_3():
+    """At d = 3 the FP64 pipe bounds the dual tile: pairs (2 C +
+    EXP_F64_OPS) DFMAs at 17 T/s, both contractions and one exp a pair."""
+    chip_smoke = _chip_smoke()
+    mr, mc, d, columns = 4097, 129, 3, 10
+    pairs = float(mr) * mc
+    ms, _ = chip_smoke._dual_bound(mr, mc, d, columns, "gram", 8, 1, "dmma", exp=True)
+    want = (2 * pairs * columns + chip_smoke.EXP_F64_OPS * pairs) / chip_smoke.FP64_INSTR_PER_S
+    assert ms == pytest.approx(want * 1e3, rel=1e-12)
+    assert ms > 2 * pairs * d / chip_smoke.DMMA_FLOP_PER_S * 1e3
+
+
 def test_kernel_resources_names_the_dmma_tile(tmp_path, monkeypatch):
     """kernel_resources() names the DMMA tile by kind (one instantiation per
     kind, all in gram_dmma.cu) beside the other tiles' names."""
@@ -118,6 +148,76 @@ def test_kernel_resources_names_the_dmma_tile(tmp_path, monkeypatch):
     }
 
 
+def test_kernel_resources_names_the_dual_dmma_tile(tmp_path, monkeypatch):
+    """kernel_resources() names the dual DMMA tile by kind beside the
+    symmetric one and the FFMA walks of dual.cu."""
+    library = tmp_path / "libplssvm_gram_0.so"
+    library.with_name(library.name + ".ptxas.txt").write_text(
+        "== gram_dmma.cu\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_121gram_dmma_dual_kernelILi1EEEv14CUtensorMap_stS1_PKdS3_S3_S3_PdS4_"
+        "llliiiiiidd' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 222 registers, 30784 bytes smem, 900 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_120gram_dmma_sym_kernelILi1EEEv14CUtensorMap_stPKdS3_Pdllilidd' "
+        "for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 204 registers, 30784 bytes smem, 800 bytes cmem[0]\n"
+        "== dual.cu\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_118matmat_dual_kernelIdLi3EEEvPKT_S3_S3_S3_S3_S3_PS1_S4_llllliS1_S1_' "
+        "for 'sm_90a'\n"
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 128 registers, 50688 bytes smem, 472 bytes cmem[0]\n",
+        encoding="utf-8",
+    )
+    monkeypatch.setattr(_build, "library_path", lambda: library)
+    assert _build.kernel_resources() == {
+        "gram_dmma_dual f64 poly": {"spill_bytes": 0, "registers": 222, "smem_bytes": 30784},
+        "gram_dmma_sym f64 poly": {"spill_bytes": 0, "registers": 204, "smem_bytes": 30784},
+        "gram_matmat_dual f64 sigmoid": {"spill_bytes": 8, "registers": 128,
+                                         "smem_bytes": 50688},
+    }
+
+
+#: the C types of the entry points' parameters and the ctypes they take
+_CTYPES = {"int64_t": ctypes.c_int64, "int": ctypes.c_int, "double": ctypes.c_double}
+
+
+def _c_signature(name):
+    """The ctypes of ``extern "C" int name(...)``'s parameters in
+    csrc/gram_dmma.cu: c_void_p for a pointer."""
+    source = open(os.path.join(REPO, "plssvm_tpu_torch", "csrc", "gram_dmma.cu")).read()
+    params = re.search(rf'extern "C" int {name}\(([^)]*)\)', source).group(1)
+    return [ctypes.c_void_p if "*" in p else _CTYPES[p.split()[-2]]
+            for p in (" ".join(q.split()) for q in params.split(","))]
+
+
+@pytest.mark.parametrize("name", [
+    "plssvm_gram_matvec_sym_dmma", "plssvm_gram_matmat_sym_dmma",
+    "plssvm_gram_matvec_dual_dmma", "plssvm_gram_matmat_dual_dmma",
+    "plssvm_gram_dmma_blocks_per_sm", "plssvm_gram_dmma_dual_blocks_per_sm",
+])
+def test_dmma_entry_points_argtypes_match_the_source(monkeypatch, name):
+    """What _build.load() declares for each DMMA entry point is its C
+    signature, parameter by parameter: a wrong width would cut a pointer or
+    a size silently."""
+
+    class FakeLibrary:
+        def __getattr__(self, attr):
+            fn = types.SimpleNamespace()
+            setattr(self, attr, fn)
+            return fn
+
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "build", lambda: (None, 0.0))
+    monkeypatch.setattr(ctypes, "CDLL", lambda path: FakeLibrary())
+    lib = _build.load()
+    assert getattr(lib, name).argtypes == _c_signature(name)
+    assert getattr(lib, name).restype is ctypes.c_int
+
+
 def _like(dtype, device):
     """What the routing predicates read of a tensor: its device and dtype
     (a CUDA device is named without a GPU present)."""
@@ -140,6 +240,51 @@ def test_float32_keeps_its_routes(precision):
     assert gram_matvec.uses_tensor_cores(X, precision) == (precision != "highest")
     for dtype in (torch.float32, torch.float64):
         assert not gram_matvec.uses_dmma(_like(dtype, "cpu"))
+
+
+@pytest.mark.parametrize("precision", TIERS)
+@pytest.mark.parametrize("name", ["gram_matvec_dual", "gram_matmat_dual"])
+def test_float64_cuda_dual_takes_the_dual_dmma_tile_at_every_tier(name, precision):
+    """J and K on float64 CUDA tensors take the dual DMMA tile at every tier
+    and count on ``dual_dmma_launches``; float32 keeps the TF32 / bf16 dual
+    tile at "f32" / "bf16" and the FFMA walk at "highest"."""
+    chip_smoke = _chip_smoke()
+    X64, X32 = _like(torch.float64, "cuda"), _like(torch.float32, "cuda")
+    assert gram_matvec.uses_dmma(X64) and not gram_matvec.uses_tensor_cores(X64, precision)
+    assert not gram_matvec.uses_dmma(X32)
+    assert gram_matvec.uses_tensor_cores(X32, precision) == (precision != "highest")
+    module = gram_matvec if name == "gram_matvec_dual" else gram_matmat
+    assert chip_smoke._dual_counter(name, torch.float64, precision) == (
+        module, "dual_dmma_launches")
+    assert chip_smoke._dual_counter(name, torch.float32, precision) == (
+        module, "dual_launches" if precision == "highest" else "dual_tc_launches")
+
+
+def test_reset_counts_zeroes_the_dual_dmma_counters(monkeypatch):
+    monkeypatch.setattr(gram_matvec, "dual_dmma_launches", 3)
+    monkeypatch.setattr(gram_matmat, "dual_dmma_launches", 5)
+    gram_matvec.reset_counts()
+    gram_matmat.reset_counts()
+    assert gram_matvec.dual_dmma_launches == gram_matmat.dual_dmma_launches == 0
+
+
+@pytest.mark.parametrize("m,d,P", [(50000, 500, 4), (60000, 784, 4), (1001, 23, 3),
+                                   (53, 2, 4), (53, 7, 3)])
+def test_ring_shard_views_reach_the_dmma_tiles(m, d, P):
+    """The ring's row shards of a contiguous float64 X (``shard_rows``) are
+    views; with an even d each starts on a 16-byte boundary and passes to
+    TMA as it is, with an odd d each takes dmma_operand's padded copy."""
+    from plssvm_tpu_torch.parallel import sharded
+
+    X = torch.zeros(m, d, dtype=torch.float64)
+    bounds = sharded.shard_bounds(m, P)
+    for (lo, _), shard in zip(bounds, sharded.shard_rows(X, bounds, ["cpu"] * P)):
+        assert shard.data_ptr() == X.data_ptr() + 8 * lo * d
+        op = gram_matvec.dmma_operand(shard)
+        if d % 2 == 0:
+            assert shard.data_ptr() % 16 == 0 and op.data_ptr() == shard.data_ptr()
+        else:
+            assert op.shape == (shard.shape[0], d + 1) and op.data_ptr() % 16 == 0
 
 
 @pytest.mark.parametrize("d", [1, 2, 3, 37, 784])
@@ -283,6 +428,79 @@ def test_float64_fit_takes_the_dmma_tile(cuda_device, n_labels):
     assert np.max(np.abs(f - f_plain)) <= 1e-6
 
 
+#: mr != mc on both sides of the 128-row tile, d from 1 to 785 (odd ones
+#: take the padded copies), 33 column tiles (4097 rows)
+DUAL_RAGGED = [(1, 129, 1), (127, 4097, 3), (129, 127, 16), (4097, 1, 785), (4097, 129, 2),
+               (129, 4097, 37), (300, 1100, 13)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", TIERS)
+@pytest.mark.parametrize("name", list(COEF0))
+@pytest.mark.parametrize("n_classes", [None, 1, 8, 9, 17, 37])
+@pytest.mark.parametrize("mr,mc,d", DUAL_RAGGED)
+def test_dual_dmma_against_plain(cuda_device, mr, mc, d, n_classes, name, precision):
+    """Kernel J (n_classes None) and K on the dual DMMA tile, both outputs,
+    against the plain version within 1e-10 of max|plain|; one launch each
+    on the dual DMMA tile and none on the FFMA walk or the tensor-core
+    tile.  9, 17 and 37 classes cross the 8-class staging chunk."""
+    g = torch.Generator().manual_seed(85)
+    Xr = (torch.randn(mr, d, generator=g, dtype=torch.float64) * 0.3).to(cuda_device)
+    Xc = (torch.randn(mc, d, generator=g, dtype=torch.float64) * 0.3).to(cuda_device)
+    tail = () if n_classes is None else (n_classes,)
+    v_c = torch.randn(mc, *tail, generator=g, dtype=torch.float64).to(cuda_device)
+    v_r = torch.randn(mr, *tail, generator=g, dtype=torch.float64).to(cuda_device)
+    sq_r, sq_c = (Xr * Xr).sum(-1), (Xc * Xc).sum(-1)
+    kw = dict(kind=getattr(TKind, name.upper()), gamma=1.0 / d, coef0=COEF0[name], degree=3,
+              precision=precision)
+    module, kernel, plain = (
+        (gram_matvec, gram_matvec.gram_matvec_dual, matvec.kernel_matvec_dual_plain)
+        if n_classes is None else
+        (gram_matmat, gram_matmat.gram_matmat_dual, matvec.kernel_matmat_dual_plain))
+    module.reset_counts()
+    got = kernel(Xr, Xc, sq_r, sq_c, v_c, v_r, **kw)
+    want = plain(Xr, Xc, sq_r, sq_c, v_c, v_r, **kw)
+    for out, ref in zip(got, want):
+        assert out.shape == ref.shape and torch.isfinite(out).all()
+        assert (out - ref).abs().max() <= 1e-10 * ref.abs().max()
+    assert (module.dual_dmma_launches, module.dual_launches, module.dual_tc_launches) == (1, 0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_labels", [2, 4])
+def test_float64_ring_fit_takes_the_dual_dmma_tile(cuda_device, n_labels):
+    """A float64 fit on four shards of one card (``devices=["cuda:0"] *
+    4``): per shard and product one symmetric and one dual walk on the DMMA
+    tiles and one rows-only walk on the FFMA tile, nothing on the FFMA
+    walk; its decision values agree with the single-device fit within
+    1e-6 (both at epsilon 1e-10)."""
+    import plssvm_tpu_torch as port
+
+    rng = np.random.default_rng(86)
+    y = rng.integers(0, n_labels, 900)
+    X = rng.normal(size=(900, 12)) + 0.6 * rng.normal(size=(n_labels, 12))[y]
+    train = port.DataSet(X[:700], y[:700], scaling=(-1.0, 1.0))
+    test = port.DataSet(X[700:], y[700:], scaling=train.scaling_factors)
+    module = gram_matvec if n_labels == 2 else gram_matmat
+    values = []
+    for devices in (["cuda:0"] * 4, None):
+        where = dict(devices=devices) if devices else dict(device="cuda")
+        svm = port.CSVM(backend="cuda", dtype=np.float64, kernel_type="rbf", cost=1.0, **where)
+        gram_matvec.reset_counts()
+        gram_matmat.reset_counts()
+        model = svm.fit(train, epsilon=1e-10)
+        if devices:
+            products = 1 + model.n_iter + model.n_iter // 50
+            assert module.sym_dmma_launches == 4 * products
+            assert module.dual_dmma_launches == 4 * products  # (4 - 1) // 2 steps
+            assert module.rect_launches == 4 * products
+            assert gram_matvec.dual_launches == gram_matmat.dual_launches == 0
+            assert module.dual_tc_launches == module.sym_launches == 0
+        values.append(svm.predict_values(model, test))
+    assert np.all(np.isfinite(values[0]))
+    assert np.max(np.abs(values[0] - values[1])) <= 1e-6
+
+
 # -- the tool ------------------------------------------------------------------
 
 @pytest.mark.parametrize("classes", [1, 4])
@@ -307,3 +525,19 @@ def test_bench_gram_f64_refuses_what_it_does_not_time(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert bench_gram_f64.main(["8", "2"]) == 1
     assert "none is available" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("classes", [1, 3])
+def test_bench_gram_f64_dual_on_the_cpu(capsys, classes):
+    """``--dual`` times kernel J or K: on the CPU the wrappers' plain
+    versions (the ``dual`` line, rel_err 0)."""
+    from plssvm_tpu_torch.tools import bench_gram_f64
+
+    rc = bench_gram_f64.main(["40", "3", str(classes), "rbf", "--repeats", "1", "--dual",
+                              "--cpu"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert rc == 0
+    assert lines[0] == f"bench_gram_f64 on cpu: m=40 d=3 classes={classes} kernel=rbf dual"
+    assert len(lines) == 2 and lines[1].startswith("dual ")
+    assert lines[1].endswith("rel_err=0.00e+00")
+

@@ -176,20 +176,23 @@ def test_distance_dual_plain_against_k7_k9(name, n_classes):
         np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
 
 
-@pytest.mark.parametrize("n_classes", [None, 1, 3, 10])
+@pytest.mark.parametrize("n_classes", [None, 1, 3, 10, 37])
 @pytest.mark.parametrize("name", ["rbf", "polynomial", "sigmoid", "laplacian", "chi_squared"])
 def test_dual_plain_f64_against_the_reference_block(name, n_classes):
     """In float64 on ragged shapes: both outputs against the reference's
-    float64 kernel block contracted both ways (its ring's XLA cross_dual)."""
+    float64 kernel block contracted both ways (its ring's XLA cross_dual).
+    The second block has the dual DMMA tile's edges: one row past the
+    128-row tile against one short of it, an odd d."""
     from plssvm_tpu.kernel_functions import kernel_block
 
     jkind, _ = _kinds(name)
-    Xr, Xc, sq_r, sq_c, v_c, v_r = _block(84, 77, 130, 9, n_classes, np.float64)
-    K = np.asarray(kernel_block(jnp.asarray(Xr), jnp.asarray(Xc), jnp.asarray(sq_r),
-                                jnp.asarray(sq_c), jkind, 1.0 / 9, COEF0[name], 3))
-    got = _plain_dual(name, Xr, Xc, sq_r, sq_c, v_c, v_r, "f32")
-    for g, w in zip(got, (K @ v_c, K.T @ v_r)):
-        assert np.abs(g - w).max() <= F64_REL * np.abs(w).max()
+    for mr, mc, d in ((77, 130, 9), (129, 127, 13)):
+        Xr, Xc, sq_r, sq_c, v_c, v_r = _block(84, mr, mc, d, n_classes, np.float64)
+        K = np.asarray(kernel_block(jnp.asarray(Xr), jnp.asarray(Xc), jnp.asarray(sq_r),
+                                    jnp.asarray(sq_c), jkind, 1.0 / d, COEF0[name], 3))
+        got = _plain_dual(name, Xr, Xc, sq_r, sq_c, v_c, v_r, "f32")
+        for g, w in zip(got, (K @ v_c, K.T @ v_r)):
+            assert np.abs(g - w).max() <= F64_REL * np.abs(w).max()
 
 
 def test_cpu_wrappers_take_the_dual_plain_versions():
