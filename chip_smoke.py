@@ -17,8 +17,8 @@ Phases, one line each or more (the run stops at the first that fails):
    (``*_sym_tc``), B and D on the rectangular one (``*_rect_tc``), held
    against the plain version on the tier's operands, and B and D at "f32"
    against full float32 within the first-order TF32 bound; in float64, at
-   every tier, A and C on the FP64 tensor cores (the DMMA tile,
-   ``*_sym_dmma``) and B and D on the FFMA tile; then all timed against
+   every tier, A-D on the FP64 tensor cores (the symmetric DMMA tile,
+   ``*_sym_dmma``, and the rect one, ``*_rect_dmma``); then all timed against
    their plain versions, beside the operand copies' time and torch.matmul
    yardsticks in float32, TF32, bf16 and float64;
 4. end to end, BASELINE config 2: RBF on a seeded two-class 10000 x 200
@@ -26,13 +26,13 @@ Phases, one line each or more (the run stops at the first that fails):
    on the tensor cores) and scored with plssvm-torch-predict on 2000
    held-out points (kernel B on the tensor cores); the kernels' launch
    counts prove the path went through them; a float64 fit and predict
-   (kernel A on the DMMA tile, B on the FFMA tile) must agree with the
+   (kernels A and B on the DMMA tiles) must agree with the
    float32 one; a small float64 fit must agree between the kernels and the
    plain versions;
 5. multiclass end to end: the same shape with 10 classes, one-vs-all,
    through both CLIs; kernels C and D's launch counts, accuracy against a
-   floor, float32/float64 agreement (float64: C on the DMMA tile, D on the
-   FFMA tile), and a small float64 fit through the kernels against the
+   floor, float32/float64 agreement (float64: C and D on the DMMA tiles),
+   and a small float64 fit through the kernels against the
    plain versions;
 6. the width of BASELINE config 3: polynomial on 50000 x 500 scaled to
    [-1, 1], 20 CG iterations;
@@ -61,7 +61,8 @@ Phases, one line each or more (the run stops at the first that fails):
    kernels A, J, B), phase 7's 10 classes at MNIST width (C, K, D), phase
    8's laplacian files (E, L, F) and phase 9's histogram classes (G, M, H),
    each against its single-device run, in float32 and float64 (the
-   symmetric products and J and K on the DMMA tiles): iterations,
+   symmetric products, J and K, and the rows-only B and D on the DMMA
+   tiles): iterations,
    s/iteration, the launches of every kernel, epsilon reached, the
    accuracy floor, label agreement >= 0.999, and the ring's operand copies
    per iteration.
@@ -89,14 +90,16 @@ plain versions on ragged mr != mc blocks in float32 and float64, J and K
 at each Gram tier, L and M per entry of K in float32 chi-squared, then
 timed at the ring phase's block shapes (J and K at each tier), with the
 cost of K and M's column atomics logged; and in float64 kernels A and C
-on the symmetric DMMA tile and J and K on the dual one (csrc/gram_dmma.cu,
-both tiles' blocks per SM logged) against their plain versions on ragged
-shapes at every tier, A and C timed at 32768 x 512, 49999 x 500 and 59999
-x 784 (C = 10) beside the FFMA tile in float64, both bounds and DGEMM, J
-and K at the ring's blocks beside the FFMA walk and both bounds, and
-every float64 kernel at the shapes the float64 fits of phases 4, 5 and 13
-give it (the ring's rows-only walks B and D included), A-D, J and K held
-against their plain versions there too.  Beside
+on the symmetric DMMA tile, B and D on the rect one and J and K on the
+dual one (csrc/gram_dmma.cu, the three tiles' blocks per SM logged)
+against their plain versions on ragged shapes at every tier, A and C
+timed at 32768 x 512, 49999 x 500 and 59999 x 784 (C = 10) beside the
+FFMA tile in float64, both bounds and DGEMM, B and D at 32768 x 512
+beside both bounds and DGEMM, J and K at the ring's blocks beside the
+FFMA walk and both bounds, and every float64 kernel at the shapes the
+float64 fits of phases 4, 5 and 13 give it (the ring's rows-only walks B
+and D included), A-D, J and K held against their plain versions there
+too.  Beside
 every kernel's time it
 computes the bound: the least time the card could take for the function
 on these inputs (see ``_bound``), and fails if a kernel measures faster
@@ -280,12 +283,12 @@ def phase_build(compare=None):
         log("build", f"{name}: {res.get('registers')} registers, "
             f"{res.get('spill_bytes')} spill bytes, "
             f"{res.get('smem_bytes')} B static shared memory")
-    # the DMMA tiles, symmetric and dual: one instantiation per Gram kind,
-    # compiled once (one source holds them and their entry points), at most
-    # 255 registers and spills no larger than the TF32 sym tile's 64 bytes;
-    # no tensor-core product serialised
+    # the DMMA tiles, symmetric, dual and rect: one instantiation per Gram
+    # kind, compiled once (one source holds them and their entry points), at
+    # most 255 registers and spills no larger than the TF32 sym tile's 64
+    # bytes; no tensor-core product serialised
     ptxas = _build._ptxas_log(path).read_text(encoding="utf-8")
-    for tile in ("gram_dmma_sym", "gram_dmma_dual"):
+    for tile in ("gram_dmma_sym", "gram_dmma_dual", "gram_dmma_rect"):
         dmma = {n: r for n, r in mine.items() if n.startswith(tile + " ")}
         compiled = len(re.findall(rf"Compiling entry function '\w*{tile}_kernel", ptxas))
         if (len(dmma) != 3 or compiled != 3
@@ -347,8 +350,8 @@ def _pairs(v, precision="highest"):
     the Gram tier ``precision``.  At "f32" and "bf16" both kernels on
     float32 are the tensor-core tiles (``*_sym_tc``, ``*_rect_tc``), held
     against the plain version on the tier's operands; at "highest" the
-    FFMA tile; in float64 the symmetric kernel is the DMMA tile
-    (``*_sym_dmma``), the rectangular one the FFMA tile."""
+    FFMA tile; in float64 both are DMMA tiles (``*_sym_dmma``,
+    ``*_rect_dmma``)."""
     import functools
 
     from plssvm_tpu_torch.ops import gram_matmat, gram_matvec, matvec
@@ -362,11 +365,11 @@ def _pairs(v, precision="highest"):
             "gram_matvec", gram_matvec.gram_matvec_sym, matvec.kernel_matvec_plain,
             gram_matvec.gram_matvec_rect, matvec.kernel_matvec_rect_plain)
     tc = "_tc" if precision != "highest" and v.dtype == torch.float32 else ""
-    sym_tile = "_dmma" if v.dtype == torch.float64 else tc
+    tile = "_dmma" if v.dtype == torch.float64 else tc
     return (
-        (f"{base}_sym{sym_tile}", functools.partial(sym, precision=precision),
+        (f"{base}_sym{tile}", functools.partial(sym, precision=precision),
          _tier_plain(sym_plain, precision)),
-        (f"{base}_rect{tc}", functools.partial(rect, precision=precision),
+        (f"{base}_rect{tile}", functools.partial(rect, precision=precision),
          _tier_plain(rect_plain, precision)),
     )
 
@@ -1105,7 +1108,8 @@ def _rect_bound(n_p, n_s, d, columns, cost, itemsize, extra_inputs=0,
     ``extra_inputs`` vectors of n_p and of n_s moved.  On the tensor cores
     (``tier``) P and S move at the tier's operand size and the rest at
     float32; ``exp`` counts one SFU exp per pair; ``tier`` "fp64" is the
-    FFMA tile in float64 (``itemsize`` 8)."""
+    FFMA tile in float64 and "dmma" the rect DMMA tile (``itemsize`` 8
+    both; ``exp`` one float64 exp a pair on the FP64 pipe)."""
     pairs = float(n_p) * n_s
     if tier not in TC_TIERS:
         n_bytes = itemsize * ((n_p + n_s) * (d + extra_inputs) + (n_s + n_p) * columns)
@@ -1219,9 +1223,8 @@ def phase_kernels():
                     worst[key] = max(worst.get(key, 0.0), err / max(scale, 1e-300))
 
     for dtype in (torch.float32, torch.float64):
-        # the tiers are float32's; in float64, at every tier, A and C take
-        # the DMMA tile and B and D the FFMA tile (_f64_kernels checks the
-        # DMMA tile at every tier)
+        # the tiers are float32's; in float64, at every tier, A-D take the
+        # DMMA tiles (_f64_kernels checks them at every tier)
         tiers = ("highest", "f32", "bf16") if dtype == torch.float32 else ("highest",)
         for m, d in ((1037, 203), (8192, 512), (777, 1280), (129, 3), (65, 37), (1, 5)):
             check(*_operands(m, d, dtype, gen), tiers)
@@ -1462,15 +1465,16 @@ def phase_kernels():
 
 
 def _dmma_blocks_per_sm():
-    """The DMMA tiles' blocks per SM (symmetric and dual) for every Gram
-    kind, logged; raises if a block does not fit."""
+    """The DMMA tiles' blocks per SM (symmetric, dual and rect) for every
+    Gram kind, logged; raises if a block does not fit."""
     import ctypes
 
     from plssvm_tpu_torch.ops import _build
 
     lib = _build.load()
     for tile, query in (("gram_dmma_sym", lib.plssvm_gram_dmma_blocks_per_sm),
-                        ("gram_dmma_dual", lib.plssvm_gram_dmma_dual_blocks_per_sm)):
+                        ("gram_dmma_dual", lib.plssvm_gram_dmma_dual_blocks_per_sm),
+                        ("gram_dmma_rect", lib.plssvm_gram_dmma_rect_blocks_per_sm)):
         found = {}
         for kind, name in ((1, "poly"), (2, "rbf"), (3, "sigmoid")):
             blocks = ctypes.c_int(0)
@@ -1485,11 +1489,13 @@ def _dmma_blocks_per_sm():
             raise AssertionError(f"{tile} does not fit an SM: {found}")
 
 
-def _dmma_counter(matmat):
+def _dmma_counter(matmat, walk="sym"):
+    """The launches of the ``walk`` ("sym" or "rect") kernel's DMMA tile
+    and its FFMA tile."""
     from plssvm_tpu_torch.ops import gram_matmat, gram_matvec
 
     module = gram_matmat if matmat else gram_matvec
-    return module.sym_dmma_launches, module.sym_launches
+    return getattr(module, f"{walk}_dmma_launches"), getattr(module, f"{walk}_launches")
 
 
 def _ffma_f64_sym(X, sq, V, *, kind, gamma, coef0, degree):
@@ -1564,6 +1570,53 @@ def _time_f64_sym(main_ms, timing, bounds, main_err, X, V, kw, label, phase=None
     return k_ms
 
 
+def _time_f64_rect(main_ms, timing, bounds, main_err, args, kw, label, phase=None,
+                   key=None, plain_repeats=3):
+    """Kernel B (A (n_s,)) or D (A (n_s, C)) in float64 on ``args`` = (P, S,
+    sq_p, sq_s, A): the rect DMMA tile against its plain version (held at
+    1e-10 of max|plain|, one launch on the tile and none on the FFMA tile),
+    then both timed, beside both bounds (DMMA and DFMA) and float64
+    torch.matmul(P, S.T) as the product's yardstick, all logged.  At a main
+    path's shape (``phase``) recorded for its cost line, with the error for
+    the kernels line; the timing and bound under ``key``.  Returns the
+    kernel's ms."""
+    from plssvm_tpu_torch.ops import gram_matmat, gram_matvec, matvec
+
+    P, S, _, _, A = args
+    matmat = A.ndim == 2
+    name = "gram_matmat_rect_dmma" if matmat else "gram_matvec_rect_dmma"
+    kernel = gram_matmat.gram_matmat_rect if matmat else gram_matvec.gram_matvec_rect
+    plain = matvec.kernel_matmat_rect_plain if matmat else matvec.kernel_matvec_rect_plain
+    (n_p, d), n_s = P.shape, S.shape[0]
+    columns = A.shape[1] if matmat else 1
+    before = _dmma_counter(matmat, "rect")
+    got = kernel(*args, **kw)
+    if _dmma_counter(matmat, "rect") != (before[0] + 1, before[1]):
+        raise AssertionError(f"{name} {label}: not launched on the rect DMMA tile only")
+    err, _ = _check_close(f"{name} {label}", got, plain(*args, **kw))
+    del got
+    k_ms, p_ms = _time_pair(name, kernel, plain, args, kw, 2.0 * n_p * n_s * d, label,
+                            plain_repeats=plain_repeats)
+    dmma = _rect_bound(n_p, n_s, d, columns, "gram", 8, 1, "dmma",
+                       exp=str(kw["kind"]) == "rbf")
+    fp64 = _rect_bound(n_p, n_s, d, columns, "gram", 8, 1, "fp64")
+    _log_bound(name, label, k_ms, dmma)
+    torch.cuda.empty_cache()
+    product_ms = _median_ms(lambda: torch.matmul(P, S.T), 5, 1)
+    torch.cuda.empty_cache()
+    log("kernels", f"{name} {label}: rect DMMA tile {k_ms:.3f} ms ({dmma[0] / k_ms:.3f} of "
+        f"the DMMA bound {dmma[0]:.3f}, {fp64[0] / k_ms:.3f} of the DFMA bound "
+        f"{fp64[0]:.3f}); plain {p_ms:.3f} ms ({p_ms / k_ms:.2f}x); yardstick "
+        f"torch.matmul(P, S.T) {n_p}x{n_s}x{d} f64 (DGEMM, product only, not the same "
+        f"function) {product_ms:.3f} ms ({k_ms / product_ms:.2f}x the tile's time)")
+    if phase is not None:
+        main_ms[(name, phase)] = (k_ms, dmma[0])
+        main_err[(name, "f64")] = max(main_err.get((name, "f64"), 0.0), err)
+    if key is not None:
+        timing[key], bounds[key] = (k_ms, p_ms), dmma
+    return k_ms
+
+
 def _ffma_f64_dual(Xr, Xc, sq_r, sq_c, V_c, V_r, *, kind, gamma, coef0, degree):
     """Kernel J (V (m,)) or K (V (m, C)) on the FFMA walk in float64,
     through its entry point (``plssvm_gram_mat{vec,mat}_dual_f64``): no
@@ -1629,26 +1682,25 @@ def _time_f64_dual(main_ms, timing, bounds, main_err, name, args, kw, label):
 
 
 def _f64_kernels(gen, main_err, main_ms, timing, bounds):
-    """Float64: kernels A and C on the symmetric DMMA tile, J and K on the
-    dual one (csrc/gram_dmma.cu), the FFMA tile of B, D, L and M.  The
-    DMMA tiles' blocks per SM; A and C against their plain versions on
-    ragged shapes beyond the general check (d from 1 to 1279, odd and even,
-    m not a multiple of the 128-row tile, 1 to 37 classes), each launch
-    counted on the DMMA tile and none on the FFMA tile; J and K likewise on
-    ragged mr != mc blocks (1, 127, 129 and 4097 rows, d 1 to 785, odd and
-    even, 1 to 37 classes); the odd-d operand copy timed beside the
-    kernel; A and C
-    timed at 32768 x 512 (RBF; with B and D on the FFMA tile), 49999 x 500
-    (poly, config 3's width) and 59999 x 784 (RBF, C = 10, MNIST's width),
-    each beside the FFMA tile, its plain version, both bounds and DGEMM;
-    then every float64 kernel at the shape a float64 main path gives it
-    (phases 4 and 5, the ring's one-device fits and its shards and
-    blocks: J and K on the dual DMMA tile beside the FFMA walk, both bounds
-    and K's classes at C = 1 against 10, and the rows-only walks B and D),
-    A-D, J and K against their plain versions there (the float64 entries'
-    max_abs_err), recorded for the cost ranking; and E-I in
-    float64 at the timing shapes of their float32 rows, beside their
-    bounds."""
+    """Float64: kernels A and C on the symmetric DMMA tile, B and D on the
+    rect one, J and K on the dual one (csrc/gram_dmma.cu), the FFMA tile of
+    L and M.  The DMMA tiles' blocks per SM; A and C against their plain
+    versions on ragged shapes beyond the general check (d from 1 to 1279,
+    odd and even, m not a multiple of the 128-row tile, 1 to 37 classes),
+    each launch counted on the DMMA tile and none on the FFMA tile; B, D,
+    J and K likewise on ragged n_p != n_s (mr != mc) blocks (1, 127, 129
+    and 4097 rows, d 1 to 785, odd and even, 1 to 37 classes); the odd-d
+    operand copy timed beside the kernel; A-D timed at 32768 x 512 (RBF),
+    A at 49999 x 500 (poly, config 3's width) and C at 59999 x 784 (RBF,
+    C = 10, MNIST's width), each beside its plain version, both bounds and
+    DGEMM, A and C beside the FFMA tile too; then every float64 kernel at
+    the shape a float64 main path gives it (phases 4 and 5, the ring's
+    one-device fits and its shards and blocks: J and K on the dual DMMA
+    tile beside the FFMA walk, both bounds and K's classes at C = 1 against
+    10, and the rows-only walks B and D on the rect DMMA tile), A-D, J and
+    K against their plain versions there (the float64 entries'
+    max_abs_err), recorded for the cost ranking; and E-I in float64 at the
+    timing shapes of their float32 rows, beside their bounds."""
     from plssvm_tpu_torch.ops import banded, gram_matmat, gram_matvec, matvec
     from plssvm_tpu_torch.parameter import KernelFunctionType as K
 
@@ -1711,6 +1763,33 @@ def _f64_kernels(gen, main_err, main_ms, timing, bounds):
         log("kernels", f"{name}_dmma float64: worst max|err|/max|plain| {rel:.3e}, both "
             "outputs, over poly/rbf/sigmoid x 6 ragged mr != mc blocks (1-4097 rows, d 1-785) "
             "x 1-37 classes x every tier")
+    # the rect DMMA tile: n_p != n_s on both sides of the 128-row tile, odd
+    # d and d = 1, 1 to 37 classes, every tier
+    worst = {}
+    for n_p, n_s, d in ((1, 129, 1), (127, 4097, 3), (129, 127, 16), (4097, 1, 785),
+                        (4097, 129, 2), (129, 4097, 37)):
+        P = torch.randn(n_p, d, generator=gen, dtype=torch.float64).to("cuda") * 0.3
+        S = torch.randn(n_s, d, generator=gen, dtype=torch.float64).to("cuda") * 0.3
+        sq_p, sq_s = (P * P).sum(-1), (S * S).sum(-1)
+        for n_classes in (None, 1, 8, 9, 37):
+            tail = () if n_classes is None else (n_classes,)
+            A = torch.randn(n_s, *tail, generator=gen, dtype=torch.float64).to("cuda")
+            for kind, coef0 in kinds:
+                for precision in ("highest", "f32", "bf16"):
+                    _, (name, kernel, plain) = _pairs(A, precision)
+                    kw = dict(kind=kind, gamma=1.0 / d, coef0=coef0, degree=3)
+                    label = f"rect DMMA {kind} {n_p}x{n_s}x{d} C={n_classes} {precision}"
+                    before = _dmma_counter(n_classes is not None, "rect")
+                    got = kernel(P, S, sq_p, sq_s, A, **kw)
+                    if _dmma_counter(n_classes is not None, "rect") != (before[0] + 1,
+                                                                        before[1]):
+                        raise AssertionError(f"{label}: not launched on the rect DMMA tile only")
+                    err, scale = _check_close(label, got, plain(P, S, sq_p, sq_s, A, **kw))
+                    worst[name] = max(worst.get(name, 0.0), err / max(scale, 1e-300))
+    for name, rel in sorted(worst.items()):
+        log("kernels", f"{name} float64: worst max|err|/max|plain| {rel:.3e} over "
+            "poly/rbf/sigmoid x 6 ragged n_p != n_s blocks (1-4097 rows, d 1-785) x 1-37 "
+            "classes x every tier")
     # an odd d: the wrapper's padded operand copy, timed beside the kernel
     X, _, v = _operands(49999, 499, torch.float64, gen, n_points=1)
     sq = (X * X).sum(-1)
@@ -1722,27 +1801,21 @@ def _f64_kernels(gen, main_err, main_ms, timing, bounds):
         f"{k_ms:.3f} ms (copy included)")
     del X, v, sq
 
-    # the timing shape of A-D, RBF: A and C on the DMMA tile; B and D on the
-    # FFMA tile in float64, against their plain versions and the DFMA bound
+    # the timing shape of A-D, RBF: A and C on the symmetric DMMA tile, B
+    # and D on the rect one over the full square, against their plain
+    # versions and both bounds
     m, d = 32768, 512
     X, _, v = _operands(m, d, torch.float64, gen, n_points=1)
     V = torch.randn(m, MC_CLASSES, generator=gen, dtype=torch.float64).to("cuda")
     kw = dict(kind=K.RBF, gamma=1.0 / d, coef0=0.0, degree=3)
+    sq = (X * X).sum(-1)
     for rhs, sym in ((v, "gram_matvec_sym_dmma"), (V, "gram_matmat_sym_dmma")):
         label = f"m={m} d={d} f64 rbf" + (f" C={MC_CLASSES}" if rhs.ndim == 2 else "")
         _time_f64_sym(main_ms, timing, bounds, main_err, X, rhs, kw, label, key=(sym, "f64"),
                       plain_repeats=20, yardstick=rhs.ndim == 1)
-        rect = "gram_matmat_rect" if rhs.ndim == 2 else "gram_matvec_rect"
-        sq = (X * X).sum(-1)
-        _, rect_kernel, rect_plain = _pairs(rhs)[1]
-        args = (X, X, sq, sq, rhs)
-        _check_close(f"{rect} {label}", rect_kernel(*args, **kw), rect_plain(*args, **kw))
-        timing[(rect, "f64")] = _time_pair(rect, rect_kernel, rect_plain, args, kw,
-                                           2.0 * m * m * d, label)
-        bounds[(rect, "f64")] = _rect_bound(m, m, d, rhs.shape[1] if rhs.ndim == 2 else 1,
-                                            "gram", 8, 1, "fp64")
-        _log_bound(rect, label, timing[(rect, "f64")][0], bounds[(rect, "f64")])
-    del X, v, V
+        _time_f64_rect(main_ms, timing, bounds, main_err, (X, X, sq, sq, rhs), kw, label,
+                       key=(_pairs(rhs)[1][0], "f64"), plain_repeats=20)
+    del X, v, V, sq
     # config 3's width, polynomial on [-1, 1]: A
     X, _, v = _operands(49999, 500, torch.float64, gen, n_points=1)
     X = X / X.abs().amax(0)
@@ -1768,7 +1841,7 @@ def _f64_kernels(gen, main_err, main_ms, timing, bounds):
         X, P, V = _operands(9999, 200, torch.float64, gen, n_points=2000, n_classes=n_classes)
         S, A = torch.cat([X, X[:1]]), torch.cat([V, V[:1]])  # all m + 1 points
         sq, sq_p, sq_s = (X * X).sum(-1), (P * P).sum(-1), (S * S).sum(-1)
-        (sym, sym_k, sym_plain), (rect, rect_k, rect_plain) = _pairs(V)
+        sym, sym_k, sym_plain = _pairs(V)[0]
         columns = n_classes or 1
         err = _check_close(f"{sym} f64 {phase}", sym_k(X, sq, V, **rbf),
                            sym_plain(X, sq, V, **rbf))[0]
@@ -1776,22 +1849,18 @@ def _f64_kernels(gen, main_err, main_ms, timing, bounds):
         _time_at_main_shape(main_ms, sym, phase, lambda: sym_k(X, sq, V, **rbf),
                             _sym_bound(9999, 200, columns, "gram", 8, 1, "dmma", exp=True),
                             f"9999x200 f64 rbf C={columns}")
-        args = (P, S, sq_p, sq_s, A)
-        err = _check_close(f"{rect} f64 {phase}", rect_k(*args, **rbf),
-                           rect_plain(*args, **rbf))[0]
-        main_err[(rect, "f64")] = max(main_err.get((rect, "f64"), 0.0), err)
-        bound = _rect_bound(2000, 10000, 200, columns, "gram", 8, 1, "fp64")
-        ms = _time_at_main_shape(main_ms, rect, None, lambda: rect_k(*args, **rbf), bound,
-                                 f"2000x10000x200 f64 rbf C={columns}")
-        main_ms[(f"{rect}_f64", phase)] = (ms, bound[0])
+        _time_f64_rect(main_ms, timing, bounds, main_err, (P, S, sq_p, sq_s, A), rbf,
+                       f"2000x10000x200 f64 rbf C={columns} (phase {phase}'s predict)",
+                       phase=phase)
 
     # the ring's float64 cells (4 shards): each shard's symmetric product on
     # the DMMA tile (12500 x 500 RBF, 15000 x 784 RBF C = 10), the dual
     # walks at the ring's blocks (J 12500^2 x 500 and K 15000^2 x 784 C =
     # 10 on the dual DMMA tile, beside the FFMA walk; L 2500^2 x 200
     # laplacian and M 2500^2 x 200 chi-squared C = 10 on the FFMA walk) and
-    # the rows-only walks B and D (the FFMA tile) at J's and K's blocks; the
-    # shards' products, J, K, B and D also against their plain versions
+    # the rows-only walks B and D (the rect DMMA tile) at J's and K's
+    # blocks; the shards' products, J, K, B and D also against their plain
+    # versions
     rng = np.random.default_rng(SEED + 22)
     hist = torch.as_tensor(_draw_histograms(rng, _histogram_classes(rng, 200), 5000)[0],
                            dtype=torch.float64, device="cuda")
@@ -1837,15 +1906,9 @@ def _f64_kernels(gen, main_err, main_ms, timing, bounds):
                             f"{mr}x{d} f64 rbf C={columns} (a shard)")
         _time_f64_dual(main_ms, timing, bounds, main_err, name, args, kw, label)
         # the rows-only walk of the antipodal pair (even P): B or D on the
-        # FFMA tile in float64
-        rect, rect_k, rect_plain = _pairs(v_c)[1]
-        rows = args[:5]
-        err = _check_close(f"{rect} {label} (rows only)", rect_k(*rows, **kw),
-                           rect_plain(*rows, **kw))[0]
-        main_err[(rect, "f64")] = max(main_err.get((rect, "f64"), 0.0), err)
-        _time_at_main_shape(main_ms, f"{rect}_f64", "ring-f64", lambda: rect_k(*rows, **kw),
-                            _rect_bound(mr, mr, d, columns, "gram", 8, 1, "fp64"),
-                            f"{label} (the rows-only walk, FFMA f64)")
+        # rect DMMA tile
+        _time_f64_rect(main_ms, timing, bounds, main_err, args[:5], kw,
+                       f"{label} (the rows-only walk)", phase="ring-f64")
     del hist
 
     # the distance and banded kernels in float64 at the timing shapes of
@@ -2036,21 +2099,22 @@ def phase_end_to_end(tmp, config2_files):
                    float(np.mean(predicted == test_labels)), ACCURACY_FLOOR,
                    launches, matvec.sym_plain_calls + matvec.rect_plain_calls,
                    "gram_matvec_sym_tc", "gram_matvec_rect_tc")
-    # float64: kernel A on the DMMA tile, kernel B on the FFMA tile
+    # float64: kernels A and B on the DMMA tiles
     gram_matvec.reset_counts()
     it64 = _f64_agreement("e2e", "config 2", train_file, test_file, predicted,
                           EPSILON, kernel_type="rbf")
     launches["gram_matvec_sym_dmma"] = gram_matvec.sym_dmma_launches
-    launches["gram_matvec_rect_f64"] = gram_matvec.rect_launches
+    launches["gram_matvec_rect_dmma"] = gram_matvec.rect_dmma_launches
     log("e2e", f"config 2 f64 launches: A on the DMMA tile {gram_matvec.sym_dmma_launches}, "
-        f"on the FFMA tile {gram_matvec.sym_launches}; B on the FFMA tile "
-        f"{gram_matvec.rect_launches}; tensor-core tiles "
-        f"{gram_matvec.sym_tc_launches + gram_matvec.rect_tc_launches}")
+        f"on the FFMA tile {gram_matvec.sym_launches}; B on the rect DMMA tile "
+        f"{gram_matvec.rect_dmma_launches}, on the FFMA tile {gram_matvec.rect_launches}; "
+        f"tensor-core tiles {gram_matvec.sym_tc_launches + gram_matvec.rect_tc_launches}")
     if launches["gram_matvec_sym_dmma"] != 1 + it64 + it64 // 50 \
-            or gram_matvec.sym_launches != 0 or launches["gram_matvec_rect_f64"] <= 0 \
+            or gram_matvec.sym_launches + gram_matvec.rect_launches != 0 \
+            or launches["gram_matvec_rect_dmma"] <= 0 \
             or gram_matvec.sym_tc_launches + gram_matvec.rect_tc_launches:
-        raise AssertionError("e2e: the f64 fit did not take the DMMA tile only, or its "
-                             "predict not the FFMA tile")
+        raise AssertionError("e2e: the f64 fit or its predict did not take the DMMA tiles "
+                             "only")
     _small_fit_agreement("e2e", "rbf", 2, SEED + 1)
     return launches, predicted
 
@@ -2100,21 +2164,23 @@ def phase_multiclass_cli(tmp):
                    MC_ACCURACY_FLOOR, launches,
                    matvec.sym_matmat_plain_calls + matvec.rect_matmat_plain_calls,
                    "gram_matmat_sym_tc", "gram_matmat_rect_tc")
-    # float64: kernel C on the DMMA tile, kernel D on the FFMA tile
+    # float64: kernels C and D on the DMMA tiles
     gram_matmat.reset_counts()
     it64 = _f64_agreement("multiclass", f"{MC_CLASSES} classes", train_file,
                           test_file, predicted, EPSILON, kernel_type="rbf")
     launches["gram_matmat_sym_dmma"] = gram_matmat.sym_dmma_launches
-    launches["gram_matmat_rect_f64"] = gram_matmat.rect_launches
+    launches["gram_matmat_rect_dmma"] = gram_matmat.rect_dmma_launches
     log("multiclass", f"{MC_CLASSES} classes f64 launches: C on the DMMA tile "
         f"{gram_matmat.sym_dmma_launches}, on the FFMA tile {gram_matmat.sym_launches}; D on "
-        f"the FFMA tile {gram_matmat.rect_launches}; tensor-core tiles "
+        f"the rect DMMA tile {gram_matmat.rect_dmma_launches}, on the FFMA tile "
+        f"{gram_matmat.rect_launches}; tensor-core tiles "
         f"{gram_matmat.sym_tc_launches + gram_matmat.rect_tc_launches}")
     if launches["gram_matmat_sym_dmma"] != 1 + it64 + it64 // 50 \
-            or gram_matmat.sym_launches != 0 or launches["gram_matmat_rect_f64"] <= 0 \
+            or gram_matmat.sym_launches + gram_matmat.rect_launches != 0 \
+            or launches["gram_matmat_rect_dmma"] <= 0 \
             or gram_matmat.sym_tc_launches + gram_matmat.rect_tc_launches:
-        raise AssertionError("multiclass: the f64 fit did not take the DMMA tile only, or "
-                             "its predict not the FFMA tile")
+        raise AssertionError("multiclass: the f64 fit or its predict did not take the DMMA "
+                             "tiles only")
     _small_fit_agreement("multiclass", "rbf", 4, SEED + 5)
     return launches, (train_file, test_file, files["mc_test"][1], predicted)
 
@@ -2434,9 +2500,10 @@ def _ring_dmma_copies(X, label):
     copied = [i for i, shard in enumerate(shards)
               if gram_matvec.dmma_operand(shard).data_ptr() != shard.data_ptr()]
     ms = sum(_median_ms(lambda: gram_matvec.dmma_operand(shards[i]), 5, 1) for i in copied)
-    # per iteration each shard feeds its symmetric product once and each
-    # dual walk twice (as Xr and as Xc)
-    per_it = (1 + 2 * ((RING_SHARDS - 1) // 2)) * ms
+    # per iteration each shard feeds its symmetric product once, each dual
+    # walk twice (as Xr and as Xc) and, for even P, the rows-only walk twice
+    # (as P and as S)
+    per_it = (1 + 2 * ((RING_SHARDS - 1) // 2) + 2 * (RING_SHARDS % 2 == 0)) * ms
     log("ring", f"{label} float64: {RING_SHARDS - len(copied)} of {RING_SHARDS} shard views "
         f"(d = {X.shape[1]}) reach the DMMA tiles without a copy; copied {copied or 'none'}"
         + (f", {per_it:.3f} ms of copies per iteration" if copied else ""))
@@ -2446,8 +2513,7 @@ def _ring_counts(kind, matmat, dtype):
     """(dual kernel's name, [symmetric, dual, rows-only launches], launches
     on the tiles the dtype must not take, plain calls) since the last
     reset: float32 Gram products on the tensor-core tiles; float64 ones on
-    the DMMA tiles (symmetric, dual) and the FFMA tile (rows-only), none on
-    the FFMA walk."""
+    the DMMA tiles (symmetric, dual, rect), none on the FFMA tiles."""
     from plssvm_tpu_torch.ops import distance, gram_matmat, gram_matvec, matvec
 
     op = "matmat" if matmat else "matvec"
@@ -2466,8 +2532,10 @@ def _ring_counts(kind, matmat, dtype):
         counts = cores
         other = module.sym_launches + module.dual_launches + module.rect_launches
     else:
-        counts = [module.sym_dmma_launches, module.dual_dmma_launches, module.rect_launches]
-        other = module.sym_launches + module.dual_launches + sum(cores)
+        counts = [module.sym_dmma_launches, module.dual_dmma_launches,
+                  module.rect_dmma_launches]
+        other = (module.sym_launches + module.dual_launches + module.rect_launches
+                 + sum(cores))
     return f"gram_{op}_dual", counts, other, plain
 
 
@@ -2510,8 +2578,8 @@ def phase_ring(cells):
     the 10 Gaussian classes at MNIST width: C, K, D; laplacian on config
     2's files: E, L, F; the 10 histogram classes at config 2's shape with
     chi-squared: G, M, H) in float32 (the default path: A-D, J and K on the
-    tensor-core tiles at "f32") and in float64 (A, C, J and K on the DMMA
-    tiles, none on the FFMA walk), each beside the same fit on one
+    tensor-core tiles at "f32") and in float64 (A-D, J and K on the DMMA
+    tiles, none on the FFMA tiles), each beside the same fit on one
     device.  Gates, in both types: per
     shard and product one symmetric, one dual and (for even P) one
     rows-only launch and per shard one rectangular launch to predict,
@@ -2564,7 +2632,7 @@ def phase_ring(cells):
                     launches["ring-f64"][sym] = counts[0]
                     launches["ring-one-f64"][sym] = one["counts"][1][0]
                     # the fit's rows-only walks, without the predict's
-                    launches["ring-f64"][name.replace("dual", "rect_f64")] = \
+                    launches["ring-f64"][name.replace("dual", "rect_dmma")] = \
                         counts[2] - RING_SHARDS
                     X = torch.as_tensor(np.asarray(data[0].data), device="cuda")
                     _ring_dmma_copies(X, label)
@@ -2760,12 +2828,11 @@ def main(argv=None):
     for tc in ("gram_matvec_sym_tc", "gram_matmat_sym_tc", "gram_matvec_rect_tc",
                "gram_matmat_rect_tc", "gram_matvec_dual", "gram_matmat_dual"):
         launches[(tc, "tf32")] = launches[tc]
-    # float64: A and C on the DMMA tile (phases 4 and 5), B and D on the
-    # FFMA tile (their predicts), J and K on the dual DMMA tile (the ring)
-    for f64 in ("gram_matvec_sym_dmma", "gram_matmat_sym_dmma"):
+    # float64: A-D on the DMMA tiles (phases 4 and 5: A and C their fits, B
+    # and D their predicts), J and K on the dual DMMA tile (the ring)
+    for f64 in ("gram_matvec_sym_dmma", "gram_matmat_sym_dmma", "gram_matvec_rect_dmma",
+                "gram_matmat_rect_dmma"):
         launches[(f64, "f64")] = launches[f64]
-    for f64 in ("gram_matvec_rect", "gram_matmat_rect"):
-        launches[(f64, "f64")] = launches[f"{f64}_f64"]
     for f64 in ("gram_matvec_dual", "gram_matmat_dual"):
         launches[(f"{f64}_dmma", "f64")] = launches[f"{f64}_f64"]
 
@@ -2787,8 +2854,10 @@ def main(argv=None):
             "gram_dmma.cu", "plssvm_tpu/ops/pallas_matvec.py:430"),
         ("gram_matmat_sym_dmma", "f64"): (
             "gram_dmma.cu", "plssvm_tpu/ops/pallas_matvec.py:812"),
-        ("gram_matvec_rect", "f64"): ("gram_matvec.cu", "plssvm_tpu/ops/pallas_matvec.py:1007"),
-        ("gram_matmat_rect", "f64"): ("gram_matmat.cu", "plssvm_tpu/ops/pallas_matvec.py:812"),
+        ("gram_matvec_rect_dmma", "f64"): (
+            "gram_dmma.cu", "plssvm_tpu/ops/pallas_matvec.py:1007"),
+        ("gram_matmat_rect_dmma", "f64"): (
+            "gram_dmma.cu", "plssvm_tpu/ops/pallas_matvec.py:812"),
         ("gram_matvec_dual_dmma", "f64"): (
             "gram_dmma.cu", "plssvm_tpu/ops/pallas_matvec.py:430"),
         ("gram_matmat_dual_dmma", "f64"): (

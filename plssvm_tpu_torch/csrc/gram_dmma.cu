@@ -1,4 +1,4 @@
-// The FP64 tensor-core Gram tiles of kernels A, C, J and K in float64, on
+// The FP64 tensor-core Gram tiles of kernels A-D, J and K in float64, on
 // the H100's double-precision tensor cores (DMMA, mma.sync ... .f64), at
 // every Gram precision tier: DMMA multiplies and accumulates in IEEE
 // float64, so only the summation order differs from the FFMA tiles'.
@@ -14,15 +14,21 @@
 //   (parallel/sharded.py), C = 1 for kernel J.  Replaces, in float64, K1 and
 //   K4 with symmetric=False: the ring's cross_dual
 //   (plssvm_tpu/parallel/sharded.py).
+// - The rect tile (gram_dmma_rect_kernel): K(P, S) @ A, rows only, C = 1
+//   for kernel B: predict against the support vectors and the ring's
+//   rows-only walk of the antipodal block.  Replaces, in float64,
+//   kernel_matvec_pallas_rect (K3) and the first output of K4 with
+//   symmetric=False: plssvm_tpu's XLA predict_values and its ring's
+//   cross_rows.
 //
 // The TPU has no float64 unit, so no float64 Pallas kernel exists and
 // plssvm_tpu downcasts on the chip; the float64 functions the JAX package
-// runs are kernel_matvec_xla (plssvm_tpu/ops/matvec.py) and its ring's XLA
-// cross_dual.  The tiles replace the FFMA register tiles in float64
-// (gram_matvec.cu / gram_matmat.cu and the FFMA walks of dual.cu keep them
-// only as entry points that chip_smoke.py calls explicitly to time beside
-// them).  This source holds the tiles and their entry points, so each
-// kernel function is compiled once.
+// runs are kernel_matvec_xla (plssvm_tpu/ops/matvec.py), its predict and
+// its ring's XLA block products.  The tiles replace the FFMA register tiles
+// in float64 (gram_matvec.cu / gram_matmat.cu and the FFMA walks of dual.cu
+// keep them only as entry points; chip_smoke.py calls the sym and dual
+// ones explicitly to time beside the tiles).  This source holds the tiles
+// and their entry points, so each kernel function is compiled once.
 //
 // What bounds it on an H100: the pair work, 2 * pairs * d flops, at the
 // FP64 tensor cores' 67 TFLOP/s, twice the FP64 CUDA cores' 34 TFLOP/s
@@ -74,8 +80,9 @@
 //   class.  The partial buffers alternate between classes, so a class
 //   costs one barrier.  A second MMA for the class contraction is untried.
 // - The dual tile: the same product, fragments, ring and epilogue (shared
-//   device functions: dmma_box, dmma_kernel_values, dmma_row_partials,
-//   dmma_col_partials), with two tensor maps, one for Xr and one for Xc, a
+//   device functions: dmma_tile_product, dmma_box, dmma_kernel_values,
+//   dmma_row_partials, dmma_col_partials), with two tensor maps, one for Xr
+//   and one for Xc, a
 //   stage holding a box of each.  Its walk covers every tile of the n_rt x
 //   n_ct block, grouped by row tiles as the TF32 dual tile's
 //   (grouped_rect_run, gram_tc.cuh), so consecutive blocks share their
@@ -90,6 +97,14 @@
 //   half.  The kernel values come before the class loop, as in the
 //   symmetric tile: computed inside it, their exps' temporaries added to
 //   the class loop's registers and the tile spilled 272-460 bytes.
+// - The rect tile: the dual tile's walk, product and row side, without the
+//   column partials, their V staging and their atomics: rows masked
+//   against n_p, columns against n_s, per class the row partials against
+//   the SV tile's weights and one atomicAdd per row.  One tile a block, as
+//   the dual tile.  The product loop is one device function of the three
+//   tiles (dmma_tile_product); sharing it left the sym and dual tiles'
+//   registers, spills and shared memory as they were (chip_smoke.py
+//   --compare-build).
 
 #include "gram_tc.cuh"
 
@@ -288,6 +303,58 @@ __device__ __forceinline__ void dmma_col_partials(const double (&acc)[4][4][4],
         keep + __shfl_xor_sync(0xffffffffu, send, 4);
 }
 
+// One tile's product: thread 0 fills the ring (stage s <- feature box s
+// of the row tile, rows row0.. of rmap, and of the column tile, rows
+// col0.. of cmap) and refills a stage once every thread has released it,
+// kDmStages - 1 boxes ahead of the product; warp (wm, wn) sets acc to its
+// 64 x 32 fragment of the tile's Gram block.  The barriers are initialised
+// and visible to every thread before the call.
+__device__ __forceinline__ void dmma_tile_product(
+    double (&acc)[4][4][4], const CUtensorMap* rmap, const CUtensorMap* cmap,
+    int64_t row0, int64_t col0, int nk, uint32_t ring, const uint8_t* ring_ptr,
+    uint64_t* full, uint64_t* empty, int tid, int wm, int wn, int g, int t) {
+    auto load = [&](int k, int s) {
+        const uint32_t bar = smem_address(&full[s]);
+        const uint32_t dst = ring + s * kDmStageBytes;
+        mbar_expect_tx(bar, kDmStageBytes);
+        tma_load(dst, rmap, bar, k * kDmFeatures, static_cast<int>(row0));
+        tma_load(dst + kDmOperandBytes, cmap, bar, k * kDmFeatures,
+                 static_cast<int>(col0));
+    };
+    if (tid == 0) {
+        for (int s = 0; s < kDmStages && s < nk; ++s) {
+            load(s, s);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                acc[i][n][q] = 0.0;
+            }
+        }
+    }
+    for (int k = 0; k < nk; ++k) {
+        const int s = k % kDmStages;
+        mbar_wait(smem_address(&full[s]), (k / kDmStages) & 1);
+        const uint8_t* xr = ring_ptr + s * kDmStageBytes;
+        dmma_box(acc, xr, xr + kDmOperandBytes, wm, wn, g, t);
+        // this thread's reads of box k are done; thread 0 refills the
+        // stage of box k - 1, which every thread released one box ago
+        mbar_arrive(smem_address(&empty[s]));
+        if (k > 0) {
+            const int ps = (k - 1) % kDmStages;
+            if (tid == 0 && k - 1 + kDmStages < nk) {
+                mbar_wait(smem_address(&empty[ps]), ((k - 1) / kDmStages) & 1);
+                load(k - 1 + kDmStages, ps);
+            }
+            __syncwarp();
+        }
+    }
+}
+
 // out[r, c] += sum_j k(x_r, x_j) V[j, c] over the upper triangle of tiles,
 // columns mirrored off the diagonal; X arrives through xmap (m rows, its
 // feature axis a multiple of 2), nk boxes of features.
@@ -336,21 +403,6 @@ __global__ void __launch_bounds__(kDmThreads, 1)
     }
     __syncthreads();
 
-    // stage s <- feature box k of the row and the column tile
-    auto load = [&](int k, int s) {
-        const uint32_t bar = smem_address(&full[s]);
-        const uint32_t dst = ring + s * kDmStageBytes;
-        mbar_expect_tx(bar, kDmStageBytes);
-        tma_load(dst, &xmap, bar, k * kDmFeatures, static_cast<int>(row0));
-        tma_load(dst + kDmOperandBytes, &xmap, bar, k * kDmFeatures,
-                 static_cast<int>(col0));
-    };
-    if (tid == 0) {
-        for (int s = 0; s < kDmStages && s < nk; ++s) {
-            load(s, s);
-        }
-    }
-
     const int warp = tid / 32;
     const int lane = tid % 32;
     const int g = lane / 4;
@@ -358,33 +410,8 @@ __global__ void __launch_bounds__(kDmThreads, 1)
     const int wm = warp / 4;  // rows wm * 64 .. + 64 of the tile
     const int wn = warp % 4;  // columns wn * 32 .. + 32
     double acc[4][4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-                acc[i][n][q] = 0.0;
-            }
-        }
-    }
-    for (int k = 0; k < nk; ++k) {
-        const int s = k % kDmStages;
-        mbar_wait(smem_address(&full[s]), (k / kDmStages) & 1);
-        const uint8_t* xr = ring_ptr + s * kDmStageBytes;
-        dmma_box(acc, xr, xr + kDmOperandBytes, wm, wn, g, t);
-        // this thread's reads of box k are done; thread 0 refills the
-        // stage of box k - 1, which every thread released one box ago
-        mbar_arrive(smem_address(&empty[s]));
-        if (k > 0) {
-            const int ps = (k - 1) % kDmStages;
-            if (tid == 0 && k - 1 + kDmStages < nk) {
-                mbar_wait(smem_address(&empty[ps]), ((k - 1) / kDmStages) & 1);
-                load(k - 1 + kDmStages, ps);
-            }
-            __syncwarp();
-        }
-    }
+    dmma_tile_product(acc, &xmap, &xmap, row0, col0, nk, ring, ring_ptr, full,
+                      empty, tid, wm, wn, g, t);
 
     dmma_kernel_values<KIND>(acc, sq_r, sq_c, row0, col0, m, m, wm, wn, g, t,
                              degree, gamma, coef0);
@@ -483,21 +510,6 @@ __global__ void __launch_bounds__(kDmThreads, 1)
     }
     __syncthreads();
 
-    // stage s <- feature box k of the row tile (Xr) and the column tile (Xc)
-    auto load = [&](int k, int s) {
-        const uint32_t bar = smem_address(&full[s]);
-        const uint32_t dst = ring + s * kDmStageBytes;
-        mbar_expect_tx(bar, kDmStageBytes);
-        tma_load(dst, &rmap, bar, k * kDmFeatures, static_cast<int>(row0));
-        tma_load(dst + kDmOperandBytes, &cmap, bar, k * kDmFeatures,
-                 static_cast<int>(col0));
-    };
-    if (tid == 0) {
-        for (int s = 0; s < kDmStages && s < nk; ++s) {
-            load(s, s);
-        }
-    }
-
     const int warp = tid / 32;
     const int lane = tid % 32;
     const int g = lane / 4;
@@ -505,33 +517,8 @@ __global__ void __launch_bounds__(kDmThreads, 1)
     const int wm = warp / 4;  // rows wm * 64 .. + 64 of the tile
     const int wn = warp % 4;  // columns wn * 32 .. + 32
     double acc[4][4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-                acc[i][n][q] = 0.0;
-            }
-        }
-    }
-    for (int k = 0; k < nk; ++k) {
-        const int s = k % kDmStages;
-        mbar_wait(smem_address(&full[s]), (k / kDmStages) & 1);
-        const uint8_t* xr = ring_ptr + s * kDmStageBytes;
-        dmma_box(acc, xr, xr + kDmOperandBytes, wm, wn, g, t);
-        // this thread's reads of box k are done; thread 0 refills the
-        // stage of box k - 1, which every thread released one box ago
-        mbar_arrive(smem_address(&empty[s]));
-        if (k > 0) {
-            const int ps = (k - 1) % kDmStages;
-            if (tid == 0 && k - 1 + kDmStages < nk) {
-                mbar_wait(smem_address(&empty[ps]), ((k - 1) / kDmStages) & 1);
-                load(k - 1 + kDmStages, ps);
-            }
-            __syncwarp();
-        }
-    }
+    dmma_tile_product(acc, &rmap, &cmap, row0, col0, nk, ring, ring_ptr, full,
+                      empty, tid, wm, wn, g, t);
 
     dmma_kernel_values<KIND>(acc, sq_rows, sq_cols, row0, col0, mr, mc, wm, wn,
                              g, t, degree, gamma, coef0);
@@ -569,6 +556,92 @@ __global__ void __launch_bounds__(kDmThreads, 1)
                     atomicAdd(&out_c[(col0 + cl) * C + c],
                               col_part[parity][0][cl] + col_part[parity][1][cl]);
                 }
+            }
+        }
+    }
+}
+
+// out[r, c] += sum_j k(p_r, s_j) A[j, c] over one tile of the n_p x n_s
+// rectangle, rows only; P and S arrive through pmap and smap (n_p and n_s
+// rows, the same feature axis, a multiple of 2), nk boxes of features.
+template <int KIND>
+__global__ void __launch_bounds__(kDmThreads, 1)
+    gram_dmma_rect_kernel(const __grid_constant__ CUtensorMap pmap,
+                          const __grid_constant__ CUtensorMap smap,
+                          const double* __restrict__ sq_p,
+                          const double* __restrict__ sq_s,
+                          const double* __restrict__ A,
+                          double* __restrict__ out, int64_t n_p, int64_t n_s,
+                          int64_t C, int nk, int n_rt, int n_ct, int degree,
+                          double gamma, double coef0) {
+    extern __shared__ uint8_t dm_ring[];
+    __shared__ __align__(8) uint64_t full[kDmStages];
+    __shared__ __align__(8) uint64_t empty[kDmStages];
+    __shared__ double sq_rows[kDmEdge];
+    __shared__ double sq_cols[kDmEdge];
+    __shared__ double a_cols[kClassChunk][kDmEdge];  // A rows of the column tile
+    __shared__ double row_part[2][4][kDmEdge];  // [class parity][warp across]
+
+    const int tid = threadIdx.x;
+    int64_t it, jt;
+    grouped_rect_run(blockIdx.x, n_rt, n_ct, 1, it, jt);
+    const int64_t row0 = it * kDmEdge;
+    const int64_t col0 = jt * kDmEdge;
+    const uint32_t ring_offset =
+        ((smem_address(dm_ring) + 1023u) & ~1023u) - smem_address(dm_ring);
+    const uint32_t ring = smem_address(dm_ring) + ring_offset;
+    const uint8_t* ring_ptr = dm_ring + ring_offset;
+
+    if (tid == 0) {
+        for (int s = 0; s < kDmStages; ++s) {
+            mbar_init(smem_address(&full[s]), 1);
+            mbar_init(smem_address(&empty[s]), kDmThreads);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    if (tid < kDmEdge) {
+        const int64_t r = row0 + tid;
+        sq_rows[tid] = r < n_p ? sq_p[r] : 0.0;
+    } else {
+        const int64_t c = col0 + tid - kDmEdge;
+        sq_cols[tid - kDmEdge] = c < n_s ? sq_s[c] : 0.0;
+    }
+    __syncthreads();
+
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int wm = warp / 4;  // rows wm * 64 .. + 64 of the tile
+    const int wn = warp % 4;  // columns wn * 32 .. + 32
+    double acc[4][4][4];
+    dmma_tile_product(acc, &pmap, &smap, row0, col0, nk, ring, ring_ptr, full,
+                      empty, tid, wm, wn, g, t);
+
+    dmma_kernel_values<KIND>(acc, sq_rows, sq_cols, row0, col0, n_p, n_s, wm,
+                             wn, g, t, degree, gamma, coef0);
+    int parity = 0;
+    for (int64_t c0 = 0; c0 < C; c0 += kClassChunk) {
+        const int cn = static_cast<int>(
+            C - c0 < kClassChunk ? C - c0 : kClassChunk);
+        __syncthreads();  // the previous chunk's readers are done
+        for (int e = tid; e < kDmEdge * cn; e += kDmThreads) {
+            const int r = e / cn;
+            const int cc = e % cn;
+            const int64_t gc = col0 + r;
+            a_cols[cc][r] = gc < n_s ? A[gc * C + c0 + cc] : 0.0;
+        }
+        __syncthreads();
+        for (int cc = 0; cc < cn; ++cc, parity ^= 1) {
+            dmma_row_partials(acc, a_cols[cc], wm, wn, g, t, row_part[parity][wn]);
+            // the partials of this class are written; the other parity's
+            // readers finished before this barrier
+            __syncthreads();
+            if (tid < kDmEdge && row0 + tid < n_p) {
+                const double total =
+                    (row_part[parity][0][tid] + row_part[parity][1][tid]) +
+                    (row_part[parity][2][tid] + row_part[parity][3][tid]);
+                atomicAdd(&out[(row0 + tid) * C + c0 + cc], total);
             }
         }
     }
@@ -647,7 +720,46 @@ cudaError_t launch_dmma_dual(const double* Xr, const double* Xc,
     return cudaGetLastError();
 }
 
-// How many blocks of a DMMA tile an SM holds at once (both are designed
+// Kernels B (C = 1) and D on the rect DMMA tile: P (n_p, d_pad) and S
+// (n_s, d_pad) float64, d_pad even, both 16-byte aligned (TMA); sq_p, sq_s
+// their norms; A (n_s, C) and out (n_p, C) row-major, out accumulates.
+template <int KIND>
+cudaError_t launch_dmma_rect(const double* P, const double* S,
+                             const double* sq_p, const double* sq_s,
+                             const double* A, double* out, int64_t n_p,
+                             int64_t n_s, int64_t d_pad, int64_t C, int degree,
+                             double gamma, double coef0, cudaStream_t stream) {
+    const int64_t n_rt = (n_p + kDmEdge - 1) / kDmEdge;
+    const int64_t n_ct = (n_s + kDmEdge - 1) / kDmEdge;
+    const int64_t blocks = n_rt * n_ct;
+    const int64_t nk = (d_pad + kDmFeatures - 1) / kDmFeatures;
+    if (blocks <= 0 || blocks > INT32_MAX || C <= 0 || nk <= 0 ||
+        nk > INT32_MAX || !tma_operand_ok<F64Operand>(P, n_p, d_pad) ||
+        !tma_operand_ok<F64Operand>(S, n_s, d_pad)) {
+        return cudaErrorInvalidValue;
+    }
+    CUtensorMap pmap, smap;
+    cudaError_t err = encode_operand<F64Operand>(&pmap, P, n_p, d_pad);
+    if (err == cudaSuccess) {
+        err = encode_operand<F64Operand>(&smap, S, n_s, d_pad);
+    }
+    if (err != cudaSuccess) {
+        return err;
+    }
+    auto kernel = gram_dmma_rect_kernel<KIND>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kDmSmemBytes);
+    if (err != cudaSuccess) {
+        return err;
+    }
+    kernel<<<static_cast<unsigned int>(blocks), kDmThreads, kDmSmemBytes,
+             stream>>>(pmap, smap, sq_p, sq_s, A, out, n_p, n_s, C,
+                       static_cast<int>(nk), static_cast<int>(n_rt),
+                       static_cast<int>(n_ct), degree, gamma, coef0);
+    return cudaGetLastError();
+}
+
+// How many blocks of a DMMA tile an SM holds at once (all are designed
 // for one), with ``smem`` bytes of dynamic shared memory.
 template <typename Kernel>
 cudaError_t dmma_blocks_per_sm(Kernel kernel, int smem, int& blocks) {
@@ -744,5 +856,37 @@ extern "C" int plssvm_gram_dmma_dual_blocks_per_sm(int kind, int* blocks) {
     return dmma_dispatch(kind, [&](auto k) {
         return static_cast<int>(dmma_blocks_per_sm(
             gram_dmma_dual_kernel<decltype(k)::value>, kDmSmemBytes, *blocks));
+    });
+}
+
+// Kernel D on the rect DMMA tile: P (n_p, d_pad) and S (n_s, d_pad)
+// float64 with an even d_pad, 16-byte aligned; sq_p, sq_s their norms; A
+// (n_s, C) and out (n_p, C) row-major, out accumulates.
+extern "C" int plssvm_gram_matmat_rect_dmma(
+    const double* P, const double* S, const double* sq_p, const double* sq_s,
+    const double* A, double* out, int64_t n_p, int64_t n_s, int64_t d_pad,
+    int64_t C, int kind, int degree, double gamma, double coef0, void* stream) {
+    return dmma_dispatch(kind, [&](auto k) {
+        return static_cast<int>(launch_dmma_rect<decltype(k)::value>(
+            P, S, sq_p, sq_s, A, out, n_p, n_s, d_pad, C, degree, gamma, coef0,
+            static_cast<cudaStream_t>(stream)));
+    });
+}
+
+// Kernel B: kernel D with one class.
+extern "C" int plssvm_gram_matvec_rect_dmma(
+    const double* P, const double* S, const double* sq_p, const double* sq_s,
+    const double* a, double* out, int64_t n_p, int64_t n_s, int64_t d_pad,
+    int kind, int degree, double gamma, double coef0, void* stream) {
+    return plssvm_gram_matmat_rect_dmma(P, S, sq_p, sq_s, a, out, n_p, n_s,
+                                        d_pad, 1, kind, degree, gamma, coef0,
+                                        stream);
+}
+
+// The rect DMMA tile's blocks per SM for the kernel function ``kind``.
+extern "C" int plssvm_gram_dmma_rect_blocks_per_sm(int kind, int* blocks) {
+    return dmma_dispatch(kind, [&](auto k) {
+        return static_cast<int>(dmma_blocks_per_sm(
+            gram_dmma_rect_kernel<decltype(k)::value>, kDmSmemBytes, *blocks));
     });
 }

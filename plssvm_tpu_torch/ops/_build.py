@@ -127,7 +127,7 @@ _TC = re.compile(r"(gram_tc_(?:sym|rect|dual))_kernelI\w*?(Tf32|Bf16)TierELi(\d)
 #: the dual walks (dual.cu), one template for the Gram and distance kinds
 _DUAL = re.compile(r"(mat(?:vec|mat))_dual_kernelI([fd])Li(\d)E")
 #: the FP64 tensor-core tiles (gram_dmma.cu), templates of the kind
-_DMMA = re.compile(r"(gram_dmma_(?:sym|dual))_kernelILi(\d)E")
+_DMMA = re.compile(r"(gram_dmma_(?:sym|dual|rect))_kernelILi(\d)E")
 _KINDS = {"1": "poly", "2": "rbf", "3": "sigmoid", "4": "laplacian", "5": "chi_squared"}
 
 
@@ -161,8 +161,8 @@ def kernel_resources() -> Dict[str, Dict[str, int]]:
                 # the dual tile: one name for all copies
                 name = f"{tc.group(1)} {tc.group(2).lower()} {_KINDS.get(tc.group(3))}"
             elif dmma is not None:
-                # A and C share the sym tile, J and K the dual one, each
-                # compiled once per kind
+                # A and C share the sym tile, B and D the rect one, J and K
+                # the dual one, each compiled once per kind
                 name = f"{dmma.group(1)} f64 {_KINDS.get(dmma.group(2))}"
             elif dual is not None:
                 family = "gram" if dual.group(3) in "123" else "distance"
@@ -283,8 +283,15 @@ def load() -> ctypes.CDLL:
     lib.plssvm_gram_matmat_dual_dmma.argtypes = [ptr] * 8 + [i64] * 4 + [cint, cint, f64, f64, ptr]
     lib.plssvm_gram_matvec_dual_dmma.restype = cint
     lib.plssvm_gram_matmat_dual_dmma.restype = cint
+    # kernels B and D on the rect DMMA tile: (P, S, sq_p, sq_s, a / A, out,
+    # n_p, n_s, d_pad, [C,] kind, degree, gamma, coef0, stream)
+    lib.plssvm_gram_matvec_rect_dmma.argtypes = [ptr] * 6 + [i64] * 3 + [cint, cint, f64, f64, ptr]
+    lib.plssvm_gram_matmat_rect_dmma.argtypes = [ptr] * 6 + [i64] * 4 + [cint, cint, f64, f64, ptr]
+    lib.plssvm_gram_matvec_rect_dmma.restype = cint
+    lib.plssvm_gram_matmat_rect_dmma.restype = cint
     # (kind, int* blocks): the DMMA tiles' blocks per SM
-    for name in ("plssvm_gram_dmma_blocks_per_sm", "plssvm_gram_dmma_dual_blocks_per_sm"):
+    for name in ("plssvm_gram_dmma_blocks_per_sm", "plssvm_gram_dmma_dual_blocks_per_sm",
+                 "plssvm_gram_dmma_rect_blocks_per_sm"):
         getattr(lib, name).argtypes = [cint, ptr]
         getattr(lib, name).restype = cint
     # (bf16, kind, int* blocks): the dual tensor-core tile's blocks per SM

@@ -17,16 +17,16 @@ As in ops/gram_matvec.py: ``precision`` is the Gram precision tier; on
 float32 CUDA tensors kernels C and D take the tensor-core tiles
 (csrc/gram_tc.cuh: the symmetric one for C, the rectangular one for D, the
 dual one for K) at "f32" (TF32) and "bf16" and the FFMA tiles at
-"highest"; in float64, at every tier, kernels C and K run on the FP64
-tensor cores (the symmetric and the dual DMMA tile of csrc/gram_dmma.cu),
-D on the FFMA tile.
+"highest"; in float64, at every tier, kernels C, D and K run on the FP64
+tensor cores (the symmetric, the rect and the dual DMMA tile of
+csrc/gram_dmma.cu).
 Each wrapper takes its plain PyTorch version (ops/matvec.py) at the same
 tier for tensors that lie on the CPU, and only then; for a CUDA tensor it
 launches its kernel or raises, never falls back.  Each counts its launches
 in a plain module-level int (``sym_launches``, ``rect_launches`` for the
 FFMA tile, ``sym_tc_launches``, ``rect_tc_launches`` for the tensor-core
-tiles, ``sym_dmma_launches`` for kernel C on the DMMA tile,
-``dual_launches``, ``dual_tc_launches`` and ``dual_dmma_launches`` for
+tiles, ``sym_dmma_launches`` and ``rect_dmma_launches`` for kernels C
+and D on the DMMA tiles, ``dual_launches``, ``dual_tc_launches`` and ``dual_dmma_launches`` for
 kernel K on the FFMA, tensor-core and DMMA tiles).  V, A
 and the output are row-major (rows, C) for any C >= 1.
 """
@@ -45,6 +45,7 @@ from .gram_matvec import (
     _require_cuda,
     launch_dual_dmma,
     launch_dual_tc,
+    launch_rect_dmma,
     launch_rect_tc,
     launch_sym_dmma,
     tier_operand,
@@ -60,8 +61,10 @@ rect_launches = 0
 #: TF32, "bf16")
 sym_tc_launches = 0
 rect_tc_launches = 0
-#: kernel C's launches on the FP64 tensor-core (DMMA) tile, float64
+#: kernel C's / kernel D's launches on the FP64 tensor-core (DMMA) tiles,
+#: float64
 sym_dmma_launches = 0
+rect_dmma_launches = 0
 #: kernel K's launches (gram_matmat_dual) on the FFMA tile, on the
 #: tensor-core tile and, float64, on the DMMA tile
 dual_launches = 0
@@ -73,12 +76,14 @@ def reset_counts() -> None:
     """Zero the launch counts of both kernels and the call counts of their
     plain versions."""
     global sym_launches, rect_launches, sym_tc_launches, rect_tc_launches
-    global sym_dmma_launches, dual_launches, dual_tc_launches, dual_dmma_launches
+    global sym_dmma_launches, rect_dmma_launches, dual_launches, dual_tc_launches
+    global dual_dmma_launches
     sym_launches = 0
     rect_launches = 0
     sym_tc_launches = 0
     rect_tc_launches = 0
     sym_dmma_launches = 0
+    rect_dmma_launches = 0
     dual_launches = 0
     dual_tc_launches = 0
     dual_dmma_launches = 0
@@ -168,7 +173,8 @@ def gram_matmat_rect(
 
     ``P`` (n_p, d) points, ``S`` (n_s, d) support vectors, ``sq_p`` /
     ``sq_s`` their squared row norms, ``A`` (n_s, C) the weights, one
-    column per class or machine; ``precision`` the tier.
+    column per class or machine; ``precision`` the tier, as in
+    ``gram_matvec.gram_matvec_rect``.
     """
     _check_gram_kind(kind)
     _plain.check_precision(precision)
@@ -190,6 +196,12 @@ def gram_matmat_rect(
     if n_p == 0 or n_s == 0 or C == 0:
         return out
     lib = _build.load()
+    if uses_dmma(P):
+        launch_rect_dmma(lib, "matmat", P, S, sq_p, sq_s, A, out, (C,), kind,
+                         gamma, coef0, degree)
+        global rect_dmma_launches
+        rect_dmma_launches += 1
+        return out
     if uses_tensor_cores(P, precision):
         launch_rect_tc(lib, "matmat", P, S, sq_p, sq_s, A, out, (C,), kind,
                        gamma, coef0, degree, precision)

@@ -21,11 +21,10 @@ on the tensor-core tiles (csrc/gram_tc.cuh: the symmetric one for A, the
 rectangular one for B, the dual one for J) with TF32 operands, at "bf16" on
 the same tiles with bf16 operands, f32 accumulation in both; at "highest"
 on the FFMA register tiles (csrc/gram_tile.cuh, csrc/dual.cu), full
-float32.  float64 is full precision at every tier: kernels A and J run on
-the FP64 tensor cores (the symmetric and the dual DMMA tile of
+float32.  float64 is full precision at every tier: kernels A, B and J run
+on the FP64 tensor cores (the symmetric, the rect and the dual DMMA tile of
 csrc/gram_dmma.cu, :func:`uses_dmma`; an odd d, or a view that is not
-16-byte aligned, takes :func:`dmma_operand`'s copy), B on the FFMA tile in
-float64.  The TF32 / bf16 tensor-core tiles take operand
+16-byte aligned, takes :func:`dmma_operand`'s copy).  The TF32 / bf16 tensor-core tiles take operand
 copies (:func:`tier_operand`: TF32-rounded or bf16, the feature axis
 padded to a 16-byte row) of X, of P and S, or of Xr and Xc, which the
 wrapper makes per call: for kernel A at MNIST's width they take under 4 %
@@ -36,8 +35,8 @@ tier for tensors that lie on the CPU, and only then.  For a CUDA tensor it
 launches its kernel or raises; it never falls back.  Each counts its
 launches in a plain module-level int (``sym_launches``, ``rect_launches``
 for the FFMA tile, ``sym_tc_launches``, ``rect_tc_launches`` for the
-tensor-core tiles, ``sym_dmma_launches`` for kernel A on the DMMA tile,
-``dual_launches``, ``dual_tc_launches`` and ``dual_dmma_launches`` for
+tensor-core tiles, ``sym_dmma_launches`` and ``rect_dmma_launches`` for
+kernels A and B on the DMMA tiles, ``dual_launches``, ``dual_tc_launches`` and ``dual_dmma_launches`` for
 kernel J on the FFMA, tensor-core and DMMA tiles;
 ``kernel_matvec_launches`` counts kernel A's launches made for
 :func:`kernel_matvec`).  The kernels allocate nothing: the wrapper
@@ -61,8 +60,10 @@ rect_launches = 0
 #: TF32, "bf16")
 sym_tc_launches = 0
 rect_tc_launches = 0
-#: kernel A's launches on the FP64 tensor-core (DMMA) tile, float64
+#: kernel A's / kernel B's launches on the FP64 tensor-core (DMMA) tiles,
+#: float64
 sym_dmma_launches = 0
+rect_dmma_launches = 0
 #: kernel A's launches made by kernel_matvec
 kernel_matvec_launches = 0
 #: kernel J's launches (gram_matvec_dual) on the FFMA tile, on the
@@ -81,13 +82,14 @@ def reset_counts() -> None:
     """Zero the launch counts of both kernels and the call counts of their
     plain versions."""
     global sym_launches, rect_launches, sym_tc_launches, rect_tc_launches
-    global sym_dmma_launches, kernel_matvec_launches, dual_launches, dual_tc_launches
-    global dual_dmma_launches
+    global sym_dmma_launches, rect_dmma_launches, kernel_matvec_launches
+    global dual_launches, dual_tc_launches, dual_dmma_launches
     sym_launches = 0
     rect_launches = 0
     sym_tc_launches = 0
     rect_tc_launches = 0
     sym_dmma_launches = 0
+    rect_dmma_launches = 0
     kernel_matvec_launches = 0
     dual_launches = 0
     dual_tc_launches = 0
@@ -159,7 +161,7 @@ def uses_tensor_cores(X: torch.Tensor, precision: str) -> bool:
 
 
 def uses_dmma(X: torch.Tensor) -> bool:
-    """Whether kernels A, C, J and K take the FP64 tensor-core (DMMA) tiles
+    """Whether kernels A-D, J and K take the FP64 tensor-core (DMMA) tiles
     for X: float64 CUDA operands, at every tier (float64 is full precision
     at each)."""
     return X.device.type == "cuda" and X.dtype == torch.float64
@@ -286,7 +288,10 @@ def gram_matvec_rect(
 
     ``P`` (n_p, d) points, ``S`` (n_s, d) support vectors, ``sq_p`` /
     ``sq_s`` their squared row norms, ``a`` (n_s,) the weights;
-    ``precision`` the tier.
+    ``precision`` the tier: on float32 CUDA tensors "f32" and "bf16" take
+    the rectangular tensor-core tile, "highest" the FFMA tile; float64
+    CUDA tensors the rect DMMA tile at every tier, on
+    :func:`dmma_operand`'s operands.
     """
     _check_gram_kind(kind)
     _plain.check_precision(precision)
@@ -307,6 +312,12 @@ def gram_matvec_rect(
     if n_p == 0 or n_s == 0:
         return out
     lib = _build.load()
+    if uses_dmma(P):
+        launch_rect_dmma(lib, "matvec", P, S, sq_p, sq_s, a, out, (), kind,
+                         gamma, coef0, degree)
+        global rect_dmma_launches
+        rect_dmma_launches += 1
+        return out
     if uses_tensor_cores(P, precision):
         launch_rect_tc(lib, "matvec", P, S, sq_p, sq_s, a, out, (), kind,
                        gamma, coef0, degree, precision)
@@ -343,6 +354,23 @@ def launch_rect_tc(lib, op, P, S, sq_p, sq_s, weights, out, classes, kind,
             float(coef0), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error(lib, err, f"gram_{op}_rect (tensor cores)")
+
+
+def launch_rect_dmma(lib, op, P, S, sq_p, sq_s, weights, out, classes, kind,
+                     gamma, coef0, degree) -> None:
+    """Launch kernel B (``op`` "matvec", ``classes`` ()) or D ("matmat",
+    ``classes`` (C,)) on the rect DMMA tile on :func:`dmma_operand`'s
+    operands of P and S.  Raises on a failed launch; counts nothing."""
+    P_op, S_op = dmma_operand(P), dmma_operand(S)
+    fn = getattr(lib, f"plssvm_gram_{op}_rect_dmma")
+    with torch.cuda.device(P.device):
+        err = fn(
+            P_op.data_ptr(), S_op.data_ptr(), sq_p.data_ptr(), sq_s.data_ptr(),
+            weights.data_ptr(), out.data_ptr(), P.shape[0], S.shape[0],
+            P_op.shape[1], *classes, int(kind), int(degree), float(gamma),
+            float(coef0), torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on_error(lib, err, f"gram_{op}_rect (FP64 tensor cores)")
 
 
 def kernel_matvec(

@@ -1,19 +1,23 @@
 """Time a float64 DMMA tile, one checkout at a time.
 
-    python -m plssvm_tpu_torch.tools.bench_gram_f64 [m] [d] [classes] [kernel] [--repeats N] [--dual] [--cpu]
+    python -m plssvm_tpu_torch.tools.bench_gram_f64 [m] [d] [classes] [kernel] [--repeats N] [--dual | --rect] [--cpu]
 
 ``m`` rows (default 32768), ``d`` features (512), ``classes`` right-hand
 sides, ``kernel`` polynomial, rbf or sigmoid (rbf).  Without ``--dual`` the
 symmetric tile: kernel A (``classes`` 1, ``K(X, X) @ v``) or C (``K(X, X) @
 V``).  With ``--dual`` the dual tile on an m x m block of the ring: kernel
-J (``classes`` 1) or K, ``(K(Xr, Xc) @ V_c, K(Xr, Xc)^T @ V_r)``.  ``X``,
-``Xr``, ``Xc`` and the right-hand sides hold seeded normal draws in
+J (``classes`` 1) or K, ``(K(Xr, Xc) @ V_c, K(Xr, Xc)^T @ V_r)``.  With
+``--rect`` the rect tile on an m x m block, rows only: kernel B (``classes``
+1, ``K(P, S) @ a``) or D (``K(P, S) @ A``).  ``X``, ``Xr``, ``Xc``, ``P``,
+``S`` and the right-hand sides hold seeded normal draws in
 float64, gamma = 1/d, coef0 = 0, degree 3.  A line gives the median ms of
 ``--repeats`` launches of the wrapper (5) after one untimed, with CUDA
 events, and ``rel_err``, max|err| / max|plain| against the plain version
 (the larger of the dual tile's two outputs).  Run
 from the root of another checkout (a variant of a tile), it times that
-checkout's tile, so variants compare in separate processes on one card.
+checkout's tile, so variants compare in separate processes on one card;
+copied into a checkout whose float64 B and D still run on the FFMA tile,
+``--rect`` times that tile through the same wrapper.
 The tiles' bounds and the FFMA tiles beside them are ``chip_smoke.py``'s.
 ``--cpu`` runs the wrappers' plain versions on the CPU; without it the
 tool runs on the GPU, and fails where there is none.
@@ -37,15 +41,19 @@ from . import seconds, tool_device
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m plssvm_tpu_torch.tools.bench_gram_f64",
-        description="Time a float64 DMMA tile: kernel A or C, or with --dual J or K.",
+        description="Time a float64 DMMA tile: kernel A or C, with --dual J or K, with "
+                    "--rect B or D.",
     )
     ap.add_argument("m", type=int, nargs="?", default=32768)
     ap.add_argument("d", type=int, nargs="?", default=512)
     ap.add_argument("classes", type=int, nargs="?", default=1)
     ap.add_argument("kernel", nargs="?", default="rbf")
     ap.add_argument("--repeats", type=int, default=5)
-    ap.add_argument("--dual", action="store_true",
-                    help="time the dual tile (kernels J and K) on an m x m block")
+    walk = ap.add_mutually_exclusive_group()
+    walk.add_argument("--dual", action="store_true",
+                      help="time the dual tile (kernels J and K) on an m x m block")
+    walk.add_argument("--rect", action="store_true",
+                      help="time the rect tile (kernels B and D) on an m x m block")
     ap.add_argument("--cpu", action="store_true",
                     help="run the plain version on the CPU (default: the GPU)")
     return ap
@@ -75,25 +83,29 @@ def main(argv=None) -> int:
     kw = dict(kind=kind, gamma=1.0 / d, coef0=0.0, degree=3)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"bench_gram_f64 on {name}: m={m} d={d} classes={classes} kernel={kind}"
-          + (" dual" if args.dual else ""), flush=True)
-    if not args.dual:
-        product = gram_matvec.gram_matvec_sym if classes == 1 else gram_matmat.gram_matmat_sym
-        plain = matvec.kernel_matvec_plain if classes == 1 else matvec.kernel_matmat_plain
-        want = plain(X, sq, V, **kw)
-        rel = float((product(X, sq, V, **kw) - want).abs().max() / want.abs().max())
-        ms = _median_ms(lambda: product(X, sq, V, **kw), args.repeats, device)
-        print(f"dmma {ms:10.3f} ms  rel_err={rel:.2e}", flush=True)
-        return 0
-    Xc = torch.as_tensor(rng.normal(size=(m, d)), device=device)
-    V_r = torch.as_tensor(rng.normal(size=(m, *tail)), device=device)
-    operands = (X, Xc, sq, (Xc * Xc).sum(-1), V, V_r)
-    product = gram_matvec.gram_matvec_dual if classes == 1 else gram_matmat.gram_matmat_dual
-    plain = matvec.kernel_matvec_dual_plain if classes == 1 else matvec.kernel_matmat_dual_plain
-    want = plain(*operands, **kw)
-    rel = max(float((g - w).abs().max() / w.abs().max())
-              for g, w in zip(product(*operands, **kw), want))
+          + (" dual" if args.dual else " rect" if args.rect else ""), flush=True)
+    vec = classes == 1
+    if args.dual or args.rect:
+        Xc = torch.as_tensor(rng.normal(size=(m, d)), device=device)
+        operands = (X, Xc, sq, (Xc * Xc).sum(-1), V)
+    if args.dual:
+        label = "dual"
+        operands += (torch.as_tensor(rng.normal(size=(m, *tail)), device=device),)
+        product = gram_matvec.gram_matvec_dual if vec else gram_matmat.gram_matmat_dual
+        plain = matvec.kernel_matvec_dual_plain if vec else matvec.kernel_matmat_dual_plain
+    elif args.rect:
+        label = "rect"
+        product = gram_matvec.gram_matvec_rect if vec else gram_matmat.gram_matmat_rect
+        plain = matvec.kernel_matvec_rect_plain if vec else matvec.kernel_matmat_rect_plain
+    else:
+        label, operands = "dmma", (X, sq, V)
+        product = gram_matvec.gram_matvec_sym if vec else gram_matmat.gram_matmat_sym
+        plain = matvec.kernel_matvec_plain if vec else matvec.kernel_matmat_plain
+    got, want = product(*operands, **kw), plain(*operands, **kw)
+    pairs = zip(got, want) if args.dual else ((got, want),)
+    rel = max(float((g - w).abs().max() / w.abs().max()) for g, w in pairs)
     ms = _median_ms(lambda: product(*operands, **kw), args.repeats, device)
-    print(f"dual {ms:10.3f} ms  rel_err={rel:.2e}", flush=True)
+    print(f"{label} {ms:10.3f} ms  rel_err={rel:.2e}", flush=True)
     return 0
 
 

@@ -2,8 +2,9 @@
 laplacian / chi-squared matvecs and block matmats; I: the banded laplacian
 matvec; and ``kernel_matvec``, K6's one launch of kernel A) against their
 plain PyTorch versions, on the card: A-D on the FFMA tile at "highest",
-in float64 A and C on the DMMA tile (tests/test_torch_dmma.py holds it on
-more shapes) and B and D on the FFMA tile, and on the tensor-core tiles at
+in float64 A and C on the symmetric DMMA tile and B and D on the rect one
+(tests/test_torch_dmma.py holds them on more shapes), and on the
+tensor-core tiles at
 "f32" (TF32) and "bf16" (A and C on the symmetric one, B and D on the
 rectangular one).
 
@@ -51,7 +52,7 @@ def cuda_device():
 @pytest.mark.parametrize("m,d", [(1037, 203), (300, 1280), (129, 3), (1, 5)])
 def test_kernels_against_plain(cuda_device, name, dtype, tol, m, d):
     """Kernels A and B at "highest" on ragged shapes, a single row
-    included: on the FFMA tile, except A in float64 on the DMMA tile."""
+    included: on the FFMA tile, except in float64 on the DMMA tiles."""
     tkind = getattr(TKind, name.upper())
     g = torch.Generator().manual_seed(38)
     X = (torch.randn(m, d, generator=g, dtype=dtype) * 0.3).to(cuda_device)
@@ -61,7 +62,8 @@ def test_kernels_against_plain(cuda_device, name, dtype, tol, m, d):
     kw = dict(kind=tkind, gamma=1.0 / d, coef0=COEF0[name], degree=3,
               precision="highest")
     dmma = dtype == torch.float64
-    before = gram_matvec.sym_launches, gram_matvec.sym_dmma_launches, gram_matvec.rect_launches
+    before = (gram_matvec.sym_launches, gram_matvec.sym_dmma_launches,
+              gram_matvec.rect_launches, gram_matvec.rect_dmma_launches)
     got = gram_matvec.gram_matvec_sym(X, sq, v, **kw)
     want = matvec.kernel_matvec_plain(X, sq, v, **kw)
     assert (got - want).abs().max() <= tol * want.abs().max()
@@ -69,8 +71,8 @@ def test_kernels_against_plain(cuda_device, name, dtype, tol, m, d):
     want = matvec.kernel_matvec_rect_plain(P, X, sq_p, sq, v, **kw)
     assert (got - want).abs().max() <= tol * want.abs().max()
     assert (gram_matvec.sym_launches, gram_matvec.sym_dmma_launches,
-            gram_matvec.rect_launches) == (
-        before[0] + (not dmma), before[1] + dmma, before[2] + 1
+            gram_matvec.rect_launches, gram_matvec.rect_dmma_launches) == (
+        before[0] + (not dmma), before[1] + dmma, before[2] + (not dmma), before[3] + dmma
     )
 
 
@@ -110,8 +112,8 @@ def test_wrapper_checks_operands(cuda_device):
 def test_matmat_kernels_against_plain(cuda_device, name, dtype, tol, n_classes, m, d):
     """Kernels C and D at "highest" on ragged shapes, a single row
     included, for class counts below, at and across the kernels' 8-class
-    staging chunk: on the FFMA tile, except C in float64 on the DMMA
-    tile."""
+    staging chunk: on the FFMA tile, except in float64 on the DMMA
+    tiles."""
     tkind = getattr(TKind, name.upper())
     g = torch.Generator().manual_seed(40)
     X = (torch.randn(m, d, generator=g, dtype=dtype) * 0.3).to(cuda_device)
@@ -121,7 +123,8 @@ def test_matmat_kernels_against_plain(cuda_device, name, dtype, tol, n_classes, 
     kw = dict(kind=tkind, gamma=1.0 / d, coef0=COEF0[name], degree=3,
               precision="highest")
     dmma = dtype == torch.float64
-    before = gram_matmat.sym_launches, gram_matmat.sym_dmma_launches, gram_matmat.rect_launches
+    before = (gram_matmat.sym_launches, gram_matmat.sym_dmma_launches,
+              gram_matmat.rect_launches, gram_matmat.rect_dmma_launches)
     got = gram_matmat.gram_matmat_sym(X, sq, V, **kw)
     want = matvec.kernel_matmat_plain(X, sq, V, **kw)
     assert got.shape == (m, n_classes)
@@ -131,8 +134,8 @@ def test_matmat_kernels_against_plain(cuda_device, name, dtype, tol, n_classes, 
     assert got.shape == (P.shape[0], n_classes)
     assert (got - want).abs().max() <= tol * want.abs().max()
     assert (gram_matmat.sym_launches, gram_matmat.sym_dmma_launches,
-            gram_matmat.rect_launches) == (
-        before[0] + (not dmma), before[1] + dmma, before[2] + 1
+            gram_matmat.rect_launches, gram_matmat.rect_dmma_launches) == (
+        before[0] + (not dmma), before[1] + dmma, before[2] + (not dmma), before[3] + dmma
     )
 
 
@@ -719,8 +722,8 @@ def test_ring_on_one_card(cuda_device, P, name, n_classes, precision, dtype):
     """The symmetric ring over P shards on cuda:0 against the single-device
     product at the same tier, and its launches: per shard one symmetric
     launch, floor((P - 1) / 2) dual and, for even P, one rows-only launch,
-    in float64 the symmetric and dual ones on the DMMA tiles (Gram kinds)
-    and the rows-only ones on the FFMA tile, in float32 at "f32" and "bf16"
+    in float64 the symmetric, dual and rows-only ones on the DMMA tiles
+    (Gram kinds), in float32 at "f32" and "bf16"
     on the tensor-core tiles (sym_tc, dual_tc, rect_tc), none on another
     tile.  Float64 within 1e-10 of max|single|, float32 within 1e-4 (the
     same tier's products summed in another order)."""
@@ -754,8 +757,8 @@ def test_ring_on_one_card(cuda_device, P, name, n_classes, precision, dtype):
         tiles = ("sym_launches", "dual_launches", "rect_launches")
         cores = ("sym_tc_launches", "dual_tc_launches", "rect_tc_launches")
         (sym, dual, rect), other = ((cores, tiles) if dtype == torch.float32 else
-                                    (("sym_dmma_launches", "dual_dmma_launches", tiles[2]),
-                                     tiles[:2] + cores))
+                                    (("sym_dmma_launches", "dual_dmma_launches",
+                                      "rect_dmma_launches"), tiles + cores))
         assert sum(getattr(module, c) for c in other) == 0
     got = torch.cat(outs)
     tol = 1e-4 if dtype == torch.float32 else 1e-10

@@ -1,5 +1,6 @@
-"""Kernels A and C (the symmetric tile) and J and K (the dual tile) in
-float64 on the FP64 tensor-core (DMMA) tiles (csrc/gram_dmma.cu).
+"""Kernels A and C (the symmetric tile), B and D (the rect tile) and J and
+K (the dual tile) in float64 on the FP64 tensor-core (DMMA) tiles
+(csrc/gram_dmma.cu).
 
 CPU cases: the float64 bounds ``chip_smoke.py`` holds the tiles' times to
 (DMMA at 67 TFLOP/s, the FFMA tiles at 17 T DFMA/s), the names
@@ -9,10 +10,11 @@ predicate (float64 CUDA tensors take the DMMA tiles at every tier; float32
 keeps its routes), the odd-d operand copy against the unpadded plain
 version, the ring's shard views as the tiles' operands, and the tool.
 
-Card cases (marked ``cuda``, skipped without a GPU): both tiles against
-the plain versions on ragged shapes within 1e-10 of max|plain| (the
-float64 tolerance of tests/test_torch_cuda.py), the launch counters of
-float64 fits and of a float64 ring fit, and a small float64 fit against
+Card cases (marked ``cuda``, skipped without a GPU): the three tiles
+against the plain versions on ragged shapes within 1e-10 of max|plain|
+(the float64 tolerance of tests/test_torch_cuda.py), the launch counters
+of float64 fits and predicts and of a float64 ring fit, and a small
+float64 fit against
 ``backend="torch"``.  The file
 imports neither jax nor plssvm_tpu, so the card cases run where only
 PyTorch is installed:
@@ -198,6 +200,8 @@ def _c_signature(name):
     "plssvm_gram_matvec_sym_dmma", "plssvm_gram_matmat_sym_dmma",
     "plssvm_gram_matvec_dual_dmma", "plssvm_gram_matmat_dual_dmma",
     "plssvm_gram_dmma_blocks_per_sm", "plssvm_gram_dmma_dual_blocks_per_sm",
+    "plssvm_gram_matvec_rect_dmma", "plssvm_gram_matmat_rect_dmma",
+    "plssvm_gram_dmma_rect_blocks_per_sm",
 ])
 def test_dmma_entry_points_argtypes_match_the_source(monkeypatch, name):
     """What _build.load() declares for each DMMA entry point is its C
@@ -347,6 +351,137 @@ def test_cpu_float64_takes_the_plain_versions(precision):
     gram_matmat.reset_counts()
 
 
+@pytest.mark.parametrize("n_p,n_s,d,columns,dmma_ms,dfma_ms", [
+    (12500, 12500, 500, 1, 2.33209, 4.60478),     # kernel B, the config-3 ring's rows-only walk
+    (15000, 15000, 784, 10, 5.26567, 10.50882),   # kernel D, the MNIST-width ring's
+    (2000, 10000, 200, 1, 0.119403, 0.236471),    # kernel B, phase 4's predict
+    (32768, 32768, 512, 1, 16.41062, 32.40174),   # kernel B, the timing shape
+    (32768, 32768, 512, 10, 16.41062, 32.97019),  # kernel D, the timing shape
+])
+def test_float64_rect_dmma_bounds(n_p, n_s, d, columns, dmma_ms, dfma_ms):
+    """The rect DMMA tile: 2 n_p n_s d flops at 67 TFLOP/s (every pair, rows
+    only), by operations; the DFMAs of the contraction and the exps lie
+    below it.  Beside it the FFMA tile's float64 bound: n_p n_s (d + C)
+    DFMAs at 17 T/s."""
+    chip_smoke = _chip_smoke()
+    ms, by = chip_smoke._rect_bound(n_p, n_s, d, columns, "gram", 8, 1, "dmma", exp=True)
+    assert ms == pytest.approx(2.0 * n_p * n_s * d / 67e12 * 1e3, rel=1e-12)
+    assert ms == pytest.approx(dmma_ms, rel=1e-5) and by == "operations"
+    ms, by = chip_smoke._rect_bound(n_p, n_s, d, columns, "gram", 8, 1, "fp64")
+    assert ms == pytest.approx(dfma_ms, rel=1e-5) and by == "operations"
+
+
+def test_rect_dmma_bound_counts_the_fp64_pipe_at_d_3():
+    """At d = 3 the FP64 pipe bounds the rect tile: pairs (C +
+    EXP_F64_OPS) DFMAs at 17 T/s, one contraction and one exp a pair."""
+    chip_smoke = _chip_smoke()
+    n_p, n_s, d, columns = 4097, 129, 3, 10
+    pairs = float(n_p) * n_s
+    ms, _ = chip_smoke._rect_bound(n_p, n_s, d, columns, "gram", 8, 1, "dmma", exp=True)
+    want = (pairs * columns + chip_smoke.EXP_F64_OPS * pairs) / chip_smoke.FP64_INSTR_PER_S
+    assert ms == pytest.approx(want * 1e3, rel=1e-12)
+    assert ms > 2 * pairs * d / chip_smoke.DMMA_FLOP_PER_S * 1e3
+
+
+def test_kernel_resources_names_the_rect_dmma_tile(tmp_path, monkeypatch):
+    """kernel_resources() names the rect DMMA tile by kind beside the
+    symmetric and the dual one, and apart from the FFMA rect tile."""
+    library = tmp_path / "libplssvm_gram_0.so"
+    library.with_name(library.name + ".ptxas.txt").write_text(
+        "== gram_dmma.cu\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_121gram_dmma_rect_kernelILi3EEEv14CUtensorMap_stS1_PKdS3_S3_Pdllliiiidd' "
+        "for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 196 registers, 28736 bytes smem, 900 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_121gram_dmma_dual_kernelILi3EEEv14CUtensorMap_stS1_PKdS3_S3_S3_PdS4_"
+        "llliiiiiidd' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 202 registers, 30784 bytes smem, 900 bytes cmem[0]\n"
+        "== gram_matvec.cu\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_123gram_matvec_rect_kernelIdLi3EEEvPKT_S3_S3_S3_S3_PS1_llliS1_S1_' "
+        "for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 94 registers, 33280 bytes smem, 428 bytes cmem[0]\n",
+        encoding="utf-8",
+    )
+    monkeypatch.setattr(_build, "library_path", lambda: library)
+    assert _build.kernel_resources() == {
+        "gram_dmma_rect f64 sigmoid": {"spill_bytes": 0, "registers": 196, "smem_bytes": 28736},
+        "gram_dmma_dual f64 sigmoid": {"spill_bytes": 0, "registers": 202, "smem_bytes": 30784},
+        "gram_matvec_rect f64 sigmoid": {"spill_bytes": 0, "registers": 94,
+                                         "smem_bytes": 33280},
+    }
+
+
+@pytest.mark.parametrize("precision", TIERS)
+@pytest.mark.parametrize("classes", [None, 10])
+def test_float64_cuda_rect_takes_the_rect_dmma_tile_at_every_tier(classes, precision):
+    """B and D on float64 CUDA tensors take the rect DMMA tile at every tier
+    (chip_smoke.py names it ``*_rect_dmma``); float32 keeps the TF32 / bf16
+    rect tile at "f32" / "bf16" and the FFMA tile at "highest"."""
+    chip_smoke = _chip_smoke()
+    P64, P32 = _like(torch.float64, "cuda"), _like(torch.float32, "cuda")
+    assert gram_matvec.uses_dmma(P64) and not gram_matvec.uses_tensor_cores(P64, precision)
+    assert not gram_matvec.uses_dmma(P32)
+    assert gram_matvec.uses_tensor_cores(P32, precision) == (precision != "highest")
+    base = "gram_matvec" if classes is None else "gram_matmat"
+    tail = () if classes is None else (classes,)
+    for dtype, tile in ((torch.float64, "_dmma"),
+                        (torch.float32, "" if precision == "highest" else "_tc")):
+        name, _, _ = chip_smoke._pairs(torch.zeros(3, *tail, dtype=dtype), precision)[1]
+        assert name == f"{base}_rect{tile}"
+
+
+def test_reset_counts_zeroes_the_rect_dmma_counters(monkeypatch):
+    monkeypatch.setattr(gram_matvec, "rect_dmma_launches", 2)
+    monkeypatch.setattr(gram_matmat, "rect_dmma_launches", 7)
+    gram_matvec.reset_counts()
+    gram_matmat.reset_counts()
+    assert gram_matvec.rect_dmma_launches == gram_matmat.rect_dmma_launches == 0
+
+
+@pytest.mark.parametrize("m,d", [(50000, 500), (60000, 784)])
+def test_ring_rows_only_pairs_reach_the_rect_dmma_tile_uncopied(m, d):
+    """The float64 ring's rows-only walk (P = 4: shard p against shard p -
+    2) passes both shard views of a contiguous X to the rect tile as they
+    are: dmma_operand copies neither."""
+    from plssvm_tpu_torch.parallel import sharded
+
+    X = torch.zeros(m, d, dtype=torch.float64)
+    shards = sharded.shard_rows(X, sharded.shard_bounds(m, 4), ["cpu"] * 4)
+    for p in range(4):
+        for shard in (shards[p], shards[(p - 2) % 4]):
+            assert gram_matvec.dmma_operand(shard).data_ptr() == shard.data_ptr()
+
+
+@pytest.mark.parametrize("precision", TIERS)
+def test_cpu_float64_rect_takes_the_plain_versions(precision):
+    """On the CPU kernels B and D run their plain versions at every tier and
+    count no launch on any rect tile."""
+    gram_matvec.reset_counts()
+    gram_matmat.reset_counts()
+    rng = np.random.default_rng(87)
+    P = torch.from_numpy(rng.normal(size=(31, 9)))
+    S = torch.from_numpy(rng.normal(size=(50, 9)))
+    A = torch.from_numpy(rng.normal(size=(50, 4)))
+    args = (P, S, (P * P).sum(-1), (S * S).sum(-1))
+    kw = dict(kind=TKind.POLYNOMIAL, gamma=0.1, coef0=1.0, degree=3, precision=precision)
+    b = gram_matvec.gram_matvec_rect(*args, A[:, 0], **kw)
+    d = gram_matmat.gram_matmat_rect(*args, A, **kw)
+    for module in (gram_matvec, gram_matmat):
+        assert module.rect_dmma_launches == module.rect_launches == module.rect_tc_launches == 0
+    assert matvec.rect_plain_calls == matvec.rect_matmat_plain_calls == 1
+    torch.testing.assert_close(b, matvec.kernel_matvec_rect_plain(*args, A[:, 0], **kw),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(d, matvec.kernel_matmat_rect_plain(*args, A, **kw),
+                               rtol=0, atol=0)
+    gram_matvec.reset_counts()
+    gram_matmat.reset_counts()
+
+
 # -- on the card ---------------------------------------------------------------
 
 @pytest.fixture
@@ -395,7 +530,8 @@ def test_dmma_against_plain(cuda_device, m, d, n_classes, name, precision):
 def test_float64_fit_takes_the_dmma_tile(cuda_device, n_labels):
     """A float64 CUDA fit runs every symmetric product on the DMMA tile (1 +
     iterations + every 50th) and none on the FFMA sym tile; its predict
-    goes through the FFMA rect tile; and its model and decision values
+    goes through the rect DMMA tile, none through the FFMA rect tile; and
+    its model and decision values
     agree with ``backend="torch"`` on the card within 1e-6 (the atomics
     reorder sums and CG amplifies the rounding, as chip_smoke.py's
     small-fit check allows)."""
@@ -420,7 +556,8 @@ def test_float64_fit_takes_the_dmma_tile(cuda_device, n_labels):
             assert module.sym_tc_launches == 0
         values = svm.predict_values(model, test)
         if backend == "cuda":
-            assert module.rect_launches >= 1
+            assert module.rect_dmma_launches >= 1
+            assert gram_matvec.rect_launches == gram_matmat.rect_launches == 0
         results.append((np.asarray(model.rho), values))
     (rho, f), (rho_plain, f_plain) = results
     assert np.all(np.isfinite(f))
@@ -467,13 +604,43 @@ def test_dual_dmma_against_plain(cuda_device, mr, mc, d, n_classes, name, precis
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", TIERS)
+@pytest.mark.parametrize("name", list(COEF0))
+@pytest.mark.parametrize("n_classes", [None, 1, 8, 9, 17, 37])
+@pytest.mark.parametrize("n_p,n_s,d", DUAL_RAGGED)
+def test_rect_dmma_against_plain(cuda_device, n_p, n_s, d, n_classes, name, precision):
+    """Kernel B (n_classes None) and D on the rect DMMA tile against the
+    plain version within 1e-10 of max|plain|, n_p != n_s on both sides of
+    the 128-row tile; one launch each on the rect DMMA tile and none on the
+    FFMA or the tensor-core rect tile."""
+    g = torch.Generator().manual_seed(88)
+    P = (torch.randn(n_p, d, generator=g, dtype=torch.float64) * 0.3).to(cuda_device)
+    S = (torch.randn(n_s, d, generator=g, dtype=torch.float64) * 0.3).to(cuda_device)
+    tail = () if n_classes is None else (n_classes,)
+    A = torch.randn(n_s, *tail, generator=g, dtype=torch.float64).to(cuda_device)
+    args = (P, S, (P * P).sum(-1), (S * S).sum(-1), A)
+    kw = dict(kind=getattr(TKind, name.upper()), gamma=1.0 / d, coef0=COEF0[name], degree=3,
+              precision=precision)
+    module, kernel, plain = (
+        (gram_matvec, gram_matvec.gram_matvec_rect, matvec.kernel_matvec_rect_plain)
+        if n_classes is None else
+        (gram_matmat, gram_matmat.gram_matmat_rect, matvec.kernel_matmat_rect_plain))
+    module.reset_counts()
+    got = kernel(*args, **kw)
+    want = plain(*args, **kw)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-10 * want.abs().max()
+    assert (module.rect_dmma_launches, module.rect_launches, module.rect_tc_launches) == (1, 0, 0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n_labels", [2, 4])
 def test_float64_ring_fit_takes_the_dual_dmma_tile(cuda_device, n_labels):
     """A float64 fit on four shards of one card (``devices=["cuda:0"] *
-    4``): per shard and product one symmetric and one dual walk on the DMMA
-    tiles and one rows-only walk on the FFMA tile, nothing on the FFMA
-    walk; its decision values agree with the single-device fit within
-    1e-6 (both at epsilon 1e-10)."""
+    4``): per shard and product one symmetric, one dual and one rows-only
+    walk on the DMMA tiles, nothing on the FFMA tiles; its predict per
+    shard one launch of the rect DMMA tile; its decision values agree with
+    the single-device fit within 1e-6 (both at epsilon 1e-10)."""
     import plssvm_tpu_torch as port
 
     rng = np.random.default_rng(86)
@@ -493,10 +660,14 @@ def test_float64_ring_fit_takes_the_dual_dmma_tile(cuda_device, n_labels):
             products = 1 + model.n_iter + model.n_iter // 50
             assert module.sym_dmma_launches == 4 * products
             assert module.dual_dmma_launches == 4 * products  # (4 - 1) // 2 steps
-            assert module.rect_launches == 4 * products
+            assert module.rect_dmma_launches == 4 * products
             assert gram_matvec.dual_launches == gram_matmat.dual_launches == 0
+            assert gram_matvec.rect_launches == gram_matmat.rect_launches == 0
             assert module.dual_tc_launches == module.sym_launches == 0
         values.append(svm.predict_values(model, test))
+        if devices:
+            assert module.rect_dmma_launches == 4 * products + 4
+            assert gram_matvec.rect_launches == gram_matmat.rect_launches == 0
     assert np.all(np.isfinite(values[0]))
     assert np.max(np.abs(values[0] - values[1])) <= 1e-6
 
@@ -541,3 +712,17 @@ def test_bench_gram_f64_dual_on_the_cpu(capsys, classes):
     assert len(lines) == 2 and lines[1].startswith("dual ")
     assert lines[1].endswith("rel_err=0.00e+00")
 
+
+@pytest.mark.parametrize("classes", [1, 3])
+def test_bench_gram_f64_rect_on_the_cpu(capsys, classes):
+    """``--rect`` times kernel B or D: on the CPU the wrappers' plain
+    versions (the ``rect`` line, rel_err 0)."""
+    from plssvm_tpu_torch.tools import bench_gram_f64
+
+    rc = bench_gram_f64.main(["40", "3", str(classes), "polynomial", "--repeats", "1",
+                              "--rect", "--cpu"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert rc == 0
+    assert lines[0] == f"bench_gram_f64 on cpu: m=40 d=3 classes={classes} kernel=polynomial rect"
+    assert len(lines) == 2 and lines[1].startswith("rect ")
+    assert lines[1].endswith("rel_err=0.00e+00")
