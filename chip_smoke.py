@@ -93,26 +93,36 @@ cost of K and M's column atomics logged; and in float64 kernels A and C
 on the symmetric DMMA tile, B and D on the rect one and J and K on the
 dual one (csrc/gram_dmma.cu, the three tiles' blocks per SM logged)
 against their plain versions on ragged shapes at every tier, A and C
-timed at 32768 x 512, 49999 x 500 and 59999 x 784 (C = 10) beside the
-FFMA tile in float64, both bounds and DGEMM, B and D at 32768 x 512
-beside both bounds and DGEMM, J and K at the ring's blocks beside the
-FFMA walk and both bounds, and every float64 kernel at the shapes the
-float64 fits of phases 4, 5 and 13 give it (the ring's rows-only walks B
-and D included), A-D, J and K held against their plain versions there
-too.  Beside
-every kernel's time it
-computes the bound: the least time the card could take for the function
-on these inputs (see ``_bound``), and fails if a kernel measures faster
-than that (a wrong bound or a wrong timing).  At phases 9 and 10's shapes
-it holds kernels E-H in float32 chi-squared per entry of K against the
-plain version in float64 (one-hot right-hand sides pick columns of K) and
-logs each one's error beside the float32 plain version's and its share of
-the bound.
+timed at 32768 x 512, 49999 x 500 and 59999 x 784 (C = 10), both bounds
+and DGEMM beside, B and D at 32768 x 512 beside both bounds and DGEMM, J
+and K at the ring's blocks beside both bounds, and every float64 kernel
+at the shapes the float64 fits of phases 4, 5 and 13 give it (the ring's
+rows-only walks B and D included), A-D, J and K held against their plain
+versions there too; and E-H, L and M in float64 (chi-squared on the
+divide-free quotient, the timed rows checked to lie within its range on
+the host): L and M at the ring's blocks, E-H at the ring's shard shapes
+and at its one-device fits' shapes, where E-H are also held per entry of
+the chi-squared K against long double, each beside its plain version,
+and E-H at m = 8192 and 16384, d = 256, G there also on rows scaled out
+of the quotient's range.  Beside every kernel's time it computes the
+bound: the least time the card could take for the function on these
+inputs (see ``_bound``), and fails if a kernel measures faster than that
+(a wrong bound or a wrong timing).  At phases 9 and 10's shapes it holds
+kernels E-H in float32 chi-squared per entry of K against the plain
+version in float64 (one-hot right-hand sides pick columns of K) and logs
+each one's error beside the float32 plain version's and its share of the
+bound.  The ring's distance shard products, E-H in float32 and float64,
+are timed at the ring's shapes for the cost ranking too.
 
 ``python3 chip_smoke.py --compare-build DIR`` also builds the kernels of
 another checkout (a parent commit unpacked with ``git archive``) in the
 build phase and logs, for every kernel instantiation the two share,
-whether its registers, spills and shared memory are the same.
+whether its registers, spills and shared memory are the same, and which
+instantiations only one of them has; then, right after the kernels
+phase, it times float64 E-H, L and M, float32 G at phase 10's shape and
+the float64 chi-squared fit on one device and on the ring in both
+checkouts, each in a process of its own (other, here, here, other), and
+logs the pairs beside the bounds (``phase_compare``).
 
 Before the last line it prints the card's name and power limit as
 nvidia-smi reports them, and one JSON object describing each kernel (the
@@ -225,11 +235,12 @@ FP64_INSTR_PER_S = 34e12 / 2
 DMMA_FLOP_PER_S = 67e12
 #: the fewest FP64 instructions per pair and feature on the FFMA tiles in
 #: float64: a Gram product one DFMA; a laplacian term a subtract and an
-#: add with |.|; a chi-squared term (gram_tile.cuh ChiSquaredDistance, the
-#: IEEE divide) two adds, a multiply and the accumulating add, and the
-#: divide's 7: from its reciprocal seed (MUFU.RCP64H, off the FP64 pipe)
-#: two Newton steps of 2 DFMAs, the quotient, its residual and the
-#: correction, the least an IEEE-rounded float64 quotient takes
+#: add with |.|; a chi-squared term two adds, a multiply and the
+#: accumulating add, and the quotient's 7: from its reciprocal seed
+#: (MUFU.RCP64H, off the FP64 pipe) two Newton steps of 2 DFMAs, the
+#: quotient, its residual and the correction, the least an IEEE-rounded
+#: float64 quotient takes (gram_tile.cuh ChiSquaredDistance runs exactly
+#: that on chunks within its range)
 PAIR_FEATURE_COST_F64 = {"gram": 1, "laplacian": 2, "chi_squared": 11}
 #: FP64 instructions of one float64 exp (the RBF epilogue on the DMMA
 #: tile), at least: the range reduction's quotient (a DFMA), its rounding
@@ -311,8 +322,8 @@ def phase_build(compare=None):
         log("build", f"against {compare}: {len(shared)} shared instantiations, "
             f"{len(shared) - len(differ)} with the same resources; differ: "
             + (", ".join(f"{n} {theirs[n]} -> {mine[n]}" for n in differ) or "none")
-            + f"; only here: {', '.join(sorted(set(mine) - set(theirs))) or 'none'}; "
-            f"only there: {', '.join(sorted(set(theirs) - set(mine))) or 'none'}")
+            + f"; added here: {', '.join(sorted(set(mine) - set(theirs))) or 'none'}; "
+            f"removed here: {', '.join(sorted(set(theirs) - set(mine))) or 'none'}")
 
 
 def _operands(m, d, dtype, gen, n_points=None, n_classes=None):
@@ -957,6 +968,8 @@ def _dual_kernels(gen, main_err, main_ms, timing, bounds):
         _log_bound(name, label, timing[key][0], bounds[key])
         if tier:
             _time_dual_tiers(name, args, kw, mr, d, columns, base, timing[key][0])
+    lap = torch.randn(5000, 200, generator=gen, dtype=torch.float64).to("cuda", torch.float32)
+    _ring_distance_shards(gen, main_err, main_ms, lap, hist, chi2_gamma, "ring")
 
     # the atomics of the column sums: K and M issue one per column, class
     # and tile where the rectangular D and H (same tile, row sums only)
@@ -993,6 +1006,44 @@ def _dual_kernels(gen, main_err, main_ms, timing, bounds):
                 f"(+{r10 - r1:.3f}); the classes' cost "
                 f"{(d10 - d1) / max(r10 - r1, 1e-9):.2f}x the rows-only one's, "
                 f"{(d10 - d1) / d10:.1%} of the dual walk at C={MC_CLASSES}")
+
+
+def _ring_distance_shards(gen, main_err, main_ms, lap, hist, chi2_gamma, phase):
+    """The ring's distance shard products beside its dual walks, at the
+    ring phase's shard shape (four shards of 10000 rows): per shard and
+    product the symmetric E (laplacian, on ``lap``'s rows) or G
+    (chi-squared on the histogram rows ``hist``, C = 10) at 2500 x 200,
+    and the rows-only walk F or H of the antipodal pair at 2500^2 x 200;
+    each against its plain version, then timed beside its bound and
+    recorded under (name, ``phase``), with "_f64" after the name in
+    float64."""
+    from plssvm_tpu_torch.parameter import KernelFunctionType as K
+
+    suffix = "_f64" if hist.dtype == torch.float64 else ""
+    itemsize = hist.element_size()
+    for kind, X, gamma, n_classes in ((K.LAPLACIAN, lap, 1.0 / 200, None),
+                                      (K.CHI_SQUARED, hist, chi2_gamma, MC_CLASSES)):
+        Xr, Xc = X[:2500].contiguous(), X[2500:5000].contiguous()
+        tail = () if n_classes is None else (n_classes,)
+        v = torch.randn(2500, *tail, generator=gen, dtype=torch.float64).to("cuda", X.dtype)
+        kw = dict(kind=kind, gamma=gamma)
+        columns = n_classes or 1
+        (sym, sym_k, sym_plain), (rect, rect_k, rect_plain) = _distance_pairs(v)
+        dtype = str(X.dtype).split(".")[-1]
+        for name, kernel, plain, args, bound, label in (
+            (sym, sym_k, sym_plain, (Xr, v),
+             _sym_bound(2500, 200, columns, str(kind), itemsize, 0, "fp64" if suffix else None),
+             f"2500x200 {dtype} {kind} C={columns} (a shard)"),
+            (rect, rect_k, rect_plain, (Xr, Xc, v),
+             _rect_bound(2500, 2500, 200, columns, str(kind), itemsize, 0,
+                         "fp64" if suffix else None),
+             f"2500x2500x200 {dtype} {kind} C={columns} (the rows-only walk)"),
+        ):
+            err = _check_close(f"{name} {label}", kernel(*args, **kw), plain(*args, **kw))[0]
+            key = (name, "f64" if suffix else str(kind))
+            main_err[key] = max(main_err.get(key, 0.0), err)
+            _time_at_main_shape(main_ms, name + suffix, phase, lambda: kernel(*args, **kw),
+                                bound, label)
 
 
 def _time_dual_tiers(name, args, kw, mr, d, columns, label, tf32_ms):
@@ -1170,7 +1221,7 @@ def _check_share(name, label, k_ms, b_ms):
 def _log_bound(name, label, k_ms, bound):
     b_ms, by = bound
     _check_share(name, label, k_ms, b_ms)
-    log("kernels", f"{name} {label}: bound {b_ms:.3f} ms ({by}), kernel at "
+    log("kernels", f"{name} {label}: kernel {k_ms:.3f} ms, bound {b_ms:.3f} ms ({by}), "
         f"{b_ms / k_ms:.3f} of it")
 
 
@@ -1498,35 +1549,12 @@ def _dmma_counter(matmat, walk="sym"):
     return getattr(module, f"{walk}_dmma_launches"), getattr(module, f"{walk}_launches")
 
 
-def _ffma_f64_sym(X, sq, V, *, kind, gamma, coef0, degree):
-    """Kernel A (V (m,)) or C (V (m, C)) on the FFMA tile in float64,
-    through its entry point (``plssvm_gram_mat{vec,mat}_sym_f64``): no
-    wrapper takes it since the DMMA tile replaced it."""
-    from plssvm_tpu_torch.ops import _build, gram_matvec
-
-    lib = _build.load()
-    out = torch.zeros_like(V)
-    m, d = X.shape
-    stream = torch.cuda.current_stream().cuda_stream
-    if V.ndim == 1:
-        err = lib.plssvm_gram_matvec_sym_f64(
-            X.data_ptr(), sq.data_ptr(), V.data_ptr(), out.data_ptr(), m, d,
-            int(kind), int(degree), float(gamma), float(coef0), stream)
-    else:
-        err = lib.plssvm_gram_matmat_sym_f64(
-            X.data_ptr(), sq.data_ptr(), V.data_ptr(), out.data_ptr(), m, d,
-            V.shape[1], int(kind), int(degree), float(gamma), float(coef0), stream)
-    gram_matvec._raise_on_error(lib, err, "the FFMA tile in float64")
-    return out
-
-
 def _time_f64_sym(main_ms, timing, bounds, main_err, X, V, kw, label, phase=None,
                   key=None, plain_repeats=3, yardstick=True):
     """Kernel A (V (m,)) or C (V (m, C)) in float64 at one shape: the DMMA
     tile against its plain version (held at 1e-10 of max|plain|, then both
-    timed), the FFMA tile through its entry point, both bounds (DMMA and
-    DFMA) and float64 torch.matmul(X, X.T) as the product's yardstick, all
-    logged.  At a main path's shape (``phase``) recorded for its cost line,
+    timed), both bounds (DMMA and DFMA) and float64 torch.matmul(X, X.T) as
+    the product's yardstick, all logged.  At a main path's shape (``phase``) recorded for its cost line,
     with the error for the kernels line; the timing and bound under
     ``key``."""
     from plssvm_tpu_torch.ops import gram_matmat, gram_matvec, matvec
@@ -1544,20 +1572,15 @@ def _time_f64_sym(main_ms, timing, bounds, main_err, X, V, kw, label, phase=None
     if _dmma_counter(matmat) != (before[0] + 1, before[1]):
         raise AssertionError(f"{name} {label}: not launched on the DMMA tile")
     err, _ = _check_close(f"{name} {label}", got, plain(X, sq, V, **kw))
-    ffma_got = _ffma_f64_sym(X, sq, V, **kw)
-    _check_close(f"the FFMA tile in float64 {label}", ffma_got, plain(X, sq, V, **kw))
-    del got, ffma_got
+    del got
     k_ms, p_ms = _time_pair(name, lambda: kernel(X, sq, V, **kw), lambda: plain(X, sq, V, **kw),
                             (), {}, 2.0 * m * m * d, label, plain_repeats=plain_repeats)
-    ffma_ms = _median_ms(lambda: _ffma_f64_sym(X, sq, V, **kw), 5, 1)
     dmma = _sym_bound(m, d, columns, "gram", 8, 1, "dmma", exp=exp)
     fp64 = _sym_bound(m, d, columns, "gram", 8, 1, "fp64")
     _log_bound(name, label, k_ms, dmma)
-    _log_bound("the FFMA tile in float64", label, ffma_ms, fp64)
     log("kernels", f"{name} {label}: DMMA tile {k_ms:.3f} ms ({dmma[0] / k_ms:.3f} of the "
         f"DMMA bound {dmma[0]:.3f}, {fp64[0] / k_ms:.3f} of the DFMA bound {fp64[0]:.3f}); "
-        f"the FFMA tile {ffma_ms:.3f} ms ({fp64[0] / ffma_ms:.3f} of the DFMA bound), "
-        f"{ffma_ms / k_ms:.2f}x the DMMA tile's time; plain {p_ms:.3f} ms")
+        f"plain {p_ms:.3f} ms")
     if yardstick:
         torch.cuda.empty_cache()
         _yardstick(f"torch.matmul(X, X.T) {m}x{d} f64 (DGEMM)", lambda: torch.matmul(X, X.T))
@@ -1617,32 +1640,12 @@ def _time_f64_rect(main_ms, timing, bounds, main_err, args, kw, label, phase=Non
     return k_ms
 
 
-def _ffma_f64_dual(Xr, Xc, sq_r, sq_c, V_c, V_r, *, kind, gamma, coef0, degree):
-    """Kernel J (V (m,)) or K (V (m, C)) on the FFMA walk in float64,
-    through its entry point (``plssvm_gram_mat{vec,mat}_dual_f64``): no
-    wrapper takes it since the dual DMMA tile replaced it."""
-    from plssvm_tpu_torch.ops import _build, gram_matvec
-
-    lib = _build.load()
-    out_r, out_c = torch.zeros_like(V_r), torch.zeros_like(V_c)
-    (mr, d), mc = Xr.shape, Xc.shape[0]
-    fn, classes = ((lib.plssvm_gram_matvec_dual_f64, ()) if V_c.ndim == 1 else
-                   (lib.plssvm_gram_matmat_dual_f64, (V_c.shape[1],)))
-    err = fn(Xr.data_ptr(), Xc.data_ptr(), sq_r.data_ptr(), sq_c.data_ptr(), V_c.data_ptr(),
-             V_r.data_ptr(), out_r.data_ptr(), out_c.data_ptr(), mr, mc, d, *classes,
-             int(kind), int(degree), float(gamma), float(coef0),
-             torch.cuda.current_stream().cuda_stream)
-    gram_matvec._raise_on_error(lib, err, "the FFMA walk in float64")
-    return out_r, out_c
-
-
 def _time_f64_dual(main_ms, timing, bounds, main_err, name, args, kw, label):
     """J or K in float64 at a ring block: the dual DMMA tile against its
     plain version (both outputs within 1e-10 of max|plain|, one launch on
-    the tile and none on the FFMA walk), then both timed; the FFMA walk
-    through its entry point, held against the plain version too and timed;
-    both bounds (DMMA and DFMA) logged; recorded for the kernels line and
-    the ring-f64 cost line (against the DMMA bound)."""
+    the tile and none on the FFMA walk), then both timed; both bounds (DMMA
+    and DFMA) logged; recorded for the kernels line and the ring-f64 cost
+    line (against the DMMA bound)."""
     kernel, plain = _dual_pair(name, "highest")
     module, counter = _dual_counter(name, torch.float64, "highest")
     (mr, d), mc = args[0].shape, args[1].shape[0]
@@ -1655,20 +1658,16 @@ def _time_f64_dual(main_ms, timing, bounds, main_err, name, args, kw, label):
     want = plain(*args, **kw)
     key = (f"{name}_dmma", "f64")
     main_err[key] = _check_dual(label, got, want)[1]
-    _check_dual(f"the FFMA walk in float64 {label}", _ffma_f64_dual(*args, **kw), want)
     del got, want
     timing[key] = _time_pair(f"{name}_dmma", kernel, plain, args, kw, float(mr) * mc * d,
                              label, unit="Tpair-feature/s", counted="mr mc d")
     k_ms, p_ms = timing[key]
-    ffma_ms = _median_ms(lambda: _ffma_f64_dual(*args, **kw), 5, 1)
     bounds[key] = dmma = _dual_bound(mr, mc, d, columns, "gram", 8, 1, "dmma", exp=exp)
     fp64 = _dual_bound(mr, mc, d, columns, "gram", 8, 1, "fp64")
     _log_bound(f"{name}_dmma", label, k_ms, dmma)
-    _log_bound("the FFMA walk in float64", label, ffma_ms, fp64)
     log("kernels", f"{name} {label}: dual DMMA tile {k_ms:.3f} ms ({dmma[0] / k_ms:.3f} of the "
         f"DMMA bound {dmma[0]:.3f}, {fp64[0] / k_ms:.3f} of the DFMA bound {fp64[0]:.3f}); "
-        f"the FFMA walk {ffma_ms:.3f} ms ({fp64[0] / ffma_ms:.3f} of the DFMA bound), "
-        f"{ffma_ms / k_ms:.2f}x the tile's time; plain {p_ms:.3f} ms ({p_ms / k_ms:.2f}x)")
+        f"plain {p_ms:.3f} ms ({p_ms / k_ms:.2f}x)")
     main_ms[(f"{name}_f64", "ring-f64")] = (k_ms, dmma[0])
     if columns > 1:
         # the column atomics: one per column, class and tile, at 1 class
@@ -1683,24 +1682,24 @@ def _time_f64_dual(main_ms, timing, bounds, main_err, name, args, kw, label):
 
 def _f64_kernels(gen, main_err, main_ms, timing, bounds):
     """Float64: kernels A and C on the symmetric DMMA tile, B and D on the
-    rect one, J and K on the dual one (csrc/gram_dmma.cu), the FFMA tile of
-    L and M.  The DMMA tiles' blocks per SM; A and C against their plain
-    versions on ragged shapes beyond the general check (d from 1 to 1279,
-    odd and even, m not a multiple of the 128-row tile, 1 to 37 classes),
-    each launch counted on the DMMA tile and none on the FFMA tile; B, D,
+    rect one, J and K on the dual one (csrc/gram_dmma.cu); E-H, L and M
+    in ``_f64_distance_kernels``.  The DMMA tiles' blocks per SM; A and C
+    against their plain versions on ragged shapes beyond the general check
+    (d from 1 to 1279, odd and even, m not a multiple of the 128-row tile,
+    1 to 37 classes), each launch counted on the DMMA tile and none on the
+    FFMA tile; B, D,
     J and K likewise on ragged n_p != n_s (mr != mc) blocks (1, 127, 129
     and 4097 rows, d 1 to 785, odd and even, 1 to 37 classes); the odd-d
     operand copy timed beside the kernel; A-D timed at 32768 x 512 (RBF),
     A at 49999 x 500 (poly, config 3's width) and C at 59999 x 784 (RBF,
     C = 10, MNIST's width), each beside its plain version, both bounds and
-    DGEMM, A and C beside the FFMA tile too; then every float64 kernel at
-    the shape a float64 main path gives it (phases 4 and 5, the ring's
-    one-device fits and its shards and blocks: J and K on the dual DMMA
-    tile beside the FFMA walk, both bounds and K's classes at C = 1 against
-    10, and the rows-only walks B and D on the rect DMMA tile), A-D, J and
-    K against their plain versions there (the float64 entries'
-    max_abs_err), recorded for the cost ranking; and E-I in float64 at the
-    timing shapes of their float32 rows, beside their bounds."""
+    DGEMM; then every float64 Gram kernel at the shape a float64 main path
+    gives it (phases 4 and 5, the ring's one-device fits and its shards and
+    blocks: J and K on the dual DMMA tile beside both bounds and K's
+    classes at C = 1 against 10, and the rows-only walks B and D on the
+    rect DMMA tile), A-D, J and K against their plain versions there (the
+    float64 entries' max_abs_err), recorded for the cost ranking; and I in
+    float64 at the timing shape of its float32 row, beside its bound."""
     from plssvm_tpu_torch.ops import banded, gram_matmat, gram_matvec, matvec
     from plssvm_tpu_torch.parameter import KernelFunctionType as K
 
@@ -1853,47 +1852,25 @@ def _f64_kernels(gen, main_err, main_ms, timing, bounds):
                        f"2000x10000x200 f64 rbf C={columns} (phase {phase}'s predict)",
                        phase=phase)
 
-    # the ring's float64 cells (4 shards): each shard's symmetric product on
-    # the DMMA tile (12500 x 500 RBF, 15000 x 784 RBF C = 10), the dual
-    # walks at the ring's blocks (J 12500^2 x 500 and K 15000^2 x 784 C =
-    # 10 on the dual DMMA tile, beside the FFMA walk; L 2500^2 x 200
-    # laplacian and M 2500^2 x 200 chi-squared C = 10 on the FFMA walk) and
-    # the rows-only walks B and D (the rect DMMA tile) at J's and K's
-    # blocks; the shards' products, J, K, B and D also against their plain
-    # versions
-    rng = np.random.default_rng(SEED + 22)
-    hist = torch.as_tensor(_draw_histograms(rng, _histogram_classes(rng, 200), 5000)[0],
-                           dtype=torch.float64, device="cuda")
-    chi2_gamma = _chi2_gamma(rng, hist.cpu().numpy())
+    # the ring's float64 Gram cells (4 shards): each shard's symmetric
+    # product on the DMMA tile (12500 x 500 RBF, 15000 x 784 RBF C = 10),
+    # the dual walks at the ring's blocks (J 12500^2 x 500 and K 15000^2 x
+    # 784 C = 10 on the dual DMMA tile) and the rows-only walks B and D
+    # (the rect DMMA tile) at J's and K's blocks, all also against their
+    # plain versions (the distance cells: _f64_distance_kernels)
     for name, mr, d, n_classes, kind in (
         ("gram_matvec_dual", 12500, 500, None, K.RBF),
         ("gram_matmat_dual", 15000, 784, MC_CLASSES, K.RBF),
-        ("distance_matvec_dual", 2500, 200, None, K.LAPLACIAN),
-        ("distance_matmat_dual", 2500, 200, MC_CLASSES, K.CHI_SQUARED),
     ):
         tail = () if n_classes is None else (n_classes,)
         columns = n_classes or 1
         v_c = torch.randn(mr, *tail, generator=gen, dtype=torch.float64).to("cuda")
         v_r = torch.randn(mr, *tail, generator=gen, dtype=torch.float64).to("cuda")
         label = f"{mr}x{mr}x{d} f64 {kind}" + (f" C={columns}" if n_classes else "")
-        if kind == K.CHI_SQUARED:
-            Xr, Xc = hist[:mr].contiguous(), hist[mr:2 * mr].contiguous()
-        else:
-            X = torch.randn(2 * mr, d, generator=gen, dtype=torch.float64).to("cuda")
-            if d == 500:
-                X = X / X.abs().amax(0)  # config 3's [-1, 1] scale
-            Xr, Xc = X[:mr].contiguous(), X[mr:].contiguous()
-        if name.startswith("distance"):
-            args = (Xr, Xc, v_c, v_r)
-            kw = dict(kind=kind, gamma=chi2_gamma if kind == K.CHI_SQUARED else 1.0 / d)
-            kernel, plain = _dual_pair(name, "highest")
-            bound = _dual_bound(mr, mr, d, columns, str(kind), 8, 0, "fp64")
-            main_err[(name, "f64")] = _check_dual(label, kernel(*args, **kw),
-                                                  plain(*args, **kw))[1]
-            ms = _median_ms(lambda: kernel(*args, **kw), 5, 1)
-            _log_bound(name, label, ms, bound)
-            main_ms[(f"{name}_f64", "ring-f64")] = (ms, bound[0])
-            continue
+        X = torch.randn(2 * mr, d, generator=gen, dtype=torch.float64).to("cuda")
+        if d == 500:
+            X = X / X.abs().amax(0)  # config 3's [-1, 1] scale
+        Xr, Xc = X[:mr].contiguous(), X[mr:].contiguous()
         sq_r = (Xr * Xr).sum(-1)
         args = (Xr, Xc, sq_r, (Xc * Xc).sum(-1), v_c, v_r)
         kw = dict(kind=kind, gamma=1.0 / d, coef0=0.0, degree=3)
@@ -1909,36 +1886,296 @@ def _f64_kernels(gen, main_err, main_ms, timing, bounds):
         # rect DMMA tile
         _time_f64_rect(main_ms, timing, bounds, main_err, args[:5], kw,
                        f"{label} (the rows-only walk)", phase="ring-f64")
-    del hist
 
-    # the distance and banded kernels in float64 at the timing shapes of
-    # their float32 rows, kernel only (their plain versions take seconds a
-    # call there): E-H at m = 16384, d = 256 on histogram rows (C = 10 for
-    # G and H), I at 32768 x 128, against the FFMA tile's float64 bound
-    m, d = 16384, 256
-    X = torch.as_tensor(_draw_histograms(rng, _histogram_classes(rng, d), m)[0],
-                        dtype=torch.float64, device="cuda")
-    v = torch.randn(m, generator=gen, dtype=torch.float64).to("cuda")
-    V = torch.randn(m, MC_CLASSES, generator=gen, dtype=torch.float64).to("cuda")
-    for kind in (K.LAPLACIAN, K.CHI_SQUARED):
-        kw = dict(kind=kind, gamma=1.0 / d)
-        for rhs in (v, V):
-            columns = 1 if rhs.ndim == 1 else MC_CLASSES
-            label = f"m={m} d={d} f64 {kind}" + (f" C={columns}" if rhs.ndim == 2 else "")
-            for name, kernel, _ in _distance_pairs(rhs):
-                args = (X, rhs) if "sym" in name else (X, X, rhs)
-                ms = _median_ms(lambda: kernel(*args, **kw), DIST_PLAIN_REPEATS, 1)
-                _log_bound(name, label, ms,
-                           _sym_bound(m, d, columns, str(kind), 8, 0, "fp64") if "sym" in name
-                           else _rect_bound(m, m, d, columns, str(kind), 8, 0, "fp64"))
+    _f64_distance_kernels(gen, main_err, main_ms, timing, bounds)
+    # kernel I in float64 at the timing shape of its float32 row, kernel
+    # only (its plain version takes seconds a call there), against the FFMA
+    # tile's float64 bound
     m, d = BANDED_M, BANDED_D
     X = torch.rand(m, d, generator=gen, dtype=torch.float64).to("cuda")
     XT, v = X.T.contiguous(), torch.randn(m, generator=gen, dtype=torch.float64).to("cuda")
     ms = _median_ms(lambda: banded.banded_matvec(XT, v, 1.0 / d), DIST_PLAIN_REPEATS, 1)
     _log_bound("banded_matvec", f"m={m} d={d} f64 laplacian", ms,
                _sym_bound(m, d, 1, "laplacian", 8, 1, "fp64"))
-    del X, XT, v, V
+    del X, XT, v
     torch.cuda.empty_cache()
+
+
+def _f64_distance_kernels(gen, main_err, main_ms, timing, bounds):
+    """Kernels E-H, L and M in float64, chi-squared on the divide-free
+    quotient (csrc/gram_tile.cuh ChiSquaredDistance) wherever a staged
+    chunk lies within its range: first a host check that the histogram
+    rows timed here and on the main paths do (``chi2_f64_in_range``); the
+    ring's blocks, L (laplacian) and M (chi-squared, C = 10) at 2500^2 x
+    200, both outputs against their plain versions, then timed beside them
+    and the FP64-pipe bound; the ring's shard products E / G and the
+    rows-only F / H (``_ring_distance_shards``); the ring's one-device
+    float64 fits' kernels, E (laplacian) and G (chi-squared, C = 10) at
+    9999 x 200, against plain and timed, with E-H per entry of K in
+    chi-squared against a long double reference there and on the entry
+    cases (``_chi2_f64_entry_ratios``), within 2x the float64 plain
+    version's own error; E-H at m = 8192, d = 256,
+    each beside its plain version (the float64 entries' times), and at m =
+    16384, d = 256, kernel only (the plain versions take seconds a call
+    there), kernel G there also on the same rows scaled by 1e-200, where
+    every chunk takes the IEEE divide."""
+    from plssvm_tpu_torch.ops import distance
+    from plssvm_tpu_torch.ops.entry_check import chi2_f64_in_range
+    from plssvm_tpu_torch.parameter import KernelFunctionType as K
+
+    rng = np.random.default_rng(SEED + 22)
+    hist = torch.as_tensor(_draw_histograms(rng, _histogram_classes(rng, 200), 10000)[0],
+                           dtype=torch.float64, device="cuda")
+    chi2_gamma = _chi2_gamma(rng, hist[:5000].cpu().numpy())
+    if not chi2_f64_in_range(hist):
+        raise AssertionError("the histogram rows lie outside the divide-free quotient's range")
+    log("kernels", "float64 histogram rows (the ring's and phase 9's classes): every value "
+        "0 or within the divide-free quotient's range (chi2_f64_in_range), so every chunk "
+        "takes it")
+    # the ring's blocks: L and M
+    for name, n_classes, kind in (("distance_matvec_dual", None, K.LAPLACIAN),
+                                  ("distance_matmat_dual", MC_CLASSES, K.CHI_SQUARED)):
+        tail = () if n_classes is None else (n_classes,)
+        columns = n_classes or 1
+        v_c = torch.randn(2500, *tail, generator=gen, dtype=torch.float64).to("cuda")
+        v_r = torch.randn(2500, *tail, generator=gen, dtype=torch.float64).to("cuda")
+        if kind == K.CHI_SQUARED:
+            X, gamma = hist, chi2_gamma
+        else:
+            X = torch.randn(5000, 200, generator=gen, dtype=torch.float64).to("cuda")
+            gamma = 1.0 / 200
+        args = (X[:2500].contiguous(), X[2500:5000].contiguous(), v_c, v_r)
+        kw = dict(kind=kind, gamma=gamma)
+        label = f"2500x2500x200 f64 {kind}" + (f" C={columns}" if n_classes else "")
+        kernel, plain = _dual_pair(name, "highest")
+        key = (name, "f64")
+        main_err[key] = _check_dual(label, kernel(*args, **kw), plain(*args, **kw))[1]
+        timing[key] = _time_pair(name, kernel, plain, args, kw, 2500.0 * 2500 * 200, label,
+                                 plain_repeats=DIST_PLAIN_REPEATS, unit="Tpair-feature/s",
+                                 counted="mr mc d")
+        bounds[key] = _dual_bound(2500, 2500, 200, columns, str(kind), 8, 0, "fp64")
+        _log_bound(name, label, timing[key][0], bounds[key])
+        main_ms[(f"{name}_f64", "ring-f64")] = (timing[key][0], bounds[key][0])
+    lap = torch.randn(5000, 200, generator=gen, dtype=torch.float64).to("cuda")
+    _ring_distance_shards(gen, main_err, main_ms, lap, hist, chi2_gamma, "ring-f64")
+
+    # the ring's one-device float64 fits: E (laplacian, config 2's width)
+    # and G (chi-squared, phase 9's shape, C = 10), and E-H per entry
+    X = hist[:9999].contiguous()
+    P = hist[9999 - 2000:].contiguous()  # 2000 points against the 9999 rows
+    V = torch.randn(9999, MC_CLASSES, generator=gen, dtype=torch.float64).to("cuda")
+    Xl = torch.randn(9999, 200, generator=gen, dtype=torch.float64).to("cuda")
+    for name, kernel, rows, rhs, kind, gamma in (
+        ("distance_matvec_sym", distance.distance_matvec_sym, Xl, V[:, 0].contiguous(),
+         K.LAPLACIAN, 1.0 / 200),
+        ("distance_matmat_sym", distance.distance_matmat_sym, X, V, K.CHI_SQUARED,
+         chi2_gamma),
+    ):
+        plain = _distance_pairs(rhs)[0][2]
+        kw = dict(kind=kind, gamma=gamma)
+        columns = 1 if rhs.ndim == 1 else MC_CLASSES
+        label = f"9999x200 f64 {kind} C={columns} (the one-device fit)"
+        err = _check_close(f"{name} {label}", kernel(rows, rhs, **kw), plain(rows, rhs, **kw))[0]
+        main_err[(name, "f64")] = max(main_err.get((name, "f64"), 0.0), err)
+        _time_at_main_shape(main_ms, f"{name}_f64", "ring-one-f64", lambda: kernel(rows, rhs, **kw),
+                            _sym_bound(9999, 200, columns, str(kind), 8, 0, "fp64"), label)
+    worst = _chi2_f64_entry_ratios(X, P, chi2_gamma)
+    if max(worst.values()) > 2:
+        raise AssertionError(f"float64 chi-squared per entry past 2x the plain version: {worst}")
+    del X, P, V, Xl, lap, hist
+
+    # E-H beside their plain versions at m = 8192, then kernel only at m =
+    # 16384, d = 256, on histogram rows (C = 10 for G and H), against the
+    # FFMA tile's float64 bound
+    for m, with_plain in ((8192, True), (16384, False)):
+        d = 256
+        X = torch.as_tensor(_draw_histograms(rng, _histogram_classes(rng, d), m)[0],
+                            dtype=torch.float64, device="cuda")
+        if not chi2_f64_in_range(X):
+            raise AssertionError(f"the {m}x{d} histogram rows lie outside the quotient's range")
+        v = torch.randn(m, generator=gen, dtype=torch.float64).to("cuda")
+        V = torch.randn(m, MC_CLASSES, generator=gen, dtype=torch.float64).to("cuda")
+        for kind in (K.LAPLACIAN, K.CHI_SQUARED):
+            kw = dict(kind=kind, gamma=1.0 / d)
+            for rhs in (v, V):
+                columns = 1 if rhs.ndim == 1 else MC_CLASSES
+                label = f"m={m} d={d} f64 {kind}" + (f" C={columns}" if rhs.ndim == 2 else "")
+                for name, kernel, plain in _distance_pairs(rhs):
+                    args = (X, rhs) if "sym" in name else (X, X, rhs)
+                    bound = (_sym_bound(m, d, columns, str(kind), 8, 0, "fp64") if "sym" in name
+                             else _rect_bound(m, m, d, columns, str(kind), 8, 0, "fp64"))
+                    if with_plain:
+                        # the float64 entries: E and F laplacian, G and H
+                        # chi-squared, as the float32 ones
+                        key = ((name, "f64") if ("matvec" in name) == (kind == K.LAPLACIAN)
+                               else (name, "f64 " + str(kind)))
+                        timing[key] = _time_pair(name, kernel, plain, args, kw,
+                                                 float(m) * m * d, label, plain_repeats=1,
+                                                 unit="Tpair-feature/s", counted="m^2 d")
+                        bounds[key] = bound
+                        ms = timing[key][0]
+                    else:
+                        ms = _median_ms(lambda: kernel(*args, **kw), DIST_PLAIN_REPEATS, 1)
+                    _log_bound(name, label, ms, bound)
+        if not with_plain:
+            # every chunk out of range: kernel G on the IEEE divide
+            kw = dict(kind=K.CHI_SQUARED, gamma=1.0 / d)
+            fast = _median_ms(lambda: distance.distance_matmat_sym(X, V, **kw),
+                              DIST_PLAIN_REPEATS, 1)
+            tiny = X * 1e-200
+            ieee = _median_ms(lambda: distance.distance_matmat_sym(tiny, V, **kw),
+                              DIST_PLAIN_REPEATS, 1)
+            log("kernels", f"distance_matmat_sym m={m} d={d} f64 chi_squared C={MC_CLASSES}: "
+                f"{fast:.3f} ms on the rows (the divide-free quotient), {ieee:.3f} ms on the "
+                f"rows x 1e-200 (every chunk on the IEEE divide), {ieee / fast:.2f}x")
+            del tiny
+        del X, v, V
+    torch.cuda.empty_cache()
+
+
+def _chi2_f64_entry_ratios(X, P, gamma):
+    """Kernels E-H in float64 chi-squared per entry of K against long
+    double (``entry_errors``): on the rows X at 10 columns of K, P the
+    points of F and H, and on ``entry_cases`` at d = 203 and 784, the out
+    of range ones included (gamma of their own), each kernel's worst
+    relative error logged beside the float64 plain version's; returns
+    {case: the worst ratio of the four kernels}."""
+    from plssvm_tpu_torch.ops import distance
+    from plssvm_tpu_torch.ops.entry_check import (chi2_f64_in_range, chi2_gamma,
+                                                  entry_cases, entry_errors)
+
+    m, d = X.shape
+    cases = [(f"{m}x{d}", X, [int(j) for j in np.linspace(0, m - 1, MC_CLASSES)], P, gamma)]
+    for d_case in (203, 784):
+        for name, Xc, columns in entry_cases(d_case, torch.Generator().manual_seed(46),
+                                             out_of_range=True):
+            Xc = Xc.to("cuda")
+            cases.append((f"{name} d={d_case}", Xc, columns, Xc, chi2_gamma(Xc, columns)))
+    worst = {}
+    for label, rows, columns, points, g in cases:
+        found = []
+        for name, kernel, rect, one_column in (
+            ("E", distance.distance_matvec_sym, False, True),
+            ("F", distance.distance_matvec_rect, True, True),
+            ("G", distance.distance_matmat_sym, False, False),
+            ("H", distance.distance_matmat_rect, True, False),
+        ):
+            got, plain = entry_errors(kernel, rows, columns, g,
+                                      points=points if rect else None, one_column=one_column)
+            found.append(f"{name} {got:.3e} ({got / plain:.2f}x)")
+            worst[label] = max(worst.get(label, 0.0), got / plain)
+        log("kernels", f"per-entry f64 chi-squared {label} ({len(columns)} columns of K, "
+            f"{'within' if chi2_f64_in_range(rows) else 'outside'} the divide-free range), "
+            f"against long double, worst rel err and its ratio to the float64 plain "
+            f"version's: " + ", ".join(found))
+    return worst
+
+
+def _chi2_f64_times():
+    """What ``--compare-build`` times in each checkout, in a process of its
+    own, through wrappers and a CSVM that the parent has too: kernels E-H in
+    float64 on histogram rows at m = 16384, d = 256 (C = 10 for G and H),
+    laplacian and chi-squared, L and M at the ring's block (2500^2 x 200,
+    M with C = 10), G in float32 at phase 10's shape (59999 x 784, C = 10),
+    each the median ms of 5 after 1 warm-up beside its bound; and the
+    float64 chi-squared fit of phase 9's classes (10000 x 200, 10 classes,
+    epsilon 1e-10) on one device and on the four-shard ring, s/iteration.
+    Returns {label: [value, bound ms or None]}."""
+    import plssvm_tpu_torch as port
+    from plssvm_tpu_torch.ops import distance
+    from plssvm_tpu_torch.parameter import KernelFunctionType as K
+
+    port.set_verbosity("quiet")
+    gen = torch.Generator().manual_seed(SEED)
+    rng = np.random.default_rng(SEED + 23)
+    out = {}
+    m, d = 16384, 256
+    X = torch.as_tensor(_draw_histograms(rng, _histogram_classes(rng, d), m)[0],
+                        dtype=torch.float64, device="cuda")
+    v = torch.randn(m, generator=gen, dtype=torch.float64).to("cuda")
+    V = torch.randn(m, MC_CLASSES, generator=gen, dtype=torch.float64).to("cuda")
+    for kind in (K.CHI_SQUARED, K.LAPLACIAN):
+        kw = dict(kind=kind, gamma=1.0 / d)
+        for rhs in (v, V):
+            columns = 1 if rhs.ndim == 1 else MC_CLASSES
+            for name, kernel, _ in _distance_pairs(rhs):
+                args = (X, rhs) if "sym" in name else (X, X, rhs)
+                bound = (_sym_bound(m, d, columns, str(kind), 8, 0, "fp64") if "sym" in name
+                         else _rect_bound(m, m, d, columns, str(kind), 8, 0, "fp64"))
+                out[f"{name} f64 {kind} {m}x{d} C={columns}"] = [
+                    _median_ms(lambda: kernel(*args, **kw), 5, 1), bound[0]]
+    del X, v, V
+    hist = torch.as_tensor(_draw_histograms(rng, _histogram_classes(rng, 200), 5000)[0],
+                           dtype=torch.float64, device="cuda")
+    for name, kernel, kind, gamma, columns in (
+        ("distance_matmat_dual", distance.distance_matmat_dual, K.CHI_SQUARED,
+         _chi2_gamma(rng, hist.cpu().numpy()), MC_CLASSES),
+        ("distance_matvec_dual", distance.distance_matvec_dual, K.LAPLACIAN, 1.0 / 200, 1),
+    ):
+        tail = (columns,) if columns > 1 else ()
+        Xr, Xc = hist[:2500].contiguous(), hist[2500:].contiguous()
+        v_c, v_r = (torch.randn(2500, *tail, generator=gen, dtype=torch.float64).to("cuda")
+                    for _ in range(2))
+        out[f"{name} f64 {kind} 2500x2500x200 C={columns}"] = [
+            _median_ms(lambda: kernel(Xr, Xc, v_c, v_r, kind=kind, gamma=gamma), 5, 1),
+            _dual_bound(2500, 2500, 200, columns, str(kind), 8, 0, "fp64")[0]]
+    del hist
+    X = torch.as_tensor(_draw_histograms(rng, _histogram_classes(rng, 784), 59999)[0],
+                        dtype=torch.float32, device="cuda")
+    V = torch.randn(59999, MC_CLASSES, generator=gen, dtype=torch.float64).to("cuda",
+                                                                              torch.float32)
+    out[f"distance_matmat_sym f32 chi_squared 59999x784 C={MC_CLASSES}"] = [
+        _median_ms(lambda: distance.distance_matmat_sym(X, V, kind=K.CHI_SQUARED,
+                                                        gamma=1.0 / 784), 5, 1),
+        _sym_bound(59999, 784, MC_CLASSES, "chi_squared", 4)[0]]
+    del X, V
+    # phase 9's classes, in memory
+    rng = np.random.default_rng(SEED + 12)
+    probs = _histogram_classes(rng, 200)
+    X, y, _ = _draw_histograms(rng, probs, 10000)
+    X_test, y_test, _ = _draw_histograms(rng, probs, 2000)
+    cell = dict(labels=y_test, params=dict(kernel_type="chi_squared",
+                                           gamma=_chi2_gamma(rng, X)))
+    data = (port.DataSet(X, y, dtype=np.float64), port.DataSet(X_test, y_test, dtype=np.float64))
+    for label, devices in (("one device", None), ("ring", ["cuda:0"] * RING_SHARDS)):
+        run = _ring_run(cell, *data, np.float64, RING_F64_EPSILON, devices)
+        fit = f"chi-squared f64 fit, 10000x200, {MC_CLASSES} classes, {label}"
+        out[f"{fit}: s/iteration"] = [run["s_per_it"], None]
+        out[f"{fit}: iterations"] = [run["iterations"], None]
+    return out
+
+
+#: run in a checkout: import the package there and print _chi2_f64_times()
+#: of the chip_smoke.py named by the first argument
+_TIMES = (
+    "import importlib.util, json, sys; "
+    "spec = importlib.util.spec_from_file_location('chip_smoke', sys.argv[1]); "
+    "smoke = importlib.util.module_from_spec(spec); spec.loader.exec_module(smoke); "
+    "print(json.dumps(smoke._chi2_f64_times()))"
+)
+
+
+def phase_compare(other):
+    """``--compare-build``: ``_chi2_f64_times`` in the other checkout (its
+    kernels, built in the build phase) and in this one, each in a process
+    of its own, in the order other, here, here, other; per label both
+    checkouts' times, the faster of each pair, their ratio and the shares
+    of the bound, logged."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    for root in (other, here, here, other):
+        proc = subprocess.run([sys.executable, "-c", _TIMES, os.path.abspath(__file__)],
+                              cwd=root, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"the timings in {root} failed:\n{proc.stderr[-3000:]}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    for label, (_, bound) in runs[0].items():
+        theirs = [runs[0][label][0], runs[3][label][0]]
+        mine = [runs[1][label][0], runs[2][label][0]]
+        share = (f"; share of the bound {bound:.3f} ms: {bound / min(theirs):.3f} there, "
+                 f"{bound / min(mine):.3f} here" if bound else "")
+        log("compare", f"{label}: {other} {theirs[0]:.6g}, {theirs[1]:.6g}; here {mine[0]:.6g}, "
+            f"{mine[1]:.6g}; {min(theirs) / min(mine):.3f}x{share}")
 
 
 def _write_config2(tmp):
@@ -2591,11 +2828,12 @@ def phase_ring(cells):
     largest difference logged.  Each one-device run: one symmetric launch
     per product (float64 Gram ones on the DMMA tile), no dual walk, nothing
     on another tile or the plain versions.  Returns the launches per phase
-    for the cost ranking: "ring" the float32 dual walks, "ring-f64" the
-    float64 rings' symmetric and dual (DMMA) launches and their fits'
-    rows-only ones (the Gram cells'), "ring-one-f64" the
-    float64 one-device fits' symmetric launches of the Gram cells.  The
-    binary cell is made here, the others come from phases 7-9."""
+    for the cost ranking: "ring" the float32 dual walks and the distance
+    cells' symmetric and rows-only shard products, "ring-f64" the float64
+    rings' symmetric, dual and rows-only launches of the fits (DMMA for the
+    Gram cells, ``*_f64`` for the distance ones), "ring-one-f64" the
+    float64 one-device fits' symmetric launches.  The binary cell is made
+    here, the others come from phases 7-9."""
     launches = {"ring": {}, "ring-f64": {}, "ring-one-f64": {}}
     devices = ["cuda:0"] * RING_SHARDS
     steps = (RING_SHARDS - 1) // 2
@@ -2620,6 +2858,16 @@ def phase_ring(cells):
                 f"{one['accuracy']:.4f}), label agreement with one device {agree:.4f}, "
                 f"max|d f(x)| {dvalue:.3e}; launches sym / dual / rect {counts}, other tile "
                 f"{other}, plain calls {plain}")
+            suffix = "" if dtype == np.float32 else "_f64"
+            if kind in ("laplacian", "chi_squared"):
+                # the fit's symmetric and rows-only shard products, without
+                # the predict's rectangular launches; the one-device fit's
+                sym, rect = name.replace("dual", "sym"), name.replace("dual", "rect")
+                target = launches["ring" if dtype == np.float32 else "ring-f64"]
+                target[sym + suffix] = counts[0]
+                target[rect + suffix] = counts[2] - RING_SHARDS
+                if dtype == np.float64:
+                    launches["ring-one-f64"][sym + suffix] = one["counts"][1][0]
             if dtype == np.float32:
                 launches["ring"][name] = counts[1]
                 if kind not in ("laplacian", "chi_squared"):
@@ -2759,7 +3007,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description="Drive the port's main path on one GPU.")
     parser.add_argument("--compare-build", metavar="DIR",
                         help="another checkout whose kernels' resources the build phase "
-                             "compares with these")
+                             "compares with these, and whose float64 distance kernels "
+                             "and chi-squared fits the compare phase times beside these")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available.",
@@ -2777,9 +3026,11 @@ def main(argv=None):
         phase_seconds[phase] = time.perf_counter() - start
         return result
 
-    name, smi = run("device", phase_device)
+    device_name, smi = run("device", phase_device)
     run("build", phase_build, args.compare_build)
     main_err, main_ms, timing, bounds, g_chi_ms = run("kernels", phase_kernels)
+    if args.compare_build:
+        run("compare", phase_compare, args.compare_build)
     # per main-path phase, each kernel's launches in that phase's run
     phase_launches = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2835,6 +3086,11 @@ def main(argv=None):
         launches[(f64, "f64")] = launches[f64]
     for f64 in ("gram_matvec_dual", "gram_matmat_dual"):
         launches[(f"{f64}_dmma", "f64")] = launches[f"{f64}_f64"]
+    # float64 distance kernels: the ring's float64 fits (E-H the shard
+    # products, L and M the dual walks)
+    for kernel in ("distance_matvec_sym", "distance_matvec_rect", "distance_matmat_sym",
+                   "distance_matmat_rect", "distance_matvec_dual", "distance_matmat_dual"):
+        launches[(kernel, "f64")] = launches[f"{kernel}_f64"]
 
     # the distance kernels report the kind their main path ran: laplacian
     # for E and F (phase 8), chi-squared for G and H (phases 9 and 10); the
@@ -2887,6 +3143,12 @@ def main(argv=None):
             "dual.cu", "plssvm_tpu/ops/pallas_distance.py:226"),
         ("distance_matmat_dual", "chi_squared"): (
             "dual.cu", "plssvm_tpu/ops/pallas_distance.py:412"),
+        ("distance_matvec_sym", "f64"): ("distance.cu", "plssvm_tpu/ops/pallas_distance.py:226"),
+        ("distance_matvec_rect", "f64"): ("distance.cu", "plssvm_tpu/ops/pallas_distance.py:226"),
+        ("distance_matmat_sym", "f64"): ("distance.cu", "plssvm_tpu/ops/pallas_distance.py:412"),
+        ("distance_matmat_rect", "f64"): ("distance.cu", "plssvm_tpu/ops/pallas_distance.py:412"),
+        ("distance_matvec_dual", "f64"): ("dual.cu", "plssvm_tpu/ops/pallas_distance.py:226"),
+        ("distance_matmat_dual", "f64"): ("dual.cu", "plssvm_tpu/ops/pallas_distance.py:412"),
     }
     entries = [
         {
@@ -2910,7 +3172,7 @@ def main(argv=None):
     print(json.dumps({"kernels": entries}))
     # every phase ran on device 0 alone
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": 1,
+        "platform": "gpu", "kind": device_name, "count": 1,
     }}))
     return 0
 

@@ -53,16 +53,23 @@
 // a partial of its own, which holds each entry of K within 2x the plain
 // version's error, and those partials fit the registers only in a 64-row
 // tile: at 59999 x 784 with 10 classes kernel G runs at 0.81 of its SFU
-// bound (0.23 with the IEEE divide).  gram_tile.cuh ChiSquaredDistance
-// sets the unroll, the chunk sums and the edge per type, and holds the
-// variants measured.
+// bound (0.23 with the IEEE divide).  Chi-squared in double runs on the
+// FP64 pipe (17 T instructions/s): its quotient takes the reciprocal's
+// seed on the SFU, two Newton steps and one correction, 7 FP64
+// instructions beside the subtract, add, square and accumulating add, on
+// chunks whose values lie in the range where that sequence is the IEEE
+// quotient; a chunk with a value outside it takes the IEEE divide (both
+// in the same kernel).  gram_tile.cuh ChiSquaredDistance sets the unroll,
+// the chunk sums, the edge and the guard per type, and holds the variants
+// measured.
 // The register tile (R x R accumulators per thread) amortises the
 // shared-memory loads as in kernel A.
 //
 // Numerics: no fast-math.  Chi-squared in float takes the approximate
 // reciprocal (per entry of K within 2x the plain version's error, which
-// divides exactly); in double the IEEE divide, as the plain version.  The
-// atomics make the summation order change from run to run.
+// divides exactly); in double each term is the IEEE-rounded quotient, as
+// the plain version's divide gives it, on every chunk.  The atomics make
+// the summation order change from run to run.
 
 #include <type_traits>
 

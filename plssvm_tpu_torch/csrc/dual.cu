@@ -38,22 +38,23 @@
 // carried over from the TPU: the 128-row padding, the class-major layout
 // padded to 8, the resident column accumulator (atomics replace it).
 //
-// Tiers: the Gram walks here serve J and K at "highest" (L and M serve
-// every tier and type).  On float32 data at "f32" (TF32) and "bf16", J and
-// K run on the dual tensor-core tile of gram_tc.cuh (gram_tc_dual_kernel,
-// instantiated here behind plssvm_gram_matvec_dual_tc_* /
-// plssvm_gram_matmat_dual_tc_*), which takes the wrapper's operand copies
-// of Xr and Xc (tier_operand) with the float32 operands' norms; every
-// product of a ring solve stays at its one tier.  In float64, at every
-// tier, J and K run on the dual DMMA tile of gram_dmma.cu, as the ring's
-// symmetric products (kernels A and C) run on its symmetric one; the float64
-// FFMA walks' entry points (plssvm_gram_mat*_dual_f64) stay for
-// chip_smoke.py to time beside that tile, and no wrapper takes them.
+// Tiers: the Gram walks here serve J and K in float32 at "highest" (L and
+// M serve every tier and both types).  On float32 data at "f32" (TF32) and
+// "bf16", J and K run on the dual tensor-core tile of gram_tc.cuh
+// (gram_tc_dual_kernel, instantiated here behind
+// plssvm_gram_matvec_dual_tc_* / plssvm_gram_matmat_dual_tc_*), which takes
+// the wrapper's operand copies of Xr and Xc (tier_operand) with the float32
+// operands' norms; every product of a ring solve stays at its one tier.  In
+// float64, at every tier, J and K run on the dual DMMA tile of
+// gram_dmma.cu, as the ring's symmetric products (kernels A and C) run on
+// its symmetric one, so the Gram walks here are compiled for float32 only.
 //
 // What bounds them: as kernels A-H, the pair operation on the CUDA cores,
 // mr * mc * d pair evaluations (all of them, where A and E evaluate half
-// the square), on the FP32 lanes (Gram, laplacian) or the SFU (float
-// chi-squared).  The column sums cost one atomic per column and tile (per
+// the square), on the FP32 lanes (Gram, laplacian), the SFU (float
+// chi-squared) or the FP64 pipe (float64 distances: chi-squared's
+// divide-free quotient of ChiSquaredDistance, in gram_tile.cuh, on chunks
+// whose values pass its guard).  The column sums cost one atomic per column and tile (per
 // class in K and M) where A pays them off the diagonal only.
 //
 // Numerics: no fast-math, as kernels A-H.  The atomics make the summation
@@ -290,9 +291,9 @@ __global__ void __launch_bounds__(kThreads * kThreads)
 
 // launch(std::integral_constant<int, KIND>) for a runtime kind of the
 // family: the Gram kinds (polynomial, RBF, sigmoid) or the distance kinds.
-template <typename Launch>
-int by_kind(bool distance, int kind, Launch&& launch) {
-    if (distance) {
+template <bool kDistance, typename Launch>
+int by_kind(int kind, Launch&& launch) {
+    if constexpr (kDistance) {
         switch (kind) {
             case kLaplacian:
                 return launch(std::integral_constant<int, kLaplacian>{});
@@ -301,16 +302,17 @@ int by_kind(bool distance, int kind, Launch&& launch) {
             default:
                 return cudaErrorInvalidValue;
         }
-    }
-    switch (kind) {
-        case kPolynomial:
-            return launch(std::integral_constant<int, kPolynomial>{});
-        case kRbf:
-            return launch(std::integral_constant<int, kRbf>{});
-        case kSigmoid:
-            return launch(std::integral_constant<int, kSigmoid>{});
-        default:
-            return cudaErrorInvalidValue;
+    } else {
+        switch (kind) {
+            case kPolynomial:
+                return launch(std::integral_constant<int, kPolynomial>{});
+            case kRbf:
+                return launch(std::integral_constant<int, kRbf>{});
+            case kSigmoid:
+                return launch(std::integral_constant<int, kSigmoid>{});
+            default:
+                return cudaErrorInvalidValue;
+        }
     }
 }
 
@@ -324,12 +326,12 @@ unsigned int block_tiles(int64_t mr, int64_t mc, int64_t& n_ctiles) {
                                              : static_cast<unsigned int>(blocks);
 }
 
-template <typename T>
-int matvec_dual(bool distance, const T* Xr, const T* Xc, const T* sq_r,
+template <typename T, bool kDistance>
+int matvec_dual(const T* Xr, const T* Xc, const T* sq_r,
                 const T* sq_c, const T* v_c, const T* v_r, T* out_r,
                 T* out_c, int64_t mr, int64_t mc, int64_t d, int kind,
                 int degree, T gamma, T coef0, void* stream) {
-    return by_kind(distance, kind, [&](auto k) {
+    return by_kind<kDistance>(kind, [&](auto k) {
         constexpr int KIND = decltype(k)::value;
         int64_t n_ctiles = 0;
         const unsigned int blocks =
@@ -346,12 +348,12 @@ int matvec_dual(bool distance, const T* Xr, const T* Xc, const T* sq_r,
     });
 }
 
-template <typename T>
-int matmat_dual(bool distance, const T* Xr, const T* Xc, const T* sq_r,
+template <typename T, bool kDistance>
+int matmat_dual(const T* Xr, const T* Xc, const T* sq_r,
                 const T* sq_c, const T* Vc, const T* Vr, T* out_r, T* out_c,
                 int64_t mr, int64_t mc, int64_t d, int64_t C, int kind,
                 int degree, T gamma, T coef0, void* stream) {
-    return by_kind(distance, kind, [&](auto k) {
+    return by_kind<kDistance>(kind, [&](auto k) {
         constexpr int KIND = decltype(k)::value;
         int64_t n_ctiles = 0;
         const unsigned int blocks =
@@ -380,19 +382,9 @@ extern "C" int plssvm_gram_matvec_dual_f32(
     const float* v_c, const float* v_r, float* out_r, float* out_c,
     int64_t mr, int64_t mc, int64_t d, int kind, int degree, float gamma,
     float coef0, void* stream) {
-    return matvec_dual<float>(false, Xr, Xc, sq_r, sq_c, v_c, v_r, out_r,
-                              out_c, mr, mc, d, kind, degree, gamma, coef0,
-                              stream);
-}
-
-extern "C" int plssvm_gram_matvec_dual_f64(
-    const double* Xr, const double* Xc, const double* sq_r,
-    const double* sq_c, const double* v_c, const double* v_r, double* out_r,
-    double* out_c, int64_t mr, int64_t mc, int64_t d, int kind, int degree,
-    double gamma, double coef0, void* stream) {
-    return matvec_dual<double>(false, Xr, Xc, sq_r, sq_c, v_c, v_r, out_r,
-                               out_c, mr, mc, d, kind, degree, gamma, coef0,
-                               stream);
+    return matvec_dual<float, false>(Xr, Xc, sq_r, sq_c, v_c, v_r, out_r,
+                                     out_c, mr, mc, d, kind, degree, gamma,
+                                     coef0, stream);
 }
 
 extern "C" int plssvm_gram_matmat_dual_f32(
@@ -400,19 +392,9 @@ extern "C" int plssvm_gram_matmat_dual_f32(
     const float* Vc, const float* Vr, float* out_r, float* out_c,
     int64_t mr, int64_t mc, int64_t d, int64_t C, int kind, int degree,
     float gamma, float coef0, void* stream) {
-    return matmat_dual<float>(false, Xr, Xc, sq_r, sq_c, Vc, Vr, out_r,
-                              out_c, mr, mc, d, C, kind, degree, gamma,
-                              coef0, stream);
-}
-
-extern "C" int plssvm_gram_matmat_dual_f64(
-    const double* Xr, const double* Xc, const double* sq_r,
-    const double* sq_c, const double* Vc, const double* Vr, double* out_r,
-    double* out_c, int64_t mr, int64_t mc, int64_t d, int64_t C, int kind,
-    int degree, double gamma, double coef0, void* stream) {
-    return matmat_dual<double>(false, Xr, Xc, sq_r, sq_c, Vc, Vr, out_r,
-                               out_c, mr, mc, d, C, kind, degree, gamma,
-                               coef0, stream);
+    return matmat_dual<float, false>(Xr, Xc, sq_r, sq_c, Vc, Vr, out_r,
+                                     out_c, mr, mc, d, C, kind, degree, gamma,
+                                     coef0, stream);
 }
 
 // The distance entry points take no squared norms.
@@ -420,36 +402,36 @@ extern "C" int plssvm_distance_matvec_dual_f32(
     const float* Xr, const float* Xc, const float* v_c, const float* v_r,
     float* out_r, float* out_c, int64_t mr, int64_t mc, int64_t d, int kind,
     float gamma, void* stream) {
-    return matvec_dual<float>(true, Xr, Xc, nullptr, nullptr, v_c, v_r,
-                              out_r, out_c, mr, mc, d, kind, 0, gamma, 0.0f,
-                              stream);
+    return matvec_dual<float, true>(Xr, Xc, nullptr, nullptr, v_c, v_r,
+                                    out_r, out_c, mr, mc, d, kind, 0, gamma,
+                                    0.0f, stream);
 }
 
 extern "C" int plssvm_distance_matvec_dual_f64(
     const double* Xr, const double* Xc, const double* v_c, const double* v_r,
     double* out_r, double* out_c, int64_t mr, int64_t mc, int64_t d,
     int kind, double gamma, void* stream) {
-    return matvec_dual<double>(true, Xr, Xc, nullptr, nullptr, v_c, v_r,
-                               out_r, out_c, mr, mc, d, kind, 0, gamma, 0.0,
-                               stream);
+    return matvec_dual<double, true>(Xr, Xc, nullptr, nullptr, v_c, v_r,
+                                     out_r, out_c, mr, mc, d, kind, 0, gamma,
+                                     0.0, stream);
 }
 
 extern "C" int plssvm_distance_matmat_dual_f32(
     const float* Xr, const float* Xc, const float* Vc, const float* Vr,
     float* out_r, float* out_c, int64_t mr, int64_t mc, int64_t d, int64_t C,
     int kind, float gamma, void* stream) {
-    return matmat_dual<float>(true, Xr, Xc, nullptr, nullptr, Vc, Vr, out_r,
-                              out_c, mr, mc, d, C, kind, 0, gamma, 0.0f,
-                              stream);
+    return matmat_dual<float, true>(Xr, Xc, nullptr, nullptr, Vc, Vr, out_r,
+                                    out_c, mr, mc, d, C, kind, 0, gamma, 0.0f,
+                                    stream);
 }
 
 extern "C" int plssvm_distance_matmat_dual_f64(
     const double* Xr, const double* Xc, const double* Vc, const double* Vr,
     double* out_r, double* out_c, int64_t mr, int64_t mc, int64_t d,
     int64_t C, int kind, double gamma, void* stream) {
-    return matmat_dual<double>(true, Xr, Xc, nullptr, nullptr, Vc, Vr, out_r,
-                               out_c, mr, mc, d, C, kind, 0, gamma, 0.0,
-                               stream);
+    return matmat_dual<double, true>(Xr, Xc, nullptr, nullptr, Vc, Vr, out_r,
+                                     out_c, mr, mc, d, C, kind, 0, gamma, 0.0,
+                                     stream);
 }
 
 // Kernels J and K on the dual tensor-core tile (gram_tc.cuh): Xr and Xc the

@@ -25,9 +25,8 @@
 // plssvm_tpu downcasts on the chip; the float64 functions the JAX package
 // runs are kernel_matvec_xla (plssvm_tpu/ops/matvec.py), its predict and
 // its ring's XLA block products.  The tiles replace the FFMA register tiles
-// in float64 (gram_matvec.cu / gram_matmat.cu and the FFMA walks of dual.cu
-// keep them only as entry points; chip_smoke.py calls the sym and dual
-// ones explicitly to time beside the tiles).  This source holds the tiles
+// in float64 (gram_matvec.cu, gram_matmat.cu and the walks of dual.cu
+// compile their Gram kinds for float32 only).  This source holds the tiles
 // and their entry points, so each kernel function is compiled once.
 //
 // What bounds it on an H100: the pair work, 2 * pairs * d flops, at the

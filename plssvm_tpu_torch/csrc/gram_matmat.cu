@@ -39,13 +39,13 @@
 // The classes are a loop, not a register array, so no per-class state is
 // held: the register footprint stays kernel A's, and C does not change how
 // the kernel is compiled.  This register tile serves the "highest" tier,
-// and kernel D in float64; kernels C and D at "f32" (TF32) and "bf16" run
-// on the tensor-core tiles of gram_tc.cuh (plssvm_gram_matmat_sym_tf32 /
-// _bf16, plssvm_gram_matmat_rect_tc_tf32 / _tc_bf16), D with one atomicAdd
-// per (row, class) per run of SV tiles instead of per tile.  Kernel C in
-// float64 runs on the FP64 tensor cores at every tier: the DMMA tile of
-// gram_dmma.cu, behind plssvm_gram_matmat_sym_dmma;
-// plssvm_gram_matmat_sym_f64 stays for chip_smoke.py to time beside it.
+// float32 only; kernels C and D at "f32" (TF32) and "bf16" run on the
+// tensor-core tiles of gram_tc.cuh (plssvm_gram_matmat_sym_tf32 / _bf16,
+// plssvm_gram_matmat_rect_tc_tf32 / _tc_bf16), D with one atomicAdd per
+// (row, class) per run of SV tiles instead of per tile.  Kernels C and D
+// in float64 run on the FP64 tensor cores at every tier: the DMMA tiles of
+// gram_dmma.cu, behind plssvm_gram_matmat_sym_dmma and
+// plssvm_gram_matmat_rect_dmma.
 //
 // Numerics: as kernels A and B (no fast-math, accurate expf/tanhf).  The
 // atomics make the summation order change from run to run.
@@ -196,30 +196,12 @@ extern "C" int plssvm_gram_matmat_sym_f32(const float* X, const float* sq,
                       stream);
 }
 
-extern "C" int plssvm_gram_matmat_sym_f64(const double* X, const double* sq,
-                                          const double* V, double* out,
-                                          int64_t m, int64_t d, int64_t C,
-                                          int kind, int degree, double gamma,
-                                          double coef0, void* stream) {
-    return sym<double>(X, sq, V, out, m, d, C, kind, degree, gamma, coef0,
-                       stream);
-}
-
 extern "C" int plssvm_gram_matmat_rect_f32(
     const float* P, const float* S, const float* sq_p, const float* sq_s,
     const float* A, float* out, int64_t n_p, int64_t n_s, int64_t d,
     int64_t C, int kind, int degree, float gamma, float coef0, void* stream) {
     return rect<float>(P, S, sq_p, sq_s, A, out, n_p, n_s, d, C, kind, degree,
                        gamma, coef0, stream);
-}
-
-extern "C" int plssvm_gram_matmat_rect_f64(
-    const double* P, const double* S, const double* sq_p, const double* sq_s,
-    const double* A, double* out, int64_t n_p, int64_t n_s, int64_t d,
-    int64_t C, int kind, int degree, double gamma, double coef0,
-    void* stream) {
-    return rect<double>(P, S, sq_p, sq_s, A, out, n_p, n_s, d, C, kind,
-                        degree, gamma, coef0, stream);
 }
 
 // Kernel C on the tensor-core tile (gram_tc.cuh): X the tier's operand copy

@@ -43,21 +43,19 @@
 //
 // What bounds them: a Gram tile costs 2 * BM^2 * d flops over 2 * BM * d
 // operand loads, so at the widths LS-SVM trains at (d in the hundreds) both
-// kernels are bound by fp32/fp64 FMA throughput on the CUDA cores, not by
+// kernels are bound by fp32 FMA throughput on the CUDA cores, not by
 // memory.  The register tile (R x R accumulators per thread, fed from
 // shared memory) is what this version does about it; it serves the
-// "highest" tier, and kernel B in float64.  Kernels A and B at the tiers
-// "f32" (TF32) and "bf16" run on the tensor cores instead: the wgmma tiles
-// of gram_tc.cuh, behind plssvm_gram_matvec_sym_tf32 / _bf16 and
+// "highest" tier, and is compiled for float32 only.  Kernels A and B at the
+// tiers "f32" (TF32) and "bf16" run on the tensor cores instead: the wgmma
+// tiles of gram_tc.cuh, behind plssvm_gram_matvec_sym_tf32 / _bf16 and
 // plssvm_gram_matvec_rect_tc_tf32 / _tc_bf16 (they take the wrapper's
-// operand copies of X, or of P and S).  Kernel A in float64 runs on the
-// FP64 tensor cores at every tier: the DMMA tile of gram_dmma.cu, behind
-// plssvm_gram_matvec_sym_dmma; plssvm_gram_matvec_sym_f64, the FFMA tile
-// in float64, stays for chip_smoke.py to time beside it and no wrapper
-// calls it.
+// operand copies of X, or of P and S).  Kernels A and B in float64 run on
+// the FP64 tensor cores at every tier: the DMMA tiles of gram_dmma.cu,
+// behind plssvm_gram_matvec_sym_dmma and plssvm_gram_matvec_rect_dmma.
 //
-// Numerics: no fast-math.  expf/tanhf (exp/tanh in double) are the
-// accurate library functions, to match the reference's epilogue; nvcc's
+// Numerics: no fast-math.  expf/tanhf are the accurate library functions,
+// to match the reference's epilogue; nvcc's
 // default FMA contraction applies to the Gram sums as it does in any GEMM.
 
 #include "gram_tc.cuh"
@@ -291,29 +289,12 @@ extern "C" int plssvm_gram_matvec_sym_f32(const float* X, const float* sq,
     return sym<float>(X, sq, v, out, m, d, kind, degree, gamma, coef0, stream);
 }
 
-extern "C" int plssvm_gram_matvec_sym_f64(const double* X, const double* sq,
-                                          const double* v, double* out,
-                                          int64_t m, int64_t d, int kind,
-                                          int degree, double gamma,
-                                          double coef0, void* stream) {
-    return sym<double>(X, sq, v, out, m, d, kind, degree, gamma, coef0,
-                       stream);
-}
-
 extern "C" int plssvm_gram_matvec_rect_f32(
     const float* P, const float* S, const float* sq_p, const float* sq_s,
     const float* a_s, float* out, int64_t n_p, int64_t n_s, int64_t d,
     int kind, int degree, float gamma, float coef0, void* stream) {
     return rect<float>(P, S, sq_p, sq_s, a_s, out, n_p, n_s, d, kind, degree,
                        gamma, coef0, stream);
-}
-
-extern "C" int plssvm_gram_matvec_rect_f64(
-    const double* P, const double* S, const double* sq_p, const double* sq_s,
-    const double* a_s, double* out, int64_t n_p, int64_t n_s, int64_t d,
-    int kind, int degree, double gamma, double coef0, void* stream) {
-    return rect<double>(P, S, sq_p, sq_s, a_s, out, n_p, n_s, d, kind, degree,
-                        gamma, coef0, stream);
 }
 
 // Kernel A on the tensor-core tile (gram_tc.cuh): X the tier's operand copy

@@ -81,16 +81,24 @@ __device__ __forceinline__ T apply_kernel(T g, T sq_i, T sq_j, T gamma,
 // The pair operation the register tile folds in, one feature at a time,
 // and how gram_tile runs it on T: kUnroll<T>, how far it unrolls its loop
 // over a staged feature chunk; kChunkSums<T>, whether it sums each chunk
-// into a partial of its own before adding that to the accumulator; and
-// kEdge<T>, the tile edge of the distance kernels (TileDefaults: the full
-// unroll, no chunk sums, TileEdge).
+// into a partial of its own before adding that to the accumulator, and
+// kCompensated<T>, whether it adds those partials with a compensated
+// (Kahan) sum; kEdge<T>, the tile edge of the distance kernels; and
+// kGuarded<T>, whether its step holds only for values that pass its
+// in_range test, a chunk holding any other value taking its Outside
+// operation instead (TileDefaults: the full unroll, no chunk sums,
+// TileEdge, no guard).
 struct TileDefaults {
     template <typename T>
     static constexpr int kUnroll = kChunk;
     template <typename T>
     static constexpr bool kChunkSums = false;
     template <typename T>
+    static constexpr bool kCompensated = false;
+    template <typename T>
     static constexpr int kEdge = TileEdge<T>::value;
+    template <typename T>
+    static constexpr bool kGuarded = false;
 };
 struct GramProduct : TileDefaults {  // x . y: one FMA
     template <typename T>
@@ -113,6 +121,39 @@ __device__ __forceinline__ float sfu_reciprocal(float x) {
     asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
     return r;
 }
+// The seed of the float64 reciprocal: one MUFU.RCP64H on the high word,
+// a relative error of about 2^-20, no slow path; a subnormal x flushes to 0.
+__device__ __forceinline__ double sfu_reciprocal(double x) {
+    double r;
+    asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(x));
+    return r;
+}
+
+// The range of the float64 chi-squared quotient without a divide: a staged
+// value v passes when v == 0 or 2^kChi2F64MinExponent <= |v| <
+// 2^(kChi2F64MaxExponent + 1), its binary exponent in [-433, 510].  Then
+// every non-zero |v| is a multiple of g = 2^-485, and so are x + y and
+// x - y: a non-zero |den| lies in [2^-485, 2^512), a non-zero diff^2 in
+// [2^-970, 2^1024) (|diff| < 2^512 keeps it finite), 1 / den and the
+// quotient are normal, and the exact remainder num - den * q is a multiple
+// of 2^-1074, so a double: of 2^(e(num) - 105) >= 2^-1073 where |diff| >
+// g, and where |diff| = g, den = 2x + g is rounded to an even significand.
+// That is what the sequence in ChiSquaredDistance needs to be the IEEE
+// quotient.  One binary exponent further out, diff^2 overflows (|x|, |y|
+// near 2^511 of opposite sign) or the remainder of neighbours near 2^-434
+// falls between multiples of 2^-1074; infinities, NaN and subnormals are
+// out too.
+constexpr int kChi2F64MinExponent = -433;
+constexpr int kChi2F64MaxExponent = 510;
+
+__device__ __forceinline__ bool chi2_f64_in_range(double v) {
+    const unsigned long long bits =
+        static_cast<unsigned long long>(__double_as_longlong(v));
+    const int exponent = static_cast<int>((bits >> 52) & 0x7ffu) - 1023;
+    return ((bits << 1) == 0ull)
+        | (static_cast<unsigned int>(exponent - kChi2F64MinExponent) <=
+           static_cast<unsigned int>(kChi2F64MaxExponent - kChi2F64MinExponent));
+}
 
 // (x - y)^2 / (x + y), and 0 where x + y == 0.
 //
@@ -131,10 +172,50 @@ __device__ __forceinline__ float sfu_reciprocal(float x) {
 // need 64 more registers at the 128-row tile (one block per SM), so float
 // chi-squared takes a 64-row tile, where they cost 4 %.
 //
-// double keeps the IEEE divide, one feature per loop trip (each divide
-// inlines ~15 instructions and a slow-path branch; unrolled they
-// overflowed the instruction cache), summed one feature after another, on
-// the 64-row double tile.
+// double computes the IEEE-rounded quotient without a divide: the
+// reciprocal's seed on the SFU (MUFU.RCP64H), two Newton steps of 2 DFMAs,
+// the quotient num * r, its exact remainder and one correction, 7 FP64
+// instructions beside the subtract, the add, the square and the
+// accumulating add (and the select's DSETP), with no slow path and no
+// branch, so the chunk loop unrolls.  That sequence is exact only within
+// chi2_f64_in_range: after gram_tile stages a chunk, each thread tests the
+// values it stored and __syncthreads_and makes one flag of the block; a
+// chunk holding any other value takes Outside, the IEEE divide, one
+// feature per loop trip (each divide inlines ~15 instructions and a
+// slow-path branch; unrolled they overflowed the instruction cache).  Both
+// passes sum each chunk into a partial of its own, on the 64-row double
+// tile, and the partials are added with a compensated sum while every
+// chunk so far took the divide-free pass: per entry of K against long
+// double, on ops/entry_check.py's cases at d = 203 and 784 and 9999
+// histogram rows of 200 bins, one feature after another comes to 2.4-6.4x
+// the float64 plain version's worst error, chunk partials to 1.0-2.5x,
+// compensated ones to 0.62-0.92x (after an out-of-range chunk, as plain
+// partials: 1.04x and 1.83x on the "mixed" rows).  MUFU.RCP64H issues once
+// per 12 FP64-pipe instructions (SASS), so the FP64 pipe, not the SFU,
+// sets the pace.
+//
+// The variants measured in double: kernel G (C = 10) on an H100 80GB HBM3
+// at 700 W, histogram rows at m = 16384, d = 256, ms (share of the 22.392
+// ms bound, PAIR_FEATURE_COST_F64's 11), registers; chip_smoke.py's
+// --compare-build timings run from each variant's tree:
+//
+//   IEEE divide, unroll 1, one feature after another (before)  75.3 (0.298)  98
+//   divide-free, the guard in the staging loop, chunk partials added with
+//     a compensated sum, unroll 16                            36.2 (0.618) 154
+//                                                     unroll 8 36.1         154
+//                                                     unroll 4 36.0 (0.622) 156
+//                                                     unroll 2 36.4         168
+//                                                     unroll 1 37.9         150
+//     plain chunk partials, unroll 16                          34.0 (0.659) 126
+//     one feature after another, unroll 16                     31.5 (0.710)  80
+//   the guard in a loop of its own (the float kernels' code as before):
+//     compensated, unroll 4                                    51.0 (0.439) 182
+//       and an infinite sum ending it (an isfinite select)     51.4         182
+//       and the running error clamped (fmin / fmax)            52.3         184
+//     compensated while every chunk took the divide-free pass,
+//       unroll 4                                               36.0 (0.622) 200  kept
+//     plain chunk partials, unroll 4                           34.6 (0.647) 126
+//     one feature after another, unroll 4                      31.9 (0.702)  92
 //
 // The variants measured (recorded in PERF.md): kernel G (float, C = 10) on
 // an H100 80GB HBM3 at 700 W, histogram rows, ms at m = 16384, d = 256 / at
@@ -161,26 +242,54 @@ __device__ __forceinline__ float sfu_reciprocal(float x) {
 // Newton step or not, and 6.1x without them, as with the IEEE divide.
 struct ChiSquaredDistance {
     template <typename T>
-    static constexpr int kUnroll = std::is_same_v<T, float> ? kChunk : 1;
+    static constexpr int kUnroll = std::is_same_v<T, float> ? kChunk : 4;
     template <typename T>
-    static constexpr bool kChunkSums = std::is_same_v<T, float>;
+    static constexpr bool kChunkSums = true;
+    template <typename T>
+    static constexpr bool kCompensated = std::is_same_v<T, double>;
     template <typename T>
     static constexpr int kEdge =
         std::is_same_v<T, float> ? 64 : TileEdge<T>::value;
+    template <typename T>
+    static constexpr bool kGuarded = std::is_same_v<T, double>;
+
+    __device__ __forceinline__ static bool in_range(double v) {
+        return chi2_f64_in_range(v);
+    }
 
     __device__ __forceinline__ static void step(float& acc, float x, float y) {
         const float den = (x + y) + 1e-30f;
         const float diff = x - y;
         acc = fmaf(diff, diff * sfu_reciprocal(den), acc);
     }
-    // the select keeps 0/0 out, so the zero-loaded feature tail adds
-    // nothing
+    // diff^2 / den rounded as the IEEE divide rounds it; the select keeps
+    // 0/0 out (there r is inf and the sequence NaN), so the zero-loaded
+    // feature tail adds nothing
     __device__ __forceinline__ static void step(double& acc, double x,
                                                 double y) {
         const double den = x + y;
         const double diff = x - y;
-        acc += den != 0.0 ? diff * diff / den : 0.0;
+        const double num = diff * diff;
+        double r = sfu_reciprocal(den);
+        r = fma(r, fma(-den, r, 1.0), r);
+        r = fma(r, fma(-den, r, 1.0), r);
+        const double q = num * r;
+        const double quotient = fma(fma(-den, q, num), r, q);
+        acc += den != 0.0 ? quotient : 0.0;
     }
+
+    // a chunk with a value outside chi2_f64_in_range: the IEEE divide
+    struct Outside : TileDefaults {
+        template <typename T>
+        static constexpr int kUnroll = 1;
+
+        __device__ __forceinline__ static void step(double& acc, double x,
+                                                    double y) {
+            const double den = x + y;
+            const double diff = x - y;
+            acc += den != 0.0 ? diff * diff / den : 0.0;
+        }
+    };
 };
 
 template <int KIND>
@@ -236,6 +345,23 @@ __device__ __forceinline__ void chunk_pass(
     }
 }
 
+// chunk_pass of the operation Op on a staged chunk, or of Op::Outside when
+// Op is guarded on T and the chunk holds a value outside its range
+// (``in_range`` false, the same in every thread of the block).
+template <typename T, int BM, typename Op>
+__device__ __forceinline__ void op_pass(
+    const Staging<T, BM>& s, T (&sums)[BM / kThreads][BM / kThreads],
+    bool in_range) {
+    if constexpr (Op::template kGuarded<T>) {
+        if (!in_range) {
+            using Outside = typename Op::Outside;
+            chunk_pass<T, BM, Outside, Outside::template kUnroll<T>>(s, sums);
+            return;
+        }
+    }
+    chunk_pass<T, BM, Op, Op::template kUnroll<T>>(s, sums);
+}
+
 // acc[a][b] = sum_k op(X[row0 + ty + kThreads a, k], Y[col0 + tx + kThreads b, k])
 // over all d features, op the Gram product by default; rows past mx / my
 // and features past d load as 0.  X and Y are row-major (rows, d) or, with
@@ -256,6 +382,21 @@ __device__ __forceinline__ void gram_tile(
 #pragma unroll
         for (int b = 0; b < R; ++b) {
             acc[a][b] = T(0);
+        }
+    }
+    // the compensated sum's running error, and whether it still runs: only
+    // while every chunk so far passed Op's guard (out of range a partial
+    // may be infinite, and inf - inf would make the compensation NaN; the
+    // plain sum stays inf)
+    T comp[R][R];
+    bool compensate = true;
+    if constexpr (Op::template kCompensated<T>) {
+#pragma unroll
+        for (int a = 0; a < R; ++a) {
+#pragma unroll
+            for (int b = 0; b < R; ++b) {
+                comp[a][b] = T(0);
+            }
         }
     }
     for (int64_t k0 = 0; k0 < d; k0 += kChunk) {
@@ -280,7 +421,19 @@ __device__ __forceinline__ void gram_tile(
                 s.y[kk][r] = (gy < my && k < d) ? Y[gy * d + k] : T(0);
             }
         }
-        __syncthreads();
+        bool in_range = true;  // every value of the chunk passes Op's guard
+        if constexpr (Op::template kGuarded<T>) {
+            // each thread tests the values it staged, then the block agrees
+            for (int e = tid; e < BM * kChunk; e += kThreads * kThreads) {
+                const int r = kFeatureMajor ? e % BM : e / kChunk;
+                const int kk = kFeatureMajor ? e / BM : e % kChunk;
+                in_range &= Op::in_range(s.x[kk][r]) & Op::in_range(s.y[kk][r]);
+            }
+            in_range = __syncthreads_and(in_range) != 0;
+            compensate = compensate && in_range;
+        } else {
+            __syncthreads();
+        }
         if constexpr (Op::template kChunkSums<T>) {
             T part[R][R];
 #pragma unroll
@@ -290,16 +443,27 @@ __device__ __forceinline__ void gram_tile(
                     part[a][b] = T(0);
                 }
             }
-            chunk_pass<T, BM, Op, Op::template kUnroll<T>>(s, part);
+            op_pass<T, BM, Op>(s, part, in_range);
 #pragma unroll
             for (int a = 0; a < R; ++a) {
 #pragma unroll
                 for (int b = 0; b < R; ++b) {
-                    acc[a][b] += part[a][b];
+                    if constexpr (Op::template kCompensated<T>) {
+                        if (compensate) {
+                            const T y = part[a][b] - comp[a][b];
+                            const T t = acc[a][b] + y;
+                            comp[a][b] = (t - acc[a][b]) - y;
+                            acc[a][b] = t;
+                        } else {
+                            acc[a][b] += part[a][b];
+                        }
+                    } else {
+                        acc[a][b] += part[a][b];
+                    }
                 }
             }
         } else {
-            chunk_pass<T, BM, Op, Op::template kUnroll<T>>(s, acc);
+            op_pass<T, BM, Op>(s, acc, in_range);
         }
         __syncthreads();
     }

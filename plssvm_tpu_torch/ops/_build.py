@@ -191,30 +191,23 @@ def load() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     ptr, i64, cint = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    for suffix, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
-        sym = getattr(lib, f"plssvm_gram_matvec_sym_{suffix}")
-        sym.argtypes = [ptr, ptr, ptr, ptr, i64, i64, cint, cint, real, real, ptr]
-        sym.restype = cint
-        rect = getattr(lib, f"plssvm_gram_matvec_rect_{suffix}")
-        rect.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, cint, cint, real,
-            real, ptr,
-        ]
-        rect.restype = cint
-        # (X, sq, V, out, m, d, C, kind, degree, gamma, coef0, stream)
-        msym = getattr(lib, f"plssvm_gram_matmat_sym_{suffix}")
-        msym.argtypes = [
-            ptr, ptr, ptr, ptr, i64, i64, i64, cint, cint, real, real, ptr,
-        ]
-        msym.restype = cint
-        # (P, S, sq_p, sq_s, A, out, n_p, n_s, d, C, kind, degree, gamma,
-        #  coef0, stream)
-        mrect = getattr(lib, f"plssvm_gram_matmat_rect_{suffix}")
-        mrect.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, cint, cint,
-            real, real, ptr,
-        ]
-        mrect.restype = cint
+    f32, f64 = ctypes.c_float, ctypes.c_double
+    # kernels A-D on the FFMA tile and the FFMA walks of J and K, float32
+    # only (float64 takes the DMMA tiles): (X, sq, v / V, out, m, d, [C,]
+    # ...), (P, S, sq_p, sq_s, a / A, out, n_p, n_s, d, [C,] ...), (Xr, Xc,
+    # sq_r, sq_c, v_c / V_c, v_r / V_r, out_r, out_c, mr, mc, d, [C,] ...),
+    # each ending in (kind, degree, gamma, coef0, stream)
+    tail = [cint, cint, f32, f32, ptr]
+    lib.plssvm_gram_matvec_sym_f32.argtypes = [ptr] * 4 + [i64] * 2 + tail
+    lib.plssvm_gram_matmat_sym_f32.argtypes = [ptr] * 4 + [i64] * 3 + tail
+    lib.plssvm_gram_matvec_rect_f32.argtypes = [ptr] * 6 + [i64] * 3 + tail
+    lib.plssvm_gram_matmat_rect_f32.argtypes = [ptr] * 6 + [i64] * 4 + tail
+    lib.plssvm_gram_matvec_dual_f32.argtypes = [ptr] * 8 + [i64] * 3 + tail
+    lib.plssvm_gram_matmat_dual_f32.argtypes = [ptr] * 8 + [i64] * 4 + tail
+    for name in ("matvec_sym", "matvec_rect", "matmat_sym", "matmat_rect", "matvec_dual",
+                 "matmat_dual"):
+        getattr(lib, f"plssvm_gram_{name}_f32").restype = cint
+    for suffix, real in (("f32", f32), ("f64", f64)):
         # kernels E-H: (operands..., out, sizes..., kind, gamma, stream)
         for name, n_operands, n_sizes in (
             ("matvec_sym", 2, 2),    # X, v; m, d
@@ -229,17 +222,12 @@ def load() -> ctypes.CDLL:
         banded = getattr(lib, f"plssvm_banded_matvec_{suffix}")
         banded.argtypes = [ptr] * 4 + [i64, i64, cint, real, ptr]
         banded.restype = cint
-        # kernels J-M (the dual walks): (Xr, Xc, [sq_r, sq_c,] v_c / V_c,
-        # v_r / V_r, out_r, out_c, mr, mc, d, [C,] kind, [degree,] gamma,
-        # [coef0,] stream)
-        for family, n_operands, extra in (("gram", 6, [cint, real, real]),
-                                          ("distance", 4, [real])):
-            for op, n_sizes in (("matvec", 3), ("matmat", 4)):
-                fn = getattr(lib, f"plssvm_{family}_{op}_dual_{suffix}")
-                fn.argtypes = ([ptr] * (n_operands + 2) + [i64] * n_sizes
-                               + [cint] + extra + [ptr])
-                fn.restype = cint
-    f32 = ctypes.c_float
+        # kernels L and M (the distance dual walks): (Xr, Xc, v_c / V_c,
+        # v_r / V_r, out_r, out_c, mr, mc, d, [C,] kind, gamma, stream)
+        for op, n_sizes in (("matvec", 3), ("matmat", 4)):
+            fn = getattr(lib, f"plssvm_distance_{op}_dual_{suffix}")
+            fn.argtypes = [ptr] * 6 + [i64] * n_sizes + [cint, real, ptr]
+            fn.restype = cint
     for tier in ("tf32", "bf16"):
         # kernels A and C on the tensor-core tile: (X copy, sq, v / V, out,
         # m, d_pad, [C,] kind, degree, gamma, coef0, stream)
@@ -271,7 +259,6 @@ def load() -> ctypes.CDLL:
             getattr(lib, f"plssvm_gram_{name}_{tier}").restype = cint
     # kernels A and C on the DMMA tile, float64: (X, sq, v / V, out, m,
     # d_pad, [C,] kind, degree, gamma, coef0, stream)
-    f64 = ctypes.c_double
     lib.plssvm_gram_matvec_sym_dmma.argtypes = [ptr] * 4 + [i64] * 2 + [cint, cint, f64, f64, ptr]
     lib.plssvm_gram_matmat_sym_dmma.argtypes = [ptr] * 4 + [i64] * 3 + [cint, cint, f64, f64, ptr]
     lib.plssvm_gram_matvec_sym_dmma.restype = cint

@@ -43,6 +43,7 @@ from .gram_matvec import (
     _check_operands,
     _raise_on_error,
     _require_cuda,
+    ffma_entry,
     launch_dual_dmma,
     launch_dual_tc,
     launch_rect_dmma,
@@ -118,7 +119,7 @@ def gram_matmat_sym(
     _require_cuda(X, "gram_matmat_sym")
     m, d = X.shape
     C = V.shape[1] if V.ndim == 2 else -1
-    suffix = _check_operands(
+    _check_operands(
         kind, [("X", X), ("sq", sq), ("V", V)], [(m, d), (m,), (m, C)]
     )
     out = torch.zeros((m, C), dtype=X.dtype, device=X.device)
@@ -143,7 +144,7 @@ def gram_matmat_sym(
         global sym_tc_launches
         sym_tc_launches += 1
         return out
-    fn = getattr(lib, f"plssvm_gram_matmat_sym_{suffix}")
+    fn = ffma_entry(lib, "matmat_sym", X.dtype)
     with torch.cuda.device(X.device):
         err = fn(
             X.data_ptr(), sq.data_ptr(), V.data_ptr(), out.data_ptr(), m, d, C,
@@ -187,7 +188,7 @@ def gram_matmat_rect(
     n_p, d = P.shape
     n_s = S.shape[0]
     C = A.shape[1] if A.ndim == 2 else -1
-    suffix = _check_operands(
+    _check_operands(
         kind,
         [("P", P), ("S", S), ("sq_p", sq_p), ("sq_s", sq_s), ("A", A)],
         [(n_p, d), (n_s, d), (n_p,), (n_s,), (n_s, C)],
@@ -208,7 +209,7 @@ def gram_matmat_rect(
         global rect_tc_launches
         rect_tc_launches += 1
         return out
-    fn = getattr(lib, f"plssvm_gram_matmat_rect_{suffix}")
+    fn = ffma_entry(lib, "matmat_rect", P.dtype)
     with torch.cuda.device(P.device):
         err = fn(
             P.data_ptr(), S.data_ptr(), sq_p.data_ptr(), sq_s.data_ptr(),
@@ -254,7 +255,7 @@ def gram_matmat_dual(
     mr, d = Xr.shape
     mc = Xc.shape[0]
     C = V_c.shape[1] if V_c.ndim == 2 else -1
-    suffix = _check_operands(
+    _check_operands(
         kind,
         [("Xr", Xr), ("Xc", Xc), ("sq_r", sq_r), ("sq_c", sq_c),
          ("V_c", V_c), ("V_r", V_r)],
@@ -277,7 +278,7 @@ def gram_matmat_dual(
         global dual_tc_launches
         dual_tc_launches += 1
         return out_r, out_c
-    fn = getattr(lib, f"plssvm_gram_matmat_dual_{suffix}")
+    fn = ffma_entry(lib, "matmat_dual", Xr.dtype)
     with torch.cuda.device(Xr.device):
         err = fn(
             Xr.data_ptr(), Xc.data_ptr(), sq_r.data_ptr(), sq_c.data_ptr(),

@@ -109,15 +109,14 @@ def _check_gram_kind(kind) -> None:
         )
 
 
-def _check_operands(kind, named_tensors, shapes) -> str:
-    """Refuse the linear kernel and validate the operands; return the
-    entry-point suffix."""
+def _check_operands(kind, named_tensors, shapes) -> None:
+    """Refuse the linear kernel and validate the operands."""
     if kind == KernelFunctionType.LINEAR:
         raise ValueError(
             "the linear kernel takes the factored X (X^T v) product, not a "
             "Gram kernel"
         )
-    return _check_tensors(named_tensors, shapes)
+    _check_tensors(named_tensors, shapes)
 
 
 def _check_tensors(named_tensors, shapes) -> str:
@@ -137,6 +136,16 @@ def _check_tensors(named_tensors, shapes) -> str:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     return suffix
+
+
+def ffma_entry(lib, name: str, dtype: torch.dtype):
+    """The FFMA tile's entry point ``plssvm_gram_<name>_f32`` (kernels A-D
+    and the walks of J and K at "highest"), which the library holds for
+    float32 only: float64 CUDA operands take the DMMA tiles
+    (:func:`uses_dmma`), so any other type raises here."""
+    if dtype != torch.float32:
+        raise TypeError(f"the FFMA tile of gram_{name} takes float32, not {dtype}")
+    return getattr(lib, f"plssvm_gram_{name}_f32")
 
 
 def _raise_on_error(lib, err: int, name: str) -> None:
@@ -233,7 +242,7 @@ def gram_matvec_sym(
         )
     _require_cuda(X, "gram_matvec_sym")
     m, d = X.shape
-    suffix = _check_operands(
+    _check_operands(
         kind, [("X", X), ("sq", sq), ("v", v)], [(m, d), (m,), (m,)]
     )
     out = torch.zeros((m,), dtype=X.dtype, device=X.device)
@@ -258,7 +267,7 @@ def gram_matvec_sym(
         global sym_tc_launches
         sym_tc_launches += 1
         return out
-    fn = getattr(lib, f"plssvm_gram_matvec_sym_{suffix}")
+    fn = ffma_entry(lib, "matvec_sym", X.dtype)
     with torch.cuda.device(X.device):
         err = fn(
             X.data_ptr(), sq.data_ptr(), v.data_ptr(), out.data_ptr(), m, d,
@@ -303,7 +312,7 @@ def gram_matvec_rect(
     _require_cuda(P, "gram_matvec_rect")
     n_p, d = P.shape
     n_s = S.shape[0]
-    suffix = _check_operands(
+    _check_operands(
         kind,
         [("P", P), ("S", S), ("sq_p", sq_p), ("sq_s", sq_s), ("a", a)],
         [(n_p, d), (n_s, d), (n_p,), (n_s,), (n_s,)],
@@ -324,7 +333,7 @@ def gram_matvec_rect(
         global rect_tc_launches
         rect_tc_launches += 1
         return out
-    fn = getattr(lib, f"plssvm_gram_matvec_rect_{suffix}")
+    fn = ffma_entry(lib, "matvec_rect", P.dtype)
     with torch.cuda.device(P.device):
         err = fn(
             P.data_ptr(), S.data_ptr(), sq_p.data_ptr(), sq_s.data_ptr(),
@@ -436,7 +445,7 @@ def gram_matvec_dual(
     _require_cuda(Xr, "gram_matvec_dual")
     mr, d = Xr.shape
     mc = Xc.shape[0]
-    suffix = _check_operands(
+    _check_operands(
         kind,
         [("Xr", Xr), ("Xc", Xc), ("sq_r", sq_r), ("sq_c", sq_c),
          ("v_c", v_c), ("v_r", v_r)],
@@ -459,7 +468,7 @@ def gram_matvec_dual(
         global dual_tc_launches
         dual_tc_launches += 1
         return out_r, out_c
-    fn = getattr(lib, f"plssvm_gram_matvec_dual_{suffix}")
+    fn = ffma_entry(lib, "matvec_dual", Xr.dtype)
     with torch.cuda.device(Xr.device):
         err = fn(
             Xr.data_ptr(), Xc.data_ptr(), sq_r.data_ptr(), sq_c.data_ptr(),

@@ -18,7 +18,7 @@ from the root of another checkout (a variant of a tile), it times that
 checkout's tile, so variants compare in separate processes on one card;
 copied into a checkout whose float64 B and D still run on the FFMA tile,
 ``--rect`` times that tile through the same wrapper.
-The tiles' bounds and the FFMA tiles beside them are ``chip_smoke.py``'s.
+The tiles' bounds are ``chip_smoke.py``'s.
 ``--cpu`` runs the wrappers' plain versions on the CPU; without it the
 tool runs on the GPU, and fails where there is none.
 """

@@ -62,7 +62,8 @@ def test_chi2_gamma_is_one_over_the_mean_distance_in_float32():
 def test_entry_errors_read_columns_of_k(kernel, case):
     """On CPU tensors the wrappers are the plain versions: each picked
     column is K(rows, X[j]), so the float32 "kernel" errs exactly as the
-    plain version, and float64 not at all."""
+    plain version against float64, and the float64 one exactly as the
+    float64 plain version against long double, by a rounding or two."""
     fn, rect, one_column = KERNELS[kernel]
     _, X, cols = next(c for c in entry_cases(17, torch.Generator().manual_seed(3)) if c[0] == case)
     X32 = X.float()
@@ -72,7 +73,7 @@ def test_entry_errors_read_columns_of_k(kernel, case):
     assert 0 < plain < 1e-6 and got == plain
     got, plain = entry_errors(fn, X, cols, gamma, points=X[:40] if rect else None,
                               one_column=one_column)
-    assert got == plain == 0.0
+    assert 0 < plain < 1e-14 and got == plain
 
 
 def test_entry_errors_flag_a_wrong_column():

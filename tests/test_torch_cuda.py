@@ -33,7 +33,9 @@ import pytest
 import torch
 
 from plssvm_tpu_torch.ops import banded, distance, gram_matmat, gram_matvec, matvec
-from plssvm_tpu_torch.ops.entry_check import chi2_gamma, entry_cases, entry_errors
+from plssvm_tpu_torch.ops.entry_check import (
+    chi2_f64_in_range, chi2_gamma, entry_cases, entry_errors,
+)
 from plssvm_tpu_torch.parameter import KernelFunctionType as TKind
 
 COEF0 = {"polynomial": 1.0, "rbf": 0.0, "sigmoid": -0.5}
@@ -210,34 +212,68 @@ def test_distance_kernels_against_plain(cuda_device, name, dtype, tol, n_classes
     assert after == tuple(b + 1 for b in before)
 
 
+#: the per-entry cases of both types, and those of float64 alone, outside
+#: the range of the divide-free float64 quotient (entry_check.entry_cases)
+ENTRY_CASES = ["zero-rich", "1e-18", "1e12", "subnormal"]
+OUT_OF_RANGE_CASES = ["1e-200", "1e200", "mixed"]
+
+
+def _dual_entry_kernels():
+    """Kernels L and M as per-entry kernels of K(P, S): K(P, S) @ V as the
+    rows output of the walk over (P, S) and as the columns output of the
+    walk over (S, P), each with the other right-hand side 0."""
+    kernels = []
+    for fn in (distance.distance_matvec_dual, distance.distance_matmat_dual):
+        def zeros(rows, V):
+            return torch.zeros((rows,) + V.shape[1:], dtype=V.dtype, device=V.device)
+
+        kernels += [
+            (lambda P, S, V, fn=fn, **kw: fn(P, S, V, zeros(P.shape[0], V), **kw)[0],
+             fn is distance.distance_matvec_dual),
+            (lambda P, S, V, fn=fn, **kw: fn(S, P, zeros(P.shape[0], V), V, **kw)[1],
+             fn is distance.distance_matvec_dual),
+        ]
+    return kernels
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype,case", [(torch.float32, c) for c in ENTRY_CASES]
+                         + [(torch.float64, c) for c in ENTRY_CASES + OUT_OF_RANGE_CASES])
 @pytest.mark.parametrize("d", [3, 203, 784])
-@pytest.mark.parametrize("case", ["zero-rich", "1e-18", "1e12", "subnormal"])
 def test_chi_squared_per_entry(cuda_device, case, d, dtype):
-    """Each entry of the chi-squared K from kernels E-H, one-hot right-hand
-    sides picking columns of K, against the plain version in float64 on
-    the same values.  float32 (the SFU reciprocal): the worst relative
-    error at most 4x the float32 plain version's own (exact IEEE division)
-    and under 1e-4; float64 (IEEE division) within 1e-12.  Rows with a
-    third of the entries 0, one all-0 row and one single non-zero, as they
-    are, scaled by 1e-18 and 1e12, and with float32-subnormal entries."""
+    """Each entry of the chi-squared K from kernels E-H, L and M (both
+    outputs), one-hot right-hand sides picking columns of K, against a
+    reference on the same values.  float32 (the SFU reciprocal), against
+    the plain version in float64: the worst relative error at most 4x the
+    float32 plain version's own (exact IEEE division) and under 1e-4.
+    float64, against the same function in long double: at most 2x the
+    float64 plain version's own error, and within 1e-12 on the cases whose
+    values all take the divide-free quotient.  Rows with a third of the
+    entries 0, one all-0 row and one single non-zero, as they are, scaled
+    by 1e-18 and 1e12, and with float32-subnormal entries; in float64 also
+    scaled by 1e-200 and 1e200 and with every second feature chunk scaled
+    by 1e-200, where chunks take the IEEE divide."""
     g = torch.Generator().manual_seed(46)
-    _, X, columns = next(c for c in entry_cases(d, g) if c[0] == case)
+    cases = entry_cases(d, g, out_of_range=dtype == torch.float64)
+    _, X, columns = next(c for c in cases if c[0] == case)
     X = X.to(cuda_device, dtype)
+    in_range = dtype == torch.float64 and chi2_f64_in_range(X)
+    assert in_range == (dtype == torch.float64 and case in ENTRY_CASES)
     gamma = chi2_gamma(X, columns)
-    for kernel, points, one_column in (
-        (distance.distance_matvec_sym, None, True),
-        (distance.distance_matvec_rect, X, True),
-        (distance.distance_matmat_sym, None, False),
-        (distance.distance_matmat_rect, X, False),
-    ):
-        got, plain = entry_errors(kernel, X, columns, gamma, points=points,
+    for kernel, rect, one_column in [
+        (distance.distance_matvec_sym, False, True),
+        (distance.distance_matvec_rect, True, True),
+        (distance.distance_matmat_sym, False, False),
+        (distance.distance_matmat_rect, True, False),
+    ] + [(k, True, one) for k, one in _dual_entry_kernels()]:
+        got, plain = entry_errors(kernel, X, columns, gamma, points=X if rect else None,
                                   one_column=one_column)
+        name = getattr(kernel, "__name__", "dual")
         if dtype == torch.float64:
-            assert got <= 1e-12, (kernel.__name__, got)
+            assert got <= 2 * plain, (name, got, plain)
+            assert got <= 1e-12 or not in_range, (name, got)
         else:
-            assert got <= min(4 * plain, 1e-4), (kernel.__name__, got, plain)
+            assert got <= min(4 * plain, 1e-4), (name, got, plain)
 
 
 @pytest.mark.cuda
