@@ -119,10 +119,18 @@ another checkout (a parent commit unpacked with ``git archive``) in the
 build phase and logs, for every kernel instantiation the two share,
 whether its registers, spills and shared memory are the same, and which
 instantiations only one of them has; then, right after the kernels
-phase, it times float64 E-H, L and M, float32 G at phase 10's shape and
-the float64 chi-squared fit on one device and on the ring in both
-checkouts, each in a process of its own (other, here, here, other), and
-logs the pairs beside the bounds (``phase_compare``).
+phase, it times float64 E-H, L (float32 and float64, laplacian and
+chi-squared) and M, the rows-only F beside L, J at "highest", float32 G
+at phase 10's shape and the float64 chi-squared and laplacian fits on one
+device and on the ring in both checkouts, each in a process of its own
+(other, here, here, other), and logs the pairs beside the bounds
+(``phase_compare``, ``_compare_times``).
+
+The build phase fails unless the matvec walk of J and L
+(``matvec_dual_kernel``, csrc/dual.cu) compiled once per float32 kind and
+per float64 distance kind without spilling; the kernels phase logs its
+blocks per SM (its persistent grid) and, at the ring's block, L at C = 1
+beside the rows-only F on the same block.
 
 Before the last line it prints the card's name and power limit as
 nvidia-smi reports them, and one JSON object describing each kernel (the
@@ -271,6 +279,14 @@ def phase_device():
     return name, smi
 
 
+#: kernel_resources() names of the matvec walk's instantiations (csrc/dual.cu
+#: matvec_dual_kernel): J at "highest" in float32, L in both types
+WALK_INSTANTIATIONS = (
+    [f"gram_matvec_dual f32 {k}" for k in ("poly", "rbf", "sigmoid")]
+    + [f"distance_matvec_dual {t} {k}" for t in ("f32", "f64")
+       for k in ("laplacian", "chi_squared")])
+
+
 #: run in another checkout: build its kernels, print their resources
 _OTHER_BUILD = (
     "import json; from plssvm_tpu_torch.ops import _build; _build.build(); "
@@ -311,6 +327,16 @@ def phase_build(compare=None):
             f"{r['smem_bytes']} B static shared memory" for n, r in sorted(dmma.items())))
     if "C7515" in ptxas:
         raise AssertionError("ptxas serialised a tensor-core product (C7515)")
+    # the matvec walk (J at "highest", L): one instantiation per float32
+    # kind and per float64 distance kind, none spilling
+    walk = {n: r for n, r in mine.items()
+            if n.split()[0] in ("gram_matvec_dual", "distance_matvec_dual")}
+    if sorted(walk) != sorted(WALK_INSTANTIATIONS) or any(
+            r.get("spill_bytes", 0) for r in walk.values()):
+        raise AssertionError(f"the matvec walk's instantiations: {walk}")
+    log("build", "matvec_dual_kernel (the walk of J and L): " + ", ".join(
+        f"{n.split(' ', 1)[1]} {r['registers']} registers, {r.get('spill_bytes', 0)} spill "
+        f"bytes" for n, r in sorted(walk.items())))
     if compare is not None:
         other = subprocess.run([sys.executable, "-c", _OTHER_BUILD], cwd=compare,
                                capture_output=True, text=True, timeout=900)
@@ -859,6 +885,52 @@ def _dual_blocks_per_sm():
         raise AssertionError(f"the dual tensor-core tile fits fewer than 2 blocks an SM: {found}")
 
 
+def _walk_blocks_per_sm():
+    """The matvec walk's (J at "highest", L) blocks per SM for each type and
+    kind, logged beside the grid it launches at the ring's blocks; raises
+    where the query fails or finds none."""
+    import ctypes
+
+    from plssvm_tpu_torch.ops import _build
+
+    lib = _build.load()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    found = {}
+    for f64, kinds in ((0, ((1, "poly"), (2, "rbf"), (3, "sigmoid"), (4, "laplacian"),
+                            (5, "chi_squared"))),
+                       (1, ((4, "laplacian"), (5, "chi_squared")))):
+        for kind, name in kinds:
+            blocks = ctypes.c_int(0)
+            err = lib.plssvm_dual_walk_blocks_per_sm(f64, kind, ctypes.byref(blocks))
+            if err != 0 or blocks.value < 1:
+                raise AssertionError(f"the matvec walk {name} f{64 if f64 else 32}: occupancy "
+                                     f"query failed ({err}, {blocks.value} blocks)")
+            found[f"{'f64' if f64 else 'f32'} {name}"] = blocks.value
+    log("kernels", f"matvec walk (J at highest, L) blocks per SM on {sms} SMs, the persistent "
+        "grid SMs x blocks: " + ", ".join(f"{k} {v} ({v * sms} blocks)"
+                                           for k, v in found.items()))
+
+
+def _walk_epilogue_split(args, kw, label):
+    """Kernel L at C = 1 beside the rows-only walk F on the same block, each
+    per call and back to back (``_back_to_back_ms``): F evaluates the same
+    pairs without the column sums, so the difference bounds what the dual
+    walk's second output costs; logged."""
+    from plssvm_tpu_torch.ops import distance
+
+    Xr, Xc, v_c, v_r = args
+    times = {}
+    for name, fn in (("L", lambda: distance.distance_matvec_dual(*args, **kw)),
+                     ("F", lambda: distance.distance_matvec_rect(Xr, Xc, v_c, **kw))):
+        times[name] = (_median_ms(fn), _back_to_back_ms(fn))
+    (dual, dual_b2b), (rows, rows_b2b) = times["L"], times["F"]
+    log("kernels", f"epilogue at C=1, L {label}: the dual walk {dual:.4f} ms a call, "
+        f"{dual_b2b:.4f} back to back; the rows-only walk F on the same block {rows:.4f} / "
+        f"{rows_b2b:.4f}; the column sums and the walks' other differences "
+        f"{dual_b2b - rows_b2b:+.4f} ms back to back ({(dual_b2b - rows_b2b) / dual_b2b:+.1%} "
+        f"of L); the host's share of a call {dual - dual_b2b:.4f} ms")
+
+
 def _dual_kernels(gen, main_err, main_ms, timing, bounds):
     """Kernels J-M (the ring's dual walks: csrc/dual.cu, J and K on the
     dual tensor-core tile of csrc/gram_tc.cuh at "f32" and "bf16" and on
@@ -873,6 +945,7 @@ def _dual_kernels(gen, main_err, main_ms, timing, bounds):
     from plssvm_tpu_torch.parameter import KernelFunctionType as K
 
     _dual_blocks_per_sm()
+    _walk_blocks_per_sm()
     kinds = ((K.POLYNOMIAL, 1.0), (K.RBF, 0.0), (K.SIGMOID, -0.5), (K.LAPLACIAN, 0.0),
              (K.CHI_SQUARED, 0.0))
     worst = {}
@@ -966,6 +1039,8 @@ def _dual_kernels(gen, main_err, main_ms, timing, bounds):
                                   TIER_OF.get(tier), exp=kind == K.RBF)
         main_ms[(name, "ring")] = (timing[key][0], bounds[key][0])
         _log_bound(name, label, timing[key][0], bounds[key])
+        if name == "distance_matvec_dual":
+            _walk_epilogue_split(args, kw, label)
         if tier:
             _time_dual_tiers(name, args, kw, mr, d, columns, base, timing[key][0])
     lap = torch.randn(5000, 200, generator=gen, dtype=torch.float64).to("cuda", torch.float32)
@@ -1079,6 +1154,24 @@ def _median_ms(fn, repeats=20, warmup=2):
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def _back_to_back_ms(fn, calls=20, warmup=2):
+    """ms per call of ``calls`` calls made back to back: the host enqueues
+    the next call while the card runs this one, so a kernel of a fraction
+    of a millisecond is timed without the wrapper's host work (its
+    launches, the zeroed outputs' fills included)."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(calls):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / calls
 
 
 def _time_pair(name, kernel, plain, args, kw, work, label, plain_repeats=20,
@@ -1956,6 +2049,8 @@ def _f64_distance_kernels(gen, main_err, main_ms, timing, bounds):
         bounds[key] = _dual_bound(2500, 2500, 200, columns, str(kind), 8, 0, "fp64")
         _log_bound(name, label, timing[key][0], bounds[key])
         main_ms[(f"{name}_f64", "ring-f64")] = (timing[key][0], bounds[key][0])
+        if name == "distance_matvec_dual":
+            _walk_epilogue_split(args, kw, label)
     lap = torch.randn(5000, 200, generator=gen, dtype=torch.float64).to("cuda")
     _ring_distance_shards(gen, main_err, main_ms, lap, hist, chi2_gamma, "ring-f64")
 
@@ -2071,18 +2166,25 @@ def _chi2_f64_entry_ratios(X, P, gamma):
     return worst
 
 
-def _chi2_f64_times():
+def _compare_times():
     """What ``--compare-build`` times in each checkout, in a process of its
     own, through wrappers and a CSVM that the parent has too: kernels E-H in
     float64 on histogram rows at m = 16384, d = 256 (C = 10 for G and H),
-    laplacian and chi-squared, L and M at the ring's block (2500^2 x 200,
-    M with C = 10), G in float32 at phase 10's shape (59999 x 784, C = 10),
-    each the median ms of 5 after 1 warm-up beside its bound; and the
-    float64 chi-squared fit of phase 9's classes (10000 x 200, 10 classes,
-    epsilon 1e-10) on one device and on the four-shard ring, s/iteration.
-    Returns {label: [value, bound ms or None]}."""
+    laplacian and chi-squared; at the ring's block (2500^2 x 200) the
+    matvec walk L in float32 and float64, laplacian (Gaussian rows) and
+    chi-squared (histogram rows), M in float64 (C = 10) and the rows-only
+    walk F (laplacian) in both types; J at "highest" (float32 RBF) at the
+    ring's block of config 3's width, 12500^2 x 500; G in float32 at phase
+    10's shape (59999 x 784, C = 10); each in ms beside its bound, the
+    ring block's and J back to back (``_back_to_back_ms``: 20 calls, J 5),
+    the others the median of 5 calls after 1 warm-up; and
+    the float64 chi-squared fit of phase 9's classes (10000 x 200, 10
+    classes) and the float64 laplacian fit of phase 8's config 2 rows
+    (10000 x 200, two classes), epsilon 1e-10, on one device and on the
+    four-shard ring, s/iteration.  Returns {label: [value, bound ms or
+    None]}."""
     import plssvm_tpu_torch as port
-    from plssvm_tpu_torch.ops import distance
+    from plssvm_tpu_torch.ops import distance, gram_matvec
     from plssvm_tpu_torch.parameter import KernelFunctionType as K
 
     port.set_verbosity("quiet")
@@ -2105,21 +2207,48 @@ def _chi2_f64_times():
                 out[f"{name} f64 {kind} {m}x{d} C={columns}"] = [
                     _median_ms(lambda: kernel(*args, **kw), 5, 1), bound[0]]
     del X, v, V
+    # the ring's block: L both types and kinds, M in float64, F beside L
     hist = torch.as_tensor(_draw_histograms(rng, _histogram_classes(rng, 200), 5000)[0],
                            dtype=torch.float64, device="cuda")
-    for name, kernel, kind, gamma, columns in (
-        ("distance_matmat_dual", distance.distance_matmat_dual, K.CHI_SQUARED,
-         _chi2_gamma(rng, hist.cpu().numpy()), MC_CLASSES),
-        ("distance_matvec_dual", distance.distance_matvec_dual, K.LAPLACIAN, 1.0 / 200, 1),
-    ):
-        tail = (columns,) if columns > 1 else ()
-        Xr, Xc = hist[:2500].contiguous(), hist[2500:].contiguous()
-        v_c, v_r = (torch.randn(2500, *tail, generator=gen, dtype=torch.float64).to("cuda")
-                    for _ in range(2))
-        out[f"{name} f64 {kind} 2500x2500x200 C={columns}"] = [
-            _median_ms(lambda: kernel(Xr, Xc, v_c, v_r, kind=kind, gamma=gamma), 5, 1),
-            _dual_bound(2500, 2500, 200, columns, str(kind), 8, 0, "fp64")[0]]
-    del hist
+    chi2_gamma = _chi2_gamma(rng, hist.cpu().numpy())
+    lap = torch.randn(5000, 200, generator=gen, dtype=torch.float64).to("cuda")
+    for dtype in (torch.float64, torch.float32):
+        tag, itemsize = ("f64", 8) if dtype == torch.float64 else ("f32", 4)
+        fp64 = "fp64" if dtype == torch.float64 else None
+        for kind, rows, gamma in ((K.CHI_SQUARED, hist, chi2_gamma),
+                                  (K.LAPLACIAN, lap, 1.0 / 200)):
+            Xr, Xc = rows[:2500].to(dtype).contiguous(), rows[2500:].to(dtype).contiguous()
+            kw = dict(kind=kind, gamma=gamma)
+            walks = [("distance_matvec_dual", distance.distance_matvec_dual, 1)]
+            if kind == K.CHI_SQUARED and dtype == torch.float64:
+                walks.append(("distance_matmat_dual", distance.distance_matmat_dual,
+                              MC_CLASSES))
+            for name, kernel, columns in walks:
+                tail = (columns,) if columns > 1 else ()
+                v_c, v_r = (torch.randn(2500, *tail, generator=gen,
+                                        dtype=torch.float64).to("cuda", dtype)
+                            for _ in range(2))
+                out[f"{name} {tag} {kind} 2500x2500x200 C={columns}"] = [
+                    _back_to_back_ms(lambda: kernel(Xr, Xc, v_c, v_r, **kw)),
+                    _dual_bound(2500, 2500, 200, columns, str(kind), itemsize, 0, fp64)[0]]
+            if kind == K.LAPLACIAN:
+                out[f"distance_matvec_rect {tag} laplacian 2500x2500x200 C=1 (rows only)"] = [
+                    _back_to_back_ms(lambda: distance.distance_matvec_rect(Xr, Xc, v_c, **kw)),
+                    _rect_bound(2500, 2500, 200, 1, "laplacian", itemsize, 0, fp64)[0]]
+    del hist, lap
+    # J at "highest" at config 3's ring block (the FFMA walk)
+    X = torch.randn(25000, 500, generator=gen, dtype=torch.float64).to("cuda", torch.float32)
+    X = X / X.abs().amax(0)
+    Xr, Xc = X[:12500].contiguous(), X[12500:].contiguous()
+    sq_r, sq_c = (Xr * Xr).sum(-1), (Xc * Xc).sum(-1)
+    v_c, v_r = (torch.randn(12500, generator=gen, dtype=torch.float64).to("cuda", torch.float32)
+                for _ in range(2))
+    out["gram_matvec_dual f32 rbf 12500x12500x500 highest"] = [
+        _back_to_back_ms(lambda: gram_matvec.gram_matvec_dual(
+            Xr, Xc, sq_r, sq_c, v_c, v_r, kind=K.RBF, gamma=1.0 / 500, coef0=0.0, degree=3,
+            precision="highest"), 5, 1),
+        _dual_bound(12500, 12500, 500, 1, "gram", 4, 1, exp=True)[0]]
+    del X, Xr, Xc
     X = torch.as_tensor(_draw_histograms(rng, _histogram_classes(rng, 784), 59999)[0],
                         dtype=torch.float32, device="cuda")
     V = torch.randn(59999, MC_CLASSES, generator=gen, dtype=torch.float64).to("cuda",
@@ -2129,38 +2258,49 @@ def _chi2_f64_times():
                                                         gamma=1.0 / 784), 5, 1),
         _sym_bound(59999, 784, MC_CLASSES, "chi_squared", 4)[0]]
     del X, V
-    # phase 9's classes, in memory
+    # phase 9's classes and phase 8's config 2 rows, in memory
     rng = np.random.default_rng(SEED + 12)
     probs = _histogram_classes(rng, 200)
     X, y, _ = _draw_histograms(rng, probs, 10000)
     X_test, y_test, _ = _draw_histograms(rng, probs, 2000)
-    cell = dict(labels=y_test, params=dict(kernel_type="chi_squared",
-                                           gamma=_chi2_gamma(rng, X)))
-    data = (port.DataSet(X, y, dtype=np.float64), port.DataSet(X_test, y_test, dtype=np.float64))
-    for label, devices in (("one device", None), ("ring", ["cuda:0"] * RING_SHARDS)):
-        run = _ring_run(cell, *data, np.float64, RING_F64_EPSILON, devices)
-        fit = f"chi-squared f64 fit, 10000x200, {MC_CLASSES} classes, {label}"
-        out[f"{fit}: s/iteration"] = [run["s_per_it"], None]
-        out[f"{fit}: iterations"] = [run["iterations"], None]
+    chi2_cell = dict(labels=y_test, params=dict(kernel_type="chi_squared",
+                                                gamma=_chi2_gamma(rng, X)))
+    chi2_data = (X, y, X_test, y_test)
+    rng = np.random.default_rng(SEED)  # _write_config2's draws
+    config2 = []
+    for n in (10000, 2000):
+        labels = np.where(rng.random(n) < 0.5, -1, 1)
+        config2 += [rng.normal(size=(n, 200)) + 0.1 * labels[:, None], labels]
+    lap_cell = dict(labels=config2[3], params=dict(kernel_type="laplacian"))
+    for fit, cell, (X, y, X_test, y_test) in (
+        (f"chi-squared f64 fit, 10000x200, {MC_CLASSES} classes", chi2_cell, chi2_data),
+        ("laplacian f64 fit, config 2's 10000x200", lap_cell, config2),
+    ):
+        data = (port.DataSet(X, y, dtype=np.float64),
+                port.DataSet(X_test, y_test, dtype=np.float64))
+        for label, devices in (("one device", None), ("ring", ["cuda:0"] * RING_SHARDS)):
+            run = _ring_run(cell, *data, np.float64, RING_F64_EPSILON, devices)
+            out[f"{fit}, {label}: s/iteration"] = [run["s_per_it"], None]
+            out[f"{fit}, {label}: iterations"] = [run["iterations"], None]
     return out
 
 
-#: run in a checkout: import the package there and print _chi2_f64_times()
+#: run in a checkout: import the package there and print _compare_times()
 #: of the chip_smoke.py named by the first argument
 _TIMES = (
     "import importlib.util, json, sys; "
     "spec = importlib.util.spec_from_file_location('chip_smoke', sys.argv[1]); "
     "smoke = importlib.util.module_from_spec(spec); spec.loader.exec_module(smoke); "
-    "print(json.dumps(smoke._chi2_f64_times()))"
+    "print(json.dumps(smoke._compare_times()))"
 )
 
 
 def phase_compare(other):
-    """``--compare-build``: ``_chi2_f64_times`` in the other checkout (its
+    """``--compare-build``: ``_compare_times`` in the other checkout (its
     kernels, built in the build phase) and in this one, each in a process
     of its own, in the order other, here, here, other; per label both
-    checkouts' times, the faster of each pair, their ratio and the shares
-    of the bound, logged."""
+    checkouts' values (ms, s/iteration or iterations), the faster of each
+    pair, their ratio and the shares of the bound, logged."""
     here = os.path.dirname(os.path.abspath(__file__))
     runs = []
     for root in (other, here, here, other):
@@ -3007,8 +3147,9 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description="Drive the port's main path on one GPU.")
     parser.add_argument("--compare-build", metavar="DIR",
                         help="another checkout whose kernels' resources the build phase "
-                             "compares with these, and whose float64 distance kernels "
-                             "and chi-squared fits the compare phase times beside these")
+                             "compares with these, and whose distance kernels, J at "
+                             "'highest' and float64 distance fits the compare phase times "
+                             "beside these")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available.",

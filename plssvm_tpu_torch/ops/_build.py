@@ -284,6 +284,10 @@ def load() -> ctypes.CDLL:
     # (bf16, kind, int* blocks): the dual tensor-core tile's blocks per SM
     lib.plssvm_gram_dual_tc_blocks_per_sm.argtypes = [cint, cint, ptr]
     lib.plssvm_gram_dual_tc_blocks_per_sm.restype = cint
+    # (f64, kind, int* blocks): the matvec walk's (J at "highest", L) blocks
+    # per SM
+    lib.plssvm_dual_walk_blocks_per_sm.argtypes = [cint, cint, ptr]
+    lib.plssvm_dual_walk_blocks_per_sm.restype = cint
     lib.plssvm_cuda_error_string.argtypes = [cint]
     lib.plssvm_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

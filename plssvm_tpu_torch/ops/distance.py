@@ -200,7 +200,13 @@ def distance_matvec_dual(
     """``(K @ v_c, K.T @ v_r)`` with ``K = K(Xr, Xc)`` for a laplacian /
     chi-squared kernel (kernel L), one walk of the block.
 
-    ``Xr`` (mr, d), ``Xc`` (mc, d), ``v_c`` (mc,), ``v_r`` (mr,).
+    ``Xr`` (mr, d), ``Xc`` (mc, d), ``v_c`` (mc,), ``v_r`` (mr,).  On CUDA
+    tensors, float32 or float64, the matvec walk of ``csrc/dual.cu``: a
+    persistent grid of the card's SMs times the blocks an SM holds, each
+    block an equal run of strips of the block's row tiles, its chunks of
+    features copied asynchronously into a double buffer; row sums kept in
+    registers along a run's row tile, column sums reduced by warp shuffles,
+    both added into zeroed outputs by atomics.
     """
     _check_distance_kind(kind)
     if Xr.device.type == "cpu":

@@ -66,7 +66,7 @@ sym_dmma_launches = 0
 rect_dmma_launches = 0
 #: kernel A's launches made by kernel_matvec
 kernel_matvec_launches = 0
-#: kernel J's launches (gram_matvec_dual) on the FFMA tile, on the
+#: kernel J's launches (gram_matvec_dual) on the FFMA matvec walk, on the
 #: tensor-core tile and, float64, on the DMMA tile
 dual_launches = 0
 dual_tc_launches = 0
@@ -432,8 +432,10 @@ def gram_matvec_dual(
     squared row norms, ``v_c`` (mc,), ``v_r`` (mr,); ``precision`` the
     tier: on float32 CUDA tensors "f32" and "bf16" take the dual
     tensor-core tile on :func:`tier_operand`'s copies of Xr and Xc with the
-    given norms, "highest" the FFMA tile; float64 CUDA tensors the dual
-    DMMA tile at every tier, on :func:`dmma_operand`'s operands.
+    given norms, "highest" the FFMA matvec walk of ``csrc/dual.cu`` (kernel
+    L's persistent walk with the Gram product, on Xr and Xc as they are);
+    float64 CUDA tensors the dual DMMA tile at every tier, on
+    :func:`dmma_operand`'s operands.
     """
     _check_gram_kind(kind)
     _plain.check_precision(precision)

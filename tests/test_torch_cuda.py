@@ -651,6 +651,14 @@ def test_solve_and_predict_take_the_tier_kernels(cuda_device, tier, n_labels):
 #: enough tiles for runs of 2 with a short last run (2100 x 17000)
 DUAL_SHAPES = [(1, 1, 5), (65, 129, 3), (300, 77, 203), (1037, 513, 37), (129, 300, 1280),
                (130, 1100, 13), (2100, 17000, 37)]
+#: the edges of the matvec walk's persistent grid (J at "highest", L;
+#: csrc/dual.cu): exactly one row tile of 128 rows and one step of 8
+#: strips, and of 64 (chi-squared, float64 laplacian strips of 8 columns);
+#: one tile plus one row, plus one column; d = 1, 15, 16, 17 and 784 (one
+#: chunk of 16 features, one more or one less); fewer units than the
+#: card's SMs; more than one wave of blocks; mr != mc both ways
+WALK_SHAPES = [(128, 128, 16), (64, 64, 16), (129, 128, 17), (128, 129, 15), (65, 64, 1),
+               (300, 200, 16), (2500, 2100, 17), (300, 2500, 784)]
 
 
 def _dual_case(mr, mc, d, n_classes, dtype, seed, device, non_negative=False):
@@ -674,7 +682,7 @@ def _dual_case(mr, mc, d, n_classes, dtype, seed, device, non_negative=False):
 ])
 @pytest.mark.parametrize("name", list(COEF0))
 @pytest.mark.parametrize("n_classes", [None, 1, 3, 10, 37])
-@pytest.mark.parametrize("mr,mc,d", DUAL_SHAPES)
+@pytest.mark.parametrize("mr,mc,d", DUAL_SHAPES + WALK_SHAPES)
 def test_gram_dual_against_plain(cuda_device, mr, mc, d, n_classes, name, precision, dtype, tol):
     """Kernels J (v (m,)) and K (V (m, C)) on ragged mr != mc blocks, both
     outputs, against the plain version on the tier's operands; one launch,
@@ -708,7 +716,7 @@ def test_gram_dual_against_plain(cuda_device, mr, mc, d, n_classes, name, precis
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
 @pytest.mark.parametrize("name", ["laplacian", "chi_squared"])
 @pytest.mark.parametrize("n_classes", [None, 1, 3, 10, 37])
-@pytest.mark.parametrize("mr,mc,d", DUAL_SHAPES)
+@pytest.mark.parametrize("mr,mc,d", DUAL_SHAPES + WALK_SHAPES)
 def test_distance_dual_against_plain(cuda_device, mr, mc, d, n_classes, name, dtype, tol):
     """Kernels L and M on ragged blocks of zero-rich rows, both outputs."""
     Xr, Xc, v_c, v_r = _dual_case(mr, mc, d, n_classes, dtype, 53, cuda_device, True)
@@ -723,6 +731,41 @@ def test_distance_dual_against_plain(cuda_device, mr, mc, d, n_classes, name, dt
     got = kernel(Xr, Xc, v_c, v_r, **kw)
     assert getattr(distance, counter) == before + 1
     for g, w in zip(got, plain(Xr, Xc, v_c, v_r, **kw)):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        assert (g - w).abs().max() <= tol * w.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype,tol", [
+    ("laplacian", torch.float32, 1e-4), ("laplacian", torch.float64, 1e-10),
+    ("chi_squared", torch.float32, 1e-4), ("chi_squared", torch.float64, 1e-10),
+    ("rbf", torch.float32, 1e-4),
+])
+@pytest.mark.parametrize("mr,mc,d", [(300, 200, 15), (129, 2100, 203)])
+def test_dual_walk_on_unaligned_views(cuda_device, mr, mc, d, name, dtype, tol):
+    """The matvec walk (L; J at "highest", float32 only: float64 J takes the
+    dual DMMA tile) on row views one row into their storage with d odd, so
+    that no row of Xr or Xc starts on a 16-byte boundary, both outputs
+    against the plain version."""
+    Xr, Xc, v_c, v_r = _dual_case(mr + 1, mc + 1, d, None, dtype, 55, cuda_device, True)
+    Xr, Xc, v_c, v_r = Xr[1:], Xc[1:], v_c[1:], v_r[1:]
+    assert Xr.is_contiguous() and Xr.data_ptr() % 16 and Xc.data_ptr() % 16
+    if name == "rbf":
+        sq_r, sq_c = (Xr * Xr).sum(-1), (Xc * Xc).sum(-1)
+        kw = dict(kind=TKind.RBF, gamma=1.0 / d, coef0=0.0, degree=3)
+        before = gram_matvec.dual_launches
+        got = gram_matvec.gram_matvec_dual(Xr, Xc, sq_r, sq_c, v_c, v_r, precision="highest",
+                                           **kw)
+        assert gram_matvec.dual_launches == before + 1
+        want = matvec.kernel_matvec_dual_plain(Xr, Xc, sq_r, sq_c, v_c, v_r,
+                                               precision="highest", **kw)
+    else:
+        kw = dict(kind=getattr(TKind, name.upper()), gamma=1.0 / d)
+        before = distance.matvec_dual_launches
+        got = distance.distance_matvec_dual(Xr, Xc, v_c, v_r, **kw)
+        assert distance.matvec_dual_launches == before + 1
+        want = matvec.distance_matvec_dual_plain(Xr, Xc, v_c, v_r, **kw)
+    for g, w in zip(got, want):
         assert g.shape == w.shape and torch.isfinite(g).all()
         assert (g - w).abs().max() <= tol * w.abs().max()
 

@@ -245,6 +245,32 @@ def test_kernel_resources_names_the_dual_walks(tmp_path, monkeypatch):
     }
 
 
+@pytest.mark.parametrize("mangled,name", [
+    ("IfLi1EEEvPKT_S3_S3_S3_S3_S3_PS1_S4_llllliS1_S1_", "gram_matvec_dual f32 poly"),
+    ("IfLi4EEEvPKT_S3_S3_S3_S3_S3_PS1_S4_llllliS1_S1_", "distance_matvec_dual f32 laplacian"),
+    ("IdLi4EEEvPKT_S3_S3_S3_S3_S3_PS1_S4_llllliS1_S1_", "distance_matvec_dual f64 laplacian"),
+    ("IdLi5EEEvPKT_S3_S3_S3_S3_S3_PS1_S4_llllliS1_S1_", "distance_matvec_dual f64 chi_squared"),
+])
+def test_kernel_resources_names_the_persistent_matvec_walk(mangled, name, tmp_path,
+                                                            monkeypatch):
+    """kernel_resources() names the matvec walk of J and L, whose persistent
+    grid takes the strips and units (one more size than the 2-D grid's
+    column tiles), by family, type and kind; its shared memory is dynamic,
+    so ptxas reports none."""
+    library = tmp_path / "libplssvm_gram_0.so"
+    library.with_name(library.name + ".ptxas.txt").write_text(
+        "== dual.cu\n"
+        f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118matvec_dual_kernel{mangled}' "
+        "for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 128 registers, used 1 barriers, 476 bytes cmem[0]\n",
+        encoding="utf-8",
+    )
+    monkeypatch.setattr(_build, "library_path", lambda: library)
+    assert _build.kernel_resources() == {
+        name: {"spill_bytes": 0, "registers": 128, "smem_bytes": 0}}
+
+
 @pytest.mark.parametrize("tier,mangled", [("tf32", "Tf32"), ("bf16", "Bf16")])
 def test_kernel_resources_names_the_dual_tensor_core_tile(tier, mangled, tmp_path,
                                                           monkeypatch):
