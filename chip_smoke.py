@@ -67,13 +67,25 @@ Phases, one line each or more (the run stops at the first that fails):
    accuracy floor, label agreement >= 0.999, and the ring's operand copies
    per iteration.
 
+The "parse" phase runs before phase 4: the native parser
+(``plssvm_tpu_torch/native``, built with g++) against the NumPy path on
+phases 4 and 5's files and a model of config 2's size, bit for bit and
+byte for byte, each path timed; then phase 4's CLI runs with the NumPy
+I/O, native, native, NumPy.  Every CLI run (phases 4, 5, 8, 9, bf16)
+logs its file I/O seconds beside the rest and fails unless the native
+library carried its three parses and one model write.
+
 The "bf16" phase runs right after phase 5, on the files of phases 4 and
 5: both trained through ``plssvm-torch-train --gram_precision bf16`` and
 predicted through ``CSVM(gram_precision="bf16")`` (kernels A-D on the
 tensor-core tiles with bf16 operands), accuracy floors as
 phases 4 and 5, label agreement with the "f32" runs logged.  Phases 8 and
-9 follow, then 6, 7, 10 and 13 while phase 8 and 9's files exist, then
-phases 11 and 12.
+9 follow, then the "extras" phase (``phase_extras``: warm start, class
+weights through the CLIs, Jacobi and ROADMAP Queue 3's chi-squared case,
+checkpoint/resume on one device and on the ring, the debug guard) and
+the "host-clis" phase (``plssvm-torch-scale`` and
+``plssvm-torch-generate-data``, timed), then 6, 7, 10 and 13 while phase
+8 and 9's files exist, then phases 11 and 12.
 
 Phase 3 also holds kernels E-H (laplacian / chi-squared matvecs and block
 matmats, csrc/distance.cu) against their plain versions on ragged shapes
@@ -207,6 +219,10 @@ CHI_WIDTH_CG_SECONDS = 50.0
 #: 1e-6 CG reaches epsilon within the time above (26 iterations of ~1.5 s
 #: on an H100), where 1e-7 would need ~38
 CHI_WIDTH_EPSILON = 1e-6
+#: the cap on the extras phase's re-run of ROADMAP Queue 3's case (phase
+#: 9's classes in float32 to epsilon 1e-8 with Jacobi): unpreconditioned, one
+#: class ran 4343 iterations; ~10 ms an iteration keeps the cap under 30 s
+JACOBI_CHI2_MAX_ITER = 2500
 #: the matvec bench's shape and products per timing (phase 12)
 BENCH_M, BENCH_D, BENCH_ITERS = 8192, 256, 64
 #: the banded tool's default shape and products per timing (phase 11)
@@ -2344,36 +2360,79 @@ def _tracked(category, name):
     return values[-1]
 
 
+@contextlib.contextmanager
+def _model_io_seconds():
+    """Seconds spent in ``Model.load`` and ``Model.save`` (the model file's
+    parse and write) while the block runs, by wrapping both."""
+    from plssvm_tpu_torch.model import Model
+
+    spent = {"load": 0.0, "save": 0.0}
+    load, save = Model.__dict__["load"], Model.save
+
+    def timed_load(cls, *args, **kwargs):
+        start = time.perf_counter()
+        try:
+            return load.__func__(cls, *args, **kwargs)
+        finally:
+            spent["load"] += time.perf_counter() - start
+
+    def timed_save(self, *args, **kwargs):
+        start = time.perf_counter()
+        try:
+            return save(self, *args, **kwargs)
+        finally:
+            spent["save"] += time.perf_counter() - start
+
+    Model.load, Model.save = classmethod(timed_load), timed_save
+    try:
+        yield spent
+    finally:
+        Model.load, Model.save = load, save
+
+
 def _cli_fit_predict(phase, train_file, test_file, tmp, flags):
-    """Train and predict through the port's CLIs on the card; returns
-    (fit seconds, predict seconds, predicted labels)."""
+    """Train and predict through the port's CLIs on the card; returns (fit
+    seconds, predict seconds, predicted labels, file I/O): the I/O holds
+    the seconds of the fit's data parse and model write and of the
+    predict's model and data parse, and the native library's parses and
+    writes over both runs (``native/loader.py``'s counters)."""
     import plssvm_tpu_torch as port
     from plssvm_tpu_torch.cli import predict as predict_cli
     from plssvm_tpu_torch.cli import train as train_cli
+    from plssvm_tpu_torch.native import loader
 
     model_file = os.path.join(tmp, f"{phase}.model")
     out_file = os.path.join(tmp, f"{phase}.predict")
     common = ["-b", "cuda", "-p", "gpu", "-q"]
     port.global_tracker.clear()
-    t0 = time.perf_counter()
-    rc = train_cli.main(common + flags + [train_file, model_file])
-    t1 = time.perf_counter()
-    rc_predict = predict_cli.main(common + [test_file, model_file, out_file])
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    loader.reset_counts()
+    with _model_io_seconds() as model_io:
+        t0 = time.perf_counter()
+        rc = train_cli.main(common + flags + [train_file, model_file])
+        t1 = time.perf_counter()
+        fit_read = _tracked("data_set_read", "time") / 1000 if rc == 0 else 0.0
+        rc_predict = predict_cli.main(common + [test_file, model_file, out_file])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
     if rc != 0 or rc_predict != 0:
         raise AssertionError(f"{phase}: train rc {rc}, predict rc {rc_predict}")
+    io = {"fit_parse": fit_read + model_io["save"],
+          "predict_parse": _tracked("data_set_read", "time") / 1000 + model_io["load"],
+          "native": (loader.native_parses, loader.native_writes)}
     with open(out_file, encoding="utf-8") as fh:
         predicted = np.asarray([int(line) for line in fh])
-    return t1 - t0, t2 - t1, predicted
+    return t1 - t0, t2 - t1, predicted, io
 
 
-def _check_cli_run(phase, label, fit_s, predict_s, accuracy, floor, launches,
+def _check_cli_run(phase, label, fit_s, predict_s, io, accuracy, floor, launches,
                    plain_calls, sym_name, rect_name):
     """Log a CLI run and check it: the symmetric kernel launched once for
     the initial residual, once per iteration and once more every 50th; the
     rectangular one at least once; no plain version called; the accuracy
-    floor met."""
+    floor met; the three files parsed (training data, model, test data)
+    and the model written by the native library, none through the NumPy
+    path.  The log splits each CLI's seconds into its file I/O and the
+    rest."""
     iterations = _tracked("cg", "iterations")
     cg_ms = _tracked("cg", "total_runtime")
     per_class = _tracked("cg", "iterations_per_class") if "matmat" in sym_name else None
@@ -2382,6 +2441,13 @@ def _check_cli_run(phase, label, fit_s, predict_s, accuracy, floor, launches,
         + f", {cg_ms / 1000 / iterations:.6f} s/iteration, CG {cg_ms / 1000:.3f} s, "
         f"fit (CLI, parse included) {fit_s:.3f} s, predict (CLI) {predict_s:.3f} s, "
         f"accuracy {accuracy:.4f}, launches {launches}, plain calls {plain_calls}")
+    log(phase, f"{label} file I/O (native parser): fit {io['fit_parse']:.3f} s of "
+        f"{fit_s:.3f} (the rest {fit_s - io['fit_parse']:.3f} s), predict "
+        f"{io['predict_parse']:.3f} s of {predict_s:.3f} (the rest "
+        f"{predict_s - io['predict_parse']:.3f} s); native parses, writes {io['native']}")
+    if io["native"] != (3, 1):
+        raise AssertionError(f"{phase}: the native library carried {io['native']} of the "
+                             "3 parses and 1 write: a file went through the NumPy path")
     if launches[sym_name] != 1 + iterations + iterations // 50:
         raise AssertionError(f"{sym_name} launched {launches[sym_name]} times "
                              f"for {iterations} iterations")
@@ -2463,7 +2529,7 @@ def phase_end_to_end(tmp, config2_files):
 
     (train_file, _), (test_file, test_labels) = config2_files
     gram_matvec.reset_counts()
-    fit_s, predict_s, predicted = _cli_fit_predict(
+    fit_s, predict_s, predicted, io = _cli_fit_predict(
         "e2e", train_file, test_file, tmp,
         ["-t", "2", "-c", "1", "-e", str(EPSILON)])
     launches = {
@@ -2472,7 +2538,7 @@ def phase_end_to_end(tmp, config2_files):
     }
     if gram_matvec.sym_launches + gram_matvec.rect_launches != 0:
         raise AssertionError("e2e: the f32 fit or predict took the FFMA tile")
-    _check_cli_run("e2e", "config 2", fit_s, predict_s,
+    _check_cli_run("e2e", "config 2", fit_s, predict_s, io,
                    float(np.mean(predicted == test_labels)), ACCURACY_FLOOR,
                    launches, matvec.sym_plain_calls + matvec.rect_plain_calls,
                    "gram_matvec_sym_tc", "gram_matvec_rect_tc")
@@ -2508,9 +2574,10 @@ def _draw(rng, means, n):
     return rng.normal(size=(n, means.shape[1])) + means[labels], labels
 
 
-def phase_multiclass_cli(tmp):
+def _write_multiclass(tmp):
+    """Seeded 10-class 10000 x 200 train and 2000 x 200 test files (phase
+    5's), written with the port's LIBSVM writer: {name: (path, labels)}."""
     from plssvm_tpu_torch import DataSet
-    from plssvm_tpu_torch.ops import gram_matmat, gram_matvec, matvec
 
     start = time.perf_counter()
     rng = np.random.default_rng(SEED + 3)
@@ -2520,12 +2587,18 @@ def phase_multiclass_cli(tmp):
         X, y = _draw(rng, means, n)
         files[name] = (os.path.join(tmp, f"{name}.libsvm"), y)
         DataSet(X, y).save(files[name][0])
-    train_file, test_file = files["mc_train"][0], files["mc_test"][0]
     log("multiclass", f"wrote {MC_CLASSES}-class 10000x200 + 2000x200 LIBSVM "
         f"files in {time.perf_counter() - start:.2f} s")
+    return files
+
+
+def phase_multiclass_cli(tmp, files):
+    from plssvm_tpu_torch.ops import gram_matmat, gram_matvec, matvec
+
+    train_file, test_file = files["mc_train"][0], files["mc_test"][0]
     gram_matvec.reset_counts()
     gram_matmat.reset_counts()
-    fit_s, predict_s, predicted = _cli_fit_predict(
+    fit_s, predict_s, predicted, io = _cli_fit_predict(
         "multiclass", train_file, test_file, tmp,
         ["-t", "2", "-c", "1", "-e", str(EPSILON)])
     launches = {
@@ -2536,7 +2609,7 @@ def phase_multiclass_cli(tmp):
             + gram_matvec.rect_launches + gram_matvec.rect_tc_launches
             + gram_matmat.sym_launches + gram_matmat.rect_launches) != 0:
         raise AssertionError("multiclass launched the binary kernels or the FFMA tile")
-    _check_cli_run("multiclass", f"{MC_CLASSES} classes", fit_s, predict_s,
+    _check_cli_run("multiclass", f"{MC_CLASSES} classes", fit_s, predict_s, io,
                    float(np.mean(predicted == files["mc_test"][1])),
                    MC_ACCURACY_FLOOR, launches,
                    matvec.sym_matmat_plain_calls + matvec.rect_matmat_plain_calls,
@@ -2649,6 +2722,7 @@ def phase_bf16(tmp, config2_files, e2e_predicted, multiclass_files):
     phases 4 and 5; the label agreement with the "f32" runs is logged."""
     import plssvm_tpu_torch as port
     from plssvm_tpu_torch.cli import train as train_cli
+    from plssvm_tpu_torch.native import loader
     from plssvm_tpu_torch.ops import gram_matmat, gram_matvec, matvec
 
     (train_file, _), (test_file, test_labels) = config2_files
@@ -2664,6 +2738,7 @@ def phase_bf16(tmp, config2_files, e2e_predicted, multiclass_files):
         gram_matmat.reset_counts()
         model_file = os.path.join(tmp, f"bf16-{sym}.model")
         port.global_tracker.clear()
+        loader.reset_counts()
         t0 = time.perf_counter()
         rc = train_cli.main(["-b", "cuda", "-p", "gpu", "-q", "--gram_precision", "bf16",
                              "-t", "2", "-c", "1", "-e", str(EPSILON), train, model_file])
@@ -2693,6 +2768,8 @@ def phase_bf16(tmp, config2_files, e2e_predicted, multiclass_files):
         if counts[sym] != 1 + iterations + iterations // 50 or counts[rect] <= 0 \
                 or ffma != 0 or plain != 0:
             raise AssertionError(f"bf16 {label} did not go through the bf16 kernels only")
+        if (loader.native_parses, loader.native_writes) != (3, 1):
+            raise AssertionError(f"bf16 {label}: a file went through the NumPy path")
         if accuracy < floor:
             raise AssertionError(f"bf16 {label}: accuracy {accuracy} below {floor}")
     return launches
@@ -2705,11 +2782,11 @@ def phase_laplacian_cli(tmp, config2_files):
 
     (train_file, _), (test_file, test_labels) = config2_files
     distance.reset_counts()
-    fit_s, predict_s, predicted = _cli_fit_predict(
+    fit_s, predict_s, predicted, io = _cli_fit_predict(
         "laplacian", train_file, test_file, tmp,
         ["-t", "4", "-c", "1", "-e", str(EPSILON)])
     launches, plain_calls = _distance_counts()
-    _check_cli_run("laplacian", "config 2 -t 4", fit_s, predict_s,
+    _check_cli_run("laplacian", "config 2 -t 4", fit_s, predict_s, io,
                    float(np.mean(predicted == test_labels)),
                    LAPLACIAN_ACCURACY_FLOOR, launches, plain_calls,
                    "distance_matvec_sym", "distance_matvec_rect")
@@ -2743,11 +2820,11 @@ def phase_chi2_cli(tmp):
         f"chi-squared distance); Bayes-optimal accuracy {bayes:.4f} (Monte "
         "Carlo, 20000 draws)")
     distance.reset_counts()
-    fit_s, predict_s, predicted = _cli_fit_predict(
+    fit_s, predict_s, predicted, io = _cli_fit_predict(
         "chi2-cli", train_file, test_file, tmp,
         ["-t", "5", "-g", repr(gamma), "-c", "1", "-e", str(CHI2_EPSILON)])
     launches, plain_calls = _distance_counts()
-    _check_cli_run("chi2-cli", f"{MC_CLASSES} classes -t 5", fit_s, predict_s,
+    _check_cli_run("chi2-cli", f"{MC_CLASSES} classes -t 5", fit_s, predict_s, io,
                    float(np.mean(predicted == y_test)), CHI2_ACCURACY_FLOOR,
                    launches, plain_calls, "distance_matmat_sym",
                    "distance_matmat_rect")
@@ -3141,6 +3218,336 @@ def phase_bench_matvec(main_ms):
     return {k: launches[k] for k in ("kernel_matvec", "gram_matvec_sym", "gram_matvec_rect")}
 
 
+@contextlib.contextmanager
+def _numpy_io():
+    """Within the block the port's I/O takes its NumPy paths, as with
+    ``PLSSVM_TPU_TORCH_NO_NATIVE=1``: the native entry points answer
+    'unavailable'."""
+    import plssvm_tpu_torch.native as native
+
+    names = ("parse_libsvm_native", "parse_model_svs_native", "parse_arff_data_native",
+             "write_libsvm_native", "write_model_native", "write_arff_native")
+    saved = {name: getattr(native, name) for name in names}
+    for name in names:
+        setattr(native, name, (lambda *a, **k: False) if name.startswith("write")
+                else (lambda *a, **k: None))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(native, name, fn)
+
+
+def phase_parse(tmp, config2_files, mc_files):
+    """The native parser (``plssvm_tpu_torch/native``, built with g++ at
+    first use) against the NumPy path on the CLI phases' files: config 2's
+    train and test files and the 10-class files, each parsed both ways in
+    float32 (the CLIs' type), bit for bit equal; then a config 2-sized
+    model (10000 SVs x 200) written both ways, byte for byte equal but for
+    the creation-time line, and re-read both ways; then phase 4's CLI fit
+    and predict with the NumPy I/O (the port's only parser before the
+    native one), native, native, NumPy, each split into its file I/O and
+    the rest.  Logs each path's seconds; fails if the library is missing
+    or a native call fell back."""
+    import plssvm_tpu_torch as port
+    from plssvm_tpu_torch.io import libsvm, model_file
+    from plssvm_tpu_torch.io.file_reader import read_lines
+    from plssvm_tpu_torch.native import loader
+
+    start = time.perf_counter()
+    if not loader.native_available():
+        raise AssertionError("parse: the native library is not available (g++ build failed "
+                             "or PLSSVM_TPU_TORCH_NO_NATIVE is set)")
+    log("parse", f"native library built and loaded in {time.perf_counter() - start:.2f} s "
+        f"({loader._cache_dir()})")
+    paths = [("config 2 train", config2_files[0][0]), ("config 2 test", config2_files[1][0]),
+             (f"{MC_CLASSES}-class train", mc_files["mc_train"][0]),
+             (f"{MC_CLASSES}-class test", mc_files["mc_test"][0])]
+    for label, path in paths:
+        loader.reset_counts()
+        t0 = time.perf_counter()
+        X, labels = libsvm.parse_libsvm_file(path, dtype=np.float32)
+        t1 = time.perf_counter()
+        X_np, labels_np = libsvm.parse_libsvm_lines(read_lines(path, comment="#"),
+                                                    dtype=np.float32)
+        t2 = time.perf_counter()
+        if loader.native_parses != 1:
+            raise AssertionError(f"parse: {label} did not go through the native parser")
+        if not (X.dtype == X_np.dtype and np.array_equal(X, X_np) and labels == labels_np):
+            raise AssertionError(f"parse: {label} differs between the native and NumPy paths")
+        log("parse", f"{label} {X.shape[0]}x{X.shape[1]} ({os.path.getsize(path) / 1e6:.1f} MB): "
+            f"native {t1 - t0:.3f} s, NumPy {t2 - t1:.3f} s ({(t2 - t1) / (t1 - t0):.1f}x), "
+            "bit for bit equal")
+    # a model of config 2's size: its training rows, random alphas
+    X, labels = libsvm.parse_libsvm_file(config2_files[0][0], dtype=np.float32)
+    alpha = np.random.default_rng(SEED + 21).normal(size=X.shape[0]).astype(np.float32)
+    model = port.Model(port.Parameter(kernel_type="rbf", gamma=1.0 / X.shape[1]),
+                       port.DataSet(X, np.asarray(labels).astype(int), dtype=np.float32),
+                       alpha=alpha, rho=0.125)
+    files = {how: os.path.join(tmp, f"parse-{how}.model") for how in ("native", "numpy")}
+    loader.reset_counts()
+    t0 = time.perf_counter()
+    model.save(files["native"])
+    t1 = time.perf_counter()
+    read_native = model_file.parse_model_file(files["native"], dtype=np.float32)
+    t2 = time.perf_counter()
+    if (loader.native_parses, loader.native_writes) != (1, 1):
+        raise AssertionError("parse: the model file did not go through the native library")
+    with _numpy_io():
+        t3 = time.perf_counter()
+        model.save(files["numpy"])
+        t4 = time.perf_counter()
+        read_numpy = model_file.parse_model_file(files["native"], dtype=np.float32)
+        t5 = time.perf_counter()
+    contents = []
+    for how in ("native", "numpy"):
+        with open(files[how], "rb") as fh:
+            contents.append(fh.read().split(b"\n", 1)[1])
+    if contents[0] != contents[1]:
+        raise AssertionError("parse: the native and NumPy model writers differ")
+    for got, want in zip(read_native[1:4], read_numpy[1:4]):
+        if not np.array_equal(np.asarray(got), np.asarray(want)):
+            raise AssertionError("parse: the model file reads differently on the two paths")
+    # the file groups the support vectors by class: the alphas in another order
+    if read_native[4] != read_numpy[4] or not np.array_equal(np.sort(read_native[3]),
+                                                              np.sort(alpha)):
+        raise AssertionError("parse: the model file's labels or alphas did not round-trip")
+    log("parse", f"model 10000 SVs x 200 ({len(contents[0]) / 1e6:.1f} MB): write native "
+        f"{t1 - t0:.3f} s, NumPy {t4 - t3:.3f} s; read native {t2 - t1:.3f} s, NumPy "
+        f"{t5 - t4:.3f} s; files byte for byte equal, arrays bit for bit")
+    # before / after on this card: config 2's CLI runs of phase 4 with the
+    # NumPy I/O (the parser before the native one), native, native, NumPy
+    (train_file, _), (test_file, test_labels) = config2_files
+    for run, how in enumerate(("NumPy", "native", "native", "NumPy")):
+        with contextlib.ExitStack() as stack:
+            if how == "NumPy":
+                stack.enter_context(_numpy_io())
+            fit_s, predict_s, predicted, io = _cli_fit_predict(
+                f"parse-{run}", train_file, test_file, tmp,
+                ["-t", "2", "-c", "1", "-e", str(EPSILON)])
+        log("parse", f"config 2 CLI with {how} I/O (run {run + 1} of 4): fit {fit_s:.3f} s "
+            f"(file I/O {io['fit_parse']:.3f} s, the rest {fit_s - io['fit_parse']:.3f} s), "
+            f"predict {predict_s:.3f} s (file I/O {io['predict_parse']:.3f} s, the rest "
+            f"{predict_s - io['predict_parse']:.3f} s), accuracy "
+            f"{np.mean(predicted == test_labels):.4f}, native parses, writes {io['native']}")
+        if io["native"] != ((3, 1) if how == "native" else (0, 0)):
+            raise AssertionError(f"parse: the {how} CLI run's I/O went the other way")
+
+
+class _Interrupted(Exception):
+    """Raised by ``_interrupt_after`` to stop a checkpointed fit."""
+
+
+@contextlib.contextmanager
+def _interrupt_after(iteration):
+    """A checkpointed fit stops, as if killed, right after it saved the CG
+    state of ``iteration`` (or later)."""
+    from plssvm_tpu_torch.solver import checkpoint
+
+    save = checkpoint.save_checkpoint
+
+    def save_then_stop(path, ckpt):
+        save(path, ckpt)
+        if ckpt.iteration >= iteration:
+            raise _Interrupted(ckpt.iteration)
+
+    checkpoint.save_checkpoint = save_then_stop
+    try:
+        yield
+    finally:
+        checkpoint.save_checkpoint = save
+
+
+def _checkpoint_resume(label, make_svm, train, test, epsilon, tmp):
+    """Fit uninterrupted; then fit with ``checkpoint_interval=5``, stopped
+    after the save at iteration 10, and resume it from the file.  The
+    resumed fit must take the uninterrupted fit's iterations and predict
+    its labels; returns the logged facts."""
+    import plssvm_tpu_torch as port
+
+    path = os.path.join(tmp, f"extras-{label}.ckpt")
+    plain = make_svm().fit(train, epsilon=epsilon)
+    svm = make_svm()
+    with _interrupt_after(10):
+        try:
+            svm.fit(train, epsilon=epsilon, checkpoint_path=path, checkpoint_interval=5)
+            raise AssertionError(f"extras: the {label} fit ended before iteration 10")
+        except _Interrupted as stop:
+            stopped_at = stop.args[0]
+    if not os.path.isfile(path):
+        raise AssertionError(f"extras: {label} left no checkpoint")
+    port.global_tracker.clear()
+    t0 = time.perf_counter()
+    resumed = svm.fit(train, epsilon=epsilon, checkpoint_path=path, checkpoint_interval=5)
+    t1 = time.perf_counter()
+    same = float(np.mean(svm.predict(resumed, test) == svm.predict(plain, test)))
+    log("extras", f"checkpoint {label}: stopped after the save at iteration {stopped_at}, "
+        f"resumed to {resumed.n_iter} iterations in {t1 - t0:.3f} s (uninterrupted "
+        f"{plain.n_iter}), labels equal on {same:.4f}, max|d alpha| "
+        f"{float(np.max(np.abs(np.asarray(resumed.alpha) - np.asarray(plain.alpha)))):.3e}, "
+        f"file removed {not os.path.exists(path)}")
+    if resumed.n_iter != plain.n_iter or same != 1.0 or os.path.exists(path):
+        raise AssertionError(f"extras: the resumed {label} fit is not the uninterrupted one")
+
+
+def phase_extras(tmp, config2_files, mc_files, ring_cells):
+    """The solver extras on the card (float32 unless stated):
+
+    - warm start: config 2 fitted to epsilon 1e-4, then warm-started from
+      that model to 1e-8 beside a cold fit to 1e-8: label agreement >=
+      0.995, fewer iterations, and kernel A launched 2 + iterations +
+      iterations // 50 times (the cold-start anchor costs one product);
+    - class weights: the 10-class files through ``plssvm-torch-train
+      --weight 3=2`` and ``plssvm-torch-predict``, as phase 5's run
+      (accuracy floor, launches, no plain call, native I/O);
+    - Jacobi: config 2 in float32 and float64 against the unpreconditioned
+      fit, label agreement >= 0.995; then ROADMAP Queue 3's case, phase
+      9's histogram classes in float32 to epsilon 1e-8 with Jacobi, logged
+      per class (no gate: a finding);
+    - checkpoint: config 2 in float64, and phase 8's laplacian files on
+      the ring of four shards on cuda:0 in float64, stopped after the save
+      at iteration 10 and resumed (``_checkpoint_resume``);
+    - debug: a float32 fit with one NaN feature raises the located
+      ``NumericCheckError`` with ``debug=True`` and stops at once without.
+    """
+    import plssvm_tpu_torch as port
+    from plssvm_tpu_torch.ops import distance, gram_matmat, gram_matvec, matvec
+
+    (train_file, _), (test_file, test_labels) = config2_files
+    train = port.DataSet(train_file, dtype=np.float32)
+    test = port.DataSet(test_file, dtype=np.float32)
+
+    def rbf(dtype=np.float32, **kw):
+        return port.CSVM(backend="cuda", device="cuda", dtype=dtype, kernel_type="rbf",
+                         cost=1.0, **kw)
+
+    # warm start
+    svm = rbf()
+    rough = svm.fit(train, epsilon=1e-4)
+    cold = svm.fit(train, epsilon=EPSILON)
+    gram_matvec.reset_counts()
+    port.global_tracker.clear()
+    warm = svm.fit(train, epsilon=EPSILON, initial_model=rough)
+    launches = gram_matvec.sym_tc_launches
+    cg_s = _tracked("cg", "total_runtime") / 1000
+    agree = float(np.mean(svm.predict(warm, test) == svm.predict(cold, test)))
+    log("extras", f"warm start config 2: 1e-4 fit {rough.n_iter} iterations; warm to "
+        f"{EPSILON} {warm.n_iter} iterations in {cg_s:.3f} s against cold {cold.n_iter}; "
+        f"label agreement {agree:.4f}; kernel A launches {launches}")
+    if launches != 2 + warm.n_iter + warm.n_iter // 50 or gram_matvec.sym_launches:
+        raise AssertionError(f"extras: the warm fit launched A {launches} times")
+    if warm.n_iter >= cold.n_iter or agree < 0.995:
+        raise AssertionError("extras: the warm fit is not shorter or not the cold one's")
+
+    # class weights through the CLIs
+    gram_matmat.reset_counts()
+    train_mc, test_mc = mc_files["mc_train"][0], mc_files["mc_test"][0]
+    fit_s, predict_s, predicted, io = _cli_fit_predict(
+        "extras-weight", train_mc, test_mc, tmp,
+        ["-t", "2", "-c", "1", "-e", str(EPSILON), "--weight", "3=2"])
+    _check_cli_run("extras", f"{MC_CLASSES} classes --weight 3=2", fit_s, predict_s, io,
+                   float(np.mean(predicted == mc_files["mc_test"][1])), MC_ACCURACY_FLOOR,
+                   {"gram_matmat_sym_tc": gram_matmat.sym_tc_launches,
+                    "gram_matmat_rect_tc": gram_matmat.rect_tc_launches},
+                   matvec.sym_matmat_plain_calls + matvec.rect_matmat_plain_calls,
+                   "gram_matmat_sym_tc", "gram_matmat_rect_tc")
+
+    # Jacobi
+    for dtype in (np.float32, np.float64):
+        data = (train, test) if dtype == np.float32 else (
+            port.DataSet(train_file, dtype=dtype), port.DataSet(test_file, dtype=dtype))
+        plain_svm, jacobi_svm = rbf(dtype), rbf(dtype, preconditioner="jacobi")
+        plain = plain_svm.fit(data[0], epsilon=EPSILON)
+        port.global_tracker.clear()
+        jacobi = jacobi_svm.fit(data[0], epsilon=EPSILON)
+        cg_s = _tracked("cg", "total_runtime") / 1000
+        predicted = jacobi_svm.predict(jacobi, data[1])
+        agree = float(np.mean(predicted == plain_svm.predict(plain, data[1])))
+        log("extras", f"jacobi config 2 {np.dtype(dtype).name}: {jacobi.n_iter} iterations "
+            f"({cg_s / max(jacobi.n_iter, 1):.6f} s/iteration) against {plain.n_iter} "
+            f"unpreconditioned, accuracy {np.mean(predicted == test_labels):.4f}, label "
+            f"agreement {agree:.4f}")
+        if agree < 0.995:
+            raise AssertionError(f"extras: the Jacobi fit disagrees on {1 - agree} of labels")
+    chi2 = ring_cells["chi2"]
+    chi_train, chi_test = chi2["make"](np.float32)
+    svm = port.CSVM(backend="cuda", device="cuda", dtype=np.float32, cost=1.0,
+                    preconditioner="jacobi", **chi2["params"])
+    port.global_tracker.clear()
+    distance.reset_counts()
+    t0 = time.perf_counter()
+    model = svm.fit(chi_train, epsilon=1e-8, max_iter=JACOBI_CHI2_MAX_ITER)
+    t1 = time.perf_counter()
+    per_class = _tracked("cg", "iterations_per_class")
+    reached = _tracked("cg", "residuum") <= _tracked("cg", "target_residuum")
+    accuracy = float(np.mean(svm.predict(model, chi_test) == chi2["labels"]))
+    log("extras", f"jacobi chi-squared {MC_CLASSES} histogram classes 10000x200 f32 to "
+        f"epsilon 1e-8 (ROADMAP Queue 3's case; max_iter {JACOBI_CHI2_MAX_ITER}): "
+        f"{model.n_iter} block iterations in {t1 - t0:.3f} s, per class {per_class}, "
+        f"converged per class {[n < model.n_iter or reached for n in per_class]}, every "
+        f"class reached epsilon {reached}, accuracy {accuracy:.4f}, kernel G launches "
+        f"{distance.matmat_sym_launches}")
+
+    # checkpoint and resume, float64: one device and the ring
+    config2_64 = (port.DataSet(train_file, dtype=np.float64),
+                  port.DataSet(test_file, dtype=np.float64))
+    _checkpoint_resume("config 2 f64", lambda: rbf(np.float64), *config2_64, EPSILON, tmp)
+    lap_train, lap_test = ring_cells["laplacian"]["make"](np.float64)
+    _checkpoint_resume(
+        f"laplacian f64, {RING_SHARDS} shards on cuda:0",
+        lambda: port.CSVM(backend="cuda", devices=["cuda:0"] * RING_SHARDS,
+                          dtype=np.float64, kernel_type="laplacian", cost=1.0),
+        lap_train, lap_test, EPSILON, tmp)
+
+    # debug
+    X = np.asarray(train.data).copy()
+    X[3, 1] = np.nan
+    poisoned = port.DataSet(X, np.asarray(train.labels), dtype=np.float32)
+    try:
+        rbf(debug=True).fit(poisoned, epsilon=EPSILON)
+        raise AssertionError("extras: debug=True did not catch the NaN feature")
+    except port.NumericCheckError as err:
+        message = str(err)
+    quiet = rbf().fit(poisoned, epsilon=EPSILON)
+    log("extras", f"debug: a NaN feature raised NumericCheckError('{message}'); without "
+        f"debug the fit stopped after {quiet.n_iter} iterations, rho {quiet.rho}")
+    if not message.startswith("initial CG residual |r0|^2 is non-finite") or quiet.n_iter:
+        raise AssertionError("extras: the debug guard did not behave as plssvm_tpu's")
+
+
+def phase_host_clis(tmp, config2_files):
+    """``plssvm-torch-scale`` on config 2's training file (to [-1, 1], the
+    factors saved) and ``plssvm-torch-generate-data`` at 10000 x 200,
+    timed; both through the native parser and writer."""
+    from plssvm_tpu_torch import DataSet
+    from plssvm_tpu_torch.cli import generate_data, scale
+    from plssvm_tpu_torch.native import loader
+
+    train_file = config2_files[0][0]
+    scaled, factors = os.path.join(tmp, "scaled.libsvm"), os.path.join(tmp, "factors.txt")
+    loader.reset_counts()
+    t0 = time.perf_counter()
+    rc = scale.main(["-q", "-l", "-1", "-u", "1", "-s", factors, train_file, scaled])
+    t1 = time.perf_counter()
+    scale_io = (loader.native_parses, loader.native_writes)
+    generated = os.path.join(tmp, "generated.libsvm")
+    loader.reset_counts()
+    t2 = time.perf_counter()
+    rc_generate = generate_data.main(["-o", generated, "-n", "10000", "-d", "200",
+                                      "--seed", str(SEED)])
+    t3 = time.perf_counter()
+    generate_io = (loader.native_parses, loader.native_writes)
+    X = np.asarray(DataSet(scaled).data)
+    shape = DataSet(generated).data.shape
+    log("host-clis", f"plssvm-torch-scale config 2 train: {t1 - t0:.3f} s (native parses, "
+        f"writes {scale_io}), scaled to [{X.min():.6f}, {X.max():.6f}]; "
+        f"plssvm-torch-generate-data 10000x200: {t3 - t2:.3f} s (native parses, writes "
+        f"{generate_io}), read back {shape}")
+    if rc or rc_generate or scale_io != (1, 1) or generate_io != (0, 1) \
+            or shape != (10000, 200) or X.min() < -1.0 or X.max() > 1.0:
+        raise AssertionError("host-clis: scale or generate-data failed")
+
+
 def main(argv=None):
     import argparse
 
@@ -3176,16 +3583,20 @@ def main(argv=None):
     phase_launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         config2_files = _write_config2(tmp)
+        mc_written = _write_multiclass(tmp)
+        run("parse", phase_parse, tmp, config2_files, mc_written)
         phase_launches["e2e"], e2e_predicted = run("e2e", phase_end_to_end, tmp,
                                                    config2_files)
         phase_launches["multiclass"], mc_files = run("multiclass", phase_multiclass_cli,
-                                                     tmp)
+                                                     tmp, mc_written)
         phase_launches["bf16"] = run("bf16", phase_bf16, tmp, config2_files,
                                      e2e_predicted, mc_files)
         ring_cells = {}
         phase_launches["laplacian"], ring_cells["laplacian"] = run(
             "laplacian", phase_laplacian_cli, tmp, config2_files)
         phase_launches["chi2-cli"], ring_cells["chi2"] = run("chi2-cli", phase_chi2_cli, tmp)
+        run("extras", phase_extras, tmp, config2_files, mc_written, ring_cells)
+        run("host-clis", phase_host_clis, tmp, config2_files)
         phase_launches["config3"] = run("config3", phase_config3_width)
         phase_launches["mnist-width"], ring_cells["mnist-width"] = run(
             "mnist-width", phase_multiclass_width)

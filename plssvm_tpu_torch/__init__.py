@@ -18,6 +18,7 @@ from .exceptions import (
     KernelLaunchError,
     ModelError,
     NotPortedError,
+    NumericCheckError,
     PLSSVMError,
     UnsupportedBackendError,
     UnsupportedKernelTypeError,
@@ -53,6 +54,7 @@ __all__ = [
     "ModelError",
     "KernelLaunchError",
     "NotPortedError",
+    "NumericCheckError",
     "UnsupportedBackendError",
     "UnsupportedKernelTypeError",
     "BackendType",

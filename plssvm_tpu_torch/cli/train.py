@@ -3,9 +3,10 @@
 reference: src/main_train.cpp:24-70 + src/plssvm/detail/cmd/parser_train.cpp.
 Usage: ``python -m plssvm_tpu_torch.cli.train [options] training_set_file [model_file]``
 
-The flags are plssvm_tpu's.  Those whose feature is not ported yet are
-still parsed, and rejected with a :class:`PLSSVMError` that names the
-ROADMAP item porting them.
+The flags are plssvm_tpu's, with its messages (``--weight``'s checks, the
+``--debug`` guard's "numeric check failed: ...").  Those whose feature is
+not ported yet are still parsed, and rejected with a :class:`PLSSVMError`
+that names the ROADMAP item porting them.
 """
 
 from __future__ import annotations
@@ -15,9 +16,12 @@ import os
 import sys
 import time
 
+import numpy as np
+
 from ..csvm import CSVM
 from ..data_set import DataSet
-from ..exceptions import NotPortedError, PLSSVMError
+from ..exceptions import NotPortedError, NumericCheckError, PLSSVMError
+from ..model import Model
 from ..parameter import KernelFunctionType
 from ..utils.logger import VerbosityLevel, log
 from ..utils.tracker import add_tracking_entry, global_tracker
@@ -38,10 +42,6 @@ _NOT_PORTED = (
     ("max_sv", "--max_sv", "Queue 1, item 9: sparse models"),
     ("nystroem", "--nystroem", "Queue 1, item 9: sparse models"),
     ("streaming", "--streaming", "Queue 1, item 9: sparse models"),
-    ("checkpoint", "--checkpoint", "Queue 1, item 4: solver extras"),
-    ("warm_start", "--warm_start", "Queue 1, item 4: solver extras"),
-    ("weight", "--weight", "Queue 1, item 4: solver extras"),
-    ("debug", "--debug", "Queue 1, item 4: solver extras"),
     ("profile", "--profile", "Queue 1, item 11: tools"),
 )
 
@@ -98,7 +98,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(cg_explicit is not ported yet)")
     parser.add_argument("--preconditioner", default="none",
                         choices=["none", "jacobi"],
-                        help="CG preconditioner (jacobi is not ported yet)")
+                        help="CG preconditioner; 'jacobi' can cut iterations "
+                        "on ill-conditioned problems (default: none)")
     parser.add_argument("--gram_precision", default="f32",
                         choices=["f32", "bf16", "highest"],
                         help="Gram contraction precision of the CUDA kernels "
@@ -107,15 +108,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "FMA; float64 data and -b torch compute at full "
                         "precision")
     parser.add_argument("--debug", action="store_true",
-                        help="NaN/Inf guards on the CG state (not ported yet)")
+                        help="NaN/Inf guards on the CG state: a numeric blowup "
+                        "aborts with the failing iteration instead of silently "
+                        "converging to a garbage model (one device and the ring)")
     parser.add_argument("--profile", metavar="DIR", default=None,
                         help="write a profiler trace of the fit (not ported yet)")
     parser.add_argument("--cross_validation", metavar="N", type=int, default=None,
                         help="N-fold cross-validation mode (not ported yet)")
-    parser.add_argument("--weight", metavar="LABEL=W", action="append", default=None,
-                        help="per-class regularization weight (not ported yet)")
+    parser.add_argument(
+        "--weight", metavar="LABEL=W", action="append", default=None,
+        help="per-class regularization weight (repeatable; LIBSVM's -wi): "
+             "class LABEL's diagonal regularizer becomes 1/(C*W) — Suykens' "
+             "weighted LS-SVM for class imbalance",
+    )
     parser.add_argument("--warm_start", metavar="MODEL_FILE", default=None,
-                        help="warm-start CG from a model file (not ported yet)")
+                        help="warm-start CG from an existing model file's "
+                        "alpha (same data set; binary/one-vs-all only) — "
+                        "refine a converged model at a tighter -e or after "
+                        "a -c change without solving from scratch")
     parser.add_argument("-n", "--nu", type=float, default=0.5,
                         help="one-class outlier fraction (one-class is not "
                         "ported yet)")
@@ -126,7 +136,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--streaming", action="store_true",
                         help="train from the file in windows (not ported yet)")
     parser.add_argument("--checkpoint", metavar="FILE", default=None,
-                        help="CG-state checkpoint file (not ported yet)")
+                        help="CG-state checkpoint file: training state is saved "
+                        "every --checkpoint_interval iterations and an "
+                        "interrupted run resumes from it automatically")
     parser.add_argument("--multihost", action="store_true",
                         help="multi-host training (not ported yet)")
     parser.add_argument("--checkpoint_interval", type=int, default=1000,
@@ -204,6 +216,46 @@ def _reject_not_ported(args) -> None:
         )
 
 
+def _parse_class_weights(specs):
+    """``--weight LABEL=W`` specs -> ``({label: W}, None)``, or ``(None,
+    message)`` with plssvm_tpu's message for the first invalid one."""
+    weights = {}
+    for spec in specs:
+        if "=" not in spec:
+            return None, f"--weight expects LABEL=W, got '{spec}'!"
+        lab, w = spec.split("=", 1)
+        try:
+            weight_value = float(w)
+        except ValueError:
+            return None, f"--weight expects a numeric W, got '{w}'!"
+        if weight_value <= 0.0:
+            # LIBSVM requires -wi weight > 0; w=0 would produce an inf
+            # per-point regularizer and a silent NaN model
+            return None, f"--weight values must be positive, got {weight_value}!"
+        weights[lab.strip()] = weight_value
+    return weights, None
+
+
+def _expand_class_weights(per_class_weights, labels_arr) -> np.ndarray:
+    """-wi per-class weights -> the per-point sample_weight vector.
+
+    LIBSVM prints a warning for a -wi label matching no training class;
+    unlisted classes get weight 1.0 (libsvm's -wi semantics).
+    """
+    present = {str(lab) for lab in labels_arr}
+    for lab in per_class_weights:
+        if lab not in present:
+            print(
+                f"WARNING: class label {lab} specified in "
+                "weight is not found",
+                file=sys.stderr,
+            )
+    return np.asarray(
+        [per_class_weights.get(str(lab), 1.0) for lab in labels_arr],
+        dtype=np.float64,
+    )
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -225,6 +277,12 @@ def main(argv=None) -> int:
     start = time.perf_counter()
     try:
         _reject_not_ported(args)
+        per_class_weights = None
+        if args.weight:
+            per_class_weights, message = _parse_class_weights(args.weight)
+            if message is not None:
+                print(message, file=sys.stderr)
+                return 1
         kernel = KernelFunctionType.from_string(args.kernel_type)
         log(
             VerbosityLevel.FULL,
@@ -245,14 +303,32 @@ def main(argv=None) -> int:
             preconditioner=args.preconditioner,
             gram_precision=args.gram_precision,
             solver=args.solver,
+            debug=args.debug,
             kernel_type=kernel,
             degree=args.degree,
             gamma=args.gamma,
             coef0=args.coef0,
             cost=args.cost,
         )
-        model = svm.fit(data, epsilon=args.epsilon, max_iter=args.max_iter)
+        fit_kwargs = dict(epsilon=args.epsilon, max_iter=args.max_iter)
+        if per_class_weights is not None:
+            fit_kwargs["sample_weight"] = _expand_class_weights(
+                per_class_weights, np.asarray(data.labels)
+            )
+        if args.warm_start is not None:
+            fit_kwargs["initial_model"] = Model.load(
+                args.warm_start, label_type=resolve_label_type(args),
+                dtype=resolve_dtype(args),
+            )
+        if args.checkpoint is not None:
+            fit_kwargs["checkpoint_path"] = args.checkpoint
+            fit_kwargs["checkpoint_interval"] = args.checkpoint_interval
+        model = svm.fit(data, **fit_kwargs)
         model.save(model_filename)
+    except NumericCheckError as exc:
+        # the --debug guard: report the located failure as plssvm_tpu does
+        print(f"numeric check failed: {exc}", file=sys.stderr)
+        return 1
     except PLSSVMError as exc:
         print(exc, file=sys.stderr)
         return 1

@@ -10,14 +10,17 @@ their plain PyTorch versions on any device.
 This package covers binary and one-vs-all multiclass classification with
 the implicit CG solver, for every kernel function (linear, polynomial, RBF,
 sigmoid, laplacian, chi-squared), on one device or row-sharded over a list
-of devices (``devices``, parallel/sharded.py), and predict with binary,
-one-vs-all and one-vs-one (LIBSVM multiclass) model files.
+of devices (``devices``, parallel/sharded.py), with plssvm_tpu's solver
+extras (warm start, sample weights, the Jacobi preconditioner, CG-state
+checkpoint/resume, ``debug`` guards), and predict with binary, one-vs-all
+and one-vs-one (LIBSVM multiclass) model files.
 What it does not carry yet raises :class:`NotPortedError` (a
 ``NotImplementedError``) naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional, Union
 
@@ -147,6 +150,10 @@ class CSVM:
     entry is the device the CG vectors and the results lie on.  A list that
     mixes ``cpu`` and ``cuda``, or names ``cpu`` under the ``cuda``
     backend, raises.
+
+    ``preconditioner="jacobi"`` runs preconditioned CG; ``debug=True``
+    checks the CG state for NaN/Inf and raises :class:`NumericCheckError`
+    (plssvm_tpu raises ``checkify.JaxRuntimeError`` with the same message).
     """
 
     def __init__(
@@ -162,6 +169,7 @@ class CSVM:
         gram_precision: str = "f32",
         solver: str = "automatic",
         devices=None,
+        debug: bool = False,
         **named_params,
     ):
         backend = BackendType.from_string(backend)
@@ -201,11 +209,11 @@ class CSVM:
                 f"Unrecognized preconditioner '{preconditioner}' "
                 "(must be 'none' or 'jacobi')!"
             )
-        if preconditioner == "jacobi":
-            raise NotPortedError(
-                "preconditioner='jacobi' is not ported yet (ROADMAP Queue 1, "
-                "item 4: solver extras)"
-            )
+        # "jacobi": preconditioned CG with the diagonal of the implicit
+        # matrix; the stop rule stays the reference's r.r
+        self.preconditioner = preconditioner
+        # NaN/Inf guards on the CG state (solver/cg.py), one host sync each
+        self.debug = bool(debug)
         # CG scalar accumulation: "compensated" emulates the reference's f64
         # scalar accumulators with double-float TwoSum folds; "auto" turns it
         # on for f32 solves, like plssvm_tpu
@@ -300,6 +308,7 @@ class CSVM:
         initial_model: Optional[Model] = None,
         sample_weight=None,
         checkpoint_path: Optional[str] = None,
+        checkpoint_interval: int = 1000,
     ) -> Model:
         """Solve the LS-SVM dual with CG and return the model.
 
@@ -309,9 +318,23 @@ class CSVM:
         = "oaa"``, the default): the C binary systems share the implicit
         matrix and are solved together as one block CG (an extension; the
         reference rejects such data, data_set.hpp:443).  With ``devices``
-        both run row-sharded (parallel/sharded.py).  One-vs-one training,
-        ``initial_model``, ``sample_weight`` and ``checkpoint_path`` are not
-        ported yet.
+        both run row-sharded (parallel/sharded.py).  One-vs-one training is
+        not ported yet.
+
+        The extras are plssvm_tpu's:
+
+        - ``initial_model`` warm-starts CG from a previous fit's alpha, its
+          rows re-aligned to ``data``'s order (model files store support
+          vectors class-grouped); the stop target stays the cold start's,
+          so a warm fit stops at the accuracy a cold one would;
+        - ``sample_weight`` (one positive weight per point) makes point i's
+          regularizer ``1/(C s_i)``: Suykens' weighted LS-SVM, LIBSVM's
+          ``-wi`` per class;
+        - ``checkpoint_path`` saves the CG state every
+          ``checkpoint_interval`` iterations and resumes from a file that
+          matches the problem (solver/checkpoint.py); the resumed fit
+          equals the uninterrupted one, and the file goes when the fit
+          ends.
         """
         if epsilon <= 0.0:
             raise InvalidParameterError(
@@ -327,18 +350,34 @@ class CSVM:
             raise InvalidParameterError(
                 f"max_iter must be greater than 0, but is {max_iter}!"
             )
-        classification = ClassificationType.from_string(classification)
-        if initial_model is not None or sample_weight is not None or checkpoint_path is not None:
-            raise NotPortedError(
-                "initial_model, sample_weight and checkpoint_path are not ported "
-                "yet (ROADMAP Queue 1, item 4: solver extras)"
+        if checkpoint_path is not None and int(checkpoint_interval) < 1:
+            raise InvalidParameterError(
+                f"checkpoint_interval must be at least 1, but is "
+                f"{checkpoint_interval}!"
             )
+        classification = ClassificationType.from_string(classification)
         if data.is_regression:
             raise NotPortedError(
                 "regression is not ported yet (ROADMAP Queue 1, item 7: "
                 "regression and one-class)"
             )
-        multiclass = data.num_different_labels > 2
+        n_classes = data.num_different_labels
+        multiclass = n_classes > 2
+        if sample_weight is not None:
+            sample_weight = np.asarray(sample_weight, dtype=np.float64)
+            if sample_weight.shape != (data.num_data_points,):
+                raise InvalidParameterError(
+                    f"sample_weight must have one entry per data point "
+                    f"({data.num_data_points}), but has shape "
+                    f"{sample_weight.shape}!"
+                )
+            if not np.all(sample_weight > 0.0):
+                raise InvalidParameterError(
+                    "sample_weight entries must all be positive!"
+                )
+        if initial_model is not None:
+            self._check_initial_model(initial_model, data, checkpoint_path,
+                                      multiclass, n_classes)
         kind = self._params.kernel_type.value
         if kind == KernelFunctionType.CHI_SQUARED:
             _check_chi_squared_data(np.asarray(data.data), "training data")
@@ -375,16 +414,34 @@ class CSVM:
         solve_kw = dict(
             kind=kind, degree=degree, impl=self._impl(),
             scalars=self.scalar_precision, gram_precision=self.gram_precision,
-        )
-        solve_args = (
-            params.resolved_gamma(d), params.coef0.value, params.cost.value,
-            epsilon, max_iter,
+            preconditioner=self.preconditioner, debug=self.debug,
         )
         if self.devices is not None:
             solve_kw["devices"] = self.devices
+        if sample_weight is not None:
+            solve_kw["weights"] = self._tensor(sample_weight[:dept])
+            solve_kw["weight_last"] = float(sample_weight[-1])
+        if initial_model is not None:
+            alpha0 = self._warm_start_alpha(initial_model, data)
+            solve_kw["x_init"] = self._tensor(alpha0[:dept])
         if multiclass:
             solve = solve_ls_svm_multi_sharded if self.devices else solve_ls_svm_multi
-            result = solve(X[:dept], X[-1], y[:dept], y[-1], *solve_args, **solve_kw)
+            y_last = y[-1]
+        else:
+            solve = solve_ls_svm_sharded if self.devices else solve_ls_svm
+            y_last = float(data.y[-1])
+        solve_args = (
+            X[:dept], X[-1], y[:dept], y_last, params.resolved_gamma(d),
+            params.coef0.value, params.cost.value, epsilon,
+        )
+        if checkpoint_path is None:
+            result = solve(*solve_args, max_iter, **solve_kw)
+        else:
+            result = self._fit_with_checkpointing(
+                solve, solve_args, solve_kw, X, y, sample_weight, epsilon,
+                max_iter, checkpoint_path, int(checkpoint_interval), multiclass,
+            )
+        if multiclass:
             alpha = np.vstack(
                 [result.x.cpu().numpy(), result.alpha_last.cpu().numpy()[None, :]]
             ).astype(self.dtype)
@@ -396,11 +453,6 @@ class CSVM:
             delta = float(delta_arr[worst])
             delta0 = float(delta0_arr[worst])
         else:
-            solve = solve_ls_svm_sharded if self.devices else solve_ls_svm
-            result = solve(
-                X[:dept], X[-1], y[:dept], float(data.y[-1]), *solve_args,
-                **solve_kw,
-            )
             alpha = np.concatenate(
                 [result.x.cpu().numpy(), [float(result.alpha_last)]]
             ).astype(self.dtype)
@@ -439,6 +491,160 @@ class CSVM:
         model = Model(params, data, alpha=alpha, rho=rho)
         model.n_iter = iterations
         return model
+
+    def _check_initial_model(self, initial_model: Model, data: DataSet,
+                             checkpoint_path, multiclass: bool, n_classes: int) -> None:
+        """plssvm_tpu's checks of a warm start's model against the data."""
+        if checkpoint_path is not None:
+            raise InvalidParameterError(
+                "initial_model cannot be combined with CG-state "
+                "checkpointing (the checkpoint already carries the "
+                "solver state)!"
+            )
+        if initial_model.num_support_vectors != data.num_data_points:
+            raise InvalidParameterError(
+                f"initial_model has {initial_model.num_support_vectors} "
+                f"support vectors but the data set has "
+                f"{data.num_data_points} points!"
+            )
+        alpha0 = np.asarray(initial_model.alpha)
+        if multiclass and (alpha0.ndim != 2 or alpha0.shape[1] != n_classes):
+            raise InvalidParameterError(
+                "initial_model is not a one-vs-all model of "
+                f"{n_classes} classes!"
+            )
+        if not multiclass and alpha0.ndim != 1:
+            raise InvalidParameterError("initial_model is not a binary model!")
+
+    def _warm_start_alpha(self, initial_model: Model, data: DataSet) -> np.ndarray:
+        """The warm-start alpha, re-aligned to ``data``'s row order
+        (plssvm_tpu's ``_warm_start_alpha``).
+
+        Model FILES store support vectors class-grouped (the writer keeps
+        the within-class relative order), so a loaded model's alpha rows are
+        a known permutation of the training file's rows: the k-th occurrence
+        of class c in data order is the k-th row of the model's class-c
+        block.  Misalignment never affects correctness (the warm start only
+        sets CG's starting point) but destroys the benefit.  Loaded
+        one-vs-all models may also carry an unsorted label header; their
+        alpha columns follow the model's layout order and are permuted here
+        to the mapper's sorted order the solver trains in.
+        """
+        alpha0 = np.asarray(initial_model.alpha, dtype=self.dtype)
+        m_labels = np.asarray(initial_model.data.labels)
+        d_labels = np.asarray(data.labels)
+        if not (
+            m_labels.shape == d_labels.shape
+            and bool(np.all(m_labels == d_labels))
+        ):
+            if sorted(map(str, m_labels.tolist())) != sorted(
+                map(str, d_labels.tolist())
+            ):
+                raise InvalidParameterError(
+                    "initial_model labels do not match the data set's "
+                    "labels (same points required for a warm start)!"
+                )
+            aligned = np.zeros_like(alpha0)
+            for lab in data.different_labels:  # per-label, order-free
+                aligned[np.flatnonzero(d_labels == lab)] = alpha0[
+                    np.flatnonzero(m_labels == lab)
+                ]
+            alpha0 = aligned
+        if alpha0.ndim == 2:
+            order = initial_model.class_order()
+            target = list(data.different_labels)
+            if order != target:
+                perm = [order.index(lab) for lab in target]
+                alpha0 = alpha0[:, perm]
+        return alpha0
+
+    def _params_repr_for_fingerprint(self, sample_weight) -> str:
+        """The parameters in the checkpoint fingerprint, with a digest of
+        the sample weights: a differently weighted run solves another
+        system and must never resume this one's checkpoint."""
+        rep = repr(self._params)
+        if sample_weight is not None:
+            from .solver.checkpoint import weights_digest_suffix
+
+            rep += weights_digest_suffix(sample_weight)
+        return rep
+
+    def _fit_with_checkpointing(self, solve, solve_args, solve_kw, X, y,
+                                sample_weight, epsilon, max_iter: int,
+                                checkpoint_path: str, checkpoint_interval: int,
+                                multi: bool):
+        """Run CG in segments of ``checkpoint_interval`` iterations, saving
+        the state between them (plssvm_tpu's ``_fit_with_checkpointing`` and
+        ``_fit_with_checkpointing_multi``; on the ring as on one device,
+        since the ring's CG state lies whole on its first device).  A file
+        that matches the problem is resumed from; the file goes when the
+        fit ends."""
+        from .solver.checkpoint import (
+            CGCheckpoint,
+            MultiCGCheckpoint,
+            load_checkpoint,
+            load_multi_checkpoint,
+            problem_fingerprint,
+            save_checkpoint,
+            save_multi_checkpoint,
+        )
+
+        fingerprint = problem_fingerprint(
+            X, y, self._params_repr_for_fingerprint(sample_weight), epsilon
+        )
+        ckpt = (load_multi_checkpoint if multi else load_checkpoint)(
+            checkpoint_path, fingerprint)
+        if ckpt is not None:
+            log(
+                VerbosityLevel.FULL,
+                "Resuming {} from checkpoint '{}' at iteration {}.\n",
+                "block CG" if multi else "CG", checkpoint_path, ckpt.iteration,
+            )
+
+        def host(t):
+            return t.detach().cpu().numpy()
+
+        while True:
+            if ckpt is None:
+                segment_end = min(checkpoint_interval, max_iter)
+                result = solve(*solve_args, segment_end, **solve_kw)
+            else:
+                segment_end = min(ckpt.iteration + checkpoint_interval, max_iter)
+                state = tuple(
+                    torch.as_tensor(np.asarray(a, dtype=self.dtype), device=self.device)
+                    for a in (ckpt.x, ckpt.r, ckpt.d, ckpt.delta, ckpt.delta0)
+                ) + (ckpt.iteration,)
+                if multi:
+                    state += (torch.as_tensor(ckpt.itpc, dtype=torch.int64,
+                                              device=self.device),)
+                result = solve(*solve_args, segment_end, init_state=state, **solve_kw)
+            iterations = int(result.iterations)
+            delta = host(result.delta)
+            delta0 = host(result.delta0)
+            converged = bool(np.all(delta <= float(epsilon) ** 2 * delta0))
+            if converged or iterations >= max_iter:
+                break
+            if ckpt is not None and iterations <= int(ckpt.iteration):
+                # no forward progress: the solver's in-dtype stop target can
+                # be minutely looser than this float64 check at the boundary
+                break
+            fields = dict(x=host(result.x), r=host(result.r), d=host(result.d),
+                          iteration=iterations, fingerprint=fingerprint)
+            if multi:
+                ckpt = MultiCGCheckpoint(
+                    delta=delta, delta0=delta0,
+                    itpc=host(result.iterations_per_class), **fields)
+                save_multi_checkpoint(checkpoint_path, ckpt)
+            else:
+                ckpt = CGCheckpoint(delta=float(delta), delta0=float(delta0), **fields)
+                save_checkpoint(checkpoint_path, ckpt)
+        # solved: the checkpoint is stale now
+        try:
+            if os.path.isfile(checkpoint_path):
+                os.remove(checkpoint_path)
+        except OSError:
+            pass
+        return result
 
     # -- predict ------------------------------------------------------------
     def predict_values(self, model: Model, data: DataSet) -> np.ndarray:

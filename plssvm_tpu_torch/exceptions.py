@@ -71,3 +71,11 @@ class NotPortedError(PLSSVMError, NotImplementedError):
 
     The message names the ROADMAP item that ports it.
     """
+
+
+class NumericCheckError(PLSSVMError):
+    """A NaN/Inf guard of a ``debug=True`` solve failed.
+
+    plssvm_tpu raises ``checkify.JaxRuntimeError`` here; this carries the
+    same message, with the iteration filled in.
+    """

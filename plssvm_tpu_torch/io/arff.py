@@ -210,16 +210,67 @@ def parse_arff_lines(
     return data, (labels if has_label else None)
 
 
+def _read_arff_header_and_offset(filename: str):
+    """Stream the ARFF header: lines up to and including ``@DATA``.
+
+    Returns ``(header_lines, offset)`` with ``offset`` the byte position
+    just past the @DATA line, or ``None`` when no @DATA marker appears
+    within a sane header budget (the caller falls back to the full-file
+    Python path, which raises the exact reference error)."""
+    from .file_reader import stream_header_lines
+
+    return stream_header_lines(
+        filename,
+        comment=ARFF_COMMENT,
+        is_terminator=lambda s: s.upper().startswith("@DATA"),
+        max_bytes=1 << 22,
+    )
+
+
 def parse_arff_file(
     filename: str, dtype: np.dtype = np.float64
 ) -> Tuple[np.ndarray, Optional[List[str]]]:
-    """Parse a full ARFF file with the Python parser.
+    """Parse a full ARFF file, preferring the native C++ data-section parser.
 
-    The JAX package's native C++ data-section parser (plssvm_tpu/native/)
-    is not ported yet (ROADMAP Queue 1, item 1); the Python path raises the
-    exact reference error messages.
+    The header is streamed in Python (it is metadata-scale) and the data
+    section goes through the native mmap + std::thread parser
+    (native/libsvm_parser.cpp::plssvm_parse_arff_data) — the analog of the
+    reference's OpenMP-parallel ARFF parse (arff_parsing.hpp:236-376).  Any
+    content anomaly falls back to the Python path, which raises the exact
+    reference error messages.
     """
     from .file_reader import read_lines
+
+    streamed = _read_arff_header_and_offset(filename)
+    if streamed is not None:
+        header_lines, data_offset = streamed
+        try:
+            # the placeholder row only satisfies the header parser's
+            # "rows exist after @DATA" check; it is never parsed
+            num_features, _, unique_labels, label_idx = parse_arff_header(
+                header_lines + ["<data-row>"]
+            )
+        except InvalidFileFormatError:
+            num_features = 0
+        if num_features:
+            from ..native import parse_arff_data_native
+
+            native = parse_arff_data_native(
+                filename, data_offset, num_features, label_idx,
+                bool(unique_labels), dtype,
+            )
+            if native is not None:
+                data, labels = native
+                if not unique_labels:
+                    return data, None
+                # label-set membership is validated here (the native parser
+                # does not know the header's label set); ANY violation
+                # reruns the Python path so the reference error message —
+                # and its position in the error order — is exact
+                if np.isin(
+                    np.asarray(labels), np.asarray(unique_labels)
+                ).all():
+                    return data, labels
 
     lines = read_lines(filename, comment=ARFF_COMMENT)
     return parse_arff_lines(lines, dtype=dtype)
@@ -228,7 +279,10 @@ def parse_arff_file(
 def write_arff_file(
     filename: str, data: np.ndarray, labels: Optional[np.ndarray] = None
 ) -> None:
-    """Write dense ARFF output (zeros included), reference arff_parsing.hpp:407-459."""
+    """Write dense ARFF output (zeros included), reference arff_parsing.hpp:407-459.
+
+    The row payload is formatted by the native multithreaded writer when
+    available (byte-identical "{:.10e}" output); Python is the fallback."""
     data = np.asarray(data)
     n, d = data.shape
     header = [f"% {n}x{d}", "@RELATION data_set"]
@@ -238,6 +292,11 @@ def write_arff_file(
         header.append(f"@ATTRIBUTE class {{{','.join(unique)}}}")
     header.append("@DATA")
     header_str = "\n".join(header) + "\n"
+
+    from ..native import write_arff_native
+
+    if write_arff_native(filename, header_str, data, labels):
+        return
 
     with open(filename, "w", encoding="utf-8") as fh:
         fh.write(header_str)

@@ -41,3 +41,58 @@ def read_lines(filename: str, comment: str = "#") -> List[str]:
             continue
         lines.append(line)
     return lines
+
+
+def stream_header_lines(
+    filename: str,
+    *,
+    comment: str,
+    is_terminator,
+    max_lines: int = 0,
+    max_bytes: int = 1 << 22,
+):
+    """Stream a file's header: non-comment lines up to and including the
+    first line for which ``is_terminator(stripped_line)`` is true.
+
+    Returns ``(lines, offset)`` with ``offset`` the byte position just past
+    the terminator line — a native data-section parser can start there
+    without the Python side ever touching the (possibly multi-GB) payload.
+    Returns ``None`` when no terminator appears within the byte/line budget
+    (callers fall back to their full-file Python path, which raises the
+    exact reference error).  Shared by the ARFF (`@DATA`) and model-file
+    (`SV`) fast paths.
+    """
+    lines: List[str] = []
+    pos = 0
+    try:
+        with open(filename, "rb") as fh:
+            buf = b""
+            while True:
+                chunk = fh.read(65536)
+                if not chunk:
+                    return None
+                buf += chunk
+                start = 0
+                while True:
+                    nl = buf.find(b"\n", start)
+                    if nl < 0:
+                        break
+                    raw = buf[start:nl]
+                    pos += nl - start + 1
+                    start = nl + 1
+                    s = raw.decode("utf-8", errors="replace").strip()
+                    if s and not s.startswith(comment):
+                        lines.append(s)
+                        if is_terminator(s):
+                            return lines, pos
+                buf = buf[start:]
+                # budget the BUFFERED bytes too: a newline-less (e.g.
+                # binary) prefix would otherwise accumulate without bound
+                # before the first complete line ever advances pos
+                if (
+                    pos + len(buf) > max_bytes
+                    or (max_lines and len(lines) > max_lines)
+                ):
+                    return None
+    except OSError:
+        return None

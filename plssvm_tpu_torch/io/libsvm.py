@@ -174,12 +174,18 @@ def parse_libsvm_lines(
 def parse_libsvm_file(
     filename: str, dtype: np.dtype = np.float64
 ) -> Tuple[np.ndarray, Optional[List[str]]]:
-    """Parse a LIBSVM file with the NumPy parser.
+    """Parse a LIBSVM file, preferring the native C++ mmap parser.
 
-    The JAX package's native C++ mmap parser (plssvm_tpu/native/) is not
-    ported yet (ROADMAP Queue 1, item 1); the NumPy parser raises the same
-    exceptions with the same messages.
+    The native fast path (plssvm_tpu_torch/native/libsvm_parser.cpp, the analog of
+    the reference's mmap file_reader + OpenMP parser) raises the same
+    exceptions with the same messages; on any environment problem (no
+    toolchain, PLSSVM_TPU_TORCH_NO_NATIVE=1) the NumPy parser takes over.
     """
+    from ..native import parse_libsvm_native
+
+    result = parse_libsvm_native(filename, dtype=dtype)
+    if result is not None:
+        return result
     from .file_reader import read_lines
 
     return parse_libsvm_lines(read_lines(filename, comment="#"), dtype=dtype)
@@ -212,6 +218,10 @@ def write_libsvm_lines(
 def write_libsvm_file(
     filename: str, data: np.ndarray, labels: Optional[np.ndarray] = None
 ) -> None:
+    from ..native import write_libsvm_native
+
+    if write_libsvm_native(filename, data, labels):
+        return
     with open(filename, "w", encoding="utf-8") as fh:
         for line in write_libsvm_lines(data, labels):
             fh.write(line)

@@ -425,6 +425,38 @@ def _resolve_multiclass_lead(
     return n_lead
 
 
+def _peek_first_sv_line(filename: str, offset: int):
+    """First non-comment, non-empty line at/after ``offset`` (or None)."""
+    with open(filename, "rb") as fh:
+        fh.seek(offset)
+        chunk = fh.read(1 << 20)
+    for raw in chunk.split(b"\n"):
+        stripped = raw.strip()
+        if stripped and not stripped.startswith(b"#"):
+            return stripped.decode("utf-8", "replace")
+    return None
+
+
+def _read_header_and_offset(filename: str):
+    """Stream the model header: lines up to and including the ``SV`` marker.
+
+    Returns ``(header_lines, offset)`` with ``offset`` the byte position just
+    past the SV line — the native SV-block parser starts there, so the header
+    read never touches the (possibly multi-GB) SV payload.  ``None`` when no
+    SV marker appears within a sane header budget (the caller falls back to
+    the full-file Python path, which raises the exact reference error).
+    """
+    from .file_reader import stream_header_lines
+
+    return stream_header_lines(
+        filename,
+        comment="#",
+        is_terminator=lambda s: s.lower() == "sv",
+        max_lines=64,
+        max_bytes=1 << 20,
+    )
+
+
 def parse_model_file(
     filename: str, dtype: np.dtype = np.float64
 ) -> Tuple[
@@ -443,11 +475,53 @@ def parse_model_file(
     one-vs-all multiclass model (extension) ``rho`` has C entries and
     ``alpha`` is (n_sv, C) — C leading columns per SV row.
 
-    The JAX package's native SV-block parser (plssvm_tpu/native/) is not
-    ported yet (ROADMAP Queue 1, item 1); this Python path raises the exact
-    reference messages.
+    Fast path: the header is streamed (never loading the SV payload into
+    Python strings) and the SV block is parsed by the native mmap +
+    std::thread parser (native/libsvm_parser.cpp::plssvm_parse_model_svs) —
+    the analog of the reference's native model parsing
+    (libsvm_model_parsing.hpp over OpenMP).  Any content anomaly falls back
+    to the Python path below, which raises the exact reference messages.
     """
     from .file_reader import read_lines
+
+    streamed = _read_header_and_offset(filename)
+    if streamed is not None:
+        header_lines, sv_offset = streamed
+        try:
+            # the placeholder row only satisfies the header parser's
+            # "rows exist after SV" check; it is never parsed
+            header = parse_model_header(header_lines + ["<sv-row>"])
+        except InvalidFileFormatError:
+            header = None
+        if header is not None:
+            from ..native import parse_model_svs_native
+
+            labels, rho = header.per_point_labels, header.rho
+            # the HEADER's class count resolves the layout (the per-point
+            # expansion could alias a multiclass file to fewer classes)
+            if labels is None:  # regression (epsilon_svr layout)
+                n_lead = 1
+            elif header.nr_class == 2:
+                n_lead = 1
+            else:
+                first = _peek_first_sv_line(filename, sv_offset)
+                if first is None:
+                    raise InvalidFileFormatError(
+                        "Can't parse file: no support vectors are given or "
+                        "SV is missing!"
+                    )
+                n_lead = _resolve_multiclass_lead(
+                    first, header.nr_class, rho.size
+                )
+            native = parse_model_svs_native(filename, sv_offset, n_lead, dtype)
+            if native is not None:
+                coeffs, data = native
+                _check_sv_count(data.shape[0], header)
+                alpha = coeffs[:, 0] if n_lead == 1 else coeffs
+                return (
+                    header.params, rho, data, alpha, labels, header.prob,
+                    header.svm_type,
+                )
 
     lines = read_lines(filename, comment="#")
     header = parse_model_header(lines)
@@ -581,12 +655,23 @@ def write_model_file(
         )
         if order.shape[0] != n_sv:
             # a label outside different_labels would otherwise truncate
-            # the output (the header promises total_sv rows)
+            # the Python output (header promises total_sv rows) or read
+            # past the order buffer in the native writer
             raise InvalidFileFormatError(
                 f"every support-vector label must appear in the model's "
                 f"class list: {order.shape[0]} of {n_sv} rows matched "
                 f"{list(different_labels)}!"
             )
+
+    # native fast path: threaded formatting, byte-identical output (the C
+    # py_repr matches CPython's repr; features use the same "{:.10e}")
+    from ..native import write_model_native
+
+    alpha_2d = alpha.reshape(-1, 1) if alpha.ndim == 1 else alpha
+    if write_model_native(
+        filename, "\n".join(header) + "\n", sv, alpha_2d, order
+    ):
+        return
 
     with open(filename, "w", encoding="utf-8") as fh:
         fh.write("\n".join(header))

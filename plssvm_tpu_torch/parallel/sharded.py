@@ -286,6 +286,7 @@ def solve_ls_svm_sharded(
     impl: str = "torch",
     scalars: str = "plain",
     gram_precision: str = "f32",
+    **extras,
 ) -> CGResult:
     """The binary LS-SVM CG solve with X row-sharded over ``devices`` (one
     shard per entry); the counterpart of ``build_sharded_solver``.
@@ -293,8 +294,13 @@ def solve_ls_svm_sharded(
     ``X`` (dept, d) and the CG vectors lie on the first device (a system
     with fewer rows than devices takes one shard per row); the ring
     (or the factored linear product) applies K, and every CG scalar is a
-    sum of per-shard partials in shard order.  ``scalars`` and
-    ``gram_precision`` as in ``solver.cg.solve_ls_svm``.
+    sum of per-shard partials in shard order.  ``scalars``,
+    ``gram_precision`` and the ``extras`` (warm start, sample weights,
+    Jacobi, resume, debug) as in ``solver.cg.solve_ls_svm``: the core runs
+    them on the first device, where the CG state lies whole, so a
+    checkpoint of the ring is saved from there (plssvm_tpu's
+    ``shard_warm_start`` and its gather of the sharded state have nothing
+    to do here).
     """
     _plain.check_precision(gram_precision)
     devices = list(devices)[:X.shape[0]]
@@ -305,7 +311,7 @@ def solve_ls_svm_sharded(
         kind=kind, degree=degree,
         kernel_mv=_sharded_product(X, bounds, devices, kind, degree, impl,
                                    gram_precision),
-        dot=dot, vsum=vsum,
+        dot=dot, vsum=vsum, **extras,
     )
 
 
@@ -326,11 +332,13 @@ def solve_ls_svm_multi_sharded(
     impl: str = "torch",
     scalars: str = "plain",
     gram_precision: str = "f32",
+    **extras,
 ) -> MultiCGResult:
     """The one-vs-all block-CG solve with X row-sharded over ``devices``;
     the counterpart of ``build_sharded_multi_solver``.  The per-class
     column sums are per-shard partials (compensated with ``scalars=
-    "compensated"``) summed in shard order."""
+    "compensated"``) summed in shard order; ``extras`` as in
+    :func:`solve_ls_svm_sharded`."""
     _plain.check_precision(gram_precision)
     devices = list(devices)[:X.shape[0]]
     bounds = shard_bounds(X.shape[0], len(devices))
@@ -340,7 +348,7 @@ def solve_ls_svm_multi_sharded(
         kind=kind, degree=degree,
         kernel_mm=_sharded_product(X, bounds, devices, kind, degree, impl,
                                    gram_precision),
-        colsum=colsum,
+        colsum=colsum, **extras,
     )
 
 

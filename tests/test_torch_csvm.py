@@ -184,8 +184,16 @@ class TestNotPorted:
         ],
     )
     def test_options(self, kwargs, item):
-        with pytest.raises(NotImplementedError, match=item):
-            plssvm_tpu_torch.CSVM(device="cpu", **kwargs)
+        """The explicit solver names its ROADMAP item; the Jacobi
+        preconditioner, item 4's option, is ported: it fits as plssvm_tpu's
+        does (tests/test_torch_solver_extras.py holds every layout)."""
+        if item == "item 3":
+            with pytest.raises(NotImplementedError, match=item):
+                plssvm_tpu_torch.CSVM(device="cpu", **kwargs)
+            return
+        got, want = self._fit_both(kwargs, {})
+        assert got.n_iter == want.n_iter
+        np.testing.assert_allclose(got.alpha, want.alpha, rtol=0, atol=TOL)
 
     def test_gram_precision_bf16(self):
         """gram_precision="bf16" is ported (ROADMAP Queue 2 row a): on CPU
@@ -218,10 +226,31 @@ class TestNotPorted:
         agree = np.mean(svm.predict(model, test) == f32_svm.predict(f32_model, test))
         assert agree >= 0.95
 
-    @pytest.mark.parametrize("fit_kwargs", [dict(sample_weight=np.ones(30)), dict(initial_model="m")])
+    def _fit_both(self, svm_kwargs, fit_kwargs):
+        """The port's and plssvm_tpu's fits of ``blobs(seed=4)`` scaled to
+        [-1, 1] (float64, epsilon 1e-10; a set where plssvm_tpu's iteration
+        counts agree across its row blocks for each extra);
+        ``initial_model="warm"`` warm-starts each from its own 1e-4 fit."""
+        X, labels, _, _ = blobs(seed=4)
+        models = []
+        for package, where in ((plssvm_tpu_torch, dict(device="cpu")),
+                               (plssvm_tpu, dict(backend="xla", solver="cg_implicit"))):
+            svm = package.CSVM(dtype=np.float64, kernel_type="rbf", **where, **svm_kwargs)
+            train = package.DataSet(X, labels, scaling=(-1.0, 1.0))
+            kw = dict(fit_kwargs)
+            if kw.get("initial_model") == "warm":
+                kw["initial_model"] = svm.fit(train, epsilon=1e-4)
+            models.append(svm.fit(train, epsilon=EPS, **kw))
+        return models
+
+    @pytest.mark.parametrize("fit_kwargs", [dict(sample_weight=np.random.default_rng(5).uniform(0.5, 2.0, 200)),
+                                            dict(initial_model="warm")])
     def test_fit_extras(self, fit_kwargs):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            plssvm_tpu_torch.CSVM(device="cpu").fit(self._data(), **fit_kwargs)
+        """Item 4's fit arguments are ported: the fit matches plssvm_tpu's."""
+        got, want = self._fit_both({}, fit_kwargs)
+        assert got.n_iter == want.n_iter
+        assert abs(got.rho - want.rho) <= TOL
+        np.testing.assert_allclose(got.alpha, want.alpha, rtol=0, atol=TOL)
 
     def test_automatic_solver_is_implicit(self):
         assert plssvm_tpu_torch.CSVM(device="cpu").solver == "cg_implicit"
@@ -229,8 +258,8 @@ class TestNotPorted:
     @pytest.mark.parametrize(
         "flags",
         [["--multihost"], ["--cross_validation", "3"], ["--classification", "oao"],
-         ["--nystroem", "5"], ["--max_sv", "5"], ["--checkpoint", "c.ckpt"],
-         ["--warm_start", "m.model"], ["--debug"], ["-s", "epsilon_svr"]],
+         ["--nystroem", "5"], ["--max_sv", "5"], ["--probability"],
+         ["--streaming"], ["--profile", "trace"], ["-s", "epsilon_svr"]],
     )
     def test_cli_rejects(self, flags, tmp_path, capsys):
         train_file = os.path.join(tmp_path, "train.libsvm")

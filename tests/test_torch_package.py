@@ -1,8 +1,8 @@
 """plssvm_tpu_torch stands apart from JAX.
 
 In a fresh interpreter (this process has imported jax and plssvm_tpu),
-importing the port, its CLIs, its tools and its kernel wrappers loads
-neither, and builds no kernel.  No source file of the port imports them.
+importing the port, its CLIs, its tools, its kernel wrappers and its
+native parser loads neither, and builds no kernel and no parser.  No source file of the port imports them.
 """
 
 import json
@@ -20,12 +20,15 @@ _PROBE = """
 import json, sys
 import plssvm_tpu_torch
 import plssvm_tpu_torch.cli.train, plssvm_tpu_torch.cli.predict
+import plssvm_tpu_torch.cli.scale, plssvm_tpu_torch.cli.generate_data
+import plssvm_tpu_torch.native, plssvm_tpu_torch.solver.checkpoint
 import plssvm_tpu_torch.ops.gram_matvec, plssvm_tpu_torch.ops.gram_matmat
 import plssvm_tpu_torch.ops.distance, plssvm_tpu_torch.ops.banded
 import plssvm_tpu_torch.parallel.sharded
 import plssvm_tpu_torch.tools.exp_banded_distance
 import plssvm_tpu_torch.tools.bench_matvec
 from plssvm_tpu_torch.ops import _build
+from plssvm_tpu_torch.native import loader
 print(json.dumps({
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
     "plssvm_tpu": sorted(
@@ -34,6 +37,7 @@ print(json.dumps({
     ),
     "triton": "triton" in sys.modules,
     "library_loaded": _build._lib is not None,
+    "native_loaded": loader._lib is not None,
 }))
 """
 
@@ -53,6 +57,7 @@ def test_import_loads_no_jax_and_builds_nothing():
     found = json.loads(proc.stdout.strip().splitlines()[-1])
     assert found == {
         "jax": [], "plssvm_tpu": [], "triton": False, "library_loaded": False,
+        "native_loaded": False,
     }
 
 
@@ -88,3 +93,11 @@ def test_tool_help(tool):
     proc = _run("-m", f"plssvm_tpu_torch.tools.{tool}", "--help")
     assert proc.returncode == 0, proc.stderr
     assert f"usage: python -m plssvm_tpu_torch.tools.{tool}" in proc.stdout
+
+
+@pytest.mark.parametrize("cli,prog", [("scale", "plssvm-torch-scale"),
+                                      ("generate_data", "plssvm-torch-generate-data")])
+def test_host_cli_help(cli, prog):
+    proc = _run("-m", f"plssvm_tpu_torch.cli.{cli}", "--help")
+    assert proc.returncode == 0, proc.stderr
+    assert "usage: " + prog in proc.stdout

@@ -562,21 +562,45 @@ def test_devices_all_needs_cuda():
 @pytest.mark.parametrize("what", ["oao", "regression", "initial_model", "sample_weight",
                                   "checkpoint_path", "multihost"])
 def test_not_ported_with_devices(what, tmp_path):
-    """Each combination the port does not carry yet names its ROADMAP item."""
+    """Each combination the port does not carry yet names its ROADMAP item.
+    Item 4's extras are ported: with ``devices`` they fit as plssvm_tpu's
+    four-device fit does (tests/test_torch_solver_extras.py holds every
+    layout and type)."""
     svm = plssvm_tpu_torch.CSVM(devices=["cpu"] * 2, dtype=np.float64)
     Xtr, ytr, _, _ = _blobs(6, n_classes=3)
     data = plssvm_tpu_torch.DataSet(Xtr, ytr)
-    item = {"oao": "item 6", "regression": "item 7", "multihost": "item 10"}.get(what, "item 4")
+    if what in ("initial_model", "sample_weight", "checkpoint_path"):
+        _extras_with_devices(what, Xtr, ytr, tmp_path)
+        return
+    item = {"oao": "item 6", "regression": "item 7", "multihost": "item 10"}[what]
     with pytest.raises(NotPortedError, match=item):
         if what == "oao":
             svm.fit(data, classification="oao")
         elif what == "regression":
             svm.fit(plssvm_tpu_torch.DataSet(Xtr, Xtr[:, 0], regression=True))
-        elif what == "multihost":
+        else:
             path = os.path.join(tmp_path, "train.libsvm")
             data.save(path)
             svm.fit_multihost(path)
-        else:
-            value = {"initial_model": object(), "sample_weight": np.ones(200),
-                     "checkpoint_path": os.path.join(tmp_path, "cg.ckpt")}[what]
-            svm.fit(data, **{what: value})
+
+
+def _extras_with_devices(what, X, y, tmp_path):
+    """An item 4 extra on two CPU shards against plssvm_tpu's fit on four
+    CPU devices: one-vs-all, float64, epsilon 1e-10."""
+    models = []
+    for package, where in ((plssvm_tpu_torch, dict(devices=["cpu"] * 2)),
+                           (plssvm_tpu, dict(backend="xla", solver="cg_implicit",
+                                             devices=jax.devices("cpu")[:4]))):
+        svm = package.CSVM(dtype=np.float64, kernel_type="rbf", **where)
+        train = package.DataSet(X, y, scaling=(-1.0, 1.0))
+        kw = {"initial_model": lambda: dict(initial_model=svm.fit(train, epsilon=1e-4)),
+              "sample_weight": lambda: dict(sample_weight=np.linspace(0.5, 2.0, len(y))),
+              "checkpoint_path": lambda: dict(
+                  checkpoint_path=os.path.join(tmp_path, f"{package.__name__}.ckpt"),
+                  checkpoint_interval=4)}[what]()
+        models.append(svm.fit(train, epsilon=1e-10, **kw))
+    got, want = models
+    assert got.n_iter == want.n_iter
+    np.testing.assert_allclose(got.rho, want.rho, rtol=0, atol=1e-8)
+    np.testing.assert_allclose(got.alpha, want.alpha, rtol=0,
+                               atol=1e-8 * np.max(np.abs(want.alpha)))
