@@ -67,6 +67,21 @@ Phases, one line each or more (the run stops at the first that fails):
    accuracy floor, label agreement >= 0.999, and the ring's operand copies
    per iteration.
 
+The "explicit" phase runs after phase 10 (``phase_explicit``): kernel N
+(csrc/kernel_matrix.cu, the explicit solver's kernel matrix for the
+distance kernels) against its plain version in both walks, both types and
+both storages, then at chi2-width's 59999 x 784 (14.4 GB, timed beside its
+bound, sampled rows past INT32_MAX entries and ten columns per entry) and
+at the ring's block, and timed beside the plain version at 16384 x 256;
+then, with the counts set to 0, ``solver="cg_explicit"`` fits beside the
+implicit ones (chi2-width, MNIST width, config 2 and its laplacian files
+through ``plssvm-torch-train --solver cg_explicit``, config 2 in
+float64), the ring's explicit fit on four shards of cuda:0, and kernel
+N's launches.  The "stall" phase follows: ROADMAP Queue 3's float32
+chi-squared case, eight runs with each solver.  Every phase built to
+launch an implicit kernel pins ``solver="cg_implicit"`` and logs what
+``automatic`` would resolve to at its shape.
+
 The "parse" phase runs before phase 4: the native parser
 (``plssvm_tpu_torch/native``, built with g++) against the NumPy path on
 phases 4 and 5's files and a model of config 2's size, bit for bit and
@@ -154,6 +169,7 @@ without the repository around it, the script fails and prints no result.
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import statistics
@@ -215,14 +231,22 @@ DIST_PLAIN_REPEATS = 3
 #: seconds of kernel-G work phase 10 may spend in CG (max_iter is derived
 #: from kernel G's time measured at its shape in the kernels phase)
 CHI_WIDTH_CG_SECONDS = 50.0
-#: phase 10 trains to epsilon 1e-6: it has no float64 comparison, and at
-#: 1e-6 CG reaches epsilon within the time above (26 iterations of ~1.5 s
-#: on an H100), where 1e-7 would need ~38
-CHI_WIDTH_EPSILON = 1e-6
+#: phases 10 and explicit train chi2-width to epsilon 1e-7 (44-48 block
+#: iterations): there two float32 fits, implicit or explicit, agree on
+#: 0.997 of the labels and each with the float64 fit at 1e-10 on 0.996
+#: (``--chi2-width-agreement`` on an H100 80GB HBM3); at 1e-8 a float32
+#: fit runs to any cap
+CHI_WIDTH_EPSILON = 1e-7
 #: the cap on the extras phase's re-run of ROADMAP Queue 3's case (phase
 #: 9's classes in float32 to epsilon 1e-8 with Jacobi): unpreconditioned, one
 #: class ran 4343 iterations; ~10 ms an iteration keeps the cap under 30 s
 JACOBI_CHI2_MAX_ITER = 2500
+#: the rough fit that the extras phase warm-starts from: at 1e-4 config 2
+#: stops after one iteration, and a CG restarted from one step saves at most
+#: one of the cold fit's 20-22 (TF32 sums vary from run to run), so "fewer
+#: iterations" held only by chance; from 1e-6 the restart has half the work
+#: behind it
+WARM_ROUGH_EPSILON = 1e-6
 #: the matvec bench's shape and products per timing (phase 12)
 BENCH_M, BENCH_D, BENCH_ITERS = 8192, 256, 64
 #: the banded tool's default shape and products per timing (phase 11)
@@ -2390,9 +2414,11 @@ def _model_io_seconds():
         Model.load, Model.save = load, save
 
 
-def _cli_fit_predict(phase, train_file, test_file, tmp, flags):
-    """Train and predict through the port's CLIs on the card; returns (fit
-    seconds, predict seconds, predicted labels, file I/O): the I/O holds
+def _cli_fit_predict(phase, train_file, test_file, tmp, flags, solver="cg_implicit"):
+    """Train (``--solver solver``: the implicit solver unless asked, so
+    that the phases built to launch a kernel launch it) and predict through
+    the port's CLIs on the card; returns (fit seconds, predict seconds,
+    predicted labels, file I/O): the I/O holds
     the seconds of the fit's data parse and model write and of the
     predict's model and data parse, and the native library's parses and
     writes over both runs (``native/loader.py``'s counters)."""
@@ -2408,7 +2434,7 @@ def _cli_fit_predict(phase, train_file, test_file, tmp, flags):
     loader.reset_counts()
     with _model_io_seconds() as model_io:
         t0 = time.perf_counter()
-        rc = train_cli.main(common + flags + [train_file, model_file])
+        rc = train_cli.main(common + ["--solver", solver] + flags + [train_file, model_file])
         t1 = time.perf_counter()
         fit_read = _tracked("data_set_read", "time") / 1000 if rc == 0 else 0.0
         rc_predict = predict_cli.main(common + [test_file, model_file, out_file])
@@ -2422,6 +2448,27 @@ def _cli_fit_predict(phase, train_file, test_file, tmp, flags):
     with open(out_file, encoding="utf-8") as fh:
         predicted = np.asarray([int(line) for line in fh])
     return t1 - t0, t2 - t1, predicted, io
+
+
+def _automatic(phase, label, n, d, kind, classes=2, dtype=np.float32, precision="f32",
+               devices=None):
+    """Log what ``solver="automatic"`` would resolve to for a fit of ``n``
+    points of ``d`` features and ``classes`` labels at the phase's shape:
+    the phases built to launch a kernel pin ``cg_implicit``."""
+    import plssvm_tpu_torch as port
+    from plssvm_tpu_torch.parameter import KernelFunctionType as K
+
+    where = dict(device="cuda") if devices is None else dict(devices=devices)
+    svm = port.CSVM(backend="cuda", dtype=dtype, gram_precision=precision,
+                    kernel_type=kind, **where)
+    n_dev = len(svm.devices[:n - 1]) if svm.devices else 1
+    columns = classes if classes > 2 else 1
+    explicit = svm._use_explicit_solver(n - 1, d, K.from_string(kind), n_dev, columns)
+    needs = max(svm._explicit_bytes_per_device(n - 1, n_dev).values())
+    budget = svm._explicit_budget(svm.device, n - 1, d, columns)
+    log(phase, f"{label}: solver='automatic' would take "
+        f"{'cg_explicit' if explicit else 'cg_implicit'} at this shape (K {needs} bytes on "
+        f"{svm.device}, budget {budget} bytes); the phase pins cg_implicit")
 
 
 def _check_cli_run(phase, label, fit_s, predict_s, io, accuracy, floor, launches,
@@ -2466,7 +2513,7 @@ def _f64_agreement(phase, label, train_file, test_file, predicted, epsilon, **pa
     train64 = port.DataSet(train_file, dtype=np.float64)
     test64 = port.DataSet(test_file, dtype=np.float64)
     svm64 = port.CSVM(backend="cuda", device="cuda", dtype=np.float64,
-                      cost=1.0, **params)
+                      cost=1.0, solver="cg_implicit", **params)
     port.global_tracker.clear()
     t0 = time.perf_counter()
     model64 = svm64.fit(train64, epsilon=epsilon)
@@ -2498,7 +2545,7 @@ def _small_fit_agreement(phase, kernel_type, n_classes, seed):
     values = []
     for backend in ("cuda", "torch"):
         svm = port.CSVM(backend=backend, device="cuda", dtype=np.float64,
-                        kernel_type=kernel_type, cost=1.0)
+                        kernel_type=kernel_type, cost=1.0, solver="cg_implicit")
         model = svm.fit(train, epsilon=1e-10)
         values.append((np.asarray(model.rho), svm.predict_values(model, test)))
     drho = float(np.max(np.abs(values[0][0] - values[1][0])))
@@ -2528,6 +2575,9 @@ def phase_end_to_end(tmp, config2_files):
     from plssvm_tpu_torch.ops import gram_matvec, matvec
 
     (train_file, _), (test_file, test_labels) = config2_files
+    for dtype in (np.float32, np.float64):
+        _automatic("e2e", f"config 2 rbf {np.dtype(dtype).name}", 10000, 200, "rbf",
+                   dtype=dtype)
     gram_matvec.reset_counts()
     fit_s, predict_s, predicted, io = _cli_fit_predict(
         "e2e", train_file, test_file, tmp,
@@ -2596,6 +2646,9 @@ def phase_multiclass_cli(tmp, files):
     from plssvm_tpu_torch.ops import gram_matmat, gram_matvec, matvec
 
     train_file, test_file = files["mc_train"][0], files["mc_test"][0]
+    for dtype in (np.float32, np.float64):
+        _automatic("multiclass", f"{MC_CLASSES} classes rbf {np.dtype(dtype).name}", 10000,
+                   200, "rbf", MC_CLASSES, dtype)
     gram_matvec.reset_counts()
     gram_matmat.reset_counts()
     fit_s, predict_s, predicted, io = _cli_fit_predict(
@@ -2649,7 +2702,9 @@ def phase_multiclass_width():
     log("mnist-width", f"made {MC_CLASSES}-class 60000x784 + 10000x784 in "
         f"memory in {time.perf_counter() - start:.2f} s")
     svm = port.CSVM(backend="cuda", device="cuda", dtype=np.float32,
-                    kernel_type="rbf", cost=1.0)
+                    kernel_type="rbf", cost=1.0, solver="cg_implicit")
+    _automatic("mnist-width", f"rbf 60000x784 {MC_CLASSES} classes f32", 60000, 784, "rbf",
+               MC_CLASSES)
     port.global_tracker.clear()
     gram_matmat.reset_counts()
     t0 = time.perf_counter()
@@ -2680,7 +2735,9 @@ def phase_multiclass_width():
     cell = dict(make=lambda dtype: (port.DataSet(X, y, dtype=dtype),
                                     port.DataSet(X_test, y_test, dtype=dtype)),
                 labels=y_test, epsilon=EPSILON, floor=MC_ACCURACY_FLOOR,
-                params=dict(kernel_type="rbf"))
+                params=dict(kernel_type="rbf"),
+                implicit=dict(predicted=predicted, fit_s=t1 - t0, iterations=iterations,
+                              s_per_it=cg_ms / 1000 / iterations, accuracy=accuracy))
     return {"gram_matmat_sym_tc": launches[0], "gram_matmat_rect_tc": launches[1]}, cell
 
 
@@ -2694,7 +2751,8 @@ def phase_config3_width():
     X = rng.normal(size=(n, d)) + 0.05 * y[:, None]
     data = port.DataSet(X, y, scaling=(-1.0, 1.0), dtype=np.float32)
     svm = port.CSVM(backend="cuda", device="cuda", dtype=np.float32,
-                    kernel_type="polynomial")
+                    kernel_type="polynomial", solver="cg_implicit")
+    _automatic("config3", "poly 50000x500 f32", n, d, "polynomial")
     port.global_tracker.clear()
     gram_matvec.reset_counts()
     t0 = time.perf_counter()
@@ -2741,7 +2799,10 @@ def phase_bf16(tmp, config2_files, e2e_predicted, multiclass_files):
         loader.reset_counts()
         t0 = time.perf_counter()
         rc = train_cli.main(["-b", "cuda", "-p", "gpu", "-q", "--gram_precision", "bf16",
-                             "-t", "2", "-c", "1", "-e", str(EPSILON), train, model_file])
+                             "--solver", "cg_implicit", "-t", "2", "-c", "1", "-e",
+                             str(EPSILON), train, model_file])
+        _automatic("bf16", f"{label} bf16", 10000, 200, "rbf",
+                   MC_CLASSES if sym.startswith("gram_matmat") else 2, precision="bf16")
         t1 = time.perf_counter()
         if rc != 0:
             raise AssertionError(f"bf16 {label}: train rc {rc}")
@@ -2781,6 +2842,7 @@ def phase_laplacian_cli(tmp, config2_files):
     from plssvm_tpu_torch.ops import distance
 
     (train_file, _), (test_file, test_labels) = config2_files
+    _automatic("laplacian", "config 2 -t 4", 10000, 200, "laplacian")
     distance.reset_counts()
     fit_s, predict_s, predicted, io = _cli_fit_predict(
         "laplacian", train_file, test_file, tmp,
@@ -2792,6 +2854,7 @@ def phase_laplacian_cli(tmp, config2_files):
                    "distance_matvec_sym", "distance_matvec_rect")
     cell = _cli_cell(train_file, test_file, test_labels, EPSILON,
                      LAPLACIAN_ACCURACY_FLOOR, kernel_type="laplacian")
+    cell["predicted"] = predicted
     _f64_agreement("laplacian", "config 2 -t 4", train_file, test_file,
                    predicted, EPSILON, kernel_type="laplacian")
     _small_fit_agreement("laplacian", "laplacian", 2, SEED + 11)
@@ -2819,6 +2882,8 @@ def phase_chi2_cli(tmp):
         f"{time.perf_counter() - start:.2f} s; gamma {gamma:.6f} (1 / mean "
         f"chi-squared distance); Bayes-optimal accuracy {bayes:.4f} (Monte "
         "Carlo, 20000 draws)")
+    _automatic("chi2-cli", f"{MC_CLASSES} classes -t 5", 10000, 200, "chi_squared",
+               MC_CLASSES)
     distance.reset_counts()
     fit_s, predict_s, predicted, io = _cli_fit_predict(
         "chi2-cli", train_file, test_file, tmp,
@@ -2836,12 +2901,10 @@ def phase_chi2_cli(tmp):
     return {k: launches[k] for k in ("distance_matmat_sym", "distance_matmat_rect")}, cell
 
 
-def phase_chi2_width(g_chi_ms):
-    """Phase 10: the histogram classes at MNIST's width, count and split,
-    through CSVM in memory; max_iter capped from kernel G's time."""
-    import plssvm_tpu_torch as port
-    from plssvm_tpu_torch.ops import distance
-
+def _chi2_width_data():
+    """Phase 10's data: the 10 histogram classes at MNIST's width, count
+    and split (60000 + 10000 x 784), their gamma and Bayes-optimal
+    accuracy, and the seconds it took to make them."""
     rng = np.random.default_rng(SEED + 13)
     probs = _histogram_classes(rng, 784)
     start = time.perf_counter()
@@ -2849,6 +2912,16 @@ def phase_chi2_width(g_chi_ms):
     X_test, y_test, _ = _draw_histograms(rng, probs, 10000)
     gamma = _chi2_gamma(rng, X)
     bayes = _bayes_accuracy(rng, probs)
+    return X, y, X_test, y_test, gamma, bayes, time.perf_counter() - start
+
+
+def phase_chi2_width(g_chi_ms):
+    """Phase 10: the histogram classes at MNIST's width, count and split,
+    through CSVM in memory; max_iter capped from kernel G's time."""
+    import plssvm_tpu_torch as port
+    from plssvm_tpu_torch.ops import distance
+
+    X, y, X_test, y_test, gamma, bayes, made_s = _chi2_width_data()
     train = port.DataSet(X, y, dtype=np.float32)
     test = port.DataSet(X_test, y_test, dtype=np.float32)
     # kernel G at this shape, from the kernels phase; the iteration costs
@@ -2856,11 +2929,13 @@ def phase_chi2_width(g_chi_ms):
     per_launch = g_chi_ms / 1000
     max_iter = max(5, int(CHI_WIDTH_CG_SECONDS / per_launch) - 2)
     log("chi2-width", f"made {MC_CLASSES}-class 60000x784 + 10000x784 histograms "
-        f"({np.mean(X == 0):.3f} of the entries 0) in {time.perf_counter() - start:.2f} s; "
+        f"({np.mean(X == 0):.3f} of the entries 0) in {made_s:.2f} s; "
         f"gamma {gamma:.6f}; Bayes-optimal accuracy {bayes:.4f}; kernel G "
         f"{per_launch:.3f} s per launch (kernels phase), max_iter {max_iter}")
     svm = port.CSVM(backend="cuda", device="cuda", dtype=np.float32,
-                    kernel_type="chi_squared", gamma=gamma, cost=1.0)
+                    kernel_type="chi_squared", gamma=gamma, cost=1.0, solver="cg_implicit")
+    _automatic("chi2-width", f"chi-squared 60000x784 {MC_CLASSES} classes f32", 60000, 784,
+               "chi_squared", MC_CLASSES)
     port.global_tracker.clear()
     distance.reset_counts()
     t0 = time.perf_counter()
@@ -2888,7 +2963,653 @@ def phase_chi2_width(g_chi_ms):
         raise AssertionError("chi-squared width did not go through kernels G and H only")
     if converged and accuracy < CHI2_ACCURACY_FLOOR:
         raise AssertionError(f"accuracy {accuracy} below {CHI2_ACCURACY_FLOOR}")
-    return {k: launches[k] for k in ("distance_matmat_sym", "distance_matmat_rect")}
+    implicit = dict(predicted=predicted, fit_s=t1 - t0, iterations=iterations,
+                    s_per_it=cg_ms / 1000 / iterations, accuracy=accuracy)
+    cell = dict(train=train, test=test, labels=y_test, gamma=gamma, max_iter=max_iter,
+                implicit=implicit)
+    return {k: launches[k] for k in ("distance_matmat_sym", "distance_matmat_rect")}, cell
+
+
+#: shapes of kernel N's checks against its plain version: one entry,
+#: ragged edges of one and several tiles, d past one chunk, many tiles
+N_SHAPES = ((1, 1, 3), (70, 70, 5), (130, 131, 17), (257, 300, 33), (1000, 999, 784))
+#: rows of the chi2-width build held against the plain version: the first
+#: and the last, and rows from 35792 on, whose entries lie past INT32_MAX
+#: (35792 x 59999 > 2^31)
+N_SAMPLE_ROWS = (0, 1, 17, 29999, 35791, 35792, 47000, 59997, 59998)
+#: the kernels phase's shape, where kernel N is timed beside its plain
+#: version; in float64 at N_TIMING_M_F64 rows, as kernels E-H in float64
+N_TIMING_M, N_TIMING_D, N_TIMING_M_F64 = 16384, 256, 8192
+#: the explicit budget's edge: the feature count of the fits whose K just
+#: fits the budget, their cap on CG iterations (a read of K ~25 ms), and
+#: the room under the budget their K leaves for what the fit itself puts
+#: on the card before it resolves the solver (X, the labels)
+EDGE_D, EDGE_MAX_ITER, EDGE_SLACK = 16, 10, 256 << 20
+#: ROADMAP Queue 3 item 2's case: runs per solver and their cap
+STALL_RUNS, STALL_MAX_ITER = 8, 500
+
+
+def _n_bound(mr, mc, d, kind, itemsize, out_itemsize, symmetric):
+    """The bound of kernel N: the pair work of mr mc pairs (half of them,
+    m (m + 1) / 2, for the symmetric walk) over d features and the bytes of
+    X (or Xr and Xc) read once and K written once."""
+    pairs = mr * (mr + 1) / 2 if symmetric else float(mr) * mc
+    n_bytes = itemsize * (mr if symmetric else mr + mc) * d + out_itemsize * float(mr) * mc
+    return _bound(pairs, d, 0.0, kind, n_bytes, None if itemsize == 4 else "fp64")
+
+
+def _kernel_n_checks(gen):
+    """Kernel N's two walks against their plain version on the card:
+    laplacian and chi-squared, float32 and float64, stored in the type and
+    in bfloat16, on zero-rich rows at N_SHAPES.  K in its type within the
+    type's tolerance (``_check_close``); bfloat16 within one bf16 rounding
+    (2^-8, K <= 1) of the plain version's bfloat16; the symmetric walk
+    exactly symmetric with a unit diagonal.  Returns the largest max|err|
+    per walk and type, {(walk, "f32" or "f64"): err}."""
+    from plssvm_tpu_torch.ops import kernel_matrix as km
+    from plssvm_tpu_torch.parameter import KernelFunctionType as K
+
+    worst = {(walk, t): 0.0 for walk in ("kernel_matrix_sym", "kernel_matrix_rect")
+             for t in ("f32", "f64")}
+    for dtype in (torch.float32, torch.float64):
+        t = "f32" if dtype == torch.float32 else "f64"
+        for kind in (K.LAPLACIAN, K.CHI_SQUARED):
+            for out in (None, torch.bfloat16):
+                for mr, mc, d in N_SHAPES:
+                    X, Y = _zero_rich(mr, d, dtype, gen), _zero_rich(mc, d, dtype, gen)
+                    kw = dict(kind=kind, gamma=1.0 / d, out_dtype=out)
+                    label = f"{kind} {dtype} {out or 'stored in its type'} {mr}x{mc}x{d}"
+                    sym = km.kernel_matrix_sym(X, **kw)
+                    for name, got, want in (
+                            ("kernel_matrix_sym", sym, km.kernel_matrix_sym_plain(X, **kw)),
+                            ("kernel_matrix_rect", km.kernel_matrix_rect(X, Y, **kw),
+                             km.kernel_matrix_rect_plain(X, Y, **kw))):
+                        if out is None:
+                            err = _check_close(f"{name} {label}", got, want)[0]
+                            worst[(name, t)] = max(worst[(name, t)], err)
+                        else:
+                            torch.cuda.synchronize()
+                            err = float((got.float() - want.float()).abs().max())
+                            if got.dtype != torch.bfloat16 or not err <= 2.0 ** -8:
+                                raise AssertionError(f"{name} {label}: max|err| {err}")
+                    if not (torch.equal(sym, sym.T)
+                            and bool((sym.diagonal() == 1).all())):
+                        raise AssertionError(f"kernel_matrix_sym {label}: not symmetric "
+                                             "with a unit diagonal")
+    log("explicit", f"kernel N against its plain version: {len(N_SHAPES)} shapes x "
+        f"laplacian, chi-squared x float32, float64 x stored in the type, bf16: max|err| "
+        + ", ".join(f"{walk[len('kernel_matrix_'):]} {t} {err:.3e}"
+                    for (walk, t), err in worst.items())
+        + "; the symmetric walk exactly symmetric with a unit diagonal")
+    return worst
+
+
+def _kernel_n_main_shapes(gen, chi2_width, chi2_cell, config2_files):
+    """Kernel N at the main paths' shapes: the chi2-width build (59999 x
+    784, float32 chi-squared, 14.4 GB), timed beside its bound, N_SAMPLE_ROWS
+    held against the plain version and the per-entry check of
+    ``ops/entry_check.py`` on ten columns; the same build in float64 (28.8
+    GB) timed beside its bound (the explicit phase checks the one its fit
+    builds); config 2's laplacian K (9999 x 200, the ``-t 4`` CLI fit's)
+    whole against the plain version and timed beside it; the ring's row
+    block of the chi2-cli cell (2500 x 9999 x 200) against the plain
+    version, timed beside it and per entry.  Then both walks and their
+    plain versions at 16384 x 256 (chi-squared, zero-rich rows), the
+    symmetric one in float64 at 8192 x 256.  Returns (main_err, timing,
+    bounds, main_ms) entries."""
+    import plssvm_tpu_torch as port
+    from plssvm_tpu_torch.ops import kernel_matrix as km
+    from plssvm_tpu_torch.ops.entry_check import entry_errors
+    from plssvm_tpu_torch.parallel import sharded
+    from plssvm_tpu_torch.parameter import KernelFunctionType as K
+
+    main_err, timing, bounds, main_ms = {}, {}, {}, {}
+    sym_key, rect_key = ("kernel_matrix_sym", "chi_squared"), ("kernel_matrix_rect", "chi_squared")
+    f64_key, lap_key = ("kernel_matrix_sym", "f64"), ("kernel_matrix_sym", "laplacian")
+    X = torch.as_tensor(np.asarray(chi2_width["train"].data)[:-1], device="cuda")
+    m, d = X.shape
+    kw = dict(kind=K.CHI_SQUARED, gamma=chi2_width["gamma"])
+    bound = _n_bound(m, m, d, "chi_squared", 4, 4, True)
+    ms = _median_ms(lambda: km.kernel_matrix_sym(X, **kw), 3, 1)
+    _check_share("kernel_matrix_sym", f"{m}x{d}", ms, bound[0])
+    main_ms[("kernel_matrix_sym", "explicit")] = (ms, bound[0])
+    Kx = km.kernel_matrix_sym(X, **kw)
+    rows = list(N_SAMPLE_ROWS)
+    sampled = _check_close(f"kernel_matrix_sym chi-squared {m}x{d}, rows {rows}",
+                           Kx[rows], km.kernel_matrix_rect_plain(X[rows], X, **kw))[0]
+    columns = [int(j) for j in np.linspace(0, m - 1, MC_CLASSES)]
+    got, plain = entry_errors(lambda _X, V, **_kw: Kx @ V, X, columns, kw["gamma"])
+    log("explicit", f"kernel_matrix_sym chi-squared f32 at chi2-width's {m}x{d} "
+        f"({Kx.numel() * 4 / 1e9:.1f} GB): {ms:.3f} ms, bound {bound[0]:.3f} ms "
+        f"({bound[1]}), {bound[0] / ms:.3f} of it; rows {rows} against the plain version "
+        f"max|err| {sampled:.3e}; per entry, {MC_CLASSES} columns of K: worst rel err "
+        f"{got:.3e}, plain f32 {plain:.3e} ({got / plain:.2f}x)")
+    if not got <= min(4 * plain, 1e-4):
+        raise AssertionError(f"kernel_matrix_sym per-entry error {got}, plain f32 {plain}")
+    del Kx
+    torch.cuda.empty_cache()
+    # the same build in float64: the double instantiation, the divide-free
+    # quotient on these rows
+    X64 = X.double()
+    bound = _n_bound(m, m, d, "chi_squared", 8, 8, True)
+    ms = _median_ms(lambda: km.kernel_matrix_sym(X64, **kw), 1, 1)
+    main_ms[("kernel_matrix_sym_f64", "explicit")] = (ms, bound[0])
+    _log_bound("kernel_matrix_sym", f"{m}x{d} f64 chi-squared ({m * m * 8 / 1e9:.1f} GB)",
+               ms, bound)
+    del X, X64
+    torch.cuda.empty_cache()
+    # config 2's laplacian K, whole, as the -t 4 CLI fit builds it
+    train = port.DataSet(config2_files[0][0], dtype=np.float32)
+    Xl = torch.as_tensor(np.asarray(train.data)[:-1], device="cuda")
+    m, d = Xl.shape
+    kw_l = dict(kind=K.LAPLACIAN, gamma=1.0 / d)
+    label = f"{m}x{d} f32 laplacian (config 2)"
+    main_err[lap_key] = _check_close(f"kernel_matrix_sym {label}",
+                                     km.kernel_matrix_sym(Xl, **kw_l),
+                                     km.kernel_matrix_sym_plain(Xl, **kw_l))[0]
+    timing[lap_key] = _time_pair(
+        "kernel_matrix_sym", km.kernel_matrix_sym, km.kernel_matrix_sym_plain, (Xl,), kw_l,
+        m * (m + 1) / 2 * d, label, plain_repeats=DIST_PLAIN_REPEATS,
+        unit="T pair-features/s", counted="m (m + 1) / 2 d")
+    bounds[lap_key] = _n_bound(m, m, d, "laplacian", 4, 4, True)
+    _log_bound("kernel_matrix_sym", label, timing[lap_key][0], bounds[lap_key])
+    main_ms[("kernel_matrix_sym_laplacian", "explicit")] = (timing[lap_key][0],
+                                                            bounds[lap_key][0])
+    log("explicit", f"kernel_matrix_sym {label}: the whole K against the plain version, "
+        f"max|err| {main_err[lap_key]:.3e}")
+    del Xl, train
+    # the ring's row block of the chi2-cli cell: K_p = k(X_p, X), p = 0
+    train, _ = chi2_cell["make"](np.float32)
+    Xc = torch.as_tensor(np.asarray(train.data)[:-1], device="cuda")
+    lo, hi = sharded.shard_bounds(Xc.shape[0], RING_SHARDS)[0]
+    Xp = Xc[lo:hi]
+    kw_c = dict(kind=K.CHI_SQUARED, gamma=chi2_cell["params"]["gamma"])
+    label = f"{Xp.shape[0]}x{Xc.shape[0]}x{Xc.shape[1]}"
+    main_err[rect_key] = _check_close(f"kernel_matrix_rect chi-squared {label}",
+                                      km.kernel_matrix_rect(Xp, Xc, **kw_c),
+                                      km.kernel_matrix_rect_plain(Xp, Xc, **kw_c))[0]
+    got, plain = entry_errors(
+        lambda P, S, V, **_kw: km.kernel_matrix_rect(P, S, **kw_c) @ V, Xc,
+        [int(j) for j in np.linspace(0, Xc.shape[0] - 1, MC_CLASSES)], kw_c["gamma"],
+        points=Xp)
+    if not got <= min(4 * plain, 1e-4):
+        raise AssertionError(f"kernel_matrix_rect per-entry error {got}, plain f32 {plain}")
+    bounds[rect_key] = _n_bound(Xp.shape[0], Xc.shape[0], Xc.shape[1], "chi_squared", 4, 4,
+                                False)
+    timing[rect_key] = _time_pair(
+        "kernel_matrix_rect", km.kernel_matrix_rect, km.kernel_matrix_rect_plain, (Xp, Xc),
+        kw_c, float(Xp.shape[0]) * Xc.shape[0] * Xc.shape[1], f"{label} f32 chi-squared",
+        plain_repeats=DIST_PLAIN_REPEATS, unit="T pair-features/s", counted="mr mc d")
+    _log_bound("kernel_matrix_rect", label, timing[rect_key][0], bounds[rect_key])
+    main_ms[("kernel_matrix_rect", "explicit")] = (timing[rect_key][0], bounds[rect_key][0])
+    log("explicit", f"kernel_matrix_rect per entry at the ring's block {label}: worst rel "
+        f"err {got:.3e}, plain f32 {plain:.3e}")
+    # the kernels phase's shape, beside the plain version
+    Xt = _zero_rich(N_TIMING_M, N_TIMING_D, torch.float32, gen)
+    kw_t = dict(kind=K.CHI_SQUARED, gamma=1.0 / N_TIMING_D)
+    label = f"m={N_TIMING_M} d={N_TIMING_D} f32 chi-squared"
+    timing[sym_key] = _time_pair(
+        "kernel_matrix_sym", km.kernel_matrix_sym, km.kernel_matrix_sym_plain, (Xt,), kw_t,
+        N_TIMING_M * (N_TIMING_M + 1) / 2 * N_TIMING_D, label,
+        plain_repeats=DIST_PLAIN_REPEATS, unit="T pair-features/s", counted="m (m + 1) / 2 d")
+    bounds[sym_key] = _n_bound(N_TIMING_M, N_TIMING_M, N_TIMING_D, "chi_squared", 4, 4, True)
+    _log_bound("kernel_matrix_sym", label, timing[sym_key][0], bounds[sym_key])
+    Xt = _zero_rich(N_TIMING_M_F64, N_TIMING_D, torch.float64, gen)
+    label = f"m={N_TIMING_M_F64} d={N_TIMING_D} f64 chi-squared"
+    timing[f64_key] = _time_pair(
+        "kernel_matrix_sym", km.kernel_matrix_sym, km.kernel_matrix_sym_plain, (Xt,), kw_t,
+        N_TIMING_M_F64 * (N_TIMING_M_F64 + 1) / 2 * N_TIMING_D, label, plain_repeats=1,
+        unit="T pair-features/s", counted="m (m + 1) / 2 d")
+    bounds[f64_key] = _n_bound(N_TIMING_M_F64, N_TIMING_M_F64, N_TIMING_D, "chi_squared", 8,
+                               8, True)
+    _log_bound("kernel_matrix_sym", label, timing[f64_key][0], bounds[f64_key])
+    main_err[sym_key] = sampled
+    return main_err, timing, bounds, main_ms
+
+
+def _explicit_fit(label, svm, train, test, labels, implicit, epsilon, need, **fit_kw):
+    """Fit ``train`` with ``svm`` (``solver="cg_explicit"``) and predict
+    ``test``; log build ms, s/iteration, iterations, fit s and accuracy
+    beside the implicit fit's, and raise unless the solver was explicit, the
+    model finite and the labels agree with the implicit fit's on ``need``
+    of the points.  Returns the predicted labels."""
+    import plssvm_tpu_torch as port
+
+    port.global_tracker.clear()
+    t0 = time.perf_counter()
+    model = svm.fit(train, epsilon=epsilon, **fit_kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    predicted = svm.predict(model, test)
+    iterations = _tracked("cg", "iterations")
+    build_ms = _tracked("cg", "kernel_matrix_build_time")
+    # the tracker's CG runtime holds the build, as plssvm_tpu's does
+    s_per_it = (_tracked("cg", "total_runtime") - build_ms) / 1000 / max(iterations, 1)
+    accuracy = float(np.mean(predicted == labels))
+    agree = float(np.mean(predicted == implicit["predicted"]))
+    log("explicit", f"{label} cg_explicit: build {build_ms:.3f} ms, {iterations} CG "
+        f"iterations at {s_per_it:.6f} s/iteration (the build excluded; CG and build "
+        f"{_tracked('cg', 'total_runtime') / 1000:.3f} s), fit {t1 - t0:.3f} s, accuracy "
+        f"{accuracy:.4f}; cg_implicit: {implicit['iterations']} at {implicit['s_per_it']:.6f}"
+        f" s/iteration, fit {implicit['fit_s']:.3f} s, accuracy {implicit['accuracy']:.4f}; "
+        f"label agreement {agree:.4f}")
+    if _tracked("cg", "solver") != "cg_explicit":
+        raise AssertionError(f"explicit {label}: the fit resolved to {_tracked('cg', 'solver')}")
+    if not (np.all(np.isfinite(model.alpha)) and np.all(np.isfinite(model.rho))):
+        raise AssertionError(f"explicit {label}: non-finite model")
+    if agree < need:
+        raise AssertionError(f"explicit {label}: label agreement {agree} below {need}")
+    return predicted
+
+
+def _cli_explicit(tmp, label, train_file, test_file, labels, implicit_predicted, flags):
+    """``plssvm-torch-train --solver cg_explicit`` and the predict CLI on a
+    CLI phase's files, against that phase's (implicit) labels."""
+    fit_s, predict_s, predicted, io = _cli_fit_predict(
+        f"explicit-{label}", train_file, test_file, tmp, flags, solver="cg_explicit")
+    agree = float(np.mean(predicted == implicit_predicted))
+    build_ms = _tracked("cg", "kernel_matrix_build_time")
+    iterations = _tracked("cg", "iterations")
+    s_per_it = (_tracked("cg", "total_runtime") - build_ms) / 1000 / max(iterations, 1)
+    log("explicit", f"{label} through plssvm-torch-train --solver cg_explicit: build "
+        f"{build_ms:.3f} ms, {iterations} CG iterations at {s_per_it:.6f} s/iteration (the "
+        f"build excluded), fit "
+        f"(CLI) {fit_s:.3f} s (file I/O {io['fit_parse']:.3f}), predict {predict_s:.3f} s, "
+        f"accuracy {np.mean(predicted == labels):.4f}, label agreement with the implicit "
+        f"run {agree:.4f}")
+    if agree < 0.995:
+        raise AssertionError(f"explicit {label}: label agreement {agree} below 0.995")
+
+
+def phase_explicit(tmp, config2_files, e2e_predicted, ring_cells, chi2_width):
+    """The explicit solver (``solver="cg_explicit"``) on the card.
+
+    (a) kernel N against its plain version (``_kernel_n_checks``); (b) at
+    the main paths' shapes and at 16384 x 256, timed beside the bound
+    (``_kernel_n_main_shapes``); (c) with the counts set to 0: fits with
+    ``cg_explicit`` beside the same fit with ``cg_implicit`` (chi2-width's
+    10 histogram classes through ``CSVM``, phase 10's fit; the MNIST-width
+    10 classes, phase 7's; config 2 and its laplacian files through
+    ``plssvm-torch-train --solver cg_explicit``, phases 4 and 8; config 2 in
+    float64 at epsilon 1e-10, both solvers here): label agreement >= 0.995
+    in float32 and >= 0.999 in float64, each logging build ms,
+    s/iteration, iterations and accuracy; chi2-width's float32 fit also
+    >= 0.995 with its own float64 fit at 1e-10, whose cached K is checked against
+    the plain version (``_check_f64_build``); (d) the ring's explicit path,
+    four shards on cuda:0, on phase 9's histogram classes against the
+    one-device explicit fit (>= 0.995, float32); (e) kernel N's launches:
+    the symmetric walk once per distance fit of (c), counted per type and
+    kind, the rectangular one once per shard in (d), the implicit products
+    never; (f) after them, ``automatic`` at the budget's edge
+    (``_budget_edge``).
+    """
+    import plssvm_tpu_torch as port
+    from plssvm_tpu_torch.ops import distance, gram_matmat, gram_matvec
+    from plssvm_tpu_torch.ops import kernel_matrix as km
+
+    gen = torch.Generator().manual_seed(SEED + 31)
+    worst = _kernel_n_checks(gen)
+    main_err, timing, bounds, main_ms = _kernel_n_main_shapes(gen, chi2_width,
+                                                               ring_cells["chi2"], config2_files)
+
+    (train_file, _), (test_file, test_labels) = config2_files
+    # config 2 in float64: the implicit fit at epsilon 1e-10 to compare with
+    train64 = port.DataSet(train_file, dtype=np.float64)
+    test64 = port.DataSet(test_file, dtype=np.float64)
+    svm = port.CSVM(backend="cuda", device="cuda", dtype=np.float64, kernel_type="rbf",
+                    cost=1.0, solver="cg_implicit")
+    port.global_tracker.clear()
+    t0 = time.perf_counter()
+    model = svm.fit(train64, epsilon=RING_F64_EPSILON)
+    t1 = time.perf_counter()
+    predicted = svm.predict(model, test64)
+    implicit64 = dict(predicted=predicted, fit_s=t1 - t0, iterations=_tracked("cg", "iterations"),
+                      s_per_it=_tracked("cg", "avg_iteration_time") / 1000,
+                      accuracy=float(np.mean(predicted == test_labels)))
+
+    for module in (gram_matvec, gram_matmat, distance, km):
+        module.reset_counts()
+    # chi2-width: kernel N's symmetric walk, then K @ V on the stored K, in
+    # float32 beside phase 10's fit, then in float64 to 1e-10, the answer
+    # both float32 fits approach
+    kw = dict(backend="cuda", device="cuda", kernel_type="chi_squared",
+              gamma=chi2_width["gamma"], cost=1.0, solver="cg_explicit")
+    train = chi2_width["train"]
+    predicted = _explicit_fit(
+        f"chi2-width {MC_CLASSES} classes f32", port.CSVM(dtype=np.float32, **kw), train,
+        chi2_width["test"], chi2_width["labels"], chi2_width["implicit"], CHI_WIDTH_EPSILON,
+        0.995, max_iter=chi2_width["max_iter"])
+    train._k_cache = None
+    # kernel N's symmetric launches per type and kind: float32 chi-squared
+    # here, float64 chi-squared and float32 laplacian below
+    sym = {"kernel_matrix_sym": km.sym_launches}
+    chi_train64 = port.DataSet(np.asarray(train.data), np.asarray(train.labels), dtype=np.float64)
+    chi_test64 = port.DataSet(np.asarray(chi2_width["test"].data),
+                          np.asarray(chi2_width["test"].labels), dtype=np.float64)
+    svm = port.CSVM(dtype=np.float64, **kw)
+    port.global_tracker.clear()
+    t0 = time.perf_counter()
+    model = svm.fit(chi_train64, epsilon=RING_F64_EPSILON)
+    t1 = time.perf_counter()
+    predicted64 = svm.predict(model, chi_test64)
+    agree = [float(np.mean(labels == predicted64))
+             for labels in (predicted, chi2_width["implicit"]["predicted"])]
+    build_ms = _tracked("cg", "kernel_matrix_build_time")
+    s_per_it = (_tracked("cg", "total_runtime") - build_ms) / 1000 / max(model.n_iter, 1)
+    log("explicit", f"chi2-width {MC_CLASSES} classes f64 cg_explicit to {RING_F64_EPSILON}: "
+        f"build {build_ms:.3f} ms, {model.n_iter} CG iterations at {s_per_it:.6f} "
+        f"s/iteration (the build excluded), fit "
+        f"{t1 - t0:.3f} s, accuracy {np.mean(predicted64 == chi2_width['labels']):.4f}; label "
+        f"agreement with the f32 explicit fit {agree[0]:.4f}, with the f32 implicit fit "
+        f"{agree[1]:.4f}")
+    if agree[0] < 0.995:
+        raise AssertionError(f"explicit chi2-width: the f32 and f64 explicit fits agree on "
+                             f"{agree[0]}")
+    sym["kernel_matrix_sym_f64"] = km.sym_launches - sum(sym.values())
+    plain_before = km.plain_calls
+    main_err[("kernel_matrix_sym", "f64")] = max(
+        _check_f64_build(chi_train64, chi2_width["gamma"]), worst[("kernel_matrix_sym", "f64")])
+    checks_plain = km.plain_calls - plain_before
+    del chi_train64, chi_test64, svm, model
+    torch.cuda.empty_cache()
+    # MNIST width: the Gram build (cuBLAS, TF32) and K @ V
+    cell = ring_cells["mnist-width"]
+    train, test = cell["make"](np.float32)
+    svm = port.CSVM(backend="cuda", device="cuda", dtype=np.float32, kernel_type="rbf",
+                    cost=1.0, solver="cg_explicit")
+    _explicit_fit(f"mnist-width {MC_CLASSES} classes rbf f32", svm, train, test,
+                  cell["labels"], cell["implicit"], EPSILON, 0.995)
+    del train, test, svm
+    torch.cuda.empty_cache()
+    # config 2 and its laplacian files through the CLIs
+    _cli_explicit(tmp, "config 2 rbf", train_file, test_file, test_labels, e2e_predicted,
+                  ["-t", "2", "-c", "1", "-e", str(EPSILON)])
+    _cli_explicit(tmp, "config 2 -t 4", train_file, test_file, test_labels,
+                  ring_cells["laplacian"]["predicted"],
+                  ["-t", "4", "-c", "1", "-e", str(EPSILON)])
+    sym["kernel_matrix_sym_laplacian"] = km.sym_launches - sum(sym.values())
+    # config 2 in float64 (the Gram build in DGEMM)
+    svm = port.CSVM(backend="cuda", device="cuda", dtype=np.float64, kernel_type="rbf",
+                    cost=1.0, solver="cg_explicit")
+    _explicit_fit("config 2 rbf f64 (epsilon 1e-10)", svm, train64, test64, test_labels,
+                  implicit64, RING_F64_EPSILON, 0.999)
+    del train64, test64
+    implicit_products = (gram_matvec.sym_tc_launches + gram_matvec.sym_launches
+                         + gram_matvec.sym_dmma_launches + gram_matmat.sym_tc_launches
+                         + gram_matmat.sym_launches + distance.matvec_sym_launches
+                         + distance.matmat_sym_launches)
+    log("explicit", f"kernel N symmetric walk launches {km.sym_launches}: chi2-width f32 "
+        f"{sym['kernel_matrix_sym']}, f64 {sym['kernel_matrix_sym_f64']}, the laplacian CLI "
+        f"fit {sym['kernel_matrix_sym_laplacian']}; rectangular {km.rect_launches}, plain "
+        f"builds {km.plain_calls - checks_plain} (and {checks_plain} for the float64 check); "
+        f"implicit symmetric products {implicit_products}")
+    if set(sym.values()) != {1} or km.sym_launches != 3 or km.rect_launches \
+            or km.plain_calls != checks_plain or implicit_products:
+        raise AssertionError("explicit: the fits did not build K through kernel N once each, "
+                             "or ran an implicit product")
+
+    # (d) the ring's explicit path, four shards on cuda:0
+    cell = ring_cells["chi2"]
+    train, test = cell["make"](np.float32)
+    one = _ring_run(cell, train, test, np.float32, cell["epsilon"], None, "cg_explicit")
+    one_sym = km.sym_launches
+    train, test = cell["make"](np.float32)
+    ring = _ring_run(cell, train, test, np.float32, cell["epsilon"],
+                     ["cuda:0"] * RING_SHARDS, "cg_explicit")
+    rect_launches = km.rect_launches
+    agree = float(np.mean(ring["predicted"] == one["predicted"]))
+    log("explicit", f"ring {RING_SHARDS} shards on cuda:0, {MC_CLASSES} histogram classes "
+        f"f32 cg_explicit: {ring['iterations']} iterations at {ring['s_per_it']:.6f} "
+        f"s/iteration (one device {one['iterations']} at {one['s_per_it']:.6f}), fit "
+        f"{ring['fit_s']:.3f} s (one device {one['fit_s']:.3f}), accuracy "
+        f"{ring['accuracy']:.4f}, label agreement with one device {agree:.4f}; kernel N rect "
+        f"launches {rect_launches} (one device: sym {one_sym}); ring products "
+        f"{ring['counts'][1]}")
+    if rect_launches != RING_SHARDS or one_sym != 1 or ring["counts"][1][:2] != [0, 0] \
+            or not ring["converged"] or agree < 0.995:
+        raise AssertionError("explicit: the ring's explicit fit did not build its row "
+                             "blocks through kernel N or disagrees with one device")
+    launches = {**sym, "kernel_matrix_rect": rect_launches}
+    del train, test, one, ring
+    # (f) the budget's edge, after the counted launches
+    _budget_edge()
+    for key in main_err:
+        if key not in (("kernel_matrix_sym", "f64"), ("kernel_matrix_sym", "laplacian")):
+            main_err[key] = max(main_err[key], worst[(key[0], "f32")])
+    return launches, (main_err, timing, bounds, main_ms)
+
+
+def _check_f64_build(train64, gamma):
+    """The float64 chi-squared K that the explicit fit of ``train64``
+    cached (59999 x 784, 28.8 GB): N_SAMPLE_ROWS against the plain
+    version in float64 within F64_TOL, and per entry, every 8th row and
+    N_SAMPLE_ROWS at 10 columns, against long double within 2x the float64
+    plain version's error (as kernels E-H in float64).  Returns the
+    sampled rows' max|err|."""
+    from plssvm_tpu_torch.ops import kernel_matrix as km
+    from plssvm_tpu_torch.ops.entry_check import chi2_f64_in_range, entry_errors
+    from plssvm_tpu_torch.parameter import KernelFunctionType as K
+
+    K64 = train64._k_cache[1]
+    X = torch.as_tensor(np.asarray(train64.data)[:-1], device="cuda")
+    m, d = X.shape
+    if K64.shape != (m, m) or K64.dtype != torch.float64:
+        raise AssertionError(f"the float64 fit cached a {K64.dtype} {tuple(K64.shape)} K")
+    kw = dict(kind=K.CHI_SQUARED, gamma=gamma)
+    rows = list(N_SAMPLE_ROWS)
+    sampled = _check_close(f"kernel_matrix_sym f64 chi-squared {m}x{d}, rows {rows}",
+                           K64[rows], km.kernel_matrix_rect_plain(X[rows], X, **kw))[0]
+    index = torch.tensor(sorted(set(range(0, m, 8)) | set(rows)), device="cuda")
+    columns = [int(j) for j in np.linspace(0, m - 1, MC_CLASSES)]
+    got, plain = entry_errors(lambda P, S, V, **_kw: K64[index] @ V, X, columns, gamma,
+                              points=X[index])
+    log("explicit", f"kernel_matrix_sym f64 chi-squared, the fit's {m}x{d} K "
+        f"({K64.numel() * 8 / 1e9:.1f} GB; the rows "
+        f"{'within' if chi2_f64_in_range(X) else 'outside'} the divide-free range): rows "
+        f"{rows} against the plain version max|err| {sampled:.3e}; per entry, {len(index)} "
+        f"rows x {MC_CLASSES} columns against long double: worst rel err {got:.3e}, plain "
+        f"f64 {plain:.3e} ({got / plain:.2f}x)")
+    if not got <= 2 * plain:
+        raise AssertionError(f"kernel_matrix_sym f64 per-entry error {got}, plain {plain}")
+    return sampled
+
+
+def _budget_edge():
+    """``solver="automatic"`` at the explicit budget's edge: the most rows
+    m (EDGE_D features, float32) whose K the budget admits, about 80 GB.
+    (within EDGE_SLACK).
+    A laplacian fit resolves to ``cg_explicit`` and runs; a second one on
+    the same data set with another gamma runs too, which it can only if
+    the cached K goes before the next is built; an RBF fit forced to
+    ``cg_explicit`` there builds through cuBLAS in row blocks.  Each logs
+    its build, the peak of allocated memory against the card's and what
+    the budget left; at m + 1024 rows ``automatic`` takes ``cg_implicit``."""
+    import plssvm_tpu_torch as port
+    from plssvm_tpu_torch.parameter import KernelFunctionType as K
+
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    total = torch.cuda.get_device_properties(dev).total_memory
+    probe = port.CSVM(backend="cuda", device="cuda", dtype=np.float32, kernel_type="laplacian")
+    m = math.isqrt(probe._explicit_budget(dev, 0, EDGE_D, 1) // 4)
+    while (probe._explicit_k_bytes(m, m)
+           > probe._explicit_budget(dev, m, EDGE_D, 1) - EDGE_SLACK):
+        m -= 64
+    rng = np.random.default_rng(SEED + 41)
+    X = rng.standard_normal((m + 1, EDGE_D)).astype(np.float32)
+    y = np.where(X[:, 0] + 0.5 * rng.standard_normal(m + 1) > 0, 1, -1)
+    train = port.DataSet(X, y, dtype=np.float32)
+    budget = probe._explicit_budget(dev, m, EDGE_D, 1, train)
+    log("explicit", f"budget edge: {m} rows x {EDGE_D}, K {probe._explicit_k_bytes(m, m)} "
+        f"bytes, budget {budget} bytes of {total}")
+    for label, params in (("laplacian automatic", dict(kernel_type="laplacian")),
+                          ("laplacian automatic, gamma / 2",
+                           dict(kernel_type="laplacian", gamma=0.5 / EDGE_D)),
+                          ("rbf cg_explicit", dict(kernel_type="rbf", solver="cg_explicit"))):
+        svm = port.CSVM(backend="cuda", device="cuda", dtype=np.float32, cost=1.0, **params)
+        torch.cuda.reset_peak_memory_stats(dev)
+        port.global_tracker.clear()
+        t0 = time.perf_counter()
+        model = svm.fit(train, epsilon=1e-3, max_iter=EDGE_MAX_ITER)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        log("explicit", f"budget edge, {label}: {_tracked('cg', 'solver')}, build "
+            f"{_tracked('cg', 'kernel_matrix_build_time'):.3f} ms, {model.n_iter} iterations, "
+            f"fit {time.perf_counter() - t0:.3f} s; peak allocated {peak} bytes, "
+            f"{total - peak} of the card's {total} left")
+        if _tracked("cg", "solver") != "cg_explicit" \
+                or not np.all(np.isfinite(model.alpha)):
+            raise AssertionError(f"budget edge {label}: not an explicit fit, or non-finite")
+        del svm, model
+    over = probe._use_explicit_solver(m + 1024, EDGE_D, K.LAPLACIAN, data=train)
+    log("explicit", f"budget edge: at {m + 1024} rows automatic takes "
+        f"{'cg_explicit' if over else 'cg_implicit'}")
+    if over:
+        raise AssertionError("budget edge: automatic took cg_explicit past the budget")
+    del train
+    torch.cuda.empty_cache()
+
+
+def phase_stall(chi2_cell):
+    """ROADMAP Queue 3 item 2: phase 9's 10 histogram classes in float32 to
+    epsilon 1e-8 with Jacobi, STALL_RUNS fits with each solver, max_iter
+    STALL_MAX_ITER: the iterations per class of every run and the runs
+    where a class stopped at the cap.  The implicit solve's products sum
+    by atomics in another order each run; the explicit one reads one K
+    built once, without atomics.  A finding, no gate."""
+    import plssvm_tpu_torch as port
+
+    train, _ = chi2_cell["make"](np.float32)
+    for solver in ("cg_implicit", "cg_explicit"):
+        svm = port.CSVM(backend="cuda", device="cuda", dtype=np.float32, cost=1.0,
+                        preconditioner="jacobi", solver=solver, **chi2_cell["params"])
+        stalls, start = 0, time.perf_counter()
+        for run in range(STALL_RUNS):
+            port.global_tracker.clear()
+            model = svm.fit(train, epsilon=1e-8, max_iter=STALL_MAX_ITER)
+            per_class = _tracked("cg", "iterations_per_class")
+            stalled = [c for c, n in enumerate(per_class) if n >= STALL_MAX_ITER]
+            stalls += bool(stalled)
+            log("stall", f"{solver} run {run + 1}: {model.n_iter} block iterations, per class "
+                f"{per_class}, classes at the cap {stalled or 'none'}")
+        log("stall", f"{solver}: {stalls} of {STALL_RUNS} runs stalled (a class at the cap of "
+            f"{STALL_MAX_ITER}), {time.perf_counter() - start:.3f} s")
+
+
+#: ``--chi2-width-agreement``: chi2-width's fits (label, type, solver,
+#: epsilon), each capped at STUDY_MAX_ITER block iterations
+STUDY_RUNS = (
+    ("implicit f32 1e-7 (a)", np.float32, "cg_implicit", 1e-7),
+    ("implicit f32 1e-7 (b)", np.float32, "cg_implicit", 1e-7),
+    ("explicit f32 1e-7", np.float32, "cg_explicit", 1e-7),
+    ("implicit f32 1e-8", np.float32, "cg_implicit", 1e-8),
+    ("explicit f32 1e-8", np.float32, "cg_explicit", 1e-8),
+    ("explicit f64 1e-10", np.float64, "cg_explicit", 1e-10),
+)
+STUDY_MAX_ITER = 400
+
+
+def _chi2_width_products(X, gamma):
+    """One product of each float32 path at chi2-width (X the 59999 train
+    rows) against float64: V (m, 10) seeded normal; the reference K64 @ V
+    in float64, K64 from kernel N in float64; the implicit product (kernel
+    G), the explicit one (``explicit_product`` on kernel N's float32 K:
+    cuBLAS on slices of PRODUCT_ROWS rows), the same K in one cuBLAS
+    call, in full float32 and with TF32 on, and the stored float32 K's
+    product in float64 (its entries' error alone).  Logs each one's
+    relative error in the Frobenius norm and the float32 products' ms
+    (median of 5); returns {name: (rel err, ms or None)}."""
+    from plssvm_tpu_torch.ops import distance
+    from plssvm_tpu_torch.ops import kernel_matrix as km
+    from plssvm_tpu_torch.parameter import KernelFunctionType as K
+    from plssvm_tpu_torch.solver.explicit import _tf32, explicit_product
+
+    kw = dict(kind=K.CHI_SQUARED, gamma=gamma)
+    X32 = torch.as_tensor(X, dtype=torch.float32, device="cuda")
+    gen = torch.Generator().manual_seed(SEED + 43)
+    V64 = torch.randn(X32.shape[0], MC_CLASSES, generator=gen, dtype=torch.float64).to("cuda")
+    V32 = V64.float()
+    K64 = km.kernel_matrix_sym(X32.double(), **kw)
+    ref = K64 @ V64
+    del K64
+    torch.cuda.empty_cache()
+    K32 = km.kernel_matrix_sym(X32, **kw)
+    rows = 4096
+    stored = torch.cat([K32[i:i + rows].double() @ V64 for i in range(0, K32.shape[0], rows)])
+
+    def one_call(tf32):
+        with _tf32(tf32):
+            return K32 @ V32
+
+    products = {
+        "implicit (kernel G)": lambda: distance.distance_matmat_sym(X32, V32, **kw),
+        "explicit (explicit_product)": lambda: explicit_product(K32, V32, torch.float32,
+                                                                symmetric=True),
+        "the float32 K in one cuBLAS call": lambda: one_call(False),
+        "the float32 K in one cuBLAS call, TF32 on": lambda: one_call(True),
+    }
+    found = {}
+    for name, product in products.items():
+        err = float(torch.linalg.norm(product().double() - ref) / torch.linalg.norm(ref))
+        found[name] = (err, _median_ms(product, 5, 1))
+    found["the stored float32 K in float64"] = (
+        float(torch.linalg.norm(stored - ref) / torch.linalg.norm(ref)), None)
+    for name, (err, ms) in found.items():
+        log("chi2-agreement", f"one product at {X32.shape[0]}x{X32.shape[1]}, C = {MC_CLASSES}:"
+            f" {name} rel err {err:.3e} against float64"
+            + ("" if ms is None else f", {ms:.3f} ms"))
+    del K32
+    torch.cuda.empty_cache()
+    return found
+
+
+def phase_chi2_width_agreement():
+    """How far two solves of chi2-width (phase 10's data) agree: first one
+    product of each path against float64 (``_chi2_width_products``), then
+    the fits of STUDY_RUNS, each logging its block iterations, iterations
+    per class, whether it reached epsilon, fit seconds and accuracy, then
+    the label agreement of every pair.  Two implicit float32 fits at 1e-7 read
+    the floor that two float32 solves of this cell reach; the float32 fits
+    at 1e-8 whether either solver fails there.  Returns the JSON-able
+    record."""
+    import plssvm_tpu_torch as port
+
+    X, y, X_test, y_test, gamma, bayes, made_s = _chi2_width_data()
+    log("chi2-agreement", f"made the data in {made_s:.2f} s; gamma {gamma:.6f}, Bayes-optimal "
+        f"accuracy {bayes:.4f}; max_iter {STUDY_MAX_ITER}")
+    products = _chi2_width_products(X[:-1], gamma)
+    sets = {dtype: (port.DataSet(X, y, dtype=dtype), port.DataSet(X_test, y_test, dtype=dtype))
+            for dtype in (np.float32, np.float64)}
+    record = {"products": products, "runs": [], "agreement": {}}
+    predicted = {}
+    for label, dtype, solver, epsilon in STUDY_RUNS:
+        train, test = sets[dtype]
+        svm = port.CSVM(backend="cuda", device="cuda", dtype=dtype, kernel_type="chi_squared",
+                        gamma=gamma, cost=1.0, solver=solver)
+        port.global_tracker.clear()
+        t0 = time.perf_counter()
+        model = svm.fit(train, epsilon=epsilon, max_iter=STUDY_MAX_ITER)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        predicted[label] = svm.predict(model, test)
+        train._k_cache = None
+        run = dict(label=label, iterations=model.n_iter,
+                   per_class=_tracked("cg", "iterations_per_class"),
+                   reached=bool(_tracked("cg", "residuum") <= _tracked("cg", "target_residuum")),
+                   fit_s=fit_s, accuracy=float(np.mean(predicted[label] == y_test)))
+        record["runs"].append(run)
+        log("chi2-agreement", f"{label}: {run['iterations']} block iterations (per class "
+            f"{run['per_class']}), reached epsilon {run['reached']}, fit {fit_s:.3f} s, "
+            f"accuracy {run['accuracy']:.4f}")
+        del svm, model
+        torch.cuda.empty_cache()
+    labels = [run[0] for run in STUDY_RUNS]
+    for i, a in enumerate(labels):
+        for b in labels[i + 1:]:
+            agree = float(np.mean(predicted[a] == predicted[b]))
+            record["agreement"][f"{a} / {b}"] = agree
+            log("chi2-agreement", f"label agreement {a} / {b}: {agree:.4f}")
+    return record
 
 
 def _cli_cell(train_file, test_file, labels, epsilon, floor, **params):
@@ -2993,16 +3714,17 @@ def _ring_counts(kind, matmat, dtype):
     return f"gram_{op}_dual", counts, other, plain
 
 
-def _ring_run(cell, train, test, dtype, epsilon, devices):
-    """Fit ``train`` to ``epsilon`` and predict ``test`` of a cell in
-    ``dtype`` on ``devices`` (None: one device, cuda:0); the counts of its
-    launches from the fit on."""
+def _ring_run(cell, train, test, dtype, epsilon, devices, solver="cg_implicit"):
+    """Fit ``train`` to ``epsilon`` with ``solver`` and predict ``test`` of
+    a cell in ``dtype`` on ``devices`` (None: one device, cuda:0); the
+    counts of its launches from the fit on."""
     import plssvm_tpu_torch as port
-    from plssvm_tpu_torch.ops import distance, gram_matmat, gram_matvec
+    from plssvm_tpu_torch.ops import distance, gram_matmat, gram_matvec, kernel_matrix
 
     where = dict(device="cuda") if devices is None else dict(devices=devices)
-    svm = port.CSVM(backend="cuda", dtype=dtype, cost=1.0, **where, **cell["params"])
-    for module in (gram_matvec, gram_matmat, distance):
+    svm = port.CSVM(backend="cuda", dtype=dtype, cost=1.0, solver=solver, **where,
+                    **cell["params"])
+    for module in (gram_matvec, gram_matmat, distance, kernel_matrix):
         module.reset_counts()
     port.global_tracker.clear()
     t0 = time.perf_counter()
@@ -3059,6 +3781,9 @@ def phase_ring(cells):
         for dtype in (np.float32, np.float64):
             data = cell["make"](dtype)
             epsilon = cell["epsilon"] if dtype == np.float32 else RING_F64_EPSILON
+            _automatic("ring", f"{label} {kind} {np.dtype(dtype).name}", data[0].num_data_points,
+                       data[0].num_features, kind, data[0].num_different_labels, dtype,
+                       devices=devices)
             one = _ring_run(cell, *data, dtype, epsilon, None)
             ring = _ring_run(cell, *data, dtype, epsilon, devices)
             name, counts, other, plain = ring["counts"]
@@ -3393,10 +4118,11 @@ def _checkpoint_resume(label, make_svm, train, test, epsilon, tmp):
 def phase_extras(tmp, config2_files, mc_files, ring_cells):
     """The solver extras on the card (float32 unless stated):
 
-    - warm start: config 2 fitted to epsilon 1e-4, then warm-started from
-      that model to 1e-8 beside a cold fit to 1e-8: label agreement >=
-      0.995, fewer iterations, and kernel A launched 2 + iterations +
-      iterations // 50 times (the cold-start anchor costs one product);
+    - warm start: config 2 fitted to epsilon WARM_ROUGH_EPSILON, then
+      warm-started from that model to 1e-8 beside a cold fit to 1e-8: label
+      agreement >= 0.995, fewer iterations, and kernel A launched 2 +
+      iterations + iterations // 50 times (the cold-start anchor costs one
+      product);
     - class weights: the 10-class files through ``plssvm-torch-train
       --weight 3=2`` and ``plssvm-torch-predict``, as phase 5's run
       (accuracy floor, launches, no plain call, native I/O);
@@ -3419,11 +4145,11 @@ def phase_extras(tmp, config2_files, mc_files, ring_cells):
 
     def rbf(dtype=np.float32, **kw):
         return port.CSVM(backend="cuda", device="cuda", dtype=dtype, kernel_type="rbf",
-                         cost=1.0, **kw)
+                         cost=1.0, solver="cg_implicit", **kw)
 
     # warm start
     svm = rbf()
-    rough = svm.fit(train, epsilon=1e-4)
+    rough = svm.fit(train, epsilon=WARM_ROUGH_EPSILON)
     cold = svm.fit(train, epsilon=EPSILON)
     gram_matvec.reset_counts()
     port.global_tracker.clear()
@@ -3431,7 +4157,7 @@ def phase_extras(tmp, config2_files, mc_files, ring_cells):
     launches = gram_matvec.sym_tc_launches
     cg_s = _tracked("cg", "total_runtime") / 1000
     agree = float(np.mean(svm.predict(warm, test) == svm.predict(cold, test)))
-    log("extras", f"warm start config 2: 1e-4 fit {rough.n_iter} iterations; warm to "
+    log("extras", f"warm start config 2: {WARM_ROUGH_EPSILON} fit {rough.n_iter} iterations; warm to "
         f"{EPSILON} {warm.n_iter} iterations in {cg_s:.3f} s against cold {cold.n_iter}; "
         f"label agreement {agree:.4f}; kernel A launches {launches}")
     if launches != 2 + warm.n_iter + warm.n_iter // 50 or gram_matvec.sym_launches:
@@ -3472,7 +4198,7 @@ def phase_extras(tmp, config2_files, mc_files, ring_cells):
     chi2 = ring_cells["chi2"]
     chi_train, chi_test = chi2["make"](np.float32)
     svm = port.CSVM(backend="cuda", device="cuda", dtype=np.float32, cost=1.0,
-                    preconditioner="jacobi", **chi2["params"])
+                    preconditioner="jacobi", solver="cg_implicit", **chi2["params"])
     port.global_tracker.clear()
     distance.reset_counts()
     t0 = time.perf_counter()
@@ -3496,7 +4222,8 @@ def phase_extras(tmp, config2_files, mc_files, ring_cells):
     _checkpoint_resume(
         f"laplacian f64, {RING_SHARDS} shards on cuda:0",
         lambda: port.CSVM(backend="cuda", devices=["cuda:0"] * RING_SHARDS,
-                          dtype=np.float64, kernel_type="laplacian", cost=1.0),
+                          dtype=np.float64, kernel_type="laplacian", cost=1.0,
+                          solver="cg_implicit"),
         lap_train, lap_test, EPSILON, tmp)
 
     # debug
@@ -3557,6 +4284,9 @@ def main(argv=None):
                              "compares with these, and whose distance kernels, J at "
                              "'highest' and float64 distance fits the compare phase times "
                              "beside these")
+    parser.add_argument("--chi2-width-agreement", action="store_true",
+                        help="run only the chi2-width agreement study "
+                             "(phase_chi2_width_agreement) and print its record")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available.",
@@ -3566,6 +4296,12 @@ def main(argv=None):
 
     plssvm_tpu_torch.set_verbosity("quiet")
     torch.manual_seed(SEED)
+    if args.chi2_width_agreement:
+        _, smi = phase_device()
+        record = phase_chi2_width_agreement()
+        print(smi)
+        print(json.dumps(record))
+        return 0
     phase_seconds = {}
 
     def run(phase, fn, *args):
@@ -3600,7 +4336,15 @@ def main(argv=None):
         phase_launches["config3"] = run("config3", phase_config3_width)
         phase_launches["mnist-width"], ring_cells["mnist-width"] = run(
             "mnist-width", phase_multiclass_width)
-        phase_launches["chi2-width"] = run("chi2-width", phase_chi2_width, g_chi_ms)
+        phase_launches["chi2-width"], chi2_width = run("chi2-width", phase_chi2_width,
+                                                       g_chi_ms)
+        phase_launches["explicit"], explicit_kernels = run(
+            "explicit", phase_explicit, tmp, config2_files, e2e_predicted, ring_cells,
+            chi2_width)
+        for table, values in zip((main_err, timing, bounds, main_ms), explicit_kernels):
+            table.update(values)
+        del chi2_width
+        run("stall", phase_stall, ring_cells["chi2"])
         phase_launches.update(run("ring", phase_ring, ring_cells))
         del ring_cells
     phase_launches["banded-tool"] = run("banded-tool", phase_banded_tool)
@@ -3638,6 +4382,10 @@ def main(argv=None):
         launches[(f64, "f64")] = launches[f64]
     for f64 in ("gram_matvec_dual", "gram_matmat_dual"):
         launches[(f"{f64}_dmma", "f64")] = launches[f"{f64}_f64"]
+    # kernel N's symmetric walk: an entry per type and kind the explicit
+    # phase's fits built with it
+    launches[("kernel_matrix_sym", "f64")] = launches["kernel_matrix_sym_f64"]
+    launches[("kernel_matrix_sym", "laplacian")] = launches["kernel_matrix_sym_laplacian"]
     # float64 distance kernels: the ring's float64 fits (E-H the shard
     # products, L and M the dual walks)
     for kernel in ("distance_matvec_sym", "distance_matvec_rect", "distance_matmat_sym",
@@ -3701,19 +4449,34 @@ def main(argv=None):
         ("distance_matmat_rect", "f64"): ("distance.cu", "plssvm_tpu/ops/pallas_distance.py:412"),
         ("distance_matvec_dual", "f64"): ("dual.cu", "plssvm_tpu/ops/pallas_distance.py:226"),
         ("distance_matmat_dual", "f64"): ("dual.cu", "plssvm_tpu/ops/pallas_distance.py:412"),
+        # kernel N has no Pallas counterpart: plssvm_tpu builds the explicit
+        # matrix in XLA (kernel_matrix_block).  One entry per type and kind
+        # the explicit fits ran, each timed at that type and kind:
+        # float32 chi-squared at 16384 x 256, float64 chi-squared at 8192 x
+        # 256, float32 laplacian at config 2's 9999 x 200; the rect walk
+        # the ring's block
+        ("kernel_matrix_sym", "chi_squared"): (
+            "kernel_matrix.cu", "plssvm_tpu/solver/explicit.py:58"),
+        ("kernel_matrix_sym", "f64"): ("kernel_matrix.cu", "plssvm_tpu/solver/explicit.py:58"),
+        ("kernel_matrix_sym", "laplacian"): (
+            "kernel_matrix.cu", "plssvm_tpu/solver/explicit.py:58"),
+        ("kernel_matrix_rect", "chi_squared"): (
+            "kernel_matrix.cu", "plssvm_tpu/solver/explicit.py:58"),
     }
     entries = [
         {
             "name": k if isinstance(k, str) else k[0], "route": "cuda",
             "source": f"plssvm_tpu_torch/csrc/{src}",
             "replaces": replaces,
-            "launches": launches[k if isinstance(k, str) or k[1] in ("tf32", "bf16", "f64")
-                                 else k[0]],
+            "launches": launches[k if k in launches else k[0]],
             "max_abs_err": main_err[k], "ms": timing[k][0],
             "plain_ms": timing[k][1], "bound_ms": bounds[k][0],
             "bound_by": bounds[k][1], "library_ms": None,
             **({"tier": k[1]} if isinstance(k, tuple) and k[1] in ("tf32", "bf16", "f64")
                else {"tier": tiers[k]} if k in tiers else {}),
+            # kernel N's entries: the kind each was timed and launched at
+            **({"kind": "chi_squared" if k[1] == "f64" else k[1]}
+               if isinstance(k, tuple) and k[0].startswith("kernel_matrix") else {}),
         }
         for k, (src, replaces) in sources.items()
     ]

@@ -94,8 +94,14 @@ def build_parser() -> argparse.ArgumentParser:
                         help="probability calibration (not ported yet)")
     parser.add_argument("--solver", default="automatic",
                         choices=["automatic", "cg_explicit", "cg_implicit"],
-                        help="CG solver type; automatic = cg_implicit "
-                        "(cg_explicit is not ported yet)")
+                        help="CG solver type; cg_explicit builds the kernel "
+                        "matrix once and runs CG on the stored matrix; "
+                        "automatic takes it when the matrix fits the device "
+                        "(PLSSVM_TPU_TORCH_EXPLICIT_BUDGET bytes overrides the "
+                        "budget) for the laplacian and chi-squared kernels, "
+                        "and for the Gram kernels past a feature count "
+                        "(csvm.GRAM_CROSSOVER_CUDA on a GPU); else, and "
+                        "always for the linear kernel, cg_implicit")
     parser.add_argument("--preconditioner", default="none",
                         choices=["none", "jacobi"],
                         help="CG preconditioner; 'jacobi' can cut iterations "

@@ -8,7 +8,9 @@ products: ``cuda``, the hand-written kernels (csrc/*.cu), or ``torch``,
 their plain PyTorch versions on any device.
 
 This package covers binary and one-vs-all multiclass classification with
-the implicit CG solver, for every kernel function (linear, polynomial, RBF,
+the implicit and the explicit CG solver (``solver``; ``automatic`` resolves
+per fit as plssvm_tpu does, with the budget and the Gram crossover of this
+device), for every kernel function (linear, polynomial, RBF,
 sigmoid, laplacian, chi-squared), on one device or row-sharded over a list
 of devices (``devices``, parallel/sharded.py), with plssvm_tpu's solver
 extras (warm start, sample weights, the Jacobi preconditioner, CG-state
@@ -20,6 +22,7 @@ What it does not carry yet raises :class:`NotPortedError` (a
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import Optional, Union
@@ -29,9 +32,11 @@ import torch
 
 from .data_set import DataSet
 from .exceptions import InvalidParameterError, NotPortedError, UnsupportedBackendError
+from .kernel_functions import DISTANCE_KERNELS
 from .model import Model
 from .ops.predict import calculate_w, predict_values as predict_values_op
 from .parallel.sharded import (
+    build_sharded_kernel_matrix,
     predict_values_sharded,
     solve_ls_svm_multi_sharded,
     solve_ls_svm_sharded,
@@ -44,10 +49,40 @@ from .parameter import (
     TargetPlatform,
 )
 from .solver.cg import solve_ls_svm, solve_ls_svm_multi
+from .solver.explicit import (
+    build_kernel_matrix,
+    solve_ls_svm_explicit,
+    solve_ls_svm_explicit_multi,
+)
 from .utils.logger import VerbosityLevel, log
 from .utils.tracker import add_tracking_entry
 
 _REAL_DTYPES = (np.dtype(np.float32), np.dtype(np.float64))
+
+#: the environment variable that overrides the explicit solver's budget
+#: (bytes), plssvm_tpu's PLSSVM_TPU_EXPLICIT_BUDGET
+EXPLICIT_BUDGET_ENV = "PLSSVM_TPU_TORCH_EXPLICIT_BUDGET"
+#: the explicit budget on the CPU: plssvm_tpu's default
+CPU_EXPLICIT_BUDGET = 6 << 30
+#: the (dept, columns) CG vectors a solve holds at once, at most (x, r, d,
+#: the product, the targets, q, the Jacobi diagonal and the temporaries of
+#: the rank-one update and the compensated sums), counted against the
+#: explicit budget on a CUDA device
+CG_VECTORS = 16
+#: a CUDA device's memory that the context, cuBLAS's workspace and the
+#: caching allocator's slack take, held out of the explicit budget
+CUDA_CONTEXT_BYTES = 2 << 30
+#: the feature count from which ``automatic`` takes the explicit solver for
+#: a Gram kernel on a CUDA device, by tier ("f64": a float64 solve, every
+#: tier), for a binary and a one-vs-all fit, None for never: the smallest d
+#: of 16, 32, ..., 1024 from which the implicit product of an iteration
+#: (kernel A, or C for C classes) takes longer than one read of the stored
+#: K plus a twentieth of the build, for one-vs-all at every class count
+#: swept (3, 4 and 10; at 3 classes and d = 512 the two tie within 1 %), at
+#: 32768 rows on an H100 80GB HBM3 at 700 W (tools/bench_explicit.py
+#: --sweep 32768; PERF.md)
+GRAM_CROSSOVER_CUDA = {"f32": (1024, 512), "bf16": (1024, None), "highest": (64, 64),
+                       "f64": (128, 128)}
 
 
 def _check_chi_squared_data(X: np.ndarray, what: str) -> None:
@@ -90,6 +125,23 @@ def _resolve_device(target: TargetPlatform, device) -> torch.device:
             "device='cpu' (CLI: -p cpu)."
         )
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def _physical(device: torch.device) -> torch.device:
+    """``device`` with its index: "cuda" is the current CUDA device."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _cached_bytes(data: Optional[DataSet], device: torch.device) -> int:
+    """Bytes of the kernel matrix cached on ``data`` (one tensor, or the
+    ring's row blocks) that lie on ``device``."""
+    if data is None or data._k_cache is None:
+        return 0
+    K = data._k_cache[1]
+    return sum(k.numel() * k.element_size() for k in (K if isinstance(K, list) else [K])
+               if _physical(k.device) == device)
 
 
 def _resolve_devices(devices, device, target: TargetPlatform) -> Optional[list]:
@@ -240,14 +292,9 @@ class CSVM:
                 f"Unrecognized solver '{solver}' (must be 'automatic', "
                 "'cg_explicit' or 'cg_implicit')!"
             )
-        if solver == "cg_explicit":
-            raise NotPortedError(
-                "solver='cg_explicit' is not ported yet (ROADMAP Queue 1, "
-                "item 3: the explicit solver)"
-            )
-        # automatic resolves to the implicit solver until the explicit one
-        # is ported
-        self.solver = "cg_implicit"
+        # the caller's choice; each fit resolves it (_use_explicit_solver)
+        # and records the result in the "cg" / "solver" tracking entry
+        self.solver = solver
 
         self._params = params.copy() if params is not None else Parameter()
         if named_params:
@@ -409,7 +456,10 @@ class CSVM:
         add_tracking_entry(
             "transform", "time", (time.perf_counter() - transform_start) * 1000.0
         )
-        add_tracking_entry("cg", "solver", self.solver)
+        n_dev = len(self.devices[:dept]) if self.devices else 1
+        use_explicit = self._use_explicit_solver(
+            dept, d, kind, n_dev, n_classes if multiclass else 1, data)
+        add_tracking_entry("cg", "solver", "cg_explicit" if use_explicit else "cg_implicit")
 
         solve_kw = dict(
             kind=kind, degree=degree, impl=self._impl(),
@@ -430,6 +480,16 @@ class CSVM:
         else:
             solve = solve_ls_svm_sharded if self.devices else solve_ls_svm
             y_last = float(data.y[-1])
+        if use_explicit:
+            # K is built once (or found in the data set's cache) and every
+            # checkpoint segment solves against it
+            K = self._build_explicit_k(data, X[:dept], params.resolved_gamma(d),
+                                       params.coef0.value, kind, degree)
+            if self.devices is not None:
+                solve_kw["kernel_matrix"] = K
+            else:
+                solve = functools.partial(
+                    solve_ls_svm_explicit_multi if multiclass else solve_ls_svm_explicit, K)
         solve_args = (
             X[:dept], X[-1], y[:dept], y_last, params.resolved_gamma(d),
             params.coef0.value, params.cost.value, epsilon,
@@ -491,6 +551,157 @@ class CSVM:
         model = Model(params, data, alpha=alpha, rho=rho)
         model.n_iter = iterations
         return model
+
+    # -- the explicit solver's selection and its kernel matrix --------------
+    def _explicit_k_bytes(self, rows: int, cols: int) -> int:
+        """Bytes of a (rows, cols) block of the explicit kernel matrix at
+        the current tier (bfloat16 at "bf16", else the solve's type)."""
+        itemsize = 2 if self.gram_precision == "bf16" else self.dtype.itemsize
+        return rows * cols * itemsize
+
+    def _explicit_budget(self, device: torch.device, dept: int, d: int,
+                         columns: int, data: Optional[DataSet] = None) -> int:
+        """The bytes the explicit kernel matrix may take on ``device``.
+
+        ``PLSSVM_TPU_TORCH_EXPLICIT_BUDGET`` (bytes) overrides it.  On the
+        CPU it is plssvm_tpu's 6 GiB, so that a fit on the CPU resolves as
+        plssvm_tpu's does.  On a CUDA device it is the device's memory less
+        what this process's live tensors hold there (other data sets'
+        cached matrices among them, but not the one cached on ``data``,
+        which the fit reuses or frees before its build) and less what the
+        solve holds beside K: X once more (a shard device's copy), the CG
+        vectors (``columns`` of each), the build's and the product's
+        workspace and the CUDA context's reserve.  Other processes on the
+        card are not counted.
+        """
+        env = os.environ.get(EXPLICIT_BUDGET_ENV)
+        if env is not None:
+            return int(env)
+        if device.type != "cuda":
+            return CPU_EXPLICIT_BUDGET
+        from .solver.explicit import BUILD_WORKSPACE_BYTES
+
+        itemsize = self.dtype.itemsize
+        total = torch.cuda.get_device_properties(device).total_memory
+        held = torch.cuda.memory_allocated(device) - _cached_bytes(data, device)
+        return (total - held - (dept + 1) * d * itemsize
+                - CG_VECTORS * dept * columns * itemsize
+                - BUILD_WORKSPACE_BYTES - CUDA_CONTEXT_BYTES)
+
+    def _explicit_bytes_per_device(self, dept: int, n_dev: int) -> dict:
+        """The explicit kernel matrix's bytes on each physical device: the
+        whole (dept, dept) matrix on one device, or the ring's row blocks
+        K_p = k(X_p, X) summed over the shards a device holds (four shards
+        on one card hold all of K there)."""
+        if n_dev == 1:
+            return {_physical(self.device): self._explicit_k_bytes(dept, dept)}
+        from .parallel.sharded import shard_bounds
+
+        per_device: dict = {}
+        for (lo, hi), dev in zip(shard_bounds(dept, n_dev), self.devices):
+            dev = _physical(dev)
+            per_device[dev] = per_device.get(dev, 0) + self._explicit_k_bytes(hi - lo, dept)
+        return per_device
+
+    def _gram_crossover(self, columns: int = 1) -> Optional[int]:
+        """The feature count from which ``automatic`` takes the explicit
+        solver for a Gram kernel with ``columns`` right-hand sides, None
+        for never.  On a CUDA device the crossover measured on an H100
+        (GRAM_CROSSOVER_CUDA, by the solve's type and tier, binary or
+        one-vs-all); on the CPU plssvm_tpu's rule for its XLA backend,
+        ``512 // scale`` with scale 2 at "bf16" (half the bytes a read of K
+        takes)."""
+        if self.device.type == "cuda":
+            tier = "f64" if self.dtype == np.float64 else self.gram_precision
+            return GRAM_CROSSOVER_CUDA[tier][0 if columns == 1 else 1]
+        return 512 // (2 if self.gram_precision == "bf16" else 1)
+
+    def _use_explicit_solver(self, dept: int, d: int, kind, n_dev: int = 1,
+                             columns: int = 1, data: Optional[DataSet] = None) -> bool:
+        """Resolve ``solver`` for a fit of ``dept`` rows and ``d`` features
+        over ``n_dev`` shards (plssvm_tpu's ``_use_explicit_solver``).
+
+        ``cg_implicit`` never; ``cg_explicit`` always, and raises
+        :class:`InvalidParameterError` when K does not fit the budget on a
+        device; ``automatic`` takes it when K fits and the kernel favours
+        it: never for the linear kernel (its factored O(m d) product wins),
+        always for the distance kernels (their pair work is paid once, at
+        the build), and for the Gram kernels from ``_gram_crossover()``
+        features on.  The budget is counted per physical device, whatever
+        the list of shard devices repeats; ``data``, the fit's data set,
+        frees its cached matrix for this one (``_explicit_budget``).
+        """
+        if self.solver == "cg_implicit":
+            return False
+        per_device = self._explicit_bytes_per_device(dept, n_dev)
+        budgets = {dev: self._explicit_budget(dev, dept, d, columns, data)
+                   for dev in per_device}
+        fits = all(per_device[dev] <= budgets[dev] for dev in per_device)
+        if self.solver == "cg_explicit":
+            if not fits:
+                dev = max(per_device, key=lambda k: per_device[k] - budgets[k])
+                raise InvalidParameterError(
+                    f"solver='cg_explicit' needs {per_device[dev]} bytes per device "
+                    f"for the {dept}x{dept} kernel matrix over {n_dev} "
+                    f"device(s), over the {budgets[dev]}-byte budget "
+                    f"({EXPLICIT_BUDGET_ENV}) — use gram_precision='bf16', "
+                    "solver='automatic', or cg_implicit!"
+                )
+            return True
+        if not fits or kind == KernelFunctionType.LINEAR:
+            return False
+        if kind in DISTANCE_KERNELS:
+            return True
+        crossover = self._gram_crossover(columns)
+        return crossover is not None and d >= crossover
+
+    def _k_cache_key(self, shape, gamma: float, coef0: float, kind, degree: int) -> tuple:
+        """The key of the kernel matrix memoised on a DataSet.
+
+        The cost C is absent: it enters the solve only through the
+        diagonal, so a sweep over C reuses the matrix.  The device(s), the
+        tier, the type and the backend (which decides the tier's operands)
+        are in it.
+        """
+        devices = tuple(map(str, self.devices)) if self.devices else (str(self.device),)
+        return (tuple(shape), float(gamma), float(coef0), kind, int(degree),
+                self.gram_precision, str(self.dtype), self._impl(), devices)
+
+    def _build_explicit_k(self, data: DataSet, X: torch.Tensor, gamma: float,
+                          coef0: float, kind, degree: int):
+        """The explicit kernel matrix of ``X`` (the dept rows), built once
+        and timed (plssvm_tpu's ``_build_explicit_k``): one (dept, dept)
+        tensor, or on the ring the row blocks K_p = k(X_p, X), each on its
+        shard's device.  Memoised on ``data``: a second fit with the same
+        key (a sweep over C, a warm-started refinement, every checkpoint
+        segment) takes it from there and records a build time of 0.0."""
+        key = self._k_cache_key(X.shape, gamma, coef0, kind, degree)
+        if data._k_cache is not None and data._k_cache[0] == key:
+            add_tracking_entry("cg", "kernel_matrix_build_time", 0.0)
+            return data._k_cache[1]
+        # the previous matrix goes before the next is built: the data set
+        # holds the only reference
+        data._k_cache = None
+        start = time.perf_counter()
+        kw = dict(kind=kind, degree=degree, precision=self.gram_precision,
+                  impl=self._impl())
+        if self.devices is not None:
+            K = build_sharded_kernel_matrix(X, self.devices, gamma, coef0, **kw)
+            shards = K
+        else:
+            K = build_kernel_matrix(X, gamma, coef0, **kw)
+            shards = [K]
+        for dev in {k.device for k in shards if k.device.type == "cuda"}:
+            torch.cuda.synchronize(dev)
+        build_ms = (time.perf_counter() - start) * 1000.0
+        log(
+            VerbosityLevel.FULL | VerbosityLevel.TIMING,
+            "Assembled the explicit {}x{} kernel matrix ({}) in {} block(s) in {:.2f}ms.\n",
+            X.shape[0], X.shape[0], str(shards[0].dtype), len(shards), build_ms,
+        )
+        add_tracking_entry("cg", "kernel_matrix_build_time", build_ms)
+        data._k_cache = (key, K)
+        return K
 
     def _check_initial_model(self, initial_model: Model, data: DataSet,
                              checkpoint_path, multiclass: bool, n_classes: int) -> None:

@@ -217,6 +217,10 @@ class DataSet:
         the solver consumes the raw float targets."""
         self._regression = bool(regression)
         self._scaling: Optional[Scaling] = None
+        # the explicit solver's kernel matrix, (key, K), memoised by
+        # CSVM._build_explicit_k; the key holds everything K depends on
+        # but the data, which a DataSet never changes after construction
+        self._k_cache = None
         if isinstance(scaling, tuple):
             scaling = Scaling(*scaling)
 

@@ -128,6 +128,9 @@ _TC = re.compile(r"(gram_tc_(?:sym|rect|dual))_kernelI\w*?(Tf32|Bf16)TierELi(\d)
 _DUAL = re.compile(r"(mat(?:vec|mat))_dual_kernelI([fd])Li(\d)E")
 #: the FP64 tensor-core tiles (gram_dmma.cu), templates of the kind
 _DMMA = re.compile(r"(gram_dmma_(?:sym|dual|rect))_kernelILi(\d)E")
+#: kernel N (kernel_matrix.cu), templates of the type, the stored type and
+#: the kind
+_MATRIX = re.compile(r"(kernel_matrix_(?:sym|rect))_kernelI([fd])([fd]|\d+__nv_bfloat16)Li(\d)E")
 _KINDS = {"1": "poly", "2": "rbf", "3": "sigmoid", "4": "laplacian", "5": "chi_squared"}
 
 
@@ -148,6 +151,7 @@ def kernel_resources() -> Dict[str, Dict[str, int]]:
             tc = _TC.search(entry.group(1))
             dual = _DUAL.search(entry.group(1))
             dmma = _DMMA.search(entry.group(1))
+            matrix = _MATRIX.search(entry.group(1))
             name = None
             if short is not None:
                 # kernel I (banded_matvec) is laplacian only: no kind parameter
@@ -164,6 +168,10 @@ def kernel_resources() -> Dict[str, Dict[str, int]]:
                 # A and C share the sym tile, B and D the rect one, J and K
                 # the dual one, each compiled once per kind
                 name = f"{dmma.group(1)} f64 {_KINDS.get(dmma.group(2))}"
+            elif matrix is not None:
+                stored = "bf16" if matrix.group(3).endswith("bfloat16") else None
+                name = (f"{matrix.group(1)} {'f32' if matrix.group(2) == 'f' else 'f64'} "
+                        f"{_KINDS.get(matrix.group(4))}" + (f" {stored}" if stored else ""))
             elif dual is not None:
                 family = "gram" if dual.group(3) in "123" else "distance"
                 name = (f"{family}_{dual.group(1)}_dual "
@@ -288,6 +296,14 @@ def load() -> ctypes.CDLL:
     # per SM
     lib.plssvm_dual_walk_blocks_per_sm.argtypes = [cint, cint, ptr]
     lib.plssvm_dual_walk_blocks_per_sm.restype = cint
+    for suffix, real in (("f32", f32), ("f64", f64)):
+        # kernel N: (X, K, m, d, kind, gamma, out_bf16, stream) and (Xr, Xc,
+        # K, mr, mc, d, kind, gamma, out_bf16, stream)
+        sym = getattr(lib, f"plssvm_kernel_matrix_sym_{suffix}")
+        sym.argtypes = [ptr, ptr, i64, i64, cint, real, cint, ptr]
+        rect = getattr(lib, f"plssvm_kernel_matrix_rect_{suffix}")
+        rect.argtypes = [ptr, ptr, ptr, i64, i64, i64, cint, real, cint, ptr]
+        sym.restype = rect.restype = cint
     lib.plssvm_cuda_error_string.argtypes = [cint]
     lib.plssvm_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -27,6 +27,14 @@ machine, one shard per card on a machine with several.
   the first device.  The cores take the whole X there too: they compute
   ``q`` and the squared norms from it once per solve; the ring's kernels
   read only the row shards.
+- **The explicit solver** (:func:`build_sharded_kernel_matrix`, the
+  ``kernel_matrix`` argument of the solvers): each shard's device holds its
+  row block ``K_p = k(X_p, X)``, built once (kernel N's rectangular walk for
+  the distance kernels, the matrix product and the epilogue for the Gram
+  kernels, solver/explicit.py), and a product copies v (or V) to every
+  shard's device and returns the ``K_p @ v`` in shard order: the
+  reference's ``build_sharded_kernel_matrix_fn`` and
+  ``build_sharded_explicit_solver``, whose ``all_gather`` of v is that copy.
 - **Predict** (:func:`predict_values_sharded`): the support vectors are
   sharded, the points replicated; each shard scores all points against its
   SV slice (B / D or F / H) and the partial decision values are summed in
@@ -56,6 +64,7 @@ from ..solver.cg import (
     cg_ls_svm_multi_core,
     compensated_sum,
 )
+from ..solver.explicit import explicit_product, kernel_matrix_block
 
 
 def shard_bounds(m: int, num_shards: int) -> List[Tuple[int, int]]:
@@ -238,6 +247,55 @@ def _sharded_product(X, bounds, devices, kind, degree, impl, precision) -> Calla
     return product
 
 
+def build_sharded_kernel_matrix(
+    X: torch.Tensor,
+    devices: Sequence,
+    gamma: float,
+    coef0: float,
+    *,
+    kind: KernelFunctionType,
+    degree: int,
+    precision: str = "f32",
+    impl: str = "cuda",
+) -> List[torch.Tensor]:
+    """The row blocks ``K_p = k(X_p, X)`` of the explicit kernel matrix of
+    ``X`` (dept, d), one per shard of :func:`shard_bounds` over ``devices``
+    (a system with fewer rows than devices takes one shard per row), each
+    on its shard's device, where X is placed whole once per device.  The
+    counterpart of ``build_sharded_kernel_matrix_fn``."""
+    devices = list(devices)[:X.shape[0]]
+    whole: dict = {}
+    blocks = []
+    for (lo, hi), dev in zip(shard_bounds(X.shape[0], len(devices)), devices):
+        Xd = whole.setdefault(dev, X.to(dev))
+        blocks.append(kernel_matrix_block(Xd[lo:hi], Xd, gamma, coef0, kind=kind,
+                                          degree=degree, precision=precision, impl=impl))
+    return blocks
+
+
+def _explicit_sharded_product(K_shards: Sequence[torch.Tensor]) -> Callable:
+    """The cores' ``kernel_mv`` / ``kernel_mm`` on the row blocks of K: v
+    (or V), whole on the first device, is copied to each block's device,
+    and the blocks' products come back in shard order."""
+    def product(X, _sq_norms, v, gamma, coef0):
+        return torch.cat([explicit_product(K, v.to(K.device), X.dtype).to(v.device)
+                          for K in K_shards])
+
+    return product
+
+
+def _kernel_product(X, bounds, devices, kind, degree, impl, precision,
+                    kernel_matrix) -> Callable:
+    """The ring's product, or with ``kernel_matrix`` (the row blocks of
+    :func:`build_sharded_kernel_matrix` over the same devices) the explicit
+    one."""
+    if kernel_matrix is None:
+        return _sharded_product(X, bounds, devices, kind, degree, impl, precision)
+    if [k.shape[0] for k in kernel_matrix] != [hi - lo for lo, hi in bounds]:
+        raise ValueError("kernel_matrix's row blocks do not match the shards of X")
+    return _explicit_sharded_product(kernel_matrix)
+
+
 def _in_shard_order(reduce: Callable, bounds) -> Callable:
     """A column-wise ``reduce`` ((rows, k) -> (k,)) taken over every row
     range of ``bounds`` and the partials summed in shard order: the
@@ -286,6 +344,7 @@ def solve_ls_svm_sharded(
     impl: str = "torch",
     scalars: str = "plain",
     gram_precision: str = "f32",
+    kernel_matrix: Optional[Sequence[torch.Tensor]] = None,
     **extras,
 ) -> CGResult:
     """The binary LS-SVM CG solve with X row-sharded over ``devices`` (one
@@ -300,7 +359,9 @@ def solve_ls_svm_sharded(
     them on the first device, where the CG state lies whole, so a
     checkpoint of the ring is saved from there (plssvm_tpu's
     ``shard_warm_start`` and its gather of the sharded state have nothing
-    to do here).
+    to do here).  ``kernel_matrix`` (the row blocks of
+    :func:`build_sharded_kernel_matrix` over ``devices``) solves against the
+    stored K instead of the ring: the explicit solver.
     """
     _plain.check_precision(gram_precision)
     devices = list(devices)[:X.shape[0]]
@@ -309,8 +370,8 @@ def solve_ls_svm_sharded(
     return cg_ls_svm_core(
         X, x_last, y, y_last, gamma, coef0, cost, eps, max_iter,
         kind=kind, degree=degree,
-        kernel_mv=_sharded_product(X, bounds, devices, kind, degree, impl,
-                                   gram_precision),
+        kernel_mv=_kernel_product(X, bounds, devices, kind, degree, impl,
+                                  gram_precision, kernel_matrix),
         dot=dot, vsum=vsum, **extras,
     )
 
@@ -332,13 +393,14 @@ def solve_ls_svm_multi_sharded(
     impl: str = "torch",
     scalars: str = "plain",
     gram_precision: str = "f32",
+    kernel_matrix: Optional[Sequence[torch.Tensor]] = None,
     **extras,
 ) -> MultiCGResult:
     """The one-vs-all block-CG solve with X row-sharded over ``devices``;
     the counterpart of ``build_sharded_multi_solver``.  The per-class
     column sums are per-shard partials (compensated with ``scalars=
-    "compensated"``) summed in shard order; ``extras`` as in
-    :func:`solve_ls_svm_sharded`."""
+    "compensated"``) summed in shard order; ``kernel_matrix`` and
+    ``extras`` as in :func:`solve_ls_svm_sharded`."""
     _plain.check_precision(gram_precision)
     devices = list(devices)[:X.shape[0]]
     bounds = shard_bounds(X.shape[0], len(devices))
@@ -346,8 +408,8 @@ def solve_ls_svm_multi_sharded(
     return cg_ls_svm_multi_core(
         X, x_last, Y, y_last, gamma, coef0, cost, eps, max_iter,
         kind=kind, degree=degree,
-        kernel_mm=_sharded_product(X, bounds, devices, kind, degree, impl,
-                                   gram_precision),
+        kernel_mm=_kernel_product(X, bounds, devices, kind, degree, impl,
+                                  gram_precision, kernel_matrix),
         colsum=colsum, **extras,
     )
 

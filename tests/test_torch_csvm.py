@@ -166,7 +166,8 @@ class TestNotPorted:
         data = self._data()
         X = np.abs(data.data)  # chi-squared's domain
         labels = np.asarray(data.labels)
-        t_svm = plssvm_tpu_torch.CSVM(device="cpu", dtype=np.float64, kernel_type=kernel)
+        t_svm = plssvm_tpu_torch.CSVM(device="cpu", dtype=np.float64, kernel_type=kernel,
+                                      solver="cg_implicit")
         j_svm = plssvm_tpu.CSVM(
             backend="xla", solver="cg_implicit", dtype=np.float64, kernel_type=kernel,
         )
@@ -184,13 +185,11 @@ class TestNotPorted:
         ],
     )
     def test_options(self, kwargs, item):
-        """The explicit solver names its ROADMAP item; the Jacobi
-        preconditioner, item 4's option, is ported: it fits as plssvm_tpu's
-        does (tests/test_torch_solver_extras.py holds every layout)."""
-        if item == "item 3":
-            with pytest.raises(NotImplementedError, match=item):
-                plssvm_tpu_torch.CSVM(device="cpu", **kwargs)
-            return
+        """The explicit solver, item 3, and the Jacobi preconditioner, item
+        4's option, are ported: each fits as plssvm_tpu's does (with
+        ``solver="cg_explicit"`` on both sides for item 3;
+        tests/test_torch_explicit.py and tests/test_torch_solver_extras.py
+        hold every layout)."""
         got, want = self._fit_both(kwargs, {})
         assert got.n_iter == want.n_iter
         np.testing.assert_allclose(got.alpha, want.alpha, rtol=0, atol=TOL)
@@ -233,9 +232,10 @@ class TestNotPorted:
         ``initial_model="warm"`` warm-starts each from its own 1e-4 fit."""
         X, labels, _, _ = blobs(seed=4)
         models = []
-        for package, where in ((plssvm_tpu_torch, dict(device="cpu")),
+        for package, where in ((plssvm_tpu_torch, dict(device="cpu", solver="cg_implicit")),
                                (plssvm_tpu, dict(backend="xla", solver="cg_implicit"))):
-            svm = package.CSVM(dtype=np.float64, kernel_type="rbf", **where, **svm_kwargs)
+            svm = package.CSVM(dtype=np.float64, kernel_type="rbf",
+                               **{**where, **svm_kwargs})
             train = package.DataSet(X, labels, scaling=(-1.0, 1.0))
             kw = dict(fit_kwargs)
             if kw.get("initial_model") == "warm":
@@ -253,7 +253,14 @@ class TestNotPorted:
         np.testing.assert_allclose(got.alpha, want.alpha, rtol=0, atol=TOL)
 
     def test_automatic_solver_is_implicit(self):
-        assert plssvm_tpu_torch.CSVM(device="cpu").solver == "cg_implicit"
+        """``automatic`` resolves per fit: a Gram kernel at few features
+        takes the implicit solver on the CPU, as plssvm_tpu's XLA backend
+        does, and the CSVM keeps the caller's choice."""
+        svm = plssvm_tpu_torch.CSVM(device="cpu", dtype=np.float64, kernel_type="rbf")
+        assert svm.solver == "automatic"
+        plssvm_tpu_torch.global_tracker.clear()
+        svm.fit(self._data(), epsilon=1e-3)
+        assert ("solver", "cg_implicit") in plssvm_tpu_torch.global_tracker.entries()["cg"]
 
     @pytest.mark.parametrize(
         "flags",

@@ -846,3 +846,131 @@ def test_ring_on_one_card(cuda_device, P, name, n_classes, precision, dtype):
     counts = [getattr(module, c) for c in (sym, dual, rect)]
     # the single-device product above added one symmetric launch
     assert counts == [P + 1, P * ((P - 1) // 2), P if P % 2 == 0 else 0]
+
+
+# -- kernel N and the explicit solver (csrc/kernel_matrix.cu) ----------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("name", ["laplacian", "chi_squared"])
+@pytest.mark.parametrize("mr,mc,d", [(1, 1, 1), (70, 131, 17), (300, 257, 203),
+                                     (1037, 129, 784)])
+def test_kernel_matrix_against_plain(cuda_device, name, dtype, tol, out_dtype, mr, mc, d):
+    """Kernel N's symmetric and rectangular walks on zero-rich rows against
+    the plain version: K in its type within the type's tolerance (K <= 1),
+    in bfloat16 within one bf16 rounding (2^-8); the symmetric K exactly
+    symmetric with a unit diagonal; one launch each."""
+    from plssvm_tpu_torch.ops import kernel_matrix
+
+    tkind = getattr(TKind, name.upper())
+    g = torch.Generator().manual_seed(mr + mc + d)
+    X = torch.rand(mr, d, generator=g, dtype=torch.float64)
+    Y = torch.rand(mc, d, generator=g, dtype=torch.float64)
+    X[X < 0.33] = 0.0
+    Y[Y < 0.33] = 0.0
+    X, Y = X.to(cuda_device, dtype), Y.to(cuda_device, dtype)
+    kw = dict(kind=tkind, gamma=1.0 / d, out_dtype=out_dtype)
+    kernel_matrix.reset_counts()
+    sym = kernel_matrix.kernel_matrix_sym(X, **kw)
+    rect = kernel_matrix.kernel_matrix_rect(X, Y, **kw)
+    limit = tol if out_dtype is None else 2.0 ** -8
+    for got, want in ((sym, kernel_matrix.kernel_matrix_sym_plain(X, **kw)),
+                      (rect, kernel_matrix.kernel_matrix_rect_plain(X, Y, **kw))):
+        assert got.dtype == want.dtype and torch.isfinite(got.double()).all()
+        assert (got.double() - want.double()).abs().max() <= limit
+    assert torch.equal(sym, sym.T) and bool((sym.diagonal() == 1).all())
+    assert (kernel_matrix.sym_launches, kernel_matrix.rect_launches) == (1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ENTRY_CASES)
+@pytest.mark.parametrize("d", [3, 203, 784])
+def test_kernel_matrix_chi_squared_per_entry(cuda_device, case, d):
+    """Float32 chi-squared per entry of K (``entry_errors``, one-hot
+    columns of the stored K): within 4x the float32 plain version's own
+    error against float64, and 1e-4, as kernels E-H."""
+    from plssvm_tpu_torch.ops import kernel_matrix
+
+    gen = torch.Generator().manual_seed(d)
+    _, X, columns = next(c for c in entry_cases(d, gen) if c[0] == case)
+    X = X.to(cuda_device, torch.float32)
+    gamma = chi2_gamma(X, columns)
+    K = kernel_matrix.kernel_matrix_sym(X, kind=TKind.CHI_SQUARED, gamma=gamma)
+    got, plain = entry_errors(lambda _X, V, **kw: K @ V, X, columns, gamma)
+    assert got <= min(4 * plain, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("columns", [0, 10])
+def test_explicit_product_of_a_bf16_matrix(cuda_device, dtype, columns):
+    """A bfloat16 K times v rounded to bfloat16, summed in the solve's type
+    (float32: ``torch.mm(..., out_dtype=torch.float32)``), against float64."""
+    from plssvm_tpu_torch.solver import explicit
+
+    g = torch.Generator().manual_seed(5)
+    K = torch.rand(3001, 3001, generator=g, dtype=torch.float64).to(cuda_device, torch.bfloat16)
+    V = torch.randn((3001, columns) if columns else (3001,), generator=g,
+                    dtype=torch.float64).to(cuda_device, dtype)
+    got = explicit.explicit_product(K, V, dtype)
+    want = K.double() @ V.to(torch.bfloat16).double()
+    assert got.dtype == dtype and got.shape == V.shape
+    assert (got.double() - want).abs().max() <= (1e-4 if dtype == torch.float32 else 1e-12) * \
+        want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("columns", [0, 3, 10])
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_explicit_product_of_a_float32_matrix(cuda_device, columns, symmetric):
+    """A float32 K of 30001 rows (positive entries, as a distance kernel's)
+    times v, contracted in slices of PRODUCT_COLUMNS columns or, symmetric,
+    PRODUCT_ROWS rows: within 1e-6 of float64 in the Frobenius norm, where
+    one cuBLAS call over all 30001 columns sums each output in one float32
+    chain."""
+    from plssvm_tpu_torch.solver import explicit
+
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    K = torch.rand(30001, 30001, generator=g, device=cuda_device)
+    if symmetric:
+        K = (K + K.T) / 2
+    V = torch.randn((30001, columns) if columns else (30001,), generator=g,
+                    dtype=torch.float64, device=cuda_device)
+    got = explicit.explicit_product(K, V.float(), torch.float32, symmetric=symmetric)
+    want = torch.cat([K[i:i + 4096].double() @ V for i in range(0, 30001, 4096)])
+    assert got.dtype == torch.float32 and got.shape == V.shape
+    assert float(torch.linalg.norm(got.double() - want) / torch.linalg.norm(want)) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,n_classes", [("laplacian", 2), ("chi_squared", 4),
+                                              ("rbf", 3)])
+@pytest.mark.parametrize("devices", [None, ["cuda:0"] * 3])
+def test_explicit_fit_on_the_card(cuda_device, kernel, n_classes, devices):
+    """A float64 ``cg_explicit`` fit through the kernels (kernel N for the
+    distance kernels, on one device or three shards of cuda:0) against the
+    same fit through the plain versions (``backend="torch"``) on the card:
+    rho within 1e-8."""
+    import numpy as np
+
+    import plssvm_tpu_torch as port
+    from plssvm_tpu_torch.ops import kernel_matrix
+
+    port.set_verbosity("quiet")
+    rng = np.random.default_rng(n_classes)
+    y = rng.integers(0, n_classes, 300)
+    X = np.abs(rng.normal(size=(300, 12)) + rng.normal(size=(n_classes, 12))[y])
+    data = port.DataSet(X, y, scaling=(0.0, 1.0))
+    where = dict(device="cuda") if devices is None else dict(devices=devices)
+    kernel_matrix.reset_counts()
+    models = [port.CSVM(backend=b, dtype=np.float64, kernel_type=kernel, solver="cg_explicit",
+                        **where).fit(port.DataSet(X, y, scaling=(0.0, 1.0)), epsilon=1e-10)
+              for b in ("cuda", "torch")]
+    assert data.num_data_points == 300
+    distance_kind = kernel != "rbf"
+    assert (kernel_matrix.sym_launches, kernel_matrix.rect_launches) == (
+        (int(distance_kind and devices is None), 3 * (distance_kind and devices is not None)))
+    assert models[0].n_iter == models[1].n_iter
+    assert np.max(np.abs(np.asarray(models[0].rho) - np.asarray(models[1].rho))) <= 1e-8

@@ -408,7 +408,7 @@ def _fit_both(name, n_classes, **fit_kw):
     )
     t_svm = plssvm_tpu_torch.CSVM(
         backend="torch", device="cpu", dtype=np.float64, kernel_type=name,
-        cost=1.0,
+        cost=1.0, solver="cg_implicit",
     )
     return (
         j_svm, j_svm.fit(plssvm_tpu.DataSet(Xtr, ytr), epsilon=EPS, **fit_kw),
@@ -443,7 +443,7 @@ def test_fit_save_load_predict(name, n_classes, tmp_path):
 @pytest.mark.parametrize("name,n_classes", [("laplacian", 2), ("chi_squared", 3)])
 def test_cuda_backend_takes_the_plain_versions_on_cpu(name, n_classes):
     Xtr, ytr, Xte, yte = classes(n_classes, 9)
-    kw = dict(dtype=np.float64, device="cpu", kernel_type=name)
+    kw = dict(dtype=np.float64, device="cpu", kernel_type=name, solver="cg_implicit")
     cuda_svm = plssvm_tpu_torch.CSVM(backend="cuda", **kw)
     torch_svm = plssvm_tpu_torch.CSVM(backend="torch", **kw)
     train, test = plssvm_tpu_torch.DataSet(Xtr, ytr), plssvm_tpu_torch.DataSet(Xte, yte)
@@ -468,7 +468,8 @@ def test_cli_train_predict_against_reference(flag, n_classes, tmp_path):
     files = {}
     for key, train_cli, predict_cli, backend, where in (
         ("j", j_train_cli, j_predict_cli, ["-b", "xla", "--solver", "cg_implicit"], []),
-        ("t", t_train_cli, t_predict_cli, ["-b", "torch"], ["-p", "cpu"]),
+        ("t", t_train_cli, t_predict_cli, ["-b", "torch", "--solver", "cg_implicit"],
+         ["-p", "cpu"]),
     ):
         model = os.path.join(tmp_path, f"{key}.model")
         out = os.path.join(tmp_path, f"{key}.predict")

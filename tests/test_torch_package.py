@@ -25,6 +25,8 @@ import plssvm_tpu_torch.native, plssvm_tpu_torch.solver.checkpoint
 import plssvm_tpu_torch.ops.gram_matvec, plssvm_tpu_torch.ops.gram_matmat
 import plssvm_tpu_torch.ops.distance, plssvm_tpu_torch.ops.banded
 import plssvm_tpu_torch.parallel.sharded
+import plssvm_tpu_torch.ops.kernel_matrix, plssvm_tpu_torch.solver.explicit
+import plssvm_tpu_torch.tools.bench_explicit
 import plssvm_tpu_torch.tools.exp_banded_distance
 import plssvm_tpu_torch.tools.bench_matvec
 from plssvm_tpu_torch.ops import _build

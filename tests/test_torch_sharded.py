@@ -491,7 +491,7 @@ def test_sharded_csvm_against_the_reference(kernel, n_classes, alpha_tol):
     j_svm = plssvm_tpu.CSVM(backend="xla", solver="cg_implicit", dtype=np.float64,
                             kernel_type=kernel, devices=jax.devices("cpu")[:4])
     t_svm = plssvm_tpu_torch.CSVM(devices=["cpu"] * 4, dtype=np.float64,
-                                  kernel_type=kernel)
+                                  kernel_type=kernel, solver="cg_implicit")
     assert len(t_svm.devices) == 4
     j_model, t_model = j_svm.fit(j_train, epsilon=1e-10), t_svm.fit(t_train, epsilon=1e-10)
     assert t_model.n_iter == j_model.n_iter
@@ -545,7 +545,7 @@ def test_devices_resolve(devices, expect):
     (dict(devices=["cpu"] * 2, target="gpu"), InvalidParameterError),
     (dict(devices="every"), InvalidParameterError),
     (dict(devices=["meta", "meta"]), UnsupportedBackendError),
-    (dict(devices=["cpu"] * 2, solver="cg_explicit"), NotPortedError),
+    (dict(devices=["cpu"] * 2, solver="explicit"), InvalidParameterError),
 ])
 def test_device_lists_that_raise(kwargs, error):
     with pytest.raises(error):
