@@ -82,6 +82,22 @@ chi-squared case, eight runs with each solver.  Every phase built to
 launch an implicit kernel pins ``solver="cg_implicit"`` and logs what
 ``automatic`` would resolve to at its shape.
 
+The "oao" phase runs after phase 7 (``phase_oao``): kernel O
+(csrc/pairs.cu, the batched pair-machine matvec of one-vs-one training)
+against its plain version for every kind in float32 and float64 on ragged
+stacks of 3 and 45 machines, twice on the same input (bit for bit); then,
+with the counts set to 0 before each drive, phase 5's 10 Gaussian classes
+through ``plssvm-torch-train --classification oao`` (``automatic`` takes the
+batched pairs CG, O once per block iteration) and ``plssvm-torch-predict``,
+the sequential strategy beside it in float32 and float64, phase 9's
+histogram classes (chi-squared: batched on O, sequential on kernel N; O
+held per entry of K in float32 and float64),
+phase 7's MNIST-width classes (batched and sequential fit seconds, O timed
+beside its bound at that stack), the batched fit with its machines split
+over ``devices=["cuda:0"] * 4`` against one device, and LS-SVR on
+Friedman #1 (10000 x 10) through ``plssvm-torch-train -s epsilon_svr`` and
+``plssvm-torch-predict`` (R^2, float32 against float64).
+
 The "parse" phase runs before phase 4: the native parser
 (``plssvm_tpu_torch/native``, built with g++) against the NumPy path on
 phases 4 and 5's files and a model of config 2's size, bit for bit and
@@ -2414,14 +2430,17 @@ def _model_io_seconds():
         Model.load, Model.save = load, save
 
 
-def _cli_fit_predict(phase, train_file, test_file, tmp, flags, solver="cg_implicit"):
+def _cli_fit_predict(phase, train_file, test_file, tmp, flags, solver="cg_implicit",
+                     parse=int, predict_flags=()):
     """Train (``--solver solver``: the implicit solver unless asked, so
     that the phases built to launch a kernel launch it) and predict through
     the port's CLIs on the card; returns (fit seconds, predict seconds,
     predicted labels, file I/O): the I/O holds
     the seconds of the fit's data parse and model write and of the
     predict's model and data parse, and the native library's parses and
-    writes over both runs (``native/loader.py``'s counters)."""
+    writes over both runs (``native/loader.py``'s counters).  ``parse``
+    reads a line of the predict file (float for a regression model's
+    values); ``predict_flags`` go to the predict CLI."""
     import plssvm_tpu_torch as port
     from plssvm_tpu_torch.cli import predict as predict_cli
     from plssvm_tpu_torch.cli import train as train_cli
@@ -2437,7 +2456,8 @@ def _cli_fit_predict(phase, train_file, test_file, tmp, flags, solver="cg_implic
         rc = train_cli.main(common + ["--solver", solver] + flags + [train_file, model_file])
         t1 = time.perf_counter()
         fit_read = _tracked("data_set_read", "time") / 1000 if rc == 0 else 0.0
-        rc_predict = predict_cli.main(common + [test_file, model_file, out_file])
+        rc_predict = predict_cli.main(common + list(predict_flags)
+                                      + [test_file, model_file, out_file])
         torch.cuda.synchronize()
         t2 = time.perf_counter()
     if rc != 0 or rc_predict != 0:
@@ -2446,7 +2466,7 @@ def _cli_fit_predict(phase, train_file, test_file, tmp, flags, solver="cg_implic
           "predict_parse": _tracked("data_set_read", "time") / 1000 + model_io["load"],
           "native": (loader.native_parses, loader.native_writes)}
     with open(out_file, encoding="utf-8") as fh:
-        predicted = np.asarray([int(line) for line in fh])
+        predicted = np.asarray([parse(line) for line in fh])
     return t1 - t0, t2 - t1, predicted, io
 
 
@@ -4275,6 +4295,483 @@ def phase_host_clis(tmp, config2_files):
         raise AssertionError("host-clis: scale or generate-data failed")
 
 
+#: phase oao's gates: the label agreement of the batched and the sequential
+#: one-vs-one fits (and of the machine-axis split against one device) in
+#: float32, and in float64 at epsilon OAO_F64_EPSILON: the ring's gates
+#: (PERF.md section 2)
+OAO_AGREEMENT = 0.995
+OAO_AGREEMENT_F64 = 0.999
+OAO_F64_EPSILON = 1e-10
+#: kernel O's checks against its plain version: machine counts, and the
+#: longest machine of the ragged stacks (one machine has 2 rows)
+PAIRS_CHECK_P = (3, 45)
+PAIRS_CHECK_ROWS = 2000
+#: phase oao's LS-SVR cell: Friedman #1 (Friedman, Ann. Statist. 19(1),
+#: 1991; the formula of sklearn's make_friedman1), 10000 + 2000 rows, d =
+#: 10, noise sigma 1; RBF at the default gamma 1/d, C = 10, epsilon 1e-6.
+#: An exact float64 LS-SVR solve of 4000 rows of this set reads R^2 0.895
+#: with numpy on a CPU; the Bayes-optimal R^2 is about 0.96
+FRIEDMAN_N, FRIEDMAN_TEST, FRIEDMAN_D = 10000, 2000, 10
+FRIEDMAN_EPSILON = 1e-6
+FRIEDMAN_R2_FLOOR = 0.87
+FRIEDMAN_R2_GAP = 0.005
+
+
+def _pairs_bound(lens, d, kind, itemsize):
+    """The bound of kernel O's function on machines of ``lens`` rows: the
+    sum_p l (l + 1) / 2 distinct pairs of the symmetric kernels (O walks
+    the full square, so it can reach at most half of this), sum_p l^2
+    FFMAs of the contraction, each machine's rows, norms, right-hand side
+    and output moved once; float64 on the FP64 pipe."""
+    lens = np.asarray(lens, dtype=np.float64)
+    cost = kind if kind in ("laplacian", "chi_squared") else "gram"
+    return _bound(float(np.sum(lens * (lens + 1) / 2)), d, float(np.sum(lens * lens)), cost,
+                  itemsize * float(np.sum(lens)) * (d + 3),
+                  "fp64" if itemsize == 8 else None)
+
+
+def _pairs_stack(X, labels, dtype):
+    """The batched one-vs-one solve's operands for ``X`` (n, d) and its
+    ``labels``, on the card as ``_fit_oao_batched`` gathers them: the (P,
+    m_pad, d) stack of each machine's dept rows, their squared norms and
+    the machines' lengths."""
+    classes = np.unique(labels)
+    rows = [np.flatnonzero((labels == a) | (labels == b))[:-1]
+            for i, a in enumerate(classes) for b in classes[i + 1:]]
+    m_pad = max(len(r) for r in rows)
+    idx = np.full((len(rows), m_pad), len(X), dtype=np.int64)
+    for p, r in enumerate(rows):
+        idx[p, :len(r)] = r
+    X_aug = torch.zeros((len(X) + 1, X.shape[1]), dtype=dtype, device="cuda")
+    X_aug[:len(X)] = torch.as_tensor(np.asarray(X), dtype=dtype, device="cuda")
+    Xb = X_aug[torch.as_tensor(idx, device="cuda")]
+    lens = torch.as_tensor([len(r) for r in rows], dtype=torch.int64, device="cuda")
+    return Xb, (Xb * Xb).sum(-1), lens
+
+
+def _pairs_rhs(Xb, lens, gen):
+    """A seeded right-hand side, zero past each machine's rows."""
+    mask = torch.arange(Xb.shape[1], device="cuda")[None, :] < lens[:, None]
+    return torch.randn(Xb.shape[:2], generator=gen, dtype=Xb.dtype).cuda() * mask
+
+
+def _pairs_check(label, Xb, sq, V, lens, kind, gamma, coef0=0.0):
+    """Kernel O against its plain version on one stack: max|err| /
+    max|plain|, within 1e-4 (float32) or 1e-10 (float64), rows past each
+    machine exactly 0, and a second launch bit for bit the first.  Returns
+    (max|err|, relative error)."""
+    from plssvm_tpu_torch.ops import pairs
+    from plssvm_tpu_torch.parameter import KernelFunctionType as K
+
+    kw = dict(kind=K.from_string(kind), gamma=gamma, coef0=coef0, degree=3)
+    got = pairs.pairs_matvec(Xb, sq, V, lens, **kw)
+    again = pairs.pairs_matvec(Xb, sq, V, lens, **kw)
+    want = pairs.pairs_matvec_plain(Xb, sq, V, lens, **kw)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    mask = torch.arange(Xb.shape[1], device="cuda")[None, :] < lens[:, None]
+    tol = 1e-4 if Xb.dtype == torch.float32 else 1e-10
+    if not (torch.isfinite(got).all() and rel <= tol and torch.equal(got, again)
+            and bool((got[~mask] == 0).all())):
+        raise AssertionError(f"kernel O {label}: max|err|/max|plain| {rel:.3e} (limit {tol}), "
+                             f"repeat bit for bit {torch.equal(got, again)}")
+    return err, rel
+
+
+def _pairs_time(label, Xb, sq, V, lens, kind, gamma, main_ms=None, coef0=0.0):
+    """Kernel O's and its plain version's ms at one stack (``_time_pair``'s
+    order plain, O, O, plain), beside the bound; recorded for the cost
+    ranking under phase "oao" when ``main_ms`` is given.  Returns (ms,
+    plain ms, bound)."""
+    from plssvm_tpu_torch.ops import pairs
+    from plssvm_tpu_torch.parameter import KernelFunctionType as K
+
+    kw = dict(kind=K.from_string(kind), gamma=gamma, coef0=coef0, degree=3)
+    lens_h = lens.cpu().numpy()
+    pair_features = float(np.sum(lens_h.astype(np.float64) ** 2)) * Xb.shape[2]
+    k_ms, p_ms = _time_pair("pairs_matvec", pairs.pairs_matvec, pairs.pairs_matvec_plain,
+                            (Xb, sq, V, lens), kw, pair_features, label, plain_repeats=3,
+                            unit="T pair-features/s", counted="sum_p len_p^2 d, as walked")
+    bound = _pairs_bound(lens_h, Xb.shape[2], kind, Xb.element_size())
+    _log_bound("pairs_matvec", label, k_ms, bound)
+    if main_ms is not None:
+        main_ms[("pairs_matvec", "oao")] = (k_ms, bound[0])
+    return k_ms, p_ms, bound
+
+
+def _pairs_per_entry(label, X, gamma):
+    """Kernel O's chi-squared entries on one machine's rows ``X``, picked by
+    one-hot right-hand sides (``entry_errors``), in float32 against the
+    plain version in float64 and in float64 against long double, beside the
+    plain version's own worst error in the type; the card test's gates:
+    float32 within min(4x plain, 1e-4) (the approximate reciprocal, ROADMAP
+    Queue 3 item 3), float64 within 2x plain (the divide-free quotient)."""
+    from plssvm_tpu_torch.ops import pairs
+    from plssvm_tpu_torch.ops.entry_check import entry_errors
+
+    m = X.shape[0]
+    columns = [int(j) for j in np.linspace(0, m - 1, MC_CLASSES)]
+    lens = torch.tensor([m], dtype=torch.int64, device="cuda")
+
+    def one_machine(Xm, v, kind, gamma):
+        return pairs.pairs_matvec(Xm[None], None, v[None], lens, kind=kind, gamma=gamma,
+                                  coef0=0.0, degree=3)[0]
+
+    for dtype in (torch.float32, torch.float64):
+        got, plain = entry_errors(one_machine, X.to(dtype).contiguous(), columns, gamma,
+                                  one_column=True)
+        limit = min(4 * plain, 1e-4) if dtype == torch.float32 else 2 * plain
+        log("oao", f"kernel O chi-squared per entry {label} {dtype}: worst relative error "
+            f"{got:.3e}, plain version {plain:.3e} ({got / plain:.2f}x, limit {limit:.3e})")
+        if not got <= limit:
+            raise AssertionError(f"kernel O chi-squared {dtype} per entry: {got} past {limit}")
+
+
+def _friedman1(rng, n):
+    """Friedman #1: 10 sin(pi x0 x1) + 20 (x2 - 0.5)^2 + 10 x3 + 5 x4 + N(0,
+    1), x uniform on [0, 1]^FRIEDMAN_D."""
+    X = rng.uniform(size=(n, FRIEDMAN_D))
+    y = (10.0 * np.sin(np.pi * X[:, 0] * X[:, 1]) + 20.0 * (X[:, 2] - 0.5) ** 2
+         + 10.0 * X[:, 3] + 5.0 * X[:, 4] + rng.normal(size=n))
+    return X, y
+
+
+def _oao_fit(label, svm, train, test, labels, epsilon, phase="oao"):
+    """A one-vs-one fit of ``train`` and the predict of ``test``, with
+    kernels O and D counted from 0 (and A-C, N): returns the log fields."""
+    import plssvm_tpu_torch as port
+    from plssvm_tpu_torch.ops import distance, gram_matmat, gram_matvec, kernel_matrix, pairs
+
+    for module in (pairs, gram_matvec, gram_matmat, distance, kernel_matrix):
+        module.reset_counts()
+    port.global_tracker.clear()
+    t0 = time.perf_counter()
+    model = svm.fit(train, classification="oao", epsilon=epsilon)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    strategy = _tracked("cg", "oao_strategy")
+    block = _tracked("cg", "block_iterations") if strategy == "batched" else None
+    cg_s = _tracked("cg", "total_runtime") / 1000
+    per_machine = model.n_iter_per_machine
+    counts = dict(pairs=pairs.launches, plain=pairs.plain_calls,
+                  A=gram_matvec.sym_tc_launches + gram_matvec.sym_dmma_launches
+                  + gram_matvec.sym_launches,
+                  E=distance.matvec_sym_launches,
+                  N=kernel_matrix.sym_launches)
+    predicted = svm.predict(model, test)
+    t2 = time.perf_counter()
+    counts["D"] = (gram_matmat.rect_tc_launches + gram_matmat.rect_dmma_launches
+                   + gram_matmat.rect_launches)
+    counts["H"] = distance.matmat_rect_launches
+    accuracy = float(np.mean(predicted == labels))
+    finite = bool(np.all(np.isfinite(model.alpha)) and np.all(np.isfinite(model.rho)))
+    log(phase, f"{label}: strategy {strategy}, iterations per machine {per_machine} (sum "
+        f"{model.n_iter}" + (f", {block} block iterations, {cg_s / max(block, 1):.6f} "
+                             "s/iteration" if block is not None else
+                             f", {cg_s / max(model.n_iter, 1):.6f} s per machine iteration")
+        + f"), fit {t1 - t0:.3f} s, predict {t2 - t1:.3f} s, accuracy {accuracy:.4f}, "
+        f"launches {counts}")
+    if not finite:
+        raise AssertionError(f"{phase} {label}: non-finite model")
+    return dict(model=model, predicted=predicted, accuracy=accuracy, strategy=strategy,
+                block=block, fit_s=t1 - t0, counts=counts, per_machine=per_machine)
+
+
+def _agreement(phase, label, a, b, floor):
+    agree = float(np.mean(a["predicted"] == b["predicted"]))
+    log(phase, f"{label}: label agreement {agree:.4f} (gate {floor})")
+    if agree < floor:
+        raise AssertionError(f"{phase} {label}: labels agree on {agree} < {floor}")
+    return agree
+
+
+def _check_batched_launches(phase, label, run, groups=1):
+    """A batched fit launched kernel O once for the initial residual, once
+    per block iteration and once more every 50th, and no plain version;
+    its predict went through kernel D or H.  With its machines split over
+    ``groups`` devices each group runs its own loop: the count is the sum
+    over the groups (``machine_groups``' contiguous ranges, the machines
+    padded with dummies that take no iteration), each group's block
+    iterations its slowest machine's."""
+    from plssvm_tpu_torch.parallel.sharded import machine_groups
+
+    c = run["counts"]
+    per_machine = list(run["per_machine"])
+    per_machine += [0] * (-len(per_machine) % groups)
+    blocks = [max(per_machine[lo:hi]) for lo, hi in machine_groups(len(per_machine), groups)]
+    if groups == 1:
+        blocks = [run["block"]]
+    want = sum(1 + b + b // 50 for b in blocks)
+    if run["strategy"] != "batched" or c["pairs"] != want or c["plain"] != 0 \
+            or c["D"] + c["H"] <= 0:
+        raise AssertionError(f"{phase} {label}: strategy {run['strategy']}, O launched "
+                             f"{c['pairs']} times for block iterations {blocks} "
+                             f"(want {want}), plain calls {c['plain']}, predict launches "
+                             f"D {c['D']} H {c['H']}")
+
+
+def phase_oao(tmp, mc_written, chi2_cell, mnist_cell, main_ms):
+    """One-vs-one training and LS-SVR (ROADMAP Queue 1 item 6, item 7's
+    LS-SVR):
+
+    (a) kernel O against its plain version, every kind in float32 and
+        float64, on ragged stacks of 3 and 45 machines (one of 2 rows, the
+        others up to PAIRS_CHECK_ROWS), twice on the same input (bit for
+        bit), the worst relative error per kind and type logged;
+    (b) phase 5's 10 Gaussian classes (RBF) through ``plssvm-torch-train
+        --classification oao`` and ``plssvm-torch-predict``: ``automatic``
+        batched, O's launches, the accuracy floor; the sequential strategy
+        beside it (agreement >= 0.995), and both in float64 at epsilon 1e-10
+        (>= 0.999); O checked and timed at this stack;
+    (c) phase 9's histogram classes (chi-squared): batched on O, sequential
+        on kernel N through ``automatic``'s ``cg_explicit``; floor 0.84,
+        agreement >= 0.995; O checked and timed there, and held per entry
+        of K on one machine's rows in float32 and float64;
+    (d) phase 7's MNIST-width classes (60000 x 784): ``automatic`` batched
+        (1.69 GB <= 2 GiB), fit seconds, iterations and s/iteration, O
+        timed beside its bound at this stack, the floor; a sequential fit
+        beside it for its seconds;
+    (e) the machine axis: (b)'s fit with ``devices=["cuda:0"] * 4`` against
+        one device in float32 and float64 (1e-10): agreement, max|d alpha|,
+        max|d rho|, bit-identical or not;
+    (f) LS-SVR on Friedman #1 through ``plssvm-torch-train -s epsilon_svr``
+        and ``plssvm-torch-predict`` in float32 and float64: R^2 >= 0.87,
+        the two within 0.005, the predict file's values those the CLI
+        computed in memory.
+
+    Returns (launches, (main_err, timing, bounds) entries for kernel O)."""
+    import plssvm_tpu_torch as port
+    from plssvm_tpu_torch.csvm import CSVM
+    from plssvm_tpu_torch.ops import gram_matvec, pairs
+
+    gen = torch.Generator().manual_seed(SEED + 40)
+    rng = np.random.default_rng(SEED + 40)
+    kinds = (("polynomial", 1.0), ("rbf", 0.0), ("sigmoid", -0.5), ("laplacian", 0.0),
+             ("chi_squared", 0.0))
+    # (a) ragged stacks
+    worst = {}
+    for P in PAIRS_CHECK_P:
+        lens_h = rng.integers(PAIRS_CHECK_ROWS // 2, PAIRS_CHECK_ROWS + 1, P)
+        lens_h[P // 2] = 2
+        m_pad, d = int(lens_h.max()), 200
+        for dtype in (torch.float32, torch.float64):
+            mask = torch.arange(m_pad)[None, :] < torch.as_tensor(lens_h)[:, None]
+            X_pos = torch.rand((P, m_pad, d), generator=gen, dtype=dtype) * mask[..., None]
+            lens = torch.as_tensor(lens_h, dtype=torch.int64, device="cuda")
+            V = (torch.randn((P, m_pad), generator=gen, dtype=dtype) * mask).cuda()
+            for kind, coef0 in kinds:
+                Xb = X_pos if kind == "chi_squared" else (X_pos - 0.5 * mask[..., None]) * 0.3
+                Xb = Xb.cuda()
+                _, rel = _pairs_check(f"{kind} P={P}", Xb, (Xb * Xb).sum(-1), V, lens, kind,
+                                      1.0 / d, coef0)
+                key = (kind, "f32" if dtype == torch.float32 else "f64")
+                worst[key] = max(worst.get(key, 0.0), rel)
+    log("oao", "kernel O against plain, worst max|err|/max|plain| over P in "
+        f"{PAIRS_CHECK_P} (ragged, one machine of 2 rows, d = 200), bit for bit on a "
+        "second launch: " + ", ".join(f"{k} {t} {v:.3e}" for (k, t), v in worst.items()))
+
+    # (b) the 10 Gaussian classes at config 2's shape
+    train_file, test_file = mc_written["mc_train"][0], mc_written["mc_test"][0]
+    labels = mc_written["mc_test"][1]
+    train = port.DataSet(train_file, dtype=np.float32)
+    Xb, sq, lens = _pairs_stack(np.asarray(train.data), np.asarray(train.labels),
+                                torch.float32)
+    V = _pairs_rhs(Xb, lens, gen)
+    gamma = 1.0 / 200
+    err, rel = _pairs_check("rbf at (b)'s stack", Xb, sq, V, lens, "rbf", gamma)
+    ms, plain_ms, bound = _pairs_time(f"f32 rbf at (b)'s stack {tuple(Xb.shape)}", Xb, sq, V,
+                                      lens, "rbf", gamma, main_ms)
+    tables = ({("pairs_matvec", "rbf"): err}, {("pairs_matvec", "rbf"): (ms, plain_ms)},
+              {("pairs_matvec", "rbf"): bound})
+    del Xb, sq, V
+    pairs.reset_counts()
+    port.global_tracker.clear()
+    fit_s, predict_s, predicted, io = _cli_fit_predict(
+        "oao", train_file, test_file, tmp,
+        ["--classification", "oao", "-t", "2", "-c", "1", "-e", str(EPSILON)],
+        solver="automatic")
+    strategy = _tracked("cg", "oao_strategy")
+    block = _tracked("cg", "block_iterations")
+    per_machine = _tracked("cg", "iterations_per_machine")
+    cg_s = _tracked("cg", "total_runtime") / 1000
+    launches_b = pairs.launches
+    accuracy = float(np.mean(predicted == labels))
+    log("oao", f"{MC_CLASSES} classes rbf f32 (CLI, --classification oao): strategy "
+        f"{strategy}, {block} block iterations, iterations per machine {per_machine}, "
+        f"{cg_s / block:.6f} s/iteration, CG {cg_s:.3f} s, fit (CLI) {fit_s:.3f} s, predict "
+        f"(CLI) {predict_s:.3f} s, accuracy {accuracy:.4f}, kernel O launches {launches_b}, "
+        f"plain calls {pairs.plain_calls}; native parses, writes {io['native']}")
+    if strategy != "batched" or launches_b != 1 + block + block // 50 or pairs.plain_calls:
+        raise AssertionError(f"oao: the CLI fit took {strategy}, O launched {launches_b} "
+                             f"times for {block} block iterations")
+    if accuracy < MC_ACCURACY_FLOOR:
+        raise AssertionError(f"oao: accuracy {accuracy} below {MC_ACCURACY_FLOOR}")
+    test = port.DataSet(test_file, dtype=np.float32)
+    runs = {}
+    for strat in ("batched", "sequential"):
+        svm = CSVM(backend="cuda", device="cuda", dtype=np.float32, kernel_type="rbf",
+                   cost=1.0, oao_batch=strat)
+        runs[strat] = _oao_fit(f"{MC_CLASSES} classes rbf f32 {strat}", svm, train, test,
+                               labels, EPSILON)
+    _check_batched_launches("oao", "(b) f32 batched", runs["batched"])
+    if runs["sequential"]["counts"]["A"] <= 0 or runs["sequential"]["counts"]["pairs"]:
+        raise AssertionError("oao: the sequential fit did not take kernel A only")
+    _agreement("oao", "(b) f32 batched vs sequential", runs["batched"], runs["sequential"],
+               OAO_AGREEMENT)
+    _agreement("oao", "(b) f32 batched (CSVM) vs the CLI's", runs["batched"],
+               dict(predicted=predicted), OAO_AGREEMENT)
+    train64 = port.DataSet(train_file, dtype=np.float64)
+    test64 = port.DataSet(test_file, dtype=np.float64)
+    runs64 = {}
+    for strat in ("batched", "sequential"):
+        svm = CSVM(backend="cuda", device="cuda", dtype=np.float64, kernel_type="rbf",
+                   cost=1.0, oao_batch=strat)
+        runs64[strat] = _oao_fit(f"{MC_CLASSES} classes rbf f64 {strat} epsilon "
+                                 f"{OAO_F64_EPSILON}", svm, train64, test64, labels,
+                                 OAO_F64_EPSILON)
+    _check_batched_launches("oao", "(b) f64 batched", runs64["batched"])
+    _agreement("oao", "(b) f64 batched vs sequential", runs64["batched"],
+               runs64["sequential"], OAO_AGREEMENT_F64)
+
+    # (c) the histogram classes, chi-squared
+    gamma_c = chi2_cell["params"]["gamma"]
+    train_c, test_c = chi2_cell["make"](np.float32)
+    Xb, sq, lens = _pairs_stack(np.asarray(train_c.data), np.asarray(train_c.labels),
+                                torch.float32)
+    V = _pairs_rhs(Xb, lens, gen)
+    err_c, _ = _pairs_check("chi_squared at (c)'s stack", Xb, None, V, lens, "chi_squared",
+                            gamma_c)
+    _pairs_per_entry("at (c)'s first machine", Xb[0, :int(lens[0])], gamma_c)
+    ms_c, plain_c, bound_c = _pairs_time(f"f32 chi_squared at (c)'s stack {tuple(Xb.shape)}",
+                                         Xb, None, V, lens, "chi_squared", gamma_c)
+    for table, value in zip(tables, (err_c, (ms_c, plain_c), bound_c)):
+        table[("pairs_matvec", "chi_squared")] = value
+    del Xb, sq, V
+    runs_c = {}
+    for strat in ("batched", "sequential"):
+        svm = CSVM(backend="cuda", device="cuda", dtype=np.float32, kernel_type="chi_squared",
+                   gamma=gamma_c, cost=1.0, oao_batch=strat)
+        runs_c[strat] = _oao_fit(f"{MC_CLASSES} histogram classes chi-squared f32 {strat}",
+                                 svm, train_c, test_c, chi2_cell["labels"], CHI2_EPSILON)
+    _check_batched_launches("oao", "(c) batched", runs_c["batched"])
+    if runs_c["sequential"]["counts"]["N"] != len(runs_c["sequential"]["per_machine"]) \
+            or runs_c["sequential"]["counts"]["pairs"]:
+        raise AssertionError("oao: the sequential chi-squared machines did not each build K "
+                             "with kernel N")
+    for strat, run in runs_c.items():
+        if run["accuracy"] < CHI2_ACCURACY_FLOOR:
+            raise AssertionError(f"oao (c) {strat}: accuracy {run['accuracy']} below "
+                                 f"{CHI2_ACCURACY_FLOOR}")
+    _agreement("oao", "(c) batched vs sequential", runs_c["batched"], runs_c["sequential"],
+               OAO_AGREEMENT)
+    launches_c = runs_c["batched"]["counts"]["pairs"]
+    del train_c, test_c
+
+    # (d) MNIST width
+    train_d, test_d = mnist_cell["make"](np.float32)
+    svm = CSVM(backend="cuda", device="cuda", dtype=np.float32, kernel_type="rbf", cost=1.0)
+    dmax = max(int(np.sum(np.isin(np.asarray(train_d.labels), pair))) - 1
+               for pair in [(a, b) for a in range(MC_CLASSES) for b in range(a + 1, MC_CLASSES)])
+    stack = 45 * dmax * 784 * 4
+    log("oao", f"(d) MNIST width: the batched stack is 45 x {dmax} x 784 float32 = {stack} "
+        f"bytes against the {svm._oao_batch_budget()}-byte budget")
+    Xb, sq, lens = _pairs_stack(np.asarray(train_d.data), np.asarray(train_d.labels),
+                                torch.float32)
+    V = _pairs_rhs(Xb, lens, gen)
+    _pairs_check("rbf at (d)'s stack", Xb, sq, V, lens, "rbf", 1.0 / 784)
+    _pairs_time(f"f32 rbf at (d)'s stack {tuple(Xb.shape)}", Xb, sq, V, lens, "rbf",
+                1.0 / 784)
+    del Xb, sq, V
+    torch.cuda.empty_cache()
+    run_d = _oao_fit("(d) rbf 60000x784 f32 automatic", svm, train_d, test_d,
+                     mnist_cell["labels"], EPSILON)
+    _check_batched_launches("oao", "(d)", run_d)
+    if run_d["accuracy"] < MC_ACCURACY_FLOOR:
+        raise AssertionError(f"oao (d): accuracy {run_d['accuracy']} below {MC_ACCURACY_FLOOR}")
+    seq = CSVM(backend="cuda", device="cuda", dtype=np.float32, kernel_type="rbf", cost=1.0,
+               oao_batch="sequential")
+    run_ds = _oao_fit("(d) rbf 60000x784 f32 sequential", seq, train_d, test_d,
+                      mnist_cell["labels"], EPSILON)
+    log("oao", f"(d) fit seconds: batched {run_d['fit_s']:.3f}, sequential "
+        f"{run_ds['fit_s']:.3f}; label agreement "
+        f"{float(np.mean(run_d['predicted'] == run_ds['predicted'])):.4f}")
+    del train_d, test_d
+
+    # (e) the machine axis on (b)'s data
+    for dtype, data, one, epsilon, floor in (
+            (np.float32, (train, test), runs["batched"], EPSILON, OAO_AGREEMENT),
+            (np.float64, (train64, test64), runs64["batched"], OAO_F64_EPSILON,
+             OAO_AGREEMENT_F64)):
+        svm = CSVM(backend="cuda", devices=["cuda:0"] * 4, dtype=dtype, kernel_type="rbf",
+                   cost=1.0, oao_batch="batched")
+        name = np.dtype(dtype).name
+        split = _oao_fit(f"(e) {name} machines split over 4 x cuda:0", svm, *data, labels,
+                         epsilon)
+        _check_batched_launches("oao", f"(e) {name}", split, groups=4)
+        d_alpha = float(np.max(np.abs(np.asarray(split["model"].alpha, dtype=np.float64)
+                                      - np.asarray(one["model"].alpha, dtype=np.float64))))
+        d_rho = float(np.max(np.abs(split["model"].rho - one["model"].rho)))
+        identical = bool(np.array_equal(split["model"].alpha, one["model"].alpha)
+                         and np.array_equal(split["model"].rho, one["model"].rho))
+        log("oao", f"(e) {name} split against one device: max|d alpha| {d_alpha:.3e}, "
+            f"max|d rho| {d_rho:.3e}, bit-identical {identical}, iterations per machine "
+            f"equal {split['per_machine'] == one['per_machine']}")
+        _agreement("oao", f"(e) {name} split vs one device", split, one, floor)
+
+    # (f) LS-SVR on Friedman #1
+    frng = np.random.default_rng(SEED + 41)
+    X, y = _friedman1(frng, FRIEDMAN_N + FRIEDMAN_TEST)
+    svr_train = os.path.join(tmp, "friedman_train.libsvm")
+    svr_test = os.path.join(tmp, "friedman_test.libsvm")
+    port.DataSet(X[:FRIEDMAN_N], y[:FRIEDMAN_N], regression=True).save(svr_train)
+    port.DataSet(X[FRIEDMAN_N:], y[FRIEDMAN_N:], regression=True).save(svr_test)
+    targets = np.asarray(port.DataSet(svr_test, regression=True).labels)
+    r2 = {}
+    for name, extra in (("float32", []), ("float64", ["--use_double_as_real_type"])):
+        recorded = []
+        predict = CSVM.predict
+
+        def recording(self, model, data):
+            values = predict(self, model, data)
+            recorded.append(values)
+            return values
+
+        gram_matvec.reset_counts()
+        CSVM.predict = recording
+        try:
+            fit_s, predict_s, values, _ = _cli_fit_predict(
+                f"svr-{name}", svr_train, svr_test, tmp,
+                ["-s", "epsilon_svr", "-t", "2", "-c", "10", "-e", str(FRIEDMAN_EPSILON)]
+                + extra, solver="automatic", parse=float, predict_flags=extra)
+        finally:
+            CSVM.predict = predict
+        iterations = _tracked("cg", "iterations")
+        cg_s = _tracked("cg", "total_runtime") / 1000
+        written = np.asarray([float(format(v, ".10g")) for v in recorded[0]])
+        r2[name] = 1.0 - np.sum((targets - values) ** 2) / np.sum(
+            (targets - targets.mean()) ** 2)
+        a = (gram_matvec.sym_tc_launches if name == "float32"
+             else gram_matvec.sym_dmma_launches)
+        b = (gram_matvec.rect_tc_launches if name == "float32"
+             else gram_matvec.rect_dmma_launches)
+        log("oao", f"(f) LS-SVR Friedman #1 {FRIEDMAN_N}x{FRIEDMAN_D} {name} (CLI -s "
+            f"epsilon_svr): {iterations} CG iterations, {cg_s / max(iterations, 1):.6f} "
+            f"s/iteration, fit (CLI) {fit_s:.3f} s, predict (CLI) {predict_s:.3f} s, R^2 "
+            f"{r2[name]:.4f}, kernel A / B launches ({a}, {b})")
+        if not np.array_equal(values, written):
+            raise AssertionError(f"oao (f) {name}: the predict file's values are not those "
+                                 "computed in memory")
+        if a != 1 + iterations + iterations // 50 or b <= 0:
+            raise AssertionError(f"oao (f) {name}: LS-SVR did not go through kernels A and B")
+        if not r2[name] >= FRIEDMAN_R2_FLOOR:
+            raise AssertionError(f"oao (f) {name}: R^2 {r2[name]} below {FRIEDMAN_R2_FLOOR}")
+    if abs(r2["float32"] - r2["float64"]) > FRIEDMAN_R2_GAP:
+        raise AssertionError(f"oao (f): float32 and float64 R^2 differ by "
+                             f"{abs(r2['float32'] - r2['float64'])}")
+    return {"pairs_matvec": launches_b, ("pairs_matvec", "chi_squared"): launches_c}, tables
+
+
 def main(argv=None):
     import argparse
 
@@ -4336,6 +4833,11 @@ def main(argv=None):
         phase_launches["config3"] = run("config3", phase_config3_width)
         phase_launches["mnist-width"], ring_cells["mnist-width"] = run(
             "mnist-width", phase_multiclass_width)
+        phase_launches["oao"], oao_kernels = run(
+            "oao", phase_oao, tmp, mc_written, ring_cells["chi2"], ring_cells["mnist-width"],
+            main_ms)
+        for table, values in zip((main_err, timing, bounds), oao_kernels):
+            table.update(values)
         phase_launches["chi2-width"], chi2_width = run("chi2-width", phase_chi2_width,
                                                        g_chi_ms)
         phase_launches["explicit"], explicit_kernels = run(
@@ -4462,6 +4964,12 @@ def main(argv=None):
             "kernel_matrix.cu", "plssvm_tpu/solver/explicit.py:58"),
         ("kernel_matrix_rect", "chi_squared"): (
             "kernel_matrix.cu", "plssvm_tpu/solver/explicit.py:58"),
+        # kernel O has no Pallas counterpart: plssvm_tpu computes the
+        # batched pairs product in XLA (solve_ls_svm_pairs' vmapped
+        # row-scan matvec).  One entry per kind the oao phase's batched
+        # fits ran, timed at that phase's stack: RBF (b), chi-squared (c)
+        ("pairs_matvec", "rbf"): ("pairs.cu", "plssvm_tpu/solver/cg.py:1104"),
+        ("pairs_matvec", "chi_squared"): ("pairs.cu", "plssvm_tpu/solver/cg.py:1104"),
     }
     entries = [
         {
@@ -4476,7 +4984,8 @@ def main(argv=None):
                else {"tier": tiers[k]} if k in tiers else {}),
             # kernel N's entries: the kind each was timed and launched at
             **({"kind": "chi_squared" if k[1] == "f64" else k[1]}
-               if isinstance(k, tuple) and k[0].startswith("kernel_matrix") else {}),
+               if isinstance(k, tuple) and k[0].startswith(("kernel_matrix", "pairs_matvec"))
+               else {}),
         }
         for k, (src, replaces) in sources.items()
     ]

@@ -82,13 +82,15 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "-s", "--svm_type", default="c_svc",
         choices=["c_svc", "epsilon_svr", "svr", "one_class"],
-        help="c_svc = classification (default); the regression and "
-             "one-class types are not ported yet",
+        help="c_svc = classification (default); epsilon_svr/svr = "
+             "LS-SVR regression on the continuous label column (the model "
+             "uses LIBSVM's epsilon_svr layout); one_class is not ported yet",
     )
     parser.add_argument(
         "--classification", default="oaa", choices=["oaa", "oao"],
         help="multiclass decomposition (> 2 labels): oaa trains one-vs-all "
-             "as one block CG; oao training is not ported yet",
+             "as one block CG (default), oao the one-vs-one pair machines, "
+             "stored in LIBSVM's multiclass model layout",
     )
     parser.add_argument("--probability", action="store_true",
                         help="probability calibration (not ported yet)")
@@ -129,7 +131,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument("--warm_start", metavar="MODEL_FILE", default=None,
                         help="warm-start CG from an existing model file's "
-                        "alpha (same data set; binary/one-vs-all only) — "
+                        "alpha (same data set and classification) — "
                         "refine a converged model at a tighter -e or after "
                         "a -c change without solving from scratch")
     parser.add_argument("-n", "--nu", type=float, default=0.5,
@@ -210,15 +212,10 @@ def _reject_not_ported(args) -> None:
     for attr, flag, item in _NOT_PORTED:
         if getattr(args, attr):
             raise NotPortedError(f"{flag} is not ported yet (ROADMAP {item})")
-    if args.svm_type != "c_svc":
+    if args.svm_type == "one_class":
         raise NotPortedError(
-            f"-s {args.svm_type} is not ported yet (ROADMAP Queue 1, item 7: "
-            "regression and one-class)"
-        )
-    if args.classification == "oao":
-        raise NotPortedError(
-            "--classification oao is not ported yet (ROADMAP Queue 1, item 6: "
-            "one-vs-one)"
+            "-s one_class is not ported yet (ROADMAP Queue 1, item 7: "
+            "one-class)"
         )
 
 
@@ -283,8 +280,13 @@ def main(argv=None) -> int:
     start = time.perf_counter()
     try:
         _reject_not_ported(args)
+        regression = args.svm_type in ("epsilon_svr", "svr")
         per_class_weights = None
         if args.weight:
+            if regression:
+                print("--weight is only supported for classification training!",
+                      file=sys.stderr)
+                return 1
             per_class_weights, message = _parse_class_weights(args.weight)
             if message is not None:
                 print(message, file=sys.stderr)
@@ -299,8 +301,10 @@ def main(argv=None) -> int:
         add_tracking_entry("parameter", "epsilon", args.epsilon)
         data = DataSet(
             args.input,
-            label_type=resolve_label_type(args),
+            # LS-SVR: the label column holds continuous targets
+            label_type=float if regression else resolve_label_type(args),
             dtype=resolve_dtype(args),
+            regression=regression,
         )
         svm = CSVM(
             backend=args.backend,
@@ -316,7 +320,8 @@ def main(argv=None) -> int:
             coef0=args.coef0,
             cost=args.cost,
         )
-        fit_kwargs = dict(epsilon=args.epsilon, max_iter=args.max_iter)
+        fit_kwargs = dict(epsilon=args.epsilon, max_iter=args.max_iter,
+                          classification=args.classification)
         if per_class_weights is not None:
             fit_kwargs["sample_weight"] = _expand_class_weights(
                 per_class_weights, np.asarray(data.labels)

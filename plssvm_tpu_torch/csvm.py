@@ -7,15 +7,17 @@ between devices behind the caller's back.  The backend picks the kernel
 products: ``cuda``, the hand-written kernels (csrc/*.cu), or ``torch``,
 their plain PyTorch versions on any device.
 
-This package covers binary and one-vs-all multiclass classification with
+This package covers binary, one-vs-all and one-vs-one multiclass
+classification and LS-SVR regression with
 the implicit and the explicit CG solver (``solver``; ``automatic`` resolves
 per fit as plssvm_tpu does, with the budget and the Gram crossover of this
 device), for every kernel function (linear, polynomial, RBF,
 sigmoid, laplacian, chi-squared), on one device or row-sharded over a list
-of devices (``devices``, parallel/sharded.py), with plssvm_tpu's solver
+of devices (``devices``, parallel/sharded.py; the batched one-vs-one solve
+splits its machines over them instead), with plssvm_tpu's solver
 extras (warm start, sample weights, the Jacobi preconditioner, CG-state
-checkpoint/resume, ``debug`` guards), and predict with binary, one-vs-all
-and one-vs-one (LIBSVM multiclass) model files.
+checkpoint/resume, ``debug`` guards), and predict with binary, one-vs-all,
+one-vs-one (LIBSVM multiclass) and regression (epsilon_svr) model files.
 What it does not carry yet raises :class:`NotPortedError` (a
 ``NotImplementedError``) naming the ROADMAP item that ports it.
 """
@@ -39,6 +41,7 @@ from .parallel.sharded import (
     build_sharded_kernel_matrix,
     predict_values_sharded,
     solve_ls_svm_multi_sharded,
+    solve_ls_svm_pairs_sharded,
     solve_ls_svm_sharded,
 )
 from .parameter import (
@@ -48,7 +51,7 @@ from .parameter import (
     Parameter,
     TargetPlatform,
 )
-from .solver.cg import solve_ls_svm, solve_ls_svm_multi
+from .solver.cg import solve_ls_svm, solve_ls_svm_multi, solve_ls_svm_pairs
 from .solver.explicit import (
     build_kernel_matrix,
     solve_ls_svm_explicit,
@@ -83,6 +86,13 @@ CUDA_CONTEXT_BYTES = 2 << 30
 #: --sweep 32768; PERF.md)
 GRAM_CROSSOVER_CUDA = {"f32": (1024, 512), "bf16": (1024, None), "highest": (64, 64),
                        "f64": (128, 128)}
+#: the environment variable that overrides the batched one-vs-one solve's
+#: budget (GiB), plssvm_tpu's PLSSVM_OAO_BATCH_BUDGET_GB
+OAO_BATCH_BUDGET_ENV = "PLSSVM_TPU_TORCH_OAO_BATCH_BUDGET_GB"
+#: the (P, m_pad, d) operand stack per device that ``oao_batch="auto"``
+#: batches up to, GiB: plssvm_tpu's, on the CPU and on a CUDA device alike,
+#: so that a fit selects as plssvm_tpu's does
+OAO_BATCH_BUDGET_GB = 2.0
 
 
 def _check_chi_squared_data(X: np.ndarray, what: str) -> None:
@@ -206,6 +216,12 @@ class CSVM:
     ``preconditioner="jacobi"`` runs preconditioned CG; ``debug=True``
     checks the CG state for NaN/Inf and raises :class:`NumericCheckError`
     (plssvm_tpu raises ``checkify.JaxRuntimeError`` with the same message).
+
+    ``oao_batch`` picks the one-vs-one training strategy: ``"batched"``
+    solves all C(C-1)/2 pair machines as one batched CG (kernel O; with
+    ``devices`` its machines split over them), ``"sequential"`` fits them
+    one after another through ``fit``, ``"auto"`` batches when the
+    per-device operand stack fits the budget (``_use_oao_batched``).
     """
 
     def __init__(
@@ -222,6 +238,7 @@ class CSVM:
         solver: str = "automatic",
         devices=None,
         debug: bool = False,
+        oao_batch: str = "auto",
         **named_params,
     ):
         backend = BackendType.from_string(backend)
@@ -295,6 +312,15 @@ class CSVM:
         # the caller's choice; each fit resolves it (_use_explicit_solver)
         # and records the result in the "cg" / "solver" tracking entry
         self.solver = solver
+        # one-vs-one training: "batched" (one batched CG of every pair
+        # machine), "sequential" (each through fit), "auto" (batched where
+        # the operand stack fits, _use_oao_batched)
+        if oao_batch not in ("auto", "batched", "sequential"):
+            raise InvalidParameterError(
+                f"Unrecognized oao_batch '{oao_batch}' (must be 'auto', "
+                "'batched' or 'sequential')!"
+            )
+        self.oao_batch = oao_batch
 
         self._params = params.copy() if params is not None else Parameter()
         if named_params:
@@ -365,8 +391,12 @@ class CSVM:
         = "oaa"``, the default): the C binary systems share the implicit
         matrix and are solved together as one block CG (an extension; the
         reference rejects such data, data_set.hpp:443).  With ``devices``
-        both run row-sharded (parallel/sharded.py).  One-vs-one training is
-        not ported yet.
+        both run row-sharded (parallel/sharded.py).  ``classification =
+        "oao"`` trains the C(C-1)/2 one-vs-one pair machines on their
+        class-pair rows (``oao_batch``: as one batched CG, or each through
+        this method) and stores them in LIBSVM's multiclass layout.  A
+        regression data set (``DataSet(regression=True)``) trains LS-SVR:
+        the binary solve on its continuous targets.
 
         The extras are plssvm_tpu's:
 
@@ -403,11 +433,6 @@ class CSVM:
                 f"{checkpoint_interval}!"
             )
         classification = ClassificationType.from_string(classification)
-        if data.is_regression:
-            raise NotPortedError(
-                "regression is not ported yet (ROADMAP Queue 1, item 7: "
-                "regression and one-class)"
-            )
         n_classes = data.num_different_labels
         multiclass = n_classes > 2
         if sample_weight is not None:
@@ -422,16 +447,21 @@ class CSVM:
                 raise InvalidParameterError(
                     "sample_weight entries must all be positive!"
                 )
+        oao = multiclass and classification == ClassificationType.OAO
         if initial_model is not None:
             self._check_initial_model(initial_model, data, checkpoint_path,
-                                      multiclass, n_classes)
+                                      multiclass, n_classes, oao)
         kind = self._params.kernel_type.value
         if kind == KernelFunctionType.CHI_SQUARED:
+            # before the one-vs-one dispatch: the batched pairs solve goes
+            # straight to the kernel, with no fit per machine
             _check_chi_squared_data(np.asarray(data.data), "training data")
-        if multiclass and classification == ClassificationType.OAO:
-            raise NotPortedError(
-                "one-vs-one training is not ported yet (ROADMAP Queue 1, "
-                "item 6: one-vs-one)"
+        if oao:
+            return self._fit_oao(
+                data, epsilon=epsilon, max_iter=max_iter,
+                checkpoint_path=checkpoint_path,
+                checkpoint_interval=checkpoint_interval,
+                sample_weight=sample_weight, initial_model=initial_model,
             )
 
         params = self._params.copy()
@@ -443,7 +473,7 @@ class CSVM:
 
         # the kernels mask ragged edges: the system keeps its dept rows
         transform_start = time.perf_counter()
-        X = self._tensor(data.data)
+        X = self._staged(data)
         if multiclass:
             y = self._tensor(data.mapper.oaa_targets(data.labels))  # (n, C)
         else:
@@ -704,7 +734,8 @@ class CSVM:
         return K
 
     def _check_initial_model(self, initial_model: Model, data: DataSet,
-                             checkpoint_path, multiclass: bool, n_classes: int) -> None:
+                             checkpoint_path, multiclass: bool, n_classes: int,
+                             oao: bool = False) -> None:
         """plssvm_tpu's checks of a warm start's model against the data."""
         if checkpoint_path is not None:
             raise InvalidParameterError(
@@ -719,7 +750,14 @@ class CSVM:
                 f"{data.num_data_points} points!"
             )
         alpha0 = np.asarray(initial_model.alpha)
-        if multiclass and (alpha0.ndim != 2 or alpha0.shape[1] != n_classes):
+        if oao:
+            if (initial_model.classification != ClassificationType.OAO
+                    or alpha0.ndim != 2 or alpha0.shape[1] != n_classes - 1):
+                raise InvalidParameterError(
+                    "initial_model is not a one-vs-one model of "
+                    f"{n_classes} classes!"
+                )
+        elif multiclass and (alpha0.ndim != 2 or alpha0.shape[1] != n_classes):
             raise InvalidParameterError(
                 "initial_model is not a one-vs-all model of "
                 f"{n_classes} classes!"
@@ -742,6 +780,11 @@ class CSVM:
         to the mapper's sorted order the solver trains in.
         """
         alpha0 = np.asarray(initial_model.alpha, dtype=self.dtype)
+        if data.is_regression or initial_model.is_regression:
+            # continuous targets carry no class structure to realign by:
+            # the warm start is used as it is (correct whatever the row
+            # order; only the iterations saved depend on it)
+            return alpha0
         m_labels = np.asarray(initial_model.data.labels)
         d_labels = np.asarray(data.labels)
         if not (
@@ -768,6 +811,298 @@ class CSVM:
                 perm = [order.index(lab) for lab in target]
                 alpha0 = alpha0[:, perm]
         return alpha0
+
+    # -- one-vs-one -----------------------------------------------------------
+    def _staged(self, data: DataSet) -> torch.Tensor:
+        """``data``'s rows on the device: gathered there from a once-staged
+        parent operand when the data set is a one-vs-one pair machine's
+        (``_device_rows = (X_aug, rows)``, set by ``_fit_oao``), else
+        copied from the host."""
+        device_rows = getattr(data, "_device_rows", None)
+        if device_rows is not None and self.devices is None:
+            X_aug, rows = device_rows
+            return X_aug[rows]
+        return self._tensor(data.data)
+
+    def _with_zero_row(self, X: np.ndarray) -> torch.Tensor:
+        """X (n, d) on the device with a trailing zero row: the parent
+        operand a one-vs-one fit gathers each machine's rows from (index n
+        pads a machine's block with zeros)."""
+        return torch.nn.functional.pad(self._tensor(X), (0, 0, 0, 1))
+
+    def _oao_warm_pair_alpha(self, initial_model: Model, data: DataSet, rows,
+                             is_first, i: int, j: int) -> np.ndarray:
+        """The (i, j) pair machine's warm-start alpha from a one-vs-one
+        model (plssvm_tpu's ``_oao_warm_pair_alpha``).
+
+        Inverts ``oao.scatter_pair_alphas``: a data row of class c holds
+        its coefficient for the machine against class c' in column
+        ``coef_column(c, c')``, indexed in the model's layout class order
+        (the label header's for loaded files).  Where the model stores the
+        pair with the other +1 side (its layout orders j before i), the
+        solution is negated, as negating y negates the linear system's
+        solution.  Alignment never affects correctness, only the
+        iterations saved.
+        """
+        from . import oao
+
+        aligned = getattr(initial_model, "_oao_warm_aligned", None)
+        if aligned is None or aligned[0] is not data:
+            sv_coef = np.asarray(initial_model.alpha, dtype=np.float64)
+            m_labels = np.asarray(initial_model.data.labels)
+            d_labels = np.asarray(data.labels)
+            if not (m_labels.shape == d_labels.shape
+                    and bool(np.all(m_labels == d_labels))):
+                if sorted(map(str, m_labels.tolist())) != sorted(
+                        map(str, d_labels.tolist())):
+                    raise InvalidParameterError(
+                        "initial_model labels do not match the data set's "
+                        "labels (same points required for a warm start)!"
+                    )
+                # model files store the SVs class-grouped: the k-th
+                # occurrence of class c in data order is the k-th row of the
+                # model's class-c block (as in _warm_start_alpha)
+                realigned = np.zeros_like(sv_coef)
+                for lab in data.different_labels:
+                    realigned[np.flatnonzero(d_labels == lab)] = sv_coef[
+                        np.flatnonzero(m_labels == lab)]
+                sv_coef = realigned
+            aligned = (data, sv_coef, initial_model.class_order())
+            initial_model._oao_warm_aligned = aligned
+        _, sv_coef, order = aligned
+
+        labels_sorted = list(data.different_labels)
+        mi = order.index(labels_sorted[i])
+        mj = order.index(labels_sorted[j])
+        alpha0 = np.empty(len(rows), dtype=np.float64)
+        alpha0[is_first] = sv_coef[rows[is_first], oao.coef_column(mi, mj)]
+        alpha0[~is_first] = sv_coef[rows[~is_first], oao.coef_column(mj, mi)]
+        return -alpha0 if mi > mj else alpha0
+
+    def _fit_oao(self, data: DataSet, *, epsilon: float, max_iter: int,
+                 checkpoint_path: Optional[str], checkpoint_interval: int,
+                 sample_weight=None, initial_model: Optional[Model] = None) -> Model:
+        """One-vs-one multiclass fit: C(C-1)/2 pairwise LS-SVM machines
+        (plssvm_tpu's ``_fit_oao``).
+
+        Machine (i, j) trains on the rows of classes i and j only, class i
+        mapped to +1 (LIBSVM's convention), and the result is stored in
+        LIBSVM's multiclass layout (oao.py): sv_coef (n, C-1) and one rho
+        per machine in pair order.  ``_use_oao_batched`` decides between
+        the batched solve (``_fit_oao_batched``) and this loop, in which
+        each machine is a fit of its own through :meth:`fit`, so every path
+        of a binary fit applies per machine (the explicit solver under
+        ``automatic``, the ring with ``devices``, a checkpoint per machine
+        at ``{checkpoint_path}.pair{i}-{j}``).  On one device X is staged
+        there once, with a trailing zero row, and each machine gathers its
+        rows from it.
+        """
+        from . import oao
+
+        start = time.perf_counter()
+        params = self._params.copy()
+        if params.gamma.is_default():
+            params.gamma.value = 1.0 / data.num_features
+
+        C = data.num_different_labels
+        idx = data.mapper.map_labels(np.asarray(data.labels), dtype=np.int64)
+        X = np.asarray(data.data)
+        n = X.shape[0]
+        pairs = oao.class_pairs(C)
+        rows_list = [np.flatnonzero((idx == i) | (idx == j)) for (i, j) in pairs]
+        if self._use_oao_batched(pairs, rows_list, X, checkpoint_path):
+            return self._fit_oao_batched(
+                data, params, pairs, rows_list, idx, X, epsilon=epsilon,
+                max_iter=max_iter, sample_weight=sample_weight,
+                initial_model=initial_model, start=start)
+
+        sv_coef = np.zeros((n, C - 1), dtype=self.dtype)
+        rho = np.zeros(len(pairs), dtype=np.float64)
+        iters_per_machine = []
+        X_aug = self._with_zero_row(X) if self.devices is None else None
+        for m, ((i, j), rows) in enumerate(zip(pairs, rows_list)):
+            is_first = idx[rows] == i
+            # class i is the +1 side: machine (i, j) votes i when f > 0
+            y_pair = np.where(is_first, 1.0, -1.0)
+            sub = DataSet(X[rows], y_pair)
+            if X_aug is not None:
+                sub._device_rows = (X_aug, torch.as_tensor(rows, device=self.device))
+            warm_sub = None
+            if initial_model is not None:
+                alpha0 = self._oao_warm_pair_alpha(initial_model, data, rows, is_first,
+                                                   i, j)
+                warm_sub = Model(params, sub, alpha=alpha0.astype(self.dtype), rho=0.0)
+            sub_model = self.fit(
+                sub, epsilon=epsilon, max_iter=max_iter,
+                checkpoint_path=(None if checkpoint_path is None
+                                 else f"{checkpoint_path}.pair{i}-{j}"),
+                checkpoint_interval=checkpoint_interval,
+                sample_weight=None if sample_weight is None else sample_weight[rows],
+                initial_model=warm_sub,
+            )
+            oao.scatter_pair_alphas(sv_coef, rows, is_first,
+                                    np.asarray(sub_model.alpha, dtype=self.dtype), i, j)
+            rho[m] = float(sub_model.rho)
+            iters_per_machine.append(int(sub_model.n_iter or 0))
+        return self._oao_model(params, data, sv_coef, rho, iters_per_machine, start,
+                               "sequential")
+
+    def _oao_model(self, params, data: DataSet, sv_coef, rho, iters_per_machine,
+                   start: float, strategy: str) -> Model:
+        """The one-vs-one model of a fit, its log lines and its tracking
+        entries (``classification``, ``oao_strategy``,
+        ``iterations_per_machine``)."""
+        total_iters = int(sum(iters_per_machine))
+        total_ms = (time.perf_counter() - start) * 1000.0
+        if strategy == "batched":
+            # a sequential fit's machines logged their own
+            log(VerbosityLevel.LIBSVM, "optimization finished, #iter = {}\n", total_iters)
+        log(
+            VerbosityLevel.FULL | VerbosityLevel.TIMING,
+            "Solved {} one-vs-one machines ({} classes) in {:.2f}ms "
+            "({} CG iterations in total, {}).\n\n",
+            len(rho), data.num_different_labels, total_ms, total_iters,
+            "batched block CG" if strategy == "batched" else "one machine after another",
+        )
+        add_tracking_entry("cg", "classification", "oao")
+        add_tracking_entry("cg", "oao_strategy", strategy)
+        add_tracking_entry("cg", "iterations_per_machine", iters_per_machine)
+        add_tracking_entry("cg", "total_runtime", total_ms)
+        model = Model(params, data, alpha=sv_coef, rho=rho)
+        model.classification = ClassificationType.OAO
+        model.n_iter = total_iters
+        #: per-pair-machine CG iterations, in LIBSVM's machine order
+        model.n_iter_per_machine = iters_per_machine
+        return model
+
+    def _oao_batch_budget(self) -> int:
+        """Bytes of the (P_local, m_pad, d) operand stack per device that
+        ``oao_batch="auto"`` batches up to: ``OAO_BATCH_BUDGET_GB`` GiB, or
+        ``PLSSVM_TPU_TORCH_OAO_BATCH_BUDGET_GB``."""
+        gb = float(os.environ.get(OAO_BATCH_BUDGET_ENV, OAO_BATCH_BUDGET_GB))
+        return int(gb * (1 << 30))
+
+    def _use_oao_batched(self, pairs, rows_list, X, checkpoint_path) -> bool:
+        """Whether this one-vs-one fit runs the batched pairs solve
+        (plssvm_tpu's ``_use_oao_batched``).
+
+        ``oao_batch="batched"`` forces it and refuses a checkpoint (the
+        batched solve has no per-machine state file); ``"sequential"``
+        never; ``"auto"`` batches when there are at least two machines, no
+        checkpoint is asked for and the per-device stack of the machines'
+        rows, (ceil(P / devices), m_pad, d) with m_pad the largest
+        machine's dept, fits the budget.
+        """
+        if self.oao_batch == "sequential":
+            return False
+        if self.oao_batch == "batched":
+            if checkpoint_path is not None:
+                raise InvalidParameterError(
+                    "oao_batch='batched' cannot checkpoint per machine — "
+                    "use oao_batch='sequential' with checkpoint_path!"
+                )
+            return True
+        P = len(pairs)
+        if checkpoint_path is not None or P < 2:
+            return False
+        n_dev = 1 if self.devices is None else len(self.devices)
+        m_pad = max(len(r) - 1 for r in rows_list)
+        stack_bytes = -(-P // n_dev) * m_pad * X.shape[1] * self.dtype.itemsize
+        return stack_bytes <= self._oao_batch_budget()
+
+    def _fit_oao_batched(self, data, params, pairs, rows_list, idx, X, *,
+                         epsilon, max_iter, sample_weight, initial_model,
+                         start) -> Model:
+        """All C(C-1)/2 pair machines as one batched CG (plssvm_tpu's
+        ``_fit_oao_batched``).
+
+        X is staged on the device once, with a trailing zero row; each
+        machine's dept rows are gathered there into a (P, m_pad, d) stack,
+        m_pad the largest dept (no further padding: kernel O masks each
+        machine's edge), and ``solve_ls_svm_pairs`` iterates every machine
+        at once, each freezing at its own stop rule or cap.  With
+        ``devices`` the machines split over them
+        (``solve_ls_svm_pairs_sharded``), P padded to a multiple of the
+        device count with dummy machines (zero mask, weight 1), which
+        freeze at iteration 0.
+        """
+        from . import oao
+
+        C = data.num_different_labels
+        n, d = X.shape
+        P = len(pairs)
+        depts = np.asarray([len(r) - 1 for r in rows_list])
+        m_pad = int(depts.max())
+        n_dev = 1 if self.devices is None else len(self.devices)
+        P_pad = -(-P // n_dev) * n_dev
+
+        zero_row = n
+        idx_b = np.full((P_pad, m_pad), zero_row, dtype=np.int64)
+        yb = np.zeros((P_pad, m_pad), dtype=self.dtype)
+        maskb = np.zeros((P_pad, m_pad), dtype=self.dtype)
+        y_last_b = np.zeros((P_pad,), dtype=self.dtype)
+        last_idx = np.full((P_pad,), zero_row, dtype=np.int64)
+        # caps: fit() resolved max_iter=None to the parent's point count, as
+        # the sequential path's sub-fits receive it; dummy machines cap at 0
+        max_iter_b = np.zeros((P_pad,), dtype=np.int64)
+        max_iter_b[:P] = int(max_iter)
+        weights_b = weight_last_b = x_init_b = None
+        if sample_weight is not None:
+            weights_b = np.ones((P_pad, m_pad), dtype=self.dtype)
+            weight_last_b = np.ones((P_pad,), dtype=self.dtype)
+        if initial_model is not None:
+            x_init_b = np.zeros((P_pad, m_pad), dtype=self.dtype)
+        is_first_list = []
+        for p, ((i, j), rows) in enumerate(zip(pairs, rows_list)):
+            dept = len(rows) - 1
+            is_first = idx[rows] == i
+            is_first_list.append(is_first)
+            # class i is the +1 side: machine (i, j) votes i when f > 0
+            y_pair = np.where(is_first, 1.0, -1.0)
+            idx_b[p, :dept] = rows[:dept]
+            yb[p, :dept] = y_pair[:dept]
+            maskb[p, :dept] = 1.0
+            y_last_b[p] = y_pair[dept]
+            last_idx[p] = rows[dept]
+            if sample_weight is not None:
+                weights_b[p, :dept] = sample_weight[rows[:dept]]
+                weight_last_b[p] = sample_weight[rows[dept]]
+            if initial_model is not None:
+                x_init_b[p, :dept] = self._oao_warm_pair_alpha(
+                    initial_model, data, rows, is_first, i, j)[:dept]
+
+        kind = params.kernel_type.value
+        X_aug = self._with_zero_row(X)
+
+        def dev(a):
+            return None if a is None else torch.as_tensor(a, device=self.device)
+
+        args = (dev(yb), dev(y_last_b), dev(maskb), params.resolved_gamma(d),
+                params.coef0.value, params.cost.value, epsilon, dev(max_iter_b))
+        solve_kw = dict(kind=kind, degree=params.degree.value, impl=self._impl(),
+                        scalars=self.scalar_precision, preconditioner=self.preconditioner,
+                        debug=self.debug, x_init=dev(x_init_b), weights=dev(weights_b),
+                        weight_last=dev(weight_last_b))
+        if self.devices is not None:
+            result = solve_ls_svm_pairs_sharded(
+                X_aug, dev(idx_b), dev(last_idx), *args, devices=self.devices, **solve_kw)
+        else:
+            result = solve_ls_svm_pairs(
+                X_aug[dev(idx_b)], X_aug[dev(last_idx)], *args, **solve_kw)
+
+        # the dummy machines of the machine-axis split are trimmed here
+        x_sol = result.x[:P].cpu().numpy()
+        alpha_last = result.alpha_last[:P].cpu().numpy()
+        rho = result.rho[:P].cpu().numpy().astype(np.float64)
+        sv_coef = np.zeros((n, C - 1), dtype=self.dtype)
+        for p, ((i, j), rows) in enumerate(zip(pairs, rows_list)):
+            alpha_p = np.concatenate([x_sol[p, :depts[p]], [alpha_last[p]]]).astype(self.dtype)
+            oao.scatter_pair_alphas(sv_coef, rows, is_first_list[p], alpha_p, i, j)
+        iters_per_machine = [int(v) for v in result.iterations_per_pair[:P].cpu().tolist()]
+        # the loop's iterations (every machine's products in one launch each)
+        add_tracking_entry("cg", "block_iterations", int(result.iterations))
+        return self._oao_model(params, data, sv_coef, rho, iters_per_machine, start,
+                               "batched")
 
     def _params_repr_for_fingerprint(self, sample_weight) -> str:
         """The parameters in the checkpoint fingerprint, with a digest of
@@ -863,9 +1198,9 @@ class CSVM:
 
         reference: csvm.hpp:325-343 + gpu_csvm.hpp:656-730.
 
-        Binary models return shape (n_pred,); one-vs-all models (n_pred, C),
-        one decision column per class; one-vs-one models (n_pred,
-        C(C-1)/2), one column per pair machine in LIBSVM order
+        Binary and regression models return shape (n_pred,); one-vs-all
+        models (n_pred, C), one decision column per class; one-vs-one models
+        (n_pred, C(C-1)/2), one column per pair machine in LIBSVM order
         (:func:`plssvm_tpu_torch.oao.class_pairs`).
         """
         if model.num_features != data.num_features:
@@ -879,10 +1214,10 @@ class CSVM:
             and np.ndim(model.alpha) == 2
         ):
             return self._predict_values_oao(model, data)
-        if model.is_regression or model.is_one_class:
+        if model.is_one_class:
             raise NotPortedError(
-                "regression and one-class models are not ported yet (ROADMAP "
-                "Queue 1, item 7: regression and one-class)"
+                "one-class models are not ported yet (ROADMAP Queue 1, item 7: "
+                "one-class)"
             )
         params = model.params
         kind = params.kernel_type.value
@@ -964,8 +1299,11 @@ class CSVM:
         (operators.hpp:179-181).  Multiclass: argmax over the C one-vs-all
         decision columns, or pairwise voting for one-vs-one models
         (LIBSVM's svm_predict semantics, :func:`plssvm_tpu_torch.oao.vote`).
+        Regression (LS-SVR): the decision values themselves.
         """
         values = self.predict_values(model, data)
+        if model.is_regression:
+            return values
         if values.ndim == 2:
             # columns / machines follow the model's LAYOUT class order — the
             # file's label-header order for loaded models
@@ -985,7 +1323,9 @@ class CSVM:
         return labels_arr[(values > 0).astype(np.intp)]
 
     def score(self, model: Model, data: Optional[DataSet] = None) -> float:
-        """Classification accuracy (reference: csvm.hpp:345-375)."""
+        """Classification accuracy (reference: csvm.hpp:345-375); for a
+        regression model the coefficient of determination R^2 over the data
+        set's continuous targets (plssvm_tpu's, sklearn's ``SVR.score``)."""
         if data is None:
             data = model.data
         if not data.has_labels():
@@ -996,6 +1336,15 @@ class CSVM:
                 f"the number of features per support vector of the provided model "
                 f"({model.num_features})!"
             )
+        if model.is_regression:
+            targets = np.asarray(data.labels, dtype=np.float64)
+            values = np.asarray(self.predict_values(model, data), dtype=np.float64)
+            ss_res = float(np.sum((targets - values) ** 2))
+            ss_tot = float(np.sum((targets - targets.mean()) ** 2))
+            if ss_tot == 0.0:
+                # sklearn's r2_score rule for constant targets
+                return 1.0 if ss_res == 0.0 else 0.0
+            return 1.0 - ss_res / ss_tot
         predicted = self.predict(model, data)
         correct = int(np.sum(predicted == np.asarray(data.labels)))
         return correct / len(predicted)

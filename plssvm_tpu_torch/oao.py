@@ -1,7 +1,8 @@
-"""One-vs-one (OAO) multiclass prediction: the LIBSVM coefficient layout and
-pairwise voting.
+"""One-vs-one (OAO) multiclass machinery: the LIBSVM coefficient layout,
+the scatter of a trained pair machine into it, and pairwise voting.
 
-Counterpart of plssvm_tpu/oao.py (numpy only), with what prediction needs.
+Counterpart of plssvm_tpu/oao.py (numpy only), with what training and
+prediction need.
 The OAO model layout is the standard LIBSVM multiclass format, so model
 files written by LIBSVM's svm-train or by plssvm_tpu score here:
 
@@ -19,8 +20,9 @@ files written by LIBSVM's svm-train or by plssvm_tpu score here:
 
 Prediction never loops over machines: ``weight_matrix`` expands sv_coef into
 a dense (n_sv, n_machines) block, so all machines evaluate as one kernel
-matmat ``K(points, SV) @ W - rho`` (kernel D on the card).  Training the
-pair machines is not ported yet (ROADMAP Queue 1, item 6).
+matmat ``K(points, SV) @ W - rho`` (kernel D on the card).  Training
+(csvm.py ``_fit_oao``) solves each pair machine on its class-pair rows and
+writes its coefficients with :func:`scatter_pair_alphas`.
 """
 
 from __future__ import annotations
@@ -53,6 +55,24 @@ def coef_column(sv_class: int, other_class: int) -> int:
     if other_class == sv_class:
         raise ValueError("an SV has no machine against its own class")
     return other_class if other_class < sv_class else other_class - 1
+
+
+def scatter_pair_alphas(
+    sv_coef: np.ndarray,
+    rows: np.ndarray,
+    row_is_first: np.ndarray,
+    alpha: np.ndarray,
+    i: int,
+    j: int,
+) -> None:
+    """Write one pair machine's dual coefficients into the sv_coef block.
+
+    ``rows`` are the global row indices of the (i, j) subproblem in original
+    training order, ``row_is_first`` flags membership of class ``i`` (the +1
+    side), ``alpha`` is the subproblem's (n_ij,) solution.
+    """
+    sv_coef[rows[row_is_first], coef_column(i, j)] = alpha[row_is_first]
+    sv_coef[rows[~row_is_first], coef_column(j, i)] = alpha[~row_is_first]
 
 
 def weight_matrix(

@@ -131,6 +131,8 @@ _DMMA = re.compile(r"(gram_dmma_(?:sym|dual|rect))_kernelILi(\d)E")
 #: kernel N (kernel_matrix.cu), templates of the type, the stored type and
 #: the kind
 _MATRIX = re.compile(r"(kernel_matrix_(?:sym|rect))_kernelI([fd])([fd]|\d+__nv_bfloat16)Li(\d)E")
+#: kernel O (pairs.cu), templates of the type and the kind
+_PAIRS = re.compile(r"(pairs_matvec)_kernelI([fd])Li(\d)E")
 _KINDS = {"1": "poly", "2": "rbf", "3": "sigmoid", "4": "laplacian", "5": "chi_squared"}
 
 
@@ -152,6 +154,7 @@ def kernel_resources() -> Dict[str, Dict[str, int]]:
             dual = _DUAL.search(entry.group(1))
             dmma = _DMMA.search(entry.group(1))
             matrix = _MATRIX.search(entry.group(1))
+            pairs = _PAIRS.search(entry.group(1))
             name = None
             if short is not None:
                 # kernel I (banded_matvec) is laplacian only: no kind parameter
@@ -172,6 +175,9 @@ def kernel_resources() -> Dict[str, Dict[str, int]]:
                 stored = "bf16" if matrix.group(3).endswith("bfloat16") else None
                 name = (f"{matrix.group(1)} {'f32' if matrix.group(2) == 'f' else 'f64'} "
                         f"{_KINDS.get(matrix.group(4))}" + (f" {stored}" if stored else ""))
+            elif pairs is not None:
+                name = (f"{pairs.group(1)} {'f32' if pairs.group(2) == 'f' else 'f64'} "
+                        f"{_KINDS.get(pairs.group(3))}")
             elif dual is not None:
                 family = "gram" if dual.group(3) in "123" else "distance"
                 name = (f"{family}_{dual.group(1)}_dual "
@@ -304,6 +310,12 @@ def load() -> ctypes.CDLL:
         rect = getattr(lib, f"plssvm_kernel_matrix_rect_{suffix}")
         rect.argtypes = [ptr, ptr, ptr, i64, i64, i64, cint, real, cint, ptr]
         sym.restype = rect.restype = cint
+    for suffix, real in (("f32", f32), ("f64", f64)):
+        # kernel O: (Xb, sq_b, V, len, out, P, m_pad, d, kind, degree, gamma,
+        # coef0, stream)
+        fn = getattr(lib, f"plssvm_pairs_matvec_{suffix}")
+        fn.argtypes = [ptr] * 5 + [i64] * 3 + [cint, cint, real, real, ptr]
+        fn.restype = cint
     lib.plssvm_cuda_error_string.argtypes = [cint]
     lib.plssvm_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -40,6 +40,12 @@ machine, one shard per card on a machine with several.
   SV slice (B / D or F / H) and the partial decision values are summed in
   shard order.
 
+- **One-vs-one, batched** (:func:`solve_ls_svm_pairs_sharded`): the pair
+  machines are independent systems, so the split is over machines, not
+  rows: each device gathers and solves a contiguous group of them
+  (``solve_ls_svm_pairs``, kernel O), with no collectives: the reference's
+  ``build_sharded_pairs_solver`` on its machine mesh.
+
 The shards are P row ranges as equal as possible (:func:`shard_bounds`),
 with no padding and no mask: the kernels mask their own edges.
 """
@@ -60,9 +66,11 @@ from ..parameter import KernelFunctionType
 from ..solver.cg import (
     CGResult,
     MultiCGResult,
+    PairsCGResult,
     cg_ls_svm_core,
     cg_ls_svm_multi_core,
     compensated_sum,
+    solve_ls_svm_pairs,
 )
 from ..solver.explicit import explicit_product, kernel_matrix_block
 
@@ -449,3 +457,76 @@ def predict_values_sharded(
         ).to(home)
         total = part if total is None else total + part
     return total - rho
+
+
+def machine_groups(num_machines: int, num_devices: int) -> List[Tuple[int, int]]:
+    """The contiguous machine ranges ``[lo, hi)`` of the machine-axis split:
+    ``num_machines`` (a multiple of ``num_devices``, the caller pads with
+    dummy machines) in ``num_devices`` equal groups, the reference's
+    ``shard_pairs_arrays`` placement on its machine mesh."""
+    if num_devices < 1 or num_machines % num_devices:
+        raise ValueError(f"{num_machines} machines do not split into "
+                         f"{num_devices} equal groups")
+    size = num_machines // num_devices
+    return [(g * size, (g + 1) * size) for g in range(num_devices)]
+
+
+def solve_ls_svm_pairs_sharded(
+    X_aug: torch.Tensor,       # (n + 1, d) the parent rows and a zero row
+    idx_b: torch.Tensor,       # (P, m) each machine's parent rows (int64)
+    last_idx: torch.Tensor,    # (P,) each machine's folded-out last row
+    Yb: torch.Tensor,
+    y_last_b: torch.Tensor,
+    maskb: torch.Tensor,
+    gamma: float,
+    coef0: float,
+    cost: float,
+    eps: float,
+    max_iter_b: torch.Tensor,
+    *,
+    devices: Sequence,
+    x_init: Optional[torch.Tensor] = None,
+    weights: Optional[torch.Tensor] = None,
+    weight_last: Optional[torch.Tensor] = None,
+    **solve_kw,
+) -> PairsCGResult:
+    """The batched one-vs-one solve with the machine axis split over
+    ``devices``: the counterpart of ``build_sharded_pairs_solver``.
+
+    The P machines (a multiple of ``len(devices)``: the caller pads with
+    dummy machines of zero mask and weight 1, which freeze at iteration 0)
+    form ``len(devices)`` contiguous groups.  Each group's rows are gathered
+    on its device from the parent operand ``X_aug`` (copied once to each
+    physical device) and solved there by ``solve_ls_svm_pairs`` on the
+    group's machines alone, with no collectives; the groups run one after
+    another.  The per-machine results come back to the first device in
+    machine order, and ``iterations`` is the largest group's count (the
+    reference's ``pmax``).  Each machine's arithmetic is what it is on one
+    device; the CG scalars' row reductions run over (P_local, m) blocks.
+    ``solve_kw`` are ``solve_ls_svm_pairs``' ``kind``, ``degree``,
+    ``impl``, ``scalars``, ``preconditioner`` and ``debug``.
+    """
+    home = Yb.device
+    whole: dict = {}
+    results = []
+    for (lo, hi), dev in zip(machine_groups(Yb.shape[0], len(devices)), devices):
+        Xd = whole.setdefault(dev, X_aug.to(dev))
+
+        def local(t):
+            return None if t is None else t[lo:hi].to(dev)
+
+        results.append(solve_ls_svm_pairs(
+            Xd[idx_b[lo:hi].to(dev)], Xd[last_idx[lo:hi].to(dev)], local(Yb),
+            local(y_last_b), local(maskb), gamma, coef0, cost, eps, local(max_iter_b),
+            x_init=local(x_init), weights=local(weights), weight_last=local(weight_last),
+            **solve_kw))
+
+    def joined(field):
+        return torch.cat([getattr(res, field).to(home) for res in results])
+
+    return PairsCGResult(
+        x=joined("x"), rho=joined("rho"), alpha_last=joined("alpha_last"),
+        iterations=max(res.iterations for res in results),
+        iterations_per_pair=joined("iterations_per_pair"), delta=joined("delta"),
+        delta0=joined("delta0"),
+    )

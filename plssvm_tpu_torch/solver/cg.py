@@ -1,5 +1,6 @@
 """Matrix-free Conjugate Gradient solvers for the LS-SVM dual system: binary,
-and one-vs-all multiclass as one block CG.
+one-vs-all multiclass as one block CG, and the one-vs-one pair machines as
+one batched CG.
 
 Counterpart of plssvm_tpu/solver/cg.py.  Solves ``(K + I/C) a = y`` after
 the dimensionality reduction that folds the last data point into the system
@@ -47,6 +48,12 @@ which share the implicit matrix and differ only in their right-hand sides,
 as one block CG: each iteration applies ``K`` once to the (m, C) block of
 search directions, through kernel C (ops/gram_matmat.py).  The laplacian
 and chi-squared kernels take kernels E and G (ops/distance.py) instead.
+
+The one-vs-one solve (``solve_ls_svm_pairs``) runs the C(C-1)/2 pair
+machines, each an independent system over its own rows, as one batched CG
+with (P,) vectors of CG scalars: each iteration applies every machine's
+``K_p`` once through kernel O (ops/pairs.py), and a machine freezes at its
+own stop rule or cap.
 """
 
 from __future__ import annotations
@@ -64,6 +71,7 @@ from ..kernel_functions import (
 from ..ops.distance import distance_matmat_sym, distance_matvec_sym
 from ..ops.gram_matmat import gram_matmat_sym
 from ..ops.gram_matvec import gram_matvec_sym
+from ..ops.pairs import linear_pairs_matvec, pairs_matvec, pairs_matvec_plain
 from ..ops.matvec import (
     check_precision,
     distance_matmat_plain,
@@ -552,4 +560,224 @@ def solve_ls_svm_multi(
         kind=kind, degree=degree,
         kernel_mm=_make_kernel_matmat(kind, degree, impl, gram_precision),
         colsum=colsum, **extras,
+    )
+
+
+class PairsCGResult(NamedTuple):
+    """Batched pair-machine CG outputs (still padded per machine)."""
+
+    x: torch.Tensor            # (P, m) solutions over the padded dept axes
+    rho: torch.Tensor          # (P,) -bias per machine
+    alpha_last: torch.Tensor   # (P,) folded-out last alpha per machine
+    iterations: int            # block iterations run (= max over machines)
+    iterations_per_pair: torch.Tensor  # (P,) iterations each machine was active
+    delta: torch.Tensor        # (P,) final squared residual norms
+    delta0: torch.Tensor       # (P,) squared residual norms of the cold start
+
+
+def cg_ls_svm_pairs_core(
+    Xb: torch.Tensor,        # (P, m, d) per-machine rows (zero-padded)
+    x_last_b: torch.Tensor,  # (P, d) each machine's folded-out last point
+    Yb: torch.Tensor,        # (P, m) +-1 targets, 0 on padding
+    y_last_b: torch.Tensor,  # (P,) targets of the folded-out last points
+    maskb: torch.Tensor,     # (P, m) 1 on real rows, 0 on padding
+    gamma: float,
+    coef0: float,
+    cost: float,
+    eps: float,
+    max_iter_b: torch.Tensor,  # (P,) per-machine iteration caps
+    *,
+    kind: KernelFunctionType,
+    degree: int,
+    kernel_bmv: Callable,    # (Xb, sq_b, V, gamma, coef0) -> batched K_p @ v_p
+    bdot: Callable = None,   # per-machine dot: (P, m) x (P, m) -> (P,)
+    bsum: Callable = None,   # per-machine sum: (P, m) -> (P,)
+    preconditioner: str = "none",
+    x_init: Optional[torch.Tensor] = None,       # (P, m) warm-start block
+    weights: Optional[torch.Tensor] = None,      # (P, m) per-sample weights
+    weight_last: Optional[torch.Tensor] = None,  # (P,) folded-out last weights
+    debug: bool = False,
+) -> PairsCGResult:
+    """All C(C-1)/2 one-vs-one machines solved as one batched CG
+    (plssvm_tpu's ``cg_ls_svm_pairs_core``).
+
+    Each pair machine is an independent LS-SVM system over its own rows, so
+    every quantity carries a leading machine axis: data (P, m, d), the
+    kernel product a batched ``K_p @ v_p`` and the CG scalars (alpha_cd,
+    beta, delta, r.z) (P,) vectors.  Per machine the algorithm is the binary
+    core's: a machine freezes (its step and beta 0, its x and d kept) once
+    ``delta_p <= eps^2 delta0_p`` or at its own cap ``max_iter_b[p]``; the
+    every-50th exact residual applies to the whole block.  The loop syncs
+    with the host once per iteration, on whether any machine is active.
+    The extras are the binary core's, per machine: ``x_init`` with the stop
+    targets anchored to the cold start, the weighted diagonal, Jacobi and
+    the ``debug`` guards (plssvm_tpu's messages).
+    """
+    dtype = Xb.dtype
+    cost_inv = 1.0 / cost
+    if weights is None:
+        civ = cost_inv
+        civ_last = cost_inv
+    else:
+        civ = (torch.full_like(weights, cost_inv) / weights) * maskb
+        civ_last = cost_inv / weight_last
+    sq_b = torch.sum(Xb * Xb, dim=-1)  # (P, m)
+    if bdot is None:
+        def bdot(A, V):
+            return torch.sum(A * V, dim=1)
+    if bsum is None:
+        def bsum(V):
+            return torch.sum(V, dim=1)
+
+    # per-machine q / QA_cost (the reference's vmapped "q kernel")
+    q = torch.stack([
+        kernel_against_point(Xb[p], x_last_b[p], kind, gamma, coef0, degree)
+        for p in range(Xb.shape[0])
+    ]) * maskb
+    xl_sq = torch.sum(x_last_b * x_last_b, dim=-1)
+    QA_cost = kernel_self_diag(xl_sq, kind, gamma, coef0, degree) + civ_last  # (P,)
+
+    B = (Yb - y_last_b[:, None]) * maskb
+
+    def matvec(V):
+        s = bsum(V)
+        qv = bdot(q, V)
+        out = kernel_bmv(Xb, sq_b, V, gamma, coef0)
+        out = out + (QA_cost[:, None] - q) * s[:, None] - qv[:, None] + civ * V
+        return out * maskb
+
+    use_pcg = preconditioner == "jacobi"
+    if use_pcg:
+        k_diag = kernel_self_diag(sq_b, kind, gamma, coef0, degree)
+        minv = maskb / (k_diag + QA_cost[:, None] - 2.0 * q + civ)
+
+    ones = maskb.to(dtype)
+    if x_init is None:
+        x = ones
+        r = B - matvec(x)
+        delta = bdot(r, r)
+        delta0 = delta
+    else:
+        x = x_init.to(dtype) * maskb
+        r = B - matvec(x)
+        delta = bdot(r, r)
+        # the stop targets anchored to the cold start (see the binary core)
+        r_cold = B - matvec(ones)
+        delta0 = bdot(r_cold, r_cold)
+    d = minv * r if use_pcg else r
+    target = eps * eps * delta0
+    if debug:
+        _check_finite(torch.isfinite(delta), lambda:
+                      "initial pair-CG residuals contain non-finite values — the "
+                      "training data, labels or kernel parameters contain NaN/Inf")
+    rz = bdot(r, minv * r) if use_pcg else delta
+    max_iter_b = max_iter_b.to(device=Yb.device, dtype=torch.int64)
+    itpp = torch.zeros_like(max_iter_b)
+    one = torch.ones_like(delta)
+    zero = torch.zeros_like(delta)
+    it = 0
+
+    while True:
+        active = (delta > target) & (itpp < max_iter_b)
+        if not bool(active.any()):
+            break
+        Ad = matvec(d)
+        dAd = bdot(d, Ad)
+        alpha_cd = torch.where(active, rz / torch.where(active, dAd, one), zero)
+        x = x + alpha_cd[:, None] * d
+        if it % EXACT_RESIDUAL_INTERVAL == EXACT_RESIDUAL_INTERVAL - 1:
+            r = B - matvec(x)
+        else:
+            r = r - alpha_cd[:, None] * Ad
+        delta = bdot(r, r)
+        if debug:
+            _check_finite(torch.isfinite(alpha_cd), lambda:
+                          f"pair-CG step sizes contain non-finite values at iteration {it}")
+            _check_finite(torch.isfinite(delta), lambda:
+                          f"pair-CG residuals contain non-finite values at iteration {it}")
+            _check_finite(torch.isfinite(x), lambda:
+                          f"pair-CG iterate contains non-finite values at iteration {it}")
+        if use_pcg:
+            z = minv * r
+            rz_new = bdot(r, z)
+        else:
+            z = r
+            rz_new = delta
+        beta = torch.where(active, rz_new / rz, zero)
+        d = torch.where(active[:, None], beta[:, None] * d + z, d)
+        rz = rz_new
+        itpp = itpp + active
+        it += 1
+
+    alpha_sum = bsum(x)  # (P,)
+    bias = y_last_b + QA_cost * alpha_sum - bdot(q, x)
+    return PairsCGResult(
+        x=x, rho=-bias, alpha_last=-alpha_sum, iterations=it,
+        iterations_per_pair=itpp, delta=delta, delta0=delta0,
+    )
+
+
+def _make_pairs_matvec(kind: KernelFunctionType, degree: int, impl: str,
+                       lens: torch.Tensor) -> Callable:
+    """The batched product of the pairs solve over machines of ``lens``
+    real rows: ``impl="cuda"`` kernel O (ops/pairs.py; its plain version on
+    CPU tensors), ``"torch"`` the plain version, both at full precision;
+    the linear kernel the factored ``Xb (Xb^T v)`` (two ``torch.bmm``)."""
+    if kind == KernelFunctionType.LINEAR:
+        return lambda Xb, sq_b, V, gamma, coef0: linear_pairs_matvec(Xb, V)
+    product = pairs_matvec if impl == "cuda" else pairs_matvec_plain
+    sq_read = kind not in DISTANCE_KERNELS
+
+    def kv(Xb, sq_b, V, gamma, coef0):
+        return product(Xb, sq_b if sq_read else None, V, lens, kind=kind,
+                       gamma=gamma, coef0=coef0, degree=degree)
+
+    return kv
+
+
+def solve_ls_svm_pairs(
+    Xb: torch.Tensor,
+    x_last_b: torch.Tensor,
+    Yb: torch.Tensor,
+    y_last_b: torch.Tensor,
+    maskb: torch.Tensor,
+    gamma: float,
+    coef0: float,
+    cost: float,
+    eps: float,
+    max_iter_b: torch.Tensor,
+    *,
+    kind: KernelFunctionType,
+    degree: int,
+    impl: str = "torch",
+    scalars: str = "plain",
+    **extras,
+) -> PairsCGResult:
+    """The batched one-vs-one LS-SVM CG solve on the device that holds
+    ``Xb`` (plssvm_tpu's ``solve_ls_svm_pairs``).
+
+    Machine p's real rows are the first ``maskb[p].sum()`` of its block
+    (the mask is a prefix).  The product is kernel O on ``impl="cuda"``
+    (the plain version on CPU tensors and for ``"torch"``), at full
+    precision: the batched solve takes no Gram tier.
+    ``scalars="compensated"`` takes the per-machine dots and sums as
+    compensated folds over the transposed (m, P) blocks, one per machine
+    (plssvm_tpu's ``compensated_sum((A * V).T)``).  ``extras`` are the
+    core's ``preconditioner``, ``x_init``, ``weights`` / ``weight_last`` and
+    ``debug``.
+    """
+    lens = (maskb != 0).sum(dim=1).to(torch.int64)
+    if scalars == "compensated":
+        def bdot(A, V):
+            return compensated_sum((A * V).T)
+
+        def bsum(V):
+            return compensated_sum(V.T)
+    else:
+        bdot = bsum = None
+    return cg_ls_svm_pairs_core(
+        Xb, x_last_b, Yb, y_last_b, maskb, gamma, coef0, cost, eps, max_iter_b,
+        kind=kind, degree=degree,
+        kernel_bmv=_make_pairs_matvec(kind, degree, impl, lens),
+        bdot=bdot, bsum=bsum, **extras,
     )

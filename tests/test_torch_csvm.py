@@ -155,9 +155,21 @@ class TestNotPorted:
         return plssvm_tpu_torch.DataSet(X, np.arange(30) % n_classes)
 
     def test_multiclass_data(self):
-        """One-vs-all multiclass is ported; one-vs-one training is not."""
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 6"):
-            plssvm_tpu_torch.CSVM(device="cpu").fit(self._data(3), classification="oao")
+        """One-vs-all and one-vs-one multiclass are ported (ROADMAP Queue 1,
+        item 6): ``classification="oao"`` fits plssvm_tpu's one-vs-one model
+        (tests/test_torch_oao.py holds every strategy and layout)."""
+        data = self._data(3)
+        labels = np.asarray(data.labels)
+        got = plssvm_tpu_torch.CSVM(device="cpu", dtype=np.float64).fit(
+            data, classification="oao", epsilon=EPS)
+        want = plssvm_tpu.CSVM(backend="xla", dtype=np.float64).fit(
+            plssvm_tpu.DataSet(np.asarray(data.data), labels), classification="oao",
+            epsilon=EPS)
+        assert got.classification == plssvm_tpu_torch.ClassificationType.OAO
+        assert np.asarray(got.alpha).shape == (30, 2)
+        np.testing.assert_allclose(np.asarray(got.rho), np.asarray(want.rho), rtol=0, atol=TOL)
+        np.testing.assert_allclose(np.asarray(got.alpha), np.asarray(want.alpha), rtol=0,
+                                   atol=TOL)
 
     @pytest.mark.parametrize("kernel", ["laplacian", "chi_squared"])
     def test_distance_kernels(self, kernel):
@@ -264,9 +276,9 @@ class TestNotPorted:
 
     @pytest.mark.parametrize(
         "flags",
-        [["--multihost"], ["--cross_validation", "3"], ["--classification", "oao"],
+        [["--multihost"], ["--cross_validation", "3"], ["-s", "one_class"],
          ["--nystroem", "5"], ["--max_sv", "5"], ["--probability"],
-         ["--streaming"], ["--profile", "trace"], ["-s", "epsilon_svr"]],
+         ["--streaming"], ["--profile", "trace"]],
     )
     def test_cli_rejects(self, flags, tmp_path, capsys):
         train_file = os.path.join(tmp_path, "train.libsvm")
@@ -275,6 +287,21 @@ class TestNotPorted:
         assert t_train_cli.main(flags + ["-q", train_file, model]) == 1
         assert "not ported yet (ROADMAP" in capsys.readouterr().err
         assert not os.path.exists(model)
+
+    @pytest.mark.parametrize("flags,header", [
+        (["--classification", "oao"], "nr_class 3"),
+        (["-s", "epsilon_svr"], "svm_type epsilon_svr"),
+    ])
+    def test_cli_ported(self, flags, header, tmp_path):
+        """``--classification oao`` (item 6) and ``-s epsilon_svr`` (item
+        7's LS-SVR) are ported: the CLI writes the model
+        (tests/test_torch_oao.py and tests/test_torch_regression.py hold
+        both against plssvm_tpu's CLI)."""
+        train_file = os.path.join(tmp_path, "train.libsvm")
+        self._data(3).save(train_file)
+        model = os.path.join(tmp_path, "out.model")
+        assert t_train_cli.main(flags + ["-p", "cpu", "-q", train_file, model]) == 0
+        assert header in open(model).read()
 
 
 class TestAutomaticNeverMeansTheCpu:

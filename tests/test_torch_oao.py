@@ -1,0 +1,639 @@
+"""One-vs-one (OAO) training of the port against plssvm_tpu's, on the CPU.
+
+The sequential pair machines (each a binary fit through ``CSVM.fit``) and
+the batched pairs CG (``solver/cg.py::solve_ls_svm_pairs``, whose product
+is kernel O on the card and ``ops/pairs.py::pairs_matvec_plain`` here),
+with its machine axis split over ``devices=["cpu"] * k``, each held against
+``plssvm_tpu.CSVM(backend="xla", dtype=np.float64, oao_batch=...)`` on the
+same seeded sets: sv_coef, rho and the iterations per machine.  Tolerances:
+
+- float64 at epsilon 1e-10: the same iterations per machine, rho and
+  sv_coef within ``TOL`` = 1e-8 (the sets are ones where plssvm_tpu's own
+  sequential and batched fits agree on every machine's count: from x = 1 a
+  1e-15 change of the inputs can move a count by one, ROADMAP Queue 3 item
+  4);
+- the port's batched fit against its sequential one: 1e-8 as well (the
+  same algorithm per machine, the reductions in another order);
+- the machine-axis split against the one-device batched fit: ``SPLIT_TOL``
+  = 1e-12 (each machine's arithmetic is the same; only the CG scalars' row
+  reductions run over another block shape);
+- float32 (compensated scalars) at epsilon 1e-5: a working model (every
+  training label right on separable blobs), as plssvm_tpu's own test holds
+  it.
+
+The plain product is held against plssvm_tpu's vmapped XLA row-scan matvec
+(the batched solve's ``kernel_bmv``) for all five kinds at 1e-12.
+"""
+
+import ctypes
+import importlib.util
+import os
+import re
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import plssvm_tpu
+import plssvm_tpu_torch
+from plssvm_tpu import oao as j_oao
+from plssvm_tpu.cli import predict as j_predict_cli
+from plssvm_tpu.cli import train as j_train_cli
+from plssvm_tpu.parameter import KernelFunctionType as JKind
+from plssvm_tpu.solver.cg import _make_kernel_matvec as j_make_kernel_matvec
+from plssvm_tpu_torch import oao as t_oao
+from plssvm_tpu_torch.cli import predict as t_predict_cli
+from plssvm_tpu_torch.cli import train as t_train_cli
+from plssvm_tpu_torch.exceptions import InvalidParameterError, NumericCheckError
+from plssvm_tpu_torch.ops import _build, pairs
+from plssvm_tpu_torch.parameter import KernelFunctionType as TKind
+from test_multiclass import make_multiclass_blobs
+
+EPS = 1e-10
+TOL = 1e-8
+SPLIT_TOL = 1e-12
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def quiet():
+    plssvm_tpu_torch.set_verbosity("quiet")
+    plssvm_tpu.set_verbosity("quiet")
+
+
+def _svms(strategy, kernel="rbf", gamma=0.3, dtype=np.float64, **kw):
+    """(plssvm_tpu CSVM, port CSVM) with the same parameters."""
+    params = dict(kernel_type=kernel, oao_batch=strategy, **kw)
+    if gamma is not None and kernel != "linear":
+        params["gamma"] = gamma
+    return (plssvm_tpu.CSVM(backend="xla", dtype=dtype, **params),
+            plssvm_tpu_torch.CSVM(device="cpu", dtype=dtype, **params))
+
+
+def _fit_both(X, y, strategy, kernel="rbf", gamma=0.3, svm_kw=None, **fit_kw):
+    j_svm, t_svm = _svms(strategy, kernel, gamma, **(svm_kw or {}))
+    want = j_svm.fit(plssvm_tpu.DataSet(X, y), classification="oao", epsilon=EPS, **fit_kw)
+    got = t_svm.fit(plssvm_tpu_torch.DataSet(X, y), classification="oao", epsilon=EPS,
+                    **fit_kw)
+    return t_svm, got, want
+
+
+def _assert_same_model(got, want, tol=TOL, iterations=True):
+    assert got.classification == plssvm_tpu_torch.ClassificationType.OAO
+    assert np.asarray(got.alpha).shape == np.asarray(want.alpha).shape
+    np.testing.assert_allclose(np.asarray(got.rho), np.asarray(want.rho), rtol=0, atol=tol)
+    np.testing.assert_allclose(np.asarray(got.alpha), np.asarray(want.alpha), rtol=0,
+                               atol=tol)
+    if iterations:
+        assert got.n_iter_per_machine == want.n_iter_per_machine
+        assert got.n_iter == want.n_iter
+
+
+def _unbalanced(seed, sizes=(10, 40, 110), d=5):
+    rng = np.random.default_rng(seed)
+    X = np.vstack([rng.normal(loc=3.0 * c, size=(s, d)) for c, s in enumerate(sizes)])
+    y = np.concatenate([np.full(s, c) for c, s in enumerate(sizes)])
+    return X, y
+
+
+class TestPairLayout:
+    def test_scatter_pair_alphas_is_the_reference(self):
+        rng = np.random.default_rng(0)
+        idx = rng.integers(0, 4, 40)
+        for i, j in t_oao.class_pairs(4):
+            rows = np.flatnonzero((idx == i) | (idx == j))
+            is_first = idx[rows] == i
+            alpha = rng.normal(size=len(rows))
+            got, want = np.zeros((40, 3)), np.zeros((40, 3))
+            t_oao.scatter_pair_alphas(got, rows, is_first, alpha, i, j)
+            j_oao.scatter_pair_alphas(want, rows, is_first, alpha, i, j)
+            np.testing.assert_array_equal(got, want)
+
+    def test_scatter_then_weight_matrix_round_trip(self):
+        rng = np.random.default_rng(1)
+        idx = np.repeat(np.arange(3), 5)
+        sv_coef = np.zeros((15, 2))
+        machines = {}
+        for m, (i, j) in enumerate(t_oao.class_pairs(3)):
+            rows = np.flatnonzero((idx == i) | (idx == j))
+            machines[m] = (rows, rng.normal(size=len(rows)))
+            t_oao.scatter_pair_alphas(sv_coef, rows, idx[rows] == i, machines[m][1], i, j)
+        W = t_oao.weight_matrix(sv_coef, idx, 3)
+        for m, (rows, alpha) in machines.items():
+            np.testing.assert_array_equal(W[rows, m], alpha)
+
+
+# -- the batched product's plain version ------------------------------------
+
+KINDS = [("polynomial", 1.0), ("rbf", 0.0), ("sigmoid", -0.5), ("laplacian", 0.0),
+         ("chi_squared", 0.0)]
+
+
+@pytest.mark.parametrize("name,coef0", KINDS)
+@pytest.mark.parametrize("lens", [(7, 0, 13, 1), (20, 20)])
+def test_pairs_matvec_plain_against_the_reference(name, coef0, lens):
+    """``pairs_matvec_plain`` against plssvm_tpu's vmapped XLA row-scan
+    matvec, on zero-padded machines with a zero right-hand side past each
+    machine's rows (as the pairs CG gives it): 1e-12 of max|reference| on
+    the real rows, exactly 0 past them."""
+    rng = np.random.default_rng(len(lens))
+    P, m_pad, d = len(lens), max(lens), 6
+    mask = np.arange(m_pad)[None, :] < np.asarray(lens)[:, None]
+    X = rng.random((P, m_pad, d)) if name == "chi_squared" else rng.normal(size=(P, m_pad, d))
+    X = X * mask[..., None]
+    V = rng.normal(size=(P, m_pad)) * mask
+    sq = (X * X).sum(-1)
+    kv = j_make_kernel_matvec(getattr(JKind, name.upper()), 3, "xla", 8)
+    want = np.asarray(jax.vmap(kv, in_axes=(0, 0, 0, None, None))(
+        jnp.asarray(X), jnp.asarray(sq), jnp.asarray(V), 0.2, coef0)) * mask
+    before = pairs.plain_calls
+    got = pairs.pairs_matvec_plain(
+        torch.as_tensor(X), torch.as_tensor(sq), torch.as_tensor(V),
+        torch.as_tensor(lens, dtype=torch.int64), kind=getattr(TKind, name.upper()),
+        gamma=0.2, coef0=coef0, degree=3).numpy()
+    assert pairs.plain_calls == before + 1
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
+    assert np.all(got[~mask] == 0.0)
+
+
+def test_linear_pairs_matvec_against_the_reference():
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(3, 9, 4))
+    X[1, 5:] = 0.0
+    V = rng.normal(size=(3, 9))
+    V[1, 5:] = 0.0
+    kv = j_make_kernel_matvec(JKind.LINEAR, 3, "xla", 8)
+    want = np.asarray(jax.vmap(kv, in_axes=(0, 0, 0, None, None))(
+        jnp.asarray(X), jnp.asarray((X * X).sum(-1)), jnp.asarray(V), 0.0, 0.0))
+    got = pairs.linear_pairs_matvec(torch.as_tensor(X), torch.as_tensor(V)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
+
+
+def test_pairs_matvec_takes_the_plain_version_only_on_the_cpu():
+    """On CPU tensors the wrapper calls the plain version and launches
+    nothing; the linear kernel is refused (its product is two bmm calls)."""
+    X = torch.rand(2, 5, 3, dtype=torch.float64)
+    V = torch.rand(2, 5, dtype=torch.float64)
+    lens = torch.tensor([5, 3])
+    pairs.reset_counts()
+    out = pairs.pairs_matvec(X, None, V, lens, kind=TKind.LAPLACIAN, gamma=0.5,
+                             coef0=0.0, degree=3)
+    assert (pairs.launches, pairs.plain_calls) == (0, 1)
+    assert out.shape == (2, 5) and bool((out[1, 3:] == 0).all())
+    with pytest.raises(ValueError, match="linear"):
+        pairs.pairs_matvec(X, None, V, lens, kind=TKind.LINEAR, gamma=0.5, coef0=0.0,
+                           degree=3)
+
+
+def test_pairs_entry_points_argtypes_match_the_source(monkeypatch):
+    """What _build.load() declares for kernel O's entry points is their C
+    signature, parameter by parameter."""
+    c_types = {"int64_t": ctypes.c_int64, "int": ctypes.c_int, "float": ctypes.c_float,
+               "double": ctypes.c_double}
+    source = open(os.path.join(REPO, "plssvm_tpu_torch", "csrc", "pairs.cu")).read()
+
+    class FakeLibrary:
+        def __getattr__(self, attr):
+            fn = types.SimpleNamespace()
+            setattr(self, attr, fn)
+            return fn
+
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "build", lambda: (None, 0.0))
+    monkeypatch.setattr(ctypes, "CDLL", lambda path: FakeLibrary())
+    lib = _build.load()
+    for suffix in ("f32", "f64"):
+        name = f"plssvm_pairs_matvec_{suffix}"
+        params = re.search(rf'extern "C" int {name}\(([^)]*)\)', source).group(1)
+        want = [ctypes.c_void_p if "*" in p else c_types[p.split()[-2]]
+                for p in (" ".join(q.split()) for q in params.split(","))]
+        assert getattr(lib, name).argtypes == want
+        assert getattr(lib, name).restype == ctypes.c_int
+
+
+def test_kernel_resources_names_kernel_o(monkeypatch, tmp_path):
+    """ptxas's report of kernel O's instantiations reads as
+    ``pairs_matvec f32 rbf`` / ``pairs_matvec f64 chi_squared``."""
+    library = tmp_path / "libplssvm_gram_test.so"
+    (tmp_path / (library.name + ".ptxas.txt")).write_text(
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_119pairs_matvec_kernelIfLi2EEEvPKT_S3_S3_PKlPS1_llS1_S1_' "
+        "for 'sm_90a'\n"
+        "ptxas info    : Used 96 registers, 16896 bytes smem, 0 bytes spill stores, "
+        "0 bytes spill loads\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_119pairs_matvec_kernelIdLi5EEEvPKT_S3_S3_PKlPS1_llS1_S1_' "
+        "for 'sm_90a'\n"
+        "ptxas info    : 8 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 128 registers, 16640 bytes smem\n")
+    monkeypatch.setattr(_build, "library_path", lambda: library)
+    res = _build.kernel_resources()
+    assert res["pairs_matvec f32 rbf"] == {"registers": 96, "smem_bytes": 16896,
+                                           "spill_bytes": 0}
+    assert res["pairs_matvec f64 chi_squared"] == {"registers": 128, "smem_bytes": 16640,
+                                                   "spill_bytes": 16}
+
+
+# -- the fits ---------------------------------------------------------------
+
+#: per kernel, a seed of ``test_every_kernel``'s blobs where plssvm_tpu's
+#: sequential and batched fits agree on every machine's iterations (12 for
+#: the others)
+KERNEL_SEED = {"linear": 1, "sigmoid": 2}
+
+
+class TestOAOFit:
+    """plssvm_tpu's TestOAOFit, each fit held against plssvm_tpu's."""
+
+    def _fit(self, C=4, n=100, d=6, kernel="rbf", strategy="sequential", seed=5):
+        X, y = make_multiclass_blobs(n, d, n_classes=C, seed=seed)
+        t_svm, got, want = _fit_both(X, y, strategy, kernel,
+                                     0.3 if kernel != "linear" else None)
+        return t_svm, got, want, X, y
+
+    @pytest.mark.parametrize("strategy", ["sequential", "batched"])
+    def test_shapes_and_the_reference_model(self, strategy):
+        t_svm, got, want, X, y = self._fit(strategy=strategy)
+        assert np.asarray(got.alpha).shape == (100, 3)
+        assert np.asarray(got.rho).shape == (6,)
+        assert got.n_iter > 0
+        _assert_same_model(got, want)
+        assert t_svm.score(got) == 1.0
+
+    def test_decision_values_match_per_pair_golden(self):
+        t_svm, model, _, X, y = self._fit(C=3, n=45, d=4, seed=1)
+        idx = model.data.mapper.map_labels(np.asarray(model.data.labels), dtype=np.int64)
+        pts = X[:9]
+        vals = t_svm.predict_values(model, plssvm_tpu_torch.DataSet(pts))
+        assert vals.shape == (9, 3)
+        K = np.exp(-0.3 * ((pts[:, None, :] - np.asarray(model.data.data)[None]) ** 2).sum(-1))
+        svc, rho = np.asarray(model.alpha), np.asarray(model.rho)
+        for m, (i, j) in enumerate(t_oao.class_pairs(3)):
+            coef = np.zeros(len(idx))
+            coef[idx == i] = svc[idx == i, t_oao.coef_column(i, j)]
+            coef[idx == j] = svc[idx == j, t_oao.coef_column(j, i)]
+            np.testing.assert_allclose(vals[:, m], K @ coef - rho[m], rtol=1e-8, atol=1e-10)
+
+    @pytest.mark.parametrize("strategy", ["sequential", "batched"])
+    def test_pair_machine_equals_standalone_binary_fit(self, strategy):
+        """Machine (i, j) is the binary LS-SVM on classes i and j: the same
+        solve for the sequential loop, TOL for the batched one."""
+        X, y = make_multiclass_blobs(45, 4, n_classes=3, seed=1)
+        _, t_svm = _svms(strategy)
+        model = t_svm.fit(plssvm_tpu_torch.DataSet(X, y), classification="oao", epsilon=EPS)
+        idx = model.data.mapper.map_labels(np.asarray(model.data.labels), dtype=np.int64)
+        i, j = 0, 2
+        m = t_oao.class_pairs(3).index((i, j))
+        rows = np.flatnonzero((idx == i) | (idx == j))
+        binary = t_svm.fit(plssvm_tpu_torch.DataSet(
+            np.asarray(model.data.data)[rows], np.where(idx[rows] == i, 1.0, -1.0)),
+            epsilon=EPS)
+        tol = 1e-12 if strategy == "sequential" else TOL
+        assert abs(float(binary.rho) - np.asarray(model.rho)[m]) <= tol
+        svc = np.asarray(model.alpha)
+        got = np.where(idx[rows] == i, svc[rows, t_oao.coef_column(i, j)],
+                       svc[rows, t_oao.coef_column(j, i)])
+        np.testing.assert_allclose(got, np.asarray(binary.alpha), rtol=0, atol=tol)
+        assert model.n_iter_per_machine[m] == binary.n_iter
+
+    @pytest.mark.parametrize("strategy", ["sequential", "batched"])
+    def test_float32_oao(self, strategy):
+        """float32 with compensated scalars: every training label right, as
+        plssvm_tpu's float32 fit."""
+        X, y = make_multiclass_blobs(45, 4, n_classes=3, seed=13)
+        j_svm, t_svm = _svms(strategy, dtype=np.float32)
+        assert t_svm.scalar_precision == "compensated"
+        model = t_svm.fit(plssvm_tpu_torch.DataSet(X.astype(np.float32), y),
+                          classification="oao", epsilon=1e-5)
+        want = j_svm.fit(plssvm_tpu.DataSet(X.astype(np.float32), y), classification="oao",
+                         epsilon=1e-5)
+        assert np.asarray(model.alpha).dtype == np.float32
+        assert t_svm.score(model) == 1.0
+        np.testing.assert_allclose(np.asarray(model.rho), np.asarray(want.rho), rtol=0,
+                                   atol=1e-3)
+
+    @pytest.mark.parametrize("kernel", ["laplacian", "chi_squared", "linear", "polynomial",
+                                        "sigmoid"])
+    @pytest.mark.parametrize("strategy", ["sequential", "batched"])
+    def test_every_kernel(self, kernel, strategy):
+        X, y = make_multiclass_blobs(45, 4, n_classes=3, seed=KERNEL_SEED.get(kernel, 12))
+        X = np.abs(X) if kernel == "chi_squared" else X / 4.0
+        gamma = {"linear": None, "polynomial": 0.3, "sigmoid": 0.05}.get(kernel, 0.2)
+        t_svm, got, want = _fit_both(X, y, strategy, kernel, gamma)
+        _assert_same_model(got, want)
+        assert t_svm.score(got) == 1.0
+
+    def test_binary_data_ignores_classification(self):
+        X, y = make_multiclass_blobs(40, 4, n_classes=2, seed=2)
+        _, t_svm = _svms("auto")
+        m_oao = t_svm.fit(plssvm_tpu_torch.DataSet(X, y), classification="oao", epsilon=EPS)
+        m_def = t_svm.fit(plssvm_tpu_torch.DataSet(X, y), epsilon=EPS)
+        assert np.asarray(m_oao.alpha).ndim == 1
+        np.testing.assert_array_equal(np.asarray(m_oao.alpha), np.asarray(m_def.alpha))
+
+    def test_model_file_round_trip(self, tmp_path):
+        """The port's OAO model file equals plssvm_tpu's line for line
+        (header, rho and sv_coef to the writer's digits) and predicts the
+        same labels when loaded."""
+        t_svm, got, want, X, y = self._fit(C=3, n=45, d=4, seed=1)
+        t_path, j_path = str(tmp_path / "t.model"), str(tmp_path / "j.model")
+        got.save(t_path)
+        want.save(j_path)
+        t_lines = [ln for ln in open(t_path) if not ln.startswith("#")]
+        j_lines = [ln for ln in open(j_path) if not ln.startswith("#")]
+        assert t_lines[:6] == j_lines[:6]  # svm_type .. nr_class, total_sv
+        loaded = plssvm_tpu_torch.Model.load(t_path)
+        assert loaded.classification == plssvm_tpu_torch.ClassificationType.OAO
+        np.testing.assert_array_equal(t_svm.predict(loaded, plssvm_tpu_torch.DataSet(X)), y)
+
+
+class TestOAOBatched:
+    """plssvm_tpu's TestOAOBatched: the batched pairs CG against the
+    sequential machines, both packages."""
+
+    def _parity(self, X, y, kernel="rbf", gamma=0.3, **fit_kw):
+        """The port's batched fit against plssvm_tpu's batched one and
+        against the port's sequential one."""
+        t_svm, bat, want = _fit_both(X, y, "batched", kernel, gamma, **fit_kw)
+        _assert_same_model(bat, want)
+        _, seq, _ = _fit_both(X, y, "sequential", kernel, gamma, **fit_kw)
+        _assert_same_model(bat, seq)
+        return bat
+
+    def test_parity_rbf(self):
+        self._parity(*make_multiclass_blobs(100, 6, n_classes=4, seed=5))
+
+    def test_parity_linear(self):
+        self._parity(*make_multiclass_blobs(80, 5, n_classes=3, seed=22), kernel="linear",
+                     gamma=None)
+
+    def test_parity_distance_kernel(self):
+        X, y = make_multiclass_blobs(60, 4, n_classes=3, seed=23)
+        self._parity(np.abs(X), y, kernel="laplacian", gamma=0.2)
+
+    def test_parity_unbalanced_classes(self):
+        """Machines of 10 + 40, 10 + 110 and 40 + 110 rows: the padded block
+        perturbs no small machine, and each stops at its own count."""
+        model = self._parity(*_unbalanced(seed=18))
+        assert len(set(model.n_iter_per_machine)) > 1
+
+    def test_parity_weighted(self):
+        X, y = make_multiclass_blobs(75, 5, n_classes=3, seed=25)
+        sw = np.random.default_rng(25).uniform(0.5, 2.0, size=len(y))
+        self._parity(X, y, sample_weight=sw)
+
+    def test_per_machine_iteration_caps(self):
+        X, y = make_multiclass_blobs(90, 6, n_classes=3, seed=26)
+        model = self._parity(X, y, max_iter=3)
+        assert model.n_iter_per_machine == [3, 3, 3]
+
+    def test_jacobi_preconditioner(self):
+        X, y = make_multiclass_blobs(60, 4, n_classes=3, seed=2)
+        t_svm, got, want = _fit_both(X, y, "batched", svm_kw=dict(preconditioner="jacobi"))
+        _assert_same_model(got, want)
+        _, plain, _ = _fit_both(X, y, "batched")
+        np.testing.assert_allclose(np.asarray(got.rho), np.asarray(plain.rho), rtol=0,
+                                   atol=1e-6)
+
+    def test_auto_picks_batched_and_tracks(self):
+        X, y = make_multiclass_blobs(60, 4, n_classes=3, seed=27)
+        _, t_svm = _svms("auto")
+        assert t_svm.oao_batch == "auto"
+        plssvm_tpu_torch.global_tracker.clear()
+        t_svm.fit(plssvm_tpu_torch.DataSet(X, y), classification="oao", epsilon=1e-8)
+        cg = dict(plssvm_tpu_torch.global_tracker.entries()["cg"])
+        assert cg["oao_strategy"] == "batched"
+        assert cg["classification"] == "oao"
+        assert len(cg["iterations_per_machine"]) == 3
+
+    @pytest.mark.parametrize("budget,batched", [("0", False), ("0.5", True)])
+    def test_auto_respects_budget_env(self, monkeypatch, budget, batched):
+        monkeypatch.setenv("PLSSVM_TPU_TORCH_OAO_BATCH_BUDGET_GB", budget)
+        X, y = make_multiclass_blobs(60, 4, n_classes=3, seed=28)
+        _, t_svm = _svms("auto")
+        plssvm_tpu_torch.global_tracker.clear()
+        t_svm.fit(plssvm_tpu_torch.DataSet(X, y), classification="oao", epsilon=1e-8)
+        cg = dict(plssvm_tpu_torch.global_tracker.entries()["cg"])
+        assert (cg["oao_strategy"] == "batched") == batched
+
+    def test_auto_selects_as_the_reference_does(self):
+        """The stack's bytes against the 2 GiB budget, per device: a stack
+        of 2.01 GiB goes sequential, as plssvm_tpu's rule sends it."""
+        _, t_svm = _svms("auto")
+        pairs_ = t_oao.class_pairs(3)
+        rows = [np.arange(1 + (1 << 20))] * 3
+        X = np.zeros((4, 180))
+        assert t_svm._use_oao_batched(pairs_, rows, X, None) == (3 * (1 << 20) * 180 * 8
+                                                                 <= 2 << 30)
+        assert not t_svm._use_oao_batched(pairs_, [np.arange(3)] * 3, X, "ck")
+        assert not t_svm._use_oao_batched(pairs_[:1], [np.arange(3)], X, None)
+
+    def test_forced_batched_rejects_checkpointing(self, tmp_path):
+        X, y = make_multiclass_blobs(45, 4, n_classes=3, seed=29)
+        _, t_svm = _svms("batched")
+        with pytest.raises(InvalidParameterError, match="checkpoint"):
+            t_svm.fit(plssvm_tpu_torch.DataSet(X, y), classification="oao",
+                      checkpoint_path=str(tmp_path / "ck"))
+
+    def test_invalid_strategy_rejected(self):
+        with pytest.raises(InvalidParameterError, match="oao_batch"):
+            plssvm_tpu_torch.CSVM(device="cpu", oao_batch="nope")
+
+    def test_batched_f32_compensated(self):
+        X, y = make_multiclass_blobs(60, 4, n_classes=3, seed=30)
+        _, t_svm = _svms("batched", dtype=np.float32)
+        assert t_svm.scalar_precision == "compensated"
+        model = t_svm.fit(plssvm_tpu_torch.DataSet(X.astype(np.float32), y),
+                          classification="oao", epsilon=1e-5)
+        assert t_svm.score(model) == 1.0
+
+    @pytest.mark.parametrize("strategy", ["sequential", "batched"])
+    def test_warm_start_from_the_reference_model_takes_no_iteration(self, strategy):
+        """The reference's converged OAO model, carried across with
+        ``model_from_numpy``, warm-starts every machine of the port's fit at
+        its solution: zero iterations, the same model."""
+        X, y = make_multiclass_blobs(60, 4, n_classes=3, seed=31)
+        j_svm, t_svm = _svms(strategy)
+        j_model = j_svm.fit(plssvm_tpu.DataSet(X, y), classification="oao", epsilon=EPS)
+        carried = plssvm_tpu_torch.model_from_numpy(
+            j_model.params, j_model.support_vectors, j_model.alpha, j_model.rho,
+            j_model.data.labels, classification=j_model.classification)
+        got = t_svm.fit(plssvm_tpu_torch.DataSet(X, y), classification="oao", epsilon=EPS,
+                        initial_model=carried)
+        assert got.n_iter == 0 and got.n_iter_per_machine == [0, 0, 0]
+        _assert_same_model(got, j_model, iterations=False)
+
+    def test_warm_start_from_a_loaded_file_with_unsorted_labels(self, tmp_path):
+        """A warm start from the port's own model file (support vectors
+        class-grouped, labels re-aligned) takes no iteration either."""
+        X, y = make_multiclass_blobs(60, 4, n_classes=3, seed=31, labels=[7, 2, 5])
+        _, t_svm = _svms("batched")
+        data = plssvm_tpu_torch.DataSet(X, y)
+        model = t_svm.fit(data, classification="oao", epsilon=EPS)
+        model.save(str(tmp_path / "m.model"))
+        loaded = plssvm_tpu_torch.Model.load(str(tmp_path / "m.model"))
+        warm = t_svm.fit(data, classification="oao", epsilon=EPS, initial_model=loaded)
+        assert warm.n_iter == 0
+
+    def test_warm_start_refuses_a_one_vs_all_model(self):
+        X, y = make_multiclass_blobs(45, 4, n_classes=3, seed=31)
+        _, t_svm = _svms("batched")
+        data = plssvm_tpu_torch.DataSet(X, y)
+        oaa = t_svm.fit(data, epsilon=1e-4)
+        with pytest.raises(InvalidParameterError, match="one-vs-one model of 3 classes"):
+            t_svm.fit(data, classification="oao", initial_model=oaa)
+
+    @pytest.mark.parametrize("strategy", ["sequential", "batched"])
+    def test_debug_guard(self, strategy):
+        """``debug=True`` raises on a non-finite input with plssvm_tpu's
+        message; a clean fit is unchanged."""
+        X, y = make_multiclass_blobs(45, 4, n_classes=3, seed=33)
+        _, t_svm = _svms(strategy, debug=True)
+        clean = t_svm.fit(plssvm_tpu_torch.DataSet(X, y), classification="oao", epsilon=EPS)
+        _, plain_svm = _svms(strategy)
+        same = plain_svm.fit(plssvm_tpu_torch.DataSet(X, y), classification="oao",
+                             epsilon=EPS)
+        np.testing.assert_array_equal(np.asarray(clean.alpha), np.asarray(same.alpha))
+        X[3, 1] = np.nan
+        match = ("initial pair-CG residuals contain non-finite" if strategy == "batched"
+                 else "non-finite")
+        with pytest.raises(NumericCheckError, match=match):
+            t_svm.fit(plssvm_tpu_torch.DataSet(X, y), classification="oao", epsilon=EPS)
+
+    def test_sequential_checkpoints_per_machine(self, tmp_path):
+        """The sequential strategy checkpoints each machine to
+        ``{path}.pair{i}-{j}``, removes the files when done, and equals the
+        fit without checkpoints."""
+        X, y = make_multiclass_blobs(60, 4, n_classes=3, seed=34)
+        _, t_svm = _svms("auto")
+        path = str(tmp_path / "ck")
+        plssvm_tpu_torch.global_tracker.clear()
+        got = t_svm.fit(plssvm_tpu_torch.DataSet(X, y), classification="oao", epsilon=EPS,
+                        checkpoint_path=path, checkpoint_interval=3)
+        assert dict(plssvm_tpu_torch.global_tracker.entries()["cg"])["oao_strategy"] == \
+            "sequential"
+        assert not [f for f in os.listdir(tmp_path) if f.startswith("ck")]
+        want = _svms("sequential")[1].fit(plssvm_tpu_torch.DataSet(X, y),
+                                          classification="oao", epsilon=EPS)
+        _assert_same_model(got, want, tol=1e-12)
+
+
+class TestOAOMeshBatched:
+    """plssvm_tpu's TestOAOMeshBatched with ``devices=["cpu"] * k``: the
+    batched solve's machine axis split over k entries, 28 machines (8
+    classes), not a multiple of k = 3, so dummy machines pad it."""
+
+    def _data(self, C=8, n=320, d=10, seed=5):
+        rng = np.random.default_rng(seed)
+        centers = rng.normal(scale=3.0, size=(C, d))
+        y = rng.integers(0, C, size=n)
+        y[:C] = np.arange(C)
+        return rng.normal(size=(n, d)) + centers[y], y
+
+    def _fit(self, strategy, devices=None, **fit_kw):
+        X, y = self._data()
+        where = dict(device="cpu") if devices is None else dict(devices=devices)
+        svm = plssvm_tpu_torch.CSVM(dtype=np.float64, kernel_type="rbf", gamma=0.2, cost=2.0,
+                                    oao_batch=strategy, **where)
+        return svm, svm.fit(plssvm_tpu_torch.DataSet(X, y), classification="oao",
+                            epsilon=1e-8, **fit_kw)
+
+    @pytest.mark.parametrize("k", [2, 3, 4])
+    def test_split_matches_single_device_batched(self, k):
+        plssvm_tpu_torch.global_tracker.clear()
+        _, split = self._fit("batched", ["cpu"] * k)
+        assert dict(plssvm_tpu_torch.global_tracker.entries()["cg"])["oao_strategy"] == \
+            "batched"
+        _, one = self._fit("batched")
+        _assert_same_model(split, one, tol=SPLIT_TOL)
+
+    def test_split_matches_the_reference(self):
+        X, y = self._data()
+        want = plssvm_tpu.CSVM(backend="xla", dtype=np.float64, kernel_type="rbf", gamma=0.2,
+                               cost=2.0, oao_batch="batched").fit(
+            plssvm_tpu.DataSet(X, y), classification="oao", epsilon=1e-8)
+        _, got = self._fit("batched", ["cpu"] * 3)
+        _assert_same_model(got, want, tol=1e-6, iterations=False)
+
+    def test_sequential_on_the_ring_matches_batched(self):
+        """The sequential strategy with ``devices`` fits each machine on the
+        ring: CG tolerance of the batched split (epsilon 1e-8)."""
+        _, seq = self._fit("sequential", ["cpu"] * 2)
+        _, bat = self._fit("batched", ["cpu"] * 2)
+        np.testing.assert_allclose(np.asarray(bat.rho), np.asarray(seq.rho), rtol=2e-4,
+                                   atol=1e-6)
+
+    def test_split_weighted_and_warm(self):
+        X, y = self._data()
+        sw = np.random.default_rng(0).uniform(0.5, 2.0, size=len(y))
+        svm, split = self._fit("batched", ["cpu"] * 3, sample_weight=sw)
+        _, one = self._fit("batched", sample_weight=sw)
+        _assert_same_model(split, one, tol=SPLIT_TOL)
+        warm = svm.fit(plssvm_tpu_torch.DataSet(X, y), classification="oao", epsilon=1e-8,
+                       sample_weight=sw, initial_model=split)
+        assert warm.n_iter == 0
+
+
+class TestOAOCli:
+    def test_train_predict_cli_against_the_reference(self, tmp_path):
+        """``--classification oao`` through both packages' CLIs in float64:
+        the same header and rho line count, rho within TOL, the same
+        predictions, 100 % on separable blobs."""
+        X, y = make_multiclass_blobs(45, 3, n_classes=3, seed=9)
+        train_file = str(tmp_path / "mc.libsvm")
+        plssvm_tpu_torch.DataSet(X, y).save(train_file)
+        common = ["--classification", "oao", "-t", "2", "-e", str(EPS),
+                  "--use_double_as_real_type", "-q"]
+        rhos, predictions = {}, {}
+        for name, train_cli, predict_cli, extra in (
+                ("j", j_train_cli, j_predict_cli, ["-b", "xla", "-p", "cpu"]),
+                ("t", t_train_cli, t_predict_cli, ["-p", "cpu"])):
+            model_file = str(tmp_path / f"{name}.model")
+            pred_file = str(tmp_path / f"{name}.predict")
+            assert train_cli.main(common + extra + [train_file, model_file]) == 0
+            content = open(model_file).read()
+            assert "nr_class 3" in content
+            rhos[name] = np.asarray(
+                [ln for ln in content.splitlines() if ln.startswith("rho ")][0].split()[1:],
+                dtype=np.float64)
+            assert predict_cli.main(["-q"] + extra[-2:] + [train_file, model_file,
+                                                           pred_file]) == 0
+            predictions[name] = open(pred_file).read()
+        assert len(rhos["t"]) == 3
+        np.testing.assert_allclose(rhos["t"], rhos["j"], rtol=0, atol=TOL)
+        assert predictions["t"] == predictions["j"]
+        assert [int(v) for v in predictions["t"].split()] == list(y)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_pairs_bounds", os.path.join(REPO, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("kind,itemsize,per_pair_feature,rate", [
+    ("rbf", 4, 1, "FP32_INSTR_PER_S"), ("laplacian", 4, 2, "FP32_INSTR_PER_S"),
+    ("chi_squared", 4, 1, "SFU_OPS_PER_S"), ("chi_squared", 8, 11, "FP64_INSTR_PER_S"),
+    ("rbf", 8, 1, "FP64_INSTR_PER_S")])
+def test_chip_smoke_pairs_bound(kind, itemsize, per_pair_feature, rate):
+    """``chip_smoke.py``'s bound of kernel O: the machines' distinct pairs
+    (the triangle) times d at the pair operation's unit, plus the
+    contraction's FFMAs (one per pair of the full square) on the FP32 /
+    FP64 pipe where that pipe bounds it; by operations at OAO's widths."""
+    chip_smoke = _chip_smoke()
+    lens, d = np.asarray([2104, 2, 1500]), 200
+    ms, by = chip_smoke._pairs_bound(lens, d, kind, itemsize)
+    pairs = float(np.sum(lens * (lens + 1) / 2))
+    fmas = float(np.sum(lens.astype(np.float64) ** 2))
+    if rate == "SFU_OPS_PER_S":
+        want = max(pairs * d / chip_smoke.SFU_OPS_PER_S,
+                   (4 * pairs * d + fmas) / chip_smoke.FP32_INSTR_PER_S)
+    else:
+        want = (per_pair_feature * pairs * d + fmas) / getattr(chip_smoke, rate)
+    assert by == "operations"
+    assert ms == pytest.approx(want * 1e3, rel=1e-12)

@@ -565,23 +565,35 @@ def test_not_ported_with_devices(what, tmp_path):
     """Each combination the port does not carry yet names its ROADMAP item.
     Item 4's extras are ported: with ``devices`` they fit as plssvm_tpu's
     four-device fit does (tests/test_torch_solver_extras.py holds every
-    layout and type)."""
+    layout and type).  One-vs-one (item 6: the batched machines split over
+    the devices) and LS-SVR (item 7: the ring's binary solve) are ported:
+    with ``devices`` each fits as on one device: the same iterations, rho
+    within 1e-8 (the ring sums in another order)."""
     svm = plssvm_tpu_torch.CSVM(devices=["cpu"] * 2, dtype=np.float64)
     Xtr, ytr, _, _ = _blobs(6, n_classes=3)
     data = plssvm_tpu_torch.DataSet(Xtr, ytr)
     if what in ("initial_model", "sample_weight", "checkpoint_path"):
         _extras_with_devices(what, Xtr, ytr, tmp_path)
         return
-    item = {"oao": "item 6", "regression": "item 7", "multihost": "item 10"}[what]
-    with pytest.raises(NotPortedError, match=item):
+    if what in ("oao", "regression"):
+        one = plssvm_tpu_torch.CSVM(device="cpu", dtype=np.float64)
         if what == "oao":
-            svm.fit(data, classification="oao")
-        elif what == "regression":
-            svm.fit(plssvm_tpu_torch.DataSet(Xtr, Xtr[:, 0], regression=True))
+            models = [s.fit(plssvm_tpu_torch.DataSet(Xtr, ytr), classification="oao",
+                            epsilon=1e-10) for s in (svm, one)]
         else:
-            path = os.path.join(tmp_path, "train.libsvm")
-            data.save(path)
-            svm.fit_multihost(path)
+            rbf = [plssvm_tpu_torch.CSVM(dtype=np.float64, kernel_type="rbf", **where)
+                   for where in (dict(devices=["cpu"] * 2), dict(device="cpu"))]
+            target = np.tanh(Xtr[:, 0] + Xtr[:, 2])
+            models = [s.fit(plssvm_tpu_torch.DataSet(Xtr, target, regression=True),
+                            epsilon=1e-10) for s in rbf]
+        assert models[0].n_iter == models[1].n_iter
+        np.testing.assert_allclose(np.asarray(models[0].rho), np.asarray(models[1].rho),
+                                   rtol=0, atol=1e-8)
+        return
+    with pytest.raises(NotPortedError, match="item 10"):
+        path = os.path.join(tmp_path, "train.libsvm")
+        data.save(path)
+        svm.fit_multihost(path)
 
 
 def _extras_with_devices(what, X, y, tmp_path):
