@@ -82,21 +82,25 @@ chi-squared case, eight runs with each solver.  Every phase built to
 launch an implicit kernel pins ``solver="cg_implicit"`` and logs what
 ``automatic`` would resolve to at its shape.
 
-The "oao" phase runs after phase 7 (``phase_oao``): kernel O
-(csrc/pairs.cu, the batched pair-machine matvec of one-vs-one training)
-against its plain version for every kind in float32 and float64 on ragged
-stacks of 3 and 45 machines, twice on the same input (bit for bit); then,
-with the counts set to 0 before each drive, phase 5's 10 Gaussian classes
-through ``plssvm-torch-train --classification oao`` (``automatic`` takes the
-batched pairs CG, O once per block iteration) and ``plssvm-torch-predict``,
-the sequential strategy beside it in float32 and float64, phase 9's
-histogram classes (chi-squared: batched on O, sequential on kernel N; O
-held per entry of K in float32 and float64),
-phase 7's MNIST-width classes (batched and sequential fit seconds, O timed
-beside its bound at that stack), the batched fit with its machines split
-over ``devices=["cuda:0"] * 4`` against one device, and LS-SVR on
-Friedman #1 (10000 x 10) through ``plssvm-torch-train -s epsilon_svr`` and
-``plssvm-torch-predict`` (R^2, float32 against float64).
+The "oao" phase runs after phase 7 (``phase_oao``): kernel O (the
+batched pair-machine matvec of one-vs-one training: the Gram kinds on the
+tensor-core walks of csrc/pairs_tc.cu at "f32" / "bf16" and in float64,
+the FFMA walk of csrc/pairs.cu at "highest" and for the distance kinds)
+against its plain version for every kind at every tier in float32 and
+float64 on ragged stacks of 3 and 45 machines, twice on the same input
+(bit for bit), a machine alone against the same machine inside the stack
+(bit for bit); then, with the counts set to 0 before each drive, phase 5's
+10 Gaussian classes through ``plssvm-torch-train --classification oao``
+(``automatic`` takes the batched pairs CG, O once per block iteration) and
+``plssvm-torch-predict``, the sequential strategy beside it in float32 and
+float64, batched fits at "bf16" and "highest", phase 9's histogram classes
+(chi-squared: batched on O, sequential on kernel N; O held per entry of K
+in float32 and float64), phase 7's MNIST-width classes (batched and
+sequential fit seconds, O timed at each tier beside its bound and the
+per-machine cuBLAS Gram products at that stack), the batched fit with its
+machines split over ``devices=["cuda:0"] * 4`` against one device, and
+LS-SVR on Friedman #1 (10000 x 10) through ``plssvm-torch-train -s
+epsilon_svr`` and ``plssvm-torch-predict`` (R^2, float32 against float64).
 
 The "parse" phase runs before phase 4: the native parser
 (``plssvm_tpu_torch/native``, built with g++) against the NumPy path on
@@ -371,7 +375,7 @@ def phase_build(compare=None):
     # most 255 registers and spills no larger than the TF32 sym tile's 64
     # bytes; no tensor-core product serialised
     ptxas = _build._ptxas_log(path).read_text(encoding="utf-8")
-    for tile in ("gram_dmma_sym", "gram_dmma_dual", "gram_dmma_rect"):
+    for tile in ("gram_dmma_sym", "gram_dmma_dual", "gram_dmma_rect", "pairs_dmma"):
         dmma = {n: r for n, r in mine.items() if n.startswith(tile + " ")}
         compiled = len(re.findall(rf"Compiling entry function '\w*{tile}_kernel", ptxas))
         if (len(dmma) != 3 or compiled != 3
@@ -381,6 +385,14 @@ def phase_build(compare=None):
         log("build", f"{tile}_kernel compiled {compiled} times: " + ", ".join(
             f"{n.split()[-1]} {r['registers']} registers, {r['spill_bytes']} spill bytes, "
             f"{r['smem_bytes']} B static shared memory" for n, r in sorted(dmma.items())))
+    # kernel O's tensor-core walk: one instantiation per tier and Gram kind,
+    # within the two blocks an SM that __launch_bounds__ asks for
+    walk_tc = {n: r for n, r in mine.items() if n.startswith("pairs_tc ")}
+    compiled = len(re.findall(r"Compiling entry function '\w*pairs_tc_kernel", ptxas))
+    if (len(walk_tc) != 6 or compiled != 6
+            or any(r.get("spill_bytes", 0) > 64 or r.get("registers", 256) > 128
+                   for r in walk_tc.values())):
+        raise AssertionError(f"pairs_tc's instantiations ({compiled} compiled): {walk_tc}")
     if "C7515" in ptxas:
         raise AssertionError("ptxas serialised a tensor-core product (C7515)")
     # the matvec walk (J at "highest", L): one instantiation per float32
@@ -4317,17 +4329,28 @@ FRIEDMAN_R2_FLOOR = 0.87
 FRIEDMAN_R2_GAP = 0.005
 
 
-def _pairs_bound(lens, d, kind, itemsize):
+def _pairs_bound(lens, d, kind, itemsize, tier=None):
     """The bound of kernel O's function on machines of ``lens`` rows: the
     sum_p l (l + 1) / 2 distinct pairs of the symmetric kernels (O walks
     the full square, so it can reach at most half of this), sum_p l^2
     FFMAs of the contraction, each machine's rows, norms, right-hand side
-    and output moved once; float64 on the FP64 pipe."""
+    and output moved once.  ``tier`` as in ``_sym_bound``: None the FFMA
+    walk (float64 on the FP64 pipe), "tf32" / "bf16" the tensor-core walk
+    (the rows at the tier's operand size, the rest float32), "dmma" the
+    float64 tensor-core walk; on the tensor cores an RBF pair also takes
+    one exp."""
     lens = np.asarray(lens, dtype=np.float64)
     cost = kind if kind in ("laplacian", "chi_squared") else "gram"
-    return _bound(float(np.sum(lens * (lens + 1) / 2)), d, float(np.sum(lens * lens)), cost,
-                  itemsize * float(np.sum(lens)) * (d + 3),
-                  "fp64" if itemsize == 8 else None)
+    pairs, rows = float(np.sum(lens * (lens + 1) / 2)), float(np.sum(lens))
+    if tier in TC_TIERS:
+        n_bytes = TC_TIERS[tier][1] * rows * d + 4 * rows * 3
+    else:
+        n_bytes = itemsize * rows * (d + 3)
+    if tier is None and itemsize == 8:
+        tier = "fp64"
+    exp = tier in (*TC_TIERS, "dmma") and kind == "rbf"
+    return _bound(pairs, d, float(np.sum(lens * lens)), cost, n_bytes, tier,
+                  pairs if exp else 0)
 
 
 def _pairs_stack(X, labels, dtype):
@@ -4355,18 +4378,45 @@ def _pairs_rhs(Xb, lens, gen):
     return torch.randn(Xb.shape[:2], generator=gen, dtype=Xb.dtype).cuda() * mask
 
 
-def _pairs_check(label, Xb, sq, V, lens, kind, gamma, coef0=0.0):
-    """Kernel O against its plain version on one stack: max|err| /
-    max|plain|, within 1e-4 (float32) or 1e-10 (float64), rows past each
-    machine exactly 0, and a second launch bit for bit the first.  Returns
-    (max|err|, relative error)."""
+def _pairs_tier(Xb, kind, precision):
+    """(walk, bound tier) of kernel O on stack ``Xb`` at ``precision``."""
+    from plssvm_tpu_torch.ops import pairs
+    from plssvm_tpu_torch.parameter import KernelFunctionType as K
+
+    route = pairs.walk(Xb, K.from_string(kind), precision)
+    return route, {"tc": TIER_OF.get(precision), "dmma": "dmma"}.get(route)
+
+
+def _pairs_plain(Xb, sq, V, lens, precision, **kw):
+    """Kernel O's plain version on the tier's exact operands: the stack
+    rounded to TF32 (its norms those of the float32 stack) for a float32
+    Gram kind at "f32", as the tensor-core walk reads it; at "bf16" the
+    plain version rounds to bf16 itself; else the stack as it is."""
+    from plssvm_tpu_torch.ops import matvec, pairs
+
+    if precision == "f32" and Xb.dtype == torch.float32 and sq is not None:
+        Xb = matvec.round_to_tf32(Xb)
+    return pairs.pairs_matvec_plain(Xb, sq, V, lens, precision=precision, **kw)
+
+
+def _pairs_check(label, Xb, sq, V, lens, kind, gamma, coef0=0.0, precision="f32",
+                 want=None):
+    """Kernel O at ``precision`` against its plain version on the tier's
+    operands (``_pairs_plain``; ``want`` when the caller has it) on one
+    stack: max|err| / max|plain| within 1e-4 in float32 (the A / B card
+    checks' tolerance at every tier: TF32 and bf16 against the plain
+    version on the same rounded operands, "highest" and the distance kinds
+    against full float32) or 1e-10 in float64, rows past each machine
+    exactly 0, a second launch bit for bit the first.  Returns (max|err|,
+    relative error, plain)."""
     from plssvm_tpu_torch.ops import pairs
     from plssvm_tpu_torch.parameter import KernelFunctionType as K
 
     kw = dict(kind=K.from_string(kind), gamma=gamma, coef0=coef0, degree=3)
-    got = pairs.pairs_matvec(Xb, sq, V, lens, **kw)
-    again = pairs.pairs_matvec(Xb, sq, V, lens, **kw)
-    want = pairs.pairs_matvec_plain(Xb, sq, V, lens, **kw)
+    got = pairs.pairs_matvec(Xb, sq, V, lens, precision=precision, **kw)
+    again = pairs.pairs_matvec(Xb, sq, V, lens, precision=precision, **kw)
+    if want is None:
+        want = _pairs_plain(Xb, sq, V, lens, precision, **kw)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     rel = err / float(want.abs().max())
@@ -4376,28 +4426,75 @@ def _pairs_check(label, Xb, sq, V, lens, kind, gamma, coef0=0.0):
             and bool((got[~mask] == 0).all())):
         raise AssertionError(f"kernel O {label}: max|err|/max|plain| {rel:.3e} (limit {tol}), "
                              f"repeat bit for bit {torch.equal(got, again)}")
-    return err, rel
+    return err, rel, want
 
 
-def _pairs_time(label, Xb, sq, V, lens, kind, gamma, main_ms=None, coef0=0.0):
-    """Kernel O's and its plain version's ms at one stack (``_time_pair``'s
-    order plain, O, O, plain), beside the bound; recorded for the cost
-    ranking under phase "oao" when ``main_ms`` is given.  Returns (ms,
-    plain ms, bound)."""
+def _pairs_alone(label, Xb, sq, V, lens, kind, gamma, precision, machines):
+    """Each of ``machines`` alone (a stack of one, m_pad its own length)
+    against the same machine inside the stack: bit for bit, or raise."""
     from plssvm_tpu_torch.ops import pairs
     from plssvm_tpu_torch.parameter import KernelFunctionType as K
 
-    kw = dict(kind=K.from_string(kind), gamma=gamma, coef0=coef0, degree=3)
+    kw = dict(kind=K.from_string(kind), gamma=gamma, coef0=0.0, degree=3,
+              precision=precision)
+    inside = pairs.pairs_matvec(Xb, sq, V, lens, **kw)
+    for p in machines:
+        n = int(lens[p])
+        alone = pairs.pairs_matvec(
+            Xb[p:p + 1, :n].contiguous(), None if sq is None else sq[p:p + 1, :n].contiguous(),
+            V[p:p + 1, :n].contiguous(), lens[p:p + 1].clone(), **kw)[0]
+        if not torch.equal(alone, inside[p, :n]):
+            raise AssertionError(f"kernel O {label}: machine {p} ({n} rows) alone differs from "
+                                 "itself inside the stack")
+
+
+def _pairs_yardstick(Xb, lens, precision):
+    """The Gram part alone of kernel O's function on cuBLAS: one
+    ``torch.matmul(X_p, X_p.T)`` per machine at the tier (TF32 at "f32",
+    bf16 operands at "bf16", full precision at "highest" and in float64),
+    summed; median ms of 5 after 1 warm-up."""
+    from plssvm_tpu_torch.solver.explicit import _tf32
+
+    ops = [Xb[p, :n] for p, n in enumerate(lens.tolist()) if n]
+    if precision == "bf16" and Xb.dtype == torch.float32:
+        ops = [X.to(torch.bfloat16) for X in ops]
+
+    def products():
+        with _tf32(precision == "f32"):
+            for X in ops:
+                torch.matmul(X, X.T)
+
+    return _median_ms(products, 5, 1)
+
+
+def _pairs_time(label, Xb, sq, V, lens, kind, gamma, coef0=0.0, precision="f32"):
+    """Kernel O's and its plain version's ms at one stack and tier
+    (``_time_pair``'s order plain, O, O, plain; O on the operand copy a
+    solve makes once, whose own ms is logged), beside the bound and, for
+    the Gram kinds, the per-machine cuBLAS yardstick.  Returns (ms, plain
+    ms, bound, yardstick ms or None)."""
+    from plssvm_tpu_torch.ops import pairs
+    from plssvm_tpu_torch.parameter import KernelFunctionType as K
+
+    kind_t = K.from_string(kind)
+    route, tier = _pairs_tier(Xb, kind, precision)
+    kw = dict(kind=kind_t, gamma=gamma, coef0=coef0, degree=3, precision=precision)
+    copy_ms = _median_ms(lambda: pairs.pairs_operand(Xb, kind_t, precision), 5, 1)
+    operand = pairs.pairs_operand(Xb, kind_t, precision)
     lens_h = lens.cpu().numpy()
     pair_features = float(np.sum(lens_h.astype(np.float64) ** 2)) * Xb.shape[2]
-    k_ms, p_ms = _time_pair("pairs_matvec", pairs.pairs_matvec, pairs.pairs_matvec_plain,
-                            (Xb, sq, V, lens), kw, pair_features, label, plain_repeats=3,
-                            unit="T pair-features/s", counted="sum_p len_p^2 d, as walked")
-    bound = _pairs_bound(lens_h, Xb.shape[2], kind, Xb.element_size())
-    _log_bound("pairs_matvec", label, k_ms, bound)
-    if main_ms is not None:
-        main_ms[("pairs_matvec", "oao")] = (k_ms, bound[0])
-    return k_ms, p_ms, bound
+    k_ms, p_ms = _time_pair(
+        f"pairs_matvec ({route})", lambda *a, **k: pairs.pairs_matvec(*a, operand=operand, **k),
+        pairs.pairs_matvec_plain, (Xb, sq, V, lens), kw, pair_features, f"{precision} {label}",
+        plain_repeats=3, unit="T pair-features/s", counted="sum_p len_p^2 d, as walked")
+    bound = _pairs_bound(lens_h, Xb.shape[2], kind, Xb.element_size(), tier)
+    _log_bound(f"pairs_matvec ({route})", f"{precision} {label}", k_ms, bound)
+    yard = None if sq is None else _pairs_yardstick(Xb, lens, precision)
+    log("oao", f"kernel O ({route}) {precision} {label}: operand copy "
+        + (f"{copy_ms:.3f} ms once per solve" if operand is not None else "none")
+        + ("" if yard is None else f"; yardstick {yard:.3f} ms (per-machine torch.matmul "
+           f"(X_p, X_p.T) at the tier, summed: the Gram part only)"))
+    return k_ms, p_ms, bound, yard
 
 
 def _pairs_per_entry(label, X, gamma):
@@ -4454,7 +4551,9 @@ def _oao_fit(label, svm, train, test, labels, epsilon, phase="oao"):
     block = _tracked("cg", "block_iterations") if strategy == "batched" else None
     cg_s = _tracked("cg", "total_runtime") / 1000
     per_machine = model.n_iter_per_machine
-    counts = dict(pairs=pairs.launches, plain=pairs.plain_calls,
+    counts = dict(pairs=pairs.launches + pairs.tc_launches + pairs.dmma_launches,
+                  ffma=pairs.launches, tc=pairs.tc_launches, dmma=pairs.dmma_launches,
+                  plain=pairs.plain_calls,
                   A=gram_matvec.sym_tc_launches + gram_matvec.sym_dmma_launches
                   + gram_matvec.sym_launches,
                   E=distance.matvec_sym_launches,
@@ -4486,14 +4585,15 @@ def _agreement(phase, label, a, b, floor):
     return agree
 
 
-def _check_batched_launches(phase, label, run, groups=1):
+def _check_batched_launches(phase, label, run, walk, groups=1):
     """A batched fit launched kernel O once for the initial residual, once
-    per block iteration and once more every 50th, and no plain version;
-    its predict went through kernel D or H.  With its machines split over
-    ``groups`` devices each group runs its own loop: the count is the sum
-    over the groups (``machine_groups``' contiguous ranges, the machines
-    padded with dummies that take no iteration), each group's block
-    iterations its slowest machine's."""
+    per block iteration and once more every 50th, all on the walk ``walk``
+    ("tc", "dmma" or "ffma"), and no plain version; its predict went
+    through kernel D or H.  With its machines split over ``groups``
+    devices each group runs its own loop: the count is the sum over the
+    groups (``machine_groups``' contiguous ranges, the machines padded with
+    dummies that take no iteration), each group's block iterations its
+    slowest machine's."""
     from plssvm_tpu_torch.parallel.sharded import machine_groups
 
     c = run["counts"]
@@ -4503,38 +4603,65 @@ def _check_batched_launches(phase, label, run, groups=1):
     if groups == 1:
         blocks = [run["block"]]
     want = sum(1 + b + b // 50 for b in blocks)
-    if run["strategy"] != "batched" or c["pairs"] != want or c["plain"] != 0 \
-            or c["D"] + c["H"] <= 0:
+    if run["strategy"] != "batched" or c["pairs"] != want or c[walk] != want \
+            or c["plain"] != 0 or c["D"] + c["H"] <= 0:
         raise AssertionError(f"{phase} {label}: strategy {run['strategy']}, O launched "
-                             f"{c['pairs']} times for block iterations {blocks} "
+                             f"{c['pairs']} times ({c[walk]} on its {walk} walk) for block "
+                             f"iterations {blocks} "
                              f"(want {want}), plain calls {c['plain']}, predict launches "
                              f"D {c['D']} H {c['H']}")
+
+
+def _pairs_blocks_per_sm():
+    """Blocks per SM of kernel O's tensor-core walks (RBF): two for TF32
+    and bf16, one for float64, as designed; raise below."""
+    import ctypes
+
+    from plssvm_tpu_torch.ops import _build
+
+    lib = _build.load()
+    blocks = {}
+    for walk, name, least in ((0, "tf32", 2), (1, "bf16", 2), (2, "f64", 1)):
+        n = ctypes.c_int(0)
+        err = lib.plssvm_pairs_blocks_per_sm(walk, 2, ctypes.byref(n))
+        if err != 0 or n.value < least:
+            raise AssertionError(f"kernel O's {name} walk: {n.value} blocks an SM (error {err})")
+        blocks[name] = n.value
+    log("oao", f"kernel O's tensor-core walks, blocks per SM: {blocks}")
 
 
 def phase_oao(tmp, mc_written, chi2_cell, mnist_cell, main_ms):
     """One-vs-one training and LS-SVR (ROADMAP Queue 1 item 6, item 7's
     LS-SVR):
 
-    (a) kernel O against its plain version, every kind in float32 and
-        float64, on ragged stacks of 3 and 45 machines (one of 2 rows, the
-        others up to PAIRS_CHECK_ROWS), twice on the same input (bit for
-        bit), the worst relative error per kind and type logged;
+    (a) kernel O against its plain version, every kind at every tier
+        ("f32", "bf16", "highest") in float32 and float64, on ragged stacks
+        of 3 and 45 machines (one of 2 rows, the others up to
+        PAIRS_CHECK_ROWS), twice on the same input (bit for bit), the worst
+        relative error per kind, type and walk logged; the 2-row and the
+        longest machine alone against themselves inside the 45-machine
+        stack, bit for bit, at every tier in both types;
     (b) phase 5's 10 Gaussian classes (RBF) through ``plssvm-torch-train
         --classification oao`` and ``plssvm-torch-predict``: ``automatic``
-        batched, O's launches, the accuracy floor; the sequential strategy
-        beside it (agreement >= 0.995), and both in float64 at epsilon 1e-10
-        (>= 0.999); O checked and timed at this stack;
+        batched, O's launches on the TF32 walk, the accuracy floor; the
+        sequential strategy beside it (agreement >= 0.995), batched fits at
+        "bf16" (logged) and "highest" (>= 0.995 against sequential), and
+        both strategies in float64 at epsilon 1e-10 (>= 0.999); O checked
+        and timed at this stack at every tier and in float64 (beside the
+        FFMA walk in float64), the TF32 walk against full float32 within
+        TF32's first-order bound;
     (c) phase 9's histogram classes (chi-squared): batched on O, sequential
         on kernel N through ``automatic``'s ``cg_explicit``; floor 0.84,
         agreement >= 0.995; O checked and timed there, and held per entry
         of K on one machine's rows in float32 and float64;
     (d) phase 7's MNIST-width classes (60000 x 784): ``automatic`` batched
         (1.69 GB <= 2 GiB), fit seconds, iterations and s/iteration, O
-        timed beside its bound at this stack, the floor; a sequential fit
-        beside it for its seconds;
+        checked and timed at every tier beside its bound and the cuBLAS
+        yardstick at this stack (its TF32 time recorded for the cost
+        ranking), the floor; a sequential fit beside it for its seconds;
     (e) the machine axis: (b)'s fit with ``devices=["cuda:0"] * 4`` against
-        one device in float32 and float64 (1e-10): agreement, max|d alpha|,
-        max|d rho|, bit-identical or not;
+        one device in float32 (bit-identical, or raise) and float64 (1e-10):
+        agreement, max|d alpha|, max|d rho|;
     (f) LS-SVR on Friedman #1 through ``plssvm-torch-train -s epsilon_svr``
         and ``plssvm-torch-predict`` in float32 and float64: R^2 >= 0.87,
         the two within 0.005, the predict file's values those the CLI
@@ -4543,12 +4670,15 @@ def phase_oao(tmp, mc_written, chi2_cell, mnist_cell, main_ms):
     Returns (launches, (main_err, timing, bounds) entries for kernel O)."""
     import plssvm_tpu_torch as port
     from plssvm_tpu_torch.csvm import CSVM
-    from plssvm_tpu_torch.ops import gram_matvec, pairs
+    from plssvm_tpu_torch.ops import gram_matvec, matvec, pairs
+    from plssvm_tpu_torch.parameter import KernelFunctionType as K
 
     gen = torch.Generator().manual_seed(SEED + 40)
     rng = np.random.default_rng(SEED + 40)
     kinds = (("polynomial", 1.0), ("rbf", 0.0), ("sigmoid", -0.5), ("laplacian", 0.0),
              ("chi_squared", 0.0))
+    tiers = ("f32", "bf16", "highest")
+    _pairs_blocks_per_sm()
     # (a) ragged stacks
     worst = {}
     for P in PAIRS_CHECK_P:
@@ -4560,31 +4690,78 @@ def phase_oao(tmp, mc_written, chi2_cell, mnist_cell, main_ms):
             X_pos = torch.rand((P, m_pad, d), generator=gen, dtype=dtype) * mask[..., None]
             lens = torch.as_tensor(lens_h, dtype=torch.int64, device="cuda")
             V = (torch.randn((P, m_pad), generator=gen, dtype=dtype) * mask).cuda()
+            type_name = "f32" if dtype == torch.float32 else "f64"
             for kind, coef0 in kinds:
                 Xb = X_pos if kind == "chi_squared" else (X_pos - 0.5 * mask[..., None]) * 0.3
                 Xb = Xb.cuda()
-                _, rel = _pairs_check(f"{kind} P={P}", Xb, (Xb * Xb).sum(-1), V, lens, kind,
-                                      1.0 / d, coef0)
-                key = (kind, "f32" if dtype == torch.float32 else "f64")
-                worst[key] = max(worst.get(key, 0.0), rel)
+                sq = None if kind in ("laplacian", "chi_squared") else (Xb * Xb).sum(-1)
+                # the plain version depends on the tier for the float32 Gram
+                # kinds only
+                tiered = dtype == torch.float32 and sq is not None
+                plain = {}
+                for precision in tiers:
+                    route, _ = _pairs_tier(Xb, kind, precision)
+                    key = precision if tiered else None
+                    _, rel, plain[key] = _pairs_check(
+                        f"{kind} {type_name} {precision} P={P}", Xb, sq, V, lens, kind, 1.0 / d,
+                        coef0, precision, plain.get(key))
+                    walked = (kind, type_name, precision if route == "tc" else route)
+                    worst[walked] = max(worst.get(walked, 0.0), rel)
+                    if P == max(PAIRS_CHECK_P) and kind in ("rbf", "chi_squared"):
+                        _pairs_alone(f"{kind} {type_name} {precision}", Xb, sq, V, lens, kind,
+                                     1.0 / d, precision, (P // 2, int(np.argmax(lens_h))))
     log("oao", "kernel O against plain, worst max|err|/max|plain| over P in "
         f"{PAIRS_CHECK_P} (ragged, one machine of 2 rows, d = 200), bit for bit on a "
-        "second launch: " + ", ".join(f"{k} {t} {v:.3e}" for (k, t), v in worst.items()))
+        "second launch, the 2-row and the longest machine alone bit for bit their rows "
+        "inside the 45-machine stack (rbf, chi_squared): "
+        + ", ".join(f"{k} {t} {w} {v:.3e}" for (k, t, w), v in worst.items()))
 
     # (b) the 10 Gaussian classes at config 2's shape
     train_file, test_file = mc_written["mc_train"][0], mc_written["mc_test"][0]
     labels = mc_written["mc_test"][1]
     train = port.DataSet(train_file, dtype=np.float32)
-    Xb, sq, lens = _pairs_stack(np.asarray(train.data), np.asarray(train.labels),
-                                torch.float32)
-    V = _pairs_rhs(Xb, lens, gen)
     gamma = 1.0 / 200
-    err, rel = _pairs_check("rbf at (b)'s stack", Xb, sq, V, lens, "rbf", gamma)
-    ms, plain_ms, bound = _pairs_time(f"f32 rbf at (b)'s stack {tuple(Xb.shape)}", Xb, sq, V,
-                                      lens, "rbf", gamma, main_ms)
-    tables = ({("pairs_matvec", "rbf"): err}, {("pairs_matvec", "rbf"): (ms, plain_ms)},
-              {("pairs_matvec", "rbf"): bound})
-    del Xb, sq, V
+    tables = ({}, {}, {})
+    tiers_b = {}
+    for dtype in (torch.float32, torch.float64):
+        Xb, sq, lens = _pairs_stack(np.asarray(train.data), np.asarray(train.labels), dtype)
+        V = _pairs_rhs(Xb, lens, gen)
+        label = f"at (b)'s stack {tuple(Xb.shape)}"
+        for precision in (tiers if dtype == torch.float32 else ("f32",)):
+            err, _, _ = _pairs_check(f"rbf {label}", Xb, sq, V, lens, "rbf", gamma,
+                                     precision=precision)
+            tiers_b[(dtype, precision)] = (err, *_pairs_time(label, Xb, sq, V, lens, "rbf",
+                                                            gamma, precision=precision))
+        if dtype == torch.float32:
+            _check_tf32_tier(
+                f"kernel O rbf {label}", pairs.pairs_matvec(Xb, sq, V, lens, kind=K.RBF,
+                                                            gamma=gamma, coef0=0.0, degree=3),
+                pairs.pairs_matvec_plain(Xb, sq, V, lens, kind=K.RBF, gamma=gamma, coef0=0.0,
+                                         degree=3, precision="highest"),
+                gamma, float(sq.max()))
+        else:
+            # the float64 Gram walk that the DMMA walk replaced, timed beside it
+            kw = dict(kind=K.RBF, gamma=gamma, coef0=0.0, degree=3)
+            dmma_ms = tiers_b[(dtype, "f32")][1]
+            ffma_ms = _median_ms(lambda: pairs.ffma_pairs_matvec(Xb, sq, V, lens, **kw))
+            err_ffma = float((pairs.ffma_pairs_matvec(Xb, sq, V, lens, **kw)
+                              - pairs.pairs_matvec(Xb, sq, V, lens, **kw)).abs().max())
+            log("oao", f"kernel O f64 rbf {label}: DMMA walk {dmma_ms:.3f} ms, the FFMA walk "
+                f"{ffma_ms:.3f} ms ({ffma_ms / dmma_ms:.2f}x), max|DMMA - FFMA| "
+                f"{err_ffma:.3e}")
+        del Xb, sq, V
+    for key, (dtype, precision) in ((("pairs_matvec_tc", "bf16"), (torch.float32, "bf16")),
+                                    (("pairs_matvec", "rbf"), (torch.float32, "highest")),
+                                    (("pairs_matvec_dmma", "f64"), (torch.float64, "f32"))):
+        err, ms, plain_ms, bound, _ = tiers_b[(dtype, precision)]
+        for table, value in zip(tables, (err, (ms, plain_ms), bound)):
+            table[key] = value
+    main_ms[("pairs_matvec", "oao")] = (tiers_b[(torch.float32, "highest")][1],
+                                        tiers_b[(torch.float32, "highest")][3][0])
+    main_ms[("pairs_matvec_dmma", "oao")] = (tiers_b[(torch.float64, "f32")][1],
+                                             tiers_b[(torch.float64, "f32")][3][0])
+    main_ms[(("pairs_matvec_tc", "bf16"), "oao")] = (tiers_b[(torch.float32, "bf16")][1],
+                                                     tiers_b[(torch.float32, "bf16")][3][0])
     pairs.reset_counts()
     port.global_tracker.clear()
     fit_s, predict_s, predicted, io = _cli_fit_predict(
@@ -4595,32 +4772,42 @@ def phase_oao(tmp, mc_written, chi2_cell, mnist_cell, main_ms):
     block = _tracked("cg", "block_iterations")
     per_machine = _tracked("cg", "iterations_per_machine")
     cg_s = _tracked("cg", "total_runtime") / 1000
-    launches_b = pairs.launches
+    launches_b = pairs.tc_launches
     accuracy = float(np.mean(predicted == labels))
     log("oao", f"{MC_CLASSES} classes rbf f32 (CLI, --classification oao): strategy "
         f"{strategy}, {block} block iterations, iterations per machine {per_machine}, "
         f"{cg_s / block:.6f} s/iteration, CG {cg_s:.3f} s, fit (CLI) {fit_s:.3f} s, predict "
-        f"(CLI) {predict_s:.3f} s, accuracy {accuracy:.4f}, kernel O launches {launches_b}, "
-        f"plain calls {pairs.plain_calls}; native parses, writes {io['native']}")
-    if strategy != "batched" or launches_b != 1 + block + block // 50 or pairs.plain_calls:
-        raise AssertionError(f"oao: the CLI fit took {strategy}, O launched {launches_b} "
-                             f"times for {block} block iterations")
+        f"(CLI) {predict_s:.3f} s, accuracy {accuracy:.4f}, kernel O launches (TF32 walk) "
+        f"{launches_b}, FFMA walk {pairs.launches}, plain calls {pairs.plain_calls}; native "
+        f"parses, writes {io['native']}")
+    if strategy != "batched" or launches_b != 1 + block + block // 50 or pairs.plain_calls \
+            or pairs.launches:
+        raise AssertionError(f"oao: the CLI fit took {strategy}, O's TF32 walk launched "
+                             f"{launches_b} times for {block} block iterations")
     if accuracy < MC_ACCURACY_FLOOR:
         raise AssertionError(f"oao: accuracy {accuracy} below {MC_ACCURACY_FLOOR}")
     test = port.DataSet(test_file, dtype=np.float32)
     runs = {}
-    for strat in ("batched", "sequential"):
+    for strat, precision in (("batched", "f32"), ("sequential", "f32"), ("bf16", "bf16"),
+                             ("highest", "highest")):
         svm = CSVM(backend="cuda", device="cuda", dtype=np.float32, kernel_type="rbf",
-                   cost=1.0, oao_batch=strat)
-        runs[strat] = _oao_fit(f"{MC_CLASSES} classes rbf f32 {strat}", svm, train, test,
-                               labels, EPSILON)
-    _check_batched_launches("oao", "(b) f32 batched", runs["batched"])
+                   cost=1.0, oao_batch="batched" if strat != "sequential" else strat,
+                   gram_precision=precision)
+        runs[strat] = _oao_fit(f"{MC_CLASSES} classes rbf f32 {strat} ({precision})", svm,
+                               train, test, labels, EPSILON)
+    _check_batched_launches("oao", "(b) f32 batched", runs["batched"], "tc")
+    _check_batched_launches("oao", "(b) f32 batched at bf16", runs["bf16"], "tc")
+    _check_batched_launches("oao", "(b) f32 batched at highest", runs["highest"], "ffma")
     if runs["sequential"]["counts"]["A"] <= 0 or runs["sequential"]["counts"]["pairs"]:
         raise AssertionError("oao: the sequential fit did not take kernel A only")
     _agreement("oao", "(b) f32 batched vs sequential", runs["batched"], runs["sequential"],
                OAO_AGREEMENT)
     _agreement("oao", "(b) f32 batched (CSVM) vs the CLI's", runs["batched"],
                dict(predicted=predicted), OAO_AGREEMENT)
+    _agreement("oao", "(b) f32 batched at highest vs sequential", runs["highest"],
+               runs["sequential"], OAO_AGREEMENT)
+    _agreement("oao", "(b) f32 batched at bf16 vs sequential (logged, no gate)", runs["bf16"],
+               runs["sequential"], 0.0)
     train64 = port.DataSet(train_file, dtype=np.float64)
     test64 = port.DataSet(test_file, dtype=np.float64)
     runs64 = {}
@@ -4630,7 +4817,7 @@ def phase_oao(tmp, mc_written, chi2_cell, mnist_cell, main_ms):
         runs64[strat] = _oao_fit(f"{MC_CLASSES} classes rbf f64 {strat} epsilon "
                                  f"{OAO_F64_EPSILON}", svm, train64, test64, labels,
                                  OAO_F64_EPSILON)
-    _check_batched_launches("oao", "(b) f64 batched", runs64["batched"])
+    _check_batched_launches("oao", "(b) f64 batched", runs64["batched"], "dmma")
     _agreement("oao", "(b) f64 batched vs sequential", runs64["batched"],
                runs64["sequential"], OAO_AGREEMENT_F64)
 
@@ -4640,11 +4827,11 @@ def phase_oao(tmp, mc_written, chi2_cell, mnist_cell, main_ms):
     Xb, sq, lens = _pairs_stack(np.asarray(train_c.data), np.asarray(train_c.labels),
                                 torch.float32)
     V = _pairs_rhs(Xb, lens, gen)
-    err_c, _ = _pairs_check("chi_squared at (c)'s stack", Xb, None, V, lens, "chi_squared",
-                            gamma_c)
+    err_c, _, _ = _pairs_check("chi_squared at (c)'s stack", Xb, None, V, lens, "chi_squared",
+                               gamma_c)
     _pairs_per_entry("at (c)'s first machine", Xb[0, :int(lens[0])], gamma_c)
-    ms_c, plain_c, bound_c = _pairs_time(f"f32 chi_squared at (c)'s stack {tuple(Xb.shape)}",
-                                         Xb, None, V, lens, "chi_squared", gamma_c)
+    ms_c, plain_c, bound_c, _ = _pairs_time(f"chi_squared at (c)'s stack {tuple(Xb.shape)}",
+                                            Xb, None, V, lens, "chi_squared", gamma_c)
     for table, value in zip(tables, (err_c, (ms_c, plain_c), bound_c)):
         table[("pairs_matvec", "chi_squared")] = value
     del Xb, sq, V
@@ -4654,7 +4841,7 @@ def phase_oao(tmp, mc_written, chi2_cell, mnist_cell, main_ms):
                    gamma=gamma_c, cost=1.0, oao_batch=strat)
         runs_c[strat] = _oao_fit(f"{MC_CLASSES} histogram classes chi-squared f32 {strat}",
                                  svm, train_c, test_c, chi2_cell["labels"], CHI2_EPSILON)
-    _check_batched_launches("oao", "(c) batched", runs_c["batched"])
+    _check_batched_launches("oao", "(c) batched", runs_c["batched"], "ffma")
     if runs_c["sequential"]["counts"]["N"] != len(runs_c["sequential"]["per_machine"]) \
             or runs_c["sequential"]["counts"]["pairs"]:
         raise AssertionError("oao: the sequential chi-squared machines did not each build K "
@@ -4665,7 +4852,7 @@ def phase_oao(tmp, mc_written, chi2_cell, mnist_cell, main_ms):
                                  f"{CHI2_ACCURACY_FLOOR}")
     _agreement("oao", "(c) batched vs sequential", runs_c["batched"], runs_c["sequential"],
                OAO_AGREEMENT)
-    launches_c = runs_c["batched"]["counts"]["pairs"]
+    launches_c = runs_c["batched"]["counts"]["ffma"]
     del train_c, test_c
 
     # (d) MNIST width
@@ -4679,14 +4866,29 @@ def phase_oao(tmp, mc_written, chi2_cell, mnist_cell, main_ms):
     Xb, sq, lens = _pairs_stack(np.asarray(train_d.data), np.asarray(train_d.labels),
                                 torch.float32)
     V = _pairs_rhs(Xb, lens, gen)
-    _pairs_check("rbf at (d)'s stack", Xb, sq, V, lens, "rbf", 1.0 / 784)
-    _pairs_time(f"f32 rbf at (d)'s stack {tuple(Xb.shape)}", Xb, sq, V, lens, "rbf",
-                1.0 / 784)
+    label = f"at (d)'s stack {tuple(Xb.shape)}"
+    tiers_d = {}
+    for precision in tiers:
+        err, _, _ = _pairs_check(f"rbf {label}", Xb, sq, V, lens, "rbf", 1.0 / 784,
+                                 precision=precision)
+        tiers_d[precision] = (err, *_pairs_time(label, Xb, sq, V, lens, "rbf", 1.0 / 784,
+                                                precision=precision))
+    err, ms, plain_ms, bound, _ = tiers_d["f32"]
+    for table, value in zip(tables, (err, (ms, plain_ms), bound)):
+        table[("pairs_matvec_tc", "tf32")] = value
+    main_ms[("pairs_matvec_tc", "oao")] = (ms, bound[0])
+    log("oao", "(d) kernel O at " + ", ".join(
+        f"{p} {tiers_d[p][1]:.3f} ms (bound {tiers_d[p][3][0]:.3f}, yardstick "
+        f"{tiers_d[p][4]:.3f})" for p in tiers) + f"; plain at f32 {plain_ms:.3f} ms")
+    if not ms < plain_ms:
+        raise AssertionError(f"oao (d): O's TF32 walk {ms:.3f} ms is not faster than the "
+                             f"plain per-machine walk's {plain_ms:.3f} ms")
     del Xb, sq, V
     torch.cuda.empty_cache()
     run_d = _oao_fit("(d) rbf 60000x784 f32 automatic", svm, train_d, test_d,
                      mnist_cell["labels"], EPSILON)
-    _check_batched_launches("oao", "(d)", run_d)
+    _check_batched_launches("oao", "(d)", run_d, "tc")
+    launches_d = run_d["counts"]["tc"]
     if run_d["accuracy"] < MC_ACCURACY_FLOOR:
         raise AssertionError(f"oao (d): accuracy {run_d['accuracy']} below {MC_ACCURACY_FLOOR}")
     seq = CSVM(backend="cuda", device="cuda", dtype=np.float32, kernel_type="rbf", cost=1.0,
@@ -4708,7 +4910,8 @@ def phase_oao(tmp, mc_written, chi2_cell, mnist_cell, main_ms):
         name = np.dtype(dtype).name
         split = _oao_fit(f"(e) {name} machines split over 4 x cuda:0", svm, *data, labels,
                          epsilon)
-        _check_batched_launches("oao", f"(e) {name}", split, groups=4)
+        _check_batched_launches("oao", f"(e) {name}", split,
+                                "tc" if dtype == np.float32 else "dmma", groups=4)
         d_alpha = float(np.max(np.abs(np.asarray(split["model"].alpha, dtype=np.float64)
                                       - np.asarray(one["model"].alpha, dtype=np.float64))))
         d_rho = float(np.max(np.abs(split["model"].rho - one["model"].rho)))
@@ -4718,6 +4921,9 @@ def phase_oao(tmp, mc_written, chi2_cell, mnist_cell, main_ms):
             f"max|d rho| {d_rho:.3e}, bit-identical {identical}, iterations per machine "
             f"equal {split['per_machine'] == one['per_machine']}")
         _agreement("oao", f"(e) {name} split vs one device", split, one, floor)
+        if dtype == np.float32 and not identical:
+            raise AssertionError("oao (e): the float32 split is not bit-identical to one "
+                                 "device (kernel O gives each machine its own sums)")
 
     # (f) LS-SVR on Friedman #1
     frng = np.random.default_rng(SEED + 41)
@@ -4769,7 +4975,13 @@ def phase_oao(tmp, mc_written, chi2_cell, mnist_cell, main_ms):
     if abs(r2["float32"] - r2["float64"]) > FRIEDMAN_R2_GAP:
         raise AssertionError(f"oao (f): float32 and float64 R^2 differ by "
                              f"{abs(r2['float32'] - r2['float64'])}")
-    return {"pairs_matvec": launches_b, ("pairs_matvec", "chi_squared"): launches_c}, tables
+    # each entry's launches from the main-path fit that ran it: TF32 (d)'s,
+    # bf16, "highest" and float64 (b)'s, chi-squared (c)'s
+    return {"pairs_matvec_tc": launches_d,
+            ("pairs_matvec_tc", "bf16"): runs["bf16"]["counts"]["tc"],
+            "pairs_matvec": runs["highest"]["counts"]["ffma"],
+            ("pairs_matvec", "chi_squared"): launches_c,
+            "pairs_matvec_dmma": runs64["batched"]["counts"]["dmma"]}, tables
 
 
 def main(argv=None):
@@ -4905,7 +5117,7 @@ def main(argv=None):
     # bounds.  No single PyTorch call computes any kernel's function
     # (library_ms)
     tiers = {"gram_matvec_sym": "highest", "gram_matvec_rect": "highest",
-             "kernel_matvec": "tf32"}
+             "kernel_matvec": "tf32", ("pairs_matvec", "rbf"): "highest"}
     sources = {
         "gram_matvec_sym": ("gram_matvec.cu", "plssvm_tpu/ops/pallas_matvec.py:430"),
         ("gram_matvec_sym_dmma", "f64"): (
@@ -4966,10 +5178,15 @@ def main(argv=None):
             "kernel_matrix.cu", "plssvm_tpu/solver/explicit.py:58"),
         # kernel O has no Pallas counterpart: plssvm_tpu computes the
         # batched pairs product in XLA (solve_ls_svm_pairs' vmapped
-        # row-scan matvec).  One entry per kind the oao phase's batched
-        # fits ran, timed at that phase's stack: RBF (b), chi-squared (c)
+        # row-scan matvec).  One entry per walk and tier the oao phase's
+        # batched fits ran, timed at that fit's stack: the tensor-core walk
+        # at TF32 (d) and bf16 (b), the FFMA walk at "highest" RBF (b) and
+        # chi-squared (c), the DMMA walk in float64 (b)
+        ("pairs_matvec_tc", "tf32"): ("pairs_tc.cu", "plssvm_tpu/solver/cg.py:1104"),
+        ("pairs_matvec_tc", "bf16"): ("pairs_tc.cu", "plssvm_tpu/solver/cg.py:1104"),
         ("pairs_matvec", "rbf"): ("pairs.cu", "plssvm_tpu/solver/cg.py:1104"),
         ("pairs_matvec", "chi_squared"): ("pairs.cu", "plssvm_tpu/solver/cg.py:1104"),
+        ("pairs_matvec_dmma", "f64"): ("pairs_tc.cu", "plssvm_tpu/solver/cg.py:1104"),
     }
     entries = [
         {
@@ -4982,10 +5199,12 @@ def main(argv=None):
             "bound_by": bounds[k][1], "library_ms": None,
             **({"tier": k[1]} if isinstance(k, tuple) and k[1] in ("tf32", "bf16", "f64")
                else {"tier": tiers[k]} if k in tiers else {}),
-            # kernel N's entries: the kind each was timed and launched at
+            # kernel N's and O's entries: the kind each was timed and
+            # launched at
             **({"kind": "chi_squared" if k[1] == "f64" else k[1]}
-               if isinstance(k, tuple) and k[0].startswith(("kernel_matrix", "pairs_matvec"))
-               else {}),
+               if isinstance(k, tuple) and k[0].startswith("kernel_matrix")
+               else {"kind": k[1] if k[1] == "chi_squared" else "rbf"}
+               if isinstance(k, tuple) and k[0].startswith("pairs_matvec") else {}),
         }
         for k, (src, replaces) in sources.items()
     ]

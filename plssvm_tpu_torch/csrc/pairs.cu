@@ -34,9 +34,12 @@
 // order fixed by the shapes, so two launches on the same input are bit for
 // bit the same and a machine's output does not depend on P or on its
 // neighbours.  The price is the full square of each machine's pairs,
-// twice the triangle that kernel A's walk evaluates.  O computes at full
-// precision (FP32 FFMA, or float64) at every Gram tier: the batched solve
-// takes no tier (plssvm_tpu/solver/cg.py:1071-1090).  Offsets are 64-bit.
+// twice the triangle that kernel A's walk evaluates.  This walk computes at
+// full precision (FP32 FFMA, or float64): ops/pairs.py sends it the
+// distance kinds and the Gram kinds in float32 at "highest"; the Gram kinds
+// at "f32" / "bf16", and in float64, take the tensor-core walks of
+// pairs_tc.cu at the fit's tier (the reference's batched product is one
+// bf16 MXU pass, its "f32" tier; pairs_tc.cu's note).  Offsets are 64-bit.
 //
 // What bounds it: the pair work, sum_p len[p]^2 d pair-features as walked
 // (the bound counts the sum_p len[p] (len[p] + 1) / 2 distinct pairs, so
@@ -45,7 +48,9 @@
 // four and one SFU reciprocal float chi-squared; PAIR_FEATURE_COST_F64 in
 // double) at 33.5 T FP32 instructions/s, 4.2 T SFU results/s or 17 T FP64
 // instructions/s on an H100 SXM; the bytes (each machine's rows once) are
-// far below it at the widths OAO trains at.
+// far below it at the widths OAO trains at.  The FFMA Gram product stops at
+// the 67 TFLOP/s FP32 rate, which is why the Gram kinds moved to the tensor
+// cores at the tiers that allow it.
 
 #include "gram_tile.cuh"
 

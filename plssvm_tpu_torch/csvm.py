@@ -1020,7 +1020,9 @@ class CSVM:
         machine's dept rows are gathered there into a (P, m_pad, d) stack,
         m_pad the largest dept (no further padding: kernel O masks each
         machine's edge), and ``solve_ls_svm_pairs`` iterates every machine
-        at once, each freezing at its own stop rule or cap.  With
+        at once, each freezing at its own stop rule or cap, every product at
+        the fit's ``gram_precision`` (kernel O's tensor-core walks on the
+        card; the CPU's plain version ignores the tier).  With
         ``devices`` the machines split over them
         (``solve_ls_svm_pairs_sharded``), P padded to a multiple of the
         device count with dummy machines (zero mask, weight 1), which
@@ -1080,8 +1082,9 @@ class CSVM:
         args = (dev(yb), dev(y_last_b), dev(maskb), params.resolved_gamma(d),
                 params.coef0.value, params.cost.value, epsilon, dev(max_iter_b))
         solve_kw = dict(kind=kind, degree=params.degree.value, impl=self._impl(),
-                        scalars=self.scalar_precision, preconditioner=self.preconditioner,
-                        debug=self.debug, x_init=dev(x_init_b), weights=dev(weights_b),
+                        scalars=self.scalar_precision, gram_precision=self.gram_precision,
+                        preconditioner=self.preconditioner, debug=self.debug,
+                        x_init=dev(x_init_b), weights=dev(weights_b),
                         weight_last=dev(weight_last_b))
         if self.devices is not None:
             result = solve_ls_svm_pairs_sharded(

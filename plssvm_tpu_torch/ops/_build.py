@@ -133,6 +133,10 @@ _DMMA = re.compile(r"(gram_dmma_(?:sym|dual|rect))_kernelILi(\d)E")
 _MATRIX = re.compile(r"(kernel_matrix_(?:sym|rect))_kernelI([fd])([fd]|\d+__nv_bfloat16)Li(\d)E")
 #: kernel O (pairs.cu), templates of the type and the kind
 _PAIRS = re.compile(r"(pairs_matvec)_kernelI([fd])Li(\d)E")
+#: kernel O's tensor-core walks (pairs_tc.cu), of the tier and the kind, and
+#: of the kind in float64
+_PAIRS_TC = re.compile(r"(pairs_tc)_kernelI\w*?(Tf32|Bf16)TierELi(\d)E")
+_PAIRS_DMMA = re.compile(r"(pairs_dmma)_kernelILi(\d)E")
 _KINDS = {"1": "poly", "2": "rbf", "3": "sigmoid", "4": "laplacian", "5": "chi_squared"}
 
 
@@ -155,6 +159,8 @@ def kernel_resources() -> Dict[str, Dict[str, int]]:
             dmma = _DMMA.search(entry.group(1))
             matrix = _MATRIX.search(entry.group(1))
             pairs = _PAIRS.search(entry.group(1))
+            pairs_tc = _PAIRS_TC.search(entry.group(1))
+            pairs_dmma = _PAIRS_DMMA.search(entry.group(1))
             name = None
             if short is not None:
                 # kernel I (banded_matvec) is laplacian only: no kind parameter
@@ -178,6 +184,11 @@ def kernel_resources() -> Dict[str, Dict[str, int]]:
             elif pairs is not None:
                 name = (f"{pairs.group(1)} {'f32' if pairs.group(2) == 'f' else 'f64'} "
                         f"{_KINDS.get(pairs.group(3))}")
+            elif pairs_tc is not None:
+                name = (f"{pairs_tc.group(1)} {pairs_tc.group(2).lower()} "
+                        f"{_KINDS.get(pairs_tc.group(3))}")
+            elif pairs_dmma is not None:
+                name = f"{pairs_dmma.group(1)} f64 {_KINDS.get(pairs_dmma.group(2))}"
             elif dual is not None:
                 family = "gram" if dual.group(3) in "123" else "distance"
                 name = (f"{family}_{dual.group(1)}_dual "
@@ -316,6 +327,15 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, f"plssvm_pairs_matvec_{suffix}")
         fn.argtypes = [ptr] * 5 + [i64] * 3 + [cint, cint, real, real, ptr]
         fn.restype = cint
+    # kernel O's tensor-core walks: (operand copy, sq_b, V, len, out, P,
+    # m_pad, d_pad, kind, degree, gamma, coef0, stream)
+    for name, real in (("tf32", f32), ("bf16", f32), ("dmma", f64)):
+        fn = getattr(lib, f"plssvm_pairs_matvec_{name}")
+        fn.argtypes = [ptr] * 5 + [i64] * 3 + [cint, cint, real, real, ptr]
+        fn.restype = cint
+    # (walk: 0 TF32, 1 bf16, 2 float64; kind, int* blocks)
+    lib.plssvm_pairs_blocks_per_sm.argtypes = [cint, cint, ptr]
+    lib.plssvm_pairs_blocks_per_sm.restype = cint
     lib.plssvm_cuda_error_string.argtypes = [cint]
     lib.plssvm_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -1,5 +1,5 @@
-"""Wrapper of kernel O (csrc/pairs.cu): the batched pair-machine matvec of
-one-vs-one training.
+"""Wrapper of kernel O: the batched pair-machine matvec of one-vs-one
+training (csrc/pairs.cu, csrc/pairs_tc.cu).
 
 :func:`pairs_matvec` computes, for every machine p of a (P, m_pad, d) stack
 ``Xb`` with ``lens[p]`` real rows, ``out[p, :lens[p]] = K(X_p, X_p) @
@@ -7,21 +7,35 @@ V[p, :lens[p]]`` with ``X_p = Xb[p, :lens[p]]``, and 0 past ``lens[p]``:
 the product of the batched pairs CG (solver/cg.py ``solve_ls_svm_pairs``),
 one launch per iteration for all C(C-1)/2 machines.  No Pallas kernel is
 replaced: plssvm_tpu computes this product in XLA, a vmapped row-scan
-matvec (plssvm_tpu/solver/cg.py:1104-1105).  The source note in
-csrc/pairs.cu says how it is built and what bounds it.
+matvec (plssvm_tpu/solver/cg.py:1104-1105) whose dot takes the TPU's
+default precision, one bf16 MXU pass: the reference's "f32" tier.  The
+source notes in csrc/pairs.cu and csrc/pairs_tc.cu say how the walks are
+built and what bounds them.
 
-As in ops/gram_matvec.py and ops/distance.py: the wrapper takes its plain
-PyTorch version (:func:`pairs_matvec_plain`, one plain matvec of
-ops/matvec.py per machine) for tensors that lie on the CPU, and only then;
-for a CUDA tensor it launches kernel O or raises, never falls back.  It
-counts its launches (and the plain version its calls) in plain
-module-level ints.  float32 and float64, each computed in its own type at
-full precision (FP32 FFMA, or float64): O takes no Gram tier.  The linear
-kernel is not O's: its factored product is two ``torch.bmm`` calls
+``precision`` is the fit's Gram tier, as for kernels A-D.  On CUDA tensors
+the polynomial, RBF and sigmoid kernels take the tensor-core walk of
+csrc/pairs_tc.cu: float32 at "f32" on TF32 operands and at "bf16" on bf16
+operands, f32 accumulation in both (``tc_launches``), float64 on the FP64
+tensor cores at every tier (``dmma_launches``).  Float32 at "highest", and
+laplacian and chi-squared in either type, take the FFMA walk of
+csrc/pairs.cu (``launches``), full precision.  The tensor-core walks read
+an operand copy of the stack (:func:`pairs_operand`: TF32-rounded or bf16,
+or float64 with an even feature axis), which a solve makes once and hands
+to every product; without it the wrapper makes one per call.
+
+As in ops/gram_matvec.py: the wrapper takes its plain PyTorch version
+(:func:`pairs_matvec_plain`, one plain matvec of ops/matvec.py per machine)
+for tensors that lie on the CPU, and only then, at full precision whatever
+the tier (the CPU tests hold it against plssvm_tpu's XLA product); for a
+CUDA tensor it launches a walk or raises, never falls back.  It counts its
+launches (and the plain version its calls) in plain module-level ints.  The
+linear kernel is not O's: its factored product is two ``torch.bmm`` calls
 (:func:`linear_pairs_matvec`), the reference's XLA product.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -29,10 +43,15 @@ from ..kernel_functions import DISTANCE_KERNELS
 from ..parameter import KernelFunctionType
 from . import _build
 from . import matvec as _plain
-from .gram_matvec import _check_tensors, _raise_on_error, _require_cuda
+from .gram_matvec import (
+    _TC_TIERS, _check_tensors, _raise_on_error, _require_cuda, dmma_operand, tier_operand,
+)
 
-#: kernel O's launches
+#: kernel O's launches on the FFMA walk (csrc/pairs.cu), on the TF32 / bf16
+#: tensor-core walk and on the float64 DMMA walk (csrc/pairs_tc.cu)
 launches = 0
+tc_launches = 0
+dmma_launches = 0
 #: calls of the plain version (CPU tensors)
 plain_calls = 0
 #: the most machines one launch takes (the grid's y extent)
@@ -40,9 +59,9 @@ MAX_MACHINES = 65535
 
 
 def reset_counts() -> None:
-    """Zero kernel O's launch count and the plain version's call count."""
-    global launches, plain_calls
-    launches = plain_calls = 0
+    """Zero kernel O's launch counts and the plain version's call count."""
+    global launches, tc_launches, dmma_launches, plain_calls
+    launches = tc_launches = dmma_launches = plain_calls = 0
 
 
 def _check_kind(kind) -> None:
@@ -51,6 +70,34 @@ def _check_kind(kind) -> None:
             "the linear kernel takes the factored Xb (Xb^T v) product "
             "(linear_pairs_matvec), not kernel O"
         )
+
+
+def walk(Xb: torch.Tensor, kind, precision: str) -> str:
+    """Which of kernel O's walks a stack takes: "plain" on the CPU, "ffma"
+    (csrc/pairs.cu) for the distance kinds and for float32 at "highest",
+    "dmma" for the Gram kinds in float64, "tc" for them in float32 at "f32"
+    and "bf16" (csrc/pairs_tc.cu)."""
+    _plain.check_precision(precision)
+    if Xb.device.type == "cpu":
+        return "plain"
+    if kind in DISTANCE_KERNELS:
+        return "ffma"
+    if Xb.dtype == torch.float64:
+        return "dmma"
+    return "tc" if precision in _TC_TIERS else "ffma"
+
+
+def pairs_operand(Xb: torch.Tensor, kind, precision: str) -> Optional[torch.Tensor]:
+    """The operand copy the tensor-core walks read, ``(P m_pad, d_pad)``:
+    ``tier_operand``'s TF32-rounded or bf16 rows in float32, ``dmma_operand``'s
+    rows (Xb itself when d is even and aligned) in float64; None where the
+    stack takes another walk.  The squared norms stay those of ``Xb``."""
+    route = walk(Xb, kind, precision)
+    if route == "tc":
+        return tier_operand(Xb.reshape(-1, Xb.shape[2]), precision)
+    if route == "dmma":
+        return dmma_operand(Xb.reshape(-1, Xb.shape[2]))
+    return None
 
 
 def linear_pairs_matvec(Xb: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
@@ -69,11 +116,15 @@ def pairs_matvec_plain(
     gamma,
     coef0,
     degree: int,
+    precision: str = "f32",
 ) -> torch.Tensor:
     """Kernel O's function, one plain matvec per machine: the port's
-    ``kernel_matvec_plain`` (full precision) or ``distance_matvec_plain``
-    over the machine's ``lens[p]`` rows; 0 past them."""
+    ``kernel_matvec_plain`` at the tier ``precision`` (as it takes it: "bf16"
+    on bf16-rounded float32 rows with the float32 norms, else full
+    precision) or ``distance_matvec_plain`` over the machine's ``lens[p]``
+    rows; 0 past them."""
     _check_kind(kind)
+    _plain.check_precision(precision)
     global plain_calls
     plain_calls += 1
     out = torch.zeros(V.shape, dtype=V.dtype, device=V.device)
@@ -86,8 +137,25 @@ def pairs_matvec_plain(
         else:
             out[p, :n] = _plain.kernel_matvec_plain(
                 X, sq_b[p, :n], V[p, :n], kind=kind, gamma=gamma, coef0=coef0,
-                degree=degree, precision="highest")
+                degree=degree, precision=precision)
     return out
+
+
+def _check_operand(op: torch.Tensor, Xb: torch.Tensor, kind, precision: str) -> None:
+    """``op`` must be what :func:`pairs_operand` makes of ``Xb``: its rows,
+    type and padded feature axis."""
+    P, m_pad, d = Xb.shape
+    if walk(Xb, kind, precision) == "tc":
+        dtype, multiple = _TC_TIERS[precision][1:]
+    else:
+        dtype, multiple = torch.float64, 2
+    d_pad = d + (-d % multiple)
+    if (op.dtype != dtype or op.device != Xb.device or not op.is_contiguous()
+            or op.ndim != 2 or op.shape[0] != P * m_pad or op.shape[1] not in (d, d_pad)
+            or op.shape[1] % multiple):
+        raise ValueError(
+            f"the operand copy must be pairs_operand's ({P * m_pad}, {d_pad}) {dtype} "
+            f"rows of the stack, not {tuple(op.shape)} {op.dtype}")
 
 
 def pairs_matvec(
@@ -100,6 +168,8 @@ def pairs_matvec(
     gamma,
     coef0,
     degree: int,
+    precision: str = "f32",
+    operand: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``out[p, i] = sum_{j < lens[p]} k(Xb[p, i], Xb[p, j]) V[p, j]`` for
     ``i < lens[p]``, 0 past it (kernel O).
@@ -107,13 +177,48 @@ def pairs_matvec(
     ``Xb`` (P, m_pad, d), ``sq_b`` (P, m_pad) the rows' squared norms (None
     for laplacian and chi-squared, which read none), ``V`` (P, m_pad),
     ``lens`` (P,) int64 on Xb's device, each in [0, m_pad].  Polynomial,
-    RBF, sigmoid, laplacian and chi-squared; P <= 65535.
+    RBF, sigmoid, laplacian and chi-squared; P <= 65535.  ``precision`` the
+    Gram tier (:func:`walk` says which walk it takes); ``operand`` the
+    tensor-core walks' copy of the stack (:func:`pairs_operand`), made here
+    when not given.
     """
     _check_kind(kind)
-    if Xb.device.type == "cpu":
+    route = walk(Xb, kind, precision)
+    if route == "plain":
         return pairs_matvec_plain(Xb, sq_b, V, lens, kind=kind, gamma=gamma,
-                                  coef0=coef0, degree=degree)
-    _require_cuda(Xb, "pairs_matvec")
+                                  coef0=coef0, degree=degree, precision="highest")
+    suffix = _check_stack(Xb, sq_b, V, lens, kind, "pairs_matvec")
+    P, m_pad, _ = Xb.shape
+    out = torch.zeros((P, m_pad), dtype=Xb.dtype, device=Xb.device)
+    if P == 0 or m_pad == 0:
+        return out
+    if route == "ffma":
+        return _launch_ffma(Xb, sq_b, V, lens, out, suffix, kind, gamma, coef0, degree)
+    if operand is None:
+        operand = pairs_operand(Xb, kind, precision)
+    else:
+        _check_operand(operand, Xb, kind, precision)
+    name = _TC_TIERS[precision][0] if route == "tc" else "dmma"
+    lib = _build.load()
+    with torch.cuda.device(Xb.device):
+        err = getattr(lib, f"plssvm_pairs_matvec_{name}")(
+            operand.data_ptr(), sq_b.data_ptr(), V.data_ptr(), lens.data_ptr(),
+            out.data_ptr(), P, m_pad, operand.shape[1], int(kind), int(degree),
+            float(gamma), float(coef0), torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on_error(lib, err, f"pairs_matvec ({name})")
+    global tc_launches, dmma_launches
+    if route == "tc":
+        tc_launches += 1
+    else:
+        dmma_launches += 1
+    return out
+
+
+def _check_stack(Xb, sq_b, V, lens, kind, name: str) -> str:
+    """Validate a CUDA stack and its lengths; return the entry-point
+    suffix."""
+    _require_cuda(Xb, name)
     P, m_pad, d = Xb.shape
     named = [("Xb", Xb), ("V", V)]
     shapes = [(P, m_pad, d), (P, m_pad)]
@@ -126,11 +231,14 @@ def pairs_matvec(
         raise ValueError(f"lens must be a contiguous ({P},) int64 tensor on {Xb.device}")
     if P > MAX_MACHINES:
         raise ValueError(f"kernel O takes at most {MAX_MACHINES} machines, not {P}")
-    out = torch.zeros((P, m_pad), dtype=Xb.dtype, device=Xb.device)
-    if P == 0 or m_pad == 0:
-        return out
+    return suffix
+
+
+def _launch_ffma(Xb, sq_b, V, lens, out, suffix, kind, gamma, coef0, degree):
+    """Kernel O's FFMA walk (csrc/pairs.cu) into the zeroed ``out``."""
     lib = _build.load()
     fn = getattr(lib, f"plssvm_pairs_matvec_{suffix}")
+    P, m_pad, d = Xb.shape
     with torch.cuda.device(Xb.device):
         err = fn(
             Xb.data_ptr(), None if kind in DISTANCE_KERNELS else sq_b.data_ptr(),
@@ -142,3 +250,26 @@ def pairs_matvec(
     global launches
     launches += 1
     return out
+
+
+def ffma_pairs_matvec(
+    Xb: torch.Tensor,
+    sq_b,
+    V: torch.Tensor,
+    lens: torch.Tensor,
+    *,
+    kind: KernelFunctionType,
+    gamma,
+    coef0,
+    degree: int,
+) -> torch.Tensor:
+    """Kernel O's FFMA walk (csrc/pairs.cu) on CUDA tensors whatever the
+    kind's route: the float64 Gram walk that the DMMA walk replaced, kept
+    to be timed beside it.  Counted in ``launches``."""
+    _check_kind(kind)
+    suffix = _check_stack(Xb, sq_b, V, lens, kind, "ffma_pairs_matvec")
+    P, m_pad, _ = Xb.shape
+    out = torch.zeros((P, m_pad), dtype=Xb.dtype, device=Xb.device)
+    if P == 0 or m_pad == 0:
+        return out
+    return _launch_ffma(Xb, sq_b, V, lens, out, suffix, kind, gamma, coef0, degree)

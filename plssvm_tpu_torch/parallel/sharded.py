@@ -504,7 +504,9 @@ def solve_ls_svm_pairs_sharded(
     reference's ``pmax``).  Each machine's arithmetic is what it is on one
     device; the CG scalars' row reductions run over (P_local, m) blocks.
     ``solve_kw`` are ``solve_ls_svm_pairs``' ``kind``, ``degree``,
-    ``impl``, ``scalars``, ``preconditioner`` and ``debug``.
+    ``impl``, ``scalars``, ``gram_precision``, ``preconditioner`` and
+    ``debug``; each group's solve makes its own operand copy for kernel O's
+    tensor-core walks.
     """
     home = Yb.device
     whole: dict = {}

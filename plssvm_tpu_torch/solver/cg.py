@@ -52,8 +52,10 @@ and chi-squared kernels take kernels E and G (ops/distance.py) instead.
 The one-vs-one solve (``solve_ls_svm_pairs``) runs the C(C-1)/2 pair
 machines, each an independent system over its own rows, as one batched CG
 with (P,) vectors of CG scalars: each iteration applies every machine's
-``K_p`` once through kernel O (ops/pairs.py), and a machine freezes at its
-own stop rule or cap.
+``K_p`` once through kernel O (ops/pairs.py) at the solve's Gram tier (the
+Gram kinds in float32 on the tensor cores at "f32" and "bf16", in float64
+on the FP64 tensor cores), and a machine freezes at its own stop rule or
+cap.
 """
 
 from __future__ import annotations
@@ -71,7 +73,9 @@ from ..kernel_functions import (
 from ..ops.distance import distance_matmat_sym, distance_matvec_sym
 from ..ops.gram_matmat import gram_matmat_sym
 from ..ops.gram_matvec import gram_matvec_sym
-from ..ops.pairs import linear_pairs_matvec, pairs_matvec, pairs_matvec_plain
+from ..ops.pairs import (
+    linear_pairs_matvec, pairs_matvec, pairs_matvec_plain, pairs_operand,
+)
 from ..ops.matvec import (
     check_precision,
     distance_matmat_plain,
@@ -718,19 +722,31 @@ def cg_ls_svm_pairs_core(
 
 
 def _make_pairs_matvec(kind: KernelFunctionType, degree: int, impl: str,
-                       lens: torch.Tensor) -> Callable:
-    """The batched product of the pairs solve over machines of ``lens``
-    real rows: ``impl="cuda"`` kernel O (ops/pairs.py; its plain version on
-    CPU tensors), ``"torch"`` the plain version, both at full precision;
-    the linear kernel the factored ``Xb (Xb^T v)`` (two ``torch.bmm``)."""
+                       lens: torch.Tensor, gram_precision: str,
+                       Xb: torch.Tensor) -> Callable:
+    """The batched product of the pairs solve of the stack ``Xb`` over
+    machines of ``lens`` real rows: ``impl="cuda"`` kernel O (ops/pairs.py)
+    at the solve's tier, on the operand copy that the tensor-core walks read
+    (``pairs_operand``), made here once for the whole solve (on CPU tensors
+    the plain version at full precision); ``"torch"`` the plain version at
+    full precision; the linear kernel the factored ``Xb (Xb^T v)`` (two
+    ``torch.bmm``)."""
     if kind == KernelFunctionType.LINEAR:
         return lambda Xb, sq_b, V, gamma, coef0: linear_pairs_matvec(Xb, V)
-    product = pairs_matvec if impl == "cuda" else pairs_matvec_plain
     sq_read = kind not in DISTANCE_KERNELS
+    if impl != "cuda":
+        def plain(Xb, sq_b, V, gamma, coef0):
+            return pairs_matvec_plain(Xb, sq_b if sq_read else None, V, lens, kind=kind,
+                                      gamma=gamma, coef0=coef0, degree=degree,
+                                      precision="highest")
+
+        return plain
+    operand = pairs_operand(Xb, kind, gram_precision)
 
     def kv(Xb, sq_b, V, gamma, coef0):
-        return product(Xb, sq_b if sq_read else None, V, lens, kind=kind,
-                       gamma=gamma, coef0=coef0, degree=degree)
+        return pairs_matvec(Xb, sq_b if sq_read else None, V, lens, kind=kind,
+                            gamma=gamma, coef0=coef0, degree=degree,
+                            precision=gram_precision, operand=operand)
 
     return kv
 
@@ -751,21 +767,25 @@ def solve_ls_svm_pairs(
     degree: int,
     impl: str = "torch",
     scalars: str = "plain",
+    gram_precision: str = "f32",
     **extras,
 ) -> PairsCGResult:
     """The batched one-vs-one LS-SVM CG solve on the device that holds
     ``Xb`` (plssvm_tpu's ``solve_ls_svm_pairs``).
 
     Machine p's real rows are the first ``maskb[p].sum()`` of its block
-    (the mask is a prefix).  The product is kernel O on ``impl="cuda"``
-    (the plain version on CPU tensors and for ``"torch"``), at full
-    precision: the batched solve takes no Gram tier.
+    (the mask is a prefix).  The product is kernel O on ``impl="cuda"`` at
+    the Gram tier ``gram_precision``, every product of the solve at that one
+    tier, as the reference's batched product runs at its default one (the
+    plain version at full precision on CPU tensors and for ``"torch"``,
+    which ignores the tier).
     ``scalars="compensated"`` takes the per-machine dots and sums as
     compensated folds over the transposed (m, P) blocks, one per machine
     (plssvm_tpu's ``compensated_sum((A * V).T)``).  ``extras`` are the
     core's ``preconditioner``, ``x_init``, ``weights`` / ``weight_last`` and
     ``debug``.
     """
+    check_precision(gram_precision)
     lens = (maskb != 0).sum(dim=1).to(torch.int64)
     if scalars == "compensated":
         def bdot(A, V):
@@ -778,6 +798,6 @@ def solve_ls_svm_pairs(
     return cg_ls_svm_pairs_core(
         Xb, x_last_b, Yb, y_last_b, maskb, gamma, coef0, cost, eps, max_iter_b,
         kind=kind, degree=degree,
-        kernel_bmv=_make_pairs_matvec(kind, degree, impl, lens),
+        kernel_bmv=_make_pairs_matvec(kind, degree, impl, lens, gram_precision, Xb),
         bdot=bdot, bsum=bsum, **extras,
     )

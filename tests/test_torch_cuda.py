@@ -26,7 +26,11 @@ csrc/gram_tc.cuh and in float64 on the dual DMMA tile of csrc/gram_dmma.cu)
 are held, both outputs, against their plain versions on
 the tier's operands at the same tolerances, and the row-sharded ring on
 one card (P = 3 and 4 shards on ``cuda:0``) against the single-device
-product at the same tier.
+product at the same tier.  Kernel O (the batched one-vs-one product:
+csrc/pairs_tc.cu's tensor-core walks for the Gram kinds at "f32" / "bf16"
+and in float64, csrc/pairs.cu's FFMA walk else) is held against its plain
+version on the tier's operands at the same tolerances, and each machine
+alone against itself inside a stack, bit for bit.
 """
 
 import pytest
@@ -976,43 +980,102 @@ def test_explicit_fit_on_the_card(cuda_device, kernel, n_classes, devices):
     assert np.max(np.abs(np.asarray(models[0].rho) - np.asarray(models[1].rho))) <= 1e-8
 
 
-#: kernel O's ragged machines: an empty one, one row, one tile and a row,
-#: several tiles (float tiles 128 / 64 rows, double 64)
-PAIRS_LENS = [(2, 0, 1, 129, 300), (65, 64, 63), (1,)]
+#: kernel O's ragged machines: an empty one, one row, two rows, one tile and
+#: a row, several tiles (the FFMA walk's float tiles 128 / 64 rows, double
+#: 64; the tensor-core walks' 128)
+PAIRS_LENS = [(2, 0, 1, 129, 300), (65, 64, 63), (1,), (257, 2, 384)]
+
+
+def _pairs_case(name, dtype, lens, d, device, seed):
+    """A seeded ragged stack (zero past each machine), its norms (None for
+    the distance kinds), right-hand side and lengths on ``device``."""
+    g = torch.Generator().manual_seed(seed)
+    P, m_pad = len(lens), max(lens)
+    mask = torch.arange(m_pad)[None, :] < torch.tensor(lens)[:, None]
+    X = torch.rand(P, m_pad, d, generator=g, dtype=dtype)
+    if name != "chi_squared":
+        X = (X - 0.5) * 0.6
+    X = (X * mask[..., None]).to(device)
+    V = (torch.randn(P, m_pad, generator=g, dtype=dtype) * mask).to(device)
+    sq = None if name in ("laplacian", "chi_squared") else (X * X).sum(-1)
+    return X, sq, V, torch.tensor(lens, dtype=torch.int64, device=device), mask.to(device)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
 @pytest.mark.parametrize("name", list(COEF0) + ["laplacian", "chi_squared"])
 @pytest.mark.parametrize("lens", PAIRS_LENS)
-@pytest.mark.parametrize("d", [3, 200])
-def test_pairs_matvec_against_plain(cuda_device, name, dtype, tol, lens, d):
-    """Kernel O (csrc/pairs.cu) against its plain version, every kind in
-    float32 and float64 on ragged machines: relative to max|plain|, rows
-    past each machine's length exactly 0, a second launch bit for bit the
-    first, one launch counted per call."""
+@pytest.mark.parametrize("d", [3, 37, 200])
+@pytest.mark.parametrize("precision", ["f32", "bf16", "highest"])
+def test_pairs_matvec_against_plain(cuda_device, name, dtype, tol, lens, d, precision):
+    """Kernel O against its plain version, every kind at every tier in
+    float32 and float64 on ragged machines (one of 2 rows; d = 3 and 37 no
+    multiple of 4 or 8): relative to max|plain| on the tier's operands (the
+    TF32 walk against the plain version on ``round_to_tf32``'s rows with
+    the float32 norms, the bf16 walk against the plain version at "bf16"),
+    rows past each machine's length exactly 0, a second launch bit for bit
+    the first, each launch counted on its walk's counter: the tensor-core
+    walk for the Gram kinds at "f32" / "bf16" in float32 and at every tier
+    in float64 (DMMA), the FFMA walk else."""
     from plssvm_tpu_torch.ops import pairs
 
     tkind = getattr(TKind, name.upper())
-    g = torch.Generator().manual_seed(17 + d)
-    P, m_pad = len(lens), max(lens)
-    mask = torch.arange(m_pad)[None, :] < torch.tensor(lens)[:, None]
-    X = torch.rand(P, m_pad, d, generator=g, dtype=dtype)
-    if name != "chi_squared":
-        X = (X - 0.5) * 0.6
-    X = (X * mask[..., None]).to(cuda_device)
-    V = (torch.randn(P, m_pad, generator=g, dtype=dtype) * mask).to(cuda_device)
-    sq = (X * X).sum(-1)
-    lens_t = torch.tensor(lens, dtype=torch.int64, device=cuda_device)
+    X, sq, V, lens_t, mask = _pairs_case(name, dtype, lens, d, cuda_device, 17 + d)
     kw = dict(kind=tkind, gamma=1.0 / d, coef0=COEF0.get(name, 0.0), degree=3)
-    before = pairs.launches
-    got = pairs.pairs_matvec(X, sq, V, lens_t, **kw)
-    again = pairs.pairs_matvec(X, sq, V, lens_t, **kw)
-    want = pairs.pairs_matvec_plain(X, sq, V, lens_t, **kw)
-    assert pairs.launches == before + 2
+    route = pairs.walk(X, tkind, precision)
+    counter = {"tc": "tc_launches", "dmma": "dmma_launches", "ffma": "launches"}[route]
+    before = getattr(pairs, counter)
+    got = pairs.pairs_matvec(X, sq, V, lens_t, precision=precision, **kw)
+    again = pairs.pairs_matvec(X, sq, V, lens_t, precision=precision, **kw)
+    oracle = matvec.round_to_tf32(X) if route == "tc" and precision == "f32" else X
+    want = pairs.pairs_matvec_plain(oracle, sq, V, lens_t, precision=precision, **kw)
+    assert getattr(pairs, counter) == before + 2
     assert torch.equal(got, again)
-    assert bool((got[~mask.to(cuda_device)] == 0).all())
+    assert bool((got[~mask] == 0).all())
     assert (got - want).abs().max() <= tol * max(float(want.abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["rbf", "sigmoid", "chi_squared"])
+@pytest.mark.parametrize("precision", ["f32", "bf16", "highest"])
+def test_pairs_machine_alone_equals_inside_the_stack(cuda_device, dtype, name, precision):
+    """A machine gives bit for bit the same output alone (a stack of one,
+    its own length for m_pad) as inside a stack of neighbours with a longer
+    m_pad, on every walk: no walk reads a neighbour's rows into a sum."""
+    from plssvm_tpu_torch.ops import pairs
+
+    lens = (300, 2, 129, 511, 1)
+    X, sq, V, lens_t, _ = _pairs_case(name, dtype, lens, 37, cuda_device, 5)
+    kw = dict(kind=getattr(TKind, name.upper()), gamma=1.0 / 37, coef0=COEF0.get(name, 0.0),
+              degree=3, precision=precision)
+    inside = pairs.pairs_matvec(X, sq, V, lens_t, **kw)
+    for p, n in enumerate(lens):
+        if n == 0:
+            continue
+        alone = pairs.pairs_matvec(
+            X[p:p + 1, :n].contiguous(), None if sq is None else sq[p:p + 1, :n].contiguous(),
+            V[p:p + 1, :n].contiguous(), lens_t[p:p + 1].clone(), **kw)
+        assert torch.equal(alone[0], inside[p, :n])
+
+
+@pytest.mark.cuda
+def test_pairs_operand_made_once_is_the_one_made_per_call(cuda_device):
+    """Kernel O on a solve's operand copy (``pairs_operand``) gives what it
+    gives on the copy it makes itself, and refuses a copy of another
+    tier."""
+    from plssvm_tpu_torch.ops import pairs
+
+    X, sq, V, lens_t, _ = _pairs_case("rbf", torch.float32, (65, 200), 37, cuda_device, 8)
+    kw = dict(kind=TKind.RBF, gamma=1.0 / 37, coef0=0.0, degree=3)
+    for precision in ("f32", "bf16"):
+        op = pairs.pairs_operand(X, TKind.RBF, precision)
+        assert torch.equal(pairs.pairs_matvec(X, sq, V, lens_t, precision=precision, **kw),
+                           pairs.pairs_matvec(X, sq, V, lens_t, precision=precision,
+                                              operand=op, **kw))
+    with pytest.raises(ValueError, match="operand"):
+        pairs.pairs_matvec(X, sq, V, lens_t, precision="f32",
+                           operand=pairs.pairs_operand(X, TKind.RBF, "bf16"), **kw)
 
 
 @pytest.mark.cuda
@@ -1041,7 +1104,8 @@ def test_batched_oao_fit_on_the_card(cuda_device, kernel, devices):
                         **where).fit(port.DataSet(X, y, scaling=(0.0, 1.0)),
                                      classification="oao", epsilon=1e-10)
               for b in ("cuda", "torch")]
-    assert pairs.launches > 0
+    # RBF on the DMMA walk, chi-squared on the FFMA walk
+    assert (pairs.dmma_launches if kernel == "rbf" else pairs.launches) > 0
     assert max(abs(a - b) for a, b in zip(models[0].n_iter_per_machine,
                                           models[1].n_iter_per_machine)) <= 2
     assert np.max(np.abs(np.asarray(models[0].rho) - np.asarray(models[1].rho))) <= 1e-6

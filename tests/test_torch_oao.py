@@ -190,10 +190,13 @@ def test_pairs_matvec_takes_the_plain_version_only_on_the_cpu():
 
 def test_pairs_entry_points_argtypes_match_the_source(monkeypatch):
     """What _build.load() declares for kernel O's entry points is their C
-    signature, parameter by parameter."""
+    signature, parameter by parameter: the FFMA walk's (csrc/pairs.cu) and
+    the tensor-core walks' (csrc/pairs_tc.cu)."""
     c_types = {"int64_t": ctypes.c_int64, "int": ctypes.c_int, "float": ctypes.c_float,
                "double": ctypes.c_double}
-    source = open(os.path.join(REPO, "plssvm_tpu_torch", "csrc", "pairs.cu")).read()
+    csrc = os.path.join(REPO, "plssvm_tpu_torch", "csrc")
+    source = "".join(open(os.path.join(csrc, name)).read()
+                     for name in ("pairs.cu", "pairs_tc.cu"))
 
     class FakeLibrary:
         def __getattr__(self, attr):
@@ -205,8 +208,10 @@ def test_pairs_entry_points_argtypes_match_the_source(monkeypatch):
     monkeypatch.setattr(_build, "build", lambda: (None, 0.0))
     monkeypatch.setattr(ctypes, "CDLL", lambda path: FakeLibrary())
     lib = _build.load()
-    for suffix in ("f32", "f64"):
-        name = f"plssvm_pairs_matvec_{suffix}"
+    names = [f"plssvm_pairs_matvec_{suffix}" for suffix in ("f32", "f64", "tf32", "bf16", "dmma")]
+    assert set(re.findall(r'extern "C" int (plssvm_pairs_\w+)\(', source)) == set(
+        names + ["plssvm_pairs_blocks_per_sm"])
+    for name in names + ["plssvm_pairs_blocks_per_sm"]:
         params = re.search(rf'extern "C" int {name}\(([^)]*)\)', source).group(1)
         want = [ctypes.c_void_p if "*" in p else c_types[p.split()[-2]]
                 for p in (" ".join(q.split()) for q in params.split(","))]
@@ -228,13 +233,158 @@ def test_kernel_resources_names_kernel_o(monkeypatch, tmp_path):
         "'_ZN12_GLOBAL__N_119pairs_matvec_kernelIdLi5EEEvPKT_S3_S3_PKlPS1_llS1_S1_' "
         "for 'sm_90a'\n"
         "ptxas info    : 8 bytes spill stores, 8 bytes spill loads\n"
-        "ptxas info    : Used 128 registers, 16640 bytes smem\n")
+        "ptxas info    : Used 128 registers, 16640 bytes smem\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_115pairs_tc_kernelINS_8Tf32TierELi2EEEv14CUtensorMap_stPKfS4_PKlPfliiff' "
+        "for 'sm_90a'\n"
+        "ptxas info    : Used 126 registers, 3120 bytes smem, 0 bytes spill stores, "
+        "0 bytes spill loads\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_115pairs_tc_kernelINS_8Bf16TierELi3EEEv14CUtensorMap_stPKfS4_PKlPfliiff' "
+        "for 'sm_90a'\n"
+        "ptxas info    : Used 120 registers, 3120 bytes smem, 0 bytes spill stores, "
+        "0 bytes spill loads\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_117pairs_dmma_kernelILi1EEEv14CUtensorMap_stPKdS4_PKlPdliiidd' "
+        "for 'sm_90a'\n"
+        "ptxas info    : Used 212 registers, 13360 bytes smem, 0 bytes spill stores, "
+        "0 bytes spill loads\n")
     monkeypatch.setattr(_build, "library_path", lambda: library)
     res = _build.kernel_resources()
     assert res["pairs_matvec f32 rbf"] == {"registers": 96, "smem_bytes": 16896,
                                            "spill_bytes": 0}
     assert res["pairs_matvec f64 chi_squared"] == {"registers": 128, "smem_bytes": 16640,
                                                    "spill_bytes": 16}
+    assert res["pairs_tc tf32 rbf"] == {"registers": 126, "smem_bytes": 3120, "spill_bytes": 0}
+    assert res["pairs_tc bf16 sigmoid"] == {"registers": 120, "smem_bytes": 3120,
+                                            "spill_bytes": 0}
+    assert res["pairs_dmma f64 poly"] == {"registers": 212, "smem_bytes": 13360,
+                                          "spill_bytes": 0}
+    assert len(res) == 5
+
+
+#: kernel O's walk by (type, kind, tier) on a card's tensors: the Gram kinds
+#: on the tensor cores at "f32" / "bf16" (float32) and at every tier
+#: (float64), "highest" float32 and the distance kinds on the FFMA walk
+WALKS = [(dtype, kind, precision,
+          "ffma" if kind in ("laplacian", "chi_squared")
+          else "dmma" if dtype == torch.float64
+          else "ffma" if precision == "highest" else "tc")
+         for dtype in (torch.float32, torch.float64) for kind, _ in KINDS
+         for precision in ("f32", "bf16", "highest")]
+
+
+@pytest.mark.parametrize("dtype,kind,precision,want", WALKS)
+def test_pairs_walk_by_kind_tier_and_type(dtype, kind, precision, want):
+    """``pairs.walk`` on tensors off the CPU (the meta device stands in for
+    the card: no data, the same routing) and the operand copy it reads:
+    (P m_pad, d_pad) rows, TF32-rounded float32 padded to d % 4, bf16
+    padded to d % 8, float64 padded to d % 2; none for the FFMA walk.  On
+    CPU tensors every kind and tier takes the plain version."""
+    tkind = getattr(TKind, kind.upper())
+    Xb = torch.empty((3, 5, 7), dtype=dtype, device="meta")
+    assert pairs.walk(Xb, tkind, precision) == want
+    assert pairs.walk(torch.zeros((3, 5, 7), dtype=dtype), tkind, precision) == "plain"
+    op = pairs.pairs_operand(Xb, tkind, precision)
+    if want == "ffma":
+        assert op is None
+    else:
+        # d = 7 pads to 8 in every walk: TF32 to d % 4, bf16 to d % 8, float64 to d % 2
+        op_dtype = (torch.float64 if want == "dmma" else torch.bfloat16 if precision == "bf16"
+                    else torch.float32)
+        assert (tuple(op.shape), op.dtype) == ((15, 8), op_dtype)
+    with pytest.raises(ValueError, match="precision"):
+        pairs.walk(Xb, tkind, "tf32")
+
+
+@pytest.mark.parametrize("kind", ["polynomial", "rbf", "sigmoid"])
+def test_pairs_matvec_plain_takes_the_tier(kind):
+    """The plain version takes the tier as ``kernel_matvec_plain`` does:
+    "bf16" computes on the bf16-rounded float32 rows with the float32 rows'
+    norms, "f32" and "highest" in full float32; float64 at every tier in
+    float64.  The wrapper on CPU tensors takes full precision whatever the
+    tier."""
+    rng = np.random.default_rng(9)
+    lens = torch.tensor([6, 2, 9])
+    X = torch.as_tensor(rng.normal(size=(3, 9, 5)) * 0.5 * (np.arange(9)[None, :, None]
+                                                            < lens.numpy()[:, None, None]))
+    V = torch.as_tensor(rng.normal(size=(3, 9)) * (np.arange(9)[None, :] < lens.numpy()[:, None]))
+    kw = dict(kind=getattr(TKind, kind.upper()), gamma=0.3, coef0=0.5, degree=2)
+    for dtype in (torch.float32, torch.float64):
+        Xt, Vt = X.to(dtype), V.to(dtype)
+        sq = (Xt * Xt).sum(-1)
+        full = pairs.pairs_matvec_plain(Xt, sq, Vt, lens, precision="highest", **kw)
+        assert torch.equal(pairs.pairs_matvec_plain(Xt, sq, Vt, lens, precision="f32", **kw),
+                           full)
+        bf16 = pairs.pairs_matvec_plain(Xt, sq, Vt, lens, precision="bf16", **kw)
+        if dtype == torch.float64:
+            assert torch.equal(bf16, full)
+        else:
+            rounded = Xt.to(torch.bfloat16).to(torch.float32)
+            assert torch.equal(bf16, pairs.pairs_matvec_plain(rounded, sq, Vt, lens,
+                                                              precision="f32", **kw))
+            assert not torch.equal(bf16, full)
+        for precision in ("f32", "bf16", "highest"):
+            assert torch.equal(pairs.pairs_matvec(Xt, sq, Vt, lens, precision=precision, **kw),
+                               full)
+
+
+def _record_pairs_precision(monkeypatch):
+    """Wrap the solver's ``pairs_matvec`` so that each call's tier and
+    operand are recorded, and the call goes on."""
+    from plssvm_tpu_torch.solver import cg as t_cg
+
+    seen = []
+    real = t_cg.pairs_matvec
+
+    def recording(*args, precision, operand, **kw):
+        seen.append((precision, operand))
+        return real(*args, precision=precision, operand=operand, **kw)
+
+    monkeypatch.setattr(t_cg, "pairs_matvec", recording)
+    return seen
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "highest"])
+@pytest.mark.parametrize("devices", [None, ["cpu"] * 3])
+def test_batched_fit_passes_the_tier_to_kernel_o(monkeypatch, precision, devices):
+    """A batched fit with the CUDA backend hands kernel O its
+    ``gram_precision`` on every product, on one device and in every group
+    of the machine split (here on CPU tensors, where the wrapper then takes
+    the plain version at full precision)."""
+    seen = _record_pairs_precision(monkeypatch)
+    X, y = make_multiclass_blobs(90, 4, 4, seed=3)
+    where = dict(device="cpu") if devices is None else dict(devices=devices)
+    svm = plssvm_tpu_torch.CSVM(backend="torch", dtype=np.float64, kernel_type="rbf",
+                                gamma=0.3, oao_batch="batched", gram_precision=precision,
+                                **where)
+    monkeypatch.setattr(svm, "_impl", lambda: "cuda")
+    model = svm.fit(plssvm_tpu_torch.DataSet(X, y), classification="oao", epsilon=1e-8)
+    groups = 1 if devices is None else len(devices)
+    # each group's solve: its initial residual and one product an iteration
+    assert len(seen) >= groups + max(model.n_iter_per_machine)
+    assert {p for p, _ in seen} == {precision}
+    # on CPU tensors no walk takes an operand copy
+    assert all(op is None for _, op in seen)
+
+
+def test_cpu_batched_fit_ignores_the_tier():
+    """On the CPU the batched fit's product is the plain version at full
+    precision at every tier, for both backends: the models are bit for bit
+    the same."""
+    X, y = make_multiclass_blobs(90, 4, 4, seed=3)
+    models = {}
+    for backend in ("cuda", "torch"):
+        for precision in ("f32", "bf16", "highest"):
+            svm = plssvm_tpu_torch.CSVM(backend=backend, device="cpu", dtype=np.float32,
+                                        kernel_type="rbf", gamma=0.3, oao_batch="batched",
+                                        gram_precision=precision)
+            models[backend, precision] = svm.fit(plssvm_tpu_torch.DataSet(X, y),
+                                                 classification="oao", epsilon=1e-5)
+    first = models["cuda", "f32"]
+    for model in models.values():
+        np.testing.assert_array_equal(np.asarray(model.alpha), np.asarray(first.alpha))
+        np.testing.assert_array_equal(np.asarray(model.rho), np.asarray(first.rho))
 
 
 # -- the fits ---------------------------------------------------------------
@@ -616,24 +766,41 @@ def _chip_smoke():
     return module
 
 
-@pytest.mark.parametrize("kind,itemsize,per_pair_feature,rate", [
-    ("rbf", 4, 1, "FP32_INSTR_PER_S"), ("laplacian", 4, 2, "FP32_INSTR_PER_S"),
-    ("chi_squared", 4, 1, "SFU_OPS_PER_S"), ("chi_squared", 8, 11, "FP64_INSTR_PER_S"),
-    ("rbf", 8, 1, "FP64_INSTR_PER_S")])
-def test_chip_smoke_pairs_bound(kind, itemsize, per_pair_feature, rate):
+@pytest.mark.parametrize("kind,itemsize,per_pair_feature,rate,tier", [
+    ("rbf", 4, 1, "FP32_INSTR_PER_S", None), ("laplacian", 4, 2, "FP32_INSTR_PER_S", None),
+    ("chi_squared", 4, 1, "SFU_OPS_PER_S", None), ("chi_squared", 8, 11, "FP64_INSTR_PER_S", None),
+    ("rbf", 8, 1, "FP64_INSTR_PER_S", None), ("rbf", 4, 2, "TF32_FLOP_PER_S", "tf32"),
+    ("rbf", 4, 2, "BF16_FLOP_PER_S", "bf16"), ("polynomial", 4, 2, "TF32_FLOP_PER_S", "tf32"),
+    ("rbf", 8, 2, "DMMA_FLOP_PER_S", "dmma"), ("sigmoid", 8, 2, "DMMA_FLOP_PER_S", "dmma")])
+def test_chip_smoke_pairs_bound(kind, itemsize, per_pair_feature, rate, tier):
     """``chip_smoke.py``'s bound of kernel O: the machines' distinct pairs
     (the triangle) times d at the pair operation's unit, plus the
     contraction's FFMAs (one per pair of the full square) on the FP32 /
-    FP64 pipe where that pipe bounds it; by operations at OAO's widths."""
+    FP64 pipe where that pipe bounds it; on the tensor cores (``tier``) 2
+    flops per pair and feature at the tier's peak, beside which the FP32
+    lanes take the FFMAs and, for RBF, the SFU (FP64 pipe on the DMMA walk)
+    one exp per pair.  By operations at OAO's widths."""
     chip_smoke = _chip_smoke()
     lens, d = np.asarray([2104, 2, 1500]), 200
-    ms, by = chip_smoke._pairs_bound(lens, d, kind, itemsize)
+    ms, by = chip_smoke._pairs_bound(lens, d, kind, itemsize, tier)
     pairs = float(np.sum(lens * (lens + 1) / 2))
     fmas = float(np.sum(lens.astype(np.float64) ** 2))
-    if rate == "SFU_OPS_PER_S":
+    exp = pairs if kind == "rbf" else 0.0
+    if tier in ("tf32", "bf16"):
+        want = max(2 * pairs * d / getattr(chip_smoke, rate),
+                   fmas / chip_smoke.FP32_INSTR_PER_S, exp / chip_smoke.SFU_OPS_PER_S)
+    elif tier == "dmma":
+        want = max(2 * pairs * d / chip_smoke.DMMA_FLOP_PER_S,
+                   (fmas + chip_smoke.EXP_F64_OPS * exp) / chip_smoke.FP64_INSTR_PER_S)
+    elif rate == "SFU_OPS_PER_S":
         want = max(pairs * d / chip_smoke.SFU_OPS_PER_S,
                    (4 * pairs * d + fmas) / chip_smoke.FP32_INSTR_PER_S)
     else:
         want = (per_pair_feature * pairs * d + fmas) / getattr(chip_smoke, rate)
     assert by == "operations"
     assert ms == pytest.approx(want * 1e3, rel=1e-12)
+    if tier in ("tf32", "bf16"):
+        # the rows move at the tier's operand size: the bytes stay far below
+        rows = float(np.sum(lens))
+        n_bytes = chip_smoke.TC_TIERS[tier][1] * rows * d + 12 * rows
+        assert n_bytes / chip_smoke.HBM_BYTES_PER_S < want
