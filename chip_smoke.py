@@ -347,6 +347,16 @@ WALK_INSTANTIATIONS = (
        for k in ("laplacian", "chi_squared")])
 
 
+#: kernel_resources() names of kernel O's FFMA walk (csrc/pairs.cu), per
+#: type and kind, and of its reduction, per type and tile edge
+PAIRS_FFMA_INSTANTIATIONS = (
+    [f"pairs_matvec {t} {k}" for t in ("f32", "f64")
+     for k in ("poly", "rbf", "sigmoid", "laplacian", "chi_squared")]
+    + ["pairs_reduce f32 edge 128", "pairs_reduce f32 edge 64", "pairs_reduce f64 edge 64"])
+#: the most spill bytes an instantiation of kernel O's FFMA walk may take
+PAIRS_FFMA_SPILL_BYTES = 128
+
+
 #: run in another checkout: build its kernels, print their resources
 _OTHER_BUILD = (
     "import json; from plssvm_tpu_torch.ops import _build; _build.build(); "
@@ -395,6 +405,22 @@ def phase_build(compare=None):
         raise AssertionError(f"pairs_tc's instantiations ({compiled} compiled): {walk_tc}")
     if "C7515" in ptxas:
         raise AssertionError("ptxas serialised a tensor-core product (C7515)")
+    # kernel O's FFMA walk: one instantiation per type and kind, within the
+    # registers of the blocks an SM its __launch_bounds__ asks for (two: 128
+    # registers, where the float Gram and laplacian tiles spill 48-84 bytes
+    # on an H100 with nvcc 12.9; one for double chi-squared) and spilling no
+    # more than PAIRS_FFMA_SPILL_BYTES; its reduction one per type and tile
+    # edge, none spilling
+    ffma = {n: r for n, r in mine.items() if n.split()[0] in ("pairs_matvec", "pairs_reduce")}
+    if sorted(ffma) != sorted(PAIRS_FFMA_INSTANTIATIONS) or any(
+            r.get("spill_bytes", 0) > (PAIRS_FFMA_SPILL_BYTES if n.startswith("pairs_matvec")
+                                       else 0)
+            or r.get("registers", 256) > (255 if n == "pairs_matvec f64 chi_squared" else 128)
+            for n, r in ffma.items()):
+        raise AssertionError(f"kernel O's FFMA walk's instantiations: {ffma}")
+    log("build", "kernel O's FFMA walk and reduction: " + ", ".join(
+        f"{n.split(' ', 1)[1]} {r['registers']} registers, {r.get('spill_bytes', 0)} spill "
+        f"bytes" for n, r in sorted(ffma.items())))
     # the matvec walk (J at "highest", L): one instantiation per float32
     # kind and per float64 distance kind, none spilling
     walk = {n: r for n, r in mine.items()
@@ -2246,10 +2272,12 @@ def _compare_times():
     10's shape (59999 x 784, C = 10); each in ms beside its bound, the
     ring block's and J back to back (``_back_to_back_ms``: 20 calls, J 5),
     the others the median of 5 calls after 1 warm-up; and
-    the float64 chi-squared fit of phase 9's classes (10000 x 200, 10
-    classes) and the float64 laplacian fit of phase 8's config 2 rows
-    (10000 x 200, two classes), epsilon 1e-10, on one device and on the
-    four-shard ring, s/iteration.  Returns {label: [value, bound ms or
+    kernel O's FFMA walk (``_compare_pairs``) at the oao phase's stacks,
+    chi-squared and laplacian at (c)'s in float32 and float64 and RBF at
+    "highest" at (b)'s and (d)'s; and the float64 chi-squared fit of phase 9's classes (10000 x
+    200, 10 classes) and the float64 laplacian fit of phase 8's config 2
+    rows (10000 x 200, two classes), epsilon 1e-10, on one device and on
+    the four-shard ring, s/iteration.  Returns {label: [value, bound ms or
     None]}."""
     import plssvm_tpu_torch as port
     from plssvm_tpu_torch.ops import distance, gram_matvec
@@ -2334,6 +2362,23 @@ def _compare_times():
     chi2_cell = dict(labels=y_test, params=dict(kernel_type="chi_squared",
                                                 gamma=_chi2_gamma(rng, X)))
     chi2_data = (X, y, X_test, y_test)
+    # kernel O's FFMA walk at the oao phase's stacks: (c), these classes'
+    # 45 machines, chi-squared and laplacian in both types; (b) and (d),
+    # the 10 Gaussian classes of phases 5 and 7 (their first draws), RBF
+    # at "highest"
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        Xb, _, lens = _pairs_stack(X, y, dtype)
+        for kind, g in ((K.CHI_SQUARED, chi2_cell["params"]["gamma"]), (K.LAPLACIAN, 1.0 / 200)):
+            out[f"pairs_matvec (ffma) {tag} {kind} at (c)'s stack {tuple(Xb.shape)}"] = \
+                _compare_pairs(Xb, None, lens, kind, g, gen)
+        del Xb
+    for cell, seed, n, d in (("b", SEED + 3, 10000, 200), ("d", SEED + 4, 60000, 784)):
+        g_rng = np.random.default_rng(seed)
+        Xm, ym = _draw(g_rng, _class_means(g_rng, d), n)
+        Xb, sq, lens = _pairs_stack(Xm, ym, torch.float32)
+        out[f"pairs_matvec (ffma) f32 rbf highest at ({cell})'s stack {tuple(Xb.shape)}"] = \
+            _compare_pairs(Xb, sq, lens, K.RBF, 1.0 / d, gen, "highest")
+        del Xm, Xb, sq
     rng = np.random.default_rng(SEED)  # _write_config2's draws
     config2 = []
     for n in (10000, 2000):
@@ -2351,6 +2396,17 @@ def _compare_times():
             out[f"{fit}, {label}: s/iteration"] = [run["s_per_it"], None]
             out[f"{fit}, {label}: iterations"] = [run["iterations"], None]
     return out
+
+
+def _compare_pairs(Xb, sq, lens, kind, gamma, gen, precision="f32"):
+    """[ms, bound ms] of kernel O at one stack: the median of 5 calls
+    after 1 warm-up on a seeded right-hand side, beside ``_pairs_bound``."""
+    from plssvm_tpu_torch.ops import pairs
+
+    V = _pairs_rhs(Xb, lens, gen)
+    kw = dict(kind=kind, gamma=gamma, coef0=0.0, degree=3, precision=precision)
+    ms = _median_ms(lambda: pairs.pairs_matvec(Xb, sq, V, lens, **kw), 5, 1)
+    return [ms, _pairs_bound(lens.cpu().numpy(), Xb.shape[2], str(kind), Xb.element_size())[0]]
 
 
 #: run in a checkout: import the package there and print _compare_times()
@@ -4331,10 +4387,12 @@ FRIEDMAN_R2_GAP = 0.005
 
 def _pairs_bound(lens, d, kind, itemsize, tier=None):
     """The bound of kernel O's function on machines of ``lens`` rows: the
-    sum_p l (l + 1) / 2 distinct pairs of the symmetric kernels (O walks
-    the full square, so it can reach at most half of this), sum_p l^2
-    FFMAs of the contraction, each machine's rows, norms, right-hand side
-    and output moved once.  ``tier`` as in ``_sym_bound``: None the FFMA
+    sum_p l (l + 1) / 2 distinct pairs of the symmetric kernels (the FFMA
+    walk evaluates each machine's upper triangle of tiles once, those pairs
+    and half a diagonal tile's more; the tensor-core walks the full square,
+    so they reach at most half of this), sum_p l^2 FFMAs of the
+    contraction (one each way per pair), each machine's rows, norms,
+    right-hand side and output moved once.  ``tier`` as in ``_sym_bound``: None the FFMA
     walk (float64 on the FP64 pipe), "tf32" / "bf16" the tensor-core walk
     (the rows at the tier's operand size, the rest float32), "dmma" the
     float64 tensor-core walk; on the tensor cores an RBF pair also takes
@@ -4479,18 +4537,28 @@ def _pairs_time(label, Xb, sq, V, lens, kind, gamma, coef0=0.0, precision="f32")
     kind_t = K.from_string(kind)
     route, tier = _pairs_tier(Xb, kind, precision)
     kw = dict(kind=kind_t, gamma=gamma, coef0=coef0, degree=3, precision=precision)
+    # the Gram kinds' readings name the tier, the distance kinds' (no tier)
+    # the type
+    tag = precision if sq is not None else ("f32" if Xb.dtype == torch.float32 else "f64")
     copy_ms = _median_ms(lambda: pairs.pairs_operand(Xb, kind_t, precision), 5, 1)
     operand = pairs.pairs_operand(Xb, kind_t, precision)
-    lens_h = lens.cpu().numpy()
-    pair_features = float(np.sum(lens_h.astype(np.float64) ** 2)) * Xb.shape[2]
+    lens_h = lens.cpu().numpy().astype(np.float64)
+    # the pairs as walked: the FFMA walk's triangle, the tensor-core walks'
+    # full square
+    if route == "ffma":
+        walked, counted = lens_h * (lens_h + 1) / 2, "sum_p len_p (len_p + 1) / 2 d, the triangle"
+    else:
+        walked, counted = lens_h ** 2, "sum_p len_p^2 d, the full square"
     k_ms, p_ms = _time_pair(
-        f"pairs_matvec ({route})", lambda *a, **k: pairs.pairs_matvec(*a, operand=operand, **k),
-        pairs.pairs_matvec_plain, (Xb, sq, V, lens), kw, pair_features, f"{precision} {label}",
-        plain_repeats=3, unit="T pair-features/s", counted="sum_p len_p^2 d, as walked")
+        f"pairs_matvec ({route})",
+        lambda *a, **k: pairs.pairs_matvec(*a, operand=operand, **k),
+        pairs.pairs_matvec_plain, (Xb, sq, V, lens), kw, float(np.sum(walked)) * Xb.shape[2],
+        f"{tag} {label}", plain_repeats=3, unit="T pair-features/s",
+        counted=f"{counted}, as walked")
     bound = _pairs_bound(lens_h, Xb.shape[2], kind, Xb.element_size(), tier)
-    _log_bound(f"pairs_matvec ({route})", f"{precision} {label}", k_ms, bound)
+    _log_bound(f"pairs_matvec ({route})", f"{tag} {label}", k_ms, bound)
     yard = None if sq is None else _pairs_yardstick(Xb, lens, precision)
-    log("oao", f"kernel O ({route}) {precision} {label}: operand copy "
+    log("oao", f"kernel O ({route}) {tag} {label}: operand copy "
         + (f"{copy_ms:.3f} ms once per solve" if operand is not None else "none")
         + ("" if yard is None else f"; yardstick {yard:.3f} ms (per-machine torch.matmul "
            f"(X_p, X_p.T) at the tier, summed: the Gram part only)"))
@@ -4834,6 +4902,23 @@ def phase_oao(tmp, mc_written, chi2_cell, mnist_cell, main_ms):
                                             Xb, None, V, lens, "chi_squared", gamma_c)
     for table, value in zip(tables, (err_c, (ms_c, plain_c), bound_c)):
         table[("pairs_matvec", "chi_squared")] = value
+    main_ms[(("pairs_matvec", "chi_squared"), "oao")] = (ms_c, bound_c[0])
+    # the FFMA walk's other kinds and types at (c)'s stack (no main-path fit
+    # here runs them): laplacian in float32, chi-squared and laplacian in
+    # float64, each checked and timed beside its bound and plain version
+    ffma_c = {("f32", "chi_squared"): (ms_c, plain_c, bound_c)}
+    for dtype, kind, g in ((torch.float32, "laplacian", 1.0 / Xb.shape[2]),
+                           (torch.float64, "chi_squared", gamma_c),
+                           (torch.float64, "laplacian", 1.0 / Xb.shape[2])):
+        type_name = "f32" if dtype == torch.float32 else "f64"
+        Xk, Vk = Xb.to(dtype), V.to(dtype)
+        label = f"{kind} at (c)'s stack {tuple(Xb.shape)}"
+        _pairs_check(f"{kind} {type_name} at (c)'s stack", Xk, None, Vk, lens, kind, g)
+        ffma_c[(type_name, kind)] = _pairs_time(label, Xk, None, Vk, lens, kind, g)[:3]
+        del Xk, Vk
+    log("oao", "(c) kernel O's FFMA walk at (c)'s stack: " + ", ".join(
+        f"{k} {t} {ms:.3f} ms (plain {p_ms:.3f}, bound {b[0]:.3f} {b[1]}, share "
+        f"{b[0] / ms:.3f})" for (t, k), (ms, p_ms, b) in ffma_c.items()))
     del Xb, sq, V
     runs_c = {}
     for strat in ("batched", "sequential"):
@@ -4991,8 +5076,8 @@ def main(argv=None):
     parser.add_argument("--compare-build", metavar="DIR",
                         help="another checkout whose kernels' resources the build phase "
                              "compares with these, and whose distance kernels, J at "
-                             "'highest' and float64 distance fits the compare phase times "
-                             "beside these")
+                             "'highest', kernel O's FFMA walk and float64 distance fits the "
+                             "compare phase times beside these")
     parser.add_argument("--chi2-width-agreement", action="store_true",
                         help="run only the chi2-width agreement study "
                              "(phase_chi2_width_agreement) and print its record")

@@ -991,7 +991,11 @@ class CSVM:
         never; ``"auto"`` batches when there are at least two machines, no
         checkpoint is asked for and the per-device stack of the machines'
         rows, (ceil(P / devices), m_pad, d) with m_pad the largest
-        machine's dept, fits the budget.
+        machine's dept, fits the budget.  The budget counts the stack
+        alone, as plssvm_tpu's does: kernel O's FFMA walk adds a workspace
+        of under 17 (m_pad + 16 x 128) values a machine
+        (csrc/pairs.cu ``plssvm_pairs_workspace_elements``): 17 / d of the
+        stack plus a few MB.
         """
         if self.oao_batch == "sequential":
             return False

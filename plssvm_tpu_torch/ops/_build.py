@@ -131,8 +131,10 @@ _DMMA = re.compile(r"(gram_dmma_(?:sym|dual|rect))_kernelILi(\d)E")
 #: kernel N (kernel_matrix.cu), templates of the type, the stored type and
 #: the kind
 _MATRIX = re.compile(r"(kernel_matrix_(?:sym|rect))_kernelI([fd])([fd]|\d+__nv_bfloat16)Li(\d)E")
-#: kernel O (pairs.cu), templates of the type and the kind
+#: kernel O's FFMA walk (pairs.cu), templates of the type and the kind, and
+#: its reduction, of the type and the tile edge
 _PAIRS = re.compile(r"(pairs_matvec)_kernelI([fd])Li(\d)E")
+_PAIRS_REDUCE = re.compile(r"(pairs_reduce)_kernelI([fd])Li(\d+)E")
 #: kernel O's tensor-core walks (pairs_tc.cu), of the tier and the kind, and
 #: of the kind in float64
 _PAIRS_TC = re.compile(r"(pairs_tc)_kernelI\w*?(Tf32|Bf16)TierELi(\d)E")
@@ -161,6 +163,7 @@ def kernel_resources() -> Dict[str, Dict[str, int]]:
             pairs = _PAIRS.search(entry.group(1))
             pairs_tc = _PAIRS_TC.search(entry.group(1))
             pairs_dmma = _PAIRS_DMMA.search(entry.group(1))
+            pairs_reduce = _PAIRS_REDUCE.search(entry.group(1))
             name = None
             if short is not None:
                 # kernel I (banded_matvec) is laplacian only: no kind parameter
@@ -189,6 +192,10 @@ def kernel_resources() -> Dict[str, Dict[str, int]]:
                         f"{_KINDS.get(pairs_tc.group(3))}")
             elif pairs_dmma is not None:
                 name = f"{pairs_dmma.group(1)} f64 {_KINDS.get(pairs_dmma.group(2))}"
+            elif pairs_reduce is not None:
+                name = (f"{pairs_reduce.group(1)} "
+                        f"{'f32' if pairs_reduce.group(2) == 'f' else 'f64'} "
+                        f"edge {pairs_reduce.group(3)}")
             elif dual is not None:
                 family = "gram" if dual.group(3) in "123" else "distance"
                 name = (f"{family}_{dual.group(1)}_dual "
@@ -322,10 +329,10 @@ def load() -> ctypes.CDLL:
         rect.argtypes = [ptr, ptr, ptr, i64, i64, i64, cint, real, cint, ptr]
         sym.restype = rect.restype = cint
     for suffix, real in (("f32", f32), ("f64", f64)):
-        # kernel O: (Xb, sq_b, V, len, out, P, m_pad, d, kind, degree, gamma,
-        # coef0, stream)
+        # kernel O's FFMA walk: (Xb, sq_b, V, len, out, workspace, P, m_pad,
+        # d, kind, degree, gamma, coef0, stream)
         fn = getattr(lib, f"plssvm_pairs_matvec_{suffix}")
-        fn.argtypes = [ptr] * 5 + [i64] * 3 + [cint, cint, real, real, ptr]
+        fn.argtypes = [ptr] * 6 + [i64] * 3 + [cint, cint, real, real, ptr]
         fn.restype = cint
     # kernel O's tensor-core walks: (operand copy, sq_b, V, len, out, P,
     # m_pad, d_pad, kind, degree, gamma, coef0, stream)
@@ -333,6 +340,9 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, f"plssvm_pairs_matvec_{name}")
         fn.argtypes = [ptr] * 5 + [i64] * 3 + [cint, cint, real, real, ptr]
         fn.restype = cint
+    # (P, m_pad, kind, is_double): the FFMA walk's workspace in values
+    lib.plssvm_pairs_workspace_elements.argtypes = [i64, i64, cint, cint]
+    lib.plssvm_pairs_workspace_elements.restype = i64
     # (walk: 0 TF32, 1 bf16, 2 float64; kind, int* blocks)
     lib.plssvm_pairs_blocks_per_sm.argtypes = [cint, cint, ptr]
     lib.plssvm_pairs_blocks_per_sm.restype = cint

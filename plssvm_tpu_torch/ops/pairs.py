@@ -18,10 +18,16 @@ csrc/pairs_tc.cu: float32 at "f32" on TF32 operands and at "bf16" on bf16
 operands, f32 accumulation in both (``tc_launches``), float64 on the FP64
 tensor cores at every tier (``dmma_launches``).  Float32 at "highest", and
 laplacian and chi-squared in either type, take the FFMA walk of
-csrc/pairs.cu (``launches``), full precision.  The tensor-core walks read
-an operand copy of the stack (:func:`pairs_operand`: TF32-rounded or bf16,
-or float64 with an even feature axis), which a solve makes once and hands
-to every product; without it the wrapper makes one per call.
+csrc/pairs.cu (``launches``), full precision: each machine's upper
+triangle of tiles once, its row and column partials written to a
+workspace and summed per row by a second launch in an order fixed by the
+machine's own length, so a product is two launches and one count.  The
+workspace is uninitialised and made per product, as ``out`` is; its size
+is the C side's (``plssvm_pairs_workspace_elements``), which alone holds
+its layout.  The tensor-core walks read an operand copy of the stack
+(:func:`pairs_operand`: TF32-rounded or bf16, or float64 with an even
+feature axis), which a solve makes once and hands to every product;
+without it the wrapper makes one per call.
 
 As in ops/gram_matvec.py: the wrapper takes its plain PyTorch version
 (:func:`pairs_matvec_plain`, one plain matvec of ops/matvec.py per machine)
@@ -74,9 +80,10 @@ def _check_kind(kind) -> None:
 
 def walk(Xb: torch.Tensor, kind, precision: str) -> str:
     """Which of kernel O's walks a stack takes: "plain" on the CPU, "ffma"
-    (csrc/pairs.cu) for the distance kinds and for float32 at "highest",
-    "dmma" for the Gram kinds in float64, "tc" for them in float32 at "f32"
-    and "bf16" (csrc/pairs_tc.cu)."""
+    (csrc/pairs.cu, the triangle walk and its reduction) for the distance
+    kinds and for float32 at "highest", "dmma" for the Gram kinds in
+    float64, "tc" for them in float32 at "f32" and "bf16"
+    (csrc/pairs_tc.cu)."""
     _plain.check_precision(precision)
     if Xb.device.type == "cpu":
         return "plain"
@@ -179,8 +186,8 @@ def pairs_matvec(
     ``lens`` (P,) int64 on Xb's device, each in [0, m_pad].  Polynomial,
     RBF, sigmoid, laplacian and chi-squared; P <= 65535.  ``precision`` the
     Gram tier (:func:`walk` says which walk it takes); ``operand`` the
-    tensor-core walks' copy of the stack (:func:`pairs_operand`), made here
-    when not given.
+    tensor-core walks' copy of the stack (:func:`pairs_operand`),
+    made here when not given and ignored by the FFMA walk.
     """
     _check_kind(kind)
     route = walk(Xb, kind, precision)
@@ -235,15 +242,21 @@ def _check_stack(Xb, sq_b, V, lens, kind, name: str) -> str:
 
 
 def _launch_ffma(Xb, sq_b, V, lens, out, suffix, kind, gamma, coef0, degree):
-    """Kernel O's FFMA walk (csrc/pairs.cu) into the zeroed ``out``."""
+    """Kernel O's FFMA walk (csrc/pairs.cu) and its reduction into the
+    zeroed ``out``, on a workspace of the size the C side gives (under 17
+    (m_pad + 16 x 128) values a machine: 17 / d of the stack plus a few MB,
+    which ``_use_oao_batched``'s budget, the stack alone as plssvm_tpu's,
+    does not count)."""
     lib = _build.load()
     fn = getattr(lib, f"plssvm_pairs_matvec_{suffix}")
     P, m_pad, d = Xb.shape
+    n = lib.plssvm_pairs_workspace_elements(P, m_pad, int(kind), int(suffix == "f64"))
+    workspace = torch.empty(n, dtype=Xb.dtype, device=Xb.device)
     with torch.cuda.device(Xb.device):
         err = fn(
             Xb.data_ptr(), None if kind in DISTANCE_KERNELS else sq_b.data_ptr(),
-            V.data_ptr(), lens.data_ptr(), out.data_ptr(), P, m_pad, d, int(kind),
-            int(degree), float(gamma), float(coef0),
+            V.data_ptr(), lens.data_ptr(), out.data_ptr(), workspace.data_ptr(), P, m_pad,
+            d, int(kind), int(degree), float(gamma), float(coef0),
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error(lib, err, "pairs_matvec")
@@ -264,8 +277,9 @@ def ffma_pairs_matvec(
     degree: int,
 ) -> torch.Tensor:
     """Kernel O's FFMA walk (csrc/pairs.cu) on CUDA tensors whatever the
-    kind's route: the float64 Gram walk that the DMMA walk replaced, kept
-    to be timed beside it.  Counted in ``launches``."""
+    kind's route: the float64 Gram triangle walk that the DMMA walk
+    replaced, kept to be timed beside it.
+    Counted in ``launches``."""
     _check_kind(kind)
     suffix = _check_stack(Xb, sq_b, V, lens, kind, "ffma_pairs_matvec")
     P, m_pad, _ = Xb.shape

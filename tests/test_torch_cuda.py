@@ -28,9 +28,9 @@ the tier's operands at the same tolerances, and the row-sharded ring on
 one card (P = 3 and 4 shards on ``cuda:0``) against the single-device
 product at the same tier.  Kernel O (the batched one-vs-one product:
 csrc/pairs_tc.cu's tensor-core walks for the Gram kinds at "f32" / "bf16"
-and in float64, csrc/pairs.cu's FFMA walk else) is held against its plain
-version on the tier's operands at the same tolerances, and each machine
-alone against itself inside a stack, bit for bit.
+and in float64, csrc/pairs.cu's FFMA triangle walk else) is held against
+its plain version on the tier's operands at the same tolerances, and each
+machine alone against itself inside a stack, bit for bit.
 """
 
 import pytest
@@ -982,8 +982,11 @@ def test_explicit_fit_on_the_card(cuda_device, kernel, n_classes, devices):
 
 #: kernel O's ragged machines: an empty one, one row, two rows, one tile and
 #: a row, several tiles (the FFMA walk's float tiles 128 / 64 rows, double
-#: 64; the tensor-core walks' 128)
-PAIRS_LENS = [(2, 0, 1, 129, 300), (65, 64, 63), (1,), (257, 2, 384)]
+#: 64; the tensor-core walks' 128), and more than the FFMA walk's 16 groups
+#: of tiles a side at edge 128 (2200 rows: 18 tiles, two a group; 35 and
+#: 18 at edge 64), so that a group holds several tiles for every kind and
+#: type
+PAIRS_LENS = [(2, 0, 1, 129, 300), (65, 64, 63), (1,), (257, 2, 384), (2200, 1, 1100)]
 
 
 def _pairs_case(name, dtype, lens, d, device, seed):
@@ -1037,15 +1040,19 @@ def test_pairs_matvec_against_plain(cuda_device, name, dtype, tol, lens, d, prec
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("name", ["rbf", "sigmoid", "chi_squared"])
+@pytest.mark.parametrize("name", ["rbf", "sigmoid", "laplacian", "chi_squared"])
 @pytest.mark.parametrize("precision", ["f32", "bf16", "highest"])
-def test_pairs_machine_alone_equals_inside_the_stack(cuda_device, dtype, name, precision):
+@pytest.mark.parametrize("lens", [(300, 2, 129, 511, 1), (2200, 1, 1100)])
+def test_pairs_machine_alone_equals_inside_the_stack(cuda_device, dtype, name, precision,
+                                                     lens):
     """A machine gives bit for bit the same output alone (a stack of one,
     its own length for m_pad) as inside a stack of neighbours with a longer
-    m_pad, on every walk: no walk reads a neighbour's rows into a sum."""
+    m_pad, on every walk: no walk reads a neighbour's rows into a sum, and
+    the FFMA walk groups a machine's tiles by its own length (2200 rows:
+    several tiles a group, a longer workspace slot inside the stack than
+    alone)."""
     from plssvm_tpu_torch.ops import pairs
 
-    lens = (300, 2, 129, 511, 1)
     X, sq, V, lens_t, _ = _pairs_case(name, dtype, lens, 37, cuda_device, 5)
     kw = dict(kind=getattr(TKind, name.upper()), gamma=1.0 / 37, coef0=COEF0.get(name, 0.0),
               degree=3, precision=precision)
@@ -1076,6 +1083,50 @@ def test_pairs_operand_made_once_is_the_one_made_per_call(cuda_device):
     with pytest.raises(ValueError, match="operand"):
         pairs.pairs_matvec(X, sq, V, lens_t, precision="f32",
                            operand=pairs.pairs_operand(X, TKind.RBF, "bf16"), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,name,edge", [(torch.float32, "rbf", 128),
+                                             (torch.float32, "laplacian", 128),
+                                             (torch.float32, "chi_squared", 64),
+                                             (torch.float64, "laplacian", 64)])
+@pytest.mark.parametrize("length", ["0", "1", "2", "BM-1", "BM", "BM+1", "G*BM", "G*BM+1",
+                                    "12132", "400000"])
+def test_pairs_workspace_elements(cuda_device, dtype, name, edge, length):
+    """The FFMA walk's workspace (csrc/pairs.cu, the one place that holds
+    its layout): P G (G + 1) S BM values for P machines padded to m_pad
+    rows, with BM the walk's tile edge, T = ceil(m_pad / BM) tiles a side
+    and S = ceil(T / G) tiles a group (G = 16 groups a side at most), under
+    the (G + 1) (m_pad + G BM) a machine that the wrapper's docstring
+    states."""
+    from plssvm_tpu_torch.ops import _build
+
+    G, P = 16, 45
+    m_pad = eval(length, {"BM": edge, "G": G})
+    per_group = -(-(-(-m_pad // edge)) // G)
+    n = _build.load().plssvm_pairs_workspace_elements(
+        P, m_pad, int(getattr(TKind, name.upper())), int(dtype == torch.float64))
+    assert n == P * G * (G + 1) * per_group * edge
+    assert n <= P * (G + 1) * (m_pad + G * edge)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,name", [(torch.float32, "chi_squared"),
+                                        (torch.float32, "rbf"), (torch.float64, "laplacian")])
+def test_pairs_ffma_walk_ignores_what_its_workspace_held(cuda_device, dtype, name):
+    """The FFMA walk writes every slot of its uninitialised workspace before
+    it reads it: after the caching allocator held NaN in the memory that the
+    product's output and workspace are cut from, the product is finite and
+    bit for bit a second one."""
+    from plssvm_tpu_torch.ops import pairs
+
+    X, sq, V, lens_t, _ = _pairs_case(name, dtype, (2200, 1, 1100), 37, cuda_device, 9)
+    kw = dict(kind=getattr(TKind, name.upper()), gamma=1.0 / 37, coef0=0.0, degree=3,
+              precision="highest")
+    torch.full((1 << 24,), float("nan"), dtype=dtype, device=cuda_device)
+    got = pairs.pairs_matvec(X, sq, V, lens_t, **kw)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, pairs.pairs_matvec(X, sq, V, lens_t, **kw))
 
 
 @pytest.mark.cuda

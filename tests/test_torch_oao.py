@@ -48,6 +48,7 @@ from plssvm_tpu_torch import oao as t_oao
 from plssvm_tpu_torch.cli import predict as t_predict_cli
 from plssvm_tpu_torch.cli import train as t_train_cli
 from plssvm_tpu_torch.exceptions import InvalidParameterError, NumericCheckError
+from plssvm_tpu_torch.kernel_functions import kernel_block
 from plssvm_tpu_torch.ops import _build, pairs
 from plssvm_tpu_torch.parameter import KernelFunctionType as TKind
 from test_multiclass import make_multiclass_blobs
@@ -126,6 +127,15 @@ class TestPairLayout:
             np.testing.assert_array_equal(W[rows, m], alpha)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _warm_torch_exp():
+    """The first multithreaded ``torch.exp`` of a process can come out
+    ~1e-4 off in the CPU build of torch these tests run on (a race in its
+    first dispatch); one exp before the comparisons keeps that out of
+    them."""
+    torch.exp(torch.rand(300, 300)).sum()
+
+
 # -- the batched product's plain version ------------------------------------
 
 KINDS = [("polynomial", 1.0), ("rbf", 0.0), ("sigmoid", -0.5), ("laplacian", 0.0),
@@ -190,8 +200,8 @@ def test_pairs_matvec_takes_the_plain_version_only_on_the_cpu():
 
 def test_pairs_entry_points_argtypes_match_the_source(monkeypatch):
     """What _build.load() declares for kernel O's entry points is their C
-    signature, parameter by parameter: the FFMA walk's (csrc/pairs.cu) and
-    the tensor-core walks' (csrc/pairs_tc.cu)."""
+    signature, parameter by parameter: the FFMA walk's and its workspace
+    size's (csrc/pairs.cu) and the tensor-core walks' (csrc/pairs_tc.cu)."""
     c_types = {"int64_t": ctypes.c_int64, "int": ctypes.c_int, "float": ctypes.c_float,
                "double": ctypes.c_double}
     csrc = os.path.join(REPO, "plssvm_tpu_torch", "csrc")
@@ -209,19 +219,28 @@ def test_pairs_entry_points_argtypes_match_the_source(monkeypatch):
     monkeypatch.setattr(ctypes, "CDLL", lambda path: FakeLibrary())
     lib = _build.load()
     names = [f"plssvm_pairs_matvec_{suffix}" for suffix in ("f32", "f64", "tf32", "bf16", "dmma")]
-    assert set(re.findall(r'extern "C" int (plssvm_pairs_\w+)\(', source)) == set(
-        names + ["plssvm_pairs_blocks_per_sm"])
-    for name in names + ["plssvm_pairs_blocks_per_sm"]:
-        params = re.search(rf'extern "C" int {name}\(([^)]*)\)', source).group(1)
+    extra = ["plssvm_pairs_blocks_per_sm", "plssvm_pairs_workspace_elements"]
+    assert set(re.findall(r'extern "C" int(?:64_t)? (plssvm_pairs_\w+)\(', source)) == set(
+        names + extra)
+    for name in names + extra:
+        ret, params = re.search(rf'extern "C" (int|int64_t) {name}\(([^)]*)\)',
+                                source).groups()
         want = [ctypes.c_void_p if "*" in p else c_types[p.split()[-2]]
                 for p in (" ".join(q.split()) for q in params.split(","))]
         assert getattr(lib, name).argtypes == want
-        assert getattr(lib, name).restype == ctypes.c_int
+        assert getattr(lib, name).restype == c_types[ret]
+        # the FFMA walk takes its workspace after out, the tensor-core walks none
+        names_in_order = [p.split()[-1].lstrip("*") for p in params.split(",")]
+        if name.endswith(("_f32", "_f64")):
+            assert names_in_order[4:6] == ["out", "workspace"]
+        else:
+            assert "workspace" not in names_in_order
 
 
 def test_kernel_resources_names_kernel_o(monkeypatch, tmp_path):
     """ptxas's report of kernel O's instantiations reads as
-    ``pairs_matvec f32 rbf`` / ``pairs_matvec f64 chi_squared``."""
+    ``pairs_matvec f32 rbf`` / ``pairs_matvec f64 chi_squared``, and the FFMA
+    walk's reduction as ``pairs_reduce f32 edge 128``."""
     library = tmp_path / "libplssvm_gram_test.so"
     (tmp_path / (library.name + ".ptxas.txt")).write_text(
         "ptxas info    : Compiling entry function "
@@ -248,7 +267,13 @@ def test_kernel_resources_names_kernel_o(monkeypatch, tmp_path):
         "'_ZN12_GLOBAL__N_117pairs_dmma_kernelILi1EEEv14CUtensorMap_stPKdS4_PKlPdliiidd' "
         "for 'sm_90a'\n"
         "ptxas info    : Used 212 registers, 13360 bytes smem, 0 bytes spill stores, "
-        "0 bytes spill loads\n")
+        "0 bytes spill loads\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_119pairs_reduce_kernelIfLi128EEEvPKT_PKlPS1_ll' for 'sm_90a'\n"
+        "ptxas info    : Used 18 registers, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_119pairs_reduce_kernelIdLi64EEEvPKT_PKlPS1_ll' for 'sm_90a'\n"
+        "ptxas info    : Used 20 registers, 0 bytes spill stores, 0 bytes spill loads\n")
     monkeypatch.setattr(_build, "library_path", lambda: library)
     res = _build.kernel_resources()
     assert res["pairs_matvec f32 rbf"] == {"registers": 96, "smem_bytes": 16896,
@@ -260,7 +285,146 @@ def test_kernel_resources_names_kernel_o(monkeypatch, tmp_path):
                                             "spill_bytes": 0}
     assert res["pairs_dmma f64 poly"] == {"registers": 212, "smem_bytes": 13360,
                                           "spill_bytes": 0}
-    assert len(res) == 5
+    # the FFMA walk's reduction, one instantiation per type and tile edge
+    assert res["pairs_reduce f32 edge 128"] == {"registers": 18, "smem_bytes": 0,
+                                                "spill_bytes": 0}
+    assert res["pairs_reduce f64 edge 64"] == {"registers": 20, "smem_bytes": 0,
+                                               "spill_bytes": 0}
+    assert len(res) == 7
+
+
+# -- the FFMA walk's triangle schedule (csrc/pairs.cu) -------------------------
+
+PAIRS_CU = os.path.join(REPO, "plssvm_tpu_torch", "csrc", "pairs.cu")
+
+
+def test_pairs_cu_has_no_atomics():
+    """The FFMA walk writes every slot and output once: no ``atomicAdd`` in
+    pairs.cu, not even a ticket, and no other atomic in its code."""
+    source = open(PAIRS_CU).read()
+    assert "atomicAdd" not in source and "atomic" not in re.sub(r"//.*", "", source)
+
+
+def _model_groups(length, edge, groups):
+    """The walk's grouping of a machine of ``length`` rows (csrc/pairs.cu
+    ``grouping``): (T tiles a side, S tiles a group, g groups a side)."""
+    tiles = -(-length // edge)
+    per_group = -(-tiles // groups)
+    return tiles, per_group, -(-tiles // per_group) if per_group else 0
+
+
+def _walk_model(X, sq, V, lens, kind, gamma, coef0, degree, edge, groups):
+    """Kernel O's FFMA walk as csrc/pairs.cu schedules it, in torch on the
+    CPU, at tile edge ``edge`` and ``groups`` groups a side at most: per
+    machine the upper triangle of tile pairs of each group pair (I <= J),
+    the row partials of tile a written once to slot (I, J), the column
+    partials of tile b (b != a) written by the group pair's first tile row
+    and added to by the later ones in slot (J, I), or (I, G) on the
+    diagonal group (zero-initialised there by the first tile row's diagonal
+    tile), then each row's g + 1 slots summed in group order and the
+    diagonal column slot last.  The workspace starts as NaN, so a slot read
+    before it was written shows."""
+    P, m_pad, _ = X.shape
+    G = groups
+    width = _model_groups(m_pad, edge, G)[1] * edge
+    ws = torch.full((P * G * (G + 1) * width,), float("nan"), dtype=X.dtype)
+
+    def slot(p, i, j):
+        return ((p * G + i) * (G + 1) + j) * width
+
+    out = torch.zeros((P, m_pad), dtype=X.dtype)
+    for p, m in enumerate(lens):
+        T, S, g = _model_groups(m, edge, G)
+        rows = torch.zeros((T * edge, X.shape[2]), dtype=X.dtype)
+        rows[:m] = X[p, :m]
+        norms = torch.zeros(T * edge, dtype=X.dtype)
+        if sq is not None:
+            norms[:m] = sq[p, :m]
+        v = torch.zeros(T * edge, dtype=X.dtype)
+        v[:m] = V[p, :m]
+        real = torch.arange(T * edge) < m
+
+        def tile(a, b):
+            ra, rb = slice(a * edge, (a + 1) * edge), slice(b * edge, (b + 1) * edge)
+            k = kernel_block(rows[ra], rows[rb], norms[ra], norms[rb], kind, gamma, coef0,
+                             degree)
+            return k * (real[ra][:, None] & real[rb][None, :])
+
+        for i in range(g):
+            for j in range(i, g):
+                a_first, b_first = i * S, j * S
+                col_base = slot(p, j, G if i == j else i)
+                for a in range(a_first, min(a_first + S, T)):
+                    row = torch.zeros(edge, dtype=X.dtype)
+                    for b in range(a if i == j else b_first, min(b_first + S, T)):
+                        k = tile(a, b)
+                        row += k @ v[b * edge:(b + 1) * edge]
+                        at = slice(col_base + (b - b_first) * edge,
+                                   col_base + (b - b_first + 1) * edge)
+                        if b != a:
+                            col = k.T @ v[a * edge:(a + 1) * edge]
+                            ws[at] = col if a == a_first else ws[at] + col
+                        elif a == a_first:
+                            ws[at] = 0.0
+                    base = slot(p, i, j) + (a - a_first) * edge
+                    ws[base:base + edge] = row
+        # each row's slots in group order, the diagonal column slot last
+        for i in range(g):
+            local = torch.arange(min(S * edge, m - i * S * edge))
+            total = torch.zeros(len(local), dtype=X.dtype)
+            for j in range(g):
+                total += ws[slot(p, i, j) + local]
+            out[p, i * S * edge + local] = total + ws[slot(p, i, G) + local]
+    return out
+
+
+def _model_case(name, lens, d=5, seed=11):
+    rng = np.random.default_rng(seed)
+    P, m_pad = len(lens), max(lens)
+    mask = np.arange(m_pad)[None, :] < np.asarray(lens)[:, None]
+    X = rng.random((P, m_pad, d)) if name == "chi_squared" else rng.normal(size=(P, m_pad, d))
+    X = torch.as_tensor(X * 0.5 * mask[..., None])
+    V = torch.as_tensor(rng.normal(size=(P, m_pad)) * mask)
+    kind = getattr(TKind, name.upper())
+    sq = None if kind in (TKind.LAPLACIAN, TKind.CHI_SQUARED) else (X * X).sum(-1)
+    return X, sq, V, kind, torch.as_tensor(mask)
+
+
+@pytest.mark.parametrize("name,coef0", KINDS)
+@pytest.mark.parametrize("groups,edge,lens", [
+    (3, 4, (40, 0, 1, 13, 5, 12)),  # S up to 4, a short last group
+    (16, 64, (1100, 2, 0, 1025)),   # the real group count: S = 2 at 1025 and 1100 rows
+    (16, 128, (2200, 1, 1100)),     # the card tests' stack: 18 tiles, S = 2, g = 9
+])
+def test_pairs_walk_schedule_model(name, coef0, groups, edge, lens):
+    """The triangle schedule with its slots and reduction (``_walk_model``)
+    against ``pairs_matvec_plain`` at 1e-12 in float64, every kind, at a
+    small group count and edge (several tiles a group, uneven last groups,
+    empty and one-row machines) and at the walk's own (G = 16, edges 64 and
+    128): every slot read was written, and rows past each machine stay 0."""
+    X, sq, V, kind, mask = _model_case(name, lens)
+    lens_t = torch.as_tensor(lens, dtype=torch.int64)
+    got = _walk_model(X, sq, V, lens, kind, 0.2, coef0, 3, edge, groups)
+    want = pairs.pairs_matvec_plain(X, sq, V, lens_t, kind=kind, gamma=0.2, coef0=coef0,
+                                    degree=3, precision="highest")
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+    assert bool((got[~mask] == 0).all())
+
+
+@pytest.mark.parametrize("name,coef0", KINDS)
+def test_pairs_walk_model_machine_alone_equals_inside_the_stack(name, coef0):
+    """The schedule groups a machine's tiles by its own length alone: each
+    machine of the stack gives bit for bit the same rows alone (its own
+    length for m_pad, so narrower slots) as inside the stack, whose
+    longest machine sets the slot width."""
+    lens = (13, 40, 1, 29)
+    X, sq, V, kind, _ = _model_case(name, lens)
+    inside = _walk_model(X, sq, V, lens, kind, 0.2, coef0, 3, 4, 3)
+    for p, m in enumerate(lens):
+        alone = _walk_model(X[p:p + 1, :m], None if sq is None else sq[p:p + 1, :m],
+                            V[p:p + 1, :m], (m,), kind, 0.2, coef0, 3, 4, 3)
+        assert torch.equal(alone[0], inside[p, :m])
 
 
 #: kernel O's walk by (type, kind, tier) on a card's tensors: the Gram kinds
