@@ -12,11 +12,14 @@ Phases, one line each or more (the run stops at the first that fails):
    kernel C (gram_matmat_sym) and kernel D (gram_matmat_rect) against their
    plain PyTorch versions on the card, poly / RBF / sigmoid in float32 and
    float64, ragged and multi-tile shapes, 1 to 37 classes, and the main
-   paths' own shapes, at each Gram tier: "highest" on the FFMA tile; at
-   "f32" (TF32) and "bf16" A and C on the symmetric tensor-core tile
-   (``*_sym_tc``), B and D on the rectangular one (``*_rect_tc``), held
-   against the plain version on the tier's operands, and B and D at "f32"
-   against full float32 within the first-order TF32 bound; in float64, at
+   paths' own shapes, at each Gram tier: A and C on the symmetric
+   tensor-core tile (``*_sym_tc``), B and D on the rectangular one
+   (``*_rect_tc``), at "highest" in three TF32 passes over the split
+   operands (held against the full-float32 plain version), at "f32"
+   (TF32) and "bf16" held against the plain version on the tier's
+   operands, and B and D at "f32" against full float32 within the
+   first-order TF32 bound; A-D's FFMA tiles, on no wrapper's path, against
+   the full-float32 plain version and timed beside them; in float64, at
    every tier, A-D on the FP64 tensor cores (the symmetric DMMA tile,
    ``*_sym_dmma``, and the rect one, ``*_rect_dmma``); then all timed against
    their plain versions, beside the operand copies' time and torch.matmul
@@ -109,6 +112,14 @@ byte for byte, each path timed; then phase 4's CLI runs with the NumPy
 I/O, native, native, NumPy.  Every CLI run (phases 4, 5, 8, 9, bf16)
 logs its file I/O seconds beside the rest and fails unless the native
 library carried its three parses and one model write.
+
+The "highest" phase runs right after phase 7 (``phase_highest``): phase
+4's config 2 files through ``plssvm-torch-train --gram_precision highest
+--solver cg_implicit`` and predicted at "highest", and phase 7's 10
+classes at MNIST width through ``CSVM(gram_precision="highest")``: A-D on
+the tensor-core tiles in three TF32 passes (no FFMA-tile launch), the
+accuracy floors, labels against a float64 fit on >= 0.995, s/iteration
+beside each cell's TF32 fit.
 
 The "bf16" phase runs right after phase 5, on the files of phases 4 and
 5: both trained through ``plssvm-torch-train --gram_precision bf16`` and
@@ -283,11 +294,13 @@ SFU_OPS_PER_S = FP32_INSTR_PER_S / 8
 HBM_BYTES_PER_S = 3.35e12
 TF32_FLOP_PER_S = 495e12
 BF16_FLOP_PER_S = 989e12
-#: per tensor-core tier: the product's peak and the operand's bytes per
-#: element
-TC_TIERS = {"tf32": (TF32_FLOP_PER_S, 4), "bf16": (BF16_FLOP_PER_S, 2)}
+#: per tensor-core tier: the Gram product's peak rate and the operand's
+#: bytes per feature.  The split tier ("highest") is three TF32 passes
+#: over two float32 parts: a third of the TF32 rate, 2 x 4 bytes
+TC_TIERS = {"tf32": (TF32_FLOP_PER_S, 4), "bf16": (BF16_FLOP_PER_S, 2),
+            "tf32x3": (TF32_FLOP_PER_S / 3, 8)}
 #: the Gram tiers of kernels A-D on the tensor cores, by gram_precision
-TIER_OF = {"f32": "tf32", "bf16": "bf16"}
+TIER_OF = {"f32": "tf32", "bf16": "bf16", "highest": "tf32x3"}
 #: TF32 and bf16 unit roundoffs (10 and 7 mantissa bits, round to nearest)
 UNIT_ROUNDOFF = {"tf32": 2.0 ** -11, "bf16": 2.0 ** -8}
 #: the fewest (FP32 instructions, SFU operations) per pair and feature: a
@@ -357,6 +370,11 @@ PAIRS_FFMA_INSTANTIATIONS = (
 PAIRS_FFMA_SPILL_BYTES = 128
 
 
+#: the kernels line's entries of kernels on no wrapper's path: A and B's
+#: FFMA tiles, timed beside the split tier that replaced them at "highest"
+OFF_PATH = ("gram_matvec_sym", "gram_matvec_rect")
+
+
 #: run in another checkout: build its kernels, print their resources
 _OTHER_BUILD = (
     "import json; from plssvm_tpu_torch.ops import _build; _build.build(); "
@@ -405,6 +423,17 @@ def phase_build(compare=None):
         raise AssertionError(f"pairs_tc's instantiations ({compiled} compiled): {walk_tc}")
     if "C7515" in ptxas:
         raise AssertionError("ptxas serialised a tensor-core product (C7515)")
+    # the split tier ("highest", three TF32 passes) of the sym and rect
+    # tiles: one instantiation per Gram kind, within the one block an SM of
+    # their __launch_bounds__ (its 192 KB ring), spilling nothing
+    split = {n: r for n, r in mine.items()
+             if n.split()[0] in ("gram_tc_sym", "gram_tc_rect") and n.split()[1] == "tf32x3"}
+    if len(split) != 6 or any(r.get("spill_bytes", 0) > 0 or r.get("registers", 256) > 255
+                              for r in split.values()):
+        raise AssertionError(f"the split tiles' instantiations: {split}")
+    log("build", "the split tiles (tf32x3): " + ", ".join(
+        f"{n} {r['registers']} registers, {r.get('spill_bytes', 0)} spill bytes"
+        for n, r in sorted(split.items())))
     # kernel O's FFMA walk: one instantiation per type and kind, within the
     # registers of the blocks an SM its __launch_bounds__ asks for (two: 128
     # registers, where the float Gram and laplacian tiles spill 48-84 bytes
@@ -475,13 +504,29 @@ def _tier_plain(plain, precision):
     return oracle
 
 
-def _pairs(v, precision="highest"):
+def _ffma(op):
+    """Kernels A-D's FFMA tile (``gram_matvec.gram_ffma``, on no wrapper's
+    path) called as its wrapper is: ``(X, sq, v)`` or ``(P, S, sq_p, sq_s,
+    a)``."""
+    from plssvm_tpu_torch.ops import gram_matvec
+
+    n = 2 if op.endswith("rect") else 1
+
+    def kernel(*args, precision="highest", **kw):
+        return gram_matvec.gram_ffma(op, args[:n], args[n:2 * n], args[2 * n], **kw)
+
+    return kernel
+
+
+def _pairs(v, precision="highest", ffma=False):
     """(name, kernel, plain) of the symmetric and the rectangular kernel for
     a right-hand side v (m,) (kernels A, B) or V (m, C) (kernels C, D) at
-    the Gram tier ``precision``.  At "f32" and "bf16" both kernels on
-    float32 are the tensor-core tiles (``*_sym_tc``, ``*_rect_tc``), held
-    against the plain version on the tier's operands; at "highest" the
-    FFMA tile; in float64 both are DMMA tiles (``*_sym_dmma``,
+    the Gram tier ``precision``.  On float32 both kernels are the
+    tensor-core tiles at every tier (``*_sym_tc``, ``*_rect_tc``; "highest"
+    three TF32 passes), held against the plain version on the tier's
+    operands ("highest": the full-float32 plain version); with ``ffma``
+    the FFMA tiles instead (``*_sym``, ``*_rect``, full float32, on no
+    wrapper's path); in float64 both are DMMA tiles (``*_sym_dmma``,
     ``*_rect_dmma``)."""
     import functools
 
@@ -495,8 +540,9 @@ def _pairs(v, precision="highest"):
         base, sym, sym_plain, rect, rect_plain = (
             "gram_matvec", gram_matvec.gram_matvec_sym, matvec.kernel_matvec_plain,
             gram_matvec.gram_matvec_rect, matvec.kernel_matvec_rect_plain)
-    tc = "_tc" if precision != "highest" and v.dtype == torch.float32 else ""
-    tile = "_dmma" if v.dtype == torch.float64 else tc
+    if ffma:
+        sym, rect = _ffma(base[5:] + "_sym"), _ffma(base[5:] + "_rect")
+    tile = "_dmma" if v.dtype == torch.float64 else "" if ffma else "_tc"
     return (
         (f"{base}_sym{tile}", functools.partial(sym, precision=precision),
          _tier_plain(sym_plain, precision)),
@@ -517,13 +563,13 @@ def _check_close(label, got, want):
     return err, scale
 
 
-def _compare(kind, coef0, X, P, v, precision="highest", rect=True):
+def _compare(kind, coef0, X, P, v, precision="highest", rect=True, ffma=False):
     """max|kernel - plain| and max|plain| for kernels A and B (v (m,)) or
-    C and D (v (m, C)) at the Gram tier ``precision`` (``_pairs``); the
-    rectangular kernel only when ``rect``."""
+    C and D (v (m, C)) at the Gram tier ``precision`` (``_pairs``; with
+    ``ffma`` their FFMA tiles); the rectangular kernel only when ``rect``."""
     kw = dict(kind=kind, gamma=1.0 / X.shape[1], coef0=coef0, degree=3)
     sq, sq_p = (X * X).sum(-1), (P * P).sum(-1)
-    (sym_name, sym, sym_plain), (rect_name, rect_k, rect_plain) = _pairs(v, precision)
+    (sym_name, sym, sym_plain), (rect_name, rect_k, rect_plain) = _pairs(v, precision, ffma)
     out = {}
     cases = [(sym_name, sym, sym_plain, (X, sq, v))]
     if rect:
@@ -953,7 +999,7 @@ def _dual_counter(name, dtype, precision):
     module = gram_matvec if name == "gram_matvec_dual" else gram_matmat
     if dtype == torch.float64:
         return module, "dual_dmma_launches"
-    return module, "dual_tc_launches" if precision in TIER_OF else "dual_launches"
+    return module, "dual_tc_launches" if precision in ("f32", "bf16") else "dual_launches"
 
 
 def _dual_blocks_per_sm():
@@ -1433,9 +1479,9 @@ def _log_operand_time(X, label):
     from plssvm_tpu_torch.ops import gram_matvec
 
     times = {tier: _median_ms(lambda: gram_matvec.tier_operand(X, tier), 5, 1)
-             for tier in ("f32", "bf16")}
+             for tier in ("f32", "bf16", "highest")}
     log("kernels", f"operand copy {label}: f32 (TF32-rounded) {times['f32']:.3f} ms, "
-        f"bf16 {times['bf16']:.3f} ms")
+        f"bf16 {times['bf16']:.3f} ms, highest (the split stack) {times['highest']:.3f} ms")
 
 
 def _yardstick(label, fn):
@@ -1455,10 +1501,15 @@ def phase_kernels():
 
     def check(X, P, v, tiers):
         for precision in tiers:
+            # at "highest" float32 also the FFMA tiles, on no wrapper's path
+            ffma = (False, True) if precision == "highest" and X.dtype == torch.float32 \
+                else (False,)
             for kind, coef0 in kinds:
-                for name, (err, scale) in _compare(kind, coef0, X, P, v, precision).items():
-                    key = (name, str(X.dtype).split(".")[-1], precision)
-                    worst[key] = max(worst.get(key, 0.0), err / max(scale, 1e-300))
+                for tile in ffma:
+                    for name, (err, scale) in _compare(kind, coef0, X, P, v, precision,
+                                                       ffma=tile).items():
+                        key = (name, str(X.dtype).split(".")[-1], precision)
+                        worst[key] = max(worst.get(key, 0.0), err / max(scale, 1e-300))
 
     for dtype in (torch.float32, torch.float64):
         # the tiers are float32's; in float64, at every tier, A-D take the
@@ -1480,26 +1531,30 @@ def phase_kernels():
     # the main paths' own shapes, f32: config 2 training (dept = 9999 rows)
     # and predict (2000 points against 10000 SVs), config 3 training; each
     # tier's kernel, recorded for the phase that runs it: "f32" (TF32) in
-    # e2e and config3, "bf16" in the bf16 phase; "highest" logged beside
+    # e2e and config3, "bf16" in the bf16 phase, "highest" (three TF32
+    # passes) in the highest phase; the FFMA tile logged beside
     main_err, main_ms = {}, {}
     X, P, v = _operands(9999, 200, torch.float32, gen, n_points=2000)
     rbf = dict(kind=K.RBF, gamma=1.0 / 200, coef0=0.0, degree=3)
     sq = (X * X).sum(-1)
-    main_err["gram_matvec_sym"] = _compare(K.RBF, 0.0, X, P, v, rect=False)["gram_matvec_sym"][0]
-    for tier, phase in (("f32", "e2e"), ("bf16", "bf16")):
+    main_err["gram_matvec_sym"] = _compare(K.RBF, 0.0, X, P, v, rect=False,
+                                           ffma=True)["gram_matvec_sym"][0]
+    for tier, phase in (("f32", "e2e"), ("bf16", "bf16"), ("highest", "highest")):
         key = ("gram_matvec_sym_tc", TIER_OF[tier])
         main_err[key] = _compare(K.RBF, 0.0, X, P, v, tier, rect=False)["gram_matvec_sym_tc"][0]
+        op = gram_matvec.tier_operand(X, tier)  # the solve makes it once
         _time_at_main_shape(main_ms, "gram_matvec_sym_tc", phase,
-                            lambda: gram_matvec.gram_matvec_sym(X, sq, v, precision=tier, **rbf),
+                            lambda: gram_matvec.gram_matvec_sym(X, sq, v, precision=tier,
+                                                                operand=op, **rbf),
                             _sym_bound(9999, 200, 1, "gram", 4, 1, TIER_OF[tier], exp=True),
                             f"9999x200 rbf {tier}")
     _time_at_main_shape(main_ms, "gram_matvec_sym", None,
-                        lambda: gram_matvec.gram_matvec_sym(X, sq, v, precision="highest", **rbf),
-                        _sym_bound(9999, 200, 1, "gram", 4, 1), "9999x200 rbf highest")
+                        lambda: _ffma("matvec_sym")(X, sq, v, **rbf),
+                        _sym_bound(9999, 200, 1, "gram", 4, 1), "9999x200 rbf FFMA tile")
     X, P, v = _operands(10000, 200, torch.float32, gen, n_points=2000)
     sq, sq_p = (X * X).sum(-1), (P * P).sum(-1)
-    main_err["gram_matvec_rect"] = _compare(K.RBF, 0.0, X, P, v)["gram_matvec_rect"][0]
-    for tier, phase in (("f32", "e2e"), ("bf16", "bf16")):
+    main_err["gram_matvec_rect"] = _compare(K.RBF, 0.0, X, P, v, ffma=True)["gram_matvec_rect"][0]
+    for tier, phase in (("f32", "e2e"), ("bf16", "bf16"), ("highest", "highest")):
         key = ("gram_matvec_rect_tc", TIER_OF[tier])
         main_err[key] = _compare(K.RBF, 0.0, X, P, v, tier)["gram_matvec_rect_tc"][0]
         _time_at_main_shape(main_ms, "gram_matvec_rect_tc", phase,
@@ -1509,10 +1564,9 @@ def phase_kernels():
                                         exp=True),
                             f"2000x10000x200 rbf {tier}")
     _time_at_main_shape(main_ms, "gram_matvec_rect", None,
-                        lambda: gram_matvec.gram_matvec_rect(P, X, sq_p, sq, v,
-                                                             precision="highest", **rbf),
+                        lambda: _ffma("matvec_rect")(P, X, sq_p, sq, v, **rbf),
                         _rect_bound(2000, 10000, 200, 1, "gram", 4, 1),
-                        "2000x10000x200 rbf highest")
+                        "2000x10000x200 rbf FFMA tile")
     _check_tf32_tier("gram_matvec_rect_tc 2000x10000x200 rbf",
                      gram_matvec.gram_matvec_rect(P, X, sq_p, sq, v, precision="f32", **rbf),
                      matvec.kernel_matvec_rect_plain(P, X, sq_p, sq, v, **rbf),
@@ -1525,13 +1579,15 @@ def phase_kernels():
     cfg3 = {}
     for tier in ("f32", "bf16", "highest"):
         cfg3[tier] = _compare(K.POLYNOMIAL, 0.0, X, P, v, tier, rect=False)
-        tc = tier != "highest"
+        op = gram_matvec.tier_operand(X, tier)
         _time_at_main_shape(
-            main_ms, "gram_matvec_sym_tc" if tc else "gram_matvec_sym",
-            "config3" if tier == "f32" else None,
-            lambda: gram_matvec.gram_matvec_sym(X, sq, v, precision=tier, **poly),
-            _sym_bound(49999, 500, 1, "gram", 4, 1, TIER_OF.get(tier)),
+            main_ms, "gram_matvec_sym_tc", "config3" if tier == "f32" else None,
+            lambda: gram_matvec.gram_matvec_sym(X, sq, v, precision=tier, operand=op, **poly),
+            _sym_bound(49999, 500, 1, "gram", 4, 1, TIER_OF[tier]),
             f"49999x500 poly {tier}")
+    _time_at_main_shape(main_ms, "gram_matvec_sym", None,
+                        lambda: _ffma("matvec_sym")(X, sq, v, **poly),
+                        _sym_bound(49999, 500, 1, "gram", 4, 1), "49999x500 poly FFMA tile")
     _log_operand_time(X, "49999x500")
     log("kernels", "main-path shapes f32: sym 9999x200 rbf max|err| "
         f"{main_err['gram_matvec_sym']:.3e} (highest), "
@@ -1554,34 +1610,42 @@ def phase_kernels():
         S, A = torch.cat([X, X[:1]]), torch.cat([V, V[:1]])  # the model keeps all m + 1 points
         sq_s = (S * S).sum(-1)
         errs = {}
+        # "f32" and "highest" run at MNIST width in the mnist-width and
+        # highest phases, "bf16" at config 2's shape in the bf16 phase
+        records = {"f32": phase, "bf16": "bf16" if phase == "multiclass" else None,
+                   "highest": "highest" if phase == "mnist-width" else None}
         for tier in ("f32", "bf16", "highest"):
-            name, key = (("gram_matmat_sym_tc", ("gram_matmat_sym_tc", TIER_OF[tier]))
-                         if tier != "highest" else ("gram_matmat_sym", "gram_matmat_sym"))
-            errs[tier] = _compare(K.RBF, 0.0, X, P, V, tier, rect=False)[name]
-            if tier != "bf16" or phase == "multiclass":
+            key = ("gram_matmat_sym_tc", TIER_OF[tier])
+            errs[tier] = _compare(K.RBF, 0.0, X, P, V, tier, rect=False)["gram_matmat_sym_tc"]
+            if tier == "f32" or records[tier]:
                 main_err[key] = max(main_err.get(key, 0.0), errs[tier][0])
-            record = {"f32": phase, "bf16": "bf16" if phase == "multiclass" else None,
-                      "highest": None}[tier]
-            _time_at_main_shape(main_ms, name, record,
-                                lambda: gram_matmat.gram_matmat_sym(X, sq, V, precision=tier, **rbf),
-                                _sym_bound(m, d, MC_CLASSES, "gram", 4, 1, TIER_OF.get(tier),
+            op = gram_matvec.tier_operand(X, tier)
+            _time_at_main_shape(main_ms, "gram_matmat_sym_tc", records[tier],
+                                lambda: gram_matmat.gram_matmat_sym(X, sq, V, precision=tier,
+                                                                    operand=op, **rbf),
+                                _sym_bound(m, d, MC_CLASSES, "gram", 4, 1, TIER_OF[tier],
                                            exp=True),
                                 f"{m}x{d} rbf C={MC_CLASSES} {tier}")
+        _time_at_main_shape(main_ms, "gram_matmat_sym", None,
+                            lambda: _ffma("matmat_sym")(X, sq, V, **rbf),
+                            _sym_bound(m, d, MC_CLASSES, "gram", 4, 1),
+                            f"{m}x{d} rbf C={MC_CLASSES} FFMA tile")
         rect_errs = {}
         for tier in ("f32", "bf16", "highest"):
-            name, key = (("gram_matmat_rect_tc", ("gram_matmat_rect_tc", TIER_OF[tier]))
-                         if tier != "highest" else ("gram_matmat_rect", "gram_matmat_rect"))
-            rect_errs[tier] = _compare(K.RBF, 0.0, S, P, A, tier)[name]
-            if tier != "bf16" or phase == "multiclass":
+            key = ("gram_matmat_rect_tc", TIER_OF[tier])
+            rect_errs[tier] = _compare(K.RBF, 0.0, S, P, A, tier)["gram_matmat_rect_tc"]
+            if tier == "f32" or records[tier]:
                 main_err[key] = max(main_err.get(key, 0.0), rect_errs[tier][0])
-            record = {"f32": phase, "bf16": "bf16" if phase == "multiclass" else None,
-                      "highest": None}[tier]
             _time_at_main_shape(
-                main_ms, name, record,
+                main_ms, "gram_matmat_rect_tc", records[tier],
                 lambda: gram_matmat.gram_matmat_rect(P, S, sq_p, sq_s, A, precision=tier, **rbf),
-                _rect_bound(n_points, m + 1, d, MC_CLASSES, "gram", 4, 1, TIER_OF.get(tier),
-                            exp=tier != "highest"),
+                _rect_bound(n_points, m + 1, d, MC_CLASSES, "gram", 4, 1, TIER_OF[tier],
+                            exp=True),
                 f"{n_points}x{m + 1}x{d} rbf C={MC_CLASSES} {tier}")
+        _time_at_main_shape(main_ms, "gram_matmat_rect", None,
+                            lambda: _ffma("matmat_rect")(P, S, sq_p, sq_s, A, **rbf),
+                            _rect_bound(n_points, m + 1, d, MC_CLASSES, "gram", 4, 1),
+                            f"{n_points}x{m + 1}x{d} rbf C={MC_CLASSES} FFMA tile")
         _check_tf32_tier(f"gram_matmat_rect_tc {n_points}x{m + 1}x{d} rbf C={MC_CLASSES}",
                          gram_matmat.gram_matmat_rect(P, S, sq_p, sq_s, A, precision="f32", **rbf),
                          matvec.kernel_matmat_rect_plain(P, S, sq_p, sq_s, A, **rbf),
@@ -1598,8 +1662,11 @@ def phase_kernels():
 
     # timing: median of 20 launches each, m = 32768, d = 512, f32, RBF, the
     # rectangular kernels over the full square; kernels C and D against C =
-    # 10 classes; the FFMA tile at "highest", the tensor-core tiles at "f32"
-    # (TF32) and "bf16"
+    # 10 classes; the tensor-core tiles at "highest" (three TF32 passes),
+    # "f32" (TF32) and "bf16", and the FFMA tiles (full float32, on no
+    # wrapper's path: what "highest" ran on before the split) beside
+    import functools
+
     m, d = 32768, 512
     X, _, v = _operands(m, d, torch.float32, gen, n_points=1)
     V = torch.randn(m, MC_CLASSES, generator=gen,
@@ -1611,9 +1678,15 @@ def phase_kernels():
     for rhs in (v, V):
         columns = 1 if rhs.ndim == 1 else rhs.shape[1]
         label = f"m={m} d={d} f32 rbf" + (f" C={columns}" if rhs.ndim == 2 else "")
-        for tier in ("highest", "f32", "bf16"):
+        for tier in ("ffma", "highest", "f32", "bf16"):
             tc = TIER_OF.get(tier)
-            sym_entry, rect_entry = _pairs(rhs, tier)
+            sym_entry, rect_entry = _pairs(rhs, "highest" if tc is None else tier,
+                                           ffma=tc is None)
+            if tc is not None:
+                # the sym tile on the operand copy a solve makes once; the
+                # rect tile makes its copies per call, as predict does
+                sym_entry = (sym_entry[0], functools.partial(
+                    sym_entry[1], operand=gram_matvec.tier_operand(X, tier)), sym_entry[2])
             for (name, kernel, plain), args, bound in (
                 (sym_entry, (X, sq, rhs),
                  _sym_bound(m, d, columns, "gram", 4, 1, tc, exp=tc is not None)),
@@ -1629,7 +1702,7 @@ def phase_kernels():
                      ("gram_matmat_rect", "gram_matvec_rect")):
         log("kernels", f"{mat} (C={MC_CLASSES}) / {vec} at m={m} d={d}: "
             f"{timing[mat][0] / timing[vec][0]:.3f}x the time")
-    for tier in ("tf32", "bf16"):
+    for tier in ("tf32x3", "tf32", "bf16"):
         log("kernels", f"tensor-core tiles {tier} at m={m} d={d}: " + ", ".join(
             f"kernel {letter} {timing[name][0] / timing[(name + '_tc', tier)][0]:.2f}x"
             for letter, name in (("A", "gram_matvec_sym"), ("B", "gram_matvec_rect"),
@@ -2924,6 +2997,119 @@ def phase_bf16(tmp, config2_files, e2e_predicted, multiclass_files):
     return launches
 
 
+def phase_highest(tmp, config2_files, mnist_cell):
+    """The "highest" tier end to end on the implicit path, kernels A-D on
+    the tensor-core tiles in three TF32 passes over the split operands:
+    phase 4's config 2 files through ``plssvm-torch-train --gram_precision
+    highest --solver cg_implicit``, predicted through
+    ``CSVM(gram_precision="highest")`` (A, B); phase 7's 10 classes at
+    MNIST width through ``CSVM(gram_precision="highest",
+    solver="cg_implicit")``, predicted at "highest" (C, D).  Each: A or C
+    launched once for the initial residual, once per iteration and every
+    50th, B or D at least once, no FFMA-tile launch and no plain call; the
+    accuracy floor of its cell; labels against a float64 fit of the same
+    data on >= 0.995 (the f32/f64 gate); s/iteration logged beside the
+    cell's TF32 fit."""
+    import plssvm_tpu_torch as port
+    from plssvm_tpu_torch.cli import train as train_cli
+    from plssvm_tpu_torch.ops import gram_matmat, gram_matvec, matvec
+
+    def reset():
+        gram_matvec.reset_counts()
+        gram_matmat.reset_counts()
+        port.global_tracker.clear()
+
+    def check(label, module, sym, rect, iterations, accuracy, floor):
+        counts = {sym: module.sym_tc_launches, rect: module.rect_tc_launches}
+        ffma = (gram_matvec.sym_launches + gram_matmat.sym_launches
+                + gram_matvec.rect_launches + gram_matmat.rect_launches)
+        plain = (matvec.sym_plain_calls + matvec.rect_plain_calls
+                 + matvec.sym_matmat_plain_calls + matvec.rect_matmat_plain_calls)
+        log("highest", f"{label}: launches {counts} (tensor cores, three TF32 passes), "
+            f"FFMA-tile launches {ffma}, plain calls {plain}")
+        if counts[sym] != 1 + iterations + iterations // 50 or counts[rect] <= 0 \
+                or ffma != 0 or plain != 0:
+            raise AssertionError(f"highest {label} did not go through the split tiles only")
+        if accuracy < floor:
+            raise AssertionError(f"highest {label}: accuracy {accuracy} below {floor}")
+        return counts
+
+    launches = {}
+    (train_file, _), (test_file, test_labels) = config2_files
+    _automatic("highest", "config 2 highest", 10000, 200, "rbf", precision="highest")
+    reset()
+    model_file = os.path.join(tmp, "highest.model")
+    t0 = time.perf_counter()
+    rc = train_cli.main(["-b", "cuda", "-p", "gpu", "-q", "--gram_precision", "highest",
+                         "--solver", "cg_implicit", "-t", "2", "-c", "1", "-e",
+                         str(EPSILON), train_file, model_file])
+    t1 = time.perf_counter()
+    if rc != 0:
+        raise AssertionError(f"highest config 2: train rc {rc}")
+    iterations = _tracked("cg", "iterations")
+    s_per_it = _tracked("cg", "total_runtime") / 1000 / iterations
+    svm = port.CSVM(backend="cuda", device="cuda", gram_precision="highest")
+    predicted = svm.predict(port.Model.load(model_file), port.DataSet(test_file))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    accuracy = float(np.mean(predicted == test_labels))
+    launches.update(check("config 2", gram_matvec, "gram_matvec_sym_tc",
+                          "gram_matvec_rect_tc", iterations, accuracy, ACCURACY_FLOOR))
+    # the TF32 fit of the same file beside, in memory
+    port.global_tracker.clear()
+    port.CSVM(backend="cuda", device="cuda", kernel_type="rbf", cost=1.0,
+              solver="cg_implicit").fit(port.DataSet(train_file), epsilon=EPSILON)
+    tf32_it = _tracked("cg", "iterations")
+    tf32_s = _tracked("cg", "total_runtime") / 1000 / tf32_it
+    log("highest", f"config 2 highest (cuda): {iterations} CG iterations, {s_per_it:.6f} "
+        f"s/iteration (TF32 beside: {tf32_it} at {tf32_s:.6f}), fit (CLI) {t1 - t0:.3f} s, "
+        f"predict (CSVM, file parse included) {t2 - t1:.3f} s, accuracy {accuracy:.4f}")
+    _f64_agreement("highest", "config 2 highest", train_file, test_file, predicted, EPSILON,
+                   kernel_type="rbf")
+
+    train, test = mnist_cell["make"](np.float32)
+    _automatic("highest", f"rbf 60000x784 {MC_CLASSES} classes highest", 60000, 784, "rbf",
+               MC_CLASSES, precision="highest")
+    svm = port.CSVM(backend="cuda", device="cuda", dtype=np.float32, kernel_type="rbf",
+                    cost=1.0, solver="cg_implicit", gram_precision="highest")
+    reset()
+    t0 = time.perf_counter()
+    model = svm.fit(train, epsilon=mnist_cell["epsilon"])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    predicted = svm.predict(model, test)
+    t2 = time.perf_counter()
+    iterations = _tracked("cg", "iterations")
+    s_per_it = _tracked("cg", "total_runtime") / 1000 / iterations
+    accuracy = float(np.mean(predicted == mnist_cell["labels"]))
+    if not (np.all(np.isfinite(model.alpha)) and np.all(np.isfinite(model.rho))):
+        raise AssertionError("highest MNIST width: non-finite model")
+    launches.update(check(f"rbf 60000x784 {MC_CLASSES} classes", gram_matmat,
+                          "gram_matmat_sym_tc", "gram_matmat_rect_tc", iterations, accuracy,
+                          mnist_cell["floor"]))
+    tf32 = mnist_cell["implicit"]
+    log("highest", f"rbf 60000x784 {MC_CLASSES} classes highest (cuda): {iterations} "
+        f"block-CG iterations, {s_per_it:.6f} s/iteration (TF32 beside: "
+        f"{tf32['iterations']} at {tf32['s_per_it']:.6f}), fit {t1 - t0:.3f} s, predict "
+        f"10000 points {t2 - t1:.3f} s, accuracy {accuracy:.4f} (TF32 "
+        f"{tf32['accuracy']:.4f}), label agreement with the TF32 fit "
+        f"{float(np.mean(predicted == tf32['predicted'])):.4f}")
+    del train, test
+    train64, test64 = mnist_cell["make"](np.float64)
+    svm64 = port.CSVM(backend="cuda", device="cuda", dtype=np.float64, kernel_type="rbf",
+                      cost=1.0, solver="cg_implicit")
+    port.global_tracker.clear()
+    t0 = time.perf_counter()
+    model64 = svm64.fit(train64, epsilon=mnist_cell["epsilon"])
+    t1 = time.perf_counter()
+    agree = float(np.mean(svm64.predict(model64, test64) == predicted))
+    log("highest", f"rbf 60000x784 {MC_CLASSES} classes f64 (cuda): {model64.n_iter} "
+        f"block-CG iterations, fit {t1 - t0:.3f} s, highest/f64 label agreement {agree:.4f}")
+    if agree < 0.995:
+        raise AssertionError(f"highest and f64 agree on {agree} of the labels")
+    return launches
+
+
 def phase_laplacian_cli(tmp, config2_files):
     """Phase 8: phase 4's config 2 files with -t 4: only the kernel
     differs from phase 4."""
@@ -4018,12 +4204,12 @@ def phase_bench_matvec(main_ms):
     }
     log("bench-matvec", f"launches {launches}; plain calls: Gram "
         f"{matvec.sym_plain_calls}, distance {matvec.dist_sym_plain_calls}")
-    # kernel_matvec at f32 and bf16 (the tensor-core tile) and highest (the
-    # FFMA tile) are kernel A's only callers here; rect_full (f32) and
-    # rect_full_hi (highest) kernel B's
-    if launches != {"kernel_matvec": 3 * per_variant, "gram_matvec_sym": per_variant,
-                    "gram_matvec_sym_tc": 2 * per_variant,
-                    "gram_matvec_rect": per_variant, "gram_matvec_rect_tc": per_variant,
+    # kernel_matvec at f32, bf16 and highest (the tensor-core tile, highest
+    # in three TF32 passes) is kernel A's only caller here; rect_full (f32)
+    # and rect_full_hi (highest) kernel B's; the FFMA tiles launch no time
+    if launches != {"kernel_matvec": 3 * per_variant, "gram_matvec_sym": 0,
+                    "gram_matvec_sym_tc": 3 * per_variant,
+                    "gram_matvec_rect": 0, "gram_matvec_rect_tc": 2 * per_variant,
                     "distance_matvec_sym": per_variant} \
             or matvec.sym_plain_calls != per_variant \
             or matvec.dist_sym_plain_calls != per_variant:
@@ -5130,6 +5316,8 @@ def main(argv=None):
         phase_launches["config3"] = run("config3", phase_config3_width)
         phase_launches["mnist-width"], ring_cells["mnist-width"] = run(
             "mnist-width", phase_multiclass_width)
+        phase_launches["highest"] = run("highest", phase_highest, tmp, config2_files,
+                                        ring_cells["mnist-width"])
         phase_launches["oao"], oao_kernels = run(
             "oao", phase_oao, tmp, mc_written, ring_cells["chi2"], ring_cells["mnist-width"],
             main_ms)
@@ -5163,12 +5351,13 @@ def main(argv=None):
             f"= {lost:.1f} ms above the bound")
     # each kernel's launches in the JSON line are those of the first phase
     # that runs it at the tier its entry names: the bf16 phase's for the
-    # tensor-core tiles' "bf16" entries, else the first other phase's
+    # tensor-core tiles' "bf16" entries, the highest phase's for their
+    # "tf32x3" ones, else the first other phase's
     launches = {}
     for phase, counts in phase_launches.items():
         for k, n in counts.items():
-            if phase == "bf16":
-                launches[(k, "bf16")] = n
+            if phase in ("bf16", "highest"):
+                launches[(k, TIER_OF[phase])] = n
             else:
                 launches.setdefault(k, n)
     for tc in ("gram_matvec_sym_tc", "gram_matmat_sym_tc", "gram_matvec_rect_tc",
@@ -5195,9 +5384,10 @@ def main(argv=None):
     # for E and F (phase 8), chi-squared for G and H (phases 9 and 10); the
     # dual walks J-M the ring phase's launches, J and K at "f32" (TF32);
     # kernel_matvec's launches are phase 12's, kernel I's phase 11's; the
-    # FFMA tile of A and B at "highest" phase 12's (the bench's "highest"
-    # variants) beside their float32 times; the tensor-core tiles one entry
-    # per tier; the float64 entries (tier "f64") their float64 launches
+    # FFMA tiles of A and B, on no wrapper's path (``on_path`` false), the
+    # count of every main-path phase, 0, beside the float32 times that
+    # "highest" ran at before the split tier; the tensor-core tiles one
+    # entry per tier ("tf32x3": the highest phase's); the float64 entries (tier "f64") their float64 launches
     # (A-D phases 4 and 5, J and K the ring) beside their float64 times and
     # bounds.  No single PyTorch call computes any kernel's function
     # (library_ms)
@@ -5226,6 +5416,14 @@ def main(argv=None):
         ("gram_matvec_rect_tc", "bf16"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:1007"),
         ("gram_matmat_rect_tc", "tf32"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:812"),
         ("gram_matmat_rect_tc", "bf16"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:812"),
+        ("gram_matvec_sym_tc", "tf32x3"): (
+            "gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:430"),
+        ("gram_matmat_sym_tc", "tf32x3"): (
+            "gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:812"),
+        ("gram_matvec_rect_tc", "tf32x3"): (
+            "gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:1007"),
+        ("gram_matmat_rect_tc", "tf32x3"): (
+            "gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:812"),
         ("distance_matvec_sym", "laplacian"): (
             "distance.cu", "plssvm_tpu/ops/pallas_distance.py:226"),
         ("distance_matvec_rect", "laplacian"): (
@@ -5282,8 +5480,10 @@ def main(argv=None):
             "max_abs_err": main_err[k], "ms": timing[k][0],
             "plain_ms": timing[k][1], "bound_ms": bounds[k][0],
             "bound_by": bounds[k][1], "library_ms": None,
-            **({"tier": k[1]} if isinstance(k, tuple) and k[1] in ("tf32", "bf16", "f64")
+            **({"tier": k[1]} if isinstance(k, tuple)
+               and k[1] in ("tf32", "bf16", "tf32x3", "f64")
                else {"tier": tiers[k]} if k in tiers else {}),
+            **({"on_path": False} if k in OFF_PATH else {}),
             # kernel N's and O's entries: the kind each was timed and
             # launched at
             **({"kind": "chi_squared" if k[1] == "f64" else k[1]}
@@ -5293,9 +5493,13 @@ def main(argv=None):
         }
         for k, (src, replaces) in sources.items()
     ]
-    idle = [f"{e['name']} {e.get('tier', '')}" for e in entries if e["launches"] <= 0]
+    idle = [f"{e['name']} {e.get('tier', '')}" for e in entries
+            if e["launches"] <= 0 and e.get("on_path", True)]
     if idle:
         raise AssertionError(f"kernels of the main path launched no time: {idle}")
+    ffma = [e["name"] for e in entries if not e.get("on_path", True) and e["launches"]]
+    if ffma:
+        raise AssertionError(f"the FFMA Gram tiles launched on a main path: {ffma}")
     print(smi)
     print(json.dumps({"kernels": entries}))
     # every phase ran on device 0 alone

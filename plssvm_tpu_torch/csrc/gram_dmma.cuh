@@ -23,6 +23,7 @@ struct F64Operand {
     static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_FLOAT64;
     static constexpr int kItemSize = 8;
     static constexpr int kFeatures = kDmFeatures;
+    static constexpr int kParts = 1;  // one part: encode_operand's 2-D map
 };
 
 // c += A B for A 16 x 4 (a0: row g, a1: row g + 8, column t) and B 4 x 8

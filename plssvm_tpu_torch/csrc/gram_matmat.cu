@@ -38,10 +38,13 @@
 // and 2 * BM * C atomics per off-diagonal tile where kernel A issues 2 * BM.
 // The classes are a loop, not a register array, so no per-class state is
 // held: the register footprint stays kernel A's, and C does not change how
-// the kernel is compiled.  This register tile serves the "highest" tier,
-// float32 only; kernels C and D at "f32" (TF32) and "bf16" run on the
-// tensor-core tiles of gram_tc.cuh (plssvm_gram_matmat_sym_tf32 / _bf16,
-// plssvm_gram_matmat_rect_tc_tf32 / _tc_bf16), D with one atomicAdd per
+// the kernel is compiled.  This register tile is built for float32 only
+// and no wrapper launches it (the card tests hold it against the plain
+// version, chip_smoke.py times it beside its replacement); kernels C and D
+// run on the tensor-core tiles of gram_tc.cuh at every float32 tier
+// (plssvm_gram_matmat_sym_tf32 / _bf16 / _tf32x3,
+// plssvm_gram_matmat_rect_tc_tf32 / _tc_bf16 / _tc_tf32x3, "highest" as
+// three TF32 passes over the split operand), D with one atomicAdd per
 // (row, class) per run of SV tiles instead of per tile.  Kernels C and D
 // in float64 run on the FP64 tensor cores at every tier: the DMMA tiles of
 // gram_dmma.cu, behind plssvm_gram_matmat_sym_dmma and
@@ -226,6 +229,18 @@ extern "C" int plssvm_gram_matmat_sym_bf16(const void* X, const float* sq,
                             coef0, stream);
 }
 
+// Kernel C at "highest" on the same tile in three TF32 passes: X the split
+// stack (2, m, d_pad) [hi; lo] of the float32 X; sq the float32 X's norms.
+extern "C" int plssvm_gram_matmat_sym_tf32x3(const void* X, const float* sq,
+                                             const float* V, float* out,
+                                             int64_t m, int64_t d_pad,
+                                             int64_t C, int kind, int degree,
+                                             float gamma, float coef0,
+                                             void* stream) {
+    return tc_sym<Tf32x3Tier>(X, sq, V, out, m, d_pad, C, kind, degree, gamma,
+                              coef0, stream);
+}
+
 // Kernel D on the tensor-core tile (gram_tc.cuh): P and S the tier's
 // operand copies (n_p, d_pad) and (n_s, d_pad), TF32-rounded float32 or
 // bf16; sq_p, sq_s the float32 operands' norms.
@@ -243,4 +258,14 @@ extern "C" int plssvm_gram_matmat_rect_tc_bf16(
     int64_t C, int kind, int degree, float gamma, float coef0, void* stream) {
     return tc_rect<Bf16Tier>(P, S, sq_p, sq_s, A, out, n_p, n_s, d_pad, C, kind,
                              degree, gamma, coef0, stream);
+}
+
+// Kernel D at "highest" on the same tile in three TF32 passes: P and S the
+// split stacks (2, n_p, d_pad) and (2, n_s, d_pad).
+extern "C" int plssvm_gram_matmat_rect_tc_tf32x3(
+    const void* P, const void* S, const float* sq_p, const float* sq_s,
+    const float* A, float* out, int64_t n_p, int64_t n_s, int64_t d_pad,
+    int64_t C, int kind, int degree, float gamma, float coef0, void* stream) {
+    return tc_rect<Tf32x3Tier>(P, S, sq_p, sq_s, A, out, n_p, n_s, d_pad, C,
+                               kind, degree, gamma, coef0, stream);
 }

@@ -45,12 +45,15 @@
 // operand loads, so at the widths LS-SVM trains at (d in the hundreds) both
 // kernels are bound by fp32 FMA throughput on the CUDA cores, not by
 // memory.  The register tile (R x R accumulators per thread, fed from
-// shared memory) is what this version does about it; it serves the
-// "highest" tier, and is compiled for float32 only.  Kernels A and B at the
-// tiers "f32" (TF32) and "bf16" run on the tensor cores instead: the wgmma
-// tiles of gram_tc.cuh, behind plssvm_gram_matvec_sym_tf32 / _bf16 and
-// plssvm_gram_matvec_rect_tc_tf32 / _tc_bf16 (they take the wrapper's
-// operand copies of X, or of P and S).  Kernels A and B in float64 run on
+// shared memory) is what this version does about it; it is compiled for
+// float32 only and no wrapper launches it: it stays built, held against
+// the plain version by the card tests and timed by chip_smoke.py beside
+// the tensor-core tiles that replaced it at "highest".  Kernels A and B
+// run on the tensor cores at every float32 tier: the wgmma tiles of
+// gram_tc.cuh, behind plssvm_gram_matvec_sym_tf32 / _bf16 / _tf32x3 and
+// plssvm_gram_matvec_rect_tc_tf32 / _tc_bf16 / _tc_tf32x3 (they take the
+// wrapper's operand copies of X, or of P and S: TF32-rounded, bf16, or
+// the split [hi; lo] stack of "highest").  Kernels A and B in float64 run on
 // the FP64 tensor cores at every tier: the DMMA tiles of gram_dmma.cu,
 // behind plssvm_gram_matvec_sym_dmma and plssvm_gram_matvec_rect_dmma.
 //
@@ -317,6 +320,17 @@ extern "C" int plssvm_gram_matvec_sym_bf16(const void* X, const float* sq,
                             coef0, stream);
 }
 
+// Kernel A at "highest" on the same tile in three TF32 passes: X the split
+// stack (2, m, d_pad) [hi; lo] of the float32 X; sq the float32 X's norms.
+extern "C" int plssvm_gram_matvec_sym_tf32x3(const void* X, const float* sq,
+                                             const float* v, float* out,
+                                             int64_t m, int64_t d_pad,
+                                             int kind, int degree, float gamma,
+                                             float coef0, void* stream) {
+    return tc_sym<Tf32x3Tier>(X, sq, v, out, m, d_pad, 1, kind, degree, gamma,
+                              coef0, stream);
+}
+
 // Kernel B on the tensor-core tile (gram_tc.cuh): P and S the tier's
 // operand copies (n_p, d_pad) and (n_s, d_pad), TF32-rounded float32 or
 // bf16; sq_p, sq_s the float32 operands' norms.
@@ -334,6 +348,16 @@ extern "C" int plssvm_gram_matvec_rect_tc_bf16(
     int kind, int degree, float gamma, float coef0, void* stream) {
     return tc_rect<Bf16Tier>(P, S, sq_p, sq_s, a_s, out, n_p, n_s, d_pad, 1,
                              kind, degree, gamma, coef0, stream);
+}
+
+// Kernel B at "highest" on the same tile in three TF32 passes: P and S the
+// split stacks (2, n_p, d_pad) and (2, n_s, d_pad).
+extern "C" int plssvm_gram_matvec_rect_tc_tf32x3(
+    const void* P, const void* S, const float* sq_p, const float* sq_s,
+    const float* a_s, float* out, int64_t n_p, int64_t n_s, int64_t d_pad,
+    int kind, int degree, float gamma, float coef0, void* stream) {
+    return tc_rect<Tf32x3Tier>(P, S, sq_p, sq_s, a_s, out, n_p, n_s, d_pad, 1,
+                               kind, degree, gamma, coef0, stream);
 }
 
 extern "C" const char* plssvm_cuda_error_string(int error) {

@@ -1,5 +1,6 @@
 // The tensor-core Gram tiles of kernels A-D, J and K in the tiers "f32"
-// (TF32 operands) and "bf16" (bfloat16 operands), f32 accumulation in both:
+// (TF32 operands) and "bf16" (bfloat16 operands), and of A-D in "highest"
+// (three TF32 passes over the split operand), f32 accumulation in all:
 // the symmetric K(X, X) @ V for V (m, C) (kernels A and C, C = 1 for A), the
 // rectangular K(P, S) @ A for points P, support vectors S and A (n_s, C)
 // (kernels B and D, C = 1 for B), and the dual (K @ V_c, K^T @ V_r) of one
@@ -15,11 +16,15 @@
 // fulld and blocked bodies alike) and K4 with symmetric=False (predict) on
 // the rectangular tile; K1 and K4 with symmetric=False and both outputs
 // (bodies _matvec_kernel_dual and _matmat_kernel_dual, the reference ring's
-// cross_dual in plssvm_tpu/parallel/sharded.py) on the dual tile.  The
-// "highest" tier keeps the FFMA register tiles of gram_tile.cuh and
-// dual.cu; in float64, A and C run on the FP64 tensor cores (the DMMA tile
-// of gram_dmma.cu, which shares this file's TMA and mbarrier helpers and
-// the grouped raster), B, D, J and K on the FFMA tiles.
+// cross_dual in plssvm_tpu/parallel/sharded.py) on the dual tile.  At
+// "highest" the reference's dots are multi-pass f32 on the MXU
+// (lax.Precision.HIGHEST, "roughly 1/3 the MXU rate", pallas_matvec.py:40
+// and _dot_prec); here A-D take the same symmetric and rectangular tiles
+// with three TF32 passes (Tf32x3Tier, below), where the FFMA register
+// tiles of gram_tile.cuh stopped at the 67 TFLOP/s FP32 rate; J and K at
+// "highest" keep the FFMA walks of dual.cu.  In float64 A-D, J and K run
+// on the FP64 tensor cores (the DMMA tiles of gram_dmma.cu, which share
+// this file's TMA and mbarrier helpers and the grouped raster).
 //
 // What bounds them on an H100: the pair work, 2 * pairs * d flops, at the
 // tensor cores' 495 TFLOP/s (TF32) or 989 TFLOP/s (bf16), is only reached
@@ -98,11 +103,20 @@
 //
 // Numerics: the wrapper hands the kernels a TF32-rounded copy of each
 // operand (round-to-nearest, ties away, as cvt.rna.tf32.f32; wgmma itself
-// would drop the low 13 bits and bias every Gram entry toward zero) or a
-// bf16 copy; the squared norms stay those of the float32 operands, as the
-// TPU kernel's.  The operand copies' row stride must be a multiple of 16
-// bytes (TMA), so their feature axis is padded with zeros to d % 4 (TF32)
-// or d % 8 (bf16); P and S take the same padding.
+// would drop the low 13 bits and bias every Gram entry toward zero), a
+// bf16 copy, or at "highest" the split stack [hi; lo] (hi the TF32 copy,
+// lo = tf32(x - hi), both exact TF32, so wgmma reads them whole); the
+// squared norms stay those of the float32 operands, as the TPU kernel's.
+// The operand copies' row stride must be a multiple of 16 bytes (TMA), so
+// their feature axis is padded with zeros to d % 4 (TF32 and the split)
+// or d % 8 (bf16); P and S take the same padding.  The split tier walks
+// the same nk feature boxes as TF32, each stage holding both parts of the
+// row and of the column box (a 3-D tensor map over the stack, one part a
+// box) for three products: each operand box is staged once for its two
+// products, where a walk of 3 nk one-part boxes (tried first) stages it
+// three times and read 7-11 % slower on an H100 at two blocks an SM
+// (PERF.md).  Its 64 KB stages leave one block an SM; the one-pass tiers'
+// code is the same as before (one part, two blocks an SM).
 
 #pragma once
 
@@ -162,6 +176,9 @@ struct Tf32Tier {
     static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
     static constexpr int kItemSize = 4;
     static constexpr int kFeatures = kTcRowBytes / kItemSize;  // 32
+    static constexpr int kPasses = 1;       // products a stage adds
+    static constexpr int kParts = 1;        // operand parts a stage holds
+    static constexpr int kBlocksPerSm = 2;  // the tiles' __launch_bounds__
     __device__ __forceinline__ static void mma(float (&d)[64], uint64_t a,
                                                uint64_t b,
                                                uint32_t scale_d = 1) {
@@ -180,6 +197,9 @@ struct Bf16Tier {
     static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
     static constexpr int kItemSize = 2;
     static constexpr int kFeatures = kTcRowBytes / kItemSize;  // 64
+    static constexpr int kPasses = 1;
+    static constexpr int kParts = 1;
+    static constexpr int kBlocksPerSm = 2;
     __device__ __forceinline__ static void mma(float (&d)[64], uint64_t a,
                                                uint64_t b,
                                                uint32_t scale_d = 1) {
@@ -194,6 +214,36 @@ struct Bf16Tier {
             : "l"(a), "l"(b), "r"(scale_d));
     }
 };
+
+// The "highest" tier: the TF32 product in three passes over the operand's
+// split (2, rows, d_pad) stack [hi; lo], hi = tf32(x), lo = tf32(x - hi).
+// A stage holds both parts of the row and of the column box side by side
+// (row hi, row lo, column hi, column lo: 64 KB), and pass p multiplies the
+// row part row_part(p) by the column part col_part(p), so one accumulator
+// walk sums hi hi^T + hi lo^T + lo hi^T, feature box by feature box.  The
+// dropped lo lo^T and lo's own rounding leave about 2^-22 relative per
+// product, where one float32 product rounds to 2^-24.  Three 64 KB stages
+// leave one block an SM.
+struct Tf32x3Tier : Tf32Tier {
+    static constexpr int kPasses = 3;
+    static constexpr int kParts = 2;
+    static constexpr int kBlocksPerSm = 1;
+    __device__ __forceinline__ static int row_part(int pass) { return pass == 2; }
+    __device__ __forceinline__ static int col_part(int pass) { return pass == 1; }
+};
+
+// A tier's ring: a stage holds the row and the column box of each part it
+// reads; the whole ring is the dynamic shared memory of the sym and rect
+// tiles (with 1024 bytes to align it).
+template <typename Tier>
+__host__ __device__ constexpr int tc_stage_bytes() {
+    return 2 * Tier::kParts * kTcOperandBytes;
+}
+template <typename Tier>
+__host__ __device__ constexpr int tc_smem_bytes() {
+    return kTcStages * tc_stage_bytes<Tier>() + 1024;
+}
+static_assert(tc_smem_bytes<Tf32Tier>() == kTcSmemBytes, "the one-pass ring");
 
 #undef PLSSVM_TC_REGS
 #undef PLSSVM_TC_OUTS
@@ -246,6 +296,38 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
         "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(feature),
         "r"(row)
         : "memory");
+}
+
+// one box of a split stack's 3-D tensor map at (feature, row, part)
+__device__ __forceinline__ void tma_load_part(uint32_t dst, const CUtensorMap* map,
+                                              uint32_t bar, int feature, int row,
+                                              int part) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(feature),
+        "r"(row), "r"(part)
+        : "memory");
+}
+
+// Stage feature box k of the row tile at row0 and of the column tile at
+// col0 into the stage at dst: the row box then the column box, or for the
+// split tier both parts of each (row hi, row lo, column hi, column lo);
+// the one-pass tiers read the 2-D maps as they always have.
+template <typename Tier>
+__device__ __forceinline__ void tc_load_boxes(uint32_t dst, const CUtensorMap* rmap,
+                                              const CUtensorMap* cmap, uint32_t bar,
+                                              int k, int row0, int col0) {
+    const int feature = k * Tier::kFeatures;
+    if constexpr (Tier::kParts == 1) {
+        tma_load(dst, rmap, bar, feature, row0);
+        tma_load(dst + kTcOperandBytes, cmap, bar, feature, col0);
+    } else {
+        tma_load_part(dst, rmap, bar, feature, row0, 0);
+        tma_load_part(dst + kTcOperandBytes, rmap, bar, feature, row0, 1);
+        tma_load_part(dst + 2 * kTcOperandBytes, cmap, bar, feature, col0, 0);
+        tma_load_part(dst + 3 * kTcOperandBytes, cmap, bar, feature, col0, 1);
+    }
 }
 
 // wgmma shared-memory descriptor of a K-major operand in the 128-byte
@@ -311,9 +393,10 @@ __device__ __forceinline__ void grouped_upper_tile(int64_t p, int64_t nt,
 
 // out[r, c] += sum_j k(x_r, x_j) V[j, c] over the upper triangle of tiles,
 // columns mirrored off the diagonal; X arrives through xmap as the tier's
-// operand copy (m rows, its feature axis padded), nk boxes of features.
+// operand copy (m rows, its feature axis padded; the "highest" tier's
+// split stack), nk boxes of features.
 template <typename Tier, int KIND>
-__global__ void __launch_bounds__(kTcThreads, 2)
+__global__ void __launch_bounds__(kTcThreads, Tier::kBlocksPerSm)
     gram_tc_sym_kernel(const __grid_constant__ CUtensorMap xmap,
                        const float* __restrict__ sq,
                        const float* __restrict__ V, float* __restrict__ out,
@@ -353,13 +436,12 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     __syncthreads();
 
     // stage s <- feature box k of the row and the column tile
+    constexpr int kStage = tc_stage_bytes<Tier>();
     auto load = [&](int k, int s) {
         const uint32_t bar = smem_address(&full[s]);
-        const uint32_t dst = ring + s * kTcStageBytes;
-        mbar_expect_tx(bar, kTcStageBytes);
-        tma_load(dst, &xmap, bar, k * Tier::kFeatures, static_cast<int>(row0));
-        tma_load(dst + kTcOperandBytes, &xmap, bar, k * Tier::kFeatures,
-                 static_cast<int>(col0));
+        mbar_expect_tx(bar, kStage);
+        tc_load_boxes<Tier>(ring + s * kStage, &xmap, &xmap, bar, k,
+                            static_cast<int>(row0), static_cast<int>(col0));
     };
     if (tid == 0) {
         for (int s = 0; s < kTcStages && s < nk; ++s) {
@@ -376,13 +458,25 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     for (int k = 0; k < nk; ++k) {
         const int s = k % kTcStages;
         mbar_wait(smem_address(&full[s]), (k / kTcStages) & 1);
-        const uint32_t a = ring + s * kTcStageBytes + wg * 64 * kTcRowBytes;
-        const uint32_t b = ring + s * kTcStageBytes + kTcOperandBytes;
+        const uint32_t a = ring + s * kStage + wg * 64 * kTcRowBytes;
+        const uint32_t b = ring + s * kStage + Tier::kParts * kTcOperandBytes;
         fence_acc(acc);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kTcRowBytes / 32; ++kk) {
             Tier::mma(acc, sw128_desc(a + 32 * kk), sw128_desc(b + 32 * kk));
+        }
+        if constexpr (Tier::kPasses > 1) {
+            // the split tier's other passes on the same stage
+#pragma unroll
+            for (int p = 1; p < Tier::kPasses; ++p) {
+                const uint32_t ap = a + Tier::row_part(p) * kTcOperandBytes;
+                const uint32_t bp = b + Tier::col_part(p) * kTcOperandBytes;
+#pragma unroll
+                for (int kk = 0; kk < kTcRowBytes / 32; ++kk) {
+                    Tier::mma(acc, sw128_desc(ap + 32 * kk), sw128_desc(bp + 32 * kk));
+                }
+            }
         }
         wgmma_commit();
         fence_acc(acc);
@@ -543,14 +637,27 @@ __device__ __forceinline__ void tc_consume(float (&acc)[64], uint32_t ring,
     const int s = g % kTcStages;
     mbar_wait(smem_address(&full[s]), (g / kTcStages) & 1);
     const int wg = tid / 128;
-    const uint32_t a = ring + s * kTcStageBytes + wg * 64 * kTcRowBytes;
-    const uint32_t b = ring + s * kTcStageBytes + kTcOperandBytes;
+    constexpr int kStage = tc_stage_bytes<Tier>();
+    const uint32_t a = ring + s * kStage + wg * 64 * kTcRowBytes;
+    const uint32_t b = ring + s * kStage + Tier::kParts * kTcOperandBytes;
     fence_acc(acc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTcRowBytes / 32; ++kk) {
         Tier::mma(acc, sw128_desc(a + 32 * kk), sw128_desc(b + 32 * kk),
                   (kk > 0 || accumulate) ? 1u : 0u);
+    }
+    if constexpr (Tier::kPasses > 1) {
+        // the split tier's other passes on the same stage
+#pragma unroll
+        for (int p = 1; p < Tier::kPasses; ++p) {
+            const uint32_t ap = a + Tier::row_part(p) * kTcOperandBytes;
+            const uint32_t bp = b + Tier::col_part(p) * kTcOperandBytes;
+#pragma unroll
+            for (int kk = 0; kk < kTcRowBytes / 32; ++kk) {
+                Tier::mma(acc, sw128_desc(ap + 32 * kk), sw128_desc(bp + 32 * kk));
+            }
+        }
     }
     wgmma_commit();
     fence_acc(acc);
@@ -652,9 +759,10 @@ __device__ __forceinline__ void grouped_rect_run(int64_t p, int64_t n_pt,
 // out[r, c] += sum_j k(p_r, s_j) A[j, c] over row tile it and the column
 // tiles [jt0, jt0 + run) of the rectangle; P and S arrive through pmap and
 // smap as the tier's operand copies (n_p and n_s rows, the same padded
-// feature axis), nk boxes of features per tile.
+// feature axis; the "highest" tier's split stacks), nk boxes of features
+// per tile.
 template <typename Tier, int KIND>
-__global__ void __launch_bounds__(kTcThreads, 2)
+__global__ void __launch_bounds__(kTcThreads, Tier::kBlocksPerSm)
     gram_tc_rect_kernel(const __grid_constant__ CUtensorMap pmap,
                         const __grid_constant__ CUtensorMap smap,
                         const float* __restrict__ sq_p,
@@ -693,14 +801,12 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 
     // stage s <- box g of the run: feature box g % nk of the row tile and
     // of column tile jt0 + g / nk
+    constexpr int kStage = tc_stage_bytes<Tier>();
     auto load = [&](int g, int s) {
         const uint32_t bar = smem_address(&full[s]);
-        const uint32_t dst = ring + s * kTcStageBytes;
-        const int feature = (g % nk) * Tier::kFeatures;
-        mbar_expect_tx(bar, kTcStageBytes);
-        tma_load(dst, &pmap, bar, feature, row0);
-        tma_load(dst + kTcOperandBytes, &smap, bar, feature,
-                 (jt0 + g / nk) * kTcEdge);
+        mbar_expect_tx(bar, kStage);
+        tc_load_boxes<Tier>(ring + s * kStage, &pmap, &smap, bar, g % nk, row0,
+                            (jt0 + g / nk) * kTcEdge);
     };
     if (tid == 0) {
         for (int s = 0; s < kTcStages && s < total; ++s) {
@@ -1001,7 +1107,8 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  CUtensorMapFloatOOBfill);
 
 // The TMA descriptor of an operand copy X (m, d_pad), boxes of 128 rows x
-// 128 bytes in the 128-byte swizzle, zero fill past the edges.
+// 128 bytes in the 128-byte swizzle, zero fill past the edges; for a
+// split tier the 3-D map over the (2, m, d_pad) stack, boxes of one part.
 // cuTensorMapEncodeTiled comes through the runtime's entry-point query, so
 // the library links the CUDA runtime alone (no -lcuda).
 template <typename Tier>
@@ -1026,15 +1133,17 @@ cudaError_t encode_operand(CUtensorMap* map, const void* X, int64_t m,
         }
         encode = reinterpret_cast<EncodeTiled>(fn);
     }
-    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d_pad),
-                                static_cast<cuuint64_t>(m)};
-    const cuuint64_t strides[1] = {
-        static_cast<cuuint64_t>(d_pad) * Tier::kItemSize};
-    const cuuint32_t box[2] = {static_cast<cuuint32_t>(Tier::kFeatures),
-                               static_cast<cuuint32_t>(kTcEdge)};
-    const cuuint32_t steps[2] = {1, 1};
+    constexpr cuuint32_t rank = Tier::kParts == 1 ? 2 : 3;
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d_pad),
+                                static_cast<cuuint64_t>(m), 2};
+    const cuuint64_t strides[2] = {
+        static_cast<cuuint64_t>(d_pad) * Tier::kItemSize,
+        static_cast<cuuint64_t>(m) * static_cast<cuuint64_t>(d_pad) * Tier::kItemSize};
+    const cuuint32_t box[3] = {static_cast<cuuint32_t>(Tier::kFeatures),
+                               static_cast<cuuint32_t>(kTcEdge), 1};
+    const cuuint32_t steps[3] = {1, 1, 1};
     const CUresult r = encode(
-        map, Tier::kType, 2, const_cast<void*>(X), dims, strides, box, steps,
+        map, Tier::kType, rank, const_cast<void*>(X), dims, strides, box, steps,
         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -1049,13 +1158,14 @@ bool tma_operand_ok(const void* X, int64_t rows, int64_t d_pad) {
            reinterpret_cast<uintptr_t>(X) % 16 == 0;
 }
 
-// The tensor-core kernels take kTcSmemBytes of dynamic shared memory, more
-// than the 48 KB a kernel gets without asking.
+// The tensor-core kernels take kTcSmemBytes of dynamic shared memory (the
+// split tier's sym and rect tiles tc_smem_bytes<Tf32x3Tier>()), more than
+// the 48 KB a kernel gets without asking.
 template <typename Kernel>
-cudaError_t tc_allow_ring(Kernel kernel) {
+cudaError_t tc_allow_ring(Kernel kernel, int bytes = kTcSmemBytes) {
     return cudaFuncSetAttribute(kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                kTcSmemBytes);
+                                bytes);
 }
 
 template <typename Tier, int KIND>
@@ -1076,19 +1186,19 @@ cudaError_t launch_tc_sym(const void* X, const float* sq, const float* V,
         return err;
     }
     auto kernel = gram_tc_sym_kernel<Tier, KIND>;
-    err = tc_allow_ring(kernel);
+    err = tc_allow_ring(kernel, tc_smem_bytes<Tier>());
     if (err != cudaSuccess) {
         return err;
     }
-    kernel<<<static_cast<unsigned int>(blocks), kTcThreads, kTcSmemBytes,
+    kernel<<<static_cast<unsigned int>(blocks), kTcThreads, tc_smem_bytes<Tier>(),
              stream>>>(map, sq, V, out, m, C, static_cast<int>(nk), nt,
                        degree, gamma, coef0);
     return cudaGetLastError();
 }
 
 // The rect tile's run for ``tiles`` tiles: the longest, up to kTcMaxRun,
-// that still leaves kTcRunWaves waves of blocks (two per SM).
-inline cudaError_t tc_run_length(int64_t tiles, int64_t& run) {
+// that still leaves kTcRunWaves waves of blocks (``per_sm`` an SM).
+inline cudaError_t tc_run_length(int64_t tiles, int per_sm, int64_t& run) {
     int device = 0;
     int sms = 0;
     cudaError_t err = cudaGetDevice(&device);
@@ -1099,7 +1209,7 @@ inline cudaError_t tc_run_length(int64_t tiles, int64_t& run) {
     if (err != cudaSuccess) {
         return err;
     }
-    run = tiles / (int64_t(kTcRunWaves) * 2 * sms);
+    run = tiles / (int64_t(kTcRunWaves) * per_sm * sms);
     run = run < 1 ? 1 : (run > kTcMaxRun ? kTcMaxRun : run);
     return cudaSuccess;
 }
@@ -1129,7 +1239,7 @@ cudaError_t tc_rect_grid(const void* R, const void* S, int64_t n_r,
         return cudaErrorInvalidValue;
     }
     int64_t run = 0;
-    cudaError_t err = tc_run_length(n_rt * n_ct, run);
+    cudaError_t err = tc_run_length(n_rt * n_ct, Tier::kBlocksPerSm, run);
     if (err != cudaSuccess) {
         return err;
     }
@@ -1162,11 +1272,11 @@ cudaError_t launch_tc_rect(const void* P, const void* S, const float* sq_p,
         return err;
     }
     auto kernel = gram_tc_rect_kernel<Tier, KIND>;
-    err = tc_allow_ring(kernel);
+    err = tc_allow_ring(kernel, tc_smem_bytes<Tier>());
     if (err != cudaSuccess) {
         return err;
     }
-    kernel<<<grid.blocks, kTcThreads, kTcSmemBytes, stream>>>(
+    kernel<<<grid.blocks, kTcThreads, tc_smem_bytes<Tier>(), stream>>>(
         grid.rmap, grid.cmap, sq_p, sq_s, A, out, static_cast<int>(n_p),
         static_cast<int>(n_s), static_cast<int>(C), grid.nk, grid.n_rt,
         grid.n_ct, grid.run, degree, gamma, coef0);

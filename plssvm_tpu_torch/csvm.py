@@ -79,12 +79,13 @@ CUDA_CONTEXT_BYTES = 2 << 30
 #: a Gram kernel on a CUDA device, by tier ("f64": a float64 solve, every
 #: tier), for a binary and a one-vs-all fit, None for never: the smallest d
 #: of 16, 32, ..., 1024 from which the implicit product of an iteration
-#: (kernel A, or C for C classes) takes longer than one read of the stored
-#: K plus a twentieth of the build, for one-vs-all at every class count
-#: swept (3, 4 and 10; at 3 classes and d = 512 the two tie within 1 %), at
-#: 32768 rows on an H100 80GB HBM3 at 700 W (tools/bench_explicit.py
-#: --sweep 32768; PERF.md)
-GRAM_CROSSOVER_CUDA = {"f32": (1024, 512), "bf16": (1024, None), "highest": (64, 64),
+#: (kernel A, or C for C classes, on the operand copy the solve makes once)
+#: takes longer than one read of the stored K plus a twentieth of the
+#: build, for one-vs-all at every class count swept (3, 4 and 10), at 32768
+#: rows on an H100 80GB HBM3 at 700 W (tools/bench_explicit.py --sweep
+#: 32768; PERF.md).  "highest" runs on the tensor cores in three TF32
+#: passes, whose product the stored K beats from d = 256 on
+GRAM_CROSSOVER_CUDA = {"f32": (1024, 1024), "bf16": (1024, None), "highest": (256, 256),
                        "f64": (128, 128)}
 #: the environment variable that overrides the batched one-vs-one solve's
 #: budget (GiB), plssvm_tpu's PLSSVM_OAO_BATCH_BUDGET_GB

@@ -123,7 +123,7 @@ _SHORT = re.compile(
     r"_kernelI([fd])(?:Li(\d)E)?"
 )
 #: the tensor-core tiles (gram_tc.cuh), templates of the tier and the kind
-_TC = re.compile(r"(gram_tc_(?:sym|rect|dual))_kernelI\w*?(Tf32|Bf16)TierELi(\d)E")
+_TC = re.compile(r"(gram_tc_(?:sym|rect|dual))_kernelI\w*?(Tf32x3|Tf32|Bf16)TierELi(\d)E")
 #: the dual walks (dual.cu), one template for the Gram and distance kinds
 _DUAL = re.compile(r"(mat(?:vec|mat))_dual_kernelI([fd])Li(\d)E")
 #: the FP64 tensor-core tiles (gram_dmma.cu), templates of the kind
@@ -224,8 +224,8 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     ptr, i64, cint = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     f32, f64 = ctypes.c_float, ctypes.c_double
-    # kernels A-D on the FFMA tile and the FFMA walks of J and K, float32
-    # only (float64 takes the DMMA tiles): (X, sq, v / V, out, m, d, [C,]
+    # kernels A-D on the FFMA tile (gram_matvec.gram_ffma) and the FFMA
+    # walks of J and K, float32 only (float64 takes the DMMA tiles): (X, sq, v / V, out, m, d, [C,]
     # ...), (P, S, sq_p, sq_s, a / A, out, n_p, n_s, d, [C,] ...), (Xr, Xc,
     # sq_r, sq_c, v_c / V_c, v_r / V_r, out_r, out_c, mr, mc, d, [C,] ...),
     # each ending in (kind, degree, gamma, coef0, stream)
@@ -260,9 +260,10 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, f"plssvm_distance_{op}_dual_{suffix}")
             fn.argtypes = [ptr] * 6 + [i64] * n_sizes + [cint, real, ptr]
             fn.restype = cint
-    for tier in ("tf32", "bf16"):
+    for tier in ("tf32", "bf16", "tf32x3"):
         # kernels A and C on the tensor-core tile: (X copy, sq, v / V, out,
-        # m, d_pad, [C,] kind, degree, gamma, coef0, stream)
+        # m, d_pad, [C,] kind, degree, gamma, coef0, stream); tf32x3 (the
+        # "highest" tier) takes the split stack (2, m, d_pad)
         getattr(lib, f"plssvm_gram_matvec_sym_{tier}").argtypes = [
             ptr, ptr, ptr, ptr, i64, i64, cint, cint, f32, f32, ptr,
         ]
@@ -279,6 +280,9 @@ def load() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, cint, cint, f32,
             f32, ptr,
         ]
+        for name in ("matvec_sym", "matmat_sym", "matvec_rect_tc", "matmat_rect_tc"):
+            getattr(lib, f"plssvm_gram_{name}_{tier}").restype = cint
+    for tier in ("tf32", "bf16"):
         # kernels J and K: (Xr copy, Xc copy, sq_r, sq_c, v_c / V_c, v_r /
         # V_r, out_r, out_c, mr, mc, d_pad, [C,] kind, degree, gamma, coef0,
         # stream)
@@ -286,8 +290,7 @@ def load() -> ctypes.CDLL:
             [ptr] * 8 + [i64] * 3 + [cint, cint, f32, f32, ptr])
         getattr(lib, f"plssvm_gram_matmat_dual_tc_{tier}").argtypes = (
             [ptr] * 8 + [i64] * 4 + [cint, cint, f32, f32, ptr])
-        for name in ("matvec_sym", "matmat_sym", "matvec_rect_tc", "matmat_rect_tc",
-                     "matvec_dual_tc", "matmat_dual_tc"):
+        for name in ("matvec_dual_tc", "matmat_dual_tc"):
             getattr(lib, f"plssvm_gram_{name}_{tier}").restype = cint
     # kernels A and C on the DMMA tile, float64: (X, sq, v / V, out, m,
     # d_pad, [C,] kind, degree, gamma, coef0, stream)

@@ -14,31 +14,36 @@ dual tensor-core tile of csrc/gram_tc.cuh, in float64 the dual DMMA tile of
 csrc/gram_dmma.cu).
 
 As in ops/gram_matvec.py: ``precision`` is the Gram precision tier; on
-float32 CUDA tensors kernels C and D take the tensor-core tiles
-(csrc/gram_tc.cuh: the symmetric one for C, the rectangular one for D, the
-dual one for K) at "f32" (TF32) and "bf16" and the FFMA tiles at
-"highest"; in float64, at every tier, kernels C, D and K run on the FP64
-tensor cores (the symmetric, the rect and the dual DMMA tile of
-csrc/gram_dmma.cu).
+float32 CUDA tensors kernels C and D take the tensor-core tiles at every
+tier (csrc/gram_tc.cuh: the symmetric one for C, the rectangular one for
+D; "f32" TF32, "bf16", "highest" three TF32 passes over the split
+operand), K the dual one at "f32" and "bf16" and the FFMA walk of
+csrc/dual.cu at "highest"; in float64, at every tier, kernels C, D and K
+run on the FP64 tensor cores (the symmetric, the rect and the dual DMMA
+tile of csrc/gram_dmma.cu).
 Each wrapper takes its plain PyTorch version (ops/matvec.py) at the same
 tier for tensors that lie on the CPU, and only then; for a CUDA tensor it
 launches its kernel or raises, never falls back.  Each counts its launches
-in a plain module-level int (``sym_launches``, ``rect_launches`` for the
-FFMA tile, ``sym_tc_launches``, ``rect_tc_launches`` for the tensor-core
-tiles, ``sym_dmma_launches`` and ``rect_dmma_launches`` for kernels C
-and D on the DMMA tiles, ``dual_launches``, ``dual_tc_launches`` and ``dual_dmma_launches`` for
-kernel K on the FFMA, tensor-core and DMMA tiles).  V, A
-and the output are row-major (rows, C) for any C >= 1.
+in a plain module-level int (``sym_tc_launches``, ``rect_tc_launches`` for
+the tensor-core tiles, ``sym_dmma_launches`` and ``rect_dmma_launches``
+for kernels C and D on the DMMA tiles, ``dual_launches``,
+``dual_tc_launches`` and ``dual_dmma_launches`` for kernel K on the FFMA,
+tensor-core and DMMA tiles; ``sym_launches`` and ``rect_launches`` count
+``gram_matvec.gram_ffma``'s launches of C and D's FFMA tiles, on no
+wrapper's path).  V, A and the output are row-major (rows, C) for any C
+>= 1.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from . import _build
 from . import matvec as _plain
 from .gram_matvec import (
-    _TC_TIERS,
+    ONE_PASS_TIERS,
     _check_gram_kind,
     _check_operands,
     _raise_on_error,
@@ -49,17 +54,18 @@ from .gram_matvec import (
     launch_rect_dmma,
     launch_rect_tc,
     launch_sym_dmma,
-    tier_operand,
+    launch_sym_tc,
     uses_dmma,
     uses_tensor_cores,
 )
 from ..parameter import KernelFunctionType
 
-#: kernel launches of gram_matmat_sym / gram_matmat_rect on the FFMA tile
+#: launches of kernels C and D's FFMA tiles (gram_matvec.gram_ffma, on no
+#: wrapper's path)
 sym_launches = 0
 rect_launches = 0
 #: kernel C's / kernel D's launches on the tensor-core tiles ("f32" as
-#: TF32, "bf16")
+#: TF32, "bf16", "highest" as three TF32 passes)
 sym_tc_launches = 0
 rect_tc_launches = 0
 #: kernel C's / kernel D's launches on the FP64 tensor-core (DMMA) tiles,
@@ -103,11 +109,12 @@ def gram_matmat_sym(
     coef0: float,
     degree: int,
     precision: str = "f32",
+    operand: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``K(X, X) @ V`` for a poly / RBF / sigmoid kernel (kernel C).
 
     ``X`` (m, d), ``sq`` (m,) its squared row norms, ``V`` (m, C);
-    ``precision`` the tier, as in ``gram_matvec.gram_matvec_sym``.
+    ``precision`` and ``operand`` as in ``gram_matvec.gram_matvec_sym``.
     """
     _check_gram_kind(kind)
     _plain.check_precision(precision)
@@ -131,29 +138,10 @@ def gram_matmat_sym(
         global sym_dmma_launches
         sym_dmma_launches += 1
         return out
-    if uses_tensor_cores(X, precision):
-        op = tier_operand(X, precision)
-        fn = getattr(lib, f"plssvm_gram_matmat_sym_{_TC_TIERS[precision][0]}")
-        with torch.cuda.device(X.device):
-            err = fn(
-                op.data_ptr(), sq.data_ptr(), V.data_ptr(), out.data_ptr(), m,
-                op.shape[1], C, int(kind), int(degree), float(gamma),
-                float(coef0), torch.cuda.current_stream().cuda_stream,
-            )
-        _raise_on_error(lib, err, "gram_matmat_sym (tensor cores)")
-        global sym_tc_launches
-        sym_tc_launches += 1
-        return out
-    fn = ffma_entry(lib, "matmat_sym", X.dtype)
-    with torch.cuda.device(X.device):
-        err = fn(
-            X.data_ptr(), sq.data_ptr(), V.data_ptr(), out.data_ptr(), m, d, C,
-            int(kind), int(degree), float(gamma), float(coef0),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on_error(lib, err, "gram_matmat_sym")
-    global sym_launches
-    sym_launches += 1
+    launch_sym_tc(lib, "matmat", X, sq, V, out, (C,), kind, gamma, coef0, degree,
+                  precision, operand)
+    global sym_tc_launches
+    sym_tc_launches += 1
     return out
 
 
@@ -203,23 +191,10 @@ def gram_matmat_rect(
         global rect_dmma_launches
         rect_dmma_launches += 1
         return out
-    if uses_tensor_cores(P, precision):
-        launch_rect_tc(lib, "matmat", P, S, sq_p, sq_s, A, out, (C,), kind,
-                       gamma, coef0, degree, precision)
-        global rect_tc_launches
-        rect_tc_launches += 1
-        return out
-    fn = ffma_entry(lib, "matmat_rect", P.dtype)
-    with torch.cuda.device(P.device):
-        err = fn(
-            P.data_ptr(), S.data_ptr(), sq_p.data_ptr(), sq_s.data_ptr(),
-            A.data_ptr(), out.data_ptr(), n_p, n_s, d, C,
-            int(kind), int(degree), float(gamma), float(coef0),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on_error(lib, err, "gram_matmat_rect")
-    global rect_launches
-    rect_launches += 1
+    launch_rect_tc(lib, "matmat", P, S, sq_p, sq_s, A, out, (C,), kind,
+                   gamma, coef0, degree, precision)
+    global rect_tc_launches
+    rect_tc_launches += 1
     return out
 
 
@@ -272,7 +247,7 @@ def gram_matmat_dual(
         global dual_dmma_launches
         dual_dmma_launches += 1
         return out_r, out_c
-    if uses_tensor_cores(Xr, precision):
+    if uses_tensor_cores(Xr, precision) and precision in ONE_PASS_TIERS:
         launch_dual_tc(lib, "matmat", Xr, Xc, sq_r, sq_c, V_c, V_r, out_r, out_c,
                        (C,), kind, gamma, coef0, degree, precision)
         global dual_tc_launches

@@ -16,34 +16,45 @@ row-sharded ring's off-diagonal block (parallel/sharded.py) — replaces
 "bf16", the dual DMMA tile of csrc/gram_dmma.cu in float64).
 
 ``precision`` is the Gram precision tier, as the reference's
-(``gram_precision``).  On float32 CUDA tensors kernels A and B at "f32" run
-on the tensor-core tiles (csrc/gram_tc.cuh: the symmetric one for A, the
-rectangular one for B, the dual one for J) with TF32 operands, at "bf16" on
-the same tiles with bf16 operands, f32 accumulation in both; at "highest"
-on the FFMA register tiles (csrc/gram_tile.cuh, csrc/dual.cu), full
-float32.  float64 is full precision at every tier: kernels A, B and J run
-on the FP64 tensor cores (the symmetric, the rect and the dual DMMA tile of
-csrc/gram_dmma.cu, :func:`uses_dmma`; an odd d, or a view that is not
-16-byte aligned, takes :func:`dmma_operand`'s copy).  The TF32 / bf16 tensor-core tiles take operand
-copies (:func:`tier_operand`: TF32-rounded or bf16, the feature axis
-padded to a 16-byte row) of X, of P and S, or of Xr and Xc, which the
-wrapper makes per call: for kernel A at MNIST's width they take under 4 %
-of the kernel's time on an H100.
+(``gram_precision``).  On float32 CUDA tensors kernels A and B run on the
+tensor-core tiles at every tier (csrc/gram_tc.cuh: the symmetric one for
+A, the rectangular one for B): at "f32" with TF32 operands, at "bf16" with
+bf16 operands, at "highest" in three TF32 passes over the split operand
+(hi hi^T + hi lo^T + lo hi^T, :func:`tier_operand`'s (2, rows, d_pad)
+stack of ``split_tf32``), f32 accumulation in all.  Kernel J takes the
+dual tensor-core tile at "f32" and "bf16" and the FFMA matvec walk of
+csrc/dual.cu at "highest".  float64 is full precision at every tier:
+kernels A, B and J run on the FP64 tensor cores (the symmetric, the rect
+and the dual DMMA tile of csrc/gram_dmma.cu, :func:`uses_dmma`; an odd d,
+or a view that is not 16-byte aligned, takes :func:`dmma_operand`'s copy).
+The tensor-core tiles take operand copies (:func:`tier_operand`:
+TF32-rounded, bf16 or the split stack, the feature axis padded to a
+16-byte row) of X, of P and S, or of Xr and Xc, which the wrapper makes
+per call unless the caller hands it X's (``operand``: the CG solve makes
+it once per solve); for kernel A at MNIST's width a TF32 copy takes under
+4 % of the kernel's time on an H100.  The FFMA register tiles of kernels A
+and B (csrc/gram_matvec.cu) are on no wrapper's path: :func:`gram_ffma`
+launches them for the card tests and chip_smoke.py.
 
 Each wrapper takes its plain PyTorch version (ops/matvec.py) at the same
 tier for tensors that lie on the CPU, and only then.  For a CUDA tensor it
 launches its kernel or raises; it never falls back.  Each counts its
-launches in a plain module-level int (``sym_launches``, ``rect_launches``
-for the FFMA tile, ``sym_tc_launches``, ``rect_tc_launches`` for the
-tensor-core tiles, ``sym_dmma_launches`` and ``rect_dmma_launches`` for
-kernels A and B on the DMMA tiles, ``dual_launches``, ``dual_tc_launches`` and ``dual_dmma_launches`` for
-kernel J on the FFMA, tensor-core and DMMA tiles;
-``kernel_matvec_launches`` counts kernel A's launches made for
-:func:`kernel_matvec`).  The kernels allocate nothing: the wrapper
-allocates the zeroed output and launches on PyTorch's current stream.
+launches in a plain module-level int (``sym_tc_launches``,
+``rect_tc_launches`` for the tensor-core tiles at every tier,
+``sym_dmma_launches`` and ``rect_dmma_launches`` for kernels A and B on
+the DMMA tiles, ``dual_launches``, ``dual_tc_launches`` and
+``dual_dmma_launches`` for kernel J on the FFMA, tensor-core and DMMA
+tiles; ``kernel_matvec_launches`` counts kernel A's launches made for
+:func:`kernel_matvec`; ``sym_launches`` and ``rect_launches`` those of
+:func:`gram_ffma` on the FFMA tiles).  The kernels allocate nothing: the
+wrapper allocates the zeroed output and launches on PyTorch's current
+stream.
 """
 
 from __future__ import annotations
+
+import sys
+from typing import Optional
 
 import torch
 
@@ -53,11 +64,11 @@ from ..parameter import KernelFunctionType
 from . import _build
 from . import matvec as _plain
 
-#: kernel launches of gram_matvec_sym / gram_matvec_rect on the FFMA tile
+#: launches of kernels A and B's FFMA tiles (gram_ffma, on no wrapper's path)
 sym_launches = 0
 rect_launches = 0
 #: kernel A's / kernel B's launches on the tensor-core tiles ("f32" as
-#: TF32, "bf16")
+#: TF32, "bf16", "highest" as three TF32 passes)
 sym_tc_launches = 0
 rect_tc_launches = 0
 #: kernel A's / kernel B's launches on the FP64 tensor-core (DMMA) tiles,
@@ -75,7 +86,11 @@ dual_dmma_launches = 0
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 #: per tier of the tensor-core tile: the entry points' suffix, the operand
 #: copy's type and the feature multiple of a 16-byte row
-_TC_TIERS = {"f32": ("tf32", torch.float32, 4), "bf16": ("bf16", torch.bfloat16, 8)}
+_TC_TIERS = {"f32": ("tf32", torch.float32, 4), "bf16": ("bf16", torch.bfloat16, 8),
+             "highest": ("tf32x3", torch.float32, 4)}
+#: the tiers of one tensor-core pass, which the dual tile (J, K) and kernel
+#: O's tensor-core walk take; at "highest" those keep their FFMA walks
+ONE_PASS_TIERS = ("f32", "bf16")
 
 
 def reset_counts() -> None:
@@ -139,10 +154,10 @@ def _check_tensors(named_tensors, shapes) -> str:
 
 
 def ffma_entry(lib, name: str, dtype: torch.dtype):
-    """The FFMA tile's entry point ``plssvm_gram_<name>_f32`` (kernels A-D
-    and the walks of J and K at "highest"), which the library holds for
-    float32 only: float64 CUDA operands take the DMMA tiles
-    (:func:`uses_dmma`), so any other type raises here."""
+    """The FFMA tile's entry point ``plssvm_gram_<name>_f32`` (the walks of
+    J and K at "highest"; kernels A-D through :func:`gram_ffma`), which the
+    library holds for float32 only: float64 CUDA operands take the DMMA
+    tiles (:func:`uses_dmma`), so any other type raises here."""
     if dtype != torch.float32:
         raise TypeError(f"the FFMA tile of gram_{name} takes float32, not {dtype}")
     return getattr(lib, f"plssvm_gram_{name}_f32")
@@ -164,7 +179,8 @@ def _require_cuda(t: torch.Tensor, name: str) -> None:
 
 def uses_tensor_cores(X: torch.Tensor, precision: str) -> bool:
     """Whether kernels A-D take the tensor-core tiles for X at this tier:
-    float32 CUDA operands at "f32" or "bf16"."""
+    float32 CUDA operands at every tier ("highest" as three TF32 passes).
+    J and K take the dual tile only at the :data:`ONE_PASS_TIERS`."""
     return (X.device.type == "cuda" and X.dtype == torch.float32
             and precision in _TC_TIERS)
 
@@ -206,15 +222,78 @@ def launch_sym_dmma(lib, op, X, sq, V, out, classes, kind, gamma, coef0,
 
 def tier_operand(X: torch.Tensor, precision: str) -> torch.Tensor:
     """The tensor-core tiles' operand copy of float32 ``X`` (m, d): rounded
-    to TF32 (``round_to_tf32``) for "f32", cast to bf16 for "bf16"; its
-    feature axis padded with zeros to a multiple of 4 (TF32) or 8 (bf16),
-    so that a row is a multiple of 16 bytes as TMA requires."""
+    to TF32 (``round_to_tf32``) for "f32", cast to bf16 for "bf16", and for
+    "highest" the split stack (2, m, d_pad) of ``split_tf32``'s [hi; lo];
+    its feature axis padded with zeros to a multiple of 4 (TF32) or 8
+    (bf16), so that a row is a multiple of 16 bytes as TMA requires."""
     _, dtype, multiple = _TC_TIERS[precision]
+    m, d = X.shape
+    pad = -d % multiple
+    if precision == "highest":
+        op = X.new_zeros((2, m, d + pad)) if pad else X.new_empty((2, m, d))
+        op[0, :, :d], op[1, :, :d] = _plain.split_tf32(X)
+        return op
     op = _plain.round_to_tf32(X) if precision == "f32" else X.to(dtype)
-    pad = -X.shape[1] % multiple
     if pad:
         op = torch.nn.functional.pad(op, (0, pad))
     return op.contiguous()
+
+
+def _given_operand(operand, X: torch.Tensor, precision: str) -> torch.Tensor:
+    """``operand``, checked to be what :func:`tier_operand` makes of X at
+    this tier, or that copy made here when None."""
+    if operand is None:
+        return tier_operand(X, precision)
+    _, dtype, multiple = _TC_TIERS[precision]
+    m, d = X.shape
+    shape = ((2,) if precision == "highest" else ()) + (m, d + (-d % multiple))
+    if (operand.dtype != dtype or operand.device != X.device
+            or tuple(operand.shape) != shape or not operand.is_contiguous()):
+        raise ValueError(
+            f"the operand copy must be tier_operand's {shape} {dtype} of X at "
+            f"{precision!r}, not {tuple(operand.shape)} {operand.dtype}")
+    return operand
+
+
+def gram_ffma(op: str, operands, sq, weights, *, kind: KernelFunctionType,
+              gamma: float, coef0: float, degree: int) -> torch.Tensor:
+    """Kernels A-D on their FFMA register tiles (csrc/gram_matvec.cu,
+    gram_matmat.cu), full float32, which no wrapper launches since
+    "highest" runs on the tensor cores: ``op`` "matvec_sym" (A),
+    "matmat_sym" (C), "matvec_rect" (B) or "matmat_rect" (D); ``operands``
+    (X,) or (P, S), float32 CUDA; ``sq`` their squared norms, a tuple of as
+    many; ``weights`` v, V, a or A.  For the card tests and chip_smoke.py's
+    before-and-after timing.  Counts its launches in ``sym_launches`` /
+    ``rect_launches`` of this module ("matvec") or of gram_matmat
+    ("matmat")."""
+    from . import gram_matmat
+
+    _check_gram_kind(kind)
+    rows, d = operands[0].shape
+    cols = operands[-1].shape[0]
+    classes = () if weights.ndim == 1 else (weights.shape[1],)
+    rect = op.endswith("rect")
+    named = ([("P", operands[0]), ("S", operands[1])] if rect else [("X", operands[0])]) + [
+        (f"sq{i}", t) for i, t in enumerate(sq)] + [("weights", weights)]
+    shapes = ([(rows, d), (cols, d)] if rect else [(rows, d)]) + [
+        (t.shape[0],) for t in operands] + [(cols,) + classes]
+    _require_cuda(operands[0], f"gram_{op}")
+    _check_operands(kind, named, shapes)
+    out = torch.zeros((rows,) + classes, dtype=weights.dtype, device=weights.device)
+    lib = _build.load()
+    fn = ffma_entry(lib, op, operands[0].dtype)
+    with torch.cuda.device(operands[0].device):
+        err = fn(
+            *(t.data_ptr() for t in operands), *(t.data_ptr() for t in sq),
+            weights.data_ptr(), out.data_ptr(), *(t.shape[0] for t in operands), d,
+            *classes, int(kind), int(degree), float(gamma), float(coef0),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on_error(lib, err, f"gram_{op} (FFMA tile)")
+    module = sys.modules[__name__] if op.startswith("matvec") else gram_matmat
+    counter = "rect_launches" if rect else "sym_launches"
+    setattr(module, counter, getattr(module, counter) + 1)
+    return out
 
 
 def gram_matvec_sym(
@@ -227,11 +306,14 @@ def gram_matvec_sym(
     coef0: float,
     degree: int,
     precision: str = "f32",
+    operand: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``K(X, X) @ v`` for a poly / RBF / sigmoid kernel (kernel A).
 
     ``X`` (m, d), ``sq`` (m,) its squared row norms, ``v`` (m,);
-    ``precision`` the tier.
+    ``precision`` the tier; ``operand`` the tensor-core tile's copy of X
+    (:func:`tier_operand` at this tier), made here when not given and
+    ignored where X takes no tensor-core tile.
     """
     _check_gram_kind(kind)
     _plain.check_precision(precision)
@@ -254,30 +336,28 @@ def gram_matvec_sym(
         global sym_dmma_launches
         sym_dmma_launches += 1
         return out
-    if uses_tensor_cores(X, precision):
-        op = tier_operand(X, precision)
-        fn = getattr(lib, f"plssvm_gram_matvec_sym_{_TC_TIERS[precision][0]}")
-        with torch.cuda.device(X.device):
-            err = fn(
-                op.data_ptr(), sq.data_ptr(), v.data_ptr(), out.data_ptr(), m,
-                op.shape[1], int(kind), int(degree), float(gamma),
-                float(coef0), torch.cuda.current_stream().cuda_stream,
-            )
-        _raise_on_error(lib, err, "gram_matvec_sym (tensor cores)")
-        global sym_tc_launches
-        sym_tc_launches += 1
-        return out
-    fn = ffma_entry(lib, "matvec_sym", X.dtype)
+    launch_sym_tc(lib, "matvec", X, sq, v, out, (), kind, gamma, coef0, degree,
+                  precision, operand)
+    global sym_tc_launches
+    sym_tc_launches += 1
+    return out
+
+
+def launch_sym_tc(lib, op, X, sq, V, out, classes, kind, gamma, coef0, degree,
+                  precision, operand) -> None:
+    """Launch kernel A (``op`` "matvec", ``classes`` ()) or C ("matmat",
+    ``classes`` (C,)) on the symmetric tensor-core tile at the tier: the
+    tier's operand copy of X (``operand``, or made here), the float32
+    norms.  Raises on a failed launch; counts nothing."""
+    X_op = _given_operand(operand, X, precision)
+    fn = getattr(lib, f"plssvm_gram_{op}_sym_{_TC_TIERS[precision][0]}")
     with torch.cuda.device(X.device):
         err = fn(
-            X.data_ptr(), sq.data_ptr(), v.data_ptr(), out.data_ptr(), m, d,
-            int(kind), int(degree), float(gamma), float(coef0),
-            torch.cuda.current_stream().cuda_stream,
+            X_op.data_ptr(), sq.data_ptr(), V.data_ptr(), out.data_ptr(), X.shape[0],
+            X_op.shape[-1], *classes, int(kind), int(degree), float(gamma),
+            float(coef0), torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on_error(lib, err, "gram_matvec_sym")
-    global sym_launches
-    sym_launches += 1
-    return out
+    _raise_on_error(lib, err, f"gram_{op}_sym (tensor cores, {precision})")
 
 
 def gram_matvec_rect(
@@ -297,9 +377,9 @@ def gram_matvec_rect(
 
     ``P`` (n_p, d) points, ``S`` (n_s, d) support vectors, ``sq_p`` /
     ``sq_s`` their squared row norms, ``a`` (n_s,) the weights;
-    ``precision`` the tier: on float32 CUDA tensors "f32" and "bf16" take
-    the rectangular tensor-core tile, "highest" the FFMA tile; float64
-    CUDA tensors the rect DMMA tile at every tier, on
+    ``precision`` the tier: float32 CUDA tensors take the rectangular
+    tensor-core tile at every tier ("highest" as three TF32 passes);
+    float64 CUDA tensors the rect DMMA tile at every tier, on
     :func:`dmma_operand`'s operands.
     """
     _check_gram_kind(kind)
@@ -327,23 +407,10 @@ def gram_matvec_rect(
         global rect_dmma_launches
         rect_dmma_launches += 1
         return out
-    if uses_tensor_cores(P, precision):
-        launch_rect_tc(lib, "matvec", P, S, sq_p, sq_s, a, out, (), kind,
-                       gamma, coef0, degree, precision)
-        global rect_tc_launches
-        rect_tc_launches += 1
-        return out
-    fn = ffma_entry(lib, "matvec_rect", P.dtype)
-    with torch.cuda.device(P.device):
-        err = fn(
-            P.data_ptr(), S.data_ptr(), sq_p.data_ptr(), sq_s.data_ptr(),
-            a.data_ptr(), out.data_ptr(), n_p, n_s, d,
-            int(kind), int(degree), float(gamma), float(coef0),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on_error(lib, err, "gram_matvec_rect")
-    global rect_launches
-    rect_launches += 1
+    launch_rect_tc(lib, "matvec", P, S, sq_p, sq_s, a, out, (), kind,
+                   gamma, coef0, degree, precision)
+    global rect_tc_launches
+    rect_tc_launches += 1
     return out
 
 
@@ -359,10 +426,10 @@ def launch_rect_tc(lib, op, P, S, sq_p, sq_s, weights, out, classes, kind,
         err = fn(
             P_op.data_ptr(), S_op.data_ptr(), sq_p.data_ptr(), sq_s.data_ptr(),
             weights.data_ptr(), out.data_ptr(), P.shape[0], S.shape[0],
-            P_op.shape[1], *classes, int(kind), int(degree), float(gamma),
+            P_op.shape[-1], *classes, int(kind), int(degree), float(gamma),
             float(coef0), torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on_error(lib, err, f"gram_{op}_rect (tensor cores)")
+    _raise_on_error(lib, err, f"gram_{op}_rect (tensor cores, {precision})")
 
 
 def launch_rect_dmma(lib, op, P, S, sq_p, sq_s, weights, out, classes, kind,
@@ -396,18 +463,18 @@ def kernel_matvec(
     """``K(X, X) @ v`` for a poly / RBF / sigmoid kernel through kernel A,
     one launch; the counterpart of ``kernel_matvec_pallas``.
 
-    ``precision`` as :func:`gram_matvec_sym`: on float32 CUDA tensors "f32"
-    and "bf16" take the tensor-core tile, "highest" the FFMA tile; float64
-    CUDA tensors the DMMA tile at every tier.  Any m and d >= 1.
+    ``precision`` as :func:`gram_matvec_sym`: float32 CUDA tensors take the
+    tensor-core tile at every tier ("highest" as three TF32 passes);
+    float64 CUDA tensors the DMMA tile at every tier.  Any m and d >= 1.
     """
     _plain.check_precision(precision)
     global kernel_matvec_launches
-    before = sym_launches + sym_tc_launches + sym_dmma_launches
+    before = sym_tc_launches + sym_dmma_launches
     out = gram_matvec_sym(
         X, sq_norms, v, kind=kind, gamma=gamma, coef0=coef0, degree=degree,
         precision=precision,
     )
-    kernel_matvec_launches += sym_launches + sym_tc_launches + sym_dmma_launches - before
+    kernel_matvec_launches += sym_tc_launches + sym_dmma_launches - before
     return out
 
 
@@ -464,7 +531,7 @@ def gram_matvec_dual(
         global dual_dmma_launches
         dual_dmma_launches += 1
         return out_r, out_c
-    if uses_tensor_cores(Xr, precision):
+    if uses_tensor_cores(Xr, precision) and precision in ONE_PASS_TIERS:
         launch_dual_tc(lib, "matvec", Xr, Xc, sq_r, sq_c, v_c, v_r, out_r, out_c,
                        (), kind, gamma, coef0, degree, precision)
         global dual_tc_launches

@@ -38,14 +38,17 @@ with the caller's squared norms of the float32 X (``pallas_matvec.py:464``,
 ``:500-503``): bf16 products are exact in float32, so only the operands'
 rounding differs.  float64 operands compute in float64 at every tier.
 :func:`round_to_tf32` gives the operand of the tensor-core tile's "f32"
-tier (TF32), the card tests' exact oracle of it.
+tier (TF32), the card tests' exact oracle of it; :func:`split_tf32` the
+"highest" tier's split operand on the same tiles, and
+:func:`split_kernel_product` that tier's oracle (the Gram part summed as
+the tiles' three TF32 passes sum it).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..kernel_functions import kernel_block
+from ..kernel_functions import apply_kernel_to_gram, kernel_block
 from ..parameter import KernelFunctionType
 
 #: row-block height: a (2048, m) block is 256 MB in f32 at m = 32768
@@ -99,6 +102,56 @@ def round_to_tf32(x: torch.Tensor) -> torch.Tensor:
     bits = x.contiguous().view(torch.int32)
     rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)
     return torch.where(torch.isnan(x), x.contiguous(), rounded)
+
+
+def split_tf32(x: torch.Tensor):
+    """float32 ``x`` split into two TF32 parts, ``(hi, lo)``: ``hi =
+    round_to_tf32(x)``, ``lo = round_to_tf32(x - hi)`` (``x - hi`` is exact
+    in float32), so ``x - hi - lo`` is at most 2^-22 |x| (the subnormal
+    spacing 2^-137 below |x| = 2^-115).  Where ``hi`` is not finite (x is
+    inf or nan, or rounds past the largest TF32 value) ``hi`` carries it
+    and ``lo`` is 0; signed zeros keep their sign in ``hi``.  The operand
+    of the "highest" tier on the tensor-core tiles, which sum ``hi hi^T +
+    hi lo^T + lo hi^T``."""
+    hi = round_to_tf32(x)
+    lo = round_to_tf32(torch.where(torch.isfinite(hi), x - hi, 0.0))
+    return hi, lo
+
+
+def split_gram(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """``X Y^T`` as the "highest" tier's tensor-core tiles compute it from
+    :func:`split_tf32`'s parts: ``hi_x hi_y^T``, then ``hi_x lo_y^T``, then
+    ``lo_x hi_y^T``, each a float32 product added in that order; ``lo_x
+    lo_y^T`` is dropped."""
+    hx, lx = split_tf32(X)
+    hy, ly = (hx, lx) if Y is X else split_tf32(Y)
+    return hx @ hy.T + hx @ ly.T + lx @ hy.T
+
+
+def split_kernel_product(
+    P: torch.Tensor,
+    S: torch.Tensor,
+    sq_p: torch.Tensor,
+    sq_s: torch.Tensor,
+    A: torch.Tensor,
+    *,
+    kind: KernelFunctionType,
+    gamma,
+    coef0,
+    degree: int,
+    row_block: int = DEFAULT_ROW_BLOCK,
+) -> torch.Tensor:
+    """``K(P, S) @ A`` for float32 P (n_p, d), S (n_s, d) and A (n_s,) or
+    (n_s, C), with the Gram part from :func:`split_gram` and the squared
+    norms of the float32 operands: the "highest" tier's oracle on the
+    tensor-core tiles (P = S for kernels A and C)."""
+    out = torch.empty((P.shape[0],) + A.shape[1:], dtype=A.dtype, device=A.device)
+    for i in range(0, P.shape[0], row_block):
+        rows = slice(i, i + row_block)
+        gram = split_gram(P[rows], S)
+        out[rows] = apply_kernel_to_gram(
+            gram, sq_p[rows, None], sq_s[None, :], kind, gamma, coef0, degree) @ A
+    return out
 
 
 def _at_tier(X: torch.Tensor, precision: str) -> torch.Tensor:

@@ -50,7 +50,8 @@ from ..parameter import KernelFunctionType
 from . import _build
 from . import matvec as _plain
 from .gram_matvec import (
-    _TC_TIERS, _check_tensors, _raise_on_error, _require_cuda, dmma_operand, tier_operand,
+    ONE_PASS_TIERS, _TC_TIERS, _check_tensors, _raise_on_error, _require_cuda, dmma_operand,
+    tier_operand,
 )
 
 #: kernel O's launches on the FFMA walk (csrc/pairs.cu), on the TF32 / bf16
@@ -91,7 +92,7 @@ def walk(Xb: torch.Tensor, kind, precision: str) -> str:
         return "ffma"
     if Xb.dtype == torch.float64:
         return "dmma"
-    return "tc" if precision in _TC_TIERS else "ffma"
+    return "tc" if precision in ONE_PASS_TIERS else "ffma"
 
 
 def pairs_operand(Xb: torch.Tensor, kind, precision: str) -> Optional[torch.Tensor]:

@@ -55,8 +55,9 @@ def predict_values(
     (:func:`gram_matvec_rect`) or kernel D (:func:`gram_matmat_rect`) at
     the Gram tier ``precision`` (as the reference passes ``gram_precision``
     to its predict, plssvm_tpu/csvm.py:2383, :2401): on float32 CUDA
-    tensors "f32" (TF32 operands) and "bf16" on the rectangular
-    tensor-core tile, "highest" on the FFMA tile; float64 on the rect DMMA
+    tensors on the rectangular tensor-core tile at every tier ("f32" TF32
+    operands, "bf16", "highest" three TF32 passes over the split
+    operands, made once per predict); float64 on the rect DMMA
     tile (the FP64 tensor cores) at every tier.  The distance
     kernels go through kernel F or H; ``"torch"`` takes the plain versions
     at full precision, as plssvm_tpu's XLA path ignores the tier.

@@ -29,8 +29,8 @@ rows: no padding, no mask.
 the initial and every-50th exact residuals included: the reference found
 that mixing tiers breaks conjugacy (plssvm_tpu/solver/cg.py:1125-1137).  On
 float32 CUDA tensors "f32" runs kernels A and C on the tensor cores with
-TF32 operands, "bf16" with bf16 operands, "highest" on the FFMA tile;
-float64 CUDA tensors run them on the FP64 tensor cores (the DMMA tile) at
+TF32 operands, "bf16" with bf16 operands, "highest" in three TF32 passes
+over the split operand (hi hi^T + hi lo^T + lo hi^T); float64 CUDA tensors run them on the FP64 tensor cores (the DMMA tile) at
 every tier.
 
 The extras of plssvm_tpu's cores are the same here: ``x_init`` warm-starts
@@ -72,7 +72,7 @@ from ..kernel_functions import (
 )
 from ..ops.distance import distance_matmat_sym, distance_matvec_sym
 from ..ops.gram_matmat import gram_matmat_sym
-from ..ops.gram_matvec import gram_matvec_sym
+from ..ops.gram_matvec import gram_matvec_sym, tier_operand, uses_tensor_cores
 from ..ops.pairs import (
     linear_pairs_matvec, pairs_matvec, pairs_matvec_plain, pairs_operand,
 )
@@ -181,13 +181,26 @@ def _gram_product(sym, plain, kind, degree, impl, gram_precision) -> Callable:
     """(X, sq_norms, V, gamma, coef0) -> K @ V through the hand kernel
     ``sym`` at the solve's tier (``impl="cuda"``; its plain version on CPU
     tensors), or through ``plain`` at full precision (``"torch"``, which
-    ignores the tier, as plssvm_tpu's XLA path does)."""
-    product = sym if impl == "cuda" else plain
-    precision = gram_precision if impl == "cuda" else "f32"
+    ignores the tier, as plssvm_tpu's XLA path does).  Where X takes a
+    tensor-core tile, its operand copy (``tier_operand``: at "highest" the
+    split stack, twice X) is made at the first product and handed to every
+    later one of the same X: once per solve, not once per product."""
+    if impl != "cuda":
+        def kv_plain(X, sq_norms, V, gamma, coef0):
+            return plain(X, sq_norms, V, kind=kind, gamma=gamma, coef0=coef0,
+                         degree=degree, precision="f32")
+
+        return kv_plain
+    made = {}
 
     def kv(X, sq_norms, V, gamma, coef0):
-        return product(X, sq_norms, V, kind=kind, gamma=gamma, coef0=coef0,
-                       degree=degree, precision=precision)
+        operand = None
+        if uses_tensor_cores(X, gram_precision):
+            if made.get("X") is not X:
+                made.update(X=X, operand=tier_operand(X, gram_precision))
+            operand = made["operand"]
+        return sym(X, sq_norms, V, kind=kind, gamma=gamma, coef0=coef0,
+                   degree=degree, precision=gram_precision, operand=operand)
 
     return kv
 
@@ -357,9 +370,10 @@ def solve_ls_svm(
     d.Ad, q.v, sums) with double-float TwoSum folds.  ``gram_precision``
     is the tier of every Gram product of the solve on ``impl="cuda"``: on
     float32 CUDA tensors "f32" takes kernel A's tensor-core tile with TF32
-    operands, "bf16" with bf16 operands, "highest" the full-float32 FFMA
-    tile; on CPU tensors the plain version at the tier ("f32" and
-    "highest" full float32, "bf16" on bf16-rounded X).  float64 computes in
+    operands, "bf16" with bf16 operands, "highest" three TF32 passes over
+    the split operand, the operand copy made once per solve; on CPU
+    tensors the plain version at the tier ("f32" and "highest" full
+    float32, "bf16" on bf16-rounded X).  float64 computes in
     float64 at every tier.  ``impl="torch"`` ignores the tier, as
     plssvm_tpu's XLA path does.  ``extras`` are the core's
     ``preconditioner``, ``x_init``, ``weights`` / ``weight_last``,

@@ -26,7 +26,8 @@ kernel_matvec      pallas_f32, dual_f32         ``kernel_matvec``: kernel A
                                                 on the tensor cores, TF32
 kernel_matvec_hi   dual_hi                      ``kernel_matvec(precision=
                                                 "highest")``: kernel A on
-                                                the FFMA tile
+                                                the tensor cores, three
+                                                TF32 passes
 kernel_matvec_bf16 pallas_bf16, dual_bf16       ``kernel_matvec(precision=
                                                 "bf16")``: kernel A on the
                                                 tensor cores, bf16
@@ -35,7 +36,8 @@ rect_full          rect_full                    ``gram_matvec_rect(X, X)``:
                                                 on the tensor cores, TF32
 rect_full_hi       rect_full                    ``gram_matvec_rect(X, X,
                                                 precision="highest")``:
-                                                kernel B on the FFMA tile
+                                                kernel B on the tensor
+                                                cores, three TF32 passes
 plain_rb256        xla_scan_rb256               ``distance_matvec_plain``
 sym_walk           sym_walk_rb256, _rb512       ``distance_matvec_sym``:
                                                 kernel E (no row block)

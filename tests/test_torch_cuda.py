@@ -1,12 +1,12 @@
 """The CUDA kernels (A, B: Gram matvecs; C, D: Gram block matmats; E-H:
 laplacian / chi-squared matvecs and block matmats; I: the banded laplacian
 matvec; and ``kernel_matvec``, K6's one launch of kernel A) against their
-plain PyTorch versions, on the card: A-D on the FFMA tile at "highest",
-in float64 A and C on the symmetric DMMA tile and B and D on the rect one
-(tests/test_torch_dmma.py holds them on more shapes), and on the
-tensor-core tiles at
-"f32" (TF32) and "bf16" (A and C on the symmetric one, B and D on the
-rectangular one).
+plain PyTorch versions, on the card: A-D on the tensor-core tiles at
+"highest" (three TF32 passes over the split operand), "f32" (TF32) and
+"bf16" (A and C on the symmetric one, B and D on the rectangular one), on
+their FFMA tiles (``gram_matvec.gram_ffma``, on no wrapper's path), and in
+float64 A and C on the symmetric DMMA tile and B and D on the rect one
+(tests/test_torch_dmma.py holds them on more shapes).
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  They import
 neither jax nor plssvm_tpu, so they run where only PyTorch is installed:
@@ -17,8 +17,12 @@ Tolerances, relative to max|plain|: float32 1e-4, float64 1e-10 (the
 kernels sum in another order than cuBLAS, with atomics).  The tensor-core
 tiles' "f32" tier is held at 1e-4 against the plain version on the same
 TF32-rounded operands (``round_to_tf32``), their "bf16" tier against the
-plain version at "bf16"; and the "f32" tier against full float32 within
-the first-order bound of TF32's unit roundoff 2^-11 (``_tf32_tier_bound``).
+plain version at "bf16", their "highest" tier against the full-float32
+plain version and the split oracle (``split_kernel_product``); the "f32"
+tier against full float32 within the first-order bound of TF32's unit
+roundoff 2^-11 (``_tf32_tier_bound``).  The one-pass tiers give, on a
+one-block tile, the bits they gave before the split tier was added
+(``ONE_PASS_DIGESTS``).
 The chi-squared kernels are also held per entry of K
 (``test_chi_squared_per_entry``).  Kernels J-M (the ring's dual walks,
 csrc/dual.cu; J and K at "f32" and "bf16" on the dual tensor-core tile of
@@ -58,7 +62,8 @@ def cuda_device():
 @pytest.mark.parametrize("m,d", [(1037, 203), (300, 1280), (129, 3), (1, 5)])
 def test_kernels_against_plain(cuda_device, name, dtype, tol, m, d):
     """Kernels A and B at "highest" on ragged shapes, a single row
-    included: on the FFMA tile, except in float64 on the DMMA tiles."""
+    included: on the tensor-core tiles in three TF32 passes, in float64 on
+    the DMMA tiles; in float32 their FFMA tiles (``gram_ffma``) too."""
     tkind = getattr(TKind, name.upper())
     g = torch.Generator().manual_seed(38)
     X = (torch.randn(m, d, generator=g, dtype=dtype) * 0.3).to(cuda_device)
@@ -68,18 +73,26 @@ def test_kernels_against_plain(cuda_device, name, dtype, tol, m, d):
     kw = dict(kind=tkind, gamma=1.0 / d, coef0=COEF0[name], degree=3,
               precision="highest")
     dmma = dtype == torch.float64
-    before = (gram_matvec.sym_launches, gram_matvec.sym_dmma_launches,
-              gram_matvec.rect_launches, gram_matvec.rect_dmma_launches)
+    counters = ("sym_launches", "sym_tc_launches", "sym_dmma_launches",
+                "rect_launches", "rect_tc_launches", "rect_dmma_launches")
+    before = [getattr(gram_matvec, c) for c in counters]
+    want_sym = matvec.kernel_matvec_plain(X, sq, v, **kw)
+    want_rect = matvec.kernel_matvec_rect_plain(P, X, sq_p, sq, v, **kw)
     got = gram_matvec.gram_matvec_sym(X, sq, v, **kw)
-    want = matvec.kernel_matvec_plain(X, sq, v, **kw)
-    assert (got - want).abs().max() <= tol * want.abs().max()
+    assert (got - want_sym).abs().max() <= tol * want_sym.abs().max()
     got = gram_matvec.gram_matvec_rect(P, X, sq_p, sq, v, **kw)
-    want = matvec.kernel_matvec_rect_plain(P, X, sq_p, sq, v, **kw)
-    assert (got - want).abs().max() <= tol * want.abs().max()
-    assert (gram_matvec.sym_launches, gram_matvec.sym_dmma_launches,
-            gram_matvec.rect_launches, gram_matvec.rect_dmma_launches) == (
-        before[0] + (not dmma), before[1] + dmma, before[2] + (not dmma), before[3] + dmma
-    )
+    assert (got - want_rect).abs().max() <= tol * want_rect.abs().max()
+    assert [getattr(gram_matvec, c) - b for c, b in zip(counters, before)] == [
+        0, not dmma, dmma, 0, not dmma, dmma]
+    if dmma:
+        return
+    del kw["precision"]
+    got = gram_matvec.gram_ffma("matvec_sym", (X,), (sq,), v, **kw)
+    assert (got - want_sym).abs().max() <= tol * want_sym.abs().max()
+    got = gram_matvec.gram_ffma("matvec_rect", (P, X), (sq_p, sq), v, **kw)
+    assert (got - want_rect).abs().max() <= tol * want_rect.abs().max()
+    assert [getattr(gram_matvec, c) - b for c, b in zip(counters, before)] == [
+        1, 1, 0, 1, 1, 0]
 
 
 @pytest.mark.cuda
@@ -118,8 +131,9 @@ def test_wrapper_checks_operands(cuda_device):
 def test_matmat_kernels_against_plain(cuda_device, name, dtype, tol, n_classes, m, d):
     """Kernels C and D at "highest" on ragged shapes, a single row
     included, for class counts below, at and across the kernels' 8-class
-    staging chunk: on the FFMA tile, except in float64 on the DMMA
-    tiles."""
+    staging chunk: on the tensor-core tiles in three TF32 passes, in
+    float64 on the DMMA tiles; in float32 their FFMA tiles (``gram_ffma``)
+    too."""
     tkind = getattr(TKind, name.upper())
     g = torch.Generator().manual_seed(40)
     X = (torch.randn(m, d, generator=g, dtype=dtype) * 0.3).to(cuda_device)
@@ -129,20 +143,28 @@ def test_matmat_kernels_against_plain(cuda_device, name, dtype, tol, n_classes, 
     kw = dict(kind=tkind, gamma=1.0 / d, coef0=COEF0[name], degree=3,
               precision="highest")
     dmma = dtype == torch.float64
-    before = (gram_matmat.sym_launches, gram_matmat.sym_dmma_launches,
-              gram_matmat.rect_launches, gram_matmat.rect_dmma_launches)
+    counters = ("sym_launches", "sym_tc_launches", "sym_dmma_launches",
+                "rect_launches", "rect_tc_launches", "rect_dmma_launches")
+    before = [getattr(gram_matmat, c) for c in counters]
+    want_sym = matvec.kernel_matmat_plain(X, sq, V, **kw)
+    want_rect = matvec.kernel_matmat_rect_plain(P, X, sq_p, sq, V, **kw)
     got = gram_matmat.gram_matmat_sym(X, sq, V, **kw)
-    want = matvec.kernel_matmat_plain(X, sq, V, **kw)
     assert got.shape == (m, n_classes)
-    assert (got - want).abs().max() <= tol * want.abs().max()
+    assert (got - want_sym).abs().max() <= tol * want_sym.abs().max()
     got = gram_matmat.gram_matmat_rect(P, X, sq_p, sq, V, **kw)
-    want = matvec.kernel_matmat_rect_plain(P, X, sq_p, sq, V, **kw)
     assert got.shape == (P.shape[0], n_classes)
-    assert (got - want).abs().max() <= tol * want.abs().max()
-    assert (gram_matmat.sym_launches, gram_matmat.sym_dmma_launches,
-            gram_matmat.rect_launches, gram_matmat.rect_dmma_launches) == (
-        before[0] + (not dmma), before[1] + dmma, before[2] + (not dmma), before[3] + dmma
-    )
+    assert (got - want_rect).abs().max() <= tol * want_rect.abs().max()
+    assert [getattr(gram_matmat, c) - b for c, b in zip(counters, before)] == [
+        0, not dmma, dmma, 0, not dmma, dmma]
+    if dmma:
+        return
+    del kw["precision"]
+    got = gram_matvec.gram_ffma("matmat_sym", (X,), (sq,), V, **kw)
+    assert (got - want_sym).abs().max() <= tol * want_sym.abs().max()
+    got = gram_matvec.gram_ffma("matmat_rect", (P, X), (sq_p, sq), V, **kw)
+    assert (got - want_rect).abs().max() <= tol * want_rect.abs().max()
+    assert [getattr(gram_matmat, c) - b for c, b in zip(counters, before)] == [
+        1, 1, 0, 1, 1, 0]
 
 
 @pytest.mark.cuda
@@ -357,9 +379,9 @@ def test_banded_wrapper_checks_operands(cuda_device):
 @pytest.mark.parametrize("precision", ["f32", "bf16", "highest"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_kernel_matvec_is_kernel_a(cuda_device, precision, dtype):
-    """K6's port is one launch of kernel A at the same tier: "highest" the
-    FFMA tile, "f32" and "bf16" the tensor-core tile, every tier in float64
-    the DMMA tile; bit for bit on one tile (m <= 64: each row sum one
+    """K6's port is one launch of kernel A at the same tier: every tier the
+    tensor-core tile in float32 ("highest" in three TF32 passes), the DMMA
+    tile in float64; bit for bit on one tile (m <= 64: each row sum one
     atomic, so no summation order to vary), within the atomics' rounding on
     many."""
     g = torch.Generator().manual_seed(45)
@@ -371,17 +393,15 @@ def test_kernel_matvec_is_kernel_a(cuda_device, precision, dtype):
         before = (gram_matvec.sym_launches, gram_matvec.sym_tc_launches,
                   gram_matvec.sym_dmma_launches, gram_matvec.kernel_matvec_launches)
         got = gram_matvec.kernel_matvec(X, sq, v, precision=precision, **kw)
-        tc = dtype == torch.float32 and precision != "highest"
         dmma = dtype == torch.float64
         assert (gram_matvec.sym_launches, gram_matvec.sym_tc_launches,
                 gram_matvec.sym_dmma_launches, gram_matvec.kernel_matvec_launches) == (
-            before[0] + (not tc and not dmma), before[1] + tc, before[2] + dmma,
-            before[3] + 1)
+            before[0], before[1] + (not dmma), before[2] + dmma, before[3] + 1)
         want = gram_matvec.gram_matvec_sym(X, sq, v, precision=precision, **kw)
         assert (got - want).abs().max() <= tol * want.abs().max()
 
 
-# -- the tensor-core tile (kernels A and C at "f32" and "bf16") ---------------
+# -- the tensor-core tile (kernels A and C at every tier) ---------------------
 
 TC_SHAPES = [(m, d) for m in (1, 63, 64, 65, 129, 1037, 8192)
              for d in (3, 5, 37, 203, 512, 1280)]
@@ -390,11 +410,21 @@ TC_SHAPES = [(m, d) for m in (1, 63, 64, 65, 129, 1037, 8192)
 def _tier_oracle(plain, *args, tier, **kw):
     """The plain version on the tier's exact operands: the operand matrices
     (X, or P and S: the arguments before the first vector) TF32-rounded
-    with the float32 operands' norms for "f32", bf16-rounded for "bf16"."""
+    with the float32 operands' norms for "f32", bf16-rounded for "bf16";
+    at "highest" the full-float32 plain version, which the split tier is
+    held to at the FFMA tile's tolerance."""
     if tier == "f32":
         n = next(i for i, a in enumerate(args) if a.ndim == 1)
         args = [matvec.round_to_tf32(a) if i < n else a for i, a in enumerate(args)]
     return plain(*args, precision=tier, **kw)
+
+
+def _split_oracle(*args, **kw):
+    """``split_kernel_product`` on (X, sq, V) or (P, S, sq_p, sq_s, A): the
+    "highest" tier's three passes summed in float32 by cuBLAS."""
+    if len(args) == 3:
+        args = (args[0], args[0], args[1], args[1], args[2])
+    return matvec.split_kernel_product(*args, **kw)
 
 
 def _tc_operands(m, d, n_classes, seed, device):
@@ -406,13 +436,14 @@ def _tc_operands(m, d, n_classes, seed, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tier", ["f32", "bf16"])
+@pytest.mark.parametrize("tier", ["f32", "bf16", "highest"])
 @pytest.mark.parametrize("name", list(COEF0))
 @pytest.mark.parametrize("m,d", TC_SHAPES)
 def test_tensor_core_matvec_against_tier_oracle(cuda_device, m, d, name, tier):
     """Kernel A on the tensor-core tile on ragged rows and features (the
     TMA boxes' zero fill), at 1e-4 of max|oracle|: only the f32
-    accumulation order differs from the oracle."""
+    accumulation order differs from the oracle ("highest": also from the
+    split oracle)."""
     X, sq, v = _tc_operands(m, d, None, 47, cuda_device)
     kw = dict(kind=getattr(TKind, name.upper()), gamma=1.0 / d,
               coef0=COEF0[name], degree=3)
@@ -423,10 +454,13 @@ def test_tensor_core_matvec_against_tier_oracle(cuda_device, m, d, name, tier):
     want = _tier_oracle(matvec.kernel_matvec_plain, X, sq, v, tier=tier, **kw)
     assert got.shape == want.shape and torch.isfinite(got).all()
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    if tier == "highest":
+        split = _split_oracle(X, sq, v, **kw)
+        assert (got - split).abs().max() <= 1e-4 * split.abs().max()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tier", ["f32", "bf16"])
+@pytest.mark.parametrize("tier", ["f32", "bf16", "highest"])
 @pytest.mark.parametrize("name", list(COEF0))
 @pytest.mark.parametrize("n_classes", [1, 3, 10, 37])
 @pytest.mark.parametrize("m,d", [(1, 5), (65, 3), (129, 37), (1037, 203), (300, 1280)])
@@ -534,7 +568,7 @@ def _rect_operands(n_p, n_s, d, n_classes, seed, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tier", ["f32", "bf16"])
+@pytest.mark.parametrize("tier", ["f32", "bf16", "highest"])
 @pytest.mark.parametrize("n_classes", [None, 1, 3, 10, 37])
 @pytest.mark.parametrize("d", [3, 5, 37, 203, 1280])
 @pytest.mark.parametrize("n_p,n_s", RECT_SIZES)
@@ -557,10 +591,13 @@ def test_tensor_core_rect_against_tier_oracle(cuda_device, n_p, n_s, d, n_classe
         want = _tier_oracle(plain, P, S, sq_p, sq_s, A, tier=tier, **kw)
         assert got.shape == want.shape and torch.isfinite(got).all()
         assert (got - want).abs().max() <= 1e-4 * want.abs().max(), name
+        if tier == "highest":
+            split = _split_oracle(P, S, sq_p, sq_s, A, **kw)
+            assert (got - split).abs().max() <= 1e-4 * split.abs().max(), name
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tier", ["f32", "bf16"])
+@pytest.mark.parametrize("tier", ["f32", "bf16", "highest"])
 @pytest.mark.parametrize("n_classes", [None, 10, 17, 37])
 def test_rect_runs_against_tier_oracle(cuda_device, n_classes, tier):
     """Kernels B and D over 17 x 133 tiles (2100 points, 17000 SVs): on a
@@ -618,12 +655,13 @@ def test_rect_wrappers_refuse_what_they_do_not_take(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tier", ["f32", "bf16"])
+@pytest.mark.parametrize("tier", ["f32", "bf16", "highest"])
 @pytest.mark.parametrize("n_labels", [2, 4])
 def test_solve_and_predict_take_the_tier_kernels(cuda_device, tier, n_labels):
-    """A float32 CUDA fit at "f32" / "bf16" runs every kernel product on the
-    tensor-core tile, and its predict goes through kernel B or D on the
-    rectangular one (none on the FFMA tile or the plain versions)."""
+    """A float32 CUDA fit at any tier runs every kernel product on the
+    tensor-core tile ("highest" in three TF32 passes), and its predict goes
+    through kernel B or D on the rectangular one (none on the FFMA tile or
+    the plain versions)."""
     import numpy as np
 
     import plssvm_tpu_torch as port
@@ -647,6 +685,172 @@ def test_solve_and_predict_take_the_tier_kernels(cuda_device, tier, n_labels):
     assert (matvec.sym_plain_calls + matvec.rect_plain_calls
             + matvec.sym_matmat_plain_calls + matvec.rect_matmat_plain_calls) == 0
     assert accuracy > 0.8
+
+
+# -- the split tier ("highest") and the one-pass tiers' bits ------------------
+
+#: one-block tiles of the sym tile (m <= 128: one diagonal tile, each row
+#: and class one atomic into zeros) and of the rect tile (n_p, n_s <= 128:
+#: one tile, one run): shapes whose outputs are the kernel's bits, with no
+#: summation order between blocks; (m, d, classes), d over several boxes
+ONE_BLOCK_SHAPES = [(128, 203, None), (100, 37, 3), (77, 512, 10)]
+#: the first 16 hex digits of the sha256 of the "f32" and "bf16" tiers'
+#: outputs on ONE_BLOCK_SHAPES (``_one_pass_outputs``), as the tiles gave
+#: them before the split tier shared their code, recorded on an NVIDIA
+#: H100 80GB HBM3 from the tree before it
+ONE_PASS_DIGESTS = {
+    "f32 polynomial 128x203 C=None sym": "274666ae5ff8f37b",
+    "f32 polynomial 128x203 C=None rect": "2f5b0e223c0c4ab4",
+    "f32 polynomial 100x37 C=3 sym": "f11c22d1def3f9f2",
+    "f32 polynomial 100x37 C=3 rect": "c504ef633cea8953",
+    "f32 polynomial 77x512 C=10 sym": "eb6ebb02d0a0ce3e",
+    "f32 polynomial 77x512 C=10 rect": "3cb6bf391235a0ed",
+    "f32 rbf 128x203 C=None sym": "e6624ef992d914e9",
+    "f32 rbf 128x203 C=None rect": "087710af7fac398d",
+    "f32 rbf 100x37 C=3 sym": "ad4ec06d592b488f",
+    "f32 rbf 100x37 C=3 rect": "e8acc98b56b9c47e",
+    "f32 rbf 77x512 C=10 sym": "5e99a1e52a952b39",
+    "f32 rbf 77x512 C=10 rect": "39ec747e64160315",
+    "f32 sigmoid 128x203 C=None sym": "2718d82ff2147226",
+    "f32 sigmoid 128x203 C=None rect": "f492977cbd86f536",
+    "f32 sigmoid 100x37 C=3 sym": "4ade653e75c6f38c",
+    "f32 sigmoid 100x37 C=3 rect": "4b0ef47af7e45549",
+    "f32 sigmoid 77x512 C=10 sym": "214cb90f2fed5e44",
+    "f32 sigmoid 77x512 C=10 rect": "eedfa47c211620fe",
+    "bf16 polynomial 128x203 C=None sym": "9d1297d980736e41",
+    "bf16 polynomial 128x203 C=None rect": "91a9777bb37c5aba",
+    "bf16 polynomial 100x37 C=3 sym": "3ddf80c699aa0f7b",
+    "bf16 polynomial 100x37 C=3 rect": "8096f978810285f8",
+    "bf16 polynomial 77x512 C=10 sym": "5682dd21f47b91a1",
+    "bf16 polynomial 77x512 C=10 rect": "13e0c8eaff45d3c2",
+    "bf16 rbf 128x203 C=None sym": "71bb833603abe01d",
+    "bf16 rbf 128x203 C=None rect": "7e93a30e2c13dea6",
+    "bf16 rbf 100x37 C=3 sym": "0d590cf1440e051c",
+    "bf16 rbf 100x37 C=3 rect": "cb744429e254d5a2",
+    "bf16 rbf 77x512 C=10 sym": "1b1c2915faa2c0dd",
+    "bf16 rbf 77x512 C=10 rect": "b08934f341aaeba9",
+    "bf16 sigmoid 128x203 C=None sym": "00ff7068d6517449",
+    "bf16 sigmoid 128x203 C=None rect": "ee1ef13849a06924",
+    "bf16 sigmoid 100x37 C=3 sym": "fc7855e2ecb2792e",
+    "bf16 sigmoid 100x37 C=3 rect": "222227602a35fc88",
+    "bf16 sigmoid 77x512 C=10 sym": "6e4c78b608d4aae7",
+    "bf16 sigmoid 77x512 C=10 rect": "81feaf916d3c8719",
+}
+
+
+def _one_pass_outputs(device):
+    """{(tier, kind, m, d, classes, walk): sha256 prefix} of the sym and
+    rect tiles' outputs at "f32" and "bf16" on seeded ONE_BLOCK_SHAPES
+    operands (norms computed on the host)."""
+    import hashlib
+
+    out = {}
+    for tier in ("f32", "bf16"):
+        for name in COEF0:
+            g = torch.Generator().manual_seed(56)
+            for m, d, classes in ONE_BLOCK_SHAPES:
+                X = (torch.randn(m, d, generator=g, dtype=torch.float64) * 0.3).float()
+                shape = (m,) if classes is None else (m, classes)
+                V = torch.randn(*shape, generator=g, dtype=torch.float64).float()
+                P = X[: m // 2 + 1].flip(0).contiguous()
+                sq, sq_p = (X * X).sum(-1), (P * P).sum(-1)
+                X, V, P, sq, sq_p = (t.to(device) for t in (X, V, P, sq, sq_p))
+                kw = dict(kind=getattr(TKind, name.upper()), gamma=1.0 / d,
+                          coef0=COEF0[name], degree=3, precision=tier)
+                module = gram_matvec if classes is None else gram_matmat
+                op = "matvec" if classes is None else "matmat"
+                for walk, got in (
+                        ("sym", getattr(module, f"gram_{op}_sym")(X, sq, V, **kw)),
+                        ("rect", getattr(module, f"gram_{op}_rect")(P, X, sq_p, sq, V, **kw))):
+                    digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16]
+                    out[f"{tier} {name} {m}x{d} C={classes} {walk}"] = digest
+    return out
+
+
+@pytest.mark.cuda
+def test_one_pass_tiers_give_the_bits_they_gave_before(cuda_device):
+    """The "f32" and "bf16" launches of the sym and rect tiles, which share
+    their code with the split tier, give the bits they gave before it, on
+    one-block tiles (twice, so the bits are the kernel's own)."""
+    first = _one_pass_outputs(cuda_device)
+    assert _one_pass_outputs(cuda_device) == first
+    assert first == ONE_PASS_DIGESTS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_classes", [None, 3])
+def test_split_tile_with_a_zero_lo_is_the_tf32_tile(cuda_device, n_classes):
+    """The split tile's first pass is the TF32 tile's product: on a stack
+    [tf32(X); 0] kernels A-D give the "f32" tier's bits (each later pass
+    adds zero products), on one-block tiles."""
+    X, sq, V = _tc_operands(128, 203, n_classes, 57, cuda_device)
+    P = X[:65].flip(0).contiguous()
+    sq_p = (P * P).sum(-1)
+    kw = dict(kind=TKind.RBF, gamma=1.0 / 203, coef0=0.0, degree=3)
+    lib = gram_matvec._build.load()
+    classes = () if n_classes is None else (n_classes,)
+    op = "matvec" if n_classes is None else "matmat"
+    zero_lo = torch.stack([gram_matvec.tier_operand(X, "f32"),
+                           torch.zeros(128, 204, device=cuda_device)])
+    out = torch.zeros_like(V)
+    gram_matvec.launch_sym_tc(lib, op, X, sq, V, out, classes, kw["kind"], 1.0 / 203,
+                              0.0, 3, "highest", zero_lo)
+    module = gram_matvec if n_classes is None else gram_matmat
+    sym = getattr(module, f"gram_{op}_sym")
+    assert torch.equal(out, sym(X, sq, V, precision="f32", **kw))
+    assert not torch.equal(out, sym(X, sq, V, precision="highest", **kw))
+
+
+@pytest.mark.cuda
+def test_split_operand_made_once_is_the_one_made_per_call(cuda_device):
+    """Kernels A and C on a solve's split stack (``tier_operand`` made once)
+    give what they give on the stack they make per call, bit for bit on one
+    tile; an operand of another tier or shape is refused."""
+    for n_classes in (None, 10):
+        X, sq, V = _tc_operands(100, 37, n_classes, 58, cuda_device)
+        kw = dict(kind=TKind.RBF, gamma=1.0 / 37, coef0=0.0, degree=3, precision="highest")
+        sym = gram_matvec.gram_matvec_sym if n_classes is None else gram_matmat.gram_matmat_sym
+        op = gram_matvec.tier_operand(X, "highest")
+        assert op.shape == (2, 100, 40)
+        assert torch.equal(sym(X, sq, V, operand=op, **kw), sym(X, sq, V, **kw))
+        with pytest.raises(ValueError, match="operand copy"):
+            sym(X, sq, V, operand=gram_matvec.tier_operand(X, "f32"), **kw)
+
+
+@pytest.mark.cuda
+def test_split_tile_raises_on_a_failed_launch(cuda_device):
+    """No fallback: a split stack that TMA refuses (a view 4 bytes past a
+    16-byte boundary) makes the launch fail, and the wrapper raises and
+    counts nothing."""
+    from plssvm_tpu_torch.exceptions import KernelLaunchError
+
+    X, sq, v = _tc_operands(100, 37, None, 59, cuda_device)
+    buf = torch.zeros(2 * 100 * 40 + 1, device=cuda_device)
+    op = buf[1:].view(2, 100, 40)
+    op.copy_(gram_matvec.tier_operand(X, "highest"))
+    before = gram_matvec.sym_tc_launches, gram_matvec.sym_launches
+    with pytest.raises(KernelLaunchError, match="highest"):
+        gram_matvec.gram_matvec_sym(X, sq, v, kind=TKind.RBF, gamma=0.1, coef0=0.0,
+                                    degree=3, precision="highest", operand=op)
+    assert (gram_matvec.sym_tc_launches, gram_matvec.sym_launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_classes", [None, 10])
+def test_split_tier_is_as_close_to_float64_as_the_ffma_tile(cuda_device, n_classes):
+    """The split tier against the float64 plain version: within 4x the
+    FFMA tile's own error (the dropped lo lo^T is 2^-22 of a product where
+    float32 rounds to 2^-24, both under the d-term accumulation), at
+    MNIST's width."""
+    X, sq, V = _tc_operands(1037, 784, n_classes, 60, cuda_device)
+    kw = dict(kind=TKind.RBF, gamma=1.0 / 784, coef0=0.0, degree=3)
+    plain = matvec.kernel_matvec_plain if n_classes is None else matvec.kernel_matmat_plain
+    want = plain(X.double(), sq.double(), V.double(), **kw)
+    sym = gram_matvec.gram_matvec_sym if n_classes is None else gram_matmat.gram_matmat_sym
+    split = (sym(X, sq, V, precision="highest", **kw).double() - want).abs().max()
+    ffma = gram_matvec.gram_ffma("matvec_sym" if n_classes is None else "matmat_sym",
+                                 (X,), (sq,), V, **kw)
+    assert split <= 4 * (ffma.double() - want).abs().max()
 
 
 #: ragged blocks: d not a multiple of 4 or 8 (TMA pads the tensor-core

@@ -237,11 +237,12 @@ def test_float64_cuda_takes_the_dmma_tile_at_every_tier(precision):
 
 @pytest.mark.parametrize("precision", TIERS)
 def test_float32_keeps_its_routes(precision):
-    """float32 CUDA: the TF32 / bf16 tiles at "f32" / "bf16", the FFMA tile at
-    "highest", never the DMMA tile; CPU tensors of either type neither."""
+    """float32 CUDA: the tensor-core tiles at every tier (TF32 / bf16 at
+    "f32" / "bf16", three TF32 passes at "highest"), never the DMMA tile;
+    CPU tensors of either type neither."""
     X = _like(torch.float32, "cuda")
     assert not gram_matvec.uses_dmma(X)
-    assert gram_matvec.uses_tensor_cores(X, precision) == (precision != "highest")
+    assert gram_matvec.uses_tensor_cores(X, precision)
     for dtype in (torch.float32, torch.float64):
         assert not gram_matvec.uses_dmma(_like(dtype, "cpu"))
 
@@ -251,12 +252,14 @@ def test_float32_keeps_its_routes(precision):
 def test_float64_cuda_dual_takes_the_dual_dmma_tile_at_every_tier(name, precision):
     """J and K on float64 CUDA tensors take the dual DMMA tile at every tier
     and count on ``dual_dmma_launches``; float32 keeps the TF32 / bf16 dual
-    tile at "f32" / "bf16" and the FFMA walk at "highest"."""
+    tile at "f32" / "bf16" (the one-pass tiers) and the FFMA walk at
+    "highest"."""
     chip_smoke = _chip_smoke()
     X64, X32 = _like(torch.float64, "cuda"), _like(torch.float32, "cuda")
     assert gram_matvec.uses_dmma(X64) and not gram_matvec.uses_tensor_cores(X64, precision)
     assert not gram_matvec.uses_dmma(X32)
-    assert gram_matvec.uses_tensor_cores(X32, precision) == (precision != "highest")
+    assert gram_matvec.uses_tensor_cores(X32, precision)
+    assert (precision in gram_matvec.ONE_PASS_TIERS) == (precision != "highest")
     module = gram_matvec if name == "gram_matvec_dual" else gram_matmat
     assert chip_smoke._dual_counter(name, torch.float64, precision) == (
         module, "dual_dmma_launches")
@@ -420,17 +423,19 @@ def test_kernel_resources_names_the_rect_dmma_tile(tmp_path, monkeypatch):
 @pytest.mark.parametrize("classes", [None, 10])
 def test_float64_cuda_rect_takes_the_rect_dmma_tile_at_every_tier(classes, precision):
     """B and D on float64 CUDA tensors take the rect DMMA tile at every tier
-    (chip_smoke.py names it ``*_rect_dmma``); float32 keeps the TF32 / bf16
-    rect tile at "f32" / "bf16" and the FFMA tile at "highest"."""
+    (chip_smoke.py names it ``*_rect_dmma``); float32 keeps the rect
+    tensor-core tile at every tier (``*_rect_tc``; "highest" in three TF32
+    passes), and chip_smoke.py names the FFMA tile ``*_rect`` beside it."""
     chip_smoke = _chip_smoke()
     P64, P32 = _like(torch.float64, "cuda"), _like(torch.float32, "cuda")
     assert gram_matvec.uses_dmma(P64) and not gram_matvec.uses_tensor_cores(P64, precision)
     assert not gram_matvec.uses_dmma(P32)
-    assert gram_matvec.uses_tensor_cores(P32, precision) == (precision != "highest")
+    assert gram_matvec.uses_tensor_cores(P32, precision)
     base = "gram_matvec" if classes is None else "gram_matmat"
     tail = () if classes is None else (classes,)
-    for dtype, tile in ((torch.float64, "_dmma"),
-                        (torch.float32, "" if precision == "highest" else "_tc")):
+    name, _, _ = chip_smoke._pairs(torch.zeros(3, *tail), precision, ffma=True)[1]
+    assert name == f"{base}_rect"
+    for dtype, tile in ((torch.float64, "_dmma"), (torch.float32, "_tc")):
         name, _, _ = chip_smoke._pairs(torch.zeros(3, *tail, dtype=dtype), precision)[1]
         assert name == f"{base}_rect{tile}"
 
