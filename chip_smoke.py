@@ -65,10 +65,14 @@ Phases, one line each or more (the run stops at the first that fails):
    8's laplacian files (E, L, F) and phase 9's histogram classes (G, M, H),
    each against its single-device run, in float32 and float64 (the
    symmetric products, J and K, and the rows-only B and D on the DMMA
-   tiles): iterations,
-   s/iteration, the launches of every kernel, epsilon reached, the
-   accuracy floor, label agreement >= 0.999, and the ring's operand copies
-   per iteration.
+   tiles), and the two Gram cells also in float32 at
+   ``gram_precision="highest"`` (A-D and K on the tensor-core tiles in
+   three TF32 passes, J on its matvec walk, nothing on K's FFMA tile), each
+   beside one device at the same tier, their float64 agreement logged:
+   iterations, s/iteration, the launches of every kernel, epsilon reached,
+   the accuracy floor, label agreement >= 0.995 (float32) or 0.999
+   (float64), and the ring's operand copies (once per solve, and the
+   rows-only walk's per iteration).
 
 The "explicit" phase runs after phase 10 (``phase_explicit``): kernel N
 (csrc/kernel_matrix.cu, the explicit solver's kernel matrix for the
@@ -141,36 +145,39 @@ banded laplacian matvec, csrc/banded.cu) against its plain version and
 kernel E on ragged shapes and at phase 11's shape, where it is timed
 beside kernel E; and ``kernel_matvec`` against kernel A and its plain
 version, timed at kernel A's shape; and kernels J-M (the ring's dual
-walks: csrc/dual.cu, J and K at "f32" and "bf16" on the dual tensor-core
-tile of csrc/gram_tc.cuh, whose blocks per SM it logs, and in float64 on
-the dual DMMA tile of csrc/gram_dmma.cu), both outputs, against their
-plain versions on ragged mr != mc blocks in float32 and float64, J and K
-at each Gram tier, L and M per entry of K in float32 chi-squared, then
-timed at the ring phase's block shapes (J and K at each tier), with the
-cost of K and M's column atomics logged; and in float64 kernels A and C
-on the symmetric DMMA tile, B and D on the rect one and J and K on the
-dual one (csrc/gram_dmma.cu, the three tiles' blocks per SM logged)
-against their plain versions on ragged shapes at every tier, A and C
-timed at 32768 x 512, 49999 x 500 and 59999 x 784 (C = 10), both bounds
+walks: csrc/dual.cu, J and K at "f32" and "bf16" and K at "highest" (three
+TF32 passes over the split operands) on the dual tensor-core tile of
+csrc/gram_tc.cuh, whose blocks per SM it logs for each tier, and in
+float64 on the dual DMMA tile of csrc/gram_dmma.cu), both outputs, against
+their plain versions on ragged mr != mc blocks in float32 and float64, J
+and K at each Gram tier, L and M per entry of K in float32 chi-squared,
+then timed at the ring phase's block shapes (J and K at each tier; K at
+"highest" beside its FFMA tile, on no wrapper's path, and the full-float32
+``torch.matmul(Xr, Xc.T)`` yardstick, and again at 32768^2 x 512 with 10
+classes), with the cost of K and M's column atomics logged; and in float64
+kernels A and C on the symmetric DMMA tile, B and D on the rect one and J
+and K on the dual one (csrc/gram_dmma.cu, the three tiles' blocks per SM
+logged) against their plain versions on ragged shapes at every tier, A and
+C timed at 32768 x 512, 49999 x 500 and 59999 x 784 (C = 10), both bounds
 and DGEMM beside, B and D at 32768 x 512 beside both bounds and DGEMM, J
-and K at the ring's blocks beside both bounds, and every float64 kernel
-at the shapes the float64 fits of phases 4, 5 and 13 give it (the ring's
+and K at the ring's blocks beside both bounds, and every float64 kernel at
+the shapes the float64 fits of phases 4, 5 and 13 give it (the ring's
 rows-only walks B and D included), A-D, J and K held against their plain
 versions there too; and E-H, L and M in float64 (chi-squared on the
 divide-free quotient, the timed rows checked to lie within its range on
 the host): L and M at the ring's blocks, E-H at the ring's shard shapes
 and at its one-device fits' shapes, where E-H are also held per entry of
-the chi-squared K against long double, each beside its plain version,
-and E-H at m = 8192 and 16384, d = 256, G there also on rows scaled out
-of the quotient's range.  Beside every kernel's time it computes the
-bound: the least time the card could take for the function on these
-inputs (see ``_bound``), and fails if a kernel measures faster than that
-(a wrong bound or a wrong timing).  At phases 9 and 10's shapes it holds
-kernels E-H in float32 chi-squared per entry of K against the plain
-version in float64 (one-hot right-hand sides pick columns of K) and logs
-each one's error beside the float32 plain version's and its share of the
-bound.  The ring's distance shard products, E-H in float32 and float64,
-are timed at the ring's shapes for the cost ranking too.
+the chi-squared K against long double, each beside its plain version, and
+E-H at m = 8192 and 16384, d = 256, G there also on rows scaled out of the
+quotient's range. Beside every kernel's time it computes the bound: the
+least time the card could take for the function on these inputs (see
+``_bound``), and fails if a kernel measures faster than that (a wrong
+bound or a wrong timing). At phases 9 and 10's shapes it holds kernels E-H
+in float32 chi-squared per entry of K against the plain version in float64
+(one-hot right-hand sides pick columns of K) and logs each one's error
+beside the float32 plain version's and its share of the bound. The ring's
+distance shard products, E-H in float32 and float64, are timed at the
+ring's shapes for the cost ranking too.
 
 ``python3 chip_smoke.py --compare-build DIR`` also builds the kernels of
 another checkout (a parent commit unpacked with ``git archive``) in the
@@ -178,15 +185,17 @@ build phase and logs, for every kernel instantiation the two share,
 whether its registers, spills and shared memory are the same, and which
 instantiations only one of them has; then, right after the kernels
 phase, it times float64 E-H, L (float32 and float64, laplacian and
-chi-squared) and M, the rows-only F beside L, J at "highest", float32 G
-at phase 10's shape and the float64 chi-squared and laplacian fits on one
-device and on the ring in both checkouts, each in a process of its own
-(other, here, here, other), and logs the pairs beside the bounds
-(``phase_compare``, ``_compare_times``).
+chi-squared) and M, the rows-only F beside L, J and K at "highest",
+float32 G and kernel N at phase 10's shape, N laplacian at config 2's,
+the float64 chi-squared and laplacian fits on one device and on the ring
+and the MNIST-width ring at "highest" in both checkouts, each in a
+process of its own (other, here, here, other), and logs the pairs beside
+the bounds (``phase_compare``, ``_compare_times``).
 
 The build phase fails unless the matvec walk of J and L
 (``matvec_dual_kernel``, csrc/dual.cu) compiled once per float32 kind and
-per float64 distance kind without spilling; the kernels phase logs its
+per float64 distance kind without spilling, and the split dual tile once
+per Gram kind without spilling; the kernels phase logs its
 blocks per SM (its persistent grid) and, at the ring's block, L at C = 1
 beside the rows-only F on the same block.
 
@@ -434,6 +443,15 @@ def phase_build(compare=None):
     log("build", "the split tiles (tf32x3): " + ", ".join(
         f"{n} {r['registers']} registers, {r.get('spill_bytes', 0)} spill bytes"
         for n, r in sorted(split.items())))
+    # K at "highest" on the split dual tile: one instantiation per Gram
+    # kind, spilling nothing
+    split_dual = {n: r for n, r in mine.items() if n.startswith("gram_tc_dual tf32x3 ")}
+    if len(split_dual) != 3 or any(r.get("spill_bytes", 0) > 0 or r.get("registers", 256) > 255
+                                   for r in split_dual.values()):
+        raise AssertionError(f"the split dual tile's instantiations: {split_dual}")
+    log("build", "the split dual tile (tf32x3): " + ", ".join(
+        f"{n.split()[-1]} {r['registers']} registers, {r.get('spill_bytes', 0)} spill bytes, "
+        f"{r['smem_bytes']} B static shared memory" for n, r in sorted(split_dual.items())))
     # kernel O's FFMA walk: one instantiation per type and kind, within the
     # registers of the blocks an SM its __launch_bounds__ asks for (two: 128
     # registers, where the float Gram and laplacian tiles spill 48-84 bytes
@@ -505,15 +523,17 @@ def _tier_plain(plain, precision):
 
 
 def _ffma(op):
-    """Kernels A-D's FFMA tile (``gram_matvec.gram_ffma``, on no wrapper's
-    path) called as its wrapper is: ``(X, sq, v)`` or ``(P, S, sq_p, sq_s,
-    a)``."""
+    """Kernels A-D and K's FFMA tile (``gram_matvec.gram_ffma``, on no
+    wrapper's path) called as its wrapper is: ``(X, sq, v)``, ``(P, S,
+    sq_p, sq_s, a)`` or, for K ("matmat_dual"), ``(Xr, Xc, sq_r, sq_c, V_c,
+    V_r)``."""
     from plssvm_tpu_torch.ops import gram_matvec
 
-    n = 2 if op.endswith("rect") else 1
+    n = 2 if op.endswith(("rect", "dual")) else 1
 
     def kernel(*args, precision="highest", **kw):
-        return gram_matvec.gram_ffma(op, args[:n], args[n:2 * n], args[2 * n], **kw)
+        weights = args[2 * n:] if op.endswith("dual") else args[2 * n]
+        return gram_matvec.gram_ffma(op, args[:n], args[n:2 * n], weights, **kw)
 
     return kernel
 
@@ -945,6 +965,23 @@ def _dual_pair(name, precision):
     return (lambda *args, **kw: kernel(*args, precision=precision, **kw)), oracle
 
 
+def _on_operands(kernel, name, args, precision):
+    """``kernel``, a dual walk, on the pair of ``tier_operand`` copies of Xr
+    and Xc (``args[:2]``) that the ring makes once per solve, where the walk
+    takes them: the tensor-core tile, J and K on float32 at "f32" / "bf16",
+    K also at "highest"; else ``kernel`` itself."""
+    import functools
+
+    from plssvm_tpu_torch.ops import gram_matvec
+
+    Xr, Xc = args[0], args[1]
+    if (not name.startswith("gram") or Xr.dtype != torch.float32
+            or (name == "gram_matvec_dual" and precision not in ("f32", "bf16"))):
+        return kernel
+    return functools.partial(kernel, operand=(gram_matvec.tier_operand(Xr, precision),
+                                              gram_matvec.tier_operand(Xc, precision)))
+
+
 def _check_dual(label, got, want):
     """Both outputs of a dual kernel against the plain version's; returns
     the larger (max|err|, max|plain|) pair's relative error and max|err|."""
@@ -989,9 +1026,10 @@ def _dual_per_entry(X, gamma, label):
 
 def _dual_counter(name, dtype, precision):
     """(module, counter) that a launch of dual kernel ``name`` at the tier
-    adds to: J and K on float32 at "f32" / "bf16" the tensor-core tile's
-    ``dual_tc_launches``, at "highest" the FFMA tile's, in float64 at every
-    tier the dual DMMA tile's ``dual_dmma_launches``."""
+    adds to: K on float32 at every tier and J at "f32" / "bf16" the
+    tensor-core tile's ``dual_tc_launches`` (K at "highest" in three TF32
+    passes), J at "highest" its matvec walk's ``dual_launches``, in float64
+    at every tier the dual DMMA tile's ``dual_dmma_launches``."""
     from plssvm_tpu_torch.ops import distance, gram_matmat, gram_matvec
 
     if name.startswith("distance"):
@@ -999,30 +1037,40 @@ def _dual_counter(name, dtype, precision):
     module = gram_matvec if name == "gram_matvec_dual" else gram_matmat
     if dtype == torch.float64:
         return module, "dual_dmma_launches"
-    return module, "dual_tc_launches" if precision in ("f32", "bf16") else "dual_launches"
+    walk = name == "gram_matvec_dual" and precision not in ("f32", "bf16")
+    return module, "dual_launches" if walk else "dual_tc_launches"
+
+
+#: the dual tensor-core tile's tiers: (name, the query's tier code, the
+#: blocks an SM its design needs: two at the one-pass tiers, so that one
+#: block's epilogue overlaps the other's products; one at the split tier,
+#: whose three 64 KB stages fill the SM)
+DUAL_TC_TIERS = (("tf32", 0, 2), ("bf16", 1, 2), ("tf32x3", 2, 1))
 
 
 def _dual_blocks_per_sm():
     """The dual tensor-core tile's blocks per SM for every tier and Gram
-    kind, logged; raises below the two its design needs."""
+    kind, logged; raises below the blocks each tier's design needs."""
     import ctypes
 
     from plssvm_tpu_torch.ops import _build
 
     lib = _build.load()
-    found = {}
-    for tier, bf16 in (("tf32", 0), ("bf16", 1)):
+    found, short = {}, []
+    for tier, code, need in DUAL_TC_TIERS:
         for kind, name in ((1, "poly"), (2, "rbf"), (3, "sigmoid")):
             blocks = ctypes.c_int(0)
-            err = lib.plssvm_gram_dual_tc_blocks_per_sm(bf16, kind, ctypes.byref(blocks))
+            err = lib.plssvm_gram_dual_tc_blocks_per_sm(code, kind, ctypes.byref(blocks))
             if err != 0:
                 raise AssertionError(f"gram_tc_dual {tier} {name}: occupancy query failed "
                                      f"({lib.plssvm_cuda_error_string(err).decode()})")
             found[f"{tier} {name}"] = blocks.value
+            if blocks.value < need:
+                short.append(f"{tier} {name} {blocks.value} (needs {need})")
     log("kernels", "gram_tc_dual blocks per SM: " + ", ".join(
         f"{k} {v}" for k, v in found.items()))
-    if min(found.values()) < 2:
-        raise AssertionError(f"the dual tensor-core tile fits fewer than 2 blocks an SM: {found}")
+    if short:
+        raise AssertionError(f"the dual tensor-core tile holds too few blocks an SM: {short}")
 
 
 def _walk_blocks_per_sm():
@@ -1162,6 +1210,8 @@ def _dual_kernels(gen, main_err, main_ms, timing, bounds):
         cases.append((name, args, kw, tier, n_classes, kind))
     for name, args, kw, tier, n_classes, kind in cases:
         kernel, plain = _dual_pair(name, tier or "highest")
+        # the tensor-core tile on the operand pair the ring makes once
+        kernel = _on_operands(kernel, name, args, tier)
         mr, d = args[0].shape
         columns = n_classes or 1
         base = f"{mr}x{mr}x{d} f32 {kind}" + (f" C={columns}" if n_classes else "")
@@ -1182,15 +1232,17 @@ def _dual_kernels(gen, main_err, main_ms, timing, bounds):
         if name == "distance_matvec_dual":
             _walk_epilogue_split(args, kw, label)
         if tier:
-            _time_dual_tiers(name, args, kw, mr, d, columns, base, timing[key][0])
+            _time_dual_tiers(name, args, kw, mr, d, columns, base, timing[key][0],
+                             (main_err, main_ms, timing, bounds))
+    _time_split_k(gen)
     lap = torch.randn(5000, 200, generator=gen, dtype=torch.float64).to("cuda", torch.float32)
     _ring_distance_shards(gen, main_err, main_ms, lap, hist, chi2_gamma, "ring")
 
     # the atomics of the column sums: K and M issue one per column, class
     # and tile where the rectangular D and H (same tile, row sums only)
     # issue none for columns; each at 10 classes against 1 class on the
-    # same block, the dual walk beside the rectangular one, K on the FFMA
-    # tile ("highest") and on the tensor-core tiles ("f32")
+    # same block, the dual walk beside the rectangular one, K on the
+    # tensor-core tiles at "highest" (three TF32 passes) and "f32"
     from plssvm_tpu_torch.ops import distance, gram_matmat
 
     for name, args, kw, tier, n_classes, kind in cases:
@@ -1261,24 +1313,93 @@ def _ring_distance_shards(gen, main_err, main_ms, lap, hist, chi2_gamma, phase):
                                 bound, label)
 
 
-def _time_dual_tiers(name, args, kw, mr, d, columns, label, tf32_ms):
+def _time_dual_tiers(name, args, kw, mr, d, columns, label, tf32_ms, tables):
     """J or K at a ring block (``label`` its shape) beside its "f32" time
-    ``tf32_ms``: at "bf16" on the tensor-core tile against the plain version
-    at "bf16" and the bf16 bound, and on the FFMA tile ("highest") against
-    its own bound; logged only, the ring phase runs "f32"."""
+    ``tf32_ms``, the tensor-core tile on the operand pair the ring makes
+    once (``_on_operands``): at "bf16" against the plain version
+    at "bf16" and the bf16 bound, logged; at "highest" (the ring-highest
+    cells' tier) against the full-float32 plain version, K on the split
+    dual tile (three TF32 passes) beside the split bound and, from the same
+    run, its FFMA tile (``_ffma``, on no wrapper's path, held against the
+    same plain version) beside the FFMA bound and the full-float32
+    ``torch.matmul(Xr, Xc.T)`` yardstick, J on its matvec walk beside the
+    FFMA bound.  The "highest" kernel goes into ``tables`` (main_err,
+    main_ms, timing, bounds) under (name, "tf32x3") for K, (name,
+    "highest") for J, and (name, "ring-highest") for the cost ranking."""
+    main_err, main_ms, timing, bounds = tables
     exp = str(kw["kind"]) == "rbf"
+    work = float(mr) * mr * d
     kernel, plain = _dual_pair(name, "bf16")
-    bf16_ms = _time_pair(name, kernel, plain, args, kw, float(mr) * mr * d, f"{label} bf16",
+    kernel = _on_operands(kernel, name, args, "bf16")
+    bf16_ms = _time_pair(name, kernel, plain, args, kw, work, f"{label} bf16",
                          unit="Tpair-feature/s", counted="mr mc d")[0]
     _log_bound(name, f"{label} bf16", bf16_ms,
                _dual_bound(mr, mr, d, columns, "gram", 4, 1, "bf16", exp=exp))
-    kernel, _ = _dual_pair(name, "highest")
-    ffma_ms = _median_ms(lambda: kernel(*args, **kw), 5, 1)
+    kernel, plain = _dual_pair(name, "highest")
+    kernel = _on_operands(kernel, name, args, "highest")
+    split = name == "gram_matmat_dual"
+    key = (name, "tf32x3" if split else "highest")
+    want = plain(*args, **kw)
+    main_err[key] = _check_dual(f"{label} highest", kernel(*args, **kw), want)[1]
+    timing[key] = _time_pair(name, kernel, plain, args, kw, work, f"{label} highest",
+                             unit="Tpair-feature/s", counted="mr mc d")
     ffma = _dual_bound(mr, mr, d, columns, "gram", 4, 1)
-    _log_bound(name, f"{label} highest (the FFMA tile)", ffma_ms, ffma)
+    bounds[key] = _dual_bound(mr, mr, d, columns, "gram", 4, 1, "tf32x3", exp=exp) \
+        if split else ffma
+    main_ms[(name, "ring-highest")] = (timing[key][0], bounds[key][0])
+    tile = "the split dual tile" if split else "the matvec walk"
+    _log_bound(name, f"{label} highest ({tile})", timing[key][0], bounds[key])
+    if split:
+        ffma_tile = _ffma("matmat_dual")
+        ffma_err = _check_dual(f"{label} highest, the FFMA tile", ffma_tile(*args, **kw),
+                               want)[0]
+        ffma_ms = _median_ms(lambda: ffma_tile(*args, **kw), 5, 1)
+        _log_bound(name, f"{label} highest, the FFMA tile (on no wrapper's path)", ffma_ms,
+                   ffma)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        _yardstick(f"torch.matmul(Xr, Xc.T) {mr}x{mr}x{d} f32", lambda: torch.matmul(
+            args[0], args[1].T))
+        log("kernels", f"{name} {label} highest: the split dual tile {timing[key][0]:.3f} ms, "
+            f"max|err|/max|plain| {main_err[key] / float(want[0].abs().max()):.3e}; the FFMA "
+            f"tile {ffma_ms:.3f} ms ({ffma_ms / timing[key][0]:.2f}x), {ffma_err:.3e}")
     log("kernels", f"{name} {mr}x{mr}x{d}: the tensor-core tile at f32 (TF32) "
-        f"{tf32_ms:.3f} ms, at bf16 {bf16_ms:.3f} ms; the FFMA tile at highest "
-        f"{ffma_ms:.3f} ms ({ffma_ms / tf32_ms:.2f}x the TF32 time)")
+        f"{tf32_ms:.3f} ms, at bf16 {bf16_ms:.3f} ms; at highest {tile} "
+        f"{timing[key][0]:.3f} ms ({timing[key][0] / tf32_ms:.2f}x the TF32 time)")
+
+
+#: K at "highest" timed at the kernels phase's own shape too: the square
+#: that B and D are timed over, 32768^2 x 512, with 10 classes
+K_SPLIT_TIMING = (32768, 512, 10)
+
+
+def _time_split_k(gen):
+    """Kernel K at "highest" on the split dual tile at ``K_SPLIT_TIMING``
+    (on the operand pair made once) against the full-float32 plain version
+    (the 1e-4 gate) and beside its FFMA tile from the same run, each beside
+    its bound; logged."""
+    from plssvm_tpu_torch.parameter import KernelFunctionType as K
+
+    m, d, columns = K_SPLIT_TIMING
+    X = torch.randn(2 * m, d, generator=gen, dtype=torch.float64).to("cuda", torch.float32)
+    Xr, Xc = X[:m].contiguous(), X[m:].contiguous()
+    del X
+    V_c, V_r = (torch.randn(m, columns, generator=gen, dtype=torch.float64).to(
+        "cuda", torch.float32) for _ in range(2))
+    args = (Xr, Xc, (Xr * Xr).sum(-1), (Xc * Xc).sum(-1), V_c, V_r)
+    kw = dict(kind=K.RBF, gamma=1.0 / d, coef0=0.0, degree=3)
+    kernel, plain = _dual_pair("gram_matmat_dual", "highest")
+    kernel = _on_operands(kernel, "gram_matmat_dual", args, "highest")
+    label = f"{m}x{m}x{d} f32 rbf C={columns} highest"
+    rel, _ = _check_dual(label, kernel(*args, **kw), plain(*args, **kw))
+    ffma_tile = _ffma("matmat_dual")
+    split_ms = _median_ms(lambda: kernel(*args, **kw), 5, 1)
+    ffma_ms = _median_ms(lambda: ffma_tile(*args, **kw), 5, 1)
+    _log_bound("gram_matmat_dual", f"{label} (the split dual tile)", split_ms,
+               _dual_bound(m, m, d, columns, "gram", 4, 1, "tf32x3", exp=True))
+    _log_bound("gram_matmat_dual", f"{label}, the FFMA tile (on no wrapper's path)", ffma_ms,
+               _dual_bound(m, m, d, columns, "gram", 4, 1))
+    log("kernels", f"gram_matmat_dual {label}: split {split_ms:.3f} ms (max|err|/max|plain| "
+        f"{rel:.3e}), FFMA tile {ffma_ms:.3f} ms ({ffma_ms / split_ms:.2f}x)")
 
 
 def _median_ms(fn, repeats=20, warmup=2):
@@ -2341,8 +2462,11 @@ def _compare_times():
     matvec walk L in float32 and float64, laplacian (Gaussian rows) and
     chi-squared (histogram rows), M in float64 (C = 10) and the rows-only
     walk F (laplacian) in both types; J at "highest" (float32 RBF) at the
-    ring's block of config 3's width, 12500^2 x 500; G in float32 at phase
-    10's shape (59999 x 784, C = 10); each in ms beside its bound, the
+    ring's block of config 3's width, 12500^2 x 500; K at "highest" at
+    MNIST width's ring block, 15000^2 x 784, C = 10 (beside the split
+    bound); G and kernel N's symmetric walk in float32 chi-squared at phase
+    10's shape (59999 x 784, C = 10) and N in laplacian at config 2's 9999 x
+    200; each in ms beside its bound, the
     ring block's and J back to back (``_back_to_back_ms``: 20 calls, J 5),
     the others the median of 5 calls after 1 warm-up; and
     kernel O's FFMA walk (``_compare_pairs``) at the oao phase's stacks,
@@ -2350,10 +2474,11 @@ def _compare_times():
     "highest" at (b)'s and (d)'s; and the float64 chi-squared fit of phase 9's classes (10000 x
     200, 10 classes) and the float64 laplacian fit of phase 8's config 2
     rows (10000 x 200, two classes), epsilon 1e-10, on one device and on
-    the four-shard ring, s/iteration.  Returns {label: [value, bound ms or
-    None]}."""
+    the four-shard ring, and phase 7's classes at MNIST width on the ring at
+    "highest" (float32, the cell's epsilon), s/iteration and iterations.
+    Returns {label: [value, bound ms or None]}."""
     import plssvm_tpu_torch as port
-    from plssvm_tpu_torch.ops import distance, gram_matvec
+    from plssvm_tpu_torch.ops import distance, gram_matmat, gram_matvec, kernel_matrix
     from plssvm_tpu_torch.parameter import KernelFunctionType as K
 
     port.set_verbosity("quiet")
@@ -2418,6 +2543,19 @@ def _compare_times():
             precision="highest"), 5, 1),
         _dual_bound(12500, 12500, 500, 1, "gram", 4, 1, exp=True)[0]]
     del X, Xr, Xc
+    # K at "highest" at MNIST width's ring block: the split dual tile here,
+    # its FFMA tile in a parent before it
+    X = torch.randn(30000, 784, generator=gen, dtype=torch.float64).to("cuda", torch.float32)
+    Xr, Xc = X[:15000].contiguous(), X[15000:].contiguous()
+    V_c, V_r = (torch.randn(15000, MC_CLASSES, generator=gen, dtype=torch.float64).to(
+        "cuda", torch.float32) for _ in range(2))
+    out[f"gram_matmat_dual f32 rbf 15000x15000x784 C={MC_CLASSES} highest, copies per call "
+        "(split bound)"] = [
+        _median_ms(lambda: gram_matmat.gram_matmat_dual(
+            Xr, Xc, (Xr * Xr).sum(-1), (Xc * Xc).sum(-1), V_c, V_r, kind=K.RBF,
+            gamma=1.0 / 784, coef0=0.0, degree=3, precision="highest"), 5, 1),
+        _dual_bound(15000, 15000, 784, MC_CLASSES, "gram", 4, 1, "tf32x3", exp=True)[0]]
+    del X, Xr, Xc, V_c, V_r
     X = torch.as_tensor(_draw_histograms(rng, _histogram_classes(rng, 784), 59999)[0],
                         dtype=torch.float32, device="cuda")
     V = torch.randn(59999, MC_CLASSES, generator=gen, dtype=torch.float64).to("cuda",
@@ -2426,7 +2564,33 @@ def _compare_times():
         _median_ms(lambda: distance.distance_matmat_sym(X, V, kind=K.CHI_SQUARED,
                                                         gamma=1.0 / 784), 5, 1),
         _sym_bound(59999, 784, MC_CLASSES, "chi_squared", 4)[0]]
-    del X, V
+    del V
+    # kernel N's symmetric walk: chi-squared at chi2-width (14.4 GB) and
+    # laplacian at config 2's 9999 x 200 (phase 8's explicit build)
+    out["kernel_matrix_sym f32 chi_squared 59999x784"] = [
+        _median_ms(lambda: kernel_matrix.kernel_matrix_sym(X, kind=K.CHI_SQUARED,
+                                                           gamma=1.0 / 784), 5, 1),
+        _n_bound(59999, 59999, 784, "chi_squared", 4, 4, True)[0]]
+    del X
+    lap = torch.randn(9999, 200, generator=gen, dtype=torch.float64).to("cuda", torch.float32)
+    out["kernel_matrix_sym f32 laplacian 9999x200"] = [
+        _median_ms(lambda: kernel_matrix.kernel_matrix_sym(lap, kind=K.LAPLACIAN,
+                                                           gamma=1.0 / 200), 20, 2),
+        _n_bound(9999, 9999, 200, "laplacian", 4, 4, True)[0]]
+    del lap
+    # the MNIST-width ring at "highest" (phase 7's classes): K on the split
+    # dual tile here, on its FFMA tile in a parent before it
+    g_rng = np.random.default_rng(SEED + 4)
+    means = _class_means(g_rng, 784)
+    X, y = _draw(g_rng, means, 60000)
+    X_test, y_test = _draw(g_rng, means, 10000)
+    cell = dict(labels=y_test, params=dict(kernel_type="rbf"))
+    run = _ring_run(cell, port.DataSet(X, y, dtype=np.float32),
+                    port.DataSet(X_test, y_test, dtype=np.float32), np.float32, EPSILON,
+                    ["cuda:0"] * RING_SHARDS, precision="highest")
+    out["MNIST-width ring highest, 60000x784: s/iteration"] = [run["s_per_it"], None]
+    out["MNIST-width ring highest, 60000x784: iterations"] = [run["iterations"], None]
+    del X, X_test, run
     # phase 9's classes and phase 8's config 2 rows, in memory
     rng = np.random.default_rng(SEED + 12)
     probs = _histogram_classes(rng, 200)
@@ -3310,11 +3474,17 @@ def _kernel_n_checks(gen):
                             and bool((sym.diagonal() == 1).all())):
                         raise AssertionError(f"kernel_matrix_sym {label}: not symmetric "
                                              "with a unit diagonal")
+                    # the symmetric walk stores what the rect walk of X against
+                    # itself computes, bit for bit: only its store differs
+                    if not torch.equal(sym, km.kernel_matrix_rect(X, X, **kw)):
+                        raise AssertionError(f"kernel_matrix_sym {label}: differs from the "
+                                             "rect walk of X against itself")
     log("explicit", f"kernel N against its plain version: {len(N_SHAPES)} shapes x "
         f"laplacian, chi-squared x float32, float64 x stored in the type, bf16: max|err| "
         + ", ".join(f"{walk[len('kernel_matrix_'):]} {t} {err:.3e}"
                     for (walk, t), err in worst.items())
-        + "; the symmetric walk exactly symmetric with a unit diagonal")
+        + "; the symmetric walk exactly symmetric with a unit diagonal, bit for bit the "
+        "rect walk of X against itself")
     return worst
 
 
@@ -3917,24 +4087,25 @@ def _config3_rbf_cell():
                 params=dict(kernel_type="rbf"))
 
 
-def _ring_copy_ms(X, iteration_s, label):
-    """The operand copies the ring makes per CG iteration at the "f32" tier,
-    on one shard of X: per shard and product, the symmetric tensor-core
-    tile's copy of X_p, the dual tile's copies of X_p and X_q (once per
-    dual step) and the rectangular tile's copies of both (for even P), all
-    ``tier_operand``; logged beside the iteration."""
+def _ring_copy_ms(X, iteration_s, label, precision="f32"):
+    """The operand copies of the ring at the tier on one shard of X, logged
+    beside the iteration: each shard's copy (``tier_operand``; "highest" the
+    split stack) made once per solve for its symmetric product and the dual
+    walks it takes part in (``sharded.shard_operands``), and per iteration
+    the rectangular tile's copies of both operands of the rows-only walk
+    (for even P), which ``gram_matvec_rect`` makes per call."""
     from plssvm_tpu_torch.ops import gram_matvec
     from plssvm_tpu_torch.parallel import sharded
 
     lo, hi = sharded.shard_bounds(X.shape[0], RING_SHARDS)[0]
     shard = X[lo:hi]
-    tc = _median_ms(lambda: gram_matvec.tier_operand(shard, "f32"), 5, 1)
-    steps = (RING_SHARDS - 1) // 2
-    copies = 1 + 2 * steps + 2 * (RING_SHARDS % 2 == 0)
-    total = RING_SHARDS * copies * tc
-    log("ring", f"{label}: operand copies per iteration {total:.3f} ms ({RING_SHARDS} shards "
-        f"x {copies} tier_operand of {tc:.3f} ms: symmetric 1, dual {2 * steps}, rows-only "
-        f"{2 * (RING_SHARDS % 2 == 0)}), {total / 1000 / iteration_s:.3%} of the iteration")
+    tc = _median_ms(lambda: gram_matvec.tier_operand(shard, precision), 5, 1)
+    once = RING_SHARDS * tc
+    per_it = RING_SHARDS * 2 * (RING_SHARDS % 2 == 0) * tc
+    log("ring", f"{label} {precision}: operand copies once per solve {once:.3f} ms "
+        f"({RING_SHARDS} shards x tier_operand of {tc:.3f} ms, for the symmetric product "
+        f"and the dual walks), per iteration {per_it:.3f} ms (the rows-only walk's two "
+        f"copies a shard), {per_it / 1000 / iteration_s:.3%} of the iteration")
 
 
 def _ring_dmma_copies(X, label):
@@ -3958,11 +4129,13 @@ def _ring_dmma_copies(X, label):
         + (f", {per_it:.3f} ms of copies per iteration" if copied else ""))
 
 
-def _ring_counts(kind, matmat, dtype):
+def _ring_counts(kind, matmat, dtype, precision="f32"):
     """(dual kernel's name, [symmetric, dual, rows-only launches], launches
-    on the tiles the dtype must not take, plain calls) since the last
-    reset: float32 Gram products on the tensor-core tiles; float64 ones on
-    the DMMA tiles (symmetric, dual, rect), none on the FFMA tiles."""
+    on the tiles the run must not take, plain calls) since the last reset:
+    float32 Gram products on the tensor-core tiles at the tier (at
+    "highest" three TF32 passes; J there on its matvec walk), none on the
+    FFMA tiles (K's included); float64 ones on the DMMA tiles (symmetric,
+    dual, rect), none on the FFMA tiles."""
     from plssvm_tpu_torch.ops import distance, gram_matmat, gram_matvec, matvec
 
     op = "matmat" if matmat else "matvec"
@@ -3977,7 +4150,11 @@ def _ring_counts(kind, matmat, dtype):
                 0, plain)
     module = gram_matmat if matmat else gram_matvec
     cores = [module.sym_tc_launches, module.dual_tc_launches, module.rect_tc_launches]
-    if dtype == np.float32:
+    if dtype == np.float32 and not matmat and precision not in ("f32", "bf16"):
+        # J at "highest": its matvec walk beside the split sym and rect tiles
+        counts = [module.sym_tc_launches, module.dual_launches, module.rect_tc_launches]
+        other = module.sym_launches + module.dual_tc_launches + module.rect_launches
+    elif dtype == np.float32:
         counts = cores
         other = module.sym_launches + module.dual_launches + module.rect_launches
     else:
@@ -3988,16 +4165,18 @@ def _ring_counts(kind, matmat, dtype):
     return f"gram_{op}_dual", counts, other, plain
 
 
-def _ring_run(cell, train, test, dtype, epsilon, devices, solver="cg_implicit"):
-    """Fit ``train`` to ``epsilon`` with ``solver`` and predict ``test`` of
-    a cell in ``dtype`` on ``devices`` (None: one device, cuda:0); the
-    counts of its launches from the fit on."""
+def _ring_run(cell, train, test, dtype, epsilon, devices, solver="cg_implicit",
+              precision="f32"):
+    """Fit ``train`` to ``epsilon`` with ``solver`` at the Gram tier
+    ``precision`` and predict ``test`` of a cell in ``dtype`` on
+    ``devices`` (None: one device, cuda:0); the counts of its launches from
+    the fit on."""
     import plssvm_tpu_torch as port
     from plssvm_tpu_torch.ops import distance, gram_matmat, gram_matvec, kernel_matrix
 
     where = dict(device="cuda") if devices is None else dict(devices=devices)
-    svm = port.CSVM(backend="cuda", dtype=dtype, cost=1.0, solver=solver, **where,
-                    **cell["params"])
+    svm = port.CSVM(backend="cuda", dtype=dtype, cost=1.0, solver=solver,
+                    gram_precision=precision, **where, **cell["params"])
     for module in (gram_matvec, gram_matmat, distance, kernel_matrix):
         module.reset_counts()
     port.global_tracker.clear()
@@ -4019,7 +4198,7 @@ def _ring_run(cell, train, test, dtype, epsilon, devices, solver="cg_implicit"):
         converged=_tracked("cg", "residuum") <= _tracked("cg", "target_residuum"),
         finite=bool(np.all(np.isfinite(model.alpha))),
         accuracy=float(np.mean(predicted == cell["labels"])),
-        counts=_ring_counts(kind, values.ndim == 2, dtype))
+        counts=_ring_counts(kind, values.ndim == 2, dtype, precision))
 
 
 def phase_ring(cells):
@@ -4029,8 +4208,11 @@ def phase_ring(cells):
     2's files: E, L, F; the 10 histogram classes at config 2's shape with
     chi-squared: G, M, H) in float32 (the default path: A-D, J and K on the
     tensor-core tiles at "f32") and in float64 (A-D, J and K on the DMMA
-    tiles, none on the FFMA tiles), each beside the same fit on one
-    device.  Gates, in both types: per
+    tiles, none on the FFMA tiles), and the two Gram cells also in float32
+    at ``gram_precision="highest"`` (A-D and K on the tensor-core tiles in
+    three TF32 passes over the split operands, J on its matvec walk, none
+    on K's FFMA tile), each beside the same fit on one device at the same
+    tier.  Gates, in every run: per
     shard and product one symmetric, one dual and (for even P) one
     rows-only launch and per shard one rectangular launch to predict,
     nothing on another tile or the plain versions, epsilon reached; float32
@@ -4038,33 +4220,39 @@ def phase_ring(cells):
     device >= 0.995 (as float32 against float64 elsewhere: the two float32
     solves round apart: 0.9975-1.0000 on an H100); float64 (epsilon 1e-10,
     both solves converged) label agreement >= 0.999, its decision values'
-    largest difference logged.  Each one-device run: one symmetric launch
+    largest difference logged; "highest" also its label agreement with the
+    float64 ring logged.  Each one-device run: one symmetric launch
     per product (float64 Gram ones on the DMMA tile), no dual walk, nothing
     on another tile or the plain versions.  Returns the launches per phase
     for the cost ranking: "ring" the float32 dual walks and the distance
     cells' symmetric and rows-only shard products, "ring-f64" the float64
     rings' symmetric, dual and rows-only launches of the fits (DMMA for the
     Gram cells, ``*_f64`` for the distance ones), "ring-one-f64" the
-    float64 one-device fits' symmetric launches.  The binary cell is made
-    here, the others come from phases 7-9."""
-    launches = {"ring": {}, "ring-f64": {}, "ring-one-f64": {}}
+    float64 one-device fits' symmetric launches, "ring-highest" the dual
+    walks of the "highest" rings (K on the split dual tile, J on its walk).
+    The binary cell is made here, the others come from phases 7-9."""
+    launches = {"ring": {}, "ring-f64": {}, "ring-one-f64": {}, "ring-highest": {}}
     devices = ["cuda:0"] * RING_SHARDS
     steps = (RING_SHARDS - 1) // 2
     for label, cell in {"config3-rbf": _config3_rbf_cell(), **cells}.items():
         kind = cell["params"]["kernel_type"]
-        for dtype in (np.float32, np.float64):
+        gram = kind not in ("laplacian", "chi_squared")
+        f64_predicted = None
+        runs = [(np.float32, "f32"), (np.float64, "f32")] + (
+            [(np.float32, "highest")] if gram else [])
+        for dtype, precision in runs:
             data = cell["make"](dtype)
             epsilon = cell["epsilon"] if dtype == np.float32 else RING_F64_EPSILON
-            _automatic("ring", f"{label} {kind} {np.dtype(dtype).name}", data[0].num_data_points,
+            type_name = np.dtype(dtype).name + (" highest" if precision == "highest" else "")
+            _automatic("ring", f"{label} {kind} {type_name}", data[0].num_data_points,
                        data[0].num_features, kind, data[0].num_different_labels, dtype,
-                       devices=devices)
-            one = _ring_run(cell, *data, dtype, epsilon, None)
-            ring = _ring_run(cell, *data, dtype, epsilon, devices)
+                       precision=precision, devices=devices)
+            one = _ring_run(cell, *data, dtype, epsilon, None, precision=precision)
+            ring = _ring_run(cell, *data, dtype, epsilon, devices, precision=precision)
             name, counts, other, plain = ring["counts"]
             products = 1 + ring["iterations"] + ring["iterations"] // 50
             agree = float(np.mean(ring["predicted"] == one["predicted"]))
             dvalue = float(np.max(np.abs(ring["values"] - one["values"])))
-            type_name = np.dtype(dtype).name
             log("ring", f"{label} {kind} {type_name}, {RING_SHARDS} shards on cuda:0: "
                 f"{ring['iterations']} CG iterations at {ring['s_per_it']:.6f} s/iteration "
                 f"(one device: {one['iterations']} at {one['s_per_it']:.6f}), reached epsilon "
@@ -4075,7 +4263,7 @@ def phase_ring(cells):
                 f"max|d f(x)| {dvalue:.3e}; launches sym / dual / rect {counts}, other tile "
                 f"{other}, plain calls {plain}")
             suffix = "" if dtype == np.float32 else "_f64"
-            if kind in ("laplacian", "chi_squared"):
+            if not gram:
                 # the fit's symmetric and rows-only shard products, without
                 # the predict's rectangular launches; the one-device fit's
                 sym, rect = name.replace("dual", "sym"), name.replace("dual", "rect")
@@ -4084,14 +4272,21 @@ def phase_ring(cells):
                 target[rect + suffix] = counts[2] - RING_SHARDS
                 if dtype == np.float64:
                     launches["ring-one-f64"][sym + suffix] = one["counts"][1][0]
-            if dtype == np.float32:
+            if precision == "highest":
+                launches["ring-highest"][name] = counts[1]
+                X = torch.as_tensor(np.asarray(data[0].data), device="cuda")
+                _ring_copy_ms(X, ring["s_per_it"], label, precision)
+                log("ring", f"{label} {kind} highest: label agreement with the float64 ring "
+                    f"{float(np.mean(ring['predicted'] == f64_predicted)):.4f}")
+            elif dtype == np.float32:
                 launches["ring"][name] = counts[1]
-                if kind not in ("laplacian", "chi_squared"):
+                if gram:
                     X = torch.as_tensor(np.asarray(data[0].data), device="cuda")
                     _ring_copy_ms(X, ring["s_per_it"], label)
             else:
+                f64_predicted = ring["predicted"]
                 launches["ring-f64"][f"{name}_f64"] = counts[1]
-                if kind not in ("laplacian", "chi_squared"):
+                if gram:
                     sym = name.replace("dual", "sym_dmma")
                     launches["ring-f64"][sym] = counts[0]
                     launches["ring-one-f64"][sym] = one["counts"][1][0]
@@ -5358,8 +5553,13 @@ def main(argv=None):
         for k, n in counts.items():
             if phase in ("bf16", "highest"):
                 launches[(k, TIER_OF[phase])] = n
-            else:
+            elif phase != "ring-highest":
                 launches.setdefault(k, n)
+    # the ring-highest cells' dual walks: K on the split dual tile, J on its
+    # matvec walk
+    launches[("gram_matmat_dual", "tf32x3")] = phase_launches["ring-highest"]["gram_matmat_dual"]
+    launches[("gram_matvec_dual", "highest")] = \
+        phase_launches["ring-highest"]["gram_matvec_dual"]
     for tc in ("gram_matvec_sym_tc", "gram_matmat_sym_tc", "gram_matvec_rect_tc",
                "gram_matmat_rect_tc", "gram_matvec_dual", "gram_matmat_dual"):
         launches[(tc, "tf32")] = launches[tc]
@@ -5382,7 +5582,9 @@ def main(argv=None):
 
     # the distance kernels report the kind their main path ran: laplacian
     # for E and F (phase 8), chi-squared for G and H (phases 9 and 10); the
-    # dual walks J-M the ring phase's launches, J and K at "f32" (TF32);
+    # dual walks J-M the ring phase's launches, J and K at "f32" (TF32),
+    # K on the split tile ("tf32x3") and J on its walk ("highest") the
+    # ring-highest cells';
     # kernel_matvec's launches are phase 12's, kernel I's phase 11's; the
     # FFMA tiles of A and B, on no wrapper's path (``on_path`` false), the
     # count of every main-path phase, 0, beside the float32 times that
@@ -5436,6 +5638,11 @@ def main(argv=None):
         "banded_matvec": ("banded.cu", "tools/exp_banded_distance.py:107"),
         ("gram_matvec_dual", "tf32"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:430"),
         ("gram_matmat_dual", "tf32"): ("gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:812"),
+        # the ring-highest cells: K on the split dual tile, J on its matvec
+        # walk
+        ("gram_matmat_dual", "tf32x3"): (
+            "gram_tc.cuh", "plssvm_tpu/ops/pallas_matvec.py:812"),
+        ("gram_matvec_dual", "highest"): ("dual.cu", "plssvm_tpu/ops/pallas_matvec.py:430"),
         ("distance_matvec_dual", "laplacian"): (
             "dual.cu", "plssvm_tpu/ops/pallas_distance.py:226"),
         ("distance_matmat_dual", "chi_squared"): (
@@ -5481,7 +5688,7 @@ def main(argv=None):
             "plain_ms": timing[k][1], "bound_ms": bounds[k][0],
             "bound_by": bounds[k][1], "library_ms": None,
             **({"tier": k[1]} if isinstance(k, tuple)
-               and k[1] in ("tf32", "bf16", "tf32x3", "f64")
+               and k[1] in ("tf32", "bf16", "tf32x3", "f64", "highest")
                else {"tier": tiers[k]} if k in tiers else {}),
             **({"on_path": False} if k in OFF_PATH else {}),
             # kernel N's and O's entries: the kind each was timed and

@@ -61,16 +61,22 @@
 // the class-major layout padded to 8, the resident column accumulator
 // (atomics replace it).
 //
-// Tiers: the Gram walks here serve J and K in float32 at "highest" (L and
+// Tiers: the Gram matvec walk here serves J in float32 at "highest" (L and
 // M serve every tier and both types).  On float32 data at "f32" (TF32) and
 // "bf16", J and K run on the dual tensor-core tile of gram_tc.cuh
 // (gram_tc_dual_kernel, instantiated here behind
 // plssvm_gram_matvec_dual_tc_* / plssvm_gram_matmat_dual_tc_*), which takes
 // the wrapper's operand copies of Xr and Xc (tier_operand) with the float32
-// operands' norms; every product of a ring solve stays at its one tier.  In
-// float64, at every tier, J and K run on the dual DMMA tile of
-// gram_dmma.cu, as the ring's symmetric products (kernels A and C) run on
-// its symmetric one, so the Gram walks here are compiled for float32 only.
+// operands' norms; at "highest" K runs on the same tile in three TF32
+// passes over the split stacks [hi; lo] of Xr and Xc
+// (plssvm_gram_matmat_dual_tc_tf32x3), as A-D do on theirs, and J keeps its
+// walk.  K's FFMA tile here (matmat_dual_kernel on the Gram product) is on
+// no wrapper's path since then: gram_matvec.gram_ffma launches it for the
+// card tests and chip_smoke.py's before-time.  Every product of a ring
+// solve stays at its one tier.  In float64, at every tier, J and K run on
+// the dual DMMA tile of gram_dmma.cu, as the ring's symmetric products
+// (kernels A and C) run on its symmetric one, so the Gram walks here are
+// compiled for float32 only.
 //
 // What bounds them: as kernels A-H, the pair operation on the CUDA cores,
 // mr * mc * d pair evaluations (all of them, where A and E evaluate half
@@ -922,14 +928,29 @@ extern "C" int plssvm_gram_matmat_dual_tc_bf16(
                              d_pad, C, kind, degree, gamma, coef0, stream);
 }
 
-// Blocks of the dual tensor-core tile an SM holds at once, for the tier
-// and kind, into *blocks; returns the query's cudaError_t.
-extern "C" int plssvm_gram_dual_tc_blocks_per_sm(int bf16, int kind,
+// Kernel K at "highest" on the dual tile in three TF32 passes: Xr and Xc the
+// split stacks (2, mr, d_pad) and (2, mc, d_pad) of tier_operand, the same
+// parameters as the TF32 entry.
+extern "C" int plssvm_gram_matmat_dual_tc_tf32x3(
+    const void* Xr, const void* Xc, const float* sq_r, const float* sq_c,
+    const float* Vc, const float* Vr, float* out_r, float* out_c,
+    int64_t mr, int64_t mc, int64_t d_pad, int64_t C, int kind, int degree,
+    float gamma, float coef0, void* stream) {
+    return tc_dual<Tf32x3Tier>(Xr, Xc, sq_r, sq_c, Vc, Vr, out_r, out_c, mr, mc,
+                               d_pad, C, kind, degree, gamma, coef0, stream);
+}
+
+// Blocks of the dual tensor-core tile an SM holds at once, for the tier (0
+// TF32, 1 bf16, 2 the split tier) and kind, into *blocks; returns the
+// query's cudaError_t.
+extern "C" int plssvm_gram_dual_tc_blocks_per_sm(int tier, int kind,
                                                  int* blocks) {
-    return tc_dispatch(bf16 != 0, kind, [&](auto tier, auto k) {
+    const auto query = [&](auto t, auto k) {
         return static_cast<int>(
-            tc_dual_blocks_per_sm<decltype(tier), decltype(k)::value>(*blocks));
-    });
+            tc_dual_blocks_per_sm<decltype(t), decltype(k)::value>(*blocks));
+    };
+    return tier == 2 ? tc_dispatch_kind<Tf32x3Tier>(kind, query)
+                     : tc_dispatch(tier == 1, kind, query);
 }
 
 // Blocks of the matvec walk (kernels J at "highest" and L) an SM holds at

@@ -1,6 +1,7 @@
 // The tensor-core Gram tiles of kernels A-D, J and K in the tiers "f32"
-// (TF32 operands) and "bf16" (bfloat16 operands), and of A-D in "highest"
-// (three TF32 passes over the split operand), f32 accumulation in all:
+// (TF32 operands) and "bf16" (bfloat16 operands), and of A-D and K in
+// "highest" (three TF32 passes over the split operand), f32 accumulation in
+// all:
 // the symmetric K(X, X) @ V for V (m, C) (kernels A and C, C = 1 for A), the
 // rectangular K(P, S) @ A for points P, support vectors S and A (n_s, C)
 // (kernels B and D, C = 1 for B), and the dual (K @ V_c, K^T @ V_r) of one
@@ -19,10 +20,11 @@
 // cross_dual in plssvm_tpu/parallel/sharded.py) on the dual tile.  At
 // "highest" the reference's dots are multi-pass f32 on the MXU
 // (lax.Precision.HIGHEST, "roughly 1/3 the MXU rate", pallas_matvec.py:40
-// and _dot_prec); here A-D take the same symmetric and rectangular tiles
-// with three TF32 passes (Tf32x3Tier, below), where the FFMA register
-// tiles of gram_tile.cuh stopped at the 67 TFLOP/s FP32 rate; J and K at
-// "highest" keep the FFMA walks of dual.cu.  In float64 A-D, J and K run
+// and _dot_prec); here A-D and K take the same symmetric, rectangular and
+// dual tiles with three TF32 passes (Tf32x3Tier, below), where the FFMA
+// register tiles of gram_tile.cuh and K's FFMA walk of dual.cu stopped at
+// the 67 TFLOP/s FP32 rate; J at "highest" keeps the matvec walk of
+// dual.cu.  In float64 A-D, J and K run
 // on the FP64 tensor cores (the DMMA tiles of gram_dmma.cu, which share
 // this file's TMA and mbarrier helpers and the grouped raster).
 //
@@ -94,12 +96,16 @@
 //   plus the butterfly for the columns a thread, and 128 column atomics
 //   that no run can merge (the columns change from tile to tile; the rows
 //   take one atomic per run).  What the design does about them: the same
-//   wgmma product and TMA ring as the other tiles, two blocks an SM so one
-//   block's epilogue overlaps the other's products, and the class sums in
-//   exact f32 FFMA as the TPU kernel's contractions (a second MMA for the
-//   class contraction is untried).  The sym and rect tiles' own code stays
-//   as it was: the dual kernel is built from the rect tile's pieces and a
-//   copy of the sym tile's butterfly (tc_col_sums).
+//   wgmma product and TMA ring as the other tiles, two blocks an SM at the
+//   one-pass tiers so one block's epilogue overlaps the other's products,
+//   and the class sums in exact f32 FFMA as the TPU kernel's contractions
+//   (a second MMA for the class contraction is untried).  At the split tier
+//   the dual tile takes the split stage of the sym and rect tiles (both
+//   parts of both boxes, three products a stage, one block an SM), which
+//   on an H100 beat 3 nk one-part boxes at two blocks an SM at the ring's
+//   15000^2 x 784 block with 10 classes (PERF.md).  The sym and rect tiles'
+//   own code stays as it was: the dual kernel is built from the rect tile's
+//   pieces and a copy of the sym tile's butterfly (tc_col_sums).
 //
 // Numerics: the wrapper hands the kernels a TF32-rounded copy of each
 // operand (round-to-nearest, ties away, as cvt.rna.tf32.f32; wgmma itself
@@ -904,6 +910,8 @@ struct TcDualShared {
 };
 static_assert(2 * (kTcSmemBytes + sizeof(TcDualShared) + 1024) <= 228 * 1024,
               "two dual blocks must fit an SM");
+static_assert(tc_smem_bytes<Tf32x3Tier>() + sizeof(TcDualShared) <= 227 * 1024,
+              "a split dual block must fit the shared memory a block may take");
 
 // One class's column sums of the kernel fragment, weighted by the V_r
 // values vr0 / vr1 of this thread's two rows: x[2 j + e] is this thread's
@@ -954,7 +962,7 @@ __device__ __forceinline__ void tc_col_sums(const float (&acc)[64], float vr0,
 // Xr and Xc arrive through rmap and cmap as the tier's operand copies (mr
 // and mc rows, the same padded feature axis), nk boxes of features per tile.
 template <typename Tier, int KIND>
-__global__ void __launch_bounds__(kTcThreads, 2)
+__global__ void __launch_bounds__(kTcThreads, Tier::kBlocksPerSm)
     gram_tc_dual_kernel(const __grid_constant__ CUtensorMap rmap,
                         const __grid_constant__ CUtensorMap cmap,
                         const float* __restrict__ sq_r,
@@ -989,15 +997,13 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     __syncthreads();
 
     // stage s <- box g of the run: feature box g % nk of the row tile and
-    // of column tile jt0 + g / nk
+    // of column tile jt0 + g / nk (at the split tier both parts of each)
+    constexpr int kStage = tc_stage_bytes<Tier>();
     auto load = [&](int g, int s) {
         const uint32_t bar = smem_address(&sh.full[s]);
-        const uint32_t dst = ring + s * kTcStageBytes;
-        const int feature = (g % nk) * Tier::kFeatures;
-        mbar_expect_tx(bar, kTcStageBytes);
-        tma_load(dst, &rmap, bar, feature, row0);
-        tma_load(dst + kTcOperandBytes, &cmap, bar, feature,
-                 (jt0 + g / nk) * kTcEdge);
+        mbar_expect_tx(bar, kStage);
+        tc_load_boxes<Tier>(ring + s * kStage, &rmap, &cmap, bar, g % nk, row0,
+                            (jt0 + g / nk) * kTcEdge);
     };
     if (tid == 0) {
         for (int s = 0; s < kTcStages && s < total; ++s) {
@@ -1299,11 +1305,11 @@ cudaError_t launch_tc_dual(const void* Xr, const void* Xc, const float* sq_r,
         return err;
     }
     auto kernel = gram_tc_dual_kernel<Tier, KIND>;
-    err = tc_allow_ring(kernel);
+    err = tc_allow_ring(kernel, tc_smem_bytes<Tier>());
     if (err != cudaSuccess) {
         return err;
     }
-    kernel<<<grid.blocks, kTcThreads, kTcSmemBytes, stream>>>(
+    kernel<<<grid.blocks, kTcThreads, tc_smem_bytes<Tier>(), stream>>>(
         grid.rmap, grid.cmap, sq_r, sq_c, Vc, Vr, out_r, out_c,
         static_cast<int>(mr), static_cast<int>(mc), static_cast<int>(C),
         grid.nk, grid.n_rt, grid.n_ct, grid.run, degree, gamma, coef0);
@@ -1311,16 +1317,17 @@ cudaError_t launch_tc_dual(const void* Xr, const void* Xc, const float* sq_r,
 }
 
 // How many blocks of the dual tile an SM holds at once (the tile is
-// designed for two).
+// designed for Tier::kBlocksPerSm: two at the one-pass tiers, one at the
+// split tier).
 template <typename Tier, int KIND>
 cudaError_t tc_dual_blocks_per_sm(int& blocks) {
     auto kernel = gram_tc_dual_kernel<Tier, KIND>;
-    cudaError_t err = tc_allow_ring(kernel);
+    cudaError_t err = tc_allow_ring(kernel, tc_smem_bytes<Tier>());
     if (err != cudaSuccess) {
         return err;
     }
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, kernel, kTcThreads, kTcSmemBytes);
+        &blocks, kernel, kTcThreads, tc_smem_bytes<Tier>());
 }
 
 // The entry points' dispatch: launch(Tier{}, kind constant) for the tier

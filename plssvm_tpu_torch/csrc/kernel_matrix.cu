@@ -31,9 +31,15 @@
 // (laplacian two FP32 instructions per pair and feature, chi-squared in
 // float one SFU reciprocal, in double 11 FP64 instructions), over half the
 // m^2 pairs; the m^2 stores (4.3 ms for 14.4 GB at 3.35 TB/s) are a few
-// percent of it at d = 784.  The transposed store writes 16 rows per warp
-// instruction; at this ratio of pair work to bytes that costs less than a
-// shared-memory transpose would in registers and barriers.
+// percent of it at d = 784, but at config 2's 9999 x 200 laplacian (two
+// FP32 instructions a pair and feature) the work per byte stored is about
+// 8x lower.  The tile's own store writes each of its rows of K as 16
+// consecutive entries a half warp; the transpose goes through shared
+// memory (store_tile_transposed: the staging buffer, free once the tile is
+// summed, holds 32 rows of the tile at a time), so that a warp writes 32
+// consecutive entries of one row of K, one 128-byte line in float, where
+// writing the registers transposed put 16 rows x 8 bytes, 16 sectors, in
+// one warp instruction.
 
 #include <cuda_bf16.h>
 
@@ -53,9 +59,8 @@ __device__ __forceinline__ void store_entry(Out* __restrict__ K, int64_t at,
     }
 }
 
-// K[r * ldk + c] = kv for the tile's rows r < mr and columns c < mc; with
-// kTransposed, K[c * ldk + r].
-template <bool kTransposed, typename T, typename Out, int BM>
+// K[r * ldk + c] = kv for the tile's rows r < mr and columns c < mc.
+template <typename T, typename Out, int BM>
 __device__ __forceinline__ void store_tile(
     const T (&kv)[BM / kThreads][BM / kThreads], Out* __restrict__ K,
     int64_t mr, int64_t mc, int64_t ldk, int64_t row0, int64_t col0) {
@@ -67,8 +72,52 @@ __device__ __forceinline__ void store_tile(
         for (int b = 0; b < R; ++b) {
             const int64_t c = col0 + threadIdx.x + kThreads * b;
             if (r < mr && c < mc) {
-                store_entry(K, kTransposed ? c * ldk + r : r * ldk + c,
-                            kv[a][b]);
+                store_entry(K, r * ldk + c, kv[a][b]);
+            }
+        }
+    }
+}
+
+// K[c * m + r] = kv for the tile's rows r < m and columns c < m (m x m
+// K): in slabs of 32 rows of the tile (two of a thread's row groups), each
+// staged row-major in the staging buffer (a row of BM + 1 values, so that a
+// warp reading one column of the slab hits 32 banks), then each warp
+// stores one column of the slab at a time, its lanes the slab's 32 rows:
+// 32 consecutive entries of row c of K.  The buffer's last readers
+// (gram_tile's last chunk, or the previous slab's stores) are done at the
+// barrier that opens each slab.
+template <typename T, typename Out, int BM>
+__device__ __forceinline__ void store_tile_transposed(
+    const T (&kv)[BM / kThreads][BM / kThreads], Staging<T, BM>& staging,
+    Out* __restrict__ K, int64_t m, int64_t row0, int64_t col0) {
+    constexpr int R = BM / kThreads;
+    constexpr int kSlab = 2 * kThreads;
+    constexpr int kLd = BM + 1;
+    constexpr int kWarps = kThreads * kThreads / 32;
+    static_assert(R % 2 == 0, "a slab is two of a thread's row groups");
+    static_assert(sizeof(T) * kSlab * kLd <= sizeof(Staging<T, BM>),
+                  "a slab fits the staging buffer");
+    T* slab = reinterpret_cast<T*>(&staging);
+    const int tid = threadIdx.y * kThreads + threadIdx.x;
+    const int lane = tid % 32;
+    const int warp = tid / 32;
+#pragma unroll
+    for (int a0 = 0; a0 < R; a0 += 2) {
+        __syncthreads();
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int b = 0; b < R; ++b) {
+                slab[(threadIdx.y + kThreads * h) * kLd + threadIdx.x +
+                     kThreads * b] = kv[a0 + h][b];
+            }
+        }
+        __syncthreads();
+        const int64_t r = row0 + kThreads * a0 + lane;
+        for (int c = warp; c < BM; c += kWarps) {
+            const int64_t gc = col0 + c;
+            if (r < m && gc < m) {
+                store_entry(K, gc * m + r, slab[lane * kLd + c]);
             }
         }
     }
@@ -91,9 +140,9 @@ __global__ void __launch_bounds__(kThreads * kThreads)
     gram_tile<T, BM, typename DistanceOp<KIND>::type>(X, X, m, m, d, row0,
                                                       col0, staging, kv);
     distance_kernel_tile<T, BM>(kv, m, m, row0, col0, gamma);
-    store_tile<false, T, Out, BM>(kv, K, m, m, m, row0, col0);
+    store_tile<T, Out, BM>(kv, K, m, m, m, row0, col0);
     if (jt > it) {  // uniform per block
-        store_tile<true, T, Out, BM>(kv, K, m, m, m, row0, col0);
+        store_tile_transposed<T, Out, BM>(kv, staging, K, m, row0, col0);
     }
 }
 
@@ -116,7 +165,7 @@ __global__ void __launch_bounds__(kThreads * kThreads)
     gram_tile<T, BM, typename DistanceOp<KIND>::type>(Xr, Xc, mr, mc, d, row0,
                                                       col0, staging, kv);
     distance_kernel_tile<T, BM>(kv, mr, mc, row0, col0, gamma);
-    store_tile<false, T, Out, BM>(kv, K, mr, mc, mc, row0, col0);
+    store_tile<T, Out, BM>(kv, K, mr, mc, mc, row0, col0);
 }
 
 // launch(std::integral_constant<int, KIND>) for the runtime kind.

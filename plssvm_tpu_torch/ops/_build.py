@@ -282,16 +282,18 @@ def load() -> ctypes.CDLL:
         ]
         for name in ("matvec_sym", "matmat_sym", "matvec_rect_tc", "matmat_rect_tc"):
             getattr(lib, f"plssvm_gram_{name}_{tier}").restype = cint
-    for tier in ("tf32", "bf16"):
+    for tier in ("tf32", "bf16", "tf32x3"):
         # kernels J and K: (Xr copy, Xc copy, sq_r, sq_c, v_c / V_c, v_r /
         # V_r, out_r, out_c, mr, mc, d_pad, [C,] kind, degree, gamma, coef0,
-        # stream)
-        getattr(lib, f"plssvm_gram_matvec_dual_tc_{tier}").argtypes = (
-            [ptr] * 8 + [i64] * 3 + [cint, cint, f32, f32, ptr])
-        getattr(lib, f"plssvm_gram_matmat_dual_tc_{tier}").argtypes = (
-            [ptr] * 8 + [i64] * 4 + [cint, cint, f32, f32, ptr])
-        for name in ("matvec_dual_tc", "matmat_dual_tc"):
-            getattr(lib, f"plssvm_gram_{name}_{tier}").restype = cint
+        # stream); at tf32x3 (the "highest" tier) K alone, on the split
+        # stacks (2, mr, d_pad) and (2, mc, d_pad)
+        names = ("matmat_dual_tc",) if tier == "tf32x3" else ("matvec_dual_tc",
+                                                               "matmat_dual_tc")
+        for name in names:
+            fn = getattr(lib, f"plssvm_gram_{name}_{tier}")
+            fn.argtypes = [ptr] * 8 + [i64] * (3 if name.startswith("matvec") else 4) + [
+                cint, cint, f32, f32, ptr]
+            fn.restype = cint
     # kernels A and C on the DMMA tile, float64: (X, sq, v / V, out, m,
     # d_pad, [C,] kind, degree, gamma, coef0, stream)
     lib.plssvm_gram_matvec_sym_dmma.argtypes = [ptr] * 4 + [i64] * 2 + [cint, cint, f64, f64, ptr]
@@ -316,7 +318,8 @@ def load() -> ctypes.CDLL:
                  "plssvm_gram_dmma_rect_blocks_per_sm"):
         getattr(lib, name).argtypes = [cint, ptr]
         getattr(lib, name).restype = cint
-    # (bf16, kind, int* blocks): the dual tensor-core tile's blocks per SM
+    # (tier: 0 TF32, 1 bf16, 2 the split tier; kind, int* blocks): the dual
+    # tensor-core tile's blocks per SM
     lib.plssvm_gram_dual_tc_blocks_per_sm.argtypes = [cint, cint, ptr]
     lib.plssvm_gram_dual_tc_blocks_per_sm.restype = cint
     # (f64, kind, int* blocks): the matvec walk's (J at "highest", L) blocks

@@ -9,16 +9,18 @@ one-vs-one predict — replace plssvm_tpu/ops/pallas_matvec.py
 csrc/gram_matmat.cu says how they are built and what bounds them.  Kernel
 K, :func:`gram_matmat_dual` — ``(K(Xr, Xc) @ V_c, K(Xr, Xc)^T @ V_r)``,
 the one-vs-all ring's off-diagonal block — is the same function's
-``symmetric=False`` dual output (csrc/dual.cu; at "f32" and "bf16" the
-dual tensor-core tile of csrc/gram_tc.cuh, in float64 the dual DMMA tile of
-csrc/gram_dmma.cu).
+``symmetric=False`` dual output (the dual tensor-core tile of
+csrc/gram_tc.cuh at every tier, "highest" in three TF32 passes over the
+split operands; in float64 the dual DMMA tile of csrc/gram_dmma.cu).
 
 As in ops/gram_matvec.py: ``precision`` is the Gram precision tier; on
 float32 CUDA tensors kernels C and D take the tensor-core tiles at every
 tier (csrc/gram_tc.cuh: the symmetric one for C, the rectangular one for
 D; "f32" TF32, "bf16", "highest" three TF32 passes over the split
-operand), K the dual one at "f32" and "bf16" and the FFMA walk of
-csrc/dual.cu at "highest"; in float64, at every tier, kernels C, D and K
+operand) and K the dual one at the same tiers (its FFMA tile of
+csrc/dual.cu is on no wrapper's path: ``gram_matvec.gram_ffma`` launches
+it for the card tests and chip_smoke.py); in float64, at every tier,
+kernels C, D and K
 run on the FP64 tensor cores (the symmetric, the rect and the dual DMMA
 tile of csrc/gram_dmma.cu).
 Each wrapper takes its plain PyTorch version (ops/matvec.py) at the same
@@ -28,9 +30,9 @@ in a plain module-level int (``sym_tc_launches``, ``rect_tc_launches`` for
 the tensor-core tiles, ``sym_dmma_launches`` and ``rect_dmma_launches``
 for kernels C and D on the DMMA tiles, ``dual_launches``,
 ``dual_tc_launches`` and ``dual_dmma_launches`` for kernel K on the FFMA,
-tensor-core and DMMA tiles; ``sym_launches`` and ``rect_launches`` count
-``gram_matvec.gram_ffma``'s launches of C and D's FFMA tiles, on no
-wrapper's path).  V, A and the output are row-major (rows, C) for any C
+tensor-core and DMMA tiles; ``sym_launches``, ``rect_launches`` and
+``dual_launches`` count ``gram_matvec.gram_ffma``'s launches of C, D and
+K's FFMA tiles, on no wrapper's path).  V, A and the output are row-major (rows, C) for any C
 >= 1.
 """
 
@@ -43,12 +45,9 @@ import torch
 from . import _build
 from . import matvec as _plain
 from .gram_matvec import (
-    ONE_PASS_TIERS,
     _check_gram_kind,
     _check_operands,
-    _raise_on_error,
     _require_cuda,
-    ffma_entry,
     launch_dual_dmma,
     launch_dual_tc,
     launch_rect_dmma,
@@ -56,7 +55,6 @@ from .gram_matvec import (
     launch_sym_dmma,
     launch_sym_tc,
     uses_dmma,
-    uses_tensor_cores,
 )
 from ..parameter import KernelFunctionType
 
@@ -72,8 +70,9 @@ rect_tc_launches = 0
 #: float64
 sym_dmma_launches = 0
 rect_dmma_launches = 0
-#: kernel K's launches (gram_matmat_dual) on the FFMA tile, on the
-#: tensor-core tile and, float64, on the DMMA tile
+#: kernel K's launches on the FFMA tile (gram_matvec.gram_ffma, on no
+#: wrapper's path), of gram_matmat_dual on the tensor-core tile ("f32",
+#: "bf16", "highest" as three TF32 passes) and, float64, on the DMMA tile
 dual_launches = 0
 dual_tc_launches = 0
 dual_dmma_launches = 0
@@ -211,13 +210,18 @@ def gram_matmat_dual(
     coef0: float,
     degree: int,
     precision: str = "f32",
+    operand=None,
 ):
     """``(K @ V_c, K.T @ V_r)`` with ``K = K(Xr, Xc)`` for a poly / RBF /
     sigmoid kernel (kernel K), one walk of the block.
 
     ``Xr`` (mr, d), ``Xc`` (mc, d), ``sq_r`` / ``sq_c`` their squared row
-    norms, ``V_c`` (mc, C), ``V_r`` (mr, C); ``precision`` the tier, as in
-    ``gram_matvec.gram_matvec_dual``.
+    norms, ``V_c`` (mc, C), ``V_r`` (mr, C); ``precision`` the tier: on
+    float32 CUDA tensors the dual tensor-core tile at every tier ("highest"
+    in three TF32 passes over the split stacks), on
+    ``gram_matvec.tier_operand``'s copies of Xr and Xc (``operand``, their
+    pair, made here when not given and ignored in float64); float64 CUDA
+    tensors the dual DMMA tile at every tier.
     """
     _check_gram_kind(kind)
     _plain.check_precision(precision)
@@ -247,21 +251,8 @@ def gram_matmat_dual(
         global dual_dmma_launches
         dual_dmma_launches += 1
         return out_r, out_c
-    if uses_tensor_cores(Xr, precision) and precision in ONE_PASS_TIERS:
-        launch_dual_tc(lib, "matmat", Xr, Xc, sq_r, sq_c, V_c, V_r, out_r, out_c,
-                       (C,), kind, gamma, coef0, degree, precision)
-        global dual_tc_launches
-        dual_tc_launches += 1
-        return out_r, out_c
-    fn = ffma_entry(lib, "matmat_dual", Xr.dtype)
-    with torch.cuda.device(Xr.device):
-        err = fn(
-            Xr.data_ptr(), Xc.data_ptr(), sq_r.data_ptr(), sq_c.data_ptr(),
-            V_c.data_ptr(), V_r.data_ptr(), out_r.data_ptr(), out_c.data_ptr(),
-            mr, mc, d, C, int(kind), int(degree), float(gamma), float(coef0),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on_error(lib, err, "gram_matmat_dual")
-    global dual_launches
-    dual_launches += 1
+    launch_dual_tc(lib, "matmat", Xr, Xc, sq_r, sq_c, V_c, V_r, out_r, out_c,
+                   (C,), kind, gamma, coef0, degree, precision, operand)
+    global dual_tc_launches
+    dual_tc_launches += 1
     return out_r, out_c

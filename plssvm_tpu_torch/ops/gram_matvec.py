@@ -11,9 +11,9 @@ the JAX package's thin wrapper that routes ``K(X, X) @ v`` to the same
 symmetric kernel; here it is one launch of kernel A.  Kernel J,
 :func:`gram_matvec_dual` — ``(K(Xr, Xc) @ v_c, K(Xr, Xc)^T @ v_r)``, the
 row-sharded ring's off-diagonal block (parallel/sharded.py) — replaces
-``kernel_matvec_pallas_dual`` with ``symmetric=False`` (csrc/dual.cu at
-"highest", the dual tensor-core tile of csrc/gram_tc.cuh at "f32" and
-"bf16", the dual DMMA tile of csrc/gram_dmma.cu in float64).
+``kernel_matvec_pallas_dual`` with ``symmetric=False`` (the matvec walk of
+csrc/dual.cu at "highest", the dual tensor-core tile of csrc/gram_tc.cuh
+at "f32" and "bf16", the dual DMMA tile of csrc/gram_dmma.cu in float64).
 
 ``precision`` is the Gram precision tier, as the reference's
 (``gram_precision``).  On float32 CUDA tensors kernels A and B run on the
@@ -23,7 +23,8 @@ bf16 operands, at "highest" in three TF32 passes over the split operand
 (hi hi^T + hi lo^T + lo hi^T, :func:`tier_operand`'s (2, rows, d_pad)
 stack of ``split_tf32``), f32 accumulation in all.  Kernel J takes the
 dual tensor-core tile at "f32" and "bf16" and the FFMA matvec walk of
-csrc/dual.cu at "highest".  float64 is full precision at every tier:
+csrc/dual.cu at "highest" (kernel K, ops/gram_matmat.py, takes the dual
+tile at every tier).  float64 is full precision at every tier:
 kernels A, B and J run on the FP64 tensor cores (the symmetric, the rect
 and the dual DMMA tile of csrc/gram_dmma.cu, :func:`uses_dmma`; an odd d,
 or a view that is not 16-byte aligned, takes :func:`dmma_operand`'s copy).
@@ -31,10 +32,12 @@ The tensor-core tiles take operand copies (:func:`tier_operand`:
 TF32-rounded, bf16 or the split stack, the feature axis padded to a
 16-byte row) of X, of P and S, or of Xr and Xc, which the wrapper makes
 per call unless the caller hands it X's (``operand``: the CG solve makes
-it once per solve); for kernel A at MNIST's width a TF32 copy takes under
-4 % of the kernel's time on an H100.  The FFMA register tiles of kernels A
-and B (csrc/gram_matvec.cu) are on no wrapper's path: :func:`gram_ffma`
-launches them for the card tests and chip_smoke.py.
+it once per solve) or the pair of Xr's and Xc's (``operand``: the ring
+makes each shard's once per solve); for kernel A at MNIST's width a TF32
+copy takes under 4 % of the kernel's time on an H100.  The FFMA register
+tiles of kernels A and B (csrc/gram_matvec.cu) and K's FFMA tile
+(csrc/dual.cu) are on no wrapper's path: :func:`gram_ffma` launches them
+for the card tests and chip_smoke.py.
 
 Each wrapper takes its plain PyTorch version (ops/matvec.py) at the same
 tier for tensors that lie on the CPU, and only then.  For a CUDA tensor it
@@ -88,8 +91,9 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 #: copy's type and the feature multiple of a 16-byte row
 _TC_TIERS = {"f32": ("tf32", torch.float32, 4), "bf16": ("bf16", torch.bfloat16, 8),
              "highest": ("tf32x3", torch.float32, 4)}
-#: the tiers of one tensor-core pass, which the dual tile (J, K) and kernel
-#: O's tensor-core walk take; at "highest" those keep their FFMA walks
+#: the tiers of one tensor-core pass, at which kernel J takes the dual tile
+#: and kernel O its tensor-core walk; at "highest" those keep their FFMA
+#: walks (kernel K takes the dual tile at every tier)
 ONE_PASS_TIERS = ("f32", "bf16")
 
 
@@ -154,8 +158,8 @@ def _check_tensors(named_tensors, shapes) -> str:
 
 
 def ffma_entry(lib, name: str, dtype: torch.dtype):
-    """The FFMA tile's entry point ``plssvm_gram_<name>_f32`` (the walks of
-    J and K at "highest"; kernels A-D through :func:`gram_ffma`), which the
+    """The FFMA tile's entry point ``plssvm_gram_<name>_f32`` (J's walk at
+    "highest"; kernels A-D and K through :func:`gram_ffma`), which the
     library holds for float32 only: float64 CUDA operands take the DMMA
     tiles (:func:`uses_dmma`), so any other type raises here."""
     if dtype != torch.float32:
@@ -178,9 +182,9 @@ def _require_cuda(t: torch.Tensor, name: str) -> None:
 
 
 def uses_tensor_cores(X: torch.Tensor, precision: str) -> bool:
-    """Whether kernels A-D take the tensor-core tiles for X at this tier:
-    float32 CUDA operands at every tier ("highest" as three TF32 passes).
-    J and K take the dual tile only at the :data:`ONE_PASS_TIERS`."""
+    """Whether kernels A-D and K take the tensor-core tiles for X at this
+    tier: float32 CUDA operands at every tier ("highest" as three TF32
+    passes).  J takes the dual tile only at the :data:`ONE_PASS_TIERS`."""
     return (X.device.type == "cuda" and X.dtype == torch.float32
             and precision in _TC_TIERS)
 
@@ -256,44 +260,50 @@ def _given_operand(operand, X: torch.Tensor, precision: str) -> torch.Tensor:
 
 
 def gram_ffma(op: str, operands, sq, weights, *, kind: KernelFunctionType,
-              gamma: float, coef0: float, degree: int) -> torch.Tensor:
-    """Kernels A-D on their FFMA register tiles (csrc/gram_matvec.cu,
-    gram_matmat.cu), full float32, which no wrapper launches since
+              gamma: float, coef0: float, degree: int):
+    """Kernels A-D and K on their FFMA register tiles (csrc/gram_matvec.cu,
+    gram_matmat.cu, dual.cu), full float32, which no wrapper launches since
     "highest" runs on the tensor cores: ``op`` "matvec_sym" (A),
-    "matmat_sym" (C), "matvec_rect" (B) or "matmat_rect" (D); ``operands``
-    (X,) or (P, S), float32 CUDA; ``sq`` their squared norms, a tuple of as
-    many; ``weights`` v, V, a or A.  For the card tests and chip_smoke.py's
-    before-and-after timing.  Counts its launches in ``sym_launches`` /
-    ``rect_launches`` of this module ("matvec") or of gram_matmat
+    "matmat_sym" (C), "matvec_rect" (B), "matmat_rect" (D) or
+    "matmat_dual" (K); ``operands`` (X,), (P, S) or (Xr, Xc), float32
+    CUDA; ``sq`` their squared norms, a tuple of as many; ``weights`` v, V,
+    a or A, or for K the pair (V_c, V_r), whose outputs (out_r, out_c) it
+    returns.  For the card tests and chip_smoke.py's before-and-after
+    timing.  Counts its launches in ``sym_launches`` / ``rect_launches`` /
+    ``dual_launches`` of this module ("matvec") or of gram_matmat
     ("matmat")."""
     from . import gram_matmat
 
     _check_gram_kind(kind)
     rows, d = operands[0].shape
     cols = operands[-1].shape[0]
-    classes = () if weights.ndim == 1 else (weights.shape[1],)
-    rect = op.endswith("rect")
-    named = ([("P", operands[0]), ("S", operands[1])] if rect else [("X", operands[0])]) + [
-        (f"sq{i}", t) for i, t in enumerate(sq)] + [("weights", weights)]
-    shapes = ([(rows, d), (cols, d)] if rect else [(rows, d)]) + [
-        (t.shape[0],) for t in operands] + [(cols,) + classes]
+    dual = op.endswith("dual")
+    weights = tuple(weights) if dual else (weights,)
+    classes = () if weights[0].ndim == 1 else (weights[0].shape[1],)
+    two = op.endswith(("rect", "dual"))
+    named = ([("P", operands[0]), ("S", operands[1])] if two else [("X", operands[0])]) + [
+        (f"sq{i}", t) for i, t in enumerate(sq)] + [
+        (f"weights{i}", t) for i, t in enumerate(weights)]
+    shapes = ([(rows, d), (cols, d)] if two else [(rows, d)]) + [
+        (t.shape[0],) for t in operands] + [(cols,) + classes, (rows,) + classes][:len(weights)]
     _require_cuda(operands[0], f"gram_{op}")
     _check_operands(kind, named, shapes)
-    out = torch.zeros((rows,) + classes, dtype=weights.dtype, device=weights.device)
+    outs = tuple(torch.zeros((n,) + classes, dtype=weights[0].dtype, device=weights[0].device)
+                 for n in ((rows, cols) if dual else (rows,)))
     lib = _build.load()
     fn = ffma_entry(lib, op, operands[0].dtype)
     with torch.cuda.device(operands[0].device):
         err = fn(
             *(t.data_ptr() for t in operands), *(t.data_ptr() for t in sq),
-            weights.data_ptr(), out.data_ptr(), *(t.shape[0] for t in operands), d,
-            *classes, int(kind), int(degree), float(gamma), float(coef0),
-            torch.cuda.current_stream().cuda_stream,
+            *(t.data_ptr() for t in weights), *(t.data_ptr() for t in outs),
+            *(t.shape[0] for t in operands), d, *classes, int(kind), int(degree),
+            float(gamma), float(coef0), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on_error(lib, err, f"gram_{op} (FFMA tile)")
     module = sys.modules[__name__] if op.startswith("matvec") else gram_matmat
-    counter = "rect_launches" if rect else "sym_launches"
+    counter = "dual_launches" if dual else "rect_launches" if two else "sym_launches"
     setattr(module, counter, getattr(module, counter) + 1)
-    return out
+    return outs if dual else outs[0]
 
 
 def gram_matvec_sym(
@@ -491,6 +501,7 @@ def gram_matvec_dual(
     coef0: float,
     degree: int,
     precision: str = "f32",
+    operand=None,
 ):
     """``(K @ v_c, K.T @ v_r)`` with ``K = K(Xr, Xc)`` for a poly / RBF /
     sigmoid kernel (kernel J), one walk of the block.
@@ -502,7 +513,10 @@ def gram_matvec_dual(
     given norms, "highest" the FFMA matvec walk of ``csrc/dual.cu`` (kernel
     L's persistent walk with the Gram product, on Xr and Xc as they are);
     float64 CUDA tensors the dual DMMA tile at every tier, on
-    :func:`dmma_operand`'s operands.
+    :func:`dmma_operand`'s operands.  ``operand`` the pair of the
+    tensor-core tile's copies of Xr and Xc (:func:`tier_operand` at this
+    tier), made here when not given and ignored where J takes no
+    tensor-core tile.
     """
     _check_gram_kind(kind)
     _plain.check_precision(precision)
@@ -533,7 +547,7 @@ def gram_matvec_dual(
         return out_r, out_c
     if uses_tensor_cores(Xr, precision) and precision in ONE_PASS_TIERS:
         launch_dual_tc(lib, "matvec", Xr, Xc, sq_r, sq_c, v_c, v_r, out_r, out_c,
-                       (), kind, gamma, coef0, degree, precision)
+                       (), kind, gamma, coef0, degree, precision, operand)
         global dual_tc_launches
         dual_tc_launches += 1
         return out_r, out_c
@@ -552,22 +566,25 @@ def gram_matvec_dual(
 
 
 def launch_dual_tc(lib, op, Xr, Xc, sq_r, sq_c, w_c, w_r, out_r, out_c, classes,
-                   kind, gamma, coef0, degree, precision) -> None:
+                   kind, gamma, coef0, degree, precision, operand=None) -> None:
     """Launch kernel J (``op`` "matvec", ``classes`` ()) or K ("matmat",
     ``classes`` (C,)) on the dual tensor-core tile: the tier's operand
-    copies of Xr and Xc, the float32 norms.  Raises on a failed launch;
-    counts nothing."""
-    Xr_op, Xc_op = tier_operand(Xr, precision), tier_operand(Xc, precision)
+    copies of Xr and Xc (the pair ``operand``, or made here; "highest"
+    their split stacks, K only), the float32 norms.  Raises on a failed
+    launch; counts nothing."""
+    given = (None, None) if operand is None else operand
+    Xr_op = _given_operand(given[0], Xr, precision)
+    Xc_op = _given_operand(given[1], Xc, precision)
     fn = getattr(lib, f"plssvm_gram_{op}_dual_tc_{_TC_TIERS[precision][0]}")
     with torch.cuda.device(Xr.device):
         err = fn(
             Xr_op.data_ptr(), Xc_op.data_ptr(), sq_r.data_ptr(), sq_c.data_ptr(),
             w_c.data_ptr(), w_r.data_ptr(), out_r.data_ptr(), out_c.data_ptr(),
-            Xr.shape[0], Xc.shape[0], Xr_op.shape[1], *classes, int(kind),
+            Xr.shape[0], Xc.shape[0], Xr_op.shape[-1], *classes, int(kind),
             int(degree), float(gamma), float(coef0),
             torch.cuda.current_stream().cuda_stream,
         )
-    _raise_on_error(lib, err, f"gram_{op}_dual (tensor cores)")
+    _raise_on_error(lib, err, f"gram_{op}_dual (tensor cores, {precision})")
 
 
 def launch_dual_dmma(lib, op, Xr, Xc, sq_r, sq_c, w_c, w_r, out_r, out_c, classes,

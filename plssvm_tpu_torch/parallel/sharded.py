@@ -15,7 +15,11 @@ machine, one shard per card on a machine with several.
   kernel (A / C / E / G), ``floor((P - 1) / 2)`` dual steps, and for even P
   one rows-only step (B / D / F / H) for the antipodal pair.  The
   reference's ``ppermute`` rotation of ``(X_q, sq_q, v_q)`` is a copy to the
-  receiving shard's device, a no-op when the shards share one.
+  receiving shard's device, a no-op when the shards share one.  Where the
+  shards take a tensor-core tile (float32 CUDA Gram products), each shard's
+  operand copy (``tier_operand``: TF32, bf16 or the split stack) is made
+  once per solve and handed to its symmetric product and to the dual walks
+  it takes part in, as the one-device solve hands its copy to A and C.
 - **The linear kernel** takes the factored ``X_p (sum_q X_q^T v_q)``
   (:func:`linear_sharded_matvec`), as the JAX package left it to XLA.
 - **The solvers** (:func:`solve_ls_svm_sharded`,
@@ -61,6 +65,7 @@ from ..ops import distance as _distance
 from ..ops import gram_matmat as _gram_matmat
 from ..ops import gram_matvec as _gram_matvec
 from ..ops import matvec as _plain
+from ..ops.gram_matvec import tier_operand, uses_tensor_cores
 from ..ops.predict import predict_values
 from ..parameter import KernelFunctionType
 from ..solver.cg import (
@@ -123,10 +128,12 @@ def _symmetric_ring(own, cross_dual, cross_rows, devices) -> List[torch.Tensor]:
 def _block_products(kind, degree, gamma, coef0, impl, precision, matmat):
     """``(own, dual, rows)`` of one shard's blocks, with uniform signatures:
     ``own(X, sq, v) = K(X, X) @ v``; ``dual(Xr, Xc, sq_r, sq_c, v_c, v_r) =
-    (K v_c, K^T v_r)``; ``rows(Xr, Xc, sq_r, sq_c, v_c) = K v_c`` for ``K =
-    K(Xr, Xc)``.  ``impl="cuda"`` the kernels (their plain versions on CPU
-    tensors) at the tier, ``"torch"`` the plain versions at full precision;
-    distance kernels ignore the norms."""
+    (K v_c, K^T v_r)`` (both with an ``operand`` keyword, the tensor-core
+    tiles' copies, which the distance kernels and plain versions ignore);
+    ``rows(Xr, Xc, sq_r, sq_c, v_c) = K v_c`` for ``K = K(Xr, Xc)``.
+    ``impl="cuda"`` the kernels (their plain versions on CPU tensors) at
+    the tier, ``"torch"`` the plain versions at full precision; distance
+    kernels ignore the norms."""
     cuda = impl == "cuda"
     if kind in DISTANCE_KERNELS:
         if matmat:
@@ -142,8 +149,9 @@ def _block_products(kind, degree, gamma, coef0, impl, precision, matmat):
         own_fn, dual_fn, rows_fn = fns
         kw = dict(kind=kind, gamma=gamma)
         return (
-            lambda X, sq, v: own_fn(X, v, **kw),
-            lambda Xr, Xc, sq_r, sq_c, v_c, v_r: dual_fn(Xr, Xc, v_c, v_r, **kw),
+            lambda X, sq, v, operand=None: own_fn(X, v, **kw),
+            lambda Xr, Xc, sq_r, sq_c, v_c, v_r, operand=None: dual_fn(Xr, Xc, v_c, v_r,
+                                                                       **kw),
             lambda Xr, Xc, sq_r, sq_c, v_c: rows_fn(Xr, Xc, v_c, **kw),
         )
     if matmat:
@@ -159,9 +167,14 @@ def _block_products(kind, degree, gamma, coef0, impl, precision, matmat):
     own_fn, dual_fn, rows_fn = fns
     kw = dict(kind=kind, gamma=gamma, coef0=coef0, degree=degree,
               precision=precision if cuda else "f32")
+
+    def given(operand):
+        """The operand keyword, for the kernels' wrappers only."""
+        return {} if operand is None else {"operand": operand}
+
     return (
-        lambda X, sq, v: own_fn(X, sq, v, **kw),
-        lambda *args: dual_fn(*args, **kw),
+        lambda X, sq, v, operand=None: own_fn(X, sq, v, **kw, **given(operand)),
+        lambda *args, operand=None: dual_fn(*args, **kw, **given(operand)),
         lambda *args: rows_fn(*args, **kw),
     )
 
@@ -177,6 +190,7 @@ def ring_kernel_matvec(
     degree: int,
     impl: str = "cuda",
     precision: str = "f32",
+    operands: Optional[Sequence[torch.Tensor]] = None,
 ) -> List[torch.Tensor]:
     """Every shard's rows of ``K @ v``: ``out_p = sum_q K(X_p, X_q) @ v_q``
     through the symmetric ring, each on its shard's device.
@@ -186,7 +200,9 @@ def ring_kernel_matvec(
     for the one-vs-all block CG, (m_p, C).  ``impl="cuda"`` takes kernels
     A, J and B (C, K and D for (m_p, C); E, L and F or G, M and H for a
     distance kernel) at the Gram tier ``precision``; ``"torch"`` the plain
-    versions.
+    versions.  ``operands`` the shards' tensor-core operand copies
+    (:func:`shard_operands`), handed to the symmetric products and the dual
+    walks; None makes them per call where a tile takes them.
     """
     devices = [X.device for X in X_shards]
     if sq_shards is None:
@@ -200,16 +216,24 @@ def ring_kernel_matvec(
         return (X_shards[q].to(dev), None if sq is None else sq.to(dev),
                 v_shards[q].to(dev))
 
+    def operand(p, q=None):
+        """Shard p's operand copy, or with q the pair of shard p's and of
+        shard q's as shard p receives it."""
+        if operands is None:
+            return None
+        return operands[p] if q is None else (operands[p], operands[q].to(devices[p]))
+
     def cross_dual(p, q):
         Xc, sq_c, v_c = received(q, p)
-        return dual(X_shards[p], Xc, sq_shards[p], sq_c, v_c, v_shards[p])
+        return dual(X_shards[p], Xc, sq_shards[p], sq_c, v_c, v_shards[p],
+                    operand=operand(p, q))
 
     def cross_rows(p, q):
         Xc, sq_c, v_c = received(q, p)
         return rows(X_shards[p], Xc, sq_shards[p], sq_c, v_c)
 
     return _symmetric_ring(
-        lambda p: own(X_shards[p], sq_shards[p], v_shards[p]),
+        lambda p: own(X_shards[p], sq_shards[p], v_shards[p], operand=operand(p)),
         cross_dual, cross_rows, devices,
     )
 
@@ -232,15 +256,27 @@ def linear_sharded_matvec(
     return [X @ xtv.to(X.device) for X in X_shards]
 
 
+def shard_operands(X_shards, kind, impl, precision) -> Optional[List[torch.Tensor]]:
+    """Each shard's operand copy for the tensor-core tiles at the tier
+    (``tier_operand``), where the ring's Gram products take them (float32
+    CUDA shards, ``impl="cuda"``); else None."""
+    if (impl != "cuda" or kind in DISTANCE_KERNELS or kind == KernelFunctionType.LINEAR
+            or not uses_tensor_cores(X_shards[0], precision)):
+        return None
+    return [tier_operand(Xs, precision) for Xs in X_shards]
+
+
 def _sharded_product(X, bounds, devices, kind, degree, impl, precision) -> Callable:
     """The cores' ``kernel_mv`` / ``kernel_mm`` over the row shards of X:
     the right-hand side, whole on X's device, is split into its shards, the
     ring (or the factored linear product) runs, and the shards' rows come
-    back whole.  X is placed once, the shards' squared norms computed
-    once."""
+    back whole.  X is placed once, the shards' squared norms and their
+    tensor-core operand copies (:func:`shard_operands`) made once: once per
+    solve, not once per product."""
     X_shards = shard_rows(X, bounds, devices)
     sq_shards = (None if kind in DISTANCE_KERNELS or kind == KernelFunctionType.LINEAR
                  else [torch.sum(Xs * Xs, dim=-1) for Xs in X_shards])
+    operands = shard_operands(X_shards, kind, impl, precision)
 
     def product(_X, _sq_norms, v, gamma, coef0):
         v_shards = shard_rows(v, bounds, devices)
@@ -249,7 +285,7 @@ def _sharded_product(X, bounds, devices, kind, degree, impl, precision) -> Calla
         else:
             outs = ring_kernel_matvec(X_shards, sq_shards, v_shards, gamma, coef0,
                                       kind=kind, degree=degree, impl=impl,
-                                      precision=precision)
+                                      precision=precision, operands=operands)
         return torch.cat([out.to(v.device) for out in outs])
 
     return product

@@ -2,9 +2,10 @@
 ``python -m plssvm_tpu_torch.tools.<name>``: ``exp_banded_distance`` (kernel
 I), ``bench_matvec`` (the kernel matvecs side by side),
 ``bench_gram_f64`` (kernels A and C, or J and K, in float64 on the DMMA
-tiles, one checkout's tiles at a time), ``bench_highest`` (kernels A-D at
-"highest" on the tensor cores beside their FFMA tiles, one checkout's
-tiles at a time) and ``bench_explicit`` (the
+tiles, one checkout's tiles at a time), ``bench_highest`` (kernels A-D and
+K at "highest" on the tensor cores beside their FFMA tiles, one
+checkout's tiles at a time), ``bench_kernel_matrix`` (kernel N's
+symmetric walk, one checkout at a time) and ``bench_explicit`` (the
 explicit solver's build and product beside the implicit product: the Gram
 crossover of ``solver="automatic"``)."""
 

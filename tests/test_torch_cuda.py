@@ -25,12 +25,16 @@ one-block tile, the bits they gave before the split tier was added
 (``ONE_PASS_DIGESTS``).
 The chi-squared kernels are also held per entry of K
 (``test_chi_squared_per_entry``).  Kernels J-M (the ring's dual walks,
-csrc/dual.cu; J and K at "f32" and "bf16" on the dual tensor-core tile of
-csrc/gram_tc.cuh and in float64 on the dual DMMA tile of csrc/gram_dmma.cu)
-are held, both outputs, against their plain versions on
-the tier's operands at the same tolerances, and the row-sharded ring on
-one card (P = 3 and 4 shards on ``cuda:0``) against the single-device
-product at the same tier.  Kernel O (the batched one-vs-one product:
+csrc/dual.cu; J and K at "f32" and "bf16", and K at "highest" in three
+TF32 passes, on the dual tensor-core tile of csrc/gram_tc.cuh and in
+float64 on the dual DMMA tile of csrc/gram_dmma.cu) are held, both
+outputs, against their plain versions on the tier's operands at the same
+tolerances (K at "highest" also at the ring's block shapes), J and K at
+"f32" / "bf16" to the bits they gave before the split tier
+(``DUAL_ONE_PASS_DIGESTS``), and the row-sharded ring on one card (P = 3
+and 4 shards on ``cuda:0``) against the single-device product at the same
+tier.  Kernel N's symmetric walk is held to its rect walk of X against
+itself, bit for bit.  Kernel O (the batched one-vs-one product:
 csrc/pairs_tc.cu's tensor-core walks for the Gram kinds at "f32" / "bf16"
 and in float64, csrc/pairs.cu's FFMA triangle walk else) is held against
 its plain version on the tier's operands at the same tolerances, and each
@@ -777,6 +781,75 @@ def test_one_pass_tiers_give_the_bits_they_gave_before(cuda_device):
     assert first == ONE_PASS_DIGESTS
 
 
+#: one-block dual tiles (mr, mc <= 128: one atomic per output entry and
+#: class, so the bits are the kernel's own): (mr, mc, d, classes)
+DUAL_ONE_BLOCK_SHAPES = [(128, 100, 203, None), (100, 77, 37, 3), (77, 128, 512, 10)]
+#: the first 16 hex digits of the sha256 of kernel J's / K's two outputs on
+#: the dual tensor-core tile at "f32" and "bf16" on DUAL_ONE_BLOCK_SHAPES
+#: (``_dual_one_pass_outputs``), as the tile gave them before the split
+#: tier shared its code, recorded on an NVIDIA H100 80GB HBM3 from the tree
+#: before it
+DUAL_ONE_PASS_DIGESTS = {
+    "f32 polynomial 128x100x203 C=None": "ba79e753d2d6ac70",
+    "f32 polynomial 100x77x37 C=3": "14e1eaf0e05632d1",
+    "f32 polynomial 77x128x512 C=10": "687e8179ae94267f",
+    "f32 rbf 128x100x203 C=None": "7fb67b522ff9aac5",
+    "f32 rbf 100x77x37 C=3": "fef2247a671744cc",
+    "f32 rbf 77x128x512 C=10": "8ad7b6033a3b8718",
+    "f32 sigmoid 128x100x203 C=None": "c37155274862698c",
+    "f32 sigmoid 100x77x37 C=3": "ebce8570c735f7a5",
+    "f32 sigmoid 77x128x512 C=10": "b413001e6652559e",
+    "bf16 polynomial 128x100x203 C=None": "eb79d642dfcd69b6",
+    "bf16 polynomial 100x77x37 C=3": "1d588f906847530b",
+    "bf16 polynomial 77x128x512 C=10": "237b4f37ab9d14ea",
+    "bf16 rbf 128x100x203 C=None": "70cc26fc8f3be219",
+    "bf16 rbf 100x77x37 C=3": "6176cf62ccc03e9f",
+    "bf16 rbf 77x128x512 C=10": "43883aa76f2c1605",
+    "bf16 sigmoid 128x100x203 C=None": "b11512b229b78052",
+    "bf16 sigmoid 100x77x37 C=3": "263510f9952e6e38",
+    "bf16 sigmoid 77x128x512 C=10": "8aee921308182072",
+}
+
+
+def _dual_one_pass_outputs(device):
+    """{(tier, kind, mr x mc x d, classes): sha256 prefix} of kernels J and
+    K on the dual tile at "f32" and "bf16" on seeded DUAL_ONE_BLOCK_SHAPES
+    operands (norms computed on the host), both outputs."""
+    import hashlib
+
+    out = {}
+    for tier in ("f32", "bf16"):
+        for name in COEF0:
+            g = torch.Generator().manual_seed(61)
+            for mr, mc, d, classes in DUAL_ONE_BLOCK_SHAPES:
+                Xr = (torch.randn(mr, d, generator=g, dtype=torch.float64) * 0.3).float()
+                Xc = (torch.randn(mc, d, generator=g, dtype=torch.float64) * 0.3).float()
+                tail = () if classes is None else (classes,)
+                V_c = torch.randn(mc, *tail, generator=g, dtype=torch.float64).float()
+                V_r = torch.randn(mr, *tail, generator=g, dtype=torch.float64).float()
+                sq_r, sq_c = (Xr * Xr).sum(-1), (Xc * Xc).sum(-1)
+                args = [t.to(device) for t in (Xr, Xc, sq_r, sq_c, V_c, V_r)]
+                kw = dict(kind=getattr(TKind, name.upper()), gamma=1.0 / d,
+                          coef0=COEF0[name], degree=3, precision=tier)
+                fn = (gram_matvec.gram_matvec_dual if classes is None
+                      else gram_matmat.gram_matmat_dual)
+                out_r, out_c = fn(*args, **kw)
+                digest = hashlib.sha256(out_r.cpu().numpy().tobytes()
+                                        + out_c.cpu().numpy().tobytes())
+                out[f"{tier} {name} {mr}x{mc}x{d} C={classes}"] = digest.hexdigest()[:16]
+    return out
+
+
+@pytest.mark.cuda
+def test_dual_one_pass_tiers_give_the_bits_they_gave_before(cuda_device):
+    """J and K at "f32" and "bf16" on the dual tile, which shares its code
+    with K's split tier, give the bits they gave before it, on one-block
+    tiles (twice, so the bits are the kernel's own)."""
+    first = _dual_one_pass_outputs(cuda_device)
+    assert _dual_one_pass_outputs(cuda_device) == first
+    assert first == DUAL_ONE_PASS_DIGESTS
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_classes", [None, 3])
 def test_split_tile_with_a_zero_lo_is_the_tf32_tile(cuda_device, n_classes):
@@ -895,8 +968,10 @@ def test_gram_dual_against_plain(cuda_device, mr, mc, d, n_classes, name, precis
     """Kernels J (v (m,)) and K (V (m, C)) on ragged mr != mc blocks, both
     outputs, against the plain version on the tier's operands; one launch,
     on the dual tensor-core tile (dual_tc_launches) at "f32" and "bf16" on
-    float32, on the FFMA tile (dual_launches) at "highest" on float32, on
-    the dual DMMA tile (dual_dmma_launches) in float64."""
+    float32 and for K at "highest" too (three TF32 passes, against the
+    full-float32 plain version), J at "highest" on its matvec walk
+    (dual_launches), on the dual DMMA tile (dual_dmma_launches) in
+    float64."""
     Xr, Xc, v_c, v_r = _dual_case(mr, mc, d, n_classes, dtype, 52, cuda_device)
     sq_r, sq_c = (Xr * Xr).sum(-1), (Xc * Xc).sum(-1)
     kw = dict(kind=getattr(TKind, name.upper()), gamma=1.0 / d, coef0=COEF0[name],
@@ -906,7 +981,7 @@ def test_gram_dual_against_plain(cuda_device, mr, mc, d, n_classes, name, precis
     kernel = gram_matvec.gram_matvec_dual if n_classes is None else gram_matmat.gram_matmat_dual
     before = module.dual_launches, module.dual_tc_launches, module.dual_dmma_launches
     got = kernel(Xr, Xc, sq_r, sq_c, v_c, v_r, **kw)
-    tc = precision != "highest" and dtype == torch.float32
+    tc = (precision != "highest" or n_classes is not None) and dtype == torch.float32
     dmma = dtype == torch.float64
     assert (module.dual_launches, module.dual_tc_launches, module.dual_dmma_launches) == (
         before[0] + (not tc and not dmma), before[1] + tc, before[2] + dmma)
@@ -1004,16 +1079,19 @@ def test_dual_wrappers_check_operands(cuda_device):
     ("laplacian", None, "highest", torch.float64), ("chi_squared", 10, "highest", torch.float64),
     ("rbf", None, "f32", torch.float32), ("sigmoid", 3, "f32", torch.float32),
     ("polynomial", 10, "bf16", torch.float32),
+    ("rbf", None, "highest", torch.float32), ("rbf", 10, "highest", torch.float32),
 ])
 def test_ring_on_one_card(cuda_device, P, name, n_classes, precision, dtype):
     """The symmetric ring over P shards on cuda:0 against the single-device
     product at the same tier, and its launches: per shard one symmetric
     launch, floor((P - 1) / 2) dual and, for even P, one rows-only launch,
     in float64 the symmetric, dual and rows-only ones on the DMMA tiles
-    (Gram kinds), in float32 at "f32" and "bf16"
-    on the tensor-core tiles (sym_tc, dual_tc, rect_tc), none on another
-    tile.  Float64 within 1e-10 of max|single|, float32 within 1e-4 (the
-    same tier's products summed in another order)."""
+    (Gram kinds), in float32 on the tensor-core tiles (sym_tc, dual_tc,
+    rect_tc; at "highest" three TF32 passes, but J on its matvec walk,
+    dual_launches), none on another tile (K's FFMA tile included).
+    Float64 within 1e-10 of max|single|, float32 within 1e-4 (the same
+    tier's products summed in another order; J's walk at "highest" in full
+    float32)."""
     from plssvm_tpu_torch.parallel import sharded
 
     distance_kind = name in ("laplacian", "chi_squared")
@@ -1046,6 +1124,9 @@ def test_ring_on_one_card(cuda_device, P, name, n_classes, precision, dtype):
         (sym, dual, rect), other = ((cores, tiles) if dtype == torch.float32 else
                                     (("sym_dmma_launches", "dual_dmma_launches",
                                       "rect_dmma_launches"), tiles + cores))
+        if dtype == torch.float32 and precision == "highest" and n_classes is None:
+            dual, other = "dual_launches", ("sym_launches", "dual_tc_launches",
+                                            "rect_launches")
         assert sum(getattr(module, c) for c in other) == 0
     got = torch.cat(outs)
     tol = 1e-4 if dtype == torch.float32 else 1e-10
@@ -1056,7 +1137,104 @@ def test_ring_on_one_card(cuda_device, P, name, n_classes, precision, dtype):
     assert counts == [P + 1, P * ((P - 1) // 2), P if P % 2 == 0 else 0]
 
 
+#: the ring's blocks and odd neighbours of them, where kernel K at
+#: "highest" runs on the split dual tile: MNIST width's 15000^2 x 784,
+#: config 3 width's 12500^2 x 500 with odd sides, a block of odd sides whose
+#: d leaves a part of a 32-feature box
+SPLIT_DUAL_SHAPES = [(15000, 15000, 784), (12501, 12499, 499), (2101, 1337, 785)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_classes", [1, 3, 10])
+@pytest.mark.parametrize("mr,mc,d", SPLIT_DUAL_SHAPES)
+def test_split_dual_tile_against_full_float32(cuda_device, mr, mc, d, n_classes):
+    """Kernel K at "highest" (the split dual tile, three TF32 passes) at the
+    ring's shapes against the full-float32 plain version, both outputs
+    within 1e-4 of max|plain| (the split tiles' gate; its error is about
+    2^-22 relative per Gram entry); one launch on ``dual_tc_launches``,
+    none on the FFMA tile's counter.  K's FFMA tile (``gram_ffma``, on no
+    wrapper's path since, chip_smoke.py's before-time) within the same."""
+    Xr, Xc, v_c, v_r = _dual_case(mr, mc, d, n_classes, torch.float32, 59, cuda_device)
+    sq_r, sq_c = (Xr * Xr).sum(-1), (Xc * Xc).sum(-1)
+    kw = dict(kind=TKind.RBF, gamma=1.0 / d, coef0=0.0, degree=3)
+    gram_matmat.reset_counts()
+    got = gram_matmat.gram_matmat_dual(Xr, Xc, sq_r, sq_c, v_c, v_r, precision="highest",
+                                       **kw)
+    assert (gram_matmat.dual_tc_launches, gram_matmat.dual_launches) == (1, 0)
+    want = matvec.kernel_matmat_dual_plain(Xr, Xc, sq_r, sq_c, v_c, v_r, **kw)
+    ffma = gram_matvec.gram_ffma("matmat_dual", (Xr, Xc), (sq_r, sq_c), (v_c, v_r), **kw)
+    assert gram_matmat.dual_launches == 1
+    for g, w, f in zip(got, want, ffma):
+        assert g.shape == w.shape == f.shape and torch.isfinite(g).all()
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max()
+        assert (f - w).abs().max() <= 1e-4 * w.abs().max()
+
+
+@pytest.mark.cuda
+def test_split_dual_tile_on_the_ring_operands_made_once(cuda_device):
+    """Kernel K at "highest" on a pair of split stacks made once (as the
+    ring makes each shard's once per solve) gives what it gives on the
+    stacks it makes per call, bit for bit on one tile; a stack of another
+    tier is refused."""
+    Xr, Xc, v_c, v_r = _dual_case(100, 77, 37, 3, torch.float32, 60, cuda_device)
+    sq_r, sq_c = (Xr * Xr).sum(-1), (Xc * Xc).sum(-1)
+    kw = dict(kind=TKind.RBF, gamma=1.0 / 37, coef0=0.0, degree=3, precision="highest")
+    pair = (gram_matvec.tier_operand(Xr, "highest"), gram_matvec.tier_operand(Xc, "highest"))
+    once = gram_matmat.gram_matmat_dual(Xr, Xc, sq_r, sq_c, v_c, v_r, operand=pair, **kw)
+    per_call = gram_matmat.gram_matmat_dual(Xr, Xc, sq_r, sq_c, v_c, v_r, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(once, per_call))
+    with pytest.raises(ValueError, match="operand copy"):
+        gram_matmat.gram_matmat_dual(Xr, Xc, sq_r, sq_c, v_c, v_r, **kw, operand=(
+            gram_matvec.tier_operand(Xr, "f32"), pair[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16", "highest"])
+def test_ring_operands_made_once_give_the_per_call_bits(cuda_device, precision):
+    """The ring with its shards' operand copies made once
+    (``sharded.shard_operands``) gives the ring's bits with copies made per
+    call, on blocks of one tile each (no atomics to reorder): the same
+    copies, only made earlier."""
+    from plssvm_tpu_torch.parallel import sharded
+
+    X, _, _, V = _dual_case(300, 1, 37, 3, torch.float32, 62, cuda_device)
+    sq = (X * X).sum(-1)
+    bounds = sharded.shard_bounds(300, 3)
+    devices = [cuda_device] * 3
+    X_shards = sharded.shard_rows(X, bounds, devices)
+    sq_shards = sharded.shard_rows(sq, bounds, devices)
+    V_shards = sharded.shard_rows(V, bounds, devices)
+    operands = sharded.shard_operands(X_shards, TKind.RBF, "cuda", precision)
+    assert operands is not None and len(operands) == 3
+    kw = dict(kind=TKind.RBF, degree=3, impl="cuda", precision=precision)
+    once = sharded.ring_kernel_matmat(X_shards, sq_shards, V_shards, 1.0 / 37, 0.0,
+                                      operands=operands, **kw)
+    per_call = sharded.ring_kernel_matmat(X_shards, sq_shards, V_shards, 1.0 / 37, 0.0, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(once, per_call))
+
+
 # -- kernel N and the explicit solver (csrc/kernel_matrix.cu) ----------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["laplacian", "chi_squared"])
+@pytest.mark.parametrize("m,d", [(1, 3), (63, 5), (65, 17), (129, 33), (257, 200), (1000, 784)])
+def test_kernel_matrix_sym_is_the_rect_walk_bit_for_bit(cuda_device, name, dtype, out_dtype,
+                                                        m, d):
+    """Kernel N's symmetric walk, whose off-diagonal tiles are stored
+    through shared memory transposed, gives bit for bit what its rect walk
+    (each tile stored as it is) computes for X against itself, and an
+    exactly symmetric K, on m not a multiple of the tile edge (64 or 128)
+    and on multiples of it."""
+    from plssvm_tpu_torch.ops import kernel_matrix
+
+    X, _, _, _ = _dual_case(m, 1, d, None, dtype, 63, cuda_device, non_negative=True)
+    kw = dict(kind=getattr(TKind, name.upper()), gamma=1.0 / d, out_dtype=out_dtype)
+    sym = kernel_matrix.kernel_matrix_sym(X, **kw)
+    assert torch.equal(sym, kernel_matrix.kernel_matrix_rect(X, X, **kw))
+    assert torch.equal(sym, sym.T)
 
 
 @pytest.mark.cuda

@@ -252,8 +252,8 @@ def test_float32_keeps_its_routes(precision):
 def test_float64_cuda_dual_takes_the_dual_dmma_tile_at_every_tier(name, precision):
     """J and K on float64 CUDA tensors take the dual DMMA tile at every tier
     and count on ``dual_dmma_launches``; float32 keeps the TF32 / bf16 dual
-    tile at "f32" / "bf16" (the one-pass tiers) and the FFMA walk at
-    "highest"."""
+    tile at "f32" / "bf16" (the one-pass tiers), and at "highest" J its
+    matvec walk and K the dual tile in three TF32 passes."""
     chip_smoke = _chip_smoke()
     X64, X32 = _like(torch.float64, "cuda"), _like(torch.float32, "cuda")
     assert gram_matvec.uses_dmma(X64) and not gram_matvec.uses_tensor_cores(X64, precision)
@@ -263,8 +263,9 @@ def test_float64_cuda_dual_takes_the_dual_dmma_tile_at_every_tier(name, precisio
     module = gram_matvec if name == "gram_matvec_dual" else gram_matmat
     assert chip_smoke._dual_counter(name, torch.float64, precision) == (
         module, "dual_dmma_launches")
+    walk = precision == "highest" and name == "gram_matvec_dual"
     assert chip_smoke._dual_counter(name, torch.float32, precision) == (
-        module, "dual_launches" if precision == "highest" else "dual_tc_launches")
+        module, "dual_launches" if walk else "dual_tc_launches")
 
 
 def test_reset_counts_zeroes_the_dual_dmma_counters(monkeypatch):

@@ -699,3 +699,20 @@ def test_cli_against_the_reference(kernel_flag, tmp_path):
     t_model = plssvm_tpu_torch.Model.load(t_model_file)
     assert abs(t_model.rho - j_model.rho) <= TOL
     np.testing.assert_allclose(t_model.alpha, j_model.alpha, rtol=0, atol=TOL)
+
+
+def test_bench_kernel_matrix_on_the_cpu(capsys):
+    """The kernel-N tool on the CPU: one line per cell at a hundredth of the
+    rows, the plain version against itself (rel_err 0), K symmetric;
+    without a GPU and without ``--cpu`` it refuses to run."""
+    import json
+
+    from plssvm_tpu_torch.tools import bench_kernel_matrix
+
+    assert bench_kernel_matrix.main(["--cpu", "--repeats", "1"]) == 0
+    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [(r["kind"], r["m"], r["d"]) for r in rows] == [
+        (kind, m // 100, d) for kind, m, d in bench_kernel_matrix.CELLS]
+    assert all(r["rel_err"] == 0.0 and r["symmetric"] and r["ms"] > 0 for r in rows)
+    if not torch.cuda.is_available():
+        assert bench_kernel_matrix.main([]) == 1

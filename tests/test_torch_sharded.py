@@ -17,7 +17,9 @@ versions of its dual walks (kernels J-M) against plssvm_tpu on the CPU.
 - (c) ``CSVM(devices=["cpu"] * 4)`` against ``plssvm_tpu.CSVM(devices=
   jax.devices("cpu")[:4])`` in float64 at epsilon 1e-10: equal iteration
   counts, rho within 1e-9, the alphas within 1e-9 (binary) and 1e-8
-  (one-vs-all), the same labels and decision values within 1e-8.  The
+  (one-vs-all), the same labels and decision values within 1e-8; and in
+  float32 at ``gram_precision="highest"`` (epsilon 1e-5): the same labels,
+  iterations within one, rho within 1e-3.  The
   one-vs-all set's seed is one where plssvm_tpu's own sharded and
   single-device fits agree (alphas within 4.3e-10; on other seeds they
   differ by up to 1.5e-8, the CG noise of ROADMAP Queue 3).
@@ -477,30 +479,112 @@ def _blobs(seed, n=240, d=10, n_classes=2):
     return X[:200], y[:200], X[200:], y[200:]
 
 
-@pytest.mark.parametrize("kernel,n_classes,alpha_tol", [
-    ("rbf", 2, 1e-9), ("laplacian", 2, 1e-9), ("rbf", 3, 1e-8),
+#: the float32 "highest" cases: epsilon, and the largest rho difference
+#: allowed (two float32 CG solves summed in other orders; 5.0e-5 binary and
+#: 2.4e-4 with three classes measured at this epsilon on these seeds)
+F32_HIGHEST_EPSILON, F32_HIGHEST_RHO = 1e-5, 1e-3
+
+
+@pytest.mark.parametrize("kernel,n_classes,alpha_tol,dtype", [
+    pytest.param("rbf", 2, 1e-9, np.float64, id="rbf-2-1e-09"),
+    pytest.param("laplacian", 2, 1e-9, np.float64, id="laplacian-2-1e-09"),
+    pytest.param("rbf", 3, 1e-8, np.float64, id="rbf-3-1e-08"),
+    pytest.param("rbf", 2, None, np.float32, id="rbf-2-float32-highest"),
+    pytest.param("rbf", 3, None, np.float32, id="rbf-3-float32-highest"),
 ])
-def test_sharded_csvm_against_the_reference(kernel, n_classes, alpha_tol):
+def test_sharded_csvm_against_the_reference(kernel, n_classes, alpha_tol, dtype):
     """Four shards on one CPU against the reference's four CPU devices:
-    fit, then the SV-sharded predict."""
+    fit, then the SV-sharded predict.  float64 at epsilon 1e-10 (equal
+    iterations, rho within 1e-9, the alphas within ``alpha_tol``, decision
+    values within 1e-8, the same labels); float32 at
+    ``gram_precision="highest"`` and epsilon ``F32_HIGHEST_EPSILON``: the
+    same labels on the held-out points, the iterations within one, rho
+    within ``F32_HIGHEST_RHO``."""
     Xtr, ytr, Xte, yte = _blobs(7 if n_classes > 2 else 0, n_classes=n_classes)
-    j_train = plssvm_tpu.DataSet(Xtr, ytr, scaling=(-1.0, 1.0))
-    t_train = plssvm_tpu_torch.DataSet(Xtr, ytr, scaling=(-1.0, 1.0))
-    j_test = plssvm_tpu.DataSet(Xte, yte, scaling=j_train.scaling_factors)
-    t_test = plssvm_tpu_torch.DataSet(Xte, yte, scaling=t_train.scaling_factors)
-    j_svm = plssvm_tpu.CSVM(backend="xla", solver="cg_implicit", dtype=np.float64,
-                            kernel_type=kernel, devices=jax.devices("cpu")[:4])
-    t_svm = plssvm_tpu_torch.CSVM(devices=["cpu"] * 4, dtype=np.float64,
+    typed = {} if dtype == np.float64 else dict(dtype=dtype)
+    j_train = plssvm_tpu.DataSet(Xtr, ytr, scaling=(-1.0, 1.0), **typed)
+    t_train = plssvm_tpu_torch.DataSet(Xtr, ytr, scaling=(-1.0, 1.0), **typed)
+    j_test = plssvm_tpu.DataSet(Xte, yte, scaling=j_train.scaling_factors, **typed)
+    t_test = plssvm_tpu_torch.DataSet(Xte, yte, scaling=t_train.scaling_factors, **typed)
+    tier = "f32" if dtype == np.float64 else "highest"
+    j_svm = plssvm_tpu.CSVM(backend="xla", solver="cg_implicit", dtype=dtype,
+                            gram_precision=tier, kernel_type=kernel,
+                            devices=jax.devices("cpu")[:4])
+    t_svm = plssvm_tpu_torch.CSVM(devices=["cpu"] * 4, dtype=dtype, gram_precision=tier,
                                   kernel_type=kernel, solver="cg_implicit")
     assert len(t_svm.devices) == 4
-    j_model, t_model = j_svm.fit(j_train, epsilon=1e-10), t_svm.fit(t_train, epsilon=1e-10)
+    epsilon = 1e-10 if dtype == np.float64 else F32_HIGHEST_EPSILON
+    j_model, t_model = j_svm.fit(j_train, epsilon=epsilon), t_svm.fit(t_train, epsilon=epsilon)
+    rho = np.abs(np.asarray(t_model.rho) - np.asarray(j_model.rho)).max()
+    np.testing.assert_array_equal(t_svm.predict(t_model, t_test),
+                                  j_svm.predict(j_model, j_test))
+    if dtype == np.float32:
+        assert abs(t_model.n_iter - j_model.n_iter) <= 1 and rho <= F32_HIGHEST_RHO
+        return
     assert t_model.n_iter == j_model.n_iter
-    assert np.abs(np.asarray(t_model.rho) - np.asarray(j_model.rho)).max() <= 1e-9
+    assert rho <= 1e-9
     assert np.abs(t_model.alpha - j_model.alpha).max() <= alpha_tol
     np.testing.assert_allclose(t_svm.predict_values(t_model, t_test),
                                j_svm.predict_values(j_model, j_test), rtol=0, atol=1e-8)
-    np.testing.assert_array_equal(t_svm.predict(t_model, t_test),
-                                  j_svm.predict(j_model, j_test))
+
+
+@pytest.mark.parametrize("matmat", [False, True])
+@pytest.mark.parametrize("P", [3, 4])
+def test_ring_makes_the_shard_operands_once(monkeypatch, P, matmat):
+    """The ring's product makes each shard's tensor-core operand copy once,
+    when the solve builds it, and hands the same copies to every product:
+    shard p's to its symmetric product, the pair (p's, q's) to each dual
+    walk of p against q; the rows-only walk takes none.  The wrappers are
+    stand-ins that record what they are handed."""
+    made, sym_seen, dual_seen = [], [], []
+
+    def tier_operand(X, precision):
+        made.append((X.data_ptr(), X.shape[0], precision))
+        return torch.full((1,), float(len(made)))
+
+    def sym(X, sq, V, *, operand=None, precision, **kw):
+        sym_seen.append(float(operand))
+        return torch.zeros_like(V)
+
+    def dual(Xr, Xc, sq_r, sq_c, V_c, V_r, *, operand=None, precision, **kw):
+        dual_seen.append(tuple(float(t) for t in operand))
+        return torch.zeros_like(V_r), torch.zeros_like(V_c)
+
+    def rows(P_, S, sq_p, sq_s, A, *, precision, **kw):
+        return torch.zeros((P_.shape[0],) + A.shape[1:])
+
+    module = gram_matmat if matmat else gram_matvec
+    op = "matmat" if matmat else "matvec"
+    monkeypatch.setattr(sharded, "uses_tensor_cores", lambda X, precision: True)
+    monkeypatch.setattr(sharded, "tier_operand", tier_operand)
+    monkeypatch.setattr(module, f"gram_{op}_sym", sym)
+    monkeypatch.setattr(module, f"gram_{op}_dual", dual)
+    monkeypatch.setattr(module, f"gram_{op}_rect", rows)
+    X = torch.zeros(23, 3)
+    bounds = sharded.shard_bounds(23, P)
+    product = sharded._sharded_product(X, bounds, ["cpu"] * P, TKind.RBF, 3, "cuda",
+                                       "highest")
+    assert [(ptr, rows_) for ptr, rows_, _ in made] == [
+        (X[lo:hi].data_ptr(), hi - lo) for lo, hi in bounds]
+    assert {tier for _, _, tier in made} == {"highest"}
+    v = torch.zeros(23, 2) if matmat else torch.zeros(23)
+    for _ in range(3):
+        product(X, None, v, 0.5, 0.0)
+    assert len(made) == P
+    assert sym_seen == [float(p + 1) for p in range(P)] * 3
+    steps = [(p, (p - s) % P) for s in range(1, (P - 1) // 2 + 1) for p in range(P)]
+    assert dual_seen == [(float(p + 1), float(q + 1)) for p, q in steps] * 3
+
+
+def test_ring_operands_only_where_a_tile_takes_them():
+    """``shard_operands``: None for the plain versions (``impl="torch"``),
+    the distance and linear kernels and shards that take no tensor-core
+    tile (CPU or float64 tensors); else ``tier_operand`` of each shard."""
+    shards = [torch.randn(5, 3), torch.randn(4, 3)]
+    assert sharded.shard_operands(shards, TKind.RBF, "cuda", "highest") is None  # CPU
+    assert sharded.shard_operands(shards, TKind.RBF, "torch", "highest") is None
+    assert sharded.shard_operands(shards, TKind.LAPLACIAN, "cuda", "f32") is None
+    assert sharded.shard_operands(shards, TKind.LINEAR, "cuda", "f32") is None
 
 
 def test_sharded_csvm_goes_through_the_ring(monkeypatch):

@@ -20,9 +20,14 @@ hi hi^T + hi lo^T + lo hi^T, f32 accumulation.  Here:
   seeded ragged shapes (m not a multiple of 128, odd d, C in {1, 3}; the
   Pallas side on zero-padded copies) at rtol = atol = 2e-5, the "highest"
   tolerance of tests/test_torch_gram_matvec.py;
-- ``chip_smoke.py``'s split bounds, the routing predicates at "highest", the
-  solve's operand made once, ``kernel_resources``' names of the split
-  instantiations.
+- ``chip_smoke.py``'s split bounds (the dual tile's too), the routing
+  predicates at "highest" (kernel K on the split dual tile, J on its
+  matvec walk), the solve's operand made once, ``kernel_resources``' names
+  of the split instantiations, the split entry points' declarations;
+- a NumPy emulation of the split dual tile (kernel K at "highest": the
+  three TF32 products box by box in float32, both contractions) on a ragged
+  block, both outputs within the split's first-order error bound of the
+  float64 product.
 
 Inputs are made with numpy from a seed and handed to both packages.
 """
@@ -343,10 +348,11 @@ def _like(dtype, device):
 
 
 def test_routing_at_highest():
-    """float32 CUDA at "highest": the tensor-core tiles for A-D (entries
-    ``*_tf32x3``), the FFMA walks for J, K and O (the one-pass tiers only
-    take their tensor-core tiles); float64 the DMMA tiles; CPU tensors the
-    plain versions."""
+    """float32 CUDA at "highest": the tensor-core tiles for A-D and K
+    (entries ``*_tf32x3``; K counted on ``dual_tc_launches``), the FFMA
+    walks for J and O (the one-pass tiers only take their tensor-core
+    tiles; J counted on ``dual_launches``); float64 the DMMA tiles; CPU
+    tensors the plain versions."""
     X32, X64 = _like(torch.float32, "cuda"), _like(torch.float64, "cuda")
     assert gram_matvec.uses_tensor_cores(X32, "highest")
     assert gram_matvec._TC_TIERS["highest"] == ("tf32x3", torch.float32, 4)
@@ -359,6 +365,8 @@ def test_routing_at_highest():
     assert chip_smoke._dual_counter("gram_matvec_dual", torch.float32, "highest") == (
         gram_matvec, "dual_launches")
     assert chip_smoke._dual_counter("gram_matmat_dual", torch.float32, "f32") == (
+        gram_matmat, "dual_tc_launches")
+    assert chip_smoke._dual_counter("gram_matmat_dual", torch.float32, "highest") == (
         gram_matmat, "dual_tc_launches")
     for v, base in ((torch.zeros(3), "gram_matvec"), (torch.zeros(3, 2), "gram_matmat")):
         assert [e[0] for e in chip_smoke._pairs(v, "highest")] == [
@@ -461,13 +469,15 @@ def test_kernel_resources_names_the_split_tiles(tmp_path, monkeypatch):
 
 def test_the_split_entries_are_declared():
     """Each split entry point of csrc has its C signature in _build.load()'s
-    declarations (the same parameters as the TF32 entry beside it)."""
+    declarations (the same parameters as the TF32 entry beside it): A-D's
+    and, in csrc/dual.cu, kernel K's on the dual tile (J has none)."""
     sources = "".join(open(os.path.join(REPO, "plssvm_tpu_torch", "csrc", f),
-                           encoding="utf-8").read() for f in ("gram_matvec.cu", "gram_matmat.cu"))
+                           encoding="utf-8").read()
+                      for f in ("gram_matvec.cu", "gram_matmat.cu", "dual.cu"))
     names = re.findall(r'extern "C" int (plssvm_gram_\w+_tf32x3)\(', sources)
     assert sorted(names) == sorted(
         f"plssvm_gram_{n}_tf32x3" for n in ("matvec_sym", "matmat_sym", "matvec_rect_tc",
-                                            "matmat_rect_tc"))
+                                            "matmat_rect_tc", "matmat_dual_tc"))
     for name in names:
         params = re.search(rf'extern "C" int {name}\(([^)]*)\)', sources).group(1)
         twin = re.search(rf'extern "C" int {name[:-2]}\(([^)]*)\)', sources).group(1)
@@ -485,8 +495,149 @@ def test_bench_highest_on_the_cpu(capsys):
     assert bench_highest.main(["--cpu", "--repeats", "1"]) == 0
     rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     assert [r["kernel"] for r in rows] == [c[0] for c in bench_highest.CELLS]
-    assert [(r["n_p"], r["n_s"]) for r in rows][-1] == (100, 600)
+    assert [(r["n_p"], r["n_s"]) for r in rows if r["kernel"] == "D"][-1] == (100, 600)
+    assert [(r["n_p"], r["classes"]) for r in rows if r["kernel"] == "K"] == [(150, 10),
+                                                                              (150, 1)]
     assert all(r["rel_err"] == 0.0 and r["ffma_ms"] is None and r["ms"] > 0 for r in rows)
+    assert rows[-1]["walk_ms"] is None
+    assert bench_highest.main(["--cpu", "--repeats", "1", "--kernels", "K"]) == 0
+    assert [json.loads(line)["kernel"] for line in
+            capsys.readouterr().out.splitlines()] == ["K", "K"]
     if not torch.cuda.is_available():
         assert bench_highest.main([]) == 1
+
+
+# -- kernel K at "highest": the split dual tile -------------------------------------
+
+
+def test_the_split_dual_entry_is_declared_as_its_tf32_twin(monkeypatch):
+    """_build.load() declares ``plssvm_gram_matmat_dual_tc_tf32x3`` with the
+    argument and result types of its TF32 twin (the same C parameters)."""
+    import ctypes
+
+    class FakeLibrary:
+        def __getattr__(self, attr):
+            fn = types.SimpleNamespace()
+            setattr(self, attr, fn)
+            return fn
+
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "build", lambda: (None, 0.0))
+    monkeypatch.setattr(ctypes, "CDLL", lambda path: FakeLibrary())
+    lib = _build.load()
+    split, twin = lib.plssvm_gram_matmat_dual_tc_tf32x3, lib.plssvm_gram_matmat_dual_tc_tf32
+    assert split.argtypes == twin.argtypes and len(split.argtypes) == 17
+    assert split.restype is twin.restype is ctypes.c_int
+
+
+def test_kernel_resources_names_the_split_dual_tile(tmp_path, monkeypatch):
+    """``kernel_resources`` names the split tier's instantiation of the dual
+    tile ``gram_tc_dual tf32x3 <kind>``, beside the TF32 one."""
+    lib = tmp_path / "libplssvm_gram_y.so"
+    monkeypatch.setattr(_build, "library_path", lambda: lib)
+    (tmp_path / "libplssvm_gram_y.so.ptxas.txt").write_text(
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_119gram_tc_dual_kernelINS_10Tf32x3TierELi2EEEv14CUtensorMap_stS2_"
+        "PKfS4_S4_S4_PfS5_iiiiiiiiff' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, 15408 bytes smem\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_119gram_tc_dual_kernelINS_8Tf32TierELi3EEEv14CUtensorMap_stS2_"
+        "PKfS4_S4_S4_PfS5_iiiiiiiiff' for 'sm_90a'\n"
+        "ptxas info    : Used 128 registers, 15408 bytes smem\n",
+        encoding="utf-8")
+    assert _build.kernel_resources() == {
+        "gram_tc_dual tf32x3 rbf": {"spill_bytes": 0, "registers": 168, "smem_bytes": 15408},
+        "gram_tc_dual tf32 sigmoid": {"registers": 128, "smem_bytes": 15408},
+    }
+
+
+@pytest.mark.parametrize("mr,mc,d,columns,ms", [
+    (15000, 15000, 784, 10, 2.1381818),   # the ring's MNIST-width block: 3 x 0.713
+    (32768, 32768, 512, 10, 6.6637068),   # the kernels phase's own timing shape
+    (12500, 12500, 500, 1, 0.9469697),    # config 3's ring block, C = 1
+])
+def test_split_dual_bound(mr, mc, d, columns, ms):
+    """``_dual_bound`` at tier ``tf32x3``: three times the TF32 tier's
+    product bound (2 mr mc d flops at a third of 495 TFLOP/s), beside which
+    the contractions' FFMAs and the exps lie below it here."""
+    chip_smoke = _chip_smoke()
+    got, by = chip_smoke._dual_bound(mr, mc, d, columns, "gram", 4, 1, "tf32x3", exp=True)
+    assert got == pytest.approx(ms, rel=1e-6) and by == "operations"
+    assert got == pytest.approx(2.0 * mr * mc * d / (chip_smoke.TF32_FLOP_PER_S / 3) * 1e3,
+                                rel=1e-12)
+    tf32, _ = chip_smoke._dual_bound(mr, mc, d, columns, "gram", 4, 1, "tf32", exp=True)
+    assert got == pytest.approx(3 * tf32, rel=1e-9)
+
+
+def test_split_dual_bound_moves_two_float32_parts():
+    """Where the bytes bound the split dual tile (one row against many
+    columns, d = 1), Xr and Xc move as two float32 parts, 8 bytes a
+    feature, beside the float32 right-hand sides, outputs and norms."""
+    chip_smoke = _chip_smoke()
+    mr, mc, columns = 1, 100000, 1
+    got, by = chip_smoke._dual_bound(mr, mc, 1, columns, "gram", 4, 1, "tf32x3")
+    n_bytes = 8 * (mr + mc) * 1 + 4 * (mr + mc) * (2 * columns + 1)
+    assert by == "bytes" and got == pytest.approx(
+        n_bytes / chip_smoke.HBM_BYTES_PER_S * 1e3, rel=1e-12)
+
+
+def _tf32_np(x):
+    """float32 x rounded to TF32 as ``cvt.rna.tf32.f32`` (finite x)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.int32)
+    return ((bits + 0x1000) & -0x2000).view(np.float32)
+
+
+def _split_dual_emulation(Xr, Xc, V_c, V_r, gamma):
+    """Kernel K at "highest" as the split dual tile computes it, in float32
+    NumPy: each 32-feature box adds hi hi^T, hi lo^T and lo hi^T to the
+    Gram block (hi = tf32(x), lo = tf32(x - hi)); then the RBF values from
+    the float32 operands' norms and both contractions."""
+    hr, hc = _tf32_np(Xr), _tf32_np(Xc)
+    lr, lc = _tf32_np(Xr - hr), _tf32_np(Xc - hc)
+    gram = np.zeros((Xr.shape[0], Xc.shape[0]), np.float32)
+    for f in range(0, Xr.shape[1], 32):
+        box = slice(f, f + 32)
+        for a, b in ((hr, hc), (hr, lc), (lr, hc)):
+            gram += a[:, box] @ b[:, box].T
+    sq_r, sq_c = (Xr * Xr).sum(-1), (Xc * Xc).sum(-1)
+    K = np.exp(np.float32(-gamma) * (sq_r[:, None] + sq_c[None, :] - np.float32(2) * gram))
+    return K @ V_c, K.T @ V_r
+
+
+@pytest.mark.parametrize("mr,mc,d,columns", [(130, 77, 203, 10), (65, 200, 37, 1),
+                                             (129, 129, 784, 3)])
+def test_split_dual_emulation_within_the_split_bound(mr, mc, d, columns):
+    """The split dual tile's arithmetic, emulated, gives both outputs of
+    kernel K within the first-order bound of the split tier against the
+    float64 product: a Gram entry off by at most (3 2^-22 + d 2^-24) sum
+    |x_r| |x_c| (the dropped lo lo^T, lo's rounding, the float32 sums), an
+    RBF value by 2 gamma K times that plus 2^-22 K (the float32 epilogue),
+    a contraction by those errors against |V| plus the float32 sum's
+    (rows) 2^-24 |K| |V|; and far nearer the float64 product than the TF32
+    one-pass tile."""
+    rng = np.random.default_rng(88)
+    Xr = (rng.normal(size=(mr, d)) * 0.5).astype(np.float32)
+    Xc = (rng.normal(size=(mc, d)) * 0.5).astype(np.float32)
+    V_c = rng.normal(size=(mc, columns)).astype(np.float32)
+    V_r = rng.normal(size=(mr, columns)).astype(np.float32)
+    gamma = 1.0 / d
+    got = _split_dual_emulation(Xr, Xc, V_c, V_r, gamma)
+    X64r, X64c = Xr.astype(np.float64), Xc.astype(np.float64)
+    sq_r, sq_c = (X64r ** 2).sum(-1), (X64c ** 2).sum(-1)
+    K = np.exp(-gamma * (sq_r[:, None] + sq_c[None, :] - 2 * X64r @ X64c.T))
+    want = (K @ V_c.astype(np.float64), K.T @ V_r.astype(np.float64))
+    d_gram = (3 * 2.0 ** -22 + d * 2.0 ** -24) * (np.abs(X64r) @ np.abs(X64c).T)
+    d_norms = d * 2.0 ** -24 * (sq_r[:, None] + sq_c[None, :])
+    dK = K * (gamma * (2 * d_gram + d_norms) + 2.0 ** -22)
+    bounds = (dK @ np.abs(V_c) + (mc + 1) * 2.0 ** -24 * (K @ np.abs(V_c)),
+              dK.T @ np.abs(V_r) + (mr + 1) * 2.0 ** -24 * (K.T @ np.abs(V_r)))
+    for g, w, b in zip(got, want, bounds):
+        assert g.shape == w.shape and np.all(np.isfinite(g))
+        assert np.all(np.abs(g - w) <= b)
+    # the TF32 one-pass product of the same block is far coarser
+    tr, tc = _tf32_np(Xr).astype(np.float64), _tf32_np(Xc).astype(np.float64)
+    K_tf32 = np.exp(-gamma * (sq_r[:, None] + sq_c[None, :] - 2 * tr @ tc.T))
+    tf32_err = np.abs(K_tf32 @ V_c - want[0]).max()
+    assert np.abs(got[0] - want[0]).max() < 0.1 * tf32_err
 
