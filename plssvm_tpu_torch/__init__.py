@@ -1,11 +1,12 @@
 """plssvm_tpu_torch — the PyTorch and CUDA port of plssvm_tpu.
 
-Binary and one-vs-all multiclass LS-SVM classification trained by
-matrix-free Conjugate Gradient on one device: each CG iteration applies the
+Binary, one-vs-all and one-vs-one LS-SVM classification, LS-SVR and
+one-class training by matrix-free Conjugate Gradient: each CG iteration applies the
 implicit kernel matrix through a Gram matvec (binary) or block matmat
 (multiclass) written by hand in CUDA for NVIDIA Hopper (csrc/), with plain
-PyTorch versions of the same functions for the CPU.  Predict also scores
-one-vs-one (LIBSVM multiclass) model files.  The public API and the
+PyTorch versions of the same functions for the CPU.  Probability
+calibration, cross-validation and robust refits run as host code around
+the fits (probability.py, robust.py).  The public API and the
 file formats are plssvm_tpu's; plssvm_tpu (JAX) stays the reference this
 package is tested against.  Importing the package builds no kernel.
 """
@@ -42,6 +43,14 @@ from .csvm import (
     make_csvm,
 )
 from .kernel_functions import kernel_function
+from .probability import (
+    calibrate_model,
+    calibrate_svr_noise,
+    cross_validate,
+    predict_probabilities,
+)
+from .one_class import fit_one_class, fit_one_class_multihost
+from .robust import reweighted_fit
 from .utils.logger import VerbosityLevel, get_verbosity, set_verbosity
 from .utils.tracker import global_tracker
 
@@ -72,6 +81,13 @@ __all__ = [
     "CSVM",
     "make_csvm",
     "kernel_function",
+    "calibrate_model",
+    "calibrate_svr_noise",
+    "cross_validate",
+    "predict_probabilities",
+    "fit_one_class",
+    "fit_one_class_multihost",
+    "reweighted_fit",
     "csvm_backend_exists",
     "list_available_backends",
     "list_available_target_platforms",

@@ -2,6 +2,12 @@
 
 reference: src/main_predict.cpp:29-103 + detail/cmd/parser_predict.cpp.
 Usage: ``python -m plssvm_tpu_torch.cli.predict [options] test_file model_file [output_file]``
+
+One-class models predict +1 / -1 per point.  ``--probability`` writes
+LIBSVM's ``svm-predict -b 1`` layout for a calibrated model (a ``labels``
+header, then each point's label and its class probabilities in the
+header's order); on a calibrated regression model it prints the Laplace
+noise line and writes the predicted values.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from ..csvm import CSVM
 from ..data_set import DataSet
 from ..exceptions import NotPortedError, PLSSVMError
 from ..model import Model
+from ..probability import predict_probabilities
 from ..utils.logger import VerbosityLevel, log
 from ..utils.tracker import add_tracking_entry, global_tracker
 from .common import (
@@ -41,7 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "automatic takes the GPU and fails without one, "
                              "-p cpu is the only way to the CPU")
     parser.add_argument("--probability", action="store_true",
-                        help="output class probabilities (not ported yet)")
+                        help="output class probabilities (svm-predict's -b 1); "
+                        "the model must be trained with --probability")
     parser.add_argument("--multihost", action="store_true",
                         help="multi-host prediction (not ported yet)")
     add_sycl_compat_options(parser)
@@ -77,17 +85,17 @@ def main(argv=None) -> int:
         args.test, args.model, predict_filename,
     )
 
+    if args.multihost and args.probability:
+        print("--probability is not supported together with --multihost!",
+              file=sys.stderr)
+        return 1
+
     start = time.perf_counter()
     try:
         if args.multihost:
             raise NotPortedError(
                 "--multihost is not ported yet (ROADMAP Queue 1, item 10: "
                 "multihost on torch.distributed)"
-            )
-        if args.probability:
-            raise NotPortedError(
-                "--probability is not ported yet (ROADMAP Queue 1, item 7: "
-                "calibration and CV)"
             )
         model = Model.load(
             args.model,
@@ -98,16 +106,42 @@ def main(argv=None) -> int:
             args.test,
             label_type=resolve_label_type(args),
             dtype=resolve_dtype(args),
-            # a regression model's test file holds continuous targets: no
-            # label mapping
-            regression=model.is_regression,
+            # a regression model's test file holds continuous targets, and
+            # a one-class file one label class or none: no label mapping
+            regression=model.is_regression or model.is_one_class,
         )
         svm = CSVM(
             backend=args.backend,
             target=args.target_platform,
             dtype=resolve_dtype(args),
         )
-        predicted = svm.predict(model, data)
+        probabilities = None
+        if args.probability and model.prob_a is None:
+            print("Model does not support probability estimates — train "
+                  "with plssvm-train --probability!", file=sys.stderr)
+            return 1
+        if args.probability and model.is_regression:
+            # svm-predict -b 1 on an SVR model: the predicted values and
+            # the Laplace noise model line
+            log(
+                VerbosityLevel.FULL | VerbosityLevel.LIBSVM,
+                "Prob. model for test data: target value = predicted value "
+                "+ z,\nz: Laplace distribution e^(-|z|/sigma)/(2sigma), "
+                "sigma={}\n",
+                float(model.prob_a[0]),
+            )
+            predicted = svm.predict(model, data)
+        elif args.probability:
+            values = svm.predict_values(model, data)
+            # svm-predict -b 1's columns: the model's class order (its
+            # file's label header); the label is the argmax of the
+            # calibrated probabilities (it may differ from sign(f) near 0.5)
+            probabilities = predict_probabilities(model, values, columns="layout")
+            typed = {str(c): c for c in model.data.different_labels}
+            classes = np.asarray([typed[str(c)] for c in model.class_order()])
+            predicted = classes[np.argmax(probabilities, axis=1)]
+        else:
+            predicted = svm.predict(model, data)
     except PLSSVMError as exc:
         print(exc, file=sys.stderr)
         return 1
@@ -119,9 +153,15 @@ def main(argv=None) -> int:
         if model.is_regression:
             for v in predicted:
                 fh.write(format(v, ".10g") + "\n")
-        else:
+        elif probabilities is None:
             for lab in predicted:
                 fh.write(str(lab) + "\n")
+        else:
+            # svm-predict -b 1: a 'labels <classes>' header, then 'label
+            # P(c1) P(c2) ...' per point in the header's class order
+            fh.write("labels " + " ".join(str(c) for c in model.class_order()) + "\n")
+            for lab, row in zip(predicted, probabilities):
+                fh.write(str(lab) + " " + " ".join(format(p, ".10g") for p in row) + "\n")
     write_ms = (time.perf_counter() - write_start) * 1000.0
     log(
         VerbosityLevel.FULL | VerbosityLevel.TIMING,

@@ -4,9 +4,13 @@ reference: src/main_train.cpp:24-70 + src/plssvm/detail/cmd/parser_train.cpp.
 Usage: ``python -m plssvm_tpu_torch.cli.train [options] training_set_file [model_file]``
 
 The flags are plssvm_tpu's, with its messages (``--weight``'s checks, the
-``--debug`` guard's "numeric check failed: ...").  Those whose feature is
-not ported yet are still parsed, and rejected with a :class:`PLSSVMError`
-that names the ROADMAP item porting them.
+flag conflicts of ``-s one_class`` and ``--cross_validation``, the
+``--debug`` guard's "numeric check failed: ...").  ``-s one_class`` trains
+the one-class model (one_class.py), ``--probability`` calibrates the model
+after its fit and ``--cross_validation N`` reports the N-fold CV accuracy
+(or MSE) and writes no model (probability.py).  Those whose feature is not
+ported yet are still parsed, and rejected with a :class:`PLSSVMError` that
+names the ROADMAP item porting them.
 """
 
 from __future__ import annotations
@@ -22,7 +26,9 @@ from ..csvm import CSVM
 from ..data_set import DataSet
 from ..exceptions import NotPortedError, NumericCheckError, PLSSVMError
 from ..model import Model
+from ..one_class import fit_one_class
 from ..parameter import KernelFunctionType
+from ..probability import calibrate_model, cross_validate
 from ..utils.logger import VerbosityLevel, log
 from ..utils.tracker import add_tracking_entry, global_tracker
 from .common import (
@@ -37,8 +43,6 @@ from .common import (
 #: (argument, flag, ROADMAP item) of the options not ported yet
 _NOT_PORTED = (
     ("multihost", "--multihost", "Queue 1, item 10: multihost on torch.distributed"),
-    ("cross_validation", "--cross_validation", "Queue 1, item 7: calibration and CV"),
-    ("probability", "--probability", "Queue 1, item 7: calibration and CV"),
     ("max_sv", "--max_sv", "Queue 1, item 9: sparse models"),
     ("nystroem", "--nystroem", "Queue 1, item 9: sparse models"),
     ("streaming", "--streaming", "Queue 1, item 9: sparse models"),
@@ -84,7 +88,9 @@ def build_parser() -> argparse.ArgumentParser:
         choices=["c_svc", "epsilon_svr", "svr", "one_class"],
         help="c_svc = classification (default); epsilon_svr/svr = "
              "LS-SVR regression on the continuous label column (the model "
-             "uses LIBSVM's epsilon_svr layout); one_class is not ported yet",
+             "uses LIBSVM's epsilon_svr layout); one_class = one-class "
+             "LS-SVM novelty detection (labels ignored, -n sets the outlier "
+             "fraction, LIBSVM's one_class model layout)",
     )
     parser.add_argument(
         "--classification", default="oaa", choices=["oaa", "oao"],
@@ -93,7 +99,10 @@ def build_parser() -> argparse.ArgumentParser:
              "stored in LIBSVM's multiclass model layout",
     )
     parser.add_argument("--probability", action="store_true",
-                        help="probability calibration (not ported yet)")
+                        help="Platt-calibrate the model from 5-fold "
+                        "cross-validated decision values and store probA/probB "
+                        "in the model file (LIBSVM's -b 1; regression models "
+                        "get the Laplace noise scale)")
     parser.add_argument("--solver", default="automatic",
                         choices=["automatic", "cg_explicit", "cg_implicit"],
                         help="CG solver type; cg_explicit builds the kernel "
@@ -121,8 +130,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "converging to a garbage model (one device and the ring)")
     parser.add_argument("--profile", metavar="DIR", default=None,
                         help="write a profiler trace of the fit (not ported yet)")
-    parser.add_argument("--cross_validation", metavar="N", type=int, default=None,
-                        help="N-fold cross-validation mode (not ported yet)")
+    parser.add_argument(
+        "--cross_validation", metavar="N", type=int, default=None,
+        help="N-fold cross-validation mode (svm-train's -v n; -v is taken "
+             "by --version here): prints the CV accuracy (classification) "
+             "or MSE + squared correlation coefficient (regression) and "
+             "exits WITHOUT writing a model file",
+    )
     parser.add_argument(
         "--weight", metavar="LABEL=W", action="append", default=None,
         help="per-class regularization weight (repeatable; LIBSVM's -wi): "
@@ -134,9 +148,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "alpha (same data set and classification) — "
                         "refine a converged model at a tighter -e or after "
                         "a -c change without solving from scratch")
-    parser.add_argument("-n", "--nu", type=float, default=0.5,
-                        help="one-class outlier fraction (one-class is not "
-                        "ported yet)")
+    parser.add_argument(
+        "-n", "--nu", type=float, default=0.5,
+        help="one-class training outlier fraction (svm-train's -n for "
+             "-s one_class): rho is the nu-quantile of the training "
+             "scores, so ~nu of the training points land outside",
+    )
     parser.add_argument("--max_sv", metavar="N", type=int, default=None,
                         help="pruned sparse model (not ported yet)")
     parser.add_argument("--nystroem", metavar="M", type=int, default=None,
@@ -212,11 +229,39 @@ def _reject_not_ported(args) -> None:
     for attr, flag, item in _NOT_PORTED:
         if getattr(args, attr):
             raise NotPortedError(f"{flag} is not ported yet (ROADMAP {item})")
+
+
+def _flag_conflict(args):
+    """plssvm_tpu's message for the first pair of flags that do not go
+    together, in its order, or None.  The conflicts come before the
+    refusal of a flag that is not ported yet."""
+    if args.probability and args.multihost:
+        return ("--probability is not supported together with --multihost "
+                "(the cross-validation fits are single-host)!")
+    if args.cross_validation is not None and args.multihost:
+        return "--cross_validation is not supported together with --multihost!"
+    if args.max_sv is not None and args.nystroem is not None:
+        return "--max_sv and --nystroem are mutually exclusive!"
     if args.svm_type == "one_class":
-        raise NotPortedError(
-            "-s one_class is not ported yet (ROADMAP Queue 1, item 7: "
-            "one-class)"
-        )
+        if not 0.0 < args.nu < 1.0:
+            return f"nu must be in (0, 1), but is {args.nu}!"
+        for flag, name in ((args.cross_validation, "--cross_validation"),
+                           (args.probability, "--probability"),
+                           (args.weight, "--weight")):
+            if flag:
+                return f"-s one_class is not supported together with {name}!"
+    if args.cross_validation is not None:
+        # svm-train -v mode: report CV metrics, write no model
+        for flag, name in ((args.probability, "--probability"),
+                           (args.warm_start, "--warm_start"),
+                           (args.checkpoint, "--checkpoint"),
+                           (args.profile, "--profile")):
+            if flag:
+                return f"--cross_validation is not supported together with {name}!"
+        if args.cross_validation < 2:
+            return (f"n-fold cross validation: n must >= 2, but is "
+                    f"{args.cross_validation}!")
+    return None
 
 
 def _parse_class_weights(specs):
@@ -279,11 +324,11 @@ def main(argv=None) -> int:
 
     start = time.perf_counter()
     try:
-        _reject_not_ported(args)
         regression = args.svm_type in ("epsilon_svr", "svr")
+        one_class = args.svm_type == "one_class"
         per_class_weights = None
         if args.weight:
-            if regression:
+            if args.svm_type != "c_svc":
                 print("--weight is only supported for classification training!",
                       file=sys.stderr)
                 return 1
@@ -291,6 +336,11 @@ def main(argv=None) -> int:
             if message is not None:
                 print(message, file=sys.stderr)
                 return 1
+        message = _flag_conflict(args)
+        if message is not None:
+            print(message, file=sys.stderr)
+            return 1
+        _reject_not_ported(args)
         kernel = KernelFunctionType.from_string(args.kernel_type)
         log(
             VerbosityLevel.FULL,
@@ -301,10 +351,11 @@ def main(argv=None) -> int:
         add_tracking_entry("parameter", "epsilon", args.epsilon)
         data = DataSet(
             args.input,
-            # LS-SVR: the label column holds continuous targets
-            label_type=float if regression else resolve_label_type(args),
+            # LS-SVR: the label column holds continuous targets; a one-class
+            # file may carry one label class or none, which are ignored
+            label_type=float if (regression or one_class) else resolve_label_type(args),
             dtype=resolve_dtype(args),
-            regression=regression,
+            regression=regression or one_class,
         )
         svm = CSVM(
             backend=args.backend,
@@ -326,6 +377,8 @@ def main(argv=None) -> int:
             fit_kwargs["sample_weight"] = _expand_class_weights(
                 per_class_weights, np.asarray(data.labels)
             )
+        if args.cross_validation is not None:
+            return _cross_validation(args, svm, data, fit_kwargs, start)
         if args.warm_start is not None:
             fit_kwargs["initial_model"] = Model.load(
                 args.warm_start, label_type=resolve_label_type(args),
@@ -334,7 +387,19 @@ def main(argv=None) -> int:
         if args.checkpoint is not None:
             fit_kwargs["checkpoint_path"] = args.checkpoint
             fit_kwargs["checkpoint_interval"] = args.checkpoint_interval
-        model = svm.fit(data, **fit_kwargs)
+        if one_class:
+            oc_kwargs = {k: fit_kwargs[k] for k in ("initial_model", "checkpoint_path",
+                                                     "checkpoint_interval")
+                         if k in fit_kwargs}
+            model = fit_one_class(svm, data, nu=args.nu, epsilon=args.epsilon,
+                                  max_iter=args.max_iter, **oc_kwargs)
+        else:
+            model = svm.fit(data, **fit_kwargs)
+        if args.probability:
+            # the -wi weights stay in the CV subproblems, as LIBSVM's
+            # svm_binary_svc_probability keeps them
+            calibrate_model(svm, model, data, epsilon=args.epsilon, max_iter=args.max_iter,
+                            sample_weight=fit_kwargs.get("sample_weight"))
         model.save(model_filename)
     except NumericCheckError as exc:
         # the --debug guard: report the located failure as plssvm_tpu does
@@ -348,6 +413,29 @@ def main(argv=None) -> int:
     log(VerbosityLevel.FULL | VerbosityLevel.TIMING, "\nTotal runtime: {:.2f}ms\n", total_ms)
     add_tracking_entry("", "total_time", total_ms)
     if args.performance_tracking is not None:
+        global_tracker.save(args.performance_tracking)
+    return 0
+
+
+def _cross_validation(args, svm, data, fit_kwargs, start) -> int:
+    """svm-train's ``-v n`` mode: the N-fold CV accuracy (classification)
+    or MSE and squared correlation coefficient (regression), logged at
+    plssvm_tpu's levels; no model file is written."""
+    result = cross_validate(
+        svm, data, n_folds=args.cross_validation, epsilon=args.epsilon,
+        max_iter=args.max_iter, classification=args.classification,
+        sample_weight=fit_kwargs.get("sample_weight"),
+    )
+    if "accuracy" in result:
+        log(VerbosityLevel.FULL | VerbosityLevel.LIBSVM,
+            "Cross Validation Accuracy = {}%\n", result["accuracy"] * 100.0)
+    else:
+        log(VerbosityLevel.FULL | VerbosityLevel.LIBSVM,
+            "Cross Validation Mean squared error = {}\n"
+            "Cross Validation Squared correlation coefficient = {}\n",
+            result["mse"], result["scc"])
+    if args.performance_tracking is not None:
+        add_tracking_entry("", "total_time", (time.perf_counter() - start) * 1000.0)
         global_tracker.save(args.performance_tracking)
     return 0
 

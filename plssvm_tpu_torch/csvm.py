@@ -8,7 +8,7 @@ products: ``cuda``, the hand-written kernels (csrc/*.cu), or ``torch``,
 their plain PyTorch versions on any device.
 
 This package covers binary, one-vs-all and one-vs-one multiclass
-classification and LS-SVR regression with
+classification, LS-SVR regression and one-class training (one_class.py) with
 the implicit and the explicit CG solver (``solver``; ``automatic`` resolves
 per fit as plssvm_tpu does, with the budget and the Gram crossover of this
 device), for every kernel function (linear, polynomial, RBF,
@@ -17,7 +17,9 @@ of devices (``devices``, parallel/sharded.py; the batched one-vs-one solve
 splits its machines over them instead), with plssvm_tpu's solver
 extras (warm start, sample weights, the Jacobi preconditioner, CG-state
 checkpoint/resume, ``debug`` guards), and predict with binary, one-vs-all,
-one-vs-one (LIBSVM multiclass) and regression (epsilon_svr) model files.
+one-vs-one (LIBSVM multiclass), regression (epsilon_svr) and one-class
+model files; probability.py calibrates models and cross-validates around
+``fit`` and ``predict_values``, robust.py refits LS-SVR with Hampel weights.
 What it does not carry yet raises :class:`NotPortedError` (a
 ``NotImplementedError``) naming the ROADMAP item that ports it.
 """
@@ -1019,53 +1021,77 @@ class CSVM:
                          epsilon, max_iter, sample_weight, initial_model,
                          start) -> Model:
         """All C(C-1)/2 pair machines as one batched CG (plssvm_tpu's
-        ``_fit_oao_batched``).
-
-        X is staged on the device once, with a trailing zero row; each
-        machine's dept rows are gathered there into a (P, m_pad, d) stack,
-        m_pad the largest dept (no further padding: kernel O masks each
-        machine's edge), and ``solve_ls_svm_pairs`` iterates every machine
-        at once, each freezing at its own stop rule or cap, every product at
-        the fit's ``gram_precision`` (kernel O's tensor-core walks on the
-        card; the CPU's plain version ignores the tier).  With
-        ``devices`` the machines split over them
-        (``solve_ls_svm_pairs_sharded``), P padded to a multiple of the
-        device count with dummy machines (zero mask, weight 1), which
-        freeze at iteration 0.
-        """
+        ``_fit_oao_batched``) through :meth:`_solve_pair_machines`, each
+        machine capped at ``max_iter`` (``fit`` resolved None to the
+        parent's point count, as the sequential path's sub-fits receive
+        it)."""
         from . import oao
 
         C = data.num_different_labels
+        first_list = [idx[rows] == i for (i, _), rows in zip(pairs, rows_list)]
+        x_init_list = None
+        if initial_model is not None:
+            x_init_list = [self._oao_warm_pair_alpha(initial_model, data, rows, first, i, j)
+                           for ((i, j), rows, first) in zip(pairs, rows_list, first_list)]
+        alphas, rho, iters_per_machine, block = self._solve_pair_machines(
+            params, X, rows_list, first_list, epsilon=epsilon,
+            max_iter_b=[int(max_iter)] * len(pairs), sample_weight=sample_weight,
+            x_init_list=x_init_list)
+        sv_coef = np.zeros((X.shape[0], C - 1), dtype=self.dtype)
+        for ((i, j), rows, first, alpha_p) in zip(pairs, rows_list, first_list, alphas):
+            oao.scatter_pair_alphas(sv_coef, rows, first, alpha_p, i, j)
+        # the loop's iterations (every machine's products in one launch each)
+        add_tracking_entry("cg", "block_iterations", block)
+        return self._oao_model(params, data, sv_coef, rho, iters_per_machine, start,
+                               "batched")
+
+    def _solve_pair_machines(self, params, X, rows_list, first_list, *, epsilon,
+                             max_iter_b, sample_weight=None, x_init_list=None):
+        """Binary machines on row subsets of X (n, d) as one batched CG:
+        machine p trains on the rows ``rows_list[p]``, +1 where
+        ``first_list[p]`` and -1 elsewhere, its last row folded out, capped
+        at ``max_iter_b[p]`` iterations, warm-started from
+        ``x_init_list[p]`` (its weights over those rows) where given.  The
+        one-vs-one fit's machines, and the folds of their cross-validation
+        (probability.py).
+
+        X is staged on the device once, with a trailing zero row; each
+        machine's rows are gathered there into a (P, m_pad, d) stack, m_pad
+        the largest machine's rows less its folded-out one (no further
+        padding: kernel O masks each machine's edge), and
+        ``solve_ls_svm_pairs`` iterates every machine at once, each freezing
+        at its own stop rule or cap, every product at the fit's
+        ``gram_precision`` (kernel O's tensor-core walks on the card; the
+        CPU's plain version ignores the tier).  With ``devices`` the
+        machines split over them in contiguous groups
+        (``solve_ls_svm_pairs_sharded``).
+
+        Returns ``(alphas, rho, iterations_per_machine, block_iterations)``,
+        ``alphas[p]`` machine p's weights over ``rows_list[p]`` and ``rho``
+        (P,) float64.
+        """
         n, d = X.shape
-        P = len(pairs)
+        P = len(rows_list)
         depts = np.asarray([len(r) - 1 for r in rows_list])
         m_pad = int(depts.max())
-        n_dev = 1 if self.devices is None else len(self.devices)
-        P_pad = -(-P // n_dev) * n_dev
 
         zero_row = n
-        idx_b = np.full((P_pad, m_pad), zero_row, dtype=np.int64)
-        yb = np.zeros((P_pad, m_pad), dtype=self.dtype)
-        maskb = np.zeros((P_pad, m_pad), dtype=self.dtype)
-        y_last_b = np.zeros((P_pad,), dtype=self.dtype)
-        last_idx = np.full((P_pad,), zero_row, dtype=np.int64)
-        # caps: fit() resolved max_iter=None to the parent's point count, as
-        # the sequential path's sub-fits receive it; dummy machines cap at 0
-        max_iter_b = np.zeros((P_pad,), dtype=np.int64)
-        max_iter_b[:P] = int(max_iter)
+        idx_b = np.full((P, m_pad), zero_row, dtype=np.int64)
+        yb = np.zeros((P, m_pad), dtype=self.dtype)
+        maskb = np.zeros((P, m_pad), dtype=self.dtype)
+        y_last_b = np.zeros((P,), dtype=self.dtype)
+        last_idx = np.full((P,), zero_row, dtype=np.int64)
+        max_iter_b = np.asarray(max_iter_b, dtype=np.int64)
         weights_b = weight_last_b = x_init_b = None
         if sample_weight is not None:
-            weights_b = np.ones((P_pad, m_pad), dtype=self.dtype)
-            weight_last_b = np.ones((P_pad,), dtype=self.dtype)
-        if initial_model is not None:
-            x_init_b = np.zeros((P_pad, m_pad), dtype=self.dtype)
-        is_first_list = []
-        for p, ((i, j), rows) in enumerate(zip(pairs, rows_list)):
-            dept = len(rows) - 1
-            is_first = idx[rows] == i
-            is_first_list.append(is_first)
-            # class i is the +1 side: machine (i, j) votes i when f > 0
-            y_pair = np.where(is_first, 1.0, -1.0)
+            weights_b = np.ones((P, m_pad), dtype=self.dtype)
+            weight_last_b = np.ones((P,), dtype=self.dtype)
+        if x_init_list is not None:
+            x_init_b = np.zeros((P, m_pad), dtype=self.dtype)
+        for p, (rows, first) in enumerate(zip(rows_list, first_list)):
+            dept = depts[p]
+            # the first side is the +1 side: machine (i, j) votes i when f > 0
+            y_pair = np.where(first, 1.0, -1.0)
             idx_b[p, :dept] = rows[:dept]
             yb[p, :dept] = y_pair[:dept]
             maskb[p, :dept] = 1.0
@@ -1074,11 +1100,9 @@ class CSVM:
             if sample_weight is not None:
                 weights_b[p, :dept] = sample_weight[rows[:dept]]
                 weight_last_b[p] = sample_weight[rows[dept]]
-            if initial_model is not None:
-                x_init_b[p, :dept] = self._oao_warm_pair_alpha(
-                    initial_model, data, rows, is_first, i, j)[:dept]
+            if x_init_list is not None:
+                x_init_b[p, :dept] = x_init_list[p][:dept]
 
-        kind = params.kernel_type.value
         X_aug = self._with_zero_row(X)
 
         def dev(a):
@@ -1086,8 +1110,9 @@ class CSVM:
 
         args = (dev(yb), dev(y_last_b), dev(maskb), params.resolved_gamma(d),
                 params.coef0.value, params.cost.value, epsilon, dev(max_iter_b))
-        solve_kw = dict(kind=kind, degree=params.degree.value, impl=self._impl(),
-                        scalars=self.scalar_precision, gram_precision=self.gram_precision,
+        solve_kw = dict(kind=params.kernel_type.value, degree=params.degree.value,
+                        impl=self._impl(), scalars=self.scalar_precision,
+                        gram_precision=self.gram_precision,
                         preconditioner=self.preconditioner, debug=self.debug,
                         x_init=dev(x_init_b), weights=dev(weights_b),
                         weight_last=dev(weight_last_b))
@@ -1098,19 +1123,13 @@ class CSVM:
             result = solve_ls_svm_pairs(
                 X_aug[dev(idx_b)], X_aug[dev(last_idx)], *args, **solve_kw)
 
-        # the dummy machines of the machine-axis split are trimmed here
-        x_sol = result.x[:P].cpu().numpy()
-        alpha_last = result.alpha_last[:P].cpu().numpy()
-        rho = result.rho[:P].cpu().numpy().astype(np.float64)
-        sv_coef = np.zeros((n, C - 1), dtype=self.dtype)
-        for p, ((i, j), rows) in enumerate(zip(pairs, rows_list)):
-            alpha_p = np.concatenate([x_sol[p, :depts[p]], [alpha_last[p]]]).astype(self.dtype)
-            oao.scatter_pair_alphas(sv_coef, rows, is_first_list[p], alpha_p, i, j)
-        iters_per_machine = [int(v) for v in result.iterations_per_pair[:P].cpu().tolist()]
-        # the loop's iterations (every machine's products in one launch each)
-        add_tracking_entry("cg", "block_iterations", int(result.iterations))
-        return self._oao_model(params, data, sv_coef, rho, iters_per_machine, start,
-                               "batched")
+        x_sol = result.x.cpu().numpy()
+        alpha_last = result.alpha_last.cpu().numpy()
+        alphas = [np.concatenate([x_sol[p, :depts[p]], [alpha_last[p]]]).astype(self.dtype)
+                  for p in range(P)]
+        return (alphas, result.rho.cpu().numpy().astype(np.float64),
+                [int(v) for v in result.iterations_per_pair.cpu().tolist()],
+                int(result.iterations))
 
     def _params_repr_for_fingerprint(self, sample_weight) -> str:
         """The parameters in the checkpoint fingerprint, with a digest of
@@ -1206,8 +1225,9 @@ class CSVM:
 
         reference: csvm.hpp:325-343 + gpu_csvm.hpp:656-730.
 
-        Binary and regression models return shape (n_pred,); one-vs-all
-        models (n_pred, C), one decision column per class; one-vs-one models
+        Binary, regression and one-class models return shape (n_pred,);
+        one-vs-all models (n_pred, C), one decision column per class;
+        one-vs-one models
         (n_pred, C(C-1)/2), one column per pair machine in LIBSVM order
         (:func:`plssvm_tpu_torch.oao.class_pairs`).
         """
@@ -1222,11 +1242,6 @@ class CSVM:
             and np.ndim(model.alpha) == 2
         ):
             return self._predict_values_oao(model, data)
-        if model.is_one_class:
-            raise NotPortedError(
-                "one-class models are not ported yet (ROADMAP Queue 1, item 7: "
-                "one-class)"
-            )
         params = model.params
         kind = params.kernel_type.value
         if kind == KernelFunctionType.CHI_SQUARED:
@@ -1307,11 +1322,15 @@ class CSVM:
         (operators.hpp:179-181).  Multiclass: argmax over the C one-vs-all
         decision columns, or pairwise voting for one-vs-one models
         (LIBSVM's svm_predict semantics, :func:`plssvm_tpu_torch.oao.vote`).
-        Regression (LS-SVR): the decision values themselves.
+        Regression (LS-SVR): the decision values themselves.  One-class:
+        +1 (inlier) where f > 0, else -1 (outlier), LIBSVM's svm_predict
+        for ``-s 2`` models.
         """
         values = self.predict_values(model, data)
         if model.is_regression:
             return values
+        if model.is_one_class:
+            return np.where(values > 0.0, 1, -1).astype(np.int64)
         if values.ndim == 2:
             # columns / machines follow the model's LAYOUT class order — the
             # file's label-header order for loaded models

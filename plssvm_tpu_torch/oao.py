@@ -1,5 +1,6 @@
 """One-vs-one (OAO) multiclass machinery: the LIBSVM coefficient layout,
-the scatter of a trained pair machine into it, and pairwise voting.
+the scatter of a trained pair machine into it, pairwise voting and the
+pairwise coupling of calibrated machines (probability.py).
 
 Counterpart of plssvm_tpu/oao.py (numpy only), with what training and
 prediction need.
@@ -27,7 +28,7 @@ writes its coefficients with :func:`scatter_pair_alphas`.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -95,16 +96,18 @@ def weight_matrix(
     return W
 
 
-def model_class_indices(model) -> np.ndarray:
-    """Class indices of the model's SV labels in its LAYOUT order.
+def model_class_indices(model, labels=None) -> np.ndarray:
+    """Class indices of label rows in the model's LAYOUT order.
 
     The layout order is ``model.class_order()`` — the file's label-header
     order for loaded models (LIBSVM writes it in appearance order, not
     sorted).  Machine enumeration, sv_coef columns and rho entries are all
-    defined against it.
+    defined against it.  ``labels`` defaults to the model's own SV labels;
+    another label array (a calibration set's) is indexed in the same
+    layout.
     """
     order = model.class_order()
-    labels = np.asarray(model.data.labels)
+    labels = np.asarray(model.data.labels if labels is None else labels)
     idx = np.full(len(labels), -1, dtype=np.int64)
     for c, lab in enumerate(order):
         idx[labels == lab] = c
@@ -144,3 +147,52 @@ def vote(decision_values: np.ndarray, n_classes: int) -> np.ndarray:
         votes[:, i] += positive
         votes[:, j] += ~positive
     return np.argmax(votes, axis=1)
+
+
+def pairwise_coupling(
+    pair_probs: np.ndarray, n_classes: int, *,
+    max_iter: Optional[int] = None, eps: Optional[float] = None,
+) -> np.ndarray:
+    """(n, C) class probabilities from (n, n_machines) pairwise estimates
+    (plssvm_tpu's ``pairwise_coupling``).
+
+    The second method of Wu, Lin & Weng, "Probability Estimates for
+    Multi-class Classification by Pairwise Coupling" (JMLR 5, 2004), the
+    algorithm of LIBSVM's ``multiclass_probability``: minimize
+    ``sum_ij (r_ji p_i - r_ij p_j)^2`` over the simplex by the fixed-point
+    iteration on ``Q p = p^T Q p``.  ``pair_probs[:, m]`` is r_ij = P(class
+    i | class i or j) for machine m = (i, j) in LIBSVM order.
+    """
+    r = np.clip(np.asarray(pair_probs, dtype=np.float64), 1e-7, 1.0 - 1e-7)
+    n = r.shape[0]
+    C = n_classes
+    if max_iter is None:
+        max_iter = max(100, C)  # LIBSVM: max_iter = max(100, k)
+    if eps is None:
+        eps = 0.005 / C  # LIBSVM's multiclass_probability default
+    R = np.zeros((n, C, C))
+    for m, (i, j) in enumerate(class_pairs(C)):
+        R[:, i, j] = r[:, m]
+        R[:, j, i] = 1.0 - r[:, m]
+    # Q[t] = sum_{j != t} R[j, t]^2 on the diagonal, -R[j, t] R[t, j] off it
+    Q = np.zeros((n, C, C))
+    for t in range(C):
+        Q[:, t, t] = np.sum(R[:, :, t] ** 2, axis=1)
+        for j in range(C):
+            if j != t:
+                Q[:, t, j] = -R[:, j, t] * R[:, t, j]
+    p = np.full((n, C), 1.0 / C)
+    for _ in range(max_iter):
+        Qp = np.einsum("ntj,nj->nt", Q, p)
+        pQp = np.einsum("nt,nt->n", p, Qp)
+        if np.all(np.max(np.abs(Qp - pQp[:, None]), axis=1) < eps):
+            break
+        for t in range(C):
+            diff = (-Qp[:, t] + pQp) / Q[:, t, t]
+            p[:, t] += diff
+            # LIBSVM's recurrence: add diff to p[t], then renormalise
+            # everything by 1 + diff
+            pQp = (pQp + diff * (diff * Q[:, t, t] + 2.0 * Qp[:, t])) / (1.0 + diff) ** 2
+            Qp = (Qp + diff[:, None] * Q[:, t, :]) / (1.0 + diff)[:, None]
+            p = p / (1.0 + diff)[:, None]
+    return p

@@ -44,6 +44,9 @@ machine, one shard per card on a machine with several.
   SV slice (B / D or F / H) and the partial decision values are summed in
   shard order.
 
+- **One-class** (:func:`ridge_sharded_operators`): the ridge solve's
+  product and dots on the same ring and reductions (one_class.py runs the
+  CG), the reference's ``build_sharded_one_class_solver``.
 - **One-vs-one, batched** (:func:`solve_ls_svm_pairs_sharded`): the pair
   machines are independent systems, so the split is over machines, not
   rows: each device gathers and solves a contiguous group of them
@@ -458,6 +461,33 @@ def solve_ls_svm_multi_sharded(
     )
 
 
+def ridge_sharded_operators(
+    X: torch.Tensor,
+    *,
+    devices: Sequence,
+    kind: KernelFunctionType,
+    degree: int,
+    impl: str = "torch",
+    scalars: str = "plain",
+    gram_precision: str = "f32",
+    kernel_matrix: Optional[Sequence[torch.Tensor]] = None,
+) -> Tuple[Callable, Callable]:
+    """``(kernel_mv, dot)`` of the one-class ridge solve with X (m, d)
+    row-sharded over ``devices``: the counterpart of
+    ``build_sharded_one_class_solver``'s ring product and psum'd dot.
+    ``kernel_mv(X, sq_norms, v, gamma, coef0)`` is the ring (the factored
+    product for the linear kernel, or with ``kernel_matrix`` the stored row
+    blocks), ``dot`` a sum of per-shard partials in shard order,
+    compensated with ``scalars="compensated"``.  The CG vectors stay whole
+    on X's device, as in :func:`solve_ls_svm_sharded`."""
+    _plain.check_precision(gram_precision)
+    devices = list(devices)[:X.shape[0]]
+    bounds = shard_bounds(X.shape[0], len(devices))
+    dot, _, _ = _sharded_reductions(bounds, scalars)
+    return (_kernel_product(X, bounds, devices, kind, degree, impl, gram_precision,
+                            kernel_matrix), dot)
+
+
 def predict_values_sharded(
     support_vectors: torch.Tensor,  # (n_sv, d)
     alpha: torch.Tensor,            # (n_sv,) or (n_sv, C)
@@ -497,14 +527,12 @@ def predict_values_sharded(
 
 def machine_groups(num_machines: int, num_devices: int) -> List[Tuple[int, int]]:
     """The contiguous machine ranges ``[lo, hi)`` of the machine-axis split:
-    ``num_machines`` (a multiple of ``num_devices``, the caller pads with
-    dummy machines) in ``num_devices`` equal groups, the reference's
-    ``shard_pairs_arrays`` placement on its machine mesh."""
-    if num_devices < 1 or num_machines % num_devices:
-        raise ValueError(f"{num_machines} machines do not split into "
-                         f"{num_devices} equal groups")
-    size = num_machines // num_devices
-    return [(g * size, (g + 1) * size) for g in range(num_devices)]
+    :func:`shard_bounds` over the machines, one group a device (fewer when
+    there are fewer machines than devices).  The groups run one after
+    another with no collectives, so unlike the reference's
+    ``shard_pairs_arrays`` they need not be equal and no dummy machine pads
+    them."""
+    return shard_bounds(num_machines, min(num_devices, num_machines))
 
 
 def solve_ls_svm_pairs_sharded(
@@ -529,16 +557,17 @@ def solve_ls_svm_pairs_sharded(
     """The batched one-vs-one solve with the machine axis split over
     ``devices``: the counterpart of ``build_sharded_pairs_solver``.
 
-    The P machines (a multiple of ``len(devices)``: the caller pads with
-    dummy machines of zero mask and weight 1, which freeze at iteration 0)
-    form ``len(devices)`` contiguous groups.  Each group's rows are gathered
+    The P machines form up to ``len(devices)`` contiguous groups
+    (:func:`machine_groups`).  Each group's rows are gathered
     on its device from the parent operand ``X_aug`` (copied once to each
     physical device) and solved there by ``solve_ls_svm_pairs`` on the
     group's machines alone, with no collectives; the groups run one after
     another.  The per-machine results come back to the first device in
     machine order, and ``iterations`` is the largest group's count (the
     reference's ``pmax``).  Each machine's arithmetic is what it is on one
-    device; the CG scalars' row reductions run over (P_local, m) blocks.
+    device, bit for bit: the groups share the stack's m, and each group's
+    plain CG scalars reduce its block padded to the whole stack's (P, m)
+    shape (``stack``).
     ``solve_kw`` are ``solve_ls_svm_pairs``' ``kind``, ``degree``,
     ``impl``, ``scalars``, ``gram_precision``, ``preconditioner`` and
     ``debug``; each group's solve makes its own operand copy for kernel O's
@@ -557,7 +586,7 @@ def solve_ls_svm_pairs_sharded(
             Xd[idx_b[lo:hi].to(dev)], Xd[last_idx[lo:hi].to(dev)], local(Yb),
             local(y_last_b), local(maskb), gamma, coef0, cost, eps, local(max_iter_b),
             x_init=local(x_init), weights=local(weights), weight_last=local(weight_last),
-            **solve_kw))
+            stack=(Yb.shape[0], lo), **solve_kw))
 
     def joined(field):
         return torch.cat([getattr(res, field).to(home) for res in results])

@@ -56,11 +56,15 @@ with (P,) vectors of CG scalars: each iteration applies every machine's
 Gram kinds in float32 on the tensor cores at "f32" and "bf16", in float64
 on the FP64 tensor cores), and a machine freezes at its own stop rule or
 cap.
+
+The one-class solve (``ridge_cg_core``, driven by one_class.py) is plain
+ridge CG on ``(K + I/C) a = 1`` with the same stop rule and cadence: no
+folded-out row, the cold start x0 = 0.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -127,6 +131,20 @@ def compensated_sum(x: torch.Tensor) -> torch.Tensor:
 def compensated_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Dot product with double-float accumulation of the products."""
     return compensated_sum(a * b)
+
+
+def machine_sums(V: torch.Tensor,
+                 stack: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Row sums of a (P, m) block of pair machines, one ``torch.sum``.  Its
+    order on a CUDA device depends on the block's shape, so with ``stack =
+    (P_stack, lo)`` (the block is machines ``lo..lo+P`` of a stack of
+    ``P_stack``) the block is zero-padded to the stack's shape first: each
+    machine then sums as it does in the whole stack."""
+    P = V.shape[0]
+    P_stack, lo = (P, 0) if stack is None else stack
+    if P_stack != P:
+        V = torch.nn.functional.pad(V, (0, 0, lo, P_stack - lo - P))
+    return torch.sum(V, dim=1)[lo:lo + P]
 
 
 def _scalar_reductions(scalars: str):
@@ -388,6 +406,79 @@ def solve_ls_svm(
         kernel_mv=_make_kernel_matvec(kind, degree, impl, gram_precision),
         dot=dot, vsum=vsum, **extras,
     )
+
+
+def ridge_cg_core(
+    b: torch.Tensor,       # (m,) right-hand side: ones for the one-class solve
+    matvec: Callable,      # v -> A @ v
+    dot: Callable = torch.dot,
+    *,
+    eps: float,
+    max_iter: int,
+    x_init: Optional[torch.Tensor] = None,  # warm start (pruning refits)
+    init_state=None,       # (x, r, d, delta, delta0, iteration) to resume
+    debug: bool = False,   # NaN/Inf guards on the CG state
+):
+    """Plain ridge CG ``A x = b``: plssvm_tpu's ``ridge_cg_core``.
+
+    The one-class LS-SVM solve (one_class.py): ``A = K + I/C``, the
+    classifier's implicit matrix with q = 0 and QA_cost = 0, so there is
+    no folded-out row, no rank-one term and no bias.  The stop rule is the
+    classifier's, ``r.r <= eps^2 delta0``, with an exact residual every
+    50th iteration.  The cold start is x0 = 0, so ``delta0 = b.b``;
+    ``x_init`` starts from a previous solve with the target still anchored
+    there (no extra product).  ``init_state`` continues a checkpointed
+    solve after its ``iteration``-th step.  ``dot`` is the reference's
+    plain dot (or its sharded sum of partials); ``debug`` raises
+    :class:`NumericCheckError` with plssvm_tpu's messages.
+
+    Returns ``(x, r, d, delta, delta0, iterations)``: r, d and delta are
+    the live state a checkpoint keeps.
+    """
+    if init_state is not None:
+        x, r, d, delta, delta0, it = init_state
+        it = int(it)
+    else:
+        delta0 = dot(b, b)
+        if x_init is None:
+            x = torch.zeros_like(b)
+            r = b
+            delta = delta0
+        else:
+            x = x_init.to(b.dtype)
+            r = b - matvec(x)
+            delta = dot(r, r)
+        d = r
+        it = 0
+    target = eps * eps * delta0
+    if debug:
+        _check_finite(torch.isfinite(delta), lambda:
+                      "initial ridge-CG residual |r0|^2 is non-finite — the training "
+                      "data or kernel parameters contain NaN/Inf")
+
+    while it < max_iter and bool(delta > target):
+        Ad = matvec(d)
+        dAd = dot(d, Ad)
+        a = delta / dAd
+        x = x + a * d
+        if it % EXACT_RESIDUAL_INTERVAL == EXACT_RESIDUAL_INTERVAL - 1:
+            r = b - matvec(x)
+        else:
+            r = r - a * Ad
+        delta_new = dot(r, r)
+        if debug:
+            _check_finite(torch.isfinite(a), lambda:
+                          f"ridge-CG step size became non-finite at iteration {it} "
+                          f"(d.Ad = {float(dAd)})")
+            _check_finite(torch.isfinite(delta_new), lambda:
+                          f"ridge-CG residual |r|^2 became non-finite at iteration {it}")
+            _check_finite(torch.isfinite(x), lambda:
+                          f"ridge-CG iterate contains non-finite values at iteration {it}")
+        beta = delta_new / delta
+        d = r + beta * d
+        delta = delta_new
+        it += 1
+    return x, r, d, delta, delta0, it
 
 
 class MultiCGResult(NamedTuple):
@@ -782,6 +873,7 @@ def solve_ls_svm_pairs(
     impl: str = "torch",
     scalars: str = "plain",
     gram_precision: str = "f32",
+    stack: Optional[Tuple[int, int]] = None,
     **extras,
 ) -> PairsCGResult:
     """The batched one-vs-one LS-SVM CG solve on the device that holds
@@ -795,23 +887,28 @@ def solve_ls_svm_pairs(
     which ignores the tier).
     ``scalars="compensated"`` takes the per-machine dots and sums as
     compensated folds over the transposed (m, P) blocks, one per machine
-    (plssvm_tpu's ``compensated_sum((A * V).T)``).  ``extras`` are the
-    core's ``preconditioner``, ``x_init``, ``weights`` / ``weight_last`` and
-    ``debug``.
+    (plssvm_tpu's ``compensated_sum((A * V).T)``), elementwise steps that
+    sum each machine alike in a block of any size.  ``"plain"`` takes them
+    as :func:`machine_sums`, with ``stack = (P_stack, lo)`` for the
+    machine-axis split's group at machines ``lo..lo+P`` of a stack of
+    ``P_stack``, so that each machine sums as it does on one device.  ``extras`` are the core's ``preconditioner``, ``x_init``,
+    ``weights`` / ``weight_last`` and ``debug``.
     """
     check_precision(gram_precision)
     lens = (maskb != 0).sum(dim=1).to(torch.int64)
     if scalars == "compensated":
-        def bdot(A, V):
-            return compensated_sum((A * V).T)
-
-        def bsum(V):
+        def fold(V):
             return compensated_sum(V.T)
     else:
-        bdot = bsum = None
+        def fold(V):
+            return machine_sums(V, stack)
+
+    def bdot(A, V):
+        return fold(A * V)
+
     return cg_ls_svm_pairs_core(
         Xb, x_last_b, Yb, y_last_b, maskb, gamma, coef0, cost, eps, max_iter_b,
         kind=kind, degree=degree,
         kernel_bmv=_make_pairs_matvec(kind, degree, impl, lens, gram_precision, Xb),
-        bdot=bdot, bsum=bsum, **extras,
+        bdot=bdot, bsum=fold, **extras,
     )

@@ -276,8 +276,7 @@ class TestNotPorted:
 
     @pytest.mark.parametrize(
         "flags",
-        [["--multihost"], ["--cross_validation", "3"], ["-s", "one_class"],
-         ["--nystroem", "5"], ["--max_sv", "5"], ["--probability"],
+        [["--multihost"], ["--nystroem", "5"], ["--max_sv", "5"],
          ["--streaming"], ["--profile", "trace"]],
     )
     def test_cli_rejects(self, flags, tmp_path, capsys):
@@ -291,17 +290,25 @@ class TestNotPorted:
     @pytest.mark.parametrize("flags,header", [
         (["--classification", "oao"], "nr_class 3"),
         (["-s", "epsilon_svr"], "svm_type epsilon_svr"),
+        (["-s", "one_class"], "svm_type one_class"),
+        (["--probability"], "probA"),
+        (["--cross_validation", "3"], None),
     ])
     def test_cli_ported(self, flags, header, tmp_path):
-        """``--classification oao`` (item 6) and ``-s epsilon_svr`` (item
-        7's LS-SVR) are ported: the CLI writes the model
-        (tests/test_torch_oao.py and tests/test_torch_regression.py hold
-        both against plssvm_tpu's CLI)."""
+        """``--classification oao`` (item 6), ``-s epsilon_svr``, ``-s
+        one_class``, ``--probability`` and ``--cross_validation`` (item 7)
+        are ported: the CLI writes the model, or for cross-validation none
+        (tests/test_torch_oao.py, test_torch_regression.py,
+        test_torch_one_class.py and test_torch_probability.py hold them
+        against plssvm_tpu's CLI)."""
         train_file = os.path.join(tmp_path, "train.libsvm")
         self._data(3).save(train_file)
         model = os.path.join(tmp_path, "out.model")
         assert t_train_cli.main(flags + ["-p", "cpu", "-q", train_file, model]) == 0
-        assert header in open(model).read()
+        if header is None:
+            assert not os.path.exists(model)
+        else:
+            assert header in open(model).read()
 
 
 class TestAutomaticNeverMeansTheCpu:

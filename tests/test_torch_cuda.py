@@ -1542,3 +1542,100 @@ def test_batched_oao_fit_on_the_card(cuda_device, kernel, devices):
     assert max(abs(a - b) for a, b in zip(models[0].n_iter_per_machine,
                                           models[1].n_iter_per_machine)) <= 2
     assert np.max(np.abs(np.asarray(models[0].rho) - np.asarray(models[1].rho))) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["rbf", "chi_squared"])
+def test_batched_oao_split_is_one_device_bit_for_bit(cuda_device, kernel):
+    """The float64 batched one-vs-one fit with its machines split over
+    three entries of cuda:0 is the one-device fit's bits: each group's
+    plain CG scalars sum its (P_group, m) block padded to the whole stack's
+    shape (``machine_sums``), since ``torch.sum`` splits the rows by the
+    block's shape."""
+    import numpy as np
+
+    import plssvm_tpu_torch as port
+
+    port.set_verbosity("quiet")
+    rng = np.random.default_rng(6)
+    y = rng.integers(0, 6, 400)
+    X = np.abs(rng.normal(size=(400, 12)) + 2.0 * rng.normal(size=(6, 12))[y])
+    models = [port.CSVM(backend="cuda", dtype=np.float64, kernel_type=kernel,
+                        oao_batch="batched", **where).fit(
+        port.DataSet(X, y, scaling=(0.0, 1.0)), classification="oao", epsilon=1e-10)
+        for where in (dict(device="cuda"), dict(devices=["cuda:0"] * 3))]
+    assert models[0].n_iter_per_machine == models[1].n_iter_per_machine
+    assert np.array_equal(np.asarray(models[0].alpha), np.asarray(models[1].alpha))
+    assert np.array_equal(np.asarray(models[0].rho), np.asarray(models[1].rho))
+
+
+def _one_class_dense(X, gamma, cost=1.0):
+    """alpha of ``(K + I/C) a = 1`` and the scores ``K a``, in float64 with
+    numpy, for the RBF kernel."""
+    import numpy as np
+
+    X = np.asarray(X, dtype=np.float64)
+    sq = np.sum(X * X, axis=1)
+    K = np.exp(-gamma * np.maximum(sq[:, None] + sq[None, :] - 2.0 * X @ X.T, 0.0))
+    alpha = np.linalg.solve(K + np.eye(len(X)) / cost, np.ones(len(X)))
+    return alpha, K @ alpha
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,precision,tol", [
+    ("float32", "f32", 3e-3), ("float32", "highest", 1e-4), ("float64", "f32", 1e-9)])
+def test_one_class_fit_against_a_dense_solve(cuda_device, dtype, precision, tol):
+    """The one-class ridge solve on the card (kernel A at the tier: the
+    TF32 tile, the split tile at "highest", the DMMA tile in float64)
+    against the float64 dense solve: alpha within ``tol`` of its largest
+    magnitude (TF32 rounds the Gram products to 2^-11), A launched once per
+    product, the predict's labels those of the dense scores on all but
+    1 % of the points near the threshold."""
+    import numpy as np
+
+    import plssvm_tpu_torch as port
+    from plssvm_tpu_torch.ops import gram_matvec
+
+    port.set_verbosity("quiet")
+    X = np.random.default_rng(7).normal(size=(1500, 40))
+    gamma = 1.0 / 40
+    alpha, g = _one_class_dense(X, gamma)
+    svm = port.CSVM(backend="cuda", dtype=np.dtype(dtype), kernel_type="rbf", gamma=gamma,
+                    gram_precision=precision, solver="cg_implicit")
+    gram_matvec.reset_counts()
+    model = port.fit_one_class(svm, port.DataSet(X), nu=0.1,
+                               epsilon=1e-10 if dtype == "float64" else 1e-6)
+    launched = (gram_matvec.sym_dmma_launches if dtype == "float64"
+                else gram_matvec.sym_tc_launches)
+    assert launched == model.n_iter + model.n_iter // 50 + 1
+    assert np.max(np.abs(model.alpha - alpha)) <= tol * np.max(np.abs(alpha))
+    predicted = svm.predict(model, port.DataSet(X))
+    want = np.where(g - np.quantile(g, 0.1) > 0, 1, -1)
+    assert np.mean(predicted == want) >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("kernel", ["rbf", "laplacian"])
+def test_one_class_ring_against_one_device(cuda_device, kernel, dtype):
+    """``CSVM(devices=["cuda:0"] * 4)`` one-class against one device:
+    float64 the same iterations, alpha within 1e-10; float32 (the ring's
+    compensated shard partials against one device's plain dot) the
+    labels on 99.5 % of the points."""
+    import numpy as np
+
+    import plssvm_tpu_torch as port
+
+    port.set_verbosity("quiet")
+    X = np.random.default_rng(8).normal(size=(2001, 30))
+    svms = [port.CSVM(backend="cuda", dtype=np.dtype(dtype), kernel_type=kernel,
+                      solver="cg_implicit", **where)
+            for where in (dict(device="cuda"), dict(devices=["cuda:0"] * 4))]
+    data = port.DataSet(X, dtype=np.dtype(dtype))
+    eps = 1e-10 if dtype == "float64" else 1e-6
+    one, ring = (port.fit_one_class(svm, data, nu=0.05, epsilon=eps) for svm in svms)
+    if dtype == "float64":
+        assert one.n_iter == ring.n_iter
+        assert np.max(np.abs(one.alpha - ring.alpha)) <= 1e-10 * np.max(np.abs(one.alpha))
+    agree = np.mean(svms[0].predict(one, data) == svms[1].predict(ring, data))
+    assert agree >= (0.999 if dtype == "float64" else 0.995)

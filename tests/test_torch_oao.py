@@ -14,9 +14,10 @@ same seeded sets: sv_coef, rho and the iterations per machine.  Tolerances:
   4);
 - the port's batched fit against its sequential one: 1e-8 as well (the
   same algorithm per machine, the reductions in another order);
-- the machine-axis split against the one-device batched fit: ``SPLIT_TOL``
-  = 1e-12 (each machine's arithmetic is the same; only the CG scalars' row
-  reductions run over another block shape);
+- the machine-axis split against the one-device batched fit: bit for bit
+  (each machine's arithmetic is the same, its CG scalars folds along its
+  own rows in a fixed order), and ``SPLIT_TOL`` = 1e-12 in the older
+  cases;
 - float32 (compensated scalars) at epsilon 1e-5: a working model (every
   training label right on separable blobs), as plssvm_tpu's own test holds
   it.
@@ -838,7 +839,7 @@ class TestOAOBatched:
 class TestOAOMeshBatched:
     """plssvm_tpu's TestOAOMeshBatched with ``devices=["cpu"] * k``: the
     batched solve's machine axis split over k entries, 28 machines (8
-    classes), not a multiple of k = 3, so dummy machines pad it."""
+    classes), not a multiple of k = 3, so the groups differ in size."""
 
     def _data(self, C=8, n=320, d=10, seed=5):
         rng = np.random.default_rng(seed)
@@ -863,6 +864,47 @@ class TestOAOMeshBatched:
             "batched"
         _, one = self._fit("batched")
         _assert_same_model(split, one, tol=SPLIT_TOL)
+
+    @pytest.mark.parametrize("dtype", [np.float64, np.float32])
+    @pytest.mark.parametrize("k", [2, 3, 4])
+    def test_split_is_the_single_device_fit_bit_for_bit(self, k, dtype):
+        """Each machine's CG scalars sum its own rows in an order that does
+        not depend on how many machines share its group
+        (``solver/cg.py::machine_sums`` over the group padded to the
+        stack's shape in float64, the compensated fold in float32), so the
+        split fit is the one-device fit's bits, iterations per machine
+        included."""
+        X, y = self._data()
+        fits = []
+        for where in (dict(device="cpu"), dict(devices=["cpu"] * k)):
+            svm = plssvm_tpu_torch.CSVM(dtype=dtype, kernel_type="rbf", gamma=0.2, cost=2.0,
+                                        oao_batch="batched", **where)
+            fits.append(svm.fit(plssvm_tpu_torch.DataSet(X, y, dtype=dtype),
+                                classification="oao",
+                                epsilon=1e-8 if dtype == np.float64 else 1e-5))
+        one, split = fits
+        assert split.n_iter_per_machine == one.n_iter_per_machine
+        np.testing.assert_array_equal(np.asarray(split.alpha), np.asarray(one.alpha))
+        np.testing.assert_array_equal(np.asarray(split.rho), np.asarray(one.rho))
+
+    @pytest.mark.parametrize("m,P", [(1, 1), (2, 3), (7, 45), (1600, 12), (1601, 45)])
+    def test_machine_sums_of_a_group_are_the_stacks(self, m, P):
+        """The plain scalars' row sums: a group of machines padded to its
+        stack's shape sums each machine to the bits it has in the whole
+        stack, within a few ulps of math.fsum."""
+        import math
+
+        from plssvm_tpu_torch.parallel.sharded import machine_groups
+        from plssvm_tpu_torch.solver.cg import machine_sums
+
+        block = torch.as_tensor(np.random.default_rng(m + P).normal(size=(P, m)))
+        sums = machine_sums(block)
+        assert sums.shape == (P,)
+        for lo, hi in machine_groups(P, 4):
+            assert torch.equal(machine_sums(block[lo:hi], (P, lo)), sums[lo:hi])
+        for p in (0, P // 2, P - 1):
+            exact = math.fsum(block[p].tolist())
+            assert abs(float(sums[p]) - exact) <= 1e-13 * float(block[p].abs().sum())
 
     def test_split_matches_the_reference(self):
         X, y = self._data()

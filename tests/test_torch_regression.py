@@ -29,7 +29,6 @@ from plssvm_tpu.cli import predict as j_predict_cli
 from plssvm_tpu.cli import train as j_train_cli
 from plssvm_tpu_torch.cli import predict as t_predict_cli
 from plssvm_tpu_torch.cli import train as t_train_cli
-from plssvm_tpu_torch.exceptions import NotPortedError
 
 EPS = 1e-10
 TOL = 1e-8
@@ -164,11 +163,16 @@ def test_model_file_round_trip(tmp_path):
 
 
 def test_one_class_models_still_raise(tmp_path):
+    """One-class models are ported (ROADMAP Queue 1 item 7): a model marked
+    one-class predicts its decision values as a binary model does and
+    +1 / -1 by their sign (tests/test_torch_one_class.py holds one-class
+    training against plssvm_tpu's)."""
     (t_svm, t_model, _, t_test), _ = _both("linear")
+    values = t_svm.predict_values(t_model, t_test)
     t_model.is_regression = False
     t_model.is_one_class = True
-    with pytest.raises(NotPortedError, match="item 7"):
-        t_svm.predict_values(t_model, t_test)
+    np.testing.assert_array_equal(t_svm.predict_values(t_model, t_test), values)
+    np.testing.assert_array_equal(t_svm.predict(t_model, t_test), np.where(values > 0, 1, -1))
 
 
 @pytest.mark.parametrize("svm_type", ["epsilon_svr", "svr"])
