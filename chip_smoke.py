@@ -137,6 +137,17 @@ the "host-clis" phase (``plssvm-torch-scale`` and
 ``plssvm-torch-generate-data``, timed), then 6, 7, 10 and 13 while phase
 8 and 9's files exist, then phases 11 and 12.
 
+After the ring, the host modules around the fits: "one-class",
+"probability" and "robust" (``phase_one_class``, ``phase_probability``,
+``phase_robust``), then "compact" (``phase_compact``: Nystroem fits at MNIST
+width in float32 and float64 and on four shards of cuda:0, chi-squared at
+chi2-width on kernel N, ``plssvm-torch-train --max_sv`` on config 2's and
+the 10-class files, ``--nystroem --streaming`` against the in-memory fit)
+and "sklearn" (``phase_sklearn``: SVC one-vs-all, one-vs-one and with
+probabilities, SVR, OneClassSVM and the compact SVCs, each against the
+CSVM-level call; sklearn itself never imported), each with its launches
+counted from 0.
+
 Phase 3 also holds kernels E-H (laplacian / chi-squared matvecs and block
 matmats, csrc/distance.cu) against their plain versions on ragged shapes
 with non-negative, zero-rich data and at phases 8-10's shapes, and times
@@ -6058,6 +6069,475 @@ def phase_robust():
     return launches
 
 
+#: the compact phase (ROADMAP Queue 1 item 9): the fixed-size fits'
+#: landmarks at MNIST width and chi2-width, and of the streamed CLI fits;
+#: the pruned CLI fits' support vectors
+COMPACT_M, COMPACT_CLI_M, COMPACT_MAX_SV = 2048, 1024, 1000
+#: sparse.nystroem_fit's row block: 60000 rows are ceil(60000 / 4096) = 15
+#: blocks, each one K(X_blk, Z) launch of kernel N's rect walk for the
+#: distance kinds
+COMPACT_ROW_BLOCK = 4096
+#: the streamed CLI fits' decision values against the in-memory fits' on
+#: the same landmarks, relative to max|f|: tests/test_torch_sparse.py's
+#: float32 tolerance (FLOAT32_STREAM_TOL; the sums in another order read
+#: 1.5e-6 to 7e-6 there)
+COMPACT_STREAM_TOL = 1e-4
+#: the compact phase's nu for the streamed one-class CLI fit (the one-class
+#: phase's)
+COMPACT_NU = 0.05
+#: the sklearn phase: the facade and the CSVM-level call fit the same system
+#: apart, and the kernels' atomics may reorder a sum, so their values are
+#: logged (bit for bit or not); labels equal on every point, the sigmoids
+#: (A, B) within this share of max(|A|, |B|), SVR's R^2 within
+#: FRIEDMAN_R2_GAP (two float64 solves stopped at epsilon 1e-6 may stop an
+#: iteration apart)
+FACADE_REL = 1e-6
+
+
+def _nystroem_counts():
+    """Kernel N's (symmetric, rect) launches and plain calls since their
+    last reset, beside the Gram kernels' (``_launch_counts``)."""
+    from plssvm_tpu_torch.ops import kernel_matrix
+
+    return dict(_launch_counts(), N=(kernel_matrix.sym_launches, kernel_matrix.rect_launches),
+                N_plain=kernel_matrix.plain_calls)
+
+
+def _nystroem_run(label, svm, train, test, labels):
+    """``nystroem_fit`` of ``train`` on COMPACT_M stratified landmarks and
+    the predict of ``test``, timed, with the fit's phases from the tracker
+    (``basis_ms``: K_mm and its inverse square root on the host;
+    ``reduce_ms``: the row blocks; ``solve_ms``: the bordered solve) and
+    the launches after the fit and after the predict."""
+    import plssvm_tpu_torch as port
+    from plssvm_tpu_torch.ops import kernel_matrix
+
+    port.global_tracker.clear()
+    _reset_launch_counts()
+    kernel_matrix.reset_counts()
+    t0 = time.perf_counter()
+    model, idx = port.nystroem_fit(svm, train, n_landmarks=COMPACT_M, return_indices=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fit_counts = _nystroem_counts()
+    predicted = svm.predict(model, test)
+    t2 = time.perf_counter()
+    phases = {k: _tracked("nystroem", k) for k in ("basis_ms", "reduce_ms", "solve_ms")}
+    blocks = _tracked("nystroem", "row_blocks")
+    accuracy = float(np.mean(predicted == labels))
+    alpha = np.asarray(model.alpha)
+    model_bytes = model.support_vectors.nbytes + alpha.nbytes
+    log("compact", f"{label}: {COMPACT_M} landmarks, fit {t1 - t0:.3f} s (basis "
+        f"{phases['basis_ms'] / 1000:.3f} s, reduction of {blocks} row blocks "
+        f"{phases['reduce_ms'] / 1000:.3f} s, host solve {phases['solve_ms'] / 1000:.3f} s), "
+        f"predict {len(labels)} points {t2 - t1:.3f} s, accuracy {accuracy:.4f}; model "
+        f"{model.num_support_vectors} SVs, {model_bytes} bytes (an exact fit: "
+        f"{train.num_data_points} SVs, {train.data.nbytes + train.num_data_points * alpha.nbytes // len(alpha)} "
+        f"bytes); launches after the fit {fit_counts}, after the predict {_nystroem_counts()}")
+    if not (np.all(np.isfinite(alpha)) and np.all(np.isfinite(model.rho))):
+        raise AssertionError(f"compact {label}: non-finite model")
+    return dict(model=model, idx=idx, predicted=predicted, accuracy=accuracy, blocks=blocks,
+                fit_s=t1 - t0, fit_counts=fit_counts, counts=_nystroem_counts())
+
+
+def _compact_cli(tmp, label, train_file, test_file, labels, flags):
+    """A compact fit through ``plssvm-torch-train`` (``flags``) and its
+    predict through ``plssvm-torch-predict`` at config 2's epsilon; the
+    fits' CG iterations (one tracker entry a fit: the first fit and each
+    pruning round's refit) and the launches after both."""
+    _reset_launch_counts()
+    fit_s, predict_s, predicted, io = _cli_fit_predict(
+        f"compact-{label.replace(' ', '-')}", train_file, test_file, tmp,
+        ["-t", "2", "-c", "1", "-e", str(EPSILON)] + flags)
+    import plssvm_tpu_torch as port
+
+    its = [v for k, v in port.global_tracker.entries().get("cg", []) if k == "iterations"]
+    counts = _launch_counts()
+    accuracy = float(np.mean(predicted == labels))
+    return dict(fit_s=fit_s, predict_s=predict_s, predicted=predicted, io=io, its=its,
+                counts=counts, accuracy=accuracy)
+
+
+def _lexsorted(rows):
+    rows = np.asarray(rows)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def phase_compact(tmp, config2_files, mc_files, mnist_cell):
+    """Compact models (ROADMAP Queue 1 item 9, sparse.py) on the card:
+
+    (a) Nystroem at MNIST width: the mnist-width cell's 10 Gaussian classes,
+        60000 x 784, RBF, COMPACT_M class-stratified landmarks, float32
+        (K(X_blk, Z) on cuBLAS in TF32 at "f32", the projections in full
+        float32) and float64; the fit's basis, reduction and host solve
+        apart, accuracy beside the exact fit's (floor MC_ACCURACY_FLOOR),
+        float32 / float64 label agreement >= ONE_CLASS_AGREEMENT (the
+        repo's f32 / f64 gate), the model's size; predict on D;
+    (b) Nystroem, chi-squared, at chi2-width (the histogram classes, 60000 x
+        784, float32, COMPACT_M landmarks): kernel N's symmetric walk once
+        (K_mm) and its rect walk once a row block (>= 15), a row block of N
+        held against its plain version at the cell's shape afterwards
+        (outside the counted run); predict on H;
+    (c) ``plssvm-torch-train --max_sv COMPACT_MAX_SV`` on config 2's files
+        (binary, A at TF32) and on the 10-class CLI files (one-vs-all, C):
+        the pruning rounds, A / C launched once a product of every fit
+        (a warm-started refit one more: its cold start's residual), the
+        model's COMPACT_MAX_SV SVs; accuracy logged beside the exact fits'
+        and not gated: pruning keeps the largest |alpha|, which in LS-SVM are
+        the largest training errors, and on these overlapping classes the
+        survivors predict far worse (``tools/compact_witness.py``: plssvm_tpu
+        in float64 on a CPU loses as much on the same draws);
+    (d) ``--nystroem COMPACT_CLI_M --streaming`` on the 10-class CLI files
+        and ``-s one_class --nystroem COMPACT_CLI_M --streaming``: the
+        landmarks those of the in-memory fit (the same draw), decision values
+        within COMPACT_STREAM_TOL of max|f|;
+    (e) (a) with ``devices=["cuda:0"] * 4``, each shard's rows on its own
+        reduction, against one device: the ring's gates, >= 0.999 float64,
+        >= 0.995 float32.
+
+    Returns the launches of the counted runs."""
+    import plssvm_tpu_torch as port
+    from plssvm_tpu_torch.ops import kernel_matrix
+    from plssvm_tpu_torch.parameter import KernelFunctionType as K
+    from plssvm_tpu_torch.sparse import _stratified_landmarks
+
+    launches = {}
+    # (a) MNIST width, float32 and float64
+    runs = {}
+    for dtype in (np.float32, np.float64):
+        train, test = mnist_cell["make"](dtype)
+        svm = port.CSVM(backend="cuda", device="cuda", dtype=dtype, kernel_type="rbf")
+        runs[np.dtype(dtype).name] = _nystroem_run(
+            f"(a) MNIST width rbf {np.dtype(dtype).name}", svm, train, test,
+            mnist_cell["labels"])
+    f32, f64 = runs["float32"], runs["float64"]
+    exact = mnist_cell["implicit"]["accuracy"]
+    agree = float(np.mean(f32["predicted"] == f64["predicted"]))
+    log("compact", f"(a) accuracy float32 {f32['accuracy']:.4f}, float64 {f64['accuracy']:.4f} "
+        f"(the exact 60000-SV fit {exact:.4f}, floor {MC_ACCURACY_FLOOR}); float32 / float64 "
+        f"label agreement {agree:.4f} (gate {ONE_CLASS_AGREEMENT}); the same landmarks "
+        f"{bool(np.array_equal(f32['idx'], f64['idx']))}")
+    if not np.array_equal(f32["idx"], f64["idx"]):
+        raise AssertionError("compact (a): float32 and float64 drew other landmarks")
+    if min(f32["accuracy"], f64["accuracy"]) < MC_ACCURACY_FLOOR or agree < ONE_CLASS_AGREEMENT:
+        raise AssertionError(f"compact (a): accuracy {f32['accuracy']}, {f64['accuracy']}, "
+                             f"agreement {agree}")
+    for run in runs.values():
+        c = run["counts"]
+        if run["fit_counts"]["D"] or c["D"] != 1 or c["ffma"] or c["plain"] or c["N"] != (0, 0):
+            raise AssertionError(f"compact (a): launches {c}")
+    launches["gram_matmat_rect_tc"] = f32["counts"]["D"]
+    launches["gram_matmat_rect_dmma"] = f64["counts"]["D"]
+
+    # (e) the same fits row-sharded over four entries of cuda:0
+    for name, floor in (("float32", 0.995), ("float64", 0.999)):
+        dtype = np.dtype(name)
+        train, test = mnist_cell["make"](dtype)
+        ring = port.CSVM(backend="cuda", devices=["cuda:0"] * RING_SHARDS, dtype=dtype,
+                         kernel_type="rbf")
+        run = _nystroem_run(f"(e) MNIST width rbf {name}, {RING_SHARDS} shards of cuda:0",
+                            ring, train, test, mnist_cell["labels"])
+        one = runs[name]
+        agree = float(np.mean(run["predicted"] == one["predicted"]))
+        d_alpha = float(np.max(np.abs(np.asarray(run["model"].alpha, np.float64)
+                                      - np.asarray(one["model"].alpha, np.float64))))
+        log("compact", f"(e) {name}: {RING_SHARDS} shards against one device: fit "
+            f"{run['fit_s']:.3f} s against {one['fit_s']:.3f} s, {run['blocks']} row blocks "
+            f"against {one['blocks']}, max|d alpha| {d_alpha:.3e}, label agreement "
+            f"{agree:.4f} (gate {floor})")
+        if agree < floor or not np.array_equal(run["idx"], one["idx"]):
+            raise AssertionError(f"compact (e) {name}: agreement {agree}")
+    del runs, f32, f64, train, test
+
+    # (b) chi-squared at chi2-width: kernel N
+    X, y, X_test, y_test, gamma, bayes, made_s = _chi2_width_data()
+    svm = port.CSVM(backend="cuda", device="cuda", dtype=np.float32, kernel_type="chi_squared",
+                    gamma=gamma)
+    run = _nystroem_run("(b) chi2-width chi-squared float32", svm,
+                        port.DataSet(X, y, dtype=np.float32),
+                        port.DataSet(X_test, y_test, dtype=np.float32), y_test)
+    blocks = -(-X.shape[0] // COMPACT_ROW_BLOCK)
+    sym, rect = run["fit_counts"]["N"]
+    log("compact", f"(b) histograms made in {made_s:.2f} s, gamma {gamma:.6f}, Bayes-optimal "
+        f"accuracy {bayes:.4f}; kernel N: {sym} symmetric launch (K_mm), {rect} rect launches "
+        f"(gate >= {blocks}: one a row block), plain calls {run['fit_counts']['N_plain']}; "
+        f"predict through H: {run['counts']}; accuracy {run['accuracy']:.4f} (floor "
+        f"{CHI2_ACCURACY_FLOOR})")
+    if sym != 1 or rect < blocks or run["fit_counts"]["N_plain"] or run["accuracy"] \
+            < CHI2_ACCURACY_FLOOR:
+        raise AssertionError(f"compact (b): N {sym}, {rect}, accuracy {run['accuracy']}")
+    launches["kernel_matrix_sym"], launches["kernel_matrix_rect"] = sym, rect
+    # N's row block at the cell's shape against its plain version (not counted)
+    Z = torch.as_tensor(X[run["idx"]], dtype=torch.float32, device="cuda")
+    Xb = torch.as_tensor(X[:COMPACT_ROW_BLOCK], dtype=torch.float32, device="cuda")
+    kw = dict(kind=K.CHI_SQUARED, gamma=gamma)
+    err, scale = _check_close(f"kernel_matrix_rect chi-squared {COMPACT_ROW_BLOCK}x{COMPACT_M}"
+                              f"x{X.shape[1]}", kernel_matrix.kernel_matrix_rect(Xb, Z, **kw),
+                              kernel_matrix.kernel_matrix_rect_plain(Xb, Z, **kw))
+    log("compact", f"(b) kernel N's rect walk at the row block {COMPACT_ROW_BLOCK}x{COMPACT_M}"
+        f"x{X.shape[1]} against its plain version: max|err| {err:.3e} (max|plain| {scale:.3f}, "
+        f"tolerance {F32_TOL} of it)")
+    del X, y, X_test, y_test, Z, Xb
+
+    # (c) pruning through the CLI: config 2 (binary) and the 10 classes
+    (train_file, _), (test_file, test_labels) = config2_files
+    mc_train, mc_test = mc_files["mc_train"][0], mc_files["mc_test"][0]
+    for label, files, labels, exact_s, key in (
+            ("binary", (train_file, test_file), test_labels, 0.9220, "A"),
+            ("10 classes one-vs-all", (mc_train, mc_test), mc_files["mc_test"][1], 0.8535,
+             "C")):
+        run = _compact_cli(tmp, f"max-sv {label}", *files, labels,
+                           ["--max_sv", str(COMPACT_MAX_SV)])
+        its = run["its"]
+        products = sum(1 + it + it // 50 for it in its) + len(its) - 1
+        model = port.Model.load(os.path.join(
+            tmp, f"compact-max-sv-{label.replace(' ', '-')}.model"), dtype=np.float32)
+        log("compact", f"(c) --max_sv {COMPACT_MAX_SV} {label} (CLI): {len(its)} fits "
+            f"({len(its) - 1} pruning rounds), iterations {its}, fit {run['fit_s']:.3f} s "
+            f"(file I/O {run['io']['fit_parse']:.3f}), predict {run['predict_s']:.3f} s, "
+            f"{model.num_support_vectors} SVs, accuracy {run['accuracy']:.4f} (logged; the "
+            f"exact fit {exact_s}); launches {run['counts']} ({key}: {products} products)")
+        if run["counts"][key] != products or run["counts"]["ffma"] or run["counts"]["plain"] \
+                or model.num_support_vectors != COMPACT_MAX_SV \
+                or not np.all(np.isfinite(np.asarray(model.alpha))):
+            raise AssertionError(f"compact (c) {label}: {run['counts']}, "
+                                 f"{model.num_support_vectors} SVs")
+        launches["gram_matvec_sym_tc" if key == "A" else "gram_matmat_sym_tc"] = \
+            run["counts"][key]
+
+    # (d) streamed from the 10-class CLI files, against the in-memory fits
+    train_labels = mc_files["mc_train"][1]
+    train = port.DataSet(mc_train, dtype=np.float32)
+    test = port.DataSet(mc_test, dtype=np.float32)
+    svm = port.CSVM(backend="cuda", device="cuda", dtype=np.float32, kernel_type="rbf")
+    for label, flags in (("10 classes", []),
+                         ("one-class", ["-s", "one_class", "-n", str(COMPACT_NU)])):
+        from plssvm_tpu_torch.cli import train as train_cli
+        from plssvm_tpu_torch.native import loader
+
+        model_file = os.path.join(tmp, f"compact-stream-{label.replace(' ', '-')}.model")
+        _reset_launch_counts()
+        loader.reset_counts()
+        t0 = time.perf_counter()
+        rc = train_cli.main(["-b", "cuda", "-p", "gpu", "-q", "-t", "2", "--nystroem",
+                             str(COMPACT_CLI_M), "--streaming"] + flags + [mc_train, model_file])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = _launch_counts()
+        if rc != 0:
+            raise AssertionError(f"compact (d) {label}: train rc {rc}")
+        native = (loader.native_parses, loader.native_writes)
+        streamed = port.Model.load(model_file, dtype=np.float32)
+        if flags:
+            memory, idx = port.nystroem_fit_one_class(
+                svm, port.DataSet(train.data), n_landmarks=COMPACT_CLI_M, nu=COMPACT_NU,
+                return_indices=True)
+            drawn = np.sort(np.random.default_rng(0).choice(len(train_labels), COMPACT_CLI_M,
+                                                             replace=False))
+        else:
+            memory, idx = port.nystroem_fit(svm, train, n_landmarks=COMPACT_CLI_M,
+                                            return_indices=True)
+            drawn = _stratified_landmarks(train_labels, len(train_labels), COMPACT_CLI_M,
+                                          np.random.default_rng(0))
+        same = bool(np.array_equal(drawn, idx) and np.array_equal(
+            _lexsorted(streamed.support_vectors), _lexsorted(train.data[idx])))
+        f_stream = svm.predict_values(streamed, test)
+        f_memory = svm.predict_values(memory, test)
+        rel = float(np.max(np.abs(f_stream - f_memory)) / np.max(np.abs(f_memory)))
+        log("compact", f"(d) --nystroem {COMPACT_CLI_M} --streaming {label} (CLI): fit "
+            f"{fit_s:.3f} s, native parses / writes {native} (the metadata parse, the landmark "
+            f"rows, each window, the model); the in-memory fit's landmarks {same}, "
+            f"decision values max|d f| / max|f| {rel:.2e} (gate {COMPACT_STREAM_TOL}); launches "
+            f"{counts}")
+        if not same or rel > COMPACT_STREAM_TOL or counts["ffma"] or counts["plain"]:
+            raise AssertionError(f"compact (d) {label}: landmarks {same}, rel {rel}")
+    return launches
+
+
+def _solver_taken():
+    """The solver the last fit resolved ``automatic`` to (its tracker
+    entry), or a note where the fit recorded none (the batched pairs solve,
+    a direct solve)."""
+    import plssvm_tpu_torch as port
+
+    solvers = [v for k, v in port.global_tracker.entries().get("cg", []) if k == "solver"]
+    return ", ".join(sorted(set(solvers))) or "no solver entry: batched pairs or direct"
+
+
+def _facade_check(label, facade_labels, csvm_labels):
+    """The facade's predicted labels (or +-1) against the CSVM-level call's
+    on the same data: equal on every point."""
+    equal = bool(np.array_equal(np.asarray(facade_labels), np.asarray(csvm_labels)))
+    log("sklearn", f"{label}: predictions equal to the CSVM-level call's on all "
+        f"{len(csvm_labels)} points {equal}")
+    if not equal:
+        raise AssertionError(f"sklearn {label}: predictions differ")
+
+
+def phase_sklearn(mc_files, mnist_cell):
+    """The sklearn facades (ROADMAP Queue 1 item 8, sklearn.py) on the card,
+    float64 (their default: the DMMA tiles and the DMMA walk of O), each
+    against the CSVM-level call on the same data (gate: the same labels on
+    every point; values logged beside, the sigmoids' gated within
+    FACADE_REL, SVR's R^2 within FRIEDMAN_R2_GAP); sklearn is not imported:
+
+    (a) ``SVC`` on the 10-class CLI data (10000 x 200): one-vs-all (C, D);
+        ``classification="oao"`` (O) with ``decision_function_shape`` "ovr"
+        and "ovo"; ``probability=True`` (five folds);
+    (b) ``SVR`` on Friedman #1 (oao phase (f)'s shape, 10000 x 10);
+    (c) ``OneClassSVM`` at nu = COMPACT_NU on the one-class phase's
+        inliers (the MNIST-width rows), its default gamma="scale";
+    (d) ``SVC(max_sv=COMPACT_MAX_SV)`` and ``SVC(n_landmarks=COMPACT_CLI_M)``
+        on (a)'s data.
+
+    Returns the launches of the counted runs."""
+    import plssvm_tpu_torch as port
+    from plssvm_tpu_torch import oao as port_oao
+    from plssvm_tpu_torch.sklearn import SVC, SVR, OneClassSVM
+
+    launches = {}
+    train = port.DataSet(mc_files["mc_train"][0], dtype=np.float64)
+    test = port.DataSet(mc_files["mc_test"][0], dtype=np.float64)
+    X, y, X_test = train.data, np.asarray(train.labels), test.data
+    t64 = port.DataSet(X_test)
+
+    def csvm(**params):
+        return port.CSVM(backend="cuda", device="cuda", dtype=np.float64, **params)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # (a) SVC
+    for label, kw in (("one-vs-all", {}), ("one-vs-one", dict(classification="oao"))):
+        _reset_launch_counts()
+        port.global_tracker.clear()
+        clf, fit_s = timed(lambda: SVC(kernel="rbf", tol=EPSILON, **kw).fit(X, y))
+        counts = _launch_counts()
+        solver = _solver_taken()
+        predicted = clf.predict(X_test)
+        predict_counts = _launch_counts()
+        svm = csvm(kernel_type="rbf")
+        model = svm.fit(port.DataSet(X, y), epsilon=EPSILON,
+                        classification=kw.get("classification", "oaa"))
+        _facade_check(f"(a) SVC {label}", predicted, svm.predict(model, t64))
+        values = svm.predict_values(model, t64)
+        shapes = {}
+        for shape in (("ovr", "ovo") if kw else ("ovr",)):
+            clf.set_params(decision_function_shape=shape)
+            got = clf.decision_function(X_test)
+            want = (port_oao.ovr_from_ovo(values, 10) if kw and shape == "ovr" else values)
+            shapes[shape] = (got.shape, float(np.max(np.abs(got - want))),
+                             bool(np.array_equal(got, want)))
+        accuracy = float(np.mean(predicted == mc_files["mc_test"][1]))
+        log("sklearn", f"(a) SVC {label}: fit {fit_s:.3f} s ({solver}), n_iter_ "
+            f"{clf.n_iter_[:5]}..., accuracy {accuracy:.4f}, decision_function (shape, max|d|, "
+            f"bit for bit) against the CSVM's values {shapes}; launches in the facade's fit "
+            f"{counts}, after its predict {predict_counts}")
+        if accuracy < MC_ACCURACY_FLOOR:
+            raise AssertionError(f"sklearn (a) {label}: accuracy {accuracy}")
+        # one-vs-all under automatic: C, or the explicit solver's Gram build
+        # (cuBLAS) and K @ V; one-vs-one: the batched pairs solve on O; the
+        # predict on D
+        key = "O" if kw else "C"
+        if (counts[key] <= 0 and not (solver == "cg_explicit" and key == "C")) \
+                or predict_counts["D"] - counts["D"] != 1 or predict_counts["ffma"] \
+                or predict_counts["plain"]:
+            raise AssertionError(f"sklearn (a) {label}: launches {predict_counts}")
+        launches["pairs_matvec_dmma" if kw else "gram_matmat_rect_dmma"] = \
+            counts["O"] if kw else predict_counts["D"]
+    _reset_launch_counts()
+    clf, fit_s = timed(lambda: SVC(kernel="rbf", tol=EPSILON, probability=True,
+                                   random_state=0).fit(X, y))
+    counts = _launch_counts()
+    proba = clf.predict_proba(X_test)
+    svm = csvm(kernel_type="rbf")
+    model = svm.fit(port.DataSet(X, y), epsilon=EPSILON)
+    prob_a, prob_b = port.calibrate_model(svm, model, port.DataSet(X, y), epsilon=EPSILON,
+                                          random_state=0)
+    d_ab = float(max(np.max(np.abs(clf.probA_ - prob_a)), np.max(np.abs(clf.probB_ - prob_b)))
+                 / max(np.max(np.abs(prob_a)), np.max(np.abs(prob_b))))
+    log("sklearn", f"(a) SVC probability=True: fit and calibration {fit_s:.3f} s, rows sum to "
+        f"1 within {float(np.max(np.abs(proba.sum(axis=1) - 1))):.1e}, max|d (A, B)| / "
+        f"max|(A, B)| against calibrate_model {d_ab:.2e} (gate {FACADE_REL}); launches {counts}")
+    _facade_check("(a) SVC probability=True", clf.predict(X_test), svm.predict(model, t64))
+    if float(np.max(np.abs(proba.sum(axis=1) - 1))) > PROB_ROW_SUM or d_ab > FACADE_REL:
+        raise AssertionError(f"sklearn (a) probability: (A, B) {d_ab}")
+
+    # (d) the compact facades
+    for label, kw, fit in (
+            (f"max_sv={COMPACT_MAX_SV}", dict(max_sv=COMPACT_MAX_SV),
+             lambda svm, data: port.pruned_fit(svm, data, n_sv=COMPACT_MAX_SV,
+                                               epsilon=EPSILON)),
+            (f"n_landmarks={COMPACT_CLI_M}", dict(n_landmarks=COMPACT_CLI_M),
+             lambda svm, data: port.nystroem_fit(svm, data, n_landmarks=COMPACT_CLI_M))):
+        _reset_launch_counts()
+        port.global_tracker.clear()
+        clf, fit_s = timed(lambda: SVC(kernel="rbf", tol=EPSILON, **kw).fit(X, y))
+        counts = _launch_counts()
+        solver = _solver_taken()
+        svm = csvm(kernel_type="rbf")
+        model = fit(svm, port.DataSet(X, y))
+        log("sklearn", f"(d) SVC({label}): fit {fit_s:.3f} s ({solver}), {len(clf.support_)} SVs, "
+            f"accuracy {float(np.mean(clf.predict(X_test) == mc_files['mc_test'][1])):.4f}; "
+            f"launches {counts}")
+        _facade_check(f"(d) SVC({label})", clf.predict(X_test), svm.predict(model, t64))
+
+    # (b) SVR on Friedman #1
+    rng = np.random.default_rng(SEED + 70)
+    Xf, yf = _friedman1(rng, FRIEDMAN_N + FRIEDMAN_TEST)
+    _reset_launch_counts()
+    port.global_tracker.clear()
+    reg, fit_s = timed(lambda: SVR(kernel="rbf", C=10.0, tol=FRIEDMAN_EPSILON).fit(
+        Xf[:FRIEDMAN_N], yf[:FRIEDMAN_N]))
+    counts = _launch_counts()
+    solver = _solver_taken()
+    svm = csvm(kernel_type="rbf", cost=10.0)
+    model = svm.fit(port.DataSet(Xf[:FRIEDMAN_N], yf[:FRIEDMAN_N], regression=True),
+                    epsilon=FRIEDMAN_EPSILON)
+    got = reg.predict(Xf[FRIEDMAN_N:])
+    want = svm.predict(model, port.DataSet(Xf[FRIEDMAN_N:]))
+    d = float(np.max(np.abs(got - want)))
+    r2 = (reg.score(Xf[FRIEDMAN_N:], yf[FRIEDMAN_N:]),
+          svm.score(model, port.DataSet(Xf[FRIEDMAN_N:], yf[FRIEDMAN_N:], regression=True)))
+    log("sklearn", f"(b) SVR Friedman #1 {FRIEDMAN_N}x{FRIEDMAN_D}: fit {fit_s:.3f} s "
+        f"({solver}, {int(reg.n_iter_[0])} iterations; the CSVM-level fit {model.n_iter}), "
+        f"R^2 {r2[0]:.4f} (the CSVM-level fit {r2[1]:.4f}, gate within FRIEDMAN_R2_GAP "
+        f"{FRIEDMAN_R2_GAP}), values bit for bit the CSVM's {bool(np.array_equal(got, want))}, "
+        f"max|d| {d:.2e} of max|y| {float(np.max(np.abs(yf))):.2f} (two float64 CG solves at "
+        f"epsilon {FRIEDMAN_EPSILON}, their products summed by atomics); launches {counts}")
+    if abs(r2[0] - r2[1]) > FRIEDMAN_R2_GAP or counts["A"] <= 0:
+        raise AssertionError(f"sklearn (b): R^2 {r2}, launches {counts}")
+    launches["gram_matvec_sym_dmma"] = counts["A"]
+
+    # (c) OneClassSVM on the MNIST-width inliers
+    inliers, held_out = mnist_cell["make"](np.float64)
+    _reset_launch_counts()
+    port.global_tracker.clear()
+    det, fit_s = timed(lambda: OneClassSVM(nu=COMPACT_NU, tol=EPSILON).fit(inliers.data))
+    counts = _launch_counts()
+    solver = _solver_taken()
+    gamma = 1.0 / (inliers.num_features * float(inliers.data.var()))
+    svm = csvm(kernel_type="rbf", gamma=gamma)
+    model = port.fit_one_class(svm, port.DataSet(inliers.data), nu=COMPACT_NU, epsilon=EPSILON)
+    points = port.DataSet(held_out.data)
+    _facade_check("(c) OneClassSVM", det.predict(held_out.data), svm.predict(model, points))
+    share = float(np.mean(det.predict(inliers.data) == -1))
+    log("sklearn", f"(c) OneClassSVM nu {COMPACT_NU} on {inliers.num_data_points} MNIST-width "
+        f"rows: fit {fit_s:.3f} s ({solver}, {det.n_iter_} iterations), training share flagged "
+        f"{share:.4f}, held-out inliers flagged {float(np.mean(det.predict(held_out.data) == -1)):.4f}; "
+        f"launches {counts}")
+    if abs(share - COMPACT_NU) > 2.0 / inliers.num_data_points:
+        raise AssertionError(f"sklearn (c): training share {share}")
+    absent = "sklearn" not in sys.modules
+    log("sklearn", f"sklearn imported: {not absent} (the facades never import it)")
+    if not absent:
+        raise AssertionError("sklearn (the package) was imported by the facades")
+    return launches
+
+
 def main(argv=None):
     import argparse
 
@@ -6152,6 +6632,10 @@ def main(argv=None):
                                             config2_files, mc_written, e2e_predicted,
                                             ring_cells["mnist-width"])
         phase_launches["robust"] = run("robust", phase_robust)
+        phase_launches["compact"] = run("compact", phase_compact, tmp, config2_files,
+                                        mc_written, ring_cells["mnist-width"])
+        phase_launches["sklearn"] = run("sklearn", phase_sklearn, mc_written,
+                                        ring_cells["mnist-width"])
         del ring_cells
     phase_launches["banded-tool"] = run("banded-tool", phase_banded_tool)
     phase_launches["bench-matvec"] = run("bench-matvec", phase_bench_matvec, main_ms)

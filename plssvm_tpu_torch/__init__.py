@@ -6,7 +6,9 @@ implicit kernel matrix through a Gram matvec (binary) or block matmat
 (multiclass) written by hand in CUDA for NVIDIA Hopper (csrc/), with plain
 PyTorch versions of the same functions for the CPU.  Probability
 calibration, cross-validation and robust refits run as host code around
-the fits (probability.py, robust.py).  The public API and the
+the fits (probability.py, robust.py); compact models by Suykens pruning and
+fixed-size Nystroem fits (sparse.py) and the sklearn facades SVC / SVR /
+OneClassSVM (sklearn.py) as well.  The public API and the
 file formats are plssvm_tpu's; plssvm_tpu (JAX) stays the reference this
 package is tested against.  Importing the package builds no kernel.
 """
@@ -51,6 +53,16 @@ from .probability import (
 )
 from .one_class import fit_one_class, fit_one_class_multihost
 from .robust import reweighted_fit
+from .sklearn import SVC, SVR, OneClassSVM
+from .sparse import (
+    nystroem_fit,
+    nystroem_fit_from_file,
+    nystroem_fit_multihost,
+    nystroem_fit_one_class,
+    nystroem_fit_one_class_from_file,
+    pruned_fit,
+    pruned_fit_one_class,
+)
 from .utils.logger import VerbosityLevel, get_verbosity, set_verbosity
 from .utils.tracker import global_tracker
 
@@ -88,6 +100,16 @@ __all__ = [
     "fit_one_class",
     "fit_one_class_multihost",
     "reweighted_fit",
+    "SVC",
+    "SVR",
+    "OneClassSVM",
+    "pruned_fit",
+    "pruned_fit_one_class",
+    "nystroem_fit",
+    "nystroem_fit_from_file",
+    "nystroem_fit_multihost",
+    "nystroem_fit_one_class",
+    "nystroem_fit_one_class_from_file",
     "csvm_backend_exists",
     "list_available_backends",
     "list_available_target_platforms",

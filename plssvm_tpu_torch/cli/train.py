@@ -8,9 +8,13 @@ flag conflicts of ``-s one_class`` and ``--cross_validation``, the
 ``--debug`` guard's "numeric check failed: ...").  ``-s one_class`` trains
 the one-class model (one_class.py), ``--probability`` calibrates the model
 after its fit and ``--cross_validation N`` reports the N-fold CV accuracy
-(or MSE) and writes no model (probability.py).  Those whose feature is not
-ported yet are still parsed, and rejected with a :class:`PLSSVMError` that
-names the ROADMAP item porting them.
+(or MSE) and writes no model (probability.py); ``--max_sv N`` prunes the
+model to N support vectors and ``--nystroem M`` fits a fixed-size model on M
+landmarks, from the file in windows with ``--streaming``, also with ``-s
+one_class`` (sparse.py; the calibration and the CV then fold with the same
+compact fit).  ``--multihost`` and ``--profile`` are still parsed, and
+rejected with a :class:`PLSSVMError` that names the ROADMAP item porting
+them.
 """
 
 from __future__ import annotations
@@ -29,6 +33,15 @@ from ..model import Model
 from ..one_class import fit_one_class
 from ..parameter import KernelFunctionType
 from ..probability import calibrate_model, cross_validate
+from ..sparse import (
+    compact_fold_fit_fn,
+    nystroem_fit,
+    nystroem_fit_from_file,
+    nystroem_fit_one_class,
+    nystroem_fit_one_class_from_file,
+    pruned_fit,
+    pruned_fit_one_class,
+)
 from ..utils.logger import VerbosityLevel, log
 from ..utils.tracker import add_tracking_entry, global_tracker
 from .common import (
@@ -43,9 +56,6 @@ from .common import (
 #: (argument, flag, ROADMAP item) of the options not ported yet
 _NOT_PORTED = (
     ("multihost", "--multihost", "Queue 1, item 10: multihost on torch.distributed"),
-    ("max_sv", "--max_sv", "Queue 1, item 9: sparse models"),
-    ("nystroem", "--nystroem", "Queue 1, item 9: sparse models"),
-    ("streaming", "--streaming", "Queue 1, item 9: sparse models"),
     ("profile", "--profile", "Queue 1, item 11: tools"),
 )
 
@@ -154,12 +164,26 @@ def build_parser() -> argparse.ArgumentParser:
              "-s one_class): rho is the nu-quantile of the training "
              "scores, so ~nu of the training points land outside",
     )
-    parser.add_argument("--max_sv", metavar="N", type=int, default=None,
-                        help="pruned sparse model (not ported yet)")
-    parser.add_argument("--nystroem", metavar="M", type=int, default=None,
-                        help="fixed-size Nystroem model (not ported yet)")
-    parser.add_argument("--streaming", action="store_true",
-                        help="train from the file in windows (not ported yet)")
+    parser.add_argument(
+        "--max_sv", metavar="N", type=int, default=None,
+        help="sparse model (Suykens' pruning): after training, iteratively "
+             "drop the smallest-|alpha| support vectors and refit "
+             "(warm-started) until at most N remain — the model file "
+             "stores only the N survivors",
+    )
+    parser.add_argument(
+        "--nystroem", metavar="M", type=int, default=None,
+        help="fixed-size LS-SVM: direct primal fit in an M-landmark "
+             "Nystroem basis — the model stores only the M landmarks and "
+             "training streams the data once in row blocks (O(M^2) device "
+             "memory, any n)",
+    )
+    parser.add_argument(
+        "--streaming", action="store_true",
+        help="with --nystroem: train from the file in windowed native-parse "
+             "passes (landmark gather, then the normal-equation reduction) "
+             "— host memory stays O(window * d + M * d + n) at any n",
+    )
     parser.add_argument("--checkpoint", metavar="FILE", default=None,
                         help="CG-state checkpoint file: training state is saved "
                         "every --checkpoint_interval iterations and an "
@@ -240,8 +264,9 @@ def _flag_conflict(args):
                 "(the cross-validation fits are single-host)!")
     if args.cross_validation is not None and args.multihost:
         return "--cross_validation is not supported together with --multihost!"
-    if args.max_sv is not None and args.nystroem is not None:
-        return "--max_sv and --nystroem are mutually exclusive!"
+    message = _compact_conflict(args)
+    if message is not None:
+        return message
     if args.svm_type == "one_class":
         if not 0.0 < args.nu < 1.0:
             return f"nu must be in (0, 1), but is {args.nu}!"
@@ -262,6 +287,80 @@ def _flag_conflict(args):
             return (f"n-fold cross validation: n must >= 2, but is "
                     f"{args.cross_validation}!")
     return None
+
+
+def _compact_conflict(args):
+    """plssvm_tpu's messages for ``--max_sv`` / ``--nystroem`` /
+    ``--streaming`` against the other flags, in its order, or None.
+    ``--nystroem --multihost`` passes here (plssvm_tpu composes them) and
+    is refused as ``--multihost`` is."""
+    if args.max_sv is not None or args.nystroem is not None:
+        which = "--max_sv" if args.max_sv is not None else "--nystroem"
+        if args.max_sv is not None and args.nystroem is not None:
+            return "--max_sv and --nystroem are mutually exclusive!"
+        rejects = [(args.warm_start, "--warm_start"), (args.checkpoint, "--checkpoint")]
+        if args.max_sv is not None or args.svm_type == "one_class":
+            rejects.append((args.multihost, "--multihost"))
+        for flag, name in rejects:
+            if flag:
+                return f"{which} is not supported together with {name}!"
+        if str(args.classification).lower() == "oao":
+            return f"{which} supports binary/one-vs-all training only (--classification oaa)!"
+        if (args.max_sv if args.max_sv is not None else args.nystroem) < 1:
+            return f"{which} must be at least 1!"
+    if args.streaming:
+        if args.nystroem is None:
+            return "--streaming requires --nystroem!"
+        if args.multihost:
+            return ("--streaming is not supported together with --multihost (the "
+                    "multihost ingest is already windowed per host)!")
+        for flag, name in ((args.probability, "--probability"), (args.weight, "--weight"),
+                           (args.cross_validation, "--cross_validation")):
+            # the calibration's and the CV's refits need the data in memory,
+            # which --streaming never loads
+            if flag:
+                return f"--streaming is not supported together with {name}!"
+    return None
+
+
+def _compact_fit_fn(args, svm):
+    """The fold fit of the calibration and the cross-validation of a
+    compact model (``sparse.compact_fold_fit_fn``), or None."""
+    if args.max_sv is None and args.nystroem is None:
+        return None
+    return compact_fold_fit_fn(svm, n_landmarks=args.nystroem, max_sv=args.max_sv,
+                               epsilon=args.epsilon, max_iter=args.max_iter)
+
+
+def _run_fit(args, svm, data, fit_kwargs, regression: bool, one_class: bool):
+    """The fit the flags ask for: the streamed, Nystroem or pruned compact
+    fits (sparse.py), the one-class fit, or ``CSVM.fit``."""
+    if args.streaming:
+        if one_class:
+            return nystroem_fit_one_class_from_file(
+                svm, args.input, n_landmarks=args.nystroem, nu=args.nu)
+        return nystroem_fit_from_file(
+            svm, args.input, n_landmarks=args.nystroem,
+            label_type=resolve_label_type(args), regression=regression)
+    if one_class:
+        if args.nystroem is not None:
+            return nystroem_fit_one_class(svm, data, n_landmarks=args.nystroem, nu=args.nu)
+        if args.max_sv is not None:
+            return pruned_fit_one_class(svm, data, n_sv=args.max_sv, nu=args.nu,
+                                        epsilon=args.epsilon, max_iter=args.max_iter)
+        oc_kwargs = {k: fit_kwargs[k] for k in ("initial_model", "checkpoint_path",
+                                                 "checkpoint_interval")
+                     if k in fit_kwargs}
+        return fit_one_class(svm, data, nu=args.nu, epsilon=args.epsilon,
+                             max_iter=args.max_iter, **oc_kwargs)
+    if args.nystroem is not None:
+        return nystroem_fit(svm, data, n_landmarks=args.nystroem,
+                            sample_weight=fit_kwargs.get("sample_weight"))
+    if args.max_sv is not None:
+        return pruned_fit(svm, data, n_sv=args.max_sv, epsilon=args.epsilon,
+                          max_iter=args.max_iter,
+                          sample_weight=fit_kwargs.get("sample_weight"))
+    return svm.fit(data, **fit_kwargs)
 
 
 def _parse_class_weights(specs):
@@ -349,7 +448,9 @@ def main(argv=None) -> int:
         )
         add_tracking_entry("parameter", "kernel_type", str(kernel))
         add_tracking_entry("parameter", "epsilon", args.epsilon)
-        data = DataSet(
+        # --streaming never loads the data set: the fit parses windows of
+        # the file
+        data = None if args.streaming else DataSet(
             args.input,
             # LS-SVR: the label column holds continuous targets; a one-class
             # file may carry one label class or none, which are ignored
@@ -377,6 +478,12 @@ def main(argv=None) -> int:
             fit_kwargs["sample_weight"] = _expand_class_weights(
                 per_class_weights, np.asarray(data.labels)
             )
+        if (args.max_sv is not None and not regression and not one_class
+                and data.has_labels() and args.max_sv < data.num_different_labels):
+            # pruned_fit's class floor, checked before the first fit
+            print(f"--max_sv ({args.max_sv}) must be at least the number of classes "
+                  f"({data.num_different_labels})!", file=sys.stderr)
+            return 1
         if args.cross_validation is not None:
             return _cross_validation(args, svm, data, fit_kwargs, start)
         if args.warm_start is not None:
@@ -387,19 +494,14 @@ def main(argv=None) -> int:
         if args.checkpoint is not None:
             fit_kwargs["checkpoint_path"] = args.checkpoint
             fit_kwargs["checkpoint_interval"] = args.checkpoint_interval
-        if one_class:
-            oc_kwargs = {k: fit_kwargs[k] for k in ("initial_model", "checkpoint_path",
-                                                     "checkpoint_interval")
-                         if k in fit_kwargs}
-            model = fit_one_class(svm, data, nu=args.nu, epsilon=args.epsilon,
-                                  max_iter=args.max_iter, **oc_kwargs)
-        else:
-            model = svm.fit(data, **fit_kwargs)
+        model = _run_fit(args, svm, data, fit_kwargs, regression, one_class)
         if args.probability:
             # the -wi weights stay in the CV subproblems, as LIBSVM's
-            # svm_binary_svc_probability keeps them
+            # svm_binary_svc_probability keeps them; a compact model
+            # calibrates on compact folds
             calibrate_model(svm, model, data, epsilon=args.epsilon, max_iter=args.max_iter,
-                            sample_weight=fit_kwargs.get("sample_weight"))
+                            sample_weight=fit_kwargs.get("sample_weight"),
+                            fit_fn=_compact_fit_fn(args, svm))
         model.save(model_filename)
     except NumericCheckError as exc:
         # the --debug guard: report the located failure as plssvm_tpu does
@@ -425,6 +527,8 @@ def _cross_validation(args, svm, data, fit_kwargs, start) -> int:
         svm, data, n_folds=args.cross_validation, epsilon=args.epsilon,
         max_iter=args.max_iter, classification=args.classification,
         sample_weight=fit_kwargs.get("sample_weight"),
+        # compact fits report their own accuracy
+        fit_fn=_compact_fit_fn(args, svm),
     )
     if "accuracy" in result:
         log(VerbosityLevel.FULL | VerbosityLevel.LIBSVM,

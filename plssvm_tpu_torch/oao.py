@@ -1,6 +1,7 @@
 """One-vs-one (OAO) multiclass machinery: the LIBSVM coefficient layout,
-the scatter of a trained pair machine into it, pairwise voting and the
-pairwise coupling of calibrated machines (probability.py).
+the scatter of a trained pair machine into it, pairwise voting, sklearn's
+OvR transform of the pair decisions (sklearn.py) and the pairwise coupling
+of calibrated machines (probability.py).
 
 Counterpart of plssvm_tpu/oao.py (numpy only), with what training and
 prediction need.
@@ -147,6 +148,30 @@ def vote(decision_values: np.ndarray, n_classes: int) -> np.ndarray:
         votes[:, i] += positive
         votes[:, j] += ~positive
     return np.argmax(votes, axis=1)
+
+
+def ovr_from_ovo(decision_values: np.ndarray, n_classes: int) -> np.ndarray:
+    """sklearn's (n, C) OvR transform of OvO decisions.
+
+    sklearn.utils.multiclass._ovr_decision_function: per-class vote counts
+    plus the sum of raw confidences squashed into (-1/3, 1/3), which breaks
+    vote ties without ever reordering them.  An exactly-zero decision votes
+    class i, as in sklearn (``dec < 0`` is False at 0); :func:`vote` keeps
+    LIBSVM's opposite convention.
+    """
+    values = np.asarray(decision_values, dtype=np.float64)
+    n_pred = values.shape[0]
+    votes = np.zeros((n_pred, n_classes))
+    sums = np.zeros((n_pred, n_classes))
+    for m, (i, j) in enumerate(class_pairs(n_classes)):
+        col = values[:, m]
+        positive = col >= 0
+        votes[:, i] += positive
+        votes[:, j] += ~positive
+        sums[:, i] += col
+        sums[:, j] -= col
+    scaled = sums / (3.0 * (np.abs(sums) + 1.0))
+    return votes + scaled
 
 
 def pairwise_coupling(

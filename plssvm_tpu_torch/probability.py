@@ -137,14 +137,19 @@ def cross_validated_decision_values(
     epsilon: float = 0.001,
     max_iter: Optional[int] = None,
     sample_weight=None,
+    fit_fn=None,
 ) -> np.ndarray:
     """Out-of-fold decision values for every training point.
 
     Trains ``n_folds`` models, each on (n_folds - 1)/n_folds of ``data``,
     and evaluates each fold's points with the model that excluded them —
     LIBSVM's ``svm_binary_svc_probability`` scheme.  Returns (n,) for
-    binary data, (n, C) for multiclass.  (plssvm_tpu's ``fit_fn`` hook,
-    for the compact fits of ROADMAP item 9, comes with them.)
+    binary data, (n, C) for multiclass.
+
+    ``fit_fn(fold_data, fold_sample_weight) -> Model`` replaces the fold
+    fit: compact models (sparse.py ``compact_fold_fit_fn``) calibrate on
+    compact folds, so the sigmoid reflects the deployed model's decision
+    values, not the exact fit's.
     """
     from .data_set import DataSet
 
@@ -167,12 +172,15 @@ def cross_validated_decision_values(
             if sample_weight is not None
             else None
         )
-        kwargs = {} if max_iter is None else {"max_iter": max_iter}
-        if fold_sw is not None:
-            # keep the -wi / sample weights in the CV subproblems, as
-            # LIBSVM's svm_binary_svc_probability does
-            kwargs["sample_weight"] = fold_sw
-        model = csvm.fit(fold_data, epsilon=epsilon, **kwargs)
+        if fit_fn is not None:
+            model = fit_fn(fold_data, fold_sw)
+        else:
+            kwargs = {} if max_iter is None else {"max_iter": max_iter}
+            if fold_sw is not None:
+                # keep the -wi / sample weights in the CV subproblems, as
+                # LIBSVM's svm_binary_svc_probability does
+                kwargs["sample_weight"] = fold_sw
+            model = csvm.fit(fold_data, epsilon=epsilon, **kwargs)
         vals = csvm.predict_values(model, DataSet(X[test_idx]))
         if out is None:
             out = np.zeros((n,) + vals.shape[1:], dtype=np.float64)
@@ -203,6 +211,7 @@ def cross_validate(
     max_iter: Optional[int] = None,
     classification: str = "oaa",
     sample_weight=None,
+    fit_fn=None,
 ) -> dict:
     """N-fold cross-validation (svm-train's ``-v n`` mode; the C++
     reference has no CV support).
@@ -212,6 +221,11 @@ def cross_validate(
     Regression data (``DataSet(..., regression=True)``): plain folds,
     returns ``{"mse": float, "scc": float, "predictions": (n,) values}``
     (LIBSVM's mean squared error / squared correlation coefficient).
+
+    ``fit_fn(fold_data, fold_sample_weight) -> Model`` replaces the fold
+    fit, as in :func:`cross_validated_decision_values`: compact fits report
+    their own accuracy (the CLI's ``--cross_validation`` with ``--max_sv``
+    / ``--nystroem``).
     """
     from .data_set import DataSet
 
@@ -251,12 +265,15 @@ def cross_validate(
             np.asarray(sample_weight)[train_idx]
             if sample_weight is not None else None
         )
-        kwargs = {} if max_iter is None else {"max_iter": max_iter}
-        if fold_sw is not None:
-            kwargs["sample_weight"] = fold_sw
-        if not regression:
-            kwargs["classification"] = classification
-        model = csvm.fit(fold_data, epsilon=epsilon, **kwargs)
+        if fit_fn is not None:
+            model = fit_fn(fold_data, fold_sw)
+        else:
+            kwargs = {} if max_iter is None else {"max_iter": max_iter}
+            if fold_sw is not None:
+                kwargs["sample_weight"] = fold_sw
+            if not regression:
+                kwargs["classification"] = classification
+            model = csvm.fit(fold_data, epsilon=epsilon, **kwargs)
         predictions[test_idx] = csvm.predict(model, DataSet(X[test_idx]))
     if degenerate:
         import warnings
@@ -290,6 +307,7 @@ def calibrate_model(
     epsilon: float = 0.001,
     max_iter: Optional[int] = None,
     sample_weight=None,
+    fit_fn=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Fit Platt sigmoid(s) for ``model`` and store them on it.
 
@@ -298,7 +316,9 @@ def calibrate_model(
     each class's OvA column; one-vs-one models get per-machine pairs fitted
     on the pair's own rows (LIBSVM's scheme).  Sets ``model.prob_a`` /
     ``model.prob_b`` (one value per sigmoid: 1 binary, C one-vs-all,
-    C(C-1)/2 one-vs-one) and returns them.
+    C(C-1)/2 one-vs-one) and returns them.  ``fit_fn`` replaces the
+    cross-validation's fold fit (:func:`cross_validated_decision_values`);
+    one-vs-one models calibrate their pair machines by fits of their own.
     """
     from .parameter import ClassificationType
 
@@ -309,7 +329,7 @@ def calibrate_model(
             csvm, model, data,
             n_folds=n_folds, random_state=random_state,
             epsilon=epsilon, max_iter=max_iter,
-            sample_weight=sample_weight,
+            sample_weight=sample_weight, fit_fn=fit_fn,
         )
         return model.prob_a, model.prob_b
     if (
@@ -344,7 +364,7 @@ def calibrate_model(
             csvm, data,
             n_folds=n_folds, random_state=random_state,
             epsilon=epsilon, max_iter=max_iter,
-            sample_weight=sample_weight,
+            sample_weight=sample_weight, fit_fn=fit_fn,
         )
     different = list(data.different_labels)
     if decisions.ndim == 1:
@@ -510,6 +530,7 @@ def calibrate_svr_noise(
     epsilon: float = 0.001,
     max_iter: Optional[int] = None,
     sample_weight=None,
+    fit_fn=None,
 ) -> float:
     """LIBSVM's ``svr_probability``: the Laplace noise scale of a regression
     model from cross-validated residuals.
@@ -544,10 +565,14 @@ def calibrate_svr_noise(
             if sample_weight is not None
             else None
         )
-        kwargs = {} if max_iter is None else {"max_iter": max_iter}
-        if fold_sw is not None:
-            kwargs["sample_weight"] = fold_sw
-        fold_model = csvm.fit(fold_data, epsilon=epsilon, **kwargs)
+        if fit_fn is not None:
+            # compact fits take compact folds (cross_validated_decision_values)
+            fold_model = fit_fn(fold_data, fold_sw)
+        else:
+            kwargs = {} if max_iter is None else {"max_iter": max_iter}
+            if fold_sw is not None:
+                kwargs["sample_weight"] = fold_sw
+            fold_model = csvm.fit(fold_data, epsilon=epsilon, **kwargs)
         predicted[test_idx] = csvm.predict_values(
             fold_model, DataSet(X[test_idx])
         )

@@ -276,8 +276,7 @@ class TestNotPorted:
 
     @pytest.mark.parametrize(
         "flags",
-        [["--multihost"], ["--nystroem", "5"], ["--max_sv", "5"],
-         ["--streaming"], ["--profile", "trace"]],
+        [["--multihost"], ["--nystroem", "5", "--multihost"], ["--profile", "trace"]],
     )
     def test_cli_rejects(self, flags, tmp_path, capsys):
         train_file = os.path.join(tmp_path, "train.libsvm")
@@ -293,14 +292,18 @@ class TestNotPorted:
         (["-s", "one_class"], "svm_type one_class"),
         (["--probability"], "probA"),
         (["--cross_validation", "3"], None),
+        (["--max_sv", "5"], "total_sv 5"),
+        (["--nystroem", "5"], "total_sv 5"),
+        (["--nystroem", "5", "--streaming"], "total_sv 5"),
     ])
     def test_cli_ported(self, flags, header, tmp_path):
         """``--classification oao`` (item 6), ``-s epsilon_svr``, ``-s
-        one_class``, ``--probability`` and ``--cross_validation`` (item 7)
-        are ported: the CLI writes the model, or for cross-validation none
+        one_class``, ``--probability`` and ``--cross_validation`` (item 7),
+        ``--max_sv``, ``--nystroem`` and ``--streaming`` (item 9) are
+        ported: the CLI writes the model, or for cross-validation none
         (tests/test_torch_oao.py, test_torch_regression.py,
-        test_torch_one_class.py and test_torch_probability.py hold them
-        against plssvm_tpu's CLI)."""
+        test_torch_one_class.py, test_torch_probability.py and
+        test_torch_sparse.py hold them against plssvm_tpu's CLI)."""
         train_file = os.path.join(tmp_path, "train.libsvm")
         self._data(3).save(train_file)
         model = os.path.join(tmp_path, "out.model")

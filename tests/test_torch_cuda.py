@@ -1639,3 +1639,44 @@ def test_one_class_ring_against_one_device(cuda_device, kernel, dtype):
         assert np.max(np.abs(one.alpha - ring.alpha)) <= 1e-10 * np.max(np.abs(one.alpha))
     agree = np.mean(svms[0].predict(one, data) == svms[1].predict(ring, data))
     assert agree >= (0.999 if dtype == "float64" else 0.995)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-3), ("float64", 1e-10)])
+@pytest.mark.parametrize("kernel,devices", [("chi_squared", 1), ("laplacian", 3), ("rbf", 1)])
+def test_nystroem_reduction_against_the_cpu(cuda_device, kernel, devices, dtype, tol):
+    """``sparse.nystroem_fit`` on the card (kernel N's symmetric walk for
+    K_mm and its rect walk for every row block of the distance kinds; the
+    Gram build at "highest", full float32, for RBF) against the CPU's
+    plain run on the same landmarks: alpha within ``tol`` of its largest
+    magnitude, rho within ``tol`` (float32: the normal equations square
+    Phi's condition), N's launches 1 symmetric and one rect a row block;
+    with ``devices`` three shards of cuda:0, each its own rows."""
+    import numpy as np
+
+    import plssvm_tpu_torch as port
+    from plssvm_tpu_torch.ops import kernel_matrix
+
+    port.set_verbosity("quiet")
+    rng = np.random.default_rng(3)
+    y = rng.integers(0, 3, 2000)
+    X = np.abs(rng.normal(size=(2000, 24)) + 2.0 * rng.normal(size=(3, 24))[y])
+    kw = dict(dtype=np.dtype(dtype), kernel_type=kernel, gram_precision="highest")
+    card = port.CSVM(backend="cuda", devices=["cuda:0"] * devices if devices > 1 else None,
+                     **kw)
+    cpu = port.CSVM(device="cpu", **kw)
+    kernel_matrix.reset_counts()
+    got, idx = port.nystroem_fit(card, port.DataSet(X, y), n_landmarks=200, row_block=256,
+                                 return_indices=True)
+    sym, rect = kernel_matrix.sym_launches, kernel_matrix.rect_launches
+    want = port.nystroem_fit(cpu, port.DataSet(X, y), landmarks=idx, row_block=256)
+    alpha = np.asarray(want.alpha, dtype=np.float64)
+    assert np.max(np.abs(got.alpha - alpha)) <= tol * np.max(np.abs(alpha))
+    assert np.max(np.abs(np.asarray(got.rho) - np.asarray(want.rho))) <= tol
+    # plssvm_tpu's block rule and padded row split, the port's shorter last
+    # blocks: 8 blocks on one device, 3 + 3 + 2 on three shards
+    block = min(256, max(8, -(-2000 // devices)))
+    per = -(-2000 // (block * devices)) * block
+    blocks = sum(-(-(min((p + 1) * per, 2000) - p * per) // block) for p in range(devices))
+    assert blocks == 8
+    assert (sym, rect) == ((1, blocks) if kernel != "rbf" else (0, 0))

@@ -2,7 +2,8 @@
 
 In a fresh interpreter (this process has imported jax and plssvm_tpu),
 importing the port, its CLIs, its tools, its kernel wrappers and its
-native parser loads neither, and builds no kernel and no parser.  No source file of the port imports them.
+native parser loads neither, nor sklearn (the facades of sklearn.py import
+it only in ``__sklearn_tags__``), and builds no kernel and no parser.  No source file of the port imports them.
 """
 
 import json
@@ -29,6 +30,7 @@ import plssvm_tpu_torch.ops.kernel_matrix, plssvm_tpu_torch.solver.explicit
 import plssvm_tpu_torch.tools.bench_explicit
 import plssvm_tpu_torch.tools.exp_banded_distance
 import plssvm_tpu_torch.tools.bench_matvec
+import plssvm_tpu_torch.sparse, plssvm_tpu_torch.sklearn
 from plssvm_tpu_torch.ops import _build
 from plssvm_tpu_torch.native import loader
 print(json.dumps({
@@ -38,6 +40,7 @@ print(json.dumps({
         if m == "plssvm_tpu" or m.startswith("plssvm_tpu.")
     ),
     "triton": "triton" in sys.modules,
+    "sklearn": sorted(m for m in sys.modules if m == "sklearn" or m.startswith("sklearn.")),
     "library_loaded": _build._lib is not None,
     "native_loaded": loader._lib is not None,
 }))
@@ -58,7 +61,7 @@ def test_import_loads_no_jax_and_builds_nothing():
     assert proc.returncode == 0, proc.stderr
     found = json.loads(proc.stdout.strip().splitlines()[-1])
     assert found == {
-        "jax": [], "plssvm_tpu": [], "triton": False, "library_loaded": False,
+        "jax": [], "plssvm_tpu": [], "triton": False, "sklearn": [], "library_loaded": False,
         "native_loaded": False,
     }
 
