@@ -146,7 +146,16 @@ the 10-class files, ``--nystroem --streaming`` against the in-memory fit)
 and "sklearn" (``phase_sklearn``: SVC one-vs-all, one-vs-one and with
 probabilities, SVR, OneClassSVM and the compact SVCs, each against the
 CSVM-level call; sklearn itself never imported), each with its launches
-counted from 0.
+counted from 0.  Then "multihost" (``phase_multihost``: multi-process fits
+and predicts on ``torch.distributed``, every rank a process of
+``plssvm_tpu_torch.tools.multihost_rehearsal`` parsing its window of the
+files; gloo ranks on cuda:0, since NCCL puts no two ranks on one card:
+W = 4 at MNIST width in both types, W = 3 config 3 RBF through both
+CLIs with ``--multihost`` and the laplacian on config 2's files, W = 2
+chi-squared through ``automatic``, one-class and Nystroem, each against
+the in-process ring of as many shards; one NCCL rank in this process
+against ``CSVM.fit``), its launches counted per rank;
+``--multihost-only`` runs it alone after the cells it reads.
 
 Phase 3 also holds kernels E-H (laplacian / chi-squared matvecs and block
 matmats, csrc/distance.cu) against their plain versions on ragged shapes
@@ -3608,31 +3617,35 @@ def _kernel_n_main_shapes(gen, chi2_width, chi2_cell, config2_files):
     log("explicit", f"kernel_matrix_sym {label}: the whole K against the plain version, "
         f"max|err| {main_err[lap_key]:.3e}")
     del Xl, train
-    # the ring's row block of the chi2-cli cell: K_p = k(X_p, X), p = 0
+    # the ring's row block of the chi2-cli cell, K_p = k(X_p, X) for p = 0,
+    # is built one column block k(X_p, X_q) a shard q (as a process of a
+    # multi-process ring builds it while the shards come round): the
+    # block of q = 1 is checked and timed, the per-entry check runs over
+    # every column
     train, _ = chi2_cell["make"](np.float32)
     Xc = torch.as_tensor(np.asarray(train.data)[:-1], device="cuda")
-    lo, hi = sharded.shard_bounds(Xc.shape[0], RING_SHARDS)[0]
-    Xp = Xc[lo:hi]
+    shards = sharded.shard_bounds(Xc.shape[0], RING_SHARDS)
+    Xp, Xq = Xc[shards[0][0]:shards[0][1]], Xc[shards[1][0]:shards[1][1]]
     kw_c = dict(kind=K.CHI_SQUARED, gamma=chi2_cell["params"]["gamma"])
-    label = f"{Xp.shape[0]}x{Xc.shape[0]}x{Xc.shape[1]}"
+    label = f"{Xp.shape[0]}x{Xq.shape[0]}x{Xc.shape[1]}"
     main_err[rect_key] = _check_close(f"kernel_matrix_rect chi-squared {label}",
-                                      km.kernel_matrix_rect(Xp, Xc, **kw_c),
-                                      km.kernel_matrix_rect_plain(Xp, Xc, **kw_c))[0]
+                                      km.kernel_matrix_rect(Xp, Xq, **kw_c),
+                                      km.kernel_matrix_rect_plain(Xp, Xq, **kw_c))[0]
     got, plain = entry_errors(
         lambda P, S, V, **_kw: km.kernel_matrix_rect(P, S, **kw_c) @ V, Xc,
         [int(j) for j in np.linspace(0, Xc.shape[0] - 1, MC_CLASSES)], kw_c["gamma"],
         points=Xp)
     if not got <= min(4 * plain, 1e-4):
         raise AssertionError(f"kernel_matrix_rect per-entry error {got}, plain f32 {plain}")
-    bounds[rect_key] = _n_bound(Xp.shape[0], Xc.shape[0], Xc.shape[1], "chi_squared", 4, 4,
+    bounds[rect_key] = _n_bound(Xp.shape[0], Xq.shape[0], Xc.shape[1], "chi_squared", 4, 4,
                                 False)
     timing[rect_key] = _time_pair(
-        "kernel_matrix_rect", km.kernel_matrix_rect, km.kernel_matrix_rect_plain, (Xp, Xc),
-        kw_c, float(Xp.shape[0]) * Xc.shape[0] * Xc.shape[1], f"{label} f32 chi-squared",
+        "kernel_matrix_rect", km.kernel_matrix_rect, km.kernel_matrix_rect_plain, (Xp, Xq),
+        kw_c, float(Xp.shape[0]) * Xq.shape[0] * Xc.shape[1], f"{label} f32 chi-squared",
         plain_repeats=DIST_PLAIN_REPEATS, unit="T pair-features/s", counted="mr mc d")
     _log_bound("kernel_matrix_rect", label, timing[rect_key][0], bounds[rect_key])
     main_ms[("kernel_matrix_rect", "explicit")] = (timing[rect_key][0], bounds[rect_key][0])
-    log("explicit", f"kernel_matrix_rect per entry at the ring's block {label}: worst rel "
+    log("explicit", f"kernel_matrix_rect per entry at the ring's row block: worst rel "
         f"err {got:.3e}, plain f32 {plain:.3e}")
     # the kernels phase's shape, beside the plain version
     Xt = _zero_rich(N_TIMING_M, N_TIMING_D, torch.float32, gen)
@@ -3853,9 +3866,9 @@ def phase_explicit(tmp, config2_files, e2e_predicted, ring_cells, chi2_width):
         f"s/iteration (one device {one['iterations']} at {one['s_per_it']:.6f}), fit "
         f"{ring['fit_s']:.3f} s (one device {one['fit_s']:.3f}), accuracy "
         f"{ring['accuracy']:.4f}, label agreement with one device {agree:.4f}; kernel N rect "
-        f"launches {rect_launches} (one device: sym {one_sym}); ring products "
-        f"{ring['counts'][1]}")
-    if rect_launches != RING_SHARDS or one_sym != 1 or ring["counts"][1][:2] != [0, 0] \
+        f"launches {rect_launches} (a column block a shard and shard; one device: sym "
+        f"{one_sym}); ring products {ring['counts'][1]}")
+    if rect_launches != RING_SHARDS ** 2 or one_sym != 1 or ring["counts"][1][:2] != [0, 0] \
             or not ring["converged"] or agree < 0.995:
         raise AssertionError("explicit: the ring's explicit fit did not build its row "
                              "blocks through kernel N or disagrees with one device")
@@ -6538,6 +6551,367 @@ def phase_sklearn(mc_files, mnist_cell):
     return launches
 
 
+#: the multihost phase (ROADMAP Queue 1 item 10): gloo ranks on cuda:0 (NCCL
+#: puts no two ranks on one card), the job's time limit in seconds (a hung
+#: or failed rank fails the phase), and W = 4's cell's ranks
+MULTIHOST_TIMEOUT = 420
+MULTIHOST_W4 = 4
+
+
+def _mh_launches(record, key="launches"):
+    """A rank's launches of one task by counter (``gram_matmat.sym_tc_launches``
+    ...), its calls of the plain versions, and its launches on the FFMA
+    Gram tiles (on no path): a multi-process run leaves both at 0."""
+    got = record.get(key, {})
+    plain = sum(v for k, v in got.items() if k.endswith("_calls"))
+    ffma = sum(got.get(f"{m}.{w}_launches", 0) for m in ("gram_matvec", "gram_matmat")
+               for w in ("sym", "rect", "dual"))
+    return got, plain, ffma
+
+
+def _mh_check(label, records, task, want, predict_want=None):
+    """Every rank's launches of ``task``: each counter of ``want`` (a
+    dict) exactly, nothing on the plain versions or the FFMA tiles; the
+    predict's (``predict_want``) likewise."""
+    for rank, rec in enumerate(records):
+        entry = next(t for t in rec["tasks"] if t["name"] == task)
+        for key, wanted in ((("launches"), want), ("predict_launches", predict_want)):
+            if wanted is None:
+                continue
+            got, plain, ffma = _mh_launches(entry, key)
+            bad = {k: got.get(k, 0) for k, v in wanted.items() if got.get(k, 0) != v}
+            if bad or plain or ffma:
+                raise AssertionError(f"multihost {label} rank {rank} {key}: {got}, want {wanted} "
+                                     f"(differ {bad}), plain calls {plain}, FFMA {ffma}")
+
+
+def _mh_task(records, name, rank=0):
+    return next(t for t in records[rank]["tasks"] if t["name"] == name)
+
+
+def _mh_run(label, world, tasks, out):
+    """Launch ``tasks`` on ``world`` gloo ranks on cuda:0; logs the ranks'
+    start-up and returns their records."""
+    from plssvm_tpu_torch.tools import multihost_rehearsal as rehearsal
+
+    start = time.perf_counter()
+    records = rehearsal.launch({"tasks": tasks}, world, out, device="cuda:0", backend="gloo",
+                               timeout=MULTIHOST_TIMEOUT)
+    wall = time.perf_counter() - start
+    startup = [r["startup_s"] for r in records]
+    jax_seen = [r["jax_imported"] or r["plssvm_tpu_imported"] for r in records]
+    log("multihost", f"{label}: {world} gloo ranks on cuda:0, the job {wall:.1f} s, start-up "
+        f"(launch to first task: interpreter, torch, process group, CUDA context) "
+        f"{min(startup):.2f}-{max(startup):.2f} s, jax or plssvm_tpu imported {any(jax_seen)}")
+    if any(jax_seen):
+        raise AssertionError(f"multihost {label}: a rank imported jax or plssvm_tpu")
+    return records
+
+
+def _mh_agreement(label, got, want, need):
+    agree = float(np.mean(np.asarray(got) == np.asarray(want)))
+    if agree < need:
+        raise AssertionError(f"multihost {label}: label agreement {agree} below {need}")
+    return agree
+
+
+def _mh_iterations(records, task):
+    """The iterations of a fit task (rank 0's tracker; every rank ran them)."""
+    return int(_mh_task(records, task)["cg.iterations"])
+
+
+def _mh_solve_log(records, task, iterations):
+    """Per rank: s/iteration of the solve alone, the setup (windows'
+    parse, placement, the solver's choice, a build) and the bytes staged
+    through pinned host memory for gloo."""
+    parts = []
+    for rank in range(len(records)):
+        t = _mh_task(records, task, rank)
+        parts.append(f"rank {rank} {t['multihost.solve_ms'] / 1000 / max(iterations, 1):.4f} s/it, "
+                     f"setup {t['multihost.setup_ms'] / 1000:.2f} s, staged "
+                     f"{t['staged_bytes'] / 1e9:.3f} GB")
+    return "; ".join(parts)
+
+
+def _mh_ring(cell_params, dtype, world, train, test, epsilon, solver="cg_implicit", **fit_kw):
+    """The in-process ring over ``world`` shards of cuda:0 on the same
+    files: (predicted labels, iterations, s/iteration)."""
+    import plssvm_tpu_torch as port
+
+    svm = port.CSVM(backend="cuda", devices=["cuda:0"] * world, dtype=dtype, cost=1.0,
+                    solver=solver, **cell_params)
+    port.global_tracker.clear()
+    model = svm.fit(port.DataSet(train, dtype=dtype, **fit_kw), epsilon=epsilon)
+    torch.cuda.synchronize()
+    iterations = _tracked("cg", "iterations")
+    s_per_it = _tracked("cg", "total_runtime") / 1000 / max(iterations, 1)
+    return svm.predict(model, port.DataSet(test, dtype=dtype, **fit_kw)), iterations, s_per_it
+
+
+def phase_multihost(tmp, config2_files, mnist_cell, chi2_cell):
+    """Multi-process training and predict on ``torch.distributed``
+    (ROADMAP Queue 1 item 10) on the one card.  NCCL refuses two ranks on
+    one card, so W > 1 runs gloo with every rank on cuda:0, its tensors
+    staged through pinned host memory; the ranks are processes of
+    ``plssvm_tpu_torch.tools.multihost_rehearsal`` with torchrun's
+    environment, each parsing its window of the files written here:
+
+    (a) W = 4: the MNIST-width one-vs-all cell (60000 x 784, 10 classes,
+        RBF, 15000 rows a rank) in float32 ("f32") and float64, beside the
+        in-process ring ``CSVM(devices=["cuda:0"] * 4)`` on the same file:
+        label agreement >= 0.995 (f32) / 0.999 (f64), per rank and product
+        one C, one K dual and one D rows-only launch, D once to predict;
+    (b) W = 3: the config 3 RBF binary cell through ``plssvm-torch-train
+        --multihost`` and ``plssvm-torch-predict --multihost`` (A and J, no
+        rows-only step at odd W; B to predict; rank 0 alone writes), and
+        config 2's files with the laplacian (E, L, F), each beside the
+        in-process ring of 3 shards;
+    (c) W = 2: the histogram classes with chi-squared through
+        ``automatic`` (the explicit solver: kernel N's rect walk, one
+        column block per rank, then H to predict), one-class at config 3's
+        width (A and the rows-only B), and Nystroem with m = COMPACT_M at
+        MNIST width, each beside the in-process ring of 2 shards;
+    (d) W = 1 on NCCL in this process: config 2's binary fit, its labels
+        equal to ``CSVM.fit``'s.
+
+    Four processes on one card share it: their s/iteration says nothing
+    about four cards.  Nothing is caught: a failed or hung rank fails the
+    phase.  Returns (the phase's launches by the kernels line's keys, the
+    [cost] counts)."""
+    import plssvm_tpu_torch as port
+    from plssvm_tpu_torch.tools import multihost_rehearsal as rehearsal
+
+    out = os.path.join(tmp, "multihost")
+    mh_launches, cost = {}, {}
+
+    # the files: MNIST width and config 3 RBF, written once
+    start = time.perf_counter()
+    mnist_train, mnist_test = (os.path.join(tmp, f"mh_mnist_{s}.libsvm") for s in ("train", "test"))
+    train64, test64 = mnist_cell["make"](np.float64)
+    train64.save(mnist_train)
+    test64.save(mnist_test)
+    c3 = _config3_rbf_cell()
+    c3_train, c3_test = (os.path.join(tmp, f"mh_c3_{s}.libsvm") for s in ("train", "test"))
+    for data, path in zip(c3["make"](np.float64), (c3_train, c3_test)):
+        data.save(path)
+    del train64, test64
+    log("multihost", f"wrote the MNIST-width (60000 + 10000 x 784) and config 3 RBF "
+        f"(50000 + 2000 x 500) LIBSVM files in {time.perf_counter() - start:.1f} s")
+    cuda = dict(backend="cuda", device="cuda:0", cost=1.0, solver="cg_implicit")
+    mc_labels = mnist_cell["labels"]
+
+    # (a) W = 4, MNIST width, float32 and float64
+    tasks = [dict(name=f"a_{t}", op="fit", file=mnist_train, predict=mnist_test,
+                  csvm=dict(cuda, dtype=t, kernel_type="rbf"), fit=dict(epsilon=EPSILON))
+             for t in ("float32", "float64")]
+    records = _mh_run("(a) MNIST width one-vs-all", MULTIHOST_W4, tasks,
+                      os.path.join(out, "a"))
+    for t, dtype, need, tiles in (("float32", np.float32, 0.995, "tc"),
+                                  ("float64", np.float64, 0.999, "dmma")):
+        name = f"a_{t}"
+        iterations = _mh_iterations(records, name)
+        products = 1 + iterations + iterations // 50
+        _mh_check(f"(a) {t}", records, name,
+                  {f"gram_matmat.sym_{tiles}_launches": products,
+                   f"gram_matmat.dual_{tiles}_launches": products,
+                   f"gram_matmat.rect_{tiles}_launches": products},
+                  {f"gram_matmat.rect_{tiles}_launches": 1})
+        predicted = [rehearsal.load_arrays(os.path.join(out, "a"), name, r)["predictions"]
+                     for r in range(MULTIHOST_W4)]
+        if not all(np.array_equal(p, predicted[0]) for p in predicted):
+            raise AssertionError(f"multihost (a) {t}: the ranks' predictions differ")
+        ring, ring_it, ring_s = _mh_ring(dict(kernel_type="rbf"), dtype, MULTIHOST_W4,
+                                         mnist_train, mnist_test, EPSILON)
+        agree = _mh_agreement(f"(a) {t}", predicted[0], ring, need)
+        accuracy = float(np.mean(predicted[0] == mc_labels))
+        log("multihost", f"(a) MNIST width {t}, {MULTIHOST_W4} ranks: {iterations} block-CG "
+            f"iterations (in-process ring {ring_it} at {ring_s:.4f} s/it); "
+            f"{_mh_solve_log(records, name, iterations)} (4 processes share one card: says "
+            f"nothing of four cards); accuracy {accuracy:.4f}, label agreement with the "
+            f"in-process ring {agree:.4f} (gate {need}); per rank {products} C, K dual, D "
+            f"rows-only launches ({tiles}), D once to predict "
+            f"({_mh_task(records, name)['predict_seconds']:.2f} s)")
+        if accuracy < MC_ACCURACY_FLOOR:
+            raise AssertionError(f"multihost (a) {t}: accuracy {accuracy}")
+        total = products * MULTIHOST_W4
+        if tiles == "tc":
+            mh_launches.update({("gram_matmat_sym_tc", "tf32"): total,
+                                ("gram_matmat_dual", "tf32"): total,
+                                ("gram_matmat_rect_tc", "tf32"): total + MULTIHOST_W4})
+            cost["gram_matmat_dual"] = total
+        else:
+            mh_launches.update({("gram_matmat_sym_dmma", "f64"): total,
+                                ("gram_matmat_dual_dmma", "f64"): total,
+                                ("gram_matmat_rect_dmma", "f64"): total + MULTIHOST_W4})
+            cost["gram_matmat_dual_f64"] = total
+
+    # (b) W = 3: config 3 RBF through the CLIs; laplacian on config 2
+    c3_model, c3_out = os.path.join(tmp, "mh_c3.model"), os.path.join(tmp, "mh_c3.predict")
+    train2, test2 = config2_files[0][0], config2_files[1][0]
+    tasks = [
+        dict(name="b_train", op="cli_train",
+             argv=["--multihost", "-b", "cuda", "-t", "2", "-c", "1", "-e", str(EPSILON),
+                   "--solver", "cg_implicit", "-q", c3_train, c3_model]),
+        dict(name="b_predict", op="cli_predict",
+             argv=["--multihost", "-b", "cuda", "-q", c3_test, c3_model, c3_out]),
+        dict(name="b_laplacian", op="fit", file=train2, predict=test2,
+             csvm=dict(cuda, dtype="float32", kernel_type="laplacian"),
+             fit=dict(epsilon=EPSILON)),
+    ]
+    records = _mh_run("(b) config 3 RBF CLIs, laplacian", 3, tasks, os.path.join(out, "b"))
+    iterations = _mh_iterations(records, "b_train")
+    products = 1 + iterations + iterations // 50
+    _mh_check("(b) CLI train", records, "b_train",
+              {"gram_matvec.sym_tc_launches": products, "gram_matvec.dual_tc_launches": products,
+               "gram_matvec.rect_tc_launches": 0})
+    _mh_check("(b) CLI predict", records, "b_predict", {"gram_matvec.rect_tc_launches": 1})
+    writes = [[w for t in r["tasks"] for w in t["writes"]] for r in records]
+    if writes[0] != [["model", c3_model]] or any(writes[1:]):
+        raise AssertionError(f"multihost (b): files written per rank {writes}")
+    predicted = np.asarray([int(line) for line in open(c3_out, encoding="utf-8")])
+    ring, ring_it, ring_s = _mh_ring(dict(kernel_type="rbf"), np.float32, 3, c3_train, c3_test,
+                                     EPSILON)
+    agree = _mh_agreement("(b) config 3", predicted, ring, 0.995)
+    accuracy = float(np.mean(predicted == c3["labels"]))
+    log("multihost", f"(b) config 3 RBF through the CLIs, 3 ranks: {iterations} CG iterations "
+        f"(in-process ring {ring_it} at {ring_s:.4f} s/it); fit "
+        f"{_mh_task(records, 'b_train')['seconds']:.1f} s and predict "
+        f"{_mh_task(records, 'b_predict')['seconds']:.1f} s a rank (file I/O included); "
+        f"accuracy {accuracy:.4f}, agreement with the in-process ring {agree:.4f}; per rank "
+        f"{products} A and J launches, no rows-only B, B once to predict; rank 0 alone wrote "
+        f"the model")
+    if accuracy < ACCURACY_FLOOR:
+        raise AssertionError(f"multihost (b): accuracy {accuracy}")
+    iterations = _mh_iterations(records, "b_laplacian")
+    lap_products = 1 + iterations + iterations // 50
+    _mh_check("(b) laplacian", records, "b_laplacian",
+              {"distance.matvec_sym_launches": lap_products,
+               "distance.matvec_dual_launches": lap_products,
+               "distance.matvec_rect_launches": 0}, {"distance.matvec_rect_launches": 1})
+    predicted = rehearsal.load_arrays(os.path.join(out, "b"), "b_laplacian", 0)["predictions"]
+    ring, ring_it, ring_s = _mh_ring(dict(kernel_type="laplacian"), np.float32, 3, train2,
+                                     test2, EPSILON)
+    agree = _mh_agreement("(b) laplacian", predicted, ring, 0.995)
+    accuracy = float(np.mean(predicted == config2_files[1][1]))
+    log("multihost", f"(b) laplacian on config 2's files, 3 ranks: {iterations} CG iterations "
+        f"(in-process ring {ring_it} at {ring_s:.4f} s/it); "
+        f"{_mh_solve_log(records, 'b_laplacian', iterations)}; accuracy {accuracy:.4f}, "
+        f"agreement with the in-process ring {agree:.4f}; per rank {lap_products} E and L "
+        f"launches, F once to predict")
+    if accuracy < LAPLACIAN_ACCURACY_FLOOR:
+        raise AssertionError(f"multihost (b) laplacian: accuracy {accuracy}")
+    mh_launches.update({("gram_matvec_sym_tc", "tf32"): 3 * products,
+                        ("gram_matvec_dual", "tf32"): 3 * products,
+                        ("gram_matvec_rect_tc", "tf32"): 3,
+                        ("distance_matvec_sym", "laplacian"): 3 * lap_products,
+                        ("distance_matvec_dual", "laplacian"): 3 * lap_products,
+                        ("distance_matvec_rect", "laplacian"): 3})
+    cost["gram_matvec_dual"] = 3 * products
+    cost["distance_matvec_dual"] = 3 * lap_products
+
+    # (c) W = 2: chi-squared through automatic, one-class, Nystroem
+    chi2_train = os.path.join(tmp, "chi2_train.libsvm")
+    chi2_test = os.path.join(tmp, "chi2_test.libsvm")
+    chi2_params = chi2_cell["params"]
+    tasks = [
+        dict(name="c_chi2", op="fit", file=chi2_train, predict=chi2_test,
+             csvm=dict(cuda, dtype="float32", solver="automatic", **chi2_params),
+             fit=dict(epsilon=chi2_cell["epsilon"])),
+        dict(name="c_one_class", op="one_class", file=c3_train, predict=c3_test,
+             csvm=dict(cuda, dtype="float32", kernel_type="rbf"),
+             fit=dict(nu=ONE_CLASS_NU, epsilon=EPSILON)),
+        dict(name="c_nystroem", op="nystroem", file=mnist_train, predict=mnist_test,
+             csvm=dict(cuda, dtype="float32", kernel_type="rbf"),
+             fit=dict(n_landmarks=COMPACT_M, row_block=COMPACT_ROW_BLOCK)),
+    ]
+    records = _mh_run("(c) chi-squared, one-class, Nystroem", 2, tasks, os.path.join(out, "c"))
+    if _mh_task(records, "c_chi2")["cg.solver"] != "cg_explicit":
+        raise AssertionError("multihost (c): automatic did not take the explicit solver")
+    _mh_check("(c) chi-squared", records, "c_chi2",
+              {"kernel_matrix.rect_launches": 2, "kernel_matrix.sym_launches": 0,
+               "distance.matmat_sym_launches": 0}, {"distance.matmat_rect_launches": 1})
+    iterations = _mh_iterations(records, "c_chi2")
+    predicted = rehearsal.load_arrays(os.path.join(out, "c"), "c_chi2", 0)["predictions"]
+    ring, ring_it, ring_s = _mh_ring(chi2_params, np.float32, 2, chi2_train, chi2_test,
+                                     chi2_cell["epsilon"], solver="automatic")
+    agree = _mh_agreement("(c) chi-squared", predicted, ring, 0.995)
+    accuracy = float(np.mean(predicted == chi2_cell["labels"]))
+    log("multihost", f"(c) chi-squared histogram classes through automatic "
+        f"({_mh_task(records, 'c_chi2')['cg.solver']}), 2 ranks: build "
+        f"{_mh_task(records, 'c_chi2')['cg.kernel_matrix_build_time']:.1f} ms (2 column blocks "
+        f"a rank on N's rect walk), {iterations} block-CG iterations (in-process ring "
+        f"{ring_it} at {ring_s:.4f} s/it); {_mh_solve_log(records, 'c_chi2', iterations)}; "
+        f"accuracy {accuracy:.4f}, agreement with the in-process ring {agree:.4f}")
+    if accuracy < CHI2_ACCURACY_FLOOR:
+        raise AssertionError(f"multihost (c) chi-squared: accuracy {accuracy}")
+    oc = _mh_task(records, "c_one_class")
+    oc_products = oc["n_iter"] + oc["n_iter"] // 50 + 1
+    _mh_check("(c) one-class", records, "c_one_class",
+              {"gram_matvec.sym_tc_launches": oc_products, "gram_matvec.dual_tc_launches": 0,
+               "gram_matvec.rect_tc_launches": oc_products},
+              {"gram_matvec.rect_tc_launches": 1})
+    oc_predicted = rehearsal.load_arrays(os.path.join(out, "c"), "c_one_class", 0)["predictions"]
+    svm = port.CSVM(backend="cuda", devices=["cuda:0"] * 2, dtype=np.float32,
+                    kernel_type="rbf", cost=1.0, solver="cg_implicit")
+    one_class = port.fit_one_class(svm, port.DataSet(c3_train, dtype=np.float32),
+                                   nu=ONE_CLASS_NU, epsilon=EPSILON)
+    oc_ring = svm.predict(one_class, port.DataSet(c3_test, dtype=np.float32))
+    oc_agree = _mh_agreement("(c) one-class", oc_predicted, oc_ring, ONE_CLASS_AGREEMENT)
+    ny_predicted = rehearsal.load_arrays(os.path.join(out, "c"), "c_nystroem", 0)["predictions"]
+    svm = port.CSVM(backend="cuda", devices=["cuda:0"] * 2, dtype=np.float32,
+                    kernel_type="rbf", cost=1.0)
+    nystroem = port.nystroem_fit(svm, port.DataSet(mnist_train, dtype=np.float32),
+                                 n_landmarks=COMPACT_M, row_block=COMPACT_ROW_BLOCK)
+    ny_ring = svm.predict(nystroem, port.DataSet(mnist_test, dtype=np.float32))
+    ny_agree = _mh_agreement("(c) Nystroem", ny_predicted, ny_ring, 0.995)
+    ny_accuracy = float(np.mean(ny_predicted == mc_labels))
+    log("multihost", f"(c) one-class at config 3's width, 2 ranks: {oc['n_iter']} ridge-CG "
+        f"iterations ({one_class.n_iter} in-process), {oc['seconds']:.1f} s a rank, sign "
+        f"agreement on the held-out points with the in-process ring {oc_agree:.4f}; per rank "
+        f"{oc_products} A and rows-only B launches (the scores' product included), no J; "
+        f"Nystroem m = {COMPACT_M} at MNIST width: {_mh_task(records, 'c_nystroem')['seconds']:.1f} "
+        f"s a rank, accuracy {ny_accuracy:.4f}, agreement with the in-process reduction "
+        f"{ny_agree:.4f}")
+    if ny_accuracy < MC_ACCURACY_FLOOR:
+        raise AssertionError(f"multihost (c) Nystroem: accuracy {ny_accuracy}")
+    mh_launches.update({("kernel_matrix_rect", "chi_squared"): 4,
+                        ("distance_matmat_rect", "chi_squared"): 2})
+    mh_launches[("gram_matvec_sym_tc", "tf32")] += 2 * oc_products
+    mh_launches[("gram_matvec_rect_tc", "tf32")] += 2 * oc_products + 2
+
+    # (d) W = 1 on NCCL, in this process
+    import torch.distributed as dist
+    from plssvm_tpu_torch.ops import gram_matvec
+    from plssvm_tpu_torch.parallel import multihost
+
+    multihost.initialize_distributed(f"tcp://127.0.0.1:{rehearsal.free_port()}", 1, 0,
+                                     backend="nccl", device="cuda:0",
+                                     timeout=MULTIHOST_TIMEOUT)
+    try:
+        svm = port.CSVM(backend="cuda", device="cuda:0", dtype=np.float32, kernel_type="rbf",
+                        solver="cg_implicit")
+        test = port.DataSet(test2, dtype=np.float32)
+        gram_matvec.reset_counts()
+        model = svm.fit_multihost(train2, epsilon=EPSILON)
+        launches = gram_matvec.sym_tc_launches
+        backend = dist.get_backend()
+        predicted = svm.predict(model, test)
+    finally:
+        dist.destroy_process_group()
+    alone = svm.fit(port.DataSet(train2, dtype=np.float32), epsilon=EPSILON)
+    wanted = svm.predict(alone, test)
+    products = 1 + model.n_iter + model.n_iter // 50
+    dvalue = float(np.max(np.abs(svm.predict_values(model, test)
+                                 - svm.predict_values(alone, test))))
+    log("multihost", f"(d) config 2 binary, 1 rank on {backend}: {model.n_iter} CG iterations "
+        f"(CSVM.fit {alone.n_iter}), {launches} A launches, labels equal to CSVM.fit's "
+        f"{bool(np.array_equal(predicted, wanted))}, max|d f(x)| {dvalue:.3e}")
+    if backend != "nccl" or launches != products or not np.array_equal(predicted, wanted):
+        raise AssertionError(f"multihost (d): backend {backend}, A launches {launches} "
+                             f"(want {products}), labels equal {np.array_equal(predicted, wanted)}")
+    return mh_launches, cost
+
+
 def main(argv=None):
     import argparse
 
@@ -6554,6 +6928,10 @@ def main(argv=None):
     parser.add_argument("--chi2-width-agreement", action="store_true",
                         help="run only the chi2-width agreement study "
                              "(phase_chi2_width_agreement) and print its record")
+    parser.add_argument("--multihost-only", action="store_true",
+                        help="run only the device and build phases, the cells the "
+                             "multihost phase reads (config 2's files, the chi-squared "
+                             "CLI cell, MNIST width) and the multihost phase")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available.",
@@ -6567,6 +6945,20 @@ def main(argv=None):
         _, smi = phase_device()
         phase_build(args.oao_f64_compare)
         phase_compare(args.oao_f64_compare, "_oao_f64_times")
+        print(smi)
+        return 0
+    if args.multihost_only:
+        _, smi = phase_device()
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            start = time.perf_counter()
+            config2_files = _write_config2(tmp)
+            _, chi2_cell = phase_chi2_cli(tmp)
+            _, mnist_cell = phase_multiclass_width()
+            log("times", f"the multihost phase's cells {time.perf_counter() - start:.1f} s")
+            start = time.perf_counter()
+            phase_multihost(tmp, config2_files, mnist_cell, chi2_cell)
+            log("times", f"multihost {time.perf_counter() - start:.1f} s")
         print(smi)
         return 0
     if args.chi2_width_agreement:
@@ -6636,6 +7028,13 @@ def main(argv=None):
                                         mc_written, ring_cells["mnist-width"])
         phase_launches["sklearn"] = run("sklearn", phase_sklearn, mc_written,
                                         ring_cells["mnist-width"])
+        mh_launches, phase_launches["multihost"] = run(
+            "multihost", phase_multihost, tmp, config2_files, ring_cells["mnist-width"],
+            ring_cells["chi2"])
+        # (a)'s K walks run at the ring phase's shards of MNIST width
+        main_ms[("gram_matmat_dual", "multihost")] = main_ms[("gram_matmat_dual", "ring")]
+        main_ms[("gram_matmat_dual_f64", "multihost")] = \
+            main_ms[("gram_matmat_dual_f64", "ring-f64")]
         del ring_cells
     phase_launches["banded-tool"] = run("banded-tool", phase_banded_tool)
     phase_launches["bench-matvec"] = run("bench-matvec", phase_bench_matvec, main_ms)
@@ -6799,6 +7198,8 @@ def main(argv=None):
                and k[1] in ("tf32", "bf16", "tf32x3", "f64", "highest")
                else {"tier": tiers[k]} if k in tiers else {}),
             **({"on_path": False} if k in OFF_PATH else {}),
+            # the multihost phase's launches, every rank's (its own run)
+            "multihost_launches": mh_launches.get(k, 0),
             # kernel N's and O's entries: the kind each was timed and
             # launched at
             **({"kind": "chi_squared" if k[1] == "f64" else k[1]}

@@ -7,7 +7,9 @@ One-class models predict +1 / -1 per point.  ``--probability`` writes
 LIBSVM's ``svm-predict -b 1`` layout for a calibrated model (a ``labels``
 header, then each point's label and its class probabilities in the
 header's order); on a calibrated regression model it prints the Laplace
-noise line and writes the predicted values.
+noise line and writes the predicted values.  ``--multihost`` predicts over
+the processes of a ``torch.distributed`` job: each scores its window of the
+test file, and rank 0 writes the output and prints the accuracy.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import numpy as np
 
 from ..csvm import CSVM
 from ..data_set import DataSet
-from ..exceptions import NotPortedError, PLSSVMError
+from ..exceptions import PLSSVMError
 from ..model import Model
 from ..probability import predict_probabilities
 from ..utils.logger import VerbosityLevel, log
@@ -51,7 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="output class probabilities (svm-predict's -b 1); "
                         "the model must be trained with --probability")
     parser.add_argument("--multihost", action="store_true",
-                        help="multi-host prediction (not ported yet)")
+                        help="multi-process prediction over a torch.distributed job: "
+                        "each process reads and scores only its window of the test "
+                        "file; rank 0 writes the output file")
     add_sycl_compat_options(parser)
     add_common_options(parser)
     parser.add_argument("test", metavar="test_file")
@@ -93,10 +97,7 @@ def main(argv=None) -> int:
     start = time.perf_counter()
     try:
         if args.multihost:
-            raise NotPortedError(
-                "--multihost is not ported yet (ROADMAP Queue 1, item 10: "
-                "multihost on torch.distributed)"
-            )
+            return _main_multihost(args, predict_filename, start)
         model = Model.load(
             args.model,
             label_type=resolve_label_type(args),
@@ -172,9 +173,21 @@ def main(argv=None) -> int:
     add_tracking_entry("predictions_write", "filename", predict_filename)
 
     # print achieved accuracy if the test data is labeled (main_predict.cpp:70-85)
-    if data.has_labels() and model.is_regression:
-        # LIBSVM svm-predict's regression metrics
-        targets = np.asarray(data.labels, dtype=np.float64)
+    if data.has_labels():
+        _log_metrics(model, predicted, data.labels)
+
+    total_ms = (time.perf_counter() - start) * 1000.0
+    log(VerbosityLevel.FULL | VerbosityLevel.TIMING, "\nTotal runtime: {:.2f}ms\n", total_ms)
+    add_tracking_entry("", "total_time", total_ms)
+    if args.performance_tracking is not None:
+        global_tracker.save(args.performance_tracking)
+    return 0
+
+
+def _log_metrics(model, predicted, labels) -> None:
+    """svm-predict's accuracy line, or its regression metrics."""
+    if model.is_regression:
+        targets = np.asarray(labels, dtype=np.float64)
         values = np.asarray(predicted, dtype=np.float64)
         mse = float(np.mean((values - targets) ** 2))
         vt = targets - targets.mean()
@@ -187,16 +200,46 @@ def main(argv=None) -> int:
             "Squared correlation coefficient = {} (regression)\n",
             mse, scc,
         )
-    elif data.has_labels():
-        correct = int(np.sum(np.asarray(predicted) == np.asarray(data.labels)))
-        log(
-            VerbosityLevel.FULL | VerbosityLevel.LIBSVM,
-            "Accuracy = {}% ({}/{}) (classification)\n",
-            correct / data.num_data_points * 100.0,
-            correct,
-            data.num_data_points,
-        )
+        return
+    correct = int(np.sum(np.asarray(predicted) == np.asarray(labels)))
+    log(
+        VerbosityLevel.FULL | VerbosityLevel.LIBSVM,
+        "Accuracy = {}% ({}/{}) (classification)\n",
+        correct / len(predicted) * 100.0, correct, len(predicted),
+    )
 
+
+def _main_multihost(args, predict_filename: str, start: float) -> int:
+    """``--multihost``: each rank predicts its window of the test file
+    (``parallel/multihost.py::predict_multihost``); rank 0 writes the
+    output file and prints the metrics (plssvm_tpu's ``_main_multihost``)."""
+    from ..data_set import _infer_label_array
+    from ..parallel.multihost import RankGroup, initialize_distributed, predict_multihost
+
+    initialize_distributed()
+    model = Model.load(args.model, label_type=resolve_label_type(args),
+                       dtype=resolve_dtype(args))
+    svm = CSVM(backend=args.backend, target=args.target_platform, dtype=resolve_dtype(args))
+    predicted, raw_labels, n = predict_multihost(svm, model, args.test)
+    if RankGroup(svm.device).rank != 0:
+        return 0
+    write_start = time.perf_counter()
+    with open(predict_filename, "w", encoding="utf-8") as fh:
+        if model.is_regression:
+            for v in predicted:
+                fh.write(format(v, ".10g") + "\n")
+        else:
+            for lab in predicted:
+                fh.write(str(lab) + "\n")
+    log(
+        VerbosityLevel.FULL | VerbosityLevel.TIMING,
+        "Write {} predictions in {:.2f}ms to the file '{}'.\n",
+        len(predicted), (time.perf_counter() - write_start) * 1000.0, predict_filename,
+    )
+    if raw_labels is not None:
+        label_type = (float if model.is_regression
+                      else int if model.is_one_class else resolve_label_type(args))
+        _log_metrics(model, predicted, _infer_label_array(list(raw_labels), label_type))
     total_ms = (time.perf_counter() - start) * 1000.0
     log(VerbosityLevel.FULL | VerbosityLevel.TIMING, "\nTotal runtime: {:.2f}ms\n", total_ms)
     add_tracking_entry("", "total_time", total_ms)

@@ -12,9 +12,12 @@ after its fit and ``--cross_validation N`` reports the N-fold CV accuracy
 model to N support vectors and ``--nystroem M`` fits a fixed-size model on M
 landmarks, from the file in windows with ``--streaming``, also with ``-s
 one_class`` (sparse.py; the calibration and the CV then fold with the same
-compact fit).  ``--multihost`` and ``--profile`` are still parsed, and
-rejected with a :class:`PLSSVMError` that names the ROADMAP item porting
-them.
+compact fit).  ``--multihost`` trains over the processes of a
+``torch.distributed`` job (torchrun's environment; parallel/multihost.py):
+each parses its window of the file, ``--nystroem`` and ``-s one_class``
+compose with it, and rank 0 alone writes the model and the tracker's file.
+``--profile`` is still parsed, and rejected with a :class:`PLSSVMError`
+that names the ROADMAP item porting it.
 """
 
 from __future__ import annotations
@@ -55,7 +58,6 @@ from .common import (
 
 #: (argument, flag, ROADMAP item) of the options not ported yet
 _NOT_PORTED = (
-    ("multihost", "--multihost", "Queue 1, item 10: multihost on torch.distributed"),
     ("profile", "--profile", "Queue 1, item 11: tools"),
 )
 
@@ -189,7 +191,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "every --checkpoint_interval iterations and an "
                         "interrupted run resumes from it automatically")
     parser.add_argument("--multihost", action="store_true",
-                        help="multi-host training (not ported yet)")
+                        help="multi-process training over a torch.distributed job "
+                        "(torchrun's environment, one rank a process and device): "
+                        "each process parses only its window of the training file; "
+                        "rank 0 writes the model")
     parser.add_argument("--checkpoint_interval", type=int, default=1000,
                         help="iterations between CG-state checkpoints")
     add_sycl_compat_options(parser)
@@ -292,8 +297,8 @@ def _flag_conflict(args):
 def _compact_conflict(args):
     """plssvm_tpu's messages for ``--max_sv`` / ``--nystroem`` /
     ``--streaming`` against the other flags, in its order, or None.
-    ``--nystroem --multihost`` passes here (plssvm_tpu composes them) and
-    is refused as ``--multihost`` is."""
+    ``--nystroem --multihost`` passes here: they compose
+    (``nystroem_fit_multihost``)."""
     if args.max_sv is not None or args.nystroem is not None:
         which = "--max_sv" if args.max_sv is not None else "--nystroem"
         if args.max_sv is not None and args.nystroem is not None:
@@ -448,6 +453,8 @@ def main(argv=None) -> int:
         )
         add_tracking_entry("parameter", "kernel_type", str(kernel))
         add_tracking_entry("parameter", "epsilon", args.epsilon)
+        if args.multihost:
+            return _main_multihost(args, kernel, per_class_weights, model_filename, start)
         # --streaming never loads the data set: the fit parses windows of
         # the file
         data = None if args.streaming else DataSet(
@@ -515,6 +522,64 @@ def main(argv=None) -> int:
     log(VerbosityLevel.FULL | VerbosityLevel.TIMING, "\nTotal runtime: {:.2f}ms\n", total_ms)
     add_tracking_entry("", "total_time", total_ms)
     if args.performance_tracking is not None:
+        global_tracker.save(args.performance_tracking)
+    return 0
+
+
+def _main_multihost(args, kernel, per_class_weights, model_filename, start) -> int:
+    """``--multihost``: the fit over the job's processes (plssvm_tpu's
+    multihost branch).  The process group comes up first, so that the
+    CSVM lies on the rank's device; every rank fits the same model, and
+    rank 0 alone writes it and the tracker's file."""
+    from ..one_class import fit_one_class_multihost
+    from ..parallel.multihost import RankGroup, _FileWindows, initialize_distributed
+    from ..sparse import nystroem_fit_multihost
+
+    initialize_distributed()
+    svm = CSVM(
+        backend=args.backend, target=args.target_platform, dtype=resolve_dtype(args),
+        preconditioner=args.preconditioner, gram_precision=args.gram_precision,
+        solver=args.solver, debug=args.debug, kernel_type=kernel, degree=args.degree,
+        gamma=args.gamma, coef0=args.coef0, cost=args.cost,
+    )
+    writer = RankGroup(svm.device).rank == 0
+    regression = args.svm_type in ("epsilon_svr", "svr")
+    fit_kwargs = dict(epsilon=args.epsilon, max_iter=args.max_iter)
+    if per_class_weights is not None:
+        # the label column is metadata: every process reads it whole
+        raw = _FileWindows(args.input, np.float64, with_spans=False).raw_labels
+        if raw is None:
+            print("--weight with --multihost needs a labeled training file!",
+                  file=sys.stderr)
+            return 1
+        from ..data_set import _infer_label_array
+
+        fit_kwargs["sample_weight"] = _expand_class_weights(
+            per_class_weights,
+            np.asarray(_infer_label_array(list(raw), resolve_label_type(args))))
+    if args.warm_start is not None:
+        fit_kwargs["initial_model"] = Model.load(
+            args.warm_start, label_type=resolve_label_type(args), dtype=resolve_dtype(args))
+    if args.checkpoint is not None:
+        fit_kwargs["checkpoint_path"] = args.checkpoint
+        fit_kwargs["checkpoint_interval"] = args.checkpoint_interval
+    if args.nystroem is not None:
+        model = nystroem_fit_multihost(
+            svm, args.input, n_landmarks=args.nystroem, label_type=resolve_label_type(args),
+            regression=regression, sample_weight=fit_kwargs.get("sample_weight"))
+    elif args.svm_type == "one_class":
+        # (--weight is refused with -s one_class)
+        model = fit_one_class_multihost(svm, args.input, nu=args.nu, **fit_kwargs)
+    else:
+        model = svm.fit_multihost(args.input, label_type=resolve_label_type(args),
+                                  regression=regression,
+                                  classification=args.classification, **fit_kwargs)
+    if writer:
+        model.save(model_filename)
+    total_ms = (time.perf_counter() - start) * 1000.0
+    log(VerbosityLevel.FULL | VerbosityLevel.TIMING, "\nTotal runtime: {:.2f}ms\n", total_ms)
+    add_tracking_entry("", "total_time", total_ms)
+    if args.performance_tracking is not None and writer:
         global_tracker.save(args.performance_tracking)
     return 0
 

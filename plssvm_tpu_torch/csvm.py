@@ -20,8 +20,8 @@ checkpoint/resume, ``debug`` guards), and predict with binary, one-vs-all,
 one-vs-one (LIBSVM multiclass), regression (epsilon_svr) and one-class
 model files; probability.py calibrates models and cross-validates around
 ``fit`` and ``predict_values``, robust.py refits LS-SVR with Hampel weights.
-What it does not carry yet raises :class:`NotPortedError` (a
-``NotImplementedError``) naming the ROADMAP item that ports it.
+``fit_multihost`` trains over the processes of a ``torch.distributed`` job,
+each parsing its window of the file (parallel/multihost.py).
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from .data_set import DataSet
-from .exceptions import InvalidParameterError, NotPortedError, UnsupportedBackendError
+from .exceptions import InvalidParameterError, UnsupportedBackendError
 from .kernel_functions import DISTANCE_KERNELS
 from .model import Model
 from .ops.predict import calculate_w, predict_values as predict_values_op
@@ -593,7 +593,8 @@ class CSVM:
         return rows * cols * itemsize
 
     def _explicit_budget(self, device: torch.device, dept: int, d: int,
-                         columns: int, data: Optional[DataSet] = None) -> int:
+                         columns: int, data: Optional[DataSet] = None, ranks: int = 1,
+                         held: Optional[float] = None) -> int:
         """The bytes the explicit kernel matrix may take on ``device``.
 
         ``PLSSVM_TPU_TORCH_EXPLICIT_BUDGET`` (bytes) overrides it.  On the
@@ -605,7 +606,9 @@ class CSVM:
         solve holds beside K: X once more (a shard device's copy), the CG
         vectors (``columns`` of each), the build's and the product's
         workspace and the CUDA context's reserve.  Other processes on the
-        card are not counted.
+        card are not counted, but for a multi-process fit whose ``ranks``
+        processes share the card (parallel/multihost.py): ``held`` is then
+        their live tensors' bytes, and each takes its workspace and context.
         """
         env = os.environ.get(EXPLICIT_BUDGET_ENV)
         if env is not None:
@@ -616,10 +619,11 @@ class CSVM:
 
         itemsize = self.dtype.itemsize
         total = torch.cuda.get_device_properties(device).total_memory
-        held = torch.cuda.memory_allocated(device) - _cached_bytes(data, device)
-        return (total - held - (dept + 1) * d * itemsize
-                - CG_VECTORS * dept * columns * itemsize
-                - BUILD_WORKSPACE_BYTES - CUDA_CONTEXT_BYTES)
+        if held is None:
+            held = torch.cuda.memory_allocated(device) - _cached_bytes(data, device)
+        return int(total - held - (dept + 1) * d * itemsize
+                   - CG_VECTORS * dept * columns * itemsize
+                   - ranks * (BUILD_WORKSPACE_BYTES + CUDA_CONTEXT_BYTES))
 
     def _explicit_bytes_per_device(self, dept: int, n_dev: int) -> dict:
         """The explicit kernel matrix's bytes on each physical device: the
@@ -650,7 +654,8 @@ class CSVM:
         return 512 // (2 if self.gram_precision == "bf16" else 1)
 
     def _use_explicit_solver(self, dept: int, d: int, kind, n_dev: int = 1,
-                             columns: int = 1, data: Optional[DataSet] = None) -> bool:
+                             columns: int = 1, data: Optional[DataSet] = None,
+                             needs=None) -> bool:
         """Resolve ``solver`` for a fit of ``dept`` rows and ``d`` features
         over ``n_dev`` shards (plssvm_tpu's ``_use_explicit_solver``).
 
@@ -663,20 +668,33 @@ class CSVM:
         features on.  The budget is counted per physical device, whatever
         the list of shard devices repeats; ``data``, the fit's data set,
         frees its cached matrix for this one (``_explicit_budget``).
+        ``needs`` (a multi-process fit's, parallel/multihost.py) gives per
+        device ``(K bytes, the build's column block, budget)`` in place of
+        this process's devices.
         """
         if self.solver == "cg_implicit":
             return False
-        per_device = self._explicit_bytes_per_device(dept, n_dev)
-        budgets = {dev: self._explicit_budget(dev, dept, d, columns, data)
-                   for dev in per_device}
-        fits = all(per_device[dev] <= budgets[dev] for dev in per_device)
+        if needs is None:
+            per_device = self._explicit_bytes_per_device(dept, n_dev)
+            # the ring builds each K_p one column block at a time, and
+            # holds the block beside K_p while it copies it in
+            block = 0
+            if n_dev > 1:
+                from .parallel.sharded import shard_bounds
+
+                rows = max(hi - lo for lo, hi in shard_bounds(dept, n_dev))
+                block = self._explicit_k_bytes(rows, rows)
+            needs = [(per_device[dev], block,
+                      self._explicit_budget(dev, dept, d, columns, data))
+                     for dev in per_device]
+        fits = all(k_bytes + block <= budget for k_bytes, block, budget in needs)
         if self.solver == "cg_explicit":
             if not fits:
-                dev = max(per_device, key=lambda k: per_device[k] - budgets[k])
+                k_bytes, _, budget = max(needs, key=lambda n: n[0] + n[1] - n[2])
                 raise InvalidParameterError(
-                    f"solver='cg_explicit' needs {per_device[dev]} bytes per device "
+                    f"solver='cg_explicit' needs {int(k_bytes)} bytes per device "
                     f"for the {dept}x{dept} kernel matrix over {n_dev} "
-                    f"device(s), over the {budgets[dev]}-byte budget "
+                    f"device(s), over the {int(budget)}-byte budget "
                     f"({EXPLICIT_BUDGET_ENV}) — use gram_precision='bf16', "
                     "solver='automatic', or cg_implicit!"
                 )
@@ -1151,73 +1169,28 @@ class CSVM:
         ``_fit_with_checkpointing_multi``; on the ring as on one device,
         since the ring's CG state lies whole on its first device).  A file
         that matches the problem is resumed from; the file goes when the
-        fit ends."""
-        from .solver.checkpoint import (
-            CGCheckpoint,
-            MultiCGCheckpoint,
-            load_checkpoint,
-            load_multi_checkpoint,
-            problem_fingerprint,
-            save_checkpoint,
-            save_multi_checkpoint,
-        )
+        fit ends (``solver/checkpoint.py::run_segments``)."""
+        from .solver.checkpoint import problem_fingerprint, run_segments
+
+        def segment(seg_end, init_state):
+            return solve(*solve_args, seg_end, init_state=init_state, **solve_kw)
+
+        def place(ckpt):
+            state = tuple(
+                torch.as_tensor(np.asarray(a, dtype=self.dtype), device=self.device)
+                for a in (ckpt.x, ckpt.r, ckpt.d, ckpt.delta, ckpt.delta0)
+            ) + (ckpt.iteration,)
+            if multi:
+                state += (torch.as_tensor(ckpt.itpc, dtype=torch.int64, device=self.device),)
+            return state
 
         fingerprint = problem_fingerprint(
             X, y, self._params_repr_for_fingerprint(sample_weight), epsilon
         )
-        ckpt = (load_multi_checkpoint if multi else load_checkpoint)(
-            checkpoint_path, fingerprint)
-        if ckpt is not None:
-            log(
-                VerbosityLevel.FULL,
-                "Resuming {} from checkpoint '{}' at iteration {}.\n",
-                "block CG" if multi else "CG", checkpoint_path, ckpt.iteration,
-            )
-
-        def host(t):
-            return t.detach().cpu().numpy()
-
-        while True:
-            if ckpt is None:
-                segment_end = min(checkpoint_interval, max_iter)
-                result = solve(*solve_args, segment_end, **solve_kw)
-            else:
-                segment_end = min(ckpt.iteration + checkpoint_interval, max_iter)
-                state = tuple(
-                    torch.as_tensor(np.asarray(a, dtype=self.dtype), device=self.device)
-                    for a in (ckpt.x, ckpt.r, ckpt.d, ckpt.delta, ckpt.delta0)
-                ) + (ckpt.iteration,)
-                if multi:
-                    state += (torch.as_tensor(ckpt.itpc, dtype=torch.int64,
-                                              device=self.device),)
-                result = solve(*solve_args, segment_end, init_state=state, **solve_kw)
-            iterations = int(result.iterations)
-            delta = host(result.delta)
-            delta0 = host(result.delta0)
-            converged = bool(np.all(delta <= float(epsilon) ** 2 * delta0))
-            if converged or iterations >= max_iter:
-                break
-            if ckpt is not None and iterations <= int(ckpt.iteration):
-                # no forward progress: the solver's in-dtype stop target can
-                # be minutely looser than this float64 check at the boundary
-                break
-            fields = dict(x=host(result.x), r=host(result.r), d=host(result.d),
-                          iteration=iterations, fingerprint=fingerprint)
-            if multi:
-                ckpt = MultiCGCheckpoint(
-                    delta=delta, delta0=delta0,
-                    itpc=host(result.iterations_per_class), **fields)
-                save_multi_checkpoint(checkpoint_path, ckpt)
-            else:
-                ckpt = CGCheckpoint(delta=float(delta), delta0=float(delta0), **fields)
-                save_checkpoint(checkpoint_path, ckpt)
-        # solved: the checkpoint is stale now
-        try:
-            if os.path.isfile(checkpoint_path):
-                os.remove(checkpoint_path)
-        except OSError:
-            pass
-        return result
+        return run_segments(segment, place, fingerprint=fingerprint, epsilon=epsilon,
+                            max_iter=max_iter, path=checkpoint_path,
+                            interval=checkpoint_interval, multi=multi,
+                            label="block CG" if multi else "CG")
 
     # -- predict ------------------------------------------------------------
     def predict_values(self, model: Model, data: DataSet) -> np.ndarray:
@@ -1306,13 +1279,66 @@ class CSVM:
             model._oao_shadow = (model.alpha, shadow)
         return self.predict_values(shadow, data)
 
-    def fit_multihost(self, filename: str, **kwargs) -> Model:
-        """The multi-host fit of plssvm_tpu (each host parses its row window
-        of ``filename``, the solve runs over every host's devices): not
-        ported yet."""
-        raise NotPortedError(
-            "fit_multihost is not ported yet (ROADMAP Queue 1, item 10: "
-            "parallel/multihost.py on torch.distributed)"
+    def fit_multihost(
+        self,
+        filename: str,
+        *,
+        epsilon: float = 0.001,
+        max_iter: Optional[int] = None,
+        label_type=None,
+        checkpoint_path: Optional[str] = None,
+        checkpoint_interval: int = 1000,
+        classification: Union[str, ClassificationType] = ClassificationType.OAA,
+        regression: bool = False,
+        sample_weight=None,
+        initial_model: Optional[Model] = None,
+    ) -> Model:
+        """A fit of ``filename`` (on storage every process reads) over the
+        processes of a ``torch.distributed`` job, one rank a process on
+        this CSVM's device: each parses only its window of rows, and the CG
+        solve runs on the ring of ranks (parallel/multihost.py).  Every
+        rank returns the same model; at one process it is
+        ``fit(DataSet(filename))`` up to the order of its sums.
+
+        ``sample_weight`` (one entry per file row), ``initial_model`` (a
+        previous fit on the same file, re-aligned as in :meth:`fit`) and
+        ``checkpoint_path`` (on storage every process reads; rank 0 writes
+        it) as in :meth:`fit`.  One-vs-one is refused, as plssvm_tpu
+        refuses it: its pair machines train on row subsets that defeat the
+        window ingest.
+        """
+        from .parallel.multihost import fit_multihost as _fit_multihost
+
+        if ClassificationType.from_string(classification) == ClassificationType.OAO:
+            raise InvalidParameterError(
+                "classification='oao' is not supported on the multi-host "
+                "path (the pair machines train on row subsets that defeat "
+                "the per-host window ingest) — use the default 'oaa'!"
+            )
+        if epsilon <= 0.0:
+            raise InvalidParameterError(
+                f"epsilon must be greater than 0.0, but is {epsilon}!"
+            )
+        if max_iter is not None and max_iter <= 0:
+            raise InvalidParameterError(
+                f"max_iter must be greater than 0, but is {max_iter}!"
+            )
+        if checkpoint_path is not None and int(checkpoint_interval) < 1:
+            raise InvalidParameterError(
+                f"checkpoint_interval must be at least 1, but is "
+                f"{checkpoint_interval}!"
+            )
+        if initial_model is not None and checkpoint_path is not None:
+            raise InvalidParameterError(
+                "initial_model cannot be combined with CG-state "
+                "checkpointing (the checkpoint already carries the "
+                "solver state)!"
+            )
+        return _fit_multihost(
+            self, filename, epsilon=epsilon, max_iter=max_iter,
+            label_type=label_type, checkpoint_path=checkpoint_path,
+            checkpoint_interval=checkpoint_interval, regression=regression,
+            sample_weight=sample_weight, initial_model=initial_model,
         )
 
     def predict(self, model: Model, data: DataSet) -> np.ndarray:

@@ -276,6 +276,49 @@ def parse_arff_file(
     return parse_arff_lines(lines, dtype=dtype)
 
 
+def parse_arff_file_window(
+    filename: str, row_begin: int, row_end: int, dtype: np.dtype = np.float64
+) -> Optional[Tuple[np.ndarray, Optional[List[str]], int, int]]:
+    """Windowed ARFF read: the features of rows [row_begin, row_end) only.
+
+    Counterpart of plssvm_tpu/io/arff.py::parse_arff_file_window, the
+    per-process reader of a multi-process fit (parallel/multihost.py):
+    O(window * d) data memory at any file size.  The header streams in
+    Python; the data section goes through the native windowed parser
+    (``parse_arff_window_native``), which still validates every row and
+    returns the whole label column (global metadata: every process maps
+    the labels alike).  Returns ``(X_window, labels_all_or_None, n_total,
+    num_features)``, or None where the native library is missing or bails
+    (the caller then parses the whole file, which raises the reference's
+    messages).  ``row_begin = row_end = 0`` is the metadata scan.
+    """
+    streamed = _read_arff_header_and_offset(filename)
+    if streamed is None:
+        return None
+    header_lines, data_offset = streamed
+    try:
+        num_features, _, unique_labels, label_idx = parse_arff_header(
+            header_lines + ["<data-row>"]
+        )
+    except InvalidFileFormatError:
+        return None
+    if not num_features:
+        return None
+    from ..native import parse_arff_window_native
+
+    native = parse_arff_window_native(
+        filename, data_offset, num_features, label_idx,
+        bool(unique_labels), row_begin, row_end, dtype,
+    )
+    if native is None:
+        return None
+    data, labels, n_total = native
+    if unique_labels and not np.isin(np.asarray(labels), np.asarray(unique_labels)).all():
+        # a label outside the header: the whole-file parse raises its message
+        return None
+    return data, (labels if unique_labels else None), n_total, num_features
+
+
 def write_arff_file(
     filename: str, data: np.ndarray, labels: Optional[np.ndarray] = None
 ) -> None:

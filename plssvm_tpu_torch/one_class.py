@@ -27,14 +27,13 @@ the system has the data set's n rows.
 
 from __future__ import annotations
 
-import os
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .data_set import DataSet
-from .exceptions import InvalidParameterError, NotPortedError
+from .exceptions import InvalidParameterError
 from .model import Model
 from .parameter import KernelFunctionType
 from .solver.cg import _make_kernel_matvec, ridge_cg_core
@@ -88,58 +87,26 @@ def _one_class_civ(cost, sample_weight, n, dt):
     return (1.0 / (cost * sample_weight)).astype(dt)
 
 
-def _run_ridge_segments(solve_once, resume_once, X, b, params_repr, epsilon, max_iter,
-                        checkpoint_path, checkpoint_interval):
-    """Segmented one-class ridge CG with checkpoint/resume (plssvm_tpu's
-    ``_run_ridge_segments``): the solve runs in ``checkpoint_interval``
-    segments, the state is saved between them, a file that matches the
-    problem is resumed from, and the file goes when the solve ends.
-    ``solve_once(seg_end)`` / ``resume_once(seg_end, state)`` return
-    ridge_cg_core's tuple; the state arrives as host arrays."""
-    from .solver.checkpoint import (
-        CGCheckpoint,
-        load_checkpoint,
-        problem_fingerprint,
-        save_checkpoint,
-    )
+def _one_class_repr(params, civ, sample_weight) -> str:
+    """The parameters in a one-class checkpoint's fingerprint, with the
+    digest of the sample weights."""
+    params_repr = repr(params) + "|one_class"
+    if civ is not None:
+        from .solver.checkpoint import weights_digest_suffix
 
-    def host(t):
-        return t.detach().cpu().numpy()
+        params_repr += weights_digest_suffix(sample_weight)
+    return params_repr
 
-    fingerprint = problem_fingerprint(X, b, params_repr, epsilon)
-    ckpt = load_checkpoint(checkpoint_path, fingerprint)
-    if ckpt is not None:
-        log(
-            VerbosityLevel.FULL,
-            "Resuming one-class CG from checkpoint '{}' at iteration {}.\n",
-            checkpoint_path, ckpt.iteration,
-        )
-    while True:
-        if ckpt is None:
-            res = solve_once(min(int(checkpoint_interval), int(max_iter)))
-        else:
-            seg_end = min(int(ckpt.iteration) + int(checkpoint_interval), int(max_iter))
-            res = resume_once(seg_end, (np.asarray(ckpt.x), np.asarray(ckpt.r),
-                                        np.asarray(ckpt.d), ckpt.delta, ckpt.delta0,
-                                        int(ckpt.iteration)))
-        x, r, d, delta, delta0, iterations = res
-        delta_f = float(delta)
-        delta0_f = float(delta0)
-        converged = delta_f <= float(epsilon) ** 2 * delta0_f
-        if converged or iterations >= int(max_iter):
-            break
-        if ckpt is not None and iterations <= int(ckpt.iteration):
-            break  # the epsilon boundary: accept the solver's verdict
-        ckpt = CGCheckpoint(x=host(x), r=host(r), d=host(d), delta=delta_f,
-                            delta0=delta0_f, iteration=iterations,
-                            fingerprint=fingerprint)
-        save_checkpoint(checkpoint_path, ckpt)
-    try:
-        if os.path.isfile(checkpoint_path):
-            os.remove(checkpoint_path)
-    except OSError:
-        pass
-    return res
+
+def _ridge_state(dt, device, lo, hi):
+    """``place`` of ``run_segments`` for the ridge solve: rows [lo, hi) of
+    a checkpoint's state on ``device``."""
+    def place(ckpt):
+        return tuple(torch.as_tensor(np.asarray(a, dtype=dt), device=device)
+                     for a in (ckpt.x[lo:hi], ckpt.r[lo:hi], ckpt.d[lo:hi], ckpt.delta,
+                               ckpt.delta0)) + (int(ckpt.iteration),)
+
+    return place
 
 
 def fit_one_class(
@@ -234,27 +201,22 @@ def fit_one_class(
     x_init = (None if initial_model is None
               else csvm._tensor(np.asarray(initial_model.alpha, dtype=dt)))
 
-    def solve_once(seg_end):
-        return ridge_cg_core(b, matvec, dot, eps=epsilon, max_iter=seg_end, x_init=x_init,
-                             debug=csvm.debug)
-
-    def resume_once(seg_end, state):
-        x, r, d_, delta, delta0, it = state
-        placed = tuple(torch.as_tensor(np.asarray(a, dtype=dt), device=X.device)
-                       for a in (x, r, d_, delta, delta0))
+    def solve(seg_end, init_state=None):
         return ridge_cg_core(b, matvec, dot, eps=epsilon, max_iter=seg_end,
-                             init_state=placed + (it,), debug=csvm.debug)
+                             x_init=None if init_state is not None else x_init,
+                             init_state=init_state, debug=csvm.debug)
 
     if checkpoint_path is None:
-        res = solve_once(max_iter)
+        res = solve(max_iter)
     else:
-        params_repr = repr(params) + "|one_class"
-        if civ is not None:
-            from .solver.checkpoint import weights_digest_suffix
+        from .solver.checkpoint import problem_fingerprint, run_segments
 
-            params_repr += weights_digest_suffix(sample_weight)
-        res = _run_ridge_segments(solve_once, resume_once, X, b, params_repr, epsilon,
-                                  max_iter, checkpoint_path, int(checkpoint_interval))
+        fingerprint = problem_fingerprint(X, b, _one_class_repr(params, civ, sample_weight),
+                                          epsilon)
+        res = run_segments(solve, _ridge_state(dt, X.device, 0, n), fingerprint=fingerprint,
+                           epsilon=epsilon, max_iter=int(max_iter), path=checkpoint_path,
+                           interval=int(checkpoint_interval), ridge=True,
+                           label="one-class CG")
     x, _r, _d, delta, _delta0, iterations = res
     # the training scores g = K alpha, for the nu-quantile threshold
     g = kernel_mv(X, sq, x, gamma, coef0)
@@ -269,10 +231,129 @@ def fit_one_class(
     return model
 
 
-def fit_one_class_multihost(csvm, filename: str, **kwargs) -> Model:
-    """plssvm_tpu's multi-host one-class fit (each host parses its row
-    window of ``filename``): not ported yet."""
-    raise NotPortedError(
-        "fit_one_class_multihost is not ported yet (ROADMAP Queue 1, item 10: "
-        "parallel/multihost.py on torch.distributed)"
-    )
+def fit_one_class_multihost(
+    csvm,
+    filename: str,
+    *,
+    nu: float = 0.5,
+    epsilon: float = 0.001,
+    max_iter: Optional[int] = None,
+    sample_weight=None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_interval: int = 1000,
+    initial_model: Optional[Model] = None,
+) -> Model:
+    """A one-class fit of ``filename`` over the processes of a
+    ``torch.distributed`` job (plssvm_tpu's ``fit_one_class_multihost``).
+
+    Each rank parses only its window of rows ``shard_bounds(n, world)[rank]``
+    (labels ignored); the ridge CG runs on the ring of ranks
+    (``parallel/multihost.py::rank_product``, or each rank's row block of
+    the explicit K) with the dots summed in rank order; rho is the
+    ``nu``-quantile of the scores gathered from every rank, so every rank
+    returns the same model.  ``sample_weight`` (one per file row) and
+    ``initial_model`` (a one-class fit of the same file: its rows keep the
+    file's order) are sliced to each window; ``checkpoint_path`` (on
+    storage every rank reads) saves from rank 0, the fingerprint binding
+    every window's bytes through a digest gathered from each rank.  At one
+    process it equals :func:`fit_one_class` on the file up to the order of
+    its sums.
+    """
+    import hashlib
+    import time
+
+    from .parallel import multihost as mh
+
+    start = time.perf_counter()
+    if checkpoint_path is not None and int(checkpoint_interval) < 1:
+        raise InvalidParameterError(
+            f"checkpoint_interval must be at least 1, but is {checkpoint_interval}!"
+        )
+    if initial_model is not None and checkpoint_path is not None:
+        raise InvalidParameterError(
+            "initial_model cannot be combined with CG-state "
+            "checkpointing (the checkpoint already carries the "
+            "solver state)!"
+        )
+    group = mh.rank_group(csvm)
+    dt = csvm.dtype
+    windows = mh._FileWindows(filename, dt)
+    n, d = windows.n, windows.d
+    max_iter = _validate_one_class_args(nu, epsilon, max_iter, n)
+    params = csvm.params.copy()
+    if params.gamma.is_default():
+        params.gamma.value = 1.0 / d
+    kind = params.kernel_type.value
+    civ = _one_class_civ(params.cost.value, sample_weight, n, dt)
+    if initial_model is not None and initial_model.num_support_vectors != n:
+        raise InvalidParameterError(
+            f"initial_model has {initial_model.num_support_vectors} "
+            f"support vectors but the data set has {n} points!"
+        )
+    bounds = mh.rank_bounds(group, n)
+    lo, hi = bounds[group.rank]
+    windows.check_index(group)
+    X_win = windows.rows(lo, hi)
+    mh.check_chi_squared(group, kind, mh._local_min(X_win),
+                         "chi-squared kernel requires non-negative data!")
+
+    X = csvm._tensor(X_win)
+    gamma, coef0, degree = params.resolved_gamma(d), params.coef0.value, params.degree.value
+    impl = csvm._impl()
+    use_explicit = mh.use_explicit_solver(csvm, group, bounds, d, kind)
+    add_tracking_entry("cg", "solver", "cg_explicit" if use_explicit else "cg_implicit")
+    if use_explicit:
+        K_p = mh.build_rank_kernel_matrix(group, bounds, X, gamma, coef0, kind=kind,
+                                          degree=degree, precision=csvm.gram_precision,
+                                          impl=impl)
+        kernel_mv = mh.rank_explicit_product(group, bounds, K_p)
+    else:
+        kernel_mv = mh.rank_product(group, bounds, X, kind=kind, degree=degree, impl=impl,
+                                    precision=csvm.gram_precision)
+    dot, _, _ = mh.rank_reductions(group, bounds, csvm.scalar_precision)
+    cost_inv = 1.0 / params.cost.value if civ is None else csvm._tensor(civ[lo:hi])
+    b = torch.ones(hi - lo, dtype=X.dtype, device=X.device)
+
+    def matvec(v):
+        return kernel_mv(X, None, v, gamma, coef0) + cost_inv * v
+
+    x_init = (None if initial_model is None
+              else csvm._tensor(np.asarray(initial_model.alpha, dtype=dt)[lo:hi]))
+
+    def solve(seg_end, init_state=None):
+        return ridge_cg_core(b, matvec, dot, eps=epsilon, max_iter=seg_end,
+                             x_init=None if init_state is not None else x_init,
+                             init_state=init_state, debug=csvm.debug, agree=group.agree)
+
+    if checkpoint_path is None:
+        res = solve(max_iter)
+    else:
+        from .solver.checkpoint import run_segments
+
+        # no label column or folded row to bind the data: every rank's
+        # window digest, gathered, binds it
+        digest = np.frombuffer(hashlib.sha256(np.ascontiguousarray(X_win).tobytes())
+                               .digest(), dtype=np.uint8).astype(np.float64)
+        fingerprint = mh._multihost_fingerprint(
+            n, d, _one_class_repr(params, civ, sample_weight), epsilon,
+            group.host_values(digest), np.zeros(1), n)
+        res = run_segments(solve, _ridge_state(dt, X.device, lo, hi), fingerprint=fingerprint,
+                           epsilon=epsilon, max_iter=int(max_iter), path=checkpoint_path,
+                           interval=int(checkpoint_interval), ridge=True,
+                           label="multi-process one-class CG", group=group, bounds=bounds)
+    x, r, d_, delta, _delta0, iterations = res
+    mh._record((lo, hi), dict(X=X.shape[0], x=x.shape[0], r=r.shape[0], d=d_.shape[0]))
+    # the training scores g = K alpha of every rank, for the nu-quantile
+    g = group.all_gather_rows(kernel_mv(X, None, x, gamma, coef0), bounds)
+    alpha = group.all_gather_rows(x, bounds).cpu().numpy()
+    g = g.cpu().numpy().astype(np.float64)
+    if group.rank == 0:
+        _log_one_class_result(iterations, max_iter, float(delta), epsilon, nu)
+    mh._track(group, start, iterations, float(delta), libsvm=False)
+    rho = float(np.quantile(g, nu))
+    X_full = X_win if group.world == 1 else windows.rows(0, n)
+    model = Model(params, DataSet(np.asarray(X_full, dtype=dt), dtype=dt), alpha=alpha,
+                  rho=rho)
+    model.is_one_class = True
+    model.n_iter = iterations
+    return model

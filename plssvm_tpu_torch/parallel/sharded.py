@@ -25,17 +25,22 @@ machine, one shard per card on a machine with several.
 - **The solvers** (:func:`solve_ls_svm_sharded`,
   :func:`solve_ls_svm_multi_sharded`) run the port's own CG cores
   (solver/cg.py) with the ring as their ``kernel_mv`` / ``kernel_mm`` and
-  scalar reductions that take a partial per shard (compensated where the
-  solve is) and sum the partials in shard order: the reference's
-  ``psum(compensated_dot(a_p, b_p))``.  The CG vectors (O(n)) live whole on
-  the first device.  The cores take the whole X there too: they compute
-  ``q`` and the squared norms from it once per solve; the ring's kernels
-  read only the row shards.
+  scalar reductions that take a partial per shard over its rows
+  zero-padded to the shards' common height (:func:`shard_partial`,
+  compensated where the solve is) and sum the partials in shard order: the
+  reference's ``psum(compensated_dot(a_p, b_p))``.  The CG vectors (O(n))
+  live whole on the first device.  The cores take the whole X there too:
+  they compute ``q`` (one shard at a time, :func:`per_shard_point_kernel`)
+  and the squared norms once per solve; the ring's kernels read only the
+  row shards.  A multi-process job (parallel/multihost.py) runs the same
+  ring with one shard a process, and with the same shards, steps and
+  summation trees computes the same bits on the CPU.
 - **The explicit solver** (:func:`build_sharded_kernel_matrix`, the
   ``kernel_matrix`` argument of the solvers): each shard's device holds its
-  row block ``K_p = k(X_p, X)``, built once (kernel N's rectangular walk for
-  the distance kernels, the matrix product and the epilogue for the Gram
-  kernels, solver/explicit.py), and a product copies v (or V) to every
+  row block ``K_p = k(X_p, X)``, built once one column block ``k(X_p,
+  X_q)`` at a time (kernel N's rectangular walk for the distance kernels,
+  the matrix product and the epilogue for the Gram kernels,
+  solver/explicit.py), and a product copies v (or V) to every
   shard's device and returns the ``K_p @ v`` in shard order: the
   reference's ``build_sharded_kernel_matrix_fn`` and
   ``build_sharded_explicit_solver``, whose ``all_gather`` of v is that copy.
@@ -63,7 +68,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..kernel_functions import DISTANCE_KERNELS
+from ..kernel_functions import DISTANCE_KERNELS, kernel_against_point
 from ..ops import distance as _distance
 from ..ops import gram_matmat as _gram_matmat
 from ..ops import gram_matvec as _gram_matvec
@@ -309,15 +314,36 @@ def build_sharded_kernel_matrix(
     ``X`` (dept, d), one per shard of :func:`shard_bounds` over ``devices``
     (a system with fewer rows than devices takes one shard per row), each
     on its shard's device, where X is placed whole once per device.  The
-    counterpart of ``build_sharded_kernel_matrix_fn``."""
+    counterpart of ``build_sharded_kernel_matrix_fn``.  Each K_p is built
+    one column block ``k(X_p, X_q)`` per shard q, as a process of a
+    multi-process solve builds its block while the shards come round the
+    ring (:func:`fill_kernel_columns`)."""
     devices = list(devices)[:X.shape[0]]
+    bounds = shard_bounds(X.shape[0], len(devices))
     whole: dict = {}
     blocks = []
-    for (lo, hi), dev in zip(shard_bounds(X.shape[0], len(devices)), devices):
+    for (lo, hi), dev in zip(bounds, devices):
         Xd = whole.setdefault(dev, X.to(dev))
-        blocks.append(kernel_matrix_block(Xd[lo:hi], Xd, gamma, coef0, kind=kind,
-                                          degree=degree, precision=precision, impl=impl))
+        K_p = None
+        for q_lo, q_hi in bounds:
+            K_p = fill_kernel_columns(K_p, Xd[lo:hi], Xd[q_lo:q_hi], (q_lo, q_hi),
+                                      X.shape[0], gamma, coef0, kind=kind, degree=degree,
+                                      precision=precision, impl=impl)
+        blocks.append(K_p)
     return blocks
+
+
+def fill_kernel_columns(K_p, X_p, X_q, columns, width, gamma, coef0, **kw) -> torch.Tensor:
+    """``K_p[:, lo:hi] = k(X_p, X_q)`` for ``columns = (lo, hi)``, shard
+    q's columns of the (m_p, ``width``) row block ``K_p``, made at the
+    first call (None) in :func:`kernel_matrix_block`'s type; returns K_p.
+    ``kw`` are that function's ``kind``, ``degree``, ``precision`` and
+    ``impl``."""
+    block = kernel_matrix_block(X_p, X_q, gamma, coef0, **kw)
+    if K_p is None:
+        K_p = block.new_empty((X_p.shape[0], width))
+    K_p[:, columns[0]:columns[1]] = block
+    return K_p
 
 
 def _explicit_sharded_product(K_shards: Sequence[torch.Tensor]) -> Callable:
@@ -343,35 +369,74 @@ def _kernel_product(X, bounds, devices, kind, degree, impl, precision,
     return _explicit_sharded_product(kernel_matrix)
 
 
-def _in_shard_order(reduce: Callable, bounds) -> Callable:
-    """A column-wise ``reduce`` ((rows, k) -> (k,)) taken over every row
-    range of ``bounds`` and the partials summed in shard order: the
-    reference's ``psum`` of per-shard partials.  The shards are laid side
-    by side as the columns of one zero-padded block, so one fold serves
-    them all (a compensated fold costs ~10 launches per halving step, and
-    one per shard would cost P times as many; a zero adds nothing)."""
+def shard_partial(fold: Callable, rows: torch.Tensor, height: int) -> torch.Tensor:
+    """One shard's partial of a column-wise ``fold`` ((h, k) -> (k,)):
+    its ``rows`` (m_p,) or (m_p, C) zero-padded to the common ``height`` of
+    the shards (a zero adds nothing), so every shard folds a column of one
+    length, the summation tree of the sum over all shards' rows.  A process
+    of a multi-process solve takes its partial so (parallel/multihost.py)."""
+    block = rows.new_zeros((height,) + rows.shape[1:])
+    block[:rows.shape[0]] = rows
+    return fold(block.reshape(height, -1)).reshape(rows.shape[1:])
+
+
+def sum_partials(partials) -> torch.Tensor:
+    """The shards' partials summed in shard order: the reference's
+    ``psum`` of per-shard partials."""
+    total = partials[0]
+    for part in partials[1:]:
+        total = total + part
+    return total
+
+
+def _in_shard_order(reduce: Callable, bounds, elementwise: bool) -> Callable:
+    """A column-wise ``reduce`` taken over every row range of ``bounds``
+    (:func:`shard_partial`) and the partials summed in shard order.  An
+    ``elementwise`` fold (the compensated one: its halving steps are
+    elementwise, so a column's result never depends on the others) takes
+    the shards side by side as the columns of one zero-padded block, one
+    fold for them all (~10 launches per halving step; one fold per shard
+    would cost P times as many); ``torch.sum`` orders a column's sum by the
+    block's width, so it folds each shard's column alone, as each process
+    of a multi-process solve does."""
     height = max(hi - lo for lo, hi in bounds)
 
     def sharded(t):
+        if not elementwise:
+            return sum_partials([shard_partial(reduce, t[lo:hi], height)
+                                 for lo, hi in bounds])
         block = t.new_zeros((height, len(bounds)) + t.shape[1:])
         for p, (lo, hi) in enumerate(bounds):
             block[:hi - lo, p] = t[lo:hi]
         partials = reduce(block.reshape(height, -1)).reshape((len(bounds),) + t.shape[1:])
-        total = partials[0]
-        for part in partials[1:]:
-            total = total + part
-        return total
+        return sum_partials(partials)
 
     return sharded
+
+
+def scalar_fold(scalars: str) -> Callable:
+    """The column-wise fold of the sharded solves' scalars: compensated
+    with ``scalars="compensated"``, else ``torch.sum``."""
+    return (compensated_sum if scalars == "compensated"
+            else lambda M: torch.sum(M, dim=0))
 
 
 def _sharded_reductions(bounds, scalars: str):
     """(dot, vsum, colsum) of the sharded solves: per-shard partials,
     compensated with ``scalars="compensated"``, summed in shard order."""
-    fold = (compensated_sum if scalars == "compensated"
-            else lambda M: torch.sum(M, dim=0))
-    total = _in_shard_order(fold, bounds)
+    total = _in_shard_order(scalar_fold(scalars), bounds, scalars == "compensated")
     return (lambda a, b: total(a * b)), total, total
+
+
+def per_shard_point_kernel(bounds) -> Callable:
+    """The cores' ``point_kernel``: q = k(X, x_last) one shard of
+    ``bounds`` at a time, as each process of a multi-process solve computes
+    its own (a matrix-vector product's rounding depends on its row
+    count)."""
+    def point_kernel(X, point, *args):
+        return torch.cat([kernel_against_point(X[lo:hi], point, *args) for lo, hi in bounds])
+
+    return point_kernel
 
 
 def solve_ls_svm_sharded(
@@ -419,7 +484,7 @@ def solve_ls_svm_sharded(
         kind=kind, degree=degree,
         kernel_mv=_kernel_product(X, bounds, devices, kind, degree, impl,
                                   gram_precision, kernel_matrix),
-        dot=dot, vsum=vsum, **extras,
+        dot=dot, vsum=vsum, point_kernel=per_shard_point_kernel(bounds), **extras,
     )
 
 
@@ -457,7 +522,7 @@ def solve_ls_svm_multi_sharded(
         kind=kind, degree=degree,
         kernel_mm=_kernel_product(X, bounds, devices, kind, degree, impl,
                                   gram_precision, kernel_matrix),
-        colsum=colsum, **extras,
+        colsum=colsum, point_kernel=per_shard_point_kernel(bounds), **extras,
     )
 
 

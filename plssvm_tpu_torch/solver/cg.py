@@ -167,11 +167,17 @@ class CGResult(NamedTuple):
     d: torch.Tensor           # final search direction
 
 
-def _check_finite(ok: torch.Tensor, message: Callable[[], str]) -> None:
+def _check_finite(ok: torch.Tensor, message: Callable[[], str],
+                  agree: Optional[Callable[[bool], bool]] = None) -> None:
     """A ``debug=True`` guard: raise :class:`NumericCheckError` carrying
     plssvm_tpu's checkify message (made only then) unless every entry of
-    ``ok`` holds."""
-    if not bool(torch.all(ok)):
+    ``ok`` holds.  ``agree`` turns this process's verdict into the one
+    every process of a multi-process solve reaches (each holds a slice of
+    the CG state, and all must raise or go on together)."""
+    verdict = bool(torch.all(ok))
+    if agree is not None:
+        verdict = agree(verdict)
+    if not verdict:
         raise NumericCheckError(message())
 
 
@@ -260,6 +266,8 @@ def cg_ls_svm_core(
     weight_last=None,      # the folded-out last row's weight
     init_state=None,       # (x, r, d, delta, delta0, iteration) to resume
     debug: bool = False,   # NaN/Inf guards on the CG state
+    point_kernel: Callable = kernel_against_point,  # q = k(X, x_last)
+    agree: Optional[Callable[[bool], bool]] = None,  # the guards' joint verdict
 ) -> CGResult:
     """The CG algorithm of plssvm_tpu's ``cg_ls_svm_core``.
 
@@ -273,12 +281,19 @@ def cg_ls_svm_core(
     diagonal of the implicit matrix; the stop rule stays ``r.r <= eps^2
     r0.r0``.  ``debug`` raises :class:`NumericCheckError` on a non-finite
     initial residual, step size, residual or iterate.
+
+    X, y, the weights and the CG vectors may be one process's rows of a
+    multi-process solve: ``kernel_mv``, ``dot`` and ``vsum`` then span
+    every process, ``agree`` joins the debug guards' verdicts, and every
+    branch the loop takes reads only such joint values.  ``point_kernel``
+    computes q (the row-sharded ring takes it shard by shard, as its
+    processes do).
     """
     civ, civ_last = _regularizer(cost, weights, weight_last)
     sq_norms = torch.sum(X * X, dim=-1)
 
     # q[i] = k(x_i, x_last)  (reference: gpu_csvm.hpp:505, q_kernel.cu:16-49)
-    q = kernel_against_point(X, x_last, kind, gamma, coef0, degree)
+    q = point_kernel(X, x_last, kind, gamma, coef0, degree)
     # QA_cost = k(x_last, x_last) + 1/C  (gpu_csvm.hpp:508); the 1/C is the
     # folded-out last row's regularizer
     xl_sq = torch.dot(x_last, x_last)
@@ -319,7 +334,7 @@ def cg_ls_svm_core(
         # with a garbage "converged" model
         _check_finite(torch.isfinite(delta), lambda:
                       "initial CG residual |r0|^2 is non-finite — the training "
-                      "data, labels or kernel parameters contain NaN/Inf")
+                      "data, labels or kernel parameters contain NaN/Inf", agree)
     # r.z for the current residual; a resumed d is not z, so from r
     rz = dot(r, minv * r) if use_pcg else delta
 
@@ -338,11 +353,12 @@ def cg_ls_svm_core(
             _check_finite(torch.isfinite(alpha_cd), lambda:
                           f"CG step size rz/d.Ad became non-finite at iteration {it} "
                           f"(d.Ad = {float(dAd)}) — singular/indefinite system or "
-                          "numeric blowup")
+                          "numeric blowup", agree)
             _check_finite(torch.isfinite(delta_new), lambda:
-                          f"CG residual |r|^2 became non-finite at iteration {it}")
+                          f"CG residual |r|^2 became non-finite at iteration {it}", agree)
             _check_finite(torch.isfinite(x), lambda:
-                          f"CG iterate x contains non-finite values at iteration {it}")
+                          f"CG iterate x contains non-finite values at iteration {it}",
+                          agree)
         if use_pcg:
             z = minv * r
             rz_new = dot(r, z)
@@ -418,6 +434,7 @@ def ridge_cg_core(
     x_init: Optional[torch.Tensor] = None,  # warm start (pruning refits)
     init_state=None,       # (x, r, d, delta, delta0, iteration) to resume
     debug: bool = False,   # NaN/Inf guards on the CG state
+    agree: Optional[Callable[[bool], bool]] = None,  # the guards' joint verdict
 ):
     """Plain ridge CG ``A x = b``: plssvm_tpu's ``ridge_cg_core``.
 
@@ -430,7 +447,8 @@ def ridge_cg_core(
     there (no extra product).  ``init_state`` continues a checkpointed
     solve after its ``iteration``-th step.  ``dot`` is the reference's
     plain dot (or its sharded sum of partials); ``debug`` raises
-    :class:`NumericCheckError` with plssvm_tpu's messages.
+    :class:`NumericCheckError` with plssvm_tpu's messages (``agree`` as in
+    :func:`cg_ls_svm_core`).
 
     Returns ``(x, r, d, delta, delta0, iterations)``: r, d and delta are
     the live state a checkpoint keeps.
@@ -454,7 +472,7 @@ def ridge_cg_core(
     if debug:
         _check_finite(torch.isfinite(delta), lambda:
                       "initial ridge-CG residual |r0|^2 is non-finite — the training "
-                      "data or kernel parameters contain NaN/Inf")
+                      "data or kernel parameters contain NaN/Inf", agree)
 
     while it < max_iter and bool(delta > target):
         Ad = matvec(d)
@@ -469,11 +487,13 @@ def ridge_cg_core(
         if debug:
             _check_finite(torch.isfinite(a), lambda:
                           f"ridge-CG step size became non-finite at iteration {it} "
-                          f"(d.Ad = {float(dAd)})")
+                          f"(d.Ad = {float(dAd)})", agree)
             _check_finite(torch.isfinite(delta_new), lambda:
-                          f"ridge-CG residual |r|^2 became non-finite at iteration {it}")
+                          f"ridge-CG residual |r|^2 became non-finite at iteration {it}",
+                          agree)
             _check_finite(torch.isfinite(x), lambda:
-                          f"ridge-CG iterate contains non-finite values at iteration {it}")
+                          f"ridge-CG iterate contains non-finite values at iteration {it}",
+                          agree)
         beta = delta_new / delta
         d = r + beta * d
         delta = delta_new
@@ -531,6 +551,8 @@ def cg_ls_svm_multi_core(
     weight_last=None,
     init_state=None,       # (x, r, d, delta, delta0, iteration, itpc)
     debug: bool = False,
+    point_kernel: Callable = kernel_against_point,
+    agree: Optional[Callable[[bool], bool]] = None,
 ) -> MultiCGResult:
     """The block CG of plssvm_tpu's ``cg_ls_svm_multi_core``.
 
@@ -542,7 +564,9 @@ def cg_ls_svm_multi_core(
     to the whole block.  The extras are the binary core's, per column:
     the warm start's stop targets anchored to the cold start, the weighted
     diagonal, Jacobi (one diagonal for every class), resume (with the
-    per-class counts ``itpc``) and the debug guards.
+    per-class counts ``itpc``) and the debug guards.  ``point_kernel`` and
+    ``agree`` as in :func:`cg_ls_svm_core`: a multi-process solve runs
+    this loop on each process's rows.
     """
     if colsum is None:
         def colsum(M):
@@ -550,7 +574,7 @@ def cg_ls_svm_multi_core(
     civ, civ_last = _regularizer(cost, weights, weight_last)
     civ_col = civ if weights is None else civ[:, None]
     sq_norms = torch.sum(X * X, dim=-1)
-    q = kernel_against_point(X, x_last, kind, gamma, coef0, degree)
+    q = point_kernel(X, x_last, kind, gamma, coef0, degree)
     xl_sq = torch.dot(x_last, x_last)
     QA_cost = kernel_self_diag(xl_sq, kind, gamma, coef0, degree) + civ_last
     B = Y - y_last[None, :]
@@ -587,7 +611,7 @@ def cg_ls_svm_multi_core(
     if debug:
         _check_finite(torch.isfinite(delta), lambda:
                       "initial block-CG residuals contain non-finite values — the "
-                      "training data, labels or kernel parameters contain NaN/Inf")
+                      "training data, labels or kernel parameters contain NaN/Inf", agree)
     rz = colsum(r * (minv * r)) if use_pcg else delta
     one = torch.ones_like(delta)
     zero = torch.zeros_like(delta)
@@ -608,11 +632,13 @@ def cg_ls_svm_multi_core(
         if debug:
             _check_finite(torch.isfinite(alpha_cd), lambda:
                           f"block-CG step sizes contain non-finite values at iteration "
-                          f"{it} — singular/indefinite system or numeric blowup")
+                          f"{it} — singular/indefinite system or numeric blowup", agree)
             _check_finite(torch.isfinite(delta_new), lambda:
-                          f"block-CG residuals contain non-finite values at iteration {it}")
+                          f"block-CG residuals contain non-finite values at iteration {it}",
+                          agree)
             _check_finite(torch.isfinite(x), lambda:
-                          f"block-CG iterate contains non-finite values at iteration {it}")
+                          f"block-CG iterate contains non-finite values at iteration {it}",
+                          agree)
         if use_pcg:
             z = minv * r
             rz_new = colsum(r * z)

@@ -173,3 +173,78 @@ def load_multi_checkpoint(
             )
     except (OSError, KeyError, ValueError):
         return None
+
+
+def run_segments(solve, place, *, fingerprint: str, epsilon: float, max_iter: int,
+                 path: str, interval: int, multi: bool = False, ridge: bool = False,
+                 label: str = "CG", group=None, bounds=None):
+    """A CG solve in segments of ``interval`` iterations with its state
+    saved between them (plssvm_tpu's ``_fit_with_checkpointing``,
+    ``_run_ridge_segments`` and ``_run_segments_multihost``): a file at
+    ``path`` that matches ``fingerprint`` is resumed from, and the file
+    goes when the solve ends.
+
+    ``solve(seg_end, init_state)`` runs the core (``init_state`` None for
+    the cold start) and returns its result (``ridge``: ``ridge_cg_core``'s
+    tuple; ``multi``: the block CG's, saved with its per-class counts);
+    ``place(ckpt)`` makes a checkpoint the core's ``init_state`` on the
+    solve's device.  Every decision reads the solve's (joint) scalars.
+    With ``group`` (parallel/multihost.py's ``RankGroup``, each rank
+    holding its rows ``bounds[rank]`` of the state) every rank reads the
+    file after a barrier, the state is gathered from every rank, rank 0
+    alone writes and removes the file, and a barrier follows each write.
+    """
+    from ..utils.logger import VerbosityLevel, log
+
+    writer = group is None or group.rank == 0
+
+    def barrier():
+        if group is not None:
+            group.barrier()
+
+    def whole(t):
+        return _host(t if group is None else group.all_gather_rows(t, bounds))
+
+    barrier()
+    ckpt = (load_multi_checkpoint if multi else load_checkpoint)(path, fingerprint)
+    if ckpt is not None and writer:
+        log(VerbosityLevel.FULL, "Resuming {} from checkpoint '{}' at iteration {}.\n",
+            label, path, ckpt.iteration)
+    while True:
+        if ckpt is None:
+            res = solve(min(interval, max_iter), None)
+        else:
+            res = solve(min(int(ckpt.iteration) + interval, max_iter), place(ckpt))
+        if ridge:
+            x, r, d, delta, delta0, iterations = res
+        else:
+            x, r, d, delta, delta0 = res.x, res.r, res.d, res.delta, res.delta0
+            iterations = int(res.iterations)
+        delta, delta0 = _host(delta), _host(delta0)
+        if bool(np.all(delta <= float(epsilon) ** 2 * delta0)) or iterations >= max_iter:
+            break
+        if ckpt is not None and iterations <= int(ckpt.iteration):
+            # no forward progress: the solver's in-dtype stop target can be
+            # minutely looser than this float64 check at the boundary
+            break
+        fields = dict(x=whole(x), r=whole(r), d=whole(d), iteration=iterations,
+                      fingerprint=fingerprint)
+        if multi:
+            ckpt = MultiCGCheckpoint(delta=delta, delta0=delta0,
+                                     itpc=_host(res.iterations_per_class), **fields)
+            if writer:
+                save_multi_checkpoint(path, ckpt)
+        else:
+            ckpt = CGCheckpoint(delta=float(delta), delta0=float(delta0), **fields)
+            if writer:
+                save_checkpoint(path, ckpt)
+        barrier()
+    # solved: the checkpoint is stale now
+    if writer:
+        try:
+            if os.path.isfile(path):
+                os.remove(path)
+        except OSError:
+            pass
+    barrier()
+    return res

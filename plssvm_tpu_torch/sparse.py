@@ -43,8 +43,9 @@ and add nothing).  No (n, m) block lives on the device at once.
 
 :func:`nystroem_fit_from_file` reads the training file in windows through
 the native parser's selected-row reads, so the host holds O(row_block d +
-m d + n).  :func:`nystroem_fit_multihost` is plssvm_tpu's multi-host fit,
-not ported yet.
+m d + n).  :func:`nystroem_fit_multihost` reduces each process's window
+of the file in a ``torch.distributed`` job, the partials summed in rank
+order.
 
 Each Nystroem fit records its phases in the tracker's "nystroem" entries
 (:class:`_Timer`): ``basis_ms`` (K_mm and its float64 inverse square
@@ -62,7 +63,7 @@ import numpy as np
 import torch
 
 from .data_set import DataSet
-from .exceptions import InvalidParameterError, NotPortedError
+from .exceptions import InvalidParameterError
 from .model import Model
 from .parameter import ClassificationType, KernelFunctionType
 from .solver.explicit import _tf32, kernel_matrix_block
@@ -640,6 +641,29 @@ def _windows(filename, spans, n, d, dt, kind, block):
         yield b, e, Xw
 
 
+def _file_targets(raw_labels, n, n_landmarks, label_type, regression, random_state):
+    """``(labels, Y, landmark indices)`` of a file's label column: the
+    continuous targets or the +-1 / one-vs-all columns (n, C) in float64,
+    and plssvm_tpu's draw of the landmarks (class-stratified, seeded)."""
+    from .data_set import LabelMapper, _infer_label_array
+
+    if not 1 <= n_landmarks <= n:
+        raise InvalidParameterError(
+            f"n_landmarks must be in [1, {n}], but is {n_landmarks}!"
+        )
+    rng = np.random.default_rng(random_state)
+    if regression:
+        labels = np.asarray(_infer_label_array(list(raw_labels), float), dtype=np.float64)
+        return labels, labels[:, None], _stratified_landmarks(None, n, int(n_landmarks), rng)
+    labels = _infer_label_array(list(raw_labels), label_type)
+    mapper = LabelMapper(labels)
+    if mapper.num_mappings > 2:
+        Y = mapper.oaa_targets(labels, dtype=np.float64)
+    else:
+        Y = mapper.map_labels(labels, dtype=np.float64)[:, None]
+    return labels, Y, _stratified_landmarks(labels, n, int(n_landmarks), rng)
+
+
 def nystroem_fit_from_file(
     csvm,
     filename: str,
@@ -668,8 +692,6 @@ def nystroem_fit_from_file(
     ARFF file, the in-memory fit runs instead.  One device: ``devices`` is
     not sharded here.
     """
-    from .data_set import LabelMapper, _infer_label_array
-
     index = _file_index(csvm, filename)
     if index is None:
         data = DataSet(filename, label_type=float if regression else label_type,
@@ -682,23 +704,8 @@ def nystroem_fit_from_file(
         raise InvalidParameterError(
             "No labels given for training! Maybe the data is only usable for prediction?"
         )
-    if not 1 <= n_landmarks <= n:
-        raise InvalidParameterError(
-            f"n_landmarks must be in [1, {n}], but is {n_landmarks}!"
-        )
-    rng = np.random.default_rng(random_state)
-    if regression:
-        labels = np.asarray(_infer_label_array(list(raw_labels), float), dtype=np.float64)
-        Y = labels[:, None]
-        idx = _stratified_landmarks(None, n, int(n_landmarks), rng)
-    else:
-        labels = _infer_label_array(list(raw_labels), label_type)
-        mapper = LabelMapper(labels)
-        if mapper.num_mappings > 2:
-            Y = mapper.oaa_targets(labels, dtype=np.float64)
-        else:
-            Y = mapper.map_labels(labels, dtype=np.float64)[:, None]
-        idx = _stratified_landmarks(labels, n, int(n_landmarks), rng)
+    labels, Y, idx = _file_targets(raw_labels, n, n_landmarks, label_type, regression,
+                                   random_state)
     s = _validated_weights(sample_weight, n)
     params, kind, gamma, coef0, degree, cost = _resolve_kernel_params(csvm, d)
     dt = csvm.dtype
@@ -726,13 +733,75 @@ def nystroem_fit_from_file(
     return model
 
 
-def nystroem_fit_multihost(csvm, filename: str, **kwargs):
-    """plssvm_tpu's multi-host fixed-size fit (each host reduces its row
-    window of ``filename``): not ported yet."""
-    raise NotPortedError(
-        "nystroem_fit_multihost is not ported yet (ROADMAP Queue 1, item 10: "
-        "parallel/multihost.py on torch.distributed)"
-    )
+def nystroem_fit_multihost(
+    csvm,
+    filename: str,
+    *,
+    n_landmarks: int,
+    label_type=None,
+    regression: bool = False,
+    random_state=0,
+    sample_weight=None,
+    rcond: float = 1e-10,
+    row_block: int = 65536,
+    return_indices: bool = False,
+):
+    """A fixed-size (Nystroem) fit of ``filename`` over the processes of a
+    ``torch.distributed`` job (plssvm_tpu's ``nystroem_fit_multihost``).
+
+    Every rank reads the label column and draws the same landmarks
+    (plssvm_tpu's seeded stratified draw), parses the m landmark rows (one
+    selected-row read) and builds the same basis; each reduces only its
+    window of rows, the row split of the single-process reduction over as
+    many shards (``_nystroem_reduce``: blocks of ``min(row_block, max(8,
+    ceil(n / world)))`` rows, ``ceil(n / (block * world))`` blocks a
+    rank), and the (m, m), (m, C) and (m,) partials are summed in rank order
+    (``all_gather``: O(m^2) traffic, whatever n), so every rank solves the
+    same bordered system on its host and returns the same model.  At one
+    process it equals :func:`nystroem_fit` on the same landmarks.
+    """
+    from .parallel import multihost as mh
+
+    group = mh.rank_group(csvm)
+    dt = csvm.dtype
+    windows = mh._FileWindows(filename, dt)
+    n, d = windows.n, windows.d
+    if windows.raw_labels is None:
+        raise InvalidParameterError(
+            "No labels given for training! Maybe the data is only usable for prediction?"
+        )
+    labels, Y, idx = _file_targets(windows.raw_labels, n, n_landmarks, label_type,
+                                   regression, random_state)
+    s = _validated_weights(sample_weight, n)
+    params, kind, gamma, coef0, degree, cost = _resolve_kernel_params(csvm, d)
+
+    timer = _Timer(idx.shape[0])
+    windows.check_index(group)
+    Z = windows.selected(idx)
+    block = int(min(row_block, max(8, -(-n // group.world))))
+    per = -(-n // (block * group.world)) * block
+    lo, hi = min(group.rank * per, n), min((group.rank + 1) * per, n)
+    X_win = windows.rows(lo, hi)
+    mh.check_chi_squared(group, kind, mh._local_min(X_win, Z),
+                         "chi-squared kernel requires non-negative data!")
+    basis, inv_sqrt = _landmark_basis(csvm, Z, kind, gamma, coef0, degree, rcond,
+                                      csvm.device)
+    timer.lap("basis_ms")
+    partials = _reduce_rows(basis, X_win, s[lo:hi], Y[lo:hi], block)
+    empty = [r for r in range(group.world) if r * per >= n]
+    A, c, u = (group.sum_in_rank_order(t, skip=empty).to(torch.float64).cpu().numpy()
+               for t in partials)
+    timer.blocks = -(-n // block)
+    mh._record((lo, hi), dict(X=X_win.shape[0]))
+    timer.lap("reduce_ms")
+    alpha, b = _bordered_solve(A, c, u, s, Y, cost, inv_sqrt)
+    timer.lap("solve_ms")
+    timer.record()
+    model = _nystroem_model(params, Z, None if regression else labels[idx], alpha, b, dt,
+                            regression)
+    if return_indices:
+        return model, idx
+    return model
 
 
 def nystroem_fit_one_class_from_file(

@@ -279,12 +279,26 @@ class TestNotPorted:
         [["--multihost"], ["--nystroem", "5", "--multihost"], ["--profile", "trace"]],
     )
     def test_cli_rejects(self, flags, tmp_path, capsys):
+        """``--profile`` is refused with its ROADMAP item; ``--multihost``
+        (item 10), also with ``--nystroem``, is ported: a single process
+        trains the file (the ring of processes: tests/test_torch_multiprocess.py)
+        and writes the model the run without ``--multihost`` writes."""
         train_file = os.path.join(tmp_path, "train.libsvm")
         self._data().save(train_file)
         model = os.path.join(tmp_path, "out.model")
-        assert t_train_cli.main(flags + ["-q", train_file, model]) == 1
-        assert "not ported yet (ROADMAP" in capsys.readouterr().err
-        assert not os.path.exists(model)
+        if "--multihost" not in flags:
+            assert t_train_cli.main(flags + ["-q", train_file, model]) == 1
+            assert "not ported yet (ROADMAP" in capsys.readouterr().err
+            assert not os.path.exists(model)
+            return
+        assert t_train_cli.main(flags + ["-p", "cpu", "-q", train_file, model]) == 0
+        alone = os.path.join(tmp_path, "alone.model")
+        rest = [f for f in flags if f != "--multihost"]
+        assert t_train_cli.main(rest + ["-p", "cpu", "-q", train_file, alone]) == 0
+        got, want = plssvm_tpu_torch.Model.load(model), plssvm_tpu_torch.Model.load(alone)
+        assert got.num_support_vectors == want.num_support_vectors
+        np.testing.assert_allclose(got.alpha, want.alpha, rtol=0,
+                                   atol=1e-4 * np.max(np.abs(want.alpha)))
 
     @pytest.mark.parametrize("flags,header", [
         (["--classification", "oao"], "nr_class 3"),

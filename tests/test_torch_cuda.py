@@ -1336,9 +1336,10 @@ def test_explicit_product_of_a_float32_matrix(cuda_device, columns, symmetric):
 @pytest.mark.parametrize("devices", [None, ["cuda:0"] * 3])
 def test_explicit_fit_on_the_card(cuda_device, kernel, n_classes, devices):
     """A float64 ``cg_explicit`` fit through the kernels (kernel N for the
-    distance kernels, on one device or three shards of cuda:0) against the
-    same fit through the plain versions (``backend="torch"``) on the card:
-    rho within 1e-8."""
+    distance kernels, on one device or three shards of cuda:0, where each
+    shard builds its row block one column block a shard: 3 x 3 rect walks)
+    against the same fit through the plain versions (``backend="torch"``)
+    on the card: rho within 1e-8."""
     import numpy as np
 
     import plssvm_tpu_torch as port
@@ -1357,7 +1358,7 @@ def test_explicit_fit_on_the_card(cuda_device, kernel, n_classes, devices):
     assert data.num_data_points == 300
     distance_kind = kernel != "rbf"
     assert (kernel_matrix.sym_launches, kernel_matrix.rect_launches) == (
-        (int(distance_kind and devices is None), 3 * (distance_kind and devices is not None)))
+        (int(distance_kind and devices is None), 9 * (distance_kind and devices is not None)))
     assert models[0].n_iter == models[1].n_iter
     assert np.max(np.abs(np.asarray(models[0].rho) - np.asarray(models[1].rho))) <= 1e-8
 
@@ -1680,3 +1681,51 @@ def test_nystroem_reduction_against_the_cpu(cuda_device, kernel, devices, dtype,
     blocks = sum(-(-(min((p + 1) * per, 2000) - p * per) // block) for p in range(devices))
     assert blocks == 8
     assert (sym, rect) == ((1, blocks) if kernel != "rbf" else (0, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,need,tiles", [("float32", 0.995, "tc"),
+                                              ("float64", 0.999, "dmma")])
+def test_multihost_gloo_ranks_on_one_card(cuda_device, tmp_path, dtype, need, tiles):
+    """Two gloo ranks on cuda:0 (``tools/multihost_rehearsal.py``, NCCL puts
+    no two ranks on one card) fit a one-vs-all set of config 2's shape
+    (10 Gaussian classes, 10000 x 200, RBF) from its file and predict 2000
+    held-out points, against the in-process ring of 2 shards on the same
+    file: labels agree on >= 0.995 (float32) / 0.999 (float64), the ring's
+    rules; per rank and product one C and one rows-only D launch (W = 2 has
+    no dual step) on the tier's tiles, D once to predict, nothing on the
+    plain versions or the FFMA tiles, no jax."""
+    import numpy as np
+
+    import plssvm_tpu_torch as port
+    from plssvm_tpu_torch.tools import multihost_rehearsal as rehearsal
+
+    port.set_verbosity("quiet")
+    rng = np.random.default_rng(11)
+    # unit Gaussians around means ~4 apart (chip_smoke.py's classes)
+    means = 4.0 / np.sqrt(2.0) * rng.normal(size=(10, 200)) / np.sqrt(200)
+    y = rng.integers(0, 10, 12000)
+    X = means[y] + rng.normal(size=(12000, 200))
+    train, test = str(tmp_path / "train.libsvm"), str(tmp_path / "test.libsvm")
+    port.DataSet(X[:10000], y[:10000]).save(train)
+    port.DataSet(X[10000:], y[10000:]).save(test)
+    csvm = dict(backend="cuda", device="cuda:0", dtype=dtype, kernel_type="rbf",
+                solver="cg_implicit")
+    records = rehearsal.launch(
+        {"tasks": [dict(name="fit", op="fit", file=train, predict=test, csvm=csvm,
+                        fit=dict(epsilon=1e-8))]},
+        2, str(tmp_path / "out"), device="cuda:0", backend="gloo", timeout=600)
+    svm = port.CSVM(backend="cuda", devices=["cuda:0"] * 2, dtype=np.dtype(dtype),
+                    kernel_type="rbf", solver="cg_implicit")
+    ring = svm.fit(port.DataSet(train, dtype=np.dtype(dtype)), epsilon=1e-8)
+    want = svm.predict(ring, port.DataSet(test, dtype=np.dtype(dtype)))
+    iterations = records[0]["tasks"][0]["cg.iterations"]
+    products = 1 + iterations + iterations // 50
+    for rank, record in enumerate(records):
+        task = record["tasks"][0]
+        got = rehearsal.load_arrays(str(tmp_path / "out"), "fit", rank)["predictions"]
+        assert np.mean(got == want) >= need
+        assert not record["jax_imported"] and task["staged_bytes"] > 0
+        assert task["launches"] == {f"gram_matmat.sym_{tiles}_launches": products,
+                                    f"gram_matmat.rect_{tiles}_launches": products}
+        assert task["predict_launches"] == {f"gram_matmat.rect_{tiles}_launches": 1}

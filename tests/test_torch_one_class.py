@@ -340,7 +340,7 @@ def test_model_files_across_packages(kernel, tmp_path):
                                   j_svm.predict(j_loaded, plssvm_tpu.DataSet(test)))
 
 
-def test_validation_errors():
+def test_validation_errors(tmp_path):
     svm, data = _port("rbf"), plssvm_tpu_torch.DataSet(_cloud(n=30))
     for nu in (0.0, 1.0):
         with pytest.raises(InvalidParameterError, match="nu must be in"):
@@ -353,8 +353,17 @@ def test_validation_errors():
         plssvm_tpu_torch.fit_one_class(svm, data, checkpoint_path="x", checkpoint_interval=0)
     with pytest.raises(InvalidParameterError, match="non-negative"):
         plssvm_tpu_torch.fit_one_class(_port("chi_squared"), data)
-    with pytest.raises(plssvm_tpu_torch.NotPortedError, match="item 10"):
-        plssvm_tpu_torch.fit_one_class_multihost(svm, "train.libsvm")
+    # the multi-process fit (ROADMAP Queue 1 item 10) keeps the rules
+    path = str(tmp_path / "train.libsvm")
+    data.save(path)
+    for kwargs, match in ((dict(nu=1.0), "nu must be in"), (dict(epsilon=0.0), "epsilon"),
+                          (dict(max_iter=0), "max_iter"),
+                          (dict(checkpoint_path="x", checkpoint_interval=0),
+                           "checkpoint_interval")):
+        with pytest.raises(InvalidParameterError, match=match):
+            plssvm_tpu_torch.fit_one_class_multihost(svm, path, **kwargs)
+    with pytest.raises(InvalidParameterError, match="non-negative"):
+        plssvm_tpu_torch.fit_one_class_multihost(_port("chi_squared"), path)
 
 
 def test_debug_guard_names_the_non_finite_step():

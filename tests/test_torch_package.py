@@ -1,8 +1,9 @@
 """plssvm_tpu_torch stands apart from JAX.
 
 In a fresh interpreter (this process has imported jax and plssvm_tpu),
-importing the port, its CLIs, its tools, its kernel wrappers and its
-native parser loads neither, nor sklearn (the facades of sklearn.py import
+importing the port, its CLIs, its tools (the multi-process launcher
+among them), its kernel wrappers, its ring over processes and its native
+parser loads neither, nor sklearn (the facades of sklearn.py import
 it only in ``__sklearn_tags__``), and builds no kernel and no parser.  No source file of the port imports them.
 """
 
@@ -25,7 +26,8 @@ import plssvm_tpu_torch.cli.scale, plssvm_tpu_torch.cli.generate_data
 import plssvm_tpu_torch.native, plssvm_tpu_torch.solver.checkpoint
 import plssvm_tpu_torch.ops.gram_matvec, plssvm_tpu_torch.ops.gram_matmat
 import plssvm_tpu_torch.ops.distance, plssvm_tpu_torch.ops.banded
-import plssvm_tpu_torch.parallel.sharded
+import plssvm_tpu_torch.parallel.sharded, plssvm_tpu_torch.parallel.multihost
+import plssvm_tpu_torch.tools.multihost_rehearsal
 import plssvm_tpu_torch.ops.kernel_matrix, plssvm_tpu_torch.solver.explicit
 import plssvm_tpu_torch.tools.bench_explicit
 import plssvm_tpu_torch.tools.exp_banded_distance
@@ -93,7 +95,8 @@ def test_cli_help(cli):
     assert "usage: plssvm-torch-" + cli in proc.stdout
 
 
-@pytest.mark.parametrize("tool", ["exp_banded_distance", "bench_matvec"])
+@pytest.mark.parametrize("tool", ["exp_banded_distance", "bench_matvec",
+                                  "multihost_rehearsal"])
 def test_tool_help(tool):
     proc = _run("-m", f"plssvm_tpu_torch.tools.{tool}", "--help")
     assert proc.returncode == 0, proc.stderr

@@ -43,7 +43,6 @@ import plssvm_tpu_torch
 from plssvm_tpu.parameter import KernelFunctionType as JKind
 from plssvm_tpu_torch.exceptions import (
     InvalidParameterError,
-    NotPortedError,
     UnsupportedBackendError,
 )
 from plssvm_tpu_torch.ops import _build, distance, gram_matmat, gram_matvec, matvec
@@ -646,13 +645,16 @@ def test_devices_all_needs_cuda():
 @pytest.mark.parametrize("what", ["oao", "regression", "initial_model", "sample_weight",
                                   "checkpoint_path", "multihost"])
 def test_not_ported_with_devices(what, tmp_path):
-    """Each combination the port does not carry yet names its ROADMAP item.
-    Item 4's extras are ported: with ``devices`` they fit as plssvm_tpu's
-    four-device fit does (tests/test_torch_solver_extras.py holds every
-    layout and type).  One-vs-one (item 6: the batched machines split over
-    the devices) and LS-SVR (item 7: the ring's binary solve) are ported:
-    with ``devices`` each fits as on one device: the same iterations, rho
-    within 1e-8 (the ring sums in another order)."""
+    """Each combination the port once refused is ported now.  Item 4's
+    extras: with ``devices`` they fit as plssvm_tpu's four-device fit does
+    (tests/test_torch_solver_extras.py holds every layout and type).
+    One-vs-one (item 6: the batched machines split over the devices) and
+    LS-SVR (item 7: the ring's binary solve): with ``devices`` each fits as
+    on one device: the same iterations, rho within 1e-8 (the ring sums in
+    another order).  ``fit_multihost`` (item 10): a rank holds one shard on
+    one device, so a CSVM with ``devices`` is refused, and at one process
+    the fit of the file is the one-device fit of its data set, within the
+    same rule (tests/test_torch_multiprocess.py runs the ranks)."""
     svm = plssvm_tpu_torch.CSVM(devices=["cpu"] * 2, dtype=np.float64)
     Xtr, ytr, _, _ = _blobs(6, n_classes=3)
     data = plssvm_tpu_torch.DataSet(Xtr, ytr)
@@ -674,10 +676,16 @@ def test_not_ported_with_devices(what, tmp_path):
         np.testing.assert_allclose(np.asarray(models[0].rho), np.asarray(models[1].rho),
                                    rtol=0, atol=1e-8)
         return
-    with pytest.raises(NotPortedError, match="item 10"):
-        path = os.path.join(tmp_path, "train.libsvm")
-        data.save(path)
+    path = os.path.join(tmp_path, "train.libsvm")
+    data.save(path)
+    with pytest.raises(InvalidParameterError, match="one shard a process"):
         svm.fit_multihost(path)
+    one = plssvm_tpu_torch.CSVM(device="cpu", dtype=np.float64)
+    models = [one.fit_multihost(path, epsilon=1e-10),
+              one.fit(plssvm_tpu_torch.DataSet(path), epsilon=1e-10)]
+    assert models[0].n_iter == models[1].n_iter
+    np.testing.assert_allclose(np.asarray(models[0].rho), np.asarray(models[1].rho),
+                               rtol=0, atol=1e-8)
 
 
 def _extras_with_devices(what, X, y, tmp_path):

@@ -41,7 +41,7 @@ from plssvm_tpu import sparse as j_sparse
 from plssvm_tpu.cli import train as j_train_cli
 from plssvm_tpu_torch import sparse as t_sparse
 from plssvm_tpu_torch.cli import train as t_train_cli
-from plssvm_tpu_torch.exceptions import InvalidParameterError, NotPortedError
+from plssvm_tpu_torch.exceptions import InvalidParameterError
 from plssvm_tpu_torch.native import loader as t_loader
 
 EPS = 1e-10
@@ -268,7 +268,7 @@ def test_nystroem_counts_the_plain_blocks(monkeypatch):
     assert kernel_matrix.sym_launches == kernel_matrix.rect_launches == 0
 
 
-def test_nystroem_validation():
+def test_nystroem_validation(tmp_path):
     X, y = _classes(2, n=30, d=3)
     svm = plssvm_tpu_torch.CSVM(device="cpu", dtype=np.float64)
     ds = _data(plssvm_tpu_torch, X, y)
@@ -287,8 +287,14 @@ def test_nystroem_validation():
     with pytest.raises(InvalidParameterError, match="non-negative"):
         plssvm_tpu_torch.nystroem_fit(
             plssvm_tpu_torch.CSVM(device="cpu", kernel_type="chi_squared"), ds, n_landmarks=4)
-    with pytest.raises(NotPortedError, match="item 10"):
-        plssvm_tpu_torch.nystroem_fit_multihost(svm, "train.libsvm", n_landmarks=4)
+    # the multi-process fit (ROADMAP Queue 1 item 10) keeps the rules
+    path = str(tmp_path / "train.libsvm")
+    ds.save(path)
+    for kwargs, match in ((dict(n_landmarks=0), "must be in"),
+                          (dict(n_landmarks=8, sample_weight=np.zeros(30)),
+                           "must all be positive")):
+        with pytest.raises(InvalidParameterError, match=match):
+            plssvm_tpu_torch.nystroem_fit_multihost(svm, path, **kwargs)
 
 
 # ---------------------------------------------------------------------------
@@ -555,13 +561,16 @@ def test_cli_conflicts(files, flags, message, tmp_path, capsys):
 
 
 def test_cli_nystroem_multihost_is_not_ported(files, tmp_path, capsys):
-    """plssvm_tpu composes --nystroem with --multihost; the port refuses it
-    as it refuses --multihost (ROADMAP Queue 1 item 10)."""
-    model = str(tmp_path / "x.model")
-    assert t_train_cli.main(["--nystroem", "8", "--multihost", "-p", "cpu", "-q",
-                             files["classes"], model]) == 1
-    assert "--multihost is not ported yet (ROADMAP Queue 1, item 10" in capsys.readouterr().err
-    assert not os.path.exists(model)
+    """--nystroem composes with --multihost (ROADMAP Queue 1 item 10,
+    ``nystroem_fit_multihost``), as in plssvm_tpu: at one process the model
+    file equals plssvm_tpu's CLI's up to the last bits of alpha and rho."""
+    common = ["--nystroem", "8", "--multihost", "-t", "2", "-g", "0.1",
+              "--use_double_as_real_type", "-q"]
+    got, want = str(tmp_path / "got.model"), str(tmp_path / "want.model")
+    assert t_train_cli.main(common + ["-p", "cpu", files["classes"], got]) == 0
+    assert j_train_cli.main(common + ["-b", "xla", files["classes"], want]) == 0
+    assert "total_sv 8" in open(got).read()
+    _assert_same_file(got, want)
 
 
 @pytest.mark.parametrize("flags", [["--max_sv", "90"], ["--nystroem", "24"]])
