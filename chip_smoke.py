@@ -85,9 +85,26 @@ implicit ones (chi2-width, MNIST width, config 2 and its laplacian files
 through ``plssvm-torch-train --solver cg_explicit``, config 2 in
 float64), the ring's explicit fit on four shards of cuda:0, and kernel
 N's launches.  The "stall" phase follows: ROADMAP Queue 3's float32
-chi-squared case, eight runs with each solver.  Every phase built to
+chi-squared case, twelve runs with each solver, each run gated to the
+first run's iterations per class.  Every phase built to
 launch an implicit kernel pins ``solver="cg_implicit"`` and logs what
 ``automatic`` would resolve to at its shape.
+
+The "determinism" phase runs right after phase 7 (``phase_determinism``):
+every walk that sums across blocks (csrc/fixed_sum.cuh: A-M's tiles and
+walks, their FFMA tiles, I) called twice at the main path's shapes in
+float32 at each tier and in float64 must give equal bits; two config-2
+fits through ``plssvm-torch-train`` must write the same model below its
+creation-time line, two MNIST-width fits the same alphas; and the
+reduction alone (``fixed_sum``) is held against its plain version and timed
+beside ``torch.sum``, its bound and its launches (config 2's fit and
+predict) in the kernels line.  The "tools" phase runs after "multihost"
+(``phase_tools``): each tool of ROADMAP item 11 at a small size on the
+card, the tracker's YAML of ``performance_analysis`` through the port's
+parser, and ``plssvm-torch-train --profile`` on config 2's fit, whose
+trace must name ``gram_tc_sym_kernel`` and whose model must be the one the
+fit without it writes.  After the last phase every workspace the
+fixed-order sums asked for must be at most 1 GiB.
 
 The "oao" phase runs after phase 7 (``phase_oao``): kernel O (the
 batched pair-machine matvec of one-vs-one training: the Gram kinds on the
@@ -2965,9 +2982,14 @@ def phase_end_to_end(tmp, config2_files):
     launches = {
         "gram_matvec_sym_tc": gram_matvec.sym_tc_launches,
         "gram_matvec_rect_tc": gram_matvec.rect_tc_launches,
+        # the fixed-order sums of A's and B's walks (csrc/fixed_sum.cuh)
+        "fixed_sum": gram_matvec.fixed_sum_launches(),
     }
     if gram_matvec.sym_launches + gram_matvec.rect_launches != 0:
         raise AssertionError("e2e: the f32 fit or predict took the FFMA tile")
+    if launches["fixed_sum"] < launches["gram_matvec_sym_tc"]:
+        raise AssertionError(f"e2e: {launches['fixed_sum']} fixed-order sums for "
+                             f"{launches['gram_matvec_sym_tc']} products of kernel A")
     _check_cli_run("e2e", "config 2", fit_s, predict_s, io,
                    float(np.mean(predicted == test_labels)), ACCURACY_FLOOR,
                    launches, matvec.sym_plain_calls + matvec.rect_plain_calls,
@@ -3479,7 +3501,7 @@ N_TIMING_M, N_TIMING_D, N_TIMING_M_F64 = 16384, 256, 8192
 #: on the card before it resolves the solver (X, the labels)
 EDGE_D, EDGE_MAX_ITER, EDGE_SLACK = 16, 10, 256 << 20
 #: ROADMAP Queue 3 item 2's case: runs per solver and their cap
-STALL_RUNS, STALL_MAX_ITER = 8, 500
+STALL_RUNS, STALL_MAX_ITER = 12, 500
 
 
 def _n_bound(mr, mc, d, kind, itemsize, out_itemsize, symmetric):
@@ -3974,19 +3996,19 @@ def _budget_edge():
 
 
 def phase_stall(chi2_cell):
-    """ROADMAP Queue 3 item 2: phase 9's 10 histogram classes in float32 to
-    epsilon 1e-8 with Jacobi, STALL_RUNS fits with each solver, max_iter
-    STALL_MAX_ITER: the iterations per class of every run and the runs
-    where a class stopped at the cap.  The implicit solve's products sum
-    by atomics in another order each run; the explicit one reads one K
-    built once, without atomics.  A finding, no gate."""
+    """ROADMAP Queue 3 item 2's case: phase 9's 10 histogram classes in
+    float32 to epsilon 1e-8 with Jacobi, STALL_RUNS fits with each solver,
+    max_iter STALL_MAX_ITER: the iterations per class of every run and the
+    runs where a class stopped at the cap.  Every product sums across
+    blocks in a fixed order (csrc/fixed_sum.cuh), so every run must give
+    the first run's iterations per class, with either solver."""
     import plssvm_tpu_torch as port
 
     train, _ = chi2_cell["make"](np.float32)
     for solver in ("cg_implicit", "cg_explicit"):
         svm = port.CSVM(backend="cuda", device="cuda", dtype=np.float32, cost=1.0,
                         preconditioner="jacobi", solver=solver, **chi2_cell["params"])
-        stalls, start = 0, time.perf_counter()
+        stalls, start, first = 0, time.perf_counter(), None
         for run in range(STALL_RUNS):
             port.global_tracker.clear()
             model = svm.fit(train, epsilon=1e-8, max_iter=STALL_MAX_ITER)
@@ -3995,8 +4017,13 @@ def phase_stall(chi2_cell):
             stalls += bool(stalled)
             log("stall", f"{solver} run {run + 1}: {model.n_iter} block iterations, per class "
                 f"{per_class}, classes at the cap {stalled or 'none'}")
-        log("stall", f"{solver}: {stalls} of {STALL_RUNS} runs stalled (a class at the cap of "
-            f"{STALL_MAX_ITER}), {time.perf_counter() - start:.3f} s")
+            first = per_class if first is None else first
+            if per_class != first:
+                raise AssertionError(f"stall: {solver} run {run + 1} took {per_class} "
+                                     f"iterations per class, run 1 {first}")
+        log("stall", f"{solver}: {STALL_RUNS} runs, each {first} iterations per class; "
+            f"{stalls} stalled (a class at the cap of {STALL_MAX_ITER}), "
+            f"{time.perf_counter() - start:.3f} s")
 
 
 #: ``--chi2-width-agreement``: chi2-width's fits (label, type, solver,
@@ -6912,6 +6939,271 @@ def phase_multihost(tmp, config2_files, mnist_cell, chi2_cell):
     return mh_launches, cost
 
 
+def _determinism_calls(gen):
+    """(label, zero-argument call) for every walk that sums across blocks
+    (csrc/fixed_sum.cuh) at the shapes the main path gives it: A / B at
+    config 2's (10000 x 200, 2000 points) and C / D with 10 classes there,
+    C at MNIST's width, D against its 60000 SVs, at each float32 tier and
+    in float64 (the DMMA tiles); J / K at the ring's blocks (config 3 RBF
+    12500^2 x 500, MNIST 15000^2 x 784 with 10 classes) at each tier and
+    in float64; E-H at config 2's files (laplacian E / F, chi-squared G /
+    H) in both types, G at chi2-width; L / M at the ring's 2500^2 x 200
+    blocks in both types; I at its tool's 32768 x 128; A-D and K's FFMA
+    tiles (on no path) at config 2's."""
+    from plssvm_tpu_torch.ops import banded, distance, gram_matmat, gram_matvec
+    from plssvm_tpu_torch.parameter import KernelFunctionType as Kind
+
+    def normal(*shape, dtype=torch.float32, scale=1.0, positive=False):
+        t = torch.randn(*shape, generator=gen, dtype=torch.float64) * scale
+        return (t.abs() if positive else t).to("cuda", dtype)
+
+    calls = []
+
+    def add(dtype, tiers):
+        """This type's calls: closures over this call's tensors."""
+        nonlocal calls
+        label = "f32" if dtype == torch.float32 else "f64"
+        X = normal(10000, 200, dtype=dtype, scale=0.3)
+        P = normal(2000, 200, dtype=dtype, scale=0.3)
+        sq, sq_p = (X * X).sum(-1), (P * P).sum(-1)
+        v, V = normal(10000, dtype=dtype), normal(10000, 10, dtype=dtype)
+        kw = dict(kind=Kind.RBF, gamma=1.0 / 200, coef0=0.0, degree=3)
+        for tier in tiers:
+            name = tier if dtype == torch.float32 else "f64"
+            calls += [
+                (f"A {name} 10000x200", lambda X=X, sq=sq, v=v, t=tier:
+                 gram_matvec.gram_matvec_sym(X, sq, v, precision=t, **kw)),
+                (f"B {name} 2000x10000x200", lambda P=P, X=X, sq_p=sq_p, sq=sq, v=v, t=tier:
+                 gram_matvec.gram_matvec_rect(P, X, sq_p, sq, v, precision=t, **kw)),
+                (f"C {name} 10000x200 C=10", lambda X=X, sq=sq, V=V, t=tier:
+                 gram_matmat.gram_matmat_sym(X, sq, V, precision=t, **kw)),
+                (f"D {name} 2000x10000x200 C=10", lambda P=P, X=X, sq_p=sq_p, sq=sq, V=V,
+                 t=tier: gram_matmat.gram_matmat_rect(P, X, sq_p, sq, V, precision=t, **kw)),
+            ]
+        if dtype == torch.float32:
+            calls += [
+                ("A FFMA 10000x200", lambda X=X, sq=sq, v=v:
+                 gram_matvec.gram_ffma("matvec_sym", (X,), (sq,), v, **kw)),
+                ("B FFMA 2000x10000x200", lambda P=P, X=X, sq_p=sq_p, sq=sq, v=v:
+                 gram_matvec.gram_ffma("matvec_rect", (P, X), (sq_p, sq), v, **kw)),
+                ("C FFMA 10000x200 C=10", lambda X=X, sq=sq, V=V:
+                 gram_matvec.gram_ffma("matmat_sym", (X,), (sq,), V, **kw)),
+                ("D FFMA 2000x10000x200 C=10", lambda P=P, X=X, sq_p=sq_p, sq=sq, V=V:
+                 gram_matvec.gram_ffma("matmat_rect", (P, X), (sq_p, sq), V, **kw)),
+                ("K FFMA 2000x10000x200 C=10", lambda P=P, X=X, sq_p=sq_p, sq=sq, V=V:
+                 gram_matvec.gram_ffma("matmat_dual", (P, X), (sq_p, sq),
+                                       (V, V[:2000].contiguous()), **kw)),
+            ]
+        # MNIST width: C over 60000 x 784 in passes, D 10000 x 60000 x 784
+        Xw = normal(60000, 784, dtype=dtype, scale=0.05)
+        sqw, Vw = (Xw * Xw).sum(-1), normal(60000, 10, dtype=dtype)
+        kww = dict(kw, gamma=1.0 / 784)
+        calls += [
+            (f"C {label} 60000x784 C=10", lambda: gram_matmat.gram_matmat_sym(
+                Xw, sqw, Vw, **kww)),
+            (f"D {label} 10000x60000x784 C=10", lambda: gram_matmat.gram_matmat_rect(
+                Xw[:10000], Xw, sqw[:10000], sqw, Vw, **kww)),
+        ]
+        for mr, d, classes in ((12500, 500, None), (15000, 784, 10)):
+            Xr = normal(mr, d, dtype=dtype, scale=0.05)
+            Xc = normal(mr, d, dtype=dtype, scale=0.05)
+            tail = () if classes is None else (classes,)
+            args = (Xr, Xc, (Xr * Xr).sum(-1), (Xc * Xc).sum(-1), normal(mr, *tail, dtype=dtype),
+                    normal(mr, *tail, dtype=dtype))
+            fn = gram_matvec.gram_matvec_dual if classes is None else gram_matmat.gram_matmat_dual
+            for tier in tiers:
+                name = tier if dtype == torch.float32 else "f64"
+                calls.append((f"{'J' if classes is None else 'K'} {name} {mr}^2x{d}",
+                              lambda fn=fn, args=args, t=tier, d=d:
+                              fn(*args, precision=t, **dict(kw, gamma=1.0 / d))))
+        # the distance kinds
+        H = normal(10000, 200, dtype=dtype, positive=True) / 200
+        Hp = H[:2000]
+        for kind, gamma in ((Kind.LAPLACIAN, 1.0 / 200), (Kind.CHI_SQUARED, 1.0)):
+            kd = dict(kind=kind, gamma=gamma)
+            calls += [
+                (f"E {label} {kind} 10000x200", lambda kd=kd: distance.distance_matvec_sym(
+                    H, v, **kd)),
+                (f"F {label} {kind} 2000x10000x200", lambda kd=kd:
+                 distance.distance_matvec_rect(Hp, H, v, **kd)),
+                (f"G {label} {kind} 10000x200 C=10", lambda kd=kd:
+                 distance.distance_matmat_sym(H, V, **kd)),
+                (f"H {label} {kind} 2000x10000x200 C=10", lambda kd=kd:
+                 distance.distance_matmat_rect(Hp, H, V, **kd)),
+                (f"L {label} {kind} 2500^2x200", lambda kd=kd: distance.distance_matvec_dual(
+                    H[:2500], H[2500:5000], v[:2500], v[2500:5000], **kd)),
+                (f"M {label} {kind} 2500^2x200 C=10", lambda kd=kd:
+                 distance.distance_matmat_dual(H[:2500], H[2500:5000],
+                                               V[:2500].contiguous(),
+                                               V[2500:5000].contiguous(), **kd)),
+            ]
+        XT = (normal(128, 32768, dtype=dtype, positive=True) / 128).contiguous()
+        vb = normal(32768, dtype=dtype)
+        for symmetric in (True, False):
+            calls.append((f"I {label} 32768x128 symmetric={symmetric}",
+                          lambda XT=XT, vb=vb, s=symmetric: banded.banded_matvec(
+                              XT, vb, 1.0 / 128, symmetric=s)))
+
+    add(torch.float32, ("f32", "bf16", "highest"))
+    add(torch.float64, ("f32",))
+    Hw = normal(60000, 784, positive=True) / 784
+    Vh = normal(60000, 10)
+    calls.append(("G f32 chi-squared 60000x784 C=10", lambda: distance.distance_matmat_sym(
+        Hw, Vh, kind=Kind.CHI_SQUARED, gamma=1.0)))
+    return calls
+
+
+def _fixed_sum_entry():
+    """The reduction alone (``gram_matvec.fixed_sum``) at MNIST width's
+    kernel C: 469 slots (its column tiles) of 60000 x 10 float32 partials,
+    against its plain version (the same slot order: the same bits), beside
+    ``torch.sum`` over the slots (library_ms) and the bound (the slots read
+    once, the output read and written once, at 3.35 TB/s)."""
+    from plssvm_tpu_torch.ops import gram_matvec, matvec
+
+    slots, n = 469, 60000 * 10
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    ws = torch.randn(slots, n, generator=gen, device="cuda")
+    out = torch.zeros(n, device="cuda")
+    got = gram_matvec.fixed_sum(ws, out.clone())
+    want = matvec.fixed_sum_plain(ws, out)
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"fixed_sum: max |kernel - plain| {err} (the same order: 0)")
+    ms = _back_to_back_ms(lambda: gram_matvec.fixed_sum(ws, out))
+    plain_ms = _median_ms(lambda: matvec.fixed_sum_plain(ws, out), repeats=5)
+    library_ms = _back_to_back_ms(lambda: torch.sum(ws, dim=0))
+    bound = _bound(0, 0, slots * n, "gram", (slots + 2) * n * 4)
+    log("determinism", f"fixed_sum {slots} slots x {n}: {ms:.3f} ms (plain {plain_ms:.3f}, "
+        f"torch.sum {library_ms:.3f}), bound {bound[0]:.3f} ms ({bound[1]}), "
+        f"{bound[0] / ms:.3f} of it, max |kernel - plain| {err}")
+    if ms < bound[0]:
+        raise AssertionError(f"fixed_sum measured {ms} ms under its bound {bound[0]}")
+    return err, (ms, plain_ms), bound, library_ms
+
+
+def phase_determinism(tmp, config2_files, mnist_cell):
+    """ROADMAP Queue 3 item 2 closed: every walk that sums across blocks
+    (csrc/fixed_sum.cuh), called twice on the same inputs at the main
+    path's shapes, gives equal bits (``_determinism_calls``); two config-2
+    CLI fits write the same model file below its creation-time comment; two
+    MNIST-width 10-class fits give equal alphas; and the reduction alone
+    against its plain version (``_fixed_sum_entry``)."""
+    import plssvm_tpu_torch as port
+    from plssvm_tpu_torch.cli import train as train_cli
+
+    start = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 26)
+    calls = _determinism_calls(gen)
+    for label, call in calls:
+        first, second = call(), call()
+        first = first if isinstance(first, tuple) else (first,)
+        second = second if isinstance(second, tuple) else (second,)
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            diff = max(float((a - b).abs().max()) for a, b in zip(first, second))
+            raise AssertionError(f"determinism: {label} twice differs by {diff}")
+    torch.cuda.synchronize()
+    log("determinism", f"{len(calls)} walks called twice at the main path's shapes: equal "
+        f"bits in every one ({time.perf_counter() - start:.1f} s)")
+    (train_file, _), _ = config2_files
+    models = []
+    for run in range(2):
+        model_file = os.path.join(tmp, f"determinism{run}.model")
+        if train_cli.main(["-b", "cuda", "-p", "gpu", "-q", "--solver", "cg_implicit", "-t",
+                           "2", "-c", "1", "-e", str(EPSILON), train_file, model_file]) != 0:
+            raise AssertionError("determinism: config 2's CLI fit failed")
+        with open(model_file, "rb") as fh:
+            head = fh.readline()
+            if not head.startswith(b"# This model file has been created at"):
+                raise AssertionError(f"determinism: model header {head!r}")
+            models.append(fh.read())
+    if models[0] != models[1]:
+        raise AssertionError("determinism: two config-2 CLI fits wrote different models")
+    log("determinism", f"two config-2 CLI fits: model files equal below the creation-time "
+        f"line ({len(models[0])} bytes)")
+    train, _ = mnist_cell["make"](np.float32)
+    fits = []
+    for _ in range(2):
+        svm = port.CSVM(backend="cuda", device="cuda", dtype=np.float32, kernel_type="rbf",
+                        cost=1.0, solver="cg_implicit")
+        fits.append(svm.fit(train, epsilon=mnist_cell["epsilon"]))
+    if fits[0].n_iter != fits[1].n_iter or not np.array_equal(fits[0].alpha, fits[1].alpha) \
+            or not np.array_equal(fits[0].rho, fits[1].rho):
+        raise AssertionError("determinism: two MNIST-width fits differ")
+    log("determinism", f"two MNIST-width 10-class fits: {fits[0].n_iter} iterations each, "
+        "alpha and rho equal bit for bit")
+    return _fixed_sum_entry()
+
+
+#: the tools of the port run at a small size on the card (phase ``tools``)
+TOOL_RUNS = (
+    ("bench_matmat", ["4096", "64", "3", "2"]),
+    ("bench_distance", ["--m", "4096", "--d", "64", "--iters", "2"]),
+    ("bench_solver", ["4096", "64", "4", "rbf", "f32"]),
+    ("scaling_sweep", ["--n", "4096", "--d", "64", "--iters", "4", "--mesh-sizes", "1,2"]),
+    ("scaling_projection", ["--devices", "2", "--m_per_dev", "128", "--d", "16"]),
+    ("plssvm_target_platforms", []),
+)
+
+
+def phase_tools(tmp, config2_files):
+    """ROADMAP item 11's tools, each at a small size on the card (their
+    figures are logged, not read: the tools' own lines), the tracker's
+    YAML of ``performance_analysis`` through the port's parser, and
+    ``plssvm-torch-train --profile`` on config 2's CLI fit: the trace must
+    name the hand kernel of that path, ``gram_tc_sym_kernel`` (kernel A on
+    the tensor cores), and the model must be the one the fit without
+    ``--profile`` writes."""
+    import importlib
+
+    from plssvm_tpu_torch.cli import train as train_cli
+
+    for name, argv in TOOL_RUNS:
+        tool = importlib.import_module(f"plssvm_tpu_torch.tools.{name}")
+        lines = _run_tool("tools", tool.main, argv)
+        if not lines:
+            raise AssertionError(f"tools: {name} printed nothing")
+    tracking = os.path.join(tmp, "tools.yaml")
+    from plssvm_tpu_torch.tools import performance_analysis, performance_tracker_yaml_parser
+
+    _run_tool("tools", performance_analysis.main, [
+        "--num_data_points", "2000", "--num_features", "20", "--num_repeats", "2",
+        "--performance_tracking", tracking,
+        "--intermediate_train_file", os.path.join(tmp, "tools.libsvm")])
+    docs = performance_tracker_yaml_parser.parse_tracking_file(tracking)
+    if len(docs) != 2 or any("cg.iterations" not in doc for doc in docs):
+        raise AssertionError(f"tools: the tracker's YAML read {len(docs)} documents")
+    (train_file, _), _ = config2_files
+    trace_dir = os.path.join(tmp, "profile")
+    flags = ["-b", "cuda", "-p", "gpu", "-q", "--solver", "cg_implicit", "-t", "2", "-c", "1",
+             "-e", str(EPSILON)]
+    model = os.path.join(tmp, "profiled.model")
+    start = time.perf_counter()
+    if train_cli.main(flags + ["--profile", trace_dir, train_file, model]) != 0:
+        raise AssertionError("tools: plssvm-torch-train --profile failed")
+    seconds = time.perf_counter() - start
+    traces = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        raise AssertionError(f"tools: --profile wrote {traces}")
+    with open(os.path.join(trace_dir, traces[0]), encoding="utf-8") as fh:
+        trace = json.load(fh)
+    events = trace.get("traceEvents", [])
+    kernels = [e for e in events if "gram_tc_sym_kernel" in str(e.get("name", ""))]
+    if not kernels:
+        raise AssertionError("tools: the --profile trace names no gram_tc_sym_kernel")
+    device_us = sum(e.get("dur", 0) for e in kernels if e.get("cat") == "kernel")
+    plain = os.path.join(tmp, "unprofiled.model")
+    if train_cli.main(flags + [train_file, plain]) != 0:
+        raise AssertionError("tools: config 2's fit without --profile failed")
+    with open(model, "rb") as a, open(plain, "rb") as b:
+        a.readline(), b.readline()
+        if a.read() != b.read():
+            raise AssertionError("tools: --profile changed the model")
+    log("tools", f"--profile: fit {seconds:.3f} s, trace {traces[0]} with {len(events)} "
+        f"events, {len(kernels)} of gram_tc_sym_kernel ({device_us / 1e3:.3f} ms on the "
+        "card); the model equals the fit's without --profile")
+
+
 def main(argv=None):
     import argparse
 
@@ -7001,6 +7293,10 @@ def main(argv=None):
         phase_launches["config3"] = run("config3", phase_config3_width)
         phase_launches["mnist-width"], ring_cells["mnist-width"] = run(
             "mnist-width", phase_multiclass_width)
+        fixed = run("determinism", phase_determinism, tmp, config2_files,
+                    ring_cells["mnist-width"])
+        main_err["fixed_sum"], timing["fixed_sum"], bounds["fixed_sum"] = fixed[:3]
+        library = {"fixed_sum": fixed[3]}
         phase_launches["highest"] = run("highest", phase_highest, tmp, config2_files,
                                         ring_cells["mnist-width"])
         phase_launches["oao"], oao_kernels = run(
@@ -7031,6 +7327,7 @@ def main(argv=None):
         mh_launches, phase_launches["multihost"] = run(
             "multihost", phase_multihost, tmp, config2_files, ring_cells["mnist-width"],
             ring_cells["chi2"])
+        run("tools", phase_tools, tmp, config2_files)
         # (a)'s K walks run at the ring phase's shards of MNIST width
         main_ms[("gram_matmat_dual", "multihost")] = main_ms[("gram_matmat_dual", "ring")]
         main_ms[("gram_matmat_dual_f64", "multihost")] = \
@@ -7039,6 +7336,14 @@ def main(argv=None):
     phase_launches["banded-tool"] = run("banded-tool", phase_banded_tool)
     phase_launches["bench-matvec"] = run("bench-matvec", phase_bench_matvec, main_ms)
     log("times", ", ".join(f"{k} {v:.1f} s" for k, v in phase_seconds.items()))
+    # the workspaces of the fixed-order sums at every shape this run gave
+    # an entry point: at most 1 GiB (csrc/fixed_sum.cuh's budget a pass)
+    from plssvm_tpu_torch.ops import gram_matvec
+
+    largest = sorted(gram_matvec.workspace_peak.items(), key=lambda kv: -kv[1])
+    log("workspace", ", ".join(f"{name} {size / 2**20:.1f} MiB" for name, size in largest[:8]))
+    if largest and largest[0][1] > 1 << 30:
+        raise AssertionError(f"workspace: {largest[0][0]} asked for {largest[0][1]} bytes")
 
     # where the kernels lose time on the main paths: launches x (ms at the
     # phase's shape - bound there), largest first
@@ -7184,6 +7489,11 @@ def main(argv=None):
         ("pairs_matvec", "rbf"): ("pairs.cu", "plssvm_tpu/solver/cg.py:1104"),
         ("pairs_matvec", "chi_squared"): ("pairs.cu", "plssvm_tpu/solver/cg.py:1104"),
         ("pairs_matvec_dmma", "f64"): ("pairs_tc.cu", "plssvm_tpu/solver/cg.py:1104"),
+        # the fixed-order sums of every walk above that sums across blocks:
+        # no Pallas kernel of its own, the reference's resident accumulators
+        # ("no atomics, no HBM partials"); timed at MNIST width's C, its
+        # launches config 2's fit and predict (A and B)
+        "fixed_sum": ("fixed_sum.cuh", "plssvm_tpu/ops/pallas_matvec.py:451"),
     }
     entries = [
         {
@@ -7193,7 +7503,7 @@ def main(argv=None):
             "launches": launches[k if k in launches else k[0]],
             "max_abs_err": main_err[k], "ms": timing[k][0],
             "plain_ms": timing[k][1], "bound_ms": bounds[k][0],
-            "bound_by": bounds[k][1], "library_ms": None,
+            "bound_by": bounds[k][1], "library_ms": library.get(k),
             **({"tier": k[1]} if isinstance(k, tuple)
                and k[1] in ("tf32", "bf16", "tf32x3", "f64", "highest")
                else {"tier": tiers[k]} if k in tiers else {}),

@@ -16,8 +16,10 @@ compact fit).  ``--multihost`` trains over the processes of a
 ``torch.distributed`` job (torchrun's environment; parallel/multihost.py):
 each parses its window of the file, ``--nystroem`` and ``-s one_class``
 compose with it, and rank 0 alone writes the model and the tracker's file.
-``--profile`` is still parsed, and rejected with a :class:`PLSSVMError`
-that names the ROADMAP item porting it.
+``--profile DIR`` writes a ``torch.profiler`` trace of the fit to DIR
+(``plssvm-torch-train.pt.trace.json``, one a rank with ``--multihost``):
+CPU activity always, CUDA activity when the fit runs on the card; Chrome's
+trace viewer or Perfetto read it.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import numpy as np
 
 from ..csvm import CSVM
 from ..data_set import DataSet
-from ..exceptions import NotPortedError, NumericCheckError, PLSSVMError
+from ..exceptions import NumericCheckError, PLSSVMError
 from ..model import Model
 from ..one_class import fit_one_class
 from ..parameter import KernelFunctionType
@@ -55,12 +57,6 @@ from .common import (
     resolve_label_type,
     resolve_verbosity,
 )
-
-#: (argument, flag, ROADMAP item) of the options not ported yet
-_NOT_PORTED = (
-    ("profile", "--profile", "Queue 1, item 11: tools"),
-)
-
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
@@ -141,7 +137,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "aborts with the failing iteration instead of silently "
                         "converging to a garbage model (one device and the ring)")
     parser.add_argument("--profile", metavar="DIR", default=None,
-                        help="write a profiler trace of the fit (not ported yet)")
+                        help="write a torch.profiler trace of the fit to DIR "
+                        "(Chrome trace JSON: CPU activity, and the card's "
+                        "kernels when the fit runs on CUDA)")
     parser.add_argument(
         "--cross_validation", metavar="N", type=int, default=None,
         help="N-fold cross-validation mode (svm-train's -v n; -v is taken "
@@ -254,16 +252,29 @@ def _format_params(args, kernel: KernelFunctionType, model_filename: str) -> str
     return "\n".join(lines)
 
 
-def _reject_not_ported(args) -> None:
-    for attr, flag, item in _NOT_PORTED:
-        if getattr(args, attr):
-            raise NotPortedError(f"{flag} is not ported yet (ROADMAP {item})")
+def _profiled(args, device, fit, rank=None):
+    """``fit()``, under ``torch.profiler`` when ``--profile DIR`` is given:
+    CPU activity, and CUDA activity on a CUDA device; the trace goes to
+    DIR/plssvm-torch-train[.rank<r>].pt.trace.json (the reference's
+    ``jax.profiler.trace(DIR)`` around its fit)."""
+    if args.profile is None:
+        return fit()
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(args.profile, exist_ok=True)
+    with profile(activities=activities) as prof:
+        model = fit()
+    name = "plssvm-torch-train" + ("" if rank is None else f".rank{rank}")
+    prof.export_chrome_trace(os.path.join(args.profile, f"{name}.pt.trace.json"))
+    return model
 
 
 def _flag_conflict(args):
     """plssvm_tpu's message for the first pair of flags that do not go
-    together, in its order, or None.  The conflicts come before the
-    refusal of a flag that is not ported yet."""
+    together, in its order, or None."""
     if args.probability and args.multihost:
         return ("--probability is not supported together with --multihost "
                 "(the cross-validation fits are single-host)!")
@@ -444,7 +455,6 @@ def main(argv=None) -> int:
         if message is not None:
             print(message, file=sys.stderr)
             return 1
-        _reject_not_ported(args)
         kernel = KernelFunctionType.from_string(args.kernel_type)
         log(
             VerbosityLevel.FULL,
@@ -501,7 +511,8 @@ def main(argv=None) -> int:
         if args.checkpoint is not None:
             fit_kwargs["checkpoint_path"] = args.checkpoint
             fit_kwargs["checkpoint_interval"] = args.checkpoint_interval
-        model = _run_fit(args, svm, data, fit_kwargs, regression, one_class)
+        model = _profiled(args, svm.device, lambda: _run_fit(
+            args, svm, data, fit_kwargs, regression, one_class))
         if args.probability:
             # the -wi weights stay in the CV subproblems, as LIBSVM's
             # svm_binary_svc_probability keeps them; a compact model
@@ -542,7 +553,8 @@ def _main_multihost(args, kernel, per_class_weights, model_filename, start) -> i
         solver=args.solver, debug=args.debug, kernel_type=kernel, degree=args.degree,
         gamma=args.gamma, coef0=args.coef0, cost=args.cost,
     )
-    writer = RankGroup(svm.device).rank == 0
+    rank = RankGroup(svm.device).rank
+    writer = rank == 0
     regression = args.svm_type in ("epsilon_svr", "svr")
     fit_kwargs = dict(epsilon=args.epsilon, max_iter=args.max_iter)
     if per_class_weights is not None:
@@ -563,17 +575,21 @@ def _main_multihost(args, kernel, per_class_weights, model_filename, start) -> i
     if args.checkpoint is not None:
         fit_kwargs["checkpoint_path"] = args.checkpoint
         fit_kwargs["checkpoint_interval"] = args.checkpoint_interval
-    if args.nystroem is not None:
-        model = nystroem_fit_multihost(
-            svm, args.input, n_landmarks=args.nystroem, label_type=resolve_label_type(args),
-            regression=regression, sample_weight=fit_kwargs.get("sample_weight"))
-    elif args.svm_type == "one_class":
-        # (--weight is refused with -s one_class)
-        model = fit_one_class_multihost(svm, args.input, nu=args.nu, **fit_kwargs)
-    else:
-        model = svm.fit_multihost(args.input, label_type=resolve_label_type(args),
-                                  regression=regression,
-                                  classification=args.classification, **fit_kwargs)
+
+    def fit():
+        if args.nystroem is not None:
+            return nystroem_fit_multihost(
+                svm, args.input, n_landmarks=args.nystroem,
+                label_type=resolve_label_type(args), regression=regression,
+                sample_weight=fit_kwargs.get("sample_weight"))
+        if args.svm_type == "one_class":
+            # (--weight is refused with -s one_class)
+            return fit_one_class_multihost(svm, args.input, nu=args.nu, **fit_kwargs)
+        return svm.fit_multihost(args.input, label_type=resolve_label_type(args),
+                                 regression=regression,
+                                 classification=args.classification, **fit_kwargs)
+
+    model = _profiled(args, svm.device, fit, rank)
     if writer:
         model.save(model_filename)
     total_ms = (time.perf_counter() - start) * 1000.0

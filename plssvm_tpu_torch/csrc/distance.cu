@@ -13,12 +13,13 @@
 //   symmetric=True, and the composition distance_matvec_pallas_big around
 //   it.  Kernel A's walk: a 1-D grid over the upper-triangle BM x BM tiles,
 //   the register tile fed from shared-memory feature chunks, the epilogue
-//   fused into the row sums (half-warp shuffle, one atomic per row) and,
-//   off the diagonal, the column sums (shared memory, one atomic per
-//   column).
+//   fused into the row sums (half-warp shuffle, one slot per row and
+//   partner tile) and, off the diagonal, the column sums (shared memory,
+//   one slot per column and partner tile), summed in a fixed order by
+//   fixed_sum.cuh.
 // Kernel F, distance_matvec_rect: out = K(P, S) @ a, binary predict.  The
 //   symmetric=False use of distance_matvec_pallas_dual; kernel B's 2-D grid
-//   (point tiles x support-vector tiles) with atomic row sums.
+//   (point tiles x support-vector tiles), the row sums a slot per SV tile.
 // Kernel G, distance_matmat_sym: out = K(X, X) @ V for V (m, C) row-major,
 //   every block-CG iteration of a one-vs-all fit.  Replaces
 //   distance_matmat_pallas_dual (body _distance_kernel_matmat_dual) with
@@ -34,8 +35,8 @@
 // covers any m, d and C >= 1; ragged rows and features are masked in the
 // kernel, nothing is padded.  Not carried over from the TPU: the 8-row
 // group walk and feature blocks sized for VMEM, the 128-row padding, the
-// class-major layout padded to 8, the resident column accumulator (atomics
-// replace it), the chunk compositions and their op cap (a TPU watchdog
+// class-major layout padded to 8, the resident column accumulator (the
+// slots of fixed_sum.cuh replace it), the chunk compositions and their op cap (a TPU watchdog
 // limit).
 //
 // What bounds them: the pair operation on the CUDA cores, BM^2 * d pair
@@ -68,8 +69,9 @@
 // Numerics: no fast-math.  Chi-squared in float takes the approximate
 // reciprocal (per entry of K within 2x the plain version's error, which
 // divides exactly); in double each term is the IEEE-rounded quotient, as
-// the plain version's divide gives it, on every chunk.  The atomics make
-// the summation order change from run to run.
+// the plain version's divide gives it, on every chunk.  Every sum across
+// blocks is taken in an order fixed by the shapes (fixed_sum.cuh), so two
+// launches on the same input give equal bits.
 
 #include <type_traits>
 
@@ -80,15 +82,15 @@ namespace {
 template <typename T, int KIND>
 __global__ void __launch_bounds__(kThreads * kThreads)
     distance_matvec_sym_kernel(const T* __restrict__ X,
-                               const T* __restrict__ v, T* __restrict__ out,
-                               int64_t m, int64_t d, T gamma) {
+                               const T* __restrict__ v, T* __restrict__ ws,
+                               SymPass pass, int64_t m, int64_t d, T gamma) {
     constexpr int BM = kDistanceEdge<T, KIND>;
     constexpr int R = BM / kThreads;
     __shared__ Staging<T, BM> staging;
     __shared__ T col_part[kThreads][BM];
 
     int64_t it, jt;
-    upper_triangle_tile(blockIdx.x, it, jt);
+    upper_triangle_tile(pass.first_block() + blockIdx.x, it, jt);
     const int64_t row0 = it * BM;
     const int64_t col0 = jt * BM;
 
@@ -134,7 +136,7 @@ __global__ void __launch_bounds__(kThreads * kThreads)
     for (int a = 0; a < R; ++a) {
         const T total = half_warp_sum(row_sum[a]);
         if (tx == 0 && row_ok[a]) {
-            atomicAdd(&out[row0 + ty + kThreads * a], total);
+            ws[pass.slot(row0 + ty + kThreads * a, jt)] = total;
         }
     }
     if (jt > it) {  // uniform per block
@@ -150,19 +152,22 @@ __global__ void __launch_bounds__(kThreads * kThreads)
                 total += col_part[y][c];
             }
             if (col0 + c < m) {
-                atomicAdd(&out[col0 + c], total);
+                ws[pass.slot(col0 + c, it)] = total;
             }
         }
     }
 }
 
+// Rows [0, n_p) of P are a band of the walk (fixed_sum.cuh run_rows): the
+// row sums of point tile i against SV tile q go to ws[q ws_rows + r].
 template <typename T, int KIND>
 __global__ void __launch_bounds__(kThreads * kThreads)
     distance_matvec_rect_kernel(const T* __restrict__ P,
                                 const T* __restrict__ S,
                                 const T* __restrict__ a_s,
-                                T* __restrict__ out, int64_t n_p, int64_t n_s,
-                                int64_t d, int64_t n_stiles, T gamma) {
+                                T* __restrict__ ws, int64_t ws_rows,
+                                int64_t n_p, int64_t n_s, int64_t d,
+                                int64_t n_stiles, T gamma) {
     constexpr int BM = kDistanceEdge<T, KIND>;
     constexpr int R = BM / kThreads;
     __shared__ Staging<T, BM> staging;
@@ -171,6 +176,7 @@ __global__ void __launch_bounds__(kThreads * kThreads)
     const int64_t p = blockIdx.x;
     const int64_t row0 = (p / n_stiles) * BM;
     const int64_t col0 = (p % n_stiles) * BM;
+    T* slot = ws + (p % n_stiles) * ws_rows;
 
     T acc[R][R];
     gram_tile<T, BM, typename DistanceOp<KIND>::type>(P, S, n_p, n_s, d, row0,
@@ -198,7 +204,7 @@ __global__ void __launch_bounds__(kThreads * kThreads)
         }
         const T total = half_warp_sum(row_sum);
         if (tx == 0 && row_ok) {
-            atomicAdd(&out[row0 + ty + kThreads * a], total);
+            slot[row0 + ty + kThreads * a] = total;
         }
     }
 }
@@ -206,8 +212,9 @@ __global__ void __launch_bounds__(kThreads * kThreads)
 template <typename T, int KIND>
 __global__ void __launch_bounds__(kThreads * kThreads)
     distance_matmat_sym_kernel(const T* __restrict__ X,
-                               const T* __restrict__ V, T* __restrict__ out,
-                               int64_t m, int64_t d, int64_t C, T gamma) {
+                               const T* __restrict__ V, T* __restrict__ ws,
+                               SymPass pass, int64_t m, int64_t d, int64_t C,
+                               T gamma) {
     constexpr int BM = kDistanceEdge<T, KIND>;
     constexpr int R = BM / kThreads;
     __shared__ Staging<T, BM> staging;
@@ -216,7 +223,7 @@ __global__ void __launch_bounds__(kThreads * kThreads)
     __shared__ T col_part[kThreads][BM];
 
     int64_t it, jt;
-    upper_triangle_tile(blockIdx.x, it, jt);
+    upper_triangle_tile(pass.first_block() + blockIdx.x, it, jt);
     const int64_t row0 = it * BM;
     const int64_t col0 = jt * BM;
 
@@ -224,17 +231,18 @@ __global__ void __launch_bounds__(kThreads * kThreads)
     gram_tile<T, BM, typename DistanceOp<KIND>::type>(X, X, m, m, d, row0,
                                                       col0, staging, kv);
     distance_kernel_tile<T, BM>(kv, m, m, row0, col0, gamma);
-    sym_class_loop<T, BM>(kv, V, out, m, C, row0, col0, jt > it, v_cols,
-                          v_rows, col_part);
+    sym_class_loop<T, BM>(kv, V, ws, pass, m, C, it, jt, v_cols, v_rows,
+                          col_part);
 }
 
 template <typename T, int KIND>
 __global__ void __launch_bounds__(kThreads * kThreads)
     distance_matmat_rect_kernel(const T* __restrict__ P,
                                 const T* __restrict__ S,
-                                const T* __restrict__ A, T* __restrict__ out,
-                                int64_t n_p, int64_t n_s, int64_t d,
-                                int64_t C, int64_t n_stiles, T gamma) {
+                                const T* __restrict__ A, T* __restrict__ ws,
+                                int64_t ws_rows, int64_t n_p, int64_t n_s,
+                                int64_t d, int64_t C, int64_t n_stiles,
+                                T gamma) {
     constexpr int BM = kDistanceEdge<T, KIND>;
     constexpr int R = BM / kThreads;
     __shared__ Staging<T, BM> staging;
@@ -248,7 +256,7 @@ __global__ void __launch_bounds__(kThreads * kThreads)
     gram_tile<T, BM, typename DistanceOp<KIND>::type>(P, S, n_p, n_s, d, row0,
                                                       col0, staging, kv);
     distance_kernel_tile<T, BM>(kv, n_p, n_s, row0, col0, gamma);
-    rect_class_loop<T, BM>(kv, A, out, n_p, n_s, C, row0, col0, a_cols);
+    rect_class_loop<T, BM>(kv, A, ws, ws_rows, n_p, n_s, C, row0, col0, a_cols);
 }
 
 // launch(std::integral_constant<int, KIND>) for the runtime kind.
@@ -264,163 +272,172 @@ int by_kind(int kind, Launch&& launch) {
     }
 }
 
-// Blocks of the symmetric walk over m rows in BM x BM tiles, or 0 when
-// they do not fit a 1-D grid.
-template <int BM>
-unsigned int triangle_blocks(int64_t m) {
-    const int64_t nt = (m + BM - 1) / BM;
-    const int64_t blocks = nt * (nt + 1) / 2;
-    return blocks <= 0 || blocks > INT32_MAX ? 0u
-                                             : static_cast<unsigned int>(blocks);
+// Kernels E (``matvec``, C = 1) and G: the upper triangle in the passes of
+// sym_plan.
+template <typename T, int KIND>
+cudaError_t launch_sym(const T* X, const T* V, T* out, int64_t m, int64_t d,
+                       int64_t C, bool matvec, T gamma,
+                       const Workspace& workspace, cudaStream_t stream) {
+    constexpr int BM = kDistanceEdge<T, KIND>;
+    if (m <= 0 || d < 0 || C <= 0) {
+        return cudaErrorInvalidValue;
+    }
+    return run_sym<T>(workspace, m, BM, 1, C, out, stream,
+                      [&](const SymPass& pass, T* ws) {
+        const unsigned int blocks = static_cast<unsigned int>(pass.blocks());
+        if (matvec) {
+            distance_matvec_sym_kernel<T, KIND>
+                <<<blocks, dim3(kThreads, kThreads), 0, stream>>>(
+                    X, V, ws, pass, m, d, gamma);
+        } else {
+            distance_matmat_sym_kernel<T, KIND>
+                <<<blocks, dim3(kThreads, kThreads), 0, stream>>>(
+                    X, V, ws, pass, m, d, C, gamma);
+        }
+        return cudaGetLastError();
+    });
 }
 
-// Blocks of the rectangular walk, 0 when they do not fit; n_stiles the
-// support-vector tiles per point tile.
-template <int BM>
-unsigned int rect_blocks(int64_t n_p, int64_t n_s, int64_t& n_stiles) {
-    n_stiles = (n_s + BM - 1) / BM;
-    const int64_t blocks = ((n_p + BM - 1) / BM) * n_stiles;
-    return blocks <= 0 || blocks > INT32_MAX ? 0u
-                                             : static_cast<unsigned int>(blocks);
+// Kernels F (``matvec``, C = 1) and H: point tiles x SV tiles in the row
+// bands of row_plan.
+template <typename T, int KIND>
+cudaError_t launch_rect(const T* P, const T* S, const T* A, T* out,
+                        int64_t n_p, int64_t n_s, int64_t d, int64_t C,
+                        bool matvec, T gamma, const Workspace& workspace,
+                        cudaStream_t stream) {
+    constexpr int BM = kDistanceEdge<T, KIND>;
+    if (n_p <= 0 || n_s <= 0 || d < 0 || C <= 0) {
+        return cudaErrorInvalidValue;
+    }
+    const int64_t n_stiles = (n_s + BM - 1) / BM;
+    return run_rows<T>(
+        workspace, n_p, BM, C, 0, 1, out, nullptr, stream,
+        [&](int64_t) { return n_stiles; },
+        [&](int64_t row0, int64_t rows, T* ws, T*, int64_t ws_rows) {
+            const int64_t blocks = ((rows + BM - 1) / BM) * n_stiles;
+            if (blocks > INT32_MAX) {
+                return cudaErrorInvalidValue;
+            }
+            const dim3 grid(static_cast<unsigned int>(blocks));
+            if (matvec) {
+                distance_matvec_rect_kernel<T, KIND>
+                    <<<grid, dim3(kThreads, kThreads), 0, stream>>>(
+                        P + row0 * d, S, A, ws, ws_rows, rows, n_s, d,
+                        n_stiles, gamma);
+            } else {
+                distance_matmat_rect_kernel<T, KIND>
+                    <<<grid, dim3(kThreads, kThreads), 0, stream>>>(
+                        P + row0 * d, S, A, ws, ws_rows, rows, n_s, d, C,
+                        n_stiles, gamma);
+            }
+            return cudaGetLastError();
+        });
 }
 
 template <typename T>
-int matvec_sym(const T* X, const T* v, T* out, int64_t m, int64_t d,
-               int kind, T gamma, void* stream) {
+int sym(const T* X, const T* V, T* out, int64_t m, int64_t d, int64_t C,
+        bool matvec, int kind, T gamma, void* workspace,
+        int64_t* workspace_bytes, void* stream) {
     return by_kind(kind, [&](auto k) {
-        constexpr int KIND = decltype(k)::value;
-        const unsigned int blocks =
-            triangle_blocks<kDistanceEdge<T, KIND>>(m);
-        if (blocks == 0) {
-            return static_cast<int>(cudaErrorInvalidValue);
-        }
-        distance_matvec_sym_kernel<T, KIND>
-            <<<blocks, dim3(kThreads, kThreads), 0,
-               static_cast<cudaStream_t>(stream)>>>(X, v, out, m, d, gamma);
-        return static_cast<int>(cudaGetLastError());
+        return static_cast<int>(launch_sym<T, decltype(k)::value>(
+            X, V, out, m, d, C, matvec, gamma, Workspace{workspace, workspace_bytes},
+            static_cast<cudaStream_t>(stream)));
     });
 }
 
 template <typename T>
-int matvec_rect(const T* P, const T* S, const T* a_s, T* out, int64_t n_p,
-                int64_t n_s, int64_t d, int kind, T gamma, void* stream) {
+int rect(const T* P, const T* S, const T* A, T* out, int64_t n_p, int64_t n_s,
+         int64_t d, int64_t C, bool matvec, int kind, T gamma, void* workspace,
+         int64_t* workspace_bytes, void* stream) {
     return by_kind(kind, [&](auto k) {
-        constexpr int KIND = decltype(k)::value;
-        int64_t n_stiles = 0;
-        const unsigned int blocks =
-            rect_blocks<kDistanceEdge<T, KIND>>(n_p, n_s, n_stiles);
-        if (blocks == 0) {
-            return static_cast<int>(cudaErrorInvalidValue);
-        }
-        distance_matvec_rect_kernel<T, KIND>
-            <<<blocks, dim3(kThreads, kThreads), 0,
-               static_cast<cudaStream_t>(stream)>>>(P, S, a_s, out, n_p, n_s,
-                                                    d, n_stiles, gamma);
-        return static_cast<int>(cudaGetLastError());
-    });
-}
-
-template <typename T>
-int matmat_sym(const T* X, const T* V, T* out, int64_t m, int64_t d,
-               int64_t C, int kind, T gamma, void* stream) {
-    return by_kind(kind, [&](auto k) {
-        constexpr int KIND = decltype(k)::value;
-        const unsigned int blocks =
-            triangle_blocks<kDistanceEdge<T, KIND>>(m);
-        if (blocks == 0 || C <= 0) {
-            return static_cast<int>(cudaErrorInvalidValue);
-        }
-        distance_matmat_sym_kernel<T, KIND>
-            <<<blocks, dim3(kThreads, kThreads), 0,
-               static_cast<cudaStream_t>(stream)>>>(X, V, out, m, d, C, gamma);
-        return static_cast<int>(cudaGetLastError());
-    });
-}
-
-template <typename T>
-int matmat_rect(const T* P, const T* S, const T* A, T* out, int64_t n_p,
-                int64_t n_s, int64_t d, int64_t C, int kind, T gamma,
-                void* stream) {
-    return by_kind(kind, [&](auto k) {
-        constexpr int KIND = decltype(k)::value;
-        int64_t n_stiles = 0;
-        const unsigned int blocks =
-            rect_blocks<kDistanceEdge<T, KIND>>(n_p, n_s, n_stiles);
-        if (blocks == 0 || C <= 0) {
-            return static_cast<int>(cudaErrorInvalidValue);
-        }
-        distance_matmat_rect_kernel<T, KIND>
-            <<<blocks, dim3(kThreads, kThreads), 0,
-               static_cast<cudaStream_t>(stream)>>>(P, S, A, out, n_p, n_s, d,
-                                                    C, n_stiles, gamma);
-        return static_cast<int>(cudaGetLastError());
+        return static_cast<int>(launch_rect<T, decltype(k)::value>(
+            P, S, A, out, n_p, n_s, d, C, matvec, gamma,
+            Workspace{workspace, workspace_bytes},
+            static_cast<cudaStream_t>(stream)));
     });
 }
 
 }  // namespace
 
-// The C interface: every entry point returns the cudaError_t of its launch
-// (0 on success).  kind is KernelFunctionType's value (4 laplacian, 5
-// chi-squared); out ((rows,) or (rows, C) row-major) must hold zeros: the
-// kernels accumulate into it.
+// The C interface: every entry point returns the cudaError_t of its
+// launches (0 on success).  kind is KernelFunctionType's value (4
+// laplacian, 5 chi-squared); out ((rows,) or (rows, C) row-major) must hold
+// zeros: the sums are added to it.  workspace holds *workspace_bytes bytes;
+// a null workspace asks for the bytes the call needs, written to
+// *workspace_bytes, and launches nothing (fixed_sum.cuh).
 
 extern "C" int plssvm_distance_matvec_sym_f32(const float* X, const float* v,
                                               float* out, int64_t m,
                                               int64_t d, int kind,
-                                              float gamma, void* stream) {
-    return matvec_sym<float>(X, v, out, m, d, kind, gamma, stream);
+                                              float gamma, void* workspace,
+                                              int64_t* workspace_bytes,
+                                              void* stream) {
+    return sym<float>(X, v, out, m, d, 1, true, kind, gamma, workspace,
+                      workspace_bytes, stream);
 }
 
 extern "C" int plssvm_distance_matvec_sym_f64(const double* X,
                                               const double* v, double* out,
                                               int64_t m, int64_t d, int kind,
-                                              double gamma, void* stream) {
-    return matvec_sym<double>(X, v, out, m, d, kind, gamma, stream);
+                                              double gamma, void* workspace,
+                                              int64_t* workspace_bytes,
+                                              void* stream) {
+    return sym<double>(X, v, out, m, d, 1, true, kind, gamma, workspace,
+                       workspace_bytes, stream);
 }
 
 extern "C" int plssvm_distance_matvec_rect_f32(const float* P, const float* S,
                                                const float* a_s, float* out,
                                                int64_t n_p, int64_t n_s,
                                                int64_t d, int kind,
-                                               float gamma, void* stream) {
-    return matvec_rect<float>(P, S, a_s, out, n_p, n_s, d, kind, gamma,
-                              stream);
+                                               float gamma, void* workspace,
+                                               int64_t* workspace_bytes,
+                                               void* stream) {
+    return rect<float>(P, S, a_s, out, n_p, n_s, d, 1, true, kind, gamma,
+                       workspace, workspace_bytes, stream);
 }
 
 extern "C" int plssvm_distance_matvec_rect_f64(
     const double* P, const double* S, const double* a_s, double* out,
     int64_t n_p, int64_t n_s, int64_t d, int kind, double gamma,
-    void* stream) {
-    return matvec_rect<double>(P, S, a_s, out, n_p, n_s, d, kind, gamma,
-                               stream);
+    void* workspace, int64_t* workspace_bytes, void* stream) {
+    return rect<double>(P, S, a_s, out, n_p, n_s, d, 1, true, kind, gamma,
+                        workspace, workspace_bytes, stream);
 }
 
 extern "C" int plssvm_distance_matmat_sym_f32(const float* X, const float* V,
                                               float* out, int64_t m,
                                               int64_t d, int64_t C, int kind,
-                                              float gamma, void* stream) {
-    return matmat_sym<float>(X, V, out, m, d, C, kind, gamma, stream);
+                                              float gamma, void* workspace,
+                                              int64_t* workspace_bytes,
+                                              void* stream) {
+    return sym<float>(X, V, out, m, d, C, false, kind, gamma, workspace,
+                      workspace_bytes, stream);
 }
 
 extern "C" int plssvm_distance_matmat_sym_f64(const double* X,
                                               const double* V, double* out,
                                               int64_t m, int64_t d, int64_t C,
                                               int kind, double gamma,
+                                              void* workspace,
+                                              int64_t* workspace_bytes,
                                               void* stream) {
-    return matmat_sym<double>(X, V, out, m, d, C, kind, gamma, stream);
+    return sym<double>(X, V, out, m, d, C, false, kind, gamma, workspace,
+                       workspace_bytes, stream);
 }
 
 extern "C" int plssvm_distance_matmat_rect_f32(
     const float* P, const float* S, const float* A, float* out, int64_t n_p,
-    int64_t n_s, int64_t d, int64_t C, int kind, float gamma, void* stream) {
-    return matmat_rect<float>(P, S, A, out, n_p, n_s, d, C, kind, gamma,
-                              stream);
+    int64_t n_s, int64_t d, int64_t C, int kind, float gamma, void* workspace,
+    int64_t* workspace_bytes, void* stream) {
+    return rect<float>(P, S, A, out, n_p, n_s, d, C, false, kind, gamma,
+                       workspace, workspace_bytes, stream);
 }
 
 extern "C" int plssvm_distance_matmat_rect_f64(
     const double* P, const double* S, const double* A, double* out,
     int64_t n_p, int64_t n_s, int64_t d, int64_t C, int kind, double gamma,
-    void* stream) {
-    return matmat_rect<double>(P, S, A, out, n_p, n_s, d, C, kind, gamma,
-                               stream);
+    void* workspace, int64_t* workspace_bytes, void* stream) {
+    return rect<double>(P, S, A, out, n_p, n_s, d, C, false, kind, gamma,
+                        workspace, workspace_bytes, stream);
 }

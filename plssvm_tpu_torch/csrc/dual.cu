@@ -50,16 +50,18 @@
 // bytes a value, transposed, zero-filled past mr, mc and d) into one of
 // two stages while the other is computed, one barrier a chunk; the next
 // step's first chunk lands while the last is computed.  The row sums stay
-// in registers while a run stays on its row tile and go to out_r once
-// (one atomic a row and row tile of the run, through row_part); the
-// column sums of a step are reduced over the warp's 16 row lanes by
-// shuffles and added to out_c (one atomic a column, warp and step).
-// K and M: kernel C's class loop with both directions always on and the
-// row and column bounds apart (dual_class_loop), row and column sums by
-// atomics for every tile.  Both edges are masked, so nothing is padded;
-// sizes are 64-bit.  Not carried over from the TPU: the 128-row padding,
-// the class-major layout padded to 8, the resident column accumulator
-// (atomics replace it).
+// in registers while a run stays on its row tile and go to the block's
+// slot of the row tile once (through row_part; slot b - b0 for the first
+// block b0 whose run reaches the row tile, at most walk_row_slots a tile,
+// the rest zeroed); the column sums of a step are reduced over the warp's
+// 16 row lanes by shuffles and stored in the slot of the row tile and the
+// warp's half of it (two warps share a strip in a short step).  K and M:
+// kernel C's class loop with both directions always on and the row and
+// column bounds apart (dual_class_loop), row and column sums into slots
+// for every tile.  fixed_sum.cuh adds the slots in order.  Both edges are
+// masked, so nothing is padded; sizes are 64-bit.  Not carried over from
+// the TPU: the 128-row padding, the class-major layout padded to 8, the
+// resident column accumulator (the slots replace it).
 //
 // Tiers: the Gram matvec walk here serves J in float32 at "highest" (L and
 // M serve every tier and both types).  On float32 data at "f32" (TF32) and
@@ -83,12 +85,12 @@
 // the square), on the FP32 lanes (Gram, laplacian), the SFU (float
 // chi-squared) or the FP64 pipe (float64 distances: chi-squared's
 // divide-free quotient of ChiSquaredDistance, in gram_tile.cuh, on chunks
-// whose values pass its guard).  The column sums cost one atomic per column
-// and step (per class and tile in K and M) where A pays them off the
+// whose values pass its guard).  The column sums cost one slot store per
+// column and step (per class and tile in K and M) where A pays them off the
 // diagonal only.
 //
-// Numerics: no fast-math, as kernels A-H.  The atomics make the summation
-// order change from run to run.
+// Numerics: no fast-math, as kernels A-H.  Every sum across blocks is taken
+// in an order fixed by the shapes and the grid (fixed_sum.cuh).
 
 #include <type_traits>
 
@@ -241,6 +243,33 @@ struct WalkStep {
 // units.
 __device__ __forceinline__ int64_t walk_end(int64_t n_units) {
     return n_units * (blockIdx.x + 1) / gridDim.x;
+}
+
+// The block whose run holds unit u of U units over G blocks: the last b
+// with U b / G <= u.
+__host__ __device__ __forceinline__ int64_t walk_block(int64_t u, int64_t n_units,
+                                                       int64_t grid) {
+    return ((u + 1) * grid - 1) / n_units;
+}
+
+// This block's row slot of row tile ``tile``: its index among the blocks
+// whose runs reach the tile (whose first unit is tile n_strips).
+__device__ __forceinline__ int64_t walk_row_slot(int64_t tile, int64_t n_strips,
+                                                 int64_t n_units) {
+    return blockIdx.x - walk_block(tile * n_strips, n_units, gridDim.x);
+}
+
+// The row slots a row tile of the walk takes: the most blocks whose runs
+// reach one row tile, over the n_tiles tiles of n_strips units each.
+inline int64_t walk_row_slots(int64_t n_tiles, int64_t n_strips, int64_t grid) {
+    const int64_t n_units = n_tiles * n_strips;
+    int64_t most = 0;
+    for (int64_t t = 0; t < n_tiles; ++t) {
+        const int64_t blocks = walk_block((t + 1) * n_strips - 1, n_units, grid) -
+                               walk_block(t * n_strips, n_units, grid) + 1;
+        most = blocks > most ? blocks : most;
+    }
+    return most;
 }
 
 template <int BM, int SW>
@@ -406,9 +435,10 @@ __global__ void __launch_bounds__(kWalkThreads, WalkTile<T, KIND>::kMinBlocks)
     matvec_dual_kernel(const T* __restrict__ Xr, const T* __restrict__ Xc,
                        const T* __restrict__ sq_r, const T* __restrict__ sq_c,
                        const T* __restrict__ v_c, const T* __restrict__ v_r,
-                       T* __restrict__ out_r, T* __restrict__ out_c,
-                       int64_t mr, int64_t mc, int64_t d, int64_t n_strips,
-                       int64_t n_units, int degree, T gamma, T coef0) {
+                       T* __restrict__ ws_r, T* __restrict__ ws_c,
+                       int64_t ws_rows, int64_t mr, int64_t mc, int64_t d,
+                       int64_t n_strips, int64_t n_units, int degree, T gamma,
+                       T coef0) {
     using Op = typename Dual<T, KIND>::Op;
     constexpr int RA = WalkTile<T, KIND>::kRows;
     constexpr int RB = WalkTile<T, KIND>::kCols;
@@ -515,9 +545,11 @@ __global__ void __launch_bounds__(kWalkThreads, WalkTile<T, KIND>::kMinBlocks)
             // its half of a shared strip): into the row sums, which add up
             // in row_part while the run stays on this row tile, and into
             // the columns' sums, reduced over the warp's 16 row lanes and
-            // added to out_c by lane lr == b of each column lane.  A row
-            // past mr or a column past mc (zero-filled, so its values are
-            // finite) has a weight of 0 and is never added to the output.
+            // stored by lane lr == b of each column lane in the slot of the
+            // row tile and the warp's half (a strip of one warp also
+            // stores the other half's 0).  A row past mr or a column past
+            // mc (zero-filled, so its values are finite) has a weight of 0
+            // and is never stored.
             T w_r[RA];
             T sq_a[RA];
             T row_sum[RA];
@@ -552,7 +584,11 @@ __global__ void __launch_bounds__(kWalkThreads, WalkTile<T, KIND>::kMinBlocks)
                 }
                 col_sum = half_warp_sum(col_sum);
                 if (lr == b && col_ok) {
-                    atomicAdd(&out_c[j], col_sum);
+                    T* slot = ws_c + (2 * (step.row0 / BM) + half) * mc + j;
+                    *slot = col_sum;
+                    if (share == 1) {
+                        slot[mc] = T(0);
+                    }
                 }
             }
 #pragma unroll
@@ -567,8 +603,9 @@ __global__ void __launch_bounds__(kWalkThreads, WalkTile<T, KIND>::kMinBlocks)
         const WalkStep next = walk_next<BM, SW>(step, n_strips, n_units);
         if (next.strips == 0 || next.row0 != step.row0) {
             // the run leaves the row tile: the eight warps' row sums into
-            // out_r, one atomic a row, and row_part back to 0
+            // the block's slot of the row tile, and row_part back to 0
             __syncthreads();
+            T* slot = ws_r + walk_row_slot(step.row0 / BM, n_strips, n_units) * ws_rows;
             for (int r = threadIdx.x; r < BM; r += kWalkThreads) {
                 T total = T(0);
 #pragma unroll
@@ -577,7 +614,7 @@ __global__ void __launch_bounds__(kWalkThreads, WalkTile<T, KIND>::kMinBlocks)
                     sh.row_part[w][r] = T(0);
                 }
                 if (step.row0 + r < mr) {
-                    atomicAdd(&out_r[step.row0 + r], total);
+                    slot[step.row0 + r] = total;
                 }
             }
             __syncthreads();  // row_part is added to again from the next step
@@ -627,23 +664,26 @@ cudaError_t walk_slots(int64_t& slots) {
 }
 
 // The class loop of the dual block matmats (kernels K and M): with the
-// kernel tile kv in registers, out_r[r, c] += sum_j kv[r][j] Vc[j, c] for
-// the tile's rows and out_c[j, c] += sum_r kv[r][j] Vr[r, c] for its
-// columns, for every class c.  Vc (mc, C), Vr (mr, C), out_r (mr, C) and
-// out_c (mc, C) are row-major; the V rows of both tiles are staged
-// kClassChunk classes at a time in v_cols / v_rows, the column partials
-// reduced through col_part.  Kernel C's sym_class_loop with the column sums
-// on for every tile and the row and column bounds apart.
+// kernel tile kv of tile (it, jt) in registers, the partials sum_j kv[r][j]
+// Vc[j, c] of the tile's rows into ws_r[(jt ws_rows + r) C + c] and sum_r
+// kv[r][j] Vr[r, c] of its columns into ws_c[(it mc + j) C + c], for every
+// class c (fixed_sum.cuh run_rows).  Vc (mc, C) and Vr (mr, C) are
+// row-major; the V rows of both tiles are staged kClassChunk classes at a
+// time in v_cols / v_rows, the column partials reduced through col_part.
+// Kernel C's sym_class_loop with the column sums on for every tile and the
+// row and column bounds apart.
 template <typename T, int BM>
 __device__ __forceinline__ void dual_class_loop(
     const T (&kv)[BM / kThreads][BM / kThreads], const T* __restrict__ Vc,
-    const T* __restrict__ Vr, T* __restrict__ out_r, T* __restrict__ out_c,
-    int64_t mr, int64_t mc, int64_t C, int64_t row0, int64_t col0,
-    T (*v_cols)[BM + 1], T (*v_rows)[BM + 1], T (*col_part)[BM]) {
+    const T* __restrict__ Vr, T* __restrict__ ws_r, T* __restrict__ ws_c,
+    int64_t ws_rows, int64_t mr, int64_t mc, int64_t C, int64_t row0,
+    int64_t col0, T (*v_cols)[BM + 1], T (*v_rows)[BM + 1], T (*col_part)[BM]) {
     constexpr int R = BM / kThreads;
     const int tx = threadIdx.x;
     const int ty = threadIdx.y;
     const int tid = ty * kThreads + tx;
+    T* const slot_r = ws_r + (col0 / BM) * ws_rows * C;
+    T* const slot_c = ws_c + (row0 / BM) * mc * C;
     for (int64_t c0 = 0; c0 < C; c0 += kClassChunk) {
         const int cn = static_cast<int>(
             C - c0 < kClassChunk ? C - c0 : kClassChunk);
@@ -673,7 +713,7 @@ __device__ __forceinline__ void dual_class_loop(
                 const T total = half_warp_sum(row_sum);
                 const int64_t r = row0 + ty + kThreads * a;
                 if (tx == 0 && r < mr) {
-                    atomicAdd(&out_r[r * C + c], total);
+                    slot_r[r * C + c] = total;
                 }
             }
 #pragma unroll
@@ -693,7 +733,7 @@ __device__ __forceinline__ void dual_class_loop(
                     total += col_part[y][j];
                 }
                 if (col0 + j < mc) {
-                    atomicAdd(&out_c[(col0 + j) * C + c], total);
+                    slot_c[(col0 + j) * C + c] = total;
                 }
             }
             __syncthreads();  // col_part is written again next class
@@ -706,9 +746,10 @@ __global__ void __launch_bounds__(kThreads * kThreads)
     matmat_dual_kernel(const T* __restrict__ Xr, const T* __restrict__ Xc,
                        const T* __restrict__ sq_r, const T* __restrict__ sq_c,
                        const T* __restrict__ Vc, const T* __restrict__ Vr,
-                       T* __restrict__ out_r, T* __restrict__ out_c,
-                       int64_t mr, int64_t mc, int64_t d, int64_t C,
-                       int64_t n_ctiles, int degree, T gamma, T coef0) {
+                       T* __restrict__ ws_r, T* __restrict__ ws_c,
+                       int64_t ws_rows, int64_t mr, int64_t mc, int64_t d,
+                       int64_t C, int64_t n_ctiles, int degree, T gamma,
+                       T coef0) {
     constexpr int BM = Dual<T, KIND>::kEdge;
     constexpr int R = BM / kThreads;
     __shared__ Staging<T, BM> staging;
@@ -729,8 +770,8 @@ __global__ void __launch_bounds__(kThreads * kThreads)
         kernel_tile<T, KIND, BM>(kv, sq_r, sq_c, mr, mc, row0, col0, degree,
                                  gamma, coef0);
     }
-    dual_class_loop<T, BM>(kv, Vc, Vr, out_r, out_c, mr, mc, C, row0, col0,
-                           v_cols, v_rows, col_part);
+    dual_class_loop<T, BM>(kv, Vc, Vr, ws_r, ws_c, ws_rows, mr, mc, C, row0,
+                           col0, v_cols, v_rows, col_part);
 }
 
 // launch(std::integral_constant<int, KIND>) for a runtime kind of the
@@ -760,24 +801,17 @@ int by_kind(int kind, Launch&& launch) {
     }
 }
 
-// Blocks of the full walk over an mr x mc block in BM x BM tiles, 0 when
-// they do not fit a 1-D grid; n_ctiles the column tiles per row tile.
-template <int BM>
-unsigned int block_tiles(int64_t mr, int64_t mc, int64_t& n_ctiles) {
-    n_ctiles = (mc + BM - 1) / BM;
-    const int64_t blocks = ((mr + BM - 1) / BM) * n_ctiles;
-    return blocks <= 0 || blocks > INT32_MAX ? 0u
-                                             : static_cast<unsigned int>(blocks);
-}
-
 // Kernels J and L: the persistent grid of matvec_dual_kernel, the SMs
 // times the blocks an SM holds, or one block a unit where there are fewer
-// units.
+// units, in the row bands of run_rows; each band's row slots are zeroed
+// first, as a tile reached by fewer blocks than walk_row_slots leaves some
+// unwritten.
 template <typename T, bool kDistance>
 int matvec_dual(const T* Xr, const T* Xc, const T* sq_r,
                 const T* sq_c, const T* v_c, const T* v_r, T* out_r,
                 T* out_c, int64_t mr, int64_t mc, int64_t d, int kind,
-                int degree, T gamma, T coef0, void* stream) {
+                int degree, T gamma, T coef0, const Workspace& workspace,
+                void* stream) {
     return by_kind<kDistance>(kind, [&](auto k) {
         constexpr int KIND = decltype(k)::value;
         using Tile = WalkTile<T, KIND>;
@@ -786,20 +820,37 @@ int matvec_dual(const T* Xr, const T* Xc, const T* sq_r,
         if (mr <= 0 || mc <= 0 || d < 0) {
             return static_cast<int>(cudaErrorInvalidValue);
         }
+        const cudaStream_t s = static_cast<cudaStream_t>(stream);
         const int64_t n_strips = (mc + SW - 1) / SW;
-        const int64_t n_units = ((mr + BM - 1) / BM) * n_strips;
         int64_t slots = 0;
         const cudaError_t err = walk_slots<T, KIND>(slots);
         if (err != cudaSuccess) {
             return static_cast<int>(err);
         }
-        const int64_t grid = n_units < slots ? n_units : slots;
-        matvec_dual_kernel<T, KIND>
-            <<<static_cast<unsigned int>(grid), kWalkThreads, 0,
-               static_cast<cudaStream_t>(stream)>>>(
-                Xr, Xc, sq_r, sq_c, v_c, v_r, out_r, out_c, mr, mc, d,
-                n_strips, n_units, degree, gamma, coef0);
-        return static_cast<int>(cudaGetLastError());
+        const auto grid = [&](int64_t rows) {
+            const int64_t n_units = ((rows + BM - 1) / BM) * n_strips;
+            return n_units < slots ? n_units : slots;
+        };
+        const auto row_slots = [&](int64_t rows) {
+            return walk_row_slots((rows + BM - 1) / BM, n_strips, grid(rows));
+        };
+        // the column slots: two a row tile (the warps' halves)
+        return static_cast<int>(run_rows<T>(
+            workspace, mr, BM, 1, mc, 2, out_r, out_c, s, row_slots,
+            [&](int64_t row0, int64_t rows, T* ws_r, T* ws_c, int64_t ws_rows) {
+                const int64_t n_units = ((rows + BM - 1) / BM) * n_strips;
+                cudaError_t e = cudaMemsetAsync(
+                    ws_r, 0, sizeof(T) * row_slots(rows) * ws_rows, s);
+                if (e != cudaSuccess) {
+                    return e;
+                }
+                matvec_dual_kernel<T, KIND>
+                    <<<static_cast<unsigned int>(grid(rows)), kWalkThreads, 0,
+                       s>>>(Xr + row0 * d, Xc, sq_r == nullptr ? nullptr : sq_r + row0,
+                            sq_c, v_c, v_r + row0, ws_r, ws_c, ws_rows, rows, mc,
+                            d, n_strips, n_units, degree, gamma, coef0);
+                return cudaGetLastError();
+            }));
     });
 }
 
@@ -807,85 +858,111 @@ template <typename T, bool kDistance>
 int matmat_dual(const T* Xr, const T* Xc, const T* sq_r,
                 const T* sq_c, const T* Vc, const T* Vr, T* out_r, T* out_c,
                 int64_t mr, int64_t mc, int64_t d, int64_t C, int kind,
-                int degree, T gamma, T coef0, void* stream) {
+                int degree, T gamma, T coef0, const Workspace& workspace,
+                void* stream) {
     return by_kind<kDistance>(kind, [&](auto k) {
         constexpr int KIND = decltype(k)::value;
-        int64_t n_ctiles = 0;
-        const unsigned int blocks =
-            block_tiles<Dual<T, KIND>::kEdge>(mr, mc, n_ctiles);
-        if (blocks == 0 || C <= 0) {
+        constexpr int BM = Dual<T, KIND>::kEdge;
+        if (mr <= 0 || mc <= 0 || d < 0 || C <= 0) {
             return static_cast<int>(cudaErrorInvalidValue);
         }
-        matmat_dual_kernel<T, KIND>
-            <<<blocks, dim3(kThreads, kThreads), 0,
-               static_cast<cudaStream_t>(stream)>>>(
-                Xr, Xc, sq_r, sq_c, Vc, Vr, out_r, out_c, mr, mc, d, C,
-                n_ctiles, degree, gamma, coef0);
-        return static_cast<int>(cudaGetLastError());
+        const cudaStream_t s = static_cast<cudaStream_t>(stream);
+        const int64_t n_ctiles = (mc + BM - 1) / BM;
+        return static_cast<int>(run_rows<T>(
+            workspace, mr, BM, C, mc, 1, out_r, out_c, s,
+            [&](int64_t) { return n_ctiles; },
+            [&](int64_t row0, int64_t rows, T* ws_r, T* ws_c, int64_t ws_rows) {
+                const int64_t blocks = ((rows + BM - 1) / BM) * n_ctiles;
+                if (blocks > INT32_MAX) {
+                    return cudaErrorInvalidValue;
+                }
+                matmat_dual_kernel<T, KIND>
+                    <<<static_cast<unsigned int>(blocks),
+                       dim3(kThreads, kThreads), 0, s>>>(
+                        Xr + row0 * d, Xc, sq_r == nullptr ? nullptr : sq_r + row0,
+                        sq_c, Vc, Vr + row0 * C, ws_r, ws_c, ws_rows, rows, mc,
+                        d, C, n_ctiles, degree, gamma, coef0);
+                return cudaGetLastError();
+            }));
     });
 }
 
 }  // namespace
 
-// The C interface: every entry point returns the cudaError_t of its launch
-// (0 on success).  out_r (mr or mr x C) and out_c (mc or mc x C) must hold
-// zeros: the kernels accumulate into them.  The Gram entry points take
-// kind 1-3, the distance ones 4-5 (KernelFunctionType's values).
+// The C interface: every entry point returns the cudaError_t of its
+// launches (0 on success).  out_r (mr or mr x C) and out_c (mc or mc x C)
+// must hold zeros: the sums are added to them.  workspace holds
+// *workspace_bytes bytes; a null workspace asks for the bytes the call
+// needs, written to *workspace_bytes, and launches nothing (fixed_sum.cuh).
+// The Gram entry points take kind 1-3, the distance ones 4-5
+// (KernelFunctionType's values).
 
 extern "C" int plssvm_gram_matvec_dual_f32(
     const float* Xr, const float* Xc, const float* sq_r, const float* sq_c,
     const float* v_c, const float* v_r, float* out_r, float* out_c,
     int64_t mr, int64_t mc, int64_t d, int kind, int degree, float gamma,
-    float coef0, void* stream) {
+    float coef0, void* workspace,
+    int64_t* workspace_bytes, void* stream) {
     return matvec_dual<float, false>(Xr, Xc, sq_r, sq_c, v_c, v_r, out_r,
                                      out_c, mr, mc, d, kind, degree, gamma,
-                                     coef0, stream);
+                                     coef0, Workspace{workspace, workspace_bytes},
+                                     stream);
 }
 
 extern "C" int plssvm_gram_matmat_dual_f32(
     const float* Xr, const float* Xc, const float* sq_r, const float* sq_c,
     const float* Vc, const float* Vr, float* out_r, float* out_c,
     int64_t mr, int64_t mc, int64_t d, int64_t C, int kind, int degree,
-    float gamma, float coef0, void* stream) {
+    float gamma, float coef0, void* workspace,
+    int64_t* workspace_bytes, void* stream) {
     return matmat_dual<float, false>(Xr, Xc, sq_r, sq_c, Vc, Vr, out_r,
                                      out_c, mr, mc, d, C, kind, degree, gamma,
-                                     coef0, stream);
+                                     coef0, Workspace{workspace, workspace_bytes},
+                                     stream);
 }
 
 // The distance entry points take no squared norms.
 extern "C" int plssvm_distance_matvec_dual_f32(
     const float* Xr, const float* Xc, const float* v_c, const float* v_r,
     float* out_r, float* out_c, int64_t mr, int64_t mc, int64_t d, int kind,
-    float gamma, void* stream) {
+    float gamma, void* workspace,
+    int64_t* workspace_bytes, void* stream) {
     return matvec_dual<float, true>(Xr, Xc, nullptr, nullptr, v_c, v_r,
                                     out_r, out_c, mr, mc, d, kind, 0, gamma,
-                                    0.0f, stream);
+                                    0.0f, Workspace{workspace, workspace_bytes},
+                                    stream);
 }
 
 extern "C" int plssvm_distance_matvec_dual_f64(
     const double* Xr, const double* Xc, const double* v_c, const double* v_r,
     double* out_r, double* out_c, int64_t mr, int64_t mc, int64_t d,
-    int kind, double gamma, void* stream) {
+    int kind, double gamma, void* workspace,
+    int64_t* workspace_bytes, void* stream) {
     return matvec_dual<double, true>(Xr, Xc, nullptr, nullptr, v_c, v_r,
                                      out_r, out_c, mr, mc, d, kind, 0, gamma,
-                                     0.0, stream);
+                                     0.0, Workspace{workspace, workspace_bytes},
+                                     stream);
 }
 
 extern "C" int plssvm_distance_matmat_dual_f32(
     const float* Xr, const float* Xc, const float* Vc, const float* Vr,
     float* out_r, float* out_c, int64_t mr, int64_t mc, int64_t d, int64_t C,
-    int kind, float gamma, void* stream) {
+    int kind, float gamma, void* workspace,
+    int64_t* workspace_bytes, void* stream) {
     return matmat_dual<float, true>(Xr, Xc, nullptr, nullptr, Vc, Vr, out_r,
                                     out_c, mr, mc, d, C, kind, 0, gamma, 0.0f,
+                                    Workspace{workspace, workspace_bytes},
                                     stream);
 }
 
 extern "C" int plssvm_distance_matmat_dual_f64(
     const double* Xr, const double* Xc, const double* Vc, const double* Vr,
     double* out_r, double* out_c, int64_t mr, int64_t mc, int64_t d,
-    int64_t C, int kind, double gamma, void* stream) {
+    int64_t C, int kind, double gamma, void* workspace,
+    int64_t* workspace_bytes, void* stream) {
     return matmat_dual<double, true>(Xr, Xc, nullptr, nullptr, Vc, Vr, out_r,
                                      out_c, mr, mc, d, C, kind, 0, gamma, 0.0,
+                                     Workspace{workspace, workspace_bytes},
                                      stream);
 }
 
@@ -896,36 +973,44 @@ extern "C" int plssvm_gram_matvec_dual_tc_tf32(
     const void* Xr, const void* Xc, const float* sq_r, const float* sq_c,
     const float* v_c, const float* v_r, float* out_r, float* out_c,
     int64_t mr, int64_t mc, int64_t d_pad, int kind, int degree, float gamma,
-    float coef0, void* stream) {
+    float coef0, void* workspace,
+    int64_t* workspace_bytes, void* stream) {
     return tc_dual<Tf32Tier>(Xr, Xc, sq_r, sq_c, v_c, v_r, out_r, out_c, mr, mc,
-                             d_pad, 1, kind, degree, gamma, coef0, stream);
+                             d_pad, 1, kind, degree, gamma, coef0,
+        Workspace{workspace, workspace_bytes}, stream);
 }
 
 extern "C" int plssvm_gram_matvec_dual_tc_bf16(
     const void* Xr, const void* Xc, const float* sq_r, const float* sq_c,
     const float* v_c, const float* v_r, float* out_r, float* out_c,
     int64_t mr, int64_t mc, int64_t d_pad, int kind, int degree, float gamma,
-    float coef0, void* stream) {
+    float coef0, void* workspace,
+    int64_t* workspace_bytes, void* stream) {
     return tc_dual<Bf16Tier>(Xr, Xc, sq_r, sq_c, v_c, v_r, out_r, out_c, mr, mc,
-                             d_pad, 1, kind, degree, gamma, coef0, stream);
+                             d_pad, 1, kind, degree, gamma, coef0,
+        Workspace{workspace, workspace_bytes}, stream);
 }
 
 extern "C" int plssvm_gram_matmat_dual_tc_tf32(
     const void* Xr, const void* Xc, const float* sq_r, const float* sq_c,
     const float* Vc, const float* Vr, float* out_r, float* out_c,
     int64_t mr, int64_t mc, int64_t d_pad, int64_t C, int kind, int degree,
-    float gamma, float coef0, void* stream) {
+    float gamma, float coef0, void* workspace,
+    int64_t* workspace_bytes, void* stream) {
     return tc_dual<Tf32Tier>(Xr, Xc, sq_r, sq_c, Vc, Vr, out_r, out_c, mr, mc,
-                             d_pad, C, kind, degree, gamma, coef0, stream);
+                             d_pad, C, kind, degree, gamma, coef0,
+        Workspace{workspace, workspace_bytes}, stream);
 }
 
 extern "C" int plssvm_gram_matmat_dual_tc_bf16(
     const void* Xr, const void* Xc, const float* sq_r, const float* sq_c,
     const float* Vc, const float* Vr, float* out_r, float* out_c,
     int64_t mr, int64_t mc, int64_t d_pad, int64_t C, int kind, int degree,
-    float gamma, float coef0, void* stream) {
+    float gamma, float coef0, void* workspace,
+    int64_t* workspace_bytes, void* stream) {
     return tc_dual<Bf16Tier>(Xr, Xc, sq_r, sq_c, Vc, Vr, out_r, out_c, mr, mc,
-                             d_pad, C, kind, degree, gamma, coef0, stream);
+                             d_pad, C, kind, degree, gamma, coef0,
+        Workspace{workspace, workspace_bytes}, stream);
 }
 
 // Kernel K at "highest" on the dual tile in three TF32 passes: Xr and Xc the
@@ -935,9 +1020,11 @@ extern "C" int plssvm_gram_matmat_dual_tc_tf32x3(
     const void* Xr, const void* Xc, const float* sq_r, const float* sq_c,
     const float* Vc, const float* Vr, float* out_r, float* out_c,
     int64_t mr, int64_t mc, int64_t d_pad, int64_t C, int kind, int degree,
-    float gamma, float coef0, void* stream) {
+    float gamma, float coef0, void* workspace,
+    int64_t* workspace_bytes, void* stream) {
     return tc_dual<Tf32x3Tier>(Xr, Xc, sq_r, sq_c, Vc, Vr, out_r, out_c, mr, mc,
-                               d_pad, C, kind, degree, gamma, coef0, stream);
+                               d_pad, C, kind, degree, gamma, coef0,
+        Workspace{workspace, workspace_bytes}, stream);
 }
 
 // Blocks of the dual tensor-core tile an SM holds at once, for the tier (0

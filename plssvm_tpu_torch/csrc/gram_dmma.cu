@@ -74,9 +74,9 @@
 //   row (a reduce-scatter: each lane keeps two rows) and over the four
 //   warps across through shared memory; column partials reduced over the
 //   eight row groups of a warp (a reduce-scatter butterfly, 7 shuffles)
-//   and over the two warps down through shared memory; one native float64
-//   atomicAdd per row and class, and off the diagonal one per column and
-//   class.  The partial buffers alternate between classes, so a class
+//   and over the two warps down through shared memory; one slot store per
+//   row and class, and off the diagonal one per column and class, each
+//   slot of its partner tile, summed in partner order by fixed_sum.cuh.  The partial buffers alternate between classes, so a class
 //   costs one barrier.  A second MMA for the class contraction is untried.
 // - The dual tile: the same product, fragments, ring and epilogue (shared
 //   device functions: dmma_tile_product, dmma_box, dmma_kernel_values,
@@ -90,16 +90,16 @@
 //   tiles a block, their row sums kept in shared memory, were no faster
 //   at the ring's blocks on an H100; PERF.md).  Rows are masked against
 //   mr, columns against mc; every tile takes the off-diagonal epilogue:
-//   row partials against Vc, column partials against Vr, one atomicAdd
+//   row partials against Vc, column partials against Vr, one slot store
 //   per row and class and one per column and class.  What bounds it is the
 //   symmetric tile's pair work, on every pair of the block instead of
 //   half.  The kernel values come before the class loop, as in the
 //   symmetric tile: computed inside it, their exps' temporaries added to
 //   the class loop's registers and the tile spilled 272-460 bytes.
 // - The rect tile: the dual tile's walk, product and row side, without the
-//   column partials, their V staging and their atomics: rows masked
+//   column partials, their V staging and their slots: rows masked
 //   against n_p, columns against n_s, per class the row partials against
-//   the SV tile's weights and one atomicAdd per row.  One tile a block, as
+//   the SV tile's weights and one slot store per row.  One tile a block, as
 //   the dual tile.  The product loop is one device function of the three
 //   tiles (dmma_tile_product); sharing it left the sym and dual tiles'
 //   registers, spills and shared memory as they were (chip_smoke.py
@@ -110,17 +110,18 @@
 
 namespace {
 
-// out[r, c] += sum_j k(x_r, x_j) V[j, c] over the upper triangle of tiles,
-// columns mirrored off the diagonal; X arrives through xmap (m rows, its
-// feature axis a multiple of 2), nk boxes of features.
+// The partials of out[r, c] = sum_j k(x_r, x_j) V[j, c] over the tiles of
+// one pass of the upper triangle (fixed_sum.cuh SymPass), columns mirrored
+// off the diagonal, into their slots of ws; X arrives through xmap (m rows,
+// its feature axis a multiple of 2), nk boxes of features.
 template <int KIND>
 __global__ void __launch_bounds__(kDmThreads, 1)
     gram_dmma_sym_kernel(const __grid_constant__ CUtensorMap xmap,
                          const double* __restrict__ sq,
                          const double* __restrict__ V,
-                         double* __restrict__ out, int64_t m, int64_t C,
-                         int nk, int64_t nt, int degree, double gamma,
-                         double coef0) {
+                         double* __restrict__ ws, const SymPass pass,
+                         int64_t m, int64_t C, int nk, int64_t nt, int degree,
+                         double gamma, double coef0) {
     extern __shared__ uint8_t dm_ring[];
     __shared__ __align__(8) uint64_t full[kDmStages];
     __shared__ __align__(8) uint64_t empty[kDmStages];
@@ -133,7 +134,7 @@ __global__ void __launch_bounds__(kDmThreads, 1)
 
     const int tid = threadIdx.x;
     int64_t it, jt;
-    grouped_upper_tile(blockIdx.x, nt, it, jt);
+    grouped_upper_tile(pass.first_block() + blockIdx.x, nt, it, jt);
     const int64_t row0 = it * kDmEdge;
     const int64_t col0 = jt * kDmEdge;
     const bool off_diagonal = jt > it;  // uniform per block
@@ -199,24 +200,25 @@ __global__ void __launch_bounds__(kDmThreads, 1)
                     const double total =
                         (row_part[parity][0][tid] + row_part[parity][1][tid]) +
                         (row_part[parity][2][tid] + row_part[parity][3][tid]);
-                    atomicAdd(&out[(row0 + tid) * C + c], total);
+                    ws[pass.slot(row0 + tid, jt) + c] = total;
                 }
             } else if (off_diagonal) {
                 const int cl = tid - kDmEdge;
                 if (col0 + cl < m) {
-                    atomicAdd(&out[(col0 + cl) * C + c],
-                              col_part[parity][0][cl] + col_part[parity][1][cl]);
+                    ws[pass.slot(col0 + cl, it) + c] =
+                        col_part[parity][0][cl] + col_part[parity][1][cl];
                 }
             }
         }
     }
 }
 
-// out_r[r, c] += sum_j k(xr_r, xc_j) Vc[j, c] and out_c[j, c] += sum_r
-// k(xr_r, xc_j) Vr[r, c] over one tile of the mr x mc block, every tile
-// with the off-diagonal epilogue; Xr and Xc arrive through rmap and cmap
-// (mr and mc rows, the same feature axis, a multiple of 2), nk boxes of
-// features.
+// The partials of out_r[r, c] = sum_j k(xr_r, xc_j) Vc[j, c] and out_c[j,
+// c] = sum_r k(xr_r, xc_j) Vr[r, c] over tile (it, jt) of the mr x mc
+// block, every tile with the off-diagonal epilogue, into ws_r[(jt ws_rows
+// + r) C + c] and ws_c[(it mc + j) C + c] (fixed_sum.cuh run_rows); Xr (a
+// band of rows) and Xc arrive through rmap and cmap (mr and mc rows, the
+// same feature axis, a multiple of 2), nk boxes of features.
 template <int KIND>
 __global__ void __launch_bounds__(kDmThreads, 1)
     gram_dmma_dual_kernel(const __grid_constant__ CUtensorMap rmap,
@@ -225,10 +227,10 @@ __global__ void __launch_bounds__(kDmThreads, 1)
                           const double* __restrict__ sq_c,
                           const double* __restrict__ Vc,
                           const double* __restrict__ Vr,
-                          double* __restrict__ out_r,
-                          double* __restrict__ out_c, int64_t mr, int64_t mc,
-                          int64_t C, int nk, int n_rt, int n_ct, int degree,
-                          double gamma, double coef0) {
+                          double* __restrict__ ws_r,
+                          double* __restrict__ ws_c, int64_t ws_rows,
+                          int64_t mr, int64_t mc, int64_t C, int nk, int n_rt,
+                          int n_ct, int degree, double gamma, double coef0) {
     extern __shared__ uint8_t dm_ring[];
     __shared__ __align__(8) uint64_t full[kDmStages];
     __shared__ __align__(8) uint64_t empty[kDmStages];
@@ -303,22 +305,24 @@ __global__ void __launch_bounds__(kDmThreads, 1)
                     const double total =
                         (row_part[parity][0][tid] + row_part[parity][1][tid]) +
                         (row_part[parity][2][tid] + row_part[parity][3][tid]);
-                    atomicAdd(&out_r[(row0 + tid) * C + c], total);
+                    ws_r[(jt * ws_rows + row0 + tid) * C + c] = total;
                 }
             } else {
                 const int cl = tid - kDmEdge;
                 if (col0 + cl < mc) {
-                    atomicAdd(&out_c[(col0 + cl) * C + c],
-                              col_part[parity][0][cl] + col_part[parity][1][cl]);
+                    ws_c[(it * mc + col0 + cl) * C + c] =
+                        col_part[parity][0][cl] + col_part[parity][1][cl];
                 }
             }
         }
     }
 }
 
-// out[r, c] += sum_j k(p_r, s_j) A[j, c] over one tile of the n_p x n_s
-// rectangle, rows only; P and S arrive through pmap and smap (n_p and n_s
-// rows, the same feature axis, a multiple of 2), nk boxes of features.
+// The partial of out[r, c] = sum_j k(p_r, s_j) A[j, c] over tile (it, jt)
+// of the n_p x n_s rectangle, rows only, into ws[(jt ws_rows + r) C + c]
+// (fixed_sum.cuh run_rows); P (a band of rows) and S arrive through pmap and
+// smap (n_p and n_s rows, the same feature axis, a multiple of 2), nk boxes
+// of features.
 template <int KIND>
 __global__ void __launch_bounds__(kDmThreads, 1)
     gram_dmma_rect_kernel(const __grid_constant__ CUtensorMap pmap,
@@ -326,9 +330,10 @@ __global__ void __launch_bounds__(kDmThreads, 1)
                           const double* __restrict__ sq_p,
                           const double* __restrict__ sq_s,
                           const double* __restrict__ A,
-                          double* __restrict__ out, int64_t n_p, int64_t n_s,
-                          int64_t C, int nk, int n_rt, int n_ct, int degree,
-                          double gamma, double coef0) {
+                          double* __restrict__ ws, int64_t ws_rows,
+                          int64_t n_p, int64_t n_s, int64_t C, int nk,
+                          int n_rt, int n_ct, int degree, double gamma,
+                          double coef0) {
     extern __shared__ uint8_t dm_ring[];
     __shared__ __align__(8) uint64_t full[kDmStages];
     __shared__ __align__(8) uint64_t empty[kDmStages];
@@ -396,7 +401,7 @@ __global__ void __launch_bounds__(kDmThreads, 1)
                 const double total =
                     (row_part[parity][0][tid] + row_part[parity][1][tid]) +
                     (row_part[parity][2][tid] + row_part[parity][3][tid]);
-                atomicAdd(&out[(row0 + tid) * C + c0 + cc], total);
+                ws[(jt * ws_rows + row0 + tid) * C + c0 + cc] = total;
             }
         }
     }
@@ -404,114 +409,152 @@ __global__ void __launch_bounds__(kDmThreads, 1)
 
 // Kernels A (C = 1) and C on the DMMA tile: X (m, d_pad) float64, d_pad
 // even and X 16-byte aligned (TMA); sq its squared norms; V (m, C) and out
-// (m, C) row-major, out accumulates.
+// (m, C) row-major, the sums added to out in the passes of sym_plan.
 template <int KIND>
 cudaError_t launch_dmma_sym(const double* X, const double* sq, const double* V,
                             double* out, int64_t m, int64_t d_pad, int64_t C,
                             int degree, double gamma, double coef0,
-                            cudaStream_t stream) {
+                            const Workspace& workspace, cudaStream_t stream) {
     const int64_t nt = (m + kDmEdge - 1) / kDmEdge;
-    const int64_t blocks = nt * (nt + 1) / 2;
     const int64_t nk = (d_pad + kDmFeatures - 1) / kDmFeatures;
-    if (blocks <= 0 || blocks > INT32_MAX || C <= 0 || nk <= 0 ||
-        nk > INT32_MAX || !tma_operand_ok<F64Operand>(X, m, d_pad)) {
+    if (nt <= 0 || C <= 0 || nk <= 0 || nk > INT32_MAX ||
+        !tma_operand_ok<F64Operand>(X, m, d_pad)) {
         return cudaErrorInvalidValue;
     }
     CUtensorMap map;
-    cudaError_t err = encode_operand<F64Operand>(&map, X, m, d_pad);
-    if (err != cudaSuccess) {
-        return err;
-    }
     auto kernel = gram_dmma_sym_kernel<KIND>;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kDmSmemBytes);
-    if (err != cudaSuccess) {
-        return err;
+    if (workspace.base != nullptr) {
+        cudaError_t err = encode_operand<F64Operand>(&map, X, m, d_pad);
+        if (err == cudaSuccess) {
+            err = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDmSmemBytes);
+        }
+        if (err != cudaSuccess) {
+            return err;
+        }
     }
-    kernel<<<static_cast<unsigned int>(blocks), kDmThreads, kDmSmemBytes,
-             stream>>>(map, sq, V, out, m, C, static_cast<int>(nk), nt, degree,
-                       gamma, coef0);
-    return cudaGetLastError();
+    return run_sym<double>(workspace, m, kDmEdge, kTcGroup, C, out, stream,
+                           [&](const SymPass& pass, double* ws) {
+        kernel<<<static_cast<unsigned int>(pass.blocks()), kDmThreads,
+                 kDmSmemBytes, stream>>>(map, sq, V, ws, pass, m, C,
+                                         static_cast<int>(nk), nt, degree,
+                                         gamma, coef0);
+        return cudaGetLastError();
+    });
+}
+
+// The grid of the dual and rect DMMA tiles over a band of n_r rows R
+// against n_c rows S: their tensor maps, nk boxes, n_rt x n_ct blocks.
+struct DmGrid {
+    CUtensorMap rmap;
+    CUtensorMap cmap;
+    int nk, n_rt, n_ct;
+    unsigned int blocks;
+};
+
+inline cudaError_t dmma_grid(const double* R, const double* S, int64_t n_r,
+                             int64_t n_c, int64_t d_pad, DmGrid& grid) {
+    const int64_t n_rt = (n_r + kDmEdge - 1) / kDmEdge;
+    const int64_t n_ct = (n_c + kDmEdge - 1) / kDmEdge;
+    const int64_t blocks = n_rt * n_ct;
+    const int64_t nk = (d_pad + kDmFeatures - 1) / kDmFeatures;
+    if (blocks <= 0 || blocks > INT32_MAX || nk <= 0 || nk > INT32_MAX ||
+        !tma_operand_ok<F64Operand>(R, n_r, d_pad) ||
+        !tma_operand_ok<F64Operand>(S, n_c, d_pad)) {
+        return cudaErrorInvalidValue;
+    }
+    grid.nk = static_cast<int>(nk);
+    grid.n_rt = static_cast<int>(n_rt);
+    grid.n_ct = static_cast<int>(n_ct);
+    grid.blocks = static_cast<unsigned int>(blocks);
+    cudaError_t err = encode_operand<F64Operand>(&grid.rmap, R, n_r, d_pad);
+    if (err == cudaSuccess) {
+        err = encode_operand<F64Operand>(&grid.cmap, S, n_c, d_pad);
+    }
+    return err;
 }
 
 // Kernels J (C = 1) and K on the dual DMMA tile: Xr (mr, d_pad) and Xc
 // (mc, d_pad) float64, d_pad even, both 16-byte aligned (TMA); sq_r, sq_c
-// their norms; Vc (mc, C) and Vr (mr, C) row-major; out_r (mr, C) and out_c
-// (mc, C) accumulate.
+// their norms; Vc (mc, C) and Vr (mr, C) row-major; the sums added to
+// out_r (mr, C) and out_c (mc, C) in the row bands of run_rows.
 template <int KIND>
 cudaError_t launch_dmma_dual(const double* Xr, const double* Xc,
                              const double* sq_r, const double* sq_c,
                              const double* Vc, const double* Vr, double* out_r,
                              double* out_c, int64_t mr, int64_t mc,
                              int64_t d_pad, int64_t C, int degree,
-                             double gamma, double coef0, cudaStream_t stream) {
-    const int64_t n_rt = (mr + kDmEdge - 1) / kDmEdge;
-    const int64_t n_ct = (mc + kDmEdge - 1) / kDmEdge;
-    const int64_t blocks = n_rt * n_ct;
-    const int64_t nk = (d_pad + kDmFeatures - 1) / kDmFeatures;
-    if (blocks <= 0 || blocks > INT32_MAX || C <= 0 || nk <= 0 ||
-        nk > INT32_MAX || !tma_operand_ok<F64Operand>(Xr, mr, d_pad) ||
-        !tma_operand_ok<F64Operand>(Xc, mc, d_pad)) {
+                             double gamma, double coef0,
+                             const Workspace& workspace, cudaStream_t stream) {
+    if (mr <= 0 || mc <= 0 || C <= 0) {
         return cudaErrorInvalidValue;
     }
-    CUtensorMap rmap, cmap;
-    cudaError_t err = encode_operand<F64Operand>(&rmap, Xr, mr, d_pad);
-    if (err == cudaSuccess) {
-        err = encode_operand<F64Operand>(&cmap, Xc, mc, d_pad);
-    }
-    if (err != cudaSuccess) {
-        return err;
-    }
     auto kernel = gram_dmma_dual_kernel<KIND>;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kDmSmemBytes);
-    if (err != cudaSuccess) {
-        return err;
+    if (workspace.base != nullptr) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDmSmemBytes);
+        if (err != cudaSuccess) {
+            return err;
+        }
     }
-    kernel<<<static_cast<unsigned int>(blocks), kDmThreads, kDmSmemBytes,
-             stream>>>(rmap, cmap, sq_r, sq_c, Vc, Vr, out_r, out_c, mr, mc, C,
-                       static_cast<int>(nk), static_cast<int>(n_rt),
-                       static_cast<int>(n_ct), degree, gamma, coef0);
-    return cudaGetLastError();
+    const int64_t n_ct = (mc + kDmEdge - 1) / kDmEdge;
+    return run_rows<double>(
+        workspace, mr, kDmEdge, C, mc, 1, out_r, out_c, stream,
+        [&](int64_t) { return n_ct; },
+        [&](int64_t row0, int64_t rows, double* ws_r, double* ws_c,
+            int64_t ws_rows) {
+            DmGrid grid;
+            const cudaError_t err = dmma_grid(Xr + row0 * d_pad, Xc, rows, mc,
+                                              d_pad, grid);
+            if (err != cudaSuccess) {
+                return err;
+            }
+            kernel<<<grid.blocks, kDmThreads, kDmSmemBytes, stream>>>(
+                grid.rmap, grid.cmap, sq_r + row0, sq_c, Vc, Vr + row0 * C,
+                ws_r, ws_c, ws_rows, rows, mc, C, grid.nk, grid.n_rt,
+                grid.n_ct, degree, gamma, coef0);
+            return cudaGetLastError();
+        });
 }
 
 // Kernels B (C = 1) and D on the rect DMMA tile: P (n_p, d_pad) and S
 // (n_s, d_pad) float64, d_pad even, both 16-byte aligned (TMA); sq_p, sq_s
-// their norms; A (n_s, C) and out (n_p, C) row-major, out accumulates.
+// their norms; A (n_s, C) and out (n_p, C) row-major, the sums added to out
+// in the row bands of run_rows.
 template <int KIND>
 cudaError_t launch_dmma_rect(const double* P, const double* S,
                              const double* sq_p, const double* sq_s,
                              const double* A, double* out, int64_t n_p,
                              int64_t n_s, int64_t d_pad, int64_t C, int degree,
-                             double gamma, double coef0, cudaStream_t stream) {
-    const int64_t n_rt = (n_p + kDmEdge - 1) / kDmEdge;
-    const int64_t n_ct = (n_s + kDmEdge - 1) / kDmEdge;
-    const int64_t blocks = n_rt * n_ct;
-    const int64_t nk = (d_pad + kDmFeatures - 1) / kDmFeatures;
-    if (blocks <= 0 || blocks > INT32_MAX || C <= 0 || nk <= 0 ||
-        nk > INT32_MAX || !tma_operand_ok<F64Operand>(P, n_p, d_pad) ||
-        !tma_operand_ok<F64Operand>(S, n_s, d_pad)) {
+                             double gamma, double coef0,
+                             const Workspace& workspace, cudaStream_t stream) {
+    if (n_p <= 0 || n_s <= 0 || C <= 0) {
         return cudaErrorInvalidValue;
     }
-    CUtensorMap pmap, smap;
-    cudaError_t err = encode_operand<F64Operand>(&pmap, P, n_p, d_pad);
-    if (err == cudaSuccess) {
-        err = encode_operand<F64Operand>(&smap, S, n_s, d_pad);
-    }
-    if (err != cudaSuccess) {
-        return err;
-    }
     auto kernel = gram_dmma_rect_kernel<KIND>;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kDmSmemBytes);
-    if (err != cudaSuccess) {
-        return err;
+    if (workspace.base != nullptr) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDmSmemBytes);
+        if (err != cudaSuccess) {
+            return err;
+        }
     }
-    kernel<<<static_cast<unsigned int>(blocks), kDmThreads, kDmSmemBytes,
-             stream>>>(pmap, smap, sq_p, sq_s, A, out, n_p, n_s, C,
-                       static_cast<int>(nk), static_cast<int>(n_rt),
-                       static_cast<int>(n_ct), degree, gamma, coef0);
-    return cudaGetLastError();
+    const int64_t n_ct = (n_s + kDmEdge - 1) / kDmEdge;
+    return run_rows<double>(
+        workspace, n_p, kDmEdge, C, 0, 1, out, nullptr, stream,
+        [&](int64_t) { return n_ct; },
+        [&](int64_t row0, int64_t rows, double* ws, double*, int64_t ws_rows) {
+            DmGrid grid;
+            const cudaError_t err = dmma_grid(P + row0 * d_pad, S, rows, n_s,
+                                              d_pad, grid);
+            if (err != cudaSuccess) {
+                return err;
+            }
+            kernel<<<grid.blocks, kDmThreads, kDmSmemBytes, stream>>>(
+                grid.rmap, grid.cmap, sq_p + row0, sq_s, A, ws, ws_rows, rows,
+                n_s, C, grid.nk, grid.n_rt, grid.n_ct, degree, gamma, coef0);
+            return cudaGetLastError();
+        });
 }
 
 // How many blocks of a DMMA tile an SM holds at once (all are designed
@@ -531,16 +574,19 @@ cudaError_t dmma_blocks_per_sm(Kernel kernel, int smem, int& blocks) {
 
 // Kernel C on the DMMA tile: X (m, d_pad) float64 with an even d_pad,
 // 16-byte aligned (ops/gram_matvec.py dmma_operand); sq the norms of X;
-// V (m, C) and out (m, C) row-major, out accumulates.
+// V (m, C) and out (m, C) row-major, out accumulates.  Every entry point
+// takes the workspace of fixed_sum.cuh: a null workspace asks for its size,
+// written to *workspace_bytes, and launches nothing.
 extern "C" int plssvm_gram_matmat_sym_dmma(const double* X, const double* sq,
                                            const double* V, double* out,
                                            int64_t m, int64_t d_pad,
                                            int64_t C, int kind, int degree,
-                                           double gamma, double coef0,
-                                           void* stream) {
+                                           double gamma, double coef0, void* workspace,
+    int64_t* workspace_bytes, void* stream) {
     return dmma_dispatch(kind, [&](auto k) {
         return static_cast<int>(launch_dmma_sym<decltype(k)::value>(
             X, sq, V, out, m, d_pad, C, degree, gamma, coef0,
+            Workspace{workspace, workspace_bytes},
             static_cast<cudaStream_t>(stream)));
     });
 }
@@ -550,9 +596,11 @@ extern "C" int plssvm_gram_matvec_sym_dmma(const double* X, const double* sq,
                                            const double* v, double* out,
                                            int64_t m, int64_t d_pad,
                                            int kind, int degree, double gamma,
-                                           double coef0, void* stream) {
+                                           double coef0, void* workspace,
+    int64_t* workspace_bytes, void* stream) {
     return plssvm_gram_matmat_sym_dmma(X, sq, v, out, m, d_pad, 1, kind,
-                                       degree, gamma, coef0, stream);
+                                       degree, gamma, coef0,
+        workspace, workspace_bytes, stream);
 }
 
 // Kernel K on the dual DMMA tile: Xr (mr, d_pad) and Xc (mc, d_pad)
@@ -563,11 +611,14 @@ extern "C" int plssvm_gram_matmat_dual_dmma(
     const double* Xr, const double* Xc, const double* sq_r, const double* sq_c,
     const double* Vc, const double* Vr, double* out_r, double* out_c,
     int64_t mr, int64_t mc, int64_t d_pad, int64_t C, int kind, int degree,
-    double gamma, double coef0, void* stream) {
+    double gamma, double coef0, void* workspace,
+    int64_t* workspace_bytes, void* stream) {
     return dmma_dispatch(kind, [&](auto k) {
         return static_cast<int>(launch_dmma_dual<decltype(k)::value>(
             Xr, Xc, sq_r, sq_c, Vc, Vr, out_r, out_c, mr, mc, d_pad, C, degree,
-            gamma, coef0, static_cast<cudaStream_t>(stream)));
+            gamma, coef0,
+            Workspace{workspace, workspace_bytes},
+            static_cast<cudaStream_t>(stream)));
     });
 }
 
@@ -576,10 +627,12 @@ extern "C" int plssvm_gram_matvec_dual_dmma(
     const double* Xr, const double* Xc, const double* sq_r, const double* sq_c,
     const double* v_c, const double* v_r, double* out_r, double* out_c,
     int64_t mr, int64_t mc, int64_t d_pad, int kind, int degree, double gamma,
-    double coef0, void* stream) {
+    double coef0, void* workspace,
+    int64_t* workspace_bytes, void* stream) {
     return plssvm_gram_matmat_dual_dmma(Xr, Xc, sq_r, sq_c, v_c, v_r, out_r,
                                         out_c, mr, mc, d_pad, 1, kind, degree,
-                                        gamma, coef0, stream);
+                                        gamma, coef0,
+        workspace, workspace_bytes, stream);
 }
 
 // The symmetric DMMA tile's blocks per SM for the kernel function
@@ -605,10 +658,12 @@ extern "C" int plssvm_gram_dmma_dual_blocks_per_sm(int kind, int* blocks) {
 extern "C" int plssvm_gram_matmat_rect_dmma(
     const double* P, const double* S, const double* sq_p, const double* sq_s,
     const double* A, double* out, int64_t n_p, int64_t n_s, int64_t d_pad,
-    int64_t C, int kind, int degree, double gamma, double coef0, void* stream) {
+    int64_t C, int kind, int degree, double gamma, double coef0, void* workspace,
+    int64_t* workspace_bytes, void* stream) {
     return dmma_dispatch(kind, [&](auto k) {
         return static_cast<int>(launch_dmma_rect<decltype(k)::value>(
             P, S, sq_p, sq_s, A, out, n_p, n_s, d_pad, C, degree, gamma, coef0,
+            Workspace{workspace, workspace_bytes},
             static_cast<cudaStream_t>(stream)));
     });
 }
@@ -617,10 +672,11 @@ extern "C" int plssvm_gram_matmat_rect_dmma(
 extern "C" int plssvm_gram_matvec_rect_dmma(
     const double* P, const double* S, const double* sq_p, const double* sq_s,
     const double* a, double* out, int64_t n_p, int64_t n_s, int64_t d_pad,
-    int kind, int degree, double gamma, double coef0, void* stream) {
+    int kind, int degree, double gamma, double coef0, void* workspace,
+    int64_t* workspace_bytes, void* stream) {
     return plssvm_gram_matmat_rect_dmma(P, S, sq_p, sq_s, a, out, n_p, n_s,
                                         d_pad, 1, kind, degree, gamma, coef0,
-                                        stream);
+        workspace, workspace_bytes, stream);
 }
 
 // The rect DMMA tile's blocks per SM for the kernel function ``kind``.

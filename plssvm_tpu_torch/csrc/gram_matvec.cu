@@ -12,11 +12,12 @@
 //   chunks of both row tiles in shared memory and accumulates the Gram tile
 //   in registers (R x R per thread), applies the kernel epilogue (the same
 //   formulas as kernel_functions.apply_kernel_to_gram; RBF uses
-//   sq_i + sq_j - 2 g), and atomically adds the row sums K_tile @ v_j into
-//   out[i rows].  Off the diagonal (j > i) it also adds the column sums
-//   K_tile^T @ v_i into out[j rows]; the diagonal tile contributes rows
-//   only.  Atomics are what the TPU lacked and the reason Pallas kept a
-//   resident column accumulator; fp64 atomicAdd is native on sm_90.
+//   sq_i + sq_j - 2 g), and writes the row sums K_tile @ v_j of rows i to
+//   their slots for partner tile j.  Off the diagonal (j > i) it also
+//   writes the column sums K_tile^T @ v_i of rows j to their slots for
+//   partner i; the diagonal tile contributes rows only.  fixed_sum.cuh then
+//   adds each row's slots in partner order: the fixed order of the TPU
+//   kernel's resident column accumulator, without its serial grid.
 //   kernel_matvec_pallas, the JAX package's thin wrapper that routes
 //   K(X, X) @ v to the same symmetric kernel, is ported as
 //   ops/gram_matvec.py kernel_matvec: one launch of kernel A.
@@ -26,10 +27,11 @@
 //   same file (bodies _matvec_kernel_fulld and _matvec_kernel_blocked).  One
 //   kernel loops over feature chunks for any d, so the full-d / blocked split
 //   disappears.  The grid is 2-D (point tiles x support-vector tiles, walked
-//   as one linear index) with atomic row sums, not one block per point tile
-//   looping over all SV tiles: predicting a couple of thousand points would
-//   give the latter ~16 blocks for 132 SMs.  The price is a summation order
-//   that changes from run to run, as in kernel A.  (The tensor-core tile of
+//   as one linear index) with a slot per row and SV tile, not one block per
+//   point tile looping over all SV tiles: predicting a couple of thousand
+//   points would give the latter ~16 blocks for 132 SMs.  The price is the
+//   slots' bytes and a second launch that sums them, as in kernel A.  (The
+//   tensor-core tile of
 //   the "f32" and "bf16" tiers walks short runs of SV tiles per block
 //   instead, see gram_tc.cuh.)
 //
@@ -68,16 +70,16 @@ namespace {
 template <typename T, int KIND>
 __global__ void __launch_bounds__(kThreads * kThreads)
     gram_matvec_sym_kernel(const T* __restrict__ X, const T* __restrict__ sq,
-                           const T* __restrict__ v, T* __restrict__ out,
-                           int64_t m, int64_t d, int degree, T gamma,
-                           T coef0) {
+                           const T* __restrict__ v, T* __restrict__ ws,
+                           SymPass pass, int64_t m, int64_t d, int degree,
+                           T gamma, T coef0) {
     constexpr int BM = TileEdge<T>::value;
     constexpr int R = BM / kThreads;
     __shared__ Staging<T, BM> staging;
     __shared__ T col_part[kThreads][BM];
 
     int64_t it, jt;
-    upper_triangle_tile(blockIdx.x, it, jt);
+    upper_triangle_tile(pass.first_block() + blockIdx.x, it, jt);
     const int64_t row0 = it * BM;
     const int64_t col0 = jt * BM;
 
@@ -126,7 +128,7 @@ __global__ void __launch_bounds__(kThreads * kThreads)
     for (int a = 0; a < R; ++a) {
         const T total = half_warp_sum(row_sum[a]);
         if (tx == 0 && row_ok[a]) {
-            atomicAdd(&out[row0 + ty + kThreads * a], total);
+            ws[pass.slot(row0 + ty + kThreads * a, jt)] = total;
         }
     }
     if (jt > it) {  // uniform per block
@@ -142,7 +144,7 @@ __global__ void __launch_bounds__(kThreads * kThreads)
                 total += col_part[y][c];
             }
             if (col0 + c < m) {
-                atomicAdd(&out[col0 + c], total);
+                ws[pass.slot(col0 + c, it)] = total;
             }
         }
     }
@@ -153,9 +155,10 @@ __global__ void __launch_bounds__(kThreads * kThreads)
     gram_matvec_rect_kernel(const T* __restrict__ P, const T* __restrict__ S,
                             const T* __restrict__ sq_p,
                             const T* __restrict__ sq_s,
-                            const T* __restrict__ a_s, T* __restrict__ out,
-                            int64_t n_p, int64_t n_s, int64_t d,
-                            int64_t n_stiles, int degree, T gamma, T coef0) {
+                            const T* __restrict__ a_s, T* __restrict__ ws,
+                            int64_t ws_rows, int64_t n_p, int64_t n_s,
+                            int64_t d, int64_t n_stiles, int degree, T gamma,
+                            T coef0) {
     constexpr int BM = TileEdge<T>::value;
     constexpr int R = BM / kThreads;
     __shared__ Staging<T, BM> staging;
@@ -164,6 +167,7 @@ __global__ void __launch_bounds__(kThreads * kThreads)
     const int64_t p = blockIdx.x;
     const int64_t row0 = (p / n_stiles) * BM;
     const int64_t col0 = (p % n_stiles) * BM;
+    T* slot = ws + (p % n_stiles) * ws_rows;
 
     T acc[R][R];
     gram_tile<T, BM>(P, S, n_p, n_s, d, row0, col0, staging, acc);
@@ -199,7 +203,7 @@ __global__ void __launch_bounds__(kThreads * kThreads)
         }
         const T total = half_warp_sum(row_sum);
         if (tx == 0 && row_ok[a]) {
-            atomicAdd(&out[row0 + ty + kThreads * a], total);
+            slot[row0 + ty + kThreads * a] = total;
         }
     }
 }
@@ -207,51 +211,63 @@ __global__ void __launch_bounds__(kThreads * kThreads)
 template <typename T, int KIND>
 cudaError_t launch_sym(const T* X, const T* sq, const T* v, T* out, int64_t m,
                        int64_t d, int degree, T gamma, T coef0,
-                       cudaStream_t stream) {
+                       const Workspace& workspace, cudaStream_t stream) {
     constexpr int BM = TileEdge<T>::value;
-    const int64_t nt = (m + BM - 1) / BM;
-    const int64_t blocks = nt * (nt + 1) / 2;
-    if (blocks <= 0 || blocks > INT32_MAX) {
+    if (m <= 0 || d < 0) {
         return cudaErrorInvalidValue;
     }
-    gram_matvec_sym_kernel<T, KIND>
-        <<<static_cast<unsigned int>(blocks), dim3(kThreads, kThreads), 0,
-           stream>>>(X, sq, v, out, m, d, degree, gamma, coef0);
-    return cudaGetLastError();
+    return run_sym<T>(workspace, m, BM, 1, 1, out, stream,
+                      [&](const SymPass& pass, T* ws) {
+        gram_matvec_sym_kernel<T, KIND>
+            <<<static_cast<unsigned int>(pass.blocks()),
+               dim3(kThreads, kThreads), 0, stream>>>(
+                X, sq, v, ws, pass, m, d, degree, gamma, coef0);
+        return cudaGetLastError();
+    });
 }
 
 template <typename T, int KIND>
 cudaError_t launch_rect(const T* P, const T* S, const T* sq_p, const T* sq_s,
                         const T* a_s, T* out, int64_t n_p, int64_t n_s,
                         int64_t d, int degree, T gamma, T coef0,
-                        cudaStream_t stream) {
+                        const Workspace& workspace, cudaStream_t stream) {
     constexpr int BM = TileEdge<T>::value;
-    const int64_t n_stiles = (n_s + BM - 1) / BM;
-    const int64_t blocks = ((n_p + BM - 1) / BM) * n_stiles;
-    if (blocks <= 0 || blocks > INT32_MAX) {
+    if (n_p <= 0 || n_s <= 0 || d < 0) {
         return cudaErrorInvalidValue;
     }
-    gram_matvec_rect_kernel<T, KIND>
-        <<<static_cast<unsigned int>(blocks), dim3(kThreads, kThreads), 0,
-           stream>>>(P, S, sq_p, sq_s, a_s, out, n_p, n_s, d, n_stiles,
-                     degree, gamma, coef0);
-    return cudaGetLastError();
+    const int64_t n_stiles = (n_s + BM - 1) / BM;
+    return run_rows<T>(
+        workspace, n_p, BM, 1, 0, 1, out, nullptr, stream,
+        [&](int64_t) { return n_stiles; },
+        [&](int64_t row0, int64_t rows, T* ws, T*, int64_t ws_rows) {
+            const int64_t blocks = ((rows + BM - 1) / BM) * n_stiles;
+            if (blocks > INT32_MAX) {
+                return cudaErrorInvalidValue;
+            }
+            gram_matvec_rect_kernel<T, KIND>
+                <<<static_cast<unsigned int>(blocks), dim3(kThreads, kThreads),
+                   0, stream>>>(P + row0 * d, S, sq_p + row0, sq_s, a_s, ws,
+                                ws_rows, rows, n_s, d, n_stiles, degree, gamma,
+                                coef0);
+            return cudaGetLastError();
+        });
 }
 
 template <typename T>
 int sym(const T* X, const T* sq, const T* v, T* out, int64_t m, int64_t d,
-        int kind, int degree, T gamma, T coef0, void* stream) {
+        int kind, int degree, T gamma, T coef0, const Workspace& ws,
+        void* stream) {
     const auto s = static_cast<cudaStream_t>(stream);
     switch (kind) {
         case kPolynomial:
             return launch_sym<T, kPolynomial>(X, sq, v, out, m, d, degree,
-                                              gamma, coef0, s);
+                                              gamma, coef0, ws, s);
         case kRbf:
             return launch_sym<T, kRbf>(X, sq, v, out, m, d, degree, gamma,
-                                       coef0, s);
+                                       coef0, ws, s);
         case kSigmoid:
             return launch_sym<T, kSigmoid>(X, sq, v, out, m, d, degree, gamma,
-                                           coef0, s);
+                                           coef0, ws, s);
         default:
             return cudaErrorInvalidValue;
     }
@@ -260,20 +276,20 @@ int sym(const T* X, const T* sq, const T* v, T* out, int64_t m, int64_t d,
 template <typename T>
 int rect(const T* P, const T* S, const T* sq_p, const T* sq_s,
          const T* a_s, T* out, int64_t n_p, int64_t n_s, int64_t d, int kind,
-         int degree, T gamma, T coef0, void* stream) {
+         int degree, T gamma, T coef0, const Workspace& ws, void* stream) {
     const auto s = static_cast<cudaStream_t>(stream);
     switch (kind) {
         case kPolynomial:
             return launch_rect<T, kPolynomial>(P, S, sq_p, sq_s, a_s, out,
                                                n_p, n_s, d, degree, gamma,
-                                               coef0, s);
+                                               coef0, ws, s);
         case kRbf:
             return launch_rect<T, kRbf>(P, S, sq_p, sq_s, a_s, out, n_p,
-                                        n_s, d, degree, gamma, coef0, s);
+                                        n_s, d, degree, gamma, coef0, ws, s);
         case kSigmoid:
             return launch_rect<T, kSigmoid>(P, S, sq_p, sq_s, a_s, out,
                                             n_p, n_s, d, degree, gamma, coef0,
-                                            s);
+                                            ws, s);
         default:
             return cudaErrorInvalidValue;
     }
@@ -281,23 +297,30 @@ int rect(const T* P, const T* S, const T* sq_p, const T* sq_s,
 
 }  // namespace
 
-// The C interface: every entry point returns the cudaError_t of its launch
-// (0 on success).  out must hold zeros: both kernels accumulate into it.
+// The C interface: every entry point returns the cudaError_t of its
+// launches (0 on success).  out must hold zeros: the sums are added to it.
+// workspace holds *workspace_bytes bytes; a null workspace asks for the
+// bytes the call needs, written to *workspace_bytes, and launches nothing
+// (fixed_sum.cuh).
 
 extern "C" int plssvm_gram_matvec_sym_f32(const float* X, const float* sq,
                                           const float* v, float* out,
                                           int64_t m, int64_t d, int kind,
                                           int degree, float gamma,
-                                          float coef0, void* stream) {
-    return sym<float>(X, sq, v, out, m, d, kind, degree, gamma, coef0, stream);
+                                          float coef0, void* workspace,
+    int64_t* workspace_bytes, void* stream) {
+    return sym<float>(X, sq, v, out, m, d, kind, degree, gamma, coef0,
+        Workspace{workspace, workspace_bytes}, stream);
 }
 
 extern "C" int plssvm_gram_matvec_rect_f32(
     const float* P, const float* S, const float* sq_p, const float* sq_s,
     const float* a_s, float* out, int64_t n_p, int64_t n_s, int64_t d,
-    int kind, int degree, float gamma, float coef0, void* stream) {
+    int kind, int degree, float gamma, float coef0, void* workspace,
+    int64_t* workspace_bytes, void* stream) {
     return rect<float>(P, S, sq_p, sq_s, a_s, out, n_p, n_s, d, kind, degree,
-                       gamma, coef0, stream);
+                       gamma, coef0,
+        Workspace{workspace, workspace_bytes}, stream);
 }
 
 // Kernel A on the tensor-core tile (gram_tc.cuh): X the tier's operand copy
@@ -306,18 +329,22 @@ extern "C" int plssvm_gram_matvec_sym_tf32(const void* X, const float* sq,
                                            const float* v, float* out,
                                            int64_t m, int64_t d_pad,
                                            int kind, int degree, float gamma,
-                                           float coef0, void* stream) {
+                                           float coef0, void* workspace,
+    int64_t* workspace_bytes, void* stream) {
     return tc_sym<Tf32Tier>(X, sq, v, out, m, d_pad, 1, kind, degree, gamma,
-                            coef0, stream);
+                            coef0,
+        Workspace{workspace, workspace_bytes}, stream);
 }
 
 extern "C" int plssvm_gram_matvec_sym_bf16(const void* X, const float* sq,
                                            const float* v, float* out,
                                            int64_t m, int64_t d_pad,
                                            int kind, int degree, float gamma,
-                                           float coef0, void* stream) {
+                                           float coef0, void* workspace,
+    int64_t* workspace_bytes, void* stream) {
     return tc_sym<Bf16Tier>(X, sq, v, out, m, d_pad, 1, kind, degree, gamma,
-                            coef0, stream);
+                            coef0,
+        Workspace{workspace, workspace_bytes}, stream);
 }
 
 // Kernel A at "highest" on the same tile in three TF32 passes: X the split
@@ -326,9 +353,11 @@ extern "C" int plssvm_gram_matvec_sym_tf32x3(const void* X, const float* sq,
                                              const float* v, float* out,
                                              int64_t m, int64_t d_pad,
                                              int kind, int degree, float gamma,
-                                             float coef0, void* stream) {
+                                             float coef0, void* workspace,
+    int64_t* workspace_bytes, void* stream) {
     return tc_sym<Tf32x3Tier>(X, sq, v, out, m, d_pad, 1, kind, degree, gamma,
-                              coef0, stream);
+                              coef0,
+        Workspace{workspace, workspace_bytes}, stream);
 }
 
 // Kernel B on the tensor-core tile (gram_tc.cuh): P and S the tier's
@@ -337,17 +366,21 @@ extern "C" int plssvm_gram_matvec_sym_tf32x3(const void* X, const float* sq,
 extern "C" int plssvm_gram_matvec_rect_tc_tf32(
     const void* P, const void* S, const float* sq_p, const float* sq_s,
     const float* a_s, float* out, int64_t n_p, int64_t n_s, int64_t d_pad,
-    int kind, int degree, float gamma, float coef0, void* stream) {
+    int kind, int degree, float gamma, float coef0, void* workspace,
+    int64_t* workspace_bytes, void* stream) {
     return tc_rect<Tf32Tier>(P, S, sq_p, sq_s, a_s, out, n_p, n_s, d_pad, 1,
-                             kind, degree, gamma, coef0, stream);
+                             kind, degree, gamma, coef0,
+        Workspace{workspace, workspace_bytes}, stream);
 }
 
 extern "C" int plssvm_gram_matvec_rect_tc_bf16(
     const void* P, const void* S, const float* sq_p, const float* sq_s,
     const float* a_s, float* out, int64_t n_p, int64_t n_s, int64_t d_pad,
-    int kind, int degree, float gamma, float coef0, void* stream) {
+    int kind, int degree, float gamma, float coef0, void* workspace,
+    int64_t* workspace_bytes, void* stream) {
     return tc_rect<Bf16Tier>(P, S, sq_p, sq_s, a_s, out, n_p, n_s, d_pad, 1,
-                             kind, degree, gamma, coef0, stream);
+                             kind, degree, gamma, coef0,
+        Workspace{workspace, workspace_bytes}, stream);
 }
 
 // Kernel B at "highest" on the same tile in three TF32 passes: P and S the
@@ -355,9 +388,36 @@ extern "C" int plssvm_gram_matvec_rect_tc_bf16(
 extern "C" int plssvm_gram_matvec_rect_tc_tf32x3(
     const void* P, const void* S, const float* sq_p, const float* sq_s,
     const float* a_s, float* out, int64_t n_p, int64_t n_s, int64_t d_pad,
-    int kind, int degree, float gamma, float coef0, void* stream) {
+    int kind, int degree, float gamma, float coef0, void* workspace,
+    int64_t* workspace_bytes, void* stream) {
     return tc_rect<Tf32x3Tier>(P, S, sq_p, sq_s, a_s, out, n_p, n_s, d_pad, 1,
-                               kind, degree, gamma, coef0, stream);
+                               kind, degree, gamma, coef0,
+        Workspace{workspace, workspace_bytes}, stream);
+}
+
+// The fixed-order sums' counter (fixed_sum.cuh) and the reduction alone:
+// out[e] += ws[e] + ws[stride + e] + ... for e < n, slots in order, on
+// the stream (ops/gram_matvec.py fixed_sum: chip_smoke.py's check and
+// timing of the kernel).
+std::atomic<int64_t>& fixed_sum_launch_count() {
+    static std::atomic<int64_t> count{0};
+    return count;
+}
+
+// The launches since the library was loaded or the last reset; reset 1
+// sets the count to 0 after reading it.
+extern "C" int64_t plssvm_fixed_sum_launches(int reset) {
+    return reset ? fixed_sum_launch_count().exchange(0) : fixed_sum_launch_count().load();
+}
+
+extern "C" int plssvm_fixed_sum_f32(const float* ws, int64_t slots, int64_t stride,
+                                    int64_t n, float* out, void* stream) {
+    return fixed_sum(ws, slots, stride, n, out, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int plssvm_fixed_sum_f64(const double* ws, int64_t slots, int64_t stride,
+                                    int64_t n, double* out, void* stream) {
+    return fixed_sum(ws, slots, stride, n, out, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* plssvm_cuda_error_string(int error) {

@@ -34,7 +34,7 @@
 // 128 tile does 32 flops per operand byte it stages (TF32), so at those
 // rates the operand feed (L2 and HBM), not the tensor cores, is the first
 // limit; the epilogue (the kernel function, then the contraction per class
-// with its atomics) comes second.  What the design does about it:
+// with its partials' slots, fixed_sum.cuh) comes second.  What the design does about it:
 //
 // - The operand feed: the Gram product X_i X_j^T (or P_i S_j^T) takes both
 //   operands K-major, which wgmma reads from shared memory with the
@@ -58,18 +58,18 @@
 //   in exact f32 FFMA as the TPU kernel's row and column contractions, row
 //   partials reduced over the 4 lanes of a quad, column partials over the 8
 //   quads of a warp by a reduce-scatter butterfly (28 shuffles for 32
-//   columns) and over the 8 warps through shared memory; one atomicAdd per
-//   row and class, and off the diagonal one per column and class.
+//   columns) and over the 8 warps through shared memory; one slot store
+//   per row and class, and off the diagonal one per column and class.
 // - The rectangular walk: every (row tile, column tile) of the n_p x n_s
 //   rectangle.  A block takes one row tile and a run of up to kTcMaxRun
 //   consecutive column tiles, streamed through the ring as one sequence of
 //   boxes, so the next tile's first boxes load during this tile's
 //   epilogue.  It keeps its rows' sums of the run in shared memory (the
 //   first kTcRunClasses classes; each row of the tile belongs to one quad,
-//   so no two threads add to one entry) and adds them to the output once,
-//   with one atomicAdd per row and class per run instead of per tile (at
-//   MNIST's width, 10000 points against 60000 SVs, a row would otherwise
-//   take 469 column tiles x 10 classes of atomics).  The run is as long as
+//   so no two threads add to one entry) and stores them in the run's slot
+//   once, one store per row, class and run instead of per tile (at MNIST's
+//   width, 10000 points against 60000 SVs, a row would otherwise take 469
+//   column tiles x 10 classes of slots).  The run is as long as
 //   the grid still gives kTcRunWaves waves of blocks (tc_run_length), so
 //   config 2's 2000 points (16 row tiles x 79 column tiles) take runs of 1
 //   and fill the card.  Timed in interleaved pairs on an H100, these runs
@@ -93,9 +93,9 @@
 //   the symmetric tile's off-diagonal epilogue on every tile.  Its bounds:
 //   2 mr mc d flops at the tier's peak, then the operand feed as above, then
 //   the two-way epilogue: per tile and class 64 FFMAs for the rows and 32
-//   plus the butterfly for the columns a thread, and 128 column atomics
-//   that no run can merge (the columns change from tile to tile; the rows
-//   take one atomic per run).  What the design does about them: the same
+//   plus the butterfly for the columns a thread, and 128 column slot
+//   stores that no run can merge (the columns change from tile to tile;
+//   the rows take one slot per run).  What the design does about them: the same
 //   wgmma product and TMA ring as the other tiles, two blocks an SM at the
 //   one-pass tiers so one block's epilogue overlaps the other's products,
 //   and the class sums in exact f32 FFMA as the TPU kernel's contractions
@@ -397,17 +397,18 @@ __device__ __forceinline__ void grouped_upper_tile(int64_t p, int64_t nt,
     jt = it + q;
 }
 
-// out[r, c] += sum_j k(x_r, x_j) V[j, c] over the upper triangle of tiles,
-// columns mirrored off the diagonal; X arrives through xmap as the tier's
-// operand copy (m rows, its feature axis padded; the "highest" tier's
-// split stack), nk boxes of features.
+// The partials of out[r, c] = sum_j k(x_r, x_j) V[j, c] over the tiles of
+// one pass of the upper triangle (fixed_sum.cuh SymPass), columns mirrored
+// off the diagonal, into their slots of ws; X arrives through xmap as the
+// tier's operand copy (m rows, its feature axis padded; the "highest"
+// tier's split stack), nk boxes of features.
 template <typename Tier, int KIND>
 __global__ void __launch_bounds__(kTcThreads, Tier::kBlocksPerSm)
     gram_tc_sym_kernel(const __grid_constant__ CUtensorMap xmap,
                        const float* __restrict__ sq,
-                       const float* __restrict__ V, float* __restrict__ out,
-                       int64_t m, int64_t C, int nk, int64_t nt, int degree,
-                       float gamma, float coef0) {
+                       const float* __restrict__ V, float* __restrict__ ws,
+                       const SymPass pass, int64_t m, int64_t C, int nk,
+                       int64_t nt, int degree, float gamma, float coef0) {
     extern __shared__ uint8_t tc_ring[];
     __shared__ __align__(8) uint64_t full[kTcStages];
     __shared__ __align__(8) uint64_t empty[kTcStages];
@@ -419,7 +420,7 @@ __global__ void __launch_bounds__(kTcThreads, Tier::kBlocksPerSm)
 
     const int tid = threadIdx.x;
     int64_t it, jt;
-    grouped_upper_tile(blockIdx.x, nt, it, jt);
+    grouped_upper_tile(pass.first_block() + blockIdx.x, nt, it, jt);
     const int64_t row0 = it * kTcEdge;
     const int64_t col0 = jt * kTcEdge;
     const bool off_diagonal = jt > it;  // uniform per block
@@ -559,7 +560,7 @@ __global__ void __launch_bounds__(kTcThreads, Tier::kBlocksPerSm)
                 rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
                 rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
                 if (q == 0 && row_ok[h]) {
-                    atomicAdd(&out[(row0 + rl[h]) * C + c], rs[h]);
+                    ws[pass.slot(row0 + rl[h], jt) + c] = rs[h];
                 }
             }
             if (!off_diagonal) {
@@ -607,7 +608,7 @@ __global__ void __launch_bounds__(kTcThreads, Tier::kBlocksPerSm)
                 for (int w = 0; w < kTcWarps; ++w) {
                     total += col_part[w][tid];
                 }
-                atomicAdd(&out[(col0 + tid) * C + c], total);
+                ws[pass.slot(col0 + tid, it) + c] = total;
             }
             __syncthreads();  // col_part is written again next class
         }
@@ -762,20 +763,22 @@ __device__ __forceinline__ void grouped_rect_run(int64_t p, int64_t n_pt,
     jt0 = (q / w) * run;
 }
 
-// out[r, c] += sum_j k(p_r, s_j) A[j, c] over row tile it and the column
-// tiles [jt0, jt0 + run) of the rectangle; P and S arrive through pmap and
-// smap as the tier's operand copies (n_p and n_s rows, the same padded
-// feature axis; the "highest" tier's split stacks), nk boxes of features
-// per tile.
+// The partial of out[r, c] = sum_j k(p_r, s_j) A[j, c] over row tile it and
+// the column tiles [jt0, jt0 + run) of the rectangle into its slot
+// ws[(q ws_rows + r) C + c] for run q = jt0 / run (fixed_sum.cuh run_rows);
+// P (a band of rows) and S arrive through pmap and smap as the tier's
+// operand copies (n_p and n_s rows, the same padded feature axis; the
+// "highest" tier's split stacks), nk boxes of features per tile.
 template <typename Tier, int KIND>
 __global__ void __launch_bounds__(kTcThreads, Tier::kBlocksPerSm)
     gram_tc_rect_kernel(const __grid_constant__ CUtensorMap pmap,
                         const __grid_constant__ CUtensorMap smap,
                         const float* __restrict__ sq_p,
                         const float* __restrict__ sq_s,
-                        const float* __restrict__ A, float* __restrict__ out,
-                        int n_p, int n_s, int C, int nk, int n_pt, int n_st,
-                        int run, int degree, float gamma, float coef0) {
+                        const float* __restrict__ A, float* __restrict__ ws,
+                        int ws_rows, int n_p, int n_s, int C, int nk, int n_pt,
+                        int n_st, int run, int degree, float gamma,
+                        float coef0) {
     extern __shared__ uint8_t tc_ring[];
     __shared__ __align__(8) uint64_t full[kTcStages];
     __shared__ __align__(8) uint64_t empty[kTcStages];
@@ -792,6 +795,7 @@ __global__ void __launch_bounds__(kTcThreads, Tier::kBlocksPerSm)
     const int tiles = n_st - jt0 < run ? n_st - jt0 : run;
     const int total = tiles * nk;
     const uint32_t ring = (smem_address(tc_ring) + 1023u) & ~1023u;
+    float* const slot = ws + int64_t(jt0 / run) * ws_rows * C;
 
     if (tid == 0) {
         tc_init_barriers(full, empty);
@@ -869,8 +873,10 @@ __global__ void __launch_bounds__(kTcThreads, Tier::kBlocksPerSm)
                         if (c < kTcRunClasses) {
                             row_acc[c][f.rl[h]] += rs[h];
                         } else {
-                            atomicAdd(&out[int64_t(row0 + f.rl[h]) * C + c],
-                                      rs[h]);
+                            // this thread's own slot entry: the run's first
+                            // tile writes it, the others add to it
+                            float& dst = slot[int64_t(row0 + f.rl[h]) * C + c];
+                            dst = g < nk ? rs[h] : dst + rs[h];
                         }
                     }
                 }
@@ -878,14 +884,14 @@ __global__ void __launch_bounds__(kTcThreads, Tier::kBlocksPerSm)
         }
     }
 
-    // the run's row sums, one atomicAdd per row and class
+    // the run's row sums into the run's slot, one store per row and class
     const int rc = C < kTcRunClasses ? C : kTcRunClasses;
     __syncthreads();
     for (int e = tid; e < kTcEdge * rc; e += kTcThreads) {
         const int r = e / rc;
         const int c = e % rc;
         if (row0 + r < n_p) {
-            atomicAdd(&out[int64_t(row0 + r) * C + c], row_acc[c][r]);
+            slot[int64_t(row0 + r) * C + c] = row_acc[c][r];
         }
     }
 }
@@ -956,11 +962,14 @@ __device__ __forceinline__ void tc_col_sums(const float (&acc)[64], float vr0,
     }
 }
 
-// out_r[r, c] += sum_j k(xr_r, xc_j) Vc[j, c] and out_c[j, c] += sum_r
-// k(xr_r, xc_j) Vr[r, c] over row tile it and the column tiles [jt0, jt0 +
-// run) of the mr x mc block: the rect tile's walk with both contractions.
-// Xr and Xc arrive through rmap and cmap as the tier's operand copies (mr
-// and mc rows, the same padded feature axis), nk boxes of features per tile.
+// The partials of out_r[r, c] = sum_j k(xr_r, xc_j) Vc[j, c] over row tile
+// it and the column tiles [jt0, jt0 + run) of the mr x mc block, into
+// ws_r[(q ws_rows + r) C + c] for run q = jt0 / run, and of out_c[j, c] =
+// sum_r k(xr_r, xc_j) Vr[r, c] over each of those tiles, into ws_c[(it mc +
+// j) C + c] (fixed_sum.cuh run_rows): the rect tile's walk with both
+// contractions.  Xr (a band of rows) and Xc arrive through rmap and cmap as
+// the tier's operand copies (mr and mc rows, the same padded feature axis),
+// nk boxes of features per tile.
 template <typename Tier, int KIND>
 __global__ void __launch_bounds__(kTcThreads, Tier::kBlocksPerSm)
     gram_tc_dual_kernel(const __grid_constant__ CUtensorMap rmap,
@@ -969,9 +978,10 @@ __global__ void __launch_bounds__(kTcThreads, Tier::kBlocksPerSm)
                         const float* __restrict__ sq_c,
                         const float* __restrict__ Vc,
                         const float* __restrict__ Vr,
-                        float* __restrict__ out_r, float* __restrict__ out_c,
-                        int mr, int mc, int C, int nk, int n_rt, int n_ct,
-                        int run, int degree, float gamma, float coef0) {
+                        float* __restrict__ ws_r, float* __restrict__ ws_c,
+                        int ws_rows, int mr, int mc, int C, int nk, int n_rt,
+                        int n_ct, int run, int degree, float gamma,
+                        float coef0) {
     extern __shared__ uint8_t tc_ring[];
     __shared__ TcDualShared sh;
 
@@ -983,6 +993,8 @@ __global__ void __launch_bounds__(kTcThreads, Tier::kBlocksPerSm)
     const int tiles = n_ct - jt0 < run ? n_ct - jt0 : run;
     const int total = tiles * nk;
     const uint32_t ring = (smem_address(tc_ring) + 1023u) & ~1023u;
+    float* const slot_r = ws_r + int64_t(jt0 / run) * ws_rows * C;
+    float* const slot_c = ws_c + it64 * mc * C;
 
     if (tid == 0) {
         tc_init_barriers(sh.full, sh.empty);
@@ -1070,8 +1082,10 @@ __global__ void __launch_bounds__(kTcThreads, Tier::kBlocksPerSm)
                         if (c < kTcDualRunClasses) {
                             sh.row_acc[c][f.rl[h]] += rs[h];
                         } else {
-                            atomicAdd(&out_r[int64_t(row0 + f.rl[h]) * C + c],
-                                      rs[h]);
+                            // this thread's own slot entry: the run's first
+                            // tile writes it, the others add to it
+                            float& dst = slot_r[int64_t(row0 + f.rl[h]) * C + c];
+                            dst = g < nk ? rs[h] : dst + rs[h];
                         }
                     }
                 }
@@ -1084,7 +1098,7 @@ __global__ void __launch_bounds__(kTcThreads, Tier::kBlocksPerSm)
                     for (int w = 0; w < kTcWarps; ++w) {
                         sum += sh.col_part[w][tid];
                     }
-                    atomicAdd(&out_c[int64_t(col0 + tid) * C + c], sum);
+                    slot_c[int64_t(col0 + tid) * C + c] = sum;
                 }
                 // col_part, and after a chunk's last class the V rows, are
                 // written again
@@ -1093,14 +1107,14 @@ __global__ void __launch_bounds__(kTcThreads, Tier::kBlocksPerSm)
         }
     }
 
-    // the run's row sums, one atomicAdd per row and class; the last class's
-    // closing barrier made them visible
+    // the run's row sums into the run's slot, one store per row and class;
+    // the last class's closing barrier made them visible
     const int rc = C < kTcDualRunClasses ? C : kTcDualRunClasses;
     for (int e = tid; e < kTcEdge * rc; e += kTcThreads) {
         const int r = e / rc;
         const int c = e % rc;
         if (row0 + r < mr) {
-            atomicAdd(&out_r[int64_t(row0 + r) * C + c], sh.row_acc[c][r]);
+            slot_r[int64_t(row0 + r) * C + c] = sh.row_acc[c][r];
         }
     }
 }
@@ -1114,12 +1128,14 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
 
 // The TMA descriptor of an operand copy X (m, d_pad), boxes of 128 rows x
 // 128 bytes in the 128-byte swizzle, zero fill past the edges; for a
-// split tier the 3-D map over the (2, m, d_pad) stack, boxes of one part.
-// cuTensorMapEncodeTiled comes through the runtime's entry-point query, so
-// the library links the CUDA runtime alone (no -lcuda).
+// split tier the 3-D map over the (2, m, d_pad) stack, boxes of one part,
+// whose parts lie part_rows rows apart (m, or the whole stack's rows when
+// X is a band of it).  cuTensorMapEncodeTiled comes through the runtime's
+// entry-point query, so the library links the CUDA runtime alone (no
+// -lcuda).
 template <typename Tier>
 cudaError_t encode_operand(CUtensorMap* map, const void* X, int64_t m,
-                           int64_t d_pad) {
+                           int64_t d_pad, int64_t part_rows = -1) {
     static EncodeTiled encode = nullptr;
     if (encode == nullptr) {
         void* fn = nullptr;
@@ -1144,7 +1160,8 @@ cudaError_t encode_operand(CUtensorMap* map, const void* X, int64_t m,
                                 static_cast<cuuint64_t>(m), 2};
     const cuuint64_t strides[2] = {
         static_cast<cuuint64_t>(d_pad) * Tier::kItemSize,
-        static_cast<cuuint64_t>(m) * static_cast<cuuint64_t>(d_pad) * Tier::kItemSize};
+        static_cast<cuuint64_t>(part_rows < 0 ? m : part_rows) *
+            static_cast<cuuint64_t>(d_pad) * Tier::kItemSize};
     const cuuint32_t box[3] = {static_cast<cuuint32_t>(Tier::kFeatures),
                                static_cast<cuuint32_t>(kTcEdge), 1};
     const cuuint32_t steps[3] = {1, 1, 1};
@@ -1174,32 +1191,38 @@ cudaError_t tc_allow_ring(Kernel kernel, int bytes = kTcSmemBytes) {
                                 bytes);
 }
 
+// Kernels A (C = 1) and C on the symmetric tile, in the passes of
+// sym_plan (column tiles in steps of kTcGroup, the raster's groups).
 template <typename Tier, int KIND>
 cudaError_t launch_tc_sym(const void* X, const float* sq, const float* V,
                           float* out, int64_t m, int64_t d_pad, int64_t C,
                           int degree, float gamma, float coef0,
-                          cudaStream_t stream) {
+                          const Workspace& workspace, cudaStream_t stream) {
     const int64_t nt = (m + kTcEdge - 1) / kTcEdge;
-    const int64_t blocks = nt * (nt + 1) / 2;
     const int64_t nk = (d_pad + Tier::kFeatures - 1) / Tier::kFeatures;
-    if (blocks <= 0 || blocks > INT32_MAX || C <= 0 || nk <= 0 ||
+    if (nt <= 0 || C <= 0 || nk <= 0 || nk > INT32_MAX ||
         !tma_operand_ok<Tier>(X, m, d_pad)) {
         return cudaErrorInvalidValue;
     }
     CUtensorMap map;
-    cudaError_t err = encode_operand<Tier>(&map, X, m, d_pad);
-    if (err != cudaSuccess) {
-        return err;
-    }
     auto kernel = gram_tc_sym_kernel<Tier, KIND>;
-    err = tc_allow_ring(kernel, tc_smem_bytes<Tier>());
-    if (err != cudaSuccess) {
-        return err;
+    if (workspace.base != nullptr) {
+        cudaError_t err = encode_operand<Tier>(&map, X, m, d_pad);
+        if (err == cudaSuccess) {
+            err = tc_allow_ring(kernel, tc_smem_bytes<Tier>());
+        }
+        if (err != cudaSuccess) {
+            return err;
+        }
     }
-    kernel<<<static_cast<unsigned int>(blocks), kTcThreads, tc_smem_bytes<Tier>(),
-             stream>>>(map, sq, V, out, m, C, static_cast<int>(nk), nt,
-                       degree, gamma, coef0);
-    return cudaGetLastError();
+    return run_sym<float>(workspace, m, kTcEdge, kTcGroup, C, out, stream,
+                          [&](const SymPass& pass, float* ws) {
+        kernel<<<static_cast<unsigned int>(pass.blocks()), kTcThreads,
+                 tc_smem_bytes<Tier>(), stream>>>(
+            map, sq, V, ws, pass, m, C, static_cast<int>(nk), nt, degree,
+            gamma, coef0);
+        return cudaGetLastError();
+    });
 }
 
 // The rect tile's run for ``tiles`` tiles: the longest, up to kTcMaxRun,
@@ -1220,10 +1243,26 @@ inline cudaError_t tc_run_length(int64_t tiles, int per_sm, int64_t& run) {
     return cudaSuccess;
 }
 
+// The runs a row tile of the rect and dual tiles walks over n_c columns,
+// for n_r rows: the row partners of fixed_sum.cuh's slots (0 when the
+// device cannot be asked).
+template <typename Tier>
+int64_t tc_runs(int64_t n_r, int64_t n_c) {
+    const int64_t n_rt = (n_r + kTcEdge - 1) / kTcEdge;
+    const int64_t n_ct = (n_c + kTcEdge - 1) / kTcEdge;
+    int64_t run = 0;
+    if (tc_run_length(n_rt * n_ct, Tier::kBlocksPerSm, run) != cudaSuccess) {
+        return 0;
+    }
+    run = run < n_ct ? run : n_ct;
+    return (n_ct + run - 1) / run;
+}
+
 // The grid of the rect and dual tiles over the n_r x n_c rectangle of rows
-// R and columns S (the tier's operand copies): the tensor maps of both, nk
-// boxes of features, runs of tc_run_length's length (at most the n_ct
-// column tiles) and n_rt x ceil(n_ct / run) blocks.  Every count fits the
+// R and columns S (the tier's operand copies; R a band of r_part_rows
+// rows' split stack at "highest"): the tensor maps of both, nk boxes of
+// features, runs of tc_run_length's length (at most the n_ct column
+// tiles) and n_rt x ceil(n_ct / run) blocks.  Every count fits the
 // kernels' 32-bit arguments.
 struct TcRectGrid {
     CUtensorMap rmap;
@@ -1235,7 +1274,7 @@ struct TcRectGrid {
 template <typename Tier>
 cudaError_t tc_rect_grid(const void* R, const void* S, int64_t n_r,
                          int64_t n_c, int64_t d_pad, int64_t C,
-                         TcRectGrid& grid) {
+                         int64_t r_part_rows, TcRectGrid& grid) {
     const int64_t n_rt = (n_r + kTcEdge - 1) / kTcEdge;
     const int64_t n_ct = (n_c + kTcEdge - 1) / kTcEdge;
     const int64_t nk = (d_pad + Tier::kFeatures - 1) / Tier::kFeatures;
@@ -1259,61 +1298,96 @@ cudaError_t tc_rect_grid(const void* R, const void* S, int64_t n_r,
     grid.nk = static_cast<int>(nk);
     grid.run = static_cast<int>(run);
     grid.blocks = static_cast<unsigned int>(blocks);
-    err = encode_operand<Tier>(&grid.rmap, R, n_r, d_pad);
+    err = encode_operand<Tier>(&grid.rmap, R, n_r, d_pad, r_part_rows);
     if (err == cudaSuccess) {
         err = encode_operand<Tier>(&grid.cmap, S, n_c, d_pad);
     }
     return err;
 }
 
+// Row ``row0`` of the tier's operand copy R (rows x d_pad).
+template <typename Tier>
+const void* tc_band(const void* R, int64_t row0, int64_t d_pad) {
+    return static_cast<const uint8_t*>(R) + row0 * d_pad * Tier::kItemSize;
+}
+
+// Kernels B (C = 1) and D on the rect tile, in the row bands of run_rows.
 template <typename Tier, int KIND>
 cudaError_t launch_tc_rect(const void* P, const void* S, const float* sq_p,
                            const float* sq_s, const float* A, float* out,
                            int64_t n_p, int64_t n_s, int64_t d_pad, int64_t C,
                            int degree, float gamma, float coef0,
-                           cudaStream_t stream) {
-    TcRectGrid grid;
-    cudaError_t err = tc_rect_grid<Tier>(P, S, n_p, n_s, d_pad, C, grid);
-    if (err != cudaSuccess) {
-        return err;
+                           const Workspace& workspace, cudaStream_t stream) {
+    if (n_p <= 0 || n_s <= 0 || C <= 0 || C > INT32_MAX) {
+        return cudaErrorInvalidValue;
     }
     auto kernel = gram_tc_rect_kernel<Tier, KIND>;
-    err = tc_allow_ring(kernel, tc_smem_bytes<Tier>());
-    if (err != cudaSuccess) {
-        return err;
+    if (workspace.base != nullptr) {
+        const cudaError_t err = tc_allow_ring(kernel, tc_smem_bytes<Tier>());
+        if (err != cudaSuccess) {
+            return err;
+        }
     }
-    kernel<<<grid.blocks, kTcThreads, tc_smem_bytes<Tier>(), stream>>>(
-        grid.rmap, grid.cmap, sq_p, sq_s, A, out, static_cast<int>(n_p),
-        static_cast<int>(n_s), static_cast<int>(C), grid.nk, grid.n_rt,
-        grid.n_ct, grid.run, degree, gamma, coef0);
-    return cudaGetLastError();
+    return run_rows<float>(
+        workspace, n_p, kTcEdge, C, 0, 1, out, nullptr, stream,
+        [&](int64_t rows) { return tc_runs<Tier>(rows, n_s); },
+        [&](int64_t row0, int64_t rows, float* ws, float*, int64_t ws_rows) {
+            TcRectGrid grid;
+            cudaError_t err = tc_rect_grid<Tier>(tc_band<Tier>(P, row0, d_pad),
+                                                 S, rows, n_s, d_pad, C, n_p,
+                                                 grid);
+            if (err != cudaSuccess) {
+                return err;
+            }
+            kernel<<<grid.blocks, kTcThreads, tc_smem_bytes<Tier>(), stream>>>(
+                grid.rmap, grid.cmap, sq_p + row0, sq_s, A, ws,
+                static_cast<int>(ws_rows), static_cast<int>(rows),
+                static_cast<int>(n_s), static_cast<int>(C), grid.nk, grid.n_rt,
+                grid.n_ct, grid.run, degree, gamma, coef0);
+            return cudaGetLastError();
+        });
 }
 
 // Kernels J (C = 1) and K on the dual tile: Xr (mr, d_pad) and Xc (mc,
 // d_pad) the tier's operand copies, sq_r / sq_c the float32 operands'
-// norms, Vc (mc, C) and Vr (mr, C) row-major; out_r (mr, C) and out_c (mc,
-// C) accumulate.
+// norms, Vc (mc, C) and Vr (mr, C) row-major; the sums are added to out_r
+// (mr, C) and out_c (mc, C), in the row bands of run_rows.
 template <typename Tier, int KIND>
 cudaError_t launch_tc_dual(const void* Xr, const void* Xc, const float* sq_r,
                            const float* sq_c, const float* Vc, const float* Vr,
                            float* out_r, float* out_c, int64_t mr, int64_t mc,
                            int64_t d_pad, int64_t C, int degree, float gamma,
-                           float coef0, cudaStream_t stream) {
-    TcRectGrid grid;
-    cudaError_t err = tc_rect_grid<Tier>(Xr, Xc, mr, mc, d_pad, C, grid);
-    if (err != cudaSuccess) {
-        return err;
+                           float coef0, const Workspace& workspace,
+                           cudaStream_t stream) {
+    if (mr <= 0 || mc <= 0 || C <= 0 || C > INT32_MAX) {
+        return cudaErrorInvalidValue;
     }
     auto kernel = gram_tc_dual_kernel<Tier, KIND>;
-    err = tc_allow_ring(kernel, tc_smem_bytes<Tier>());
-    if (err != cudaSuccess) {
-        return err;
+    if (workspace.base != nullptr) {
+        const cudaError_t err = tc_allow_ring(kernel, tc_smem_bytes<Tier>());
+        if (err != cudaSuccess) {
+            return err;
+        }
     }
-    kernel<<<grid.blocks, kTcThreads, tc_smem_bytes<Tier>(), stream>>>(
-        grid.rmap, grid.cmap, sq_r, sq_c, Vc, Vr, out_r, out_c,
-        static_cast<int>(mr), static_cast<int>(mc), static_cast<int>(C),
-        grid.nk, grid.n_rt, grid.n_ct, grid.run, degree, gamma, coef0);
-    return cudaGetLastError();
+    return run_rows<float>(
+        workspace, mr, kTcEdge, C, mc, 1, out_r, out_c, stream,
+        [&](int64_t rows) { return tc_runs<Tier>(rows, mc); },
+        [&](int64_t row0, int64_t rows, float* ws_r, float* ws_c,
+            int64_t ws_rows) {
+            TcRectGrid grid;
+            cudaError_t err = tc_rect_grid<Tier>(tc_band<Tier>(Xr, row0, d_pad),
+                                                 Xc, rows, mc, d_pad, C, mr,
+                                                 grid);
+            if (err != cudaSuccess) {
+                return err;
+            }
+            kernel<<<grid.blocks, kTcThreads, tc_smem_bytes<Tier>(), stream>>>(
+                grid.rmap, grid.cmap, sq_r + row0, sq_c, Vc, Vr + row0 * C,
+                ws_r, ws_c, static_cast<int>(ws_rows), static_cast<int>(rows),
+                static_cast<int>(mc), static_cast<int>(C), grid.nk, grid.n_rt,
+                grid.n_ct, grid.run, degree, gamma, coef0);
+            return cudaGetLastError();
+        });
 }
 
 // How many blocks of the dual tile an SM holds at once (the tile is
@@ -1357,10 +1431,10 @@ int tc_dispatch(bool bf16, int kind, const Launch& launch) {
 template <typename Tier>
 int tc_sym(const void* X, const float* sq, const float* V, float* out,
            int64_t m, int64_t d_pad, int64_t C, int kind, int degree,
-           float gamma, float coef0, void* stream) {
+           float gamma, float coef0, const Workspace& ws, void* stream) {
     return tc_dispatch_kind<Tier>(kind, [&](auto tier, auto k) {
         return launch_tc_sym<decltype(tier), decltype(k)::value>(
-            X, sq, V, out, m, d_pad, C, degree, gamma, coef0,
+            X, sq, V, out, m, d_pad, C, degree, gamma, coef0, ws,
             static_cast<cudaStream_t>(stream));
     });
 }
@@ -1369,11 +1443,11 @@ template <typename Tier>
 int tc_rect(const void* P, const void* S, const float* sq_p, const float* sq_s,
             const float* A, float* out, int64_t n_p, int64_t n_s,
             int64_t d_pad, int64_t C, int kind, int degree, float gamma,
-            float coef0, void* stream) {
+            float coef0, const Workspace& ws, void* stream) {
     return tc_dispatch_kind<Tier>(kind, [&](auto tier, auto k) {
         return launch_tc_rect<decltype(tier), decltype(k)::value>(
             P, S, sq_p, sq_s, A, out, n_p, n_s, d_pad, C, degree, gamma, coef0,
-            static_cast<cudaStream_t>(stream));
+            ws, static_cast<cudaStream_t>(stream));
     });
 }
 
@@ -1381,11 +1455,12 @@ template <typename Tier>
 int tc_dual(const void* Xr, const void* Xc, const float* sq_r,
             const float* sq_c, const float* Vc, const float* Vr, float* out_r,
             float* out_c, int64_t mr, int64_t mc, int64_t d_pad, int64_t C,
-            int kind, int degree, float gamma, float coef0, void* stream) {
+            int kind, int degree, float gamma, float coef0, const Workspace& ws,
+            void* stream) {
     return tc_dispatch_kind<Tier>(kind, [&](auto tier, auto k) {
         return launch_tc_dual<decltype(tier), decltype(k)::value>(
             Xr, Xc, sq_r, sq_c, Vc, Vr, out_r, out_c, mr, mc, d_pad, C, degree,
-            gamma, coef0, static_cast<cudaStream_t>(stream));
+            gamma, coef0, ws, static_cast<cudaStream_t>(stream));
     });
 }
 

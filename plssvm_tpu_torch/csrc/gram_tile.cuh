@@ -18,6 +18,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "fixed_sum.cuh"
+
 namespace {
 
 constexpr int kPolynomial = 1;  // KernelFunctionType values (parameter.py)
@@ -563,21 +565,26 @@ __device__ __forceinline__ void stage_classes(const T* __restrict__ V,
 }
 
 // The class loop of the symmetric block matmats (kernels C and G): with the
-// kernel tile kv in registers, out[r, c] += sum_j kv[r][j] V[j, c] for the
-// tile's rows and, off the diagonal, out[j, c] += sum_r kv[r][j] V[r, c] for
-// its columns, for every class c.  V and out are (m, C) row-major; the V
-// rows of both tiles are staged kClassChunk classes at a time in v_cols /
-// v_rows, the column partials are reduced through col_part.
+// kernel tile kv in registers of tile (it, jt), the partials
+// sum_j kv[r][j] V[j, c] of the tile's rows and, off the diagonal,
+// sum_r kv[r][j] V[r, c] of its columns, for every class c, into their
+// slots of the pass (fixed_sum.cuh: row r's partial from partner jt, column
+// j's from partner it).  V is (m, C) row-major; the V rows of both tiles
+// are staged kClassChunk classes at a time in v_cols / v_rows, the column
+// partials are reduced through col_part.
 template <typename T, int BM>
 __device__ __forceinline__ void sym_class_loop(
     const T (&kv)[BM / kThreads][BM / kThreads], const T* __restrict__ V,
-    T* __restrict__ out, int64_t m, int64_t C, int64_t row0, int64_t col0,
-    bool off_diagonal, T (*v_cols)[BM + 1], T (*v_rows)[BM + 1],
+    T* __restrict__ ws, const SymPass& pass, int64_t m, int64_t C,
+    int64_t it, int64_t jt, T (*v_cols)[BM + 1], T (*v_rows)[BM + 1],
     T (*col_part)[BM]) {
     constexpr int R = BM / kThreads;
     const int tx = threadIdx.x;
     const int ty = threadIdx.y;
     const int tid = ty * kThreads + tx;
+    const int64_t row0 = it * BM;
+    const int64_t col0 = jt * BM;
+    const bool off_diagonal = jt > it;  // uniform per block
     for (int64_t c0 = 0; c0 < C; c0 += kClassChunk) {
         const int cn = static_cast<int>(
             C - c0 < kClassChunk ? C - c0 : kClassChunk);
@@ -604,7 +611,7 @@ __device__ __forceinline__ void sym_class_loop(
                 const T total = half_warp_sum(row_sum);
                 const int64_t r = row0 + ty + kThreads * a;
                 if (tx == 0 && r < m) {
-                    atomicAdd(&out[r * C + c], total);
+                    ws[pass.slot(r, jt) + c] = total;
                 }
             }
             if (off_diagonal) {
@@ -630,7 +637,7 @@ __device__ __forceinline__ void sym_class_loop(
                         total += col_part[y][j];
                     }
                     if (col0 + j < m) {
-                        atomicAdd(&out[(col0 + j) * C + c], total);
+                        ws[pass.slot(col0 + j, it) + c] = total;
                     }
                 }
                 __syncthreads();  // col_part is written again next class
@@ -639,17 +646,19 @@ __device__ __forceinline__ void sym_class_loop(
     }
 }
 
-// The class loop of the rectangular block matmats (kernels D and H):
-// out[r, c] += sum_j kv[r][j] A[j, c] for the point tile's rows, A (n_s, C)
-// staged kClassChunk classes at a time in a_cols.
+// The class loop of the rectangular block matmats (kernels D and H): the
+// partials sum_j kv[r][j] A[j, c] of the point tile's rows into their
+// slots ws[(q ws_rows + r) C + c], q the SV tile; A (n_s, C) staged
+// kClassChunk classes at a time in a_cols.
 template <typename T, int BM>
 __device__ __forceinline__ void rect_class_loop(
     const T (&kv)[BM / kThreads][BM / kThreads], const T* __restrict__ A,
-    T* __restrict__ out, int64_t n_p, int64_t n_s, int64_t C, int64_t row0,
-    int64_t col0, T (*a_cols)[BM + 1]) {
+    T* __restrict__ ws, int64_t ws_rows, int64_t n_p, int64_t n_s, int64_t C,
+    int64_t row0, int64_t col0, T (*a_cols)[BM + 1]) {
     constexpr int R = BM / kThreads;
     const int tx = threadIdx.x;
     const int ty = threadIdx.y;
+    T* slot = ws + (col0 / BM) * ws_rows * C;
     for (int64_t c0 = 0; c0 < C; c0 += kClassChunk) {
         const int cn = static_cast<int>(
             C - c0 < kClassChunk ? C - c0 : kClassChunk);
@@ -673,7 +682,7 @@ __device__ __forceinline__ void rect_class_loop(
                 const T total = half_warp_sum(row_sum);
                 const int64_t r = row0 + ty + kThreads * a;
                 if (tx == 0 && r < n_p) {
-                    atomicAdd(&out[r * C + c], total);
+                    slot[r * C + c] = total;
                 }
             }
         }

@@ -139,6 +139,8 @@ _PAIRS_REDUCE = re.compile(r"(pairs_reduce)_kernelI([fd])Li(\d+)E")
 #: of the kind in float64
 _PAIRS_TC = re.compile(r"(pairs_tc)_kernelI\w*?(Tf32|Bf16)TierELi(\d)E")
 _PAIRS_DMMA = re.compile(r"(pairs_dmma)_kernelILi(\d)E")
+#: the fixed-order sums of the walks' slots (fixed_sum.cuh), of the type
+_FIXED_SUM = re.compile(r"(fixed_sum)_kernelI([fd])E")
 _KINDS = {"1": "poly", "2": "rbf", "3": "sigmoid", "4": "laplacian", "5": "chi_squared"}
 
 
@@ -164,6 +166,7 @@ def kernel_resources() -> Dict[str, Dict[str, int]]:
             pairs_tc = _PAIRS_TC.search(entry.group(1))
             pairs_dmma = _PAIRS_DMMA.search(entry.group(1))
             pairs_reduce = _PAIRS_REDUCE.search(entry.group(1))
+            fixed_sum = _FIXED_SUM.search(entry.group(1))
             name = None
             if short is not None:
                 # kernel I (banded_matvec) is laplacian only: no kind parameter
@@ -196,6 +199,9 @@ def kernel_resources() -> Dict[str, Dict[str, int]]:
                 name = (f"{pairs_reduce.group(1)} "
                         f"{'f32' if pairs_reduce.group(2) == 'f' else 'f64'} "
                         f"edge {pairs_reduce.group(3)}")
+            elif fixed_sum is not None:
+                # one copy per source that includes fixed_sum.cuh
+                name = f"fixed_sum {'f32' if fixed_sum.group(2) == 'f' else 'f64'}"
             elif dual is not None:
                 family = "gram" if dual.group(3) in "123" else "distance"
                 name = (f"{family}_{dual.group(1)}_dual "
@@ -224,12 +230,16 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     ptr, i64, cint = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     f32, f64 = ctypes.c_float, ctypes.c_double
+    # every product with sums across blocks ends in (workspace,
+    # int64_t* workspace_bytes, stream): ops/gram_matvec.py call_entry
+    ws = [ptr, ptr]
     # kernels A-D on the FFMA tile (gram_matvec.gram_ffma) and the FFMA
     # walks of J and K, float32 only (float64 takes the DMMA tiles): (X, sq, v / V, out, m, d, [C,]
     # ...), (P, S, sq_p, sq_s, a / A, out, n_p, n_s, d, [C,] ...), (Xr, Xc,
     # sq_r, sq_c, v_c / V_c, v_r / V_r, out_r, out_c, mr, mc, d, [C,] ...),
-    # each ending in (kind, degree, gamma, coef0, stream)
-    tail = [cint, cint, f32, f32, ptr]
+    # each ending in (kind, degree, gamma, coef0, workspace, workspace_bytes,
+    # stream)
+    tail = [cint, cint, f32, f32] + ws + [ptr]
     lib.plssvm_gram_matvec_sym_f32.argtypes = [ptr] * 4 + [i64] * 2 + tail
     lib.plssvm_gram_matmat_sym_f32.argtypes = [ptr] * 4 + [i64] * 3 + tail
     lib.plssvm_gram_matvec_rect_f32.argtypes = [ptr] * 6 + [i64] * 3 + tail
@@ -240,7 +250,8 @@ def load() -> ctypes.CDLL:
                  "matmat_dual"):
         getattr(lib, f"plssvm_gram_{name}_f32").restype = cint
     for suffix, real in (("f32", f32), ("f64", f64)):
-        # kernels E-H: (operands..., out, sizes..., kind, gamma, stream)
+        # kernels E-H: (operands..., out, sizes..., kind, gamma, workspace,
+        # workspace_bytes, stream)
         for name, n_operands, n_sizes in (
             ("matvec_sym", 2, 2),    # X, v; m, d
             ("matvec_rect", 3, 3),   # P, S, a; n_p, n_s, d
@@ -248,69 +259,73 @@ def load() -> ctypes.CDLL:
             ("matmat_rect", 3, 4),   # P, S, A; n_p, n_s, d, C
         ):
             fn = getattr(lib, f"plssvm_distance_{name}_{suffix}")
-            fn.argtypes = [ptr] * (n_operands + 1) + [i64] * n_sizes + [cint, real, ptr]
+            fn.argtypes = [ptr] * (n_operands + 1) + [i64] * n_sizes + [cint, real] + ws + [ptr]
             fn.restype = cint
-        # kernel I: (XT, v, out_r, out_c, m, d, symmetric, gamma, stream)
+        # kernel I: (XT, v, out_r, out_c, m, d, symmetric, gamma, workspace,
+        # workspace_bytes, stream)
         banded = getattr(lib, f"plssvm_banded_matvec_{suffix}")
-        banded.argtypes = [ptr] * 4 + [i64, i64, cint, real, ptr]
+        banded.argtypes = [ptr] * 4 + [i64, i64, cint, real] + ws + [ptr]
         banded.restype = cint
         # kernels L and M (the distance dual walks): (Xr, Xc, v_c / V_c,
-        # v_r / V_r, out_r, out_c, mr, mc, d, [C,] kind, gamma, stream)
+        # v_r / V_r, out_r, out_c, mr, mc, d, [C,] kind, gamma, workspace,
+        # workspace_bytes, stream)
         for op, n_sizes in (("matvec", 3), ("matmat", 4)):
             fn = getattr(lib, f"plssvm_distance_{op}_dual_{suffix}")
-            fn.argtypes = [ptr] * 6 + [i64] * n_sizes + [cint, real, ptr]
+            fn.argtypes = [ptr] * 6 + [i64] * n_sizes + [cint, real] + ws + [ptr]
             fn.restype = cint
     for tier in ("tf32", "bf16", "tf32x3"):
         # kernels A and C on the tensor-core tile: (X copy, sq, v / V, out,
-        # m, d_pad, [C,] kind, degree, gamma, coef0, stream); tf32x3 (the
-        # "highest" tier) takes the split stack (2, m, d_pad)
+        # m, d_pad, [C,] kind, degree, gamma, coef0, workspace,
+        # workspace_bytes, stream); tf32x3 (the "highest" tier) takes the
+        # split stack (2, m, d_pad)
         getattr(lib, f"plssvm_gram_matvec_sym_{tier}").argtypes = [
-            ptr, ptr, ptr, ptr, i64, i64, cint, cint, f32, f32, ptr,
-        ]
+            ptr, ptr, ptr, ptr, i64, i64, cint, cint, f32, f32] + ws + [ptr]
         getattr(lib, f"plssvm_gram_matmat_sym_{tier}").argtypes = [
-            ptr, ptr, ptr, ptr, i64, i64, i64, cint, cint, f32, f32, ptr,
-        ]
+            ptr, ptr, ptr, ptr, i64, i64, i64, cint, cint, f32, f32] + ws + [ptr]
         # kernels B and D: (P copy, S copy, sq_p, sq_s, a / A, out, n_p, n_s,
-        # d_pad, [C,] kind, degree, gamma, coef0, stream)
+        # d_pad, [C,] kind, degree, gamma, coef0, workspace, workspace_bytes,
+        # stream)
         getattr(lib, f"plssvm_gram_matvec_rect_tc_{tier}").argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, cint, cint, f32, f32,
-            ptr,
-        ]
+        ] + ws + [ptr]
         getattr(lib, f"plssvm_gram_matmat_rect_tc_{tier}").argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, cint, cint, f32,
-            f32, ptr,
-        ]
+            f32] + ws + [ptr]
         for name in ("matvec_sym", "matmat_sym", "matvec_rect_tc", "matmat_rect_tc"):
             getattr(lib, f"plssvm_gram_{name}_{tier}").restype = cint
     for tier in ("tf32", "bf16", "tf32x3"):
         # kernels J and K: (Xr copy, Xc copy, sq_r, sq_c, v_c / V_c, v_r /
         # V_r, out_r, out_c, mr, mc, d_pad, [C,] kind, degree, gamma, coef0,
-        # stream); at tf32x3 (the "highest" tier) K alone, on the split
-        # stacks (2, mr, d_pad) and (2, mc, d_pad)
+        # workspace, workspace_bytes, stream); at tf32x3 (the "highest"
+        # tier) K alone, on the split stacks (2, mr, d_pad) and (2, mc,
+        # d_pad)
         names = ("matmat_dual_tc",) if tier == "tf32x3" else ("matvec_dual_tc",
                                                                "matmat_dual_tc")
         for name in names:
             fn = getattr(lib, f"plssvm_gram_{name}_{tier}")
             fn.argtypes = [ptr] * 8 + [i64] * (3 if name.startswith("matvec") else 4) + [
-                cint, cint, f32, f32, ptr]
+                cint, cint, f32, f32] + ws + [ptr]
             fn.restype = cint
     # kernels A and C on the DMMA tile, float64: (X, sq, v / V, out, m,
-    # d_pad, [C,] kind, degree, gamma, coef0, stream)
-    lib.plssvm_gram_matvec_sym_dmma.argtypes = [ptr] * 4 + [i64] * 2 + [cint, cint, f64, f64, ptr]
-    lib.plssvm_gram_matmat_sym_dmma.argtypes = [ptr] * 4 + [i64] * 3 + [cint, cint, f64, f64, ptr]
+    # d_pad, [C,] kind, degree, gamma, coef0, workspace, workspace_bytes,
+    # stream)
+    dmma_tail = [cint, cint, f64, f64] + ws + [ptr]
+    lib.plssvm_gram_matvec_sym_dmma.argtypes = [ptr] * 4 + [i64] * 2 + dmma_tail
+    lib.plssvm_gram_matmat_sym_dmma.argtypes = [ptr] * 4 + [i64] * 3 + dmma_tail
     lib.plssvm_gram_matvec_sym_dmma.restype = cint
     lib.plssvm_gram_matmat_sym_dmma.restype = cint
     # kernels J and K on the dual DMMA tile: (Xr, Xc, sq_r, sq_c, v_c / V_c,
     # v_r / V_r, out_r, out_c, mr, mc, d_pad, [C,] kind, degree, gamma, coef0,
-    # stream)
-    lib.plssvm_gram_matvec_dual_dmma.argtypes = [ptr] * 8 + [i64] * 3 + [cint, cint, f64, f64, ptr]
-    lib.plssvm_gram_matmat_dual_dmma.argtypes = [ptr] * 8 + [i64] * 4 + [cint, cint, f64, f64, ptr]
+    # workspace, workspace_bytes, stream)
+    lib.plssvm_gram_matvec_dual_dmma.argtypes = [ptr] * 8 + [i64] * 3 + dmma_tail
+    lib.plssvm_gram_matmat_dual_dmma.argtypes = [ptr] * 8 + [i64] * 4 + dmma_tail
     lib.plssvm_gram_matvec_dual_dmma.restype = cint
     lib.plssvm_gram_matmat_dual_dmma.restype = cint
     # kernels B and D on the rect DMMA tile: (P, S, sq_p, sq_s, a / A, out,
-    # n_p, n_s, d_pad, [C,] kind, degree, gamma, coef0, stream)
-    lib.plssvm_gram_matvec_rect_dmma.argtypes = [ptr] * 6 + [i64] * 3 + [cint, cint, f64, f64, ptr]
-    lib.plssvm_gram_matmat_rect_dmma.argtypes = [ptr] * 6 + [i64] * 4 + [cint, cint, f64, f64, ptr]
+    # n_p, n_s, d_pad, [C,] kind, degree, gamma, coef0, workspace,
+    # workspace_bytes, stream)
+    lib.plssvm_gram_matvec_rect_dmma.argtypes = [ptr] * 6 + [i64] * 3 + dmma_tail
+    lib.plssvm_gram_matmat_rect_dmma.argtypes = [ptr] * 6 + [i64] * 4 + dmma_tail
     lib.plssvm_gram_matvec_rect_dmma.restype = cint
     lib.plssvm_gram_matmat_rect_dmma.restype = cint
     # (kind, int* blocks): the DMMA tiles' blocks per SM
@@ -352,6 +367,14 @@ def load() -> ctypes.CDLL:
     # (walk: 0 TF32, 1 bf16, 2 float64; kind, int* blocks)
     lib.plssvm_pairs_blocks_per_sm.argtypes = [cint, cint, ptr]
     lib.plssvm_pairs_blocks_per_sm.restype = cint
+    # the fixed-order sums (fixed_sum.cuh): (ws, slots, stride, n, out,
+    # stream), and (reset) -> the launches so far
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"plssvm_fixed_sum_{suffix}")
+        fn.argtypes = [ptr, i64, i64, i64, ptr, ptr]
+        fn.restype = cint
+    lib.plssvm_fixed_sum_launches.argtypes = [cint]
+    lib.plssvm_fixed_sum_launches.restype = i64
     lib.plssvm_cuda_error_string.argtypes = [cint]
     lib.plssvm_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

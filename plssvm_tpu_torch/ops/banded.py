@@ -25,7 +25,7 @@ import torch
 
 from . import _build
 from . import matvec as _plain
-from .gram_matvec import _check_tensors, _raise_on_error, _require_cuda
+from .gram_matvec import _check_tensors, _require_cuda, call_entry
 
 #: kernel launches of banded_matvec
 launches = 0
@@ -56,14 +56,10 @@ def banded_matvec(
     if m == 0:
         return out_r, out_c
     lib = _build.load()
-    fn = getattr(lib, f"plssvm_banded_matvec_{suffix}")
-    with torch.cuda.device(XT.device):
-        err = fn(
-            XT.data_ptr(), v.data_ptr(), out_r.data_ptr(), out_c.data_ptr(),
-            m, d, int(bool(symmetric)), float(gamma),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on_error(lib, err, "banded_matvec")
+    call_entry(lib, getattr(lib, f"plssvm_banded_matvec_{suffix}"), XT.device, (
+        XT.data_ptr(), v.data_ptr(), out_r.data_ptr(), out_c.data_ptr(),
+        m, d, int(bool(symmetric)), float(gamma),
+    ), "banded_matvec")
     global launches
     launches += 1
     return out_r, out_c

@@ -33,7 +33,7 @@ from ..kernel_functions import DISTANCE_KERNELS
 from ..parameter import KernelFunctionType
 from . import _build
 from . import matvec as _plain
-from .gram_matvec import _check_tensors, _raise_on_error, _require_cuda
+from .gram_matvec import _check_tensors, _require_cuda, call_entry
 
 #: kernel launches of kernels E, F, G and H
 matvec_sym_launches = 0
@@ -74,14 +74,10 @@ def _launch(name, tensors, sizes, kind, gamma, *outs):
     return ``outs`` (one tensor, or the dual walks' two)."""
     suffix = "f32" if outs[0].dtype == torch.float32 else "f64"
     lib = _build.load()
-    fn = getattr(lib, f"plssvm_{name}_{suffix}")
-    with torch.cuda.device(outs[0].device):
-        err = fn(
-            *(t.data_ptr() for t in tensors), *(o.data_ptr() for o in outs),
-            *sizes, int(kind), float(gamma),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on_error(lib, err, name)
+    call_entry(lib, getattr(lib, f"plssvm_{name}_{suffix}"), outs[0].device, (
+        *(t.data_ptr() for t in tensors), *(o.data_ptr() for o in outs),
+        *sizes, int(kind), float(gamma),
+    ), name)
     return outs[0] if len(outs) == 1 else outs
 
 
@@ -206,7 +202,8 @@ def distance_matvec_dual(
     block an equal run of strips of the block's row tiles, its chunks of
     features copied asynchronously into a double buffer; row sums kept in
     registers along a run's row tile, column sums reduced by warp shuffles,
-    both added into zeroed outputs by atomics.
+    both stored in slots and added to the zeroed outputs in a fixed order
+    (csrc/fixed_sum.cuh).
     """
     _check_distance_kind(kind)
     if Xr.device.type == "cpu":

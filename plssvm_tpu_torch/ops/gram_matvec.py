@@ -51,13 +51,17 @@ tiles; ``kernel_matvec_launches`` counts kernel A's launches made for
 :func:`kernel_matvec`; ``sym_launches`` and ``rect_launches`` those of
 :func:`gram_ffma` on the FFMA tiles).  The kernels allocate nothing: the
 wrapper allocates the zeroed output and launches on PyTorch's current
-stream.
+stream, and :func:`call_entry` hands each entry point the workspace of its
+fixed-order sums (csrc/fixed_sum.cuh), which it asks for first: the
+kernels sum across blocks in an order fixed by the shapes, so two
+launches on the same inputs give equal bits.
 """
 
 from __future__ import annotations
 
+import ctypes
 import sys
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -116,6 +120,7 @@ def reset_counts() -> None:
     _plain.sym_plain_calls = 0
     _plain.rect_plain_calls = 0
     _plain.dual_plain_calls = 0
+    fixed_sum_launches(reset=True)
 
 
 def _check_gram_kind(kind) -> None:
@@ -173,6 +178,62 @@ def _raise_on_error(lib, err: int, name: str) -> None:
         raise KernelLaunchError(f"{name} launch failed: {message} ({err})")
 
 
+#: per entry point, the most workspace bytes a call asked for (the slots of
+#: its fixed-order sums, csrc/fixed_sum.cuh) since it was last cleared
+workspace_peak: Dict[str, int] = {}
+
+
+def fixed_sum_launches(reset: bool = False) -> int:
+    """The launches of the fixed-order sums' reduction (csrc/fixed_sum.cuh),
+    counted where the library launches it, since the library was loaded or
+    the last reset (0 while it is not loaded); ``reset`` sets the count to 0
+    after reading it.  :func:`reset_counts` resets it."""
+    if _build._lib is None:
+        return 0
+    return int(_build._lib.plssvm_fixed_sum_launches(int(reset)))
+
+
+def fixed_sum(slots: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``out`` plus the sum of ``slots`` (S, ...) over its first axis, the
+    slots added in order from 0, in place on a CUDA ``out``: the reduction
+    of every walk's fixed-order sums (csrc/fixed_sum.cuh), which the entry
+    points launch themselves; here alone, for chip_smoke.py's check and
+    timing.  CPU tensors take ``matvec.fixed_sum_plain``."""
+    if out.device.type == "cpu":
+        return _plain.fixed_sum_plain(slots, out)
+    _require_cuda(out, "fixed_sum")
+    suffix = _check_tensors([("slots", slots[0]), ("out", out)], [tuple(out.shape)] * 2)
+    if not slots.is_contiguous():
+        raise ValueError("slots must be contiguous")
+    lib = _build.load()
+    with torch.cuda.device(out.device):
+        err = getattr(lib, f"plssvm_fixed_sum_{suffix}")(
+            slots.data_ptr(), slots.shape[0], out.numel(), out.numel(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on_error(lib, err, "fixed_sum")
+    return out
+
+
+def call_entry(lib, fn, device, args, name: str) -> None:
+    """Call entry point ``fn(*args, workspace, workspace_bytes, stream)`` on
+    ``device``'s current stream: first without a workspace, which asks for
+    the bytes of its fixed-order sums (csrc/fixed_sum.cuh) and launches
+    nothing, then with that many bytes from PyTorch's caching allocator,
+    released to it (stream-ordered) on return.  Raises on a failed
+    launch."""
+    need = ctypes.c_int64(0)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*args, None, ctypes.byref(need), stream)
+        if err == 0:
+            workspace = torch.empty((max(need.value, 1),), dtype=torch.uint8,
+                                    device=device)
+            err = fn(*args, workspace.data_ptr(), ctypes.byref(need), stream)
+    _raise_on_error(lib, err, name)
+    entry = getattr(fn, "__name__", name)
+    workspace_peak[entry] = max(workspace_peak.get(entry, 0), need.value)
+
+
 def _require_cuda(t: torch.Tensor, name: str) -> None:
     if t.device.type != "cuda":
         raise ValueError(
@@ -214,14 +275,11 @@ def launch_sym_dmma(lib, op, X, sq, V, out, classes, kind, gamma, coef0,
     ``classes`` (C,)) on the DMMA tile on :func:`dmma_operand`'s operand.
     Raises on a failed launch; counts nothing."""
     X_op = dmma_operand(X)
-    fn = getattr(lib, f"plssvm_gram_{op}_sym_dmma")
-    with torch.cuda.device(X.device):
-        err = fn(
-            X_op.data_ptr(), sq.data_ptr(), V.data_ptr(), out.data_ptr(),
-            X.shape[0], X_op.shape[1], *classes, int(kind), int(degree),
-            float(gamma), float(coef0), torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on_error(lib, err, f"gram_{op}_sym (FP64 tensor cores)")
+    call_entry(lib, getattr(lib, f"plssvm_gram_{op}_sym_dmma"), X.device, (
+        X_op.data_ptr(), sq.data_ptr(), V.data_ptr(), out.data_ptr(),
+        X.shape[0], X_op.shape[1], *classes, int(kind), int(degree),
+        float(gamma), float(coef0),
+    ), f"gram_{op}_sym (FP64 tensor cores)")
 
 
 def tier_operand(X: torch.Tensor, precision: str) -> torch.Tensor:
@@ -291,15 +349,12 @@ def gram_ffma(op: str, operands, sq, weights, *, kind: KernelFunctionType,
     outs = tuple(torch.zeros((n,) + classes, dtype=weights[0].dtype, device=weights[0].device)
                  for n in ((rows, cols) if dual else (rows,)))
     lib = _build.load()
-    fn = ffma_entry(lib, op, operands[0].dtype)
-    with torch.cuda.device(operands[0].device):
-        err = fn(
-            *(t.data_ptr() for t in operands), *(t.data_ptr() for t in sq),
-            *(t.data_ptr() for t in weights), *(t.data_ptr() for t in outs),
-            *(t.shape[0] for t in operands), d, *classes, int(kind), int(degree),
-            float(gamma), float(coef0), torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on_error(lib, err, f"gram_{op} (FFMA tile)")
+    call_entry(lib, ffma_entry(lib, op, operands[0].dtype), operands[0].device, (
+        *(t.data_ptr() for t in operands), *(t.data_ptr() for t in sq),
+        *(t.data_ptr() for t in weights), *(t.data_ptr() for t in outs),
+        *(t.shape[0] for t in operands), d, *classes, int(kind), int(degree),
+        float(gamma), float(coef0),
+    ), f"gram_{op} (FFMA tile)")
     module = sys.modules[__name__] if op.startswith("matvec") else gram_matmat
     counter = "dual_launches" if dual else "rect_launches" if two else "sym_launches"
     setattr(module, counter, getattr(module, counter) + 1)
@@ -361,13 +416,11 @@ def launch_sym_tc(lib, op, X, sq, V, out, classes, kind, gamma, coef0, degree,
     norms.  Raises on a failed launch; counts nothing."""
     X_op = _given_operand(operand, X, precision)
     fn = getattr(lib, f"plssvm_gram_{op}_sym_{_TC_TIERS[precision][0]}")
-    with torch.cuda.device(X.device):
-        err = fn(
-            X_op.data_ptr(), sq.data_ptr(), V.data_ptr(), out.data_ptr(), X.shape[0],
-            X_op.shape[-1], *classes, int(kind), int(degree), float(gamma),
-            float(coef0), torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on_error(lib, err, f"gram_{op}_sym (tensor cores, {precision})")
+    call_entry(lib, fn, X.device, (
+        X_op.data_ptr(), sq.data_ptr(), V.data_ptr(), out.data_ptr(), X.shape[0],
+        X_op.shape[-1], *classes, int(kind), int(degree), float(gamma),
+        float(coef0),
+    ), f"gram_{op}_sym (tensor cores, {precision})")
 
 
 def gram_matvec_rect(
@@ -432,14 +485,12 @@ def launch_rect_tc(lib, op, P, S, sq_p, sq_s, weights, out, classes, kind,
     launch; counts nothing."""
     P_op, S_op = tier_operand(P, precision), tier_operand(S, precision)
     fn = getattr(lib, f"plssvm_gram_{op}_rect_tc_{_TC_TIERS[precision][0]}")
-    with torch.cuda.device(P.device):
-        err = fn(
-            P_op.data_ptr(), S_op.data_ptr(), sq_p.data_ptr(), sq_s.data_ptr(),
-            weights.data_ptr(), out.data_ptr(), P.shape[0], S.shape[0],
-            P_op.shape[-1], *classes, int(kind), int(degree), float(gamma),
-            float(coef0), torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on_error(lib, err, f"gram_{op}_rect (tensor cores, {precision})")
+    call_entry(lib, fn, P.device, (
+        P_op.data_ptr(), S_op.data_ptr(), sq_p.data_ptr(), sq_s.data_ptr(),
+        weights.data_ptr(), out.data_ptr(), P.shape[0], S.shape[0],
+        P_op.shape[-1], *classes, int(kind), int(degree), float(gamma),
+        float(coef0),
+    ), f"gram_{op}_rect (tensor cores, {precision})")
 
 
 def launch_rect_dmma(lib, op, P, S, sq_p, sq_s, weights, out, classes, kind,
@@ -448,15 +499,12 @@ def launch_rect_dmma(lib, op, P, S, sq_p, sq_s, weights, out, classes, kind,
     ``classes`` (C,)) on the rect DMMA tile on :func:`dmma_operand`'s
     operands of P and S.  Raises on a failed launch; counts nothing."""
     P_op, S_op = dmma_operand(P), dmma_operand(S)
-    fn = getattr(lib, f"plssvm_gram_{op}_rect_dmma")
-    with torch.cuda.device(P.device):
-        err = fn(
-            P_op.data_ptr(), S_op.data_ptr(), sq_p.data_ptr(), sq_s.data_ptr(),
-            weights.data_ptr(), out.data_ptr(), P.shape[0], S.shape[0],
-            P_op.shape[1], *classes, int(kind), int(degree), float(gamma),
-            float(coef0), torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on_error(lib, err, f"gram_{op}_rect (FP64 tensor cores)")
+    call_entry(lib, getattr(lib, f"plssvm_gram_{op}_rect_dmma"), P.device, (
+        P_op.data_ptr(), S_op.data_ptr(), sq_p.data_ptr(), sq_s.data_ptr(),
+        weights.data_ptr(), out.data_ptr(), P.shape[0], S.shape[0],
+        P_op.shape[1], *classes, int(kind), int(degree), float(gamma),
+        float(coef0),
+    ), f"gram_{op}_rect (FP64 tensor cores)")
 
 
 def kernel_matvec(
@@ -551,15 +599,11 @@ def gram_matvec_dual(
         global dual_tc_launches
         dual_tc_launches += 1
         return out_r, out_c
-    fn = ffma_entry(lib, "matvec_dual", Xr.dtype)
-    with torch.cuda.device(Xr.device):
-        err = fn(
-            Xr.data_ptr(), Xc.data_ptr(), sq_r.data_ptr(), sq_c.data_ptr(),
-            v_c.data_ptr(), v_r.data_ptr(), out_r.data_ptr(), out_c.data_ptr(),
-            mr, mc, d, int(kind), int(degree), float(gamma), float(coef0),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on_error(lib, err, "gram_matvec_dual")
+    call_entry(lib, ffma_entry(lib, "matvec_dual", Xr.dtype), Xr.device, (
+        Xr.data_ptr(), Xc.data_ptr(), sq_r.data_ptr(), sq_c.data_ptr(),
+        v_c.data_ptr(), v_r.data_ptr(), out_r.data_ptr(), out_c.data_ptr(),
+        mr, mc, d, int(kind), int(degree), float(gamma), float(coef0),
+    ), "gram_matvec_dual")
     global dual_launches
     dual_launches += 1
     return out_r, out_c
@@ -576,15 +620,12 @@ def launch_dual_tc(lib, op, Xr, Xc, sq_r, sq_c, w_c, w_r, out_r, out_c, classes,
     Xr_op = _given_operand(given[0], Xr, precision)
     Xc_op = _given_operand(given[1], Xc, precision)
     fn = getattr(lib, f"plssvm_gram_{op}_dual_tc_{_TC_TIERS[precision][0]}")
-    with torch.cuda.device(Xr.device):
-        err = fn(
-            Xr_op.data_ptr(), Xc_op.data_ptr(), sq_r.data_ptr(), sq_c.data_ptr(),
-            w_c.data_ptr(), w_r.data_ptr(), out_r.data_ptr(), out_c.data_ptr(),
-            Xr.shape[0], Xc.shape[0], Xr_op.shape[-1], *classes, int(kind),
-            int(degree), float(gamma), float(coef0),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on_error(lib, err, f"gram_{op}_dual (tensor cores, {precision})")
+    call_entry(lib, fn, Xr.device, (
+        Xr_op.data_ptr(), Xc_op.data_ptr(), sq_r.data_ptr(), sq_c.data_ptr(),
+        w_c.data_ptr(), w_r.data_ptr(), out_r.data_ptr(), out_c.data_ptr(),
+        Xr.shape[0], Xc.shape[0], Xr_op.shape[-1], *classes, int(kind),
+        int(degree), float(gamma), float(coef0),
+    ), f"gram_{op}_dual (tensor cores, {precision})")
 
 
 def launch_dual_dmma(lib, op, Xr, Xc, sq_r, sq_c, w_c, w_r, out_r, out_c, classes,
@@ -593,13 +634,9 @@ def launch_dual_dmma(lib, op, Xr, Xc, sq_r, sq_c, w_c, w_r, out_r, out_c, classe
     ``classes`` (C,)) on the dual DMMA tile on :func:`dmma_operand`'s
     operands of Xr and Xc.  Raises on a failed launch; counts nothing."""
     Xr_op, Xc_op = dmma_operand(Xr), dmma_operand(Xc)
-    fn = getattr(lib, f"plssvm_gram_{op}_dual_dmma")
-    with torch.cuda.device(Xr.device):
-        err = fn(
-            Xr_op.data_ptr(), Xc_op.data_ptr(), sq_r.data_ptr(), sq_c.data_ptr(),
-            w_c.data_ptr(), w_r.data_ptr(), out_r.data_ptr(), out_c.data_ptr(),
-            Xr.shape[0], Xc.shape[0], Xr_op.shape[1], *classes, int(kind),
-            int(degree), float(gamma), float(coef0),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _raise_on_error(lib, err, f"gram_{op}_dual (FP64 tensor cores)")
+    call_entry(lib, getattr(lib, f"plssvm_gram_{op}_dual_dmma"), Xr.device, (
+        Xr_op.data_ptr(), Xc_op.data_ptr(), sq_r.data_ptr(), sq_c.data_ptr(),
+        w_c.data_ptr(), w_r.data_ptr(), out_r.data_ptr(), out_c.data_ptr(),
+        Xr.shape[0], Xc.shape[0], Xr_op.shape[1], *classes, int(kind),
+        int(degree), float(gamma), float(coef0),
+    ), f"gram_{op}_dual (FP64 tensor cores)")

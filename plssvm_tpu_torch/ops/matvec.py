@@ -401,6 +401,16 @@ def distance_matmat_dual_plain(
                              0, row_block)
 
 
+def fixed_sum_plain(slots: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``out + (slots[0] + slots[1] + ... + slots[-1])`` for ``slots`` (S,
+    ...) of ``out``'s shape, the slots added one after another from 0: the
+    order of csrc/fixed_sum.cuh's reduction, so its bits."""
+    total = torch.zeros_like(out)
+    for part in slots:
+        total += part
+    return out + total
+
+
 def banded_matvec_plain(
     XT: torch.Tensor,
     v: torch.Tensor,

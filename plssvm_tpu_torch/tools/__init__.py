@@ -7,7 +7,17 @@ K at "highest" on the tensor cores beside their FFMA tiles, one
 checkout's tiles at a time), ``bench_kernel_matrix`` (kernel N's
 symmetric walk, one checkout at a time) and ``bench_explicit`` (the
 explicit solver's build and product beside the implicit product: the Gram
-crossover of ``solver="automatic"``)."""
+crossover of ``solver="automatic"``); and the counterparts of the JAX
+package's root tools, with their arguments: ``bench_matmat`` (kernel C),
+``bench_distance`` (kernel E), ``bench_solver`` (the explicit against the
+implicit iteration), ``scaling_sweep`` (the row-sharded fit over device
+counts, and over the processes of a job), ``scaling_projection`` (the
+ring's transfers a CG iteration, counted on CPU ranks, and a projection
+over cards), ``performance_analysis`` (tracked fits of one generated data
+set), ``performance_tracker_yaml_parser`` (the tracker's YAML as a table)
+and ``plssvm_target_platforms`` (torch's devices and the settings to
+use).  Each runs on the card unless given ``--cpu`` (the parser, the
+platforms and ``scaling_projection``'s count take no card)."""
 
 from __future__ import annotations
 

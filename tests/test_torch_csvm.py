@@ -279,17 +279,35 @@ class TestNotPorted:
         [["--multihost"], ["--nystroem", "5", "--multihost"], ["--profile", "trace"]],
     )
     def test_cli_rejects(self, flags, tmp_path, capsys):
-        """``--profile`` is refused with its ROADMAP item; ``--multihost``
-        (item 10), also with ``--nystroem``, is ported: a single process
-        trains the file (the ring of processes: tests/test_torch_multiprocess.py)
-        and writes the model the run without ``--multihost`` writes."""
+        """No flag is refused any more: ``--profile DIR`` (ROADMAP item 11)
+        writes a torch.profiler trace of the fit, a Chrome trace JSON with
+        events, and the model the run without it writes, byte for byte
+        below the header's creation-time comment;
+        ``--multihost`` (item 10), also with ``--nystroem``, trains the file
+        in a single process (the ring of processes:
+        tests/test_torch_multiprocess.py) and writes the model the run
+        without ``--multihost`` writes."""
+        import json
+
         train_file = os.path.join(tmp_path, "train.libsvm")
         self._data().save(train_file)
         model = os.path.join(tmp_path, "out.model")
         if "--multihost" not in flags:
-            assert t_train_cli.main(flags + ["-q", train_file, model]) == 1
-            assert "not ported yet (ROADMAP" in capsys.readouterr().err
-            assert not os.path.exists(model)
+            trace_dir = os.path.join(tmp_path, "trace")
+            flags = [trace_dir if f == "trace" else f for f in flags]
+            assert t_train_cli.main(flags + ["-p", "cpu", "-q", train_file, model]) == 0
+            assert "not ported" not in capsys.readouterr().err
+            (trace,) = os.listdir(trace_dir)
+            assert trace.endswith(".pt.trace.json")
+            with open(os.path.join(trace_dir, trace), encoding="utf-8") as f:
+                events = json.load(f)["traceEvents"]
+            assert any(e.get("ph") == "X" for e in events)
+            alone = os.path.join(tmp_path, "alone.model")
+            assert t_train_cli.main(["-p", "cpu", "-q", train_file, alone]) == 0
+            with open(model, "rb") as a, open(alone, "rb") as b:
+                assert a.readline().startswith(b"# This model file has been created at")
+                b.readline()
+                assert a.read() == b.read()
             return
         assert t_train_cli.main(flags + ["-p", "cpu", "-q", train_file, model]) == 0
         alone = os.path.join(tmp_path, "alone.model")

@@ -14,7 +14,7 @@ neither jax nor plssvm_tpu, so they run where only PyTorch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances, relative to max|plain|: float32 1e-4, float64 1e-10 (the
-kernels sum in another order than cuBLAS, with atomics).  The tensor-core
+kernels sum in another order than cuBLAS, in slots across blocks).  The tensor-core
 tiles' "f32" tier is held at 1e-4 against the plain version on the same
 TF32-rounded operands (``round_to_tf32``), their "bf16" tier against the
 plain version at "bf16", their "highest" tier against the full-float32
@@ -174,7 +174,7 @@ def test_matmat_kernels_against_plain(cuda_device, name, dtype, tol, n_classes, 
 @pytest.mark.cuda
 def test_matmat_one_class_equals_matvec(cuda_device):
     """With C = 1, kernel C is kernel A's walk: the same values up to the
-    atomics' summation order."""
+    summation order."""
     g = torch.Generator().manual_seed(41)
     X = torch.randn(777, 64, generator=g, dtype=torch.float64).to(cuda_device)
     v = torch.randn(777, generator=g, dtype=torch.float64).to(cuda_device)
@@ -309,8 +309,8 @@ def test_chi_squared_per_entry(cuda_device, case, d, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["laplacian", "chi_squared"])
 def test_distance_matmat_one_class_equals_matvec(cuda_device, name):
-    """With C = 1, kernel G gives kernel E's values up to the atomics'
-    summation order."""
+    """With C = 1, kernel G gives kernel E's values up to the summation
+    order."""
     g = torch.Generator().manual_seed(43)
     X = _histograms(777, 64, g, torch.float64, cuda_device)
     v = torch.randn(777, generator=g, dtype=torch.float64).to(cuda_device)
@@ -386,7 +386,7 @@ def test_kernel_matvec_is_kernel_a(cuda_device, precision, dtype):
     """K6's port is one launch of kernel A at the same tier: every tier the
     tensor-core tile in float32 ("highest" in three TF32 passes), the DMMA
     tile in float64; bit for bit on one tile (m <= 64: each row sum one
-    atomic, so no summation order to vary), within the atomics' rounding on
+    slot, so no summation order to vary), within the sums' rounding on
     many."""
     g = torch.Generator().manual_seed(45)
     kw = dict(kind=TKind.RBF, gamma=1.0 / 37, coef0=0.0, degree=3)
@@ -607,7 +607,7 @@ def test_rect_runs_against_tier_oracle(cuda_device, n_classes, tier):
     """Kernels B and D over 17 x 133 tiles (2100 points, 17000 SVs): on a
     132-SM H100 the tile walks runs of 2 column tiles and a last run of 1,
     and the row tiles make a full group of 16 and a group of one; classes
-    past the 16 whose row sums a run keeps take direct atomics.  Against
+    past the 16 whose row sums a run keeps add to their slot per tile.  Against
     the tier oracle at 1e-4 of max|oracle|."""
     P, S, sq_p, sq_s, A = _rect_operands(2100, 17000, 37, n_classes, 53, cuda_device)
     kw = dict(kind=TKind.RBF, gamma=1.0 / 37, coef0=0.0, degree=3)
@@ -694,7 +694,7 @@ def test_solve_and_predict_take_the_tier_kernels(cuda_device, tier, n_labels):
 # -- the split tier ("highest") and the one-pass tiers' bits ------------------
 
 #: one-block tiles of the sym tile (m <= 128: one diagonal tile, each row
-#: and class one atomic into zeros) and of the rect tile (n_p, n_s <= 128:
+#: and class one slot added to zeros) and of the rect tile (n_p, n_s <= 128:
 #: one tile, one run): shapes whose outputs are the kernel's bits, with no
 #: summation order between blocks; (m, d, classes), d over several boxes
 ONE_BLOCK_SHAPES = [(128, 203, None), (100, 37, 3), (77, 512, 10)]
@@ -781,7 +781,7 @@ def test_one_pass_tiers_give_the_bits_they_gave_before(cuda_device):
     assert first == ONE_PASS_DIGESTS
 
 
-#: one-block dual tiles (mr, mc <= 128: one atomic per output entry and
+#: one-block dual tiles (mr, mc <= 128: one slot per output entry and
 #: class, so the bits are the kernel's own): (mr, mc, d, classes)
 DUAL_ONE_BLOCK_SHAPES = [(128, 100, 203, None), (100, 77, 37, 3), (77, 128, 512, 10)]
 #: the first 16 hex digits of the sha256 of kernel J's / K's two outputs on
@@ -1193,7 +1193,7 @@ def test_split_dual_tile_on_the_ring_operands_made_once(cuda_device):
 def test_ring_operands_made_once_give_the_per_call_bits(cuda_device, precision):
     """The ring with its shards' operand copies made once
     (``sharded.shard_operands``) gives the ring's bits with copies made per
-    call, on blocks of one tile each (no atomics to reorder): the same
+    call, on blocks of one tile each: the same
     copies, only made earlier."""
     from plssvm_tpu_torch.parallel import sharded
 
@@ -1729,3 +1729,176 @@ def test_multihost_gloo_ranks_on_one_card(cuda_device, tmp_path, dtype, need, ti
         assert task["launches"] == {f"gram_matmat.sym_{tiles}_launches": products,
                                     f"gram_matmat.rect_{tiles}_launches": products}
         assert task["predict_launches"] == {f"gram_matmat.rect_{tiles}_launches": 1}
+
+
+# -- fixed-order sums: the same call twice gives equal bits ----------------
+
+#: (m, d, classes): odd m over several tiles of every walk, C = 1 as a
+#: matvec (None) and as a one-class matmat, and 10 classes
+DETERMINISM_SHAPES = [(1037, 203, None), (1037, 203, 1), (2053, 37, 10)]
+#: the tiers of float32 at which each Gram walk runs, and float64
+GRAM_TIERS = [(torch.float32, "f32"), (torch.float32, "bf16"),
+              (torch.float32, "highest"), (torch.float64, "f32")]
+
+
+def _determinism_case(walk, dtype, tier, m, d, classes, device):
+    """A zero-argument call of the walk's wrapper on seeded operands."""
+    g = torch.Generator().manual_seed(m * 31 + d)
+
+    def normal(*shape, positive=False):
+        t = torch.randn(*shape, generator=g, dtype=torch.float64)
+        return (t.abs() if positive else t).to(device, dtype)
+
+    tail = () if classes is None else (classes,)
+    module = gram_matvec if classes is None else gram_matmat
+    op = "matvec" if classes is None else "matmat"
+    kw = dict(kind=TKind.RBF, gamma=1.0 / d, coef0=0.0, degree=3)
+    X = normal(m, d) * 0.3
+    P = normal(m // 2 + 1, d) * 0.3
+    sq, sq_p = (X * X).sum(-1), (P * P).sum(-1)
+    V = normal(m, *tail)
+    if walk == "sym":
+        return lambda: getattr(module, f"gram_{op}_sym")(X, sq, V, precision=tier, **kw)
+    if walk == "rect":
+        return lambda: getattr(module, f"gram_{op}_rect")(P, X, sq_p, sq, V, precision=tier,
+                                                         **kw)
+    if walk == "dual":
+        V_r = normal(P.shape[0], *tail)
+        return lambda: getattr(module, f"gram_{op}_dual")(P, X, sq_p, sq, V, V_r,
+                                                          precision=tier, **kw)
+    if walk == "ffma":
+        name = {"sym": "sym", "rect": "rect"}.get(tier)
+        if name is None:  # K's FFMA tile
+            V_r = normal(P.shape[0], *tail)
+            return lambda: gram_matvec.gram_ffma("matmat_dual", (P, X), (sq_p, sq),
+                                                 (V, V_r), **kw)
+        operands, norms = ((X,), (sq,)) if name == "sym" else ((P, X), (sq_p, sq))
+        return lambda: gram_matvec.gram_ffma(f"{op}_{name}", operands, norms, V, **kw)
+    # the distance walks: E-H, L and M, and kernel I
+    kind = TKind.LAPLACIAN if tier == "laplacian" else TKind.CHI_SQUARED
+    X, P = normal(m, d, positive=True) / d, normal(m // 2 + 1, d, positive=True) / d
+    kd = dict(kind=kind, gamma=1.0 if kind == TKind.CHI_SQUARED else 1.0 / d)
+    if walk == "distance sym":
+        return lambda: getattr(distance, f"distance_{op}_sym")(X, V, **kd)
+    if walk == "distance rect":
+        return lambda: getattr(distance, f"distance_{op}_rect")(P, X, V, **kd)
+    if walk == "distance dual":
+        V_r = normal(P.shape[0], *tail)
+        return lambda: getattr(distance, f"distance_{op}_dual")(P, X, V, V_r, **kd)
+    XT = X.T.contiguous()
+    v = normal(m)
+    return lambda: banded.banded_matvec(XT, v, 1.0 / d, symmetric=walk == "banded sym")
+
+
+def _determinism_cases():
+    cases = []
+    for walk in ("sym", "rect", "dual"):
+        for dtype, tier in GRAM_TIERS:
+            for shape in DETERMINISM_SHAPES:
+                cases.append((walk, dtype, tier) + shape)
+    for tier in ("sym", "rect", "dual"):
+        for shape in DETERMINISM_SHAPES:
+            if tier != "dual" or shape[2] is not None:
+                cases.append(("ffma", torch.float32, tier) + shape)
+    for walk in ("distance sym", "distance rect", "distance dual"):
+        for dtype in (torch.float32, torch.float64):
+            for tier in ("laplacian", "chi_squared"):
+                for shape in DETERMINISM_SHAPES:
+                    cases.append((walk, dtype, tier) + shape)
+    for walk in ("banded sym", "banded rect"):
+        for dtype in (torch.float32, torch.float64):
+            cases.append((walk, dtype, "laplacian", 1037, 203, None))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk,dtype,tier,m,d,classes", _determinism_cases())
+def test_the_same_call_twice_gives_equal_bits(cuda_device, walk, dtype, tier, m, d, classes):
+    """Every walk whose blocks share output entries sums them in an order
+    fixed by the shapes (csrc/fixed_sum.cuh): two calls on the same inputs
+    give the same bits, in both types, at every tier, symmetric,
+    rectangular and dual, one class and ten, odd m."""
+    call = _determinism_case(walk, dtype, tier, m, d, classes, cuda_device)
+    first, second = call(), call()
+    first = first if isinstance(first, tuple) else (first,)
+    second = second if isinstance(second, tuple) else (second,)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", ["sym", "distance sym"])
+def test_the_passes_of_a_large_walk_give_the_product(cuda_device, walk):
+    """A symmetric walk whose slots pass the workspace budget runs in
+    passes over its column tiles (MNIST's width, ten classes: 469 column
+    tiles of 128 rows, over 1 GiB of float32 slots in one pass): the
+    product is the plain version's, twice the same bits, and the workspace
+    it asked for stays within 1 GiB."""
+    m, d, C = 60000, 784 if walk == "sym" else 64, 10
+    g = torch.Generator().manual_seed(81)
+    X = (torch.randn(m, d, generator=g) * 0.05).to(cuda_device)
+    V = torch.randn(m, C, generator=g).to(cuda_device)
+    gram_matvec.workspace_peak.clear()
+    if walk == "sym":
+        sq = (X * X).sum(-1)
+        kw = dict(kind=TKind.RBF, gamma=1.0 / d, coef0=0.0, degree=3, precision="highest")
+        call = lambda: gram_matmat.gram_matmat_sym(X, sq, V, **kw)  # noqa: E731
+        want = matvec.kernel_matmat_plain(X, sq, V, **kw)
+    else:
+        X = X.abs()
+        kw = dict(kind=TKind.LAPLACIAN, gamma=1.0 / d)
+        call = lambda: distance.distance_matmat_sym(X, V, **kw)  # noqa: E731
+        want = matvec.distance_matmat_plain(X, V, **kw)
+    got = call()
+    assert torch.equal(got, call())
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    peak = max(gram_matvec.workspace_peak.values())
+    assert 256 << 20 < peak <= 1 << 30
+
+
+def _config2(device, dtype=torch.float32):
+    import numpy as np
+
+    rng = np.random.default_rng(12)
+    n, d = 10000, 200
+    labels = rng.integers(0, 2, n)
+    X = rng.normal(size=(n, d)) + np.where(labels[:, None] == 1, 0.1, -0.1)
+    return X, labels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_two_fits_of_config2_give_equal_alphas(cuda_device, dtype):
+    """BASELINE config 2 (RBF, 10000 x 200) fitted twice on the card: the
+    same iterations and the same alphas, bit for bit."""
+    import numpy as np
+
+    import plssvm_tpu_torch
+
+    X, labels = _config2(cuda_device)
+    fits = [plssvm_tpu_torch.CSVM(backend="cuda", device="cuda", dtype=getattr(np, dtype),
+                                  kernel_type="rbf", solver="cg_implicit").fit(
+        plssvm_tpu_torch.DataSet(X, labels), epsilon=1e-8) for _ in range(2)]
+    assert fits[0].n_iter == fits[1].n_iter
+    assert np.array_equal(np.asarray(fits[0].alpha), np.asarray(fits[1].alpha))
+    assert np.array_equal(np.asarray(fits[0].rho), np.asarray(fits[1].rho))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["rbf", "laplacian"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_the_ring_fit_run_twice_gives_equal_alphas(cuda_device, kernel, dtype):
+    """The row-sharded ring on four shards of cuda:0 (A / E, J / L, the
+    rows-only B / F), fitted twice: equal iterations and alphas."""
+    import numpy as np
+
+    import plssvm_tpu_torch
+
+    X, labels = _config2(cuda_device)
+    X, labels = np.abs(X[:4001]), labels[:4001]
+    fits = [plssvm_tpu_torch.CSVM(backend="cuda", devices=["cuda:0"] * 4,
+                                  dtype=getattr(np, dtype), kernel_type=kernel,
+                                  solver="cg_implicit").fit(
+        plssvm_tpu_torch.DataSet(X, labels), epsilon=1e-8) for _ in range(2)]
+    assert fits[0].n_iter == fits[1].n_iter
+    assert np.array_equal(np.asarray(fits[0].alpha), np.asarray(fits[1].alpha))

@@ -538,8 +538,8 @@ def test_float64_fit_takes_the_dmma_tile(cuda_device, n_labels):
     iterations + every 50th) and none on the FFMA sym tile; its predict
     goes through the rect DMMA tile, none through the FFMA rect tile; and
     its model and decision values
-    agree with ``backend="torch"`` on the card within 1e-6 (the atomics
-    reorder sums and CG amplifies the rounding, as chip_smoke.py's
+    agree with ``backend="torch"`` on the card within 1e-6 (the kernels
+    sum in other orders and CG amplifies the rounding, as chip_smoke.py's
     small-fit check allows)."""
     import plssvm_tpu_torch as port
 

@@ -32,6 +32,13 @@ import plssvm_tpu_torch.ops.kernel_matrix, plssvm_tpu_torch.solver.explicit
 import plssvm_tpu_torch.tools.bench_explicit
 import plssvm_tpu_torch.tools.exp_banded_distance
 import plssvm_tpu_torch.tools.bench_matvec
+import plssvm_tpu_torch.tools.bench_matmat, plssvm_tpu_torch.tools.bench_distance
+import plssvm_tpu_torch.tools.bench_solver, plssvm_tpu_torch.tools.scaling_sweep
+import plssvm_tpu_torch.tools.scaling_projection
+import plssvm_tpu_torch.tools.performance_analysis
+import plssvm_tpu_torch.tools.performance_tracker_yaml_parser
+import plssvm_tpu_torch.tools.plssvm_target_platforms
+import plssvm_tpu_torch.tools.bench_fixed_sum
 import plssvm_tpu_torch.sparse, plssvm_tpu_torch.sklearn
 from plssvm_tpu_torch.ops import _build
 from plssvm_tpu_torch.native import loader
@@ -96,7 +103,11 @@ def test_cli_help(cli):
 
 
 @pytest.mark.parametrize("tool", ["exp_banded_distance", "bench_matvec",
-                                  "multihost_rehearsal"])
+                                  "multihost_rehearsal", "bench_matmat", "bench_distance",
+                                  "bench_solver", "scaling_sweep", "scaling_projection",
+                                  "performance_analysis",
+                                  "performance_tracker_yaml_parser",
+                                  "plssvm_target_platforms", "bench_fixed_sum"])
 def test_tool_help(tool):
     proc = _run("-m", f"plssvm_tpu_torch.tools.{tool}", "--help")
     assert proc.returncode == 0, proc.stderr

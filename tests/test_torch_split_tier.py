@@ -526,7 +526,7 @@ def test_the_split_dual_entry_is_declared_as_its_tf32_twin(monkeypatch):
     monkeypatch.setattr(ctypes, "CDLL", lambda path: FakeLibrary())
     lib = _build.load()
     split, twin = lib.plssvm_gram_matmat_dual_tc_tf32x3, lib.plssvm_gram_matmat_dual_tc_tf32
-    assert split.argtypes == twin.argtypes and len(split.argtypes) == 17
+    assert split.argtypes == twin.argtypes and len(split.argtypes) == 19
     assert split.restype is twin.restype is ctypes.c_int
 
 
